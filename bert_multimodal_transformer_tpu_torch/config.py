@@ -1,0 +1,139 @@
+"""Typed configuration, with torch dtypes.
+
+Port of ``bert_multimodal_transformer_tpu/config.py`` (dataset presets, the
+MAG hyperparameters and the BERT encoder config). Options whose port has
+not landed yet raise ``NotImplementedError`` naming their ROADMAP item
+instead of being silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+    """Modality dimensions and identity of one dataset (MOSI: acoustic 74,
+    visual 47, text 768; MOSEI: visual 35)."""
+
+    name: str
+    acoustic_dim: int
+    visual_dim: int
+    text_dim: int = 768
+    # Split sizes (train, dev, test); informational only.
+    split_sizes: Tuple[int, int, int] = (0, 0, 0)
+
+    @staticmethod
+    def mosi() -> "DatasetConfig":
+        return DatasetConfig(
+            name="mosi", acoustic_dim=74, visual_dim=47, text_dim=768,
+            split_sizes=(1281, 229, 685),
+        )
+
+    @staticmethod
+    def mosei() -> "DatasetConfig":
+        return DatasetConfig(
+            name="mosei", acoustic_dim=74, visual_dim=35, text_dim=768,
+            split_sizes=(16265, 1869, 4643),
+        )
+
+    @staticmethod
+    def from_name(name: str) -> "DatasetConfig":
+        presets = {"mosi": DatasetConfig.mosi, "mosei": DatasetConfig.mosei}
+        if name not in presets:
+            raise ValueError(
+                f"Unknown dataset {name!r}; expected one of {sorted(presets)}"
+            )
+        return presets[name]()
+
+
+@dataclasses.dataclass(frozen=True)
+class MultimodalConfig:
+    """MAG gate hyperparameters."""
+
+    beta_shift: float = 1.0
+    dropout_prob: float = 0.5
+    # Encoder layer the gate is injected before: 0 for BERT (the embedding
+    # output), 1 for XLNet.
+    injection_index: int = 0
+    # The fused MAG kernel is not ported yet (ROADMAP B.2).
+    use_fused_kernel: bool = False
+
+    def __post_init__(self):
+        if self.use_fused_kernel:
+            raise NotImplementedError(
+                "use_fused_kernel: the fused MAG gate kernel is not ported "
+                "yet (ROADMAP B.2)")
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """BERT encoder hyperparameters (HF transformers==3.0.2 defaults for
+    bert-base-uncased)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12
+    num_labels: int = 1
+    # "einsum" (plain PyTorch attention, exact HF semantics) or "fused"
+    # (the hand-written packed attention kernel, ops/fused_attention.py).
+    # "flash" waits for ROADMAP A.3.
+    attention_impl: str = "einsum"
+    # Not ported yet; setting either raises (see __post_init__).
+    qkv_fusion: bool = False
+    tp_attention_mesh: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.attention_impl == "flash":
+            raise NotImplementedError(
+                "attention_impl='flash' is not ported yet (ROADMAP A.3)")
+        if self.attention_impl not in ("einsum", "fused"):
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r} "
+                "(einsum | fused)")
+        if self.qkv_fusion:
+            raise NotImplementedError(
+                "qkv_fusion: the QKV-projection attention kernel is not "
+                "ported yet (ROADMAP B.10)")
+        if self.tp_attention_mesh is not None:
+            raise NotImplementedError(
+                "tp_attention_mesh: tensor-parallel attention is not ported "
+                "yet (ROADMAP A.10, B.9)")
+
+    @staticmethod
+    def bert_base_uncased() -> "BertConfig":
+        return BertConfig()
+
+    @staticmethod
+    def bert_large_uncased() -> "BertConfig":
+        return BertConfig(
+            hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+            intermediate_size=4096,
+        )
+
+    @staticmethod
+    def tiny(vocab_size: int = 128) -> "BertConfig":
+        """Small config for tests."""
+        return BertConfig(
+            vocab_size=vocab_size, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=2, intermediate_size=64,
+            max_position_embeddings=64,
+        )
+
+
+def dtype_from_str(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]

@@ -1,0 +1,412 @@
+"""MAG-BERT: BERT encoder with the Multimodal Adaptation Gate (port of
+``models/bert.py``, serving forward).
+
+As in the JAX package, the QKV projection is one packed [D, 3D] product per
+layer, whose output the attention kernel reads unchanged; params are fp32
+and compute runs in ``dtype`` with the JAX package's rounding points:
+
+* a dense layer casts input and weight to ``dtype`` and adds the bias in
+  ``dtype`` after the product (Flax ``Dense(dtype=...)``);
+* the embedding sum is fp32, then cast;
+* LayerNorm computes in fp32 and casts back;
+* the MAG gate runs in fp32 on modality features cast to ``dtype``;
+* logits are returned in fp32.
+
+The large products (QKV, output, FFN, pooler, classifier) are plain
+``torch.nn.functional.linear``. Attention is ``ops/attention.py`` under
+``attention_impl="einsum"`` and the CUDA kernel behind
+``ops/fused_attention.py`` under ``"fused"``; ``head_mask`` and
+``output_attentions`` take the einsum branch, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from bert_multimodal_transformer_tpu_torch.config import (
+    BertConfig,
+    MultimodalConfig,
+)
+from bert_multimodal_transformer_tpu_torch.models.mag import (
+    MAG,
+    require_deterministic,
+)
+from bert_multimodal_transformer_tpu_torch.ops.activations import ACT2FN
+from bert_multimodal_transformer_tpu_torch.ops.attention import (
+    dot_product_attention,
+    extended_attention_mask,
+)
+from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
+    fused_attention_packed,
+)
+
+
+def _uninitialized(module_cls, *args, device) -> nn.Module:
+    # Weights are set by init_weights from an explicit generator.
+    return nn.utils.skip_init(module_cls, *args,
+                              device=device if device is not None else "cpu")
+
+
+def _linear(in_features: int, out_features: int, device) -> nn.Linear:
+    return _uninitialized(nn.Linear, in_features, out_features, device=device)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """Flax ``Dense(dtype=...)`` rounding: the product in ``dtype``, then
+    the bias added in ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 and cast back to the input dtype; eps
+    1e-12 as HF BertLayerNorm."""
+
+    def __init__(self, dim: int, eps: float = 1e-12, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
+
+
+class BertEmbeddings(nn.Module):
+    """word + learned-position + token-type embeddings → LayerNorm."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 *, device=None):
+        super().__init__()
+        self.dtype = dtype
+        d = config.hidden_size
+        self.word_embeddings = _uninitialized(
+            nn.Embedding, config.vocab_size, d, device=device)
+        self.position_embeddings = _uninitialized(
+            nn.Embedding, config.max_position_embeddings, d, device=device)
+        self.token_type_embeddings = _uninitialized(
+            nn.Embedding, config.type_vocab_size, d, device=device)
+        self.LayerNorm = LayerNorm(d, config.layer_norm_eps, device=device)
+
+    def forward(self, input_ids: Optional[torch.Tensor],
+                token_type_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                *, deterministic: bool = True) -> torch.Tensor:
+        require_deterministic(deterministic)
+        if inputs_embeds is None:
+            seq_len = input_ids.shape[-1]
+            word = F.embedding(input_ids, self.word_embeddings.weight)
+        else:
+            seq_len = inputs_embeds.shape[-2]
+            word = inputs_embeds
+        if position_ids is None:
+            position_ids = torch.arange(seq_len, device=word.device)[None, :]
+        x = (word
+             + F.embedding(position_ids, self.position_embeddings.weight)
+             + F.embedding(token_type_ids, self.token_type_embeddings.weight)
+             ).to(self.dtype)
+        return self.LayerNorm(x)
+
+
+class BertSelfAttention(nn.Module):
+    """Multi-head self-attention with packed QKV, output projection and the
+    post-LN residual (HF BertAttention math)."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 *, device=None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        d = config.hidden_size
+        self.qkv = _linear(d, 3 * d, device)
+        self.output_dense = _linear(d, d, device)
+        self.output_LayerNorm = LayerNorm(d, config.layer_norm_eps,
+                                          device=device)
+
+    def forward(self, hidden: torch.Tensor,
+                attn_bias: Optional[torch.Tensor],
+                head_mask: Optional[torch.Tensor] = None,
+                attention_mask_2d: Optional[torch.Tensor] = None,
+                *, deterministic: bool = True,
+                output_attentions: bool = False):
+        require_deterministic(deterministic)
+        cfg = self.config
+        d = cfg.hidden_size
+        h = cfg.num_attention_heads
+        dh = d // h
+        b, s, _ = hidden.shape
+        scale = 1.0 / (dh ** 0.5)
+        qkv = dense(self.qkv, hidden, self.dtype)
+        probs = None
+        if (cfg.attention_impl == "fused" and head_mask is None
+                and not output_attentions):
+            ctx = fused_attention_packed(qkv, attention_mask_2d, n_heads=h,
+                                         scale=scale)
+        else:
+            q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+            ctx = dot_product_attention(q, k, v, attn_bias, scale=scale,
+                                        head_mask=head_mask,
+                                        return_probs=output_attentions)
+            if output_attentions:
+                ctx, probs = ctx
+            ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
+        out = dense(self.output_dense, ctx, self.dtype)
+        out = self.output_LayerNorm(out + hidden)
+        if output_attentions:
+            return out, probs
+        return out
+
+
+class BertLayer(nn.Module):
+    """Self-attention block + GELU FFN block with post-LN residuals."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 *, device=None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.attention = BertSelfAttention(config, dtype, device=device)
+        self.intermediate_dense = _linear(config.hidden_size,
+                                          config.intermediate_size, device)
+        self.output_dense = _linear(config.intermediate_size,
+                                    config.hidden_size, device)
+        self.output_LayerNorm = LayerNorm(config.hidden_size,
+                                          config.layer_norm_eps,
+                                          device=device)
+
+    def forward(self, hidden: torch.Tensor,
+                attn_bias: Optional[torch.Tensor],
+                head_mask: Optional[torch.Tensor] = None,
+                attention_mask_2d: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                output_attentions: bool = False):
+        attn_out = self.attention(hidden, attn_bias, head_mask,
+                                  attention_mask_2d,
+                                  deterministic=deterministic,
+                                  output_attentions=output_attentions)
+        probs = None
+        if output_attentions:
+            attn_out, probs = attn_out
+        x = dense(self.intermediate_dense, attn_out, self.dtype)
+        x = ACT2FN[self.config.hidden_act](x)
+        x = dense(self.output_dense, x, self.dtype)
+        x = self.output_LayerNorm(x + attn_out)
+        if output_attentions:
+            return x, probs
+        return x
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 *, device=None):
+        super().__init__()
+        self.config = config
+        self.layer = nn.ModuleList(
+            BertLayer(config, dtype, device=device)
+            for _ in range(config.num_hidden_layers))
+
+    def forward(self, hidden: torch.Tensor,
+                attn_bias: Optional[torch.Tensor],
+                head_mask: Optional[torch.Tensor] = None,
+                attention_mask_2d: Optional[torch.Tensor] = None,
+                *, deterministic: bool = True,
+                output_hidden_states: bool = False,
+                output_attentions: bool = False):
+        all_hidden = [] if output_hidden_states else None
+        all_attn = [] if output_attentions else None
+        for i, layer in enumerate(self.layer):
+            if output_hidden_states:
+                # per-layer INPUT states + the final output (HF semantics)
+                all_hidden.append(hidden)
+            # head_mask: [L, H] per-layer rows or [H] shared
+            hm = None
+            if head_mask is not None:
+                hm = head_mask[i] if head_mask.dim() == 2 else head_mask
+            out = layer(hidden, attn_bias, hm, attention_mask_2d,
+                        deterministic, output_attentions)
+            if output_attentions:
+                hidden, probs = out
+                all_attn.append(probs)
+            else:
+                hidden = out
+        if output_hidden_states:
+            all_hidden.append(hidden)
+        if output_hidden_states or output_attentions:
+            return (hidden,
+                    tuple(all_hidden) if output_hidden_states else None,
+                    tuple(all_attn) if output_attentions else None)
+        return hidden
+
+
+class BertPooler(nn.Module):
+    """tanh(Linear(hidden[:, 0]))."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
+                 *, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.dense = _linear(config.hidden_size, config.hidden_size, device)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(dense(self.dense, hidden[:, 0], self.dtype))
+
+
+def init_weights(module: nn.Module, initializer_range: float,
+                 generator: torch.Generator) -> None:
+    """Normal(0, initializer_range) dense kernels and embeddings, zero
+    biases, unit LayerNorms, torch-default MAG; drawn in module order from
+    ``generator``, which must live on the params' device."""
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, nn.Linear):
+                sub.weight.normal_(0.0, initializer_range,
+                                   generator=generator)
+                sub.bias.zero_()
+            elif isinstance(sub, nn.Embedding):
+                sub.weight.normal_(0.0, initializer_range,
+                                   generator=generator)
+            elif isinstance(sub, LayerNorm):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
+
+
+class MagBertModel(nn.Module):
+    """BERT backbone with early-fusion MAG: embeddings → MAG(emb, visual,
+    acoustic) → encoder → pooler."""
+
+    def __init__(self, config: BertConfig,
+                 multimodal_config: MultimodalConfig, visual_dim: int,
+                 acoustic_dim: int, dtype: torch.dtype = torch.float32,
+                 *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        mm = multimodal_config
+        self.embeddings = BertEmbeddings(config, dtype, device=device)
+        self.MAG = MAG(config.hidden_size, visual_dim, acoustic_dim,
+                       beta_shift=mm.beta_shift,
+                       dropout_prob=mm.dropout_prob, device=device,
+                       generator=generator)
+        self.encoder = BertEncoder(config, dtype, device=device)
+        self.pooler = BertPooler(config, dtype, device=device)
+        init_weights(self, config.initializer_range, generator)
+
+    def forward(
+        self,
+        input_ids: Optional[torch.Tensor],
+        visual: torch.Tensor,
+        acoustic: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        token_type_ids: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        head_mask: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
+        *,
+        deterministic: bool = True,
+        output_hidden_states: bool = False,
+        output_attentions: bool = False,
+    ):
+        require_deterministic(deterministic)
+        if (input_ids is None) == (inputs_embeds is None):
+            raise ValueError(
+                "specify exactly one of input_ids or inputs_embeds")
+        ref = input_ids if input_ids is not None else inputs_embeds
+        input_shape = (input_ids.shape if input_ids is not None
+                       else inputs_embeds.shape[:-1])
+        if attention_mask is None:
+            attention_mask = torch.ones(input_shape, dtype=torch.int32,
+                                        device=ref.device)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros(input_shape, dtype=torch.int32,
+                                         device=ref.device)
+        # Both attention branches read the mask as fp32; cast it once.
+        mask_f32 = attention_mask.to(torch.float32)
+        attn_bias = extended_attention_mask(mask_f32)
+
+        emb = self.embeddings(input_ids, token_type_ids, position_ids,
+                              inputs_embeds=inputs_embeds)
+        fused = self.MAG(emb, visual.to(self.dtype), acoustic.to(self.dtype))
+        enc_out = self.encoder(fused, attn_bias, head_mask, mask_f32,
+                               output_hidden_states=output_hidden_states,
+                               output_attentions=output_attentions)
+        if output_hidden_states or output_attentions:
+            seq_out, all_hidden, all_attn = enc_out
+        else:
+            seq_out, all_hidden, all_attn = enc_out, None, None
+        pooled = self.pooler(seq_out)
+        outputs = (seq_out, pooled)
+        if output_hidden_states:
+            outputs = outputs + (all_hidden,)
+        if output_attentions:
+            outputs = outputs + (all_attn,)
+        return outputs
+
+
+class MagBertForSequenceClassification(nn.Module):
+    """Pooled-output classifier head over MagBertModel."""
+
+    def __init__(self, config: BertConfig,
+                 multimodal_config: MultimodalConfig, visual_dim: int,
+                 acoustic_dim: int, dtype: torch.dtype = torch.float32,
+                 *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.bert = MagBertModel(config, multimodal_config, visual_dim,
+                                 acoustic_dim, dtype, device=device,
+                                 generator=generator)
+        self.classifier = _linear(config.hidden_size, config.num_labels,
+                                  device)
+        init_weights(self.classifier, config.initializer_range, generator)
+
+    def forward(
+        self,
+        input_ids: Optional[torch.Tensor],
+        visual: torch.Tensor,
+        acoustic: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        token_type_ids: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        head_mask: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
+        *,
+        deterministic: bool = True,
+        output_hidden_states: bool = False,
+        output_attentions: bool = False,
+    ):
+        require_deterministic(deterministic)
+        bert_out = self.bert(
+            input_ids, visual, acoustic, attention_mask, token_type_ids,
+            position_ids, head_mask, inputs_embeds,
+            output_hidden_states=output_hidden_states,
+            output_attentions=output_attentions)
+        pooled = bert_out[1]
+        extras = bert_out[2:]  # hidden_states/attentions when requested
+        logits = dense(self.classifier, pooled, self.dtype).float()
+        if labels is not None:
+            from bert_multimodal_transformer_tpu_torch.training.losses import (
+                sequence_classification_loss,
+            )
+
+            loss = sequence_classification_loss(logits, labels,
+                                                self.config.num_labels)
+            return (loss, logits) + extras
+        if extras:
+            return (logits,) + extras
+        return logits

@@ -1,0 +1,57 @@
+"""MAG as an ``nn.Module`` (port of ``models/mag.py``).
+
+The params keep the JAX package's names and ``x @ W`` ([in, out]) layout,
+so ``ops.mag.mag_gate`` takes the module's params as they are and
+``utils/convert.params_from_flax`` passes them through unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from bert_multimodal_transformer_tpu_torch.ops import mag as mag_ops
+
+
+def require_deterministic(deterministic: bool) -> None:
+    """Training-mode forward (dropout) is not ported yet."""
+    if not deterministic:
+        raise NotImplementedError(
+            "deterministic=False (dropout) belongs to the training slice "
+            "(ROADMAP A.4)")
+
+
+class MAG(nn.Module):
+    """Multimodal Adaptation Gate: ``forward(text, visual, acoustic)``."""
+
+    PARAM_NAMES = ("w_hv_v", "w_hv_t", "b_hv", "w_ha_a", "w_ha_t", "b_ha",
+                   "w_v", "b_v", "w_a", "b_a", "ln_gamma", "ln_beta")
+
+    def __init__(self, hidden_size: int, visual_dim: int, acoustic_dim: int,
+                 beta_shift: float = 1.0, dropout_prob: float = 0.5,
+                 *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.visual_dim = visual_dim
+        self.acoustic_dim = acoustic_dim
+        self.beta_shift = beta_shift
+        self.dropout_prob = dropout_prob
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        init = mag_ops.init_mag_params(generator, hidden_size, visual_dim,
+                                       acoustic_dim, device=device)
+        for name in self.PARAM_NAMES:
+            self.register_parameter(name, nn.Parameter(init[name].clone()))
+
+    def params_dict(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self.PARAM_NAMES}
+
+    def forward(self, text_embedding: torch.Tensor, visual: torch.Tensor,
+                acoustic: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
+        require_deterministic(deterministic)
+        return mag_ops.mag_gate(self.params_dict(), text_embedding, visual,
+                                acoustic, beta_shift=self.beta_shift)
