@@ -89,7 +89,7 @@ class BertConfig:
     num_labels: int = 1
     # "einsum" (plain PyTorch attention, exact HF semantics) or "fused"
     # (the hand-written packed attention kernel, ops/fused_attention.py).
-    # "flash" waits for ROADMAP A.3.
+    # "flash" waits for ROADMAP A.2.
     attention_impl: str = "einsum"
     # Not ported yet; setting either raises (see __post_init__).
     qkv_fusion: bool = False
@@ -99,7 +99,7 @@ class BertConfig:
     def __post_init__(self):
         if self.attention_impl == "flash":
             raise NotImplementedError(
-                "attention_impl='flash' is not ported yet (ROADMAP A.3)")
+                "attention_impl='flash' is not ported yet (ROADMAP A.2)")
         if self.attention_impl not in ("einsum", "fused"):
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r} "

@@ -1,0 +1,219 @@
+// Packed-layout attention backward with probs recomputed, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel `_attn_bwd_packed_kernel`
+// (bert_multimodal_transformer_tpu/ops/fused_attention.py:1051), taken when
+// the forward saved no probs (`fused_attention_packed` with save off: past
+// the 256 MB residual cap, or FUSED_ATTN_SAVE=0).
+//
+// What it computes, per batch row b and head h, from qkv [B, S, 3D], the
+// fp32 mask, the context gradient g [B, S, D] and the forward's seed:
+//   p    = the forward's fp32 softmax of (Q_h · K_hᵀ) · scale + bias,
+//          recomputed with the same op order as attn_fwd_packed.cu
+//   pd   = keep ? p · inv_keep : 0, the keep mask replayed from the same
+//          Philox stream (common.cuh); pd = p at rate 0
+//   dV   = T(pd)ᵀ · g_h                      (pd_c, fp32 accumulate)
+//   d(pd) = g_h · V_hᵀ                        (fp32)
+//   t    = pd ⊙ d(pd);  ds = (t − p · Σ_k t) · scale;  ds_c = T(ds)
+//   dQ   = ds_c · K_h,   dK = ds_cᵀ · Q_h
+// written into dqkv [B, S, 3D] at the columns q, k, v came from (dQ, then
+// dK, then dV, as the TPU kernel's `concatenate(dqs + dks + dvs)`).
+//
+// What bounds it on the card: at B=256, S=50, H=12, Dh=64 the backward is
+// five S×S×Dh products per (b, h), ~2.4 GFLOP in all, over ~40 MB of
+// qkv/g/dqkv traffic: a small, latency-bound op next to the training
+// step's GEMMs, like the forward. dQ reduces over keys while dK and dV
+// reduce over queries, so a split over query tiles would need a second
+// pass or atomics.
+//
+// What the design does about that: one block per (head, batch row) holds
+// the whole [S, S] problem in shared memory (common.cuh's plan: two
+// [S][Dh+1] staging tiles, the fp32 probs P and the gradient tile Tt), so
+// every reduction stays inside the block, there are no atomics, and the
+// result is bit-reproducible. B·H = 3072 blocks fill the 132 SMs. The
+// keep bit of each element rides in the sign of its P entry (p >= 0), so
+// the mask costs no extra memory. The plan fits 227 KB up to S = 140 at
+// Dh = 64 (S = 117 at Dh = 128); the Python wrapper refuses longer
+// sequences at the forward when a gradient will be needed. The products
+// run on the CUDA cores in fp32; tensor cores are later work.
+
+#include "common.cuh"
+
+#include <cmath>
+
+namespace {
+
+using attn::DropoutArgs;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kMaxDh = 128;
+
+template <typename T, bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_packed_kernel(const T* __restrict__ qkv,
+                           const float* __restrict__ mask,
+                           const T* __restrict__ g, T* __restrict__ dqkv,
+                           int S, int H, int Dh, float scale,
+                           DropoutArgs drop) {
+  extern __shared__ float smem[];
+  const int D = H * Dh;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int ld = Dh + 1;
+
+  float* as = smem;                  // [S][Dh + 1]
+  float* bs = as + S * ld;           // [S][Dh + 1]
+  float* ps = bs + S * ld;           // [S][S] p, sign bit = dropped
+  float* tt = ps + S * S;            // [S][S] d(pd), then ds_c
+  float* bias = tt + S * S;          // [S]
+
+  const size_t row_stride = (size_t)3 * D;
+  const T* q_src = qkv + (size_t)b * S * row_stride + h * Dh;
+  const T* k_src = q_src + D;
+  const T* v_src = q_src + 2 * D;
+  const T* g_src = g + (size_t)b * S * D + h * Dh;
+  T* dq_dst = dqkv + (size_t)b * S * row_stride + h * Dh;
+  T* dk_dst = dq_dst + D;
+  T* dv_dst = dq_dst + 2 * D;
+
+  for (int j = tid; j < S; j += kThreads)
+    bias[j] = mask ? (1.0f - mask[(size_t)b * S + j]) * -10000.0f : 0.0f;
+  attn::load_tile(as, q_src, row_stride, S, Dh);
+  attn::load_tile(bs, k_src, row_stride, S, Dh);
+  __syncthreads();
+
+  // Scores, exactly as the forward: (q · k) · scale, then + bias.
+  for (int i = tid; i < S * S; i += kThreads) {
+    const int q = i / S, k = i - q * S;
+    const float* qr = as + q * ld;
+    const float* kr = bs + k * ld;
+    float acc = 0.0f;
+    for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
+    ps[i] = __fadd_rn(__fmul_rn(acc, scale), bias[k]);
+  }
+  __syncthreads();
+
+  // fp32 softmax, one warp per row, the forward's loop and reduction
+  // order; then the keep mask replayed into the sign bit.
+  const int warp = tid / 32, lane = tid % 32;
+  for (int q = warp; q < S; q += kThreads / 32) {
+    float* pr = ps + q * S;
+    float m = -INFINITY;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      sum += e;
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if constexpr (!kDropout) {
+      for (int j = lane; j < S; j += 32) pr[j] = pr[j] / sum;
+    } else {
+      for (int j0 = 4 * lane; j0 < S; j0 += 128) {
+        const uint4 bits = attn::dropout_bits4(drop.seed, b, h, q, j0 >> 2);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + u;
+          if (j < S) {
+            const float p = pr[j] / sum;
+            pr[j] = attn::word(bits, u) >= drop.threshold
+                        ? p
+                        : copysignf(p, -1.0f);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // Q and K no longer needed: stage g and V
+
+  attn::load_tile(as, g_src, (size_t)D, S, Dh);
+  attn::load_tile(bs, v_src, row_stride, S, Dh);
+  __syncthreads();
+  attn::tile_abt(tt, as, bs, S, Dh);  // d(pd) = g · Vᵀ
+  __syncthreads();
+
+  const float inv_keep = drop.inv_keep;
+  auto pd_of = [ps, inv_keep](int i) {
+    const float x = ps[i];
+    if constexpr (kDropout) return signbit(x) ? 0.0f : __fmul_rn(x, inv_keep);
+    return x;
+  };
+  auto p_of = [ps](int i) { return kDropout ? fabsf(ps[i]) : ps[i]; };
+  attn::softmax_vjp_rows<T>(tt, S, scale, pd_of, p_of);
+  __syncthreads();
+
+  // P ← pd_c = T(pd) for the dV product.
+  for (int i = tid; i < S * S; i += kThreads) ps[i] = attn::round_to<T>(pd_of(i));
+  __syncthreads();
+  attn::store_mtx(dv_dst, row_stride, ps, as, S, Dh);  // dV = pd_cᵀ · g
+  __syncthreads();  // g and V no longer needed: stage Q and K again
+
+  attn::load_tile(as, q_src, row_stride, S, Dh);
+  attn::load_tile(bs, k_src, row_stride, S, Dh);
+  __syncthreads();
+  attn::store_mx(dq_dst, row_stride, tt, bs, S, Dh);   // dQ = ds_c · K
+  attn::store_mtx(dk_dst, row_stride, tt, as, S, Dh);  // dK = ds_cᵀ · Q
+}
+
+template <typename T, bool kDropout>
+int launch(const void* qkv, const void* mask, const void* g, void* dqkv,
+           int B, int S, int H, int Dh, float scale, DropoutArgs drop,
+           cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  cudaError_t err =
+      attn::allow_max_smem(attn_bwd_packed_kernel<T, kDropout>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = attn::bwd_smem_floats(S, Dh) * sizeof(float);
+  attn_bwd_packed_kernel<T, kDropout><<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(mask),
+      static_cast<const T*>(g), static_cast<T*>(dqkv), S, H, Dh, scale, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* qkv, const void* mask, const void* g, void* dqkv,
+             int B, int S, int H, int Dh, float scale, bool dropout,
+             DropoutArgs drop, cudaStream_t st) {
+  if (dropout)
+    return launch<T, true>(qkv, mask, g, dqkv, B, S, H, Dh, scale, drop, st);
+  return launch<T, false>(qkv, mask, g, dqkv, B, S, H, Dh, scale, drop, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. mask may be null (no padding). g is
+// the context gradient [B, S, D], dqkv the packed gradient [B, S, 3D],
+// both in the input dtype. dropout = 0 ignores seed/threshold/inv_keep.
+// Returns the cudaError_t of the launch (0 on success); a shape past the
+// shared-memory plan returns cudaErrorInvalidValue.
+int attn_bwd_packed(const void* qkv, const void* mask, const void* g,
+                    void* dqkv, int B, int S, int H, int Dh, float scale,
+                    int dropout, unsigned long long seed,
+                    unsigned int threshold, float inv_keep, int dtype,
+                    void* stream) {
+  if (B < 1 || S < 1 || H < 1 || Dh < 8 || Dh > kMaxDh || Dh % 8 != 0 ||
+      attn::bwd_smem_floats(S, Dh) * sizeof(float) > attn::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropoutArgs drop{seed, threshold, inv_keep};
+  switch (dtype) {
+    case 0:
+      return dispatch<float>(qkv, mask, g, dqkv, B, S, H, Dh, scale,
+                             dropout != 0, drop, st);
+    case 1:
+      return dispatch<__nv_bfloat16>(qkv, mask, g, dqkv, B, S, H, Dh, scale,
+                                     dropout != 0, drop, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,196 @@
+// Helpers shared by the packed attention kernels (attn_fwd_packed.cu,
+// attn_bwd_packed.cu, attn_bwd_packed_saved.cu): dtype conversion, the
+// Philox4x32-10 dropout stream, and the small shared-memory products of
+// the backward kernels.
+//
+// The dropout stream. Element (b, h, q, k) of the [B, H, S, S] probs is
+// kept iff its 32-bit draw is >= threshold, where
+//   threshold = min(round(rate · 2^32), 2^32 − 1)
+// (the TPU package's `_dropout_threshold`) and
+//   draw(b, h, q, k) = Philox4x32-10(counter = (k >> 2, q, h, b),
+//                                    key     = (seed & 0xffffffff,
+//                                               seed >> 32))[k & 3]
+// with words numbered x, y, z, w = 0, 1, 2, 3. The draw is a pure function
+// of (seed, b, h, q, k), so the mask does not depend on how a kernel tiles
+// the work, and the backward replays the forward's mask exactly. A kept
+// element is scaled by inv_keep = fp32(1 / (1 − rate)) in fp32.
+// `ops/fused_attention.py::philox4x32_10` is the same function in plain
+// PyTorch.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace attn {
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Rounds an fp32 value to T and back (a cast to the input dtype).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Largest dynamic shared memory a block may opt into on sm_90 (227 KB).
+constexpr size_t kMaxSmemBytes = 232448;
+
+struct DropoutArgs {
+  unsigned long long seed;
+  unsigned int threshold;  // keep iff draw >= threshold
+  float inv_keep;          // fp32(1 / (1 − rate))
+};
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011; the Random123 reference constants).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += kW0;
+      k.y += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// The draws of keys 4·k4 .. 4·k4 + 3 of row (b, h, q).
+__device__ __forceinline__ uint4 dropout_bits4(unsigned long long seed, int b,
+                                               int h, int q, int k4) {
+  return philox4x32_10(
+      make_uint4((uint32_t)k4, (uint32_t)q, (uint32_t)h, (uint32_t)b),
+      make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// ---- the backward kernels' shared-memory plan and products --------------
+//
+// One block per (head, batch row) holds, in fp32: two [S][Dh + 1] staging
+// tiles (A, B; the +1 pad keeps per-row reads on distinct banks), the
+// [S][S] probs tile P, the [S][S] gradient tile Tt, and the [S] mask bias.
+
+__host__ __device__ inline size_t bwd_smem_floats(int s, int dh) {
+  return 2 * (size_t)s * (dh + 1) + 2 * (size_t)s * s + (size_t)s;
+}
+
+// dst[r][c] = src[r · row_stride + c] for r < S, c < Dh (one head's column
+// block of the packed projection or of the context gradient).
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          size_t row_stride, int S, int Dh) {
+  const int ld = Dh + 1;
+  for (int i = threadIdx.x; i < S * Dh; i += blockDim.x) {
+    const int r = i / Dh, c = i - r * Dh;
+    dst[r * ld + c] = to_float(src[(size_t)r * row_stride + c]);
+  }
+}
+
+// out[q][k] = Σ_c a[q][c] · b[k][c], fp32, c ascending.
+__device__ __forceinline__ void tile_abt(float* out, const float* a,
+                                         const float* b, int S, int Dh) {
+  const int ld = Dh + 1;
+  for (int i = threadIdx.x; i < S * S; i += blockDim.x) {
+    const int q = i / S, k = i - q * S;
+    const float* ar = a + q * ld;
+    const float* br = b + k * ld;
+    float acc = 0.0f;
+    for (int c = 0; c < Dh; ++c) acc = fmaf(ar[c], br[c], acc);
+    out[i] = acc;
+  }
+}
+
+// dst[r · row_stride + c] = Σ_j m[r][j] · x[j][c]   (m [S][S], x [S][Dh+1])
+template <typename T>
+__device__ __forceinline__ void store_mx(T* dst, size_t row_stride,
+                                         const float* m, const float* x,
+                                         int S, int Dh) {
+  const int ld = Dh + 1;
+  for (int i = threadIdx.x; i < S * Dh; i += blockDim.x) {
+    const int r = i / Dh, c = i - r * Dh;
+    const float* mr = m + r * S;
+    float acc = 0.0f;
+    for (int j = 0; j < S; ++j) acc = fmaf(mr[j], x[j * ld + c], acc);
+    dst[(size_t)r * row_stride + c] = from_float<T>(acc);
+  }
+}
+
+// dst[r · row_stride + c] = Σ_j m[j][r] · x[j][c]   (mᵀ · x)
+template <typename T>
+__device__ __forceinline__ void store_mtx(T* dst, size_t row_stride,
+                                          const float* m, const float* x,
+                                          int S, int Dh) {
+  const int ld = Dh + 1;
+  for (int i = threadIdx.x; i < S * Dh; i += blockDim.x) {
+    const int r = i / Dh, c = i - r * Dh;
+    float acc = 0.0f;
+    for (int j = 0; j < S; ++j) acc = fmaf(m[j * S + r], x[j * ld + c], acc);
+    dst[(size_t)r * row_stride + c] = from_float<T>(acc);
+  }
+}
+
+// The softmax VJP through the dropout, in place on tt = d(pd) = g · vᵀ,
+// one warp per row (the TPU kernels' compacted form):
+//   t  = pd ⊙ d(pd);   ds = (t − p · Σ_k t) · scale;   tt ← T(ds)
+// pd_of(i) and p_of(i) give element i = q·S + k of pd and p in fp32.
+template <typename T, typename PdOf, typename POf>
+__device__ __forceinline__ void softmax_vjp_rows(float* tt, int S,
+                                                 float scale, PdOf pd_of,
+                                                 POf p_of) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int q = warp; q < S; q += blockDim.x / 32) {
+    float* tr = tt + q * S;
+    float sum = 0.0f;
+    for (int k = lane; k < S; k += 32) {
+      const float t = __fmul_rn(pd_of(q * S + k), tr[k]);
+      tr[k] = t;
+      sum += t;
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int k = lane; k < S; k += 32) {
+      const float ds =
+          __fmul_rn(__fsub_rn(tr[k], __fmul_rn(p_of(q * S + k), sum)), scale);
+      tr[k] = round_to<T>(ds);
+    }
+  }
+}
+
+// Opt a kernel into `kMaxSmemBytes` of dynamic shared memory, once per
+// device (bit d of *done: set on device d).
+template <typename Kernel>
+inline cudaError_t allow_max_smem(Kernel kernel, unsigned long long* done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (*done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxSmemBytes);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}
+
+}  // namespace attn

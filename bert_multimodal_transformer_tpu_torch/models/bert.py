@@ -1,5 +1,5 @@
 """MAG-BERT: BERT encoder with the Multimodal Adaptation Gate (port of
-``models/bert.py``, serving forward).
+``models/bert.py``: the serving and the training forward).
 
 As in the JAX package, the QKV projection is one packed [D, 3D] product per
 layer, whose output the attention kernel reads unchanged; params are fp32
@@ -14,9 +14,17 @@ and compute runs in ``dtype`` with the JAX package's rounding points:
 
 The large products (QKV, output, FFN, pooler, classifier) are plain
 ``torch.nn.functional.linear``. Attention is ``ops/attention.py`` under
-``attention_impl="einsum"`` and the CUDA kernel behind
+``attention_impl="einsum"`` and the CUDA kernels behind
 ``ops/fused_attention.py`` under ``"fused"``; ``head_mask`` and
 ``output_attentions`` take the einsum branch, as in the JAX package.
+
+``deterministic=False`` is the training forward, with the JAX package's
+dropout sites: the embeddings after their LayerNorm, the MAG output, the
+attention probs (in the kernel, or on the einsum branch), the attention
+output and the FFN output before their residual LayerNorms, and the pooled
+output before the classifier. It needs ``dropout_rng`` (an int seed or a
+CPU ``torch.Generator``; see ``ops/dropout.py::DropoutRngs``) in place of
+Flax's ``rngs={"dropout": key}``.
 """
 
 from __future__ import annotations
@@ -31,14 +39,15 @@ from bert_multimodal_transformer_tpu_torch.config import (
     BertConfig,
     MultimodalConfig,
 )
-from bert_multimodal_transformer_tpu_torch.models.mag import (
-    MAG,
-    require_deterministic,
-)
+from bert_multimodal_transformer_tpu_torch.models.mag import MAG
 from bert_multimodal_transformer_tpu_torch.ops.activations import ACT2FN
 from bert_multimodal_transformer_tpu_torch.ops.attention import (
     dot_product_attention,
     extended_attention_mask,
+)
+from bert_multimodal_transformer_tpu_torch.ops.dropout import (
+    DropoutRngs,
+    dropout,
 )
 from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
     fused_attention_packed,
@@ -87,6 +96,7 @@ class BertEmbeddings(nn.Module):
                  *, device=None):
         super().__init__()
         self.dtype = dtype
+        self.hidden_dropout_prob = config.hidden_dropout_prob
         d = config.hidden_size
         self.word_embeddings = _uninitialized(
             nn.Embedding, config.vocab_size, d, device=device)
@@ -100,8 +110,8 @@ class BertEmbeddings(nn.Module):
                 token_type_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
-                *, deterministic: bool = True) -> torch.Tensor:
-        require_deterministic(deterministic)
+                *, deterministic: bool = True,
+                rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
         if inputs_embeds is None:
             seq_len = input_ids.shape[-1]
             word = F.embedding(input_ids, self.word_embeddings.weight)
@@ -114,7 +124,8 @@ class BertEmbeddings(nn.Module):
              + F.embedding(position_ids, self.position_embeddings.weight)
              + F.embedding(token_type_ids, self.token_type_embeddings.weight)
              ).to(self.dtype)
-        return self.LayerNorm(x)
+        return _hidden_dropout(self.LayerNorm(x), self.hidden_dropout_prob,
+                               rngs, deterministic)
 
 
 class BertSelfAttention(nn.Module):
@@ -137,9 +148,11 @@ class BertSelfAttention(nn.Module):
                 head_mask: Optional[torch.Tensor] = None,
                 attention_mask_2d: Optional[torch.Tensor] = None,
                 *, deterministic: bool = True,
-                output_attentions: bool = False):
-        require_deterministic(deterministic)
+                output_attentions: bool = False,
+                rngs: Optional[DropoutRngs] = None):
         cfg = self.config
+        rate = cfg.attention_probs_dropout_prob
+        train = not deterministic and rate > 0.0
         d = cfg.hidden_size
         h = cfg.num_attention_heads
         dh = d // h
@@ -149,17 +162,24 @@ class BertSelfAttention(nn.Module):
         probs = None
         if (cfg.attention_impl == "fused" and head_mask is None
                 and not output_attentions):
-            ctx = fused_attention_packed(qkv, attention_mask_2d, n_heads=h,
-                                         scale=scale)
+            ctx = fused_attention_packed(
+                qkv, attention_mask_2d, n_heads=h, scale=scale,
+                dropout_rate=rate,
+                dropout_rng=rngs.host if train else None,
+                deterministic=deterministic)
         else:
             q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
-            ctx = dot_product_attention(q, k, v, attn_bias, scale=scale,
-                                        head_mask=head_mask,
-                                        return_probs=output_attentions)
+            ctx = dot_product_attention(
+                q, k, v, attn_bias, scale=scale, dropout_rate=rate,
+                dropout_rng=rngs.device if train else None,
+                deterministic=deterministic, head_mask=head_mask,
+                return_probs=output_attentions)
             if output_attentions:
                 ctx, probs = ctx
             ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
         out = dense(self.output_dense, ctx, self.dtype)
+        out = _hidden_dropout(out, cfg.hidden_dropout_prob, rngs,
+                              deterministic)
         out = self.output_LayerNorm(out + hidden)
         if output_attentions:
             return out, probs
@@ -188,17 +208,21 @@ class BertLayer(nn.Module):
                 head_mask: Optional[torch.Tensor] = None,
                 attention_mask_2d: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                output_attentions: bool = False):
+                output_attentions: bool = False,
+                rngs: Optional[DropoutRngs] = None):
         attn_out = self.attention(hidden, attn_bias, head_mask,
                                   attention_mask_2d,
                                   deterministic=deterministic,
-                                  output_attentions=output_attentions)
+                                  output_attentions=output_attentions,
+                                  rngs=rngs)
         probs = None
         if output_attentions:
             attn_out, probs = attn_out
         x = dense(self.intermediate_dense, attn_out, self.dtype)
         x = ACT2FN[self.config.hidden_act](x)
         x = dense(self.output_dense, x, self.dtype)
+        x = _hidden_dropout(x, self.config.hidden_dropout_prob, rngs,
+                            deterministic)
         x = self.output_LayerNorm(x + attn_out)
         if output_attentions:
             return x, probs
@@ -220,7 +244,8 @@ class BertEncoder(nn.Module):
                 attention_mask_2d: Optional[torch.Tensor] = None,
                 *, deterministic: bool = True,
                 output_hidden_states: bool = False,
-                output_attentions: bool = False):
+                output_attentions: bool = False,
+                rngs: Optional[DropoutRngs] = None):
         all_hidden = [] if output_hidden_states else None
         all_attn = [] if output_attentions else None
         for i, layer in enumerate(self.layer):
@@ -232,7 +257,7 @@ class BertEncoder(nn.Module):
             if head_mask is not None:
                 hm = head_mask[i] if head_mask.dim() == 2 else head_mask
             out = layer(hidden, attn_bias, hm, attention_mask_2d,
-                        deterministic, output_attentions)
+                        deterministic, output_attentions, rngs)
             if output_attentions:
                 hidden, probs = out
                 all_attn.append(probs)
@@ -258,6 +283,25 @@ class BertPooler(nn.Module):
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         return torch.tanh(dense(self.dense, hidden[:, 0], self.dtype))
+
+
+def _hidden_dropout(x: torch.Tensor, rate: float,
+                    rngs: Optional[DropoutRngs],
+                    deterministic: bool) -> torch.Tensor:
+    if deterministic or rate == 0.0:
+        return x
+    return dropout(x, rate, rngs.device)
+
+
+def _dropout_rngs(dropout_rng, deterministic: bool,
+                  ref: torch.Tensor) -> Optional[DropoutRngs]:
+    if deterministic:
+        return None
+    if dropout_rng is None:
+        raise ValueError(
+            "deterministic=False needs dropout_rng (an int seed or a CPU "
+            "torch.Generator)")
+    return DropoutRngs.make(dropout_rng, ref.device)
 
 
 def init_weights(module: nn.Module, initializer_range: float,
@@ -315,14 +359,15 @@ class MagBertModel(nn.Module):
         inputs_embeds: Optional[torch.Tensor] = None,
         *,
         deterministic: bool = True,
+        dropout_rng=None,
         output_hidden_states: bool = False,
         output_attentions: bool = False,
     ):
-        require_deterministic(deterministic)
         if (input_ids is None) == (inputs_embeds is None):
             raise ValueError(
                 "specify exactly one of input_ids or inputs_embeds")
         ref = input_ids if input_ids is not None else inputs_embeds
+        rngs = _dropout_rngs(dropout_rng, deterministic, ref)
         input_shape = (input_ids.shape if input_ids is not None
                        else inputs_embeds.shape[:-1])
         if attention_mask is None:
@@ -336,11 +381,16 @@ class MagBertModel(nn.Module):
         attn_bias = extended_attention_mask(mask_f32)
 
         emb = self.embeddings(input_ids, token_type_ids, position_ids,
-                              inputs_embeds=inputs_embeds)
-        fused = self.MAG(emb, visual.to(self.dtype), acoustic.to(self.dtype))
+                              inputs_embeds=inputs_embeds,
+                              deterministic=deterministic, rngs=rngs)
+        fused = self.MAG(emb, visual.to(self.dtype), acoustic.to(self.dtype),
+                         deterministic=deterministic,
+                         dropout_rng=rngs.device if rngs else None)
         enc_out = self.encoder(fused, attn_bias, head_mask, mask_f32,
+                               deterministic=deterministic,
                                output_hidden_states=output_hidden_states,
-                               output_attentions=output_attentions)
+                               output_attentions=output_attentions,
+                               rngs=rngs)
         if output_hidden_states or output_attentions:
             seq_out, all_hidden, all_attn = enc_out
         else:
@@ -374,6 +424,15 @@ class MagBertForSequenceClassification(nn.Module):
                                   device)
         init_weights(self.classifier, config.initializer_range, generator)
 
+    def init_params(self, generator: torch.Generator) -> None:
+        """Draw every param again from ``generator`` (on the params'
+        device), in the constructor's order: the same generator state
+        gives the same weights as constructing the model with it."""
+        self.bert.MAG.reset_parameters(generator)
+        init_weights(self.bert, self.config.initializer_range, generator)
+        init_weights(self.classifier, self.config.initializer_range,
+                     generator)
+
     def forward(
         self,
         input_ids: Optional[torch.Tensor],
@@ -387,16 +446,23 @@ class MagBertForSequenceClassification(nn.Module):
         labels: Optional[torch.Tensor] = None,
         *,
         deterministic: bool = True,
+        dropout_rng=None,
         output_hidden_states: bool = False,
         output_attentions: bool = False,
     ):
-        require_deterministic(deterministic)
+        """``deterministic=False`` is the training forward and needs
+        ``dropout_rng``: an int seed or a CPU ``torch.Generator``, from
+        which every dropout site of the call draws (module docstring)."""
+        ref = input_ids if input_ids is not None else inputs_embeds
+        rngs = _dropout_rngs(dropout_rng, deterministic, ref)
         bert_out = self.bert(
             input_ids, visual, acoustic, attention_mask, token_type_ids,
             position_ids, head_mask, inputs_embeds,
+            deterministic=deterministic, dropout_rng=rngs,
             output_hidden_states=output_hidden_states,
             output_attentions=output_attentions)
-        pooled = bert_out[1]
+        pooled = _hidden_dropout(bert_out[1], self.config.hidden_dropout_prob,
+                                 rngs, deterministic)
         extras = bert_out[2:]  # hidden_states/attentions when requested
         logits = dense(self.classifier, pooled, self.dtype).float()
         if labels is not None:

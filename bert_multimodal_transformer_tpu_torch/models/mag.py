@@ -13,18 +13,12 @@ import torch
 from torch import nn
 
 from bert_multimodal_transformer_tpu_torch.ops import mag as mag_ops
-
-
-def require_deterministic(deterministic: bool) -> None:
-    """Training-mode forward (dropout) is not ported yet."""
-    if not deterministic:
-        raise NotImplementedError(
-            "deterministic=False (dropout) belongs to the training slice "
-            "(ROADMAP A.4)")
+from bert_multimodal_transformer_tpu_torch.ops.dropout import dropout
 
 
 class MAG(nn.Module):
-    """Multimodal Adaptation Gate: ``forward(text, visual, acoustic)``."""
+    """Multimodal Adaptation Gate: ``forward(text, visual, acoustic)``,
+    then output dropout at ``dropout_prob`` (the JAX module's last step)."""
 
     PARAM_NAMES = ("w_hv_v", "w_hv_t", "b_hv", "w_ha_a", "w_ha_t", "b_ha",
                    "w_v", "b_v", "w_a", "b_a", "ln_gamma", "ln_beta")
@@ -46,12 +40,25 @@ class MAG(nn.Module):
         for name in self.PARAM_NAMES:
             self.register_parameter(name, nn.Parameter(init[name].clone()))
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw the params again from ``generator`` (on their device), as
+        the constructor does."""
+        init = mag_ops.init_mag_params(generator, self.hidden_size,
+                                       self.visual_dim, self.acoustic_dim,
+                                       device=self.w_v.device)
+        with torch.no_grad():
+            for name in self.PARAM_NAMES:
+                getattr(self, name).copy_(init[name])
+
     def params_dict(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in self.PARAM_NAMES}
 
     def forward(self, text_embedding: torch.Tensor, visual: torch.Tensor,
-                acoustic: torch.Tensor, *,
-                deterministic: bool = True) -> torch.Tensor:
-        require_deterministic(deterministic)
-        return mag_ops.mag_gate(self.params_dict(), text_embedding, visual,
-                                acoustic, beta_shift=self.beta_shift)
+                acoustic: torch.Tensor, *, deterministic: bool = True,
+                dropout_rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``dropout_rng``: a generator on the activations' device, needed
+        when not ``deterministic``."""
+        fused = mag_ops.mag_gate(self.params_dict(), text_embedding, visual,
+                                 acoustic, beta_shift=self.beta_shift)
+        return dropout(fused, self.dropout_prob, dropout_rng, deterministic)

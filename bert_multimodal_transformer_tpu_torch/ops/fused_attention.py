@@ -1,21 +1,37 @@
-"""Packed attention forward (port of ``ops/fused_attention.py``'s
-``fused_attention_packed`` full-H tier, serving form: no dropout, no saved
-probs).
+"""Packed attention, forward and backward (port of ``ops/fused_attention.py``'s
+``fused_attention_packed`` full-H tier: prob dropout, saved probs, and both
+backward kernels).
 
-Three pieces live here:
+Three kernels, each with its plain PyTorch version beside it:
 
-* ``fused_attention_packed_reference``: the plain PyTorch version of the
-  kernel's math. CPU tensors take it; the tests and ``chip_smoke.py`` hold
-  the kernel against it.
-* ``attn_fwd_packed_cuda``: the wrapper that launches the hand-written CUDA
-  kernel ``csrc/attn_fwd_packed.cu`` on PyTorch's current stream. It
-  counts its launches in ``attn_fwd_packed_cuda.launches``.
-* ``load_kernels``: builds ``csrc/*.cu`` with nvcc into a shared library
-  with a plain C interface (``build/torch_kernels/``, keyed by a hash of
-  the sources and flags) at first use, and binds it with ctypes.
+* #1 ``attn_fwd_packed_cuda`` → ``csrc/attn_fwd_packed.cu``, plain version
+  ``attn_fwd_packed_reference``: softmax(QKᵀ·scale + bias)·V with optional
+  prob dropout and the probs p/pd saved for the backward;
+* #3 ``attn_bwd_packed_saved_cuda`` → ``csrc/attn_bwd_packed_saved.cu``,
+  plain version ``attn_bwd_packed_saved_reference``: dqkv from saved p/pd;
+* #2 ``attn_bwd_packed_cuda`` → ``csrc/attn_bwd_packed.cu``, plain version
+  ``attn_bwd_packed_reference``: dqkv with the probs recomputed and the
+  keep mask replayed from the forward's seed.
 
-``fused_attention_packed`` dispatches on the tensor's device: a CUDA tensor
-launches the kernel or raises, a CPU tensor takes the plain version.
+Each CUDA wrapper launches on PyTorch's current stream and counts its
+launches in ``<wrapper>.launches``. ``fused_attention_packed`` dispatches on
+the tensor's device: a CUDA tensor launches the kernels or raises, a CPU
+tensor takes the plain versions. ``FusedAttentionPacked`` is the autograd
+function (the JAX ``_fap_fwd``/``_fap_bwd``).
+
+The dropout stream: element (b, h, q, k) is kept iff its 32-bit draw is
+``>= dropout_threshold(rate)``, with the draw taken from Philox4x32-10 at
+counter ``(k >> 2, q, h, b)`` and key ``(seed & 0xffffffff, seed >> 32)``,
+word ``k & 3`` (``philox4x32_10`` here; ``csrc/common.cuh`` on the card).
+It is a pure function of (seed, b, h, q, k): the mask does not depend on
+how a kernel tiles the work, and the recompute backward replays it
+exactly. The seed is drawn on the host from an explicit CPU
+``torch.Generator``; nothing reads a device tensor back.
+
+``load_kernels`` builds ``csrc/*.cu`` with nvcc (one process per source,
+in parallel, then one link) into a shared library with a plain C interface
+(``build/torch_kernels/``, keyed by a hash of the sources and flags) at
+first use, and binds it with ctypes.
 """
 
 from __future__ import annotations
@@ -26,46 +42,244 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-# Longest sequence the kernel's shared-memory plan takes
+from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
+
+# Longest sequence the forward's shared-memory plan takes
 # (max_position_embeddings of bert-base).
 MAX_SEQ_LEN = 512
 MAX_HEAD_DIM = 128
+# The backward kernels hold one (batch row, head)'s [S, S] problem in the
+# dynamic shared memory a block may opt into on sm_90 (227 KB).
+MAX_SMEM_BYTES = 232448
+# Save the probs for the backward while they stay under this many bytes
+# per call (the JAX package's auto policy).
+SAVE_PROBS_CAP_BYTES = 256 * 1024 * 1024
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def fused_attention_packed_reference(
+# ---- the dropout stream ---------------------------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def dropout_threshold(rate: float) -> int:
+    """uint32 threshold t such that P(draw >= t) = 1 − rate (the JAX
+    package's ``_dropout_threshold``)."""
+    return min(int(round(rate * 4294967296.0)), 4294967295)
+
+
+def inv_keep(rate: float) -> float:
+    """The kept elements' scale 1 / (1 − rate), rounded to fp32 as the
+    kernels use it."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32-bit words of m · x (m and x below 2^32) in int64
+    arithmetic that never overflows: x is split into 16-bit halves."""
+    a = m * (x & 0xFFFF)                   # < 2^48
+    s = m * (x >> 16) + (a >> 16)          # < 2^49
+    return s >> 16, ((s & 0xFFFF) << 16) | (a & 0xFFFF)
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on int64 tensors holding uint32 values.
+    ``counter`` is four broadcastable tensors (x, y, z, w), ``key`` two
+    ints or tensors; returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_bits(seed: int, b: int, h: int, s_q: int, s_k: int,
+                 device=None) -> torch.Tensor:
+    """The [B, H, Sq, Sk] 32-bit draws (int64) of the dropout stream."""
+    n4 = (s_k + 3) // 4
+    shape = (b, h, s_q, n4)
+
+    def axis(n, dim):
+        view = [1, 1, 1, 1]
+        view[dim] = n
+        return torch.arange(n, dtype=torch.int64,
+                            device=device).view(view).expand(shape)
+
+    words = philox4x32_10(
+        (axis(n4, 3), axis(s_q, 2), axis(h, 1), axis(b, 0)),
+        (seed & _MASK32, (seed >> 32) & _MASK32))
+    return torch.stack(words, dim=-1).reshape(b, h, s_q, 4 * n4)[..., :s_k]
+
+
+def dropout_keep_mask(seed: int, b: int, h: int, s_q: int, s_k: int,
+                      rate: float, device=None) -> torch.Tensor:
+    """Bool [B, H, Sq, Sk]: True where the element is kept."""
+    return dropout_bits(seed, b, h, s_q, s_k, device) >= dropout_threshold(
+        rate)
+
+
+# ---- plain PyTorch versions -----------------------------------------------
+
+
+def _heads(qkv: torch.Tensor, n_heads: int):
+    b, s, d3 = qkv.shape
+    return qkv.reshape(b, s, 3, n_heads, d3 // (3 * n_heads)).permute(
+        2, 0, 3, 1, 4)
+
+
+def _ctx_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, n_heads, d // n_heads).permute(0, 2, 1, 3)
+
+
+def _pack(dq, dk, dv) -> torch.Tensor:
+    """[B, H, S, Dh] ×3 → [B, S, 3·D] with the reshape(B, S, 3, H, Dh)
+    column packing."""
+    b, h, s, dh = dq.shape
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
+        b, s, 3 * h * dh)
+
+
+def _probs(qkv, attention_mask, n_heads, scale):
+    """fp32 scores (scale after the dot, then the (1−m)·−10000 bias) and
+    their softmax, as the kernels compute them."""
+    q, k, _ = _heads(qkv, n_heads)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if attention_mask is not None:
+        bias = (1.0 - attention_mask.float()) * -10000.0
+        scores = scores + bias[:, None, None, :]
+    return torch.softmax(scores, dim=-1)
+
+
+def _dropped(p, seed, rate):
+    if rate <= 0.0:
+        return p
+    b, h, s_q, s_k = p.shape
+    keep = dropout_keep_mask(seed, b, h, s_q, s_k, rate, p.device)
+    return torch.where(keep, p * inv_keep(rate), 0.0)
+
+
+def attn_fwd_packed_reference(
     qkv: torch.Tensor,                        # [B, S, 3·D]
     attention_mask: Optional[torch.Tensor],   # [B, S], 1 = real token
     *,
     n_heads: int,
     scale: float,
-) -> torch.Tensor:
-    """Plain PyTorch version of the packed forward: fp32 scores (scale
-    after the dot, then the (1−m)·−10000 bias), fp32 softmax, probs
-    rounded to the input dtype, PV accumulated in fp32, output in the
-    input dtype. Returns [B, S, D]."""
+    rate: float = 0.0,
+    seed: int = 0,
+    save: bool = False,
+):
+    """Plain version of kernel #1: fp32 softmax; with ``save`` the probs p
+    rounded to the input dtype; at ``rate > 0`` the keep mask of the
+    Philox stream and the 1/(1−rate) scale applied in fp32 (and pd
+    rounded, with ``save``); the dropped probs rounded to the input dtype
+    for a PV product accumulated in fp32; the output in the input dtype.
+    Returns out [B, S, D], or (out, p, pd) [B, H, S, S] with ``save`` (pd
+    is p at rate 0)."""
+    dtype = qkv.dtype
     b, s, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // n_heads
-    q, k, v = qkv.reshape(b, s, 3, n_heads, dh).permute(2, 0, 3, 1, 4)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if attention_mask is not None:
-        bias = (1.0 - attention_mask.float()) * -10000.0
-        scores = scores + bias[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
-    ctx = torch.matmul(probs.float(), v.float()).to(qkv.dtype)
-    return ctx.permute(0, 2, 1, 3).reshape(b, s, d)
+    p = _probs(qkv, attention_mask, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    v = _heads(qkv, n_heads)[2]
+    ctx = torch.matmul(pd.to(dtype).float(), v.float()).to(dtype)
+    out = ctx.permute(0, 2, 1, 3).reshape(b, s, d3 // 3)
+    if not save:
+        return out
+    p_c = p.to(dtype)
+    return out, p_c, (pd.to(dtype) if rate > 0.0 else p_c)
+
+
+def _vjp(p, pd, pd_c, qkv, g, n_heads, scale):
+    """The backward kernels' shared math: dV = pd_cᵀ·g, d(pd) = g·Vᵀ,
+    t = pd⊙d(pd), ds = (t − p·Σ_k t)·scale rounded to the input dtype,
+    dQ = ds_c·K, dK = ds_cᵀ·Q; all products accumulated in fp32."""
+    dtype = qkv.dtype
+    q, k, v = (x.float() for x in _heads(qkv, n_heads))
+    gh = _ctx_heads(g, n_heads).float()
+    dv = torch.matmul(pd_c.float().transpose(-1, -2), gh).to(dtype)
+    t = pd * torch.matmul(gh, v.transpose(-1, -2))
+    ds = (t - p * t.sum(dim=-1, keepdim=True)) * scale
+    ds_c = ds.to(dtype).float()
+    dq = torch.matmul(ds_c, k).to(dtype)
+    dk = torch.matmul(ds_c.transpose(-1, -2), q).to(dtype)
+    return _pack(dq, dk, dv)
+
+
+def attn_bwd_packed_reference(
+    qkv: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],
+    seed: int,
+    g: torch.Tensor,                          # [B, S, D]
+    *,
+    n_heads: int,
+    scale: float,
+    rate: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of kernel #2: the probs recomputed in fp32, the keep
+    mask replayed from ``seed``, pd kept in fp32 for the VJP and rounded
+    (pd_c) for the dV product. Returns dqkv [B, S, 3·D]."""
+    p = _probs(qkv, attention_mask, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    return _vjp(p, pd, pd.to(qkv.dtype), qkv, g, n_heads, scale)
+
+
+def attn_bwd_packed_saved_reference(
+    p: torch.Tensor,                          # [B, H, S, S]
+    pd: torch.Tensor,
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    n_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """Plain version of kernel #3: the VJP from the saved p and pd (input
+    dtype, read as fp32). Returns dqkv [B, S, 3·D]."""
+    return _vjp(p.float(), pd.float(), pd, qkv, g, n_heads, scale)
+
+
+def dqkv_bf16_bound(ref, p, pd, qkv, g, *, n_heads, scale) -> torch.Tensor:
+    """Elementwise bound on how far two bf16 dqkv of this math may lie
+    apart when they come from the same inputs but sum in different orders
+    (a kernel and its plain version, or kernels #2 and #3).
+
+    Each side rounds pd_c, ds_c and its output to bf16 once; a rounding
+    may land one ulp (≤ 2^-7 relative) the other way. A flip of one pd_c
+    or ds_c element moves dqkv by that ulp times the other factor, so the
+    sum of all flips is at most 2^-7 times the products taken over
+    absolute values, A = pack(|ds|·|K|, |ds|ᵀ·|Q|, |pd|ᵀ·|g|), with |ds|
+    bounded by the magnitude of its terms (|t| + |p|·Σ|t|)·scale (which
+    also covers #3 reading p and pd rounded where #2 keeps them in fp32).
+    Returns 2^-7·(|ref| + A) + 2^-17."""
+    q, k, v = (x.float().abs() for x in _heads(qkv, n_heads))
+    gh = _ctx_heads(g, n_heads).float().abs()
+    p, pd = p.float().abs(), pd.float().abs()
+    t = pd * torch.matmul(gh, v.transpose(-1, -2))
+    ds = (t + p * t.sum(dim=-1, keepdim=True)) * scale
+    a = _pack(torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+              torch.matmul(pd.transpose(-1, -2), gh))
+    return 2.0 ** -7 * (ref.float().abs() + a) + 2.0 ** -17
+
+
+# ---- build and bind -------------------------------------------------------
 
 
 def _nvcc() -> str:
@@ -82,7 +296,8 @@ def _nvcc() -> str:
 
 
 def _sources():
-    return sorted(_CSRC.glob("*.cu"))
+    """Every kernel source and header (what the library's hash covers)."""
+    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
 
 
 def library_path() -> Path:
@@ -96,22 +311,49 @@ def library_path() -> Path:
 
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into one shared library unless a build of the
-    same sources and flags exists. nvcc's output (``-Xptxas -v``: each
+    same sources and flags exists: one nvcc process per source, all
+    started together, then one link. nvcc's output (``-Xptxas -v``: each
     kernel's registers, shared memory and spills) is kept beside the
-    library as ``.log``. Raises if the build fails."""
+    library as ``.log``. Raises if any step fails."""
     lib_path = library_path()
     if lib_path.exists():
         return lib_path
+    nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    tmp = lib_path.with_name(f"{tag}.tmp")
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = _BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib_path.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -123,16 +365,125 @@ def load_kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_kernels()))
-        fn = lib.attn_fwd_packed
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err_str = lib.attn_fwd_packed_error_string
-        err_str.argtypes = [ctypes.c_int]
-        err_str.restype = ctypes.c_char_p
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        u64, u32 = ctypes.c_ulonglong, ctypes.c_uint
+        dims = [i32, i32, i32, i32, f32]          # B, S, H, Dh, scale
+        drop = [i32, u64, u32, f32]               # on, seed, thresh, inv_keep
+        lib.attn_fwd_packed.argtypes = ([ptr] * 5 + dims + drop
+                                        + [i32, ptr])
+        lib.attn_bwd_packed.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
+        lib.attn_bwd_packed_saved.argtypes = [ptr] * 5 + dims + [i32, ptr]
+        for fn in (lib.attn_fwd_packed, lib.attn_bwd_packed,
+                   lib.attn_bwd_packed_saved):
+            fn.restype = ctypes.c_int
+        lib.attn_fwd_packed_error_string.argtypes = [i32]
+        lib.attn_fwd_packed_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# ---- CUDA wrappers ----------------------------------------------------------
+
+
+def bwd_smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one backward block (``csrc/common.cuh``'s
+    ``bwd_smem_floats``): two [S][Dh+1] staging tiles, two [S][S] tiles
+    and the [S] bias, in fp32."""
+    return 4 * (2 * s * (dh + 1) + 2 * s * s + s)
+
+
+def max_bwd_seq_len(dh: int) -> int:
+    """Longest S the backward kernels take at head width ``dh`` (140 at
+    Dh = 64, 117 at Dh = 128)."""
+    s = 1
+    while bwd_smem_bytes(s + 1, dh) <= MAX_SMEM_BYTES:
+        s += 1
+    return s
+
+
+def _check_geometry(qkv: torch.Tensor, n_heads: int):
+    if qkv.dim() != 3:
+        raise ValueError(
+            f"qkv must be [B, S, 3·D], got shape {tuple(qkv.shape)}")
+    b, s, d3 = qkv.shape
+    if d3 % 3 != 0:
+        raise ValueError(f"packed QKV last dim must be 3·D, got {d3}")
+    d = d3 // 3
+    if d % n_heads != 0:
+        raise ValueError(
+            f"hidden dim {d} not divisible by n_heads={n_heads}")
+    return b, s, d, d // n_heads
+
+
+def _check_cuda(name: str, qkv: torch.Tensor, n_heads: int, max_s: int):
+    """The checks every CUDA wrapper makes on qkv; returns (b, s, d, dh)."""
+    if not qkv.is_cuda:
+        raise ValueError(f"{name}: qkv must be a CUDA tensor, got "
+                         f"{qkv.device}")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"{name}: qkv dtype {qkv.dtype} not supported (float32, "
+            "bfloat16)")
+    if qkv.dim() != 3 or not qkv.is_contiguous():
+        raise ValueError(
+            f"{name}: qkv must be a contiguous [B, S, 3·D] tensor, got "
+            f"shape {tuple(qkv.shape)} contiguous={qkv.is_contiguous()}")
+    b, s, d, dh = _check_geometry(qkv, n_heads)
+    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {dh} not supported (a multiple of 8 up to "
+            f"{MAX_HEAD_DIM})")
+    if s > max_s:
+        raise ValueError(f"{name}: S={s} exceeds the kernel's {max_s}")
+    if b > 65535 or n_heads > 65535:
+        raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
+    if torch.cuda.get_device_capability(qkv.device) != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a; {qkv.device} is "
+            f"{torch.cuda.get_device_name(qkv.device)}")
+    return b, s, d, dh
+
+
+def _mask_arg(attention_mask, qkv, b, s):
+    """The fp32 [B, S] mask the kernels read (None for no padding)."""
+    if attention_mask is None:
+        return None
+    if tuple(attention_mask.shape) != (b, s):
+        raise ValueError(
+            f"attention_mask shape {tuple(attention_mask.shape)} != {(b, s)}")
+    if attention_mask.device != qkv.device:
+        raise ValueError("attention_mask and qkv on different devices")
+    return attention_mask.to(torch.float32).contiguous()
+
+
+def _like(name, t, qkv, shape):
+    if (t.device != qkv.device or t.dtype != qkv.dtype
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous {qkv.dtype} tensor of shape "
+            f"{shape} on {qkv.device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} contiguous={t.is_contiguous()}")
+
+
+def _drop_args(rate: float, seed: int):
+    if rate <= 0.0:
+        return [0, 0, 0, 0.0]
+    return [1, int(seed) & 0xFFFFFFFFFFFFFFFF, dropout_threshold(rate),
+            inv_keep(rate)]
+
+
+def _launch(fn_name: str, *args, device) -> None:
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        msg = lib.attn_fwd_packed_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def attn_fwd_packed_cuda(
@@ -141,59 +492,174 @@ def attn_fwd_packed_cuda(
     *,
     n_heads: int,
     scale: float,
-) -> torch.Tensor:
-    """Launch ``csrc/attn_fwd_packed.cu`` on ``qkv`` [B, S, 3·D] (CUDA,
-    fp32 or bf16, contiguous). Raises on anything the kernel does not
-    take and on a failed launch; never falls back."""
-    if not qkv.is_cuda:
-        raise ValueError(f"qkv must be a CUDA tensor, got {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise ValueError(
-            f"qkv dtype {qkv.dtype} not supported (float32, bfloat16)")
-    if qkv.dim() != 3 or not qkv.is_contiguous():
-        raise ValueError(
-            f"qkv must be a contiguous [B, S, 3·D] tensor, got shape "
-            f"{tuple(qkv.shape)} contiguous={qkv.is_contiguous()}")
-    b, s, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // n_heads
-    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {dh} not supported (a multiple of 8 up to "
-            f"{MAX_HEAD_DIM})")
-    if s > MAX_SEQ_LEN:
-        raise ValueError(f"S={s} exceeds the kernel's {MAX_SEQ_LEN}")
-    if b > 65535 or n_heads > 65535:
-        raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
-    if torch.cuda.get_device_capability(qkv.device) != (9, 0):
-        raise RuntimeError(
-            f"the kernel is built for sm_90a; {qkv.device} is "
-            f"{torch.cuda.get_device_name(qkv.device)}")
-    mask_ptr = None
-    if attention_mask is not None:
-        if attention_mask.shape != (b, s):
-            raise ValueError(
-                f"attention_mask shape {tuple(attention_mask.shape)} != "
-                f"{(b, s)}")
-        if attention_mask.device != qkv.device:
-            raise ValueError("attention_mask and qkv on different devices")
-        attention_mask = attention_mask.to(torch.float32).contiguous()
-        mask_ptr = attention_mask.data_ptr()
-    lib = load_kernels()
+    rate: float = 0.0,
+    seed: int = 0,
+    save: bool = False,
+):
+    """Launch kernel #1 (``csrc/attn_fwd_packed.cu``) on ``qkv`` [B, S, 3·D]
+    (CUDA, fp32 or bf16, contiguous). Returns out [B, S, D], or (out, p,
+    pd) with ``save`` (pd is p at rate 0). Raises on anything the kernel
+    does not take and on a failed launch; never falls back."""
+    b, s, d, dh = _check_cuda("attn_fwd_packed", qkv, n_heads, MAX_SEQ_LEN)
+    mask = _mask_arg(attention_mask, qkv, b, s)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attn_fwd_packed(
-            qkv.data_ptr(), mask_ptr, out.data_ptr(), b, s, n_heads, dh,
-            float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    if err != 0:
-        msg = lib.attn_fwd_packed_error_string(err).decode()
-        raise RuntimeError(f"attn_fwd_packed launch failed: {msg} ({err})")
+    p = pd = None
+    if save:
+        p = torch.empty((b, n_heads, s, s), dtype=qkv.dtype,
+                        device=qkv.device)
+        pd = torch.empty_like(p) if rate > 0.0 else p
+    _launch("attn_fwd_packed", qkv.data_ptr(), _ptr(mask), out.data_ptr(),
+            _ptr(p), _ptr(pd) if rate > 0.0 else None, b, s, n_heads, dh,
+            float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[qkv.dtype], device=qkv.device)
     attn_fwd_packed_cuda.launches += 1
-    return out
+    return (out, p, pd) if save else out
+
+
+def attn_bwd_packed_cuda(
+    qkv: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],
+    seed: int,
+    g: torch.Tensor,
+    *,
+    n_heads: int,
+    scale: float,
+    rate: float = 0.0,
+) -> torch.Tensor:
+    """Launch kernel #2 (``csrc/attn_bwd_packed.cu``): dqkv [B, S, 3·D]
+    with the probs recomputed and the keep mask replayed from ``seed``."""
+    b, s, d, dh = _check_cuda("attn_bwd_packed", qkv, n_heads,
+                              max_bwd_seq_len(qkv.shape[-1] // 3 // n_heads))
+    mask = _mask_arg(attention_mask, qkv, b, s)
+    _like("g", g, qkv, (b, s, d))
+    dqkv = torch.empty_like(qkv)
+    _launch("attn_bwd_packed", qkv.data_ptr(), _ptr(mask), g.data_ptr(),
+            dqkv.data_ptr(), b, s, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[qkv.dtype],
+            device=qkv.device)
+    attn_bwd_packed_cuda.launches += 1
+    return dqkv
+
+
+def attn_bwd_packed_saved_cuda(
+    p: torch.Tensor,
+    pd: torch.Tensor,
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    n_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """Launch kernel #3 (``csrc/attn_bwd_packed_saved.cu``): dqkv
+    [B, S, 3·D] from the saved probs p and pd [B, H, S, S]."""
+    b, s, d, dh = _check_cuda("attn_bwd_packed_saved", qkv, n_heads,
+                              max_bwd_seq_len(qkv.shape[-1] // 3 // n_heads))
+    _like("p", p, qkv, (b, n_heads, s, s))
+    _like("pd", pd, qkv, (b, n_heads, s, s))
+    _like("g", g, qkv, (b, s, d))
+    dqkv = torch.empty_like(qkv)
+    _launch("attn_bwd_packed_saved", p.data_ptr(), pd.data_ptr(),
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, s, n_heads, dh,
+            float(scale), _DTYPE_CODES[qkv.dtype], device=qkv.device)
+    attn_bwd_packed_saved_cuda.launches += 1
+    return dqkv
 
 
 attn_fwd_packed_cuda.launches = 0
+attn_bwd_packed_cuda.launches = 0
+attn_bwd_packed_saved_cuda.launches = 0
+
+
+# ---- device dispatch and autograd -------------------------------------------
+
+
+def _on(qkv: torch.Tensor) -> str:
+    if qkv.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"fused_attention_packed runs on CUDA or CPU tensors, got "
+            f"{qkv.device}")
+    return qkv.device.type
+
+
+def attn_fwd_packed(qkv, attention_mask, *, n_heads, scale, rate=0.0,
+                    seed=0, save=False):
+    """Kernel #1 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_packed_cuda if _on(qkv) == "cuda"
+          else attn_fwd_packed_reference)
+    return fn(qkv, attention_mask, n_heads=n_heads, scale=scale, rate=rate,
+              seed=seed, save=save)
+
+
+def attn_bwd_packed(qkv, attention_mask, seed, g, *, n_heads, scale,
+                    rate=0.0):
+    """Kernel #2 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_packed_cuda if _on(qkv) == "cuda"
+          else attn_bwd_packed_reference)
+    return fn(qkv, attention_mask, seed, g, n_heads=n_heads, scale=scale,
+              rate=rate)
+
+
+def attn_bwd_packed_saved(p, pd, qkv, g, *, n_heads, scale):
+    """Kernel #3 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_packed_saved_cuda if _on(qkv) == "cuda"
+          else attn_bwd_packed_saved_reference)
+    return fn(p, pd, qkv, g, n_heads=n_heads, scale=scale)
+
+
+def resolve_save_probs(b: int, n_heads: int, s: int, rate: float,
+                       itemsize: int,
+                       save_probs: Optional[bool] = None) -> bool:
+    """Whether the forward saves p (and pd) for the backward: as asked;
+    else ``FUSED_ATTN_SAVE=0/1``; else while B·H·S·S·itemsize·n_prob
+    ≤ 256 MB, with n_prob = 2 at rate > 0 (p and pd) and 1 at rate 0.
+    This is the JAX ``_resolve_knobs`` policy on the true [B, H, S, S]
+    size: its sublane/lane rounding and its VMEM check are TPU layout and
+    have no counterpart here."""
+    if save_probs is None and "FUSED_ATTN_SAVE" in os.environ:
+        save_probs = os.environ["FUSED_ATTN_SAVE"] == "1"
+    if save_probs is None:
+        n_prob = 2 if rate > 0.0 else 1
+        save_probs = (b * n_heads * s * s * itemsize * n_prob
+                      <= SAVE_PROBS_CAP_BYTES)
+    return bool(save_probs)
+
+
+class FusedAttentionPacked(torch.autograd.Function):
+    """Packed attention with its backward kernel (JAX ``_fap_fwd`` /
+    ``_fap_bwd``). With ``save`` the forward keeps p and pd (the same
+    tensor twice at rate 0) and the backward runs kernel #3; without, it
+    keeps qkv, the mask and the seed, and kernel #2 recomputes the probs
+    and replays the mask. The mask and the seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, attention_mask, n_heads: int, scale: float,
+                rate: float, seed: int, save: bool):
+        ctx.n_heads, ctx.scale, ctx.rate = n_heads, scale, rate
+        ctx.seed, ctx.save = seed, save
+        if save:
+            out, p, pd = attn_fwd_packed(qkv, attention_mask,
+                                         n_heads=n_heads, scale=scale,
+                                         rate=rate, seed=seed, save=True)
+            ctx.save_for_backward(qkv, p, pd)
+        else:
+            out = attn_fwd_packed(qkv, attention_mask, n_heads=n_heads,
+                                  scale=scale, rate=rate, seed=seed)
+            ctx.save_for_backward(qkv, attention_mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.save:
+            qkv, p, pd = ctx.saved_tensors
+            dqkv = attn_bwd_packed_saved(p, pd, qkv, g, n_heads=ctx.n_heads,
+                                         scale=ctx.scale)
+        else:
+            qkv, mask = ctx.saved_tensors
+            dqkv = attn_bwd_packed(qkv, mask, ctx.seed, g,
+                                   n_heads=ctx.n_heads, scale=ctx.scale,
+                                   rate=ctx.rate)
+        return dqkv, None, None, None, None, None, None
 
 
 def fused_attention_packed(
@@ -203,7 +669,7 @@ def fused_attention_packed(
     n_heads: int,
     scale: float,
     dropout_rate: float = 0.0,
-    dropout_rng=None,
+    dropout_rng: Optional[torch.Generator] = None,
     deterministic: bool = True,
     interpret: Optional[bool] = None,
     nb_fwd: Optional[int] = None,
@@ -213,39 +679,47 @@ def fused_attention_packed(
     """Attention on the packed QKV projection (column packing
     ``reshape(B, S, 3, H, Dh)``), returning the context as [B, S, D].
 
-    Same signature as the JAX entry. Only its serving form is ported:
-    prob dropout and the saved-probs residual belong to the training slice
-    (ROADMAP A.4), and ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan
-    knobs with no meaning here; each raises when asked for. Sequences past
-    ``MAX_SEQ_LEN`` need the head-blocked or flash-streamed tiers
-    (ROADMAP B.4, B.8) and raise too.
+    Same signature and meaning as the JAX entry: ``dropout_rate`` applies
+    only when ``deterministic`` is False, and then needs ``dropout_rng``,
+    here a CPU ``torch.Generator`` from which the kernel seed is drawn.
+    ``save_probs`` True/False/None picks the saved-probs or recompute
+    backward (``resolve_save_probs``; ``FUSED_ATTN_SAVE=0/1`` overrides
+    None). When no gradient is being taken (``torch.no_grad()``, or qkv
+    not requiring grad) the forward saves nothing, as the JAX primal.
+
+    ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan knobs with no meaning
+    here and raise. Sequences past ``MAX_SEQ_LEN``, and past
+    ``max_bwd_seq_len(Dh)`` when a gradient will be needed, need the
+    head-blocked or flash-streamed tiers (ROADMAP B.4, B.8) and raise.
     """
-    rate = 0.0 if deterministic else float(dropout_rate)
-    if rate > 0.0 or dropout_rng is not None or save_probs:
-        raise NotImplementedError(
-            "prob dropout and saved probs belong to the training slice "
-            "(ROADMAP A.4)")
     if interpret is not None or nb_fwd is not None or nb_bwd is not None:
         raise ValueError(
             "interpret/nb_fwd/nb_bwd are TPU kernel-plan knobs; the CUDA "
-            "kernel takes none")
-    b, s, d3 = qkv.shape
-    if d3 % 3 != 0:
-        raise ValueError(f"packed QKV last dim must be 3·D, got {d3}")
-    d = d3 // 3
-    if d % n_heads != 0:
-        raise ValueError(
-            f"hidden dim {d} not divisible by n_heads={n_heads}")
+            "kernels take none")
+    rate = 0.0 if deterministic else float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    b, s, d, dh = _check_geometry(qkv, n_heads)
     if s > MAX_SEQ_LEN:
         raise NotImplementedError(
             f"S={s} > {MAX_SEQ_LEN}: the head-blocked and flash-streamed "
             "attention tiers are not ported yet (ROADMAP B.4, B.8)")
-    if qkv.is_cuda:
-        return attn_fwd_packed_cuda(qkv, attention_mask, n_heads=n_heads,
-                                    scale=scale)
-    if qkv.device.type != "cpu":
-        raise ValueError(
-            f"fused_attention_packed runs on CUDA or CPU tensors, got "
-            f"{qkv.device}")
-    return fused_attention_packed_reference(
-        qkv, attention_mask, n_heads=n_heads, scale=scale)
+    if rate > 0.0 and dropout_rng is None:
+        raise ValueError("dropout_rate > 0 requires dropout_rng")
+    _on(qkv)
+    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
+    if attention_mask is not None:
+        attention_mask = attention_mask.to(torch.float32)
+    if not (torch.is_grad_enabled() and qkv.requires_grad):
+        return attn_fwd_packed(qkv, attention_mask, n_heads=n_heads,
+                               scale=scale, rate=rate, seed=seed)
+    if s > max_bwd_seq_len(dh):
+        raise NotImplementedError(
+            f"S={s} > {max_bwd_seq_len(dh)} at head dim {dh}: the backward "
+            "kernels hold one row's [S, S] problem in shared memory; longer "
+            "training sequences need the head-blocked or flash-streamed "
+            "tiers (ROADMAP B.4, B.8)")
+    save = resolve_save_probs(b, n_heads, s, rate, qkv.element_size(),
+                              save_probs)
+    return FusedAttentionPacked.apply(qkv, attention_mask, n_heads,
+                                      float(scale), rate, seed, save)

@@ -1,0 +1,337 @@
+"""Training / evaluation engine (port of ``training/trainer.py``, one
+device).
+
+* ``make_train_step`` — forward with dropout, MSE on the logits computed
+  outside the model (as the reference does), backward, AdamW update;
+  gradient accumulation splits the batch into ``grad_accum`` micro-batches,
+  each with its own dropout draws, and averages their gradients;
+* ``make_masked_train_step`` — the same for the ragged last batch, padded
+  to shape with a validity mask: the loss is the masked mean;
+* ``eval_step`` / ``predict_step`` — the deterministic forward, with
+  validity masks so padded eval batches score every example once;
+* ``Trainer`` — the epoch loops (train_epoch / eval_epoch / test_epoch /
+  test_score_model / train) with the JAX trainer's records.
+
+Losses stay on the device until an epoch ends; the dropout seeds come from
+the state's CPU generator (``ops/dropout.py``), so a step never waits for
+the card. The mesh, tensor parallelism, FSDP, multi-process runs and XLA
+compile options wait for ROADMAP A.10, the XLNet memory for A.8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from bert_multimodal_transformer_tpu_torch.training import (
+    metrics as metrics_lib,
+)
+from bert_multimodal_transformer_tpu_torch.training.losses import mse_loss
+from bert_multimodal_transformer_tpu_torch.training.optim import AdamWHF
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step reads and advances: the step count, the model (which
+    holds the params), its optimizer (which holds the moments and the
+    update count) and the CPU generator every step's dropout draws from."""
+
+    step: int
+    model: nn.Module
+    optimizer: AdamWHF
+    generator: torch.Generator
+
+
+def _forward(model, batch, generator, deterministic: bool):
+    input_ids, visual, acoustic, input_mask, segment_ids, label_ids = batch
+    logits = model(input_ids, visual, acoustic, attention_mask=input_mask,
+                   token_type_ids=segment_ids, deterministic=deterministic,
+                   dropout_rng=None if deterministic else generator)
+    return logits, label_ids
+
+
+def _make_step(grad_accum: int, masked: bool):
+    """Shared train-step factory (see make_train_step /
+    make_masked_train_step for the two semantics). Gradients of the
+    micro-batches add up in ``.grad`` and are divided once, by
+    ``grad_accum`` or by the valid count, as the JAX step divides its
+    summed gradients."""
+
+    def train_step(state: TrainState, batch: Tuple,
+                   valid: Optional[np.ndarray] = None) -> torch.Tensor:
+        b = batch[0].shape[0]
+        if b % grad_accum:
+            raise ValueError(
+                f"batch {b} not divisible by grad_accum={grad_accum}")
+        micro = list(zip(*(t.chunk(grad_accum) for t in batch)))
+        if masked:
+            valid = np.asarray(valid, bool)
+            weights = torch.from_numpy(valid.astype(np.float32)).to(
+                batch[0].device).chunk(grad_accum)
+        state.optimizer.zero_grad(set_to_none=True)
+        total = None
+        for i, mb in enumerate(micro):
+            logits, labels = _forward(state.model, mb, state.generator,
+                                      deterministic=False)
+            if masked:
+                err = torch.square(logits.reshape(-1).float()
+                                   - labels.reshape(-1).float())
+                loss = torch.sum(err * weights[i])
+            else:
+                loss = mse_loss(logits, labels)
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        div = max(float(valid.sum()), 1.0) if masked else float(grad_accum)
+        if div != 1.0:
+            grads = [p.grad for p in state.model.parameters()
+                     if p.grad is not None]
+            torch._foreach_div_(grads, div)
+            total = total / div
+        state.optimizer.step()
+        state.step += 1
+        return total
+
+    return train_step
+
+
+def make_train_step(grad_accum: int = 1):
+    """The train step: ``step(state, batch) -> loss`` (a device scalar).
+
+    With grad_accum > 1 the batch splits into grad_accum micro-batches of
+    B/grad_accum rows and the gradients are averaged — the reference's
+    loss/accum scaling."""
+    return _make_step(grad_accum, masked=False)
+
+
+def make_masked_train_step(grad_accum: int = 1):
+    """Train step for the final RAGGED batch: ``step(state, batch, valid)``
+    with the batch zero-padded to shape and ``valid`` its host bool mask;
+    loss = masked mean. The reference trains on the ragged tail as a
+    smaller batch; the masked mean over the padded batch is the same
+    math."""
+    return _make_step(grad_accum, masked=True)
+
+
+@torch.inference_mode()
+def eval_step(state: TrainState, batch: Tuple, valid: torch.Tensor):
+    """Masked dev-set MSE: returns (sum_sq_err, n_valid) so ragged final
+    batches contribute exactly their real examples."""
+    logits, labels = _forward(state.model, batch, None, deterministic=True)
+    err = torch.square(logits.reshape(-1) - labels.reshape(-1))
+    v = valid.to(torch.float32)
+    return torch.sum(err * v), torch.sum(v)
+
+
+@torch.inference_mode()
+def predict_step(state: TrainState, batch: Tuple):
+    logits, labels = _forward(state.model, batch, None, deterministic=True)
+    return logits.reshape(-1), labels.reshape(-1)
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Epoch-level trainer on the device that holds the model's params.
+
+    ``model`` is any module with the MAG-classifier call signature
+    (input_ids, visual, acoustic, attention_mask=, token_type_ids=,
+    deterministic=, dropout_rng=) → logits; ``tx`` the optimizer factory
+    of ``optim.make_optimizer``. The step updates the params in place.
+    """
+
+    model: nn.Module
+    tx: Callable
+    mesh: Optional[object] = None
+    grad_accum: int = 1
+    tp_shard_attention: bool = False
+    fsdp: bool = False
+    mem_len: Optional[int] = None
+    compiler_options: Optional[dict] = None
+    multiprocess: bool = False
+
+    def __post_init__(self):
+        for name, item in (("mesh", "A.10"), ("tp_shard_attention", "A.10"),
+                           ("fsdp", "A.10"), ("multiprocess", "A.10"),
+                           ("compiler_options", "A.10"),
+                           ("mem_len", "A.8")):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"Trainer({name}=...) is not ported yet (ROADMAP "
+                    f"{item})")
+        self.device = next(self.model.parameters()).device
+        self._train_step = make_train_step(self.grad_accum)
+        self._train_step_masked = make_masked_train_step(self.grad_accum)
+
+    def init_state(self, seed: int) -> TrainState:
+        """Draw the params from ``seed`` (``model.init_params``, on the
+        params' device) and start the dropout stream at ``seed + 1``."""
+        self.model.init_params(
+            torch.Generator(device=self.device).manual_seed(seed))
+        return self.create_state_from_params(None, seed + 1)
+
+    def create_state_from_params(
+            self, params: Optional[Dict[str, torch.Tensor]],
+            rng: Union[int, torch.Generator]) -> TrainState:
+        """A fresh state over ``params`` (a state_dict; None keeps the
+        model's weights) with the dropout stream ``rng`` (an int seed or a
+        CPU generator)."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        if not isinstance(rng, torch.Generator):
+            rng = torch.Generator().manual_seed(int(rng))
+        return TrainState(step=0, model=self.model,
+                          optimizer=self.tx(self.model.named_parameters()),
+                          generator=rng)
+
+    def _put(self, a) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _put_batch(self, batch):
+        return tuple(self._put(a) for a in batch)
+
+    def train_epoch(self, state: TrainState, loader
+                    ) -> Tuple[TrainState, float]:
+        """Mean loss over one epoch. A ragged final batch (loader with
+        drop_remainder=False) trains through the masked step."""
+        state, loss, _ = self._train_epoch(state, loader)
+        return state, loss
+
+    def _train_epoch(self, state: TrainState, loader, *,
+                     start_batch: int = 0, step_callback=None,
+                     max_steps: Optional[int] = None):
+        """train_epoch plus resume: skip the first ``start_batch`` batches
+        (the loader replays the same shuffle, see
+        BatchIterator.restore_position), call ``step_callback(state,
+        batch_idx)`` after each optimizer step, and stop mid-epoch after
+        ``max_steps`` steps. Returns (state, mean_loss, {"steps": n,
+        "stopped_at_batch": next batch to train, or None})."""
+        losses = []
+        stopped_at = None
+        n_batches = len(loader) if hasattr(loader, "__len__") else None
+        if start_batch and hasattr(loader, "iter_from"):
+            it = enumerate(loader.iter_from(start_batch), start=start_batch)
+        else:
+            it = enumerate(loader)
+        for bi, (batch, valid) in it:
+            if bi < start_batch:
+                continue
+            if valid.all():
+                loss = self._train_step(state, self._put_batch(batch))
+            else:
+                loss = self._train_step_masked(state, self._put_batch(batch),
+                                               valid)
+            losses.append(loss)
+            if step_callback is not None:
+                step_callback(state, bi)
+            if (max_steps is not None and len(losses) >= max_steps
+                    and (n_batches is None or bi + 1 < n_batches)):
+                stopped_at = bi + 1
+                break
+        mean = (float(np.mean(torch.stack(losses).cpu().numpy()))
+                if losses else 0.0)
+        return state, mean, {"steps": len(losses),
+                             "stopped_at_batch": stopped_at}
+
+    def eval_epoch(self, state: TrainState, loader) -> float:
+        """Mean dev MSE over every real example; partial sums stay on the
+        device, one host sync at the end."""
+        sums = [eval_step(state, self._put_batch(batch), self._put(valid))
+                for batch, valid in loader]
+        if not sums:
+            return 0.0
+        tot = float(torch.stack([s for s, _ in sums]).sum())
+        cnt = float(torch.stack([c for _, c in sums]).sum())
+        return tot / max(cnt, 1.0)
+
+    def test_epoch(self, state: TrainState, loader):
+        preds, labels = [], []
+        for batch, valid in loader:
+            p, lab = predict_step(state, self._put_batch(batch))
+            preds.append(p.cpu().numpy()[valid])
+            labels.append(lab.cpu().numpy()[valid])
+        return np.concatenate(preds), np.concatenate(labels)
+
+    def test_score_model(self, state: TrainState, loader,
+                         use_zero: bool = False) -> Dict[str, float]:
+        preds, labels = self.test_epoch(state, loader)
+        return metrics_lib.score_regression(preds, labels, use_zero=use_zero)
+
+    def train(self, state: TrainState, train_loader, dev_loader, test_loader,
+              n_epochs: int, logger=None,
+              epoch_callback=None, use_zero: bool = False,
+              start_epoch: int = 0, start_batch: int = 0,
+              initial_history=None, step_callback=None,
+              max_steps: Optional[int] = None
+              ) -> Tuple[TrainState, Dict]:
+        """The epoch loop, with the JAX trainer's per-epoch records.
+        ``epoch_callback(state, epoch)`` runs after each epoch's logging;
+        ``step_callback(state, epoch, batch_idx)`` after every optimizer
+        step. ``start_epoch``/``start_batch``/``initial_history`` resume an
+        interrupted run (position the train loader with
+        BatchIterator.restore_position first); ``max_steps`` stops after
+        that many steps in this call, and the summary's "interrupted"
+        entry then holds the resume position {"epoch", "next_batch"}."""
+        history = list(initial_history or [])
+        valid_losses = [r["valid_loss"] for r in history]
+        test_accs = [r["test_acc"] for r in history]
+        steps_left = max_steps
+        interrupted = None
+        for epoch_i in range(int(start_epoch), int(n_epochs)):
+            t0 = time.monotonic()
+            cb = None
+            if step_callback is not None:
+                def cb(st, bi, _e=epoch_i):
+                    step_callback(st, _e, bi)
+            state, train_loss, info = self._train_epoch(
+                state, train_loader,
+                start_batch=start_batch if epoch_i == start_epoch else 0,
+                step_callback=cb, max_steps=steps_left)
+            if steps_left is not None:
+                steps_left -= info["steps"]
+            if info["stopped_at_batch"] is not None:
+                interrupted = {"epoch": epoch_i,
+                               "next_batch": info["stopped_at_batch"]}
+                break
+            valid_loss = self.eval_epoch(state, dev_loader)
+            scores = self.test_score_model(state, test_loader,
+                                           use_zero=use_zero)
+            dt = time.monotonic() - t0
+            valid_losses.append(valid_loss)
+            test_accs.append(scores["acc"])
+            record = {
+                "epoch": epoch_i,
+                "train_loss": train_loss,
+                # a mid-epoch-resumed epoch's train_loss averages only the
+                # post-resume batches
+                **({"resumed_mid_epoch": True}
+                   if epoch_i == start_epoch and start_batch else {}),
+                "valid_loss": valid_loss,
+                "test_acc": scores["acc"],
+                "test_mae": scores["mae"],
+                "test_corr": scores["corr"],
+                "test_f_score": scores["f_score"],
+                "best_valid_loss": min(valid_losses),
+                "best_test_acc": max(test_accs),
+                "epoch_seconds": dt,
+            }
+            history.append(record)
+            if logger is not None:
+                logger.log(record)
+            if epoch_callback is not None:
+                epoch_callback(state, epoch_i)
+            if (steps_left is not None and steps_left <= 0
+                    and epoch_i + 1 < int(n_epochs)):
+                interrupted = {"epoch": epoch_i + 1, "next_batch": 0}
+                break
+        return state, {"history": history,
+                       "best_valid_loss": min(valid_losses) if valid_losses
+                       else float("inf"),
+                       "best_test_acc": max(test_accs) if test_accs else 0.0,
+                       "interrupted": interrupted}

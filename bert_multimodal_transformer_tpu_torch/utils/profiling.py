@@ -34,7 +34,10 @@ def device_time_by_kernel(fn: Callable[[], object], iters: int = 3) -> Dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for avg in prof.key_averages():
-        if avg.device_type != DeviceType.CUDA:
+        # a user annotation (e.g. ``Optimizer.step#...``) spans kernels
+        # that are counted on their own
+        if (avg.device_type != DeviceType.CUDA
+                or getattr(avg, "is_user_annotation", False)):
             continue
         rows.append((avg.key, avg.count, avg.self_device_time_total / 1e3))
     rows.sort(key=lambda r: -r[2])

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py [--seed N]
 
@@ -7,19 +8,41 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), CUDA version.
 2. Build: compile ``csrc/*.cu`` with nvcc (into ``build/torch_kernels/``).
-3. Kernel against its plain PyTorch version on the card, on seeded ragged
-   masks with one fully padded row: bf16 at B=128 S=50 (the serving
+3. Serving kernel against its plain PyTorch version on the card, on seeded
+   ragged masks with one fully padded row: bf16 at B=128 S=50 (the serving
    shape), bf16 at B=8 S=512, fp32 at B=4 S=77; then both timed at the
    serving shape.
-4. Main path: ``MagBertForSequenceClassification`` at bert-base width with
-   MOSI modality dims, bf16 compute, ``attention_impl="fused"``, random
-   weights from a seeded generator. ``Predictor.score_split`` over a
-   685-example split (the MOSI test split's size) at batch 128, then
+3b. Training kernels against their plain versions on the card, bf16 at
+   B=256 S=50 (the training shape of the bench) and fp32 at B=4 S=77, at
+   rate 0.1 and 0: #1 with dropout and saved probs (its keep mask equal to
+   the plain Philox mask bit for bit, the keep rate within 5σ), #3 (saved
+   probs) and #2 (recompute) against the plain backward and against
+   torch.autograd through the plain forward, #2 against #3, and the same
+   bits from the same seed twice; then the three timed at B=256 S=50.
+4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
+   with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
+   random weights from a seeded generator. ``Predictor.score_split`` over
+   a 685-example split (the MOSI test split's size) at batch 128, then
    ``predict_requests`` over 4 requests of 256. Checks: the kernel ran
    once per layer per batch, every prediction is finite, and the fused
    predictions agree with the same weights on ``attention_impl="einsum"``.
-5. Profile: one batch's serial latency, its device time by kernel and
-   the card's busy share (torch.profiler).
+4b. Training path: the same model with its default dropouts,
+   ``Trainer.train`` for one epoch over seeded splits of MOSI's sizes
+   (1281/229/685) at ``driver.py``'s batch sizes (48 train, 128 dev/test):
+   26 full steps and the ragged tail of 33 through the masked step.
+   Checks: finite losses, the JAX trainer's record keys, the kernels'
+   launch counts (#1 once per layer per batch of all three splits, #3
+   once per layer per train step), then one step under
+   ``FUSED_ATTN_SAVE=0`` through #2; and at dropout 0, from one copy of
+   the weights, 5 steps on fused (saved), fused (recompute) and einsum
+   attention: losses within a stated bound, and the first step's gradients
+   leaf by leaf within a stated bf16 bound of einsum's, a bound that the
+   same step with dK zeroed in #3 must break.
+5. Serving profile: one batch's serial latency, its device time by kernel
+   and the card's busy share (torch.profiler).
+5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
+   20 steps after 3 warm-up steps, the per-step median and spread, the
+   peak memory, and one step's device time by kernel and busy share.
 6. The result: a JSON line for the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -31,6 +54,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -41,6 +66,10 @@ S_SERVE = 50
 BATCH = 128
 N_TEST = 685          # MOSI test split size
 N_REQUESTS, REQUEST_SIZE = 4, 256
+MOSI_SPLITS = (1281, 229, 685)
+TRAIN_BATCH, EVAL_BATCH = 48, 128   # driver.py's defaults
+BENCH_BATCH = 256                   # the bench's train-step batch
+RATE = 0.1                          # attention_probs_dropout_prob
 # bf16 kernel vs plain: both round the probs and the output to bf16 once,
 # from fp32 sums taken in different orders. A rounding that lands the
 # other way moves a prob by one bf16 ulp (2^-8 relative) and the output by
@@ -49,11 +78,38 @@ N_REQUESTS, REQUEST_SIZE = 4, 256
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 2.0 ** -6
 # fp32: the same math in fp32, summed in a different order.
 FP32_ATOL = 1e-5
+# fp32 gradients: atol and rtol 1e-5, as the JAX package's kernel tests.
+# bf16 gradients: fused_attention.dqkv_bf16_bound, one bf16 ulp of every
+# rounded pd_c and ds_c element and of the output.
+GRAD_FP32_TOL = 1e-5
 # fused vs einsum predictions: the two branches do the same attention math
 # but sum in different orders; a bf16 rounding flip in any of the 12 layers
 # moves a logit by a few ulps of the activations (2^-8 relative). A wrong
 # kernel moves logits by their own scale (≈ 0.4 at this init).
 PRED_ATOL = 5e-2
+# Training at dropout 0 from one copy of the weights, fused against einsum.
+# The first step's gradients, per leaf (the packed qkv leaves split into
+# their Q, K and V rows): ‖g − g_einsum‖ / ‖g_einsum‖. The forward is the
+# same bits on both branches; the backwards round p, ds and the context
+# gradients to bf16 at different points, which moves a leaf by a few bf16
+# ulps (2^-8 relative; the worst piece reads 1.2e-2 on the card). A wrong
+# dQ, dK or dV moves its own piece by its whole norm (the planted fault
+# below reads 1).
+GRAD_GAP_TOL = 5e-2
+# The loss over 5 steps: the largest gap seen on the card is 3.7e-3 (PERF.md,
+# Findings); the bound is about ten times that. Too coarse to see a wrong
+# gradient at lr 1e-5: the gradient check above is the one with power.
+LOSS_ATOL = 4e-2
+# Kernel-name substrings that sort a profile into groups (the first match
+# wins; the rest is "other elementwise").
+PROFILE_GROUPS = (
+    ("attention kernels (csrc)", ("attn_fwd_packed", "attn_bwd_packed")),
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm")),
+    ("AdamW _foreach", ("multi_tensor_apply",)),
+    ("host copies, memsets", ("Memcpy", "Memset")),
+    ("casts and copies", ("copy_kernel",)),
+    ("reductions", ("reduce_kernel",)),
+)
 
 
 def _card() -> str:
@@ -83,6 +139,30 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _alternate(run_plain, run_kernel, iters):
+    """Per-call ms of each, in rounds plain, kernel, kernel, plain after a
+    warm-up; returns (kernel rounds, plain rounds)."""
+    for fn in (run_plain, run_kernel):
+        _time_ms(fn, 3)
+    rounds = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        rounds[name].append(_time_ms(
+            run_kernel if name == "kernel" else run_plain, iters))
+    return rounds["kernel"], rounds["plain"]
+
+
+def _counts(fa):
+    return {"attn_fwd_packed": fa.attn_fwd_packed_cuda.launches,
+            "attn_bwd_packed_saved": fa.attn_bwd_packed_saved_cuda.launches,
+            "attn_bwd_packed": fa.attn_bwd_packed_cuda.launches}
+
+
+def _zero_counts(fa):
+    for fn in (fa.attn_fwd_packed_cuda, fa.attn_bwd_packed_saved_cuda,
+               fa.attn_bwd_packed_cuda):
+        fn.launches = 0
+
+
 def check_kernel(rng, fa, dtype_name, b, s, h=12, dh=64):
     """Kernel vs plain version on one seeded case; returns max abs err."""
     import torch
@@ -95,8 +175,7 @@ def check_kernel(rng, fa, dtype_name, b, s, h=12, dh=64):
     mask = torch.from_numpy(_ragged_mask(rng, b, s)).cuda().float()
     scale = 1.0 / dh ** 0.5
     out = fa.attn_fwd_packed_cuda(qkv, mask, n_heads=h, scale=scale)
-    ref = fa.fused_attention_packed_reference(qkv, mask, n_heads=h,
-                                              scale=scale)
+    ref = fa.attn_fwd_packed_reference(qkv, mask, n_heads=h, scale=scale)
     torch.cuda.synchronize()
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
@@ -113,6 +192,153 @@ def check_kernel(rng, fa, dtype_name, b, s, h=12, dh=64):
             f"S={s}): max_abs_err={max_err}, {int(bad.sum())} elements "
             "out of tolerance")
     return max_err, (qkv, mask, scale, h)
+
+
+def _forward_err(name, got, want, dtype_name):
+    """Max abs err of a forward tensor; raises past the phase-3 bound."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if dtype_name == "bf16":
+        bad = err > BF16_ATOL + BF16_RTOL * want.abs()
+    else:
+        bad = err > FP32_ATOL
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements out of "
+                             f"tolerance, max_abs_err={float(err.max())}")
+    return float(err.max())
+
+
+def _grad_err(name, got, want, dtype_name, bound_args, fa):
+    """Max abs err of a dqkv; raises past the stated bound."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if dtype_name == "bf16":
+        p, pd, qkv, g, kw = bound_args
+        bound = fa.dqkv_bf16_bound(want, p, pd, qkv, g, **kw)
+    else:
+        bound = GRAD_FP32_TOL + GRAD_FP32_TOL * want.float().abs()
+    bad = err > bound
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements out of "
+                             f"tolerance, max_abs_err={float(err.max())}")
+    return float(err.max())
+
+
+def check_training_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
+    """Phase 3b on one seeded case: #1 with save (and dropout at rate > 0),
+    #3 and #2, each against its plain version and the backward also
+    against torch.autograd through the plain forward. Returns the max
+    errors and the case's tensors."""
+    import torch
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    d = h * dh
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, s, 3 * d), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal(
+        (b, s, d), dtype=np.float32)).to("cuda", dtype)
+    mask = torch.from_numpy(_ragged_mask(rng, b, s)).cuda().float()
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5)
+    tag = f"{dtype_name} B={b} S={s} H={h} Dh={dh} rate={rate}"
+
+    out, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
+                                         save=True, **kw)
+    r_out, r_p, r_pd = fa.attn_fwd_packed_reference(
+        qkv, mask, rate=rate, seed=seed, save=True, **kw)
+    errs = {"fwd": max(_forward_err(f"#1 {n} {tag}", x, r, dtype_name)
+                       for n, x, r in (("out", out, r_out), ("p", p, r_p),
+                                       ("pd", pd, r_pd)))}
+    line = f"#1 vs plain {tag}: out/p/pd max_abs_err={errs['fwd']:.3e}"
+    if rate > 0:
+        keep = fa.dropout_keep_mask(seed, b, h, s, s, rate, qkv.device)
+        live = p > 0
+        kernel_keep = (pd > 0)[live]
+        if not torch.equal(kernel_keep, keep[live]):
+            raise AssertionError(f"#1 keep mask differs from the plain "
+                                 f"Philox mask ({tag})")
+        rates = []
+        for kept in (keep, kernel_keep):
+            n = kept.numel()
+            got = float(kept.double().mean())
+            sigma = math.sqrt(rate * (1 - rate) / n)
+            if abs(got - (1 - rate)) >= 5 * sigma:
+                raise AssertionError(f"keep rate {got} not within 5σ "
+                                     f"({sigma:.2e}) of {1 - rate}")
+            rates.append(f"{got:.6f} over {n} (5σ={5 * sigma:.1e})")
+        line += (f"; keep mask = plain Philox mask bit for bit on the "
+                 f"{int(live.sum())} live probs; keep rate: stream "
+                 f"{rates[0]}, kernel {rates[1]}")
+    elif pd is not p:
+        raise AssertionError("at rate 0 the saved pd must be p")
+    print(line)
+
+    saved = fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+    recomputed = fa.attn_bwd_packed_cuda(qkv, mask, seed, g, rate=rate,
+                                         **kw)
+    r_saved = fa.attn_bwd_packed_saved_reference(p, pd, qkv, g, **kw)
+    r_recomputed = fa.attn_bwd_packed_reference(qkv, mask, seed, g,
+                                                rate=rate, **kw)
+    x = qkv.detach().clone().requires_grad_()
+    fa.attn_fwd_packed_reference(x, mask, rate=rate, seed=seed,
+                                 **kw).backward(g)
+    bound_args = (p, pd, qkv, g, kw)
+    for name, got, want in (("#3 vs plain", saved, r_saved),
+                            ("#3 vs autograd", saved, x.grad),
+                            ("#2 vs plain", recomputed, r_recomputed),
+                            ("#2 vs autograd", recomputed, x.grad),
+                            ("#2 vs #3", recomputed, saved)):
+        errs[name] = _grad_err(f"{name} {tag}", got, want, dtype_name,
+                               bound_args, fa)
+    print(f"backward {tag}: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items() if k != "fwd"))
+
+    again = (fa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
+                                     save=True, **kw),
+             fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw),
+             fa.attn_bwd_packed_cuda(qkv, mask, seed, g, rate=rate, **kw))
+    same = (all(torch.equal(a, b) for a, b in zip(again[0], (out, p, pd)))
+            and torch.equal(again[1], saved)
+            and torch.equal(again[2], recomputed))
+    print(f"same seed twice {tag}: identical bits {same}")
+    if not same:
+        raise AssertionError(f"the kernels are not bit-reproducible ({tag})")
+    return errs, (qkv, mask, g, seed, kw)
+
+
+def time_training_kernels(fa, case, card):
+    """#1 (rate 0.1, save), #3 and #2 against their plain versions, in
+    alternating rounds; returns {name: (kernel ms, plain ms)}."""
+    qkv, mask, g, seed, kw = case
+    _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, rate=RATE, seed=seed,
+                                       save=True, **kw)
+    pairs = {
+        "attn_fwd_packed": (
+            lambda: fa.attn_fwd_packed_cuda(qkv, mask, rate=RATE, seed=seed,
+                                            save=True, **kw),
+            lambda: fa.attn_fwd_packed_reference(qkv, mask, rate=RATE,
+                                                 seed=seed, save=True,
+                                                 **kw)),
+        "attn_bwd_packed_saved": (
+            lambda: fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw),
+            lambda: fa.attn_bwd_packed_saved_reference(p, pd, qkv, g, **kw)),
+        "attn_bwd_packed": (
+            lambda: fa.attn_bwd_packed_cuda(qkv, mask, seed, g, rate=RATE,
+                                            **kw),
+            lambda: fa.attn_bwd_packed_reference(qkv, mask, seed, g,
+                                                 rate=RATE, **kw)),
+    }
+    times = {}
+    b, s = qkv.shape[:2]
+    for name, (run_kernel, run_plain) in pairs.items():
+        k, pl = _alternate(run_plain, run_kernel, 20)
+        times[name] = (float(np.mean(k)), float(np.mean(pl)))
+        print(f"{name} bf16 B={b} S={s} H=12 Dh=64 rate={RATE} on {card}: "
+              f"kernel {k} ms, plain {pl} ms per call")
+    return times
 
 
 def make_split(rng, n, s, vocab, dv, da):
@@ -158,13 +384,293 @@ def profile_batch(predictor, split, card, iters=5):
         lat.append((time.perf_counter() - t0) * 1e3)
     print(f"one batch of {BATCH}, submit to fetch, on {card}: median "
           f"{np.median(lat):.3f} ms, max {max(lat):.3f} ms (20 runs)")
-    prof = device_time_by_kernel(one_batch, iters)
-    print(f"profile of {iters} batches: wall {prof['wall_ms'] / iters:.3f} "
-          f"ms/batch, device {prof['device_ms'] / iters:.3f} ms/batch, "
-          f"busy {prof['device_ms'] / prof['wall_ms']:.1%}")
+    _print_profile(device_time_by_kernel(one_batch, iters), iters, "batch")
+
+
+def _print_profile(prof, iters, unit):
+    print(f"profile of {iters} {unit}(es): wall "
+          f"{prof['wall_ms'] / iters:.3f} ms/{unit}, device "
+          f"{prof['device_ms'] / iters:.3f} ms/{unit}, busy "
+          f"{prof['device_ms'] / prof['wall_ms']:.1%}")
+    groups = {}
+    for name, _, ms in prof["kernels"]:
+        group = next((g for g, keys in PROFILE_GROUPS if any(
+            k in name for k in keys)), "other elementwise")
+        groups[group] = groups.get(group, 0.0) + ms
+    print(f"  by group, ms/{unit} (share of device time): " + "; ".join(
+        f"{g} {ms / iters:.3f} ({ms / prof['device_ms']:.1%})"
+        for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
     for name, calls, ms in prof["kernels"][:25]:
-        print(f"  {ms / iters:9.4f} ms/batch {calls / iters:7.1f} "
-              f"calls/batch  {name[:110]}")
+        print(f"  {ms / iters:9.4f} ms/{unit} {calls / iters:7.1f} "
+              f"calls/{unit}  {name[:110]}")
+
+
+def _device_batch(batch):
+    import torch
+
+    return tuple(torch.as_tensor(np.asarray(a)).cuda() for a in batch)
+
+
+def _grad_pieces(model):
+    """The fp32 gradients by leaf, each packed qkv leaf split into its Q, K
+    and V rows, so a fault in one of dQ, dK, dV shows in its own piece."""
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad.detach().float()
+        if ".qkv." in name:
+            for part, piece in zip("qkv", g.chunk(3)):
+                out[f"{name}[{part}]"] = piece.clone()
+        else:
+            out[name] = g.clone()
+    return out
+
+
+def _grad_gaps(got, ref):
+    """[(piece, ‖got − ref‖ / ‖ref‖)], worst first. The key bias is left
+    out: its gradient is zero in exact arithmetic (it shifts every score of
+    a query by the same amount, which the softmax ignores), so both sides
+    hold rounding there."""
+    gaps = {k: float((got[k] - r).norm() / r.norm()) for k, r in ref.items()
+            if not k.endswith(".qkv.bias[k]")}
+    return sorted(gaps.items(), key=lambda kv: -kv[1])
+
+
+def train_path(args, rng, fa, model_args, card):
+    """Phase 4b. Returns the launch counts of the two training drives."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
+        BatchIterator,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    cfg, mm, dv, da = model_args
+    layers = cfg.num_hidden_layers
+    model = MagBertForSequenceClassification(
+        cfg, mm, dv, da, torch.bfloat16, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(args.seed + 2))
+    splits = [make_split(rng, n, S_SERVE, cfg.vocab_size, dv, da)
+              for n in MOSI_SPLITS]
+    train_it = BatchIterator(splits[0], TRAIN_BATCH, shuffle=True,
+                             drop_remainder=False, seed=args.seed)
+    dev_it, test_it = (BatchIterator(sp, EVAL_BATCH, shuffle=False,
+                                     drop_remainder=False)
+                       for sp in splits[1:])
+    # driver.py's count of optimizer steps: int(N / batch) per epoch
+    n_opt = int(MOSI_SPLITS[0] / TRAIN_BATCH)
+    trainer = Trainer(model=model, tx=make_optimizer(1e-5, n_opt, 0.1))
+    state = trainer.create_state_from_params(None, args.seed)
+    os.environ.pop("FUSED_ATTN_SAVE", None)
+
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    state, summary = trainer.train(state, train_it, dev_it, test_it,
+                                   n_epochs=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts(fa)
+    record = summary["history"][0]
+    print(f"Trainer.train, 1 epoch on {card}: {dt:.2f} s, record "
+          f"{json.dumps(record)}")
+    keys = {"epoch", "train_loss", "valid_loss", "test_acc", "test_mae",
+            "test_corr", "test_f_score", "best_valid_loss",
+            "best_test_acc", "epoch_seconds"}
+    if set(record) != keys:
+        raise AssertionError(f"record keys {sorted(record)} != the JAX "
+                             f"trainer's {sorted(keys)}")
+    # the epoch loss is the mean of the step losses (each ≥ 0), so it is
+    # finite iff every one of them is
+    if not (math.isfinite(record["train_loss"])
+            and math.isfinite(record["valid_loss"])):
+        raise AssertionError(f"non-finite loss in {record}")
+    n_train, n_eval = len(train_it), len(dev_it) + len(test_it)
+    want = {"attn_fwd_packed": layers * (n_train + n_eval),
+            "attn_bwd_packed_saved": layers * n_train,
+            "attn_bwd_packed": 0}
+    print(f"kernel launches in Trainer.train: {counts} (want {want}: "
+          f"{layers} layers x ({n_train} train + {n_eval} dev/test "
+          f"batches), #3 on the save path)")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+
+    batch = _device_batch(next(iter(BatchIterator(
+        splits[0], TRAIN_BATCH, shuffle=False, drop_remainder=True)))[0])
+    step = make_train_step()
+    os.environ["FUSED_ATTN_SAVE"] = "0"
+    _zero_counts(fa)
+    loss = float(step(state, batch))
+    recompute_counts = _counts(fa)
+    os.environ.pop("FUSED_ATTN_SAVE")
+    want = {"attn_fwd_packed": layers, "attn_bwd_packed_saved": 0,
+            "attn_bwd_packed": layers}
+    print(f"one train step under FUSED_ATTN_SAVE=0: loss {loss:.6f}, "
+          f"launches {recompute_counts} (want {want})")
+    if recompute_counts != want or not math.isfinite(loss):
+        raise AssertionError(f"recompute step: {recompute_counts}, {loss}")
+
+    # At dropout 0, from one copy of the weights: 5 steps on each branch,
+    # and the first step's gradients held against einsum's.
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del trainer, state, model
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    mm0 = dataclasses.replace(mm, dropout_prob=0.0)
+    batches = [_device_batch(bt) for bt, _ in BatchIterator(
+        splits[0], TRAIN_BATCH, shuffle=False, drop_remainder=True)][:5]
+
+    def run_branch(impl, save, n_steps):
+        m = MagBertForSequenceClassification(
+            dataclasses.replace(cfg0, attention_impl=impl), mm0, dv, da,
+            torch.bfloat16, device="cuda")
+        m.load_state_dict(weights)
+        st = Trainer(model=m, tx=make_optimizer(
+            1e-5, len(batches), 0.1)).create_state_from_params(None,
+                                                               args.seed)
+        if save is not None:
+            os.environ["FUSED_ATTN_SAVE"] = save
+        ls = [float(step(st, batches[0]))]
+        grads = _grad_pieces(m)
+        ls += [float(step(st, bt)) for bt in batches[1:n_steps]]
+        os.environ.pop("FUSED_ATTN_SAVE", None)
+        return ls, grads
+
+    losses, grads = {}, {}
+    for name, impl, save in (("fused, saved probs", "fused", "1"),
+                             ("fused, recompute", "fused", "0"),
+                             ("einsum", "einsum", None)):
+        losses[name], grads[name] = run_branch(impl, save, len(batches))
+    # The check's power: the same first step with dK zeroed in #3's output.
+    real_saved_bwd = fa.attn_bwd_packed_saved
+
+    def dk_zeroed(*a, **kw):
+        dqkv = real_saved_bwd(*a, **kw)
+        d = dqkv.shape[-1] // 3
+        dqkv[..., d:2 * d] = 0
+        return dqkv
+
+    fa.attn_bwd_packed_saved = dk_zeroed
+    try:
+        _, grads["planted fault: dK zeroed in #3"] = run_branch("fused",
+                                                                 "1", 1)
+    finally:
+        fa.attn_bwd_packed_saved = real_saved_bwd
+
+    ref = np.array(losses["einsum"])
+    for name, ls in losses.items():
+        print(f"dropout-0 losses, {name}: {ls}")
+    for name in ("fused, saved probs", "fused, recompute"):
+        diff = np.abs(np.array(losses[name]) - ref)
+        print(f"  {name} vs einsum: max |Δloss| {diff.max():.3e} "
+              f"(bound {LOSS_ATOL})")
+        if not (diff <= LOSS_ATOL).all() or not np.isfinite(
+                losses[name]).all():
+            raise AssertionError(f"{name} losses differ from einsum's "
+                                 f"beyond {LOSS_ATOL}")
+    for name in ("fused, saved probs", "fused, recompute",
+                 "planted fault: dK zeroed in #3"):
+        gaps = _grad_gaps(grads[name], grads["einsum"])
+        print(f"  step-1 gradients, {name} vs einsum: worst pieces "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps[:4])
+              + f" (bound {GRAD_GAP_TOL})")
+        fails = gaps[0][1] > GRAD_GAP_TOL
+        if fails != name.startswith("planted"):
+            raise AssertionError(
+                f"step-1 gradients, {name}: worst gap {gaps[0]} against "
+                f"the bound {GRAD_GAP_TOL}")
+    return counts, recompute_counts, weights
+
+
+def train_speed(args, rng, model_args, weights, card):
+    """Phase 5b at B=256, S=50."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    cfg, mm, dv, da = model_args
+    model = MagBertForSequenceClassification(cfg, mm, dv, da,
+                                             torch.bfloat16, device="cuda")
+    model.load_state_dict(weights)
+    warm, steps = 3, 20
+    trainer = Trainer(model=model,
+                      tx=make_optimizer(1e-5, warm + steps + 1, 0.1))
+    state = trainer.create_state_from_params(None, args.seed)
+    batch = _device_batch(make_split(rng, BENCH_BATCH, S_SERVE,
+                                     cfg.vocab_size, dv, da).as_tuple())
+    step = make_train_step()
+    for _ in range(warm):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        losses.append(step(state, batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError("non-finite loss in the speed run")
+    q1, med, q3 = np.percentile(per_step, [25, 50, 75])
+    print(f"training on {card}: bf16 bert-base MOSI dims, fused attention, "
+          f"B={BENCH_BATCH} S={S_SERVE}, dropout 0.1/0.1/0.5: "
+          f"{steps * BENCH_BATCH / wall:.1f} train examples/s over {steps} "
+          f"steps after {warm} warm-up ({wall:.3f} s wall)")
+    print(f"  per step (CUDA events): median {med:.3f} ms, quartiles "
+          f"{q1:.3f}/{q3:.3f} ms, min {min(per_step):.3f}, max "
+          f"{max(per_step):.3f} ms; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    _print_profile(device_time_by_kernel(lambda: step(state, batch), 1), 1,
+                   "step")
+
+    # The same step with plain PyTorch attention, same weights, in
+    # alternating rounds: what the kernels change end to end.
+    model_e = MagBertForSequenceClassification(
+        dataclasses.replace(cfg, attention_impl="einsum"), mm, dv, da,
+        torch.bfloat16, device="cuda")
+    model_e.load_state_dict(weights)
+    state_e = Trainer(model=model_e, tx=make_optimizer(
+        1e-5, 4 * steps, 0.1)).create_state_from_params(None, args.seed)
+    for _ in range(warm):
+        step(state_e, batch)
+    rates = {"fused": [], "einsum": []}
+    for name in ("fused", "einsum", "einsum", "fused"):
+        st = state if name == "fused" else state_e
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps // 2):
+            step(st, batch)
+        torch.cuda.synchronize()
+        rates[name].append(steps // 2 * BENCH_BATCH
+                           / (time.perf_counter() - t0))
+    print(f"  fused vs einsum attention, same weights, rounds of "
+          f"{steps // 2} steps (fused, einsum, einsum, fused) on {card}: "
+          f"fused {rates['fused']} examples/s, einsum {rates['einsum']} "
+          "examples/s")
 
 
 def main() -> int:
@@ -226,8 +732,7 @@ def main() -> int:
         fa.attn_fwd_packed_cuda(qkv, mask, n_heads=h, scale=scale)
 
     def run_plain():
-        fa.fused_attention_packed_reference(qkv, mask, n_heads=h,
-                                            scale=scale)
+        fa.attn_fwd_packed_reference(qkv, mask, n_heads=h, scale=scale)
 
     for fn in (run_plain, run_kernel):
         _time_ms(fn, 10)  # warm-up
@@ -240,6 +745,21 @@ def main() -> int:
     print(f"attn_fwd_packed bf16 B={BATCH} S={S_SERVE} H=12 Dh=64 on "
           f"{card}: kernel {rounds['kernel']} ms, plain {rounds['plain']} "
           "ms per call")
+
+    # 3b. Training kernels against plain, on the card
+    train_errs = {}
+    bench_case = None
+    for dtype_name, b, s in (("bf16", BENCH_BATCH, S_SERVE),
+                             ("fp32", 4, 77)):
+        for rate in (RATE, 0.0):
+            errs, case = check_training_kernels(rng, fa, dtype_name, b, s,
+                                                rate)
+            for k, v in errs.items():
+                train_errs[k] = max(train_errs.get(k, 0.0), v)
+            if dtype_name == "bf16" and rate > 0:
+                bench_case = case
+    train_times = time_training_kernels(fa, bench_case, card)
+    del bench_case
 
     # 4. Main path
     ds = DatasetConfig.mosi()
@@ -258,13 +778,14 @@ def main() -> int:
     predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
     torch.cuda.synchronize()
 
-    fa.attn_fwd_packed_cuda.launches = 0
+    _zero_counts(fa)
     t0 = time.perf_counter()
     preds = predictor.predict_split(split)
     t1 = time.perf_counter()
     served = list(predictor.predict_requests(requests))
     t2 = time.perf_counter()
-    launches = fa.attn_fwd_packed_cuda.launches
+    serve_counts = _counts(fa)
+    launches = serve_counts["attn_fwd_packed"]
 
     scores = predictor.score_split(split)
     n_batches = len(BatchIterator(split, BATCH, shuffle=False,
@@ -292,6 +813,7 @@ def main() -> int:
         generator=torch.Generator(device="cuda").manual_seed(args.seed + 1))
     model_e.load_state_dict(model.state_dict())
     preds_e = Predictor(model_e, batch_size=BATCH).predict_split(split)
+    del model_e
     pred_err = float(np.abs(preds - preds_e).max())
     print(f"fused vs einsum predictions: max_abs_diff={pred_err:.3e} "
           f"(tolerance {PRED_ATOL}), |pred| max {np.abs(preds_e).max():.3f}")
@@ -316,26 +838,60 @@ def main() -> int:
           f"{np.median(reps):.1f} examples/s, min {min(reps):.1f}, max "
           f"{max(reps):.1f}")
 
+    # 4b. Training path
+    model_args = (cfg, MultimodalConfig(), ds.visual_dim, ds.acoustic_dim)
+    train_counts, recompute_counts, weights = train_path(
+        args, rng, fa, model_args, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
+    del predictor, model
+
+    # 5b. Training speed and profile
+    train_speed(args, rng, model_args, weights, card)
 
     # 6. Result
-    print(json.dumps({"kernels": [{
-        "name": "attn_fwd_packed",
-        "route": "cuda",
-        "source": "bert_multimodal_transformer_tpu_torch/csrc/"
-                  "attn_fwd_packed.cu",
-        "replaces": "bert_multimodal_transformer_tpu/ops/"
-                    "fused_attention.py:996",
-        "launches": launches,
-        "max_abs_err": serve_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    def by_path(name):
+        paths = {"serving": serve_counts[name],
+                 "train": train_counts[name],
+                 "train_recompute": recompute_counts[name]}
+        return sum(paths.values()), paths
+
+    src = "bert_multimodal_transformer_tpu_torch/csrc/"
+    tpu = "bert_multimodal_transformer_tpu/ops/fused_attention.py:"
+    kernels = []
+    for name, line, tag in (("attn_fwd_packed", 996, "#1"),
+                            ("attn_bwd_packed_saved", 1108, "#3"),
+                            ("attn_bwd_packed", 1051, "#2")):
+        total, paths = by_path(name)
+        entry = {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                 "replaces": f"{tpu}{line}", "launches": total,
+                 "launches_by_path": paths,
+                 "max_abs_err": train_errs[
+                     "fwd" if tag == "#1" else f"{tag} vs plain"],
+                 "ms": train_times[name][0],
+                 "plain_ms": train_times[name][1]}
+        if tag != "#1":
+            entry["max_abs_err_vs_autograd"] = train_errs[
+                f"{tag} vs autograd"]
+        if name == "attn_fwd_packed":
+            entry["max_abs_err"] = max(entry["max_abs_err"], serve_err)
+            entry["modes"] = {
+                "train rate 0.1 save, bf16 B=256 S=50": {
+                    "ms": train_times[name][0],
+                    "plain_ms": train_times[name][1]},
+                "serving rate 0, bf16 B=128 S=50": {
+                    "ms": kernel_ms, "plain_ms": plain_ms,
+                    "max_abs_err": serve_err}}
+        kernels.append(entry)
+    for entry in kernels:
+        if entry["launches"] == 0:
+            raise AssertionError(f"{entry['name']} never ran on the path")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}))
     return 0
 

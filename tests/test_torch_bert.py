@@ -250,11 +250,30 @@ def test_mag_bert_model_outputs_match_jax():
     assert float(pooled.detach().abs().max()) <= 1.0  # tanh-bounded
 
 
-def test_training_mode_forward_raises():
-    _, _, tmodel = _pair()
+@pytest.mark.parametrize("attention_impl", ["einsum", "fused"])
+def test_training_mode_forward_raises(attention_impl):
+    """Training mode without a dropout_rng raises; with one, the forward
+    is finite, differs from eval, replays exactly from the same seed and
+    changes with the seed, and its gradient reaches every param."""
+    _, _, tmodel = _pair(attention_impl)
     ids, vis, ac, mask, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tmodel(*_t(ids, vis, ac), deterministic=False)
+    args = _t(ids, vis, ac)
+    kw = dict(attention_mask=torch.from_numpy(mask))
+    with pytest.raises(ValueError, match="dropout_rng"):
+        tmodel(*args, deterministic=False, **kw)
+    eval_out = tmodel(*args, **kw)
+    a = tmodel(*args, deterministic=False, dropout_rng=3, **kw)
+    b = tmodel(*args, deterministic=False,
+               dropout_rng=torch.Generator().manual_seed(3), **kw)
+    c = tmodel(*args, deterministic=False, dropout_rng=4, **kw)
+    assert bool(torch.isfinite(a).all())
+    assert torch.equal(a, b)
+    assert not torch.allclose(a, eval_out)
+    assert not torch.equal(a, c)
+    a.sum().backward()
+    for name, p in tmodel.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), \
+            name
 
 
 def test_seeded_init_is_reproducible_and_fp32():

@@ -1,18 +1,25 @@
-"""The port's packed attention forward against the JAX package's
-``fused_attention_packed`` (its Pallas kernel, run in interpret mode on the
-CPU), plus the wrapper's checks and the build's failure path.
+"""The port's packed attention (kernels #1-#3 and their autograd) against
+the JAX package's ``fused_attention_packed`` (its Pallas kernels, run in
+interpret mode on the CPU), the Philox dropout stream, plus the wrappers'
+checks and the build's failure path.
 
-On the CPU the port takes the kernel's plain PyTorch version; the tests
-marked ``cuda`` hold the CUDA kernel itself against that version and skip
-without a card. A GPU machine need not have jax installed, so the JAX side
-is imported only by the tests that use it, and the card's tests run with
-``python -m pytest --noconftest -m cuda tests/test_torch_fused_attention.py``
-(``tests/conftest.py`` imports jax).
+On the CPU the port takes the kernels' plain PyTorch versions; the tests
+marked ``cuda`` hold the CUDA kernels themselves against those versions
+and skip without a card. A GPU machine need not have jax installed, so the
+JAX side is imported only by the tests that use it, and the card's tests
+run with ``python -m pytest --noconftest -m cuda
+tests/test_torch_fused_attention.py`` (``tests/conftest.py`` imports jax).
 
-Tolerances: fp32 1e-5 abs (same math, sums in another order). bf16: both
+Tolerances: fp32 1e-5 (same math, sums in another order; atol and rtol
+1e-5 for gradients, as the JAX package's own tests). bf16 forward: both
 sides round the probs and the context once from fp32 sums, so an element
 may differ by one bf16 rounding: 2^-7 relative plus 2^-6 absolute (a prob
-that rounds the other way moves the context by ≲ 2^-9·|v|).
+that rounds the other way moves the context by ≲ 2^-9·|v|). bf16
+gradients: ``dqkv_bf16_bound``, one ulp of every rounded pd_c and ds_c
+element and of the output. With dropout on, no stream can be compared
+with JAX (off the TPU it routes to the einsum path and ``jax.random``):
+the tests hold the port's three versions against each other and against
+``torch.autograd`` through the plain forward with the same mask.
 """
 
 import numpy as np
@@ -20,6 +27,7 @@ import pytest
 import torch
 
 from bert_multimodal_transformer_tpu_torch.ops import fused_attention as tfa
+from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
 
 B, H, S, DH = 3, 2, 50, 16
 D = H * DH
@@ -96,16 +104,25 @@ def test_packed_forward_head_dim_64_matches_jax_kernel(jax_fa):
 
 
 def test_dropout_and_saved_probs_raise():
+    """Rate > 0 without a generator raises (as the JAX entry); a device
+    generator or a rate of 1 raises; save_probs without a gradient saves
+    nothing; deterministic=True turns the rate off."""
     qkv = torch.zeros(1, 4, 3 * D)
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(ValueError, match="requires dropout_rng"):
         tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0,
                                    dropout_rate=0.1, deterministic=False)
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
         tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0,
-                                   save_probs=True)
-    # deterministic=True turns the rate off, as in the JAX entry
-    tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0,
-                               dropout_rate=0.1, deterministic=True)
+                                   dropout_rate=1.0, deterministic=False,
+                                   dropout_rng=torch.Generator())
+    with pytest.raises(TypeError, match="Generator"):
+        draw_seed(7)
+    out = tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0,
+                                     save_probs=True)
+    assert out.grad_fn is None and tuple(out.shape) == (1, 4, D)
+    a = tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0,
+                                   dropout_rate=0.1, deterministic=True)
+    assert torch.equal(a, out)
 
 
 def test_long_sequence_raises_naming_the_tiers():
@@ -174,6 +191,254 @@ def test_library_path_keyed_by_sources(tmp_path, monkeypatch):
     assert tfa.library_path() != first
 
 
+# --- the dropout stream ---------------------------------------------------
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     "408f276d 41c83b0e a20bc7c6 6d5451fd"),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0), "d16cfe09 94fdcceb 5001e420 24126ea1"),
+])
+def test_philox_known_answers(counter, key, want):
+    """The Random123 known-answer vectors of Philox4x32-10."""
+    words = tfa.philox4x32_10(
+        [torch.tensor([c], dtype=torch.int64) for c in counter], key)
+    assert " ".join(f"{int(w[0]):08x}" for w in words) == want
+
+
+def test_keep_mask_is_independent_of_tiling():
+    """The draw of (b, h, q, k) is a pure function of the seed and the
+    element: any q/k tile of the whole mask equals the mask of that tile,
+    evaluated on its own at the tile's coordinates."""
+    seed, b, h, s = 2 ** 40 + 12345, 3, 2, 37
+    whole = tfa.dropout_bits(seed, b, h, s, s)
+    for q0, k0, qt, kt in [(0, 0, 16, 64), (16, 4, 16, 8), (5, 13, 7, 11),
+                           (32, 32, 5, 5)]:
+        q1, k1 = min(q0 + qt, s), min(k0 + kt, s)
+        tile = torch.empty(b, h, q1 - q0, k1 - k0, dtype=torch.int64)
+        for q in range(q0, q1):
+            for k in range(k0, k1):
+                words = tfa.philox4x32_10(
+                    (torch.tensor(k // 4), torch.tensor(q),
+                     torch.arange(h)[None, :], torch.arange(b)[:, None]),
+                    (seed & 0xFFFFFFFF, seed >> 32))
+                tile[:, :, q - q0, k - k0] = words[k % 4]
+        assert torch.equal(tile, whole[:, :, q0:q1, k0:k1])
+    assert torch.equal(tfa.dropout_bits(seed, b, h, s, 20),
+                       whole[..., :20])
+    assert not torch.equal(tfa.dropout_bits(seed + 1, b, h, s, s), whole)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_keep_rate_within_five_sigma(rate):
+    n = 8 * 12 * 50 * 50
+    keep = tfa.dropout_keep_mask(3, 8, 12, 50, 50, rate)
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(float(keep.double().mean()) - (1 - rate)) < 5 * sigma
+    assert tfa.dropout_threshold(rate) == round(rate * 2 ** 32)
+    assert tfa.dropout_threshold(1.0) == 2 ** 32 - 1
+
+
+# --- forward and backward against the JAX kernels at rate 0 --------------
+
+
+def _bf16_dqkv_close(got, want, p, pd, qkv, g, h=H, scale=SCALE):
+    bound = tfa.dqkv_bf16_bound(want, p, pd, qkv, g, n_heads=h,
+                                scale=scale)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("save", [True, False])
+def test_packed_grads_match_jax_kernels(jax_fa, dtype, save):
+    """Forward, p, and dqkv through kernel #3 (save) or #2 (recompute),
+    against jax.grad through the JAX entry (its Pallas kernels in
+    interpret mode), at rate 0."""
+    import jax
+
+    jnp, jfa = jax_fa
+    qkv, mask = _inputs(seed=4)
+    g = np.random.RandomState(5).randn(B, S, D).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def loss(x):
+        out = jfa.fused_attention_packed(x, jnp.asarray(mask), n_heads=H,
+                                         scale=SCALE, save_probs=save)
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    want_out = jfa.fused_attention_packed(
+        jnp.asarray(qkv, jd), jnp.asarray(mask), n_heads=H, scale=SCALE)
+    want_dqkv = jax.grad(loss)(jnp.asarray(qkv, jd))
+    bias = ((1.0 - jnp.asarray(mask, jnp.float32)) * -10000.0)[:, None, :]
+    _, want_p = jfa._fwd_packed_pallas(
+        jnp.asarray(qkv, jd), bias, jnp.zeros((1, 1), jnp.int32),
+        scale=SCALE, rate=0.0, n_heads=H, interpret=True, save=True)
+
+    x = torch.from_numpy(qkv).to(td).requires_grad_()
+    mask_t = torch.from_numpy(mask)
+    out = tfa.fused_attention_packed(x, mask_t, n_heads=H, scale=SCALE,
+                                     save_probs=save)
+    out.backward(torch.from_numpy(g).to(td))
+    _, p, pd = tfa.attn_fwd_packed_reference(x.detach(), mask_t, n_heads=H,
+                                             scale=SCALE, save=True)
+    assert pd is p and p.dtype == td
+    _assert_close(out.detach(), want_out, dtype)
+    _assert_close(p, want_p, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_dqkv),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_dqkv_close(x.grad, torch.from_numpy(
+            np.asarray(want_dqkv, np.float32)), p, pd, x.detach(),
+            torch.from_numpy(g).to(td))
+
+
+def test_plain_backward_versions_match_jax_kernels(jax_fa):
+    """The plain versions of #2 and #3 called directly, against the JAX
+    packed backward kernels in interpret mode (fp32, rate 0)."""
+    jnp, jfa = jax_fa
+    qkv, mask = _inputs(seed=6)
+    g = np.random.RandomState(7).randn(B, S, D).astype(np.float32)
+    bias = ((1.0 - jnp.asarray(mask, jnp.float32)) * -10000.0)[:, None, :]
+    seed = jnp.zeros((1, 1), jnp.int32)
+    kw = dict(scale=SCALE, n_heads=H, interpret=True)
+    _, jp = jfa._fwd_packed_pallas(jnp.asarray(qkv), bias, seed, rate=0.0,
+                                   save=True, **kw)
+    want_saved = jfa._bwd_packed_saved_pallas(jp, jp, jnp.asarray(qkv),
+                                              jnp.asarray(g), **kw)
+    want = jfa._bwd_packed_pallas(jnp.asarray(qkv), bias, seed,
+                                  jnp.asarray(g), rate=0.0, **kw)
+    t_qkv, t_mask, t_g = (torch.from_numpy(a) for a in (qkv, mask, g))
+    _, p, pd = tfa.attn_fwd_packed_reference(t_qkv, t_mask, n_heads=H,
+                                             scale=SCALE, save=True)
+    got_saved = tfa.attn_bwd_packed_saved_reference(p, pd, t_qkv, t_g,
+                                                    n_heads=H, scale=SCALE)
+    got = tfa.attn_bwd_packed_reference(t_qkv, t_mask, 0, t_g, n_heads=H,
+                                        scale=SCALE)
+    for a, w in ((got_saved, want_saved), (got, want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+# --- dropout on: the port's versions against each other -------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_backwards_agree_with_autograd(dtype):
+    """At rate 0.2 the saved (#3) and recompute (#2) backward agree with
+    each other and with torch.autograd through the plain forward with the
+    same keep mask; the saved pd is the plain mask bit for bit."""
+    rate, h = 0.2, H
+    qkv, mask = _inputs(seed=8)
+    g = torch.from_numpy(np.random.RandomState(9).randn(B, S, D)
+                         .astype(np.float32))
+    td = getattr(torch, dtype)
+    mask_t = torch.from_numpy(mask)
+    grads = {}
+    for save in (True, False):
+        x = torch.from_numpy(qkv).to(td).requires_grad_()
+        out = tfa.fused_attention_packed(
+            x, mask_t, n_heads=h, scale=SCALE, dropout_rate=rate,
+            dropout_rng=torch.Generator().manual_seed(11),
+            deterministic=False, save_probs=save)
+        out.backward(g.to(td))
+        grads[save] = (out.detach(), x.grad)
+    seed = draw_seed(torch.Generator().manual_seed(11))
+    x = torch.from_numpy(qkv).to(td)
+    out, p, pd = tfa.attn_fwd_packed_reference(
+        x, mask_t, n_heads=h, scale=SCALE, rate=rate, seed=seed, save=True)
+    keep = tfa.dropout_keep_mask(seed, B, h, S, S, rate)
+    live = p.float() > 0
+    assert torch.equal((pd.float() > 0)[live], keep[live])
+    assert torch.equal(grads[True][0], out)
+    assert torch.equal(grads[False][0], out)
+
+    # torch.autograd through the plain forward's math with this mask, fp32
+    xf = torch.from_numpy(qkv).requires_grad_()
+    pf = tfa._probs(xf, mask_t, h, SCALE)
+    pdf = torch.where(keep, pf * tfa.inv_keep(rate), 0.0)
+    v = tfa._heads(xf, h)[2]
+    ctx = torch.matmul(pdf, v).permute(0, 2, 1, 3).reshape(B, S, D)
+    ctx.backward(g)
+    if dtype == "float32":
+        for got in (grads[True][1], grads[False][1]):
+            np.testing.assert_allclose(got.numpy(), xf.grad.numpy(),
+                                       atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_dqkv_close(grads[True][1], grads[False][1], p, pd, x,
+                         g.to(td))
+
+
+def test_dropout_output_is_unbiased():
+    """E[out] over 64 seeds at rate 0.3 lies within 6 standard errors of
+    the rate-0 output, elementwise."""
+    qkv, mask = _inputs(seed=10)
+    x, mask_t = torch.from_numpy(qkv), torch.from_numpy(mask)
+    ref = tfa.attn_fwd_packed_reference(x, mask_t, n_heads=H, scale=SCALE)
+    outs = torch.stack([
+        tfa.attn_fwd_packed_reference(x, mask_t, n_heads=H, scale=SCALE,
+                                      rate=0.3, seed=seed)
+        for seed in range(64)]).double()
+    stderr = outs.std(dim=0) / 8.0
+    assert bool(((outs.mean(dim=0) - ref.double()).abs()
+                 <= 6 * stderr + 1e-6).all())
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_save_policy_and_override(monkeypatch):
+    monkeypatch.delenv("FUSED_ATTN_SAVE", raising=False)
+    # bert-base b256 S=50 bf16 at rate 0.1: 2 · 256·12·50·50·2 B ≈ 31 MB
+    assert tfa.resolve_save_probs(256, 12, 50, 0.1, 2)
+    assert not tfa.resolve_save_probs(4096, 12, 64, 0.1, 2)  # ≈ 805 MB
+    # exactly at the cap, then one byte past it
+    assert tfa.resolve_save_probs(4, 16, 1024, 0.0, 4)
+    assert not tfa.resolve_save_probs(4, 16, 1024, 0.1, 4)
+    assert not tfa.resolve_save_probs(2, 2, 4, 0.1, 2, save_probs=False)
+    monkeypatch.setenv("FUSED_ATTN_SAVE", "0")
+    assert not tfa.resolve_save_probs(2, 2, 4, 0.1, 2)
+    assert tfa.resolve_save_probs(2, 2, 4, 0.1, 2, save_probs=True)
+    monkeypatch.setenv("FUSED_ATTN_SAVE", "1")
+    assert tfa.resolve_save_probs(4096, 12, 64, 0.1, 2)
+
+
+def test_env_override_picks_the_backward(monkeypatch):
+    """FUSED_ATTN_SAVE=0 sends the backward through the recompute path;
+    the gradients agree either way."""
+    calls = []
+    for name in ("attn_bwd_packed", "attn_bwd_packed_saved"):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(
+            tfa, name,
+            lambda *a, _n=name, _r=real, **kw: calls.append(_n) or _r(*a,
+                                                                     **kw))
+    qkv, mask = _inputs(seed=12)
+    grads = []
+    for env in ("1", "0"):
+        monkeypatch.setenv("FUSED_ATTN_SAVE", env)
+        x = torch.from_numpy(qkv).requires_grad_()
+        tfa.fused_attention_packed(x, torch.from_numpy(mask), n_heads=H,
+                                   scale=SCALE).sum().backward()
+        grads.append(x.grad)
+    assert calls == ["attn_bwd_packed_saved", "attn_bwd_packed"]
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(),
+                               atol=1e-6)
+
+
+def test_backward_reach_raises_at_the_forward():
+    assert tfa.max_bwd_seq_len(64) == 140
+    assert tfa.max_bwd_seq_len(128) == 117
+    assert tfa.bwd_smem_bytes(140, 64) <= tfa.MAX_SMEM_BYTES
+    s = tfa.max_bwd_seq_len(DH) + 1
+    x = torch.zeros(1, s, 3 * D, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="B.4, B.8"):
+        tfa.fused_attention_packed(x, None, n_heads=H, scale=1.0)
+    with torch.no_grad():  # the forward alone keeps its S ≤ 512 reach
+        tfa.fused_attention_packed(x, None, n_heads=H, scale=1.0)
+
+
 # --- on the card --------------------------------------------------------
 
 
@@ -202,7 +467,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, b, s, h, dh):
     got = tfa.fused_attention_packed(qkv_t, mask_t, n_heads=h,
                                      scale=1.0 / dh ** 0.5)
     assert tfa.attn_fwd_packed_cuda.launches == before + 1
-    want = tfa.fused_attention_packed_reference(qkv_t, mask_t, n_heads=h,
+    want = tfa.attn_fwd_packed_reference(qkv_t, mask_t, n_heads=h,
                                                 scale=1.0 / dh ** 0.5)
     torch.cuda.synchronize()
     _assert_close(got.cpu(), want.cpu().float().numpy(), dtype)
@@ -234,3 +499,101 @@ def test_failed_launch_raises(cuda_device, monkeypatch):
                                              device=cuda_device),
                                  None, n_heads=1, scale=1.0)
     assert tfa.attn_fwd_packed_cuda.launches == before
+
+
+def _card_case(device, dtype, b, s, h, dh, seed):
+    qkv, mask = _inputs(b, s, h, dh, seed=seed)
+    g = np.random.RandomState(seed + 1).randn(b, s, h * dh).astype(
+        np.float32)
+    td = getattr(torch, dtype)
+    return (torch.from_numpy(qkv).to(device, td),
+            torch.from_numpy(mask).to(device).float(),
+            torch.from_numpy(g).to(device, td))
+
+
+TRAIN_SHAPES = [
+    ("bfloat16", 256, 50, 12, 64),   # the training shape of the bench
+    ("float32", 4, 77, 12, 64),
+    ("bfloat16", 2, 140, 4, 64),     # the backward's longest S at Dh = 64
+    ("float32", 3, 33, 2, 128),      # the widest head
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,dh", TRAIN_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_training_kernels_match_plain_on_card(cuda_device, dtype, b, s, h,
+                                              dh, rate):
+    """#1 with dropout and save, #3 and #2 against their plain versions;
+    the keep mask bit for bit; #2 against #3; same seed, same bits."""
+    qkv, mask, g = _card_case(cuda_device, dtype, b, s, h, dh, seed=13)
+    scale, seed = 1.0 / dh ** 0.5, 2 ** 62 + 17
+    kw = dict(n_heads=h, scale=scale)
+    out, p, pd = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
+                                          save=True, **kw)
+    r_out, r_p, r_pd = tfa.attn_fwd_packed_reference(
+        qkv, mask, rate=rate, seed=seed, save=True, **kw)
+    for got, want in ((out, r_out), (p, r_p), (pd, r_pd)):
+        _assert_close(got.cpu(), want.cpu().float().numpy(), dtype)
+    if rate > 0:
+        keep = tfa.dropout_keep_mask(seed, b, h, s, s, rate, cuda_device)
+        live = p > 0
+        assert torch.equal((pd > 0)[live], keep[live])
+    else:
+        assert pd is p
+    saved = tfa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+    recomputed = tfa.attn_bwd_packed_cuda(qkv, mask, seed, g, rate=rate,
+                                          **kw)
+    r_saved = tfa.attn_bwd_packed_saved_reference(p, pd, qkv, g, **kw)
+    r_recomputed = tfa.attn_bwd_packed_reference(qkv, mask, seed, g,
+                                                 rate=rate, **kw)
+    torch.cuda.synchronize()
+    pairs = [(saved, r_saved), (recomputed, r_recomputed),
+             (recomputed, saved)]
+    for got, want in pairs:
+        if dtype == "float32":
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            bound = tfa.dqkv_bf16_bound(want, p, pd, qkv, g, **kw)
+            assert bool(((got.float() - want.float()).abs()
+                         <= bound).all())
+    again = tfa.attn_bwd_packed_cuda(qkv, mask, seed, g, rate=rate, **kw)
+    out2, p2, pd2 = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate,
+                                             seed=seed, save=True, **kw)
+    assert torch.equal(again, recomputed)
+    assert torch.equal(out2, out) and torch.equal(pd2, pd)
+    assert torch.equal(tfa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw),
+                       saved)
+
+
+@pytest.mark.cuda
+def test_training_forward_modes_share_the_output(cuda_device):
+    """Saving the probs does not change the output; rate 0 with no save
+    is the serving launch."""
+    qkv, mask, _ = _card_case(cuda_device, "bfloat16", 8, 50, 12, 64, 14)
+    kw = dict(n_heads=12, scale=0.125)
+    for rate in (0.0, 0.1):
+        plain = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=5, **kw)
+        saved = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=5,
+                                         save=True, **kw)[0]
+        assert torch.equal(plain, saved)
+
+
+@pytest.mark.cuda
+def test_autograd_launches_the_kernels(cuda_device, monkeypatch):
+    qkv, mask, g = _card_case(cuda_device, "bfloat16", 4, 50, 12, 64, 15)
+    counts = lambda: (tfa.attn_fwd_packed_cuda.launches,  # noqa: E731
+                      tfa.attn_bwd_packed_saved_cuda.launches,
+                      tfa.attn_bwd_packed_cuda.launches)
+    for env, want in (("1", (1, 1, 0)), ("0", (1, 0, 1))):
+        monkeypatch.setenv("FUSED_ATTN_SAVE", env)
+        before = counts()
+        x = qkv.clone().requires_grad_()
+        out = tfa.fused_attention_packed(
+            x, mask, n_heads=12, scale=0.125, dropout_rate=0.1,
+            dropout_rng=torch.Generator().manual_seed(1),
+            deterministic=False)
+        out.backward(g)
+        assert tuple(a - b for a, b in zip(counts(), before)) == want

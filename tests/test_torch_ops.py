@@ -29,6 +29,7 @@ from bert_multimodal_transformer_tpu_torch import config as tcfg
 from bert_multimodal_transformer_tpu_torch.data import pipeline as tpipe
 from bert_multimodal_transformer_tpu_torch.ops import activations as tact
 from bert_multimodal_transformer_tpu_torch.ops import attention as tattn
+from bert_multimodal_transformer_tpu_torch.ops import dropout as tdrop
 from bert_multimodal_transformer_tpu_torch.ops import mag as tmag
 from bert_multimodal_transformer_tpu_torch.training import losses as tlosses
 from bert_multimodal_transformer_tpu_torch.training import metrics as tmetrics
@@ -100,11 +101,57 @@ def test_dot_product_attention_matches_jax(dtype, extras):
 
 
 def test_dot_product_attention_dropout_raises():
-    q, k, v, _ = _qkv()
+    """Rate > 0 in training mode without a generator raises; with one,
+    about 1 − rate of the probs are kept (within 5σ), each scaled by
+    1/(1 − rate); deterministic=True turns the rate off."""
+    q, k, v, _ = _qkv(b=4, h=4, s=32)
     t = [torch.from_numpy(x) for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(ValueError, match="requires dropout_rng"):
         tattn.dot_product_attention(*t, None, scale=1.0, dropout_rate=0.1,
                                     deterministic=False)
+    rate = 0.25
+    ctx, probs = tattn.dot_product_attention(
+        *t, None, scale=0.35, dropout_rate=rate, deterministic=False,
+        dropout_rng=torch.Generator().manual_seed(0), return_probs=True)
+    _, plain = tattn.dot_product_attention(*t, None, scale=0.35,
+                                           return_probs=True)
+    keep = probs != 0
+    n = keep.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(float(keep.double().mean()) - (1 - rate)) < 5 * sigma
+    torch.testing.assert_close(probs[keep], plain[keep] / (1 - rate),
+                               rtol=0, atol=0)
+    want = torch.matmul(probs, torch.from_numpy(v))
+    torch.testing.assert_close(ctx, want, rtol=0, atol=FP32_ATOL)
+    again = tattn.dot_product_attention(
+        *t, None, scale=0.35, dropout_rate=rate, deterministic=True)
+    torch.testing.assert_close(again, torch.matmul(plain, t[2]), rtol=0,
+                               atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_scales_like_flax(dtype, rate):
+    """Where both keep an element, the port's dropout and Flax's
+    nn.Dropout give the same bits: x / (1 − rate) with the divisor rounded
+    to x's dtype first (bf16(0.9) = 0.8984375). The streams differ, so
+    only the elements both keep are compared; a missing generator
+    raises."""
+    import flax.linen as fnn
+
+    x = np.random.RandomState(3).randn(64, 96).astype(np.float32) + 0.1
+    jd, td = jcfg.dtype_from_str(dtype), tcfg.dtype_from_str(dtype)
+    want = _np(fnn.Dropout(rate, deterministic=False).apply(
+        {}, jnp.asarray(x, jd), rngs={"dropout": jax.random.PRNGKey(0)}))
+    got = tdrop.dropout(torch.from_numpy(x).to(td), rate,
+                        torch.Generator().manual_seed(0))
+    assert got.dtype == td
+    got = _np(got)
+    both = (got != 0) & (want != 0)
+    assert both.sum() > 0.2 * x.size
+    np.testing.assert_array_equal(got[both], want[both])
+    with pytest.raises(ValueError, match="generator"):
+        tdrop.dropout(torch.from_numpy(x), rate, None)
 
 
 def _mag_inputs(seed=0, n=6, d=16, dv=5, da=7):
@@ -298,7 +345,7 @@ def test_configs_match_jax_package():
 @pytest.mark.parametrize("kw,item", [
     ({"qkv_fusion": True}, "B.10"),
     ({"tp_attention_mesh": object()}, "A.10"),
-    ({"attention_impl": "flash"}, "A.3"),
+    ({"attention_impl": "flash"}, "A.2"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -322,6 +369,8 @@ def test_port_imports_no_jax():
         "import bert_multimodal_transformer_tpu_torch.utils.convert\n"
         "import bert_multimodal_transformer_tpu_torch.utils.seeding\n"
         "import bert_multimodal_transformer_tpu_torch.utils.profiling\n"
+        "import bert_multimodal_transformer_tpu_torch.training.trainer\n"
+        "import bert_multimodal_transformer_tpu_torch.training.optim\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'bert_multimodal_transformer_tpu')]\n"
         "assert not bad, bad\n"
