@@ -59,14 +59,8 @@ class MultimodalConfig:
     # Encoder layer the gate is injected before: 0 for BERT (the embedding
     # output), 1 for XLNet.
     injection_index: int = 0
-    # The fused MAG kernel is not ported yet (ROADMAP B.2).
+    # Route the gate through the fused kernels (ops/mag_fused.py).
     use_fused_kernel: bool = False
-
-    def __post_init__(self):
-        if self.use_fused_kernel:
-            raise NotImplementedError(
-                "use_fused_kernel: the fused MAG gate kernel is not ported "
-                "yet (ROADMAP B.2)")
 
 
 @dataclasses.dataclass(frozen=True)

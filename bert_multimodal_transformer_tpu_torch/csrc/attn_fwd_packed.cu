@@ -285,8 +285,4 @@ int attn_fwd_packed(const void* qkv, const void* mask, void* out, void* p,
   }
 }
 
-const char* attn_fwd_packed_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

@@ -1,7 +1,8 @@
-// Helpers shared by the packed attention kernels (attn_fwd_packed.cu,
-// attn_bwd_packed.cu, attn_bwd_packed_saved.cu): dtype conversion, the
-// Philox4x32-10 dropout stream, and the small shared-memory products of
-// the backward kernels.
+// Helpers shared by the port's kernels: dtype conversion and the opt-in to
+// the largest dynamic shared memory (every kernel); the Philox4x32-10
+// dropout stream and the small shared-memory products of the backward
+// kernels (the packed attention kernels, attn_fwd_packed.cu,
+// attn_bwd_packed.cu, attn_bwd_packed_saved.cu).
 //
 // The dropout stream. Element (b, h, q, k) of the [B, H, S, S] probs is
 // kept iff its 32-bit draw is >= threshold, where

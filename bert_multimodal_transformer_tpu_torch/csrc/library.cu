@@ -1,0 +1,13 @@
+// The library-wide entries of the port's kernel library (every csrc/*.cu
+// links into one shared object, ops/kernels.py).
+
+#include <cuda_runtime.h>
+
+extern "C" {
+
+// The message of a cudaError_t that an entry returned.
+const char* torch_kernels_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,14 +1,20 @@
-"""Fixed-shape split and batching: a numpy-only copy of ``PackedSplit`` and
-``BatchIterator`` from the JAX package's ``data/pipeline.py`` (the port
-cannot import that package, whose ``__init__`` pulls in jax). ROADMAP A.12
-moves the shared modules to one package; until then the tests hold this
-copy equal to the original.
+"""Host-side data pipeline: a numpy-only copy of the JAX package's
+``data/pipeline.py`` (the port cannot import that package, whose
+``__init__`` pulls in jax). ROADMAP A.12 moves the shared modules to one
+package; until then the tests hold this copy equal to the original.
+
+Per-example word→subword alignment with modality replication, BERT
+right-padded packing (the XLNet family's waits for ROADMAP A.7), the
+split packed once into contiguous fixed-shape numpy arrays, and the
+batch iterators: every batch is exactly [B, max_seq_length, ·]; the
+ragged last batch is padded and masked so every example is used.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+import pickle
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +45,135 @@ class PackedSplit:
     def as_tuple(self):
         return (self.input_ids, self.visual, self.acoustic, self.input_mask,
                 self.segment_ids, self.label_ids)
+
+
+def align_modalities(
+    words: Sequence[str],
+    visual: np.ndarray,
+    acoustic: np.ndarray,
+    tokenizer,
+) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """Tokenize word-by-word and replicate each word's visual/acoustic row
+    for every subword piece (reference multimodal_driver.py:89-106); with
+    ``prepare_bert_input``, the per-example form of ``convert_to_features``,
+    which the tests hold it against."""
+    tokens: List[str] = []
+    inversions: List[int] = []
+    for idx, word in enumerate(words):
+        pieces = tokenizer.tokenize(word)
+        tokens.extend(pieces)
+        inversions.extend([idx] * len(pieces))
+    assert len(tokens) == len(inversions)
+    if inversions:
+        inv = np.asarray(inversions, np.int64)
+        visual = np.asarray(visual)[inv]
+        acoustic = np.asarray(acoustic)[inv]
+    else:
+        visual = np.zeros((0, np.asarray(visual).shape[-1]))
+        acoustic = np.zeros((0, np.asarray(acoustic).shape[-1]))
+    return tokens, visual, acoustic
+
+
+def prepare_bert_input(tokens, visual, acoustic, tokenizer, max_seq_length):
+    """[CLS] tokens [SEP], zero modality rows for specials, right-pad with
+    zeros (reference multimodal_driver.py:143-173). The per-example form
+    of ``convert_to_features``, which the tests hold it against."""
+    dv, da = visual.shape[-1], acoustic.shape[-1]
+    visual = np.concatenate([np.zeros((1, dv)), visual, np.zeros((1, dv))])
+    acoustic = np.concatenate([np.zeros((1, da)), acoustic,
+                               np.zeros((1, da))])
+    cls_id, sep_id = tokenizer.convert_tokens_to_ids(
+        [tokenizer.cls_token, tokenizer.sep_token])
+    input_ids = ([cls_id] + tokenizer.convert_tokens_to_ids(list(tokens))
+                 + [sep_id])
+    n = len(input_ids)
+    pad = max_seq_length - n
+    input_ids = input_ids + [0] * pad
+    input_mask = [1] * n + [0] * pad
+    segment_ids = [0] * max_seq_length
+    visual = np.concatenate([visual, np.zeros((pad, dv))])
+    acoustic = np.concatenate([acoustic, np.zeros((pad, da))])
+    return input_ids, visual, acoustic, input_mask, segment_ids
+
+
+def convert_to_features(
+    examples: Sequence[Any],
+    max_seq_length: int,
+    tokenizer,
+    model_family: str = "bert",
+    visual_dim: Optional[int] = None,
+    acoustic_dim: Optional[int] = None,
+) -> PackedSplit:
+    """Pack a list of ((words, visual, acoustic), label, segment) examples —
+    the documented pickle layout (reference README.md:134-149) — into a
+    PackedSplit. Mirrors convert_to_features (multimodal_driver.py:82-140),
+    including truncation to max_seq_length−2 before the two specials. The
+    BERT packing; the XLNet family's waits for ROADMAP A.7."""
+    if model_family != "bert":
+        raise NotImplementedError(
+            f"model_family={model_family!r}: only the BERT packing is "
+            "ported (the XLNet family waits for ROADMAP A.7)")
+    n = len(examples)
+    s = max_seq_length
+    if visual_dim is None:
+        visual_dim = (np.asarray(examples[0][0][1]).shape[-1]
+                      if examples else 0)
+    if acoustic_dim is None:
+        acoustic_dim = (np.asarray(examples[0][0][2]).shape[-1]
+                        if examples else 0)
+
+    # Preallocate the packed buffers and write each example's rows in
+    # place — the reference's per-example list/concat assembly
+    # (multimodal_driver.py:130-140, 143-205) is the startup hot loop.
+    out_ids = np.zeros((n, s), np.int32)
+    out_vis = np.zeros((n, s, visual_dim), np.float32)
+    out_ac = np.zeros((n, s, acoustic_dim), np.float32)
+    out_mask = np.zeros((n, s), np.int32)
+    out_seg = np.zeros((n, s), np.int32)
+    out_lab = np.zeros((n,), np.float32)
+    cls_id, sep_id = tokenizer.convert_tokens_to_ids(
+        [tokenizer.cls_token, tokenizer.sep_token])
+
+    for i, example in enumerate(examples):
+        (words, visual, acoustic), label_id, _segment = example
+        token_ids = []
+        inversions = []
+        for w_idx, word in enumerate(words):
+            pieces = tokenizer.tokenize(word)
+            token_ids.extend(tokenizer.convert_tokens_to_ids(pieces))
+            inversions.extend([w_idx] * len(pieces))
+        inv = np.asarray(inversions, np.int64)
+        if len(token_ids) > s - 2:
+            token_ids = token_ids[: s - 2]
+            inv = inv[: s - 2]
+        m = len(token_ids)
+        visual = np.asarray(visual, np.float32)
+        acoustic = np.asarray(acoustic, np.float32)
+        # [CLS] tokens [SEP], zero modality rows for the specials, right-pad
+        # (reference multimodal_driver.py:143-173)
+        out_ids[i, 0] = cls_id
+        out_ids[i, 1:m + 1] = token_ids
+        out_ids[i, m + 1] = sep_id
+        out_mask[i, : m + 2] = 1
+        out_vis[i, 1:m + 1] = visual[inv]
+        out_ac[i, 1:m + 1] = acoustic[inv]
+        out_lab[i] = np.float32(np.asarray(label_id).reshape(()))
+
+    return PackedSplit(
+        input_ids=out_ids, visual=out_vis, acoustic=out_ac,
+        input_mask=out_mask, segment_ids=out_seg, label_ids=out_lab,
+    )
+
+
+def load_pickle_splits(path: str) -> Dict[str, list]:
+    """Load the {train/dev/test: [examples]} pickle the reference consumes
+    (multimodal_driver.py:249-255)."""
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    for split in ("train", "dev", "test"):
+        if split not in data:
+            raise ValueError(f"dataset pickle missing split {split!r}")
+    return data
 
 
 class BatchIterator:
@@ -108,3 +243,58 @@ class BatchIterator:
             valid = np.zeros(b, bool)
             valid[:rem] = True
             yield padded, valid
+
+
+def set_up_data_loaders(
+    pickle_path: str,
+    tokenizer,
+    *,
+    model_family: str,
+    max_seq_length: int,
+    train_batch_size: int,
+    dev_batch_size: int,
+    test_batch_size: int,
+    n_epochs: int,
+    gradient_accumulation_step: int = 1,
+    seed: int = 0,
+    num_processes: int = 1,
+    process_id: int = 0,
+) -> Tuple[BatchIterator, BatchIterator, BatchIterator, int]:
+    """End-to-end split setup mirroring set_up_data_loader
+    (multimodal_driver.py:249-286), including the optimizer-step count.
+    ``num_processes > 1`` (per-process views of each global batch) waits
+    for ROADMAP A.10 and raises."""
+    if num_processes > 1 or process_id:
+        raise NotImplementedError(
+            "multi-process data loading is not ported yet (ROADMAP A.10)")
+    data = load_pickle_splits(pickle_path)
+    splits = {
+        name: convert_to_features(data[name], max_seq_length, tokenizer,
+                                  model_family)
+        for name in ("train", "dev", "test")
+    }
+    # Reference semantics (multimodal_driver.py:261-267,375-386):
+    # the optimizer steps once per `gradient_accumulation_step` loader
+    # batches of size `train_batch_size`, i.e. effective batch = B*N.
+    # The trainer splits the micro-batches *inside* one step, so
+    # the loader yields B*N rows per step and the reference's
+    # optimizer-step count formula carries over unchanged.
+    num_train_optimization_steps = int(
+        len(splits["train"]) / train_batch_size
+        / gradient_accumulation_step) * n_epochs
+    # drop_remainder=False: the reference trains on the ragged final batch
+    # (multimodal_driver.py:269-279,358-386); the Trainer routes it through
+    # the masked step (zero-padded to shape, masked-mean loss — same math,
+    # fixed shapes). MOSI-scale effect of dropping it instead would be
+    # ~33/1281 examples (2.6%) untrained per epoch.
+
+    def _make(split, bs, shuffle, s=0):
+        return BatchIterator(split, bs, shuffle=shuffle,
+                             drop_remainder=False, seed=s)
+
+    train_it = _make(splits["train"],
+                     train_batch_size * gradient_accumulation_step,
+                     True, s=seed)
+    dev_it = _make(splits["dev"], dev_batch_size, False)
+    test_it = _make(splits["test"], test_batch_size, False)
+    return train_it, dev_it, test_it, num_train_optimization_steps

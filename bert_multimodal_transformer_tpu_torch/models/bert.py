@@ -9,7 +9,9 @@ and compute runs in ``dtype`` with the JAX package's rounding points:
   ``dtype`` after the product (Flax ``Dense(dtype=...)``);
 * the embedding sum is fp32, then cast;
 * LayerNorm computes in fp32 and casts back;
-* the MAG gate runs in fp32 on modality features cast to ``dtype``;
+* the MAG gate runs in fp32 on modality features cast to ``dtype``, as
+  plain PyTorch or, with ``MultimodalConfig.use_fused_kernel``, through
+  the fused gate kernels behind ``ops/mag_fused.py``;
 * logits are returned in fp32.
 
 The large products (QKV, output, FFN, pooler, classifier) are plain
@@ -341,7 +343,8 @@ class MagBertModel(nn.Module):
         self.embeddings = BertEmbeddings(config, dtype, device=device)
         self.MAG = MAG(config.hidden_size, visual_dim, acoustic_dim,
                        beta_shift=mm.beta_shift,
-                       dropout_prob=mm.dropout_prob, device=device,
+                       dropout_prob=mm.dropout_prob,
+                       use_fused_kernel=mm.use_fused_kernel, device=device,
                        generator=generator)
         self.encoder = BertEncoder(config, dtype, device=device)
         self.pooler = BertPooler(config, dtype, device=device)

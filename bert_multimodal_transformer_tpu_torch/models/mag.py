@@ -1,8 +1,9 @@
 """MAG as an ``nn.Module`` (port of ``models/mag.py``).
 
 The params keep the JAX package's names and ``x @ W`` ([in, out]) layout,
-so ``ops.mag.mag_gate`` takes the module's params as they are and
-``utils/convert.params_from_flax`` passes them through unchanged.
+so ``ops.mag.mag_gate`` and ``ops.mag_fused.mag_gate_fused`` take the
+module's params as they are and ``utils/convert.params_from_flax`` passes
+them through unchanged.
 """
 
 from __future__ import annotations
@@ -14,18 +15,23 @@ from torch import nn
 
 from bert_multimodal_transformer_tpu_torch.ops import mag as mag_ops
 from bert_multimodal_transformer_tpu_torch.ops.dropout import dropout
+from bert_multimodal_transformer_tpu_torch.ops.mag_fused import (
+    mag_gate_fused,
+)
 
 
 class MAG(nn.Module):
     """Multimodal Adaptation Gate: ``forward(text, visual, acoustic)``,
-    then output dropout at ``dropout_prob`` (the JAX module's last step)."""
+    then output dropout at ``dropout_prob`` (the JAX module's last step).
+    ``use_fused_kernel`` routes the gate through the fused kernels
+    (``ops/mag_fused.py``); the dropout stays outside them."""
 
     PARAM_NAMES = ("w_hv_v", "w_hv_t", "b_hv", "w_ha_a", "w_ha_t", "b_ha",
                    "w_v", "b_v", "w_a", "b_a", "ln_gamma", "ln_beta")
 
     def __init__(self, hidden_size: int, visual_dim: int, acoustic_dim: int,
                  beta_shift: float = 1.0, dropout_prob: float = 0.5,
-                 *, device=None,
+                 use_fused_kernel: bool = False, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.hidden_size = hidden_size
@@ -33,6 +39,7 @@ class MAG(nn.Module):
         self.acoustic_dim = acoustic_dim
         self.beta_shift = beta_shift
         self.dropout_prob = dropout_prob
+        self.use_fused_kernel = use_fused_kernel
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         init = mag_ops.init_mag_params(generator, hidden_size, visual_dim,
@@ -59,6 +66,7 @@ class MAG(nn.Module):
                 ) -> torch.Tensor:
         """``dropout_rng``: a generator on the activations' device, needed
         when not ``deterministic``."""
-        fused = mag_ops.mag_gate(self.params_dict(), text_embedding, visual,
-                                 acoustic, beta_shift=self.beta_shift)
+        gate = mag_gate_fused if self.use_fused_kernel else mag_ops.mag_gate
+        fused = gate(self.params_dict(), text_embedding, visual, acoustic,
+                     beta_shift=self.beta_shift)
         return dropout(fused, self.dropout_prob, dropout_rng, deterministic)

@@ -28,45 +28,35 @@ how a kernel tiles the work, and the recompute backward replays it
 exactly. The seed is drawn on the host from an explicit CPU
 ``torch.Generator``; nothing reads a device tensor back.
 
-``load_kernels`` builds ``csrc/*.cu`` with nvcc (one process per source,
-in parallel, then one link) into a shared library with a plain C interface
-(``build/torch_kernels/``, keyed by a hash of the sources and flags) at
-first use, and binds it with ctypes.
+``ops/kernels.py`` builds ``csrc/*.cu`` into one shared library with a
+plain C interface at first use, binds it with ctypes and launches its
+entries.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
+from bert_multimodal_transformer_tpu_torch.ops.kernels import (
+    DTYPE_CODES as _DTYPE_CODES,
+    MAX_SMEM_BYTES,
+    check_sm90,
+    launch as _launch,
+    ptr as _ptr,
+)
 
 # Longest sequence the forward's shared-memory plan takes
 # (max_position_embeddings of bert-base).
 MAX_SEQ_LEN = 512
 MAX_HEAD_DIM = 128
-# The backward kernels hold one (batch row, head)'s [S, S] problem in the
-# dynamic shared memory a block may opt into on sm_90 (227 KB).
-MAX_SMEM_BYTES = 232448
 # Save the probs for the backward while they stay under this many bytes
 # per call (the JAX package's auto policy).
 SAVE_PROBS_CAP_BYTES = 256 * 1024 * 1024
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib: Optional[ctypes.CDLL] = None
 
 
 # ---- the dropout stream ---------------------------------------------------
@@ -279,109 +269,6 @@ def dqkv_bf16_bound(ref, p, pd, qkv, g, *, n_heads, scale) -> torch.Tensor:
     return 2.0 ** -7 * (ref.float().abs() + a) + 2.0 ** -17
 
 
-# ---- build and bind -------------------------------------------------------
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and under $CUDA_HOME or "
-        "/usr/local/cuda): the CUDA kernels cannot be built")
-
-
-def _sources():
-    """Every kernel source and header (what the library's hash covers)."""
-    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
-
-
-def library_path() -> Path:
-    """Where the shared library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return _BUILD_DIR / f"libtorch_kernels_{digest.hexdigest()[:16]}.so"
-
-
-def build_kernels() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library unless a build of the
-    same sources and flags exists: one nvcc process per source, all
-    started together, then one link. nvcc's output (``-Xptxas -v``: each
-    kernel's registers, shared memory and spills) is kept beside the
-    library as ``.log``. Raises if any step fails."""
-    lib_path = library_path()
-    if lib_path.exists():
-        return lib_path
-    nvcc = _nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{lib_path.stem}.{os.getpid()}"
-    tmp = lib_path.with_name(f"{tag}.tmp")
-    jobs = []
-    for src in _sources():
-        if src.suffix != ".cu":
-            continue
-        obj = _BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    log, failed = [], []
-    for cmd, _, proc in jobs:
-        out = proc.communicate()[0]
-        log.append(f"$ {' '.join(cmd)}\n{out}")
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed with exit code {proc.returncode}:\n"
-                          f"{' '.join(cmd)}\n{out}")
-    objs = [obj for _, obj, _ in jobs]
-    try:
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        cmd = [nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-               *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    lib_path.with_suffix(".log").write_text("\n".join(log))
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def load_kernels() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' library, with every
-    argument type declared: a pointer or stream passed without
-    ``c_void_p`` would be cut to 32 bits."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        u64, u32 = ctypes.c_ulonglong, ctypes.c_uint
-        dims = [i32, i32, i32, i32, f32]          # B, S, H, Dh, scale
-        drop = [i32, u64, u32, f32]               # on, seed, thresh, inv_keep
-        lib.attn_fwd_packed.argtypes = ([ptr] * 5 + dims + drop
-                                        + [i32, ptr])
-        lib.attn_bwd_packed.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
-        lib.attn_bwd_packed_saved.argtypes = [ptr] * 5 + dims + [i32, ptr]
-        for fn in (lib.attn_fwd_packed, lib.attn_bwd_packed,
-                   lib.attn_bwd_packed_saved):
-            fn.restype = ctypes.c_int
-        lib.attn_fwd_packed_error_string.argtypes = [i32]
-        lib.attn_fwd_packed_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
 # ---- CUDA wrappers ----------------------------------------------------------
 
 
@@ -437,10 +324,7 @@ def _check_cuda(name: str, qkv: torch.Tensor, n_heads: int, max_s: int):
         raise ValueError(f"{name}: S={s} exceeds the kernel's {max_s}")
     if b > 65535 or n_heads > 65535:
         raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
-    if torch.cuda.get_device_capability(qkv.device) != (9, 0):
-        raise RuntimeError(
-            f"the kernels are built for sm_90a; {qkv.device} is "
-            f"{torch.cuda.get_device_name(qkv.device)}")
+    check_sm90(qkv)
     return b, s, d, dh
 
 
@@ -470,20 +354,6 @@ def _drop_args(rate: float, seed: int):
         return [0, 0, 0, 0.0]
     return [1, int(seed) & 0xFFFFFFFFFFFFFFFF, dropout_threshold(rate),
             inv_keep(rate)]
-
-
-def _launch(fn_name: str, *args, device) -> None:
-    lib = load_kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        msg = lib.attn_fwd_packed_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def attn_fwd_packed_cuda(

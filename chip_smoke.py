@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Serving kernel against its plain PyTorch version on the card, on seeded
    ragged masks with one fully padded row: bf16 at B=128 S=50 (the serving
    shape), bf16 at B=8 S=512, fp32 at B=4 S=77; then both timed at the
-   serving shape.
+   serving shape, beside ``scaled_dot_product_attention`` on the same
+   inputs (the library call that computes the same function at rate 0).
 3b. Training kernels against their plain versions on the card, bf16 at
    B=256 S=50 (the training shape of the bench) and fp32 at B=4 S=77, at
    rate 0.1 and 0: #1 with dropout and saved probs (its keep mask equal to
@@ -19,6 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    probs) and #2 (recompute) against the plain backward and against
    torch.autograd through the plain forward, #2 against #3, and the same
    bits from the same seed twice; then the three timed at B=256 S=50.
+3c. The fused MAG gate's kernels (#25 forward, #26 backward chain) against
+   their plain versions on the card: bf16 and fp32 text at N=12800 (B=256,
+   S=50), D=768, MOSI's 47/74, beta 1e-3, 1 and 1e6; a ragged B=3 S=33;
+   MOSEI's 35/74 once. #26's six outputs, and the final gradients built
+   from them, against the plain chain's. Then both timed against their
+   plain versions at N = 2400, 6400 and 12800 (bf16).
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -43,8 +50,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
    20 steps after 3 warm-up steps, the per-step median and spread, the
    peak memory, and one step's device time by kernel and busy share.
-6. The result: a JSON line for the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+6. The driver on the card: ``driver.main`` in this process with
+   ``--model bert-base-uncased --dataset mosi --synthetic
+   --synthetic_sizes 1281 229 685 --n_epochs 1 --use_fused_mag
+   --attention_impl fused --compute_dtype bfloat16``. Checks: exit 0,
+   finite losses, #25 once per forward batch (27 train + 2 dev + 6 test),
+   #26 once per train step, #1 and #3 as in 4b. Then at dropout 0, from one
+   copy of the weights, one step with the fused gate against the plain
+   gate: every leaf's gradient within a stated bound, which the same step
+   with dpv zeroed in #26's output must break; and the device time of the
+   gate's forward and backward alone against a whole training step's,
+   fused and plain.
+7. The result: a JSON line for the kernels (launches on the paths, max
+   error against the plain version, times, the bound and the library
+   call), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -100,10 +119,37 @@ GRAD_GAP_TOL = 5e-2
 # Findings); the bound is about ten times that. Too coarse to see a wrong
 # gradient at lr 1e-5: the gradient check above is the one with power.
 LOSS_ATOL = 4e-2
+# Phase 3c. #25 against its plain version: fp32 1e-5 relative plus 1e-5
+# absolute (the same math summed in another order); bf16 one bf16 rounding
+# of the output, 2^-7 relative, plus 1e-5 absolute.
+MAG_FP32_TOL = 1e-5
+MAG_BF16_RTOL, MAG_ATOL = 2.0 ** -7, 1e-5
+# #26's six fp32 outputs, and the final gradients built from them: 2e-4
+# relative and absolute, the band of the JAX package's own test of its
+# backward kernel. An element whose pre-activation lies within MAG_TIE of 0
+# may take the other side of the ReLU when the products sum in another
+# order; such elements are counted and left out of the chain's check, and
+# take the plain chain's values before the final gradients are built (a
+# bias gradient sums 12800 rows that mostly cancel, so a few such elements
+# move it past the band). Input gradients returned in bf16 are rounded
+# once more: 2^-7 relative there.
+MAG_BWD_TOL, MAG_TIE = 2e-4, 1e-5
+# Phase 6: one dropout-0 step with the fused gate against the plain gate,
+# per leaf as in 4b. The two gates round their bf16 outputs from fp32 sums
+# taken in other orders; a flipped rounding moves the step's gradients by a
+# few bf16 ulps. dpv zeroed moves the gate's W_hv leaves by their whole
+# norm (1.0).
+GATE_GAP_TOL = 5e-2
+# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): device memory
+# bytes/s, dense bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor
+# cores. A kernel's bound is the larger of its bytes over the first and its
+# operations over the rate of their type.
+HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 # Kernel-name substrings that sort a profile into groups (the first match
 # wins; the rest is "other elementwise").
 PROFILE_GROUPS = (
     ("attention kernels (csrc)", ("attn_fwd_packed", "attn_bwd_packed")),
+    ("MAG gate kernels (csrc)", ("mag_fwd_kernel", "mag_bwd_kernel")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm")),
     ("AdamW _foreach", ("multi_tensor_apply",)),
     ("host copies, memsets", ("Memcpy", "Memset")),
@@ -151,16 +197,65 @@ def _alternate(run_plain, run_kernel, iters):
     return rounds["kernel"], rounds["plain"]
 
 
+def _wrappers(fa):
+    from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
+
+    return {"attn_fwd_packed": fa.attn_fwd_packed_cuda,
+            "attn_bwd_packed_saved": fa.attn_bwd_packed_saved_cuda,
+            "attn_bwd_packed": fa.attn_bwd_packed_cuda,
+            "mag_fwd": mf.mag_fwd_cuda, "mag_bwd": mf.mag_bwd_cuda}
+
+
 def _counts(fa):
-    return {"attn_fwd_packed": fa.attn_fwd_packed_cuda.launches,
-            "attn_bwd_packed_saved": fa.attn_bwd_packed_saved_cuda.launches,
-            "attn_bwd_packed": fa.attn_bwd_packed_cuda.launches}
+    return {name: fn.launches for name, fn in _wrappers(fa).items()}
 
 
 def _zero_counts(fa):
-    for fn in (fa.attn_fwd_packed_cuda, fa.attn_bwd_packed_saved_cuda,
-               fa.attn_bwd_packed_cuda):
+    for fn in _wrappers(fa).values():
         fn.launches = 0
+
+
+def _bound(n_bytes, n_ops, op_rate):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over their type's peak rate."""
+    mem_ms, ops_ms = n_bytes / HBM_BYTES_S * 1e3, n_ops / op_rate * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def attn_bound(kind, b, s, h, dh, itemsize, rate=0.0, save=False):
+    """The bound of attention kernel ``kind`` at [B, S, H, Dh]: each input
+    read once, each output written once; the products on the bf16 tensor
+    cores (2·B·H·S²·Dh operations each: QKᵀ and PV forward; dV, d(pd), dQ
+    and dK backward, plus QKᵀ again for the recompute)."""
+    d = h * dh
+    qkv, ctx, mask = b * s * 3 * d * itemsize, b * s * d * itemsize, b * s * 4
+    n_probs = 2 if rate > 0 else 1
+    probs = b * h * s * s * itemsize * n_probs
+    dot = 2 * b * h * s * s * dh
+    if kind == "fwd":
+        n_bytes, n_ops = qkv + mask + ctx + (probs if save else 0), 2 * dot
+    elif kind == "bwd_saved":   # reads p, pd (the same tensor at rate 0)
+        n_bytes, n_ops = probs + qkv + ctx + qkv, 4 * dot
+    else:
+        n_bytes, n_ops = qkv + mask + ctx + qkv, 5 * dot
+    return _bound(n_bytes, n_ops, BF16_FLOPS)
+
+
+def mag_bound(kind, n, d, dv, da, itemsize):
+    """The bound of #25 (``fwd``) or #26 at N rows: the six products are
+    2·N·D·(2D + 2Dv + 2Da) fp32 operations (the TPU kernel's dots run at
+    Precision.HIGHEST, so the fp32 rate outside the tensor cores); the
+    bytes are the activations read once, the fp32 weights once, and the
+    outputs written once (y in the text dtype; six [N, D] fp32 for #26,
+    which also reads dy)."""
+    weights = 4 * (2 * d * d + 2 * (dv + da) * d + 6 * d)
+    acts = n * (d + dv + da) * itemsize
+    if kind == "fwd":
+        n_bytes = acts + weights + n * d * itemsize
+    else:
+        n_bytes = acts + n * d * itemsize + weights + 6 * n * d * 4
+    return _bound(n_bytes, 2 * n * d * (2 * d + 2 * dv + 2 * da),
+                  FP32_FLOPS)
 
 
 def check_kernel(rng, fa, dtype_name, b, s, h=12, dh=64):
@@ -495,7 +590,7 @@ def train_path(args, rng, fa, model_args, card):
     n_train, n_eval = len(train_it), len(dev_it) + len(test_it)
     want = {"attn_fwd_packed": layers * (n_train + n_eval),
             "attn_bwd_packed_saved": layers * n_train,
-            "attn_bwd_packed": 0}
+            "attn_bwd_packed": 0, "mag_fwd": 0, "mag_bwd": 0}
     print(f"kernel launches in Trainer.train: {counts} (want {want}: "
           f"{layers} layers x ({n_train} train + {n_eval} dev/test "
           f"batches), #3 on the save path)")
@@ -511,7 +606,7 @@ def train_path(args, rng, fa, model_args, card):
     recompute_counts = _counts(fa)
     os.environ.pop("FUSED_ATTN_SAVE")
     want = {"attn_fwd_packed": layers, "attn_bwd_packed_saved": 0,
-            "attn_bwd_packed": layers}
+            "attn_bwd_packed": layers, "mag_fwd": 0, "mag_bwd": 0}
     print(f"one train step under FUSED_ATTN_SAVE=0: loss {loss:.6f}, "
           f"launches {recompute_counts} (want {want})")
     if recompute_counts != want or not math.isfinite(loss):
@@ -673,6 +768,349 @@ def train_speed(args, rng, model_args, weights, card):
           "examples/s")
 
 
+def sdpa_call(qkv, mask, h, scale):
+    """The library call that computes #1 at rate 0:
+    ``scaled_dot_product_attention`` on the [B, H, S, Dh] views of the
+    packed projection with the additive (1 − mask)·−10000 bias. Returns
+    (call, its output as [B, S, D]) for timing; never used by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, d3 = qkv.shape
+    q, k, v = qkv.view(b, s, 3, h, d3 // 3 // h).permute(2, 0, 3, 1, 4)
+    bias = ((1.0 - mask) * -10000.0).to(qkv.dtype)[:, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                              scale=scale)
+
+    return call, call().permute(0, 2, 1, 3).reshape(b, s, d3 // 3)
+
+
+def mag_params(rng, d, dv, da):
+    """torch-default (Kaiming-uniform) linears as the gate's init, and a
+    LayerNorm scale and shift away from 1 and 0, on the card."""
+    import torch
+
+    def u(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    p = {"w_hv_v": u((dv, d), dv + d), "w_hv_t": u((d, d), dv + d),
+         "b_hv": u((d,), dv + d), "w_ha_a": u((da, d), da + d),
+         "w_ha_t": u((d, d), da + d), "b_ha": u((d,), da + d),
+         "w_v": u((dv, d), dv), "b_v": u((d,), dv),
+         "w_a": u((da, d), da), "b_a": u((d,), da),
+         "ln_gamma": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+         "ln_beta": (0.1 * rng.standard_normal(d)).astype(np.float32)}
+    return {k: torch.from_numpy(v).cuda() for k, v in p.items()}
+
+
+def mag_case(rng, dtype_name, b, s, d, dv, da):
+    import torch
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    acts = [torch.from_numpy(rng.standard_normal((b * s, w),
+                                                 dtype=np.float32)).to(
+        "cuda", dtype) for w in (d, dv, da, d)]
+    return mag_params(rng, d, dv, da), acts
+
+
+def check_mag_case(mf, params, acts, dtype_name, beta, tag):
+    """#25 and #26 against their plain versions on one case; returns the
+    max abs errors (forward; chain outside the ReLU tie band) and the
+    number of tie elements left out."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops.mag import mag_gate
+
+    t, v, a, dy = acts
+    y = mf.mag_fwd_cuda(params, t, v, a, beta_shift=beta)
+    y_ref = mag_gate(params, t, v, a, beta_shift=beta)
+    chain = mf.mag_bwd_cuda(params, t, v, a, dy, beta_shift=beta)
+    chain_ref = mf.mag_bwd_chain_plain(params, t, v, a, dy,
+                                       beta_shift=beta)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs()
+    if dtype_name == "bf16":
+        bound = MAG_ATOL + MAG_BF16_RTOL * y_ref.float().abs()
+    else:
+        bound = MAG_FP32_TOL + MAG_FP32_TOL * y_ref.abs()
+    if bool((err > bound).any()) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"#25 {tag}: {int((err > bound).sum())} "
+                             f"elements out of tolerance, max_abs_err="
+                             f"{float(err.max())}")
+    r = mf._recompute(mf._weights(params), t.float(), v.float(), a.float(),
+                      beta)
+    tie = (r["pv"].abs() < MAG_TIE) | (r["pa"].abs() < MAG_TIE)
+    names = ("dpv", "dpa", "ddv", "dda", "dt", "xhat")
+    bwd_err = 0.0
+    for name, g, w in zip(names, chain, chain_ref):
+        e = (g - w).abs()
+        bad = (e > MAG_BWD_TOL + MAG_BWD_TOL * w.abs()) & ~tie
+        if bool(bad.any()) or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"#26 {name} {tag}: {int(bad.sum())} "
+                                 f"elements out of tolerance, max_abs_err="
+                                 f"{float(e[~tie].max())}")
+        bwd_err = max(bwd_err, float(e[~tie].max()))
+    # the final gradients, built from each chain by the same products
+    chain = tuple(torch.where(tie, w, g) for g, w in zip(chain, chain_ref))
+    got = mf.grads_from_chain(params, t, v, a, dy, chain)
+    want = mf.grads_from_chain(params, t, v, a, dy, chain_ref)
+    pairs = [(k, got[0][k], want[0][k]) for k in mf.PARAM_NAMES]
+    pairs += list(zip(("dtext", "dvisual", "dacoustic"), got[1:], want[1:]))
+    grad_err = 0.0
+    for name, g, w in pairs:
+        # an input gradient in bf16 (bf16 activations) is rounded once
+        rtol = MAG_BF16_RTOL if w.dtype == torch.bfloat16 else MAG_BWD_TOL
+        e = (g.float() - w.float()).abs()
+        if bool((e > MAG_BWD_TOL + rtol * w.float().abs()).any()):
+            raise AssertionError(f"#26 final gradient {name} {tag}: "
+                                 f"max_abs_err={float(e.max())}")
+        grad_err = max(grad_err, float(e.max()))
+    print(f"#25/#26 vs plain {tag}: forward max_abs_err="
+          f"{float(err.max()):.3e}, chain max_abs_err={bwd_err:.3e} "
+          f"({int(tie.sum())} ReLU-tie elements of {tie.numel()} left out), "
+          f"final gradients max_abs_err={grad_err:.3e}")
+    return float(err.max()), max(bwd_err, grad_err), int(tie.sum())
+
+
+def check_mag_kernels(rng, mf):
+    """Phase 3c, the agreement. Returns the max errors over the cases."""
+    errs = {"fwd": 0.0, "bwd": 0.0, "ties": 0}
+    cases = [(dt, BENCH_BATCH, S_SERVE, 47, 74, beta)
+             for dt in ("bf16", "fp32") for beta in (1e-3, 1.0, 1e6)]
+    cases += [("bf16", 3, 33, 47, 74, 1.0), ("bf16", 48, S_SERVE, 35, 74,
+                                             1.0)]
+    for dtype_name, b, s, dv, da, beta in cases:
+        params, acts = mag_case(rng, dtype_name, b, s, 768, dv, da)
+        tag = (f"{dtype_name} B={b} S={s} N={b * s} D=768 Dv={dv} Da={da} "
+               f"beta={beta:g}")
+        fwd, bwd, ties = check_mag_case(mf, params, acts, dtype_name, beta,
+                                        tag)
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], fwd), max(errs["bwd"],
+                                                              bwd)
+        errs["ties"] += ties
+    return errs
+
+
+def time_mag_kernels(rng, mf, card):
+    """Phase 3c, the times: #25 and #26 against their plain versions in
+    alternating rounds, bf16, at the driver's train and eval batches and
+    the bench's (N = 2400, 6400, 12800). Returns {N: {name: entry}}."""
+    from bert_multimodal_transformer_tpu_torch.ops.mag import mag_gate
+
+    out = {}
+    for b in (TRAIN_BATCH, EVAL_BATCH, BENCH_BATCH):
+        n = b * S_SERVE
+        params, (t, v, a, dy) = mag_case(rng, "bf16", b, S_SERVE, 768, 47,
+                                         74)
+        pairs = {
+            "mag_fwd": (
+                lambda: mf.mag_fwd_cuda(params, t, v, a),
+                lambda: mag_gate(params, t, v, a)),
+            "mag_bwd": (
+                lambda: mf.mag_bwd_cuda(params, t, v, a, dy),
+                lambda: mf.mag_bwd_chain_plain(params, t, v, a, dy)),
+        }
+        out[n] = {}
+        for name, (run_kernel, run_plain) in pairs.items():
+            k, pl = _alternate(run_plain, run_kernel, 20)
+            bound, by = mag_bound(name.split("_")[1], n, 768, 47, 74, 2)
+            out[n][name] = {"ms": float(np.mean(k)),
+                            "plain_ms": float(np.mean(pl)),
+                            "bound_ms": bound, "bound_by": by}
+            print(f"{name} bf16 N={n} D=768 Dv=47 Da=74 on {card}: kernel "
+                  f"{k} ms, plain {pl} ms per call; bound {bound:.4f} ms "
+                  f"({by})")
+    return out
+
+
+DRIVER_ARGV = ["--model", "bert-base-uncased", "--dataset", "mosi",
+               "--synthetic", "--synthetic_sizes", *map(str, MOSI_SPLITS),
+               "--n_epochs", "1", "--use_fused_mag", "--attention_impl",
+               "fused", "--compute_dtype", "bfloat16"]
+
+
+def driver_path(args, rng, fa, card):
+    """Phase 6: the driver's training run, the launches it made, and the
+    fused gate against the plain gate. Returns the launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch import driver
+    from bert_multimodal_transformer_tpu_torch.config import BertConfig
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    argv = DRIVER_ARGV + ["--seed", str(args.seed)]
+    stdout = io.StringIO()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(fa)
+    text = stdout.getvalue()
+    print(text.strip())
+    print(f"driver.main({' '.join(argv)}) on {card}: exit {rc}, "
+          f"{wall:.2f} s wall (model build, data, one epoch and its eval)")
+    if rc != 0:
+        raise AssertionError(f"driver.main exited {rc}")
+    epochs = [line for line in text.splitlines()
+              if line.startswith("epoch:")]
+    if len(epochs) != 1:
+        raise AssertionError(f"expected one epoch line, got {epochs}")
+    fields = dict(kv.split(":", 1) for kv in epochs[0].split(", "))
+    for key in ("train_loss", "valid_loss"):
+        if not math.isfinite(float(fields[key])):
+            raise AssertionError(f"non-finite {key} in {epochs[0]}")
+    layers = BertConfig.bert_base_uncased().num_hidden_layers
+    n_train = -(-MOSI_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in MOSI_SPLITS[1:])
+    want = {"attn_fwd_packed": layers * (n_train + n_eval),
+            "attn_bwd_packed_saved": layers * n_train,
+            "attn_bwd_packed": 0, "mag_fwd": n_train + n_eval,
+            "mag_bwd": n_train}
+    print(f"kernel launches in driver.main: {counts} (want {want}: "
+          f"{n_train} train + {n_eval} dev/test batches, {layers} layers)")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    gate_check(args, rng, fa, card)
+    return counts
+
+
+def gate_check(args, rng, fa, card):
+    """Phase 6, the gate: at dropout 0 from one copy of the weights, one
+    step with the fused gate against the plain gate, leaf by leaf; the
+    same step with dpv zeroed must fail; then the gate alone and the whole
+    step timed, fused and plain."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
+        BatchIterator,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.ops import mag as mag_ops
+    from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused", hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    split = make_split(rng, 6 * TRAIN_BATCH, S_SERVE, cfg.vocab_size,
+                       ds.visual_dim, ds.acoustic_dim)
+    batches = [_device_batch(bt) for bt, _ in BatchIterator(
+        split, TRAIN_BATCH, shuffle=False, drop_remainder=True)]
+    weights = None
+    step = make_train_step()
+
+    def make(fused):
+        nonlocal weights
+        m = MagBertForSequenceClassification(
+            cfg, MultimodalConfig(dropout_prob=0.0, use_fused_kernel=fused),
+            ds.visual_dim, ds.acoustic_dim, torch.bfloat16, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(
+                args.seed + 3))
+        if weights is None:
+            weights = {k: v.detach().clone()
+                       for k, v in m.state_dict().items()}
+        m.load_state_dict(weights)
+        st = Trainer(model=m, tx=make_optimizer(1e-5, 100, 0.1)
+                     ).create_state_from_params(None, args.seed)
+        return m, st
+
+    grads = {}
+    for name, fused in (("fused gate", True), ("plain gate", False)):
+        m, st = make(fused)
+        step(st, batches[0])
+        grads[name] = _grad_pieces(m)
+    real_chain = mf.mag_bwd_chain
+
+    def dpv_zeroed(*a, **kw):
+        out = real_chain(*a, **kw)
+        out[0].zero_()
+        return out
+
+    mf.mag_bwd_chain = dpv_zeroed
+    try:
+        m, st = make(True)
+        step(st, batches[0])
+        grads["planted fault: dpv zeroed in #26"] = _grad_pieces(m)
+    finally:
+        mf.mag_bwd_chain = real_chain
+    mag_leaves = [k for k in grads["plain gate"] if ".MAG." in k]
+    text_leaves = [k for k in grads["plain gate"] if ".embeddings." in k]
+    for name in ("fused gate", "planted fault: dpv zeroed in #26"):
+        gaps = _grad_gaps(grads[name], grads["plain gate"])
+        by = dict(gaps)
+        print(f"  step-1 gradients, {name} vs plain gate: worst pieces "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps[:4])
+              + f"; MAG leaves worst {max(by[k] for k in mag_leaves):.3e}, "
+              f"text-side (embeddings) worst "
+              f"{max(by[k] for k in text_leaves):.3e} (bound {GATE_GAP_TOL})")
+        fails = gaps[0][1] > GATE_GAP_TOL
+        if fails != name.startswith("planted"):
+            raise AssertionError(f"step-1 gradients, {name}: worst gap "
+                                 f"{gaps[0]} against {GATE_GAP_TOL}")
+
+    # The gate's share of a training step's device time, fused and plain:
+    # the device time of the gate's forward and backward alone at the
+    # step's shapes, and of a whole step (torch.profiler, 3 calls each;
+    # event timing at B=48 reads the host's dispatch pace, not the card).
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    gate = make(True)[0].bert.MAG
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in gate.params_dict().items()}
+    text = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, S_SERVE, 768), dtype=np.float32)).to("cuda",
+                                                           torch.bfloat16)
+    vis, ac = (x.to(torch.bfloat16) for x in batches[0][1:3])
+    g = torch.randn_like(text)
+    for name, fused, fn in (("fused", True, mf.mag_gate_fused),
+                            ("plain", False, mag_ops.mag_gate)):
+        def gate_step():
+            x = text.detach().requires_grad_()
+            fn(params, x, vis, ac, beta_shift=1.0).backward(g)
+
+        _, st = make(fused)
+        for _ in range(2):
+            gate_step()
+            step(st, batches[1])
+        gate_prof = device_time_by_kernel(gate_step, 3)
+        step_prof = device_time_by_kernel(lambda: step(st, batches[1]), 3)
+        mag_ms = sum(ms for k, _, ms in step_prof["kernels"]
+                     if "mag_fwd_kernel" in k or "mag_bwd_kernel" in k)
+        print(f"  {name} gate, bf16 B={TRAIN_BATCH} S={S_SERVE} on {card}: "
+              f"gate forward+backward alone {gate_prof['device_ms'] / 3:.3f}"
+              f" ms of device time; dropout-0 train step "
+              f"{step_prof['device_ms'] / 3:.3f} ms of device time "
+              f"({step_prof['wall_ms'] / 3:.3f} ms wall under the "
+              f"profiler); gate share "
+              f"{gate_prof['device_ms'] / step_prof['device_ms']:.1%}"
+              + (f"; #25 + #26 in the step {mag_ms / 3:.3f} ms"
+                 if fused else ""))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -698,6 +1136,8 @@ def main() -> int:
     from bert_multimodal_transformer_tpu_torch.ops import (
         fused_attention as fa,
     )
+    from bert_multimodal_transformer_tpu_torch.ops import kernels as tk
+    from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
     from bert_multimodal_transformer_tpu_torch.serving import Predictor
     from bert_multimodal_transformer_tpu_torch.utils.seeding import (
         set_random_seed,
@@ -716,8 +1156,8 @@ def main() -> int:
 
     # 2. Build
     t0 = time.perf_counter()
-    lib_path = fa.build_kernels()
-    fa.load_kernels()
+    lib_path = tk.build_kernels()
+    tk.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
     print(lib_path.with_suffix(".log").read_text().strip())
 
@@ -742,9 +1182,18 @@ def main() -> int:
             run_kernel if name == "kernel" else run_plain, 100))
     kernel_ms = float(np.mean(rounds["kernel"]))
     plain_ms = float(np.mean(rounds["plain"]))
+    sdpa, lib_out = sdpa_call(qkv, mask, h, scale)
+    _time_ms(sdpa, 10)
+    lib_rounds = [_time_ms(sdpa, 100) for _ in range(2)]
+    library_ms = float(np.mean(lib_rounds))
+    serve_bound = attn_bound("fwd", BATCH, S_SERVE, h, 64, 2)
+    lib_err = float((lib_out.float() - fa.attn_fwd_packed_cuda(
+        qkv, mask, n_heads=h, scale=scale).float()).abs().max())
     print(f"attn_fwd_packed bf16 B={BATCH} S={S_SERVE} H=12 Dh=64 on "
           f"{card}: kernel {rounds['kernel']} ms, plain {rounds['plain']} "
-          "ms per call")
+          f"ms, scaled_dot_product_attention {lib_rounds} ms per call "
+          f"(max |Δ| to the kernel {lib_err:.3e}); bound "
+          f"{serve_bound[0]:.4f} ms ({serve_bound[1]})")
 
     # 3b. Training kernels against plain, on the card
     train_errs = {}
@@ -760,6 +1209,10 @@ def main() -> int:
                 bench_case = case
     train_times = time_training_kernels(fa, bench_case, card)
     del bench_case
+
+    # 3c. The fused MAG gate's kernels against plain, on the card
+    mag_errs = check_mag_kernels(rng, mf)
+    mag_times = time_mag_kernels(rng, mf, card)
 
     # 4. Main path
     ds = DatasetConfig.mosi()
@@ -850,40 +1303,71 @@ def main() -> int:
     # 5b. Training speed and profile
     train_speed(args, rng, model_args, weights, card)
 
-    # 6. Result
+    # 6. The driver on the card, with the fused gate
+    driver_counts = driver_path(args, rng, fa, card)
+
+    # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
                  "train": train_counts[name],
-                 "train_recompute": recompute_counts[name]}
+                 "train_recompute": recompute_counts[name],
+                 "driver": driver_counts[name]}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
-    tpu = "bert_multimodal_transformer_tpu/ops/fused_attention.py:"
+    tpu = "bert_multimodal_transformer_tpu/ops/"
+    train_bounds = {
+        "attn_fwd_packed": attn_bound("fwd", BENCH_BATCH, S_SERVE, 12, 64, 2,
+                                      RATE, save=True),
+        "attn_bwd_packed_saved": attn_bound("bwd_saved", BENCH_BATCH,
+                                            S_SERVE, 12, 64, 2, RATE),
+        "attn_bwd_packed": attn_bound("bwd", BENCH_BATCH, S_SERVE, 12, 64,
+                                      2, RATE)}
     kernels = []
     for name, line, tag in (("attn_fwd_packed", 996, "#1"),
                             ("attn_bwd_packed_saved", 1108, "#3"),
                             ("attn_bwd_packed", 1051, "#2")):
         total, paths = by_path(name)
+        bound, by = train_bounds[name]
         entry = {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
-                 "replaces": f"{tpu}{line}", "launches": total,
-                 "launches_by_path": paths,
+                 "replaces": f"{tpu}fused_attention.py:{line}",
+                 "launches": total, "launches_by_path": paths,
                  "max_abs_err": train_errs[
                      "fwd" if tag == "#1" else f"{tag} vs plain"],
                  "ms": train_times[name][0],
-                 "plain_ms": train_times[name][1]}
+                 "plain_ms": train_times[name][1],
+                 "bound_ms": bound, "bound_by": by,
+                 # no one PyTorch call computes the Philox-masked attention
+                 # or either backward
+                 "library_ms": None,
+                 "shape": "bf16 B=256 S=50 H=12 Dh=64 rate 0.1"}
         if tag != "#1":
             entry["max_abs_err_vs_autograd"] = train_errs[
                 f"{tag} vs autograd"]
         if name == "attn_fwd_packed":
             entry["max_abs_err"] = max(entry["max_abs_err"], serve_err)
+            entry["shape"] += ", saved probs"
             entry["modes"] = {
-                "train rate 0.1 save, bf16 B=256 S=50": {
-                    "ms": train_times[name][0],
-                    "plain_ms": train_times[name][1]},
                 "serving rate 0, bf16 B=128 S=50": {
                     "ms": kernel_ms, "plain_ms": plain_ms,
-                    "max_abs_err": serve_err}}
+                    "max_abs_err": serve_err,
+                    "bound_ms": serve_bound[0],
+                    "bound_by": serve_bound[1],
+                    "library_ms": library_ms,
+                    "library": "scaled_dot_product_attention"}}
         kernels.append(entry)
+    for name, line in (("mag_fwd", 50), ("mag_bwd", 186)):
+        total, paths = by_path(name)
+        top = mag_times[BENCH_BATCH * S_SERVE][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": f"{tpu}mag_pallas.py:{line}", "launches": total,
+            "launches_by_path": paths,
+            "max_abs_err": mag_errs[name.split("_")[1]],
+            **top, "library_ms": None,
+            "shape": "bf16 N=12800 D=768 Dv=47 Da=74",
+            "modes": {f"bf16 N={n}": times[name]
+                      for n, times in mag_times.items()}})
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

@@ -1,0 +1,239 @@
+"""The port's CLI driver and its data path against the JAX package's: the
+parser's flags and defaults, the synthetic data, the tokenizer and the
+loaders' batches bit for bit, then ``driver.main`` end to end on the CPU at
+``--tiny`` (the fused MAG gate and fused attention through their plain
+versions) and every flag that is not ported yet exiting with status 2.
+"""
+
+import argparse
+
+import numpy as np
+import pytest
+import torch
+
+from bert_multimodal_transformer_tpu_torch import driver as tdriver
+from bert_multimodal_transformer_tpu_torch.data import pipeline as tpipe
+from bert_multimodal_transformer_tpu_torch.data import synthetic as tsyn
+from bert_multimodal_transformer_tpu_torch.data import tokenization as ttok
+from bert_multimodal_transformer_tpu_torch.ops import mag_fused as tmf
+from bert_multimodal_transformer_tpu_torch.utils import logging as tlog
+
+RECORD_KEYS = {"epoch", "train_loss", "valid_loss", "test_acc", "test_mae",
+               "test_corr", "test_f_score", "best_valid_loss",
+               "best_test_acc", "epoch_seconds"}
+
+
+def _actions(parser):
+    return {a.dest: a for a in parser._actions
+            if not isinstance(a, argparse._HelpAction)}
+
+
+def test_parser_has_the_jax_drivers_flags_and_defaults():
+    from bert_multimodal_transformer_tpu import driver as jdriver
+
+    jacts, tacts = _actions(jdriver.build_parser()), _actions(
+        tdriver.build_parser())
+    assert set(tacts) == set(jacts) | {"device"}
+    for dest, j in jacts.items():
+        t = tacts[dest]
+        assert (t.option_strings, t.default, t.choices, t.nargs, t.const,
+                type(t)) == (j.option_strings, j.default, j.choices,
+                             j.nargs, j.const, type(j)), dest
+        assert getattr(t.type, "__name__", t.type) == getattr(
+            j.type, "__name__", j.type), dest
+    jargs = vars(jdriver.build_parser().parse_args([]))
+    targs = vars(tdriver.build_parser().parse_args([]))
+    assert 0 <= targs.pop("seed") <= 9999
+    jargs.pop("seed")
+    assert targs.pop("device") == "cuda"
+    assert targs == jargs
+
+
+def test_synthetic_data_matches_jax_package():
+    from bert_multimodal_transformer_tpu.data import synthetic as jsyn
+
+    kw = dict(visual_dim=35, acoustic_dim=74, n_train=6, n_dev=3,
+              n_test=2, seed=7)
+    want, got = jsyn.make_dataset(**kw), tsyn.make_dataset(**kw)
+    assert tsyn.vocabulary() == jsyn.vocabulary()
+    assert set(got) == set(want) == {"train", "dev", "test"}
+    for split in want:
+        assert len(got[split]) == len(want[split])
+        for (gx, gl, gs), (wx, wl, ws) in zip(got[split], want[split]):
+            assert gx[0] == wx[0] and gs == ws
+            for g, w in ((gx[1], wx[1]), (gx[2], wx[2]), (gl, wl)):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+
+
+TEXTS = ["Hello, World!", "naïve Café  déjà-vu", "don't stop 123abc",
+         "北京 is big", "unaffable \t tabs\nand lines", "x" * 120]
+
+
+def test_tokenizer_matches_jax_package(tmp_path):
+    from bert_multimodal_transformer_tpu.data import tokenization as jtok
+
+    words = tsyn.vocabulary() + ["hello", "world", "cafe", "un", "##aff",
+                                 "##able", "##s", "don", "'", "t"]
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                "[MASK]"] + words) + "\n")
+    pairs = [(jtok.get_tokenizer("bert-base-uncased", str(vocab)),
+              ttok.get_tokenizer("bert-base-uncased", str(vocab))),
+             (jtok.WordPieceTokenizer.from_wordlist(words),
+              ttok.WordPieceTokenizer.from_wordlist(words))]
+    for j, t in pairs:
+        assert t.vocab == j.vocab and t.vocab_size == j.vocab_size
+        for text in TEXTS:
+            assert t.tokenize(text) == j.tokenize(text), text
+            assert (t.convert_tokens_to_ids(t.tokenize(text))
+                    == j.convert_tokens_to_ids(j.tokenize(text)))
+    with pytest.raises(NotImplementedError, match="A.7"):
+        ttok.get_tokenizer("xlnet-base-cased", str(vocab))
+
+
+def test_loaders_match_jax_package_bit_for_bit(tmp_path):
+    """set_up_data_loaders on the same pickle, tokenizer vocabulary and
+    seed: the same step count and the same batches (two shuffled train
+    epochs, dev and test with their padded tails)."""
+    from bert_multimodal_transformer_tpu.data import pipeline as jpipe
+    from bert_multimodal_transformer_tpu.data import tokenization as jtok
+
+    path = tmp_path / "mosi.pkl"
+    tsyn.write_pickle(str(path), tsyn.make_dataset(n_train=21, n_dev=7,
+                                                   n_test=5, seed=3))
+    kw = dict(model_family="bert", max_seq_length=16, train_batch_size=4,
+              dev_batch_size=3, test_batch_size=2, n_epochs=2,
+              gradient_accumulation_step=2, seed=11)
+    jl = jpipe.set_up_data_loaders(
+        str(path), jtok.WordPieceTokenizer.from_wordlist(tsyn.vocabulary()),
+        **kw)
+    tl = tpipe.set_up_data_loaders(
+        str(path), ttok.WordPieceTokenizer.from_wordlist(tsyn.vocabulary()),
+        **kw)
+    assert tl[3] == jl[3]
+    for j_it, t_it, epochs in zip(jl[:3], tl[:3], (2, 1, 1)):
+        assert len(t_it) == len(j_it)
+        for _ in range(epochs):
+            for (jb, jv), (tb, tv) in zip(j_it, t_it, strict=True):
+                np.testing.assert_array_equal(tv, jv)
+                for g, w in zip(tb, jb, strict=True):
+                    assert g.dtype == w.dtype
+                    np.testing.assert_array_equal(g, w)
+
+
+def test_convert_to_features_matches_the_per_example_path():
+    """convert_to_features against align_modalities + prepare_bert_input
+    (the port's and the JAX package's), truncation at S − 2 included."""
+    from bert_multimodal_transformer_tpu.data import pipeline as jpipe
+
+    tok = ttok.WordPieceTokenizer.from_wordlist(tsyn.vocabulary())
+    examples = tsyn.make_dataset(n_train=5, n_dev=1, n_test=1,
+                                 seed=4)["train"]
+    s = 12   # shorter than the longest examples: truncation is exercised
+    packed = tpipe.convert_to_features(examples, s, tok)
+    for i, ((words, vis, ac), label, _) in enumerate(examples):
+        for mod in (tpipe, jpipe):
+            tokens, v, a = mod.align_modalities(words, vis, ac, tok)
+            tokens, v, a = tokens[:s - 2], v[:s - 2], a[:s - 2]
+            ids, v, a, mask, seg = mod.prepare_bert_input(tokens, v, a, tok,
+                                                          s)
+            np.testing.assert_array_equal(packed.input_ids[i], ids)
+            np.testing.assert_array_equal(packed.input_mask[i], mask)
+            np.testing.assert_array_equal(packed.segment_ids[i], seg)
+            np.testing.assert_array_equal(packed.visual[i],
+                                          v.astype(np.float32))
+            np.testing.assert_array_equal(packed.acoustic[i],
+                                          a.astype(np.float32))
+        assert packed.label_ids[i] == np.float32(label.reshape(()))
+    with pytest.raises(NotImplementedError, match="A.7"):
+        tpipe.convert_to_features(examples, s, tok, model_family="xlnet")
+
+
+def test_driver_trains_with_the_fused_gate_on_cpu(monkeypatch, capsys):
+    """driver.main at --tiny with --use_fused_mag --attention_impl fused
+    --device cpu: returns 0, logs the JAX trainer's record keys once per
+    epoch, and runs the gate through the fused path (its plain versions
+    on the CPU) once per forward and once per train step backward."""
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    records, calls = [], {"fwd": 0, "bwd": 0}
+    real_log = tlog.MetricLogger.log
+    monkeypatch.setattr(tlog.MetricLogger, "log",
+                        lambda self, r: records.append(dict(r))
+                        or real_log(self, r))
+    real_fwd, real_bwd = tmf.mag_ops.mag_gate, tmf.mag_bwd_chain_plain
+
+    def fwd(*a, **k):
+        calls["fwd"] += 1
+        return real_fwd(*a, **k)
+
+    def bwd(*a, **k):
+        calls["bwd"] += 1
+        return real_bwd(*a, **k)
+
+    monkeypatch.setattr(tmf.mag_ops, "mag_gate", fwd)
+    monkeypatch.setattr(tmf, "mag_bwd_chain_plain", bwd)
+    rc = tdriver.main([
+        "--model", "bert-base-uncased", "--dataset", "mosi", "--tiny",
+        "--synthetic", "--synthetic_sizes", "32", "8", "8", "--n_epochs",
+        "1", "--train_batch_size", "8", "--use_fused_mag",
+        "--attention_impl", "fused", "--compute_dtype", "float32",
+        "--seed", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "Seed: 3" in out and "epoch:0, train_loss:" in out
+    assert len(records) == 1 and set(records[0]) == RECORD_KEYS
+    assert np.isfinite(records[0]["train_loss"])
+    # 4 train batches; dev and test one batch each
+    assert calls == {"fwd": 6, "bwd": 4}
+
+
+def test_driver_without_a_card_exits_nonzero(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = tdriver.main(["--synthetic", "--tiny"])
+    assert rc != 0
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_driver_requires_data_source(capsys):
+    rc = tdriver.main(["--device", "cpu"])
+    assert rc == 2
+    assert "--data_pickle or --synthetic" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--model", "xlnet-base-cased"], "A.7"),
+    (["--rel_bias_impl", "inkernel"], "A.7"),
+    (["--checkpoint_dir", "ckpt"], "A.6"),
+    (["--resume"], "A.6"),
+    (["--save_every_steps", "5"], "A.6"),
+    (["--predict_only"], "A.6"),
+    (["--pretrained_checkpoint", "model.bin"], "A.6"),
+    (["--export_hf", "out.bin"], "A.6"),
+    (["--export_serving", "out.pt2"], "A.9"),
+    (["--model_parallel", "2"], "A.10"),
+    (["--fsdp"], "A.10"),
+    (["--pipeline_parallel", "2"], "A.10"),
+    (["--num_processes", "2"], "A.10"),
+    (["--tp_shard_attention"], "A.10"),
+    (["--compiler_options", "{}"], "A.10"),
+    (["--mem_len", "4"], "A.8"),
+    (["--remat"], "A.14"),
+    (["--qkv_fusion"], "B.10"),
+    (["--qkv_residual"], "B.10"),
+    (["--attention_impl", "flash"], "A.2"),
+    (["--rng_impl", "threefry2x32"], "A.5"),
+])
+def test_unported_flag_exits_2_naming_its_item(argv, item, capsys):
+    rc = tdriver.main(argv + ["--synthetic", "--tiny", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert f"{argv[0]}" in err and f"ROADMAP {item}" in err
+
+
+def test_unported_flags_table_covers_the_parser():
+    """Every flag the table names exists in the parser."""
+    dests = {a.option_strings[0] for a in _actions(
+        tdriver.build_parser()).values()}
+    for flag, _, _ in tdriver.UNPORTED:
+        assert flag.split()[0] in dests, flag

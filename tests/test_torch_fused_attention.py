@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from bert_multimodal_transformer_tpu_torch.ops import fused_attention as tfa
+from bert_multimodal_transformer_tpu_torch.ops import kernels as tk
 from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
 
 B, H, S, DH = 3, 2, 50, 16
@@ -158,11 +159,11 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_failed_build_raises(tmp_path, monkeypatch):
     """Without nvcc the build raises: nothing falls back."""
-    monkeypatch.setattr(tfa, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tk, "_BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tfa.build_kernels()
+        tk.build_kernels()
 
 
 def test_failed_compile_raises(tmp_path, monkeypatch):
@@ -171,24 +172,24 @@ def test_failed_compile_raises(tmp_path, monkeypatch):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: bad kernel' >&2\nexit 2\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(tfa, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tk, "_BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="bad kernel"):
-        tfa.build_kernels()
+        tk.build_kernels()
     assert not list((tmp_path / "build").glob("*.so"))
 
 
 def test_library_path_keyed_by_sources(tmp_path, monkeypatch):
-    first = tfa.library_path()
-    assert first.parent == tfa._BUILD_DIR
+    first = tk.library_path()
+    assert first.parent == tk._BUILD_DIR
     src = tmp_path / "csrc"
     src.mkdir()
-    for f in tfa._sources():
+    for f in tk._sources():
         (src / f.name).write_bytes(f.read_bytes())
-    monkeypatch.setattr(tfa, "_CSRC", src)
-    assert tfa.library_path() == first
+    monkeypatch.setattr(tk, "_CSRC", src)
+    assert tk.library_path() == first
     (src / "attn_fwd_packed.cu").write_text("// changed\n")
-    assert tfa.library_path() != first
+    assert tk.library_path() != first
 
 
 # --- the dropout stream ---------------------------------------------------

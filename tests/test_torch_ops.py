@@ -355,8 +355,8 @@ def test_unported_options_raise(kw, item):
 def test_unknown_attention_impl_raises():
     with pytest.raises(ValueError):
         tcfg.BertConfig(attention_impl="einsom")
-    with pytest.raises(NotImplementedError, match="B.2"):
-        tcfg.MultimodalConfig(use_fused_kernel=True)
+    # the fused MAG gate is ported: the flag is taken as it is
+    assert tcfg.MultimodalConfig(use_fused_kernel=True).use_fused_kernel
 
 
 def test_port_imports_no_jax():
@@ -371,6 +371,12 @@ def test_port_imports_no_jax():
         "import bert_multimodal_transformer_tpu_torch.utils.profiling\n"
         "import bert_multimodal_transformer_tpu_torch.training.trainer\n"
         "import bert_multimodal_transformer_tpu_torch.training.optim\n"
+        "import bert_multimodal_transformer_tpu_torch.driver\n"
+        "import bert_multimodal_transformer_tpu_torch.ops.mag_fused\n"
+        "import bert_multimodal_transformer_tpu_torch.ops.kernels\n"
+        "import bert_multimodal_transformer_tpu_torch.data.synthetic\n"
+        "import bert_multimodal_transformer_tpu_torch.data.tokenization\n"
+        "import bert_multimodal_transformer_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'bert_multimodal_transformer_tpu')]\n"
         "assert not bad, bad\n"
