@@ -1,7 +1,7 @@
 """Typed configuration, with torch dtypes.
 
 Port of ``bert_multimodal_transformer_tpu/config.py`` (dataset presets, the
-MAG hyperparameters and the BERT encoder config). Options whose port has
+MAG hyperparameters, the BERT and XLNet configs). Options whose port has
 not landed yet raise ``NotImplementedError`` naming their ROADMAP item
 instead of being silently ignored.
 """
@@ -126,6 +126,96 @@ class BertConfig:
             num_attention_heads=2, intermediate_size=64,
             max_position_embeddings=64,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class XLNetConfig:
+    """XLNet hyperparameters (HF transformers==3.0.2 defaults for
+    xlnet-base-cased), the fields and defaults of the JAX package's
+    ``XLNetConfig``."""
+
+    vocab_size: int = 32000
+    d_model: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    d_inner: int = 3072
+    ff_activation: str = "gelu"
+    # Hidden and attention-prob dropout alike.
+    dropout: float = 0.1
+    # The memory (mems) is not ported yet; setting either raises.
+    mem_len: Optional[int] = None
+    reuse_len: Optional[int] = None
+    attn_type: str = "bi"
+    same_length: bool = False
+    bi_data: bool = False
+    clamp_len: int = -1
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    # SequenceSummary: the last token, a projection, tanh, this dropout.
+    summary_last_dropout: float = 0.1
+    num_labels: int = 1
+    # "einsum" (plain PyTorch attention) or "fused" (the rel-attention
+    # kernels, ops/fused_attention.py::fused_rel_attention, over an ebias
+    # assembled outside them).
+    attention_impl: str = "einsum"
+    # Score-bias assembly on the fused path: "auto" and "stream" assemble
+    # the [B,H,Q,K] ebias outside the kernel (what the JAX package's "auto"
+    # does wherever its full-H kernel fits); "inkernel" waits for ROADMAP
+    # B.7 and raises.
+    rel_bias_impl: str = "auto"
+    # One [D, 3·H·Dh] projection for q/k/v in place of three (same math).
+    pack_qkv: bool = False
+    tp_attention_mesh: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.attention_impl not in ("einsum", "fused"):
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r} "
+                "(XLNet: einsum | fused)")
+        if self.rel_bias_impl not in ("auto", "stream", "inkernel"):
+            raise ValueError(
+                f"unknown rel_bias_impl {self.rel_bias_impl!r} "
+                "(auto | stream | inkernel)")
+        if self.rel_bias_impl == "inkernel":
+            raise NotImplementedError(
+                "rel_bias_impl='inkernel': the ingredients rel-attention "
+                "kernels are not ported yet (ROADMAP B.7)")
+        if self.mem_len is not None or self.reuse_len is not None:
+            raise NotImplementedError(
+                "mem_len/reuse_len: the XLNet memory is not ported yet "
+                "(ROADMAP A.8)")
+        if self.tp_attention_mesh is not None:
+            raise NotImplementedError(
+                "tp_attention_mesh: tensor-parallel attention is not ported "
+                "yet (ROADMAP A.10)")
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_head
+
+    @staticmethod
+    def xlnet_base_cased() -> "XLNetConfig":
+        return XLNetConfig()
+
+    @staticmethod
+    def tiny(vocab_size: int = 128) -> "XLNetConfig":
+        return XLNetConfig(
+            vocab_size=vocab_size, d_model=32, n_layer=2, n_head=2, d_inner=64,
+        )
+
+
+def resolve_device(device) -> torch.device:
+    """The device a model is built on: the card unless the caller asks for
+    another. ``None`` means ``cuda``, and raises when no card is visible
+    rather than building on the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible: pass device=\"cpu\" to build the "
+                "model on the CPU (the kernels' plain versions)")
+        device = "cuda"
+    return torch.device(device)
 
 
 def dtype_from_str(name: str) -> torch.dtype:

@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
   attn::load_tile(as, g_src, (size_t)D, S, Dh);
   attn::load_tile(bs, v_src, row_stride, S, Dh);
   __syncthreads();
-  attn::tile_abt(tt, as, bs, S, Dh);  // d(pd) = g · Vᵀ
+  attn::tile_abt(tt, as, bs, S, S, Dh);  // d(pd) = g · Vᵀ
   __syncthreads();
 
   const float inv_keep = drop.inv_keep;
@@ -144,20 +144,21 @@ __global__ void __launch_bounds__(kThreads)
     return x;
   };
   auto p_of = [ps](int i) { return kDropout ? fabsf(ps[i]) : ps[i]; };
-  attn::softmax_vjp_rows<T>(tt, S, scale, pd_of, p_of);
+  attn::softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of,
+                            attn::NoDsOut{});
   __syncthreads();
 
   // P ← pd_c = T(pd) for the dV product.
   for (int i = tid; i < S * S; i += kThreads) ps[i] = attn::round_to<T>(pd_of(i));
   __syncthreads();
-  attn::store_mtx(dv_dst, row_stride, ps, as, S, Dh);  // dV = pd_cᵀ · g
+  attn::store_mtx(dv_dst, row_stride, ps, as, S, S, Dh);  // dV = pd_cᵀ · g
   __syncthreads();  // g and V no longer needed: stage Q and K again
 
   attn::load_tile(as, q_src, row_stride, S, Dh);
   attn::load_tile(bs, k_src, row_stride, S, Dh);
   __syncthreads();
-  attn::store_mx(dq_dst, row_stride, tt, bs, S, Dh);   // dQ = ds_c · K
-  attn::store_mtx(dk_dst, row_stride, tt, as, S, Dh);  // dK = ds_cᵀ · Q
+  attn::store_mx(dq_dst, row_stride, tt, bs, S, S, Dh);   // dQ = ds_c · K
+  attn::store_mtx(dk_dst, row_stride, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
 }
 
 template <typename T, bool kDropout>

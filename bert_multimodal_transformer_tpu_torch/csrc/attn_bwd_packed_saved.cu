@@ -74,20 +74,21 @@ __global__ void __launch_bounds__(kThreads)
   attn::load_tile(as, g_src, (size_t)D, S, Dh);
   attn::load_tile(bs, v_src, row_stride, S, Dh);
   __syncthreads();
-  attn::tile_abt(tt, as, bs, S, Dh);                   // d(pd) = g · Vᵀ
-  attn::store_mtx(dv_dst, row_stride, ps, as, S, Dh);  // dV = pdᵀ · g
+  attn::tile_abt(tt, as, bs, S, S, Dh);                   // d(pd) = g · Vᵀ
+  attn::store_mtx(dv_dst, row_stride, ps, as, S, S, Dh);  // dV = pdᵀ · g
   __syncthreads();
 
   auto pd_of = [ps](int i) { return ps[i]; };
   auto p_of = [p_head](int i) { return attn::to_float(p_head[i]); };
-  attn::softmax_vjp_rows<T>(tt, S, scale, pd_of, p_of);
+  attn::softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of,
+                            attn::NoDsOut{});
   __syncthreads();  // g and V no longer needed: stage Q and K
 
   attn::load_tile(as, q_src, row_stride, S, Dh);
   attn::load_tile(bs, k_src, row_stride, S, Dh);
   __syncthreads();
-  attn::store_mx(dq_dst, row_stride, tt, bs, S, Dh);   // dQ = ds_c · K
-  attn::store_mtx(dk_dst, row_stride, tt, as, S, Dh);  // dK = ds_cᵀ · Q
+  attn::store_mx(dq_dst, row_stride, tt, bs, S, S, Dh);   // dQ = ds_c · K
+  attn::store_mtx(dk_dst, row_stride, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
 }
 
 template <typename T>

@@ -1,10 +1,10 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the Philox4x32-10
 // dropout stream and the small shared-memory products of the backward
-// kernels (the packed attention kernels, attn_fwd_packed.cu,
-// attn_bwd_packed.cu, attn_bwd_packed_saved.cu).
+// kernels (the attention kernels: attn_{fwd,bwd}_packed*.cu and
+// attn_{fwd,bwd}_rel*.cu).
 //
-// The dropout stream. Element (b, h, q, k) of the [B, H, S, S] probs is
+// The dropout stream. Element (b, h, q, k) of the [B, H, Q, K] probs is
 // kept iff its 32-bit draw is >= threshold, where
 //   threshold = min(round(rate · 2^32), 2^32 − 1)
 // (the TPU package's `_dropout_threshold`) and
@@ -88,32 +88,42 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
 
 // ---- the backward kernels' shared-memory plan and products --------------
 //
-// One block per (head, batch row) holds, in fp32: two [S][Dh + 1] staging
-// tiles (A, B; the +1 pad keeps per-row reads on distinct banks), the
-// [S][S] probs tile P, the [S][S] gradient tile Tt, and the [S] mask bias.
+// One block per (head, batch row) holds, in fp32: two staging tiles (A, B;
+// rows of Dh + 1 floats, the +1 pad keeps per-row reads on distinct banks),
+// the probs tile P and the gradient tile Tt. The packed kernels' problem is
+// [S, S] (A and B hold S rows each) plus the [S] mask bias; the rel kernels'
+// is [Q, K] (A holds Q rows, B holds K rows) with the bias read from ebias.
+// The products below take the rectangular [Q, K] form; the packed kernels
+// call them with Q = K = S.
 
 __host__ __device__ inline size_t bwd_smem_floats(int s, int dh) {
   return 2 * (size_t)s * (dh + 1) + 2 * (size_t)s * s + (size_t)s;
 }
 
-// dst[r][c] = src[r · row_stride + c] for r < S, c < Dh (one head's column
-// block of the packed projection or of the context gradient).
+__host__ __device__ inline size_t rel_bwd_smem_floats(int q, int k, int dh) {
+  return (size_t)(q + k) * (dh + 1) + 2 * (size_t)q * k;
+}
+
+// dst[r][c] = src[r · row_stride + c] for r < rows, c < Dh (one head's
+// column block of a projection or of the context gradient).
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          size_t row_stride, int S, int Dh) {
+                                          size_t row_stride, int rows,
+                                          int Dh) {
   const int ld = Dh + 1;
-  for (int i = threadIdx.x; i < S * Dh; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * Dh; i += blockDim.x) {
     const int r = i / Dh, c = i - r * Dh;
     dst[r * ld + c] = to_float(src[(size_t)r * row_stride + c]);
   }
 }
 
-// out[q][k] = Σ_c a[q][c] · b[k][c], fp32, c ascending.
+// out[q][k] = Σ_c a[q][c] · b[k][c] for q < Q, k < K, fp32, c ascending.
 __device__ __forceinline__ void tile_abt(float* out, const float* a,
-                                         const float* b, int S, int Dh) {
+                                         const float* b, int Q, int K,
+                                         int Dh) {
   const int ld = Dh + 1;
-  for (int i = threadIdx.x; i < S * S; i += blockDim.x) {
-    const int q = i / S, k = i - q * S;
+  for (int i = threadIdx.x; i < Q * K; i += blockDim.x) {
+    const int q = i / K, k = i - q * K;
     const float* ar = a + q * ld;
     const float* br = b + k * ld;
     float acc = 0.0f;
@@ -122,61 +132,69 @@ __device__ __forceinline__ void tile_abt(float* out, const float* a,
   }
 }
 
-// dst[r · row_stride + c] = Σ_j m[r][j] · x[j][c]   (m [S][S], x [S][Dh+1])
+// dst[r · row_stride + c] = Σ_j m[r][j] · x[j][c]   (m [Q][K], x [K][Dh+1];
+// Q output rows)
 template <typename T>
 __device__ __forceinline__ void store_mx(T* dst, size_t row_stride,
                                          const float* m, const float* x,
-                                         int S, int Dh) {
+                                         int Q, int K, int Dh) {
   const int ld = Dh + 1;
-  for (int i = threadIdx.x; i < S * Dh; i += blockDim.x) {
+  for (int i = threadIdx.x; i < Q * Dh; i += blockDim.x) {
     const int r = i / Dh, c = i - r * Dh;
-    const float* mr = m + r * S;
+    const float* mr = m + r * K;
     float acc = 0.0f;
-    for (int j = 0; j < S; ++j) acc = fmaf(mr[j], x[j * ld + c], acc);
+    for (int j = 0; j < K; ++j) acc = fmaf(mr[j], x[j * ld + c], acc);
     dst[(size_t)r * row_stride + c] = from_float<T>(acc);
   }
 }
 
-// dst[r · row_stride + c] = Σ_j m[j][r] · x[j][c]   (mᵀ · x)
+// dst[r · row_stride + c] = Σ_j m[j][r] · x[j][c]   (mᵀ · x: m [Q][K],
+// x [Q][Dh+1]; K output rows)
 template <typename T>
 __device__ __forceinline__ void store_mtx(T* dst, size_t row_stride,
                                           const float* m, const float* x,
-                                          int S, int Dh) {
+                                          int Q, int K, int Dh) {
   const int ld = Dh + 1;
-  for (int i = threadIdx.x; i < S * Dh; i += blockDim.x) {
+  for (int i = threadIdx.x; i < K * Dh; i += blockDim.x) {
     const int r = i / Dh, c = i - r * Dh;
     float acc = 0.0f;
-    for (int j = 0; j < S; ++j) acc = fmaf(m[j * S + r], x[j * ld + c], acc);
+    for (int j = 0; j < Q; ++j) acc = fmaf(m[j * K + r], x[j * ld + c], acc);
     dst[(size_t)r * row_stride + c] = from_float<T>(acc);
   }
 }
 
-// The softmax VJP through the dropout, in place on tt = d(pd) = g · vᵀ,
-// one warp per row (the TPU kernels' compacted form):
-//   t  = pd ⊙ d(pd);   ds = (t − p · Σ_k t) · scale;   tt ← T(ds)
-// pd_of(i) and p_of(i) give element i = q·S + k of pd and p in fp32.
-template <typename T, typename PdOf, typename POf>
-__device__ __forceinline__ void softmax_vjp_rows(float* tt, int S,
+// The softmax VJP through the dropout, in place on tt = d(pd) = g · vᵀ
+// ([Q][K]), one warp per row (the TPU kernels' compacted form):
+//   t  = pd ⊙ d(pd);   ds = t − p · Σ_k t;   tt ← T(ds · scale)
+// pd_of(i) and p_of(i) give element i = q·K + k of pd and p in fp32;
+// ds_out(i, ds) receives the unscaled ds (the rel kernels' debias).
+template <typename T, typename PdOf, typename POf, typename DsOut>
+__device__ __forceinline__ void softmax_vjp_rows(float* tt, int Q, int K,
                                                  float scale, PdOf pd_of,
-                                                 POf p_of) {
+                                                 POf p_of, DsOut ds_out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int q = warp; q < S; q += blockDim.x / 32) {
-    float* tr = tt + q * S;
+  for (int q = warp; q < Q; q += blockDim.x / 32) {
+    float* tr = tt + q * K;
     float sum = 0.0f;
-    for (int k = lane; k < S; k += 32) {
-      const float t = __fmul_rn(pd_of(q * S + k), tr[k]);
+    for (int k = lane; k < K; k += 32) {
+      const float t = __fmul_rn(pd_of(q * K + k), tr[k]);
       tr[k] = t;
       sum += t;
     }
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int k = lane; k < S; k += 32) {
-      const float ds =
-          __fmul_rn(__fsub_rn(tr[k], __fmul_rn(p_of(q * S + k), sum)), scale);
-      tr[k] = round_to<T>(ds);
+    for (int k = lane; k < K; k += 32) {
+      const float ds = __fsub_rn(tr[k], __fmul_rn(p_of(q * K + k), sum));
+      ds_out(q * K + k, ds);
+      tr[k] = round_to<T>(__fmul_rn(ds, scale));
     }
   }
 }
+
+// For the packed kernels, which emit no ds.
+struct NoDsOut {
+  __device__ __forceinline__ void operator()(int, float) const {}
+};
 
 // Opt a kernel into `kMaxSmemBytes` of dynamic shared memory, once per
 // device (bit d of *done: set on device d).

@@ -4,10 +4,10 @@
 package; until then the tests hold this copy equal to the original.
 
 Per-example word→subword alignment with modality replication, BERT
-right-padded packing (the XLNet family's waits for ROADMAP A.7), the
-split packed once into contiguous fixed-shape numpy arrays, and the
-batch iterators: every batch is exactly [B, max_seq_length, ·]; the
-ragged last batch is padded and masked so every example is used.
+right-padded and XLNet left-padded packing, the split packed once into
+contiguous fixed-shape numpy arrays, and the batch iterators: every batch
+is exactly [B, max_seq_length, ·]; the ragged last batch is padded and
+masked so every example is used.
 """
 
 from __future__ import annotations
@@ -96,6 +96,30 @@ def prepare_bert_input(tokens, visual, acoustic, tokenizer, max_seq_length):
     return input_ids, visual, acoustic, input_mask, segment_ids
 
 
+def prepare_xlnet_input(tokens, visual, acoustic, tokenizer, max_seq_length):
+    """tokens <sep> <cls> (cls last), segments 0…0,2, LEFT-pad: ids with
+    pad_token_id, mask 0, segments 3, leading zero modality rows
+    (reference multimodal_driver.py:176-205). The per-example form of
+    ``convert_to_features``' XLNet packing, which the tests hold it
+    against."""
+    dv, da = visual.shape[-1], acoustic.shape[-1]
+    visual = np.concatenate([visual, np.zeros((2, dv))])
+    acoustic = np.concatenate([acoustic, np.zeros((2, da))])
+    sep_id, cls_id = tokenizer.convert_tokens_to_ids(
+        [tokenizer.sep_token, tokenizer.cls_token])
+    input_ids = tokenizer.convert_tokens_to_ids(list(tokens)) + [sep_id,
+                                                                 cls_id]
+    n = len(input_ids)
+    segment_ids = [0] * (n - 1) + [2]
+    pad = max_seq_length - n
+    input_ids = [tokenizer.pad_token_id] * pad + input_ids
+    input_mask = [0] * pad + [1] * n
+    segment_ids = [3] * pad + segment_ids
+    visual = np.concatenate([np.zeros((pad, dv)), visual])
+    acoustic = np.concatenate([np.zeros((pad, da)), acoustic])
+    return input_ids, visual, acoustic, input_mask, segment_ids
+
+
 def convert_to_features(
     examples: Sequence[Any],
     max_seq_length: int,
@@ -107,12 +131,11 @@ def convert_to_features(
     """Pack a list of ((words, visual, acoustic), label, segment) examples —
     the documented pickle layout (reference README.md:134-149) — into a
     PackedSplit. Mirrors convert_to_features (multimodal_driver.py:82-140),
-    including truncation to max_seq_length−2 before the two specials. The
-    BERT packing; the XLNet family's waits for ROADMAP A.7."""
-    if model_family != "bert":
-        raise NotImplementedError(
-            f"model_family={model_family!r}: only the BERT packing is "
-            "ported (the XLNet family waits for ROADMAP A.7)")
+    including truncation to max_seq_length−2 before the two specials;
+    ``model_family`` "bert" or "xlnet" picks the packing."""
+    if model_family not in ("bert", "xlnet"):
+        raise ValueError(f"unknown model_family {model_family!r} "
+                         "(bert | xlnet)")
     n = len(examples)
     s = max_seq_length
     if visual_dim is None:
@@ -131,8 +154,12 @@ def convert_to_features(
     out_mask = np.zeros((n, s), np.int32)
     out_seg = np.zeros((n, s), np.int32)
     out_lab = np.zeros((n,), np.float32)
+    is_bert = model_family == "bert"
     cls_id, sep_id = tokenizer.convert_tokens_to_ids(
         [tokenizer.cls_token, tokenizer.sep_token])
+    if not is_bert:
+        out_ids[:] = tokenizer.pad_token_id
+        out_seg[:] = 3
 
     for i, example in enumerate(examples):
         (words, visual, acoustic), label_id, _segment = example
@@ -149,14 +176,27 @@ def convert_to_features(
         m = len(token_ids)
         visual = np.asarray(visual, np.float32)
         acoustic = np.asarray(acoustic, np.float32)
-        # [CLS] tokens [SEP], zero modality rows for the specials, right-pad
-        # (reference multimodal_driver.py:143-173)
-        out_ids[i, 0] = cls_id
-        out_ids[i, 1:m + 1] = token_ids
-        out_ids[i, m + 1] = sep_id
-        out_mask[i, : m + 2] = 1
-        out_vis[i, 1:m + 1] = visual[inv]
-        out_ac[i, 1:m + 1] = acoustic[inv]
+        if is_bert:
+            # [CLS] tokens [SEP], zero modality rows for the specials,
+            # right-pad (reference multimodal_driver.py:143-173)
+            out_ids[i, 0] = cls_id
+            out_ids[i, 1:m + 1] = token_ids
+            out_ids[i, m + 1] = sep_id
+            out_mask[i, : m + 2] = 1
+            out_vis[i, 1:m + 1] = visual[inv]
+            out_ac[i, 1:m + 1] = acoustic[inv]
+        else:
+            # tokens <sep> <cls> (cls last), segments 0…0,2, LEFT-pad ids
+            # with pad_id, segments with 3 (multimodal_driver.py:176-205)
+            pad = s - (m + 2)
+            out_ids[i, pad:pad + m] = token_ids
+            out_ids[i, -2] = sep_id
+            out_ids[i, -1] = cls_id
+            out_mask[i, pad:] = 1
+            out_seg[i, pad:-1] = 0
+            out_seg[i, -1] = 2
+            out_vis[i, pad:pad + m] = visual[inv]
+            out_ac[i, pad:pad + m] = acoustic[inv]
         out_lab[i] = np.float32(np.asarray(label_id).reshape(()))
 
     return PackedSplit(

@@ -1,14 +1,14 @@
-"""BERT tokenizers: a copy of the JAX package's ``data/tokenization.py``
-for the BERT family (``BasicTokenizer``, ``WordPieceTokenizer`` and the
-BERT branch of ``get_tokenizer``). The port cannot import that package,
-whose ``__init__`` pulls in jax (ROADMAP A.12); the tests hold the two
-equal.
+"""Tokenizers: a copy of the JAX package's ``data/tokenization.py`` for the
+BERT family (``BasicTokenizer``, ``WordPieceTokenizer``) and XLNet's
+word-list stand-in (``SimpleUnigramTokenizer``), with ``get_tokenizer``.
+The port cannot import that package, whose ``__init__`` pulls in jax
+(ROADMAP A.12); the tests hold the two equal.
 
 The pipeline uses a tokenizer through three APIs: per-word
 ``tokenize(word)``, ``convert_tokens_to_ids(tokens)`` and the cls/sep/pad
 special tokens; modality alignment depends on per-word subword counts.
-Vocabularies are always local files or in-memory lists. The XLNet
-tokenizers (unigram and SentencePiece) wait for MAG-XLNet (ROADMAP A.7).
+Vocabularies are always local files or in-memory lists. The SentencePiece
+tokenizer over a real ``spiece.model`` waits for ROADMAP A.15.
 """
 
 from __future__ import annotations
@@ -217,9 +217,96 @@ class WordPieceTokenizer:
         return [self.ids_to_tokens.get(i, self.unk_token) for i in ids]
 
 
+class SimpleUnigramTokenizer:
+    """Greedy longest-match unigram tokenizer with XLNet's special tokens
+    (<cls>, <sep>, <pad>; <cls> goes last in packing): the offline stand-in
+    for SentencePiece when no ``.model`` file is at hand."""
+
+    cls_token = "<cls>"
+    sep_token = "<sep>"
+    pad_token = "<pad>"
+    unk_token = "<unk>"
+
+    def __init__(self, vocab: Dict[str, int], do_lower_case: bool = False):
+        self.vocab = dict(vocab)
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        self.do_lower_case = do_lower_case
+        for tok in (self.cls_token, self.sep_token, self.pad_token,
+                    self.unk_token):
+            if tok not in self.vocab:
+                raise ValueError(f"vocab is missing special token {tok!r}")
+
+    @classmethod
+    def from_wordlist(cls, words: Iterable[str],
+                      do_lower_case: bool = False
+                      ) -> "SimpleUnigramTokenizer":
+        vocab: Dict[str, int] = {}
+
+        def add(tok):
+            if tok not in vocab:
+                vocab[tok] = len(vocab)
+
+        for t in ("<unk>", "<sep>", "<pad>", "<cls>", "<mask>"):
+            add(t)
+        chars = set()
+        for w in words:
+            w = w.lower() if do_lower_case else w
+            add("▁" + w)  # SentencePiece word-start marker
+            chars.update(w)
+        for ch in sorted(chars):
+            add(ch)
+            add("▁" + ch)
+        return cls(vocab, do_lower_case=do_lower_case)
+
+    @property
+    def pad_token_id(self) -> int:
+        return self.vocab[self.pad_token]
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def tokenize(self, text: str) -> List[str]:
+        if self.do_lower_case:
+            text = text.lower()
+        out: List[str] = []
+        for word in text.split():
+            out.extend(self._greedy("▁" + word))
+        return out
+
+    def _greedy(self, piece: str) -> List[str]:
+        tokens: List[str] = []
+        start = 0
+        n = len(piece)
+        while start < n:
+            end = n
+            cur = None
+            while start < end:
+                sub = piece[start:end]
+                if sub in self.vocab:
+                    cur = sub
+                    break
+                end -= 1
+            if cur is None:
+                tokens.append(self.unk_token)
+                start += 1
+            else:
+                tokens.append(cur)
+                start = end
+        return tokens
+
+    def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:
+        unk = self.vocab[self.unk_token]
+        return [self.vocab.get(t, unk) for t in tokens]
+
+    def convert_ids_to_tokens(self, ids: Sequence[int]) -> List[str]:
+        return [self.ids_to_tokens.get(i, self.unk_token) for i in ids]
+
+
 def get_tokenizer(model: str, vocab_path: Optional[str] = None):
     """Model-name dispatch (the JAX package's ``get_tokenizer``), from local
-    files only; the XLNet family raises naming ROADMAP A.7."""
+    files only. XLNet takes a word-list file (``SimpleUnigramTokenizer``);
+    a SentencePiece ``.model`` raises naming ROADMAP A.15."""
     if model.startswith("bert"):
         if vocab_path is None:
             raise ValueError(
@@ -228,7 +315,15 @@ def get_tokenizer(model: str, vocab_path: Optional[str] = None):
         return WordPieceTokenizer.from_vocab_file(vocab_path,
                                                   do_lower_case=lower)
     if model.startswith("xlnet"):
-        raise NotImplementedError(
-            "the XLNet tokenizers are not ported yet (ROADMAP A.7)")
+        if vocab_path is None:
+            raise ValueError(
+                "XLNet tokenizer needs a local spiece.model or vocab list")
+        if vocab_path.endswith(".model"):
+            raise NotImplementedError(
+                "the SentencePiece tokenizer (a .model vocab) is not ported "
+                "yet (ROADMAP A.15)")
+        with open(vocab_path, encoding="utf-8") as f:
+            words = [w.strip() for w in f if w.strip()]
+        return SimpleUnigramTokenizer.from_wordlist(words)
     raise ValueError(
         f"Expected a bert-* or xlnet-* model name, got {model!r}")

@@ -1,20 +1,25 @@
 """CLI driver (port of the JAX package's ``driver.py``): the same flags and
-defaults, plus ``--device``, and its single-device BERT-family training
-path: seed, data (``--synthetic`` or ``--data_pickle``), model config,
-optimizer, ``Trainer.train`` with the ``MetricLogger``, and the same
-printed lines.
+defaults, plus ``--device``, and its single-device training path for both
+model families (MAG-BERT, and MAG-XLNet with ``--model
+xlnet-base-cased``): seed, data (``--synthetic`` or ``--data_pickle``),
+model config, optimizer, ``Trainer.train`` with the ``MetricLogger``, and
+the same printed lines.
 
 ``--device`` (default ``cuda``) is where the model and the batches live:
 on a card the fused attention and MAG-gate kernels run; without one the
 driver exits non-zero unless the caller passes ``--device cpu``, where
 the kernels' plain versions run. Flags whose port has not landed yet exit
 with status 2 and a message naming their ROADMAP item; none is ignored
-silently.
+silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``) exit
+with status 2 and its message.
 
 Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --model bert-base-uncased --dataset mosi --synthetic \\
         --use_fused_mag --attention_impl fused
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --model xlnet-base-cased --dataset mosi --synthetic \\
+        --attention_impl fused
 """
 
 from __future__ import annotations
@@ -27,12 +32,36 @@ import tempfile
 
 from bert_multimodal_transformer_tpu_torch.utils.seeding import parse_seed
 
+
+def _xlnet(a) -> bool:
+    return a.model.startswith("xlnet")
+
+
+# The JAX driver's refusals of flags that do not apply to a model family:
+# (test on the parsed args, its message).
+FAMILY_ERRORS = (
+    (lambda a: _xlnet(a) and a.attention_impl == "flash",
+     "--attention_impl flash is not available for the XLNet family "
+     "(rel-attention needs the ebias-streamed fused kernel); use einsum or "
+     "fused"),
+    (lambda a: (_xlnet(a) and a.rel_bias_impl == "inkernel"
+                and a.attention_impl != "fused"),
+     "--rel_bias_impl inkernel requires --attention_impl fused (the einsum "
+     "path has no score-bias kernel to select)"),
+    (lambda a: not _xlnet(a) and a.rel_bias_impl == "inkernel",
+     "--rel_bias_impl inkernel applies only to the XLNet family's fused "
+     "rel-attention"),
+    (lambda a: _xlnet(a) and (a.qkv_fusion or a.qkv_residual),
+     "--qkv_fusion/--qkv_residual apply only to the BERT family's packed "
+     "fused attention"),
+)
+
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--model xlnet-base-cased", lambda a: a.model.startswith("xlnet"),
-     "A.7"),
     ("--rel_bias_impl inkernel", lambda a: a.rel_bias_impl == "inkernel",
-     "A.7"),
+     "B.7"),
+    ("--vocab *.model (SentencePiece)",
+     lambda a: _xlnet(a) and (a.vocab or "").endswith(".model"), "A.15"),
     ("--checkpoint_dir", lambda a: a.checkpoint_dir is not None, "A.6"),
     ("--resume", lambda a: a.resume, "A.6"),
     ("--save_every_steps", lambda a: a.save_every_steps != 0, "A.6"),
@@ -83,7 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_pickle", type=str, default=None,
                    help="Path to {mosi,mosei}.pkl in the documented format")
     p.add_argument("--vocab", type=str, default=None,
-                   help="Local vocab.txt (BERT)")
+                   help="Local vocab.txt (BERT) or word list (XLNet; a "
+                        "SentencePiece .model is not ported yet, ROADMAP "
+                        "A.15)")
     p.add_argument("--pretrained_checkpoint", type=str, default=None,
                    help="Local HF pytorch_model.bin to warm-start "
                         "(not ported yet: ROADMAP A.6)")
@@ -134,7 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rel_bias_impl", type=str, default="auto",
                    choices=["auto", "stream", "inkernel"],
                    help="XLNet only; inkernel is not ported yet "
-                        "(ROADMAP A.7)")
+                        "(ROADMAP B.7)")
     p.add_argument("--mem_len", type=int, default=0,
                    help="not ported yet (ROADMAP A.8)")
     p.add_argument("--model_parallel", type=int, default=1,
@@ -180,6 +211,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    refused = [msg for test, msg in FAMILY_ERRORS if test(args)]
+    if refused:
+        for msg in refused:
+            print(f"error: {msg}", file=sys.stderr)
+        return 2
     unported = [(flag, item) for flag, test, item in UNPORTED if test(args)]
     if unported:
         for flag, item in unported:
@@ -200,6 +236,7 @@ def main(argv=None) -> int:
         BertConfig,
         DatasetConfig,
         MultimodalConfig,
+        XLNetConfig,
         dtype_from_str,
     )
     from bert_multimodal_transformer_tpu_torch.data import synthetic
@@ -207,11 +244,15 @@ def main(argv=None) -> int:
         set_up_data_loaders,
     )
     from bert_multimodal_transformer_tpu_torch.data.tokenization import (
+        SimpleUnigramTokenizer,
         WordPieceTokenizer,
         get_tokenizer,
     )
     from bert_multimodal_transformer_tpu_torch.models.bert import (
         MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
     )
     from bert_multimodal_transformer_tpu_torch.training.optim import (
         make_optimizer,
@@ -227,12 +268,14 @@ def main(argv=None) -> int:
     )
 
     ds = DatasetConfig.from_name(args.dataset)
+    is_xlnet = _xlnet(args)
     set_random_seed(args.seed)
     print(f"Seed: {args.seed}")
 
     # ---- data -----------------------------------------------------------
     loader_kw = dict(
-        model_family="bert", max_seq_length=args.max_seq_length,
+        model_family="xlnet" if is_xlnet else "bert",
+        max_seq_length=args.max_seq_length,
         train_batch_size=args.train_batch_size,
         dev_batch_size=args.dev_batch_size,
         test_batch_size=args.test_batch_size, n_epochs=args.n_epochs,
@@ -243,7 +286,9 @@ def main(argv=None) -> int:
             visual_dim=ds.visual_dim, acoustic_dim=ds.acoustic_dim,
             n_train=args.synthetic_sizes[0], n_dev=args.synthetic_sizes[1],
             n_test=args.synthetic_sizes[2], seed=args.seed)
-        tokenizer = WordPieceTokenizer.from_wordlist(synthetic.vocabulary())
+        tokenizer = (SimpleUnigramTokenizer if is_xlnet
+                     else WordPieceTokenizer).from_wordlist(
+                         synthetic.vocabulary())
         with tempfile.TemporaryDirectory() as tmp:
             pickle_path = os.path.join(tmp, f"{args.dataset}.pkl")
             synthetic.write_pickle(pickle_path, data)
@@ -261,21 +306,30 @@ def main(argv=None) -> int:
     # ---- model ----------------------------------------------------------
     mm = MultimodalConfig(beta_shift=args.beta_shift,
                           dropout_prob=args.dropout_prob,
+                          injection_index=1 if is_xlnet else 0,
                           use_fused_kernel=args.use_fused_mag)
     vocab_size = getattr(tokenizer, "vocab_size", 30522)
-    cfg = (BertConfig.tiny(vocab_size) if args.tiny else
-           (BertConfig.bert_large_uncased()
-            if args.model == "bert-large-uncased"
-            else BertConfig.bert_base_uncased()))
+    if is_xlnet:
+        cfg = (XLNetConfig.tiny(vocab_size) if args.tiny
+               else XLNetConfig.xlnet_base_cased())
+        model_cls = MagXLNetForSequenceClassification
+    else:
+        cfg = (BertConfig.tiny(vocab_size) if args.tiny else
+               (BertConfig.bert_large_uncased()
+                if args.model == "bert-large-uncased"
+                else BertConfig.bert_base_uncased()))
+        if args.max_seq_length > cfg.max_position_embeddings:
+            # a longer position table rather than indices past its end
+            cfg = dataclasses.replace(
+                cfg, max_position_embeddings=args.max_seq_length)
+        model_cls = MagBertForSequenceClassification
     if args.synthetic and not args.tiny:
         # the synthetic tokenizer's vocabulary, the model's geometry
         cfg = dataclasses.replace(cfg, vocab_size=max(vocab_size, 128))
-    if args.max_seq_length > cfg.max_position_embeddings:
-        # a longer position table rather than indices past its end
-        cfg = dataclasses.replace(
-            cfg, max_position_embeddings=args.max_seq_length)
     cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
-    model = MagBertForSequenceClassification(
+    if is_xlnet:
+        cfg = dataclasses.replace(cfg, rel_bias_impl=args.rel_bias_impl)
+    model = model_cls(
         cfg, mm, ds.visual_dim, ds.acoustic_dim,
         dtype_from_str(args.compute_dtype), device=device,
         generator=torch.Generator(device=device).manual_seed(args.seed))

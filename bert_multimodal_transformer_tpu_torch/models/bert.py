@@ -40,6 +40,7 @@ from torch import nn
 from bert_multimodal_transformer_tpu_torch.config import (
     BertConfig,
     MultimodalConfig,
+    resolve_device,
 )
 from bert_multimodal_transformer_tpu_torch.models.mag import MAG
 from bert_multimodal_transformer_tpu_torch.ops.activations import ACT2FN
@@ -59,7 +60,7 @@ from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
 def _uninitialized(module_cls, *args, device) -> nn.Module:
     # Weights are set by init_weights from an explicit generator.
     return nn.utils.skip_init(module_cls, *args,
-                              device=device if device is not None else "cpu")
+                              device=resolve_device(device))
 
 
 def _linear(in_features: int, out_features: int, device) -> nn.Linear:
@@ -327,7 +328,9 @@ def init_weights(module: nn.Module, initializer_range: float,
 
 class MagBertModel(nn.Module):
     """BERT backbone with early-fusion MAG: embeddings → MAG(emb, visual,
-    acoustic) → encoder → pooler."""
+    acoustic) → encoder → pooler. ``device=None`` builds on the card
+    (``config.resolve_device``: raises without one); pass ``device="cpu"``
+    for the CPU."""
 
     def __init__(self, config: BertConfig,
                  multimodal_config: MultimodalConfig, visual_dim: int,
@@ -337,6 +340,7 @@ class MagBertModel(nn.Module):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         mm = multimodal_config
@@ -418,6 +422,7 @@ class MagBertForSequenceClassification(nn.Module):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.bert = MagBertModel(config, multimodal_config, visual_dim,

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from bert_multimodal_transformer_tpu_torch.config import resolve_device
 from bert_multimodal_transformer_tpu_torch.ops import mag as mag_ops
 from bert_multimodal_transformer_tpu_torch.ops.dropout import dropout
 from bert_multimodal_transformer_tpu_torch.ops.mag_fused import (
@@ -24,7 +25,9 @@ class MAG(nn.Module):
     """Multimodal Adaptation Gate: ``forward(text, visual, acoustic)``,
     then output dropout at ``dropout_prob`` (the JAX module's last step).
     ``use_fused_kernel`` routes the gate through the fused kernels
-    (``ops/mag_fused.py``); the dropout stays outside them."""
+    (``ops/mag_fused.py``); the dropout stays outside them. ``device=None``
+    builds on the card and raises without one; pass ``device="cpu"`` for
+    the CPU."""
 
     PARAM_NAMES = ("w_hv_v", "w_hv_t", "b_hv", "w_ha_a", "w_ha_t", "b_ha",
                    "w_v", "b_v", "w_a", "b_a", "ln_gamma", "ln_beta")
@@ -40,6 +43,7 @@ class MAG(nn.Module):
         self.beta_shift = beta_shift
         self.dropout_prob = dropout_prob
         self.use_fused_kernel = use_fused_kernel
+        device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         init = mag_ops.init_mag_params(generator, hidden_size, visual_dim,

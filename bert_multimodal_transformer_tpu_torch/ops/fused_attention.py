@@ -1,8 +1,9 @@
-"""Packed attention, forward and backward (port of ``ops/fused_attention.py``'s
-``fused_attention_packed`` full-H tier: prob dropout, saved probs, and both
-backward kernels).
+"""Packed and rel attention, forward and backward (port of
+``ops/fused_attention.py``'s full-H tiers of ``fused_attention_packed`` and
+``fused_rel_attention``: prob dropout, saved probs, and both backward
+kernels of each).
 
-Three kernels, each with its plain PyTorch version beside it:
+The packed kernels, each with its plain PyTorch version beside it:
 
 * #1 ``attn_fwd_packed_cuda`` → ``csrc/attn_fwd_packed.cu``, plain version
   ``attn_fwd_packed_reference``: softmax(QKᵀ·scale + bias)·V with optional
@@ -13,11 +14,18 @@ Three kernels, each with its plain PyTorch version beside it:
   ``attn_bwd_packed_reference``: dqkv with the probs recomputed and the
   keep mask replayed from the forward's seed.
 
+The rel kernels #11, #13 and #12 (``attn_fwd_rel_cuda``,
+``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``) are their twins for
+separate q [B, Q, D] and k, v [B, K, D] under a full differentiable score
+bias ebias [B, H, Q, K] in place of the [B, S] mask (the section at the
+end of this module).
+
 Each CUDA wrapper launches on PyTorch's current stream and counts its
-launches in ``<wrapper>.launches``. ``fused_attention_packed`` dispatches on
-the tensor's device: a CUDA tensor launches the kernels or raises, a CPU
-tensor takes the plain versions. ``FusedAttentionPacked`` is the autograd
-function (the JAX ``_fap_fwd``/``_fap_bwd``).
+launches in ``<wrapper>.launches``. ``fused_attention_packed`` and
+``fused_rel_attention`` dispatch on the tensor's device: a CUDA tensor
+launches the kernels or raises, a CPU tensor takes the plain versions.
+``FusedAttentionPacked`` and ``FusedRelAttention`` are the autograd
+functions (the JAX ``_fap_fwd``/``_fap_bwd``, ``_frel_fwd``/``_frel_bwd``).
 
 The dropout stream: element (b, h, q, k) is kept iff its 32-bit draw is
 ``>= dropout_threshold(rate)``, with the draw taken from Philox4x32-10 at
@@ -478,18 +486,20 @@ def attn_bwd_packed_saved(p, pd, qkv, g, *, n_heads, scale):
 
 def resolve_save_probs(b: int, n_heads: int, s: int, rate: float,
                        itemsize: int,
-                       save_probs: Optional[bool] = None) -> bool:
+                       save_probs: Optional[bool] = None,
+                       k_len: Optional[int] = None) -> bool:
     """Whether the forward saves p (and pd) for the backward: as asked;
-    else ``FUSED_ATTN_SAVE=0/1``; else while B·H·S·S·itemsize·n_prob
-    ≤ 256 MB, with n_prob = 2 at rate > 0 (p and pd) and 1 at rate 0.
-    This is the JAX ``_resolve_knobs`` policy on the true [B, H, S, S]
-    size: its sublane/lane rounding and its VMEM check are TPU layout and
-    have no counterpart here."""
+    else ``FUSED_ATTN_SAVE=0/1``; else while B·H·S·K·itemsize·n_prob
+    ≤ 256 MB (K = ``k_len``, S when None), with n_prob = 2 at rate > 0 (p
+    and pd) and 1 at rate 0. This is the JAX ``_resolve_knobs`` policy on
+    the true [B, H, S, K] size: its sublane/lane rounding and its VMEM
+    check are TPU layout and have no counterpart here."""
     if save_probs is None and "FUSED_ATTN_SAVE" in os.environ:
         save_probs = os.environ["FUSED_ATTN_SAVE"] == "1"
     if save_probs is None:
         n_prob = 2 if rate > 0.0 else 1
-        save_probs = (b * n_heads * s * s * itemsize * n_prob
+        k = s if k_len is None else k_len
+        save_probs = (b * n_heads * s * k * itemsize * n_prob
                       <= SAVE_PROBS_CAP_BYTES)
     return bool(save_probs)
 
@@ -593,3 +603,371 @@ def fused_attention_packed(
                               save_probs)
     return FusedAttentionPacked.apply(qkv, attention_mask, n_heads,
                                       float(scale), rate, seed, save)
+
+
+# ---- rel attention: a full differentiable score bias --------------------------
+#
+# The port of the JAX ``fused_rel_attention`` full-H tier (XLNet's content
+# and query streams): q [B, Q, D] and k, v [B, K, D] head-major (column
+# h·Dh + c), and ebias [B, H, Q, K], the score bias assembled outside the
+# kernels (rel-shifted bd + segment ef − 1e30·mask in the model). Three
+# kernels, each with its plain version:
+#
+# * #11 ``attn_fwd_rel_cuda`` → ``csrc/attn_fwd_rel.cu``:
+#   softmax(q_h·k_hᵀ·scale + ebias) → dropout → ·v_h, optionally saving p/pd;
+# * #13 ``attn_bwd_rel_saved_cuda`` → ``csrc/attn_bwd_rel_saved.cu``:
+#   dq, dk, dv and debias from the saved p/pd;
+# * #12 ``attn_bwd_rel_cuda`` → ``csrc/attn_bwd_rel.cu``: the same with the
+#   probs recomputed and the keep mask replayed.
+#
+# debias is the score gradient before the scale (the TPU kernels' dscore);
+# dq/dk come from ds·scale rounded to the input dtype. The dropout stream
+# is the packed kernels' (counter (k >> 2, q, h, b)), over [B, H, Q, K].
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, L, Dh] → [B, L, H·Dh]."""
+    b, h, n, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, n, h * dh)
+
+
+def _rel_probs(q, k, ebias, n_heads, scale):
+    """fp32 scores (scale after the dot, then + ebias) and their
+    max-subtracted softmax; a row masked whole (every bias −1e30) comes out
+    uniform, as the TPU kernel's."""
+    scores = torch.matmul(_ctx_heads(q, n_heads).float(),
+                          _ctx_heads(k, n_heads).float().transpose(-1, -2))
+    return torch.softmax(scores * scale + ebias.float(), dim=-1)
+
+
+def attn_fwd_rel_reference(
+    q: torch.Tensor,                          # [B, Q, D]
+    k: torch.Tensor,                          # [B, K, D]
+    v: torch.Tensor,                          # [B, K, D]
+    ebias: torch.Tensor,                      # [B, H, Q, K]
+    *,
+    n_heads: int,
+    scale: float,
+    rate: float = 0.0,
+    seed: int = 0,
+    save: bool = False,
+):
+    """Plain version of kernel #11, with #1's rounding points: fp32
+    softmax; p (and pd at rate > 0) rounded to the input dtype when saved;
+    the dropped probs rounded for a PV product accumulated in fp32.
+    Returns out [B, Q, D], or (out, p, pd) [B, H, Q, K] with ``save`` (pd
+    is p at rate 0)."""
+    dtype = q.dtype
+    p = _rel_probs(q, k, ebias, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    ctx = torch.matmul(pd.to(dtype).float(),
+                       _ctx_heads(v, n_heads).float()).to(dtype)
+    out = _merge_heads(ctx)
+    if not save:
+        return out
+    p_c = p.to(dtype)
+    return out, p_c, (pd.to(dtype) if rate > 0.0 else p_c)
+
+
+def _rel_vjp(p, pd, pd_c, q, k, v, g, n_heads, scale, eb_dtype):
+    """The rel backward kernels' shared math: dV = pd_cᵀ·g, t = pd ⊙
+    (g·Vᵀ), ds = t − p·Σ_k t (debias, in ``eb_dtype``), ds_c = T(ds·scale),
+    dQ = ds_c·K, dK = ds_cᵀ·Q; products accumulated in fp32."""
+    dtype = q.dtype
+    qh, kh, vh = (_ctx_heads(x, n_heads).float() for x in (q, k, v))
+    gh = _ctx_heads(g, n_heads).float()
+    dv = torch.matmul(pd_c.float().transpose(-1, -2), gh).to(dtype)
+    t = pd * torch.matmul(gh, vh.transpose(-1, -2))
+    ds = t - p * t.sum(dim=-1, keepdim=True)
+    ds_c = (ds * scale).to(dtype).float()
+    dq = torch.matmul(ds_c, kh).to(dtype)
+    dk = torch.matmul(ds_c.transpose(-1, -2), qh).to(dtype)
+    return (_merge_heads(dq), _merge_heads(dk), _merge_heads(dv),
+            ds.to(eb_dtype))
+
+
+def attn_bwd_rel_reference(q, k, v, ebias, seed, g, *, n_heads, scale,
+                           rate=0.0):
+    """Plain version of kernel #12: the probs recomputed in fp32, the keep
+    mask replayed from ``seed``. Returns (dq, dk, dv, debias), debias in
+    ebias's dtype."""
+    p = _rel_probs(q, k, ebias, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    return _rel_vjp(p, pd, pd.to(q.dtype), q, k, v, g, n_heads, scale,
+                    ebias.dtype)
+
+
+def attn_bwd_rel_saved_reference(p, pd, q, k, v, g, *, n_heads, scale):
+    """Plain version of kernel #13: the VJP from the saved p and pd (input
+    dtype, read as fp32). Returns (dq, dk, dv, debias), debias in the input
+    dtype (the autograd function casts it to ebias's, as the JAX
+    ``_frel_bwd``)."""
+    return _rel_vjp(p.float(), pd.float(), pd, q, k, v, g, n_heads, scale,
+                    q.dtype)
+
+
+def rel_grads_bf16_bound(refs, p, pd, q, k, v, g, *, n_heads, scale):
+    """Elementwise bounds on how far two bf16 (dq, dk, dv, debias) of this
+    math may lie apart (``dqkv_bf16_bound``'s argument): 2^-7·(|ref| + A)
+    + 2^-17 with A = (|ds|·|K|, |ds|ᵀ·|Q|, |pd|ᵀ·|g|, |ds|/scale), |ds|
+    bounded by (|t| + |p|·Σ|t|)·scale."""
+    qh, kh, vh = (_ctx_heads(x, n_heads).float().abs() for x in (q, k, v))
+    gh = _ctx_heads(g, n_heads).float().abs()
+    p, pd = p.float().abs(), pd.float().abs()
+    t = pd * torch.matmul(gh, vh.transpose(-1, -2))
+    ds = t + p * t.sum(dim=-1, keepdim=True)
+    a = (_merge_heads(torch.matmul(ds * scale, kh)),
+         _merge_heads(torch.matmul(ds.transpose(-1, -2) * scale, qh)),
+         _merge_heads(torch.matmul(pd.transpose(-1, -2), gh)), ds)
+    return tuple(2.0 ** -7 * (r.float().abs() + x) + 2.0 ** -17
+                 for r, x in zip(refs, a))
+
+
+def rel_bwd_smem_bytes(q_len: int, k_len: int, dh: int) -> int:
+    """Shared memory of one rel backward block (``csrc/common.cuh``'s
+    ``rel_bwd_smem_floats``): a [Q][Dh+1] and a [K][Dh+1] staging tile and
+    two [Q][K] tiles, in fp32."""
+    return 4 * ((q_len + k_len) * (dh + 1) + 2 * q_len * k_len)
+
+
+def rel_bwd_fits(q_len: int, k_len: int, dh: int) -> bool:
+    """Whether the rel backward kernels take this (Q, K, Dh): one (head,
+    batch row)'s [Q, K] problem in 227 KB (Q = K ≤ 141 at Dh = 64)."""
+    return rel_bwd_smem_bytes(q_len, k_len, dh) <= MAX_SMEM_BYTES
+
+
+def _check_rel_cuda(name, q, k, v, ebias, n_heads, bwd,
+                    bias_label="ebias"):
+    """The checks every rel CUDA wrapper makes (``ebias`` is whichever
+    [B, H, Q, K] tensor the kernel reads, named ``bias_label``); returns
+    (b, q_len, k_len, dh)."""
+    for label, t in (("q", q), ("k", k), ("v", v), (bias_label, ebias)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {label} must be a CUDA tensor, got "
+                             f"{t.device}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name}: {label} must be {q.dtype} on {q.device} like q "
+                f"(the kernels read ebias in q's dtype), got {t.dtype} on "
+                f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, "
+                         "bfloat16)")
+    b, q_len, k_len, dh = _check_rel_geometry(q, k, v, ebias, n_heads)
+    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {dh} not supported (a multiple of 8 up to "
+            f"{MAX_HEAD_DIM})")
+    if k_len > MAX_SEQ_LEN:
+        raise ValueError(f"{name}: K={k_len} exceeds the kernel's "
+                         f"{MAX_SEQ_LEN}")
+    if bwd and not rel_bwd_fits(q_len, k_len, dh):
+        raise ValueError(f"{name}: Q={q_len} K={k_len} Dh={dh} exceeds the "
+                         "backward's shared memory")
+    if b > 65535 or n_heads > 65535:
+        raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
+    check_sm90(q)
+    return b, q_len, k_len, dh
+
+
+def _check_rel_geometry(q, k, v, ebias, n_heads):
+    if q.dim() != 3 or k.dim() != 3 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(
+            f"q must be [B, Q, D] and k, v [B, K, D], got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, q_len, d = q.shape
+    if k.shape[0] != b or k.shape[2] != d:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if d % n_heads != 0:
+        raise ValueError(
+            f"hidden dim {d} not divisible by n_heads={n_heads}")
+    k_len = k.shape[1]
+    if tuple(ebias.shape) != (b, n_heads, q_len, k_len):
+        raise ValueError(f"ebias must be [B, H, Q, K] = "
+                         f"{(b, n_heads, q_len, k_len)}, got "
+                         f"{tuple(ebias.shape)}")
+    return b, q_len, k_len, d // n_heads
+
+
+def attn_fwd_rel_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
+                      save=False):
+    """Launch kernel #11 (``csrc/attn_fwd_rel.cu``): out [B, Q, D], or (out,
+    p, pd) [B, H, Q, K] with ``save`` (pd is p at rate 0). q, k, v and
+    ebias are contiguous CUDA tensors of one dtype (fp32 or bf16). Raises on
+    anything the kernel does not take and on a failed launch."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_fwd_rel", q, k, v, ebias,
+                                          n_heads, bwd=False)
+    out = torch.empty_like(q)
+    p = pd = None
+    if save:
+        p = torch.empty_like(ebias)
+        pd = torch.empty_like(p) if rate > 0.0 else p
+    _launch("attn_fwd_rel", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ebias.data_ptr(), out.data_ptr(), _ptr(p),
+            _ptr(pd) if rate > 0.0 else None, b, q_len, k_len, n_heads, dh,
+            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[q.dtype],
+            device=q.device)
+    attn_fwd_rel_cuda.launches += 1
+    return (out, p, pd) if save else out
+
+
+def attn_bwd_rel_cuda(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
+    """Launch kernel #12 (``csrc/attn_bwd_rel.cu``): (dq, dk, dv, debias)
+    with the probs recomputed and the keep mask replayed from ``seed``."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel", q, k, v, ebias,
+                                          n_heads, bwd=True)
+    _like("g", g, q, tuple(q.shape))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    debias = torch.empty_like(ebias)
+    _launch("attn_bwd_rel", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ebias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), debias.data_ptr(), b, q_len, k_len, n_heads, dh,
+            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[q.dtype],
+            device=q.device)
+    attn_bwd_rel_cuda.launches += 1
+    return dq, dk, dv, debias
+
+
+def attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, *, n_heads, scale):
+    """Launch kernel #13 (``csrc/attn_bwd_rel_saved.cu``): (dq, dk, dv,
+    debias) from the saved probs p and pd [B, H, Q, K]."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel_saved", q, k, v, p,
+                                          n_heads, bwd=True, bias_label="p")
+    _like("pd", pd, q, tuple(p.shape))
+    _like("g", g, q, tuple(q.shape))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    debias = torch.empty_like(p)
+    _launch("attn_bwd_rel_saved", p.data_ptr(), pd.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), debias.data_ptr(), b, q_len, k_len,
+            n_heads, dh, float(scale), _DTYPE_CODES[q.dtype],
+            device=q.device)
+    attn_bwd_rel_saved_cuda.launches += 1
+    return dq, dk, dv, debias
+
+
+attn_fwd_rel_cuda.launches = 0
+attn_bwd_rel_cuda.launches = 0
+attn_bwd_rel_saved_cuda.launches = 0
+
+
+def attn_fwd_rel(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
+                 save=False):
+    """Kernel #11 on a CUDA tensor, its plain version on a CPU one."""
+    fn = attn_fwd_rel_cuda if _on(q) == "cuda" else attn_fwd_rel_reference
+    return fn(q, k, v, ebias, n_heads=n_heads, scale=scale, rate=rate,
+              seed=seed, save=save)
+
+
+def attn_bwd_rel(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
+    """Kernel #12 on a CUDA tensor, its plain version on a CPU one."""
+    fn = attn_bwd_rel_cuda if _on(q) == "cuda" else attn_bwd_rel_reference
+    return fn(q, k, v, ebias, seed, g, n_heads=n_heads, scale=scale,
+              rate=rate)
+
+
+def attn_bwd_rel_saved(p, pd, q, k, v, g, *, n_heads, scale):
+    """Kernel #13 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_rel_saved_cuda if _on(q) == "cuda"
+          else attn_bwd_rel_saved_reference)
+    return fn(p, pd, q, k, v, g, n_heads=n_heads, scale=scale)
+
+
+class FusedRelAttention(torch.autograd.Function):
+    """Rel attention with its backward kernel (JAX ``_frel_fwd`` /
+    ``_frel_bwd``). With ``save`` the forward keeps p and pd and not ebias
+    (the backward needs only its dtype) and the backward runs #13; without,
+    it keeps q, k, v, ebias and the seed, and #12 recomputes the probs.
+    Returns (dq, dk, dv, debias), debias in ebias's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ebias, n_heads: int, scale: float,
+                rate: float, seed: int, save: bool):
+        ctx.n_heads, ctx.scale, ctx.rate = n_heads, scale, rate
+        ctx.seed, ctx.save, ctx.eb_dtype = seed, save, ebias.dtype
+        if save:
+            out, p, pd = attn_fwd_rel(q, k, v, ebias, n_heads=n_heads,
+                                      scale=scale, rate=rate, seed=seed,
+                                      save=True)
+            ctx.save_for_backward(q, k, v, p, pd)
+        else:
+            out = attn_fwd_rel(q, k, v, ebias, n_heads=n_heads, scale=scale,
+                               rate=rate, seed=seed)
+            ctx.save_for_backward(q, k, v, ebias)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        kw = dict(n_heads=ctx.n_heads, scale=ctx.scale)
+        if ctx.save:
+            q, k, v, p, pd = ctx.saved_tensors
+            dq, dk, dv, debias = attn_bwd_rel_saved(p, pd, q, k, v, g, **kw)
+        else:
+            q, k, v, ebias = ctx.saved_tensors
+            dq, dk, dv, debias = attn_bwd_rel(q, k, v, ebias, ctx.seed, g,
+                                              rate=ctx.rate, **kw)
+        return (dq, dk, dv, debias.to(ctx.eb_dtype),
+                None, None, None, None, None)
+
+
+def fused_rel_attention(
+    q: torch.Tensor,                          # [B, Q, D] head-major
+    k: torch.Tensor,                          # [B, K, D]
+    v: torch.Tensor,                          # [B, K, D]
+    ebias: torch.Tensor,                      # [B, H, Q, K]
+    *,
+    n_heads: int,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    interpret: Optional[bool] = None,
+    nb_fwd: Optional[int] = None,
+    nb_bwd: Optional[int] = None,
+    save_probs: Optional[bool] = None,
+) -> torch.Tensor:
+    """softmax(q_h·k_hᵀ·scale + ebias[:, h]) with prob dropout, ·v_h, as
+    [B, Q, D]; ebias is differentiable. Same signature and meaning as the
+    JAX entry: ``dropout_rate`` applies only when ``deterministic`` is
+    False and then needs ``dropout_rng`` (a CPU ``torch.Generator``, from
+    which the kernel seed is drawn); ``save_probs`` picks the saved-probs
+    or recompute backward (``resolve_save_probs`` on [B, H, Q, K]). When no
+    gradient is being taken the forward saves nothing.
+
+    ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan knobs and raise. Past
+    the kernels' reach (K > ``MAX_SEQ_LEN``, or a backward past
+    ``rel_bwd_fits``) this raises naming the long-sequence tiers: it never
+    degrades to einsum math."""
+    if interpret is not None or nb_fwd is not None or nb_bwd is not None:
+        raise ValueError(
+            "interpret/nb_fwd/nb_bwd are TPU kernel-plan knobs; the CUDA "
+            "kernels take none")
+    rate = 0.0 if deterministic else float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    b, q_len, k_len, dh = _check_rel_geometry(q, k, v, ebias, n_heads)
+    if rate > 0.0 and dropout_rng is None:
+        raise ValueError("dropout_rate > 0 requires dropout_rng")
+    _on(q)
+    long_tiers = ("the head-blocked and flash-streamed rel-attention tiers "
+                  "are not ported yet (ROADMAP B.5, B.6, B.8)")
+    if k_len > MAX_SEQ_LEN:
+        raise NotImplementedError(f"K={k_len} > {MAX_SEQ_LEN}: {long_tiers}")
+    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
+    q, k, v, ebias = (x.contiguous() for x in (q, k, v, ebias))
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, k, v, ebias))):
+        return attn_fwd_rel(q, k, v, ebias, n_heads=n_heads, scale=scale,
+                            rate=rate, seed=seed)
+    if not rel_bwd_fits(q_len, k_len, dh):
+        raise NotImplementedError(
+            f"Q={q_len} K={k_len} at head dim {dh}: the backward kernels hold "
+            f"one row's [Q, K] problem in shared memory; {long_tiers}")
+    save = resolve_save_probs(b, n_heads, q_len, rate, q.element_size(),
+                              save_probs, k_len=k_len)
+    return FusedRelAttention.apply(q, k, v, ebias, n_heads, float(scale),
+                                   rate, seed, save)

@@ -127,12 +127,21 @@ def load_kernels() -> ctypes.CDLL:
                                         + [i32, ptr])
         lib.attn_bwd_packed.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
         lib.attn_bwd_packed_saved.argtypes = [ptr] * 5 + dims + [i32, ptr]
+        rel = [i32, i32, i32, i32, i32, f32]      # B, Q, K, H, Dh, scale
+        # attn_fwd_rel: q, k, v, ebias, out, p, pd; attn_bwd_rel: q, k, v,
+        # ebias, g, dq, dk, dv, debias; attn_bwd_rel_saved: p, pd, q, k, v,
+        # g, dq, dk, dv, debias.
+        lib.attn_fwd_rel.argtypes = [ptr] * 7 + rel + drop + [i32, ptr]
+        lib.attn_bwd_rel.argtypes = [ptr] * 9 + rel + drop + [i32, ptr]
+        lib.attn_bwd_rel_saved.argtypes = [ptr] * 10 + rel + [i32, ptr]
         # mag_fwd: t, v, a, 12 params, out; mag_bwd: dy, t, v, a, 11
         # params (no ln_beta), 6 outputs.
         lib.mag_fwd.argtypes = [ptr] * 16 + mag + [i32, ptr]
         lib.mag_bwd.argtypes = [ptr] * 21 + mag + [i32, ptr]
         for fn in (lib.attn_fwd_packed, lib.attn_bwd_packed,
-                   lib.attn_bwd_packed_saved, lib.mag_fwd, lib.mag_bwd):
+                   lib.attn_bwd_packed_saved, lib.attn_fwd_rel,
+                   lib.attn_bwd_rel, lib.attn_bwd_rel_saved, lib.mag_fwd,
+                   lib.mag_bwd):
             fn.restype = ctypes.c_int
         lib.torch_kernels_error_string.argtypes = [i32]
         lib.torch_kernels_error_string.restype = ctypes.c_char_p

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-GPU (H100).
+"""Drive the PyTorch port's serving and training paths, MAG-BERT and
+MAG-XLNet, once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed N]
 
@@ -26,6 +26,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    MOSEI's 35/74 once. #26's six outputs, and the final gradients built
    from them, against the plain chain's. Then both timed against their
    plain versions at N = 2400, 6400 and 12800 (bf16).
+3d. The rel-attention kernels (#11 forward, #13 saved-probs backward, #12
+   recompute backward) against their plain versions, on an ebias assembled
+   as the XLNet model does (rel-shifted bd + segment ef, −1e30 on the
+   masked keys of left-padded rows): bf16 at B=256 Q=K=50 (rates 0.1 and
+   0) and fp32 at B=4 Q=50 K=77 (rate 0.1). #11's keep mask equal to the
+   plain Philox mask bit for bit, the keep rate within 5σ; #13 and #12
+   against the plain backward and torch.autograd through the plain
+   forward, debias included; #12 against #13; the same bits twice. Then
+   the three timed at B=256 rate 0.1, and #11 at the serving shape (rate 0,
+   B=128) beside ``scaled_dot_product_attention`` with the ebias as its
+   mask.
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -45,6 +56,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention: losses within a stated bound, and the first step's gradients
    leaf by leaf within a stated bf16 bound of einsum's, a bound that the
    same step with dK zeroed in #3 must break.
+4c. XLNet serving: ``MagXLNetForSequenceClassification`` at
+   xlnet-base-cased width, MOSI dims, bf16, ``attention_impl="fused"``,
+   seeded random weights, over XLNet-packed splits (left padding,
+   segments 0/2/3): ``Predictor.score_split`` over 685 examples at batch
+   128 and ``predict_requests`` over 4 requests of 256. Checks: #11 once
+   per layer per batch, finite predictions, fused against einsum.
 5. Serving profile: one batch's serial latency, its device time by kernel
    and the card's busy share (torch.profiler).
 5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
@@ -61,6 +78,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    with dpv zeroed in #26's output must break; and the device time of the
    gate's forward and backward alone against a whole training step's,
    fused and plain.
+6b. The XLNet driver: ``driver.main`` with ``--model xlnet-base-cased
+   --dataset mosi --synthetic --synthetic_sizes 1281 229 685 --n_epochs 1
+   --attention_impl fused --compute_dtype bfloat16``: exit 0, finite
+   losses, #11 once per layer per batch (12 x (27 + 2 + 6) = 420), #13
+   once per layer per train step (324); one step under
+   ``FUSED_ATTN_SAVE=0`` through #12 (12); at dropout 0, from one copy of
+   the weights, one step fused against einsum leaf by leaf within a stated
+   bound, which the same step with debias, then dK, zeroed in #13's output
+   must break; then XLNet train examples/s at B=256 S=50 (20 steps after 3
+   warm-up), the median and quartiles, the peak memory and one step's
+   device time by kernel.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -140,6 +168,17 @@ MAG_BWD_TOL, MAG_TIE = 2e-4, 1e-5
 # few bf16 ulps. dpv zeroed moves the gate's W_hv leaves by their whole
 # norm (1.0).
 GATE_GAP_TOL = 5e-2
+# Phase 6b: one dropout-0 XLNet step, fused against einsum, per leaf as in
+# 4b. Unlike BERT's two branches, whose forwards are the same bits,
+# XLNet's differ: the einsum branch sums (ac + bd + ef) in fp32 where the
+# fused branch rounds bd, ef and their sum (ebias) to bf16 in each of the
+# 12 layers, and its backward rounds debias. The activations then differ
+# by bf16 ulps that grow through the stack, and a leaf whose gradient is a
+# sum over all 2400 rows that mostly cancels (the FFN and LayerNorm
+# biases) reads up to 7.1e-2 on the card (4.0e-2 on the ebias-side leaves
+# r_r_bias, r, seg_embed, r_s_bias). A zero debias takes those leaves'
+# score gradient away (they read 1.0), a zero dK the k leaves' (1.0).
+XLNET_GRAD_GAP_TOL = 0.25
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): device memory
 # bytes/s, dense bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor
 # cores. A kernel's bound is the larger of its bytes over the first and its
@@ -148,7 +187,8 @@ HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 # Kernel-name substrings that sort a profile into groups (the first match
 # wins; the rest is "other elementwise").
 PROFILE_GROUPS = (
-    ("attention kernels (csrc)", ("attn_fwd_packed", "attn_bwd_packed")),
+    ("attention kernels (csrc)", ("attn_fwd_packed", "attn_bwd_packed",
+                                  "attn_fwd_rel", "attn_bwd_rel")),
     ("MAG gate kernels (csrc)", ("mag_fwd_kernel", "mag_bwd_kernel")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm")),
     ("AdamW _foreach", ("multi_tensor_apply",)),
@@ -203,7 +243,10 @@ def _wrappers(fa):
     return {"attn_fwd_packed": fa.attn_fwd_packed_cuda,
             "attn_bwd_packed_saved": fa.attn_bwd_packed_saved_cuda,
             "attn_bwd_packed": fa.attn_bwd_packed_cuda,
-            "mag_fwd": mf.mag_fwd_cuda, "mag_bwd": mf.mag_bwd_cuda}
+            "mag_fwd": mf.mag_fwd_cuda, "mag_bwd": mf.mag_bwd_cuda,
+            "attn_fwd_rel": fa.attn_fwd_rel_cuda,
+            "attn_bwd_rel_saved": fa.attn_bwd_rel_saved_cuda,
+            "attn_bwd_rel": fa.attn_bwd_rel_cuda}
 
 
 def _counts(fa):
@@ -213,6 +256,12 @@ def _counts(fa):
 def _zero_counts(fa):
     for fn in _wrappers(fa).values():
         fn.launches = 0
+
+
+def _want(fa, **launches):
+    """The launch counts a path must show: those given, 0 for every other
+    kernel."""
+    return {name: launches.get(name, 0) for name in _wrappers(fa)}
 
 
 def _bound(n_bytes, n_ops, op_rate):
@@ -322,6 +371,37 @@ def _grad_err(name, got, want, dtype_name, bound_args, fa):
     return float(err.max())
 
 
+def _check_keep(fa, name, seed, p, pd, rate, tag):
+    """At rate > 0: the kernel's keep mask (pd > 0 where p > 0) equals the
+    plain Philox mask of [B, H, Q, K] bit for bit, and the keep rates of
+    the stream and of the kernel lie within 5σ of 1 − rate; at rate 0 the
+    saved pd is p. Returns the line's tail."""
+    import torch
+
+    if rate <= 0:
+        if pd is not p:
+            raise AssertionError(f"{name}: at rate 0 the saved pd must be p")
+        return ""
+    keep = fa.dropout_keep_mask(seed, *p.shape, rate, p.device)
+    live = p > 0
+    kernel_keep = (pd > 0)[live]
+    if not torch.equal(kernel_keep, keep[live]):
+        raise AssertionError(f"{name} keep mask differs from the plain "
+                             f"Philox mask ({tag})")
+    rates = []
+    for kept in (keep, kernel_keep):
+        n = kept.numel()
+        got = float(kept.double().mean())
+        sigma = math.sqrt(rate * (1 - rate) / n)
+        if abs(got - (1 - rate)) >= 5 * sigma:
+            raise AssertionError(f"{name} keep rate {got} not within 5σ "
+                                 f"({sigma:.2e}) of {1 - rate}")
+        rates.append(f"{got:.6f} over {n} (5σ={5 * sigma:.1e})")
+    return (f"; keep mask = plain Philox mask bit for bit on the "
+            f"{int(live.sum())} live probs; keep rate: stream {rates[0]}, "
+            f"kernel {rates[1]}")
+
+
 def check_training_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
     """Phase 3b on one seeded case: #1 with save (and dropout at rate > 0),
     #3 and #2, each against its plain version and the backward also
@@ -347,29 +427,8 @@ def check_training_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
     errs = {"fwd": max(_forward_err(f"#1 {n} {tag}", x, r, dtype_name)
                        for n, x, r in (("out", out, r_out), ("p", p, r_p),
                                        ("pd", pd, r_pd)))}
-    line = f"#1 vs plain {tag}: out/p/pd max_abs_err={errs['fwd']:.3e}"
-    if rate > 0:
-        keep = fa.dropout_keep_mask(seed, b, h, s, s, rate, qkv.device)
-        live = p > 0
-        kernel_keep = (pd > 0)[live]
-        if not torch.equal(kernel_keep, keep[live]):
-            raise AssertionError(f"#1 keep mask differs from the plain "
-                                 f"Philox mask ({tag})")
-        rates = []
-        for kept in (keep, kernel_keep):
-            n = kept.numel()
-            got = float(kept.double().mean())
-            sigma = math.sqrt(rate * (1 - rate) / n)
-            if abs(got - (1 - rate)) >= 5 * sigma:
-                raise AssertionError(f"keep rate {got} not within 5σ "
-                                     f"({sigma:.2e}) of {1 - rate}")
-            rates.append(f"{got:.6f} over {n} (5σ={5 * sigma:.1e})")
-        line += (f"; keep mask = plain Philox mask bit for bit on the "
-                 f"{int(live.sum())} live probs; keep rate: stream "
-                 f"{rates[0]}, kernel {rates[1]}")
-    elif pd is not p:
-        raise AssertionError("at rate 0 the saved pd must be p")
-    print(line)
+    print(f"#1 vs plain {tag}: out/p/pd max_abs_err={errs['fwd']:.3e}"
+          + _check_keep(fa, "#1", seed, p, pd, rate, tag))
 
     saved = fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
     recomputed = fa.attn_bwd_packed_cuda(qkv, mask, seed, g, rate=rate,
@@ -511,6 +570,8 @@ def _grad_pieces(model):
     and V rows, so a fault in one of dQ, dK, dV shows in its own piece."""
     out = {}
     for name, p in model.named_parameters():
+        if p.grad is None:   # XLNet's mask_emb: the query stream's input
+            continue
         g = p.grad.detach().float()
         if ".qkv." in name:
             for part, piece in zip("qkv", g.chunk(3)):
@@ -588,9 +649,8 @@ def train_path(args, rng, fa, model_args, card):
             and math.isfinite(record["valid_loss"])):
         raise AssertionError(f"non-finite loss in {record}")
     n_train, n_eval = len(train_it), len(dev_it) + len(test_it)
-    want = {"attn_fwd_packed": layers * (n_train + n_eval),
-            "attn_bwd_packed_saved": layers * n_train,
-            "attn_bwd_packed": 0, "mag_fwd": 0, "mag_bwd": 0}
+    want = _want(fa, attn_fwd_packed=layers * (n_train + n_eval),
+                 attn_bwd_packed_saved=layers * n_train)
     print(f"kernel launches in Trainer.train: {counts} (want {want}: "
           f"{layers} layers x ({n_train} train + {n_eval} dev/test "
           f"batches), #3 on the save path)")
@@ -605,8 +665,7 @@ def train_path(args, rng, fa, model_args, card):
     loss = float(step(state, batch))
     recompute_counts = _counts(fa)
     os.environ.pop("FUSED_ATTN_SAVE")
-    want = {"attn_fwd_packed": layers, "attn_bwd_packed_saved": 0,
-            "attn_bwd_packed": layers, "mag_fwd": 0, "mag_bwd": 0}
+    want = _want(fa, attn_fwd_packed=layers, attn_bwd_packed=layers)
     print(f"one train step under FUSED_ATTN_SAVE=0: loss {loss:.6f}, "
           f"launches {recompute_counts} (want {want})")
     if recompute_counts != want or not math.isfinite(loss):
@@ -684,13 +743,15 @@ def train_path(args, rng, fa, model_args, card):
     return counts, recompute_counts, weights
 
 
-def train_speed(args, rng, model_args, weights, card):
-    """Phase 5b at B=256, S=50."""
+def train_speed(args, make_model, batch, card, label):
+    """Training speed at B=256, S=50 (phases 5b and 6b): examples/s over 20
+    steps after 3 warm-up steps on one resident batch, the per-step median
+    and quartiles (CUDA events), the peak memory and one step's device time
+    by kernel; then the same step with plain PyTorch attention, same
+    weights, in alternating rounds. ``make_model(attention_impl)`` builds
+    the model on the card with the run's weights."""
     import torch
 
-    from bert_multimodal_transformer_tpu_torch.models.bert import (
-        MagBertForSequenceClassification,
-    )
     from bert_multimodal_transformer_tpu_torch.training.optim import (
         make_optimizer,
     )
@@ -702,16 +763,10 @@ def train_speed(args, rng, model_args, weights, card):
         device_time_by_kernel,
     )
 
-    cfg, mm, dv, da = model_args
-    model = MagBertForSequenceClassification(cfg, mm, dv, da,
-                                             torch.bfloat16, device="cuda")
-    model.load_state_dict(weights)
     warm, steps = 3, 20
-    trainer = Trainer(model=model,
-                      tx=make_optimizer(1e-5, warm + steps + 1, 0.1))
-    state = trainer.create_state_from_params(None, args.seed)
-    batch = _device_batch(make_split(rng, BENCH_BATCH, S_SERVE,
-                                     cfg.vocab_size, dv, da).as_tuple())
+    state = Trainer(model=make_model("fused"), tx=make_optimizer(
+        1e-5, warm + steps + 1, 0.1)).create_state_from_params(None,
+                                                               args.seed)
     step = make_train_step()
     for _ in range(warm):
         step(state, batch)
@@ -729,9 +784,9 @@ def train_speed(args, rng, model_args, weights, card):
     per_step = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(float(x)) for x in losses):
-        raise AssertionError("non-finite loss in the speed run")
+        raise AssertionError(f"non-finite loss in the {label} speed run")
     q1, med, q3 = np.percentile(per_step, [25, 50, 75])
-    print(f"training on {card}: bf16 bert-base MOSI dims, fused attention, "
+    print(f"training on {card}: bf16 {label} MOSI dims, fused attention, "
           f"B={BENCH_BATCH} S={S_SERVE}, dropout 0.1/0.1/0.5: "
           f"{steps * BENCH_BATCH / wall:.1f} train examples/s over {steps} "
           f"steps after {warm} warm-up ({wall:.3f} s wall)")
@@ -744,11 +799,7 @@ def train_speed(args, rng, model_args, weights, card):
 
     # The same step with plain PyTorch attention, same weights, in
     # alternating rounds: what the kernels change end to end.
-    model_e = MagBertForSequenceClassification(
-        dataclasses.replace(cfg, attention_impl="einsum"), mm, dv, da,
-        torch.bfloat16, device="cuda")
-    model_e.load_state_dict(weights)
-    state_e = Trainer(model=model_e, tx=make_optimizer(
+    state_e = Trainer(model=make_model("einsum"), tx=make_optimizer(
         1e-5, 4 * steps, 0.1)).create_state_from_params(None, args.seed)
     for _ in range(warm):
         step(state_e, batch)
@@ -762,7 +813,7 @@ def train_speed(args, rng, model_args, weights, card):
         torch.cuda.synchronize()
         rates[name].append(steps // 2 * BENCH_BATCH
                            / (time.perf_counter() - t0))
-    print(f"  fused vs einsum attention, same weights, rounds of "
+    print(f"  {label}: fused vs einsum attention, same weights, rounds of "
           f"{steps // 2} steps (fused, einsum, einsum, fused) on {card}: "
           f"fused {rates['fused']} examples/s, einsum {rates['einsum']} "
           "examples/s")
@@ -926,25 +977,17 @@ def time_mag_kernels(rng, mf, card):
     return out
 
 
-DRIVER_ARGV = ["--model", "bert-base-uncased", "--dataset", "mosi",
-               "--synthetic", "--synthetic_sizes", *map(str, MOSI_SPLITS),
-               "--n_epochs", "1", "--use_fused_mag", "--attention_impl",
-               "fused", "--compute_dtype", "bfloat16"]
-
-
-def driver_path(args, rng, fa, card):
-    """Phase 6: the driver's training run, the launches it made, and the
-    fused gate against the plain gate. Returns the launch counts."""
+def run_driver(argv, fa, card):
+    """``driver.main(argv)`` in this process: exit 0, one epoch line with
+    finite losses. Returns the kernels' launch counts of the run."""
     import contextlib
     import io
 
     import torch
 
     from bert_multimodal_transformer_tpu_torch import driver
-    from bert_multimodal_transformer_tpu_torch.config import BertConfig
 
     os.environ.setdefault("WANDB_MODE", "disabled")
-    argv = DRIVER_ARGV + ["--seed", str(args.seed)]
     stdout = io.StringIO()
     _zero_counts(fa)
     t0 = time.perf_counter()
@@ -959,21 +1002,35 @@ def driver_path(args, rng, fa, card):
           f"{wall:.2f} s wall (model build, data, one epoch and its eval)")
     if rc != 0:
         raise AssertionError(f"driver.main exited {rc}")
-    epochs = [line for line in text.splitlines()
-              if line.startswith("epoch:")]
+    epochs = [line for line in text.splitlines() if line.startswith("epoch:")]
     if len(epochs) != 1:
         raise AssertionError(f"expected one epoch line, got {epochs}")
     fields = dict(kv.split(":", 1) for kv in epochs[0].split(", "))
     for key in ("train_loss", "valid_loss"):
         if not math.isfinite(float(fields[key])):
             raise AssertionError(f"non-finite {key} in {epochs[0]}")
+    return counts
+
+
+DRIVER_ARGV = ["--model", "bert-base-uncased", "--dataset", "mosi",
+               "--synthetic", "--synthetic_sizes", *map(str, MOSI_SPLITS),
+               "--n_epochs", "1", "--use_fused_mag", "--attention_impl",
+               "fused", "--compute_dtype", "bfloat16"]
+
+
+def driver_path(args, rng, fa, card):
+    """Phase 6: the driver's training run, the launches it made, and the
+    fused gate against the plain gate. Returns the launch counts."""
+    from bert_multimodal_transformer_tpu_torch.config import BertConfig
+
+    counts = run_driver(DRIVER_ARGV + ["--seed", str(args.seed)], fa,
+                        card)
     layers = BertConfig.bert_base_uncased().num_hidden_layers
     n_train = -(-MOSI_SPLITS[0] // TRAIN_BATCH)
     n_eval = sum(-(-n // EVAL_BATCH) for n in MOSI_SPLITS[1:])
-    want = {"attn_fwd_packed": layers * (n_train + n_eval),
-            "attn_bwd_packed_saved": layers * n_train,
-            "attn_bwd_packed": 0, "mag_fwd": n_train + n_eval,
-            "mag_bwd": n_train}
+    want = _want(fa, attn_fwd_packed=layers * (n_train + n_eval),
+                 attn_bwd_packed_saved=layers * n_train,
+                 mag_fwd=n_train + n_eval, mag_bwd=n_train)
     print(f"kernel launches in driver.main: {counts} (want {want}: "
           f"{n_train} train + {n_eval} dev/test batches, {layers} layers)")
     if counts != want:
@@ -1111,6 +1168,468 @@ def gate_check(args, rng, fa, card):
                  if fused else ""))
 
 
+# ---- MAG-XLNet: the rel-attention kernels #11-#13 and the XLNet paths ------
+
+
+def rel_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0, save=False):
+    """The bound of rel kernel ``kind`` at [B, Q, K, H, Dh]: each input read
+    once and each output written once (q, g, dq [B,Q,D]; k, v, dk, dv
+    [B,K,D]; ebias, debias, p, pd [B,H,Q,K]); the products on the bf16
+    tensor cores, 2·B·H·Q·K·Dh operations each (QKᵀ and PV forward; dV,
+    d(pd), dQ and dK backward, plus QKᵀ again for the recompute)."""
+    d = h * dh
+    qd, kd = b * q_len * d * itemsize, b * k_len * d * itemsize
+    hqk = b * h * q_len * k_len * itemsize
+    probs = hqk * (2 if rate > 0 else 1)
+    dot = 2 * b * h * q_len * k_len * dh
+    if kind == "fwd":
+        n_bytes, n_ops = qd + 2 * kd + hqk + qd + (probs if save else 0), \
+            2 * dot
+    elif kind == "bwd_saved":   # reads p, pd (the same tensor at rate 0)
+        n_bytes, n_ops = probs + 2 * qd + 2 * kd + qd + 2 * kd + hqk, 4 * dot
+    else:
+        n_bytes, n_ops = 2 * qd + 2 * kd + hqk + qd + 2 * kd + hqk, 5 * dot
+    return _bound(n_bytes, n_ops, BF16_FLOPS)
+
+
+def xlnet_segments(rng, b, s):
+    """Left-padded XLNet rows: (lengths, [B, S] mask, [B, S] segment ids
+    with 0 on tokens, 2 on the last (<cls>) and 3 on pads); one row full,
+    one with a single token."""
+    lengths = rng.integers(3, s + 1, size=b)
+    lengths[0], lengths[-1] = s, 2
+    real = np.arange(s)[None, :] >= (s - lengths)[:, None]
+    segs = np.where(real, 0, 3).astype(np.int32)
+    segs[:, -1] = 2
+    return real.astype(np.int32), segs
+
+
+def rel_case(rng, dtype_name, b, q_len, k_len, h=12, dh=64):
+    """One seeded rel-kernel case with the ebias the model assembles:
+    rel_shift of a bd product against P = Q + K position keys, plus the
+    segment ef select, plus −1e30 on the masked keys of left-padded rows
+    (each query still sees its own position, the last Q keys); all at the
+    input dtype, as models/xlnet.py."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import rel_shift
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    d = h * dh
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                * scale).to("cuda", dtype)
+
+    q, k, v, g = t(b, q_len, d), t(b, k_len, d), t(b, k_len, d), t(b, q_len, d)
+    rr, kr = t(b, q_len, h, dh, scale=0.125), t(q_len + k_len, h, dh)
+    bd = torch.einsum("bqhf,phf->bhqp", rr.float(), kr.float()).to(dtype)
+    mask, segs = (torch.from_numpy(x).cuda()
+                  for x in xlnet_segments(rng, b, k_len))
+    ef_raw = t(b, h, q_len, 2)
+    seg_diff = (segs[:, None, -q_len:, None] != segs[:, None, None, :])
+    ef = torch.where(seg_diff, ef_raw[..., 1:2], ef_raw[..., 0:1]).to(dtype)
+    own = torch.zeros(q_len, k_len, dtype=torch.bool, device="cuda")
+    own[:, k_len - q_len:] = torch.eye(q_len, dtype=torch.bool,
+                                       device="cuda")
+    masked = (mask[:, None, None, :] == 0) & ~own
+    ebias = (rel_shift(bd, k_len) + ef) + (-(1e30 * masked.float())).to(dtype)
+    return q, k, v, ebias.contiguous(), g
+
+
+def _rel_grad_errs(tag, dtype_name, pairs, bound_args, fa):
+    """Max abs err of (dq, dk, dv, debias) pairs; raises past the bound."""
+    import torch
+
+    p, pd, q, k, v, g, kw = bound_args
+    errs = {}
+    for name, got, want in pairs:
+        if dtype_name == "bf16":
+            bounds = fa.rel_grads_bf16_bound(want, p, pd, q, k, v, g, **kw)
+        else:
+            bounds = [GRAD_FP32_TOL + GRAD_FP32_TOL * w.float().abs()
+                      for w in want]
+        worst = 0.0
+        for part, a, w, bd in zip(("dq", "dk", "dv", "debias"), got, want,
+                                  bounds):
+            err = (a.float() - w.float()).abs()
+            if bool((err > bd).any()) or not bool(torch.isfinite(a).all()):
+                raise AssertionError(
+                    f"{name} {part} {tag}: {int((err > bd).sum())} elements "
+                    f"out of tolerance, max_abs_err={float(err.max())}")
+            worst = max(worst, float(err.max()))
+        errs[name] = worst
+    return errs
+
+
+def check_rel_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
+    """Phase 3d on one case: #11 with save (and dropout at rate > 0), #13
+    and #12, each against its plain version, the backward also against
+    torch.autograd through the plain forward (debias included); #12
+    against #13; the same bits from the same seed twice."""
+    import torch
+
+    q, k, v, ebias, g = rel_case(rng, dtype_name, b, q_len, k_len)
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    kw = dict(n_heads=12, scale=0.125)
+    tag = f"{dtype_name} B={b} Q={q_len} K={k_len} H=12 Dh=64 rate={rate}"
+    out, p, pd = fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=rate, seed=seed,
+                                      save=True, **kw)
+    r = fa.attn_fwd_rel_reference(q, k, v, ebias, rate=rate, seed=seed,
+                                  save=True, **kw)
+    errs = {"fwd": max(_forward_err(f"#11 {n} {tag}", x, w, dtype_name)
+                       for n, x, w in zip(("out", "p", "pd"), (out, p, pd),
+                                          r))}
+    print(f"#11 vs plain {tag}: out/p/pd max_abs_err={errs['fwd']:.3e}"
+          + _check_keep(fa, "#11", seed, p, pd, rate, tag))
+
+    saved = fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, **kw)
+    recomputed = fa.attn_bwd_rel_cuda(q, k, v, ebias, seed, g, rate=rate,
+                                      **kw)
+    r_saved = fa.attn_bwd_rel_saved_reference(p, pd, q, k, v, g, **kw)
+    r_recomputed = fa.attn_bwd_rel_reference(q, k, v, ebias, seed, g,
+                                             rate=rate, **kw)
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v, ebias)]
+    fa.attn_fwd_rel_reference(*xs, rate=rate, seed=seed, **kw).backward(g)
+    autograd = [x.grad for x in xs]
+    errs.update(_rel_grad_errs(tag, dtype_name, (
+        ("#13 vs plain", saved, r_saved),
+        ("#13 vs autograd", saved, autograd),
+        ("#12 vs plain", recomputed, r_recomputed),
+        ("#12 vs autograd", recomputed, autograd),
+        ("#12 vs #13", recomputed, saved)), (p, pd, q, k, v, g, kw), fa))
+    print(f"rel backward {tag} (dq, dk, dv, debias): " + ", ".join(
+        f"{k_} {v_:.3e}" for k_, v_ in errs.items() if k_ != "fwd"))
+    again = (fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=rate, seed=seed,
+                                  save=True, **kw),
+             fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, **kw),
+             fa.attn_bwd_rel_cuda(q, k, v, ebias, seed, g, rate=rate, **kw))
+    same = all(torch.equal(a, b_) for a, b_ in zip(
+        (*again[0], *again[1], *again[2]), (out, p, pd, *saved,
+                                            *recomputed)))
+    print(f"same seed twice {tag}: identical bits {same}")
+    if not same:
+        raise AssertionError(f"the rel kernels are not bit-reproducible "
+                             f"({tag})")
+    return errs, (q, k, v, ebias, g, seed, kw)
+
+
+def time_rel_kernels(fa, case, card):
+    """#11 (rate 0.1, save), #13 and #12 against their plain versions at
+    bf16 B=256 Q=K=50, in alternating rounds; then #11 at the serving shape
+    (rate 0, B=128) beside scaled_dot_product_attention(q, k, v,
+    attn_mask=ebias, scale=scale), the library call computing the same
+    function (timed here, used nowhere in the port)."""
+    import torch.nn.functional as F
+
+    q, k, v, ebias, g, seed, kw = case
+    _, p, pd = fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=RATE, seed=seed,
+                                    save=True, **kw)
+    pairs = {
+        "attn_fwd_rel": (
+            lambda: fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=RATE,
+                                         seed=seed, save=True, **kw),
+            lambda: fa.attn_fwd_rel_reference(q, k, v, ebias, rate=RATE,
+                                              seed=seed, save=True, **kw)),
+        "attn_bwd_rel_saved": (
+            lambda: fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, **kw),
+            lambda: fa.attn_bwd_rel_saved_reference(p, pd, q, k, v, g,
+                                                    **kw)),
+        "attn_bwd_rel": (
+            lambda: fa.attn_bwd_rel_cuda(q, k, v, ebias, seed, g, rate=RATE,
+                                         **kw),
+            lambda: fa.attn_bwd_rel_reference(q, k, v, ebias, seed, g,
+                                              rate=RATE, **kw)),
+    }
+    times = {}
+    for name, (run_kernel, run_plain) in pairs.items():
+        kt, pt = _alternate(run_plain, run_kernel, 20)
+        times[name] = (float(np.mean(kt)), float(np.mean(pt)))
+        print(f"{name} bf16 B={BENCH_BATCH} Q=K={S_SERVE} H=12 Dh=64 "
+              f"rate={RATE} on {card}: kernel {kt} ms, plain {pt} ms per call")
+
+    # the serving shape: a fresh B=128 case at rate 0
+    sq, sk, sv, seb = (x[:BATCH].contiguous() for x in (q, k, v, ebias))
+    heads = [x.view(BATCH, -1, 12, 64).transpose(1, 2) for x in (sq, sk, sv)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*heads, attn_mask=seb,
+                                              scale=kw["scale"])
+
+    kt, pt = _alternate(
+        lambda: fa.attn_fwd_rel_reference(sq, sk, sv, seb, **kw),
+        lambda: fa.attn_fwd_rel_cuda(sq, sk, sv, seb, **kw), 50)
+    _time_ms(sdpa, 10)
+    lib = [_time_ms(sdpa, 50) for _ in range(2)]
+    lib_err = float((sdpa().transpose(1, 2).reshape(BATCH, S_SERVE, 768)
+                     .float() - fa.attn_fwd_rel_cuda(sq, sk, sv, seb, **kw)
+                     .float()).abs().max())
+    bound = rel_bound("fwd", BATCH, S_SERVE, S_SERVE, 12, 64, 2)
+    times["serving"] = {"ms": float(np.mean(kt)), "plain_ms": float(
+        np.mean(pt)), "library_ms": float(np.mean(lib)),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library": "scaled_dot_product_attention"}
+    print(f"attn_fwd_rel bf16 B={BATCH} Q=K={S_SERVE} rate 0 on {card}: "
+          f"kernel {kt} ms, plain {pt} ms, scaled_dot_product_attention "
+          f"{lib} ms per call (max |Δ| to the kernel {lib_err:.3e}); bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return times
+
+
+def make_xlnet_split(rng, n, s, vocab, dv, da):
+    """A seeded PackedSplit shaped like the XLNet packing: tokens <sep>
+    <cls> at the end, left padding (pad id 5), segments 0/2/3, zero
+    modality rows on specials and padding."""
+    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
+        PackedSplit,
+    )
+
+    mask, segs = xlnet_segments(rng, n, s)
+    ids = np.where(mask == 1, rng.integers(10, vocab, size=(n, s)),
+                   5).astype(np.int32)
+    ids[:, -2], ids[:, -1] = 4, 3
+    inner = (mask == 1) & (np.arange(s) < s - 2)[None, :]
+    vis = rng.standard_normal((n, s, dv), dtype=np.float32) * inner[..., None]
+    ac = rng.standard_normal((n, s, da), dtype=np.float32) * inner[..., None]
+    labels = rng.uniform(-3.0, 3.0, size=n).astype(np.float32)
+    return PackedSplit(ids, vis.astype(np.float32), ac.astype(np.float32),
+                       mask, segs, labels)
+
+
+def _xlnet(cfg, mm, impl, device_seed, weights=None):
+    """A MagXLNetForSequenceClassification at MOSI dims and bf16 on the
+    card, with random weights from a seeded generator (or ``weights``)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import DatasetConfig
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    model = MagXLNetForSequenceClassification(
+        dataclasses.replace(cfg, attention_impl=impl), mm, ds.visual_dim,
+        ds.acoustic_dim, torch.bfloat16, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(device_seed))
+    if weights is not None:
+        model.load_state_dict(weights)
+    return model
+
+
+def serving_path(fa, card, label, predictor, make_einsum, split, requests,
+                 kernel, layers):
+    """Phases 4 and 4c: ``Predictor.score_split`` over the split at batch
+    128, then ``predict_requests`` over the requests. Checks: ``kernel``
+    ran once per layer per batch and nothing else launched, every
+    prediction is finite, and the predictions agree with the same weights
+    on ``attention_impl="einsum"`` (``make_einsum()``). Returns the launch
+    counts."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
+        BatchIterator,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    scores = predictor.score_split(split)
+    t1 = time.perf_counter()
+    served = list(predictor.predict_requests(requests))
+    t2 = time.perf_counter()
+    counts = _counts(fa)
+    n_batches = len(BatchIterator(split, BATCH, shuffle=False,
+                                  drop_remainder=False)) + N_REQUESTS
+    want = _want(fa, **{kernel: layers * n_batches})
+    print(f"kernel launches in {label} serving: {counts} (want {want}: "
+          f"{layers} layers x {n_batches} batches)")
+    if counts != want:
+        raise AssertionError(f"{label} serving launches {counts} != {want}")
+    preds = predictor.predict_split(split)
+    if preds.shape != (N_TEST,) or not np.isfinite(preds).all():
+        raise AssertionError(f"bad {label} predictions: shape {preds.shape}"
+                             f", finite={np.isfinite(preds).all()}")
+    for out in served:
+        if out.shape != (REQUEST_SIZE,) or not np.isfinite(out).all():
+            raise AssertionError(f"bad request predictions {out.shape}")
+    if set(scores) != {"acc", "mae", "corr", "f_score"}:
+        raise AssertionError(f"bad scores {scores}")
+    print(f"{label} scores (random weights): {scores}")
+    preds_e = Predictor(make_einsum(), batch_size=BATCH).predict_split(split)
+    pred_err = float(np.abs(preds - preds_e).max())
+    print(f"{label} fused vs einsum predictions: max_abs_diff={pred_err:.3e} "
+          f"(tolerance {PRED_ATOL}), |pred| max {np.abs(preds_e).max():.3f}")
+    if not pred_err <= PRED_ATOL:
+        raise AssertionError(f"{label} fused and einsum predictions differ "
+                             f"by {pred_err} > {PRED_ATOL}")
+    # One pass over the split lasts ~0.1 s, so host noise moves it; five
+    # more passes give a median and a spread.
+    reps = []
+    for _ in range(5):
+        t3 = time.perf_counter()
+        predictor.predict_split(split)
+        reps.append(N_TEST / (time.perf_counter() - t3))
+    print(f"{label} serving on {card}: score_split {N_TEST / (t1 - t0):.1f} "
+          f"examples/s ({N_TEST} examples, batch {BATCH}, S={S_SERVE}, "
+          f"bf16), predict_requests "
+          f"{N_REQUESTS * REQUEST_SIZE / (t2 - t1):.1f} examples/s "
+          f"({N_REQUESTS} x {REQUEST_SIZE}); predict_split over 5 more "
+          f"passes: median {np.median(reps):.1f}, min {min(reps):.1f}, max "
+          f"{max(reps):.1f} examples/s")
+    return counts
+
+
+def xlnet_serving(args, rng, fa, card):
+    """Phase 4c: ``serving_path`` over MagXLNetForSequenceClassification at
+    xlnet-base-cased width on XLNet-packed splits, then one batch's
+    profile. Returns the launch counts."""
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    cfg = XLNetConfig.xlnet_base_cased()
+    mm = MultimodalConfig(injection_index=1)
+    model = _xlnet(cfg, mm, "fused", args.seed + 10)
+    split = make_xlnet_split(rng, N_TEST, S_SERVE, cfg.vocab_size,
+                             ds.visual_dim, ds.acoustic_dim)
+    requests = [make_xlnet_split(rng, REQUEST_SIZE, S_SERVE, cfg.vocab_size,
+                                 ds.visual_dim, ds.acoustic_dim).as_tuple()[:5]
+                for _ in range(N_REQUESTS)]
+    predictor = Predictor(model, batch_size=BATCH)
+    counts = serving_path(
+        fa, card, "xlnet-base-cased", predictor,
+        lambda: _xlnet(cfg, mm, "einsum", 0, model.state_dict()), split,
+        requests, "attn_fwd_rel", cfg.n_layer)
+    profile_batch(predictor, split, card)
+    return counts
+
+
+XLNET_DRIVER_ARGV = ["--model", "xlnet-base-cased", "--dataset", "mosi",
+                     "--synthetic", "--synthetic_sizes",
+                     *map(str, MOSI_SPLITS), "--n_epochs", "1",
+                     "--attention_impl", "fused", "--compute_dtype",
+                     "bfloat16"]
+
+
+def xlnet_driver_path(args, rng, fa, card):
+    """Phase 6b: the XLNet driver's training run and its launches, one step
+    through #12, the fused-vs-einsum gradients with two planted faults, and
+    the training speed. Returns (driver counts, recompute counts)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
+        BatchIterator,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    os.environ.pop("FUSED_ATTN_SAVE", None)
+    counts = run_driver(XLNET_DRIVER_ARGV + ["--seed", str(args.seed)], fa,
+                        card)
+    cfg = XLNetConfig.xlnet_base_cased()
+    layers = cfg.n_layer
+    n_train = -(-MOSI_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in MOSI_SPLITS[1:])
+    want = _want(fa, attn_fwd_rel=layers * (n_train + n_eval),
+                 attn_bwd_rel_saved=layers * n_train)
+    print(f"kernel launches in the XLNet driver.main: {counts} (want {want}: "
+          f"{n_train} train + {n_eval} dev/test batches, {layers} layers)")
+    if counts != want:
+        raise AssertionError(f"XLNet driver launches {counts} != {want}")
+
+    # One step through the recompute backward (#12).
+    ds = DatasetConfig.mosi()
+    mm = MultimodalConfig(injection_index=1)
+    split = make_xlnet_split(rng, 6 * TRAIN_BATCH, S_SERVE, cfg.vocab_size,
+                             ds.visual_dim, ds.acoustic_dim)
+    batches = [_device_batch(bt) for bt, _ in BatchIterator(
+        split, TRAIN_BATCH, shuffle=False, drop_remainder=True)]
+    step = make_train_step()
+    model = _xlnet(cfg, mm, "fused", args.seed + 11)
+    state = Trainer(model=model, tx=make_optimizer(1e-5, 10, 0.1)
+                    ).create_state_from_params(None, args.seed)
+    os.environ["FUSED_ATTN_SAVE"] = "0"
+    _zero_counts(fa)
+    loss = float(step(state, batches[0]))
+    recompute_counts = _counts(fa)
+    os.environ.pop("FUSED_ATTN_SAVE")
+    want = _want(fa, attn_fwd_rel=layers, attn_bwd_rel=layers)
+    print(f"one XLNet train step under FUSED_ATTN_SAVE=0: loss {loss:.6f}, "
+          f"launches {recompute_counts} (want {want})")
+    if recompute_counts != want or not math.isfinite(loss):
+        raise AssertionError(f"XLNet recompute step: {recompute_counts}, "
+                             f"{loss}")
+
+    # At dropout 0, from one copy of the weights: one step fused against
+    # einsum, leaf by leaf; then the same step with debias, then dK, zeroed
+    # in #13's output.
+    weights = {k_: v_.detach().clone()
+               for k_, v_ in model.state_dict().items()}
+    del state, model
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, summary_last_dropout=0.0)
+    mm0 = dataclasses.replace(mm, dropout_prob=0.0)
+
+    def one_step(impl):
+        m = _xlnet(cfg0, mm0, impl, 0, weights)
+        st = Trainer(model=m, tx=make_optimizer(1e-5, 10, 0.1)
+                     ).create_state_from_params(None, args.seed)
+        step(st, batches[1])
+        return _grad_pieces(m)
+
+    grads = {"fused": one_step("fused"), "einsum": one_step("einsum")}
+    real = fa.attn_bwd_rel_saved
+    for name, part in (("planted fault: debias zeroed in #13", 3),
+                       ("planted fault: dK zeroed in #13", 1)):
+        def faulty(*a, _part=part, **kw):
+            out = list(real(*a, **kw))
+            out[_part] = torch.zeros_like(out[_part])
+            return tuple(out)
+
+        fa.attn_bwd_rel_saved = faulty
+        try:
+            grads[name] = one_step("fused")
+        finally:
+            fa.attn_bwd_rel_saved = real
+    bias_leaves = ("rel_attn.r_r_bias", "rel_attn.r", "rel_attn.seg_embed",
+                   "rel_attn.r_s_bias")
+    for name in ("fused", "planted fault: debias zeroed in #13",
+                 "planted fault: dK zeroed in #13"):
+        gaps = _grad_gaps(grads[name], grads["einsum"])
+        by = dict(gaps)
+        ebias_side = max(v_ for k_, v_ in by.items()
+                         if k_.endswith(bias_leaves))
+        print(f"  XLNet step-1 gradients, {name} vs einsum: worst pieces "
+              + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in gaps[:4])
+              + f"; r_r_bias/r/seg_embed/r_s_bias leaves worst "
+              f"{ebias_side:.3e} (bound {XLNET_GRAD_GAP_TOL})")
+        fails = gaps[0][1] > XLNET_GRAD_GAP_TOL
+        if fails != name.startswith("planted"):
+            raise AssertionError(f"XLNet step-1 gradients, {name}: worst "
+                                 f"gap {gaps[0]} against {XLNET_GRAD_GAP_TOL}")
+    batch = _device_batch(make_xlnet_split(
+        rng, BENCH_BATCH, S_SERVE, cfg.vocab_size, ds.visual_dim,
+        ds.acoustic_dim).as_tuple())
+    train_speed(args, lambda impl: _xlnet(cfg, mm, impl, 0, weights), batch,
+                card, "xlnet-base-cased")
+    return counts, recompute_counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1126,9 +1645,6 @@ def main() -> int:
         BertConfig,
         DatasetConfig,
         MultimodalConfig,
-    )
-    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
-        BatchIterator,
     )
     from bert_multimodal_transformer_tpu_torch.models.bert import (
         MagBertForSequenceClassification,
@@ -1214,6 +1730,22 @@ def main() -> int:
     mag_errs = check_mag_kernels(rng, mf)
     mag_times = time_mag_kernels(rng, mf, card)
 
+    # 3d. The rel-attention kernels against plain, on the card
+    rel_errs = {}
+    rel_case_b256 = None
+    for dtype_name, b, q_len, k_len, rates in (
+            ("bf16", BENCH_BATCH, S_SERVE, S_SERVE, (RATE, 0.0)),
+            ("fp32", 4, S_SERVE, 77, (RATE,))):
+        for rate in rates:
+            errs, case = check_rel_kernels(rng, fa, dtype_name, b, q_len,
+                                           k_len, rate)
+            for k_, v_ in errs.items():
+                rel_errs[k_] = max(rel_errs.get(k_, 0.0), v_)
+            if dtype_name == "bf16" and rate > 0:
+                rel_case_b256 = case
+    rel_times = time_rel_kernels(fa, rel_case_b256, card)
+    del rel_case_b256
+
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -1228,90 +1760,59 @@ def main() -> int:
                            ds.visual_dim, ds.acoustic_dim).as_tuple()[:5]
                 for _ in range(N_REQUESTS)]
     predictor = Predictor(model, batch_size=BATCH)
-    predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
-    torch.cuda.synchronize()
 
-    _zero_counts(fa)
-    t0 = time.perf_counter()
-    preds = predictor.predict_split(split)
-    t1 = time.perf_counter()
-    served = list(predictor.predict_requests(requests))
-    t2 = time.perf_counter()
-    serve_counts = _counts(fa)
-    launches = serve_counts["attn_fwd_packed"]
+    def bert_einsum():
+        m = MagBertForSequenceClassification(
+            dataclasses.replace(cfg, attention_impl="einsum"),
+            MultimodalConfig(), ds.visual_dim, ds.acoustic_dim,
+            torch.bfloat16, device="cuda")
+        m.load_state_dict(model.state_dict())
+        return m
 
-    scores = predictor.score_split(split)
-    n_batches = len(BatchIterator(split, BATCH, shuffle=False,
-                                  drop_remainder=False)) + N_REQUESTS
-    want = cfg.num_hidden_layers * n_batches
-    print(f"kernel launches in the main path: {launches} "
-          f"(= {cfg.num_hidden_layers} layers x {n_batches} batches: "
-          f"{launches == want})")
-    if launches != want:
-        raise AssertionError(f"expected {want} kernel launches, got "
-                             f"{launches}")
-    if preds.shape != (N_TEST,) or not np.isfinite(preds).all():
-        raise AssertionError(f"bad predictions: shape {preds.shape}, "
-                             f"finite={np.isfinite(preds).all()}")
-    for out in served:
-        if out.shape != (REQUEST_SIZE,) or not np.isfinite(out).all():
-            raise AssertionError(f"bad request predictions {out.shape}")
-    if set(scores) != {"acc", "mae", "corr", "f_score"}:
-        raise AssertionError(f"bad scores {scores}")
-    print(f"scores (random weights): {scores}")
-
-    model_e = MagBertForSequenceClassification(
-        dataclasses.replace(cfg, attention_impl="einsum"), MultimodalConfig(),
-        ds.visual_dim, ds.acoustic_dim, torch.bfloat16, device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(args.seed + 1))
-    model_e.load_state_dict(model.state_dict())
-    preds_e = Predictor(model_e, batch_size=BATCH).predict_split(split)
-    del model_e
-    pred_err = float(np.abs(preds - preds_e).max())
-    print(f"fused vs einsum predictions: max_abs_diff={pred_err:.3e} "
-          f"(tolerance {PRED_ATOL}), |pred| max {np.abs(preds_e).max():.3f}")
-    if not pred_err <= PRED_ATOL:
-        raise AssertionError(f"fused and einsum predictions differ by "
-                             f"{pred_err} > {PRED_ATOL}")
-
-    split_eps = N_TEST / (t1 - t0)
-    req_eps = N_REQUESTS * REQUEST_SIZE / (t2 - t1)
-    print(f"serving on {card}: predict_split {split_eps:.1f} examples/s "
-          f"({N_TEST} examples, batch {BATCH}, S={S_SERVE}, bf16), "
-          f"predict_requests {req_eps:.1f} examples/s "
-          f"({N_REQUESTS} x {REQUEST_SIZE})")
-    # One pass over the split lasts ~0.1 s, so host noise moves it; five
-    # more passes give a median and a spread.
-    reps = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        predictor.predict_split(split)
-        reps.append(N_TEST / (time.perf_counter() - t0))
-    print(f"predict_split over 5 more passes on {card}: median "
-          f"{np.median(reps):.1f} examples/s, min {min(reps):.1f}, max "
-          f"{max(reps):.1f}")
+    serve_counts = serving_path(fa, card, "bert-base", predictor,
+                                bert_einsum, split, requests,
+                                "attn_fwd_packed", cfg.num_hidden_layers)
 
     # 4b. Training path
     model_args = (cfg, MultimodalConfig(), ds.visual_dim, ds.acoustic_dim)
     train_counts, recompute_counts, weights = train_path(
         args, rng, fa, model_args, card)
 
+    # 4c. XLNet serving
+    xlnet_serve_counts = xlnet_serving(args, rng, fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
 
     # 5b. Training speed and profile
-    train_speed(args, rng, model_args, weights, card)
+    def bert_model(impl):
+        m = MagBertForSequenceClassification(
+            dataclasses.replace(cfg, attention_impl=impl), MultimodalConfig(),
+            ds.visual_dim, ds.acoustic_dim, torch.bfloat16, device="cuda")
+        m.load_state_dict(weights)
+        return m
+
+    train_speed(args, bert_model, _device_batch(make_split(
+        rng, BENCH_BATCH, S_SERVE, cfg.vocab_size, ds.visual_dim,
+        ds.acoustic_dim).as_tuple()), card, "bert-base")
 
     # 6. The driver on the card, with the fused gate
     driver_counts = driver_path(args, rng, fa, card)
+
+    # 6b. The XLNet driver on the card
+    xlnet_train_counts, xlnet_recompute_counts = xlnet_driver_path(
+        args, rng, fa, card)
 
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
                  "train": train_counts[name],
                  "train_recompute": recompute_counts[name],
-                 "driver": driver_counts[name]}
+                 "driver": driver_counts[name],
+                 "xlnet_serving": xlnet_serve_counts[name],
+                 "xlnet_train": xlnet_train_counts[name],
+                 "xlnet_recompute": xlnet_recompute_counts[name]}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -1368,6 +1869,44 @@ def main() -> int:
             "shape": "bf16 N=12800 D=768 Dv=47 Da=74",
             "modes": {f"bf16 N={n}": times[name]
                       for n, times in mag_times.items()}})
+    rel_bounds = {
+        "attn_fwd_rel": rel_bound("fwd", BENCH_BATCH, S_SERVE, S_SERVE, 12,
+                                  64, 2, RATE, save=True),
+        "attn_bwd_rel_saved": rel_bound("bwd_saved", BENCH_BATCH, S_SERVE,
+                                        S_SERVE, 12, 64, 2, RATE),
+        "attn_bwd_rel": rel_bound("bwd", BENCH_BATCH, S_SERVE, S_SERVE, 12,
+                                  64, 2, RATE)}
+    for name, line, tag in (("attn_fwd_rel", 1413, "#11"),
+                            ("attn_bwd_rel_saved", 1521, "#13"),
+                            ("attn_bwd_rel", 1463, "#12")):
+        total, paths = by_path(name)
+        bound, by = rel_bounds[name]
+        entry = {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                 "replaces": f"{tpu}fused_attention.py:{line}",
+                 "launches": total, "launches_by_path": paths,
+                 "max_abs_err": rel_errs[
+                     "fwd" if tag == "#11" else f"{tag} vs plain"],
+                 "ms": rel_times[name][0], "plain_ms": rel_times[name][1],
+                 "bound_ms": bound, "bound_by": by,
+                 # the training modes draw the Philox mask (SDPA draws
+                 # another) and no one PyTorch call is either backward
+                 "library_ms": None,
+                 "shape": "bf16 B=256 Q=K=50 H=12 Dh=64 rate 0.1"}
+        if tag == "#11":
+            # the top-level numbers at the serving mode, where one PyTorch
+            # call (SDPA with the ebias as its float mask) computes the
+            # same function; the training mode beside it
+            training = {k_: entry[k_] for k_ in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by")}
+            training["library_ms"] = None
+            entry.update(rel_times["serving"])
+            entry["shape"] = "bf16 B=128 Q=K=50 H=12 Dh=64 rate 0"
+            entry["modes"] = {
+                "training rate 0.1, saved probs, bf16 B=256 Q=K=50":
+                    training}
+        else:
+            entry["max_abs_err_vs_autograd"] = rel_errs[f"{tag} vs autograd"]
+        kernels.append(entry)
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

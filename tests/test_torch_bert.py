@@ -73,7 +73,7 @@ def _pair(attention_impl="einsum", dtype="float32", num_labels=1, seed=0):
         "params"]
     tmodel = tbert.MagBertForSequenceClassification(
         tcfg, MultimodalConfig(beta_shift=1.0, dropout_prob=0.1), DV, DA,
-        getattr(torch, dtype))
+        getattr(torch, dtype), device="cpu")
     tmodel.load_state_dict(params_from_flax(jax.device_get(params)),
                            strict=True)
     return jmodel, params, tmodel
@@ -281,7 +281,7 @@ def test_seeded_init_is_reproducible_and_fp32():
 
     def build(seed):
         return tbert.MagBertForSequenceClassification(
-            cfg, mm, DV, DA, torch.bfloat16,
+            cfg, mm, DV, DA, torch.bfloat16, device="cpu",
             generator=torch.Generator().manual_seed(seed)).state_dict()
 
     a, b, c = build(0), build(0), build(1)

@@ -82,17 +82,24 @@ def test_tokenizer_matches_jax_package(tmp_path):
               ttok.get_tokenizer("bert-base-uncased", str(vocab))),
              (jtok.WordPieceTokenizer.from_wordlist(words),
               ttok.WordPieceTokenizer.from_wordlist(words))]
+    words_file = tmp_path / "words.txt"
+    words_file.write_text("\n".join(words) + "\n")
+    pairs += [(jtok.get_tokenizer("xlnet-base-cased", str(words_file)),
+               ttok.get_tokenizer("xlnet-base-cased", str(words_file))),
+              (jtok.SimpleUnigramTokenizer.from_wordlist(words, True),
+               ttok.SimpleUnigramTokenizer.from_wordlist(words, True))]
     for j, t in pairs:
         assert t.vocab == j.vocab and t.vocab_size == j.vocab_size
+        assert t.pad_token_id == j.pad_token_id
         for text in TEXTS:
             assert t.tokenize(text) == j.tokenize(text), text
             assert (t.convert_tokens_to_ids(t.tokenize(text))
                     == j.convert_tokens_to_ids(j.tokenize(text)))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ttok.get_tokenizer("xlnet-base-cased", str(vocab))
+    with pytest.raises(NotImplementedError, match="A.15"):
+        ttok.get_tokenizer("xlnet-base-cased", str(tmp_path / "spiece.model"))
 
 
-def test_loaders_match_jax_package_bit_for_bit(tmp_path):
+def _loaders_match_jax(tmp_path, family, tok):
     """set_up_data_loaders on the same pickle, tokenizer vocabulary and
     seed: the same step count and the same batches (two shuffled train
     epochs, dev and test with their padded tails)."""
@@ -102,14 +109,14 @@ def test_loaders_match_jax_package_bit_for_bit(tmp_path):
     path = tmp_path / "mosi.pkl"
     tsyn.write_pickle(str(path), tsyn.make_dataset(n_train=21, n_dev=7,
                                                    n_test=5, seed=3))
-    kw = dict(model_family="bert", max_seq_length=16, train_batch_size=4,
+    kw = dict(model_family=family, max_seq_length=16, train_batch_size=4,
               dev_batch_size=3, test_batch_size=2, n_epochs=2,
               gradient_accumulation_step=2, seed=11)
     jl = jpipe.set_up_data_loaders(
-        str(path), jtok.WordPieceTokenizer.from_wordlist(tsyn.vocabulary()),
+        str(path), getattr(jtok, tok).from_wordlist(tsyn.vocabulary()),
         **kw)
     tl = tpipe.set_up_data_loaders(
-        str(path), ttok.WordPieceTokenizer.from_wordlist(tsyn.vocabulary()),
+        str(path), getattr(ttok, tok).from_wordlist(tsyn.vocabulary()),
         **kw)
     assert tl[3] == jl[3]
     for j_it, t_it, epochs in zip(jl[:3], tl[:3], (2, 1, 1)):
@@ -120,6 +127,16 @@ def test_loaders_match_jax_package_bit_for_bit(tmp_path):
                 for g, w in zip(tb, jb, strict=True):
                     assert g.dtype == w.dtype
                     np.testing.assert_array_equal(g, w)
+
+
+def test_loaders_match_jax_package_bit_for_bit(tmp_path):
+    _loaders_match_jax(tmp_path, "bert", "WordPieceTokenizer")
+
+
+def test_xlnet_loaders_match_jax_package_bit_for_bit(tmp_path):
+    """The XLNet packing (left padding, <sep> <cls> last, segments 0/2/3)
+    with the word-list unigram tokenizer."""
+    _loaders_match_jax(tmp_path, "xlnet", "SimpleUnigramTokenizer")
 
 
 def test_convert_to_features_matches_the_per_example_path():
@@ -146,8 +163,22 @@ def test_convert_to_features_matches_the_per_example_path():
             np.testing.assert_array_equal(packed.acoustic[i],
                                           a.astype(np.float32))
         assert packed.label_ids[i] == np.float32(label.reshape(()))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tpipe.convert_to_features(examples, s, tok, model_family="xlnet")
+    xtok = ttok.SimpleUnigramTokenizer.from_wordlist(tsyn.vocabulary())
+    packed = tpipe.convert_to_features(examples, s, xtok,
+                                       model_family="xlnet")
+    for i, ((words, vis, ac), _, _) in enumerate(examples):
+        for mod in (tpipe, jpipe):
+            tokens, v, a = mod.align_modalities(words, vis, ac, xtok)
+            tokens, v, a = tokens[:s - 2], v[:s - 2], a[:s - 2]
+            ids, v, a, mask, seg = mod.prepare_xlnet_input(tokens, v, a,
+                                                           xtok, s)
+            np.testing.assert_array_equal(packed.input_ids[i], ids)
+            np.testing.assert_array_equal(packed.input_mask[i], mask)
+            np.testing.assert_array_equal(packed.segment_ids[i], seg)
+            np.testing.assert_array_equal(packed.visual[i],
+                                          v.astype(np.float32))
+    with pytest.raises(ValueError, match="model_family"):
+        tpipe.convert_to_features(examples, s, tok, model_family="gpt")
 
 
 def test_driver_trains_with_the_fused_gate_on_cpu(monkeypatch, capsys):
@@ -188,6 +219,65 @@ def test_driver_trains_with_the_fused_gate_on_cpu(monkeypatch, capsys):
     assert calls == {"fwd": 6, "bwd": 4}
 
 
+def test_xlnet_driver_trains_fused_on_cpu(monkeypatch, capsys):
+    """driver.main --model xlnet-base-cased --tiny --attention_impl fused
+    --device cpu: returns 0, prints the JAX driver's lines, logs one record
+    with the JAX trainer's keys, and runs the rel attention (its plain
+    versions on the CPU) once per layer and forward, the saved-probs
+    backward once per layer and train step."""
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as tfa,
+    )
+
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    records, calls = [], {"fwd": 0, "bwd_saved": 0, "bwd": 0}
+    real_log = tlog.MetricLogger.log
+    monkeypatch.setattr(tlog.MetricLogger, "log",
+                        lambda self, r: records.append(dict(r))
+                        or real_log(self, r))
+    for key, name in (("fwd", "attn_fwd_rel_reference"),
+                      ("bwd_saved", "attn_bwd_rel_saved_reference"),
+                      ("bwd", "attn_bwd_rel_reference")):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda *a, _k=key, _r=real, **kw:
+                            calls.__setitem__(_k, calls[_k] + 1)
+                            or _r(*a, **kw))
+    rc = tdriver.main([
+        "--model", "xlnet-base-cased", "--dataset", "mosi", "--tiny",
+        "--synthetic", "--synthetic_sizes", "32", "8", "8", "--n_epochs",
+        "1", "--train_batch_size", "8", "--attention_impl", "fused",
+        "--seed", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "Seed: 3" in out and "epoch:0, train_loss:" in out
+    assert len(records) == 1 and set(records[0]) == RECORD_KEYS
+    assert np.isfinite(records[0]["train_loss"])
+    # 2 layers x (4 train + 1 dev + 1 test batches); 2 x 4 train steps
+    assert calls == {"fwd": 12, "bwd_saved": 8, "bwd": 0}
+
+
+@pytest.mark.parametrize("argv,says", [
+    (["--attention_impl", "flash"], "not available for the XLNet family"),
+    (["--rel_bias_impl", "inkernel"], "requires --attention_impl fused"),
+    (["--qkv_fusion"], "apply only to the BERT family"),
+    (["--qkv_residual", "--attention_impl", "fused"],
+     "apply only to the BERT family"),
+])
+def test_xlnet_family_refusals_match_the_jax_driver(argv, says, capsys):
+    """The JAX driver's XLNet exits: status 2 with its message, before any
+    data or model is built."""
+    rc = tdriver.main(["--model", "xlnet-base-cased", *argv, "--synthetic",
+                       "--tiny", "--device", "cpu"])
+    assert rc == 2 and says in capsys.readouterr().err
+
+
+def test_bert_refuses_rel_bias_inkernel(capsys):
+    rc = tdriver.main(["--rel_bias_impl", "inkernel", "--synthetic",
+                       "--tiny", "--device", "cpu"])
+    assert rc == 2
+    assert "only to the XLNet family" in capsys.readouterr().err
+
+
 def test_driver_without_a_card_exits_nonzero(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = tdriver.main(["--synthetic", "--tiny"])
@@ -202,8 +292,9 @@ def test_driver_requires_data_source(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "xlnet-base-cased"], "A.7"),
-    (["--rel_bias_impl", "inkernel"], "A.7"),
+    (["--vocab", "spiece.model", "--model", "xlnet-base-cased"], "A.15"),
+    (["--rel_bias_impl", "inkernel", "--model", "xlnet-base-cased",
+      "--attention_impl", "fused"], "B.7"),
     (["--checkpoint_dir", "ckpt"], "A.6"),
     (["--resume"], "A.6"),
     (["--save_every_steps", "5"], "A.6"),

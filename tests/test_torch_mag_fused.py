@@ -246,7 +246,8 @@ def _model_pair(seed=0):
     params = jax.device_get(jmodel.init(jax.random.PRNGKey(seed), ids, vis,
                                         ac, mask)["params"])
     tmodel = tbert.MagBertForSequenceClassification(
-        BertConfig.tiny(), MultimodalConfig(use_fused_kernel=True), 5, 7)
+        BertConfig.tiny(), MultimodalConfig(use_fused_kernel=True), 5, 7,
+        device="cpu")
     tmodel.load_state_dict(params_from_flax(params), strict=True)
     return jmodel, params, tmodel
 
@@ -298,7 +299,8 @@ def test_plain_gate_model_gives_the_fused_gradients():
 
     _, params, fused = _model_pair()
     plain = tbert.MagBertForSequenceClassification(
-        BertConfig.tiny(), MultimodalConfig(use_fused_kernel=False), 5, 7)
+        BertConfig.tiny(), MultimodalConfig(use_fused_kernel=False), 5, 7,
+        device="cpu")
     plain.load_state_dict(params_from_flax(params), strict=True)
     ids, vis, ac, mask = _bert_inputs(2)
     grads = []
@@ -373,7 +375,8 @@ def test_train_steps_with_fused_gate_match_jax_trainer():
         jax.tree_util.tree_map(jnp.asarray, params), jax.random.PRNGKey(1))
     tmodel = tbert.MagBertForSequenceClassification(
         zero_dropout(BertConfig.tiny()),
-        MultimodalConfig(dropout_prob=0.0, use_fused_kernel=True), 5, 7)
+        MultimodalConfig(dropout_prob=0.0, use_fused_kernel=True), 5, 7,
+        device="cpu")
     ttr = trainer.Trainer(model=tmodel,
                           tx=optim.make_optimizer(1e-3, n_steps))
     tstate = ttr.create_state_from_params(params_from_flax(params), 1)

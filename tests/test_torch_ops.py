@@ -338,6 +338,14 @@ def test_configs_match_jax_package():
                 == dataclasses.asdict(jcfg.DatasetConfig.from_name(name)))
     assert (dataclasses.asdict(tcfg.MultimodalConfig())
             == dataclasses.asdict(jcfg.MultimodalConfig()))
+    for name in ("xlnet_base_cased", "tiny"):
+        j, t = getattr(jcfg.XLNetConfig, name)(), getattr(tcfg.XLNetConfig,
+                                                          name)()
+        assert ({f.name for f in dataclasses.fields(t)}
+                == {f.name for f in dataclasses.fields(j)})
+        for f in dataclasses.fields(t):
+            assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
+        assert t.d_head == j.d_head
     assert tcfg.dtype_from_str("bfloat16") is torch.bfloat16
     assert tcfg.dtype_from_str("float32") is torch.float32
 
@@ -366,6 +374,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import bert_multimodal_transformer_tpu_torch.serving\n"
         "import bert_multimodal_transformer_tpu_torch.models.bert\n"
+        "import bert_multimodal_transformer_tpu_torch.models.xlnet\n"
         "import bert_multimodal_transformer_tpu_torch.utils.convert\n"
         "import bert_multimodal_transformer_tpu_torch.utils.seeding\n"
         "import bert_multimodal_transformer_tpu_torch.utils.profiling\n"

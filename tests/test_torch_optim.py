@@ -53,7 +53,7 @@ def pair():
         rng.randn(B, S, DA).astype(np.float32))["params"]
     params = jax.device_get(params)
     tmodel = tbert.MagBertForSequenceClassification(
-        BertConfig.tiny(), MultimodalConfig(), DV, DA)
+        BertConfig.tiny(), MultimodalConfig(), DV, DA, device="cpu")
     tmodel.load_state_dict(params_from_flax(params))
     return params, tmodel
 
@@ -87,7 +87,7 @@ def test_adamw_hf_matches_jax_for_ten_steps(pair, max_grad_norm):
     step (‖g‖ ≈ 20), 1e3 never does."""
     params, tmodel = pair
     model = tbert.MagBertForSequenceClassification(
-        BertConfig.tiny(), MultimodalConfig(), DV, DA)
+        BertConfig.tiny(), MultimodalConfig(), DV, DA, device="cpu")
     model.load_state_dict(tmodel.state_dict())
     rng = np.random.RandomState(1)
     grads = [jax.tree_util.tree_map(

@@ -69,7 +69,7 @@ def _setup(num_labels=1, attention_impl="fused"):
     arrays = _arrays(num_labels=num_labels)
     params = jmodel.init(jax.random.PRNGKey(0), *arrays[:4])["params"]
     tmodel = MagBertForSequenceClassification(
-        tcfg, MultimodalConfig(1.0, 0.1), DV, DA)
+        tcfg, MultimodalConfig(1.0, 0.1), DV, DA, device="cpu")
     tmodel.load_state_dict(params_from_flax(jax.device_get(params)))
     jpred = JPredictor(jmodel, params,
                        mesh=make_mesh(MeshConfig(data_parallel=1)),

@@ -103,7 +103,8 @@ def _pair(attention_impl="einsum", n_steps=20, grad_accum=1):
     jstate = jtr.create_state_from_params(
         jax.tree_util.tree_map(jnp.asarray, params), jax.random.PRNGKey(1))
 
-    tmodel = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA)
+    tmodel = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
+                                                    device="cpu")
     ttx = toptim.make_optimizer(LR, n_steps, warmup_proportion=WARMUP_PROP,
                                 weight_decay=WD)
     ttr = ttrainer.Trainer(model=tmodel, tx=ttx, grad_accum=grad_accum)
@@ -202,7 +203,8 @@ def test_train_epochs_match_jax_trainer():
 def _dropout_trainer(attention_impl="fused"):
     _, _, tcfg, tmm = _configs(attention_impl, rate=0.1)
     model = tbert.MagBertForSequenceClassification(
-        tcfg, tmm, DV, DA, generator=torch.Generator().manual_seed(0))
+        tcfg, tmm, DV, DA, device="cpu",
+        generator=torch.Generator().manual_seed(0))
     tx = toptim.make_optimizer(LR, 4, warmup_proportion=WARMUP_PROP)
     return ttrainer.Trainer(model=model, tx=tx)
 
@@ -256,7 +258,8 @@ def test_init_state_is_seeded():
 ])
 def test_unported_trainer_options_raise(kw, item):
     _, _, tcfg, tmm = _configs("einsum")
-    model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA)
+    model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
+                                                   device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
                          **kw)
