@@ -94,41 +94,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // fp32 softmax, one warp per row, the forward's loop and reduction
-  // order; then the keep mask replayed into the sign bit.
-  const int warp = tid / 32, lane = tid % 32;
-  for (int q = warp; q < S; q += kThreads / 32) {
-    float* pr = ps + q * S;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if constexpr (!kDropout) {
-      for (int j = lane; j < S; j += 32) pr[j] = pr[j] / sum;
-    } else {
-      for (int j0 = 4 * lane; j0 < S; j0 += 128) {
-        const uint4 bits = attn::dropout_bits4(drop.seed, b, h, q, j0 >> 2);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = j0 + u;
-          if (j < S) {
-            const float p = pr[j] / sum;
-            pr[j] = attn::word(bits, u) >= drop.threshold
-                        ? p
-                        : copysignf(p, -1.0f);
-          }
-        }
-      }
-    }
-  }
+  // fp32 softmax with the forward's loop and reduction order; the keep
+  // mask replayed into the sign bit.
+  attn::softmax_rows_keep_sign<kDropout>(ps, S, S, 0, b, h, drop);
   __syncthreads();  // Q and K no longer needed: stage g and V
 
   attn::load_tile(as, g_src, (size_t)D, S, Dh);
@@ -139,11 +107,9 @@ __global__ void __launch_bounds__(kThreads)
 
   const float inv_keep = drop.inv_keep;
   auto pd_of = [ps, inv_keep](int i) {
-    const float x = ps[i];
-    if constexpr (kDropout) return signbit(x) ? 0.0f : __fmul_rn(x, inv_keep);
-    return x;
+    return attn::pd_of_signed<kDropout>(ps[i], inv_keep);
   };
-  auto p_of = [ps](int i) { return kDropout ? fabsf(ps[i]) : ps[i]; };
+  auto p_of = [ps](int i) { return attn::p_of_signed<kDropout>(ps[i]); };
   attn::softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of,
                             attn::NoDsOut{});
   __syncthreads();

@@ -40,177 +40,29 @@
 // is not a multiple of 16 or 64) are masked by bounds checks. Each lane
 // draws one Philox block for 4 consecutive keys and writes p/pd for them.
 // The dots run on the CUDA cores in fp32: a tensor-core (`wgmma`) version
-// with TMA loads is later work.
+// with TMA loads is later work. The block's work is common.cuh's
+// `fwd_packed_rows`, which the head-blocked forward (#4,
+// attn_fwd_packed_hb.cu) runs with a larger tile.
 
 #include "common.cuh"
-
-#include <cmath>
 
 namespace {
 
 using attn::DropoutArgs;
-using attn::from_float;
-using attn::round_to;
-using attn::to_float;
 
-constexpr int kThreads = 256;  // 8 warps
 constexpr int kQTile = 16;     // query rows per block
-constexpr int kKChunk = 64;    // key/value rows staged in shared memory
-constexpr int kMaxDh = 128;
 constexpr int kMaxS = 512;
-// Each thread owns ceil(kQTile * kMaxDh / kThreads) output accumulators.
-constexpr int kAccPerThread = (kQTile * kMaxDh + kThreads - 1) / kThreads;
-
-// Shared memory in floats: Q tile [kQTile][dh], K/V chunk
-// [kKChunk][dh + 1] (the +1 pad keeps the per-key rows on distinct banks),
-// scores [kQTile][s], bias [s].
-__host__ __device__ inline size_t smem_floats(int s, int dh) {
-  return (size_t)kQTile * dh + (size_t)kKChunk * (dh + 1) +
-         (size_t)kQTile * s + (size_t)s;
-}
 
 template <typename T, bool kDropout, bool kSave>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(attn::kFwdThreads)
     attn_fwd_packed_kernel(const T* __restrict__ qkv,
                            const float* __restrict__ mask,
                            T* __restrict__ out, T* __restrict__ p_out,
                            T* __restrict__ pd_out, int S, int H, int Dh,
                            float scale, DropoutArgs drop) {
   extern __shared__ float smem[];
-  const int D = H * Dh;
-  const int q0 = blockIdx.x * kQTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ldkv = Dh + 1;
-
-  float* qs = smem;                            // [kQTile][Dh]
-  float* kvs = qs + kQTile * Dh;               // [kKChunk][Dh + 1]
-  float* ps = kvs + kKChunk * ldkv;            // [kQTile][S]
-  float* bias = ps + kQTile * S;               // [S]
-
-  const size_t row_stride = (size_t)3 * D;
-  const T* base = qkv + (size_t)b * S * row_stride;
-  const int q_rows = min(kQTile, S - q0);
-
-  // Mask bias, as the TPU entry forms it: (1 − m) · −10000.
-  for (int j = tid; j < S; j += kThreads) {
-    bias[j] = mask ? (1.0f - mask[(size_t)b * S + j]) * -10000.0f : 0.0f;
-  }
-  // Q tile; rows past S are zero-filled and never written out.
-  for (int i = tid; i < kQTile * Dh; i += kThreads) {
-    const int r = i / Dh, c = i - r * Dh;
-    qs[i] = r < q_rows ? to_float(base[(size_t)(q0 + r) * row_stride +
-                                       h * Dh + c])
-                       : 0.0f;
-  }
-
-  // Scores: s[r][j] = (q_r · k_j) · scale + bias[j], over K in chunks.
-  for (int k0 = 0; k0 < S; k0 += kKChunk) {
-    const int k_rows = min(kKChunk, S - k0);
-    __syncthreads();  // previous chunk's readers are done (and qs/bias set)
-    for (int i = tid; i < k_rows * Dh; i += kThreads) {
-      const int r = i / Dh, c = i - r * Dh;
-      kvs[r * ldkv + c] =
-          to_float(base[(size_t)(k0 + r) * row_stride + D + h * Dh + c]);
-    }
-    __syncthreads();
-    for (int i = tid; i < kQTile * k_rows; i += kThreads) {
-      const int r = i / k_rows, j = i - r * k_rows;
-      const float* qr = qs + r * Dh;
-      const float* kr = kvs + j * ldkv;
-      float acc = 0.0f;
-      for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
-      // Scale after the dot, then add the bias, in this order.
-      ps[r * S + k0 + j] = __fadd_rn(__fmul_rn(acc, scale), bias[k0 + j]);
-    }
-  }
-  __syncthreads();
-
-  // fp32 max-subtracted softmax, one warp per row; probs rounded to T.
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < q_rows; r += kThreads / 32) {
-    float* pr = ps + r * S;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if constexpr (!kDropout && !kSave) {
-      for (int j = lane; j < S; j += 32) pr[j] = round_to<T>(pr[j] / sum);
-    } else {
-      // Training modes: each lane takes 4 consecutive keys, one Philox
-      // block for the 4 draws.
-      const int q = q0 + r;
-      const size_t prow = (((size_t)b * H + h) * S + q) * S;
-      for (int j0 = 4 * lane; j0 < S; j0 += 128) {
-        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-        if constexpr (kDropout)
-          bits = attn::dropout_bits4(drop.seed, b, h, q, j0 >> 2);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = j0 + u;
-          if (j < S) {
-            float p = pr[j] / sum;
-            if constexpr (kSave) p_out[prow + j] = from_float<T>(p);
-            if constexpr (kDropout) {
-              p = attn::word(bits, u) >= drop.threshold
-                      ? __fmul_rn(p, drop.inv_keep)
-                      : 0.0f;
-              if constexpr (kSave) pd_out[prow + j] = from_float<T>(p);
-            }
-            pr[j] = round_to<T>(p);
-          }
-        }
-      }
-    }
-  }
-
-  // out[r][c] = Σ_j p[r][j] · v_j[c], fp32 accumulators in registers.
-  float acc[kAccPerThread];
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.0f;
-  for (int k0 = 0; k0 < S; k0 += kKChunk) {
-    const int k_rows = min(kKChunk, S - k0);
-    __syncthreads();  // softmax / previous chunk done
-    for (int i = tid; i < k_rows * Dh; i += kThreads) {
-      const int r = i / Dh, c = i - r * Dh;
-      kvs[r * ldkv + c] = to_float(
-          base[(size_t)(k0 + r) * row_stride + 2 * D + h * Dh + c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < kAccPerThread; ++a) {
-      const int i = tid + a * kThreads;
-      if (i < kQTile * Dh) {
-        const int r = i / Dh, c = i - r * Dh;
-        if (r < q_rows) {
-          const float* pr = ps + r * S + k0;
-          float s_acc = acc[a];
-          for (int j = 0; j < k_rows; ++j)
-            s_acc = fmaf(pr[j], kvs[j * ldkv + c], s_acc);
-          acc[a] = s_acc;
-        }
-      }
-    }
-  }
-  T* out_base = out + (size_t)b * S * D;
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) {
-    const int i = tid + a * kThreads;
-    if (i < kQTile * Dh) {
-      const int r = i / Dh, c = i - r * Dh;
-      if (r < q_rows)
-        out_base[(size_t)(q0 + r) * D + h * Dh + c] = from_float<T>(acc[a]);
-    }
-  }
+  attn::fwd_packed_rows<T, kQTile, kDropout, kSave>(
+      smem, qkv, mask, out, p_out, pd_out, S, H, Dh, scale, drop);
 }
 
 template <typename T, bool kDropout, bool kSave>
@@ -222,9 +74,10 @@ int launch(const void* qkv, const void* mask, void* out, void* p, void* pd,
   const cudaError_t err = attn::allow_max_smem(
       attn_fwd_packed_kernel<T, kDropout, kSave>, &attr_set);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_floats(S, Dh) * sizeof(float);
+  const size_t smem = attn::fwd_smem_floats<kQTile>(S, Dh) * sizeof(float);
   dim3 grid((S + kQTile - 1) / kQTile, H, B);
-  attn_fwd_packed_kernel<T, kDropout, kSave><<<grid, kThreads, smem, stream>>>(
+  attn_fwd_packed_kernel<T, kDropout, kSave><<<grid, attn::kFwdThreads, smem,
+                                                stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask),
       static_cast<T*>(out), static_cast<T*>(p), static_cast<T*>(pd), S, H, Dh,
       scale, drop);
@@ -265,8 +118,8 @@ int attn_fwd_packed(const void* qkv, const void* mask, void* out, void* p,
                     int dropout, unsigned long long seed,
                     unsigned int threshold, float inv_keep, int dtype,
                     void* stream) {
-  if (B < 1 || S < 1 || S > kMaxS || H < 1 || Dh < 8 || Dh > kMaxDh ||
-      Dh % 8 != 0)
+  if (B < 1 || S < 1 || S > kMaxS || H < 1 || Dh < 8 ||
+      Dh > attn::kFwdMaxDh || Dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   if (dropout && p != nullptr && pd == nullptr)

@@ -1,8 +1,9 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the Philox4x32-10
-// dropout stream and the small shared-memory products of the backward
-// kernels (the attention kernels: attn_{fwd,bwd}_packed*.cu and
-// attn_{fwd,bwd}_rel*.cu).
+// dropout stream, the whole-row forward's block (#1, #4), the recompute
+// backward's softmax rows (#2, #5) and the small shared-memory products of
+// the backward kernels (the attention kernels: attn_{fwd,bwd}_packed*.cu
+// and attn_{fwd,bwd}_rel*.cu).
 //
 // The dropout stream. Element (b, h, q, k) of the [B, H, Q, K] probs is
 // kept iff its 32-bit draw is >= threshold, where
@@ -23,6 +24,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace attn {
@@ -84,6 +86,232 @@ __device__ __forceinline__ uint4 dropout_bits4(unsigned long long seed, int b,
 
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// ---- the whole-row packed forward (kernels #1 and #4) ---------------------
+//
+// One block of kFwdThreads threads computes kQTile query rows q0 =
+// blockIdx.x · kQTile of head h = blockIdx.y, batch row b = blockIdx.z:
+// scores over the whole key row in a [kQTile][S] fp32 shared tile (K
+// streamed in kFwdKChunk-row chunks by stride from the packed projection),
+// a max-subtracted fp32 softmax one warp per row, the Philox keep mask, the
+// probs rounded to T, and PV accumulated in fp32 registers (V streamed the
+// same way). #1 runs it with 16-row tiles up to S = 512 and the save modes;
+// #4 with 32-row tiles up to S = 640. The arithmetic of a row does not
+// depend on kQTile, so the two give the same bits where both reach.
+
+constexpr int kFwdThreads = 256;  // 8 warps
+constexpr int kFwdKChunk = 64;    // key/value rows staged in shared memory
+constexpr int kFwdMaxDh = 128;
+
+// Shared memory in floats: Q tile [kQTile][dh], K/V chunk
+// [kFwdKChunk][dh + 1] (the +1 pad keeps the per-key rows on distinct
+// banks), scores [kQTile][s], bias [s].
+template <int kQTile>
+__host__ __device__ inline size_t fwd_smem_floats(int s, int dh) {
+  return (size_t)kQTile * dh + (size_t)kFwdKChunk * (dh + 1) +
+         (size_t)kQTile * s + (size_t)s;
+}
+
+template <typename T, int kQTile, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_packed_rows(
+    float* smem, const T* __restrict__ qkv, const float* __restrict__ mask,
+    T* __restrict__ out, T* __restrict__ p_out, T* __restrict__ pd_out,
+    int S, int H, int Dh, float scale, DropoutArgs drop) {
+  // Each thread owns ceil(kQTile * kFwdMaxDh / kFwdThreads) accumulators.
+  constexpr int kAccPerThread =
+      (kQTile * kFwdMaxDh + kFwdThreads - 1) / kFwdThreads;
+  const int D = H * Dh;
+  const int q0 = blockIdx.x * kQTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ldkv = Dh + 1;
+
+  float* qs = smem;                            // [kQTile][Dh]
+  float* kvs = qs + kQTile * Dh;               // [kFwdKChunk][Dh + 1]
+  float* ps = kvs + kFwdKChunk * ldkv;         // [kQTile][S]
+  float* bias = ps + kQTile * S;               // [S]
+
+  const size_t row_stride = (size_t)3 * D;
+  const T* base = qkv + (size_t)b * S * row_stride;
+  const int q_rows = min(kQTile, S - q0);
+
+  // Mask bias, as the TPU entry forms it: (1 − m) · −10000.
+  for (int j = tid; j < S; j += kFwdThreads) {
+    bias[j] = mask ? (1.0f - mask[(size_t)b * S + j]) * -10000.0f : 0.0f;
+  }
+  // Q tile; rows past S are zero-filled and never written out.
+  for (int i = tid; i < kQTile * Dh; i += kFwdThreads) {
+    const int r = i / Dh, c = i - r * Dh;
+    qs[i] = r < q_rows ? to_float(base[(size_t)(q0 + r) * row_stride +
+                                       h * Dh + c])
+                       : 0.0f;
+  }
+
+  // Scores: s[r][j] = (q_r · k_j) · scale + bias[j], over K in chunks.
+  for (int k0 = 0; k0 < S; k0 += kFwdKChunk) {
+    const int k_rows = min(kFwdKChunk, S - k0);
+    __syncthreads();  // previous chunk's readers are done (and qs/bias set)
+    for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
+      const int r = i / Dh, c = i - r * Dh;
+      kvs[r * ldkv + c] =
+          to_float(base[(size_t)(k0 + r) * row_stride + D + h * Dh + c]);
+    }
+    __syncthreads();
+    for (int i = tid; i < kQTile * k_rows; i += kFwdThreads) {
+      const int r = i / k_rows, j = i - r * k_rows;
+      const float* qr = qs + r * Dh;
+      const float* kr = kvs + j * ldkv;
+      float acc = 0.0f;
+      for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
+      // Scale after the dot, then add the bias, in this order.
+      ps[r * S + k0 + j] = __fadd_rn(__fmul_rn(acc, scale), bias[k0 + j]);
+    }
+  }
+  __syncthreads();
+
+  // fp32 max-subtracted softmax, one warp per row; probs rounded to T.
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < q_rows; r += kFwdThreads / 32) {
+    float* pr = ps + r * S;
+    float m = -INFINITY;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      sum += e;
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if constexpr (!kDropout && !kSave) {
+      for (int j = lane; j < S; j += 32) pr[j] = round_to<T>(pr[j] / sum);
+    } else {
+      // Training modes: each lane takes 4 consecutive keys, one Philox
+      // block for the 4 draws.
+      const int q = q0 + r;
+      const size_t prow = (((size_t)b * H + h) * S + q) * S;
+      for (int j0 = 4 * lane; j0 < S; j0 += 128) {
+        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (kDropout)
+          bits = dropout_bits4(drop.seed, b, h, q, j0 >> 2);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + u;
+          if (j < S) {
+            float p = pr[j] / sum;
+            if constexpr (kSave) p_out[prow + j] = from_float<T>(p);
+            if constexpr (kDropout) {
+              p = word(bits, u) >= drop.threshold
+                      ? __fmul_rn(p, drop.inv_keep)
+                      : 0.0f;
+              if constexpr (kSave) pd_out[prow + j] = from_float<T>(p);
+            }
+            pr[j] = round_to<T>(p);
+          }
+        }
+      }
+    }
+  }
+
+  // out[r][c] = Σ_j p[r][j] · v_j[c], fp32 accumulators in registers.
+  float acc[kAccPerThread];
+#pragma unroll
+  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.0f;
+  for (int k0 = 0; k0 < S; k0 += kFwdKChunk) {
+    const int k_rows = min(kFwdKChunk, S - k0);
+    __syncthreads();  // softmax / previous chunk done
+    for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
+      const int r = i / Dh, c = i - r * Dh;
+      kvs[r * ldkv + c] = to_float(
+          base[(size_t)(k0 + r) * row_stride + 2 * D + h * Dh + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < kAccPerThread; ++a) {
+      const int i = tid + a * kFwdThreads;
+      if (i < kQTile * Dh) {
+        const int r = i / Dh, c = i - r * Dh;
+        if (r < q_rows) {
+          const float* pr = ps + r * S + k0;
+          float s_acc = acc[a];
+          for (int j = 0; j < k_rows; ++j)
+            s_acc = fmaf(pr[j], kvs[j * ldkv + c], s_acc);
+          acc[a] = s_acc;
+        }
+      }
+    }
+  }
+  T* out_base = out + (size_t)b * S * D;
+#pragma unroll
+  for (int a = 0; a < kAccPerThread; ++a) {
+    const int i = tid + a * kFwdThreads;
+    if (i < kQTile * Dh) {
+      const int r = i / Dh, c = i - r * Dh;
+      if (r < q_rows)
+        out_base[(size_t)(q0 + r) * D + h * Dh + c] = from_float<T>(acc[a]);
+    }
+  }
+}
+
+// ---- the recompute backward's softmax rows (kernels #2 and #5) ----------
+//
+// In place on `rows` rows of scores (row r at ps + r · S, query q0 + r): the
+// forward's fp32 softmax, one warp per row with the forward's loop and
+// reduction order; at rate > 0 the keep mask replayed into the sign bit
+// (p >= 0, so a dropped element is stored as −p and costs no memory).
+template <bool kDropout>
+__device__ __forceinline__ void softmax_rows_keep_sign(float* ps, int rows,
+                                                       int S, int q0, int b,
+                                                       int h,
+                                                       DropoutArgs drop) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += blockDim.x / 32) {
+    float* pr = ps + (size_t)r * S;
+    float m = -INFINITY;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      sum += e;
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if constexpr (!kDropout) {
+      for (int j = lane; j < S; j += 32) pr[j] = pr[j] / sum;
+    } else {
+      const int q = q0 + r;
+      for (int j0 = 4 * lane; j0 < S; j0 += 128) {
+        const uint4 bits = dropout_bits4(drop.seed, b, h, q, j0 >> 2);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + u;
+          if (j < S) {
+            const float p = pr[j] / sum;
+            pr[j] = word(bits, u) >= drop.threshold ? p
+                                                    : copysignf(p, -1.0f);
+          }
+        }
+      }
+    }
+  }
+}
+
+// pd (fp32) and p of an element stored by softmax_rows_keep_sign.
+template <bool kDropout>
+__device__ __forceinline__ float pd_of_signed(float x, float inv_keep) {
+  if constexpr (kDropout) return signbit(x) ? 0.0f : __fmul_rn(x, inv_keep);
+  return x;
+}
+template <bool kDropout>
+__device__ __forceinline__ float p_of_signed(float x) {
+  return kDropout ? fabsf(x) : x;
 }
 
 // ---- the backward kernels' shared-memory plan and products --------------

@@ -1,6 +1,6 @@
 // The library-wide entries of the port's kernel library (every csrc/*.cu
-// links into one shared object, ops/kernels.py: attn_{fwd,bwd}_packed*,
-// attn_{fwd,bwd}_rel*, mag_{fwd,bwd}).
+// links into one shared object, ops/kernels.py: attn_{fwd,bwd}_packed*
+// (the full-H, _hb and _fs tiers), attn_{fwd,bwd}_rel*, mag_{fwd,bwd}).
 
 #include <cuda_runtime.h>
 

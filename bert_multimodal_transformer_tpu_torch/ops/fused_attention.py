@@ -1,6 +1,7 @@
 """Packed and rel attention, forward and backward (port of
-``ops/fused_attention.py``'s full-H tiers of ``fused_attention_packed`` and
-``fused_rel_attention``: prob dropout, saved probs, and both backward
+``ops/fused_attention.py``'s ``fused_attention_packed`` in its full-H,
+head-blocked and flash-streamed tiers, and the full-H tier of
+``fused_rel_attention``: prob dropout, saved probs, and the backward
 kernels of each).
 
 The packed kernels, each with its plain PyTorch version beside it:
@@ -14,6 +15,20 @@ The packed kernels, each with its plain PyTorch version beside it:
   ``attn_bwd_packed_reference``: dqkv with the probs recomputed and the
   keep mask replayed from the forward's seed.
 
+The long-sequence packed tiers, taken past the full-H reach
+(``packed_tier``), save nothing S²-sized:
+
+* #4 ``attn_fwd_packed_hb_cuda`` → ``csrc/attn_fwd_packed_hb.cu`` and #5
+  ``attn_bwd_packed_hb_cuda`` → ``csrc/attn_bwd_packed_hb.cu``, plain
+  versions ``attn_{fwd,bwd}_packed_hb_reference``: #1's and #2's
+  functions (whole-row softmax, recompute backward) up to
+  ``HB_MAX_SEQ_LEN``;
+* #6 ``attn_fwd_packed_fs_cuda`` → ``csrc/attn_fwd_packed_fs.cu`` and #7
+  ``attn_bwd_packed_fs_cuda`` → ``csrc/attn_bwd_packed_fs.cu``, plain
+  versions ``attn_{fwd,bwd}_packed_fs_reference``: the online softmax over
+  key blocks with the lse residual, and the flash backward from it, at any
+  S.
+
 The rel kernels #11, #13 and #12 (``attn_fwd_rel_cuda``,
 ``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``) are their twins for
 separate q [B, Q, D] and k, v [B, K, D] under a full differentiable score
@@ -21,9 +36,11 @@ bias ebias [B, H, Q, K] in place of the [B, S] mask (the section at the
 end of this module).
 
 Each CUDA wrapper launches on PyTorch's current stream and counts its
-launches in ``<wrapper>.launches``. ``fused_attention_packed`` and
-``fused_rel_attention`` dispatch on the tensor's device: a CUDA tensor
-launches the kernels or raises, a CPU tensor takes the plain versions.
+launches in ``<wrapper>.launches``; each packed plain version counts its
+calls in ``<function>.calls``, which shows the tier a CPU call took.
+``fused_attention_packed`` and ``fused_rel_attention`` dispatch on the
+tensor's device: a CUDA tensor launches the kernels or raises, a CPU
+tensor takes the plain versions.
 ``FusedAttentionPacked`` and ``FusedRelAttention`` are the autograd
 functions (the JAX ``_fap_fwd``/``_fap_bwd``, ``_frel_fwd``/``_frel_bwd``).
 
@@ -33,8 +50,10 @@ counter ``(k >> 2, q, h, b)`` and key ``(seed & 0xffffffff, seed >> 32)``,
 word ``k & 3`` (``philox4x32_10`` here; ``csrc/common.cuh`` on the card).
 It is a pure function of (seed, b, h, q, k): the mask does not depend on
 how a kernel tiles the work, and the recompute backward replays it
-exactly. The seed is drawn on the host from an explicit CPU
-``torch.Generator``; nothing reads a device tensor back.
+exactly. Every tier draws from the same stream, so for one seed the
+full-H, head-blocked and flash-streamed tiers drop the same elements. The
+seed is drawn on the host from an explicit CPU ``torch.Generator``;
+nothing reads a device tensor back.
 
 ``ops/kernels.py`` builds ``csrc/*.cu`` into one shared library with a
 plain C interface at first use, binds it with ctypes and launches its
@@ -62,6 +81,15 @@ from bert_multimodal_transformer_tpu_torch.ops.kernels import (
 # (max_position_embeddings of bert-base).
 MAX_SEQ_LEN = 512
 MAX_HEAD_DIM = 128
+# Longest sequence of the head-blocked tier (#4, #5): the JAX package's
+# head-blocked reach at bert-base bf16 (BENCHMARKS.md "Long-sequence
+# scaling"), inside both kernels' shared-memory plans at Dh ≤ 128
+# (``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``). Past it the
+# flash-streamed tier (#6, #7) takes any S.
+HB_MAX_SEQ_LEN = 640
+# The key-block width of #6's online softmax (``csrc/attn_fwd_packed_fs.cu``
+# kKBlock), which its plain version repeats.
+FS_KEY_BLOCK = 64
 # Save the probs for the backward while they stay under this many bytes
 # per call (the JAX package's auto policy).
 SAVE_PROBS_CAP_BYTES = 256 * 1024 * 1024
@@ -111,28 +139,32 @@ def philox4x32_10(counter, key):
 
 
 def dropout_bits(seed: int, b: int, h: int, s_q: int, s_k: int,
-                 device=None) -> torch.Tensor:
-    """The [B, H, Sq, Sk] 32-bit draws (int64) of the dropout stream."""
-    n4 = (s_k + 3) // 4
+                 device=None, k0: int = 0) -> torch.Tensor:
+    """The [B, H, Sq, Sk] 32-bit draws (int64) of the dropout stream, for
+    keys k0 .. k0 + Sk − 1."""
+    first, n4 = k0 // 4, (k0 + s_k + 3) // 4 - k0 // 4
     shape = (b, h, s_q, n4)
 
-    def axis(n, dim):
+    def axis(n, dim, start=0):
         view = [1, 1, 1, 1]
         view[dim] = n
-        return torch.arange(n, dtype=torch.int64,
+        return torch.arange(start, start + n, dtype=torch.int64,
                             device=device).view(view).expand(shape)
 
     words = philox4x32_10(
-        (axis(n4, 3), axis(s_q, 2), axis(h, 1), axis(b, 0)),
+        (axis(n4, 3, first), axis(s_q, 2), axis(h, 1), axis(b, 0)),
         (seed & _MASK32, (seed >> 32) & _MASK32))
-    return torch.stack(words, dim=-1).reshape(b, h, s_q, 4 * n4)[..., :s_k]
+    lead = k0 - 4 * first
+    return torch.stack(words, dim=-1).reshape(b, h, s_q, 4 * n4)[
+        ..., lead:lead + s_k]
 
 
 def dropout_keep_mask(seed: int, b: int, h: int, s_q: int, s_k: int,
-                      rate: float, device=None) -> torch.Tensor:
-    """Bool [B, H, Sq, Sk]: True where the element is kept."""
-    return dropout_bits(seed, b, h, s_q, s_k, device) >= dropout_threshold(
-        rate)
+                      rate: float, device=None, k0: int = 0) -> torch.Tensor:
+    """Bool [B, H, Sq, Sk]: True where the element (keys from k0) is
+    kept."""
+    return dropout_bits(seed, b, h, s_q, s_k, device, k0) >= (
+        dropout_threshold(rate))
 
 
 # ---- plain PyTorch versions -----------------------------------------------
@@ -176,6 +208,17 @@ def _dropped(p, seed, rate):
     return torch.where(keep, p * inv_keep(rate), 0.0)
 
 
+def _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate, seed):
+    """(out, p, pd) of the whole-row forward (#1's and #4's function)."""
+    dtype = qkv.dtype
+    b, s, d3 = qkv.shape
+    p = _probs(qkv, attention_mask, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    v = _heads(qkv, n_heads)[2]
+    ctx = torch.matmul(pd.to(dtype).float(), v.float()).to(dtype)
+    return ctx.permute(0, 2, 1, 3).reshape(b, s, d3 // 3), p, pd
+
+
 def attn_fwd_packed_reference(
     qkv: torch.Tensor,                        # [B, S, 3·D]
     attention_mask: Optional[torch.Tensor],   # [B, S], 1 = real token
@@ -193,17 +236,13 @@ def attn_fwd_packed_reference(
     for a PV product accumulated in fp32; the output in the input dtype.
     Returns out [B, S, D], or (out, p, pd) [B, H, S, S] with ``save`` (pd
     is p at rate 0)."""
-    dtype = qkv.dtype
-    b, s, d3 = qkv.shape
-    p = _probs(qkv, attention_mask, n_heads, scale)
-    pd = _dropped(p, seed, rate)
-    v = _heads(qkv, n_heads)[2]
-    ctx = torch.matmul(pd.to(dtype).float(), v.float()).to(dtype)
-    out = ctx.permute(0, 2, 1, 3).reshape(b, s, d3 // 3)
+    attn_fwd_packed_reference.calls += 1
+    out, p, pd = _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate,
+                                 seed)
     if not save:
         return out
-    p_c = p.to(dtype)
-    return out, p_c, (pd.to(dtype) if rate > 0.0 else p_c)
+    p_c = p.to(qkv.dtype)
+    return out, p_c, (pd.to(qkv.dtype) if rate > 0.0 else p_c)
 
 
 def _vjp(p, pd, pd_c, qkv, g, n_heads, scale):
@@ -222,6 +261,13 @@ def _vjp(p, pd, pd_c, qkv, g, n_heads, scale):
     return _pack(dq, dk, dv)
 
 
+def _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate):
+    """dqkv of the recompute backward (#2's and #5's function)."""
+    p = _probs(qkv, attention_mask, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    return _vjp(p, pd, pd.to(qkv.dtype), qkv, g, n_heads, scale)
+
+
 def attn_bwd_packed_reference(
     qkv: torch.Tensor,
     attention_mask: Optional[torch.Tensor],
@@ -235,9 +281,8 @@ def attn_bwd_packed_reference(
     """Plain version of kernel #2: the probs recomputed in fp32, the keep
     mask replayed from ``seed``, pd kept in fp32 for the VJP and rounded
     (pd_c) for the dV product. Returns dqkv [B, S, 3·D]."""
-    p = _probs(qkv, attention_mask, n_heads, scale)
-    pd = _dropped(p, seed, rate)
-    return _vjp(p, pd, pd.to(qkv.dtype), qkv, g, n_heads, scale)
+    attn_bwd_packed_reference.calls += 1
+    return _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate)
 
 
 def attn_bwd_packed_saved_reference(
@@ -251,6 +296,7 @@ def attn_bwd_packed_saved_reference(
 ) -> torch.Tensor:
     """Plain version of kernel #3: the VJP from the saved p and pd (input
     dtype, read as fp32). Returns dqkv [B, S, 3·D]."""
+    attn_bwd_packed_saved_reference.calls += 1
     return _vjp(p.float(), pd.float(), pd, qkv, g, n_heads, scale)
 
 
@@ -275,6 +321,109 @@ def dqkv_bf16_bound(ref, p, pd, qkv, g, *, n_heads, scale) -> torch.Tensor:
     a = _pack(torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
               torch.matmul(pd.transpose(-1, -2), gh))
     return 2.0 ** -7 * (ref.float().abs() + a) + 2.0 ** -17
+
+
+# ---- the long-sequence tiers: head-blocked (#4, #5), flash-streamed (#6, #7)
+
+
+def attn_fwd_packed_hb_reference(qkv, attention_mask, *, n_heads, scale,
+                                 rate=0.0, seed=0):
+    """Plain version of kernel #4: #1's function (whole-row fp32 softmax,
+    the Philox mask, the dropped probs rounded for PV), nothing saved.
+    Returns out [B, S, D]."""
+    attn_fwd_packed_hb_reference.calls += 1
+    return _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate,
+                           seed)[0]
+
+
+def attn_bwd_packed_hb_reference(qkv, attention_mask, seed, g, *, n_heads,
+                                 scale, rate=0.0):
+    """Plain version of kernel #5: #2's function, the probs recomputed and
+    the keep mask replayed. Returns dqkv [B, S, 3·D]."""
+    attn_bwd_packed_hb_reference.calls += 1
+    return _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate)
+
+
+def _bias(attention_mask, b, s, device):
+    """The fp32 [B, S] score bias (1 − mask) · −10000 (zeros for None)."""
+    if attention_mask is None:
+        return torch.zeros(b, s, device=device)
+    return (1.0 - attention_mask.float()) * -10000.0
+
+
+def attn_fwd_packed_fs_reference(qkv, attention_mask, *, n_heads, scale,
+                                 rate=0.0, seed=0):
+    """Plain version of kernel #6: the online softmax over key blocks of
+    ``FS_KEY_BLOCK``, the kernel's recurrence and rounding points: per
+    block m' = max(m, max s), α = exp(m − m'), e = exp(s − m'),
+    l ← l·α + Σe (undropped), e dropped by the Philox mask and rounded to
+    the input dtype, acc ← acc·α + e·V in fp32; then out = acc / l in the
+    input dtype and lse = m + log l. Returns (out [B, S, D], lse [B, H, S]
+    fp32)."""
+    attn_fwd_packed_fs_reference.calls += 1
+    dtype = qkv.dtype
+    b, s, d3 = qkv.shape
+    q, k, v = (x.float() for x in _heads(qkv, n_heads))
+    bias = _bias(attention_mask, b, s, qkv.device)
+    m = torch.full(q.shape[:3], -float("inf"), device=qkv.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, s, FS_KEY_BLOCK):
+        k1 = min(k0 + FS_KEY_BLOCK, s)
+        sb = (torch.matmul(q, k[:, :, k0:k1].transpose(-1, -2)) * scale
+              + bias[:, None, None, k0:k1])
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(sb - m_new[..., None])
+        den = den * alpha + e.sum(dim=-1)
+        if rate > 0.0:
+            keep = dropout_keep_mask(seed, b, n_heads, s, k1 - k0, rate,
+                                     qkv.device, k0)
+            e = torch.where(keep, e * inv_keep(rate), 0.0)
+        acc = acc * alpha[..., None] + torch.matmul(e.to(dtype).float(),
+                                                    v[:, :, k0:k1])
+        m = m_new
+    out = (acc / den[..., None]).to(dtype)
+    return (out.permute(0, 2, 1, 3).reshape(b, s, d3 // 3),
+            m + torch.log(den))
+
+
+def attn_bwd_packed_fs_reference(qkv, attention_mask, seed, o, lse, g, *,
+                                 n_heads, scale, rate=0.0):
+    """Plain version of kernel #7: p = exp(s·scale + bias − lse) rebuilt
+    from the forward's lse, δ = Σ g⊙o from the rounded output o, d(pd) =
+    g·Vᵀ; with the replayed keep mask pd = keep·p/(1−rate) and dp =
+    keep·d(pd)/(1−rate); ds = (p·(dp − δ))·scale; ds_c and pd_c rounded to
+    the input dtype; dQ = ds_c·K, dK = ds_cᵀ·Q, dV = pd_cᵀ·g accumulated
+    in fp32. Returns dqkv [B, S, 3·D]."""
+    attn_bwd_packed_fs_reference.calls += 1
+    dtype = qkv.dtype
+    b, s, _ = qkv.shape
+    q, k, v = (x.float() for x in _heads(qkv, n_heads))
+    gh, oh = (_ctx_heads(x, n_heads).float() for x in (g, o))
+    delta = (gh * oh).sum(dim=-1, keepdim=True)
+    bias = _bias(attention_mask, b, s, qkv.device)
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale
+                  + bias[:, None, None, :] - lse[..., None])
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, n_heads, s, s, rate, qkv.device)
+        pd = torch.where(keep, p * inv_keep(rate), 0.0)
+        dp = torch.where(keep, dp * inv_keep(rate), 0.0)
+    ds_c = ((p * (dp - delta)) * scale).to(dtype).float()
+    dq = torch.matmul(ds_c, k).to(dtype)
+    dk = torch.matmul(ds_c.transpose(-1, -2), q).to(dtype)
+    dv = torch.matmul(pd.to(dtype).float().transpose(-1, -2), gh).to(dtype)
+    return _pack(dq, dk, dv)
+
+
+for _fn in (attn_fwd_packed_reference, attn_bwd_packed_reference,
+            attn_bwd_packed_saved_reference, attn_fwd_packed_hb_reference,
+            attn_bwd_packed_hb_reference, attn_fwd_packed_fs_reference,
+            attn_bwd_packed_fs_reference):
+    _fn.calls = 0   # the tier a CPU call took shows here
+del _fn
 
 
 # ---- CUDA wrappers ----------------------------------------------------------
@@ -310,8 +459,10 @@ def _check_geometry(qkv: torch.Tensor, n_heads: int):
     return b, s, d, d // n_heads
 
 
-def _check_cuda(name: str, qkv: torch.Tensor, n_heads: int, max_s: int):
-    """The checks every CUDA wrapper makes on qkv; returns (b, s, d, dh)."""
+def _check_cuda(name: str, qkv: torch.Tensor, n_heads: int,
+                max_s: Optional[int]):
+    """The checks every CUDA wrapper makes on qkv (``max_s`` None: any S);
+    returns (b, s, d, dh)."""
     if not qkv.is_cuda:
         raise ValueError(f"{name}: qkv must be a CUDA tensor, got "
                          f"{qkv.device}")
@@ -328,7 +479,7 @@ def _check_cuda(name: str, qkv: torch.Tensor, n_heads: int, max_s: int):
         raise ValueError(
             f"{name}: head dim {dh} not supported (a multiple of 8 up to "
             f"{MAX_HEAD_DIM})")
-    if s > max_s:
+    if max_s is not None and s > max_s:
         raise ValueError(f"{name}: S={s} exceeds the kernel's {max_s}")
     if b > 65535 or n_heads > 65535:
         raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
@@ -443,9 +594,106 @@ def attn_bwd_packed_saved_cuda(
     return dqkv
 
 
-attn_fwd_packed_cuda.launches = 0
-attn_bwd_packed_cuda.launches = 0
-attn_bwd_packed_saved_cuda.launches = 0
+def hb_fwd_smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one #4 block (``csrc/common.cuh``'s
+    ``fwd_smem_floats<32>``): the [32][Dh] Q tile, a [64][Dh+1] K/V
+    chunk, the [32][S] scores and the [S] bias, in fp32."""
+    return 4 * (32 * dh + 64 * (dh + 1) + 32 * s + s)
+
+
+def hb_bwd_smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one #5 block (``csrc/attn_bwd_packed_hb.cu``'s
+    ``smem_floats``): P and Tt [32][S], the Q and g tiles and a K/V chunk
+    [32][Dh+1] each, and the [S] bias, in fp32."""
+    return 4 * (2 * 32 * s + 3 * 32 * (dh + 1) + s)
+
+
+def attn_fwd_packed_hb_cuda(qkv, attention_mask, *, n_heads, scale,
+                            rate=0.0, seed=0):
+    """Launch kernel #4 (``csrc/attn_fwd_packed_hb.cu``) on ``qkv``
+    [B, S, 3·D], S ≤ ``HB_MAX_SEQ_LEN``. Returns out [B, S, D]."""
+    b, s, d, dh = _check_cuda("attn_fwd_packed_hb", qkv, n_heads,
+                              HB_MAX_SEQ_LEN)
+    mask = _mask_arg(attention_mask, qkv, b, s)
+    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
+    _launch("attn_fwd_packed_hb", qkv.data_ptr(), _ptr(mask), out.data_ptr(),
+            b, s, n_heads, dh, float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[qkv.dtype], device=qkv.device)
+    attn_fwd_packed_hb_cuda.launches += 1
+    return out
+
+
+def attn_bwd_packed_hb_cuda(qkv, attention_mask, seed, g, *, n_heads, scale,
+                            rate=0.0):
+    """Launch kernel #5 (``csrc/attn_bwd_packed_hb.cu``): dqkv [B, S, 3·D]
+    with the probs recomputed and the keep mask replayed from ``seed``,
+    S ≤ ``HB_MAX_SEQ_LEN``. The kernel's fp32 dK/dV accumulators live in a
+    [B, H, 2, S, Dh] workspace allocated here."""
+    b, s, d, dh = _check_cuda("attn_bwd_packed_hb", qkv, n_heads,
+                              HB_MAX_SEQ_LEN)
+    mask = _mask_arg(attention_mask, qkv, b, s)
+    _like("g", g, qkv, (b, s, d))
+    dqkv = torch.empty_like(qkv)
+    ws = torch.empty((b, n_heads, 2, s, dh), dtype=torch.float32,
+                     device=qkv.device)
+    _launch("attn_bwd_packed_hb", qkv.data_ptr(), _ptr(mask), g.data_ptr(),
+            dqkv.data_ptr(), ws.data_ptr(), b, s, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[qkv.dtype],
+            device=qkv.device)
+    attn_bwd_packed_hb_cuda.launches += 1
+    return dqkv
+
+
+def attn_fwd_packed_fs_cuda(qkv, attention_mask, *, n_heads, scale,
+                            rate=0.0, seed=0):
+    """Launch kernel #6 (``csrc/attn_fwd_packed_fs.cu``) on ``qkv``
+    [B, S, 3·D], any S. Returns (out [B, S, D], lse [B, H, S] fp32)."""
+    b, s, d, dh = _check_cuda("attn_fwd_packed_fs", qkv, n_heads, None)
+    mask = _mask_arg(attention_mask, qkv, b, s)
+    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, n_heads, s), dtype=torch.float32,
+                      device=qkv.device)
+    _launch("attn_fwd_packed_fs", qkv.data_ptr(), _ptr(mask), out.data_ptr(),
+            lse.data_ptr(), b, s, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[qkv.dtype],
+            device=qkv.device)
+    attn_fwd_packed_fs_cuda.launches += 1
+    return out, lse
+
+
+def attn_bwd_packed_fs_cuda(qkv, attention_mask, seed, o, lse, g, *,
+                            n_heads, scale, rate=0.0):
+    """Launch kernel #7 (``csrc/attn_bwd_packed_fs.cu``), two kernels on
+    the current stream, each counted: the dK/dV pass, then the dQ pass.
+    ``o`` and ``lse`` are #6's outputs. Returns dqkv [B, S, 3·D]."""
+    b, s, d, dh = _check_cuda("attn_bwd_packed_fs", qkv, n_heads, None)
+    mask = _mask_arg(attention_mask, qkv, b, s)
+    _like("o", o, qkv, (b, s, d))
+    _like("g", g, qkv, (b, s, d))
+    if (lse.dtype != torch.float32 or lse.device != qkv.device
+            or tuple(lse.shape) != (b, n_heads, s)
+            or not lse.is_contiguous()):
+        raise ValueError(
+            f"lse must be a contiguous float32 tensor of shape "
+            f"{(b, n_heads, s)} on {qkv.device}, got {lse.dtype} "
+            f"{tuple(lse.shape)} on {lse.device}")
+    dqkv = torch.empty_like(qkv)
+    args = (qkv.data_ptr(), _ptr(mask), o.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), b, s, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[qkv.dtype])
+    _launch("attn_bwd_packed_fs_dkdv", *args, device=qkv.device)
+    attn_bwd_packed_fs_cuda.launches += 1
+    _launch("attn_bwd_packed_fs_dq", *args, device=qkv.device)
+    attn_bwd_packed_fs_cuda.launches += 1
+    return dqkv
+
+
+for _fn in (attn_fwd_packed_cuda, attn_bwd_packed_cuda,
+            attn_bwd_packed_saved_cuda, attn_fwd_packed_hb_cuda,
+            attn_bwd_packed_hb_cuda, attn_fwd_packed_fs_cuda,
+            attn_bwd_packed_fs_cuda):
+    _fn.launches = 0
+del _fn
 
 
 # ---- device dispatch and autograd -------------------------------------------
@@ -482,6 +730,53 @@ def attn_bwd_packed_saved(p, pd, qkv, g, *, n_heads, scale):
     fn = (attn_bwd_packed_saved_cuda if _on(qkv) == "cuda"
           else attn_bwd_packed_saved_reference)
     return fn(p, pd, qkv, g, n_heads=n_heads, scale=scale)
+
+
+def attn_fwd_packed_hb(qkv, attention_mask, *, n_heads, scale, rate=0.0,
+                       seed=0):
+    """Kernel #4 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_packed_hb_cuda if _on(qkv) == "cuda"
+          else attn_fwd_packed_hb_reference)
+    return fn(qkv, attention_mask, n_heads=n_heads, scale=scale, rate=rate,
+              seed=seed)
+
+
+def attn_bwd_packed_hb(qkv, attention_mask, seed, g, *, n_heads, scale,
+                       rate=0.0):
+    """Kernel #5 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_packed_hb_cuda if _on(qkv) == "cuda"
+          else attn_bwd_packed_hb_reference)
+    return fn(qkv, attention_mask, seed, g, n_heads=n_heads, scale=scale,
+              rate=rate)
+
+
+def attn_fwd_packed_fs(qkv, attention_mask, *, n_heads, scale, rate=0.0,
+                       seed=0):
+    """Kernel #6 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_packed_fs_cuda if _on(qkv) == "cuda"
+          else attn_fwd_packed_fs_reference)
+    return fn(qkv, attention_mask, n_heads=n_heads, scale=scale, rate=rate,
+              seed=seed)
+
+
+def attn_bwd_packed_fs(qkv, attention_mask, seed, o, lse, g, *, n_heads,
+                       scale, rate=0.0):
+    """Kernel #7 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_packed_fs_cuda if _on(qkv) == "cuda"
+          else attn_bwd_packed_fs_reference)
+    return fn(qkv, attention_mask, seed, o, lse, g, n_heads=n_heads,
+              scale=scale, rate=rate)
+
+
+def packed_tier(s: int, dh: int, grad: bool) -> str:
+    """The tier ``fused_attention_packed`` takes at sequence length ``s``
+    and head width ``dh``: "full" (#1, and #3 or #2 with a gradient) up
+    to ``MAX_SEQ_LEN`` without a gradient and ``max_bwd_seq_len(dh)``
+    with one; "hb" (#4, and #5) up to ``HB_MAX_SEQ_LEN``; "fs" (#6, and
+    #7) past it."""
+    if s <= (max_bwd_seq_len(dh) if grad else MAX_SEQ_LEN):
+        return "full"
+    return "hb" if s <= HB_MAX_SEQ_LEN else "fs"
 
 
 def resolve_save_probs(b: int, n_heads: int, s: int, rate: float,
@@ -542,6 +837,52 @@ class FusedAttentionPacked(torch.autograd.Function):
         return dqkv, None, None, None, None, None, None
 
 
+class FusedAttentionPackedHB(torch.autograd.Function):
+    """The head-blocked tier with its backward kernel (JAX ``_faph_fwd`` /
+    ``_faph_bwd``): #4 forward keeps qkv, the mask and the seed; #5
+    recomputes the probs and replays the mask. Nothing S²-sized is
+    saved."""
+
+    @staticmethod
+    def forward(ctx, qkv, attention_mask, n_heads: int, scale: float,
+                rate: float, seed: int):
+        ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        ctx.save_for_backward(qkv, attention_mask)
+        return attn_fwd_packed_hb(qkv, attention_mask, n_heads=n_heads,
+                                  scale=scale, rate=rate, seed=seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask = ctx.saved_tensors
+        dqkv = attn_bwd_packed_hb(qkv, mask, ctx.seed, g.contiguous(),
+                                  n_heads=ctx.n_heads, scale=ctx.scale,
+                                  rate=ctx.rate)
+        return dqkv, None, None, None, None, None
+
+
+class FusedAttentionPackedFS(torch.autograd.Function):
+    """The flash-streamed tier with its backward kernel (JAX ``_faps_fwd``
+    / ``_faps_bwd``): #6 forward keeps qkv, the mask, the seed and its
+    residuals o and lse; #7 rebuilds the probs from lse."""
+
+    @staticmethod
+    def forward(ctx, qkv, attention_mask, n_heads: int, scale: float,
+                rate: float, seed: int):
+        ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        out, lse = attn_fwd_packed_fs(qkv, attention_mask, n_heads=n_heads,
+                                      scale=scale, rate=rate, seed=seed)
+        ctx.save_for_backward(qkv, attention_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask, out, lse = ctx.saved_tensors
+        dqkv = attn_bwd_packed_fs(qkv, mask, ctx.seed, out, lse,
+                                  g.contiguous(), n_heads=ctx.n_heads,
+                                  scale=ctx.scale, rate=ctx.rate)
+        return dqkv, None, None, None, None, None
+
+
 def fused_attention_packed(
     qkv: torch.Tensor,                        # [B, S, 3·D]
     attention_mask: Optional[torch.Tensor],   # [B, S] {0,1}, 1 = real token
@@ -568,9 +909,12 @@ def fused_attention_packed(
     not requiring grad) the forward saves nothing, as the JAX primal.
 
     ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan knobs with no meaning
-    here and raise. Sequences past ``MAX_SEQ_LEN``, and past
-    ``max_bwd_seq_len(Dh)`` when a gradient will be needed, need the
-    head-blocked or flash-streamed tiers (ROADMAP B.4, B.8) and raise.
+    here and raise. The tier follows the JAX entry's order
+    (``packed_tier``): the full-H kernels while they reach; then the
+    head-blocked tier (#4, and #5 with a recompute backward) up to
+    ``HB_MAX_SEQ_LEN``; then the flash-streamed tier (#6, and #7 from the
+    saved o and lse) at any S. ``save_probs`` applies to the full-H tier
+    only: the long tiers save nothing S²-sized, as in JAX.
     """
     if interpret is not None or nb_fwd is not None or nb_bwd is not None:
         raise ValueError(
@@ -580,25 +924,27 @@ def fused_attention_packed(
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     b, s, d, dh = _check_geometry(qkv, n_heads)
-    if s > MAX_SEQ_LEN:
-        raise NotImplementedError(
-            f"S={s} > {MAX_SEQ_LEN}: the head-blocked and flash-streamed "
-            "attention tiers are not ported yet (ROADMAP B.4, B.8)")
     if rate > 0.0 and dropout_rng is None:
         raise ValueError("dropout_rate > 0 requires dropout_rng")
     _on(qkv)
     seed = draw_seed(dropout_rng) if rate > 0.0 else 0
     if attention_mask is not None:
         attention_mask = attention_mask.to(torch.float32)
-    if not (torch.is_grad_enabled() and qkv.requires_grad):
-        return attn_fwd_packed(qkv, attention_mask, n_heads=n_heads,
-                               scale=scale, rate=rate, seed=seed)
-    if s > max_bwd_seq_len(dh):
-        raise NotImplementedError(
-            f"S={s} > {max_bwd_seq_len(dh)} at head dim {dh}: the backward "
-            "kernels hold one row's [S, S] problem in shared memory; longer "
-            "training sequences need the head-blocked or flash-streamed "
-            "tiers (ROADMAP B.4, B.8)")
+    grad = torch.is_grad_enabled() and qkv.requires_grad
+    tier = packed_tier(s, dh, grad)
+    kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
+    if not grad:
+        if tier == "full":
+            return attn_fwd_packed(qkv, attention_mask, **kw)
+        if tier == "hb":
+            return attn_fwd_packed_hb(qkv, attention_mask, **kw)
+        return attn_fwd_packed_fs(qkv, attention_mask, **kw)[0]
+    if tier == "hb":
+        return FusedAttentionPackedHB.apply(qkv, attention_mask, n_heads,
+                                            float(scale), rate, seed)
+    if tier == "fs":
+        return FusedAttentionPackedFS.apply(qkv, attention_mask, n_heads,
+                                            float(scale), rate, seed)
     save = resolve_save_probs(b, n_heads, s, rate, qkv.element_size(),
                               save_probs)
     return FusedAttentionPacked.apply(qkv, attention_mask, n_heads,

@@ -127,6 +127,14 @@ def load_kernels() -> ctypes.CDLL:
                                         + [i32, ptr])
         lib.attn_bwd_packed.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
         lib.attn_bwd_packed_saved.argtypes = [ptr] * 5 + dims + [i32, ptr]
+        # attn_fwd_packed_hb: qkv, mask, out; attn_bwd_packed_hb: qkv, mask,
+        # g, dqkv, ws; attn_fwd_packed_fs: qkv, mask, out, lse;
+        # attn_bwd_packed_fs_{dkdv,dq}: qkv, mask, o, lse, g, dqkv.
+        lib.attn_fwd_packed_hb.argtypes = [ptr] * 3 + dims + drop + [i32, ptr]
+        lib.attn_bwd_packed_hb.argtypes = [ptr] * 5 + dims + drop + [i32, ptr]
+        lib.attn_fwd_packed_fs.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
+        for fn in (lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq):
+            fn.argtypes = [ptr] * 6 + dims + drop + [i32, ptr]
         rel = [i32, i32, i32, i32, i32, f32]      # B, Q, K, H, Dh, scale
         # attn_fwd_rel: q, k, v, ebias, out, p, pd; attn_bwd_rel: q, k, v,
         # ebias, g, dq, dk, dv, debias; attn_bwd_rel_saved: p, pd, q, k, v,
@@ -139,9 +147,11 @@ def load_kernels() -> ctypes.CDLL:
         lib.mag_fwd.argtypes = [ptr] * 16 + mag + [i32, ptr]
         lib.mag_bwd.argtypes = [ptr] * 21 + mag + [i32, ptr]
         for fn in (lib.attn_fwd_packed, lib.attn_bwd_packed,
-                   lib.attn_bwd_packed_saved, lib.attn_fwd_rel,
-                   lib.attn_bwd_rel, lib.attn_bwd_rel_saved, lib.mag_fwd,
-                   lib.mag_bwd):
+                   lib.attn_bwd_packed_saved, lib.attn_fwd_packed_hb,
+                   lib.attn_bwd_packed_hb, lib.attn_fwd_packed_fs,
+                   lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq,
+                   lib.attn_fwd_rel, lib.attn_bwd_rel,
+                   lib.attn_bwd_rel_saved, lib.mag_fwd, lib.mag_bwd):
             fn.restype = ctypes.c_int
         lib.torch_kernels_error_string.argtypes = [i32]
         lib.torch_kernels_error_string.restype = ctypes.c_char_p

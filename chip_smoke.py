@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths, MAG-BERT and
-MAG-XLNet, once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving and training paths, MAG-BERT (at S=50
+and at long sequences) and MAG-XLNet, once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed N]
 
@@ -37,6 +37,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    the three timed at B=256 rate 0.1, and #11 at the serving shape (rate 0,
    B=128) beside ``scaled_dot_product_attention`` with the ebias as its
    mask.
+3e. The long-sequence kernels (#4 head-blocked forward, #5 its recompute
+   backward, #6 flash-streamed forward with lse, #7 its backward in two
+   launches) against their plain versions: bf16 at B=8, S=512, 640
+   (#4/#5 and #6/#7) and 1024 (#6/#7), rates 0.1 and 0; fp32 at B=2,
+   S=600 and a ragged S=700. #6 also against the whole-row plain forward
+   within a stated bf16 bound, and in fp32 #7 against the whole-row
+   backward on the rows with a real token; #4 against #1 (S=128, 512) and
+   #5 against #2 (S=128) bit for bit; #4's and #6's keep masks against the
+   plain Philox mask bit for bit (Q = K = 0, V the identity); the same
+   bits twice. Then the four timed at the driver's shapes (bf16 B=48; #4
+   and #5 at S=512, #6 and #7 at S=1024) at rate 0 beside
+   ``scaled_dot_product_attention`` (forward; its autograd backward) and
+   at rate 0.1.
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -62,6 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    segments 0/2/3): ``Predictor.score_split`` over 685 examples at batch
    128 and ``predict_requests`` over 4 requests of 256. Checks: #11 once
    per layer per batch, finite predictions, fused against einsum.
+4d. Long-sequence serving: ``Predictor.predict_split`` at bert-base
+   width with a 1024-row position table over 256 examples at batch 128,
+   at S=640 (#4 once per layer per batch) and S=1024 (#6), against einsum.
 5. Serving profile: one batch's serial latency, its device time by kernel
    and the card's busy share (torch.profiler).
 5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
@@ -89,6 +105,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    must break; then XLNet train examples/s at B=256 S=50 (20 steps after 3
    warm-up), the median and quartiles, the peak memory and one step's
    device time by kernel.
+6c. The driver at long sequences: ``driver.main ... --attention_impl
+   fused --max_seq_length 512`` and ``1024`` over synthetic splits of
+   96/48/48: exit 0, finite losses; at 512 training takes #4 and #5 and
+   evaluation #1; at 1024 training takes #6 and #7 and evaluation #6.
+   Then one training step at B=48, S=512 and 1024, by device time.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -246,7 +267,11 @@ def _wrappers(fa):
             "mag_fwd": mf.mag_fwd_cuda, "mag_bwd": mf.mag_bwd_cuda,
             "attn_fwd_rel": fa.attn_fwd_rel_cuda,
             "attn_bwd_rel_saved": fa.attn_bwd_rel_saved_cuda,
-            "attn_bwd_rel": fa.attn_bwd_rel_cuda}
+            "attn_bwd_rel": fa.attn_bwd_rel_cuda,
+            "attn_fwd_packed_hb": fa.attn_fwd_packed_hb_cuda,
+            "attn_bwd_packed_hb": fa.attn_bwd_packed_hb_cuda,
+            "attn_fwd_packed_fs": fa.attn_fwd_packed_fs_cuda,
+            "attn_bwd_packed_fs": fa.attn_bwd_packed_fs_cuda}
 
 
 def _counts(fa):
@@ -1630,6 +1655,440 @@ def xlnet_driver_path(args, rng, fa, card):
     return counts, recompute_counts
 
 
+# ---- Long-sequence MAG-BERT: the head-blocked (#4, #5) and flash-streamed
+# (#6, #7) packed tiers ---------------------------------------------------
+
+LONG_S = (512, 640, 1024)      # the driver's long runs and the hb reach
+LONG_SPLITS = (96, 48, 48)     # one short epoch: 2 train + 2 eval batches
+LONG_SERVE_N = 256             # 2 batches of 128 per serving length
+
+
+def long_case(rng, dtype_name, b, s, h=12, dh=64):
+    """One seeded packed case with a ragged mask (one fully padded row,
+    one full row), a context gradient and a 63-bit seed."""
+    import torch
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    d = h * dh
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, s, 3 * d), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal(
+        (b, s, d), dtype=np.float32)).to("cuda", dtype)
+    mask = torch.from_numpy(_ragged_mask(rng, b, s)).cuda().float()
+    return qkv, mask, g, int(rng.integers(0, 2 ** 63 - 1))
+
+
+def _tier_err(name, got, want, pd, qkv, h, dtype_name):
+    """#6 against a whole-row tier (#1 or #4, or their plain version) on
+    the same inputs and seed. fp32: FP32_ATOL. bf16: the whole-row tiers
+    round p = e/l to bf16 before PV, #6 rounds e and divides by l after;
+    each rounding moves an element by ≤ 2^-8 relative, so the two lie
+    within 2^-7·(pd·|V|) of each other, plus one output rounding each:
+    2^-7·(|want| + pd·|V|) + 2^-17. Raises past it; returns max |Δ|."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if dtype_name == "bf16":
+        b, s, d3 = qkv.shape
+        v = qkv.view(b, s, 3, h, d3 // 3 // h)[:, :, 2].permute(
+            0, 2, 1, 3).float().abs()
+        spread = torch.matmul(pd.float().abs(), v).permute(0, 2, 1, 3)
+        bound = 2.0 ** -7 * (want.float().abs() + spread.reshape(b, s, -1)) \
+            + 2.0 ** -17
+    else:
+        bound = torch.full_like(err, FP32_ATOL)
+    if bool((err > bound).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int((err > bound).sum())} elements "
+                             f"out of the stated bound, max_abs_err="
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def check_long_kernels(rng, fa, dtype_name, b, s, rate):
+    """Phase 3e on one case: #4 and #5 (S ≤ HB_MAX_SEQ_LEN) and #6 and #7
+    against their plain versions; #6 against the whole-row plain forward
+    (the same seed: the same mask in both tiers) within ``_tier_err``'s
+    bound; lse against the plain lse (fp32 1e-5 plus 1e-6 relative: a
+    fully padded row's lse is near −10^4); the same bits from the same
+    seed twice. Returns the max errors and the case."""
+    import torch
+
+    qkv, mask, g, seed = long_case(rng, dtype_name, b, s)
+    h = 12
+    kw = dict(n_heads=h, scale=0.125)
+    tag = f"{dtype_name} B={b} S={s} H=12 Dh=64 rate={rate}"
+    # the whole-row probs, for the bf16 gradient bound and the tier bound
+    w_out, p, pd = fa.attn_fwd_packed_reference(qkv, mask, rate=rate,
+                                                seed=seed, save=True, **kw)
+    bound_args = (p, pd, qkv, g, kw)
+    errs, twice = {}, []
+    if s <= fa.HB_MAX_SEQ_LEN:
+        out4 = fa.attn_fwd_packed_hb_cuda(qkv, mask, rate=rate, seed=seed,
+                                          **kw)
+        errs["#4"] = _forward_err(
+            f"#4 {tag}", out4, fa.attn_fwd_packed_hb_reference(
+                qkv, mask, rate=rate, seed=seed, **kw), dtype_name)
+        d5 = fa.attn_bwd_packed_hb_cuda(qkv, mask, seed, g, rate=rate, **kw)
+        errs["#5"] = _grad_err(
+            f"#5 {tag}", d5, fa.attn_bwd_packed_hb_reference(
+                qkv, mask, seed, g, rate=rate, **kw), dtype_name,
+            bound_args, fa)
+        twice += [(out4, lambda: fa.attn_fwd_packed_hb_cuda(
+            qkv, mask, rate=rate, seed=seed, **kw)),
+                  (d5, lambda: fa.attn_bwd_packed_hb_cuda(
+                      qkv, mask, seed, g, rate=rate, **kw))]
+    out6, lse = fa.attn_fwd_packed_fs_cuda(qkv, mask, rate=rate, seed=seed,
+                                           **kw)
+    r_out6, r_lse = fa.attn_fwd_packed_fs_reference(qkv, mask, rate=rate,
+                                                    seed=seed, **kw)
+    errs["#6"] = _forward_err(f"#6 {tag}", out6, r_out6, dtype_name)
+    lse_err = (lse - r_lse).abs()
+    if bool((lse_err > 1e-5 + 1e-6 * r_lse.abs()).any()):
+        raise AssertionError(f"#6 lse {tag}: max_abs_err "
+                             f"{float(lse_err.max())}")
+    errs["#6 lse"] = float(lse_err.max())
+    errs["#6 vs whole-row plain"] = _tier_err(
+        f"#6 vs whole-row plain {tag}", out6, w_out, pd, qkv, h, dtype_name)
+    d7 = fa.attn_bwd_packed_fs_cuda(qkv, mask, seed, out6, lse, g, rate=rate,
+                                    **kw)
+    errs["#7"] = _grad_err(f"#7 {tag}", d7, fa.attn_bwd_packed_fs_reference(
+        qkv, mask, seed, out6, lse, g, rate=rate, **kw), dtype_name,
+        bound_args, fa)
+    if dtype_name == "fp32":
+        # In fp32 δ = Σ g⊙o is Σ_k pd⊙d(pd) to rounding, so #7 is the
+        # whole-row recompute backward's function, on the batch rows with a
+        # real token. A fully padded row's scores sit near −10^4, where the
+        # fp32 lse keeps ~5e-4 relative precision, so its p = exp(s − lse)
+        # is that far from the whole-row softmax (the JAX fs tier's too).
+        live = mask.any(dim=1)
+        errs["#7 vs whole-row plain"] = _grad_err(
+            f"#7 vs whole-row plain {tag}", d7[live],
+            fa.attn_bwd_packed_reference(qkv, mask, seed, g, rate=rate,
+                                         **kw)[live], dtype_name, None, fa)
+    twice += [(out6, lambda: fa.attn_fwd_packed_fs_cuda(
+        qkv, mask, rate=rate, seed=seed, **kw)[0]),
+              (d7, lambda: fa.attn_bwd_packed_fs_cuda(
+                  qkv, mask, seed, out6, lse, g, rate=rate, **kw))]
+    same = all(torch.equal(first, again()) for first, again in twice)
+    print(f"long kernels vs plain {tag}: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; same seed twice, identical bits {same}")
+    if not same:
+        raise AssertionError(f"the long kernels are not bit-reproducible "
+                             f"({tag})")
+    return errs, (qkv, mask, g, seed, kw)
+
+
+def check_long_against_full(rng, fa):
+    """#4 against #1 (S = 128, 512) and #5 against #2 (S = 128), bf16 at
+    rate 0.1: the same row arithmetic, so the same bits."""
+    import torch
+
+    for s in (128, 512):
+        qkv, mask, g, seed = long_case(rng, "bf16", 8, s)
+        kw = dict(n_heads=12, scale=0.125, rate=RATE)
+        pairs = [("#4 vs #1", fa.attn_fwd_packed_hb_cuda(qkv, mask, seed=seed,
+                                                         **kw),
+                  fa.attn_fwd_packed_cuda(qkv, mask, seed=seed, **kw))]
+        if s <= fa.max_bwd_seq_len(64):
+            pairs.append(("#5 vs #2", fa.attn_bwd_packed_hb_cuda(
+                qkv, mask, seed, g, **kw), fa.attn_bwd_packed_cuda(
+                qkv, mask, seed, g, **kw)))
+        for name, got, want in pairs:
+            same = torch.equal(got, want)
+            diff = float((got.float() - want.float()).abs().max())
+            print(f"{name} bf16 B=8 S={s} rate {RATE}: identical bits "
+                  f"{same}, max |Δ| {diff:.3e}")
+            if not same:
+                raise AssertionError(f"{name} at S={s}: not the same bits")
+
+
+def check_long_masks(rng, fa):
+    """#4's and #6's keep masks against the plain Philox mask, bit for bit:
+    with Q = K = 0 every score is 0 and p = 1/S, and with V_h the identity
+    (S = Dh = 128) the output is out[q, h, c] = keep(q, c)/(S·(1 − rate))
+    rounded, > 0 exactly where (b, h, q, c) is kept. bf16 B=2 S=128 H=6
+    Dh=128 at rate 0.1; the keep rate within 5σ of 0.9."""
+    import torch
+
+    b, s, h, dh = 2, 128, 6, 128
+    qkv = torch.zeros(b, s, 3, h, dh, device="cuda", dtype=torch.bfloat16)
+    qkv[:, :, 2] = torch.eye(s, device="cuda", dtype=torch.bfloat16)[
+        None, :, None, :]
+    qkv = qkv.reshape(b, s, 3 * h * dh)
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    keep = fa.dropout_keep_mask(seed, b, h, s, s, RATE, "cuda")
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5, rate=RATE, seed=seed)
+    for name, out in (
+            ("#4", fa.attn_fwd_packed_hb_cuda(qkv, None, **kw)),
+            ("#6", fa.attn_fwd_packed_fs_cuda(qkv, None, **kw)[0])):
+        kernel_keep = out.view(b, s, h, dh).permute(0, 2, 1, 3) > 0
+        if not torch.equal(kernel_keep, keep):
+            n_bad = int((kernel_keep != keep).sum())
+            raise AssertionError(f"{name} keep mask differs from the plain "
+                                 f"Philox mask in {n_bad} elements")
+        got = float(kernel_keep.double().mean())
+        sigma = math.sqrt(RATE * (1 - RATE) / keep.numel())
+        if abs(got - (1 - RATE)) >= 5 * sigma:
+            raise AssertionError(f"{name} keep rate {got} not within 5σ")
+        print(f"{name} keep mask = plain Philox mask bit for bit over "
+              f"{keep.numel()} elements (bf16 B={b} S={s} H={h} Dh={dh}), "
+              f"keep rate {got:.6f} (5σ={5 * sigma:.1e})")
+
+
+def sdpa_backward_call(qkv, mask, h, scale, g):
+    """The library call for the rate-0 backwards: the autograd backward of
+    ``scaled_dot_product_attention`` (as ``sdpa_call``) to the packed
+    projection. Returns the call; never used by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, d3 = qkv.shape
+    x = qkv.detach().clone().requires_grad_()
+    q, k, v = x.view(b, s, 3, h, d3 // 3 // h).permute(2, 0, 3, 1, 4)
+    bias = ((1.0 - mask) * -10000.0).to(qkv.dtype)[:, None, None, :]
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                         scale=scale)
+    gh = g.view(b, s, h, d3 // 3 // h).transpose(1, 2)
+
+    def call():
+        return torch.autograd.grad(out, x, gh, retain_graph=True)
+
+    return call
+
+
+def time_long_kernels(rng, fa, card):
+    """#4 and #5 at the driver's S = 512, #6 and #7 at its S = 1024, bf16
+    B=48 (its train batch): at rate 0 against the plain versions and the
+    library call (SDPA forward; SDPA's autograd backward), and at rate 0.1
+    (the training path) against the plain versions; alternating rounds.
+    Returns {name: entry}."""
+    out = {}
+    for s, names in ((512, ("attn_fwd_packed_hb", "attn_bwd_packed_hb")),
+                     (1024, ("attn_fwd_packed_fs", "attn_bwd_packed_fs"))):
+        qkv, mask, g, seed = long_case(rng, "bf16", TRAIN_BATCH, s)
+        kw = dict(n_heads=12, scale=0.125)
+        fwd, bwd = names
+        for rate in (0.0, RATE):
+            o = lse = None
+            if bwd == "attn_bwd_packed_fs":   # #7's residuals
+                o, lse = fa.attn_fwd_packed_fs_cuda(qkv, mask, rate=rate,
+                                                    seed=seed, **kw)
+            runs = {
+                "attn_fwd_packed_hb": (
+                    lambda: fa.attn_fwd_packed_hb_cuda(qkv, mask, rate=rate,
+                                                       seed=seed, **kw),
+                    lambda: fa.attn_fwd_packed_hb_reference(
+                        qkv, mask, rate=rate, seed=seed, **kw)),
+                "attn_bwd_packed_hb": (
+                    lambda: fa.attn_bwd_packed_hb_cuda(qkv, mask, seed, g,
+                                                       rate=rate, **kw),
+                    lambda: fa.attn_bwd_packed_hb_reference(
+                        qkv, mask, seed, g, rate=rate, **kw)),
+                "attn_fwd_packed_fs": (
+                    lambda: fa.attn_fwd_packed_fs_cuda(qkv, mask, rate=rate,
+                                                       seed=seed, **kw),
+                    lambda: fa.attn_fwd_packed_fs_reference(
+                        qkv, mask, rate=rate, seed=seed, **kw)),
+                "attn_bwd_packed_fs": (
+                    lambda: fa.attn_bwd_packed_fs_cuda(
+                        qkv, mask, seed, o, lse, g, rate=rate, **kw),
+                    lambda: fa.attn_bwd_packed_fs_reference(
+                        qkv, mask, seed, o, lse, g, rate=rate, **kw))}
+            for name in names:
+                run_kernel, run_plain = runs[name]
+                k, pl = _alternate(run_plain, run_kernel, 3)
+                kind = "fwd" if name == fwd else "bwd"
+                bound = long_bound(kind, TRAIN_BATCH, s, 12, 64, 2,
+                                   fs=name.endswith("_fs"))
+                entry = {"ms": float(np.mean(k)), "plain_ms": float(
+                    np.mean(pl)), "bound_ms": bound[0],
+                    "bound_by": bound[1]}
+                lib_note = ""
+                if rate == 0.0:
+                    lib = (sdpa_call(qkv, mask, 12, 0.125)[0] if kind == "fwd"
+                           else sdpa_backward_call(qkv, mask, 12, 0.125, g))
+                    _time_ms(lib, 2)
+                    entry["library_ms"] = float(np.mean(
+                        [_time_ms(lib, 3) for _ in range(2)]))
+                    entry["library"] = ("scaled_dot_product_attention, "
+                                        "[B,1,1,S] mask" if kind == "fwd"
+                                        else "scaled_dot_product_attention"
+                                        " autograd backward, rate 0")
+                    lib_note = f", library {entry['library_ms']:.3f} ms"
+                    out[name] = entry
+                else:
+                    out[name]["modes"] = {
+                        f"training rate {RATE}, bf16 B={TRAIN_BATCH} S={s}":
+                            entry}
+                print(f"{name} bf16 B={TRAIN_BATCH} S={s} H=12 Dh=64 rate "
+                      f"{rate} on {card}: kernel {k} ms, plain {pl} ms per "
+                      f"call{lib_note}; bound {bound[0]:.4f} ms ({bound[1]})")
+    return out
+
+
+def long_bound(kind, b, s, h, dh, itemsize, fs=False):
+    """The bound of a long-tier kernel at [B, S, H, Dh]: each input read
+    once and each output written once (qkv, the mask and out, plus lse for
+    #6; qkv, the mask, g and dqkv, plus o and lse for #7); the products
+    on the bf16 tensor cores, 2·B·H·S²·Dh operations each (QKᵀ and PV
+    forward; QKᵀ, d(pd), dV, dQ and dK backward)."""
+    d = h * dh
+    qkv, ctx, mask = b * s * 3 * d * itemsize, b * s * d * itemsize, b * s * 4
+    lse = b * h * s * 4 if fs else 0
+    dot = 2 * b * h * s * s * dh
+    if kind == "fwd":
+        return _bound(qkv + mask + ctx + lse, 2 * dot, BF16_FLOPS)
+    return _bound(qkv + mask + ctx + qkv + (ctx + lse if fs else 0),
+                  5 * dot, BF16_FLOPS)
+
+
+def _long_bert(cfg, ds, seed):
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MultimodalConfig
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+
+    return MagBertForSequenceClassification(
+        cfg, MultimodalConfig(), ds.visual_dim, ds.acoustic_dim,
+        torch.bfloat16, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def long_serving(args, rng, fa, card):
+    """Phase 4d: ``Predictor.predict_split`` at bert-base width with a
+    1024-row position table, bf16, fused attention, over 256 seeded
+    examples at batch 128, at S = 640 (#4) and S = 1024 (#6). Checks: the
+    tier's kernel once per layer per batch and nothing else, finite
+    predictions, and agreement with the same weights on einsum attention.
+    Returns {S: counts}."""
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused",
+                              max_position_embeddings=1024)
+    model = _long_bert(cfg, ds, args.seed + 20)
+    predictor = Predictor(model, batch_size=BATCH)
+    einsum = _long_bert(dataclasses.replace(cfg, attention_impl="einsum"),
+                        ds, 0)
+    einsum.load_state_dict(model.state_dict())
+    counts = {}
+    for s, kernel in ((640, "attn_fwd_packed_hb"),
+                      (1024, "attn_fwd_packed_fs")):
+        split = make_split(rng, LONG_SERVE_N, s, cfg.vocab_size,
+                           ds.visual_dim, ds.acoustic_dim)
+        predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        preds = predictor.predict_split(split)
+        dt = time.perf_counter() - t0
+        counts[s] = _counts(fa)
+        n_batches = -(-LONG_SERVE_N // BATCH)
+        want = _want(fa, **{kernel: cfg.num_hidden_layers * n_batches})
+        print(f"kernel launches in predict_split at S={s}: {counts[s]} "
+              f"(want {want})")
+        if counts[s] != want:
+            raise AssertionError(f"S={s} serving launches {counts[s]} != "
+                                 f"{want}")
+        if preds.shape != (LONG_SERVE_N,) or not np.isfinite(preds).all():
+            raise AssertionError(f"bad S={s} predictions {preds.shape}")
+        preds_e = Predictor(einsum, batch_size=BATCH).predict_split(split)
+        gap = float(np.abs(preds - preds_e).max())
+        print(f"bert-base S={s} serving on {card}: predict_split "
+              f"{LONG_SERVE_N / dt:.1f} examples/s (batch {BATCH}, bf16); "
+              f"fused vs einsum predictions max |Δ| {gap:.3e} (tolerance "
+              f"{PRED_ATOL}), |pred| max {np.abs(preds_e).max():.3f}")
+        if not gap <= PRED_ATOL:
+            raise AssertionError(f"S={s}: fused and einsum predictions "
+                                 f"differ by {gap}")
+    return counts
+
+
+def long_step_profile(args, rng, card):
+    """One training step of bert-base at the driver's batch (48), bf16,
+    fused attention, dropout 0.1/0.1/0.5, at S = 512 (#4, #5) and 1024
+    (#6, #7): its device time by kernel group (torch.profiler), after one
+    warm-up step."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused",
+                              max_position_embeddings=1024)
+    state = Trainer(model=_long_bert(cfg, ds, args.seed + 21),
+                    tx=make_optimizer(1e-5, 10, 0.1)
+                    ).create_state_from_params(None, args.seed)
+    step = make_train_step()
+    for s in (512, 1024):
+        batch = _device_batch(make_split(
+            rng, TRAIN_BATCH, s, cfg.vocab_size, ds.visual_dim,
+            ds.acoustic_dim).as_tuple())
+        step(state, batch)
+        torch.cuda.synchronize()
+        print(f"one training step, bf16 bert-base B={TRAIN_BATCH} S={s} on "
+              f"{card}:")
+        _print_profile(device_time_by_kernel(lambda: step(state, batch), 1),
+                       1, "step")
+
+
+def long_driver_path(args, fa, card):
+    """Phase 6c: ``driver.main`` at bert-base with ``--max_seq_length 512``
+    and ``1024`` (``--attention_impl fused``, bf16, one epoch over
+    synthetic splits of 96/48/48). Checks: exit 0, finite losses, and the
+    launches: at S=512 training takes #4 and #5 and evaluation #1; at
+    S=1024 training takes #6 and #7 (two launches a call) and evaluation
+    #6. Returns {S: counts}."""
+    from bert_multimodal_transformer_tpu_torch.config import BertConfig
+
+    layers = BertConfig.bert_base_uncased().num_hidden_layers
+    n_train = -(-LONG_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in LONG_SPLITS[1:])
+    counts = {}
+    for s in (512, 1024):
+        argv = ["--model", "bert-base-uncased", "--dataset", "mosi",
+                "--synthetic", "--synthetic_sizes", *map(str, LONG_SPLITS),
+                "--n_epochs", "1", "--attention_impl", "fused",
+                "--compute_dtype", "bfloat16", "--max_seq_length", str(s),
+                "--seed", str(args.seed)]
+        counts[s] = run_driver(argv, fa, card)
+        if s == 512:
+            want = _want(fa, attn_fwd_packed_hb=layers * n_train,
+                         attn_bwd_packed_hb=layers * n_train,
+                         attn_fwd_packed=layers * n_eval)
+        else:
+            want = _want(fa, attn_fwd_packed_fs=layers * (n_train + n_eval),
+                         attn_bwd_packed_fs=2 * layers * n_train)
+        print(f"kernel launches in driver.main --max_seq_length {s}: "
+              f"{counts[s]} (want {want}: {n_train} train + {n_eval} "
+              f"dev/test batches, {layers} layers)")
+        if counts[s] != want:
+            raise AssertionError(f"S={s} driver launches {counts[s]} != "
+                                 f"{want}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1746,6 +2205,18 @@ def main() -> int:
     rel_times = time_rel_kernels(fa, rel_case_b256, card)
     del rel_case_b256
 
+    # 3e. The long-sequence kernels against plain, on the card
+    long_errs = {}
+    cases = [("bf16", 8, s, rate) for s in LONG_S for rate in (RATE, 0.0)]
+    cases += [("fp32", 2, 600, RATE), ("fp32", 2, 700, RATE)]
+    for dtype_name, b, s, rate in cases:
+        errs, _ = check_long_kernels(rng, fa, dtype_name, b, s, rate)
+        for k_, v_ in errs.items():
+            long_errs[k_] = max(long_errs.get(k_, 0.0), v_)
+    check_long_against_full(rng, fa)
+    check_long_masks(rng, fa)
+    long_times = time_long_kernels(rng, fa, card)
+
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -1781,6 +2252,9 @@ def main() -> int:
     # 4c. XLNet serving
     xlnet_serve_counts = xlnet_serving(args, rng, fa, card)
 
+    # 4d. Long-sequence BERT serving (S = 640, 1024)
+    long_serve_counts = long_serving(args, rng, fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
@@ -1804,6 +2278,11 @@ def main() -> int:
     xlnet_train_counts, xlnet_recompute_counts = xlnet_driver_path(
         args, rng, fa, card)
 
+    # 6c. The driver at --max_seq_length 512 and 1024, and what sets a
+    # long-S step
+    long_driver_counts = long_driver_path(args, fa, card)
+    long_step_profile(args, rng, card)
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -1812,7 +2291,11 @@ def main() -> int:
                  "driver": driver_counts[name],
                  "xlnet_serving": xlnet_serve_counts[name],
                  "xlnet_train": xlnet_train_counts[name],
-                 "xlnet_recompute": xlnet_recompute_counts[name]}
+                 "xlnet_recompute": xlnet_recompute_counts[name],
+                 "serving_s640": long_serve_counts[640][name],
+                 "serving_s1024": long_serve_counts[1024][name],
+                 "driver_s512": long_driver_counts[512][name],
+                 "driver_s1024": long_driver_counts[1024][name]}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -1907,6 +2390,21 @@ def main() -> int:
         else:
             entry["max_abs_err_vs_autograd"] = rel_errs[f"{tag} vs autograd"]
         kernels.append(entry)
+    for name, line, tag, shape in (
+            ("attn_fwd_packed_hb", 1146, "#4", "S=512"),
+            ("attn_bwd_packed_hb", 1195, "#5", "S=512"),
+            ("attn_fwd_packed_fs", 1256, "#6", "S=1024"),
+            ("attn_bwd_packed_fs", 1328, "#7", "S=1024")):
+        total, paths = by_path(name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": f"{tpu}fused_attention.py:{line}",
+            "launches": total, "launches_by_path": paths,
+            "max_abs_err": long_errs[tag],
+            **long_times[name],
+            "shape": f"bf16 B={TRAIN_BATCH} {shape} H=12 Dh=64 rate 0"})
+    kernels[-1]["launches_note"] = ("two kernel launches a call: the dK/dV "
+                                    "pass and the dQ pass")
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

@@ -127,9 +127,17 @@ def test_dropout_and_saved_probs_raise():
 
 
 def test_long_sequence_raises_naming_the_tiers():
-    qkv = torch.zeros(1, tfa.MAX_SEQ_LEN + 1, 3 * D)
-    with pytest.raises(NotImplementedError, match="B.4, B.8"):
-        tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0)
+    """Past the forward's reach the entry no longer raises: it takes the
+    head-blocked tier up to HB_MAX_SEQ_LEN and the flash-streamed one past
+    it (tests/test_torch_long_attention.py holds both to JAX)."""
+    for s, tier in ((tfa.MAX_SEQ_LEN + 1, "hb"),
+                    (tfa.HB_MAX_SEQ_LEN + 1, "fs")):
+        qkv = torch.zeros(1, s, 3 * D)
+        ref = getattr(tfa, f"attn_fwd_packed_{tier}_reference")
+        before = ref.calls
+        out = tfa.fused_attention_packed(qkv, None, n_heads=H, scale=1.0)
+        assert ref.calls == before + 1 and tuple(out.shape) == (1, s, D)
+        assert tfa.packed_tier(s, DH, False) == tier
 
 
 @pytest.mark.parametrize("kw", [{"interpret": True}, {"nb_fwd": 2},
@@ -429,15 +437,23 @@ def test_env_override_picks_the_backward(monkeypatch):
 
 
 def test_backward_reach_raises_at_the_forward():
+    """Past the full-H backward's reach a gradient takes the head-blocked
+    tier from the forward on (#4 then #5); the forward alone keeps #1 up
+    to S = 512."""
     assert tfa.max_bwd_seq_len(64) == 140
     assert tfa.max_bwd_seq_len(128) == 117
     assert tfa.bwd_smem_bytes(140, 64) <= tfa.MAX_SMEM_BYTES
     s = tfa.max_bwd_seq_len(DH) + 1
     x = torch.zeros(1, s, 3 * D, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B.4, B.8"):
-        tfa.fused_attention_packed(x, None, n_heads=H, scale=1.0)
+    hb_fwd, hb_bwd = (tfa.attn_fwd_packed_hb_reference,
+                      tfa.attn_bwd_packed_hb_reference)
+    before = (hb_fwd.calls, hb_bwd.calls, tfa.attn_fwd_packed_reference.calls)
+    tfa.fused_attention_packed(x, None, n_heads=H, scale=1.0).sum().backward()
+    assert (hb_fwd.calls, hb_bwd.calls) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(x.grad).all()
     with torch.no_grad():  # the forward alone keeps its S ≤ 512 reach
         tfa.fused_attention_packed(x, None, n_heads=H, scale=1.0)
+    assert tfa.attn_fwd_packed_reference.calls == before[2] + 1
 
 
 # --- on the card --------------------------------------------------------
