@@ -155,13 +155,16 @@ class XLNetConfig:
     summary_last_dropout: float = 0.1
     num_labels: int = 1
     # "einsum" (plain PyTorch attention) or "fused" (the rel-attention
-    # kernels, ops/fused_attention.py::fused_rel_attention, over an ebias
-    # assembled outside them).
+    # kernels, ops/fused_attention.py, tier by rel_tier).
     attention_impl: str = "einsum"
-    # Score-bias assembly on the fused path: "auto" and "stream" assemble
-    # the [B,H,Q,K] ebias outside the kernel (what the JAX package's "auto"
-    # does wherever its full-H kernel fits); "inkernel" waits for ROADMAP
-    # B.7 and raises.
+    # Score-bias assembly on the fused path. "stream" assembles the
+    # [B,H,Q,K] ebias outside the kernels at every length (the full-H
+    # kernels, then the head-blocked ones to Q = K = 640; past that ROADMAP
+    # B.6 raises). "auto" does the same while the full-H kernels reach and
+    # past them hands the kernels the bias ingredients (the flash-streamed
+    # ingredients kernels, any length), where bi attention without bi_data
+    # allows; else as "stream". "inkernel" (the full-H ingredients kernels)
+    # waits for ROADMAP B.7 and raises.
     rel_bias_impl: str = "auto"
     # One [D, 3·H·Dh] projection for q/k/v in place of three (same math).
     pack_qkv: bool = False

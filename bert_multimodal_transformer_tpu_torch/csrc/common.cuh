@@ -1,9 +1,10 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the Philox4x32-10
-// dropout stream, the whole-row forward's block (#1, #4), the recompute
-// backward's softmax rows (#2, #5) and the small shared-memory products of
-// the backward kernels (the attention kernels: attn_{fwd,bwd}_packed*.cu
-// and attn_{fwd,bwd}_rel*.cu).
+// dropout stream, the whole-row forward's blocks (#1 and #4 packed, #11
+// and #14 rel), the recompute backward's softmax rows (#2, #5, #12, #15)
+// and the small shared-memory products of the backward kernels (the
+// attention kernels: attn_{fwd,bwd}_packed*.cu, attn_{fwd,bwd}_rel*.cu and
+// attn_{fwd,bwd}_relik_fs.cu).
 //
 // The dropout stream. Element (b, h, q, k) of the [B, H, Q, K] probs is
 // kept iff its 32-bit draw is >= threshold, where
@@ -257,7 +258,168 @@ __device__ __forceinline__ void fwd_packed_rows(
   }
 }
 
-// ---- the recompute backward's softmax rows (kernels #2 and #5) ----------
+// ---- the whole-row rel forward (kernels #11 and #14) ----------------------
+//
+// #11's block, with q and k/v read from their own tensors (row stride D) so
+// that Q ≠ K works and with a full score bias ebias [B, H, Q, K] in place of
+// the [S] mask bias: one block of kFwdThreads threads computes kQTile query
+// rows q0 = blockIdx.x · kQTile of head h = blockIdx.y, batch row b =
+// blockIdx.z; scores (q · k) · scale + ebias over the whole key row in a
+// [kQTile][K] fp32 shared tile, the softmax one warp per row, the Philox
+// keep mask, the probs rounded to T, PV in fp32 registers. #11 runs it with
+// 16-row tiles up to K = 512 and the save modes; #14 with 32-row tiles up
+// to K = 640. A row's arithmetic does not depend on kQTile, so the two give
+// the same bits where both reach.
+
+// Shared memory in floats: q tile [kQTile][dh], k/v chunk
+// [kFwdKChunk][dh + 1], scores [kQTile][k_len].
+template <int kQTile>
+__host__ __device__ inline size_t rel_fwd_smem_floats(int k_len, int dh) {
+  return (size_t)kQTile * dh + (size_t)kFwdKChunk * (dh + 1) +
+         (size_t)kQTile * k_len;
+}
+
+template <typename T, int kQTile, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_rel_rows(
+    float* smem, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ ebias, T* __restrict__ out,
+    T* __restrict__ p_out, T* __restrict__ pd_out, int Q, int K, int H,
+    int Dh, float scale, DropoutArgs drop) {
+  constexpr int kAccPerThread =
+      (kQTile * kFwdMaxDh + kFwdThreads - 1) / kFwdThreads;
+  const int D = H * Dh;
+  const int q0 = blockIdx.x * kQTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ldkv = Dh + 1;
+
+  float* qs = smem;                            // [kQTile][Dh]
+  float* kvs = qs + kQTile * Dh;               // [kFwdKChunk][Dh + 1]
+  float* ps = kvs + kFwdKChunk * ldkv;         // [kQTile][K]
+
+  const T* q_base = q + (size_t)b * Q * D + h * Dh;
+  const T* k_base = k + (size_t)b * K * D + h * Dh;
+  const T* v_base = v + (size_t)b * K * D + h * Dh;
+  // row q of ebias[b, h] and of the saved probs starts at head_row + q·K
+  const size_t head_row = ((size_t)b * H + h) * Q;
+  const int q_rows = min(kQTile, Q - q0);
+
+  // q tile; rows past Q are zero-filled and never written out.
+  for (int i = tid; i < kQTile * Dh; i += kFwdThreads) {
+    const int r = i / Dh, c = i - r * Dh;
+    qs[i] = r < q_rows ? to_float(q_base[(size_t)(q0 + r) * D + c]) : 0.0f;
+  }
+
+  // Scores: s[r][j] = (q_r · k_j) · scale + ebias[q0 + r][j], over K in
+  // chunks.
+  for (int k0 = 0; k0 < K; k0 += kFwdKChunk) {
+    const int k_rows = min(kFwdKChunk, K - k0);
+    __syncthreads();  // previous chunk's readers are done (and qs set)
+    for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
+      const int r = i / Dh, c = i - r * Dh;
+      kvs[r * ldkv + c] = to_float(k_base[(size_t)(k0 + r) * D + c]);
+    }
+    __syncthreads();
+    for (int i = tid; i < q_rows * k_rows; i += kFwdThreads) {
+      const int r = i / k_rows, j = i - r * k_rows;
+      const float* qr = qs + r * Dh;
+      const float* kr = kvs + j * ldkv;
+      float acc = 0.0f;
+      for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
+      const float eb = to_float(ebias[(head_row + q0 + r) * K + k0 + j]);
+      // Scale after the dot, then add the bias, in this order.
+      ps[r * K + k0 + j] = __fadd_rn(__fmul_rn(acc, scale), eb);
+    }
+  }
+  __syncthreads();
+
+  // fp32 max-subtracted softmax, one warp per row; probs rounded to T.
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < q_rows; r += kFwdThreads / 32) {
+    float* pr = ps + r * K;
+    float m = -INFINITY;
+    for (int j = lane; j < K; j += 32) m = fmaxf(m, pr[j]);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+    for (int j = lane; j < K; j += 32) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      sum += e;
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if constexpr (!kDropout && !kSave) {
+      for (int j = lane; j < K; j += 32) pr[j] = round_to<T>(pr[j] / sum);
+    } else {
+      // Training modes: each lane takes 4 consecutive keys, one Philox
+      // block for the 4 draws.
+      const int qi = q0 + r;
+      const size_t prow = (head_row + qi) * K;
+      for (int j0 = 4 * lane; j0 < K; j0 += 128) {
+        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (kDropout)
+          bits = dropout_bits4(drop.seed, b, h, qi, j0 >> 2);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + u;
+          if (j < K) {
+            float p = pr[j] / sum;
+            if constexpr (kSave) p_out[prow + j] = from_float<T>(p);
+            if constexpr (kDropout) {
+              p = word(bits, u) >= drop.threshold
+                      ? __fmul_rn(p, drop.inv_keep)
+                      : 0.0f;
+              if constexpr (kSave) pd_out[prow + j] = from_float<T>(p);
+            }
+            pr[j] = round_to<T>(p);
+          }
+        }
+      }
+    }
+  }
+
+  // out[r][c] = Σ_j p[r][j] · v_j[c], fp32 accumulators in registers.
+  float acc[kAccPerThread];
+#pragma unroll
+  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kFwdKChunk) {
+    const int k_rows = min(kFwdKChunk, K - k0);
+    __syncthreads();  // softmax / previous chunk done
+    for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
+      const int r = i / Dh, c = i - r * Dh;
+      kvs[r * ldkv + c] = to_float(v_base[(size_t)(k0 + r) * D + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < kAccPerThread; ++a) {
+      const int i = tid + a * kFwdThreads;
+      if (i < kQTile * Dh) {
+        const int r = i / Dh, c = i - r * Dh;
+        if (r < q_rows) {
+          const float* pr = ps + r * K + k0;
+          float s_acc = acc[a];
+          for (int j = 0; j < k_rows; ++j)
+            s_acc = fmaf(pr[j], kvs[j * ldkv + c], s_acc);
+          acc[a] = s_acc;
+        }
+      }
+    }
+  }
+  T* out_base = out + (size_t)b * Q * D + h * Dh;
+#pragma unroll
+  for (int a = 0; a < kAccPerThread; ++a) {
+    const int i = tid + a * kFwdThreads;
+    if (i < kQTile * Dh) {
+      const int r = i / Dh, c = i - r * Dh;
+      if (r < q_rows)
+        out_base[(size_t)(q0 + r) * D + c] = from_float<T>(acc[a]);
+    }
+  }
+}
+
+// ---- the recompute backward's softmax rows (kernels #2, #5, #12, #15) ---
 //
 // In place on `rows` rows of scores (row r at ps + r · S, query q0 + r): the
 // forward's fp32 softmax, one warp per row with the forward's loop and
@@ -423,6 +585,50 @@ __device__ __forceinline__ void softmax_vjp_rows(float* tt, int Q, int K,
 struct NoDsOut {
   __device__ __forceinline__ void operator()(int, float) const {}
 };
+
+// ---- the ingredients rel kernels (#23, #24) ------------------------------
+//
+// The score of query q against key k is assembled from its ingredients:
+//   s = ((rw_q · k_k) · scale + rr_q · r[Q − q + k]) + ed_q · segd[q][k]
+//       + maskb[q][k]
+// (the reference's order of additions; rr carries the scale already). For
+// a tile of query rows q0 .. q0 + qt − 1 against keys k0 .. k0 + kt − 1 the
+// rows of r that it reads form one window, [Q − q0 − qt + 1 + k0,
+// Q − q0 + k0 + kt): row qi of the tile reads window row (qt − 1 − qi) + j
+// for key k0 + j. The relative shift is this index arithmetic.
+
+// dst[w][c] = r_head[(w0 + w) · D + c] for w < rows (rows of Dh + 1),
+// zero where w0 + w falls outside [0, P) (only ragged tiles reach there).
+template <typename T>
+__device__ __forceinline__ void load_r_window(float* dst, const T* r_head,
+                                              int D, int P, int w0, int rows,
+                                              int Dh) {
+  const int ld = Dh + 1;
+  for (int i = threadIdx.x; i < rows * Dh; i += blockDim.x) {
+    const int w = i / Dh, c = i - w * Dh;
+    const int p = w0 + w;
+    dst[w * ld + c] =
+        p >= 0 && p < P ? to_float(r_head[(size_t)p * D + c]) : 0.0f;
+  }
+}
+
+// s above for one element: rw_r, rr_r the query's rows, k_j its key's row,
+// r_j its position key's row (Dh floats each), fp32 dots.
+__device__ __forceinline__ float relik_score(const float* rw_r,
+                                             const float* rr_r,
+                                             const float* k_j,
+                                             const float* r_j, int Dh,
+                                             float scale, float ed,
+                                             float segd, float maskb) {
+  float ac = 0.0f, bd = 0.0f;
+  for (int c = 0; c < Dh; ++c) {
+    ac = fmaf(rw_r[c], k_j[c], ac);
+    bd = fmaf(rr_r[c], r_j[c], bd);
+  }
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(ac, scale), bd), __fmul_rn(ed, segd)),
+      maskb);
+}
 
 // Opt a kernel into `kMaxSmemBytes` of dynamic shared memory, once per
 // device (bit d of *done: set on device d).

@@ -164,7 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "yet (ROADMAP A.2)")
     p.add_argument("--rel_bias_impl", type=str, default="auto",
                    choices=["auto", "stream", "inkernel"],
-                   help="XLNet only; inkernel is not ported yet "
+                   help="XLNet only: auto = the ingredients kernels "
+                        "past the full-H reach, stream = an assembled bias "
+                        "(head-blocked to 640); inkernel is not ported yet "
                         "(ROADMAP B.7)")
     p.add_argument("--mem_len", type=int, default=0,
                    help="not ported yet (ROADMAP A.8)")

@@ -15,10 +15,15 @@ Attention, per layer and stream (``XLNetRelativeAttention._rel_attn_core``):
 
 * ``attention_impl="einsum"``: plain PyTorch, score = (ac + bd + ef)·scale
   − 1e30·mask in fp32, softmax, dropout;
-* ``"fused"``: the score bias ebias = rel_shift(bd) + ef + mask_bias is
-  assembled here at the compute dtype with the scale folded into rr/rs,
-  and ``ops/fused_attention.py::fused_rel_attention`` (kernels #11-#13 on
-  the card) runs the QK dot, softmax, dropout and PV. ``head_mask`` and
+* ``"fused"``: the tier is ``ops/fused_attention.py::rel_tier``'s. On the
+  full-H tier (kernels #11-#13 on the card) and the head-blocked one (#14,
+  #15) the score bias ebias = rel_shift(bd) + ef + mask_bias is assembled
+  here at the compute dtype with the scale folded into rr/rs, and
+  ``fused_rel_attention`` runs the QK dot, softmax, dropout and PV. Past
+  the full-H reach under ``rel_bias_impl="auto"`` (bi attention without
+  ``bi_data``) the kernels take the bias ingredients instead
+  (``fused_rel_attention_ingredients``, #23 and #24: the JAX model's
+  long-S path), and nothing [B, H, Q, K]-sized is built. ``head_mask`` and
   ``output_attentions`` take the einsum branch, as in the JAX package.
 
 The two branches differ by rounding only. Two-stream attention
@@ -57,6 +62,8 @@ from bert_multimodal_transformer_tpu_torch.ops.dropout import (
 )
 from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
     fused_rel_attention,
+    fused_rel_attention_ingredients,
+    rel_tier,
 )
 
 MASK_VERY_NEG = 1e30  # score − 1e30·mask, as HF
@@ -165,6 +172,20 @@ class XLNetRelativeAttention(nn.Module):
             bsz, qlen, h, dh = q_head.shape
             rw = (q_head.reshape(bsz, qlen, h * dh)
                   + self.r_w_bias.reshape(-1)).to(dt)
+            # The ingredients tier needs the relative shift's P ≥ Q + K (bi
+            # attention; uni's P = K + 1 does not reach) and one position
+            # stream for the batch (not bi_data's [B, P, D]).
+            ingredients_ok = (cfg.rel_bias_impl == "auto"
+                              and k_head_r.dim() == 3
+                              and k_head_r.shape[0] >= qlen + klen)
+            grad = torch.is_grad_enabled() and any(
+                x.requires_grad for x in (
+                    q_head, k_head, v_head, k_head_r, self.r_w_bias,
+                    self.r_r_bias, self.r_s_bias, self.seg_embed))
+            if rel_tier(qlen, klen, dh, grad, ingredients_ok) == "ik_fs":
+                return self._ingredients_core(
+                    rw, q_head, k_head, v_head, k_head_r, seg_mat, attn_mask,
+                    deterministic, rngs, mask_bias, seg_diff)
             rr = ((q_head + self.r_r_bias) * scale).to(dt)
             # Products in dt: fp32 accumulation rounded once to dt, as the
             # JAX preferred_element_type=f32 einsums cast to dt (bd at
@@ -220,6 +241,48 @@ class XLNetRelativeAttention(nn.Module):
         if output_attentions:
             return attn_vec, probs.float()
         return attn_vec
+
+    def _ingredients_core(self, rw, q_head, k_head, v_head, k_head_r,
+                          seg_mat, attn_mask, deterministic, rngs,
+                          mask_bias, seg_diff):
+        """The fused branch's long-S tier (JAX ``models/xlnet.py``
+        :254-318): the score-bias ingredients at the compute dtype, for
+        ``fused_rel_attention_ingredients`` (#23, #24). rr carries the
+        scale; ed = scale·(q + r_s_bias)·(seg₁ − seg₀) is the segment delta
+        (the ef₀ term it leaves out is constant along the keys); zeros
+        stand in for a missing seg_mat or mask, as in JAX."""
+        cfg = self.config
+        dt = self.dtype
+        scale = 1.0 / (cfg.d_head ** 0.5)
+        bsz, qlen, h, dh = q_head.shape
+        klen = k_head.shape[1]
+        rr = ((q_head.reshape(bsz, qlen, h * dh)
+               + self.r_r_bias.reshape(-1)) * scale).to(dt)
+        if seg_mat is not None:
+            rs = ((q_head + self.r_s_bias) * scale).to(dt)
+            sdelta = (self.seg_embed[1] - self.seg_embed[0]).to(dt)
+            ed = _f32_einsum("bqhf,hf->bhq", rs, sdelta).to(dt)
+            segd = (seg_diff[:, 0] if seg_diff is not None
+                    else seg_mat[..., 1]).to(dt)
+        else:
+            ed = torch.zeros(bsz, h, qlen, dtype=dt, device=rw.device)
+            segd = torch.zeros(bsz, qlen, klen, dtype=dt, device=rw.device)
+        if mask_bias is not None:
+            maskb = mask_bias[:, 0]
+        elif attn_mask is not None:
+            maskb = (-(MASK_VERY_NEG * attn_mask.float())).to(dt)[:, 0]
+        else:
+            maskb = torch.zeros(bsz, qlen, klen, dtype=dt, device=rw.device)
+        train = not deterministic and cfg.dropout > 0
+        ctx = fused_rel_attention_ingredients(
+            rw, rr, k_head_r.to(dt).reshape(-1, h * dh),
+            k_head.to(dt).reshape(bsz, klen, h * dh),
+            v_head.to(dt).reshape(bsz, klen, h * dh), ed,
+            segd.expand(bsz, qlen, klen), maskb.expand(bsz, qlen, klen),
+            n_heads=h, scale=scale, dropout_rate=cfg.dropout,
+            dropout_rng=rngs.host if train else None,
+            deterministic=deterministic)
+        return ctx.reshape(bsz, qlen, h, dh)
 
     def _post_attention(self, h, attn_vec, deterministic, rngs):
         b, q = attn_vec.shape[:2]

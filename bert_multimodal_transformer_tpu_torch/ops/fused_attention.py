@@ -62,6 +62,7 @@ entries.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -170,6 +171,18 @@ def dropout_keep_mask(seed: int, b: int, h: int, s_q: int, s_k: int,
 # ---- plain PyTorch versions -----------------------------------------------
 
 
+def _counted(fn):
+    """``fn`` counting its calls in ``.calls``: the tier a CPU call took
+    shows there."""
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return fn(*args, **kwargs)
+
+    counted.calls = 0
+    return counted
+
+
 def _heads(qkv: torch.Tensor, n_heads: int):
     b, s, d3 = qkv.shape
     return qkv.reshape(b, s, 3, n_heads, d3 // (3 * n_heads)).permute(
@@ -219,6 +232,7 @@ def _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate, seed):
     return ctx.permute(0, 2, 1, 3).reshape(b, s, d3 // 3), p, pd
 
 
+@_counted
 def attn_fwd_packed_reference(
     qkv: torch.Tensor,                        # [B, S, 3·D]
     attention_mask: Optional[torch.Tensor],   # [B, S], 1 = real token
@@ -236,7 +250,6 @@ def attn_fwd_packed_reference(
     for a PV product accumulated in fp32; the output in the input dtype.
     Returns out [B, S, D], or (out, p, pd) [B, H, S, S] with ``save`` (pd
     is p at rate 0)."""
-    attn_fwd_packed_reference.calls += 1
     out, p, pd = _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate,
                                  seed)
     if not save:
@@ -268,6 +281,7 @@ def _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate):
     return _vjp(p, pd, pd.to(qkv.dtype), qkv, g, n_heads, scale)
 
 
+@_counted
 def attn_bwd_packed_reference(
     qkv: torch.Tensor,
     attention_mask: Optional[torch.Tensor],
@@ -281,10 +295,10 @@ def attn_bwd_packed_reference(
     """Plain version of kernel #2: the probs recomputed in fp32, the keep
     mask replayed from ``seed``, pd kept in fp32 for the VJP and rounded
     (pd_c) for the dV product. Returns dqkv [B, S, 3·D]."""
-    attn_bwd_packed_reference.calls += 1
     return _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate)
 
 
+@_counted
 def attn_bwd_packed_saved_reference(
     p: torch.Tensor,                          # [B, H, S, S]
     pd: torch.Tensor,
@@ -296,7 +310,6 @@ def attn_bwd_packed_saved_reference(
 ) -> torch.Tensor:
     """Plain version of kernel #3: the VJP from the saved p and pd (input
     dtype, read as fp32). Returns dqkv [B, S, 3·D]."""
-    attn_bwd_packed_saved_reference.calls += 1
     return _vjp(p.float(), pd.float(), pd, qkv, g, n_heads, scale)
 
 
@@ -326,21 +339,21 @@ def dqkv_bf16_bound(ref, p, pd, qkv, g, *, n_heads, scale) -> torch.Tensor:
 # ---- the long-sequence tiers: head-blocked (#4, #5), flash-streamed (#6, #7)
 
 
+@_counted
 def attn_fwd_packed_hb_reference(qkv, attention_mask, *, n_heads, scale,
                                  rate=0.0, seed=0):
     """Plain version of kernel #4: #1's function (whole-row fp32 softmax,
     the Philox mask, the dropped probs rounded for PV), nothing saved.
     Returns out [B, S, D]."""
-    attn_fwd_packed_hb_reference.calls += 1
     return _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate,
                            seed)[0]
 
 
+@_counted
 def attn_bwd_packed_hb_reference(qkv, attention_mask, seed, g, *, n_heads,
                                  scale, rate=0.0):
     """Plain version of kernel #5: #2's function, the probs recomputed and
     the keep mask replayed. Returns dqkv [B, S, 3·D]."""
-    attn_bwd_packed_hb_reference.calls += 1
     return _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate)
 
 
@@ -351,6 +364,7 @@ def _bias(attention_mask, b, s, device):
     return (1.0 - attention_mask.float()) * -10000.0
 
 
+@_counted
 def attn_fwd_packed_fs_reference(qkv, attention_mask, *, n_heads, scale,
                                  rate=0.0, seed=0):
     """Plain version of kernel #6: the online softmax over key blocks of
@@ -360,7 +374,6 @@ def attn_fwd_packed_fs_reference(qkv, attention_mask, *, n_heads, scale,
     the input dtype, acc ← acc·α + e·V in fp32; then out = acc / l in the
     input dtype and lse = m + log l. Returns (out [B, S, D], lse [B, H, S]
     fp32)."""
-    attn_fwd_packed_fs_reference.calls += 1
     dtype = qkv.dtype
     b, s, d3 = qkv.shape
     q, k, v = (x.float() for x in _heads(qkv, n_heads))
@@ -388,6 +401,7 @@ def attn_fwd_packed_fs_reference(qkv, attention_mask, *, n_heads, scale,
             m + torch.log(den))
 
 
+@_counted
 def attn_bwd_packed_fs_reference(qkv, attention_mask, seed, o, lse, g, *,
                                  n_heads, scale, rate=0.0):
     """Plain version of kernel #7: p = exp(s·scale + bias − lse) rebuilt
@@ -396,7 +410,6 @@ def attn_bwd_packed_fs_reference(qkv, attention_mask, seed, o, lse, g, *,
     keep·d(pd)/(1−rate); ds = (p·(dp − δ))·scale; ds_c and pd_c rounded to
     the input dtype; dQ = ds_c·K, dK = ds_cᵀ·Q, dV = pd_cᵀ·g accumulated
     in fp32. Returns dqkv [B, S, 3·D]."""
-    attn_bwd_packed_fs_reference.calls += 1
     dtype = qkv.dtype
     b, s, _ = qkv.shape
     q, k, v = (x.float() for x in _heads(qkv, n_heads))
@@ -416,14 +429,6 @@ def attn_bwd_packed_fs_reference(qkv, attention_mask, seed, o, lse, g, *,
     dk = torch.matmul(ds_c.transpose(-1, -2), q).to(dtype)
     dv = torch.matmul(pd.to(dtype).float().transpose(-1, -2), gh).to(dtype)
     return _pack(dq, dk, dv)
-
-
-for _fn in (attn_fwd_packed_reference, attn_bwd_packed_reference,
-            attn_bwd_packed_saved_reference, attn_fwd_packed_hb_reference,
-            attn_bwd_packed_hb_reference, attn_fwd_packed_fs_reference,
-            attn_bwd_packed_fs_reference):
-    _fn.calls = 0   # the tier a CPU call took shows here
-del _fn
 
 
 # ---- CUDA wrappers ----------------------------------------------------------
@@ -986,6 +991,7 @@ def _rel_probs(q, k, ebias, n_heads, scale):
     return torch.softmax(scores * scale + ebias.float(), dim=-1)
 
 
+@_counted
 def attn_fwd_rel_reference(
     q: torch.Tensor,                          # [B, Q, D]
     k: torch.Tensor,                          # [B, K, D]
@@ -1032,6 +1038,7 @@ def _rel_vjp(p, pd, pd_c, q, k, v, g, n_heads, scale, eb_dtype):
             ds.to(eb_dtype))
 
 
+@_counted
 def attn_bwd_rel_reference(q, k, v, ebias, seed, g, *, n_heads, scale,
                            rate=0.0):
     """Plain version of kernel #12: the probs recomputed in fp32, the keep
@@ -1043,6 +1050,7 @@ def attn_bwd_rel_reference(q, k, v, ebias, seed, g, *, n_heads, scale,
                     ebias.dtype)
 
 
+@_counted
 def attn_bwd_rel_saved_reference(p, pd, q, k, v, g, *, n_heads, scale):
     """Plain version of kernel #13: the VJP from the saved p and pd (input
     dtype, read as fp32). Returns (dq, dk, dv, debias), debias in the input
@@ -1050,6 +1058,30 @@ def attn_bwd_rel_saved_reference(p, pd, q, k, v, g, *, n_heads, scale):
     ``_frel_bwd``)."""
     return _rel_vjp(p.float(), pd.float(), pd, q, k, v, g, n_heads, scale,
                     q.dtype)
+
+
+@_counted
+def attn_fwd_rel_hb_reference(q, k, v, ebias, *, n_heads, scale, rate=0.0,
+                              seed=0):
+    """Plain version of kernel #14: #11's function (whole-row fp32 softmax,
+    the Philox mask, the dropped probs rounded for PV), nothing saved.
+    Returns out [B, Q, D]."""
+    p = _rel_probs(q, k, ebias, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    return _merge_heads(torch.matmul(
+        pd.to(q.dtype).float(), _ctx_heads(v, n_heads).float()).to(q.dtype))
+
+
+@_counted
+def attn_bwd_rel_hb_reference(q, k, v, ebias, seed, g, *, n_heads, scale,
+                              rate=0.0):
+    """Plain version of kernel #15: #12's function, the probs recomputed
+    and the keep mask replayed. Returns (dq, dk, dv, debias), debias in
+    ebias's dtype."""
+    p = _rel_probs(q, k, ebias, n_heads, scale)
+    pd = _dropped(p, seed, rate)
+    return _rel_vjp(p, pd, pd.to(q.dtype), q, k, v, g, n_heads, scale,
+                    ebias.dtype)
 
 
 def rel_grads_bf16_bound(refs, p, pd, q, k, v, g, *, n_heads, scale):
@@ -1083,10 +1115,11 @@ def rel_bwd_fits(q_len: int, k_len: int, dh: int) -> bool:
 
 
 def _check_rel_cuda(name, q, k, v, ebias, n_heads, bwd,
-                    bias_label="ebias"):
+                    bias_label="ebias", max_k=MAX_SEQ_LEN):
     """The checks every rel CUDA wrapper makes (``ebias`` is whichever
-    [B, H, Q, K] tensor the kernel reads, named ``bias_label``); returns
-    (b, q_len, k_len, dh)."""
+    [B, H, Q, K] tensor the kernel reads, named ``bias_label``; ``bwd``:
+    the full-H backward's shared-memory plan; ``max_k``: the kernel's
+    longest K); returns (b, q_len, k_len, dh)."""
     for label, t in (("q", q), ("k", k), ("v", v), (bias_label, ebias)):
         if not t.is_cuda:
             raise ValueError(f"{name}: {label} must be a CUDA tensor, got "
@@ -1106,9 +1139,8 @@ def _check_rel_cuda(name, q, k, v, ebias, n_heads, bwd,
         raise ValueError(
             f"{name}: head dim {dh} not supported (a multiple of 8 up to "
             f"{MAX_HEAD_DIM})")
-    if k_len > MAX_SEQ_LEN:
-        raise ValueError(f"{name}: K={k_len} exceeds the kernel's "
-                         f"{MAX_SEQ_LEN}")
+    if k_len > max_k:
+        raise ValueError(f"{name}: K={k_len} exceeds the kernel's {max_k}")
     if bwd and not rel_bwd_fits(q_len, k_len, dh):
         raise ValueError(f"{name}: Q={q_len} K={k_len} Dh={dh} exceeds the "
                          "backward's shared memory")
@@ -1195,9 +1227,49 @@ def attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, *, n_heads, scale):
     return dq, dk, dv, debias
 
 
-attn_fwd_rel_cuda.launches = 0
-attn_bwd_rel_cuda.launches = 0
-attn_bwd_rel_saved_cuda.launches = 0
+def attn_fwd_rel_hb_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0,
+                         seed=0):
+    """Launch kernel #14 (``csrc/attn_fwd_rel_hb.cu``), K ≤
+    ``HB_MAX_SEQ_LEN``. Returns out [B, Q, D]."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_fwd_rel_hb", q, k, v, ebias,
+                                          n_heads, bwd=False,
+                                          max_k=HB_MAX_SEQ_LEN)
+    out = torch.empty_like(q)
+    _launch("attn_fwd_rel_hb", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ebias.data_ptr(), out.data_ptr(), b, q_len, k_len, n_heads, dh,
+            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[q.dtype],
+            device=q.device)
+    attn_fwd_rel_hb_cuda.launches += 1
+    return out
+
+
+def attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g, *, n_heads, scale,
+                         rate=0.0):
+    """Launch kernel #15 (``csrc/attn_bwd_rel_hb.cu``): (dq, dk, dv,
+    debias) with the probs recomputed and the keep mask replayed from
+    ``seed``, K ≤ ``HB_MAX_SEQ_LEN``. The kernel's fp32 dK/dV accumulators
+    live in a [B, H, 2, K, Dh] workspace allocated here."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel_hb", q, k, v, ebias,
+                                          n_heads, bwd=False,
+                                          max_k=HB_MAX_SEQ_LEN)
+    _like("g", g, q, tuple(q.shape))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    debias = torch.empty_like(ebias)
+    ws = torch.empty((b, n_heads, 2, k_len, dh), dtype=torch.float32,
+                     device=q.device)
+    _launch("attn_bwd_rel_hb", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ebias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), debias.data_ptr(), ws.data_ptr(), b, q_len, k_len,
+            n_heads, dh, float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[q.dtype], device=q.device)
+    attn_bwd_rel_hb_cuda.launches += 1
+    return dq, dk, dv, debias
+
+
+for _fn in (attn_fwd_rel_cuda, attn_bwd_rel_cuda, attn_bwd_rel_saved_cuda,
+            attn_fwd_rel_hb_cuda, attn_bwd_rel_hb_cuda):
+    _fn.launches = 0
+del _fn
 
 
 def attn_fwd_rel(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
@@ -1220,6 +1292,22 @@ def attn_bwd_rel_saved(p, pd, q, k, v, g, *, n_heads, scale):
     fn = (attn_bwd_rel_saved_cuda if _on(q) == "cuda"
           else attn_bwd_rel_saved_reference)
     return fn(p, pd, q, k, v, g, n_heads=n_heads, scale=scale)
+
+
+def attn_fwd_rel_hb(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0):
+    """Kernel #14 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_rel_hb_cuda if _on(q) == "cuda"
+          else attn_fwd_rel_hb_reference)
+    return fn(q, k, v, ebias, n_heads=n_heads, scale=scale, rate=rate,
+              seed=seed)
+
+
+def attn_bwd_rel_hb(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
+    """Kernel #15 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_rel_hb_cuda if _on(q) == "cuda"
+          else attn_bwd_rel_hb_reference)
+    return fn(q, k, v, ebias, seed, g, n_heads=n_heads, scale=scale,
+              rate=rate)
 
 
 class FusedRelAttention(torch.autograd.Function):
@@ -1260,6 +1348,62 @@ class FusedRelAttention(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+class FusedRelAttentionHB(torch.autograd.Function):
+    """The head-blocked rel tier with its backward kernel (JAX
+    ``_frelhb_fwd`` / ``_frelhb_bwd``): #14 forward keeps q, k, v, ebias
+    and the seed; #15 recomputes the probs and replays the mask. Nothing
+    Q·K-sized is saved beyond ebias, the input itself."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ebias, n_heads: int, scale: float, rate: float,
+                seed: int):
+        ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        ctx.eb_dtype = ebias.dtype
+        ctx.save_for_backward(q, k, v, ebias)
+        return attn_fwd_rel_hb(q, k, v, ebias, n_heads=n_heads, scale=scale,
+                               rate=rate, seed=seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, ebias = ctx.saved_tensors
+        dq, dk, dv, debias = attn_bwd_rel_hb(q, k, v, ebias, ctx.seed,
+                                             g.contiguous(),
+                                             n_heads=ctx.n_heads,
+                                             scale=ctx.scale, rate=ctx.rate)
+        return dq, dk, dv, debias.to(ctx.eb_dtype), None, None, None, None
+
+
+def rel_tier(q_len: int, k_len: int, dh: int, grad: bool,
+             ingredients_ok: bool) -> str:
+    """The rel-attention tier at (Q, K, Dh), the twin of ``packed_tier``,
+    keyed by the port's own kernels' reach:
+
+    * "full" (#11, and #13 or #12 with a gradient) while K ≤
+      ``MAX_SEQ_LEN`` and, with a gradient, ``rel_bwd_fits``;
+    * "ik_fs" (#23, and #24) past that, where the bias ingredients are
+      eligible (``ingredients_ok``: the model's ``rel_bias_impl="auto"``,
+      one [P, D] position stream with P ≥ Q + K, no ``head_mask`` and no
+      ``output_attentions``), at any length;
+    * "hb" (#14, and #15) otherwise, while Q and K ≤ ``HB_MAX_SEQ_LEN``.
+
+    Past those it raises: the rel flash-streamed tier (#16/#17) is ROADMAP
+    B.6. The JAX model takes its ingredients tier only past its VMEM fit of
+    the full-H tier (Q = K = 224 at xlnet-base bf16); the port keys every
+    tier by its kernels' reach instead, as ``packed_tier`` does."""
+    if k_len <= MAX_SEQ_LEN and (not grad or rel_bwd_fits(q_len, k_len, dh)):
+        return "full"
+    if ingredients_ok:
+        return "ik_fs"
+    if q_len <= HB_MAX_SEQ_LEN and k_len <= HB_MAX_SEQ_LEN:
+        return "hb"
+    raise NotImplementedError(
+        f"rel attention at Q={q_len} K={k_len}: past the head-blocked tier's "
+        f"{HB_MAX_SEQ_LEN} without the ingredients tier (which needs "
+        "rel_bias_impl='auto', bi attention without bi_data, no head_mask "
+        "and no output_attentions); the rel flash-streamed tier (#16/#17) "
+        "is not ported yet (ROADMAP B.6)")
+
+
 def fused_rel_attention(
     q: torch.Tensor,                          # [B, Q, D] head-major
     k: torch.Tensor,                          # [B, K, D]
@@ -1281,13 +1425,15 @@ def fused_rel_attention(
     JAX entry: ``dropout_rate`` applies only when ``deterministic`` is
     False and then needs ``dropout_rng`` (a CPU ``torch.Generator``, from
     which the kernel seed is drawn); ``save_probs`` picks the saved-probs
-    or recompute backward (``resolve_save_probs`` on [B, H, Q, K]). When no
-    gradient is being taken the forward saves nothing.
+    or recompute backward of the full-H tier (``resolve_save_probs`` on
+    [B, H, Q, K]). When no gradient is being taken the forward saves
+    nothing.
 
-    ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan knobs and raise. Past
-    the kernels' reach (K > ``MAX_SEQ_LEN``, or a backward past
-    ``rel_bwd_fits``) this raises naming the long-sequence tiers: it never
-    degrades to einsum math."""
+    ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan knobs and raise. The
+    tier is ``rel_tier``'s without the ingredients: the full-H kernels
+    while they reach, then the head-blocked tier (#14, and #15 with a
+    recompute backward) up to ``HB_MAX_SEQ_LEN``; past that it raises,
+    naming ROADMAP B.6. It never degrades to einsum math."""
     if interpret is not None or nb_fwd is not None or nb_bwd is not None:
         raise ValueError(
             "interpret/nb_fwd/nb_bwd are TPU kernel-plan knobs; the CUDA "
@@ -1299,21 +1445,417 @@ def fused_rel_attention(
     if rate > 0.0 and dropout_rng is None:
         raise ValueError("dropout_rate > 0 requires dropout_rng")
     _on(q)
-    long_tiers = ("the head-blocked and flash-streamed rel-attention tiers "
-                  "are not ported yet (ROADMAP B.5, B.6, B.8)")
-    if k_len > MAX_SEQ_LEN:
-        raise NotImplementedError(f"K={k_len} > {MAX_SEQ_LEN}: {long_tiers}")
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v, ebias))
+    tier = rel_tier(q_len, k_len, dh, grad, ingredients_ok=False)
     seed = draw_seed(dropout_rng) if rate > 0.0 else 0
     q, k, v, ebias = (x.contiguous() for x in (q, k, v, ebias))
-    if not (torch.is_grad_enabled()
-            and any(x.requires_grad for x in (q, k, v, ebias))):
-        return attn_fwd_rel(q, k, v, ebias, n_heads=n_heads, scale=scale,
-                            rate=rate, seed=seed)
-    if not rel_bwd_fits(q_len, k_len, dh):
-        raise NotImplementedError(
-            f"Q={q_len} K={k_len} at head dim {dh}: the backward kernels hold "
-            f"one row's [Q, K] problem in shared memory; {long_tiers}")
+    if not grad:
+        fn = attn_fwd_rel if tier == "full" else attn_fwd_rel_hb
+        return fn(q, k, v, ebias, n_heads=n_heads, scale=scale, rate=rate,
+                  seed=seed)
+    if tier == "hb":
+        return FusedRelAttentionHB.apply(q, k, v, ebias, n_heads,
+                                         float(scale), rate, seed)
     save = resolve_save_probs(b, n_heads, q_len, rate, q.element_size(),
                               save_probs, k_len=k_len)
     return FusedRelAttention.apply(q, k, v, ebias, n_heads, float(scale),
                                    rate, seed, save)
+
+
+# ---- rel attention from its bias ingredients, flash-streamed (#23, #24) -----
+#
+# The port of the JAX ``fused_rel_attention_ingredients`` fs tier, the
+# long-sequence MAG-XLNet path: in place of an assembled ebias the kernels
+# take its ingredients and build each score themselves,
+#
+#   s[b,h,q,k] = (rw·k)·scale + rr·r[Q − q + k] + ed[b,h,q]·segd[b,q,k]
+#                + maskb[b,q,k]
+#
+# with rw = q + r_w_bias and rr = (q + r_r_bias)·scale [B, Q, D], the
+# position keys r [P, D] (P ≥ Q + K: the relative shift of XLNet's
+# ``rel_shift`` is the index Q − q + k), the segment delta ed [B, H, Q]
+# (scale·(q + r_s_bias)·(seg₁ − seg₀)) and the seg-diff and mask biases
+# segd, maskb [B, Q, K]. The reference's ef₀ term, constant along k, is
+# softmax-invariant with a zero gradient and is left out (JAX
+# ``ops/fused_attention.py`` :3626-3632). Nothing [B, H, Q, P]- or
+# [B, H, Q, K]-sized is built on the card:
+#
+# * #23 ``attn_fwd_relik_fs_cuda`` → ``csrc/attn_fwd_relik_fs.cu``: the
+#   online softmax over key blocks of ``FS_KEY_BLOCK`` (#6's), dropout, PV;
+#   out and lse;
+# * #24 ``attn_bwd_relik_fs_cuda`` → ``csrc/attn_bwd_relik_fs.cu``: drw,
+#   drr, dr, dk, dv and ded from lse, in three launches.
+#
+# The plain versions build the whole [B, H, Q, P] product rr·rᵀ and shift
+# it with a gather; they run on the CPU and in the card's checks.
+
+
+def _shift_index(q_len: int, k_len: int, device) -> torch.Tensor:
+    """[1, 1, Q, K] int64: the position Q − q + k that score (q, k) reads."""
+    return (q_len - torch.arange(q_len, device=device)[:, None]
+            + torch.arange(k_len, device=device)[None, :])[None, None]
+
+
+def _relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads, scale):
+    """fp32 scores [B, H, Q, K] from the ingredients, in the kernels' order
+    of additions: ((rw·kᵀ)·scale + rr·r[Q − q + k]) + ed·segd + maskb."""
+    b, q_len, d = rw.shape
+    k_len, p_len = k.shape[1], r.shape[0]
+    ac = torch.matmul(_ctx_heads(rw, n_heads).float(),
+                      _ctx_heads(k, n_heads).float().transpose(-1, -2))
+    rh = r.float().reshape(p_len, n_heads, d // n_heads).permute(1, 0, 2)
+    bd = torch.matmul(_ctx_heads(rr, n_heads).float(), rh.transpose(-1, -2))
+    bd = torch.gather(bd, 3, _shift_index(q_len, k_len, rw.device).expand(
+        b, n_heads, q_len, k_len))
+    return ((ac * scale + bd) + ed.float()[..., None] * segd.float()[:, None]
+            + maskb.float()[:, None])
+
+
+@_counted
+def attn_fwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, *,
+                                n_heads, scale, rate=0.0, seed=0):
+    """Plain version of kernel #23: the whole row's scores from the
+    ingredients, then #6's online softmax over key blocks of
+    ``FS_KEY_BLOCK`` with its rounding points (e dropped by the Philox
+    mask, a key block at a time, and rounded to the input dtype for PV;
+    out = acc / l in the input dtype; lse = m + log l). Returns (out
+    [B, Q, D], lse [B, H, Q] fp32)."""
+    dtype = rw.dtype
+    b, q_len, _ = rw.shape
+    k_len = k.shape[1]
+    s = _relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads, scale)
+    vh = _ctx_heads(v, n_heads).float()
+    m = torch.full(s.shape[:3], -float("inf"), device=rw.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros(*s.shape[:3], vh.shape[-1], device=rw.device)
+    for k0 in range(0, k_len, FS_KEY_BLOCK):
+        k1 = min(k0 + FS_KEY_BLOCK, k_len)
+        sb = s[..., k0:k1]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(sb - m_new[..., None])
+        den = den * alpha + e.sum(dim=-1)
+        if rate > 0.0:
+            keep = dropout_keep_mask(seed, b, n_heads, q_len, k1 - k0, rate,
+                                     rw.device, k0)
+            e = torch.where(keep, e * inv_keep(rate), 0.0)
+        acc = acc * alpha[..., None] + torch.matmul(e.to(dtype).float(),
+                                                    vh[:, :, k0:k1])
+        m = m_new
+    return (_merge_heads((acc / den[..., None]).to(dtype)),
+            m + torch.log(den))
+
+
+@_counted
+def attn_bwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, seed, o,
+                                lse, g, *, n_heads, scale, rate=0.0):
+    """Plain version of kernel #24: p = exp(s − lse) from the forward's lse,
+    δ = Σ g⊙o from the rounded output, d(pd) = g·vᵀ; with the replayed keep
+    mask pd = keep·p/(1−rate) and dp = keep·d(pd)/(1−rate); ds = p·(dp − δ);
+    ds_c = T(ds·scale), ds_u = T(ds), pd_c = T(pd); drw = ds_c·k, dk =
+    ds_cᵀ·rw, dv = pd_cᵀ·g, drr[q] = Σ_k ds_u[q, k]·r[Q − q + k], dr[p] =
+    Σ_{b, q} ds_u[b, q, p − Q + q]·rr[b, q], ded = Σ_k ds·segd, products in
+    fp32, each output rounded once to the input dtype. Returns (drw, drr,
+    dr, dk, dv, ded)."""
+    dtype = rw.dtype
+    b, q_len, d = rw.shape
+    k_len, p_len = k.shape[1], r.shape[0]
+    rwh, rrh, kh, vh, gh, oh = (_ctx_heads(x, n_heads).float()
+                                for x in (rw, rr, k, v, g, o))
+    delta = (gh * oh).sum(dim=-1, keepdim=True)
+    p = torch.exp(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
+                                scale) - lse[..., None])
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, n_heads, q_len, k_len, rate,
+                                 rw.device)
+        pd = torch.where(keep, p * inv_keep(rate), 0.0)
+        dp = torch.where(keep, dp * inv_keep(rate), 0.0)
+    ds = p * (dp - delta)
+    ds_c = (ds * scale).to(dtype).float()
+    # ds_u placed at the positions it multiplies: z[q, Q − q + k] = ds_u[q, k]
+    z = torch.zeros(b, n_heads, q_len, p_len, device=rw.device)
+    z.scatter_(3, _shift_index(q_len, k_len, rw.device).expand(
+        b, n_heads, q_len, k_len), ds.to(dtype).float())
+    rh = r.float().reshape(p_len, n_heads, d // n_heads).permute(1, 0, 2)
+    drw = _merge_heads(torch.matmul(ds_c, kh)).to(dtype)
+    drr = _merge_heads(torch.matmul(z, rh)).to(dtype)
+    dr = torch.einsum("bhqp,bhqf->phf", z, rrh).reshape(p_len, d).to(dtype)
+    dk = _merge_heads(torch.matmul(ds_c.transpose(-1, -2), rwh)).to(dtype)
+    dv = _merge_heads(torch.matmul(pd.to(dtype).float().transpose(-1, -2),
+                                   gh)).to(dtype)
+    ded = (ds * segd.float()[:, None]).sum(dim=-1).to(dtype)
+    return drw, drr, dr, dk, dv, ded
+
+
+def relik_grads_bf16_bound(refs, rw, rr, r, k, v, ed, segd, maskb, seed,
+                           lse, g, o, *, n_heads, scale, rate=0.0):
+    """Elementwise bounds on how far two bf16 (drw, drr, dr, dk, dv, ded)
+    of #24's math may lie apart (``dqkv_bf16_bound``'s argument): each side
+    rounds ds_c, ds_u and pd_c once and its outputs once; a rounding may
+    land one ulp (≤ 2^-7 relative) the other way, so the two lie within
+    2^-7 times the products taken over absolute values, A = (|ds|·|k|·
+    scale, |ds|·|r shifted|, Σ_{b,q} |ds|·|rr| on the diagonals, |ds|ᵀ·|rw|·
+    scale, |pd|ᵀ·|g|, Σ_k |ds|·|segd|), with |ds| bounded by p·(|dp| +
+    |δ|) from the magnitudes of its terms. Returns 2^-7·(|ref| + A) +
+    2^-17 for each output."""
+    b, q_len, d = rw.shape
+    k_len, p_len = k.shape[1], r.shape[0]
+    rwh, rrh, kh, vh, gh, oh = (_ctx_heads(x, n_heads).float().abs()
+                                for x in (rw, rr, k, v, g, o))
+    p = torch.exp(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
+                                scale) - lse[..., None])
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, n_heads, q_len, k_len, rate,
+                                 rw.device)
+        pd = torch.where(keep, p * inv_keep(rate), 0.0)
+        dp = torch.where(keep, dp * inv_keep(rate), 0.0)
+    ds = p * (dp + (gh * oh).sum(dim=-1, keepdim=True))
+    z = torch.zeros(b, n_heads, q_len, p_len, device=rw.device)
+    z.scatter_(3, _shift_index(q_len, k_len, rw.device).expand(
+        b, n_heads, q_len, k_len), ds)
+    rh = r.float().abs().reshape(p_len, n_heads, d // n_heads).permute(
+        1, 0, 2)
+    a = (_merge_heads(torch.matmul(ds, kh)) * scale,
+         _merge_heads(torch.matmul(z, rh)),
+         torch.einsum("bhqp,bhqf->phf", z, rrh).reshape(p_len, d),
+         _merge_heads(torch.matmul(ds.transpose(-1, -2), rwh)) * scale,
+         _merge_heads(torch.matmul(pd.transpose(-1, -2), gh)),
+         (ds * segd.float().abs()[:, None]).sum(dim=-1))
+    return tuple(2.0 ** -7 * (ref.float().abs() + x) + 2.0 ** -17
+                 for ref, x in zip(refs, a))
+
+
+def _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads):
+    """Shapes of the ingredients; returns (b, q_len, k_len, p_len, dh)."""
+    if rw.dim() != 3 or tuple(rr.shape) != tuple(rw.shape):
+        raise ValueError(f"rw and rr must be [B, Q, D] alike, got "
+                         f"{tuple(rw.shape)}, {tuple(rr.shape)}")
+    b, q_len, d = rw.shape
+    if k.dim() != 3 or tuple(v.shape) != tuple(k.shape) or (
+            k.shape[0] != b or k.shape[2] != d):
+        raise ValueError(f"k and v must be [B, K, D] with rw's B and D, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if d % n_heads != 0:
+        raise ValueError(
+            f"hidden dim {d} not divisible by n_heads={n_heads}")
+    k_len = k.shape[1]
+    if r.dim() != 2 or r.shape[1] != d:
+        raise ValueError(f"r must be [P, D] with D={d}, got {tuple(r.shape)}")
+    p_len = r.shape[0]
+    if p_len < q_len + k_len:
+        raise ValueError(
+            f"position stream P={p_len} < Q+K={q_len + k_len}: the relative "
+            "shift reads r[Q − q + k], which needs P ≥ Q + K")
+    if tuple(ed.shape) != (b, n_heads, q_len):
+        raise ValueError(f"ed must be [B, H, Q] = {(b, n_heads, q_len)}, got "
+                         f"{tuple(ed.shape)}")
+    for label, t in (("segd", segd), ("maskb", maskb)):
+        if tuple(t.shape) != (b, q_len, k_len):
+            raise ValueError(f"{label} must be [B, Q, K] = "
+                             f"{(b, q_len, k_len)}, got {tuple(t.shape)}")
+    return b, q_len, k_len, p_len, d // n_heads
+
+
+def _check_relik_cuda(name, tensors, n_heads):
+    """The checks the ingredients CUDA wrappers make: every tensor of
+    ``tensors`` (label → tensor, rw first) a contiguous CUDA tensor of rw's
+    dtype; returns (b, q_len, k_len, p_len, dh)."""
+    rw = tensors["rw"]
+    for label, t in tensors.items():
+        if not t.is_cuda or t.dtype != rw.dtype or t.device != rw.device:
+            raise ValueError(
+                f"{name}: {label} must be a CUDA tensor of rw's dtype "
+                f"{rw.dtype} on {rw.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if rw.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {rw.dtype} not supported (float32, "
+                         "bfloat16)")
+    geo = _check_relik_geometry(*(tensors[x] for x in (
+        "rw", "rr", "r", "k", "v", "ed", "segd", "maskb")), n_heads)
+    b, dh = geo[0], geo[-1]
+    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {dh} not supported (a multiple of 8 up to "
+            f"{MAX_HEAD_DIM})")
+    if b > 65535 or n_heads > 65535:
+        raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
+    check_sm90(rw)
+    return geo
+
+
+def attn_fwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
+                           scale, rate=0.0, seed=0):
+    """Launch kernel #23 (``csrc/attn_fwd_relik_fs.cu``): every input a
+    contiguous CUDA tensor of one dtype (fp32 or bf16), any Q and K, P ≥
+    Q + K. Returns (out [B, Q, D], lse [B, H, Q] fp32)."""
+    ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb)
+    b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_fwd_relik_fs", ins,
+                                                   n_heads)
+    out = torch.empty_like(rw)
+    lse = torch.empty((b, n_heads, q_len), dtype=torch.float32,
+                      device=rw.device)
+    _launch("attn_fwd_relik_fs", *(t.data_ptr() for t in ins.values()),
+            out.data_ptr(), lse.data_ptr(), b, q_len, k_len, p_len, n_heads,
+            dh, float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[rw.dtype], device=rw.device)
+    attn_fwd_relik_fs_cuda.launches += 1
+    return out, lse
+
+
+def attn_bwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
+                           *, n_heads, scale, rate=0.0):
+    """Launch kernel #24 (``csrc/attn_bwd_relik_fs.cu``), three kernels on
+    the current stream, each counted: the dK/dV pass, the pass over each
+    (batch row, head) that writes drw, drr, ded and its dr rows into an
+    fp32 [B, P, D] workspace allocated here, and the sum of the workspace
+    over B into dr. ``o`` and ``lse`` are #23's outputs. Returns (drw, drr,
+    dr, dk, dv, ded) in rw's dtype."""
+    ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb,
+               o=o, g=g)
+    b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_bwd_relik_fs", ins,
+                                                   n_heads)
+    _like("o", o, rw, tuple(rw.shape))
+    _like("g", g, rw, tuple(rw.shape))
+    if (lse.dtype != torch.float32 or lse.device != rw.device
+            or tuple(lse.shape) != (b, n_heads, q_len)
+            or not lse.is_contiguous()):
+        raise ValueError(
+            f"lse must be a contiguous float32 tensor of shape "
+            f"{(b, n_heads, q_len)} on {rw.device}, got {lse.dtype} "
+            f"{tuple(lse.shape)} on {lse.device}")
+    drw, drr, dk, dv, ded, dr = (torch.empty_like(x)
+                                 for x in (rw, rr, k, v, ed, r))
+    d = rw.shape[-1]
+    ws = torch.zeros((b, p_len, d), dtype=torch.float32, device=rw.device)
+    args = (rw.data_ptr(), rr.data_ptr(), r.data_ptr(), k.data_ptr(),
+            v.data_ptr(), ed.data_ptr(), segd.data_ptr(), maskb.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), g.data_ptr(), drw.data_ptr(),
+            drr.data_ptr(), dk.data_ptr(), dv.data_ptr(), ded.data_ptr(),
+            ws.data_ptr(), b, q_len, k_len, p_len, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[rw.dtype])
+    _launch("attn_bwd_relik_fs_dkdv", *args, device=rw.device)
+    attn_bwd_relik_fs_cuda.launches += 1
+    _launch("attn_bwd_relik_fs_dq", *args, device=rw.device)
+    attn_bwd_relik_fs_cuda.launches += 1
+    _launch("attn_bwd_relik_fs_dr", ws.data_ptr(), dr.data_ptr(), b, p_len,
+            d, _DTYPE_CODES[rw.dtype], device=rw.device)
+    attn_bwd_relik_fs_cuda.launches += 1
+    return drw, drr, dr, dk, dv, ded
+
+
+attn_fwd_relik_fs_cuda.launches = 0
+attn_bwd_relik_fs_cuda.launches = 0
+
+
+def attn_fwd_relik_fs(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
+                      rate=0.0, seed=0):
+    """Kernel #23 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_relik_fs_cuda if _on(rw) == "cuda"
+          else attn_fwd_relik_fs_reference)
+    return fn(rw, rr, r, k, v, ed, segd, maskb, n_heads=n_heads, scale=scale,
+              rate=rate, seed=seed)
+
+
+def attn_bwd_relik_fs(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g, *,
+                      n_heads, scale, rate=0.0):
+    """Kernel #24 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_relik_fs_cuda if _on(rw) == "cuda"
+          else attn_bwd_relik_fs_reference)
+    return fn(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
+              n_heads=n_heads, scale=scale, rate=rate)
+
+
+class FusedRelAttentionIKFS(torch.autograd.Function):
+    """The ingredients flash-streamed tier with its backward kernel (JAX
+    ``_frelikfs_fwd`` / ``_frelikfs_bwd``): #23 forward keeps the
+    ingredients, the seed and its residuals o and lse; #24 rebuilds the
+    probs from lse. segd and maskb get no gradient."""
+
+    @staticmethod
+    def forward(ctx, rw, rr, r, k, v, ed, segd, maskb, n_heads: int,
+                scale: float, rate: float, seed: int):
+        ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        out, lse = attn_fwd_relik_fs(rw, rr, r, k, v, ed, segd, maskb,
+                                     n_heads=n_heads, scale=scale, rate=rate,
+                                     seed=seed)
+        ctx.save_for_backward(rw, rr, r, k, v, ed, segd, maskb, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rw, rr, r, k, v, ed, segd, maskb, out, lse = ctx.saved_tensors
+        drw, drr, dr, dk, dv, ded = attn_bwd_relik_fs(
+            rw, rr, r, k, v, ed, segd, maskb, ctx.seed, out, lse,
+            g.contiguous(), n_heads=ctx.n_heads, scale=ctx.scale,
+            rate=ctx.rate)
+        return (drw, drr, dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                ded.to(ed.dtype), None, None, None, None, None, None)
+
+
+def fused_rel_attention_ingredients(
+    rw: torch.Tensor,                         # [B, Q, D] q + r_w_bias
+    rr: torch.Tensor,                         # [B, Q, D] (q + r_r_bias)·scale
+    r: torch.Tensor,                          # [P, D] k_head_r, P ≥ Q + K
+    k: torch.Tensor,                          # [B, K, D]
+    v: torch.Tensor,                          # [B, K, D]
+    ed: torch.Tensor,                         # [B, H, Q] segment delta
+    segd: torch.Tensor,                       # [B, Q, K] seg-diff (0/1)
+    maskb: torch.Tensor,                      # [B, Q, K] additive mask bias
+    *,
+    n_heads: int,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    interpret: Optional[bool] = None,
+    nb_fwd: Optional[int] = None,
+    nb_bwd: Optional[int] = None,
+    save_probs: Optional[bool] = None,
+    tier: Optional[str] = None,
+    fs_plan: Optional[tuple] = None,
+) -> torch.Tensor:
+    """XLNet relative attention from its score-bias ingredients, as
+    [B, Q, D]: ``fused_rel_attention`` with ebias = rel_shift(rr·rᵀ) +
+    ed·segd + maskb, less the reference's softmax-invariant ef₀ constant.
+    rw, rr, r, k, v and ed are differentiable; segd and maskb are not.
+    Same signature and argument checks as the JAX entry; the dropout
+    arguments as ``fused_rel_attention``'s.
+
+    The port has the flash-streamed tier only (#23, and #24 from the saved
+    o and lse), at any Q and K: ``tier=None`` and ``tier="fs"`` take it,
+    ``tier="full"`` (the full-H ingredients kernels #20-#22) raises naming
+    ROADMAP B.7. ``save_probs`` has no effect, as on the JAX fs tier, which
+    saves nothing S²-sized. ``interpret``/``nb_fwd``/``nb_bwd``/``fs_plan``
+    are TPU plan knobs and raise."""
+    if (interpret is not None or nb_fwd is not None or nb_bwd is not None
+            or fs_plan is not None):
+        raise ValueError(
+            "interpret/nb_fwd/nb_bwd/fs_plan are TPU kernel-plan knobs; the "
+            "CUDA kernels take none")
+    if tier == "full":
+        raise NotImplementedError(
+            "tier='full': the full-H ingredients rel-attention kernels "
+            "(#20-#22) are not ported yet (ROADMAP B.7)")
+    if tier not in (None, "fs"):
+        raise ValueError(f"unknown tier {tier!r} (None | 'fs' | 'full')")
+    rate = 0.0 if deterministic else float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads)
+    if rate > 0.0 and dropout_rng is None:
+        raise ValueError("dropout_rate > 0 requires dropout_rng")
+    _on(rw)
+    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
+    xs = [x.contiguous() for x in (rw, rr, r, k, v, ed, segd, maskb)]
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in xs[:6])):
+        return attn_fwd_relik_fs(*xs, n_heads=n_heads, scale=scale,
+                                 rate=rate, seed=seed)[0]
+    return FusedRelAttentionIKFS.apply(*xs, n_heads, float(scale), rate,
+                                       seed)

@@ -142,6 +142,19 @@ def load_kernels() -> ctypes.CDLL:
         lib.attn_fwd_rel.argtypes = [ptr] * 7 + rel + drop + [i32, ptr]
         lib.attn_bwd_rel.argtypes = [ptr] * 9 + rel + drop + [i32, ptr]
         lib.attn_bwd_rel_saved.argtypes = [ptr] * 10 + rel + [i32, ptr]
+        # attn_fwd_rel_hb: q, k, v, ebias, out; attn_bwd_rel_hb: q, k, v,
+        # ebias, g, dq, dk, dv, debias, ws.
+        lib.attn_fwd_rel_hb.argtypes = [ptr] * 5 + rel + drop + [i32, ptr]
+        lib.attn_bwd_rel_hb.argtypes = [ptr] * 10 + rel + drop + [i32, ptr]
+        # attn_fwd_relik_fs: rw, rr, r, k, v, ed, segd, maskb, out, lse;
+        # attn_bwd_relik_fs_{dkdv,dq}: the eight inputs, o, lse, g, drw, drr,
+        # dk, dv, ded, ws; attn_bwd_relik_fs_dr: ws, dr, B, P, D.
+        relik = [i32] * 6 + [f32]                 # B, Q, K, P, H, Dh, scale
+        lib.attn_fwd_relik_fs.argtypes = ([ptr] * 10 + relik + drop
+                                          + [i32, ptr])
+        for fn in (lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq):
+            fn.argtypes = [ptr] * 17 + relik + drop + [i32, ptr]
+        lib.attn_bwd_relik_fs_dr.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
         # mag_fwd: t, v, a, 12 params, out; mag_bwd: dy, t, v, a, 11
         # params (no ln_beta), 6 outputs.
         lib.mag_fwd.argtypes = [ptr] * 16 + mag + [i32, ptr]
@@ -151,7 +164,10 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_packed_hb, lib.attn_fwd_packed_fs,
                    lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq,
                    lib.attn_fwd_rel, lib.attn_bwd_rel,
-                   lib.attn_bwd_rel_saved, lib.mag_fwd, lib.mag_bwd):
+                   lib.attn_bwd_rel_saved, lib.attn_fwd_rel_hb,
+                   lib.attn_bwd_rel_hb, lib.attn_fwd_relik_fs,
+                   lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq,
+                   lib.attn_bwd_relik_fs_dr, lib.mag_fwd, lib.mag_bwd):
             fn.restype = ctypes.c_int
         lib.torch_kernels_error_string.argtypes = [i32]
         lib.torch_kernels_error_string.restype = ctypes.c_char_p

@@ -271,7 +271,11 @@ def _wrappers(fa):
             "attn_fwd_packed_hb": fa.attn_fwd_packed_hb_cuda,
             "attn_bwd_packed_hb": fa.attn_bwd_packed_hb_cuda,
             "attn_fwd_packed_fs": fa.attn_fwd_packed_fs_cuda,
-            "attn_bwd_packed_fs": fa.attn_bwd_packed_fs_cuda}
+            "attn_bwd_packed_fs": fa.attn_bwd_packed_fs_cuda,
+            "attn_fwd_rel_hb": fa.attn_fwd_rel_hb_cuda,
+            "attn_bwd_rel_hb": fa.attn_bwd_rel_hb_cuda,
+            "attn_fwd_relik_fs": fa.attn_fwd_relik_fs_cuda,
+            "attn_bwd_relik_fs": fa.attn_bwd_relik_fs_cuda}
 
 
 def _counts(fa):
@@ -2089,6 +2093,522 @@ def long_driver_path(args, fa, card):
     return counts
 
 
+# ---- Long-sequence MAG-XLNet: the ingredients flash-streamed (#23, #24) and
+# the head-blocked rel (#14, #15) tiers ---------------------------------------
+
+XLNET_LONG_S = (512, 1024)    # the driver's long XLNet runs
+XLNET_CHECK_BATCH = 8         # the dropout-0 gradient check's batch
+
+
+def relik_case(rng, dtype_name, b, s, h=12, dh=64):
+    """One seeded ingredients case shaped as the XLNet model feeds #23: rw,
+    rr (scaled) [B, S, D], r [2S, D] (bi attention: P = Q + K), k, v, the
+    scaled segment delta ed [B, H, S], segd from XLNet segments and maskb
+    −1e30 on the masked keys of left-padded rows (each query still sees
+    its own position), all in the input dtype; a context gradient; a seed."""
+    import torch
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    d, sc = h * dh, 1.0 / dh ** 0.5
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                * scale).to("cuda", dtype)
+
+    mask, segs = (torch.from_numpy(x).cuda()
+                  for x in xlnet_segments(rng, b, s))
+    masked = (mask[:, None, :] == 0) & ~torch.eye(s, dtype=torch.bool,
+                                                  device="cuda")
+    case = dict(rw=t(b, s, d), rr=t(b, s, d, scale=sc), r=t(2 * s, d),
+                k=t(b, s, d), v=t(b, s, d), ed=t(b, h, s, scale=sc),
+                segd=(segs[:, :, None] != segs[:, None, :]).to(dtype),
+                maskb=(-(1e30 * masked.float())).to(dtype), g=t(b, s, d))
+    return case, int(rng.integers(0, 2 ** 63 - 1))
+
+
+RELIK = ("rw", "rr", "r", "k", "v", "ed", "segd", "maskb")
+
+
+def _relik_grad_errs(name, dtype_name, got, want, bound_args, fa):
+    """Max abs err over #24's (drw, drr, dr, dk, dv, ded); raises past the
+    bound (fp32: GRAD_FP32_TOL; bf16: ``relik_grads_bf16_bound``)."""
+    import torch
+
+    if dtype_name == "bf16":
+        bounds = fa.relik_grads_bf16_bound(want, *bound_args[0],
+                                           **bound_args[1])
+    else:
+        bounds = [GRAD_FP32_TOL + GRAD_FP32_TOL * w.float().abs()
+                  for w in want]
+    worst = 0.0
+    for part, a, w, bd in zip(("drw", "drr", "dr", "dk", "dv", "ded"), got,
+                              want, bounds):
+        err = (a.float() - w.float()).abs()
+        if bool((err > bd).any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name} {part}: {int((err > bd).sum())} "
+                                 f"elements out of tolerance, max_abs_err="
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate):
+    """Phase 3f on one case: #14 and #15 (S ≤ HB_MAX_SEQ_LEN) on the ebias
+    the model assembles, and #23 and #24 on the ingredients, each against
+    its plain version (lse to 1e-4 absolute plus 1e-6 relative: a score
+    near −1e30 is never the row max, so the lse carries the fp32 sums'
+    rounding only); the same bits from the same seed twice. Returns the max
+    errors."""
+    import torch
+
+    kw = dict(n_heads=12, scale=0.125, rate=rate)
+    tag = f"{dtype_name} B={b} S={s} H=12 Dh=64 rate={rate}"
+    errs, twice = {}, []
+    if s <= fa.HB_MAX_SEQ_LEN:
+        q, k, v, ebias, g = rel_case(rng, dtype_name, b, s, s)
+        hb_seed = int(rng.integers(0, 2 ** 63 - 1))
+        out = fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, seed=hb_seed, **kw)
+        errs["#14"] = _forward_err(f"#14 {tag}", out, fa.attn_fwd_rel_hb_reference(
+            q, k, v, ebias, seed=hb_seed, **kw), dtype_name)
+        grads = fa.attn_bwd_rel_hb_cuda(q, k, v, ebias, hb_seed, g, **kw)
+        _, p, pd = fa.attn_fwd_rel_reference(q, k, v, ebias, seed=hb_seed,
+                                             save=True, **kw)
+        rate_kw = {x: kw[x] for x in ("n_heads", "scale")}
+        errs["#15"] = _rel_grad_errs(tag, dtype_name, (
+            ("#15 vs plain", grads, fa.attn_bwd_rel_hb_reference(
+                q, k, v, ebias, hb_seed, g, **kw)),), (p, pd, q, k, v, g,
+                                                       rate_kw), fa)["#15 vs plain"]
+        del p, pd
+        twice += [("#14", (out,), lambda: (fa.attn_fwd_rel_hb_cuda(
+            q, k, v, ebias, seed=hb_seed, **kw),)),
+                  ("#15", grads, lambda: fa.attn_bwd_rel_hb_cuda(
+                      q, k, v, ebias, hb_seed, g, **kw))]
+    c, seed = relik_case(rng, dtype_name, b, s)
+    ins = [c[n] for n in RELIK]
+    o23, lse = fa.attn_fwd_relik_fs_cuda(*ins, seed=seed, **kw)
+    r_out, r_lse = fa.attn_fwd_relik_fs_reference(*ins, seed=seed, **kw)
+    errs["#23"] = _forward_err(f"#23 {tag}", o23, r_out, dtype_name)
+    lse_err = (lse - r_lse).abs()
+    if bool((lse_err > 1e-4 + 1e-6 * r_lse.abs()).any()):
+        raise AssertionError(f"#23 lse {tag}: max_abs_err "
+                             f"{float(lse_err.max())}")
+    errs["#23 lse"] = float(lse_err.max())
+    g24 = fa.attn_bwd_relik_fs_cuda(*ins, seed, o23, lse, c["g"], **kw)
+    errs["#24"] = _relik_grad_errs(
+        f"#24 {tag}", dtype_name, g24, fa.attn_bwd_relik_fs_reference(
+            *ins, seed, o23, lse, c["g"], **kw),
+        ((*ins, seed, lse, c["g"], o23), kw), fa)
+    twice += [("#23", (o23, lse), lambda: fa.attn_fwd_relik_fs_cuda(
+        *ins, seed=seed, **kw)),
+              ("#24", g24, lambda: fa.attn_bwd_relik_fs_cuda(
+                  *ins, seed, o23, lse, c["g"], **kw))]
+    differ = [name for name, first, again in twice
+              if not all(torch.equal(x, y) for x, y in zip(first, again()))]
+    print(f"long rel kernels vs plain {tag}: " + ", ".join(
+        f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+        + f"; same seed twice, identical bits {not differ}")
+    if differ:
+        raise AssertionError(f"{', '.join(differ)} not bit-reproducible "
+                             f"({tag})")
+    return errs
+
+
+def check_long_rel_against_full(rng, fa):
+    """#14 against #11 (Q = K = 128, 512) and #15 against #12 (Q = K =
+    128), bf16 at rate 0.1: the same row arithmetic, so the same bits."""
+    import torch
+
+    for s in (128, 512):
+        q, k, v, ebias, g = rel_case(rng, "bf16", 8, s, s)
+        kw = dict(n_heads=12, scale=0.125, rate=RATE)
+        pairs = [("#14 vs #11", fa.attn_fwd_rel_hb_cuda(q, k, v, ebias,
+                                                        seed=s, **kw),
+                  fa.attn_fwd_rel_cuda(q, k, v, ebias, seed=s, **kw))]
+        if fa.rel_bwd_fits(s, s, 64):
+            pairs += [(f"#15 vs #12 {part}", x, y) for part, x, y in zip(
+                ("dq", "dk", "dv", "debias"),
+                fa.attn_bwd_rel_hb_cuda(q, k, v, ebias, s, g, **kw),
+                fa.attn_bwd_rel_cuda(q, k, v, ebias, s, g, **kw))]
+        for name, got, want in pairs:
+            same = torch.equal(got, want)
+            print(f"{name} bf16 B=8 Q=K={s} rate {RATE}: identical bits "
+                  f"{same}, max |Δ| "
+                  f"{float((got.float() - want.float()).abs().max()):.3e}")
+            if not same:
+                raise AssertionError(f"{name} at Q=K={s}: not the same bits")
+
+
+def check_relik_mask(rng, fa):
+    """#23's keep mask against the plain Philox mask, bit for bit: with rw
+    = rr = ed = 0 and no mask every score is 0 and p = 1/K, and with v_h
+    the identity (K = Dh = 128) the output is out[q, h, c] = keep(q, c)/
+    (K·(1 − rate)) rounded, > 0 exactly where (b, h, q, c) is kept. bf16
+    B=2 S=128 H=6 Dh=128 at rate 0.1."""
+    import torch
+
+    b, s, h, dh = 2, 128, 6, 128
+    c, seed = relik_case(rng, "bf16", b, s, h, dh)
+    for n in ("rw", "rr", "ed", "maskb"):
+        c[n].zero_()
+    c["v"] = torch.eye(s, device="cuda", dtype=torch.bfloat16)[
+        None, :, None, :].expand(b, s, h, dh).reshape(b, s, h * dh).contiguous()
+    keep = fa.dropout_keep_mask(seed, b, h, s, s, RATE, "cuda")
+    out, _ = fa.attn_fwd_relik_fs_cuda(*(c[n] for n in RELIK), n_heads=h,
+                                       scale=dh ** -0.5, rate=RATE, seed=seed)
+    kernel_keep = out.view(b, s, h, dh).permute(0, 2, 1, 3) > 0
+    if not torch.equal(kernel_keep, keep):
+        raise AssertionError(f"#23 keep mask differs from the plain Philox "
+                             f"mask in {int((kernel_keep != keep).sum())} "
+                             "elements")
+    got = float(kernel_keep.double().mean())
+    sigma = math.sqrt(RATE * (1 - RATE) / keep.numel())
+    if abs(got - (1 - RATE)) >= 5 * sigma:
+        raise AssertionError(f"#23 keep rate {got} not within 5σ")
+    print(f"#23 keep mask = plain Philox mask bit for bit over "
+          f"{keep.numel()} elements (bf16 B={b} S={s} H={h} Dh={dh}), keep "
+          f"rate {got:.6f} (5σ={5 * sigma:.1e})")
+
+
+def relik_bound(kind, b, s, h, dh, itemsize):
+    """The bound of #23 (``fwd``) or #24 at B, Q = K = S, P = 2S: each input
+    read once and each output written once (rw, rr, r, k, v, ed, segd,
+    maskb; out and the fp32 lse; #24 also o, lse and g, and writes drw,
+    drr, dr, dk, dv, ded); the products on the bf16 tensor cores, 2·B·H·
+    S²·Dh operations each (rw·kᵀ, rr·r on the shifted window and PV
+    forward; those three less PV, then dV, dK, drw, drr and dr backward)."""
+    d = h * dh
+    qd, pd_, hq = b * s * d * itemsize, 2 * s * d * itemsize, b * h * s
+    ins = 5 * qd + pd_ + hq * itemsize + 2 * b * s * s * itemsize
+    dot = 2 * b * h * s * s * dh
+    if kind == "fwd":
+        return _bound(ins + qd + 4 * hq, 3 * dot, BF16_FLOPS)
+    return _bound(ins + 2 * qd + 4 * hq + 5 * qd + pd_ + hq * itemsize,
+                  8 * dot, BF16_FLOPS)
+
+
+def sdpa_rel_calls(q, k, v, ebias, g, h, scale):
+    """The library calls for the rate-0 rel tiers: ``scaled_dot_product_
+    attention`` with the assembled ebias as its float mask, and its autograd
+    backward to q, k, v and ebias. Returns (forward, backward); never used
+    by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    b, q_len, d = q.shape
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v, ebias)]
+    heads = [x.view(b, -1, h, d // h).transpose(1, 2) for x in xs[:3]]
+    out = F.scaled_dot_product_attention(*heads, attn_mask=xs[3],
+                                         scale=scale)
+    gh = g.view(b, q_len, h, d // h).transpose(1, 2)
+
+    def forward():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(
+                *(x.detach() for x in heads), attn_mask=ebias, scale=scale)
+
+    def backward():
+        return torch.autograd.grad(out, xs, gh, retain_graph=True)
+
+    return forward, backward
+
+
+def time_long_rel_kernels(rng, fa, card):
+    """#14 and #15 at the stream path's S = 512, #23 and #24 at the driver's
+    S = 1024, bf16 B=48: at rate 0 against the plain versions and the
+    library calls (SDPA with the assembled ebias as a float mask; SDPA's
+    autograd backward), at rate 0.1 against the plain versions; alternating
+    rounds. Returns {name: entry}."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import rel_shift
+
+    out = {}
+    q, k, v, ebias, g = rel_case(rng, "bf16", TRAIN_BATCH, 512, 512)
+    c, seed = relik_case(rng, "bf16", TRAIN_BATCH, 1024)
+    ins = [c[n] for n in RELIK]
+    for rate in (0.0, RATE):
+        kw = dict(n_heads=12, scale=0.125, rate=rate)
+        o23, lse = fa.attn_fwd_relik_fs_cuda(*ins, seed=seed, **kw)
+        runs = {
+            "attn_fwd_rel_hb": (
+                lambda: fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, seed=seed,
+                                                **kw),
+                lambda: fa.attn_fwd_rel_hb_reference(q, k, v, ebias,
+                                                     seed=seed, **kw)),
+            "attn_bwd_rel_hb": (
+                lambda: fa.attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g,
+                                                **kw),
+                lambda: fa.attn_bwd_rel_hb_reference(q, k, v, ebias, seed, g,
+                                                     **kw)),
+            "attn_fwd_relik_fs": (
+                lambda: fa.attn_fwd_relik_fs_cuda(*ins, seed=seed, **kw),
+                lambda: fa.attn_fwd_relik_fs_reference(*ins, seed=seed,
+                                                       **kw)),
+            "attn_bwd_relik_fs": (
+                lambda: fa.attn_bwd_relik_fs_cuda(*ins, seed, o23, lse,
+                                                  c["g"], **kw),
+                lambda: fa.attn_bwd_relik_fs_reference(*ins, seed, o23, lse,
+                                                       c["g"], **kw))}
+        for name, (run_kernel, run_plain) in runs.items():
+            s = 512 if name.endswith("_hb") else 1024
+            kt, pt = _alternate(run_plain, run_kernel, 3)
+            kind = "fwd" if "_fwd_" in name else "bwd"
+            bound = (rel_bound(kind, TRAIN_BATCH, s, s, 12, 64, 2, rate)
+                     if s == 512 else relik_bound(kind, TRAIN_BATCH, s, 12,
+                                                  64, 2))
+            entry = {"ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+            lib_note = ""
+            if rate == 0.0:
+                if s == 512:
+                    lib = sdpa_rel_calls(q, k, v, ebias, g, 12, 0.125)
+                else:   # the ebias the ingredients make, assembled
+                    bd = torch.einsum(
+                        "bqhf,phf->bhqp", c["rr"].view(TRAIN_BATCH, s, 12, 64),
+                        c["r"].view(2 * s, 12, 64))
+                    eb = (rel_shift(bd, s) + c["ed"][..., None]
+                          * c["segd"][:, None] + c["maskb"][:, None])
+                    del bd
+                    lib = sdpa_rel_calls(c["rw"], c["k"], c["v"],
+                                         eb.contiguous(), c["g"], 12, 0.125)
+                    del eb
+                call = lib[0] if kind == "fwd" else lib[1]
+                _time_ms(call, 2)
+                entry["library_ms"] = float(np.mean(
+                    [_time_ms(call, 3) for _ in range(2)]))
+                entry["library"] = (
+                    "scaled_dot_product_attention, assembled ebias as float "
+                    "mask" if kind == "fwd" else
+                    "scaled_dot_product_attention autograd backward (dq, dk, "
+                    "dv, debias), rate 0")
+                lib_note = f", library {entry['library_ms']:.3f} ms"
+                del lib, call
+                out[name] = entry
+            else:
+                out[name]["modes"] = {
+                    f"training rate {RATE}, bf16 B={TRAIN_BATCH} S={s}":
+                        entry}
+            print(f"{name} bf16 B={TRAIN_BATCH} S={s} H=12 Dh=64 rate {rate} "
+                  f"on {card}: kernel {kt} ms, plain {pt} ms per call"
+                  f"{lib_note}; bound {bound[0]:.4f} ms ({bound[1]})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def xlnet_long_serving(args, rng, fa, card):
+    """Phase 4e: ``Predictor.predict_split`` at xlnet-base-cased width,
+    bf16, fused attention, over 256 seeded XLNet-packed examples at batch
+    128, at S = 640 and 1024. Checks: #23 once per layer per batch and
+    nothing else, finite predictions, and agreement with the same weights
+    on einsum attention (run at batch 32: the einsum branch's [B, H, Q, P]
+    fp32 bd at S = 1024 is 13 GB at batch 128). Returns {S: counts}."""
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    cfg = XLNetConfig.xlnet_base_cased()
+    mm = MultimodalConfig(injection_index=1)
+    model = _xlnet(cfg, mm, "fused", args.seed + 30)
+    predictor = Predictor(model, batch_size=BATCH)
+    einsum = Predictor(_xlnet(cfg, mm, "einsum", 0, model.state_dict()),
+                       batch_size=32)
+    counts = {}
+    for s in (640, 1024):
+        split = make_xlnet_split(rng, LONG_SERVE_N, s, cfg.vocab_size,
+                                 ds.visual_dim, ds.acoustic_dim)
+        predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        preds = predictor.predict_split(split)
+        dt = time.perf_counter() - t0
+        counts[s] = _counts(fa)
+        want = _want(fa, attn_fwd_relik_fs=cfg.n_layer
+                     * -(-LONG_SERVE_N // BATCH))
+        print(f"kernel launches in XLNet predict_split at S={s}: "
+              f"{counts[s]} (want {want})")
+        if counts[s] != want:
+            raise AssertionError(f"XLNet S={s} serving launches {counts[s]} "
+                                 f"!= {want}")
+        if preds.shape != (LONG_SERVE_N,) or not np.isfinite(preds).all():
+            raise AssertionError(f"bad XLNet S={s} predictions "
+                                 f"{preds.shape}")
+        gap = float(np.abs(preds - einsum.predict_split(split)).max())
+        print(f"xlnet-base-cased S={s} serving on {card}: predict_split "
+              f"{LONG_SERVE_N / dt:.1f} examples/s (batch {BATCH}, bf16); "
+              f"fused vs einsum predictions max |Δ| {gap:.3e} (tolerance "
+              f"{PRED_ATOL}), |pred| max {np.abs(preds).max():.3f}")
+        if not gap <= PRED_ATOL:
+            raise AssertionError(f"XLNet S={s}: fused and einsum predictions "
+                                 f"differ by {gap}")
+    return counts
+
+
+def xlnet_long_driver_path(args, rng, fa, card):
+    """Phase 6d: ``driver.main --model xlnet-base-cased --attention_impl
+    fused`` (bf16, one epoch over synthetic splits of 96/48/48) at
+    ``--max_seq_length 512`` and ``1024``, and with ``--rel_bias_impl
+    stream`` at 512. Checks: exit 0, finite losses, and the launches: under
+    ``auto`` training takes #23 and #24 (three launches a call) and
+    evaluation #11 at S=512 (K ≤ 512, no gradient) and #23 at 1024; under
+    ``stream`` training takes #14 and #15 and evaluation #11. Then the
+    dropout-0 gradient check and the profiled step. Returns {path:
+    counts}."""
+    from bert_multimodal_transformer_tpu_torch.config import XLNetConfig
+
+    layers = XLNetConfig.xlnet_base_cased().n_layer
+    n_train = -(-LONG_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in LONG_SPLITS[1:])
+    runs = {
+        "xlnet_driver_s512": (512, [], dict(
+            attn_fwd_relik_fs=layers * n_train,
+            attn_bwd_relik_fs=3 * layers * n_train,
+            attn_fwd_rel=layers * n_eval)),
+        "xlnet_driver_s1024": (1024, [], dict(
+            attn_fwd_relik_fs=layers * (n_train + n_eval),
+            attn_bwd_relik_fs=3 * layers * n_train)),
+        "xlnet_driver_stream_s512": (512, ["--rel_bias_impl", "stream"], dict(
+            attn_fwd_rel_hb=layers * n_train,
+            attn_bwd_rel_hb=layers * n_train,
+            attn_fwd_rel=layers * n_eval)),
+    }
+    counts = {}
+    for path, (s, extra, launches) in runs.items():
+        argv = ["--model", "xlnet-base-cased", "--dataset", "mosi",
+                "--synthetic", "--synthetic_sizes", *map(str, LONG_SPLITS),
+                "--n_epochs", "1", "--attention_impl", "fused",
+                "--compute_dtype", "bfloat16", "--max_seq_length", str(s),
+                "--seed", str(args.seed), *extra]
+        counts[path] = run_driver(argv, fa, card)
+        want = _want(fa, **launches)
+        print(f"kernel launches in {path}: {counts[path]} (want {want}: "
+              f"{n_train} train + {n_eval} dev/test batches, {layers} "
+              "layers)")
+        if counts[path] != want:
+            raise AssertionError(f"{path} launches {counts[path]} != {want}")
+    xlnet_long_grad_check(args, rng, fa, card)
+    xlnet_long_step_profile(args, rng, card)
+    return counts
+
+
+def xlnet_long_grad_check(args, rng, fa, card):
+    """Phase 6d: at dropout 0, from one copy of the weights, one training
+    step at S=512, batch XLNET_CHECK_BATCH, fused (the ingredients tier)
+    against einsum, leaf by leaf within XLNET_GRAD_GAP_TOL; then the same
+    step with dr, then ded, zeroed in #24's output, which must break it (the
+    position projection r, and seg_embed and r_s_bias, lose their score
+    gradient)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(), dropout=0.0,
+                              summary_last_dropout=0.0)
+    mm = MultimodalConfig(injection_index=1, dropout_prob=0.0)
+    weights = _xlnet(cfg, mm, "fused", args.seed + 31).state_dict()
+    batch = _device_batch(make_xlnet_split(
+        rng, XLNET_CHECK_BATCH, 512, cfg.vocab_size, ds.visual_dim,
+        ds.acoustic_dim).as_tuple())
+    step = make_train_step()
+
+    def one_step(impl):
+        m = _xlnet(cfg, mm, impl, 0, weights)
+        st = Trainer(model=m, tx=make_optimizer(1e-5, 10, 0.1)
+                     ).create_state_from_params(None, args.seed)
+        _zero_counts(fa)
+        step(st, batch)
+        return _grad_pieces(m), _counts(fa)
+
+    grads = {"einsum": one_step("einsum")[0]}
+    grads["fused"], launches = one_step("fused")
+    want = _want(fa, attn_fwd_relik_fs=cfg.n_layer,
+                 attn_bwd_relik_fs=3 * cfg.n_layer)
+    if launches != want:
+        raise AssertionError(f"S=512 check step launches {launches} != "
+                             f"{want}")
+    real = fa.attn_bwd_relik_fs
+    for name, part in (("planted fault: dr zeroed in #24", 2),
+                       ("planted fault: ded zeroed in #24", 5)):
+        def faulty(*a, _part=part, **kw):
+            out = list(real(*a, **kw))
+            out[_part] = torch.zeros_like(out[_part])
+            return tuple(out)
+
+        fa.attn_bwd_relik_fs = faulty
+        try:
+            grads[name] = one_step("fused")[0]
+        finally:
+            fa.attn_bwd_relik_fs = real
+    for name in ("fused", "planted fault: dr zeroed in #24",
+                 "planted fault: ded zeroed in #24"):
+        gaps = _grad_gaps(grads[name], grads["einsum"])
+        print(f"  XLNet S=512 B={XLNET_CHECK_BATCH} step-1 gradients, {name} "
+              f"vs einsum: worst pieces " + ", ".join(
+                  f"{k_} {v_:.3e}" for k_, v_ in gaps[:4])
+              + f" (bound {XLNET_GRAD_GAP_TOL})")
+        fails = gaps[0][1] > XLNET_GRAD_GAP_TOL
+        if fails != name.startswith("planted"):
+            raise AssertionError(f"XLNet S=512 step-1 gradients, {name}: "
+                                 f"worst gap {gaps[0]} against "
+                                 f"{XLNET_GRAD_GAP_TOL}")
+
+
+def xlnet_long_step_profile(args, rng, card):
+    """One training step of xlnet-base-cased at the driver's batch (48),
+    bf16, fused attention (#23, #24), dropout 0.1, at S = 1024: its device
+    time by kernel group and the card's busy share (torch.profiler), after
+    one warm-up step."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = XLNetConfig.xlnet_base_cased()
+    state = Trainer(model=_xlnet(cfg, MultimodalConfig(injection_index=1),
+                                 "fused", args.seed + 32),
+                    tx=make_optimizer(1e-5, 10, 0.1)
+                    ).create_state_from_params(None, args.seed)
+    step = make_train_step()
+    batch = _device_batch(make_xlnet_split(
+        rng, TRAIN_BATCH, 1024, cfg.vocab_size, ds.visual_dim,
+        ds.acoustic_dim).as_tuple())
+    step(state, batch)
+    torch.cuda.synchronize()
+    print(f"one training step, bf16 xlnet-base-cased B={TRAIN_BATCH} S=1024 "
+          f"on {card}:")
+    _print_profile(device_time_by_kernel(lambda: step(state, batch), 1), 1,
+                   "step")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2217,6 +2737,19 @@ def main() -> int:
     check_long_masks(rng, fa)
     long_times = time_long_kernels(rng, fa, card)
 
+    # 3f. The long-sequence rel kernels against plain, on the card
+    long_rel_errs = {}
+    cases = [("bf16", 8, s, rate) for s in XLNET_LONG_S
+             for rate in (RATE, 0.0)]
+    cases += [("fp32", 2, 600, RATE)]
+    for dtype_name, b, s, rate in cases:
+        for k_, v_ in check_long_rel_kernels(rng, fa, dtype_name, b, s,
+                                             rate).items():
+            long_rel_errs[k_] = max(long_rel_errs.get(k_, 0.0), v_)
+    check_long_rel_against_full(rng, fa)
+    check_relik_mask(rng, fa)
+    long_rel_times = time_long_rel_kernels(rng, fa, card)
+
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -2255,6 +2788,9 @@ def main() -> int:
     # 4d. Long-sequence BERT serving (S = 640, 1024)
     long_serve_counts = long_serving(args, rng, fa, card)
 
+    # 4e. Long-sequence XLNet serving (S = 640, 1024)
+    xlnet_long_serve_counts = xlnet_long_serving(args, rng, fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
@@ -2283,6 +2819,10 @@ def main() -> int:
     long_driver_counts = long_driver_path(args, fa, card)
     long_step_profile(args, rng, card)
 
+    # 6d. The XLNet driver at --max_seq_length 512 and 1024, and with
+    # --rel_bias_impl stream at 512; the gradient check; a long-S step
+    xlnet_long_driver_counts = xlnet_long_driver_path(args, rng, fa, card)
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -2295,7 +2835,11 @@ def main() -> int:
                  "serving_s640": long_serve_counts[640][name],
                  "serving_s1024": long_serve_counts[1024][name],
                  "driver_s512": long_driver_counts[512][name],
-                 "driver_s1024": long_driver_counts[1024][name]}
+                 "driver_s1024": long_driver_counts[1024][name],
+                 "xlnet_serving_s640": xlnet_long_serve_counts[640][name],
+                 "xlnet_serving_s1024": xlnet_long_serve_counts[1024][name],
+                 **{path: c[name] for path, c in
+                    xlnet_long_driver_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -2405,6 +2949,22 @@ def main() -> int:
             "shape": f"bf16 B={TRAIN_BATCH} {shape} H=12 Dh=64 rate 0"})
     kernels[-1]["launches_note"] = ("two kernel launches a call: the dK/dV "
                                     "pass and the dQ pass")
+    for name, line, tag, shape in (
+            ("attn_fwd_rel_hb", 1560, "#14", "S=512"),
+            ("attn_bwd_rel_hb", 1601, "#15", "S=512"),
+            ("attn_fwd_relik_fs", 4272, "#23", "S=1024"),
+            ("attn_bwd_relik_fs", 4345, "#24", "S=1024")):
+        total, paths = by_path(name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": f"{tpu}fused_attention.py:{line}",
+            "launches": total, "launches_by_path": paths,
+            "max_abs_err": long_rel_errs[tag],
+            **long_rel_times[name],
+            "shape": f"bf16 B={TRAIN_BATCH} {shape} H=12 Dh=64 rate 0"})
+    kernels[-1]["launches_note"] = ("three kernel launches a call: the dK/dV "
+                                    "pass, the drw/drr/ded/dr-window pass and "
+                                    "the dr sum over the batch")
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")
