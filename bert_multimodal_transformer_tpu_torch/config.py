@@ -142,7 +142,9 @@ class XLNetConfig:
     ff_activation: str = "gelu"
     # Hidden and attention-prob dropout alike.
     dropout: float = 0.1
-    # The memory (mems) is not ported yet; setting either raises.
+    # Segment recurrence (Transformer-XL memory): under use_cache each layer
+    # keeps its last mem_len input rows (of the first reuse_len of the
+    # current segment, when set) for the next segment's keys.
     mem_len: Optional[int] = None
     reuse_len: Optional[int] = None
     attn_type: str = "bi"
@@ -159,12 +161,13 @@ class XLNetConfig:
     attention_impl: str = "einsum"
     # Score-bias assembly on the fused path. "stream" assembles the
     # [B,H,Q,K] ebias outside the kernels at every length (the full-H
-    # kernels, then the head-blocked ones to Q = K = 640; past that ROADMAP
-    # B.6 raises). "auto" does the same while the full-H kernels reach and
-    # past them hands the kernels the bias ingredients (the flash-streamed
-    # ingredients kernels, any length), where bi attention without bi_data
-    # allows; else as "stream". "inkernel" (the full-H ingredients kernels)
-    # waits for ROADMAP B.7 and raises.
+    # kernels, then the head-blocked ones to Q = K = 640, then the
+    # flash-streamed ones at any length). "auto" does the same while the
+    # full-H kernels reach and past them hands the kernels the bias
+    # ingredients (the flash-streamed ingredients kernels, any length),
+    # where bi attention without bi_data allows; else as "stream".
+    # "inkernel" (the full-H ingredients kernels) waits for ROADMAP B.7 and
+    # raises.
     rel_bias_impl: str = "auto"
     # One [D, 3·H·Dh] projection for q/k/v in place of three (same math).
     pack_qkv: bool = False
@@ -184,10 +187,6 @@ class XLNetConfig:
             raise NotImplementedError(
                 "rel_bias_impl='inkernel': the ingredients rel-attention "
                 "kernels are not ported yet (ROADMAP B.7)")
-        if self.mem_len is not None or self.reuse_len is not None:
-            raise NotImplementedError(
-                "mem_len/reuse_len: the XLNet memory is not ported yet "
-                "(ROADMAP A.8)")
         if self.tp_attention_mesh is not None:
             raise NotImplementedError(
                 "tp_attention_mesh: tensor-parallel attention is not ported "

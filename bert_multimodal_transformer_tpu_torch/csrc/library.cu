@@ -1,7 +1,7 @@
 // The library-wide entries of the port's kernel library (every csrc/*.cu
 // links into one shared object, ops/kernels.py: attn_{fwd,bwd}_packed*
-// (the full-H, _hb and _fs tiers), attn_{fwd,bwd}_rel* (the full-H and _hb
-// tiers), attn_{fwd,bwd}_relik_fs, mag_{fwd,bwd}).
+// (the full-H, _hb and _fs tiers), attn_{fwd,bwd}_rel* (the full-H, _hb
+// and _fs tiers), attn_{fwd,bwd}_relik_fs, mag_{fwd,bwd}).
 
 #include <cuda_runtime.h>
 

@@ -54,6 +54,9 @@ FAMILY_ERRORS = (
     (lambda a: _xlnet(a) and (a.qkv_fusion or a.qkv_residual),
      "--qkv_fusion/--qkv_residual apply only to the BERT family's packed "
      "fused attention"),
+    (lambda a: not _xlnet(a) and a.mem_len,
+     "--mem_len is XLNet segment recurrence (Transformer-XL memory, "
+     "xlnet.py:81-91); the BERT family has no memory mechanism"),
 )
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
@@ -77,7 +80,6 @@ UNPORTED = (
     ("--tp_shard_attention", lambda a: a.tp_shard_attention, "A.10"),
     ("--compiler_options", lambda a: a.compiler_options is not None,
      "A.10"),
-    ("--mem_len", lambda a: a.mem_len != 0, "A.8"),
     ("--remat", lambda a: a.remat, "A.14"),
     ("--qkv_fusion", lambda a: a.qkv_fusion, "B.10"),
     ("--qkv_residual", lambda a: a.qkv_residual, "B.10"),
@@ -166,10 +168,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "stream", "inkernel"],
                    help="XLNet only: auto = the ingredients kernels "
                         "past the full-H reach, stream = an assembled bias "
-                        "(head-blocked to 640); inkernel is not ported yet "
-                        "(ROADMAP B.7)")
+                        "(head-blocked to 640, flash-streamed past it); "
+                        "inkernel is not ported yet (ROADMAP B.7)")
     p.add_argument("--mem_len", type=int, default=0,
-                   help="not ported yet (ROADMAP A.8)")
+                   help="XLNet segment recurrence: carry Transformer-XL "
+                        "memory of this many positions across the batch "
+                        "stream (K = seq + mem_len in every layer). XLNet "
+                        "family only")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="not ported yet above 1 (ROADMAP A.10)")
     p.add_argument("--tp_shard_attention", action="store_true",
@@ -331,6 +336,9 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
     if is_xlnet:
         cfg = dataclasses.replace(cfg, rel_bias_impl=args.rel_bias_impl)
+        if args.mem_len:
+            # segment recurrence: K = mem_len + qlen in every layer
+            cfg = dataclasses.replace(cfg, mem_len=args.mem_len)
     model = model_cls(
         cfg, mm, ds.visual_dim, ds.acoustic_dim,
         dtype_from_str(args.compute_dtype), device=device,
@@ -341,7 +349,8 @@ def main(argv=None) -> int:
         learning_rate=args.learning_rate, num_train_steps=max(num_steps, 1),
         warmup_proportion=args.warmup_proportion)
     trainer = Trainer(model=model, tx=tx,
-                      grad_accum=args.gradient_accumulation_step)
+                      grad_accum=args.gradient_accumulation_step,
+                      mem_len=args.mem_len or None)
     # The JAX driver draws its init sample from the train loader, which
     # takes the first epoch's shuffle; drawing it here too keeps the
     # training data order the same for the same seed.

@@ -16,21 +16,28 @@ Attention, per layer and stream (``XLNetRelativeAttention._rel_attn_core``):
 * ``attention_impl="einsum"``: plain PyTorch, score = (ac + bd + ef)·scale
   − 1e30·mask in fp32, softmax, dropout;
 * ``"fused"``: the tier is ``ops/fused_attention.py::rel_tier``'s. On the
-  full-H tier (kernels #11-#13 on the card) and the head-blocked one (#14,
-  #15) the score bias ebias = rel_shift(bd) + ef + mask_bias is assembled
-  here at the compute dtype with the scale folded into rr/rs, and
-  ``fused_rel_attention`` runs the QK dot, softmax, dropout and PV. Past
-  the full-H reach under ``rel_bias_impl="auto"`` (bi attention without
-  ``bi_data``) the kernels take the bias ingredients instead
-  (``fused_rel_attention_ingredients``, #23 and #24: the JAX model's
-  long-S path), and nothing [B, H, Q, K]-sized is built. ``head_mask`` and
-  ``output_attentions`` take the einsum branch, as in the JAX package.
+  full-H tier (kernels #11-#13 on the card), the head-blocked one (#14,
+  #15) and the flash-streamed one (#16, #17) the score bias ebias =
+  rel_shift(bd) + ef + mask_bias is assembled here at the compute dtype
+  with the scale folded into rr/rs, and ``fused_rel_attention`` runs the
+  QK dot, softmax, dropout and PV. Past the full-H reach under
+  ``rel_bias_impl="auto"`` (bi attention without ``bi_data``) the kernels
+  take the bias ingredients instead (``fused_rel_attention_ingredients``,
+  #23 and #24: the JAX model's long-S path), and nothing [B, H, Q, K]-sized
+  is built. ``head_mask`` and ``output_attentions`` take the einsum branch,
+  as in the JAX package.
+
+The memory (segment recurrence, JAX ``models/xlnet.py``): ``mems`` (one
+[B, mlen, D] per layer) are prepended to each layer's keys and values, so
+K = mlen + Q in the positions, the masks (memory columns unmasked) and the
+segment matrix; with ``use_cache`` and ``config.mem_len`` the model also
+returns each layer's new memory (``_cache_mem``: the layer's input, cut to
+``reuse_len``, appended, the last ``mem_len`` rows kept, detached).
 
 The two branches differ by rounding only. Two-stream attention
 (``perm_mask``, ``target_mapping``), ``head_mask``, ``inputs_embeds``,
-``output_hidden_states``, ``output_attentions`` and ``labels=`` are ported;
-the memory (``mems``, ``use_cache``) raises naming ROADMAP A.8 and
-``remat`` A.14.
+``output_hidden_states``, ``output_attentions``, ``labels=`` and the memory
+are ported; ``remat`` raises naming ROADMAP A.14.
 """
 
 from __future__ import annotations
@@ -294,21 +301,28 @@ class XLNetRelativeAttention(nn.Module):
     def forward(self, h, g, attn_mask_h, attn_mask_g, r, seg_mat,
                 target_mapping=None, head_mask=None, *, deterministic=True,
                 rngs: Optional[DropoutRngs] = None, output_attentions=False,
-                mask_bias_h=None, mask_bias_g=None, seg_diff=None):
+                mask_bias_h=None, mask_bias_g=None, seg_diff=None,
+                mems=None):
         cfg = self.config
         dt = self.dtype
         nh, dh = cfg.n_head, cfg.d_head
         bsz, qlen = h.shape[:2]
-        if cfg.pack_qkv:
+        # the keys and values read the memory, then the segment
+        cat = h if mems is None else torch.cat([mems.to(dt), h], dim=1)
+        klen = cat.shape[1]
+        if cfg.pack_qkv and mems is None:
             # one [D, 3·H·Dh] product in place of three: the same sums
+            # (under memory k and v read another input than q)
             w_qkv = torch.cat([self.q, self.k, self.v], dim=1).to(dt)
             q_head_h, k_head, v_head = (
                 x.reshape(bsz, qlen, nh, dh)
                 for x in torch.matmul(h, w_qkv).chunk(3, dim=-1))
         else:
-            q_head_h, k_head, v_head = (
-                torch.matmul(h, w.to(dt)).reshape(bsz, qlen, nh, dh)
-                for w in (self.q, self.k, self.v))
+            q_head_h = torch.matmul(h, self.q.to(dt)).reshape(
+                bsz, qlen, nh, dh)
+            k_head, v_head = (
+                torch.matmul(cat, w.to(dt)).reshape(bsz, klen, nh, dh)
+                for w in (self.k, self.v))
         k_head_r = torch.matmul(r.to(dt), self.r.to(dt))
         k_head_r = (k_head_r.reshape(bsz, -1, nh, dh) if r.dim() == 3
                     else k_head_r.reshape(-1, nh, dh))
@@ -380,11 +394,12 @@ class XLNetLayer(nn.Module):
 
     def forward(self, h, g, attn_mask_h, attn_mask_g, r, seg_mat,
                 target_mapping=None, head_mask=None, *, deterministic=True,
-                rngs=None, output_attentions=False, **hoisted):
+                rngs=None, output_attentions=False, mems=None, **hoisted):
         out = self.rel_attn(h, g, attn_mask_h, attn_mask_g, r, seg_mat,
                             target_mapping, head_mask,
                             deterministic=deterministic, rngs=rngs,
-                            output_attentions=output_attentions, **hoisted)
+                            output_attentions=output_attentions, mems=mems,
+                            **hoisted)
         out_h, out_g = out[:2]
         out_h = self.ff(out_h, deterministic=deterministic, rngs=rngs)
         if out_g is not None:
@@ -447,14 +462,16 @@ class MagXLNetModel(nn.Module):
             for _ in range(config.n_layer))
         init_xlnet_weights(self, config.initializer_range, generator)
 
-    def _masks(self, b, qlen, attention_mask, input_mask, perm_mask, device):
+    def _masks(self, b, qlen, mlen, attention_mask, input_mask, perm_mask,
+               device):
         """(non_tgt_mask, attn_mask): [B or 1, 1, Q or 1, K] floats, 1 =
-        masked; the content stream's non-target mask lets every position
-        see itself (the reference's −eye)."""
+        masked, K = mlen + Q (the memory columns unmasked); the content
+        stream's non-target mask lets every position see itself (the
+        reference's −eye)."""
         cfg = self.config
         f32 = torch.float32
         if cfg.attn_type == "uni":
-            attn_mask = causal_attn_mask(qlen, 0, cfg.same_length,
+            attn_mask = causal_attn_mask(qlen, mlen, cfg.same_length,
                                          device)[None, None]
         elif cfg.attn_type == "bi":
             attn_mask = None
@@ -472,12 +489,19 @@ class MagXLNetModel(nn.Module):
             pm = perm_mask.to(f32)
             data_mask = pm if data_mask is None else data_mask + pm
         if data_mask is not None:
+            if mlen > 0:
+                data_mask = torch.cat([
+                    torch.zeros((b, data_mask.shape[1], mlen), dtype=f32,
+                                device=device), data_mask], dim=2)
             dm = data_mask[:, None]
             attn_mask = dm if attn_mask is None else attn_mask + dm
         if attn_mask is None:
             return None, None
         attn_mask = (attn_mask > 0).to(f32)
         eye = torch.eye(qlen, dtype=f32, device=device)
+        if mlen > 0:
+            eye = torch.cat([torch.zeros((qlen, mlen), dtype=f32,
+                                         device=device), eye], dim=1)
         non_tgt_mask = ((attn_mask - eye[None, None]) > 0).to(f32)
         return non_tgt_mask, attn_mask
 
@@ -503,10 +527,6 @@ class MagXLNetModel(nn.Module):
     ):
         cfg = self.config
         dt = self.dtype
-        if mems is not None or use_cache:
-            raise NotImplementedError(
-                "mems/use_cache: the XLNet memory is not ported yet "
-                "(ROADMAP A.8)")
         if (input_ids is None) == (inputs_embeds is None):
             raise ValueError(
                 "specify exactly one of input_ids or inputs_embeds")
@@ -514,7 +534,11 @@ class MagXLNetModel(nn.Module):
         rngs = _dropout_rngs(dropout_rng, deterministic, ref)
         device = ref.device
         b, qlen = ref.shape[:2]
-        non_tgt_mask, attn_mask = self._masks(b, qlen, attention_mask,
+        mlen = 0
+        if mems is not None and mems[0] is not None:
+            mlen = mems[0].shape[1]
+        klen = mlen + qlen
+        non_tgt_mask, attn_mask = self._masks(b, qlen, mlen, attention_mask,
                                               input_mask, perm_mask, device)
 
         if inputs_embeds is not None:
@@ -533,12 +557,15 @@ class MagXLNetModel(nn.Module):
 
         seg_mat = seg_diff = None
         if token_type_ids is not None:
-            diff = token_type_ids[:, :, None] != token_type_ids[:, None, :]
+            # the memory's positions take segment 0
+            cat_ids = token_type_ids if mlen == 0 else torch.cat([
+                token_type_ids.new_zeros((b, mlen)), token_type_ids], dim=1)
+            diff = token_type_ids[:, :, None] != cat_ids[:, None, :]
             seg_mat = F.one_hot(diff.long(), 2).to(torch.float32)
             seg_diff = diff[:, None]
 
         pos_emb = relative_positional_encoding(
-            qlen, qlen, cfg.d_model, cfg.attn_type, cfg.clamp_len,
+            qlen, klen, cfg.d_model, cfg.attn_type, cfg.clamp_len,
             bi_data=cfg.bi_data, dtype=dt, device=device)
         if cfg.bi_data:
             # forward positions for the first B/2 examples, backward for the
@@ -561,9 +588,16 @@ class MagXLNetModel(nn.Module):
         else:
             seg_diff = None
 
+        if mems is None:
+            mems = [None] * cfg.n_layer
+        keep_mems = bool(cfg.mem_len) and use_cache
+        new_mems = []
         hidden_states = [] if output_hidden_states else None
         attentions = [] if output_attentions else None
         for i, layer in enumerate(self.layer):
+            if keep_mems:
+                # the layer's input, before MAG at the injection layer
+                new_mems.append(self._cache_mem(output_h, mems[i]))
             if i == self.multimodal_config.injection_index:
                 output_h = self.MAG(output_h, visual.to(dt), acoustic.to(dt),
                                     deterministic=deterministic,
@@ -580,7 +614,7 @@ class MagXLNetModel(nn.Module):
                         deterministic=deterministic, rngs=rngs,
                         output_attentions=output_attentions,
                         mask_bias_h=mask_bias_h, mask_bias_g=mask_bias_g,
-                        seg_diff=seg_diff)
+                        seg_diff=seg_diff, mems=mems[i])
             output_h, output_g = out[:2]
             if output_attentions:
                 attentions.append(out[2])
@@ -591,12 +625,27 @@ class MagXLNetModel(nn.Module):
         output = _hidden_dropout(output_g if output_g is not None
                                  else output_h, cfg.dropout, rngs,
                                  deterministic)
-        outputs = (output, None)   # no memory: the JAX new_mems slot
+        outputs = (output, tuple(new_mems) if keep_mems else None)
         if output_hidden_states:
             outputs = outputs + (tuple(hidden_states),)
         if output_attentions:
             outputs = outputs + (tuple(attentions),)
         return outputs
+
+    def _cache_mem(self, curr_out: torch.Tensor,
+                   prev_mem: Optional[torch.Tensor]) -> torch.Tensor:
+        """The layer's next memory (the JAX ``_cache_mem``, reference
+        cache_mem): the current input cut to its first ``reuse_len`` rows
+        when set, appended to the previous memory, the last ``mem_len``
+        rows kept, with no gradient."""
+        cfg = self.config
+        if cfg.reuse_len is not None and cfg.reuse_len > 0:
+            curr_out = curr_out[:, :cfg.reuse_len]
+        if prev_mem is None:
+            new_mem = curr_out[:, -cfg.mem_len:]
+        else:
+            new_mem = torch.cat([prev_mem, curr_out], dim=1)[:, -cfg.mem_len:]
+        return new_mem.detach()
 
 
 class SequenceSummary(nn.Module):
@@ -691,7 +740,9 @@ class MagXLNetForSequenceClassification(nn.Module):
                                         deterministic=deterministic,
                                         rngs=rngs)
         logits = dense(self.logits_proj, summary, self.dtype).float()
-        extras = outputs[2:]  # hidden_states/attentions when requested
+        # hidden_states/attentions when requested; under use_cache the new
+        # memory first, so the recurrence runs through the classifier
+        extras = outputs[1:] if use_cache else outputs[2:]
         if labels is not None:
             from bert_multimodal_transformer_tpu_torch.training.losses import (
                 sequence_classification_loss,

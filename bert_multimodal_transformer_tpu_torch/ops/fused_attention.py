@@ -1,8 +1,8 @@
 """Packed and rel attention, forward and backward (port of
-``ops/fused_attention.py``'s ``fused_attention_packed`` in its full-H,
-head-blocked and flash-streamed tiers, and the full-H tier of
-``fused_rel_attention``: prob dropout, saved probs, and the backward
-kernels of each).
+``ops/fused_attention.py``'s ``fused_attention_packed`` and
+``fused_rel_attention`` in their full-H, head-blocked and flash-streamed
+tiers, and ``fused_rel_attention_ingredients`` on its flash-streamed tier:
+prob dropout, saved probs, and the backward kernels of each).
 
 The packed kernels, each with its plain PyTorch version beside it:
 
@@ -30,10 +30,11 @@ The long-sequence packed tiers, taken past the full-H reach
   S.
 
 The rel kernels #11, #13 and #12 (``attn_fwd_rel_cuda``,
-``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``) are their twins for
-separate q [B, Q, D] and k, v [B, K, D] under a full differentiable score
-bias ebias [B, H, Q, K] in place of the [B, S] mask (the section at the
-end of this module).
+``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``), their head-blocked
+tier #14/#15 and their flash-streamed tier #16/#17 are the packed tiers'
+twins for separate q [B, Q, D] and k, v [B, K, D] under a full
+differentiable score bias ebias [B, H, Q, K] in place of the [B, S] mask
+(the sections at the end of this module).
 
 Each CUDA wrapper launches on PyTorch's current stream and counts its
 launches in ``<wrapper>.launches``; each packed plain version counts its
@@ -513,6 +514,18 @@ def _like(name, t, qkv, shape):
             f"{t.device} contiguous={t.is_contiguous()}")
 
 
+def _check_lse(lse, x, b, n_heads, q_len):
+    """The checks on an fs tier's lse residual [B, H, Q] (fp32, on x's
+    device, contiguous)."""
+    if (lse.dtype != torch.float32 or lse.device != x.device
+            or tuple(lse.shape) != (b, n_heads, q_len)
+            or not lse.is_contiguous()):
+        raise ValueError(
+            f"lse must be a contiguous float32 tensor of shape "
+            f"{(b, n_heads, q_len)} on {x.device}, got {lse.dtype} "
+            f"{tuple(lse.shape)} on {lse.device}")
+
+
 def _drop_args(rate: float, seed: int):
     if rate <= 0.0:
         return [0, 0, 0, 0.0]
@@ -675,13 +688,7 @@ def attn_bwd_packed_fs_cuda(qkv, attention_mask, seed, o, lse, g, *,
     mask = _mask_arg(attention_mask, qkv, b, s)
     _like("o", o, qkv, (b, s, d))
     _like("g", g, qkv, (b, s, d))
-    if (lse.dtype != torch.float32 or lse.device != qkv.device
-            or tuple(lse.shape) != (b, n_heads, s)
-            or not lse.is_contiguous()):
-        raise ValueError(
-            f"lse must be a contiguous float32 tensor of shape "
-            f"{(b, n_heads, s)} on {qkv.device}, got {lse.dtype} "
-            f"{tuple(lse.shape)} on {lse.device}")
+    _check_lse(lse, qkv, b, n_heads, s)
     dqkv = torch.empty_like(qkv)
     args = (qkv.data_ptr(), _ptr(mask), o.data_ptr(), lse.data_ptr(),
             g.data_ptr(), dqkv.data_ptr(), b, s, n_heads, dh, float(scale),
@@ -971,6 +978,14 @@ def fused_attention_packed(
 # * #12 ``attn_bwd_rel_cuda`` → ``csrc/attn_bwd_rel.cu``: the same with the
 #   probs recomputed and the keep mask replayed.
 #
+# Past the full-H reach the same function runs on the head-blocked tier
+# (#14/#15, ``csrc/attn_{fwd,bwd}_rel_hb.cu``, to ``HB_MAX_SEQ_LEN``) and
+# then on the flash-streamed tier (#16 ``attn_fwd_rel_fs_cuda`` →
+# ``csrc/attn_fwd_rel_fs.cu``: the online softmax over key blocks with the
+# lse residual; #17 ``attn_bwd_rel_fs_cuda`` → ``csrc/attn_bwd_rel_fs.cu``:
+# the flash backward from it, debias written by the pass that owns the
+# query rows), at any Q and K (``rel_tier``).
+#
 # debias is the score gradient before the scale (the TPU kernels' dscore);
 # dq/dk come from ds·scale rounded to the input dtype. The dropout stream
 # is the packed kernels' (counter (k >> 2, q, h, b)), over [B, H, Q, K].
@@ -1084,6 +1099,82 @@ def attn_bwd_rel_hb_reference(q, k, v, ebias, seed, g, *, n_heads, scale,
                     ebias.dtype)
 
 
+@_counted
+def attn_fwd_rel_fs_reference(q, k, v, ebias, *, n_heads, scale, rate=0.0,
+                              seed=0):
+    """Plain version of kernel #16: #6's online softmax over key blocks of
+    ``FS_KEY_BLOCK`` on s = (q_h·k_hᵀ)·scale + ebias, with its rounding
+    points (e dropped by the Philox mask a key block at a time, from the
+    global key index, and rounded to the input dtype for PV; out = acc / l
+    in the input dtype; lse = m + log l). Returns (out [B, Q, D], lse
+    [B, H, Q] fp32)."""
+    dtype = q.dtype
+    b, q_len, _ = q.shape
+    k_len = k.shape[1]
+    qh, kh, vh = (_ctx_heads(x, n_heads).float() for x in (q, k, v))
+    m = torch.full(qh.shape[:3], -float("inf"), device=q.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for k0 in range(0, k_len, FS_KEY_BLOCK):
+        k1 = min(k0 + FS_KEY_BLOCK, k_len)
+        sb = (torch.matmul(qh, kh[:, :, k0:k1].transpose(-1, -2)) * scale
+              + ebias[..., k0:k1].float())
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(sb - m_new[..., None])
+        den = den * alpha + e.sum(dim=-1)
+        if rate > 0.0:
+            keep = dropout_keep_mask(seed, b, n_heads, q_len, k1 - k0, rate,
+                                     q.device, k0)
+            e = torch.where(keep, e * inv_keep(rate), 0.0)
+        acc = acc * alpha[..., None] + torch.matmul(e.to(dtype).float(),
+                                                    vh[:, :, k0:k1])
+        m = m_new
+    return (_merge_heads((acc / den[..., None]).to(dtype)),
+            m + torch.log(den))
+
+
+def _rel_fs_probs(q, k, v, ebias, seed, o, lse, g, n_heads, scale, rate):
+    """The flash backward's per-element pieces, rebuilt from the forward's
+    lse: (p, pd, dp, δ) with p = exp(s·scale + ebias − lse), d(pd) = g·vᵀ,
+    δ = Σ g⊙o from the rounded output, and the replayed keep mask."""
+    b, q_len, _ = q.shape
+    qh, kh, vh, gh, oh = (_ctx_heads(x, n_heads).float()
+                          for x in (q, k, v, g, o))
+    delta = (gh * oh).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale
+                  + ebias.float() - lse[..., None])
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, n_heads, q_len, k.shape[1], rate,
+                                 q.device)
+        pd = torch.where(keep, p * inv_keep(rate), 0.0)
+        dp = torch.where(keep, dp * inv_keep(rate), 0.0)
+    return p, pd, dp, delta
+
+
+@_counted
+def attn_bwd_rel_fs_reference(q, k, v, ebias, seed, o, lse, g, *, n_heads,
+                              scale, rate=0.0):
+    """Plain version of kernel #17: p rebuilt from the forward's lse, δ =
+    Σ g⊙o, the replayed keep mask (``_rel_fs_probs``); ds = p·(dp − δ) the
+    unscaled score gradient, debias = T(ds) in ebias's dtype, ds_c =
+    T(ds·scale), pd_c = T(pd); dQ = ds_c·K, dK = ds_cᵀ·Q, dV = pd_cᵀ·g
+    accumulated in fp32. Returns (dq, dk, dv, debias)."""
+    dtype = q.dtype
+    p, pd, dp, delta = _rel_fs_probs(q, k, v, ebias, seed, o, lse, g,
+                                     n_heads, scale, rate)
+    ds = p * (dp - delta)
+    ds_c = (ds * scale).to(dtype).float()
+    qh, kh, gh = (_ctx_heads(x, n_heads).float() for x in (q, k, g))
+    dq = torch.matmul(ds_c, kh).to(dtype)
+    dk = torch.matmul(ds_c.transpose(-1, -2), qh).to(dtype)
+    dv = torch.matmul(pd.to(dtype).float().transpose(-1, -2), gh).to(dtype)
+    return (_merge_heads(dq), _merge_heads(dk), _merge_heads(dv),
+            ds.to(ebias.dtype))
+
+
 def rel_grads_bf16_bound(refs, p, pd, q, k, v, g, *, n_heads, scale):
     """Elementwise bounds on how far two bf16 (dq, dk, dv, debias) of this
     math may lie apart (``dqkv_bf16_bound``'s argument): 2^-7·(|ref| + A)
@@ -1097,6 +1188,26 @@ def rel_grads_bf16_bound(refs, p, pd, q, k, v, g, *, n_heads, scale):
     a = (_merge_heads(torch.matmul(ds * scale, kh)),
          _merge_heads(torch.matmul(ds.transpose(-1, -2) * scale, qh)),
          _merge_heads(torch.matmul(pd.transpose(-1, -2), gh)), ds)
+    return tuple(2.0 ** -7 * (r.float().abs() + x) + 2.0 ** -17
+                 for r, x in zip(refs, a))
+
+
+def rel_fs_grads_bf16_bound(refs, q, k, v, ebias, seed, o, lse, g, *,
+                            n_heads, scale, rate=0.0):
+    """Elementwise bounds on how far two bf16 (dq, dk, dv, debias) of #17's
+    math may lie apart (``dqkv_bf16_bound``'s argument): each side rounds
+    ds_c, pd_c and its outputs once, a rounding one ulp (≤ 2^-7 relative)
+    either way, so the two lie within 2^-7 times the products over absolute
+    values, A = (|ds|·|K|·scale, |ds|ᵀ·|Q|·scale, |pd|ᵀ·|g|, |ds|), with
+    |ds| bounded by p·(|dp| + |δ|) from the magnitudes of its terms.
+    Returns 2^-7·(|ref| + A) + 2^-17 for each output."""
+    p, pd, dp, delta = _rel_fs_probs(q, k, v, ebias, seed, o, lse, g,
+                                     n_heads, scale, rate)
+    ds = p * (dp.abs() + delta.abs())
+    qh, kh, gh = (_ctx_heads(x, n_heads).float().abs() for x in (q, k, g))
+    a = (_merge_heads(torch.matmul(ds, kh)) * scale,
+         _merge_heads(torch.matmul(ds.transpose(-1, -2), qh)) * scale,
+         _merge_heads(torch.matmul(pd.abs().transpose(-1, -2), gh)), ds)
     return tuple(2.0 ** -7 * (r.float().abs() + x) + 2.0 ** -17
                  for r, x in zip(refs, a))
 
@@ -1119,7 +1230,7 @@ def _check_rel_cuda(name, q, k, v, ebias, n_heads, bwd,
     """The checks every rel CUDA wrapper makes (``ebias`` is whichever
     [B, H, Q, K] tensor the kernel reads, named ``bias_label``; ``bwd``:
     the full-H backward's shared-memory plan; ``max_k``: the kernel's
-    longest K); returns (b, q_len, k_len, dh)."""
+    longest K, None for any); returns (b, q_len, k_len, dh)."""
     for label, t in (("q", q), ("k", k), ("v", v), (bias_label, ebias)):
         if not t.is_cuda:
             raise ValueError(f"{name}: {label} must be a CUDA tensor, got "
@@ -1139,7 +1250,7 @@ def _check_rel_cuda(name, q, k, v, ebias, n_heads, bwd,
         raise ValueError(
             f"{name}: head dim {dh} not supported (a multiple of 8 up to "
             f"{MAX_HEAD_DIM})")
-    if k_len > max_k:
+    if max_k is not None and k_len > max_k:
         raise ValueError(f"{name}: K={k_len} exceeds the kernel's {max_k}")
     if bwd and not rel_bwd_fits(q_len, k_len, dh):
         raise ValueError(f"{name}: Q={q_len} K={k_len} Dh={dh} exceeds the "
@@ -1266,8 +1377,51 @@ def attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g, *, n_heads, scale,
     return dq, dk, dv, debias
 
 
+def attn_fwd_rel_fs_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0,
+                         seed=0):
+    """Launch kernel #16 (``csrc/attn_fwd_rel_fs.cu``): any Q and K. Returns
+    (out [B, Q, D], lse [B, H, Q] fp32)."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_fwd_rel_fs", q, k, v, ebias,
+                                          n_heads, bwd=False, max_k=None)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n_heads, q_len), dtype=torch.float32,
+                      device=q.device)
+    _launch("attn_fwd_rel_fs", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ebias.data_ptr(), out.data_ptr(), lse.data_ptr(), b, q_len,
+            k_len, n_heads, dh, float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[q.dtype], device=q.device)
+    attn_fwd_rel_fs_cuda.launches += 1
+    return out, lse
+
+
+def attn_bwd_rel_fs_cuda(q, k, v, ebias, seed, o, lse, g, *, n_heads, scale,
+                         rate=0.0):
+    """Launch kernel #17 (``csrc/attn_bwd_rel_fs.cu``), two kernels on the
+    current stream, each counted: the dK/dV pass, then the dQ pass, which
+    also writes debias. ``o`` and ``lse`` are #16's outputs. Returns (dq,
+    dk, dv, debias), debias in ebias's dtype (q's)."""
+    b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel_fs", q, k, v, ebias,
+                                          n_heads, bwd=False, max_k=None)
+    _like("o", o, q, tuple(q.shape))
+    _like("g", g, q, tuple(q.shape))
+    _check_lse(lse, q, b, n_heads, q_len)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    debias = torch.empty_like(ebias)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ebias.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), debias.data_ptr(), b, q_len, k_len,
+            n_heads, dh, float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[q.dtype])
+    _launch("attn_bwd_rel_fs_dkdv", *args, device=q.device)
+    attn_bwd_rel_fs_cuda.launches += 1
+    _launch("attn_bwd_rel_fs_dq", *args, device=q.device)
+    attn_bwd_rel_fs_cuda.launches += 1
+    return dq, dk, dv, debias
+
+
 for _fn in (attn_fwd_rel_cuda, attn_bwd_rel_cuda, attn_bwd_rel_saved_cuda,
-            attn_fwd_rel_hb_cuda, attn_bwd_rel_hb_cuda):
+            attn_fwd_rel_hb_cuda, attn_bwd_rel_hb_cuda, attn_fwd_rel_fs_cuda,
+            attn_bwd_rel_fs_cuda):
     _fn.launches = 0
 del _fn
 
@@ -1307,6 +1461,23 @@ def attn_bwd_rel_hb(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
     fn = (attn_bwd_rel_hb_cuda if _on(q) == "cuda"
           else attn_bwd_rel_hb_reference)
     return fn(q, k, v, ebias, seed, g, n_heads=n_heads, scale=scale,
+              rate=rate)
+
+
+def attn_fwd_rel_fs(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0):
+    """Kernel #16 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_rel_fs_cuda if _on(q) == "cuda"
+          else attn_fwd_rel_fs_reference)
+    return fn(q, k, v, ebias, n_heads=n_heads, scale=scale, rate=rate,
+              seed=seed)
+
+
+def attn_bwd_rel_fs(q, k, v, ebias, seed, o, lse, g, *, n_heads, scale,
+                    rate=0.0):
+    """Kernel #17 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_rel_fs_cuda if _on(q) == "cuda"
+          else attn_bwd_rel_fs_reference)
+    return fn(q, k, v, ebias, seed, o, lse, g, n_heads=n_heads, scale=scale,
               rate=rate)
 
 
@@ -1373,6 +1544,32 @@ class FusedRelAttentionHB(torch.autograd.Function):
         return dq, dk, dv, debias.to(ctx.eb_dtype), None, None, None, None
 
 
+class FusedRelAttentionFS(torch.autograd.Function):
+    """The flash-streamed rel tier with its backward kernel (JAX
+    ``_frelfs_fwd`` / ``_frelfs_bwd``): #16 forward keeps q, k, v, ebias,
+    the seed and its residuals out and lse; #17 rebuilds the probs from
+    lse. debias comes back in ebias's dtype, as ``_frelfs_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ebias, n_heads: int, scale: float, rate: float,
+                seed: int):
+        ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        ctx.eb_dtype = ebias.dtype
+        out, lse = attn_fwd_rel_fs(q, k, v, ebias, n_heads=n_heads,
+                                   scale=scale, rate=rate, seed=seed)
+        ctx.save_for_backward(q, k, v, ebias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, ebias, out, lse = ctx.saved_tensors
+        dq, dk, dv, debias = attn_bwd_rel_fs(q, k, v, ebias, ctx.seed, out,
+                                             lse, g.contiguous(),
+                                             n_heads=ctx.n_heads,
+                                             scale=ctx.scale, rate=ctx.rate)
+        return dq, dk, dv, debias.to(ctx.eb_dtype), None, None, None, None
+
+
 def rel_tier(q_len: int, k_len: int, dh: int, grad: bool,
              ingredients_ok: bool) -> str:
     """The rel-attention tier at (Q, K, Dh), the twin of ``packed_tier``,
@@ -1384,24 +1581,21 @@ def rel_tier(q_len: int, k_len: int, dh: int, grad: bool,
       eligible (``ingredients_ok``: the model's ``rel_bias_impl="auto"``,
       one [P, D] position stream with P ≥ Q + K, no ``head_mask`` and no
       ``output_attentions``), at any length;
-    * "hb" (#14, and #15) otherwise, while Q and K ≤ ``HB_MAX_SEQ_LEN``.
+    * "hb" (#14, and #15) otherwise, while Q and K ≤ ``HB_MAX_SEQ_LEN``;
+    * "fs" (#16, and #17) past that, at any Q and K: the JAX entry's last
+      kernel tier (``_fused_rel_attention_fs``).
 
-    Past those it raises: the rel flash-streamed tier (#16/#17) is ROADMAP
-    B.6. The JAX model takes its ingredients tier only past its VMEM fit of
-    the full-H tier (Q = K = 224 at xlnet-base bf16); the port keys every
-    tier by its kernels' reach instead, as ``packed_tier`` does."""
+    Every geometry has a tier. The JAX model takes its ingredients tier
+    only past its VMEM fit of the full-H tier (Q = K = 224 at xlnet-base
+    bf16); the port keys every tier by its kernels' reach instead, as
+    ``packed_tier`` does."""
     if k_len <= MAX_SEQ_LEN and (not grad or rel_bwd_fits(q_len, k_len, dh)):
         return "full"
     if ingredients_ok:
         return "ik_fs"
     if q_len <= HB_MAX_SEQ_LEN and k_len <= HB_MAX_SEQ_LEN:
         return "hb"
-    raise NotImplementedError(
-        f"rel attention at Q={q_len} K={k_len}: past the head-blocked tier's "
-        f"{HB_MAX_SEQ_LEN} without the ingredients tier (which needs "
-        "rel_bias_impl='auto', bi attention without bi_data, no head_mask "
-        "and no output_attentions); the rel flash-streamed tier (#16/#17) "
-        "is not ported yet (ROADMAP B.6)")
+    return "fs"
 
 
 def fused_rel_attention(
@@ -1432,8 +1626,9 @@ def fused_rel_attention(
     ``interpret``/``nb_fwd``/``nb_bwd`` are TPU plan knobs and raise. The
     tier is ``rel_tier``'s without the ingredients: the full-H kernels
     while they reach, then the head-blocked tier (#14, and #15 with a
-    recompute backward) up to ``HB_MAX_SEQ_LEN``; past that it raises,
-    naming ROADMAP B.6. It never degrades to einsum math."""
+    recompute backward) up to ``HB_MAX_SEQ_LEN``, then the flash-streamed
+    tier (#16, and #17 from the saved out and lse) at any Q and K. It
+    never degrades to einsum math."""
     if interpret is not None or nb_fwd is not None or nb_bwd is not None:
         raise ValueError(
             "interpret/nb_fwd/nb_bwd are TPU kernel-plan knobs; the CUDA "
@@ -1450,12 +1645,18 @@ def fused_rel_attention(
     tier = rel_tier(q_len, k_len, dh, grad, ingredients_ok=False)
     seed = draw_seed(dropout_rng) if rate > 0.0 else 0
     q, k, v, ebias = (x.contiguous() for x in (q, k, v, ebias))
+    kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
     if not grad:
-        fn = attn_fwd_rel if tier == "full" else attn_fwd_rel_hb
-        return fn(q, k, v, ebias, n_heads=n_heads, scale=scale, rate=rate,
-                  seed=seed)
+        if tier == "full":
+            return attn_fwd_rel(q, k, v, ebias, **kw)
+        if tier == "hb":
+            return attn_fwd_rel_hb(q, k, v, ebias, **kw)
+        return attn_fwd_rel_fs(q, k, v, ebias, **kw)[0]
     if tier == "hb":
         return FusedRelAttentionHB.apply(q, k, v, ebias, n_heads,
+                                         float(scale), rate, seed)
+    if tier == "fs":
+        return FusedRelAttentionFS.apply(q, k, v, ebias, n_heads,
                                          float(scale), rate, seed)
     save = resolve_save_probs(b, n_heads, q_len, rate, q.element_size(),
                               save_probs, k_len=k_len)
@@ -1722,13 +1923,7 @@ def attn_bwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
                                                    n_heads)
     _like("o", o, rw, tuple(rw.shape))
     _like("g", g, rw, tuple(rw.shape))
-    if (lse.dtype != torch.float32 or lse.device != rw.device
-            or tuple(lse.shape) != (b, n_heads, q_len)
-            or not lse.is_contiguous()):
-        raise ValueError(
-            f"lse must be a contiguous float32 tensor of shape "
-            f"{(b, n_heads, q_len)} on {rw.device}, got {lse.dtype} "
-            f"{tuple(lse.shape)} on {lse.device}")
+    _check_lse(lse, rw, b, n_heads, q_len)
     drw, drr, dk, dv, ded, dr = (torch.empty_like(x)
                                  for x in (rw, rr, k, v, ed, r))
     d = rw.shape[-1]

@@ -146,6 +146,11 @@ def load_kernels() -> ctypes.CDLL:
         # ebias, g, dq, dk, dv, debias, ws.
         lib.attn_fwd_rel_hb.argtypes = [ptr] * 5 + rel + drop + [i32, ptr]
         lib.attn_bwd_rel_hb.argtypes = [ptr] * 10 + rel + drop + [i32, ptr]
+        # attn_fwd_rel_fs: q, k, v, ebias, out, lse; attn_bwd_rel_fs_{dkdv,
+        # dq}: q, k, v, ebias, o, lse, g, dq, dk, dv, debias.
+        lib.attn_fwd_rel_fs.argtypes = [ptr] * 6 + rel + drop + [i32, ptr]
+        for fn in (lib.attn_bwd_rel_fs_dkdv, lib.attn_bwd_rel_fs_dq):
+            fn.argtypes = [ptr] * 11 + rel + drop + [i32, ptr]
         # attn_fwd_relik_fs: rw, rr, r, k, v, ed, segd, maskb, out, lse;
         # attn_bwd_relik_fs_{dkdv,dq}: the eight inputs, o, lse, g, drw, drr,
         # dk, dv, ded, ws; attn_bwd_relik_fs_dr: ws, dr, B, P, D.
@@ -165,7 +170,9 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq,
                    lib.attn_fwd_rel, lib.attn_bwd_rel,
                    lib.attn_bwd_rel_saved, lib.attn_fwd_rel_hb,
-                   lib.attn_bwd_rel_hb, lib.attn_fwd_relik_fs,
+                   lib.attn_bwd_rel_hb, lib.attn_fwd_rel_fs,
+                   lib.attn_bwd_rel_fs_dkdv, lib.attn_bwd_rel_fs_dq,
+                   lib.attn_fwd_relik_fs,
                    lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq,
                    lib.attn_bwd_relik_fs_dr, lib.mag_fwd, lib.mag_bwd):
             fn.restype = ctypes.c_int

@@ -4,9 +4,10 @@
     preds = predictor.predict_split(packed_split)   # [N] float32
     scores = predictor.score_split(packed_split)    # Acc-2/MAE/corr/F1
 
-The model runs on the device its params live on. ``mem_len`` (XLNet),
-``from_checkpoint`` and the exported-artifact functions wait for ROADMAP
-A.8, A.6 and A.9.
+The model runs on the device its params live on. With ``mem_len`` (XLNet
+segment recurrence) ``predict_split`` threads the memory through the
+ordered batch stream, as the model was trained. ``from_checkpoint`` and the
+exported-artifact functions wait for ROADMAP A.6 and A.9.
 """
 
 from __future__ import annotations
@@ -50,12 +51,19 @@ class Predictor:
     (host cast, pinned copy, forward enqueued) before batch n's
     predictions are fetched, and the fetch waits only for batch n's
     device-to-host copy. 0 gives the strictly serial loop.
+
+    ``mem_len`` (XLNet) must equal the model config's: ``predict_split``
+    then starts a zero memory (n_layer × [batch_size, mem_len, D] at the
+    model dtype) and carries it from batch to batch in order, the way
+    ``Trainer.test_epoch`` scores a memory-trained model. Such a predictor
+    serves no independent requests (``submit``/``predict_requests``
+    refuse): the memory makes each batch depend on the ones before it.
     """
 
     def __init__(self, model: torch.nn.Module, device=None,
                  batch_size: int = 128,
                  wire_dtype: Optional[torch.dtype] = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, mem_len: Optional[int] = None):
         # num_labels == 1 → regression [B]; > 1 → class logits [B, C]
         self.num_labels = getattr(getattr(model, "config", None),
                                   "num_labels", 1)
@@ -65,6 +73,21 @@ class Predictor:
         self.batch_size = batch_size
         self.wire_dtype = wire_dtype
         self.prefetch = prefetch
+        self.mem_len = mem_len
+        if mem_len is not None:
+            cfg = getattr(model, "config", None)
+            if getattr(cfg, "mem_len", None) != mem_len:
+                raise ValueError(
+                    f"Predictor(mem_len={mem_len}) needs the model built "
+                    f"with config.mem_len={mem_len} (got "
+                    f"{getattr(cfg, 'mem_len', None)})")
+
+    def _init_mems(self):
+        cfg = self.model.config
+        dt = getattr(self.model, "dtype", torch.float32)
+        return tuple(torch.zeros((self.batch_size, self.mem_len,
+                                  cfg.d_model), dtype=dt, device=self.device)
+                     for _ in range(cfg.n_layer))
 
     def _to_device(self, x, cast: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
@@ -77,26 +100,33 @@ class Predictor:
         return t.to(self.device, non_blocking=True)
 
     def _dispatch(self, input_ids, visual, acoustic, input_mask,
-                  segment_ids) -> _Handle:
+                  segment_ids, mems=None):
+        """Enqueue one batch; returns (its handle, the new memory when
+        ``mems`` is given, else None)."""
         args = (self._to_device(input_ids),
                 self._to_device(visual, self.wire_dtype),
                 self._to_device(acoustic, self.wire_dtype),
                 self._to_device(input_mask),
                 self._to_device(segment_ids))
         with torch.inference_mode():
-            logits = self.model(*args[:3], attention_mask=args[3],
-                                token_type_ids=args[4], deterministic=True)
+            kw = dict(attention_mask=args[3], token_type_ids=args[4],
+                      deterministic=True)
+            if mems is None:
+                logits = self.model(*args[:3], **kw)
+            else:
+                logits, mems = self.model(*args[:3], mems=mems,
+                                          use_cache=True, **kw)[:2]
             if self.num_labels == 1:
                 out = logits.reshape(-1)
             else:
                 out = logits.reshape(-1, self.num_labels)
             if not out.is_cuda:
-                return _Handle(out)
+                return _Handle(out), mems
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return _Handle(host, done)
+        return _Handle(host, done), mems
 
     def predict_split(self, split: PackedSplit) -> np.ndarray:
         """Predictions for every example, in order: [N] regression values
@@ -105,8 +135,11 @@ class Predictor:
                            drop_remainder=False)
         preds = []
         pending = deque()  # (handle, valid mask) in order
+        mems = self._init_mems() if self.mem_len is not None else None
         for batch, valid in it:
-            pending.append((self._dispatch(*batch[:5]), valid))
+            # the memory chain stays on the device: prefetch still overlaps
+            handle, mems = self._dispatch(*batch[:5], mems=mems)
+            pending.append((handle, valid))
             while len(pending) > max(self.prefetch, 0):
                 handle, v = pending.popleft()
                 preds.append(self.fetch(handle)[v])
@@ -122,9 +155,15 @@ class Predictor:
                segment_ids) -> _Handle:
         """Dispatch one independent request without waiting for it: host
         cast, transfer, forward and the copy back are enqueued; pair the
-        returned handle with :meth:`fetch`."""
+        returned handle with :meth:`fetch`. Not for a memory predictor,
+        whose batches depend on the ones before (use predict_split)."""
+        if self.mem_len is not None:
+            raise ValueError(
+                "submit/fetch serve independent requests; a mems "
+                "predictor's memory chain makes batches order-dependent "
+                "— use predict_split")
         return self._dispatch(input_ids, visual, acoustic, input_mask,
-                              segment_ids)
+                              segment_ids)[0]
 
     @staticmethod
     def fetch(handle: _Handle) -> np.ndarray:

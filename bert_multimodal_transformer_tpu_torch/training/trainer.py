@@ -9,13 +9,18 @@ device).
   to shape with a validity mask: the loss is the masked mean;
 * ``eval_step`` / ``predict_step`` — the deterministic forward, with
   validity masks so padded eval batches score every example once;
+* ``make_mems_train_step`` / ``mems_eval_step`` / ``mems_predict_step`` —
+  the same with XLNet's memory (segment recurrence) carried in and out of
+  every step, chained through the micro-batches under grad accumulation;
 * ``Trainer`` — the epoch loops (train_epoch / eval_epoch / test_epoch /
-  test_score_model / train) with the JAX trainer's records.
+  test_score_model / train) with the JAX trainer's records; with
+  ``mem_len`` the memory starts as zeros each epoch and each eval/test
+  split and threads through the batch stream in order.
 
 Losses stay on the device until an epoch ends; the dropout seeds come from
 the state's CPU generator (``ops/dropout.py``), so a step never waits for
 the card. The mesh, tensor parallelism, FSDP, multi-process runs and XLA
-compile options wait for ROADMAP A.10, the XLNet memory for A.8.
+compile options wait for ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -47,23 +52,33 @@ class TrainState:
     generator: torch.Generator
 
 
-def _forward(model, batch, generator, deterministic: bool):
+def _forward(model, batch, generator, deterministic: bool, mems=None):
+    """(logits, labels), or (logits, labels, new memory) when ``mems`` is
+    given: under use_cache the XLNet classifier returns (logits, new_mems,
+    ...)."""
     input_ids, visual, acoustic, input_mask, segment_ids, label_ids = batch
-    logits = model(input_ids, visual, acoustic, attention_mask=input_mask,
-                   token_type_ids=segment_ids, deterministic=deterministic,
-                   dropout_rng=None if deterministic else generator)
-    return logits, label_ids
+    kw = dict(attention_mask=input_mask, token_type_ids=segment_ids,
+              deterministic=deterministic,
+              dropout_rng=None if deterministic else generator)
+    if mems is not None:
+        out = model(input_ids, visual, acoustic, mems=mems, use_cache=True,
+                    **kw)
+        return out[0], label_ids, out[1]
+    return model(input_ids, visual, acoustic, **kw), label_ids
 
 
-def _make_step(grad_accum: int, masked: bool):
+def _make_step(grad_accum: int, masked: bool, with_mems: bool = False):
     """Shared train-step factory (see make_train_step /
-    make_masked_train_step for the two semantics). Gradients of the
-    micro-batches add up in ``.grad`` and are divided once, by
-    ``grad_accum`` or by the valid count, as the JAX step divides its
-    summed gradients."""
+    make_masked_train_step / make_mems_train_step for the semantics).
+    Gradients of the micro-batches add up in ``.grad`` and are divided
+    once, by ``grad_accum`` or by the valid count, as the JAX step divides
+    its summed gradients. ``with_mems``: the step takes the memory after
+    the batch (``valid`` after it) and returns (loss, new memory), the
+    memory chained through the micro-batches."""
 
-    def train_step(state: TrainState, batch: Tuple,
-                   valid: Optional[np.ndarray] = None) -> torch.Tensor:
+    def train_step(state: TrainState, batch: Tuple, *rest):
+        mems = rest[0] if with_mems else None
+        valid = rest[-1] if masked else None
         b = batch[0].shape[0]
         if b % grad_accum:
             raise ValueError(
@@ -76,8 +91,12 @@ def _make_step(grad_accum: int, masked: bool):
         state.optimizer.zero_grad(set_to_none=True)
         total = None
         for i, mb in enumerate(micro):
-            logits, labels = _forward(state.model, mb, state.generator,
-                                      deterministic=False)
+            if with_mems:
+                logits, labels, mems = _forward(state.model, mb,
+                                                state.generator, False, mems)
+            else:
+                logits, labels = _forward(state.model, mb, state.generator,
+                                          deterministic=False)
             if masked:
                 err = torch.square(logits.reshape(-1).float()
                                    - labels.reshape(-1).float())
@@ -94,7 +113,7 @@ def _make_step(grad_accum: int, masked: bool):
             total = total / div
         state.optimizer.step()
         state.step += 1
-        return total
+        return (total, mems) if with_mems else total
 
     return train_step
 
@@ -117,6 +136,18 @@ def make_masked_train_step(grad_accum: int = 1):
     return _make_step(grad_accum, masked=True)
 
 
+def make_mems_train_step(masked: bool, grad_accum: int = 1):
+    """The train step with XLNet's memory (JAX ``make_mems_train_step``):
+    ``step(state, batch, mems[, valid]) -> (loss, new_mems)``, ``mems`` one
+    [B/grad_accum, mem_len, D] tensor per layer. With grad_accum > 1 the
+    batch's A·B rows run as A sequential micro-batches of B rows and the
+    memory chains through them (micro-batch i reads micro-batch i−1's
+    cache) while the gradients accumulate against the step's params; the
+    memory returned is the last micro-batch's. ``masked``: the ragged tail
+    batch's masked mean, its memory carried as any other's."""
+    return _make_step(grad_accum, masked=masked, with_mems=True)
+
+
 @torch.inference_mode()
 def eval_step(state: TrainState, batch: Tuple, valid: torch.Tensor):
     """Masked dev-set MSE: returns (sum_sq_err, n_valid) so ragged final
@@ -133,6 +164,23 @@ def predict_step(state: TrainState, batch: Tuple):
     return logits.reshape(-1), labels.reshape(-1)
 
 
+@torch.inference_mode()
+def mems_eval_step(state: TrainState, batch: Tuple, valid: torch.Tensor,
+                   mems):
+    """``eval_step`` with the memory: (sum_sq_err, n_valid, new_mems)."""
+    logits, labels, new_mems = _forward(state.model, batch, None, True, mems)
+    err = torch.square(logits.reshape(-1) - labels.reshape(-1))
+    v = valid.to(torch.float32)
+    return torch.sum(err * v), torch.sum(v), new_mems
+
+
+@torch.inference_mode()
+def mems_predict_step(state: TrainState, batch: Tuple, mems):
+    """``predict_step`` with the memory: (preds, labels, new_mems)."""
+    logits, labels, new_mems = _forward(state.model, batch, None, True, mems)
+    return logits.reshape(-1), labels.reshape(-1), new_mems
+
+
 @dataclasses.dataclass
 class Trainer:
     """Epoch-level trainer on the device that holds the model's params.
@@ -141,6 +189,13 @@ class Trainer:
     (input_ids, visual, acoustic, attention_mask=, token_type_ids=,
     deterministic=, dropout_rng=) → logits; ``tx`` the optimizer factory
     of ``optim.make_optimizer``. The step updates the params in place.
+
+    ``mem_len`` (XLNet segment recurrence) must equal the model config's:
+    a fixed-shape zero memory, n_layer × [B, mem_len, D] at the model
+    dtype, starts each epoch and each eval/test split and is carried from
+    batch to batch in order (B = the micro-batch rows under grad
+    accumulation). As in the JAX trainer the zero positions are attended
+    until real segments flush them.
     """
 
     model: nn.Module
@@ -156,8 +211,7 @@ class Trainer:
     def __post_init__(self):
         for name, item in (("mesh", "A.10"), ("tp_shard_attention", "A.10"),
                            ("fsdp", "A.10"), ("multiprocess", "A.10"),
-                           ("compiler_options", "A.10"),
-                           ("mem_len", "A.8")):
+                           ("compiler_options", "A.10")):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet (ROADMAP "
@@ -165,6 +219,32 @@ class Trainer:
         self.device = next(self.model.parameters()).device
         self._train_step = make_train_step(self.grad_accum)
         self._train_step_masked = make_masked_train_step(self.grad_accum)
+        if self.mem_len is not None:
+            cfg = getattr(self.model, "config", None)
+            if getattr(cfg, "mem_len", None) != self.mem_len:
+                raise ValueError(
+                    f"Trainer(mem_len={self.mem_len}) needs the model "
+                    f"built with config.mem_len={self.mem_len} (got "
+                    f"{getattr(cfg, 'mem_len', None)}): the model's "
+                    "memory update reads its own config")
+            self._train_step_mems = make_mems_train_step(
+                masked=False, grad_accum=self.grad_accum)
+            self._train_step_mems_masked = make_mems_train_step(
+                masked=True, grad_accum=self.grad_accum)
+
+    def _init_mems(self, batch, *, for_train: bool = False):
+        """A fresh zero memory for a new epoch or split: n_layer ×
+        [B, mem_len, d_model] at the model dtype on the params' device.
+        With grad accumulation a train batch holds A·B rows that run as A
+        sequential B-row segments, so the memory is B rows."""
+        cfg = self.model.config
+        b = np.asarray(batch[0]).shape[0]
+        if for_train:
+            b //= self.grad_accum
+        dt = getattr(self.model, "dtype", torch.float32)
+        return tuple(torch.zeros((b, self.mem_len, cfg.d_model), dtype=dt,
+                                 device=self.device)
+                     for _ in range(cfg.n_layer))
 
     def init_state(self, seed: int) -> TrainState:
         """Draw the params from ``seed`` (``model.init_params``, on the
@@ -219,10 +299,20 @@ class Trainer:
             it = enumerate(loader.iter_from(start_batch), start=start_batch)
         else:
             it = enumerate(loader)
+        mems = None  # a fresh memory each epoch (and after a resume)
         for bi, (batch, valid) in it:
             if bi < start_batch:
                 continue
-            if valid.all():
+            if self.mem_len is not None:
+                if mems is None:
+                    mems = self._init_mems(batch, for_train=True)
+                if valid.all():
+                    loss, mems = self._train_step_mems(
+                        state, self._put_batch(batch), mems)
+                else:
+                    loss, mems = self._train_step_mems_masked(
+                        state, self._put_batch(batch), mems, valid)
+            elif valid.all():
                 loss = self._train_step(state, self._put_batch(batch))
             else:
                 loss = self._train_step_masked(state, self._put_batch(batch),
@@ -241,9 +331,19 @@ class Trainer:
 
     def eval_epoch(self, state: TrainState, loader) -> float:
         """Mean dev MSE over every real example; partial sums stay on the
-        device, one host sync at the end."""
-        sums = [eval_step(state, self._put_batch(batch), self._put(valid))
-                for batch, valid in loader]
+        device, one host sync at the end. With ``mem_len`` the memory
+        threads through the split from zeros."""
+        sums, mems = [], None
+        for batch, valid in loader:
+            if self.mem_len is None:
+                sums.append(eval_step(state, self._put_batch(batch),
+                                      self._put(valid)))
+                continue
+            if mems is None:
+                mems = self._init_mems(batch)
+            s, c, mems = mems_eval_step(
+                state, self._put_batch(batch), self._put(valid), mems)
+            sums.append((s, c))
         if not sums:
             return 0.0
         tot = float(torch.stack([s for s, _ in sums]).sum())
@@ -252,8 +352,15 @@ class Trainer:
 
     def test_epoch(self, state: TrainState, loader):
         preds, labels = [], []
+        mems = None
         for batch, valid in loader:
-            p, lab = predict_step(state, self._put_batch(batch))
+            if self.mem_len is None:
+                p, lab = predict_step(state, self._put_batch(batch))
+            else:
+                if mems is None:
+                    mems = self._init_mems(batch)
+                p, lab, mems = mems_predict_step(
+                    state, self._put_batch(batch), mems)
             preds.append(p.cpu().numpy()[valid])
             labels.append(lab.cpu().numpy()[valid])
         return np.concatenate(preds), np.concatenate(labels)

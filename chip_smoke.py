@@ -50,6 +50,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    and #5 at S=512, #6 and #7 at S=1024) at rate 0 beside
    ``scaled_dot_product_attention`` (forward; its autograd backward) and
    at rate 0.1.
+3f. The long-sequence rel kernels (#14/#15 head-blocked, #23/#24 the
+   ingredients flash-streamed tier) against their plain versions, #14 =
+   #11 and #15 = #12 bit for bit, #23's keep mask, their times at B=48
+   beside SDPA with the assembled ebias.
+3g. The rel flash-streamed kernels (#16 forward with lse, #17 its
+   backward in two launches, debias from the dQ pass) against their plain
+   versions on the ebias the model assembles: fp32 B=2 at a ragged Q=70
+   K=131, bf16 B=2 at Q=K=1024 and at Q=512 K=1024 (the memory's K ≠ Q),
+   rates 0.1 and 0; #17 within ``rel_fs_grads_bf16_bound``; the same bits
+   twice. #16's and #14's keep masks equal to the plain Philox mask bit
+   for bit at Q=K=512 (q = 0, v the identity on a rotating key window),
+   #16's output against #14's within a stated bf16 bound. Then both timed
+   at bf16 B=48 Q=K=1024 at rate 0 (beside SDPA with the ebias as a float
+   mask, and its autograd backward) and at rate 0.1.
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -78,6 +92,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 4d. Long-sequence serving: ``Predictor.predict_split`` at bert-base
    width with a 1024-row position table over 256 examples at batch 128,
    at S=640 (#4 once per layer per batch) and S=1024 (#6), against einsum.
+4e. XLNet long-sequence serving: ``predict_split`` at xlnet-base-cased
+   width at S=640 and 1024 (#23 once per layer per batch), against einsum.
+4f. XLNet serving through the rel fs tier: ``predict_split`` with
+   ``rel_bias_impl="stream"`` at S=1024 (#16 once per layer per batch),
+   and ``Predictor(mem_len=512)`` at S=512 under "stream" (Q=512, K=1024:
+   #16), the memory chained through the batches; each against einsum.
 5. Serving profile: one batch's serial latency, its device time by kernel
    and the card's busy share (torch.profiler).
 5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
@@ -110,6 +130,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    96/48/48: exit 0, finite losses; at 512 training takes #4 and #5 and
    evaluation #1; at 1024 training takes #6 and #7 and evaluation #6.
    Then one training step at B=48, S=512 and 1024, by device time.
+6d. The XLNet driver at long sequences: ``--max_seq_length 512`` and
+   ``1024`` (#23/#24 in training), ``--rel_bias_impl stream`` at 512
+   (#14/#15); the S=512 gradient check with planted zero dr and ded; one
+   profiled B=48 step at S=1024.
+6e. The XLNet driver through the rel fs tier and with the memory:
+   ``--rel_bias_impl stream --max_seq_length 1024`` (#16, #17),
+   ``--mem_len 512 --max_seq_length 512`` under "stream" (#16, #17 at
+   Q=512, K=1024) and under "auto" (#23, #24 at K ≠ Q), ``--mem_len 50``
+   at S=50 (#11, #13 at K=100): exit 0, finite losses, the launches, each
+   run's peak device memory; then at dropout 0 one S=1024 stream step at
+   batch 4, fused against einsum leaf by leaf, which the same step with
+   debias zeroed in #17's output must break; one profiled B=48 S=1024
+   stream step.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -275,7 +308,9 @@ def _wrappers(fa):
             "attn_fwd_rel_hb": fa.attn_fwd_rel_hb_cuda,
             "attn_bwd_rel_hb": fa.attn_bwd_rel_hb_cuda,
             "attn_fwd_relik_fs": fa.attn_fwd_relik_fs_cuda,
-            "attn_bwd_relik_fs": fa.attn_bwd_relik_fs_cuda}
+            "attn_bwd_relik_fs": fa.attn_bwd_relik_fs_cuda,
+            "attn_fwd_rel_fs": fa.attn_fwd_rel_fs_cuda,
+            "attn_bwd_rel_fs": fa.attn_bwd_rel_fs_cuda}
 
 
 def _counts(fa):
@@ -2568,11 +2603,12 @@ def xlnet_long_grad_check(args, rng, fa, card):
                                  f"{XLNET_GRAD_GAP_TOL}")
 
 
-def xlnet_long_step_profile(args, rng, card):
+def xlnet_long_step_profile(args, rng, card, impl="auto"):
     """One training step of xlnet-base-cased at the driver's batch (48),
-    bf16, fused attention (#23, #24), dropout 0.1, at S = 1024: its device
-    time by kernel group and the card's busy share (torch.profiler), after
-    one warm-up step."""
+    bf16, fused attention, dropout 0.1, at S = 1024 (#23, #24 under
+    ``rel_bias_impl`` ``impl`` "auto"; #16, #17 and the ebias assembly
+    under "stream"): its device time by kernel group and the card's busy
+    share (torch.profiler), after one warm-up step."""
     import torch
 
     from bert_multimodal_transformer_tpu_torch.config import (
@@ -2592,7 +2628,8 @@ def xlnet_long_step_profile(args, rng, card):
     )
 
     ds = DatasetConfig.mosi()
-    cfg = XLNetConfig.xlnet_base_cased()
+    cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                              rel_bias_impl=impl)
     state = Trainer(model=_xlnet(cfg, MultimodalConfig(injection_index=1),
                                  "fused", args.seed + 32),
                     tx=make_optimizer(1e-5, 10, 0.1)
@@ -2604,9 +2641,400 @@ def xlnet_long_step_profile(args, rng, card):
     step(state, batch)
     torch.cuda.synchronize()
     print(f"one training step, bf16 xlnet-base-cased B={TRAIN_BATCH} S=1024 "
-          f"on {card}:")
+          f"rel_bias_impl={impl} on {card}:")
     _print_profile(device_time_by_kernel(lambda: step(state, batch), 1), 1,
                    "step")
+
+
+# The rel flash-streamed tier's checks (3g): (dtype, B, Q, K) with rates.
+REL_FS_CASES = (("fp32", 2, 70, 131), ("bf16", 2, 1024, 1024),
+                ("bf16", 2, 512, 1024))
+MEM_LEN = 512                 # the long-memory driver runs: K = 512 + 512
+XLNET_FS_CHECK_BATCH = 4      # the S=1024 stream gradient check's batch
+
+
+def check_rel_fs_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
+    """Phase 3g on one case: #16 (out and lse) and #17 (dq, dk, dv, debias)
+    against their plain versions on the ebias the model assembles (K > Q:
+    the memory's keys first); lse to 1e-4 absolute plus 1e-6 relative (no
+    row is masked whole: each query sees its own key); #17 within
+    ``rel_fs_grads_bf16_bound`` (fp32: GRAD_FP32_TOL); the same bits from
+    the same seed twice. Returns the max errors."""
+    import torch
+
+    kw = dict(n_heads=12, scale=0.125, rate=rate)
+    tag = f"{dtype_name} B={b} Q={q_len} K={k_len} H=12 Dh=64 rate={rate}"
+    q, k, v, ebias, g = rel_case(rng, dtype_name, b, q_len, k_len)
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    out, lse = fa.attn_fwd_rel_fs_cuda(q, k, v, ebias, seed=seed, **kw)
+    r_out, r_lse = fa.attn_fwd_rel_fs_reference(q, k, v, ebias, seed=seed,
+                                                **kw)
+    errs = {"#16": _forward_err(f"#16 {tag}", out, r_out, dtype_name)}
+    lse_err = (lse - r_lse).abs()
+    if bool((lse_err > 1e-4 + 1e-6 * r_lse.abs()).any()):
+        raise AssertionError(f"#16 lse {tag}: max_abs_err "
+                             f"{float(lse_err.max())}")
+    errs["#16 lse"] = float(lse_err.max())
+    grads = fa.attn_bwd_rel_fs_cuda(q, k, v, ebias, seed, out, lse, g, **kw)
+    want = fa.attn_bwd_rel_fs_reference(q, k, v, ebias, seed, out, lse, g,
+                                        **kw)
+    if dtype_name == "bf16":
+        bounds = fa.rel_fs_grads_bf16_bound(want, q, k, v, ebias, seed, out,
+                                            lse, g, **kw)
+    else:
+        bounds = [GRAD_FP32_TOL + GRAD_FP32_TOL * w.float().abs()
+                  for w in want]
+    worst = 0.0
+    for part, a, w, bd in zip(("dq", "dk", "dv", "debias"), grads, want,
+                              bounds):
+        err = (a.float() - w.float()).abs()
+        if bool((err > bd).any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"#17 {part} {tag}: {int((err > bd).sum())}"
+                                 f" elements out of rel_fs_grads_bf16_bound,"
+                                 f" max_abs_err={float(err.max())}")
+        worst = max(worst, float(err.max()))
+    errs["#17"] = worst
+    del want, bounds
+    again16 = fa.attn_fwd_rel_fs_cuda(q, k, v, ebias, seed=seed, **kw)
+    again17 = fa.attn_bwd_rel_fs_cuda(q, k, v, ebias, seed, out, lse, g,
+                                      **kw)
+    same = (torch.equal(again16[0], out) and torch.equal(again16[1], lse)
+            and all(torch.equal(x, y) for x, y in zip(grads, again17)))
+    print(f"rel fs kernels vs plain {tag}: " + ", ".join(
+        f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+        + f"; same seed twice, identical bits {same}")
+    if not same:
+        raise AssertionError(f"#16/#17 not bit-reproducible ({tag})")
+    return errs
+
+
+def check_rel_fs_against_hb(rng, fa):
+    """#16 against #14 where both reach, Q = K = 512, bf16, rate 0.1, one
+    seed: (1) the keep masks: with q = 0 and a zero bias every score is 0
+    and p = 1/K; with head h's v the identity on the keys 128·((h + r) % 4)
+    .. +127 (H = 4, Dh = 128), out[q, h, c] > 0 exactly where that key is
+    kept, so four rotations r read every (b, h, q, k) of both kernels'
+    masks, which must equal each other and the plain Philox mask bit for
+    bit; (2) the outputs on a model-like case, within ``_tier_err``'s bound
+    (#14 rounds p = e/l before PV, #16 rounds e and divides after)."""
+    import torch
+
+    b, s, h, dh = 2, 512, 4, 128
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    q = torch.zeros(b, s, h * dh, device="cuda", dtype=torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((b, s, h * dh),
+                                             dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+    eb = torch.zeros(b, h, s, s, device="cuda", dtype=torch.bfloat16)
+    kw = dict(n_heads=h, scale=dh ** -0.5, rate=RATE, seed=seed)
+    keep = fa.dropout_keep_mask(seed, b, h, s, s, RATE, "cuda")
+    seen = {"#16": torch.zeros_like(keep), "#14": torch.zeros_like(keep)}
+    eye = torch.eye(dh, device="cuda", dtype=torch.bfloat16)
+    for r in range(4):
+        v = torch.zeros(b, s, h, dh, device="cuda", dtype=torch.bfloat16)
+        for hh in range(h):
+            w = (hh + r) % 4
+            v[:, w * dh:(w + 1) * dh, hh, :] = eye
+        v = v.reshape(b, s, h * dh)
+        outs = {"#16": fa.attn_fwd_rel_fs_cuda(q, k, v, eb, **kw)[0],
+                "#14": fa.attn_fwd_rel_hb_cuda(q, k, v, eb, **kw)}
+        for name, out in outs.items():
+            kept = out.view(b, s, h, dh).permute(0, 2, 1, 3) > 0
+            for hh in range(h):
+                w = (hh + r) % 4
+                seen[name][:, hh, :, w * dh:(w + 1) * dh] = kept[:, hh]
+    for name, kept in seen.items():
+        if not torch.equal(kept, keep):
+            raise AssertionError(f"{name} keep mask differs from the plain "
+                                 f"Philox mask in "
+                                 f"{int((kept != keep).sum())} elements")
+    q, k, v, ebias, _ = rel_case(rng, "bf16", 8, s, s)
+    kw = dict(n_heads=12, scale=0.125, rate=RATE, seed=seed)
+    out16 = fa.attn_fwd_rel_fs_cuda(q, k, v, ebias, **kw)[0]
+    out14 = fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, **kw)
+    _, _, pd = fa.attn_fwd_rel_reference(q, k, v, ebias, save=True, **kw)
+    err = (out16.float() - out14.float()).abs()
+    vh = v.view(8, s, 12, 64).permute(0, 2, 1, 3).float().abs()
+    spread = torch.matmul(pd.float().abs(), vh).permute(0, 2, 1, 3).reshape(
+        8, s, -1)
+    bound = 2.0 ** -7 * (out14.float().abs() + spread) + 2.0 ** -17
+    if bool((err > bound).any()):
+        raise AssertionError(f"#16 vs #14 bf16 B=8 Q=K={s}: "
+                             f"{int((err > bound).sum())} elements out of "
+                             f"the bound, max |Δ| {float(err.max())}")
+    print(f"#16 and #14 keep masks = plain Philox mask bit for bit over "
+          f"{keep.numel()} elements (bf16 B={b} Q=K={s} H={h} Dh={dh}, rate "
+          f"{RATE}); #16 vs #14 output bf16 B=8 Q=K={s} H=12 rate {RATE}: "
+          f"max |Δ| {float(err.max()):.3e} within 2^-7·(|out| + pd·|v|)")
+
+
+def rel_fs_bound(kind, b, q_len, k_len, h, dh, itemsize):
+    """The bound of #16 (``fwd``) or #17 at [B, Q, K, H, Dh]: each input
+    read once and each output written once (q, k, v, ebias; out and the
+    fp32 lse; #17 also o, lse and g, and writes dq, dk, dv and debias); the
+    products on the bf16 tensor cores, 2·B·H·Q·K·Dh operations each (QKᵀ
+    and PV forward; QKᵀ, d(pd), dV, dQ and dK backward)."""
+    d = h * dh
+    qd, kd = b * q_len * d * itemsize, b * k_len * d * itemsize
+    hqk, lse = b * h * q_len * k_len * itemsize, b * h * q_len * 4
+    dot = 2 * b * h * q_len * k_len * dh
+    if kind == "fwd":
+        return _bound(qd + 2 * kd + hqk + qd + lse, 2 * dot, BF16_FLOPS)
+    return _bound(3 * qd + 2 * kd + hqk + lse + qd + 2 * kd + hqk, 5 * dot,
+                  BF16_FLOPS)
+
+
+def time_rel_fs_kernels(rng, fa, card):
+    """#16 and #17 at the stream path's S = 1024, bf16 B=48 (the driver's
+    batch), rate 0 against the plain versions and the library calls (SDPA
+    with the ebias as a float mask; SDPA's autograd backward to q, k, v and
+    the ebias), rate 0.1 against the plain versions; CUDA events over
+    alternating rounds. Returns {name: entry}."""
+    import torch
+
+    s = 1024
+    q, k, v, ebias, g = rel_case(rng, "bf16", TRAIN_BATCH, s, s)
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    out = {}
+    for rate in (0.0, RATE):
+        kw = dict(n_heads=12, scale=0.125, rate=rate)
+        o16, lse = fa.attn_fwd_rel_fs_cuda(q, k, v, ebias, seed=seed, **kw)
+        runs = {
+            "attn_fwd_rel_fs": (
+                lambda: fa.attn_fwd_rel_fs_cuda(q, k, v, ebias, seed=seed,
+                                                **kw),
+                lambda: fa.attn_fwd_rel_fs_reference(q, k, v, ebias,
+                                                     seed=seed, **kw)),
+            "attn_bwd_rel_fs": (
+                lambda: fa.attn_bwd_rel_fs_cuda(q, k, v, ebias, seed, o16,
+                                                lse, g, **kw),
+                lambda: fa.attn_bwd_rel_fs_reference(q, k, v, ebias, seed,
+                                                     o16, lse, g, **kw))}
+        for name, (run_kernel, run_plain) in runs.items():
+            kt, pt = _alternate(run_plain, run_kernel, 3)
+            kind = "fwd" if "_fwd_" in name else "bwd"
+            bound = rel_fs_bound(kind, TRAIN_BATCH, s, s, 12, 64, 2)
+            entry = {"ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+            lib_note = ""
+            if rate == 0.0:
+                lib = sdpa_rel_calls(q, k, v, ebias, g, 12, 0.125)
+                call = lib[0] if kind == "fwd" else lib[1]
+                _time_ms(call, 2)
+                entry["library_ms"] = float(np.mean(
+                    [_time_ms(call, 3) for _ in range(2)]))
+                entry["library"] = (
+                    "scaled_dot_product_attention, ebias as float mask"
+                    if kind == "fwd" else
+                    "scaled_dot_product_attention autograd backward (dq, dk, "
+                    "dv, debias), rate 0")
+                lib_note = f", library {entry['library_ms']:.3f} ms"
+                del lib, call
+                out[name] = entry
+            else:
+                out[name]["modes"] = {
+                    f"training rate {RATE}, bf16 B={TRAIN_BATCH} Q=K={s}":
+                        entry}
+            print(f"{name} bf16 B={TRAIN_BATCH} Q=K={s} H=12 Dh=64 rate "
+                  f"{rate} on {card}: kernel {kt} ms, plain {pt} ms per call"
+                  f"{lib_note}; bound {bound[0]:.4f} ms ({bound[1]})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def xlnet_fs_serving(args, rng, fa, card):
+    """Phase 4f: ``Predictor.predict_split`` at xlnet-base-cased width,
+    bf16, fused, over 256 seeded XLNet-packed examples at batch 128:
+    ``rel_bias_impl="stream"`` at S = 1024 (#16 once per layer per batch),
+    against einsum at batch 32; and ``Predictor(mem_len=512)`` at S = 512
+    under "stream" (Q = 512, K = 1024: #16), the memory chained through the
+    batches, against the einsum model's chain at the same batch. Checks:
+    the launches, finite predictions, agreement within PRED_ATOL. Returns
+    {path: counts}."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    mm = MultimodalConfig(injection_index=1)
+    counts = {}
+    for path, s, mem_len, einsum_batch in (
+            ("xlnet_serving_stream_s1024", 1024, None, 32),
+            ("xlnet_serving_mem512", 512, MEM_LEN, BATCH)):
+        cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                                  rel_bias_impl="stream", mem_len=mem_len)
+        model = _xlnet(cfg, mm, "fused", args.seed + 40)
+        predictor = Predictor(model, batch_size=BATCH, mem_len=mem_len)
+        split = make_xlnet_split(rng, LONG_SERVE_N, s, cfg.vocab_size,
+                                 ds.visual_dim, ds.acoustic_dim)
+        predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        preds = predictor.predict_split(split)
+        dt = time.perf_counter() - t0
+        counts[path] = _counts(fa)
+        want = _want(fa, attn_fwd_rel_fs=cfg.n_layer
+                     * -(-LONG_SERVE_N // BATCH))
+        print(f"kernel launches in {path}: {counts[path]} (want {want})")
+        if counts[path] != want:
+            raise AssertionError(f"{path} launches {counts[path]} != "
+                                 f"{want}")
+        if preds.shape != (LONG_SERVE_N,) or not np.isfinite(preds).all():
+            raise AssertionError(f"bad {path} predictions {preds.shape}")
+        einsum = Predictor(_xlnet(cfg, mm, "einsum", 0, model.state_dict()),
+                           batch_size=einsum_batch, mem_len=mem_len)
+        gap = float(np.abs(preds - einsum.predict_split(split)).max())
+        del einsum
+        torch.cuda.empty_cache()
+        print(f"{path} (xlnet-base-cased S={s}, mem_len {mem_len}, stream) "
+              f"on {card}: predict_split {LONG_SERVE_N / dt:.1f} examples/s "
+              f"(batch {BATCH}, bf16); fused vs einsum (batch "
+              f"{einsum_batch}) max |Δ| {gap:.3e} (tolerance {PRED_ATOL}), "
+              f"|pred| max {np.abs(preds).max():.3f}")
+        if not gap <= PRED_ATOL:
+            raise AssertionError(f"{path}: fused and einsum predictions "
+                                 f"differ by {gap}")
+        del predictor, model
+        torch.cuda.empty_cache()
+    return counts
+
+
+def xlnet_fs_driver_path(args, rng, fa, card):
+    """Phase 6e: ``driver.main --model xlnet-base-cased --attention_impl
+    fused`` (bf16, one epoch over synthetic splits of 96/48/48) with
+    ``--rel_bias_impl stream --max_seq_length 1024`` (training #16 and #17,
+    two launches a call; evaluation #16), ``--mem_len 512 --max_seq_length
+    512`` under "stream" (Q = 512, K = 1024: the same kernels) and under
+    "auto" (#23, and #24 in three launches, at K ≠ Q), and ``--mem_len 50``
+    at S = 50 (K = 100: #11 with saved probs, #13). Checks: exit 0, finite
+    losses, the launches; prints each run's peak device memory. Then the
+    S = 1024 stream gradient check and one profiled B=48 S=1024 stream
+    step. Returns {path: counts}."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import XLNetConfig
+
+    layers = XLNetConfig.xlnet_base_cased().n_layer
+    n_train = -(-LONG_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in LONG_SPLITS[1:])
+    fs = dict(attn_fwd_rel_fs=layers * (n_train + n_eval),
+              attn_bwd_rel_fs=2 * layers * n_train)
+    runs = {
+        "xlnet_driver_stream_s1024": (
+            ["--max_seq_length", "1024", "--rel_bias_impl", "stream"], fs),
+        "xlnet_driver_mem512_stream": (
+            ["--max_seq_length", "512", "--mem_len", str(MEM_LEN),
+             "--rel_bias_impl", "stream"], fs),
+        "xlnet_driver_mem512": (
+            ["--max_seq_length", "512", "--mem_len", str(MEM_LEN)], dict(
+                attn_fwd_relik_fs=layers * (n_train + n_eval),
+                attn_bwd_relik_fs=3 * layers * n_train)),
+        "xlnet_driver_mem50": (
+            ["--mem_len", "50"], dict(
+                attn_fwd_rel=layers * (n_train + n_eval),
+                attn_bwd_rel_saved=layers * n_train)),
+    }
+    counts = {}
+    for path, (extra, launches) in runs.items():
+        argv = ["--model", "xlnet-base-cased", "--dataset", "mosi",
+                "--synthetic", "--synthetic_sizes", *map(str, LONG_SPLITS),
+                "--n_epochs", "1", "--attention_impl", "fused",
+                "--compute_dtype", "bfloat16", "--seed", str(args.seed),
+                *extra]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts[path] = run_driver(argv, fa, card)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = _want(fa, **launches)
+        print(f"kernel launches in {path}: {counts[path]} (want {want}: "
+              f"{n_train} train + {n_eval} dev/test batches, {layers} "
+              f"layers); peak device memory {peak:.2f} GiB "
+              "(torch.cuda.max_memory_allocated)")
+        if counts[path] != want:
+            raise AssertionError(f"{path} launches {counts[path]} != {want}")
+    xlnet_fs_grad_check(args, rng, fa, card)
+    xlnet_long_step_profile(args, rng, card, "stream")
+    return counts
+
+
+def xlnet_fs_grad_check(args, rng, fa, card):
+    """Phase 6e: at dropout 0, from one copy of the weights, one training
+    step at S = 1024, batch XLNET_FS_CHECK_BATCH, ``rel_bias_impl=
+    "stream"``: fused (#16/#17) against einsum leaf by leaf within
+    XLNET_GRAD_GAP_TOL; then the same step with debias zeroed in #17's
+    output, which must break it (r, r_r_bias, seg_embed and r_s_bias lose
+    their score gradient)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(), dropout=0.0,
+                              summary_last_dropout=0.0,
+                              rel_bias_impl="stream")
+    mm = MultimodalConfig(injection_index=1, dropout_prob=0.0)
+    weights = _xlnet(cfg, mm, "fused", args.seed + 41).state_dict()
+    batch = _device_batch(make_xlnet_split(
+        rng, XLNET_FS_CHECK_BATCH, 1024, cfg.vocab_size, ds.visual_dim,
+        ds.acoustic_dim).as_tuple())
+    step = make_train_step()
+
+    def one_step(impl):
+        m = _xlnet(cfg, mm, impl, 0, weights)
+        st = Trainer(model=m, tx=make_optimizer(1e-5, 10, 0.1)
+                     ).create_state_from_params(None, args.seed)
+        _zero_counts(fa)
+        step(st, batch)
+        return _grad_pieces(m), _counts(fa)
+
+    grads = {"einsum": one_step("einsum")[0]}
+    torch.cuda.empty_cache()
+    grads["fused"], launches = one_step("fused")
+    want = _want(fa, attn_fwd_rel_fs=cfg.n_layer,
+                 attn_bwd_rel_fs=2 * cfg.n_layer)
+    if launches != want:
+        raise AssertionError(f"S=1024 stream check step launches {launches} "
+                             f"!= {want}")
+    real = fa.attn_bwd_rel_fs
+    fault = "planted fault: debias zeroed in #17"
+
+    def faulty(*a, **kw):
+        dq, dk, dv, debias = real(*a, **kw)
+        return dq, dk, dv, torch.zeros_like(debias)
+
+    fa.attn_bwd_rel_fs = faulty
+    try:
+        grads[fault] = one_step("fused")[0]
+    finally:
+        fa.attn_bwd_rel_fs = real
+    for name in ("fused", fault):
+        gaps = _grad_gaps(grads[name], grads["einsum"])
+        print(f"  XLNet S=1024 stream B={XLNET_FS_CHECK_BATCH} step-1 "
+              f"gradients, {name} vs einsum: worst pieces " + ", ".join(
+                  f"{k_} {v_:.3e}" for k_, v_ in gaps[:4])
+              + f" (bound {XLNET_GRAD_GAP_TOL})")
+        fails = gaps[0][1] > XLNET_GRAD_GAP_TOL
+        if fails != name.startswith("planted"):
+            raise AssertionError(f"XLNet S=1024 stream step-1 gradients, "
+                                 f"{name}: worst gap {gaps[0]} against "
+                                 f"{XLNET_GRAD_GAP_TOL}")
 
 
 def main() -> int:
@@ -2750,6 +3178,17 @@ def main() -> int:
     check_relik_mask(rng, fa)
     long_rel_times = time_long_rel_kernels(rng, fa, card)
 
+    # 3g. The rel flash-streamed kernels against plain, on the card
+    rel_fs_errs = {}
+    for dtype_name, b, q_len, k_len in REL_FS_CASES:
+        for rate in (RATE, 0.0):
+            for k_, v_ in check_rel_fs_kernels(rng, fa, dtype_name, b, q_len,
+                                               k_len, rate).items():
+                rel_fs_errs[k_] = max(rel_fs_errs.get(k_, 0.0), v_)
+    torch.cuda.empty_cache()
+    check_rel_fs_against_hb(rng, fa)
+    rel_fs_times = time_rel_fs_kernels(rng, fa, card)
+
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -2791,6 +3230,10 @@ def main() -> int:
     # 4e. Long-sequence XLNet serving (S = 640, 1024)
     xlnet_long_serve_counts = xlnet_long_serving(args, rng, fa, card)
 
+    # 4f. XLNet serving through the rel fs tier: stream at S = 1024, and
+    # the memory at S = 512
+    xlnet_fs_serve_counts = xlnet_fs_serving(args, rng, fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
@@ -2823,6 +3266,10 @@ def main() -> int:
     # --rel_bias_impl stream at 512; the gradient check; a long-S step
     xlnet_long_driver_counts = xlnet_long_driver_path(args, rng, fa, card)
 
+    # 6e. The XLNet driver through the rel fs tier and with --mem_len; the
+    # S=1024 stream gradient check
+    xlnet_fs_driver_counts = xlnet_fs_driver_path(args, rng, fa, card)
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -2839,7 +3286,11 @@ def main() -> int:
                  "xlnet_serving_s640": xlnet_long_serve_counts[640][name],
                  "xlnet_serving_s1024": xlnet_long_serve_counts[1024][name],
                  **{path: c[name] for path, c in
-                    xlnet_long_driver_counts.items()}}
+                    xlnet_long_driver_counts.items()},
+                 **{path: c[name] for path, c in
+                    xlnet_fs_serve_counts.items()},
+                 **{path: c[name] for path, c in
+                    xlnet_fs_driver_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -2965,6 +3416,18 @@ def main() -> int:
     kernels[-1]["launches_note"] = ("three kernel launches a call: the dK/dV "
                                     "pass, the drw/drr/ded/dr-window pass and "
                                     "the dr sum over the batch")
+    for name, line, tag in (("attn_fwd_rel_fs", 1661, "#16"),
+                            ("attn_bwd_rel_fs", 1722, "#17")):
+        total, paths = by_path(name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": f"{tpu}fused_attention.py:{line}",
+            "launches": total, "launches_by_path": paths,
+            "max_abs_err": rel_fs_errs[tag],
+            **rel_fs_times[name],
+            "shape": f"bf16 B={TRAIN_BATCH} Q=K=1024 H=12 Dh=64 rate 0"})
+    kernels[-1]["launches_note"] = ("two kernel launches a call: the dK/dV "
+                                    "pass and the dQ/debias pass")
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

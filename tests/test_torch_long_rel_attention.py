@@ -4,7 +4,10 @@ plain versions on the CPU, against the JAX package's
 ``fused_rel_attention_ingredients`` on its fs tier and
 ``_fused_rel_attention_hb`` (Pallas, interpret mode); the tier rule
 ``rel_tier`` and the model's ingredients eligibility; the dropout stream;
-and the tiny MAG-XLNet at S = 256 and 768 against the JAX einsum model.
+and the tiny MAG-XLNet at S = 256 and 768 against the JAX einsum model
+(at 768 under ``rel_bias_impl="stream"`` through the rel flash-streamed
+tier, #16/#17; ``tests/test_torch_rel_fs_attention.py`` holds that tier's
+kernels to JAX).
 
 Tolerances: the ingredients fs tier against JAX 5e-5 (values and grads,
 atol and rtol), the band of the JAX package's own test of that tier
@@ -33,7 +36,8 @@ SCALE = 1.0 / DH ** 0.5
 IK_TOL, HB_TOL = 5e-5, 1e-5
 PLAIN = ("attn_fwd_rel_reference", "attn_bwd_rel_reference",
          "attn_bwd_rel_saved_reference", "attn_fwd_rel_hb_reference",
-         "attn_bwd_rel_hb_reference", "attn_fwd_relik_fs_reference",
+         "attn_bwd_rel_hb_reference", "attn_fwd_rel_fs_reference",
+         "attn_bwd_rel_fs_reference", "attn_fwd_relik_fs_reference",
          "attn_bwd_relik_fs_reference")
 
 
@@ -229,16 +233,20 @@ def test_rel_tier_at_its_edges(q_len, k_len, grad, ik, tier, ran,
 
 
 def test_rel_tier_raises_past_the_head_blocked_reach():
-    """Without the ingredients, past 640 the port has no rel tier yet: the
-    tier rule and the entry raise naming ROADMAP B.6 (the rel fs tier)."""
+    """Without the ingredients, past 640 the rule no longer raises: it
+    takes the rel flash-streamed tier (#16/#17), with a gradient and
+    without; the entry runs its plain forward there."""
     for q_len, k_len in ((641, 641), (8, 641)):
-        with pytest.raises(NotImplementedError, match=r"B\.6"):
-            tfa.rel_tier(q_len, k_len, 64, True, False)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match=r"B\.6"):
-        tfa.fused_rel_attention(
+        for grad in (True, False):
+            assert tfa.rel_tier(q_len, k_len, 64, grad, False) == "fs"
+    before = _calls()
+    with torch.no_grad():
+        out = tfa.fused_rel_attention(
             torch.zeros(1, 4, 64), torch.zeros(1, 641, 64),
             torch.zeros(1, 641, 64), torch.zeros(1, 1, 4, 641), n_heads=1,
             scale=1.0)
+    assert _ran(before) == {"attn_fwd_rel_fs_reference": 1}
+    assert tuple(out.shape) == (1, 4, 64) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("kw,err,match", [
@@ -360,6 +368,10 @@ def test_tiny_xlnet_long_sequence_matches_jax(s, impl, tier):
     same params. With a gradient the fused branch takes the ingredients
     tier under ``rel_bias_impl="auto"`` and the head-blocked tier under
     ``"stream"``."""
+    _tiny_xlnet_matches_jax(s, impl, tier)
+
+
+def _tiny_xlnet_matches_jax(s, impl, tier):
     import jax
     import jax.numpy as jnp
 
@@ -416,14 +428,11 @@ def test_tiny_xlnet_long_sequence_matches_jax(s, impl, tier):
 
 
 def test_tiny_xlnet_stream_raises_past_the_head_blocked_reach():
-    """``rel_bias_impl="stream"`` at S = 768 has no tier until ROADMAP
-    B.6; the model raises rather than fall back to einsum math."""
-    ids, vis, ac, mask, segs = _xlnet_inputs(1, 768, seed=2)
-    model = _xlnet_model("fused", rel_bias_impl="stream")
-    with pytest.raises(NotImplementedError, match=r"B\.6"):
-        model(*(torch.from_numpy(a) for a in (ids, vis, ac)),
-              attention_mask=torch.from_numpy(mask),
-              token_type_ids=torch.from_numpy(segs))
+    """``rel_bias_impl="stream"`` at S = 768, past the head-blocked reach,
+    no longer raises: every layer takes the rel flash-streamed tier
+    (#16/#17's plain versions), and the logits and one step's gradients
+    match the JAX einsum model as on the other tiers."""
+    _tiny_xlnet_matches_jax(768, "stream", "rel_fs")
 
 
 @pytest.mark.parametrize("kw,call_kw,tier", [

@@ -294,8 +294,8 @@ def test_entry_picks_the_backward_and_saves_nothing_without_grad(
 def test_entry_raises_past_the_kernels_reach():
     """Past the full-H kernels' reach (K > 512, or a backward past
     ``rel_bwd_fits``) the entry takes the head-blocked tier (#14/#15) up to
-    ``HB_MAX_SEQ_LEN``; past that it raises naming ROADMAP B.6 (the rel
-    flash-streamed tier), never falling back to einsum math."""
+    ``HB_MAX_SEQ_LEN``; past that, where it used to raise, the
+    flash-streamed tier (#16/#17) at any Q and K; never einsum math."""
     def zeros(q_len, k_len, grad=False):
         xs = [torch.zeros(1, q_len, D), torch.zeros(1, k_len, D),
               torch.zeros(1, k_len, D), torch.zeros(1, H, q_len, k_len)]
@@ -303,23 +303,24 @@ def test_entry_raises_past_the_kernels_reach():
 
     def ran(*args, **kw):
         names = ("attn_fwd_rel_reference", "attn_fwd_rel_hb_reference",
-                 "attn_bwd_rel_hb_reference")
+                 "attn_bwd_rel_hb_reference", "attn_fwd_rel_fs_reference",
+                 "attn_bwd_rel_fs_reference")
         before = [getattr(tfa, n).calls for n in names]
         out = tfa.fused_rel_attention(*args, n_heads=H, scale=1.0, **kw)
         if out.requires_grad:
             out.sum().backward()
         return [getattr(tfa, n).calls - c for n, c in zip(names, before)]
 
-    assert ran(*zeros(4, tfa.MAX_SEQ_LEN + 1)) == [0, 1, 0]
+    assert ran(*zeros(4, tfa.MAX_SEQ_LEN + 1)) == [0, 1, 0, 0, 0]
     assert tfa.rel_bwd_fits(141, 141, 64) and not tfa.rel_bwd_fits(142, 142,
                                                                     64)
     assert tfa.rel_bwd_smem_bytes(50, 50, 64) == 4 * (100 * 65 + 2 * 2500)
-    assert ran(*zeros(200, 200, grad=True)) == [0, 1, 1]
+    assert ran(*zeros(200, 200, grad=True)) == [0, 1, 1, 0, 0]
     with torch.no_grad():  # the forward alone keeps its K ≤ 512 reach
-        assert ran(*zeros(200, 200, grad=True)) == [1, 0, 0]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP B\.6\)$"):
-        tfa.fused_rel_attention(*zeros(4, tfa.HB_MAX_SEQ_LEN + 1),
-                                n_heads=H, scale=1.0)
+        assert ran(*zeros(200, 200, grad=True)) == [1, 0, 0, 0, 0]
+    assert ran(*zeros(4, tfa.HB_MAX_SEQ_LEN + 1)) == [0, 0, 0, 1, 0]
+    assert ran(*zeros(4, tfa.HB_MAX_SEQ_LEN + 1, grad=True)) == [
+        0, 0, 0, 1, 1]
 
 
 @pytest.mark.parametrize("kw,err,match", [

@@ -370,17 +370,34 @@ def test_dropout_forward_is_seeded(jparams):
     ({"rel_bias_impl": "inkernel"}, "B.7"),
     ({"tp_attention_mesh": object()}, "A.10")])
 def test_unported_config_options_raise(kw, item):
+    """An option whose item is still open raises naming it; the memory's
+    options (A.8, ported) build a config that keeps them."""
+    if item == "A.8":
+        cfg = XLNetConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+        return
     with pytest.raises(NotImplementedError, match=item):
         XLNetConfig(**kw)
 
 
 def test_unported_forward_options_raise(jparams):
+    """remat and flash still raise. The memory's forward options (ported)
+    run: ``mems`` widen the keys to mlen + Q and match the JAX model's
+    logits; ``use_cache`` with ``config.mem_len`` returns one new [B,
+    mem_len, D] memory per layer, and without it the memory slot is None,
+    as in JAX."""
     _, tmodel = _pair(jparams)
+    jmodel, tmem = _pair(jparams, mem_len=2)
     ids, vis, ac, mask, segs, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tmodel(*_t(ids, vis, ac), mems=[torch.zeros(B, 2, 32)] * 2)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tmodel(*_t(ids, vis, ac), use_cache=True)
+    mems = np.random.RandomState(9).randn(2, B, 2, 32).astype(np.float32)
+    want = jmodel.apply({"params": jparams}, ids, vis, ac,
+                        mems=tuple(mems))
+    got = tmodel(*_t(ids, vis, ac), mems=list(_t(*mems)))
+    _close(got, want)
+    logits, new_mems = tmem(*_t(ids, vis, ac), use_cache=True)
+    assert [tuple(m.shape) for m in new_mems] == [(B, 2, 32)] * 2
+    assert not any(m.requires_grad for m in new_mems)
+    assert tmodel(*_t(ids, vis, ac), use_cache=True)[1] is None
     with pytest.raises(NotImplementedError, match="A.14"):
         txl.MagXLNetForSequenceClassification(
             XLNetConfig.tiny(), MultimodalConfig(), DV, DA, remat=True,
