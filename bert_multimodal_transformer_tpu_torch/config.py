@@ -166,8 +166,9 @@ class XLNetConfig:
     # full-H kernels reach and past them hands the kernels the bias
     # ingredients (the flash-streamed ingredients kernels, any length),
     # where bi attention without bi_data allows; else as "stream".
-    # "inkernel" (the full-H ingredients kernels) waits for ROADMAP B.7 and
-    # raises.
+    # "inkernel" hands the kernels the ingredients at every length where
+    # they are eligible (the full-H ingredients kernels while they reach,
+    # then the flash-streamed ones); else as "stream" (rel_tier).
     rel_bias_impl: str = "auto"
     # One [D, 3·H·Dh] projection for q/k/v in place of three (same math).
     pack_qkv: bool = False
@@ -183,10 +184,6 @@ class XLNetConfig:
             raise ValueError(
                 f"unknown rel_bias_impl {self.rel_bias_impl!r} "
                 "(auto | stream | inkernel)")
-        if self.rel_bias_impl == "inkernel":
-            raise NotImplementedError(
-                "rel_bias_impl='inkernel': the ingredients rel-attention "
-                "kernels are not ported yet (ROADMAP B.7)")
         if self.tp_attention_mesh is not None:
             raise NotImplementedError(
                 "tp_attention_mesh: tensor-parallel attention is not ported "

@@ -1,10 +1,11 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the Philox4x32-10
-// dropout stream, the whole-row forward's blocks (#1 and #4 packed, #11
-// and #14 rel), the recompute backward's softmax rows (#2, #5, #12, #15)
-// and the small shared-memory products of the backward kernels (the
-// attention kernels: attn_{fwd,bwd}_packed*.cu, attn_{fwd,bwd}_rel*.cu and
-// attn_{fwd,bwd}_relik_fs.cu).
+// dropout stream, the whole-row forward's blocks (#1 and #4 packed, #11,
+// #14 and #20 rel), the recompute backward's softmax rows (#2, #5, #12,
+// #15, #21), the small shared-memory products of the backward kernels, and
+// the ingredients kernels' score and full-H backward tail (the attention
+// kernels: attn_{fwd,bwd}_packed*.cu, attn_{fwd,bwd}_rel*.cu and
+// attn_{fwd,bwd}_relik*.cu).
 //
 // The dropout stream. Element (b, h, q, k) of the [B, H, Q, K] probs is
 // kept iff its 32-bit draw is >= threshold, where
@@ -269,7 +270,9 @@ __device__ __forceinline__ void fwd_packed_rows(
 // keep mask, the probs rounded to T, PV in fp32 registers. #11 runs it with
 // 16-row tiles up to K = 512 and the save modes; #14 with 32-row tiles up
 // to K = 640. A row's arithmetic does not depend on kQTile, so the two give
-// the same bits where both reach.
+// the same bits where both reach. Everything after the scores
+// (`fwd_rel_softmax_pv`) is #20's too, which builds its scores from the
+// bias ingredients (attn_fwd_relik.cu).
 
 // Shared memory in floats: q tile [kQTile][dh], k/v chunk
 // [kFwdKChunk][dh + 1], scores [kQTile][k_len].
@@ -279,59 +282,24 @@ __host__ __device__ inline size_t rel_fwd_smem_floats(int k_len, int dh) {
          (size_t)kQTile * k_len;
 }
 
+// The whole-row rel forward's tail (#11, #14 and #20), after a block's
+// scores are in ps [kQTile][K] (fp32, rows q0 .. q0 + q_rows − 1 of head h,
+// batch row b): the softmax one warp per row, the Philox keep mask, the
+// probs rounded to T (with kSave, p and pd written to rows head_row + q of
+// p_out and pd_out), and PV in fp32 registers with v_base's rows (row
+// stride D) streamed in kFwdKChunk-row chunks through kvs
+// [kFwdKChunk][Dh + 1]; out_base[q · D + c] receives the output. It starts
+// with a barrier, so the caller's score writes are visible.
 template <typename T, int kQTile, bool kDropout, bool kSave>
-__device__ __forceinline__ void fwd_rel_rows(
-    float* smem, const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ ebias, T* __restrict__ out,
-    T* __restrict__ p_out, T* __restrict__ pd_out, int Q, int K, int H,
-    int Dh, float scale, DropoutArgs drop) {
+__device__ __forceinline__ void fwd_rel_softmax_pv(
+    float* kvs, float* ps, const T* __restrict__ v_base,
+    T* __restrict__ out_base, T* __restrict__ p_out, T* __restrict__ pd_out,
+    size_t head_row, int q0, int q_rows, int K, int D, int Dh, int b, int h,
+    DropoutArgs drop) {
   constexpr int kAccPerThread =
       (kQTile * kFwdMaxDh + kFwdThreads - 1) / kFwdThreads;
-  const int D = H * Dh;
-  const int q0 = blockIdx.x * kQTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ldkv = Dh + 1;
-
-  float* qs = smem;                            // [kQTile][Dh]
-  float* kvs = qs + kQTile * Dh;               // [kFwdKChunk][Dh + 1]
-  float* ps = kvs + kFwdKChunk * ldkv;         // [kQTile][K]
-
-  const T* q_base = q + (size_t)b * Q * D + h * Dh;
-  const T* k_base = k + (size_t)b * K * D + h * Dh;
-  const T* v_base = v + (size_t)b * K * D + h * Dh;
-  // row q of ebias[b, h] and of the saved probs starts at head_row + q·K
-  const size_t head_row = ((size_t)b * H + h) * Q;
-  const int q_rows = min(kQTile, Q - q0);
-
-  // q tile; rows past Q are zero-filled and never written out.
-  for (int i = tid; i < kQTile * Dh; i += kFwdThreads) {
-    const int r = i / Dh, c = i - r * Dh;
-    qs[i] = r < q_rows ? to_float(q_base[(size_t)(q0 + r) * D + c]) : 0.0f;
-  }
-
-  // Scores: s[r][j] = (q_r · k_j) · scale + ebias[q0 + r][j], over K in
-  // chunks.
-  for (int k0 = 0; k0 < K; k0 += kFwdKChunk) {
-    const int k_rows = min(kFwdKChunk, K - k0);
-    __syncthreads();  // previous chunk's readers are done (and qs set)
-    for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
-      const int r = i / Dh, c = i - r * Dh;
-      kvs[r * ldkv + c] = to_float(k_base[(size_t)(k0 + r) * D + c]);
-    }
-    __syncthreads();
-    for (int i = tid; i < q_rows * k_rows; i += kFwdThreads) {
-      const int r = i / k_rows, j = i - r * k_rows;
-      const float* qr = qs + r * Dh;
-      const float* kr = kvs + j * ldkv;
-      float acc = 0.0f;
-      for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
-      const float eb = to_float(ebias[(head_row + q0 + r) * K + k0 + j]);
-      // Scale after the dot, then add the bias, in this order.
-      ps[r * K + k0 + j] = __fadd_rn(__fmul_rn(acc, scale), eb);
-    }
-  }
   __syncthreads();
 
   // fp32 max-subtracted softmax, one warp per row; probs rounded to T.
@@ -407,7 +375,6 @@ __device__ __forceinline__ void fwd_rel_rows(
       }
     }
   }
-  T* out_base = out + (size_t)b * Q * D + h * Dh;
 #pragma unroll
   for (int a = 0; a < kAccPerThread; ++a) {
     const int i = tid + a * kFwdThreads;
@@ -417,6 +384,62 @@ __device__ __forceinline__ void fwd_rel_rows(
         out_base[(size_t)(q0 + r) * D + c] = from_float<T>(acc[a]);
     }
   }
+}
+
+template <typename T, int kQTile, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_rel_rows(
+    float* smem, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ ebias, T* __restrict__ out,
+    T* __restrict__ p_out, T* __restrict__ pd_out, int Q, int K, int H,
+    int Dh, float scale, DropoutArgs drop) {
+  const int D = H * Dh;
+  const int q0 = blockIdx.x * kQTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ldkv = Dh + 1;
+
+  float* qs = smem;                            // [kQTile][Dh]
+  float* kvs = qs + kQTile * Dh;               // [kFwdKChunk][Dh + 1]
+  float* ps = kvs + kFwdKChunk * ldkv;         // [kQTile][K]
+
+  const T* q_base = q + (size_t)b * Q * D + h * Dh;
+  const T* k_base = k + (size_t)b * K * D + h * Dh;
+  const T* v_base = v + (size_t)b * K * D + h * Dh;
+  // row q of ebias[b, h] and of the saved probs starts at head_row + q·K
+  const size_t head_row = ((size_t)b * H + h) * Q;
+  const int q_rows = min(kQTile, Q - q0);
+
+  // q tile; rows past Q are zero-filled and never written out.
+  for (int i = tid; i < kQTile * Dh; i += kFwdThreads) {
+    const int r = i / Dh, c = i - r * Dh;
+    qs[i] = r < q_rows ? to_float(q_base[(size_t)(q0 + r) * D + c]) : 0.0f;
+  }
+
+  // Scores: s[r][j] = (q_r · k_j) · scale + ebias[q0 + r][j], over K in
+  // chunks.
+  for (int k0 = 0; k0 < K; k0 += kFwdKChunk) {
+    const int k_rows = min(kFwdKChunk, K - k0);
+    __syncthreads();  // previous chunk's readers are done (and qs set)
+    for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
+      const int r = i / Dh, c = i - r * Dh;
+      kvs[r * ldkv + c] = to_float(k_base[(size_t)(k0 + r) * D + c]);
+    }
+    __syncthreads();
+    for (int i = tid; i < q_rows * k_rows; i += kFwdThreads) {
+      const int r = i / k_rows, j = i - r * k_rows;
+      const float* qr = qs + r * Dh;
+      const float* kr = kvs + j * ldkv;
+      float acc = 0.0f;
+      for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
+      const float eb = to_float(ebias[(head_row + q0 + r) * K + k0 + j]);
+      // Scale after the dot, then add the bias, in this order.
+      ps[r * K + k0 + j] = __fadd_rn(__fmul_rn(acc, scale), eb);
+    }
+  }
+  fwd_rel_softmax_pv<T, kQTile, kDropout, kSave>(
+      kvs, ps, v_base, out + (size_t)b * Q * D + h * Dh, p_out, pd_out,
+      head_row, q0, q_rows, K, D, Dh, b, h, drop);
 }
 
 // ---- the recompute backward's softmax rows (kernels #2, #5, #12, #15) ---
@@ -586,7 +609,7 @@ struct NoDsOut {
   __device__ __forceinline__ void operator()(int, float) const {}
 };
 
-// ---- the ingredients rel kernels (#23, #24) ------------------------------
+// ---- the ingredients rel kernels (#20-#24) -------------------------------
 //
 // The score of query q against key k is assembled from its ingredients:
 //   s = ((rw_q · k_k) · scale + rr_q · r[Q − q + k]) + ed_q · segd[q][k]
@@ -628,6 +651,126 @@ __device__ __forceinline__ float relik_score(const float* rw_r,
   return __fadd_rn(
       __fadd_rn(__fadd_rn(__fmul_rn(ac, scale), bd), __fmul_rn(ed, segd)),
       maskb);
+}
+
+// ---- the full-H ingredients rel backward (#21, #22) ----------------------
+//
+// One block per (head h, batch row b) holds the whole [Q, K] problem, as
+// #12/#13 do, with the bias ingredients beside it. Shared memory, fp32:
+//   as  [Q][Dh+1]        rw, then g, then rw again
+//   bs  [K][Dh+1]        k, then v, then k again
+//   cs  [Q][Dh+1]        rr
+//   win [Q+K−1][Dh+1]    the rows 1 .. Q+K−1 of r that the scores read:
+//                        score (q, k) reads r[Q − q + k], window row
+//                        (Q − 1 − q) + k
+//   ps, tt, us [Q][K]    p (pd), d(pd) then ds_c, ds_u
+
+struct RelikBwdSmem {
+  float* as;
+  float* bs;
+  float* cs;
+  float* win;
+  float* ps;
+  float* tt;
+  float* us;
+};
+
+__host__ __device__ inline size_t relik_bwd_smem_floats(int q, int k,
+                                                        int dh) {
+  return (size_t)(3 * q + 2 * k - 1) * (dh + 1) + 3 * (size_t)q * k;
+}
+
+__device__ __forceinline__ RelikBwdSmem relik_bwd_smem(float* smem, int Q,
+                                                       int K, int Dh) {
+  const int ld = Dh + 1;
+  RelikBwdSmem s;
+  s.as = smem;
+  s.bs = s.as + Q * ld;
+  s.cs = s.bs + K * ld;
+  s.win = s.cs + Q * ld;
+  s.ps = s.win + (Q + K - 1) * ld;
+  s.tt = s.ps + Q * K;
+  s.us = s.tt + Q * K;
+  return s;
+}
+
+// The gradients from d(pd) (in s.tt, with g staged in s.as), shared by the
+// saved-probs and the recompute backward. pd_of(i) and p_of(i) give element
+// i = q·K + k of pd and p in fp32. In order:
+//   t = pd ⊙ d(pd);  ds = t − p · Σ_k t   (one warp per row)
+//   ded[q] = Σ_k ds · segd (fp32 ds);  ds_u = T(ds);  ds_c = T(ds · scale)
+//   dv = T(pd)ᵀ · g
+//   then with rw, k, rr and the r window staged:
+//   drw = ds_c · k;  dk = ds_cᵀ · rw;  drr[q] = Σ_k ds_u[q][k] · r[Q − q + k]
+//   ws_bh[p] = Σ_q ds_u[q][p − Q + q] · rr[q] for every p < P (0 where no
+//   key is in range): this (b, h)'s fp32 slice of the [B, P, D] dr
+//   workspace, written whole, so the workspace needs no zeroing.
+// Row pointers: *_q at (b, query 0, head column h·Dh), *_k at (b, key 0,
+// h·Dh), r_head at column h·Dh, segd_b at segd[b], ded_bh at ded[b, h];
+// row stride D.
+template <typename T, typename PdOf, typename POf>
+__device__ __forceinline__ void relik_bwd_tail(
+    const RelikBwdSmem& s, PdOf pd_of, POf p_of, const T* __restrict__ rw_q,
+    const T* __restrict__ rr_q, const T* __restrict__ r_head,
+    const T* __restrict__ k_k, const T* __restrict__ segd_b,
+    T* __restrict__ drw_q, T* __restrict__ drr_q, T* __restrict__ dk_k,
+    T* __restrict__ dv_k, T* __restrict__ ded_bh, float* __restrict__ ws_bh,
+    int Q, int K, int P, int D, int Dh, float scale) {
+  const int ld = Dh + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int q = warp; q < Q; q += blockDim.x / 32) {
+    float* tr = s.tt + q * K;
+    float sum = 0.0f;
+    for (int k = lane; k < K; k += 32) {
+      const float t = __fmul_rn(pd_of(q * K + k), tr[k]);
+      tr[k] = t;
+      sum += t;
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    float dsd = 0.0f;
+    for (int k = lane; k < K; k += 32) {
+      const float ds = __fsub_rn(tr[k], __fmul_rn(p_of(q * K + k), sum));
+      dsd = fmaf(ds, to_float(segd_b[(size_t)q * K + k]), dsd);
+      s.us[q * K + k] = round_to<T>(ds);
+      tr[k] = round_to<T>(__fmul_rn(ds, scale));
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      dsd += __shfl_xor_sync(0xffffffffu, dsd, o);
+    if (lane == 0) ded_bh[q] = from_float<T>(dsd);
+  }
+  __syncthreads();
+
+  // P ← pd_c = T(pd) for the dV product (g is still in as).
+  for (int i = threadIdx.x; i < Q * K; i += blockDim.x)
+    s.ps[i] = round_to<T>(pd_of(i));
+  __syncthreads();
+  store_mtx(dv_k, (size_t)D, s.ps, s.as, Q, K, Dh);  // dV = pd_cᵀ · g
+  __syncthreads();  // g and v no longer needed: stage rw, k, rr, r
+
+  load_tile(s.as, rw_q, (size_t)D, Q, Dh);
+  load_tile(s.bs, k_k, (size_t)D, K, Dh);
+  load_tile(s.cs, rr_q, (size_t)D, Q, Dh);
+  load_r_window(s.win, r_head, D, P, 1, Q + K - 1, Dh);
+  __syncthreads();
+  store_mx(drw_q, (size_t)D, s.tt, s.bs, Q, K, Dh);   // drw = ds_c · k
+  store_mtx(dk_k, (size_t)D, s.tt, s.as, Q, K, Dh);   // dk = ds_cᵀ · rw
+  for (int i = threadIdx.x; i < Q * Dh; i += blockDim.x) {
+    const int q = i / Dh, c = i - q * Dh;
+    const float* ur = s.us + q * K;
+    const float* wr = s.win + (Q - 1 - q) * ld + c;
+    float acc = 0.0f;
+    for (int k = 0; k < K; ++k) acc = fmaf(ur[k], wr[k * ld], acc);
+    drr_q[(size_t)q * D + c] = from_float<T>(acc);
+  }
+  for (int i = threadIdx.x; i < P * Dh; i += blockDim.x) {
+    const int p = i / Dh, c = i - p * Dh;
+    const int q_lo = max(0, Q - p), q_hi = min(Q, Q + K - p);
+    float acc = 0.0f;
+    for (int q = q_lo; q < q_hi; ++q)
+      acc = fmaf(s.us[q * K + p - Q + q], s.cs[q * ld + c], acc);
+    ws_bh[(size_t)p * D + c] = acc;
+  }
 }
 
 // Opt a kernel into `kMaxSmemBytes` of dynamic shared memory, once per

@@ -61,8 +61,6 @@ FAMILY_ERRORS = (
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--rel_bias_impl inkernel", lambda a: a.rel_bias_impl == "inkernel",
-     "B.7"),
     ("--vocab *.model (SentencePiece)",
      lambda a: _xlnet(a) and (a.vocab or "").endswith(".model"), "A.15"),
     ("--checkpoint_dir", lambda a: a.checkpoint_dir is not None, "A.6"),
@@ -168,8 +166,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "stream", "inkernel"],
                    help="XLNet only: auto = the ingredients kernels "
                         "past the full-H reach, stream = an assembled bias "
-                        "(head-blocked to 640, flash-streamed past it); "
-                        "inkernel is not ported yet (ROADMAP B.7)")
+                        "(head-blocked to 640, flash-streamed past it), "
+                        "inkernel = the ingredients kernels at every length "
+                        "(full-H while they reach)")
     p.add_argument("--mem_len", type=int, default=0,
                    help="XLNet segment recurrence: carry Transformer-XL "
                         "memory of this many positions across the batch "

@@ -20,12 +20,14 @@ Attention, per layer and stream (``XLNetRelativeAttention._rel_attn_core``):
   #15) and the flash-streamed one (#16, #17) the score bias ebias =
   rel_shift(bd) + ef + mask_bias is assembled here at the compute dtype
   with the scale folded into rr/rs, and ``fused_rel_attention`` runs the
-  QK dot, softmax, dropout and PV. Past the full-H reach under
-  ``rel_bias_impl="auto"`` (bi attention without ``bi_data``) the kernels
-  take the bias ingredients instead (``fused_rel_attention_ingredients``,
-  #23 and #24: the JAX model's long-S path), and nothing [B, H, Q, K]-sized
-  is built. ``head_mask`` and ``output_attentions`` take the einsum branch,
-  as in the JAX package.
+  QK dot, softmax, dropout and PV. Where bi attention without ``bi_data``
+  allows, the kernels take the bias ingredients instead
+  (``fused_rel_attention_ingredients``) and nothing [B, H, Q, P]-sized is
+  built: under ``rel_bias_impl="inkernel"`` at every length (the full-H
+  ingredients kernels #20-#22 while they reach, then #23 and #24), under
+  "auto" past the full-H reach (#23, #24: the JAX model's long-S path).
+  ``head_mask`` and ``output_attentions`` take the einsum branch, as in
+  the JAX package.
 
 The memory (segment recurrence, JAX ``models/xlnet.py``): ``mems`` (one
 [B, mlen, D] per layer) are prepended to each layer's keys and values, so
@@ -179,20 +181,23 @@ class XLNetRelativeAttention(nn.Module):
             bsz, qlen, h, dh = q_head.shape
             rw = (q_head.reshape(bsz, qlen, h * dh)
                   + self.r_w_bias.reshape(-1)).to(dt)
-            # The ingredients tier needs the relative shift's P ≥ Q + K (bi
+            # The ingredients tiers need the relative shift's P ≥ Q + K (bi
             # attention; uni's P = K + 1 does not reach) and one position
             # stream for the batch (not bi_data's [B, P, D]).
-            ingredients_ok = (cfg.rel_bias_impl == "auto"
+            ingredients_ok = (cfg.rel_bias_impl in ("auto", "inkernel")
                               and k_head_r.dim() == 3
                               and k_head_r.shape[0] >= qlen + klen)
             grad = torch.is_grad_enabled() and any(
                 x.requires_grad for x in (
                     q_head, k_head, v_head, k_head_r, self.r_w_bias,
                     self.r_r_bias, self.r_s_bias, self.seg_embed))
-            if rel_tier(qlen, klen, dh, grad, ingredients_ok) == "ik_fs":
+            tier = rel_tier(qlen, klen, dh, grad, ingredients_ok,
+                            inkernel=cfg.rel_bias_impl == "inkernel")
+            if tier in ("ik_full", "ik_fs"):
                 return self._ingredients_core(
                     rw, q_head, k_head, v_head, k_head_r, seg_mat, attn_mask,
-                    deterministic, rngs, mask_bias, seg_diff)
+                    deterministic, rngs, mask_bias, seg_diff,
+                    tier=tier.removeprefix("ik_"))
             rr = ((q_head + self.r_r_bias) * scale).to(dt)
             # Products in dt: fp32 accumulation rounded once to dt, as the
             # JAX preferred_element_type=f32 einsums cast to dt (bd at
@@ -251,13 +256,14 @@ class XLNetRelativeAttention(nn.Module):
 
     def _ingredients_core(self, rw, q_head, k_head, v_head, k_head_r,
                           seg_mat, attn_mask, deterministic, rngs,
-                          mask_bias, seg_diff):
-        """The fused branch's long-S tier (JAX ``models/xlnet.py``
+                          mask_bias, seg_diff, tier):
+        """The fused branch's ingredients tiers (JAX ``models/xlnet.py``
         :254-318): the score-bias ingredients at the compute dtype, for
-        ``fused_rel_attention_ingredients`` (#23, #24). rr carries the
-        scale; ed = scale·(q + r_s_bias)·(seg₁ − seg₀) is the segment delta
-        (the ef₀ term it leaves out is constant along the keys); zeros
-        stand in for a missing seg_mat or mask, as in JAX."""
+        ``fused_rel_attention_ingredients`` on ``tier`` ("full": #20-#22,
+        "fs": #23, #24). rr carries the scale; ed = scale·(q + r_s_bias)·
+        (seg₁ − seg₀) is the segment delta (the ef₀ term it leaves out is
+        constant along the keys); zeros stand in for a missing seg_mat or
+        mask, as in JAX."""
         cfg = self.config
         dt = self.dtype
         scale = 1.0 / (cfg.d_head ** 0.5)
@@ -288,7 +294,7 @@ class XLNetRelativeAttention(nn.Module):
             segd.expand(bsz, qlen, klen), maskb.expand(bsz, qlen, klen),
             n_heads=h, scale=scale, dropout_rate=cfg.dropout,
             dropout_rng=rngs.host if train else None,
-            deterministic=deterministic)
+            deterministic=deterministic, tier=tier)
         return ctx.reshape(bsz, qlen, h, dh)
 
     def _post_attention(self, h, attn_vec, deterministic, rngs):

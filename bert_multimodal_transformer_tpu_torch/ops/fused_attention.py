@@ -1,8 +1,9 @@
 """Packed and rel attention, forward and backward (port of
 ``ops/fused_attention.py``'s ``fused_attention_packed`` and
 ``fused_rel_attention`` in their full-H, head-blocked and flash-streamed
-tiers, and ``fused_rel_attention_ingredients`` on its flash-streamed tier:
-prob dropout, saved probs, and the backward kernels of each).
+tiers, and ``fused_rel_attention_ingredients`` in its full-H and
+flash-streamed tiers: prob dropout, saved probs, and the backward kernels
+of each).
 
 The packed kernels, each with its plain PyTorch version beside it:
 
@@ -33,8 +34,10 @@ The rel kernels #11, #13 and #12 (``attn_fwd_rel_cuda``,
 ``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``), their head-blocked
 tier #14/#15 and their flash-streamed tier #16/#17 are the packed tiers'
 twins for separate q [B, Q, D] and k, v [B, K, D] under a full
-differentiable score bias ebias [B, H, Q, K] in place of the [B, S] mask
-(the sections at the end of this module).
+differentiable score bias ebias [B, H, Q, K] in place of the [B, S] mask;
+the ingredients kernels #20-#22 (full-H) and #23/#24 (flash-streamed)
+build that bias themselves from its ingredients (the sections at the end
+of this module).
 
 Each CUDA wrapper launches on PyTorch's current stream and counts its
 launches in ``<wrapper>.launches``; each packed plain version counts its
@@ -1024,12 +1027,19 @@ def attn_fwd_rel_reference(
     the dropped probs rounded for a PV product accumulated in fp32.
     Returns out [B, Q, D], or (out, p, pd) [B, H, Q, K] with ``save`` (pd
     is p at rate 0)."""
-    dtype = q.dtype
-    p = _rel_probs(q, k, ebias, n_heads, scale)
+    return _rel_forward(_rel_probs(q, k, ebias, n_heads, scale), v, n_heads,
+                        rate, seed, save)
+
+
+def _rel_forward(p, v, n_heads, rate, seed, save):
+    """#11's and #20's forward from the fp32 probs p [B, H, Q, K]: the
+    Philox mask, the dropped probs rounded to v's dtype for a PV product
+    accumulated in fp32; with ``save`` also p and pd rounded (pd is p at
+    rate 0)."""
+    dtype = v.dtype
     pd = _dropped(p, seed, rate)
-    ctx = torch.matmul(pd.to(dtype).float(),
-                       _ctx_heads(v, n_heads).float()).to(dtype)
-    out = _merge_heads(ctx)
+    out = _merge_heads(torch.matmul(pd.to(dtype).float(),
+                                    _ctx_heads(v, n_heads).float()).to(dtype))
     if not save:
         return out
     p_c = p.to(dtype)
@@ -1571,24 +1581,34 @@ class FusedRelAttentionFS(torch.autograd.Function):
 
 
 def rel_tier(q_len: int, k_len: int, dh: int, grad: bool,
-             ingredients_ok: bool) -> str:
+             ingredients_ok: bool, inkernel: bool = False) -> str:
     """The rel-attention tier at (Q, K, Dh), the twin of ``packed_tier``,
-    keyed by the port's own kernels' reach:
+    keyed by the port's own kernels' reach. Where the bias ingredients are
+    eligible (``ingredients_ok``: the model's ``rel_bias_impl`` "auto" or
+    "inkernel", one [P, D] position stream with P ≥ Q + K, no ``head_mask``
+    and no ``output_attentions``) under ``inkernel`` (the model's
+    ``rel_bias_impl="inkernel"``):
+
+    * "ik_full" (#20, and #22 or #21 with a gradient) while
+      ``relik_full_fits``;
+    * "ik_fs" (#23, and #24) past that, at any length.
+
+    Otherwise:
 
     * "full" (#11, and #13 or #12 with a gradient) while K ≤
       ``MAX_SEQ_LEN`` and, with a gradient, ``rel_bwd_fits``;
-    * "ik_fs" (#23, and #24) past that, where the bias ingredients are
-      eligible (``ingredients_ok``: the model's ``rel_bias_impl="auto"``,
-      one [P, D] position stream with P ≥ Q + K, no ``head_mask`` and no
-      ``output_attentions``), at any length;
+    * "ik_fs" past that where the ingredients are eligible;
     * "hb" (#14, and #15) otherwise, while Q and K ≤ ``HB_MAX_SEQ_LEN``;
     * "fs" (#16, and #17) past that, at any Q and K: the JAX entry's last
       kernel tier (``_fused_rel_attention_fs``).
 
-    Every geometry has a tier. The JAX model takes its ingredients tier
-    only past its VMEM fit of the full-H tier (Q = K = 224 at xlnet-base
-    bf16); the port keys every tier by its kernels' reach instead, as
-    ``packed_tier`` does."""
+    Every geometry has a tier. The JAX model takes its ingredients tiers by
+    its VMEM fits (the full-H one to Q = K = 224 at xlnet-base bf16); the
+    port keys every tier by its kernels' reach instead, as ``packed_tier``
+    does."""
+    if ingredients_ok and inkernel:
+        return ("ik_full" if relik_full_fits(q_len, k_len, dh, grad)
+                else "ik_fs")
     if k_len <= MAX_SEQ_LEN and (not grad or rel_bwd_fits(q_len, k_len, dh)):
         return "full"
     if ingredients_ok:
@@ -1760,10 +1780,9 @@ def attn_bwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, seed, o,
     fp32, each output rounded once to the input dtype. Returns (drw, drr,
     dr, dk, dv, ded)."""
     dtype = rw.dtype
-    b, q_len, d = rw.shape
-    k_len, p_len = k.shape[1], r.shape[0]
-    rwh, rrh, kh, vh, gh, oh = (_ctx_heads(x, n_heads).float()
-                                for x in (rw, rr, k, v, g, o))
+    b, q_len, _ = rw.shape
+    k_len = k.shape[1]
+    vh, gh, oh = (_ctx_heads(x, n_heads).float() for x in (v, g, o))
     delta = (gh * oh).sum(dim=-1, keepdim=True)
     p = torch.exp(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
                                 scale) - lse[..., None])
@@ -1774,7 +1793,23 @@ def attn_bwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, seed, o,
                                  rw.device)
         pd = torch.where(keep, p * inv_keep(rate), 0.0)
         dp = torch.where(keep, dp * inv_keep(rate), 0.0)
-    ds = p * (dp - delta)
+    drw, drr, dr, dk, dv, ded = _relik_grads(
+        p * (dp - delta), pd.to(dtype), rw, rr, r, k, g, segd, n_heads, scale)
+    return drw, drr, dr.to(dtype), dk, dv, ded
+
+
+def _relik_grads(ds, pd_c, rw, rr, r, k, g, segd, n_heads, scale):
+    """The ingredients backward from the fp32 score gradient ds [B, H, Q,
+    K] and the rounded dropped probs pd_c (the JAX ``_relik_grads`` with its
+    callers' dv): ds_c = T(ds·scale), ds_u = T(ds); drw = ds_c·k, dk =
+    ds_cᵀ·rw, dv = pd_cᵀ·g, drr[q] = Σ_k ds_u[q, k]·r[Q − q + k], dr[p] =
+    Σ_{b, q} ds_u[b, q, p − Q + q]·rr[b, q], ded = Σ_k ds·segd, products in
+    fp32. Returns (drw, drr, dr, dk, dv, ded): dr in fp32, the rest rounded
+    once to rw's dtype."""
+    dtype = rw.dtype
+    b, q_len, d = rw.shape
+    k_len, p_len = k.shape[1], r.shape[0]
+    rwh, rrh, kh, gh = (_ctx_heads(x, n_heads).float() for x in (rw, rr, k, g))
     ds_c = (ds * scale).to(dtype).float()
     # ds_u placed at the positions it multiplies: z[q, Q − q + k] = ds_u[q, k]
     z = torch.zeros(b, n_heads, q_len, p_len, device=rw.device)
@@ -1783,9 +1818,9 @@ def attn_bwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, seed, o,
     rh = r.float().reshape(p_len, n_heads, d // n_heads).permute(1, 0, 2)
     drw = _merge_heads(torch.matmul(ds_c, kh)).to(dtype)
     drr = _merge_heads(torch.matmul(z, rh)).to(dtype)
-    dr = torch.einsum("bhqp,bhqf->phf", z, rrh).reshape(p_len, d).to(dtype)
+    dr = torch.einsum("bhqp,bhqf->phf", z, rrh).reshape(p_len, d)
     dk = _merge_heads(torch.matmul(ds_c.transpose(-1, -2), rwh)).to(dtype)
-    dv = _merge_heads(torch.matmul(pd.to(dtype).float().transpose(-1, -2),
+    dv = _merge_heads(torch.matmul(pd_c.float().transpose(-1, -2),
                                    gh)).to(dtype)
     ded = (ds * segd.float()[:, None]).sum(dim=-1).to(dtype)
     return drw, drr, dr, dk, dv, ded
@@ -1802,10 +1837,9 @@ def relik_grads_bf16_bound(refs, rw, rr, r, k, v, ed, segd, maskb, seed,
     scale, |pd|ᵀ·|g|, Σ_k |ds|·|segd|), with |ds| bounded by p·(|dp| +
     |δ|) from the magnitudes of its terms. Returns 2^-7·(|ref| + A) +
     2^-17 for each output."""
-    b, q_len, d = rw.shape
-    k_len, p_len = k.shape[1], r.shape[0]
-    rwh, rrh, kh, vh, gh, oh = (_ctx_heads(x, n_heads).float().abs()
-                                for x in (rw, rr, k, v, g, o))
+    b, q_len, _ = rw.shape
+    k_len = k.shape[1]
+    vh, gh, oh = (_ctx_heads(x, n_heads).float().abs() for x in (v, g, o))
     p = torch.exp(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
                                 scale) - lse[..., None])
     dp = torch.matmul(gh, vh.transpose(-1, -2))
@@ -1815,7 +1849,32 @@ def relik_grads_bf16_bound(refs, rw, rr, r, k, v, ed, segd, maskb, seed,
                                  rw.device)
         pd = torch.where(keep, p * inv_keep(rate), 0.0)
         dp = torch.where(keep, dp * inv_keep(rate), 0.0)
-    ds = p * (dp + (gh * oh).sum(dim=-1, keepdim=True))
+    return _relik_bound(refs, p * (dp + (gh * oh).sum(dim=-1, keepdim=True)),
+                        pd, rw, rr, r, k, g, segd, n_heads, scale)
+
+
+def relik_full_grads_bf16_bound(refs, p, pd, rw, rr, r, k, v, segd, g, *,
+                                n_heads, scale):
+    """Elementwise bounds on how far two bf16 (drw, drr, dr, dk, dv, ded)
+    of #21's or #22's math may lie apart (``dqkv_bf16_bound``'s argument),
+    as ``relik_grads_bf16_bound`` with |ds| bounded by |t| + |p|·Σ_k |t|,
+    t = pd ⊙ (g·vᵀ), from the probs p and pd. Returns 2^-7·(|ref| + A) +
+    2^-17 for each output."""
+    vh, gh = (_ctx_heads(x, n_heads).float().abs() for x in (v, g))
+    p, pd = p.float().abs(), pd.float().abs()
+    t = pd * torch.matmul(gh, vh.transpose(-1, -2))
+    return _relik_bound(refs, t + p * t.sum(dim=-1, keepdim=True), pd, rw, rr,
+                        r, k, g, segd, n_heads, scale)
+
+
+def _relik_bound(refs, ds, pd, rw, rr, r, k, g, segd, n_heads, scale):
+    """2^-7·(|ref| + A) + 2^-17 for each of (drw, drr, dr, dk, dv, ded) from
+    a bound |ds| on the score gradient and |pd|, A the products of
+    ``_relik_grads`` over absolute values."""
+    b, q_len, d = rw.shape
+    k_len, p_len = k.shape[1], r.shape[0]
+    rwh, rrh, kh, gh = (_ctx_heads(x, n_heads).float().abs()
+                        for x in (rw, rr, k, g))
     z = torch.zeros(b, n_heads, q_len, p_len, device=rw.device)
     z.scatter_(3, _shift_index(q_len, k_len, rw.device).expand(
         b, n_heads, q_len, k_len), ds)
@@ -1832,7 +1891,8 @@ def relik_grads_bf16_bound(refs, rw, rr, r, k, v, ed, segd, maskb, seed,
 
 
 def _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads):
-    """Shapes of the ingredients; returns (b, q_len, k_len, p_len, dh)."""
+    """Shapes of the ingredients (ed, segd or maskb None: not checked);
+    returns (b, q_len, k_len, p_len, dh)."""
     if rw.dim() != 3 or tuple(rr.shape) != tuple(rw.shape):
         raise ValueError(f"rw and rr must be [B, Q, D] alike, got "
                          f"{tuple(rw.shape)}, {tuple(rr.shape)}")
@@ -1852,11 +1912,11 @@ def _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads):
         raise ValueError(
             f"position stream P={p_len} < Q+K={q_len + k_len}: the relative "
             "shift reads r[Q − q + k], which needs P ≥ Q + K")
-    if tuple(ed.shape) != (b, n_heads, q_len):
+    if ed is not None and tuple(ed.shape) != (b, n_heads, q_len):
         raise ValueError(f"ed must be [B, H, Q] = {(b, n_heads, q_len)}, got "
                          f"{tuple(ed.shape)}")
     for label, t in (("segd", segd), ("maskb", maskb)):
-        if tuple(t.shape) != (b, q_len, k_len):
+        if t is not None and tuple(t.shape) != (b, q_len, k_len):
             raise ValueError(f"{label} must be [B, Q, K] = "
                              f"{(b, q_len, k_len)}, got {tuple(t.shape)}")
     return b, q_len, k_len, p_len, d // n_heads
@@ -1865,7 +1925,8 @@ def _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads):
 def _check_relik_cuda(name, tensors, n_heads):
     """The checks the ingredients CUDA wrappers make: every tensor of
     ``tensors`` (label → tensor, rw first) a contiguous CUDA tensor of rw's
-    dtype; returns (b, q_len, k_len, p_len, dh)."""
+    dtype, the ingredients among them of matching shapes; returns (b,
+    q_len, k_len, p_len, dh)."""
     rw = tensors["rw"]
     for label, t in tensors.items():
         if not t.is_cuda or t.dtype != rw.dtype or t.device != rw.device:
@@ -1877,7 +1938,7 @@ def _check_relik_cuda(name, tensors, n_heads):
     if rw.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {rw.dtype} not supported (float32, "
                          "bfloat16)")
-    geo = _check_relik_geometry(*(tensors[x] for x in (
+    geo = _check_relik_geometry(*(tensors.get(x) for x in (
         "rw", "rr", "r", "k", "v", "ed", "segd", "maskb")), n_heads)
     b, dh = geo[0], geo[-1]
     if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
@@ -1993,6 +2054,270 @@ class FusedRelAttentionIKFS(torch.autograd.Function):
                 ded.to(ed.dtype), None, None, None, None, None, None)
 
 
+# ---- rel attention from its bias ingredients, full-H (#20, #21, #22) -------
+#
+# The port of the JAX ``fused_rel_attention_ingredients`` full tier, the
+# MAG-XLNet path under ``rel_bias_impl="inkernel"`` while its kernels
+# reach: the scores of the section above, a whole key row at a time (#11's
+# plan), the probs saved for the backward or recomputed there:
+#
+# * #20 ``attn_fwd_relik_cuda`` → ``csrc/attn_fwd_relik.cu``: softmax,
+#   dropout and PV (#11's, ``fwd_rel_softmax_pv``), optionally p and pd;
+# * #22 ``attn_bwd_relik_saved_cuda`` → ``csrc/attn_bwd_relik_saved.cu``
+#   (from p and pd) and #21 ``attn_bwd_relik_cuda`` →
+#   ``csrc/attn_bwd_relik.cu`` (the probs recomputed, the mask replayed):
+#   drw, drr, dk, dv, ded, and each (batch row, head)'s dr rows into an
+#   fp32 [B, P, D] workspace that #24's third launch sums over B, so two
+#   launches a call and no float atomics.
+#
+# dr comes back in fp32 from both the kernels and the plain versions, as
+# the TPU kernels accumulate it; ``FusedRelAttentionIK`` casts it to r's
+# dtype (the JAX ``_frelik_bwd``).
+
+
+@_counted
+def attn_fwd_relik_reference(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
+                             scale, rate=0.0, seed=0, save=False):
+    """Plain version of kernel #20: the fp32 softmax of the scores the
+    ingredients make (``_relik_scores``), then #11's plain forward (the
+    Philox mask, T(pd)·v accumulated in fp32). Returns out [B, Q, D], or
+    (out, p, pd) [B, H, Q, K] with ``save`` (pd is p at rate 0)."""
+    p = torch.softmax(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
+                                    scale), dim=-1)
+    return _rel_forward(p, v, n_heads, rate, seed, save)
+
+
+def _relik_vjp(p, pd, pd_c, rw, rr, r, k, v, segd, g, n_heads, scale):
+    """#21's and #22's math: t = pd ⊙ (g·vᵀ), ds = t − p·Σ_k t (fp32), then
+    ``_relik_grads``. Returns (drw, drr, dr fp32, dk, dv, ded)."""
+    vh, gh = (_ctx_heads(x, n_heads).float() for x in (v, g))
+    t = pd * torch.matmul(gh, vh.transpose(-1, -2))
+    ds = t - p * t.sum(dim=-1, keepdim=True)
+    return _relik_grads(ds, pd_c, rw, rr, r, k, g, segd, n_heads, scale)
+
+
+@_counted
+def attn_bwd_relik_reference(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
+                             n_heads, scale, rate=0.0):
+    """Plain version of kernel #21: the probs recomputed in fp32, the keep
+    mask replayed from ``seed``, pd in fp32 for t and rounded for dv.
+    Returns (drw, drr, dr, dk, dv, ded), dr in fp32."""
+    p = torch.softmax(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
+                                    scale), dim=-1)
+    pd = _dropped(p, seed, rate)
+    return _relik_vjp(p, pd, pd.to(rw.dtype), rw, rr, r, k, v, segd, g,
+                      n_heads, scale)
+
+
+@_counted
+def attn_bwd_relik_saved_reference(p, pd, rw, rr, r, k, v, segd, g, *,
+                                   n_heads, scale):
+    """Plain version of kernel #22: the VJP from the saved p and pd (input
+    dtype, read as fp32). Returns (drw, drr, dr, dk, dv, ded), dr in
+    fp32."""
+    return _relik_vjp(p.float(), pd.float(), pd, rw, rr, r, k, v, segd, g,
+                      n_heads, scale)
+
+
+def relik_bwd_smem_bytes(q_len: int, k_len: int, dh: int) -> int:
+    """Shared memory of one #21/#22 block (``csrc/common.cuh``'s
+    ``relik_bwd_smem_floats``): the [Q][Dh+1] rw/g and rr tiles, the
+    [K][Dh+1] k/v tile, the [Q+K−1][Dh+1] r window and three [Q][K] tiles,
+    in fp32."""
+    return 4 * ((3 * q_len + 2 * k_len - 1) * (dh + 1) + 3 * q_len * k_len)
+
+
+def relik_bwd_fits(q_len: int, k_len: int, dh: int) -> bool:
+    """Whether #21 and #22 take this (Q, K, Dh): one (head, batch row)'s
+    problem in 227 KB (at Dh = 64: Q = 50 with K = 100, Q = K ≤ 95)."""
+    return relik_bwd_smem_bytes(q_len, k_len, dh) <= MAX_SMEM_BYTES
+
+
+def relik_fwd_smem_bytes(k_len: int, dh: int) -> int:
+    """Shared memory of one #20 block (``csrc/attn_fwd_relik.cu``'s
+    ``smem_floats``): the rw and rr tiles [16][Dh], a k/v chunk [64][Dh+1],
+    the r window [79][Dh+1], the scores [16][K] and ed [16], in fp32 (123
+    KB at K = 512, Dh = 128)."""
+    return 4 * (2 * 16 * dh + (64 + 79) * (dh + 1) + 16 * k_len + 16)
+
+
+def relik_full_fits(q_len: int, k_len: int, dh: int, grad: bool) -> bool:
+    """Whether the full-H ingredients kernels reach (Q, K, Dh): #20 to K =
+    ``MAX_SEQ_LEN`` within its plan (``relik_fwd_smem_bytes``), and with a
+    gradient #21/#22's plan (``relik_bwd_fits``)."""
+    return (k_len <= MAX_SEQ_LEN
+            and relik_fwd_smem_bytes(k_len, dh) <= MAX_SMEM_BYTES
+            and (not grad or relik_bwd_fits(q_len, k_len, dh)))
+
+
+def attn_fwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
+                        rate=0.0, seed=0, save=False):
+    """Launch kernel #20 (``csrc/attn_fwd_relik.cu``): every input a
+    contiguous CUDA tensor of one dtype (fp32 or bf16), K ≤
+    ``MAX_SEQ_LEN``, P ≥ Q + K. Returns out [B, Q, D], or (out, p, pd)
+    [B, H, Q, K] with ``save`` (pd is p at rate 0)."""
+    ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb)
+    b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_fwd_relik", ins,
+                                                   n_heads)
+    if not relik_full_fits(q_len, k_len, dh, grad=False):
+        raise ValueError(f"attn_fwd_relik: K={k_len} exceeds the kernel's "
+                         f"{MAX_SEQ_LEN}")
+    out = torch.empty_like(rw)
+    p = pd = None
+    if save:
+        p = torch.empty((b, n_heads, q_len, k_len), dtype=rw.dtype,
+                        device=rw.device)
+        pd = torch.empty_like(p) if rate > 0.0 else p
+    _launch("attn_fwd_relik", *(t.data_ptr() for t in ins.values()),
+            out.data_ptr(), _ptr(p), _ptr(pd) if rate > 0.0 else None, b,
+            q_len, k_len, p_len, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[rw.dtype], device=rw.device)
+    attn_fwd_relik_cuda.launches += 1
+    return (out, p, pd) if save else out
+
+
+def _relik_bwd_outputs(name, rw, r, q_len, k_len, n_heads, dh):
+    """The backward's reach check, then its outputs drw, drr, dk, dv and
+    ded (rw's dtype), the fp32 [B, P, D] workspace and the fp32 dr."""
+    if not relik_bwd_fits(q_len, k_len, dh):
+        raise ValueError(f"{name}: Q={q_len} K={k_len} Dh={dh} exceeds the "
+                         "backward's shared memory")
+    b, _, d = rw.shape
+    k_shape = (b, k_len, d)
+    new = functools.partial(torch.empty, device=rw.device)
+    return (new(rw.shape, dtype=rw.dtype), new(rw.shape, dtype=rw.dtype),
+            new(k_shape, dtype=rw.dtype), new(k_shape, dtype=rw.dtype),
+            new((b, n_heads, q_len), dtype=rw.dtype),
+            new((b, r.shape[0], d), dtype=torch.float32),
+            new(tuple(r.shape), dtype=torch.float32))
+
+
+def _relik_dr_sum(fn, ws, dr, device):
+    """#24's third launch on ``ws``, counted on ``fn``: dr = Σ_b ws[b] in a
+    fixed order, in fp32."""
+    b, p_len, d = ws.shape
+    _launch("attn_bwd_relik_fs_dr", ws.data_ptr(), dr.data_ptr(), b, p_len,
+            d, _DTYPE_CODES[torch.float32], device=device)
+    fn.launches += 1
+
+
+def attn_bwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
+                        n_heads, scale, rate=0.0):
+    """Launch kernel #21 (``csrc/attn_bwd_relik.cu``), two kernels on the
+    current stream, each counted: the (head, batch row) pass, with the probs
+    recomputed and the keep mask replayed from ``seed``, that writes drw,
+    drr, dk, dv, ded and its dr rows into an fp32 [B, P, D] workspace
+    allocated here, then the workspace's sum over B. Returns (drw, drr, dr,
+    dk, dv, ded), dr in fp32."""
+    ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb,
+               g=g)
+    b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_bwd_relik", ins,
+                                                   n_heads)
+    _like("g", g, rw, tuple(rw.shape))
+    drw, drr, dk, dv, ded, ws, dr = _relik_bwd_outputs(
+        "attn_bwd_relik", rw, r, q_len, k_len, n_heads, dh)
+    _launch("attn_bwd_relik", *(t.data_ptr() for t in ins.values()),
+            *(t.data_ptr() for t in (drw, drr, dk, dv, ded, ws)), b, q_len,
+            k_len, p_len, n_heads, dh, float(scale), *_drop_args(rate, seed),
+            _DTYPE_CODES[rw.dtype], device=rw.device)
+    attn_bwd_relik_cuda.launches += 1
+    _relik_dr_sum(attn_bwd_relik_cuda, ws, dr, rw.device)
+    return drw, drr, dr, dk, dv, ded
+
+
+def attn_bwd_relik_saved_cuda(p, pd, rw, rr, r, k, v, segd, g, *, n_heads,
+                              scale):
+    """Launch kernel #22 (``csrc/attn_bwd_relik_saved.cu``) from the saved
+    probs p and pd [B, H, Q, K], two kernels on the current stream, each
+    counted (as ``attn_bwd_relik_cuda``). Returns (drw, drr, dr, dk, dv,
+    ded), dr in fp32."""
+    ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, segd=segd, g=g, p=p, pd=pd)
+    b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_bwd_relik_saved",
+                                                   ins, n_heads)
+    _like("g", g, rw, tuple(rw.shape))
+    for label, t in (("p", p), ("pd", pd)):
+        _like(label, t, rw, (b, n_heads, q_len, k_len))
+    drw, drr, dk, dv, ded, ws, dr = _relik_bwd_outputs(
+        "attn_bwd_relik_saved", rw, r, q_len, k_len, n_heads, dh)
+    _launch("attn_bwd_relik_saved", *(t.data_ptr() for t in (
+        p, pd, rw, rr, r, k, v, segd, g, drw, drr, dk, dv, ded, ws)), b,
+        q_len, k_len, p_len, n_heads, dh, float(scale),
+        _DTYPE_CODES[rw.dtype], device=rw.device)
+    attn_bwd_relik_saved_cuda.launches += 1
+    _relik_dr_sum(attn_bwd_relik_saved_cuda, ws, dr, rw.device)
+    return drw, drr, dr, dk, dv, ded
+
+
+for _fn in (attn_fwd_relik_cuda, attn_bwd_relik_cuda,
+            attn_bwd_relik_saved_cuda):
+    _fn.launches = 0
+del _fn
+
+
+def attn_fwd_relik(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
+                   rate=0.0, seed=0, save=False):
+    """Kernel #20 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_fwd_relik_cuda if _on(rw) == "cuda"
+          else attn_fwd_relik_reference)
+    return fn(rw, rr, r, k, v, ed, segd, maskb, n_heads=n_heads, scale=scale,
+              rate=rate, seed=seed, save=save)
+
+
+def attn_bwd_relik(rw, rr, r, k, v, ed, segd, maskb, seed, g, *, n_heads,
+                   scale, rate=0.0):
+    """Kernel #21 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_relik_cuda if _on(rw) == "cuda"
+          else attn_bwd_relik_reference)
+    return fn(rw, rr, r, k, v, ed, segd, maskb, seed, g, n_heads=n_heads,
+              scale=scale, rate=rate)
+
+
+def attn_bwd_relik_saved(p, pd, rw, rr, r, k, v, segd, g, *, n_heads, scale):
+    """Kernel #22 on a CUDA tensor, its plain version on a CPU one."""
+    fn = (attn_bwd_relik_saved_cuda if _on(rw) == "cuda"
+          else attn_bwd_relik_saved_reference)
+    return fn(p, pd, rw, rr, r, k, v, segd, g, n_heads=n_heads, scale=scale)
+
+
+class FusedRelAttentionIK(torch.autograd.Function):
+    """The full-H ingredients tier with its backward kernel (JAX
+    ``_frelik_fwd`` / ``_frelik_bwd``): with ``save`` #20 keeps p and pd
+    and #22 runs from them; without, it keeps the ingredients and the seed
+    and #21 recomputes the probs and replays the mask. segd and maskb get
+    no gradient; dr comes back in r's dtype and ded in ed's."""
+
+    @staticmethod
+    def forward(ctx, rw, rr, r, k, v, ed, segd, maskb, n_heads: int,
+                scale: float, rate: float, seed: int, save: bool):
+        ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        ctx.save, ctx.ed_dtype = save, ed.dtype
+        kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
+        if save:
+            out, p, pd = attn_fwd_relik(rw, rr, r, k, v, ed, segd, maskb,
+                                        save=True, **kw)
+            ctx.save_for_backward(rw, rr, r, k, v, segd, p, pd)
+        else:
+            out = attn_fwd_relik(rw, rr, r, k, v, ed, segd, maskb, **kw)
+            ctx.save_for_backward(rw, rr, r, k, v, ed, segd, maskb)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        kw = dict(n_heads=ctx.n_heads, scale=ctx.scale)
+        if ctx.save:
+            rw, rr, r, k, v, segd, p, pd = ctx.saved_tensors
+            drw, drr, dr, dk, dv, ded = attn_bwd_relik_saved(
+                p, pd, rw, rr, r, k, v, segd, g, **kw)
+        else:
+            rw, rr, r, k, v, ed, segd, maskb = ctx.saved_tensors
+            drw, drr, dr, dk, dv, ded = attn_bwd_relik(
+                rw, rr, r, k, v, ed, segd, maskb, ctx.seed, g, rate=ctx.rate,
+                **kw)
+        return (drw, drr, dr.to(r.dtype), dk, dv, ded.to(ctx.ed_dtype), None,
+                None, None, None, None, None, None)
+
+
 def fused_rel_attention_ingredients(
     rw: torch.Tensor,                         # [B, Q, D] q + r_w_bias
     rr: torch.Tensor,                         # [B, Q, D] (q + r_r_bias)·scale
@@ -2022,35 +2347,47 @@ def fused_rel_attention_ingredients(
     Same signature and argument checks as the JAX entry; the dropout
     arguments as ``fused_rel_attention``'s.
 
-    The port has the flash-streamed tier only (#23, and #24 from the saved
-    o and lse), at any Q and K: ``tier=None`` and ``tier="fs"`` take it,
-    ``tier="full"`` (the full-H ingredients kernels #20-#22) raises naming
-    ROADMAP B.7. ``save_probs`` has no effect, as on the JAX fs tier, which
-    saves nothing S²-sized. ``interpret``/``nb_fwd``/``nb_bwd``/``fs_plan``
-    are TPU plan knobs and raise."""
+    Two tiers, as in JAX (``:4160-4185``): "full" (#20, and #22 or #21 with
+    a gradient, ``FusedRelAttentionIK``; ``save_probs`` picks the backward
+    as ``fused_rel_attention``'s) while ``relik_full_fits``, and "fs" (#23,
+    and #24 from the saved o and lse; nothing S²-sized saved, so
+    ``save_probs`` has no effect) at any Q and K. ``tier=None`` takes "full"
+    while it reaches, else "fs"; ``tier="full"`` past the reach raises,
+    naming it. ``interpret``/``nb_fwd``/``nb_bwd``/``fs_plan`` are TPU plan
+    knobs and raise."""
     if (interpret is not None or nb_fwd is not None or nb_bwd is not None
             or fs_plan is not None):
         raise ValueError(
             "interpret/nb_fwd/nb_bwd/fs_plan are TPU kernel-plan knobs; the "
             "CUDA kernels take none")
-    if tier == "full":
-        raise NotImplementedError(
-            "tier='full': the full-H ingredients rel-attention kernels "
-            "(#20-#22) are not ported yet (ROADMAP B.7)")
-    if tier not in (None, "fs"):
+    if tier not in (None, "fs", "full"):
         raise ValueError(f"unknown tier {tier!r} (None | 'fs' | 'full')")
     rate = 0.0 if deterministic else float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
-    _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads)
+    b, q_len, k_len, _, dh = _check_relik_geometry(rw, rr, r, k, v, ed, segd,
+                                                   maskb, n_heads)
     if rate > 0.0 and dropout_rng is None:
         raise ValueError("dropout_rate > 0 requires dropout_rng")
     _on(rw)
-    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
     xs = [x.contiguous() for x in (rw, rr, r, k, v, ed, segd, maskb)]
-    if not (torch.is_grad_enabled()
-            and any(x.requires_grad for x in xs[:6])):
-        return attn_fwd_relik_fs(*xs, n_heads=n_heads, scale=scale,
-                                 rate=rate, seed=seed)[0]
-    return FusedRelAttentionIKFS.apply(*xs, n_heads, float(scale), rate,
-                                       seed)
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in xs[:6])
+    reach = relik_full_fits(q_len, k_len, dh, grad)
+    if tier == "full" and not reach:
+        raise ValueError(
+            f"tier='full': Q={q_len} K={k_len} Dh={dh} is past the full-H "
+            f"ingredients kernels' reach (K ≤ {MAX_SEQ_LEN}; with a "
+            "gradient, relik_bwd_fits)")
+    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
+    kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
+    if tier == "fs" or not reach:
+        if not grad:
+            return attn_fwd_relik_fs(*xs, **kw)[0]
+        return FusedRelAttentionIKFS.apply(*xs, n_heads, float(scale), rate,
+                                           seed)
+    if not grad:
+        return attn_fwd_relik(*xs, **kw)
+    save = resolve_save_probs(b, n_heads, q_len, rate, rw.element_size(),
+                              save_probs, k_len=k_len)
+    return FusedRelAttentionIK.apply(*xs, n_heads, float(scale), rate, seed,
+                                     save)

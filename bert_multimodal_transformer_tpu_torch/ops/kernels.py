@@ -160,6 +160,12 @@ def load_kernels() -> ctypes.CDLL:
         for fn in (lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq):
             fn.argtypes = [ptr] * 17 + relik + drop + [i32, ptr]
         lib.attn_bwd_relik_fs_dr.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
+        # attn_fwd_relik: the eight inputs, out, p, pd; attn_bwd_relik: the
+        # eight inputs, g, drw, drr, dk, dv, ded, ws; attn_bwd_relik_saved:
+        # p, pd, rw, rr, r, k, v, segd, g, drw, drr, dk, dv, ded, ws.
+        lib.attn_fwd_relik.argtypes = [ptr] * 11 + relik + drop + [i32, ptr]
+        lib.attn_bwd_relik.argtypes = [ptr] * 15 + relik + drop + [i32, ptr]
+        lib.attn_bwd_relik_saved.argtypes = [ptr] * 15 + relik + [i32, ptr]
         # mag_fwd: t, v, a, 12 params, out; mag_bwd: dy, t, v, a, 11
         # params (no ln_beta), 6 outputs.
         lib.mag_fwd.argtypes = [ptr] * 16 + mag + [i32, ptr]
@@ -174,7 +180,9 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_rel_fs_dkdv, lib.attn_bwd_rel_fs_dq,
                    lib.attn_fwd_relik_fs,
                    lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq,
-                   lib.attn_bwd_relik_fs_dr, lib.mag_fwd, lib.mag_bwd):
+                   lib.attn_bwd_relik_fs_dr, lib.attn_fwd_relik,
+                   lib.attn_bwd_relik, lib.attn_bwd_relik_saved, lib.mag_fwd,
+                   lib.mag_bwd):
             fn.restype = ctypes.c_int
         lib.torch_kernels_error_string.argtypes = [i32]
         lib.torch_kernels_error_string.restype = ctypes.c_char_p

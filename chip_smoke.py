@@ -64,6 +64,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    #16's output against #14's within a stated bf16 bound. Then both timed
    at bf16 B=48 Q=K=1024 at rate 0 (beside SDPA with the ebias as a float
    mask, and its autograd backward) and at rate 0.1.
+3h. The full-H ingredients kernels (``rel_bias_impl="inkernel"``: #20
+   forward, #22 saved-probs backward, #21 recompute backward, the last two
+   two launches a call) against their plain versions: bf16 B=256 Q=K=50 at
+   rates 0.1 and 0, bf16 B=48 Q=50 K=100 P=150 (the 50-row memory), fp32
+   B=4 Q=50 K=77 (ragged, K ≠ Q), on XLNet-like ingredients with left
+   padding; #20's keep mask against the plain Philox mask; #21 against #22;
+   the same bits twice (dr deterministic); #20 against #11 fed the
+   assembled ebias; then timed at B=256 (rate 0.1; at rate 0 beside SDPA
+   with the assembled ebias as a float mask and its autograd backward), #20
+   at the serving shape B=128.
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -98,6 +108,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``rel_bias_impl="stream"`` at S=1024 (#16 once per layer per batch),
    and ``Predictor(mem_len=512)`` at S=512 under "stream" (Q=512, K=1024:
    #16), the memory chained through the batches; each against einsum.
+4g. XLNet serving under ``rel_bias_impl="inkernel"``: ``serving_path`` at
+   S=50, batch 128 (#20 once per layer per batch and nothing else, against
+   einsum), no ``rel_shift`` call, and one batch's profile (#20 runs, #11
+   does not).
 5. Serving profile: one batch's serial latency, its device time by kernel
    and the card's busy share (torch.profiler).
 5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
@@ -143,6 +157,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 4, fused against einsum leaf by leaf, which the same step with
    debias zeroed in #17's output must break; one profiled B=48 S=1024
    stream step.
+6f. The XLNet driver under ``--rel_bias_impl inkernel`` at S=50 over
+   96/48/48: as written (#20, #22), with ``--mem_len 50`` (K = 100) and
+   under ``FUSED_ATTN_SAVE=0`` (#21): exit 0, finite losses, the launches;
+   the dropout-0 gradient check against einsum with planted zero dr and
+   ded; one profiled B=256 S=50 step under "inkernel" and under "auto",
+   and the device time the ebias assembly costs.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -310,7 +330,10 @@ def _wrappers(fa):
             "attn_fwd_relik_fs": fa.attn_fwd_relik_fs_cuda,
             "attn_bwd_relik_fs": fa.attn_bwd_relik_fs_cuda,
             "attn_fwd_rel_fs": fa.attn_fwd_rel_fs_cuda,
-            "attn_bwd_rel_fs": fa.attn_bwd_rel_fs_cuda}
+            "attn_bwd_rel_fs": fa.attn_bwd_rel_fs_cuda,
+            "attn_fwd_relik": fa.attn_fwd_relik_cuda,
+            "attn_bwd_relik_saved": fa.attn_bwd_relik_saved_cuda,
+            "attn_bwd_relik": fa.attn_bwd_relik_cuda}
 
 
 def _counts(fa):
@@ -2135,16 +2158,20 @@ XLNET_LONG_S = (512, 1024)    # the driver's long XLNet runs
 XLNET_CHECK_BATCH = 8         # the dropout-0 gradient check's batch
 
 
-def relik_case(rng, dtype_name, b, s, h=12, dh=64):
-    """One seeded ingredients case shaped as the XLNet model feeds #23: rw,
-    rr (scaled) [B, S, D], r [2S, D] (bi attention: P = Q + K), k, v, the
-    scaled segment delta ed [B, H, S], segd from XLNet segments and maskb
-    −1e30 on the masked keys of left-padded rows (each query still sees
-    its own position), all in the input dtype; a context gradient; a seed."""
+def relik_case(rng, dtype_name, b, s, h=12, dh=64, k_len=None):
+    """One seeded ingredients case shaped as the XLNet model feeds #23 (Q =
+    S): rw, rr (scaled) [B, S, D], r [S + K, D] (bi attention: P = Q + K),
+    k, v [B, K, D], the scaled segment delta ed [B, H, S], segd from XLNet
+    segments and maskb −1e30 on the masked keys of left-padded rows (each
+    query still sees its own position), all in the input dtype; a context
+    gradient; a seed. K = S unless ``k_len``: then the first K − S keys are
+    a memory, unmasked and of segment 0, as the model's."""
     import torch
 
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
     d, sc = h * dh, 1.0 / dh ** 0.5
+    k_len = s if k_len is None else k_len
+    mlen = k_len - s
 
     def t(*shape, scale=1.0):
         return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
@@ -2152,11 +2179,14 @@ def relik_case(rng, dtype_name, b, s, h=12, dh=64):
 
     mask, segs = (torch.from_numpy(x).cuda()
                   for x in xlnet_segments(rng, b, s))
-    masked = (mask[:, None, :] == 0) & ~torch.eye(s, dtype=torch.bool,
-                                                  device="cuda")
-    case = dict(rw=t(b, s, d), rr=t(b, s, d, scale=sc), r=t(2 * s, d),
-                k=t(b, s, d), v=t(b, s, d), ed=t(b, h, s, scale=sc),
-                segd=(segs[:, :, None] != segs[:, None, :]).to(dtype),
+    mem = torch.zeros(b, mlen, dtype=mask.dtype, device="cuda")
+    mask_k, segs_k = torch.cat([mem + 1, mask], 1), torch.cat([mem, segs], 1)
+    own = torch.zeros(s, k_len, dtype=torch.bool, device="cuda")
+    own[:, mlen:] = torch.eye(s, dtype=torch.bool, device="cuda")
+    masked = (mask_k[:, None, :] == 0) & ~own
+    case = dict(rw=t(b, s, d), rr=t(b, s, d, scale=sc), r=t(s + k_len, d),
+                k=t(b, k_len, d), v=t(b, k_len, d), ed=t(b, h, s, scale=sc),
+                segd=(segs[:, :, None] != segs_k[:, None, :]).to(dtype),
                 maskb=(-(1e30 * masked.float())).to(dtype), g=t(b, s, d))
     return case, int(rng.integers(0, 2 ** 63 - 1))
 
@@ -2165,13 +2195,16 @@ RELIK = ("rw", "rr", "r", "k", "v", "ed", "segd", "maskb")
 
 
 def _relik_grad_errs(name, dtype_name, got, want, bound_args, fa):
-    """Max abs err over #24's (drw, drr, dr, dk, dv, ded); raises past the
-    bound (fp32: GRAD_FP32_TOL; bf16: ``relik_grads_bf16_bound``)."""
+    """Max abs err over an ingredients backward's (drw, drr, dr, dk, dv,
+    ded); raises past the bound (fp32: GRAD_FP32_TOL; bf16: the bound
+    function of ``bound_args`` = (function, args, kwargs), #24's
+    ``relik_grads_bf16_bound`` or #21/#22's
+    ``relik_full_grads_bf16_bound``)."""
     import torch
 
     if dtype_name == "bf16":
-        bounds = fa.relik_grads_bf16_bound(want, *bound_args[0],
-                                           **bound_args[1])
+        bound_fn, args, kwargs = bound_args
+        bounds = bound_fn(want, *args, **kwargs)
     else:
         bounds = [GRAD_FP32_TOL + GRAD_FP32_TOL * w.float().abs()
                   for w in want]
@@ -2232,7 +2265,7 @@ def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate):
     errs["#24"] = _relik_grad_errs(
         f"#24 {tag}", dtype_name, g24, fa.attn_bwd_relik_fs_reference(
             *ins, seed, o23, lse, c["g"], **kw),
-        ((*ins, seed, lse, c["g"], o23), kw), fa)
+        (fa.relik_grads_bf16_bound, (*ins, seed, lse, c["g"], o23), kw), fa)
     twice += [("#23", (o23, lse), lambda: fa.attn_fwd_relik_fs_cuda(
         *ins, seed=seed, **kw)),
               ("#24", g24, lambda: fa.attn_bwd_relik_fs_cuda(
@@ -2321,6 +2354,21 @@ def relik_bound(kind, b, s, h, dh, itemsize):
                   8 * dot, BF16_FLOPS)
 
 
+def assembled_ebias(c, h=12):
+    """The [B, H, Q, K] score bias an ingredients case stands for, assembled
+    at its dtype as the XLNet model's stream path does: rel_shift of the bd
+    product (rr·rᵀ), plus ed·segd, plus maskb."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import rel_shift
+
+    b, q_len, d = c["rr"].shape
+    bd = torch.einsum("bqhf,phf->bhqp", c["rr"].view(b, q_len, h, d // h),
+                      c["r"].view(-1, h, d // h))
+    return (rel_shift(bd, c["k"].shape[1]) + c["ed"][..., None]
+            * c["segd"][:, None] + c["maskb"][:, None]).contiguous()
+
+
 def sdpa_rel_calls(q, k, v, ebias, g, h, scale):
     """The library calls for the rate-0 rel tiers: ``scaled_dot_product_
     attention`` with the assembled ebias as its float mask, and its autograd
@@ -2354,8 +2402,6 @@ def time_long_rel_kernels(rng, fa, card):
     autograd backward), at rate 0.1 against the plain versions; alternating
     rounds. Returns {name: entry}."""
     import torch
-
-    from bert_multimodal_transformer_tpu_torch.models.xlnet import rel_shift
 
     out = {}
     q, k, v, ebias, g = rel_case(rng, "bf16", TRAIN_BATCH, 512, 512)
@@ -2398,14 +2444,9 @@ def time_long_rel_kernels(rng, fa, card):
                 if s == 512:
                     lib = sdpa_rel_calls(q, k, v, ebias, g, 12, 0.125)
                 else:   # the ebias the ingredients make, assembled
-                    bd = torch.einsum(
-                        "bqhf,phf->bhqp", c["rr"].view(TRAIN_BATCH, s, 12, 64),
-                        c["r"].view(2 * s, 12, 64))
-                    eb = (rel_shift(bd, s) + c["ed"][..., None]
-                          * c["segd"][:, None] + c["maskb"][:, None])
-                    del bd
-                    lib = sdpa_rel_calls(c["rw"], c["k"], c["v"],
-                                         eb.contiguous(), c["g"], 12, 0.125)
+                    eb = assembled_ebias(c)
+                    lib = sdpa_rel_calls(c["rw"], c["k"], c["v"], eb, c["g"],
+                                         12, 0.125)
                     del eb
                 call = lib[0] if kind == "fwd" else lib[1]
                 _time_ms(call, 2)
@@ -2524,18 +2565,25 @@ def xlnet_long_driver_path(args, rng, fa, card):
               "layers)")
         if counts[path] != want:
             raise AssertionError(f"{path} launches {counts[path]} != {want}")
-    xlnet_long_grad_check(args, rng, fa, card)
+    xlnet_grad_check(args, rng, fa, card, s=512, batch=XLNET_CHECK_BATCH,
+                     impl="auto", bwd="attn_bwd_relik_fs", tag="#24",
+                     launches=dict(attn_fwd_relik_fs=layers,
+                                   attn_bwd_relik_fs=3 * layers),
+                     seed_offset=31)
     xlnet_long_step_profile(args, rng, card)
     return counts
 
 
-def xlnet_long_grad_check(args, rng, fa, card):
-    """Phase 6d: at dropout 0, from one copy of the weights, one training
-    step at S=512, batch XLNET_CHECK_BATCH, fused (the ingredients tier)
-    against einsum, leaf by leaf within XLNET_GRAD_GAP_TOL; then the same
-    step with dr, then ded, zeroed in #24's output, which must break it (the
-    position projection r, and seg_embed and r_s_bias, lose their score
-    gradient)."""
+def xlnet_grad_check(args, rng, fa, card, *, s, batch, impl, bwd, tag,
+                     launches, seed_offset):
+    """At dropout 0, from one copy of the weights (seed ``args.seed +
+    seed_offset``), one training step at S = ``s`` and ``batch`` under
+    ``rel_bias_impl`` ``impl``, fused against einsum leaf by leaf within
+    XLNET_GRAD_GAP_TOL, the fused step's kernel launches ``launches``;
+    then the same step with dr, then ded, zeroed in the output of
+    ``fa.<bwd>`` (kernel ``tag``), which must break it (the position
+    projection r, and seg_embed and r_s_bias, lose their score gradient).
+    Phase 6d: S=512 under auto (#24); 6f: S=50 under inkernel (#22)."""
     import torch
 
     from bert_multimodal_transformer_tpu_torch.config import (
@@ -2553,62 +2601,63 @@ def xlnet_long_grad_check(args, rng, fa, card):
 
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(), dropout=0.0,
-                              summary_last_dropout=0.0)
+                              summary_last_dropout=0.0, rel_bias_impl=impl)
     mm = MultimodalConfig(injection_index=1, dropout_prob=0.0)
-    weights = _xlnet(cfg, mm, "fused", args.seed + 31).state_dict()
-    batch = _device_batch(make_xlnet_split(
-        rng, XLNET_CHECK_BATCH, 512, cfg.vocab_size, ds.visual_dim,
+    weights = _xlnet(cfg, mm, "fused", args.seed + seed_offset).state_dict()
+    data = _device_batch(make_xlnet_split(
+        rng, batch, s, cfg.vocab_size, ds.visual_dim,
         ds.acoustic_dim).as_tuple())
     step = make_train_step()
 
-    def one_step(impl):
-        m = _xlnet(cfg, mm, impl, 0, weights)
+    def one_step(attention_impl):
+        m = _xlnet(cfg, mm, attention_impl, 0, weights)
         st = Trainer(model=m, tx=make_optimizer(1e-5, 10, 0.1)
                      ).create_state_from_params(None, args.seed)
         _zero_counts(fa)
-        step(st, batch)
+        step(st, data)
         return _grad_pieces(m), _counts(fa)
 
     grads = {"einsum": one_step("einsum")[0]}
-    grads["fused"], launches = one_step("fused")
-    want = _want(fa, attn_fwd_relik_fs=cfg.n_layer,
-                 attn_bwd_relik_fs=3 * cfg.n_layer)
-    if launches != want:
-        raise AssertionError(f"S=512 check step launches {launches} != "
+    grads["fused"], got = one_step("fused")
+    want = _want(fa, **launches)
+    if got != want:
+        raise AssertionError(f"S={s} {impl} check step launches {got} != "
                              f"{want}")
-    real = fa.attn_bwd_relik_fs
-    for name, part in (("planted fault: dr zeroed in #24", 2),
-                       ("planted fault: ded zeroed in #24", 5)):
+    real = getattr(fa, bwd)
+    faults = (f"planted fault: dr zeroed in {tag}",
+              f"planted fault: ded zeroed in {tag}")
+    for name, part in zip(faults, (2, 5)):
         def faulty(*a, _part=part, **kw):
             out = list(real(*a, **kw))
             out[_part] = torch.zeros_like(out[_part])
             return tuple(out)
 
-        fa.attn_bwd_relik_fs = faulty
+        setattr(fa, bwd, faulty)
         try:
             grads[name] = one_step("fused")[0]
         finally:
-            fa.attn_bwd_relik_fs = real
-    for name in ("fused", "planted fault: dr zeroed in #24",
-                 "planted fault: ded zeroed in #24"):
+            setattr(fa, bwd, real)
+    for name in ("fused", *faults):
         gaps = _grad_gaps(grads[name], grads["einsum"])
-        print(f"  XLNet S=512 B={XLNET_CHECK_BATCH} step-1 gradients, {name} "
-              f"vs einsum: worst pieces " + ", ".join(
+        print(f"  XLNet S={s} B={batch} {impl} step-1 gradients, {name} vs "
+              f"einsum: worst pieces " + ", ".join(
                   f"{k_} {v_:.3e}" for k_, v_ in gaps[:4])
               + f" (bound {XLNET_GRAD_GAP_TOL})")
         fails = gaps[0][1] > XLNET_GRAD_GAP_TOL
         if fails != name.startswith("planted"):
-            raise AssertionError(f"XLNet S=512 step-1 gradients, {name}: "
-                                 f"worst gap {gaps[0]} against "
+            raise AssertionError(f"XLNet S={s} {impl} step-1 gradients, "
+                                 f"{name}: worst gap {gaps[0]} against "
                                  f"{XLNET_GRAD_GAP_TOL}")
 
 
-def xlnet_long_step_profile(args, rng, card, impl="auto"):
-    """One training step of xlnet-base-cased at the driver's batch (48),
-    bf16, fused attention, dropout 0.1, at S = 1024 (#23, #24 under
+def xlnet_long_step_profile(args, rng, card, impl="auto", s=1024,
+                            batch=TRAIN_BATCH):
+    """One training step of xlnet-base-cased at ``batch`` (the driver's 48),
+    bf16, fused attention, dropout 0.1, at S = ``s`` (1024: #23, #24 under
     ``rel_bias_impl`` ``impl`` "auto"; #16, #17 and the ebias assembly
-    under "stream"): its device time by kernel group and the card's busy
-    share (torch.profiler), after one warm-up step."""
+    under "stream"; at S = 50 #11/#13 and the assembly under "auto", #20/#22
+    under "inkernel"): its device time by kernel group and the card's busy
+    share (torch.profiler), after one warm-up step. Returns the profile."""
     import torch
 
     from bert_multimodal_transformer_tpu_torch.config import (
@@ -2635,15 +2684,16 @@ def xlnet_long_step_profile(args, rng, card, impl="auto"):
                     tx=make_optimizer(1e-5, 10, 0.1)
                     ).create_state_from_params(None, args.seed)
     step = make_train_step()
-    batch = _device_batch(make_xlnet_split(
-        rng, TRAIN_BATCH, 1024, cfg.vocab_size, ds.visual_dim,
+    data = _device_batch(make_xlnet_split(
+        rng, batch, s, cfg.vocab_size, ds.visual_dim,
         ds.acoustic_dim).as_tuple())
-    step(state, batch)
+    step(state, data)
     torch.cuda.synchronize()
-    print(f"one training step, bf16 xlnet-base-cased B={TRAIN_BATCH} S=1024 "
+    print(f"one training step, bf16 xlnet-base-cased B={batch} S={s} "
           f"rel_bias_impl={impl} on {card}:")
-    _print_profile(device_time_by_kernel(lambda: step(state, batch), 1), 1,
-                   "step")
+    prof = device_time_by_kernel(lambda: step(state, data), 1)
+    _print_profile(prof, 1, "step")
+    return prof
 
 
 # The rel flash-streamed tier's checks (3g): (dtype, B, Q, K) with rates.
@@ -3037,6 +3087,342 @@ def xlnet_fs_grad_check(args, rng, fa, card):
                                  f"{XLNET_GRAD_GAP_TOL}")
 
 
+# ---- MAG-XLNet under rel_bias_impl="inkernel": the full-H ingredients
+# kernels #20 (forward), #22 (saved-probs backward) and #21 (recompute) --
+
+RELIK_FULL_CASES = (   # (dtype, B, Q, K) with the rates each runs at
+    ("bf16", BENCH_BATCH, S_SERVE, S_SERVE, (RATE, 0.0)),
+    ("bf16", TRAIN_BATCH, S_SERVE, 2 * S_SERVE, (RATE,)),   # --mem_len 50
+    ("fp32", 4, S_SERVE, 77, (RATE, 0.0)))                  # ragged K ≠ Q
+
+
+def relik_full_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0,
+                     save=False):
+    """The bound of #20 (``fwd``), #22 (``bwd_saved``) or #21 (``bwd``) at
+    [B, Q, K, H, Dh], P = Q + K: each input read once and each output
+    written once (rw, rr, g, out, drw, drr [B,Q,D]; k, v, dk, dv [B,K,D];
+    r [P,D], dr fp32; ed, ded [B,H,Q]; segd, maskb [B,Q,K]; p, pd
+    [B,H,Q,K]); the products on the bf16 tensor cores, 2·B·H·Q·K·Dh
+    operations each (ac, bd and PV forward; d(pd), dV, drw, dK, drr and dr
+    backward, plus ac and bd again for the recompute). The dr workspace is
+    the kernel's own and is not counted."""
+    d = h * dh
+    qd, kd = b * q_len * d * itemsize, b * k_len * d * itemsize
+    r_, hq = (q_len + k_len) * d * itemsize, b * h * q_len * itemsize
+    qk = b * q_len * k_len * itemsize
+    probs = b * h * q_len * k_len * itemsize * (2 if rate > 0 else 1)
+    dot = 2 * b * h * q_len * k_len * dh
+    grads = 2 * qd + 2 * kd + hq + (q_len + k_len) * d * 4
+    if kind == "fwd":
+        return _bound(2 * qd + 2 * kd + r_ + hq + 2 * qk + qd
+                      + (probs if save else 0), 3 * dot, BF16_FLOPS)
+    if kind == "bwd_saved":
+        return _bound(probs + 3 * qd + 2 * kd + r_ + qk + grads, 6 * dot,
+                      BF16_FLOPS)
+    return _bound(3 * qd + 2 * kd + r_ + hq + 2 * qk + grads, 8 * dot,
+                  BF16_FLOPS)
+
+
+def check_relik_full_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
+    """Phase 3h on one case: #20 with save (and dropout at rate > 0), #22
+    and #21, each against its plain version (fp32: GRAD_FP32_TOL; bf16:
+    ``relik_full_grads_bf16_bound``), the two backwards against each other;
+    #20's keep mask against the plain Philox mask; the same bits twice (dr
+    summed over B in a fixed order). Returns the max errors, whether each
+    kernel gave its plain version's bits, and the case."""
+    import torch
+
+    c, seed = relik_case(rng, dtype_name, b, q_len, k_len=k_len)
+    ins = [c[n] for n in RELIK]
+    kw = dict(n_heads=12, scale=0.125)
+    tag = (f"{dtype_name} B={b} Q={q_len} K={k_len} P={q_len + k_len} H=12 "
+           f"Dh=64 rate={rate}")
+    out, p, pd = fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=seed,
+                                        save=True, **kw)
+    want = fa.attn_fwd_relik_reference(*ins, rate=rate, seed=seed, save=True,
+                                       **kw)
+    errs = {"#20": max(_forward_err(f"#20 {n} {tag}", x, w, dtype_name)
+                       for n, x, w in zip(("out", "p", "pd"), (out, p, pd),
+                                          want))}
+    same = {"#20": all(torch.equal(x, w) for x, w in zip((out, p, pd),
+                                                         want))}
+    print(f"#20 vs plain {tag}: out/p/pd max_abs_err={errs['#20']:.3e}, "
+          f"identical bits {same['#20']}"
+          + _check_keep(fa, "#20", seed, p, pd, rate, tag))
+    saved_in = (p, pd, *ins[:5], c["segd"], c["g"])
+    runs = {"#22": lambda: fa.attn_bwd_relik_saved_cuda(*saved_in, **kw),
+            "#21": lambda: fa.attn_bwd_relik_cuda(*ins, seed, c["g"],
+                                                  rate=rate, **kw)}
+    got = {name: run() for name, run in runs.items()}
+    plain = {"#22": fa.attn_bwd_relik_saved_reference(*saved_in, **kw),
+             "#21": fa.attn_bwd_relik_reference(*ins, seed, c["g"],
+                                                rate=rate, **kw)}
+    bound_args = (fa.relik_full_grads_bf16_bound,
+                  (p, pd, *ins[:5], c["segd"], c["g"]), kw)
+    for name in runs:
+        errs[name] = _relik_grad_errs(f"{name} vs plain {tag}", dtype_name,
+                                      got[name], plain[name], bound_args, fa)
+        same[name] = all(torch.equal(x, w)
+                         for x, w in zip(got[name], plain[name]))
+    errs["#21 vs #22"] = _relik_grad_errs(f"#21 vs #22 {tag}", dtype_name,
+                                          got["#21"], got["#22"], bound_args,
+                                          fa)
+    twice = [("#20", (out, p, pd), lambda: fa.attn_fwd_relik_cuda(
+        *ins, rate=rate, seed=seed, save=True, **kw))]
+    twice += [(name, got[name], run) for name, run in runs.items()]
+    differ = [name for name, first, again in twice
+              if not all(torch.equal(x, y) for x, y in zip(first, again()))]
+    print(f"relik full-H backward {tag} (drw, drr, dr, dk, dv, ded): "
+          + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items()
+                      if k_ != "#20")
+          + f"; identical to plain: #22 {same['#22']}, #21 {same['#21']}; "
+          f"same seed twice, identical bits {not differ}")
+    if differ:
+        raise AssertionError(f"{', '.join(differ)} not bit-reproducible "
+                             f"({tag})")
+    return errs, same, (c, seed)
+
+
+def check_relik_full_against_rel(fa, case):
+    """#20 against #11 fed the ebias the model's stream path assembles
+    (``assembled_ebias``), one seed, bf16 B=256 Q=K=50 at rate 0.1. The two
+    share the softmax, mask and PV code; their scores differ by the bf16
+    roundings of the assembled ebias, so each prob differs by a factor
+    within e^{±δ}, δ the largest gap of a row's log-probs (measured from the
+    plain versions). So the outputs lie within 2^-7·(|out| + pd·|v|) (#16
+    against #14's band) plus (e^δ − 1)·pd·|v|."""
+    import torch
+
+    c, seed = case
+    ins = [c[n] for n in RELIK]
+    b, q_len, d = c["rw"].shape
+    kw = dict(n_heads=12, scale=0.125, rate=RATE, seed=seed)
+    ebias = assembled_ebias(c)
+    out20 = fa.attn_fwd_relik_cuda(*ins, **kw)
+    out11 = fa.attn_fwd_rel_cuda(c["rw"], c["k"], c["v"], ebias, **kw)
+    lp20 = torch.log_softmax(fa._relik_scores(*ins[:4], *ins[5:], 12,
+                                              0.125), dim=-1)
+    lp11 = fa._rel_probs(c["rw"], c["k"], ebias, 12, 0.125).log()
+    live = c["maskb"][:, None].float() > -1e29     # masked: p = 0 in both
+    delta = torch.where(live, (lp20 - lp11).abs(), 0.0).amax(dim=-1)
+    _, _, pd = fa.attn_fwd_rel_reference(c["rw"], c["k"], c["v"], ebias,
+                                         save=True, **kw)
+    vh = c["v"].view(b, -1, 12, 64).permute(0, 2, 1, 3).float().abs()
+    spread = torch.matmul(pd.float().abs(), vh)          # [B, H, Q, Dh]
+    extra = (torch.exp(delta)[..., None] - 1) * spread
+    to_out = lambda x: x.permute(0, 2, 1, 3).reshape(b, q_len, d)  # noqa: E731
+    err = (out20.float() - out11.float()).abs()
+    bound = (2.0 ** -7 * (out11.float().abs() + to_out(spread))
+             + to_out(extra) + 2.0 ** -17)
+    print(f"#20 vs #11 on the assembled ebias, bf16 B={b} Q=K={q_len} rate "
+          f"{RATE}: max |Δ| {float(err.max()):.3e}, largest log-prob gap δ "
+          f"{float(delta.max()):.3e}, {int((err > bound).sum())} elements "
+          "past 2^-7·(|out| + pd·|v|) + (e^δ − 1)·pd·|v|")
+    if bool((err > bound).any()):
+        raise AssertionError("#20 vs #11: outputs past the bound")
+
+
+def time_relik_full_kernels(fa, case, card):
+    """#20 (rate 0.1, saved p and pd), #22 and #21 at bf16 B=256 Q=K=50
+    against their plain versions, then at rate 0 beside the library calls
+    (SDPA with the assembled ebias as a float mask; SDPA's autograd
+    backward to q, k, v and the ebias), #20 at the serving shape (B=128);
+    alternating rounds. Returns {name: entry}."""
+    c, seed = case
+    ins = [c[n] for n in RELIK]
+    kw = dict(n_heads=12, scale=0.125)
+    out = {}
+    for rate in (RATE, 0.0):
+        _, p, pd = fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=seed,
+                                          save=True, **kw)
+        saved_in = (p, pd, *ins[:5], c["segd"], c["g"])
+        serve = [x if n == "r" else x[:BATCH].contiguous()
+                 for n, x in zip(RELIK, ins)]
+        runs = {
+            "attn_fwd_relik": (
+                lambda: fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=seed,
+                                               save=True, **kw),
+                lambda: fa.attn_fwd_relik_reference(*ins, rate=rate,
+                                                    seed=seed, save=True,
+                                                    **kw))
+            if rate > 0 else (
+                lambda: fa.attn_fwd_relik_cuda(*serve, **kw),
+                lambda: fa.attn_fwd_relik_reference(*serve, **kw)),
+            "attn_bwd_relik_saved": (
+                lambda: fa.attn_bwd_relik_saved_cuda(*saved_in, **kw),
+                lambda: fa.attn_bwd_relik_saved_reference(*saved_in, **kw)),
+            "attn_bwd_relik": (
+                lambda: fa.attn_bwd_relik_cuda(*ins, seed, c["g"], rate=rate,
+                                               **kw),
+                lambda: fa.attn_bwd_relik_reference(*ins, seed, c["g"],
+                                                    rate=rate, **kw))}
+        for name, (run_kernel, run_plain) in runs.items():
+            kt, pt = _alternate(run_plain, run_kernel, 20)
+            fwd = name == "attn_fwd_relik"
+            b = BATCH if fwd and rate == 0 else BENCH_BATCH
+            kind = {"attn_fwd_relik": "fwd", "attn_bwd_relik_saved":
+                    "bwd_saved", "attn_bwd_relik": "bwd"}[name]
+            bound = relik_full_bound(kind, b, S_SERVE, S_SERVE, 12, 64, 2,
+                                     rate, save=fwd and rate > 0)
+            entry = {"ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": None}
+            lib_note = ""
+            if rate == 0.0:
+                sub = {n: x if n == "r" else x[:b] for n, x in c.items()}
+                lib = sdpa_rel_calls(sub["rw"], sub["k"], sub["v"],
+                                     assembled_ebias(sub), sub["g"], 12,
+                                     0.125)
+                call = lib[0] if fwd else lib[1]
+                _time_ms(call, 3)
+                entry["library_ms"] = float(np.mean(
+                    [_time_ms(call, 20) for _ in range(2)]))
+                entry["library"] = (
+                    "scaled_dot_product_attention, assembled ebias as float "
+                    "mask" if fwd else
+                    "scaled_dot_product_attention autograd backward (dq, dk, "
+                    "dv, debias), rate 0")
+                lib_note = f", library {entry['library_ms']:.4f} ms"
+                del lib, call
+            label = (f"{'serving' if fwd and rate == 0 else 'training'} "
+                     f"rate {rate}, bf16 B={b} Q=K={S_SERVE}")
+            if rate > 0:
+                out[name] = dict(entry, shape=label
+                                 + (", saved probs" if fwd else ""))
+            else:
+                # the rate-0 mode, where one PyTorch call computes the same
+                # function, sets the top-level numbers; training beside it
+                training = {k_: out[name][k_] for k_ in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                out[name] = dict(entry, shape=label, modes={
+                    out[name]["shape"]: training})
+            print(f"{name} {label} H=12 Dh=64 on {card}: kernel {kt} ms, "
+                  f"plain {pt} ms per call{lib_note}; bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
+    return out
+
+
+def xlnet_inkernel_serving(args, rng, fa, card):
+    """Phase 4g: ``serving_path`` over MagXLNetForSequenceClassification at
+    xlnet-base-cased width with ``rel_bias_impl="inkernel"`` (#20 once per
+    layer per batch and nothing else), against einsum; ``rel_shift`` never
+    called (the model builds no [B, H, Q, P] bias); then one batch's
+    profile, in which #20 runs and #11 does not. Returns the counts."""
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models import xlnet as txl
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                              rel_bias_impl="inkernel")
+    mm = MultimodalConfig(injection_index=1)
+    model = _xlnet(cfg, mm, "fused", args.seed + 50)
+    split = make_xlnet_split(rng, N_TEST, S_SERVE, cfg.vocab_size,
+                             ds.visual_dim, ds.acoustic_dim)
+    requests = [make_xlnet_split(rng, REQUEST_SIZE, S_SERVE, cfg.vocab_size,
+                                 ds.visual_dim, ds.acoustic_dim).as_tuple()[:5]
+                for _ in range(N_REQUESTS)]
+    predictor = Predictor(model, batch_size=BATCH)
+    counts = serving_path(
+        fa, card, "xlnet-base-cased inkernel", predictor,
+        lambda: _xlnet(cfg, mm, "einsum", 0, model.state_dict()), split,
+        requests, "attn_fwd_relik", cfg.n_layer)
+    real_shift, shifts = txl.rel_shift, []
+    txl.rel_shift = lambda *a: shifts.append(1) or real_shift(*a)
+    try:
+        predictor.predict_split(split)
+    finally:
+        txl.rel_shift = real_shift
+    print(f"rel_shift calls in one inkernel predict_split pass: "
+          f"{len(shifts)}")
+    if shifts:
+        raise AssertionError(f"inkernel serving called rel_shift "
+                             f"{len(shifts)} times")
+    profile_batch(predictor, split, card)
+    batch = split.take(np.arange(BATCH)).as_tuple()[:5]
+    names = [n for n, _, _ in device_time_by_kernel(
+        lambda: predictor.fetch(predictor.submit(*batch)), 1)["kernels"]]
+    ran = {kernel: any(f"{kernel}<" in n for n in names)
+           for kernel in ("attn_fwd_relik_kernel", "attn_fwd_rel_kernel")}
+    print(f"kernels in the inkernel batch's profile: {ran}")
+    if ran != {"attn_fwd_relik_kernel": True, "attn_fwd_rel_kernel": False}:
+        raise AssertionError(f"inkernel serving profile: {ran}")
+    return counts
+
+
+def xlnet_inkernel_driver_path(args, rng, fa, card):
+    """Phase 6f: ``driver.main --model xlnet-base-cased --attention_impl
+    fused --rel_bias_impl inkernel`` (bf16, one epoch over synthetic splits
+    of 96/48/48) at S = 50: as written (#20 once per layer per batch, #22
+    two launches a call per layer per train step), with ``--mem_len 50`` (K
+    = 100, P = 150: the same kernels) and under ``FUSED_ATTN_SAVE=0`` (#21
+    in place of #22). Checks: exit 0, finite losses, the launches. Then the
+    S=50 gradient check and the two profiled B=256 steps. Returns {path:
+    counts}."""
+    from bert_multimodal_transformer_tpu_torch.config import XLNetConfig
+
+    layers = XLNetConfig.xlnet_base_cased().n_layer
+    n_train = -(-LONG_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in LONG_SPLITS[1:])
+    saved = dict(attn_fwd_relik=layers * (n_train + n_eval),
+                 attn_bwd_relik_saved=2 * layers * n_train)
+    runs = {
+        "xlnet_driver_inkernel": ([], None, saved),
+        "xlnet_driver_inkernel_mem50": (["--mem_len", "50"], None, saved),
+        "xlnet_driver_inkernel_recompute": ([], "0", dict(
+            attn_fwd_relik=layers * (n_train + n_eval),
+            attn_bwd_relik=2 * layers * n_train)),
+    }
+    counts = {}
+    for path, (extra, save, launches) in runs.items():
+        argv = ["--model", "xlnet-base-cased", "--dataset", "mosi",
+                "--synthetic", "--synthetic_sizes", *map(str, LONG_SPLITS),
+                "--n_epochs", "1", "--attention_impl", "fused",
+                "--rel_bias_impl", "inkernel", "--compute_dtype", "bfloat16",
+                "--seed", str(args.seed), *extra]
+        if save is not None:
+            os.environ["FUSED_ATTN_SAVE"] = save
+        try:
+            counts[path] = run_driver(argv, fa, card)
+        finally:
+            os.environ.pop("FUSED_ATTN_SAVE", None)
+        want = _want(fa, **launches)
+        print(f"kernel launches in {path}: {counts[path]} (want {want}: "
+              f"{n_train} train + {n_eval} dev/test batches, {layers} "
+              "layers)")
+        if counts[path] != want:
+            raise AssertionError(f"{path} launches {counts[path]} != {want}")
+    xlnet_grad_check(args, rng, fa, card, s=S_SERVE, batch=TRAIN_BATCH,
+                     impl="inkernel", bwd="attn_bwd_relik_saved", tag="#22",
+                     launches=dict(attn_fwd_relik=layers,
+                                   attn_bwd_relik_saved=2 * layers),
+                     seed_offset=51)
+    profs = {impl: xlnet_long_step_profile(args, rng, card, impl, s=S_SERVE,
+                                           batch=BENCH_BATCH)
+             for impl in ("inkernel", "auto")}
+    outside = {}
+    for impl, prof in profs.items():
+        attn = sum(ms for name, _, ms in prof["kernels"]
+                   if "attn_fwd_rel" in name or "attn_bwd_rel" in name)
+        outside[impl] = prof["device_ms"] - attn
+    gap = outside["auto"] - outside["inkernel"]
+    print(f"XLNet B={BENCH_BATCH} S={S_SERVE} step on {card}: device "
+          f"{profs['auto']['device_ms']:.3f} ms under auto, "
+          f"{profs['inkernel']['device_ms']:.3f} under inkernel; outside the "
+          f"attention kernels {outside['auto']:.3f} and "
+          f"{outside['inkernel']:.3f} ms: the ebias assembly and its backward "
+          f"cost {gap:.3f} ms, {gap / profs['auto']['device_ms']:.1%} of the "
+          "auto step")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3189,6 +3575,27 @@ def main() -> int:
     check_rel_fs_against_hb(rng, fa)
     rel_fs_times = time_rel_fs_kernels(rng, fa, card)
 
+    # 3h. The full-H ingredients kernels (rel_bias_impl="inkernel"). Its
+    # phases (3h, 4g, 6f) draw from a stream of their own, so every other
+    # phase sees the inputs it saw before they were added.
+    ik_rng = np.random.default_rng([args.seed, 8])
+    relik_errs, relik_same, relik_train_case = {}, {}, None
+    for dtype_name, b, q_len, k_len, rates in RELIK_FULL_CASES:
+        for rate in rates:
+            errs, same, case = check_relik_full_kernels(
+                ik_rng, fa, dtype_name, b, q_len, k_len, rate)
+            for k_, v_ in errs.items():
+                relik_errs[k_] = max(relik_errs.get(k_, 0.0), v_)
+            for k_, v_ in same.items():
+                relik_same[k_] = relik_same.get(k_, True) and v_
+            if (dtype_name, b, k_len, rate) == ("bf16", BENCH_BATCH,
+                                                S_SERVE, RATE):
+                relik_train_case = case
+    check_relik_full_against_rel(fa, relik_train_case)
+    relik_times = time_relik_full_kernels(fa, relik_train_case, card)
+    del relik_train_case
+    torch.cuda.empty_cache()
+
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -3234,6 +3641,9 @@ def main() -> int:
     # the memory at S = 512
     xlnet_fs_serve_counts = xlnet_fs_serving(args, rng, fa, card)
 
+    # 4g. XLNet serving under rel_bias_impl="inkernel" (#20)
+    xlnet_ik_serve_counts = xlnet_inkernel_serving(args, ik_rng, fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
@@ -3270,6 +3680,11 @@ def main() -> int:
     # S=1024 stream gradient check
     xlnet_fs_driver_counts = xlnet_fs_driver_path(args, rng, fa, card)
 
+    # 6f. The XLNet driver under --rel_bias_impl inkernel (#20-#22); the
+    # S=50 gradient check; the B=256 step under inkernel and auto
+    xlnet_ik_driver_counts = xlnet_inkernel_driver_path(args, ik_rng, fa,
+                                                        card)
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -3290,7 +3705,10 @@ def main() -> int:
                  **{path: c[name] for path, c in
                     xlnet_fs_serve_counts.items()},
                  **{path: c[name] for path, c in
-                    xlnet_fs_driver_counts.items()}}
+                    xlnet_fs_driver_counts.items()},
+                 "xlnet_serving_inkernel": xlnet_ik_serve_counts[name],
+                 **{path: c[name] for path, c in
+                    xlnet_ik_driver_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -3428,6 +3846,20 @@ def main() -> int:
             "shape": f"bf16 B={TRAIN_BATCH} Q=K=1024 H=12 Dh=64 rate 0"})
     kernels[-1]["launches_note"] = ("two kernel launches a call: the dK/dV "
                                     "pass and the dQ/debias pass")
+    for name, line, tag in (("attn_fwd_relik", 3690, "#20"),
+                            ("attn_bwd_relik_saved", 3809, "#22"),
+                            ("attn_bwd_relik", 3758, "#21")):
+        total, paths = by_path(name)
+        entry = {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                 "replaces": f"{tpu}fused_attention.py:{line}",
+                 "launches": total, "launches_by_path": paths,
+                 "max_abs_err": relik_errs[tag],
+                 "identical_to_plain": relik_same[tag], **relik_times[name]}
+        if tag != "#20":
+            entry["launches_note"] = ("two kernel launches a call: the "
+                                      "(head, batch row) pass and the dr sum "
+                                      "over the batch")
+        kernels.append(entry)
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

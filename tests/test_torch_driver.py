@@ -219,12 +219,13 @@ def test_driver_trains_with_the_fused_gate_on_cpu(monkeypatch, capsys):
     assert calls == {"fwd": 6, "bwd": 4}
 
 
-def test_xlnet_driver_trains_fused_on_cpu(monkeypatch, capsys):
+def _xlnet_driver_on_cpu(monkeypatch, capsys, family, extra=()):
     """driver.main --model xlnet-base-cased --tiny --attention_impl fused
-    --device cpu: returns 0, prints the JAX driver's lines, logs one record
-    with the JAX trainer's keys, and runs the rel attention (its plain
-    versions on the CPU) once per layer and forward, the saved-probs
-    backward once per layer and train step."""
+    --device cpu (plus ``extra``): asserts it returns 0, prints the JAX
+    driver's lines and logs one record with the JAX trainer's keys and a
+    finite loss; returns the calls of the ``family`` kernels' plain
+    versions (attn_fwd_{family}, attn_bwd_{family}_saved, attn_bwd_{family}
+    _reference)."""
     from bert_multimodal_transformer_tpu_torch.ops import (
         fused_attention as tfa,
     )
@@ -235,9 +236,9 @@ def test_xlnet_driver_trains_fused_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tlog.MetricLogger, "log",
                         lambda self, r: records.append(dict(r))
                         or real_log(self, r))
-    for key, name in (("fwd", "attn_fwd_rel_reference"),
-                      ("bwd_saved", "attn_bwd_rel_saved_reference"),
-                      ("bwd", "attn_bwd_rel_reference")):
+    for key, name in (("fwd", f"attn_fwd_{family}_reference"),
+                      ("bwd_saved", f"attn_bwd_{family}_saved_reference"),
+                      ("bwd", f"attn_bwd_{family}_reference")):
         real = getattr(tfa, name)
         monkeypatch.setattr(tfa, name, lambda *a, _k=key, _r=real, **kw:
                             calls.__setitem__(_k, calls[_k] + 1)
@@ -246,13 +247,31 @@ def test_xlnet_driver_trains_fused_on_cpu(monkeypatch, capsys):
         "--model", "xlnet-base-cased", "--dataset", "mosi", "--tiny",
         "--synthetic", "--synthetic_sizes", "32", "8", "8", "--n_epochs",
         "1", "--train_batch_size", "8", "--attention_impl", "fused",
-        "--seed", "3", "--device", "cpu"])
+        "--seed", "3", "--device", "cpu", *extra])
     out = capsys.readouterr().out
     assert rc == 0
     assert "Seed: 3" in out and "epoch:0, train_loss:" in out
     assert len(records) == 1 and set(records[0]) == RECORD_KEYS
     assert np.isfinite(records[0]["train_loss"])
+    return calls
+
+
+def test_xlnet_driver_trains_fused_on_cpu(monkeypatch, capsys):
+    """The rel attention (its plain versions on the CPU) runs once per
+    layer and forward, the saved-probs backward once per layer and train
+    step."""
+    calls = _xlnet_driver_on_cpu(monkeypatch, capsys, "rel")
     # 2 layers x (4 train + 1 dev + 1 test batches); 2 x 4 train steps
+    assert calls == {"fwd": 12, "bwd_saved": 8, "bwd": 0}
+
+
+def test_xlnet_driver_trains_inkernel_on_cpu(monkeypatch, capsys):
+    """``--rel_bias_impl inkernel`` trains and evaluates (the JAX
+    ``tests/test_driver.py`` end-to-end run): the full-H ingredients
+    kernels' plain versions, #20 once per layer and forward, #22 once per
+    layer and train step."""
+    calls = _xlnet_driver_on_cpu(monkeypatch, capsys, "relik",
+                                 ["--rel_bias_impl", "inkernel"])
     assert calls == {"fwd": 12, "bwd_saved": 8, "bwd": 0}
 
 
@@ -293,8 +312,6 @@ def test_driver_requires_data_source(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--vocab", "spiece.model", "--model", "xlnet-base-cased"], "A.15"),
-    (["--rel_bias_impl", "inkernel", "--model", "xlnet-base-cased",
-      "--attention_impl", "fused"], "B.7"),
     (["--checkpoint_dir", "ckpt"], "A.6"),
     (["--resume"], "A.6"),
     (["--save_every_steps", "5"], "A.6"),

@@ -105,7 +105,7 @@ def test_ingredients_fs_matches_jax(s, k_len, p_len):
     want_val, want = jax.value_and_grad(loss, argnums=tuple(range(6)))(
         *(jnp.asarray(x[n]) for n in DIFF))
     before = _calls()
-    val, got = _port_grads(x)
+    val, got = _port_grads(x, tier="fs")
     assert _ran(before) == {"attn_fwd_relik_fs_reference": 1,
                             "attn_bwd_relik_fs_reference": 1}
     np.testing.assert_allclose(val, float(want_val), rtol=1e-5)
@@ -140,7 +140,7 @@ def test_ingredients_fs_takes_a_ragged_length():
 
     want_val, want = jax.value_and_grad(loss, argnums=tuple(range(6)))(
         *(jnp.asarray(x[n]) for n in DIFF))
-    val, got = _port_grads(x)
+    val, got = _port_grads(x, tier="fs")
     np.testing.assert_allclose(val, float(want_val), rtol=1e-5)
     for name, a, w in zip(DIFF, got, want):
         np.testing.assert_allclose(a, np.asarray(w), atol=IK_TOL,
@@ -252,14 +252,15 @@ def test_rel_tier_raises_past_the_head_blocked_reach():
 @pytest.mark.parametrize("kw,err,match", [
     ({"interpret": True}, ValueError, "TPU"),
     ({"fs_plan": (4, 128, 128)}, ValueError, "TPU"),
-    ({"tier": "full"}, NotImplementedError, r"B\.7"),
+    ({"tier": "full", "k_len": 513}, ValueError, "past the full-H"),
     ({"tier": "hb"}, ValueError, "unknown tier"),
     ({"dropout_rate": 0.1, "deterministic": False}, ValueError,
      "requires dropout_rng"),
     ({"p_len": 23}, ValueError, "P ≥ Q"),
 ])
 def test_ingredients_entry_refuses_bad_arguments(kw, err, match):
-    x = _ingredients(8, 16, kw.pop("p_len", 24), b=1, h=2, dh=8)
+    k_len = kw.pop("k_len", 16)
+    x = _ingredients(8, k_len, kw.pop("p_len", k_len + 8), b=1, h=2, dh=8)
     ts = [torch.from_numpy(x[n]) for n in (*DIFF, "segd", "maskb")]
     with pytest.raises(err, match=match):
         tfa.fused_rel_attention_ingredients(*ts, n_heads=2, scale=1.0, **kw)

@@ -371,8 +371,9 @@ def test_dropout_forward_is_seeded(jparams):
     ({"tp_attention_mesh": object()}, "A.10")])
 def test_unported_config_options_raise(kw, item):
     """An option whose item is still open raises naming it; the memory's
-    options (A.8, ported) build a config that keeps them."""
-    if item == "A.8":
+    options (A.8) and ``rel_bias_impl="inkernel"`` (B.7), both ported,
+    build a config that keeps them."""
+    if item in ("A.8", "B.7"):
         cfg = XLNetConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
         return
