@@ -1,9 +1,9 @@
 """Typed configuration, with torch dtypes.
 
 Port of ``bert_multimodal_transformer_tpu/config.py`` (dataset presets, the
-MAG hyperparameters, the BERT and XLNet configs). Options whose port has
-not landed yet raise ``NotImplementedError`` naming their ROADMAP item
-instead of being silently ignored.
+MAG hyperparameters, the rank mesh, the BERT and XLNet configs). Options
+whose port has not landed yet raise ``NotImplementedError`` naming their
+ROADMAP item instead of being silently ignored.
 """
 
 from __future__ import annotations
@@ -64,6 +64,17 @@ class MultimodalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The rank mesh's layout (parallel/mesh.py::make_mesh): data_parallel
+    × model_parallel ranks, -1 for every rank on that axis."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class BertConfig:
     """BERT encoder hyperparameters (HF transformers==3.0.2 defaults for
     bert-base-uncased)."""
@@ -85,8 +96,11 @@ class BertConfig:
     # (the hand-written packed attention kernel, ops/fused_attention.py).
     # "flash" waits for ROADMAP A.2.
     attention_impl: str = "einsum"
-    # Not ported yet; setting either raises (see __post_init__).
+    # Not ported yet; setting it raises (see __post_init__).
     qkv_fusion: bool = False
+    # The mesh whose model axis head-shards attention (tensor parallelism,
+    # parallel/tp.py): set with Trainer(tp_shard_attention=True), and read
+    # by Predictor(mesh=...). None: attention over all heads on every rank.
     tp_attention_mesh: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -103,9 +117,14 @@ class BertConfig:
                 "qkv_fusion: the QKV-projection attention kernel is not "
                 "ported yet (ROADMAP B.10)")
         if self.tp_attention_mesh is not None:
-            raise NotImplementedError(
-                "tp_attention_mesh: tensor-parallel attention is not ported "
-                "yet (ROADMAP A.10, B.9)")
+            from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+                Mesh,
+            )
+
+            if not isinstance(self.tp_attention_mesh, Mesh):
+                raise TypeError(
+                    "tp_attention_mesh must be a parallel.mesh.Mesh, got "
+                    f"{type(self.tp_attention_mesh).__name__}")
 
     @staticmethod
     def bert_base_uncased() -> "BertConfig":

@@ -27,8 +27,9 @@
 // pass or atomics.
 //
 // What the design does about that: one block per (head, batch row) holds
-// the whole [S, S] problem in shared memory (common.cuh's plan: two
-// [S][Dh+1] staging tiles, the fp32 probs P and the gradient tile Tt), so
+// the whole [S, S] problem in shared memory (common.cuh's plan and code,
+// `bwd_recompute_head`, which the split-layout #9 runs too: two [S][Dh+1]
+// staging tiles, the fp32 probs P and the gradient tile Tt), so
 // every reduction stays inside the block, there are no atomics, and the
 // result is bit-reproducible. B·H = 3072 blocks fill the 132 SMs. The
 // keep bit of each element rides in the sign of its P entry (p >= 0), so
@@ -38,8 +39,6 @@
 // run on the CUDA cores in fp32; tensor cores are later work.
 
 #include "common.cuh"
-
-#include <cmath>
 
 namespace {
 
@@ -59,72 +58,18 @@ __global__ void __launch_bounds__(kThreads)
   const int D = H * Dh;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ld = Dh + 1;
-
-  float* as = smem;                  // [S][Dh + 1]
-  float* bs = as + S * ld;           // [S][Dh + 1]
-  float* ps = bs + S * ld;           // [S][S] p, sign bit = dropped
-  float* tt = ps + S * S;            // [S][S] d(pd), then ds_c
-  float* bias = tt + S * S;          // [S]
-
   const size_t row_stride = (size_t)3 * D;
-  const T* q_src = qkv + (size_t)b * S * row_stride + h * Dh;
-  const T* k_src = q_src + D;
-  const T* v_src = q_src + 2 * D;
-  const T* g_src = g + (size_t)b * S * D + h * Dh;
-  T* dq_dst = dqkv + (size_t)b * S * row_stride + h * Dh;
-  T* dk_dst = dq_dst + D;
-  T* dv_dst = dq_dst + 2 * D;
-
-  for (int j = tid; j < S; j += kThreads)
-    bias[j] = mask ? (1.0f - mask[(size_t)b * S + j]) * -10000.0f : 0.0f;
-  attn::load_tile(as, q_src, row_stride, S, Dh);
-  attn::load_tile(bs, k_src, row_stride, S, Dh);
-  __syncthreads();
-
-  // Scores, exactly as the forward: (q · k) · scale, then + bias.
-  for (int i = tid; i < S * S; i += kThreads) {
-    const int q = i / S, k = i - q * S;
-    const float* qr = as + q * ld;
-    const float* kr = bs + k * ld;
-    float acc = 0.0f;
-    for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
-    ps[i] = __fadd_rn(__fmul_rn(acc, scale), bias[k]);
-  }
-  __syncthreads();
-
-  // fp32 softmax with the forward's loop and reduction order; the keep
-  // mask replayed into the sign bit.
-  attn::softmax_rows_keep_sign<kDropout>(ps, S, S, 0, b, h, drop);
-  __syncthreads();  // Q and K no longer needed: stage g and V
-
-  attn::load_tile(as, g_src, (size_t)D, S, Dh);
-  attn::load_tile(bs, v_src, row_stride, S, Dh);
-  __syncthreads();
-  attn::tile_abt(tt, as, bs, S, S, Dh);  // d(pd) = g · Vᵀ
-  __syncthreads();
-
-  const float inv_keep = drop.inv_keep;
-  auto pd_of = [ps, inv_keep](int i) {
-    return attn::pd_of_signed<kDropout>(ps[i], inv_keep);
-  };
-  auto p_of = [ps](int i) { return attn::p_of_signed<kDropout>(ps[i]); };
-  attn::softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of,
-                            attn::NoDsOut{});
-  __syncthreads();
-
-  // P ← pd_c = T(pd) for the dV product.
-  for (int i = tid; i < S * S; i += kThreads) ps[i] = attn::round_to<T>(pd_of(i));
-  __syncthreads();
-  attn::store_mtx(dv_dst, row_stride, ps, as, S, S, Dh);  // dV = pd_cᵀ · g
-  __syncthreads();  // g and V no longer needed: stage Q and K again
-
-  attn::load_tile(as, q_src, row_stride, S, Dh);
-  attn::load_tile(bs, k_src, row_stride, S, Dh);
-  __syncthreads();
-  attn::store_mx(dq_dst, row_stride, tt, bs, S, S, Dh);   // dQ = ds_c · K
-  attn::store_mtx(dk_dst, row_stride, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
+  const T* q = qkv + (size_t)b * S * row_stride + h * Dh;
+  T* dq = dqkv + (size_t)b * S * row_stride + h * Dh;
+  const attn::BwdHead<T> hd{q,      q + D,  q + 2 * D,
+                            row_stride,
+                            g + (size_t)b * S * D + h * Dh,
+                            (size_t)D,
+                            dq,     dq + D, dq + 2 * D,
+                            row_stride,
+                            mask ? mask + (size_t)b * S : nullptr,
+                            b,      h};
+  attn::bwd_recompute_head<T, kDropout>(smem, hd, S, Dh, scale, drop);
 }
 
 template <typename T, bool kDropout>

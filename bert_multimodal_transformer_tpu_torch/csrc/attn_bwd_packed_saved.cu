@@ -23,7 +23,8 @@
 //
 // What the design does about that: one block per (head, batch row) holds
 // the whole [S, S] problem in shared memory (common.cuh's plan, the same
-// as the recompute backward's), so every reduction stays inside the block,
+// as the recompute backward's, and its code `bwd_saved_head`, which the
+// split-layout #10 runs too), so every reduction stays inside the block,
 // there are no atomics and the result is bit-reproducible; B·H = 3072
 // blocks fill the 132 SMs. pd is staged in shared memory for the dV
 // product and the VJP, p is read once from device memory, row by row. The
@@ -49,46 +50,18 @@ __global__ void __launch_bounds__(kThreads)
   const int D = H * Dh;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ld = Dh + 1;
-
-  float* as = smem;                  // [S][Dh + 1]
-  float* bs = as + S * ld;           // [S][Dh + 1]
-  float* ps = bs + S * ld;           // [S][S] pd
-  float* tt = ps + S * S;            // [S][S] d(pd), then ds_c
-
   const size_t row_stride = (size_t)3 * D;
-  const T* q_src = qkv + (size_t)b * S * row_stride + h * Dh;
-  const T* k_src = q_src + D;
-  const T* v_src = q_src + 2 * D;
-  const T* g_src = g + (size_t)b * S * D + h * Dh;
+  const T* q = qkv + (size_t)b * S * row_stride + h * Dh;
+  T* dq = dqkv + (size_t)b * S * row_stride + h * Dh;
+  const attn::BwdHead<T> hd{q,       q + D,  q + 2 * D,
+                            row_stride,
+                            g + (size_t)b * S * D + h * Dh,
+                            (size_t)D,
+                            dq,      dq + D, dq + 2 * D,
+                            row_stride,
+                            nullptr, b,      h};
   const size_t head = ((size_t)b * H + h) * S * S;
-  const T* p_head = p + head;
-  const T* pd_head = pd + head;
-  T* dq_dst = dqkv + (size_t)b * S * row_stride + h * Dh;
-  T* dk_dst = dq_dst + D;
-  T* dv_dst = dq_dst + 2 * D;
-
-  for (int i = tid; i < S * S; i += kThreads)
-    ps[i] = attn::to_float(pd_head[i]);
-  attn::load_tile(as, g_src, (size_t)D, S, Dh);
-  attn::load_tile(bs, v_src, row_stride, S, Dh);
-  __syncthreads();
-  attn::tile_abt(tt, as, bs, S, S, Dh);                   // d(pd) = g · Vᵀ
-  attn::store_mtx(dv_dst, row_stride, ps, as, S, S, Dh);  // dV = pdᵀ · g
-  __syncthreads();
-
-  auto pd_of = [ps](int i) { return ps[i]; };
-  auto p_of = [p_head](int i) { return attn::to_float(p_head[i]); };
-  attn::softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of,
-                            attn::NoDsOut{});
-  __syncthreads();  // g and V no longer needed: stage Q and K
-
-  attn::load_tile(as, q_src, row_stride, S, Dh);
-  attn::load_tile(bs, k_src, row_stride, S, Dh);
-  __syncthreads();
-  attn::store_mx(dq_dst, row_stride, tt, bs, S, S, Dh);   // dQ = ds_c · K
-  attn::store_mtx(dk_dst, row_stride, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
+  attn::bwd_saved_head<T>(smem, hd, p + head, pd + head, S, Dh, scale);
 }
 
 template <typename T>

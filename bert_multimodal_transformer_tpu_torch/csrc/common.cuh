@@ -1,11 +1,12 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the Philox4x32-10
-// dropout stream, the whole-row forward's blocks (#1 and #4 packed, #11,
-// #14 and #20 rel), the recompute backward's softmax rows (#2, #5, #12,
-// #15, #21), the small shared-memory products of the backward kernels, and
-// the ingredients kernels' score and full-H backward tail (the attention
-// kernels: attn_{fwd,bwd}_packed*.cu, attn_{fwd,bwd}_rel*.cu and
-// attn_{fwd,bwd}_relik*.cu).
+// dropout stream, the whole-row forward's blocks (#1 and #4 packed, #8
+// split, #11, #14 and #20 rel), the recompute backward's softmax rows (#2,
+// #5, #9, #12, #15, #21), the full-H backward of one head (#2, #3 packed,
+// #9, #10 split), the small shared-memory products of the backward kernels,
+// and the ingredients kernels' score and full-H backward tail (the attention
+// kernels: attn_{fwd,bwd}_packed*.cu, attn_{fwd,bwd}_split*.cu,
+// attn_{fwd,bwd}_rel*.cu and attn_{fwd,bwd}_relik*.cu).
 //
 // The dropout stream. Element (b, h, q, k) of the [B, H, Q, K] probs is
 // kept iff its 32-bit draw is >= threshold, where
@@ -90,17 +91,20 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
-// ---- the whole-row packed forward (kernels #1 and #4) ---------------------
+// ---- the whole-row forward (kernels #1 and #4 packed, #8 split) -----------
 //
 // One block of kFwdThreads threads computes kQTile query rows q0 =
-// blockIdx.x · kQTile of head h = blockIdx.y, batch row b = blockIdx.z:
-// scores over the whole key row in a [kQTile][S] fp32 shared tile (K
-// streamed in kFwdKChunk-row chunks by stride from the packed projection),
-// a max-subtracted fp32 softmax one warp per row, the Philox keep mask, the
-// probs rounded to T, and PV accumulated in fp32 registers (V streamed the
-// same way). #1 runs it with 16-row tiles up to S = 512 and the save modes;
-// #4 with 32-row tiles up to S = 640. The arithmetic of a row does not
-// depend on kQTile, so the two give the same bits where both reach.
+// blockIdx.x · kQTile of one (head, batch row): scores over the whole key
+// row in a [kQTile][S] fp32 shared tile (K streamed in kFwdKChunk-row
+// chunks by stride), a max-subtracted fp32 softmax one warp per row, the
+// Philox keep mask, the probs rounded to T, and PV accumulated in fp32
+// registers (V streamed the same way). `fwd_rows` takes the head's rows by
+// pointer and row stride, so one code serves both layouts: the packed
+// projection [B, S, 3D] (#1 with 16-row tiles up to S = 512 and the save
+// modes, #4 with 32-row tiles up to S = 640; `fwd_packed_rows`) and the
+// split q, k, v [B, H, S, Dh] (#8, attn_fwd_split.cu). The arithmetic of a
+// row depends on neither kQTile nor the layout, so all of them give the
+// same bits where they reach.
 
 constexpr int kFwdThreads = 256;  // 8 warps
 constexpr int kFwdKChunk = 64;    // key/value rows staged in shared memory
@@ -115,40 +119,54 @@ __host__ __device__ inline size_t fwd_smem_floats(int s, int dh) {
          (size_t)kQTile * s + (size_t)s;
 }
 
+// Where one (head, batch row) of the whole-row forward lives: row r of its
+// q, k and v at q/k/v + r · ld (Dh columns each), row r of its output at
+// out + r · out_ld, its fp32 [S] mask at mask (null: no padding), row r of
+// its saved probs at (prob_row + r) · S of p_out/pd_out; the dropout draws
+// are taken at batch row drop_b, head drop_h of the Philox counter.
+template <typename T>
+struct RowsHead {
+  const T* q;
+  const T* k;
+  const T* v;
+  size_t ld;
+  const float* mask;
+  T* out;
+  size_t out_ld;
+  size_t prob_row;
+  int drop_b;
+  int drop_h;
+};
+
 template <typename T, int kQTile, bool kDropout, bool kSave>
-__device__ __forceinline__ void fwd_packed_rows(
-    float* smem, const T* __restrict__ qkv, const float* __restrict__ mask,
-    T* __restrict__ out, T* __restrict__ p_out, T* __restrict__ pd_out,
-    int S, int H, int Dh, float scale, DropoutArgs drop) {
+__device__ __forceinline__ void fwd_rows(float* smem, const RowsHead<T>& hd,
+                                         T* __restrict__ p_out,
+                                         T* __restrict__ pd_out, int S,
+                                         int Dh, float scale,
+                                         DropoutArgs drop) {
   // Each thread owns ceil(kQTile * kFwdMaxDh / kFwdThreads) accumulators.
   constexpr int kAccPerThread =
       (kQTile * kFwdMaxDh + kFwdThreads - 1) / kFwdThreads;
-  const int D = H * Dh;
   const int q0 = blockIdx.x * kQTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ldkv = Dh + 1;
+  const size_t ld = hd.ld;
 
   float* qs = smem;                            // [kQTile][Dh]
   float* kvs = qs + kQTile * Dh;               // [kFwdKChunk][Dh + 1]
   float* ps = kvs + kFwdKChunk * ldkv;         // [kQTile][S]
   float* bias = ps + kQTile * S;               // [S]
 
-  const size_t row_stride = (size_t)3 * D;
-  const T* base = qkv + (size_t)b * S * row_stride;
   const int q_rows = min(kQTile, S - q0);
 
   // Mask bias, as the TPU entry forms it: (1 − m) · −10000.
   for (int j = tid; j < S; j += kFwdThreads) {
-    bias[j] = mask ? (1.0f - mask[(size_t)b * S + j]) * -10000.0f : 0.0f;
+    bias[j] = hd.mask ? (1.0f - hd.mask[j]) * -10000.0f : 0.0f;
   }
   // Q tile; rows past S are zero-filled and never written out.
   for (int i = tid; i < kQTile * Dh; i += kFwdThreads) {
     const int r = i / Dh, c = i - r * Dh;
-    qs[i] = r < q_rows ? to_float(base[(size_t)(q0 + r) * row_stride +
-                                       h * Dh + c])
-                       : 0.0f;
+    qs[i] = r < q_rows ? to_float(hd.q[(size_t)(q0 + r) * ld + c]) : 0.0f;
   }
 
   // Scores: s[r][j] = (q_r · k_j) · scale + bias[j], over K in chunks.
@@ -157,8 +175,7 @@ __device__ __forceinline__ void fwd_packed_rows(
     __syncthreads();  // previous chunk's readers are done (and qs/bias set)
     for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
       const int r = i / Dh, c = i - r * Dh;
-      kvs[r * ldkv + c] =
-          to_float(base[(size_t)(k0 + r) * row_stride + D + h * Dh + c]);
+      kvs[r * ldkv + c] = to_float(hd.k[(size_t)(k0 + r) * ld + c]);
     }
     __syncthreads();
     for (int i = tid; i < kQTile * k_rows; i += kFwdThreads) {
@@ -195,11 +212,11 @@ __device__ __forceinline__ void fwd_packed_rows(
       // Training modes: each lane takes 4 consecutive keys, one Philox
       // block for the 4 draws.
       const int q = q0 + r;
-      const size_t prow = (((size_t)b * H + h) * S + q) * S;
+      const size_t prow = (hd.prob_row + q) * S;
       for (int j0 = 4 * lane; j0 < S; j0 += 128) {
         uint4 bits = make_uint4(0u, 0u, 0u, 0u);
         if constexpr (kDropout)
-          bits = dropout_bits4(drop.seed, b, h, q, j0 >> 2);
+          bits = dropout_bits4(drop.seed, hd.drop_b, hd.drop_h, q, j0 >> 2);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int j = j0 + u;
@@ -228,8 +245,7 @@ __device__ __forceinline__ void fwd_packed_rows(
     __syncthreads();  // softmax / previous chunk done
     for (int i = tid; i < k_rows * Dh; i += kFwdThreads) {
       const int r = i / Dh, c = i - r * Dh;
-      kvs[r * ldkv + c] = to_float(
-          base[(size_t)(k0 + r) * row_stride + 2 * D + h * Dh + c]);
+      kvs[r * ldkv + c] = to_float(hd.v[(size_t)(k0 + r) * ld + c]);
     }
     __syncthreads();
 #pragma unroll
@@ -247,16 +263,41 @@ __device__ __forceinline__ void fwd_packed_rows(
       }
     }
   }
-  T* out_base = out + (size_t)b * S * D;
 #pragma unroll
   for (int a = 0; a < kAccPerThread; ++a) {
     const int i = tid + a * kFwdThreads;
     if (i < kQTile * Dh) {
       const int r = i / Dh, c = i - r * Dh;
       if (r < q_rows)
-        out_base[(size_t)(q0 + r) * D + h * Dh + c] = from_float<T>(acc[a]);
+        hd.out[(size_t)(q0 + r) * hd.out_ld + c] = from_float<T>(acc[a]);
     }
   }
+}
+
+// `fwd_rows` on the packed projection qkv [B, S, 3D] (column packing
+// i·D + h·Dh + c) for head h = blockIdx.y of batch row b = blockIdx.z,
+// out [B, S, D], saved probs [B, H, S, S].
+template <typename T, int kQTile, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_packed_rows(
+    float* smem, const T* __restrict__ qkv, const float* __restrict__ mask,
+    T* __restrict__ out, T* __restrict__ p_out, T* __restrict__ pd_out,
+    int S, int H, int Dh, float scale, DropoutArgs drop) {
+  const int D = H * Dh;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const T* q = qkv + (size_t)b * S * 3 * D + h * Dh;
+  const RowsHead<T> hd{q,
+                       q + D,
+                       q + 2 * D,
+                       (size_t)3 * D,
+                       mask ? mask + (size_t)b * S : nullptr,
+                       out + (size_t)b * S * D + h * Dh,
+                       (size_t)D,
+                       ((size_t)b * H + h) * S,
+                       b,
+                       h};
+  fwd_rows<T, kQTile, kDropout, kSave>(smem, hd, p_out, pd_out, S, Dh, scale,
+                                       drop);
 }
 
 // ---- the whole-row rel forward (kernels #11 and #14) ----------------------
@@ -608,6 +649,136 @@ __device__ __forceinline__ void softmax_vjp_rows(float* tt, int Q, int K,
 struct NoDsOut {
   __device__ __forceinline__ void operator()(int, float) const {}
 };
+
+// ---- the full-H backward of one (head, batch row) (#2, #3; #9, #10) -----
+//
+// One block holds the whole [S, S] problem of one (head, batch row) in the
+// plan of `bwd_smem_floats`: A and B [S][Dh+1], P and Tt [S][S], the [S]
+// mask bias. The head's rows are taken by pointer and row stride, so the
+// packed kernels (#2 attn_bwd_packed.cu, #3 attn_bwd_packed_saved.cu: row
+// stride 3D into qkv and dqkv, D into g) and the split ones (#9
+// attn_bwd_split.cu, #10 attn_bwd_split_saved.cu: row stride Dh into
+// [B, H, S, Dh]) run the same code and give the same bits.
+template <typename T>
+struct BwdHead {
+  const T* q;           // row r of q, k, v at + r · ld
+  const T* k;
+  const T* v;
+  size_t ld;
+  const T* g;           // row r of the context gradient at + r · g_ld
+  size_t g_ld;
+  T* dq;                // row r of dq, dk, dv at + r · d_ld
+  T* dk;
+  T* dv;
+  size_t d_ld;
+  const float* mask;    // the batch row's fp32 [S] mask (null: no padding)
+  int drop_b;           // the Philox counter's batch row and head
+  int drop_h;
+};
+
+// The recompute backward (#2, #9): the forward's scores, fp32 softmax and
+// keep mask (into the sign bit) again, then
+//   dV = T(pd)ᵀ · g;  d(pd) = g · Vᵀ;  t = pd ⊙ d(pd);
+//   ds = (t − p · Σ_k t) · scale;  ds_c = T(ds);  dQ = ds_c · K;  dK = ds_cᵀ · Q
+template <typename T, bool kDropout>
+__device__ __forceinline__ void bwd_recompute_head(float* smem,
+                                                   const BwdHead<T>& hd,
+                                                   int S, int Dh, float scale,
+                                                   DropoutArgs drop) {
+  const int tid = threadIdx.x;
+  const int ld = Dh + 1;
+
+  float* as = smem;                  // [S][Dh + 1]
+  float* bs = as + S * ld;           // [S][Dh + 1]
+  float* ps = bs + S * ld;           // [S][S] p, sign bit = dropped
+  float* tt = ps + S * S;            // [S][S] d(pd), then ds_c
+  float* bias = tt + S * S;          // [S]
+
+  for (int j = tid; j < S; j += blockDim.x)
+    bias[j] = hd.mask ? (1.0f - hd.mask[j]) * -10000.0f : 0.0f;
+  load_tile(as, hd.q, hd.ld, S, Dh);
+  load_tile(bs, hd.k, hd.ld, S, Dh);
+  __syncthreads();
+
+  // Scores, exactly as the forward: (q · k) · scale, then + bias.
+  for (int i = tid; i < S * S; i += blockDim.x) {
+    const int q = i / S, k = i - q * S;
+    const float* qr = as + q * ld;
+    const float* kr = bs + k * ld;
+    float acc = 0.0f;
+    for (int c = 0; c < Dh; ++c) acc = fmaf(qr[c], kr[c], acc);
+    ps[i] = __fadd_rn(__fmul_rn(acc, scale), bias[k]);
+  }
+  __syncthreads();
+
+  // fp32 softmax with the forward's loop and reduction order; the keep
+  // mask replayed into the sign bit.
+  softmax_rows_keep_sign<kDropout>(ps, S, S, 0, hd.drop_b, hd.drop_h, drop);
+  __syncthreads();  // Q and K no longer needed: stage g and V
+
+  load_tile(as, hd.g, hd.g_ld, S, Dh);
+  load_tile(bs, hd.v, hd.ld, S, Dh);
+  __syncthreads();
+  tile_abt(tt, as, bs, S, S, Dh);  // d(pd) = g · Vᵀ
+  __syncthreads();
+
+  const float inv_keep = drop.inv_keep;
+  auto pd_of = [ps, inv_keep](int i) {
+    return pd_of_signed<kDropout>(ps[i], inv_keep);
+  };
+  auto p_of = [ps](int i) { return p_of_signed<kDropout>(ps[i]); };
+  softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of, NoDsOut{});
+  __syncthreads();
+
+  // P ← pd_c = T(pd) for the dV product.
+  for (int i = tid; i < S * S; i += blockDim.x) ps[i] = round_to<T>(pd_of(i));
+  __syncthreads();
+  store_mtx(hd.dv, hd.d_ld, ps, as, S, S, Dh);  // dV = pd_cᵀ · g
+  __syncthreads();  // g and V no longer needed: stage Q and K again
+
+  load_tile(as, hd.q, hd.ld, S, Dh);
+  load_tile(bs, hd.k, hd.ld, S, Dh);
+  __syncthreads();
+  store_mx(hd.dq, hd.d_ld, tt, bs, S, S, Dh);   // dQ = ds_c · K
+  store_mtx(hd.dk, hd.d_ld, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
+}
+
+// The saved-probs backward (#3, #10) from this head's saved p and pd
+// ([S][S] each, T; pd is p when the rate was 0): no QK product, no
+// softmax, no random draws; the mask and drop fields of hd are unused.
+template <typename T>
+__device__ __forceinline__ void bwd_saved_head(float* smem,
+                                               const BwdHead<T>& hd,
+                                               const T* __restrict__ p_head,
+                                               const T* __restrict__ pd_head,
+                                               int S, int Dh, float scale) {
+  const int tid = threadIdx.x;
+  const int ld = Dh + 1;
+
+  float* as = smem;                  // [S][Dh + 1]
+  float* bs = as + S * ld;           // [S][Dh + 1]
+  float* ps = bs + S * ld;           // [S][S] pd
+  float* tt = ps + S * S;            // [S][S] d(pd), then ds_c
+
+  for (int i = tid; i < S * S; i += blockDim.x) ps[i] = to_float(pd_head[i]);
+  load_tile(as, hd.g, hd.g_ld, S, Dh);
+  load_tile(bs, hd.v, hd.ld, S, Dh);
+  __syncthreads();
+  tile_abt(tt, as, bs, S, S, Dh);               // d(pd) = g · Vᵀ
+  store_mtx(hd.dv, hd.d_ld, ps, as, S, S, Dh);  // dV = pdᵀ · g
+  __syncthreads();
+
+  auto pd_of = [ps](int i) { return ps[i]; };
+  auto p_of = [p_head](int i) { return to_float(p_head[i]); };
+  softmax_vjp_rows<T>(tt, S, S, scale, pd_of, p_of, NoDsOut{});
+  __syncthreads();  // g and V no longer needed: stage Q and K
+
+  load_tile(as, hd.q, hd.ld, S, Dh);
+  load_tile(bs, hd.k, hd.ld, S, Dh);
+  __syncthreads();
+  store_mx(hd.dq, hd.d_ld, tt, bs, S, S, Dh);   // dQ = ds_c · K
+  store_mtx(hd.dk, hd.d_ld, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
+}
 
 // ---- the ingredients rel kernels (#20-#24) -------------------------------
 //

@@ -10,8 +10,18 @@ on a card the fused attention and MAG-gate kernels run; without one the
 driver exits non-zero unless the caller passes ``--device cpu``, where
 the kernels' plain versions run. Flags whose port has not landed yet exit
 with status 2 and a message naming their ROADMAP item; none is ignored
-silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``) exit
-with status 2 and its message.
+silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``, and
+its tensor-parallel guards) exit with status 2 and its message.
+
+``--model_parallel N`` (MAG-BERT) starts data × N ranks with
+``torch.multiprocessing`` spawn (``parallel/mesh.py::run_ranks``, under
+a timeout): N ranks when there are fewer than N cards (ranks
+share a card, over gloo), else one rank per card (N must divide their
+count; NCCL); on the CPU with ``--device cpu``. Each rank runs the same
+training on its (data, model) place of the mesh, with the FFN split over
+the model axis and, with ``--tp_shard_attention``, the attention heads
+too; rank 0 prints the lines. ``run`` returns each rank's exit status,
+epoch records, kernel launch counts and backend beside the exit status.
 
 Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
@@ -20,6 +30,9 @@ Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --model xlnet-base-cased --dataset mosi --synthetic \\
         --attention_impl fused
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --dataset mosi --synthetic --model_parallel 2 \\
+        --tp_shard_attention --attention_impl fused
 """
 
 from __future__ import annotations
@@ -71,11 +84,13 @@ UNPORTED = (
      lambda a: a.pretrained_checkpoint is not None, "A.6"),
     ("--export_hf", lambda a: a.export_hf is not None, "A.6"),
     ("--export_serving", lambda a: a.export_serving is not None, "A.9"),
-    ("--model_parallel", lambda a: a.model_parallel != 1, "A.10"),
+    ("--model_parallel (XLNet)",
+     lambda a: _xlnet(a) and a.model_parallel != 1, "A.10"),
+    ("--tp_shard_attention (XLNet)",
+     lambda a: _xlnet(a) and a.tp_shard_attention, "A.10"),
     ("--fsdp", lambda a: a.fsdp, "A.10"),
     ("--pipeline_parallel", lambda a: a.pipeline_parallel != 1, "A.10"),
     ("--num_processes", lambda a: a.num_processes != 1, "A.10"),
-    ("--tp_shard_attention", lambda a: a.tp_shard_attention, "A.10"),
     ("--compiler_options", lambda a: a.compiler_options is not None,
      "A.10"),
     ("--remat", lambda a: a.remat, "A.14"),
@@ -175,9 +190,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "stream (K = seq + mem_len in every layer). XLNet "
                         "family only")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported yet above 1 (ROADMAP A.10)")
+                   help="Model (tensor-parallel) mesh axis size: splits "
+                        "the FFN Megatron-style over the 'model' axis "
+                        "(parallel/tp.py); the data axis gets the rest of "
+                        "the cards. MAG-BERT (XLNet: ROADMAP A.10)")
     p.add_argument("--tp_shard_attention", action="store_true",
-                   help="not ported yet (ROADMAP A.10)")
+                   help="With --model_parallel > 1: also head-shard "
+                        "attention over the model axis (einsum, or fused "
+                        "through the split-layout kernels; needs n_head "
+                        "%% mp == 0)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
                    help="not ported yet above 1 (ROADMAP A.10)")
     p.add_argument("--pp_microbatches", type=int, default=4,
@@ -215,19 +236,95 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def _tp_guards(args) -> list:
+    """The JAX driver's refusals of tensor-parallel flags."""
+    from bert_multimodal_transformer_tpu_torch.config import BertConfig
+
+    errors = []
+    if args.model_parallel < 1:
+        errors.append(f"--model_parallel must be >= 1, got "
+                      f"{args.model_parallel}")
+    if args.tp_shard_attention:
+        if args.model_parallel <= 1:
+            errors.append("--tp_shard_attention requires --model_parallel"
+                          " > 1")
+        n_head = (BertConfig.tiny() if args.tiny
+                  else BertConfig.bert_large_uncased()
+                  if args.model == "bert-large-uncased"
+                  else BertConfig.bert_base_uncased()).num_attention_heads
+        if args.model_parallel > 1 and n_head % args.model_parallel:
+            errors.append(f"--tp_shard_attention needs n_head ({n_head}) "
+                          f"divisible by --model_parallel "
+                          f"({args.model_parallel})")
+    return errors
+
+
+def _rank_main(rank: int, args, devices) -> dict:
+    """One rank of a multi-rank run: the mesh, then the training."""
+    from bert_multimodal_transformer_tpu_torch.config import MeshConfig
+    from bert_multimodal_transformer_tpu_torch.ops import launch_counts
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(data_parallel=-1,
+                                model_parallel=args.model_parallel),
+                     devices)
+    rc, summary = _train(args, mesh)
+    return {"rc": rc, "history": summary["history"] if summary else None,
+            "launches": launch_counts(), "backend": mesh.backend}
+
+
+def _run_ranks(args, timeout_s: float):
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MeshConfig
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+        mesh_shape,
+        placement,
+        run_ranks,
+    )
+
+    mp = args.model_parallel
+    n_cards = torch.cuda.device_count() if args.device == "cuda" else 0
+    world = n_cards if n_cards >= mp else mp
+    try:
+        data, _ = mesh_shape(MeshConfig(data_parallel=-1, model_parallel=mp),
+                             world)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2, []
+    if args.train_batch_size % (data * args.gradient_accumulation_step):
+        print(f"error: --train_batch_size {args.train_batch_size} does not "
+              f"split over {args.gradient_accumulation_step} micro-batches "
+              f"x {data} data ranks", file=sys.stderr)
+        return 2, []
+    devices = (placement(world) if args.device == "cuda"
+               else ["cpu"] * world)
+    ranks = run_ranks(_rank_main, world, (args, devices),
+                      timeout_s=timeout_s, devices=devices)
+    return max(r["rc"] for r in ranks), ranks
+
+
+def run(argv=None, rank_timeout_s: float = 3600.0):
+    """``main`` returning (exit status, each rank's {"rc", "history",
+    "launches", "backend"} under ``--model_parallel`` > 1, else []). The
+    ranks are stopped after ``rank_timeout_s`` seconds."""
     args = build_parser().parse_args(argv)
     refused = [msg for test, msg in FAMILY_ERRORS if test(args)]
     if refused:
         for msg in refused:
             print(f"error: {msg}", file=sys.stderr)
-        return 2
+        return 2, []
     unported = [(flag, item) for flag, test, item in UNPORTED if test(args)]
     if unported:
         for flag, item in unported:
             print(f"error: {flag} is not ported to the PyTorch driver yet "
                   f"(ROADMAP {item})", file=sys.stderr)
-        return 2
+        return 2, []
+    refused = _tp_guards(args)
+    if refused:
+        for msg in refused:
+            print(f"error: {msg}", file=sys.stderr)
+        return 2, []
 
     import torch
 
@@ -235,8 +332,24 @@ def main(argv=None) -> int:
         print("error: --device cuda, but no CUDA device is visible; pass "
               "--device cpu to run the kernels' plain versions on the CPU",
               file=sys.stderr)
-        return 2
-    device = torch.device(args.device)
+        return 2, []
+    if args.model_parallel > 1:
+        return _run_ranks(args, rank_timeout_s)
+    return _train(args, None)[0], []
+
+
+def main(argv=None) -> int:
+    return run(argv)[0]
+
+
+def _train(args, mesh):
+    """The training run of ``main`` on this process's place: one device
+    (``mesh`` None) or a rank of the mesh. Returns (exit status, the
+    trainer's summary or None)."""
+    import torch
+
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    is_main = mesh is None or mesh.rank == 0
 
     from bert_multimodal_transformer_tpu_torch.config import (
         BertConfig,
@@ -276,7 +389,8 @@ def main(argv=None) -> int:
     ds = DatasetConfig.from_name(args.dataset)
     is_xlnet = _xlnet(args)
     set_random_seed(args.seed)
-    print(f"Seed: {args.seed}")
+    if is_main:
+        print(f"Seed: {args.seed}")
 
     # ---- data -----------------------------------------------------------
     loader_kw = dict(
@@ -304,7 +418,7 @@ def main(argv=None) -> int:
         if args.data_pickle is None:
             print("error: provide --data_pickle or --synthetic",
                   file=sys.stderr)
-            return 2
+            return 2, None
         tokenizer = get_tokenizer(args.model, args.vocab)
         train_it, dev_it, test_it, num_steps = set_up_data_loaders(
             args.data_pickle, tokenizer, **loader_kw)
@@ -333,6 +447,8 @@ def main(argv=None) -> int:
         # the synthetic tokenizer's vocabulary, the model's geometry
         cfg = dataclasses.replace(cfg, vocab_size=max(vocab_size, 128))
     cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
+    if args.tp_shard_attention:
+        cfg = dataclasses.replace(cfg, tp_attention_mesh=mesh)
     if is_xlnet:
         cfg = dataclasses.replace(cfg, rel_bias_impl=args.rel_bias_impl)
         if args.mem_len:
@@ -347,20 +463,24 @@ def main(argv=None) -> int:
     tx = make_optimizer(
         learning_rate=args.learning_rate, num_train_steps=max(num_steps, 1),
         warmup_proportion=args.warmup_proportion)
-    trainer = Trainer(model=model, tx=tx,
+    trainer = Trainer(model=model, tx=tx, mesh=mesh,
                       grad_accum=args.gradient_accumulation_step,
+                      tp_shard_attention=args.tp_shard_attention,
                       mem_len=args.mem_len or None)
     # The JAX driver draws its init sample from the train loader, which
     # takes the first epoch's shuffle; drawing it here too keeps the
     # training data order the same for the same seed.
     next(iter(train_it))
     state = trainer.init_state(args.seed)
-    logger = MetricLogger(project="MAG", config=vars(args))
-    trainer.train(state, train_it, dev_it, test_it, args.n_epochs,
-                  logger=logger, use_zero=args.use_zero,
-                  max_steps=args.max_steps or None)
-    logger.finish()
-    return 0
+    logger = MetricLogger(project="MAG", config=vars(args)) if is_main \
+        else None
+    _, summary = trainer.train(state, train_it, dev_it, test_it,
+                               args.n_epochs, logger=logger,
+                               use_zero=args.use_zero,
+                               max_steps=args.max_steps or None)
+    if logger is not None:
+        logger.finish()
+    return 0, summary
 
 
 if __name__ == "__main__":

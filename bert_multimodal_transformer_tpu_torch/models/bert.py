@@ -20,6 +20,11 @@ The large products (QKV, output, FFN, pooler, classifier) are plain
 ``ops/fused_attention.py`` under ``"fused"``; ``head_mask`` and
 ``output_attentions`` take the einsum branch, as in the JAX package.
 
+Under tensor parallelism (``parallel/tp.py::shard_model_``) each encoder
+layer splits its FFN over the mesh's model axis, and with
+``shard_attention`` head-shards its attention (the JAX model's TP
+branches, ``models/bert.py:202-300``).
+
 ``deterministic=False`` is the training forward, with the JAX package's
 dropout sites: the embeddings after their LayerNorm, the MAG output, the
 attention probs (in the kernel, or on the einsum branch), the attention
@@ -54,6 +59,13 @@ from bert_multimodal_transformer_tpu_torch.ops.dropout import (
 )
 from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
     fused_attention_packed,
+    fused_attention_tp,
+    split_tier,
+)
+from bert_multimodal_transformer_tpu_torch.parallel.tp import (
+    copy_to_model,
+    local_heads,
+    reduce_from_model,
 )
 
 
@@ -72,6 +84,15 @@ def dense(layer: nn.Linear, x: torch.Tensor,
     """Flax ``Dense(dtype=...)`` rounding: the product in ``dtype``, then
     the bias added in ``dtype``."""
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def row_parallel_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+                       mesh) -> torch.Tensor:
+    """``dense`` with the weight's input columns split over the model axis
+    (``parallel/tp.py``): this rank's partial product in ``dtype``, summed
+    over the axis, then the replicated bias added in ``dtype``."""
+    partial = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return reduce_from_model(partial, mesh) + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -133,13 +154,21 @@ class BertEmbeddings(nn.Module):
 
 class BertSelfAttention(nn.Module):
     """Multi-head self-attention with packed QKV, output projection and the
-    post-LN residual (HF BertAttention math)."""
+    post-LN residual (HF BertAttention math).
+
+    ``tp_mesh`` (set by ``parallel/tp.py::shard_model_`` under
+    ``shard_attention``) head-shards it over the mesh's model axis, the JAX
+    model's TP branches: this rank's q, k, v of its heads from the
+    replicated packed weight, the split-layout kernels through
+    ``fused_attention_tp`` while ``split_tier`` says they reach (else the
+    einsum math on the local heads), and ``output_dense`` row-parallel."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  *, device=None):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.tp_mesh = None
         d = config.hidden_size
         self.qkv = _linear(d, 3 * d, device)
         self.output_dense = _linear(d, d, device)
@@ -161,26 +190,59 @@ class BertSelfAttention(nn.Module):
         dh = d // h
         b, s, _ = hidden.shape
         scale = 1.0 / (dh ** 0.5)
-        qkv = dense(self.qkv, hidden, self.dtype)
         probs = None
-        if (cfg.attention_impl == "fused" and head_mask is None
-                and not output_attentions):
-            ctx = fused_attention_packed(
-                qkv, attention_mask_2d, n_heads=h, scale=scale,
-                dropout_rate=rate,
-                dropout_rng=rngs.host if train else None,
-                deterministic=deterministic)
+        fused = (cfg.attention_impl == "fused" and head_mask is None
+                 and not output_attentions)
+        mesh = self.tp_mesh
+        if mesh is not None:
+            h0, hl = local_heads(h, mesh)
+            # this rank's heads' q|k|v rows of the replicated packed weight
+            w = self.qkv.weight.view(3, h, dh, d)[:, h0:h0 + hl]
+            bias = self.qkv.bias.view(3, h, dh)[:, h0:h0 + hl]
+            qkv = (F.linear(copy_to_model(hidden, mesh).to(self.dtype),
+                            w.reshape(3 * hl * dh, d).to(self.dtype))
+                   + bias.reshape(-1).to(self.dtype))
+            q, k, v = qkv.reshape(b, s, 3, hl, dh).permute(2, 0, 3, 1, 4)
+            grad = torch.is_grad_enabled() and qkv.requires_grad
+            if fused and split_tier(s, dh, grad) == "full":
+                ctx = fused_attention_tp(
+                    q, k, v, attention_mask_2d, mesh=mesh, scale=scale,
+                    dropout_rate=rate,
+                    dropout_rng=rngs.host if train else None,
+                    deterministic=deterministic)
+            else:
+                ctx = dot_product_attention(
+                    q, k, v, attn_bias, scale=scale, dropout_rate=rate,
+                    dropout_rng=rngs.device if train else None,
+                    deterministic=deterministic,
+                    head_mask=(None if head_mask is None
+                               else head_mask[h0:h0 + hl]),
+                    return_probs=output_attentions, dropout_heads=(h0, h))
+                if output_attentions:
+                    ctx, probs = ctx
+                    probs = mesh.all_gather(probs, mesh.model_axis, dim=1)
+            ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, hl * dh)
+            out = row_parallel_dense(self.output_dense, ctx, self.dtype,
+                                     mesh)
         else:
-            q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
-            ctx = dot_product_attention(
-                q, k, v, attn_bias, scale=scale, dropout_rate=rate,
-                dropout_rng=rngs.device if train else None,
-                deterministic=deterministic, head_mask=head_mask,
-                return_probs=output_attentions)
-            if output_attentions:
-                ctx, probs = ctx
-            ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
-        out = dense(self.output_dense, ctx, self.dtype)
+            qkv = dense(self.qkv, hidden, self.dtype)
+            if fused:
+                ctx = fused_attention_packed(
+                    qkv, attention_mask_2d, n_heads=h, scale=scale,
+                    dropout_rate=rate,
+                    dropout_rng=rngs.host if train else None,
+                    deterministic=deterministic)
+            else:
+                q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+                ctx = dot_product_attention(
+                    q, k, v, attn_bias, scale=scale, dropout_rate=rate,
+                    dropout_rng=rngs.device if train else None,
+                    deterministic=deterministic, head_mask=head_mask,
+                    return_probs=output_attentions)
+                if output_attentions:
+                    ctx, probs = ctx
+                ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
+            out = dense(self.output_dense, ctx, self.dtype)
         out = _hidden_dropout(out, cfg.hidden_dropout_prob, rngs,
                               deterministic)
         out = self.output_LayerNorm(out + hidden)
@@ -190,13 +252,18 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """Self-attention block + GELU FFN block with post-LN residuals."""
+    """Self-attention block + GELU FFN block with post-LN residuals.
+
+    ``tp_mesh`` (set by ``parallel/tp.py::shard_model_``) splits the FFN
+    Megatron-style over the mesh's model axis: ``intermediate_dense``
+    column-parallel, ``output_dense`` row-parallel."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  *, device=None):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.tp_mesh = None
         self.attention = BertSelfAttention(config, dtype, device=device)
         self.intermediate_dense = _linear(config.hidden_size,
                                           config.intermediate_size, device)
@@ -221,9 +288,14 @@ class BertLayer(nn.Module):
         probs = None
         if output_attentions:
             attn_out, probs = attn_out
-        x = dense(self.intermediate_dense, attn_out, self.dtype)
+        mesh = self.tp_mesh
+        x = attn_out if mesh is None else copy_to_model(attn_out, mesh)
+        x = dense(self.intermediate_dense, x, self.dtype)
         x = ACT2FN[self.config.hidden_act](x)
-        x = dense(self.output_dense, x, self.dtype)
+        if mesh is None:
+            x = dense(self.output_dense, x, self.dtype)
+        else:
+            x = row_parallel_dense(self.output_dense, x, self.dtype, mesh)
         x = _hidden_dropout(x, self.config.hidden_dropout_prob, rngs,
                             deterministic)
         x = self.output_LayerNorm(x + attn_out)
@@ -307,6 +379,25 @@ def _dropout_rngs(dropout_rng, deterministic: bool,
     return DropoutRngs.make(dropout_rng, ref.device)
 
 
+def _normal_(p: torch.Tensor, std: float,
+             generator: torch.Generator) -> None:
+    """Normal(0, std) into ``p`` from ``generator``. A tensor-parallel
+    chunk (``parallel/tp.py::shard_model_``: its ``tp_shard`` is (dim, full
+    size, start)) draws the full tensor and keeps its chunk, so every rank
+    holds the chunk one device would, and the generator advances as one
+    device's does."""
+    shard = getattr(p, "tp_shard", None)
+    if shard is None:
+        p.normal_(0.0, std, generator=generator)
+        return
+    dim, full, start = shard
+    shape = list(p.shape)
+    shape[dim] = full
+    whole = torch.empty(shape, dtype=p.dtype, device=p.device)
+    whole.normal_(0.0, std, generator=generator)
+    p.copy_(whole.narrow(dim, start, p.shape[dim]))
+
+
 def init_weights(module: nn.Module, initializer_range: float,
                  generator: torch.Generator) -> None:
     """Normal(0, initializer_range) dense kernels and embeddings, zero
@@ -315,8 +406,7 @@ def init_weights(module: nn.Module, initializer_range: float,
     with torch.no_grad():
         for sub in module.modules():
             if isinstance(sub, nn.Linear):
-                sub.weight.normal_(0.0, initializer_range,
-                                   generator=generator)
+                _normal_(sub.weight, initializer_range, generator)
                 sub.bias.zero_()
             elif isinstance(sub, nn.Embedding):
                 sub.weight.normal_(0.0, initializer_range,

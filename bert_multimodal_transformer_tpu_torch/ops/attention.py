@@ -7,7 +7,7 @@ not ported yet (ROADMAP A.2).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +26,7 @@ def dot_product_attention(
     deterministic: bool = True,
     head_mask: Optional[torch.Tensor] = None,  # [H] or broadcastable
     return_probs: bool = False,
+    dropout_heads: Optional[Tuple[int, int]] = None,
 ):
     """Masked scaled-dot-product attention with fp32 softmax (HF
     BertSelfAttention semantics): scores = QKᵀ·scale + bias, softmax,
@@ -42,7 +43,8 @@ def dot_product_attention(
     both products accumulate in fp32: a bf16 ``torch.matmul`` on the CPU
     would round its result, so the operands are upcast explicitly. With
     ``return_probs`` also returns the fp32 (post-dropout, post-head-mask)
-    probs.
+    probs. ``dropout_heads`` (h0, H): q, k, v are heads h0 .. of H, and the
+    keep mask is drawn for all H (``ops/dropout.py::dropout``'s ``heads``).
     """
     dtype = q.dtype
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -52,7 +54,8 @@ def dot_product_attention(
     if dropout_rate > 0.0 and not deterministic:
         if dropout_rng is None:
             raise ValueError("dropout_rate > 0 requires dropout_rng")
-        probs = dropout(probs, dropout_rate, dropout_rng)
+        probs = dropout(probs, dropout_rate, dropout_rng,
+                        heads=dropout_heads)
     if head_mask is not None:
         probs = probs * head_mask.to(probs.dtype).reshape(1, -1, 1, 1)
     ctx = torch.matmul(probs.to(dtype).float(), v.float()).to(dtype)

@@ -16,7 +16,7 @@ Neither touches the global torch RNG.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -61,7 +61,8 @@ class DropoutRngs:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            deterministic: bool = False) -> torch.Tensor:
+            deterministic: bool = False,
+            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: each element kept with probability 1 − rate,
     its keep mask drawn from ``generator`` (on x's device; required, so
     the global RNG is never used), and scaled as ``x / (1 − rate)`` in
@@ -70,7 +71,12 @@ def dropout(x: torch.Tensor, rate: float,
 
     Flax divides by 1 − rate as a weak-typed scalar, which JAX first
     rounds to x's dtype: a bf16 activation is divided by bf16(0.9) =
-    0.8984375, not by 0.9. The divisor is rounded the same way here."""
+    0.8984375, not by 0.9. The divisor is rounded the same way here.
+
+    ``heads`` (h0, n): x holds heads h0 .. h0 + x.shape[1] − 1 (dim 1) of
+    n, as a tensor-parallel rank holds its heads' probs; the keep mask is
+    drawn for all n heads and sliced, so the rank drops what one device
+    drops and its generator advances as one device's does."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
@@ -79,6 +85,10 @@ def dropout(x: torch.Tensor, rate: float,
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
     divisor = float(torch.tensor(keep_prob, dtype=x.dtype))
-    keep = torch.rand(x.shape, generator=generator,
+    shape = x.shape if heads is None else (
+        (x.shape[0], heads[1]) + tuple(x.shape[2:]))
+    keep = torch.rand(shape, generator=generator,
                       device=x.device) < keep_prob
+    if heads is not None:
+        keep = keep[:, heads[0]:heads[0] + x.shape[1]]
     return torch.where(keep, x / divisor, 0.0)

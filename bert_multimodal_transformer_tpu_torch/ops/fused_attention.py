@@ -1,9 +1,10 @@
-"""Packed and rel attention, forward and backward (port of
+"""Packed, split and rel attention, forward and backward (port of
 ``ops/fused_attention.py``'s ``fused_attention_packed`` and
 ``fused_rel_attention`` in their full-H, head-blocked and flash-streamed
-tiers, and ``fused_rel_attention_ingredients`` in its full-H and
-flash-streamed tiers: prob dropout, saved probs, and the backward kernels
-of each).
+tiers, the split-tensor ``fused_attention`` and its tensor-parallel
+``fused_attention_tp``, and ``fused_rel_attention_ingredients`` in its
+full-H and flash-streamed tiers: prob dropout, saved probs, and the
+backward kernels of each).
 
 The packed kernels, each with its plain PyTorch version beside it:
 
@@ -30,6 +31,11 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
+The split-layout kernels #8, #10 and #9 (``attn_fwd_split_cuda``,
+``attn_bwd_split_saved_cuda``, ``attn_bwd_split_cuda``) are #1-#3 on
+separate q, k, v [B, H, S, Dh], the layout of a tensor-parallel rank's
+heads (the section after the packed tiers).
+
 The rel kernels #11, #13 and #12 (``attn_fwd_rel_cuda``,
 ``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``), their head-blocked
 tier #14/#15 and their flash-streamed tier #16/#17 are the packed tiers'
@@ -40,13 +46,15 @@ build that bias themselves from its ingredients (the sections at the end
 of this module).
 
 Each CUDA wrapper launches on PyTorch's current stream and counts its
-launches in ``<wrapper>.launches``; each packed plain version counts its
-calls in ``<function>.calls``, which shows the tier a CPU call took.
-``fused_attention_packed`` and ``fused_rel_attention`` dispatch on the
-tensor's device: a CUDA tensor launches the kernels or raises, a CPU
-tensor takes the plain versions.
-``FusedAttentionPacked`` and ``FusedRelAttention`` are the autograd
-functions (the JAX ``_fap_fwd``/``_fap_bwd``, ``_frel_fwd``/``_frel_bwd``).
+launches in ``<wrapper>.launches``; each packed and split plain version
+counts its calls in ``<function>.calls``, which shows the path a CPU call
+took.
+``fused_attention_packed``, ``fused_attention`` and ``fused_rel_attention``
+dispatch on the tensor's device: a CUDA tensor launches the kernels or
+raises, a CPU tensor takes the plain versions.
+``FusedAttentionPacked``, ``FusedAttention`` and ``FusedRelAttention`` are
+the autograd functions (the JAX ``_fap_fwd``/``_fap_bwd``,
+``_fa_fwd``/``_fa_bwd``, ``_frel_fwd``/``_frel_bwd``).
 
 The dropout stream: element (b, h, q, k) is kept iff its 32-bit draw is
 ``>= dropout_threshold(rate)``, with the draw taken from Philox4x32-10 at
@@ -144,9 +152,11 @@ def philox4x32_10(counter, key):
 
 
 def dropout_bits(seed: int, b: int, h: int, s_q: int, s_k: int,
-                 device=None, k0: int = 0) -> torch.Tensor:
+                 device=None, k0: int = 0, b0: int = 0,
+                 h0: int = 0) -> torch.Tensor:
     """The [B, H, Sq, Sk] 32-bit draws (int64) of the dropout stream, for
-    keys k0 .. k0 + Sk − 1."""
+    keys k0 .. k0 + Sk − 1 of batch rows b0 .. b0 + B − 1 and heads
+    h0 .. h0 + H − 1 (a shard's slice of a larger [B, H, Sq, Sk])."""
     first, n4 = k0 // 4, (k0 + s_k + 3) // 4 - k0 // 4
     shape = (b, h, s_q, n4)
 
@@ -157,7 +167,7 @@ def dropout_bits(seed: int, b: int, h: int, s_q: int, s_k: int,
                             device=device).view(view).expand(shape)
 
     words = philox4x32_10(
-        (axis(n4, 3, first), axis(s_q, 2), axis(h, 1), axis(b, 0)),
+        (axis(n4, 3, first), axis(s_q, 2), axis(h, 1, h0), axis(b, 0, b0)),
         (seed & _MASK32, (seed >> 32) & _MASK32))
     lead = k0 - 4 * first
     return torch.stack(words, dim=-1).reshape(b, h, s_q, 4 * n4)[
@@ -165,10 +175,11 @@ def dropout_bits(seed: int, b: int, h: int, s_q: int, s_k: int,
 
 
 def dropout_keep_mask(seed: int, b: int, h: int, s_q: int, s_k: int,
-                      rate: float, device=None, k0: int = 0) -> torch.Tensor:
-    """Bool [B, H, Sq, Sk]: True where the element (keys from k0) is
-    kept."""
-    return dropout_bits(seed, b, h, s_q, s_k, device, k0) >= (
+                      rate: float, device=None, k0: int = 0, b0: int = 0,
+                      h0: int = 0) -> torch.Tensor:
+    """Bool [B, H, Sq, Sk]: True where the element (keys from k0, batch
+    rows from b0, heads from h0) is kept."""
+    return dropout_bits(seed, b, h, s_q, s_k, device, k0, b0, h0) >= (
         dropout_threshold(rate))
 
 
@@ -206,10 +217,9 @@ def _pack(dq, dk, dv) -> torch.Tensor:
         b, s, 3 * h * dh)
 
 
-def _probs(qkv, attention_mask, n_heads, scale):
-    """fp32 scores (scale after the dot, then the (1−m)·−10000 bias) and
-    their softmax, as the kernels compute them."""
-    q, k, _ = _heads(qkv, n_heads)
+def _split_probs(q, k, attention_mask, scale):
+    """fp32 scores of q, k [B, H, S, Dh] (scale after the dot, then the
+    (1−m)·−10000 bias) and their softmax, as the kernels compute them."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if attention_mask is not None:
         bias = (1.0 - attention_mask.float()) * -10000.0
@@ -217,11 +227,20 @@ def _probs(qkv, attention_mask, n_heads, scale):
     return torch.softmax(scores, dim=-1)
 
 
-def _dropped(p, seed, rate):
+def _probs(qkv, attention_mask, n_heads, scale):
+    q, k, _ = _heads(qkv, n_heads)
+    return _split_probs(q, k, attention_mask, scale)
+
+
+def _dropped(p, seed, rate, b_off=0, h_off=0):
+    """p with the Philox keep mask applied (a kept element scaled by
+    1/(1−rate) in fp32); ``b_off``/``h_off``: the global batch row and
+    head of p's first (b, h)."""
     if rate <= 0.0:
         return p
     b, h, s_q, s_k = p.shape
-    keep = dropout_keep_mask(seed, b, h, s_q, s_k, rate, p.device)
+    keep = dropout_keep_mask(seed, b, h, s_q, s_k, rate, p.device, b0=b_off,
+                             h0=h_off)
     return torch.where(keep, p * inv_keep(rate), 0.0)
 
 
@@ -262,20 +281,27 @@ def attn_fwd_packed_reference(
     return out, p_c, (pd.to(qkv.dtype) if rate > 0.0 else p_c)
 
 
-def _vjp(p, pd, pd_c, qkv, g, n_heads, scale):
-    """The backward kernels' shared math: dV = pd_cᵀ·g, d(pd) = g·Vᵀ,
-    t = pd⊙d(pd), ds = (t − p·Σ_k t)·scale rounded to the input dtype,
-    dQ = ds_c·K, dK = ds_cᵀ·Q; all products accumulated in fp32."""
-    dtype = qkv.dtype
-    q, k, v = (x.float() for x in _heads(qkv, n_heads))
-    gh = _ctx_heads(g, n_heads).float()
-    dv = torch.matmul(pd_c.float().transpose(-1, -2), gh).to(dtype)
-    t = pd * torch.matmul(gh, v.transpose(-1, -2))
+def _split_vjp(p, pd, pd_c, q, k, v, g, scale):
+    """The backward kernels' shared math on q, k, v and the context
+    gradient g [B, H, S, Dh]: dV = pd_cᵀ·g, d(pd) = g·Vᵀ, t = pd⊙d(pd),
+    ds = (t − p·Σ_k t)·scale rounded to the input dtype, dQ = ds_c·K,
+    dK = ds_cᵀ·Q; all products accumulated in fp32. Returns (dq, dk,
+    dv)."""
+    dtype = q.dtype
+    q, k, v, g = (x.float() for x in (q, k, v, g))
+    dv = torch.matmul(pd_c.float().transpose(-1, -2), g).to(dtype)
+    t = pd * torch.matmul(g, v.transpose(-1, -2))
     ds = (t - p * t.sum(dim=-1, keepdim=True)) * scale
     ds_c = ds.to(dtype).float()
     dq = torch.matmul(ds_c, k).to(dtype)
     dk = torch.matmul(ds_c.transpose(-1, -2), q).to(dtype)
-    return _pack(dq, dk, dv)
+    return dq, dk, dv
+
+
+def _vjp(p, pd, pd_c, qkv, g, n_heads, scale):
+    """``_split_vjp`` on the packed layout; returns dqkv [B, S, 3·D]."""
+    return _pack(*_split_vjp(p, pd, pd_c, *_heads(qkv, n_heads),
+                             _ctx_heads(g, n_heads), scale))
 
 
 def _bwd_recompute(qkv, attention_mask, seed, g, n_heads, scale, rate):
@@ -330,14 +356,22 @@ def dqkv_bf16_bound(ref, p, pd, qkv, g, *, n_heads, scale) -> torch.Tensor:
     bounded by the magnitude of its terms (|t| + |p|·Σ|t|)·scale (which
     also covers #3 reading p and pd rounded where #2 keeps them in fp32).
     Returns 2^-7·(|ref| + A) + 2^-17."""
-    q, k, v = (x.float().abs() for x in _heads(qkv, n_heads))
-    gh = _ctx_heads(g, n_heads).float().abs()
+    return _pack(*split_grads_bf16_bound(
+        _heads(ref, n_heads), p, pd, *_heads(qkv, n_heads),
+        _ctx_heads(g, n_heads), scale=scale))
+
+
+def split_grads_bf16_bound(refs, p, pd, q, k, v, g, *, scale):
+    """``dqkv_bf16_bound`` on the split layout: refs = (dq, dk, dv) and q,
+    k, v, g [B, H, S, Dh]; returns the bounds of dq, dk and dv."""
+    q, k, v, g = (x.float().abs() for x in (q, k, v, g))
     p, pd = p.float().abs(), pd.float().abs()
-    t = pd * torch.matmul(gh, v.transpose(-1, -2))
+    t = pd * torch.matmul(g, v.transpose(-1, -2))
     ds = (t + p * t.sum(dim=-1, keepdim=True)) * scale
-    a = _pack(torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
-              torch.matmul(pd.transpose(-1, -2), gh))
-    return 2.0 ** -7 * (ref.float().abs() + a) + 2.0 ** -17
+    a = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+         torch.matmul(pd.transpose(-1, -2), g))
+    return tuple(2.0 ** -7 * (r.float().abs() + x) + 2.0 ** -17
+                 for r, x in zip(refs, a))
 
 
 # ---- the long-sequence tiers: head-blocked (#4, #5), flash-streamed (#6, #7)
@@ -964,6 +998,326 @@ def fused_attention_packed(
                               save_probs)
     return FusedAttentionPacked.apply(qkv, attention_mask, n_heads,
                                       float(scale), rate, seed, save)
+
+
+# ---- split layout: separate q, k, v [B, H, S, Dh] (#8, #9, #10) -------------
+#
+# The port of the JAX split-tensor entry ``fused_attention`` (``_fused_
+# attention`` / ``_fa_fwd`` / ``_fa_bwd``) and of ``fused_attention_tp``:
+# #1-#3's function on separate q, k, v and out [B, H, S, Dh], the layout in
+# which a tensor-parallel rank holds its local heads (the packed projection's
+# q|k|v column blocks cannot be head-aligned by one contiguous chunk). Three
+# kernels, each with its plain version:
+#
+# * #8 ``attn_fwd_split_cuda`` → ``csrc/attn_fwd_split.cu``: #1's forward,
+#   prob dropout and saved p/pd included;
+# * #10 ``attn_bwd_split_saved_cuda`` → ``csrc/attn_bwd_split_saved.cu``: dq,
+#   dk, dv from the saved p/pd;
+# * #9 ``attn_bwd_split_cuda`` → ``csrc/attn_bwd_split.cu``: the same with the
+#   probs recomputed and the keep mask replayed.
+#
+# They run #1-#3's row code (``csrc/common.cuh``'s ``fwd_rows``,
+# ``bwd_recompute_head``, ``bwd_saved_head``) at row stride Dh. The kernels
+# take the global batch row and head of their tensors' first (b, h)
+# (``b_off``, ``h_off``) into the Philox counter (k >> 2, q, h, b): a head
+# shard draws the mask the single-card model draws for the same global
+# element, and data shards draw different masks with no fold of the seed.
+
+
+@_counted
+def attn_fwd_split_reference(q, k, v, attention_mask, *, scale, rate=0.0,
+                             seed=0, save=False, b_off=0, h_off=0):
+    """Plain version of kernel #8: ``attn_fwd_packed_reference``'s
+    function (fp32 softmax, the Philox keep mask at the global (b, h), the
+    dropped probs rounded for a PV product accumulated in fp32) on q, k, v
+    [B, H, S, Dh]. Returns out [B, H, S, Dh], or (out, p, pd) [B, H, S, S]
+    with ``save`` (pd is p at rate 0)."""
+    dtype = q.dtype
+    p = _split_probs(q, k, attention_mask, scale)
+    pd = _dropped(p, seed, rate, b_off, h_off)
+    out = torch.matmul(pd.to(dtype).float(), v.float()).to(dtype)
+    if not save:
+        return out
+    p_c = p.to(dtype)
+    return out, p_c, (pd.to(dtype) if rate > 0.0 else p_c)
+
+
+@_counted
+def attn_bwd_split_reference(q, k, v, attention_mask, seed, g, *, scale,
+                             rate=0.0, b_off=0, h_off=0):
+    """Plain version of kernel #9: the probs recomputed in fp32, the keep
+    mask replayed from ``seed`` at the global (b, h), pd kept in fp32 for
+    the VJP and rounded for the dV product. Returns (dq, dk, dv)
+    [B, H, S, Dh]."""
+    p = _split_probs(q, k, attention_mask, scale)
+    pd = _dropped(p, seed, rate, b_off, h_off)
+    return _split_vjp(p, pd, pd.to(q.dtype), q, k, v, g, scale)
+
+
+@_counted
+def attn_bwd_split_saved_reference(p, pd, q, k, v, g, *, scale):
+    """Plain version of kernel #10: the VJP from the saved p and pd (input
+    dtype, read as fp32). Returns (dq, dk, dv) [B, H, S, Dh]."""
+    return _split_vjp(p.float(), pd.float(), pd, q, k, v, g, scale)
+
+
+def _check_split_cuda(name, q, k, v, max_s):
+    """The checks every split CUDA wrapper makes on q, k, v; returns (b, h,
+    s, dh)."""
+    for t_name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {t_name} must be a CUDA tensor, got "
+                             f"{t.device}")
+        if t.dtype not in _DTYPE_CODES:
+            raise ValueError(f"{name}: {t_name} dtype {t.dtype} not "
+                             "supported (float32, bfloat16)")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {t_name} must be a contiguous [B, H, S, Dh] "
+                f"tensor, got shape {tuple(t.shape)} "
+                f"contiguous={t.is_contiguous()}")
+    _like("k", k, q, tuple(q.shape))
+    _like("v", v, q, tuple(q.shape))
+    b, h, s, dh = q.shape
+    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {dh} not supported (a multiple of 8 up to "
+            f"{MAX_HEAD_DIM})")
+    if s > max_s:
+        raise ValueError(f"{name}: S={s} exceeds the kernel's {max_s}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"B={b} or H={h} exceeds a grid dimension")
+    check_sm90(q)
+    return b, h, s, dh
+
+
+def attn_fwd_split_cuda(q, k, v, attention_mask, *, scale, rate=0.0, seed=0,
+                        save=False, b_off=0, h_off=0):
+    """Launch kernel #8 (``csrc/attn_fwd_split.cu``) on q, k, v
+    [B, H, S, Dh] (CUDA, fp32 or bf16, contiguous), S ≤ ``MAX_SEQ_LEN``.
+    Returns out [B, H, S, Dh], or (out, p, pd) with ``save``."""
+    b, h, s, dh = _check_split_cuda("attn_fwd_split", q, k, v, MAX_SEQ_LEN)
+    mask = _mask_arg(attention_mask, q, b, s)
+    out = torch.empty_like(q)
+    p = pd = None
+    if save:
+        p = torch.empty((b, h, s, s), dtype=q.dtype, device=q.device)
+        pd = torch.empty_like(p) if rate > 0.0 else p
+    _launch("attn_fwd_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(mask), out.data_ptr(), _ptr(p),
+            _ptr(pd) if rate > 0.0 else None, b, s, h, dh, float(scale),
+            *_drop_args(rate, seed), int(b_off), int(h_off),
+            _DTYPE_CODES[q.dtype], device=q.device)
+    attn_fwd_split_cuda.launches += 1
+    return (out, p, pd) if save else out
+
+
+def attn_bwd_split_cuda(q, k, v, attention_mask, seed, g, *, scale, rate=0.0,
+                        b_off=0, h_off=0):
+    """Launch kernel #9 (``csrc/attn_bwd_split.cu``): (dq, dk, dv)
+    [B, H, S, Dh] with the probs recomputed and the keep mask replayed from
+    ``seed`` at the forward's offsets."""
+    b, h, s, dh = _check_split_cuda("attn_bwd_split", q, k, v,
+                                    max_bwd_seq_len(q.shape[-1]))
+    mask = _mask_arg(attention_mask, q, b, s)
+    _like("g", g, q, tuple(q.shape))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch("attn_bwd_split", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(mask), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, s, h, dh, float(scale),
+            *_drop_args(rate, seed), int(b_off), int(h_off),
+            _DTYPE_CODES[q.dtype], device=q.device)
+    attn_bwd_split_cuda.launches += 1
+    return dq, dk, dv
+
+
+def attn_bwd_split_saved_cuda(p, pd, q, k, v, g, *, scale):
+    """Launch kernel #10 (``csrc/attn_bwd_split_saved.cu``): (dq, dk, dv)
+    [B, H, S, Dh] from the saved probs p and pd [B, H, S, S]."""
+    b, h, s, dh = _check_split_cuda("attn_bwd_split_saved", q, k, v,
+                                    max_bwd_seq_len(q.shape[-1]))
+    _like("p", p, q, (b, h, s, s))
+    _like("pd", pd, q, (b, h, s, s))
+    _like("g", g, q, tuple(q.shape))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch("attn_bwd_split_saved", p.data_ptr(), pd.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, dh,
+            float(scale), _DTYPE_CODES[q.dtype], device=q.device)
+    attn_bwd_split_saved_cuda.launches += 1
+    return dq, dk, dv
+
+
+for _fn in (attn_fwd_split_cuda, attn_bwd_split_cuda,
+            attn_bwd_split_saved_cuda):
+    _fn.launches = 0
+del _fn
+
+
+def attn_fwd_split(q, k, v, attention_mask, *, scale, rate=0.0, seed=0,
+                   save=False, b_off=0, h_off=0):
+    """Kernel #8 on CUDA tensors, its plain version on CPU ones."""
+    fn = (attn_fwd_split_cuda if _on(q) == "cuda"
+          else attn_fwd_split_reference)
+    return fn(q, k, v, attention_mask, scale=scale, rate=rate, seed=seed,
+              save=save, b_off=b_off, h_off=h_off)
+
+
+def attn_bwd_split(q, k, v, attention_mask, seed, g, *, scale, rate=0.0,
+                   b_off=0, h_off=0):
+    """Kernel #9 on CUDA tensors, its plain version on CPU ones."""
+    fn = (attn_bwd_split_cuda if _on(q) == "cuda"
+          else attn_bwd_split_reference)
+    return fn(q, k, v, attention_mask, seed, g, scale=scale, rate=rate,
+              b_off=b_off, h_off=h_off)
+
+
+def attn_bwd_split_saved(p, pd, q, k, v, g, *, scale):
+    """Kernel #10 on CUDA tensors, its plain version on CPU ones."""
+    fn = (attn_bwd_split_saved_cuda if _on(q) == "cuda"
+          else attn_bwd_split_saved_reference)
+    return fn(p, pd, q, k, v, g, scale=scale)
+
+
+def split_tier(s: int, dh: int, grad: bool) -> str:
+    """"full" while the split kernels reach sequence length ``s`` at head
+    width ``dh``: #8 up to ``MAX_SEQ_LEN`` without a gradient, #10/#9 up
+    to ``max_bwd_seq_len(dh)`` with one; "einsum" past that, where the
+    tensor-parallel model takes its head-sharded einsum branch (the JAX
+    model's ``fused_fits`` test, ``models/bert.py:202-204``), decided
+    before any launch."""
+    return ("full" if s <= (max_bwd_seq_len(dh) if grad else MAX_SEQ_LEN)
+            else "einsum")
+
+
+class FusedAttention(torch.autograd.Function):
+    """Split-layout attention with its backward kernel (JAX ``_fa_fwd`` /
+    ``_fa_bwd``). With ``save`` the forward keeps p and pd and the backward
+    runs kernel #10; without, it keeps q, k, v, the mask and the seed, and
+    kernel #9 recomputes the probs and replays the mask. The mask and the
+    seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attention_mask, scale: float, rate: float,
+                seed: int, save: bool, b_off: int, h_off: int):
+        ctx.scale, ctx.rate, ctx.seed, ctx.save = scale, rate, seed, save
+        ctx.b_off, ctx.h_off = b_off, h_off
+        kw = dict(scale=scale, rate=rate, seed=seed, b_off=b_off,
+                  h_off=h_off)
+        if save:
+            out, p, pd = attn_fwd_split(q, k, v, attention_mask, save=True,
+                                        **kw)
+            ctx.save_for_backward(q, k, v, p, pd)
+        else:
+            out = attn_fwd_split(q, k, v, attention_mask, **kw)
+            ctx.save_for_backward(q, k, v, attention_mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.save:
+            q, k, v, p, pd = ctx.saved_tensors
+            grads = attn_bwd_split_saved(p, pd, q, k, v, g, scale=ctx.scale)
+        else:
+            q, k, v, mask = ctx.saved_tensors
+            grads = attn_bwd_split(q, k, v, mask, ctx.seed, g,
+                                   scale=ctx.scale, rate=ctx.rate,
+                                   b_off=ctx.b_off, h_off=ctx.h_off)
+        return (*grads,) + (None,) * 7
+
+
+def _fused_split(q, k, v, attention_mask, scale, dropout_rate, dropout_rng,
+                 deterministic, save_probs, b_off, h_off):
+    """``fused_attention``'s body; ``b_off``/``h_off`` place the tensors'
+    first (b, h) in the global batch and heads (the dropout stream)."""
+    rate = 0.0 if deterministic else float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"q, k, v must be [B, H, S, Dh] of one shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if rate > 0.0 and dropout_rng is None:
+        raise ValueError("dropout_rate > 0 requires dropout_rng")
+    _on(q)
+    b, h, s, dh = q.shape
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if split_tier(s, dh, grad) != "full":
+        raise ValueError(
+            f"fused_attention: S={s} at Dh={dh} is past the split kernels' "
+            f"reach ({max_bwd_seq_len(dh) if grad else MAX_SEQ_LEN}"
+            f"{' with a gradient' if grad else ''}); split_tier sends such "
+            "lengths to the einsum branch")
+    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
+    if attention_mask is not None:
+        attention_mask = attention_mask.to(torch.float32)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    kw = dict(scale=float(scale), rate=rate, seed=seed, b_off=b_off,
+              h_off=h_off)
+    if not grad:
+        return attn_fwd_split(q, k, v, attention_mask, **kw)
+    save = resolve_save_probs(b, h, s, rate, q.element_size(), save_probs)
+    return FusedAttention.apply(q, k, v, attention_mask, float(scale), rate,
+                                seed, save, b_off, h_off)
+
+
+def fused_attention(
+    q: torch.Tensor,                          # [B, H, S, Dh]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],   # [B, S] {0,1}, 1 = real token
+    *,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    save_probs: Optional[bool] = None,
+) -> torch.Tensor:
+    """Attention on separate q, k, v [B, H, S, Dh], returning the context
+    [B, H, S, Dh]: the JAX split-tensor ``fused_attention`` without its TPU
+    plan knobs (``interpret``, ``nb_fwd``, ``nb_bwd``).
+
+    ``dropout_rate`` applies only when ``deterministic`` is False, and then
+    needs ``dropout_rng``, a CPU ``torch.Generator`` from which the kernel
+    seed is drawn. ``save_probs`` True/False/None picks the saved-probs
+    (#10) or recompute (#9) backward (``resolve_save_probs``;
+    ``FUSED_ATTN_SAVE=0/1`` overrides None). With no gradient taken the
+    forward (#8) saves nothing. A CUDA tensor launches the kernels or
+    raises; a CPU one takes their plain versions. Raises past the kernels'
+    reach (``split_tier``), which the model checks first."""
+    return _fused_split(q, k, v, attention_mask, scale, dropout_rate,
+                        dropout_rng, deterministic, save_probs, 0, 0)
+
+
+def fused_attention_tp(
+    q: torch.Tensor,                          # [B/dp, H/mp, S, Dh]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],   # [B/dp, S]
+    *,
+    mesh,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """``fused_attention`` on one rank of a tensor-parallel mesh
+    (``parallel/mesh.py``): q, k, v are this rank's batch rows (its data
+    shard) and heads (its model shard), the JAX ``fused_attention_tp``'s
+    per-device block. The kernels draw the dropout of the global (b, h):
+    batch row offset ``mesh.data_rank`` · B_local, head offset
+    ``mesh.model_rank`` · H_local, from the seed that every rank draws
+    alike from ``dropout_rng``. The JAX wrapper instead folds the model and
+    the data index into its rng (ROADMAP C, deliberate departures). Over
+    more than one data rank the ``Trainer`` hands each data rank its own
+    ``dropout_rng`` (the data rank folded into the seed), which then keeps
+    the shards apart on its own."""
+    b, h = q.shape[:2]
+    return _fused_split(q, k, v, attention_mask, scale, dropout_rate,
+                        dropout_rng, deterministic, None,
+                        mesh.data_rank * b, mesh.model_rank * h)
 
 
 # ---- rel attention: a full differentiable score bias --------------------------

@@ -135,6 +135,15 @@ def load_kernels() -> ctypes.CDLL:
         lib.attn_fwd_packed_fs.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
         for fn in (lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq):
             fn.argtypes = [ptr] * 6 + dims + drop + [i32, ptr]
+        # attn_fwd_split: q, k, v, mask, out, p, pd; attn_bwd_split: q, k,
+        # v, mask, g, dq, dk, dv; both then b_off, h_off after the dropout
+        # args; attn_bwd_split_saved: p, pd, q, k, v, g, dq, dk, dv.
+        offs = [i32, i32]                         # b_off, h_off
+        lib.attn_fwd_split.argtypes = ([ptr] * 7 + dims + drop + offs
+                                       + [i32, ptr])
+        lib.attn_bwd_split.argtypes = ([ptr] * 8 + dims + drop + offs
+                                       + [i32, ptr])
+        lib.attn_bwd_split_saved.argtypes = [ptr] * 9 + dims + [i32, ptr]
         rel = [i32, i32, i32, i32, i32, f32]      # B, Q, K, H, Dh, scale
         # attn_fwd_rel: q, k, v, ebias, out, p, pd; attn_bwd_rel: q, k, v,
         # ebias, g, dq, dk, dv, debias; attn_bwd_rel_saved: p, pd, q, k, v,
@@ -174,7 +183,8 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_packed_saved, lib.attn_fwd_packed_hb,
                    lib.attn_bwd_packed_hb, lib.attn_fwd_packed_fs,
                    lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq,
-                   lib.attn_fwd_rel, lib.attn_bwd_rel,
+                   lib.attn_fwd_split, lib.attn_bwd_split,
+                   lib.attn_bwd_split_saved, lib.attn_fwd_rel, lib.attn_bwd_rel,
                    lib.attn_bwd_rel_saved, lib.attn_fwd_rel_hb,
                    lib.attn_bwd_rel_hb, lib.attn_fwd_rel_fs,
                    lib.attn_bwd_rel_fs_dkdv, lib.attn_bwd_rel_fs_dq,

@@ -6,8 +6,11 @@
 
 The model runs on the device its params live on. With ``mem_len`` (XLNet
 segment recurrence) ``predict_split`` threads the memory through the
-ordered batch stream, as the model was trained. ``from_checkpoint`` and the
-exported-artifact functions wait for ROADMAP A.6 and A.9.
+ordered batch stream, as the model was trained. With ``mesh`` (one
+Predictor per rank, each given the same requests) a batch's rows split over
+the data axis and the predictions are gathered in order, and a model axis
+> 1 runs MAG-BERT tensor-parallel (``parallel/tp.py``). ``from_checkpoint``
+and the exported-artifact functions wait for ROADMAP A.6 and A.9.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from bert_multimodal_transformer_tpu_torch.data.pipeline import (
     BatchIterator,
     PackedSplit,
 )
+from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
+from bert_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
 from bert_multimodal_transformer_tpu_torch.training import (
     metrics as metrics_lib,
 )
@@ -58,12 +63,20 @@ class Predictor:
     ``Trainer.test_epoch`` scores a memory-trained model. Such a predictor
     serves no independent requests (``submit``/``predict_requests``
     refuse): the memory makes each batch depend on the ones before it.
+
+    ``mesh`` (JAX ``Predictor(mesh=)``): this rank's place in a (data,
+    model) mesh. Each batch's rows split over the data axis (the batch size
+    a multiple of its size) and every rank returns all the predictions,
+    gathered in order. A model axis > 1 shards the full-size model in
+    place (``parallel/tp.py::shard_model_``), with the attention
+    head-sharded when its config has ``tp_attention_mesh``.
     """
 
     def __init__(self, model: torch.nn.Module, device=None,
                  batch_size: int = 128,
                  wire_dtype: Optional[torch.dtype] = None,
-                 prefetch: int = 2, mem_len: Optional[int] = None):
+                 prefetch: int = 2, mem_len: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
         # num_labels == 1 → regression [B]; > 1 → class logits [B, C]
         self.num_labels = getattr(getattr(model, "config", None),
                                   "num_labels", 1)
@@ -74,13 +87,33 @@ class Predictor:
         self.wire_dtype = wire_dtype
         self.prefetch = prefetch
         self.mem_len = mem_len
+        self.mesh = mesh
+        cfg = getattr(model, "config", None)
         if mem_len is not None:
-            cfg = getattr(model, "config", None)
             if getattr(cfg, "mem_len", None) != mem_len:
                 raise ValueError(
                     f"Predictor(mem_len={mem_len}) needs the model built "
                     f"with config.mem_len={mem_len} (got "
                     f"{getattr(cfg, 'mem_len', None)})")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    "Predictor(mesh=...) takes a parallel.mesh.Mesh, got "
+                    f"{type(mesh).__name__}")
+            if mem_len is not None and mesh.size > 1:
+                raise NotImplementedError(
+                    "mem_len over a mesh of more than one rank is not "
+                    "ported yet (ROADMAP A.10)")
+            if batch_size % mesh.data_size:
+                raise ValueError(
+                    f"batch_size={batch_size} does not split over "
+                    f"{mesh.data_size} data ranks")
+            tp_mesh = getattr(cfg, "tp_attention_mesh", None)
+            if tp_mesh is not None and tp_mesh is not mesh:
+                raise ValueError("the model's tp_attention_mesh is not the "
+                                 "Predictor's mesh")
+            if mesh.model_size > 1:
+                tp_lib.shard_model_(model, mesh, tp_mesh is not None)
 
     def _init_mems(self):
         cfg = self.model.config
@@ -91,7 +124,10 @@ class Predictor:
 
     def _to_device(self, x, cast: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(x))
+        x = np.asarray(x)
+        if self.mesh is not None:
+            x = self.mesh.local_rows(x)
+        t = torch.as_tensor(x)
         if cast is not None:
             t = t.to(cast)
         if self.device.type == "cuda":
@@ -120,6 +156,8 @@ class Predictor:
                 out = logits.reshape(-1)
             else:
                 out = logits.reshape(-1, self.num_labels)
+            if self.mesh is not None:
+                out = self.mesh.all_gather(out, self.mesh.data_axis)
             if not out.is_cuda:
                 return _Handle(out), mems
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)

@@ -19,8 +19,15 @@ device).
 
 Losses stay on the device until an epoch ends; the dropout seeds come from
 the state's CPU generator (``ops/dropout.py``), so a step never waits for
-the card. The mesh, tensor parallelism, FSDP, multi-process runs and XLA
-compile options wait for ROADMAP A.10.
+the card.
+
+With a ``mesh`` (``parallel/mesh.py``; one Trainer per rank, each fed the
+same global batches) each rank takes its data shard's rows, the gradients
+are summed over the ``data`` axis and divided once (the ragged tail by its
+global valid count), and eval sums and test predictions are gathered over
+it; a model axis > 1 splits MAG-BERT Megatron-style (``parallel/tp.py``,
+with ``tp_shard_attention`` the attention heads too). FSDP, multi-process
+runs and XLA compile options wait for ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -33,6 +40,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
+from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
+from bert_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
 from bert_multimodal_transformer_tpu_torch.training import (
     metrics as metrics_lib,
 )
@@ -67,14 +77,32 @@ def _forward(model, batch, generator, deterministic: bool, mems=None):
     return model(input_ids, visual, acoustic, **kw), label_ids
 
 
-def _make_step(grad_accum: int, masked: bool, with_mems: bool = False):
+def _data_fold(data_rank: int) -> int:
+    """What a data rank XORs into its step's dropout seed (0 for rank 0)."""
+    return (data_rank * 0x9E3779B97F4A7C15) & (2 ** 63 - 1)
+
+
+def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
+               mesh: Optional[Mesh] = None):
     """Shared train-step factory (see make_train_step /
     make_masked_train_step / make_mems_train_step for the semantics).
     Gradients of the micro-batches add up in ``.grad`` and are divided
     once, by ``grad_accum`` or by the valid count, as the JAX step divides
     its summed gradients. ``with_mems``: the step takes the memory after
     the batch (``valid`` after it) and returns (loss, new memory), the
-    memory chained through the micro-batches."""
+    memory chained through the micro-batches.
+
+    With ``mesh`` the batch is this rank's rows (``Mesh.local_rows`` with
+    ``grad_accum``) and ``valid`` the global batch's mask: the model axis's
+    partial gradients are summed (``parallel/tp.py::sync_grads``), then
+    every gradient and the loss over the data axis, divided by
+    grad_accum × data ranks, or by the global valid count. Over more than
+    one data rank the step's dropout streams come from one seed drawn from
+    the state's generator with the data rank folded in, so data shards draw
+    different masks and the model ranks of a shard the same ones (the
+    hidden dropout and the packed kernels draw on local rows; the split
+    kernels' batch-row offset then changes nothing)."""
+    n_data = mesh.data_size if mesh is not None else 1
 
     def train_step(state: TrainState, batch: Tuple, *rest):
         mems = rest[0] if with_mems else None
@@ -86,16 +114,22 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False):
         micro = list(zip(*(t.chunk(grad_accum) for t in batch)))
         if masked:
             valid = np.asarray(valid, bool)
-            weights = torch.from_numpy(valid.astype(np.float32)).to(
+            local = (valid if mesh is None
+                     else mesh.local_rows(valid, grad_accum))
+            weights = torch.from_numpy(local.astype(np.float32)).to(
                 batch[0].device).chunk(grad_accum)
+        rng = state.generator
+        if n_data > 1:
+            rng = torch.Generator().manual_seed(
+                draw_seed(rng) ^ _data_fold(mesh.data_rank))
         state.optimizer.zero_grad(set_to_none=True)
         total = None
         for i, mb in enumerate(micro):
             if with_mems:
-                logits, labels, mems = _forward(state.model, mb,
-                                                state.generator, False, mems)
+                logits, labels, mems = _forward(state.model, mb, rng, False,
+                                                mems)
             else:
-                logits, labels = _forward(state.model, mb, state.generator,
+                logits, labels = _forward(state.model, mb, rng,
                                           deterministic=False)
             if masked:
                 err = torch.square(logits.reshape(-1).float()
@@ -105,7 +139,15 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False):
                 loss = mse_loss(logits, labels)
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
-        div = max(float(valid.sum()), 1.0) if masked else float(grad_accum)
+        div = (max(float(valid.sum()), 1.0) if masked
+               else float(grad_accum * n_data))
+        if mesh is not None:
+            tp_lib.sync_grads(state.model, mesh)
+            if n_data > 1:
+                mesh.all_reduce_list_(
+                    [p.grad for p in state.model.parameters()
+                     if p.grad is not None], mesh.data_axis)
+                total = mesh.all_reduce_(total.clone(), mesh.data_axis)
         if div != 1.0:
             grads = [p.grad for p in state.model.parameters()
                      if p.grad is not None]
@@ -118,22 +160,23 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False):
     return train_step
 
 
-def make_train_step(grad_accum: int = 1):
+def make_train_step(grad_accum: int = 1, mesh: Optional[Mesh] = None):
     """The train step: ``step(state, batch) -> loss`` (a device scalar).
 
     With grad_accum > 1 the batch splits into grad_accum micro-batches of
     B/grad_accum rows and the gradients are averaged — the reference's
-    loss/accum scaling."""
-    return _make_step(grad_accum, masked=False)
+    loss/accum scaling. ``mesh``: see ``_make_step``."""
+    return _make_step(grad_accum, masked=False, mesh=mesh)
 
 
-def make_masked_train_step(grad_accum: int = 1):
+def make_masked_train_step(grad_accum: int = 1,
+                           mesh: Optional[Mesh] = None):
     """Train step for the final RAGGED batch: ``step(state, batch, valid)``
     with the batch zero-padded to shape and ``valid`` its host bool mask;
     loss = masked mean. The reference trains on the ragged tail as a
     smaller batch; the masked mean over the padded batch is the same
     math."""
-    return _make_step(grad_accum, masked=True)
+    return _make_step(grad_accum, masked=True, mesh=mesh)
 
 
 def make_mems_train_step(masked: bool, grad_accum: int = 1):
@@ -190,6 +233,14 @@ class Trainer:
     deterministic=, dropout_rng=) → logits; ``tx`` the optimizer factory
     of ``optim.make_optimizer``. The step updates the params in place.
 
+    ``mesh`` (``parallel/mesh.py::make_mesh``): this rank's place in a
+    (data, model) mesh; every rank builds its Trainer over the full-size
+    model and is fed the same global batches. A model axis > 1 shards the
+    model in place (``parallel/tp.py::shard_model_``; MAG-BERT only);
+    ``tp_shard_attention`` head-shards its attention too, with the JAX
+    trainer's guards. ``create_state_from_params`` then takes the full
+    state dict and keeps this rank's chunks.
+
     ``mem_len`` (XLNet segment recurrence) must equal the model config's:
     a fixed-shape zero memory, n_layer × [B, mem_len, D] at the model
     dtype, starts each epoch and each eval/test split and is carried from
@@ -209,16 +260,59 @@ class Trainer:
     multiprocess: bool = False
 
     def __post_init__(self):
-        for name, item in (("mesh", "A.10"), ("tp_shard_attention", "A.10"),
-                           ("fsdp", "A.10"), ("multiprocess", "A.10"),
+        for name, item in (("fsdp", "A.10"), ("multiprocess", "A.10"),
                            ("compiler_options", "A.10")):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet (ROADMAP "
                     f"{item})")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(
+                "Trainer(mesh=...) takes a parallel.mesh.Mesh "
+                f"(parallel.mesh.make_mesh), got {type(self.mesh).__name__}")
+        mp = self.mesh.model_size if self.mesh is not None else 1
+        cfg = getattr(self.model, "config", None)
+        if self.tp_shard_attention:
+            # the JAX trainer's guards of the CLI's preconditions
+            impl = getattr(cfg, "attention_impl", "einsum")
+            if mp <= 1:
+                raise ValueError(
+                    "tp_shard_attention requires a mesh model axis > 1")
+            if impl == "flash":
+                raise ValueError(
+                    "tp_shard_attention supports einsum and fused "
+                    "attention, not flash")
+            if (impl == "fused"
+                    and getattr(cfg, "tp_attention_mesh", None) is None):
+                raise ValueError(
+                    "tp_shard_attention with the fused kernels needs the "
+                    "model built with tp_attention_mesh=<mesh> (the split "
+                    "kernels run on each rank's heads; ops/fused_attention.py"
+                    "::fused_attention_tp)")
+            n_head = getattr(cfg, "n_head",
+                             getattr(cfg, "num_attention_heads", 0))
+            if n_head % mp != 0:
+                raise ValueError(
+                    f"tp_shard_attention needs n_head ({n_head}) divisible "
+                    f"by the model-axis size ({mp})")
+        tp_mesh = getattr(cfg, "tp_attention_mesh", None)
+        if tp_mesh is not None and (tp_mesh is not self.mesh
+                                    or not self.tp_shard_attention):
+            raise ValueError(
+                "a model built with tp_attention_mesh trains with "
+                "Trainer(mesh=<that mesh>, tp_shard_attention=True)")
+        if (self.mesh is not None and self.mesh.size > 1
+                and self.mem_len is not None):
+            raise NotImplementedError(
+                "mem_len over a mesh of more than one rank is not ported "
+                "yet (ROADMAP A.10)")
+        if mp > 1:
+            tp_lib.shard_model_(self.model, self.mesh,
+                                self.tp_shard_attention)
         self.device = next(self.model.parameters()).device
-        self._train_step = make_train_step(self.grad_accum)
-        self._train_step_masked = make_masked_train_step(self.grad_accum)
+        self._train_step = make_train_step(self.grad_accum, self.mesh)
+        self._train_step_masked = make_masked_train_step(self.grad_accum,
+                                                         self.mesh)
         if self.mem_len is not None:
             cfg = getattr(self.model, "config", None)
             if getattr(cfg, "mem_len", None) != self.mem_len:
@@ -256,10 +350,14 @@ class Trainer:
     def create_state_from_params(
             self, params: Optional[Dict[str, torch.Tensor]],
             rng: Union[int, torch.Generator]) -> TrainState:
-        """A fresh state over ``params`` (a state_dict; None keeps the
-        model's weights) with the dropout stream ``rng`` (an int seed or a
-        CPU generator)."""
+        """A fresh state over ``params`` (a full-size state_dict, of which
+        a tensor-parallel rank keeps its chunks; None keeps the model's
+        weights) with the dropout stream ``rng`` (an int seed or a CPU
+        generator)."""
         if params is not None:
+            if self.mesh is not None and self.mesh.model_size > 1:
+                params = tp_lib.shard_state_dict(params, self.mesh,
+                                                 self.tp_shard_attention)
             self.model.load_state_dict(params)
         if not isinstance(rng, torch.Generator):
             rng = torch.Generator().manual_seed(int(rng))
@@ -273,8 +371,18 @@ class Trainer:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def _put_batch(self, batch):
+    def _put_batch(self, batch, micro: int = 1):
+        """The batch on the device: with a mesh, this rank's rows of it
+        (``Mesh.local_rows`` over ``micro`` micro-batches)."""
+        if self.mesh is not None:
+            batch = tuple(self.mesh.local_rows(np.asarray(a), micro)
+                          for a in batch)
         return tuple(self._put(a) for a in batch)
+
+    def _put_valid(self, valid) -> torch.Tensor:
+        if self.mesh is not None:
+            valid = self.mesh.local_rows(np.asarray(valid))
+        return self._put(valid)
 
     def train_epoch(self, state: TrainState, loader
                     ) -> Tuple[TrainState, float]:
@@ -313,10 +421,11 @@ class Trainer:
                     loss, mems = self._train_step_mems_masked(
                         state, self._put_batch(batch), mems, valid)
             elif valid.all():
-                loss = self._train_step(state, self._put_batch(batch))
+                loss = self._train_step(
+                    state, self._put_batch(batch, self.grad_accum))
             else:
-                loss = self._train_step_masked(state, self._put_batch(batch),
-                                               valid)
+                loss = self._train_step_masked(
+                    state, self._put_batch(batch, self.grad_accum), valid)
             losses.append(loss)
             if step_callback is not None:
                 step_callback(state, bi)
@@ -337,17 +446,20 @@ class Trainer:
         for batch, valid in loader:
             if self.mem_len is None:
                 sums.append(eval_step(state, self._put_batch(batch),
-                                      self._put(valid)))
+                                      self._put_valid(valid)))
                 continue
             if mems is None:
                 mems = self._init_mems(batch)
             s, c, mems = mems_eval_step(
-                state, self._put_batch(batch), self._put(valid), mems)
+                state, self._put_batch(batch), self._put_valid(valid), mems)
             sums.append((s, c))
         if not sums:
             return 0.0
-        tot = float(torch.stack([s for s, _ in sums]).sum())
-        cnt = float(torch.stack([c for _, c in sums]).sum())
+        tot_cnt = torch.stack([torch.stack([s for s, _ in sums]).sum(),
+                               torch.stack([c for _, c in sums]).sum()])
+        if self.mesh is not None:
+            self.mesh.all_reduce_(tot_cnt, self.mesh.data_axis)
+        tot, cnt = (float(x) for x in tot_cnt)
         return tot / max(cnt, 1.0)
 
     def test_epoch(self, state: TrainState, loader):
@@ -361,6 +473,9 @@ class Trainer:
                     mems = self._init_mems(batch)
                 p, lab, mems = mems_predict_step(
                     state, self._put_batch(batch), mems)
+            if self.mesh is not None:
+                p, lab = (self.mesh.all_gather(x, self.mesh.data_axis)
+                          for x in (p, lab))
             preds.append(p.cpu().numpy()[valid])
             labels.append(lab.cpu().numpy()[valid])
         return np.concatenate(preds), np.concatenate(labels)

@@ -319,11 +319,11 @@ def test_driver_requires_data_source(capsys):
     (["--pretrained_checkpoint", "model.bin"], "A.6"),
     (["--export_hf", "out.bin"], "A.6"),
     (["--export_serving", "out.pt2"], "A.9"),
-    (["--model_parallel", "2"], "A.10"),
+    (["--model_parallel", "2", "--model", "xlnet-base-cased"], "A.10"),
     (["--fsdp"], "A.10"),
     (["--pipeline_parallel", "2"], "A.10"),
     (["--num_processes", "2"], "A.10"),
-    (["--tp_shard_attention"], "A.10"),
+    (["--tp_shard_attention", "--model", "xlnet-base-cased"], "A.10"),
     (["--compiler_options", "{}"], "A.10"),
     (["--mem_len", "4"], "A.8"),
     (["--remat"], "A.14"),
@@ -336,7 +336,10 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys):
     """A flag whose item is open exits 2 naming it. ``--mem_len`` (A.8) is
     ported: on the default model, MAG-BERT, it exits 2 with the JAX
     driver's family refusal and names no item (the XLNet run is
-    ``tests/test_torch_mems.py``)."""
+    ``tests/test_torch_mems.py``). ``--model_parallel`` and
+    ``--tp_shard_attention`` are ported for MAG-BERT
+    (``tests/test_torch_tensor_parallel.py``); for XLNet they still exit 2
+    naming A.10."""
     rc = tdriver.main(argv + ["--synthetic", "--tiny", "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 2

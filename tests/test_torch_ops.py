@@ -356,6 +356,20 @@ def test_configs_match_jax_package():
     ({"attention_impl": "flash"}, "A.2"),
 ])
 def test_unported_options_raise(kw, item):
+    """An option whose item is open raises naming it. ``tp_attention_mesh``
+    (A.10, tensor parallelism for MAG-BERT) is ported: a mesh is kept, and
+    anything else raises TypeError."""
+    if item == "A.10":
+        from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+            make_mesh,
+        )
+
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            tcfg.BertConfig(**kw)
+        mesh = make_mesh(devices=["cpu"])
+        assert tcfg.BertConfig(tp_attention_mesh=mesh).tp_attention_mesh \
+            is mesh
+        return
     with pytest.raises(NotImplementedError, match=item):
         tcfg.BertConfig(**kw)
 
@@ -386,6 +400,8 @@ def test_port_imports_no_jax():
         "import bert_multimodal_transformer_tpu_torch.data.synthetic\n"
         "import bert_multimodal_transformer_tpu_torch.data.tokenization\n"
         "import bert_multimodal_transformer_tpu_torch.utils.logging\n"
+        "import bert_multimodal_transformer_tpu_torch.parallel.mesh\n"
+        "import bert_multimodal_transformer_tpu_torch.parallel.tp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'bert_multimodal_transformer_tpu')]\n"
         "assert not bad, bad\n"

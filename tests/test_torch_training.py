@@ -259,12 +259,23 @@ def test_init_state_is_seeded():
 def test_unported_trainer_options_raise(kw, item):
     """An option whose item is open raises naming it. ``mem_len`` (A.8) is
     ported: on MAG-BERT, whose config has no memory, it raises as the JAX
-    trainer does, naming ``config.mem_len``."""
+    trainer does, naming ``config.mem_len``. ``mesh`` and
+    ``tp_shard_attention`` (the A.10 tensor parallelism for MAG-BERT) are
+    ported: a mesh that is not a ``parallel.mesh.Mesh`` raises, and
+    tp_shard_attention without a model axis > 1 raises the JAX trainer's
+    guard (tests/test_torch_tensor_parallel.py runs them on ranks)."""
     _, _, tcfg, tmm = _configs("einsum")
     model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
                                                    device="cpu")
     if item == "A.8":
         with pytest.raises(ValueError, match="config.mem_len"):
+            ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
+                             **kw)
+        return
+    if "mesh" in kw or "tp_shard_attention" in kw:
+        exc, match = ((TypeError, "parallel.mesh.Mesh") if "mesh" in kw
+                      else (ValueError, "model axis > 1"))
+        with pytest.raises(exc, match=match):
             ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
                              **kw)
         return
