@@ -96,8 +96,17 @@ class BertConfig:
     # (the hand-written packed attention kernel, ops/fused_attention.py).
     # "flash" waits for ROADMAP A.2.
     attention_impl: str = "einsum"
-    # Not ported yet; setting it raises (see __post_init__).
+    # With attention_impl="fused": also fuse the QKV projection gemm into
+    # the attention kernel (qkv = x·W + b computed in the forward kernel #18;
+    # the backward #19 emits dqkv once and does dx = dqkv·Wᵀ in-kernel —
+    # ops/fused_attention.py::fused_attention_qkvproj). Opt-in, as in the
+    # JAX package. Ignored under TP attention sharding / head_mask /
+    # output_attentions (those fall back to the split projection).
     qkv_fusion: bool = False
+    # With qkv_fusion: save the kernel-computed qkv to device memory as a
+    # backward residual (True) or recompute the projection in the backward
+    # kernel (False — drops the B·S·3D residual entirely).
+    qkv_residual: bool = False
     # The mesh whose model axis head-shards attention (tensor parallelism,
     # parallel/tp.py): set with Trainer(tp_shard_attention=True), and read
     # by Predictor(mesh=...). None: attention over all heads on every rank.
@@ -112,10 +121,6 @@ class BertConfig:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r} "
                 "(einsum | fused)")
-        if self.qkv_fusion:
-            raise NotImplementedError(
-                "qkv_fusion: the QKV-projection attention kernel is not "
-                "ported yet (ROADMAP B.10)")
         if self.tp_attention_mesh is not None:
             from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
                 Mesh,

@@ -69,8 +69,9 @@ __global__ void __launch_bounds__(attn::kFwdThreads)
                              head_row,
                              b + b_off,
                              h + h_off};
-  attn::fwd_rows<T, kQTile, kDropout, kSave>(smem, hd, p_out, pd_out, S, Dh,
-                                             scale, drop);
+  attn::fwd_rows<T, kQTile, kDropout, kSave>(smem, hd, blockIdx.x * kQTile,
+                                             p_out, pd_out, S, Dh, scale,
+                                             drop);
 }
 
 template <typename T, bool kDropout, bool kSave>

@@ -1,11 +1,13 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the Philox4x32-10
 // dropout stream, the whole-row forward's blocks (#1 and #4 packed, #8
-// split, #11, #14 and #20 rel), the recompute backward's softmax rows (#2,
-// #5, #9, #12, #15, #21), the full-H backward of one head (#2, #3 packed,
-// #9, #10 split), the small shared-memory products of the backward kernels,
-// and the ingredients kernels' score and full-H backward tail (the attention
-// kernels: attn_{fwd,bwd}_packed*.cu, attn_{fwd,bwd}_split*.cu,
+// split, #18 on a projected head, #11, #14 and #20 rel), the recompute
+// backward's softmax rows (#2, #5, #9, #12, #15, #21), the full-H backward
+// of one head (#2, #3 packed, #9, #10 split, #19), the small shared-memory
+// products of the backward kernels, the ingredients kernels' score and
+// full-H backward tail, and the QKV-projection kernels' tiled products
+// (#18, #19) (the attention kernels: attn_{fwd,bwd}_packed*.cu,
+// attn_{fwd,bwd}_split*.cu, attn_{fwd,bwd}_qkvproj.cu,
 // attn_{fwd,bwd}_rel*.cu and attn_{fwd,bwd}_relik*.cu).
 //
 // The dropout stream. Element (b, h, q, k) of the [B, H, Q, K] probs is
@@ -93,18 +95,20 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
 
 // ---- the whole-row forward (kernels #1 and #4 packed, #8 split) -----------
 //
-// One block of kFwdThreads threads computes kQTile query rows q0 =
-// blockIdx.x · kQTile of one (head, batch row): scores over the whole key
-// row in a [kQTile][S] fp32 shared tile (K streamed in kFwdKChunk-row
-// chunks by stride), a max-subtracted fp32 softmax one warp per row, the
-// Philox keep mask, the probs rounded to T, and PV accumulated in fp32
-// registers (V streamed the same way). `fwd_rows` takes the head's rows by
-// pointer and row stride, so one code serves both layouts: the packed
-// projection [B, S, 3D] (#1 with 16-row tiles up to S = 512 and the save
-// modes, #4 with 32-row tiles up to S = 640; `fwd_packed_rows`) and the
-// split q, k, v [B, H, S, Dh] (#8, attn_fwd_split.cu). The arithmetic of a
-// row depends on neither kQTile nor the layout, so all of them give the
-// same bits where they reach.
+// One block of kFwdThreads threads computes kQTile query rows q0 ..
+// q0 + kQTile − 1 of one (head, batch row): scores over the whole key row
+// in a [kQTile][S] fp32 shared tile (K streamed in kFwdKChunk-row chunks by
+// stride), a max-subtracted fp32 softmax one warp per row, the Philox keep
+// mask, the probs rounded to T, and PV accumulated in fp32 registers (V
+// streamed the same way). `fwd_rows` takes the head's rows by pointer and
+// row stride, so one code serves every layout: the packed projection
+// [B, S, 3D] (#1 with 16-row tiles up to S = 512 and the save modes, #4
+// with 32-row tiles up to S = 640; `fwd_packed_rows`, q0 = blockIdx.x ·
+// kQTile), the split q, k, v [B, H, S, Dh] (#8, attn_fwd_split.cu) and a
+// head projected into shared memory (#18, attn_fwd_qkvproj.cu, which walks
+// q0 over the rows itself). The arithmetic of a row depends on neither
+// kQTile nor the layout, so all of them give the same bits where they
+// reach.
 
 constexpr int kFwdThreads = 256;  // 8 warps
 constexpr int kFwdKChunk = 64;    // key/value rows staged in shared memory
@@ -140,14 +144,13 @@ struct RowsHead {
 
 template <typename T, int kQTile, bool kDropout, bool kSave>
 __device__ __forceinline__ void fwd_rows(float* smem, const RowsHead<T>& hd,
-                                         T* __restrict__ p_out,
+                                         int q0, T* __restrict__ p_out,
                                          T* __restrict__ pd_out, int S,
                                          int Dh, float scale,
                                          DropoutArgs drop) {
   // Each thread owns ceil(kQTile * kFwdMaxDh / kFwdThreads) accumulators.
   constexpr int kAccPerThread =
       (kQTile * kFwdMaxDh + kFwdThreads - 1) / kFwdThreads;
-  const int q0 = blockIdx.x * kQTile;
   const int tid = threadIdx.x;
   const int ldkv = Dh + 1;
   const size_t ld = hd.ld;
@@ -296,8 +299,8 @@ __device__ __forceinline__ void fwd_packed_rows(
                        ((size_t)b * H + h) * S,
                        b,
                        h};
-  fwd_rows<T, kQTile, kDropout, kSave>(smem, hd, p_out, pd_out, S, Dh, scale,
-                                       drop);
+  fwd_rows<T, kQTile, kDropout, kSave>(smem, hd, blockIdx.x * kQTile, p_out,
+                                       pd_out, S, Dh, scale, drop);
 }
 
 // ---- the whole-row rel forward (kernels #11 and #14) ----------------------
@@ -650,7 +653,7 @@ struct NoDsOut {
   __device__ __forceinline__ void operator()(int, float) const {}
 };
 
-// ---- the full-H backward of one (head, batch row) (#2, #3; #9, #10) -----
+// ---- the full-H backward of one (head, batch row) (#2, #3; #9, #10; #19) -
 //
 // One block holds the whole [S, S] problem of one (head, batch row) in the
 // plan of `bwd_smem_floats`: A and B [S][Dh+1], P and Tt [S][S], the [S]
@@ -743,7 +746,7 @@ __device__ __forceinline__ void bwd_recompute_head(float* smem,
   store_mtx(hd.dk, hd.d_ld, tt, as, S, S, Dh);  // dK = ds_cᵀ · Q
 }
 
-// The saved-probs backward (#3, #10) from this head's saved p and pd
+// The saved-probs backward (#3, #10, #19) from this head's saved p and pd
 // ([S][S] each, T; pd is p when the rate was 0): no QK product, no
 // softmax, no random draws; the mask and drop fields of hd are unused.
 template <typename T>
@@ -941,6 +944,121 @@ __device__ __forceinline__ void relik_bwd_tail(
     for (int q = q_lo; q < q_hi; ++q)
       acc = fmaf(s.us[q * K + p - Q + q], s.cs[q * ld + c], acc);
     ws_bh[(size_t)p * D + c] = acc;
+  }
+}
+
+// ---- the QKV-projection kernels' tiled products (#18, #19) ---------------
+//
+// `gemm_tile`: one block of kGThreads threads computes a [kGM][kGN] fp32
+// tile of C = A · B over K in kGK-deep slices staged in shared memory (A
+// column-major as as[k][m], B as bs[k][n], rows padded by 4 floats so the
+// float4 reads stay 16-byte aligned); each thread keeps a 4 × 4 register
+// tile (rows 4·ty .. 4·ty + 3, columns 4·tx .. 4·tx + 3) and every element
+// is one fmaf chain over k ascending. a_at(m, k) and b_at(k, n) read A
+// and B (m, n relative to the tile, k absolute; only in-range indices are
+// read, the rest staged as 0), store(m, n, acc) receives the in-range
+// results. kBKFast: B's elements are contiguous along k (the rows of
+// nn.Linear's [3D, D] weight for the projection), so the staging loop
+// walks k fastest; else along n (that weight read as [3D, D] for dx).
+// CUDA-core fp32 products: a tensor-core (mma/wgmma) version is later work.
+constexpr int kGM = 64, kGN = 64, kGK = 32;
+constexpr int kGThreads = 256;       // 16 × 16 threads, 4 × 4 outputs each
+constexpr int kGLd = kGM + 4;        // as/bs row stride (kGM == kGN)
+
+__host__ __device__ inline size_t gemm_smem_floats() {
+  return 2 * (size_t)kGK * kGLd;
+}
+
+template <bool kBKFast, typename ALoad, typename BLoad, typename Store>
+__device__ __forceinline__ void gemm_tile(float* smem, int M, int N, int K,
+                                          ALoad a_at, BLoad b_at,
+                                          Store store) {
+  float* as = smem;               // [kGK][kGLd]
+  float* bs = as + kGK * kGLd;    // [kGK][kGLd]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kGK) {
+    __syncthreads();  // the previous slice's (or tile's) readers are done
+    for (int i = tid; i < kGM * kGK; i += kGThreads) {
+      const int m = i / kGK, k = i - m * kGK;
+      as[k * kGLd + m] = m < M && k0 + k < K ? a_at(m, k0 + k) : 0.0f;
+    }
+    for (int i = tid; i < kGN * kGK; i += kGThreads) {
+      const int n = kBKFast ? i / kGK : i % kGN;
+      const int k = kBKFast ? i - n * kGK : i / kGN;
+      bs[k * kGLd + n] = n < N && k0 + k < K ? b_at(k0 + k, n) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kGK; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(as + k * kGLd +
+                                                         4 * ty);
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + k * kGLd +
+                                                         4 * tx);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = 4 * ty + i, n = 4 * tx + j;
+      if (m < M && n < N) store(m, n, acc[i][j]);
+    }
+}
+
+// A head's rows of the packed projection, kept in shared memory as T
+// [S][3·Dh] (its q, then k, then v columns; row stride 3·Dh), padded to a
+// whole number of float4 so the fp32 work area after it stays aligned.
+template <typename T>
+__host__ __device__ inline size_t qkvproj_head_floats(int s, int dh) {
+  return ((size_t)s * 3 * dh * sizeof(T) + 15) / 16 * 4;
+}
+
+// Projects head h of batch row b into `head`: for j < 3·Dh, with row(j) =
+// (j / Dh)·D + h·Dh + j % Dh its row of w (nn.Linear's [3D, D] layout) and
+// column of the packed projection,
+//   head[r][j] = T(Σ_c x_b[r][c] · w[row(j)][c] + b3[row(j)])
+// with the sum in fp32 (`gemm_tile`) and the bias added in fp32 before the
+// one rounding: the TPU kernel's `(x·W in fp32 + b).astype(dtype)`. With
+// kEmit the same values go to qkv_b[r][row(j)] ([S, 3D], the batch row's
+// projection). `work` holds `gemm_smem_floats()`; the caller synchronises
+// before reading `head`.
+template <typename T, bool kEmit>
+__device__ __forceinline__ void project_head(float* work, T* head,
+                                             const T* __restrict__ x_b,
+                                             const T* __restrict__ w,
+                                             const T* __restrict__ b3,
+                                             T* __restrict__ qkv_b, int S,
+                                             int D, int Dh, int h) {
+  const int N = 3 * Dh;
+  for (int m0 = 0; m0 < S; m0 += kGM) {
+    for (int n0 = 0; n0 < N; n0 += kGN) {
+      const auto row = [=](int j) {
+        return (size_t)(j / Dh) * D + h * Dh + j % Dh;
+      };
+      gemm_tile<true>(
+          work, min(kGM, S - m0), min(kGN, N - n0), D,
+          [=](int m, int k) {
+            return to_float(x_b[(size_t)(m0 + m) * D + k]);
+          },
+          [=](int k, int n) { return to_float(w[row(n0 + n) * D + k]); },
+          [=](int m, int n, float acc) {
+            const size_t r = row(n0 + n);
+            const T v = from_float<T>(__fadd_rn(acc, to_float(b3[r])));
+            head[(size_t)(m0 + m) * N + n0 + n] = v;
+            if constexpr (kEmit) qkv_b[(size_t)(m0 + m) * 3 * D + r] = v;
+          });
+    }
   }
 }
 

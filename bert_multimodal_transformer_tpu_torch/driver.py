@@ -33,6 +33,8 @@ Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --dataset mosi --synthetic --model_parallel 2 \\
         --tp_shard_attention --attention_impl fused
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --dataset mosi --synthetic --attention_impl fused --qkv_fusion
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ def _xlnet(a) -> bool:
     return a.model.startswith("xlnet")
 
 
-# The JAX driver's refusals of flags that do not apply to a model family:
-# (test on the parsed args, its message).
+# The JAX driver's refusals of flags that do not apply to a model family,
+# or not without another flag: (test on the parsed args, its message).
 FAMILY_ERRORS = (
     (lambda a: _xlnet(a) and a.attention_impl == "flash",
      "--attention_impl flash is not available for the XLNet family "
@@ -70,6 +72,13 @@ FAMILY_ERRORS = (
     (lambda a: not _xlnet(a) and a.mem_len,
      "--mem_len is XLNet segment recurrence (Transformer-XL memory, "
      "xlnet.py:81-91); the BERT family has no memory mechanism"),
+    (lambda a: not _xlnet(a) and a.qkv_residual and not a.qkv_fusion,
+     "--qkv_residual requires --qkv_fusion (it picks that path's backward "
+     "variant)"),
+    (lambda a: (not _xlnet(a) and a.qkv_fusion
+                and (a.attention_impl != "fused" or a.tp_shard_attention)),
+     "--qkv_fusion requires --attention_impl fused and is unavailable with "
+     "--tp_shard_attention"),
 )
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
@@ -94,8 +103,6 @@ UNPORTED = (
     ("--compiler_options", lambda a: a.compiler_options is not None,
      "A.10"),
     ("--remat", lambda a: a.remat, "A.14"),
-    ("--qkv_fusion", lambda a: a.qkv_fusion, "B.10"),
-    ("--qkv_residual", lambda a: a.qkv_residual, "B.10"),
     ("--attention_impl flash", lambda a: a.attention_impl == "flash",
      "A.2"),
     ("--rng_impl threefry2x32", lambda a: a.rng_impl == "threefry2x32",
@@ -149,9 +156,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_every_steps", type=int, default=0,
                    help="not ported yet (ROADMAP A.6)")
     p.add_argument("--qkv_fusion", action="store_true",
-                   help="not ported yet (ROADMAP B.10)")
+                   help="With --attention_impl fused (BERT): the QKV "
+                        "projection inside the attention kernels "
+                        "(ops/fused_attention.py::fused_attention_qkvproj)")
     p.add_argument("--qkv_residual", action="store_true",
-                   help="not ported yet (ROADMAP B.10)")
+                   help="With --qkv_fusion: keep the projection for the "
+                        "backward instead of recomputing it there")
     p.add_argument("--max_steps", type=int, default=0,
                    help="Stop this run after N optimizer steps (0 = no "
                         "limit)")
@@ -447,6 +457,9 @@ def _train(args, mesh):
         # the synthetic tokenizer's vocabulary, the model's geometry
         cfg = dataclasses.replace(cfg, vocab_size=max(vocab_size, 128))
     cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
+    if args.qkv_fusion:
+        cfg = dataclasses.replace(cfg, qkv_fusion=True,
+                                  qkv_residual=args.qkv_residual)
     if args.tp_shard_attention:
         cfg = dataclasses.replace(cfg, tp_attention_mesh=mesh)
     if is_xlnet:

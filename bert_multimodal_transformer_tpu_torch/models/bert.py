@@ -18,7 +18,11 @@ The large products (QKV, output, FFN, pooler, classifier) are plain
 ``torch.nn.functional.linear``. Attention is ``ops/attention.py`` under
 ``attention_impl="einsum"`` and the CUDA kernels behind
 ``ops/fused_attention.py`` under ``"fused"``; ``head_mask`` and
-``output_attentions`` take the einsum branch, as in the JAX package.
+``output_attentions`` take the einsum branch, as in the JAX package. With
+``BertConfig.qkv_fusion`` the fused branch hands the ``qkv`` layer's
+weight and bias to ``fused_attention_qkvproj``, whose kernels compute the
+projection themselves (the same parameters, so ``state_dict`` and the
+converters see no difference) where they reach.
 
 Under tensor parallelism (``parallel/tp.py::shard_model_``) each encoder
 layer splits its FFN over the mesh's model axis, and with
@@ -59,6 +63,7 @@ from bert_multimodal_transformer_tpu_torch.ops.dropout import (
 )
 from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
     fused_attention_packed,
+    fused_attention_qkvproj,
     fused_attention_tp,
     split_tier,
 )
@@ -161,7 +166,13 @@ class BertSelfAttention(nn.Module):
     model's TP branches: this rank's q, k, v of its heads from the
     replicated packed weight, the split-layout kernels through
     ``fused_attention_tp`` while ``split_tier`` says they reach (else the
-    einsum math on the local heads), and ``output_dense`` row-parallel."""
+    einsum math on the local heads), and ``output_dense`` row-parallel.
+    Without it, ``qkv_fusion`` on the fused branch (no head_mask, no
+    output_attentions) takes the JAX model's ``use_qkvproj`` branch,
+    FFN-only tensor parallelism (``tp_mesh`` None) too; where the kernels
+    do not reach (``qkvproj_fits``, in place of the TPU's full-H fit)
+    ``fused_attention_qkvproj`` itself takes the dense projection and the
+    packed tiers, as the JAX model's other branch."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  *, device=None):
@@ -224,6 +235,18 @@ class BertSelfAttention(nn.Module):
             ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, hl * dh)
             out = row_parallel_dense(self.output_dense, ctx, self.dtype,
                                      mesh)
+        elif fused and cfg.qkv_fusion:
+            # the projection inside the attention kernel (#18/#19) from the
+            # same qkv parameters, handed over as the JAX [D, 3D] kernel;
+            # past the kernels' reach the entry takes this dense layer and
+            # fused_attention_packed, as the branch below
+            ctx = fused_attention_qkvproj(
+                hidden.to(self.dtype), self.qkv.weight.to(self.dtype).t(),
+                self.qkv.bias.to(self.dtype), attention_mask_2d, n_heads=h,
+                scale=scale, dropout_rate=rate,
+                dropout_rng=rngs.host if train else None,
+                deterministic=deterministic, qkv_residual=cfg.qkv_residual)
+            out = dense(self.output_dense, ctx, self.dtype)
         else:
             qkv = dense(self.qkv, hidden, self.dtype)
             if fused:

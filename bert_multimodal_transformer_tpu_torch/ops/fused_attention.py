@@ -2,7 +2,8 @@
 ``ops/fused_attention.py``'s ``fused_attention_packed`` and
 ``fused_rel_attention`` in their full-H, head-blocked and flash-streamed
 tiers, the split-tensor ``fused_attention`` and its tensor-parallel
-``fused_attention_tp``, and ``fused_rel_attention_ingredients`` in its
+``fused_attention_tp``, ``fused_attention_qkvproj`` with the QKV
+projection inside, and ``fused_rel_attention_ingredients`` in its
 full-H and flash-streamed tiers: prob dropout, saved probs, and the
 backward kernels of each).
 
@@ -34,7 +35,11 @@ The long-sequence packed tiers, taken past the full-H reach
 The split-layout kernels #8, #10 and #9 (``attn_fwd_split_cuda``,
 ``attn_bwd_split_saved_cuda``, ``attn_bwd_split_cuda``) are #1-#3 on
 separate q, k, v [B, H, S, Dh], the layout of a tensor-parallel rank's
-heads (the section after the packed tiers).
+heads (the section after the packed tiers). #18 and #19
+(``attn_fwd_qkvproj_cuda``, ``attn_bwd_qkvproj_cuda``) are #1 and #3 with
+the QKV projection inside: x·W + b computed in the forward kernel, dx =
+dqkv·Wᵀ in the backward's (``fused_attention_qkvproj``, the section after
+the split layout).
 
 The rel kernels #11, #13 and #12 (``attn_fwd_rel_cuda``,
 ``attn_bwd_rel_saved_cuda``, ``attn_bwd_rel_cuda``), their head-blocked
@@ -49,12 +54,14 @@ Each CUDA wrapper launches on PyTorch's current stream and counts its
 launches in ``<wrapper>.launches``; each packed and split plain version
 counts its calls in ``<function>.calls``, which shows the path a CPU call
 took.
-``fused_attention_packed``, ``fused_attention`` and ``fused_rel_attention``
-dispatch on the tensor's device: a CUDA tensor launches the kernels or
-raises, a CPU tensor takes the plain versions.
-``FusedAttentionPacked``, ``FusedAttention`` and ``FusedRelAttention`` are
+``fused_attention_packed``, ``fused_attention``,
+``fused_attention_qkvproj`` and ``fused_rel_attention`` dispatch on the
+tensor's device: a CUDA tensor launches the kernels or raises, a CPU
+tensor takes the plain versions. ``FusedAttentionPacked``,
+``FusedAttention``, ``FusedAttentionQKVProj`` and ``FusedRelAttention`` are
 the autograd functions (the JAX ``_fap_fwd``/``_fap_bwd``,
-``_fa_fwd``/``_fa_bwd``, ``_frel_fwd``/``_frel_bwd``).
+``_fa_fwd``/``_fa_bwd``, ``_faq_fwd``/``_faq_bwd``,
+``_frel_fwd``/``_frel_bwd``).
 
 The dropout stream: element (b, h, q, k) is kept iff its 32-bit draw is
 ``>= dropout_threshold(rate)``, with the draw taken from Philox4x32-10 at
@@ -80,6 +87,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
 from bert_multimodal_transformer_tpu_torch.ops.kernels import (
@@ -1318,6 +1326,358 @@ def fused_attention_tp(
     return _fused_split(q, k, v, attention_mask, scale, dropout_rate,
                         dropout_rng, deterministic, None,
                         mesh.data_rank * b, mesh.model_rank * h)
+
+
+# ---- the QKV projection inside the packed kernels (#18, #19) -----------------
+#
+# The port of the JAX ``fused_attention_qkvproj`` (``_fused_attention_
+# qkvproj`` / ``_faq_fwd`` / ``_faq_bwd``): MAG-BERT's attention with the
+# packed projection qkv = x·W + b computed inside the attention kernel
+# (``BertConfig.qkv_fusion``). Two kernels, each with its plain version:
+#
+# * #18 ``attn_fwd_qkvproj_cuda`` → ``csrc/attn_fwd_qkvproj.cu``: each
+#   (head, batch row) projects its q, k, v columns into shared memory
+#   (fp32 sums, the bias added in fp32, one rounding: the TPU kernel's
+#   ``(x·W + b).astype(dtype)``), then runs #1's row code on them, dropout,
+#   saved p/pd and the emitted projection (``qkv_residual``) included;
+# * #19 ``attn_bwd_qkvproj_cuda`` → ``csrc/attn_bwd_qkvproj.cu``: #3's
+#   saved-probs chain on the head re-projected from x (or read from the
+#   emitted qkv), writing dqkv, then dx = dqkv·Wᵀ, two launches a call.
+#
+# dW = xᵀ·dqkv and db = Σ dqkv are plain products in ``FusedAttentionQKV
+# Proj``, as the JAX package leaves them to XLA. The public entry takes W
+# as [D, 3D], the JAX layout; the kernels read nn.Linear's [3D, D], where
+# a head's rows are contiguous (the model hands its weight's transposed
+# view, so no copy is made). Past the 256 MB save cap, under
+# ``FUSED_ATTN_SAVE=0`` and past the kernels' shared-memory plan
+# (``qkvproj_fits``) the entry takes the split structure (the dense
+# projection, then ``fused_attention_packed``), decided before any launch.
+# The dropout stream is the packed kernels', so #18 drops what #1 drops.
+
+# Shared memory of the tiled products' staging (``csrc/common.cuh``'s
+# ``gemm_smem_floats``: two [32][64 + 4] fp32 slices).
+_GEMM_SMEM_FLOATS = 2 * 32 * 68
+
+
+def _head_floats(s: int, dh: int, itemsize: int) -> int:
+    """The projected head [S][3·Dh] in the input dtype, in whole float4s
+    (``qkvproj_head_floats``)."""
+    return (s * 3 * dh * itemsize + 15) // 16 * 4
+
+
+def qkvproj_fwd_smem_bytes(s: int, dh: int, itemsize: int) -> int:
+    """Shared memory of one #18 block: the projected head, then the larger
+    of the projection's staging and #1's row plan (``fwd_smem_floats<16>``:
+    the [16][Dh] Q tile, a [64][Dh+1] K/V chunk, [16][S] scores, the [S]
+    bias)."""
+    rows = 16 * dh + 64 * (dh + 1) + 16 * s + s
+    return 4 * (_head_floats(s, dh, itemsize) + max(_GEMM_SMEM_FLOATS, rows))
+
+
+def qkvproj_bwd_smem_bytes(s: int, dh: int, itemsize: int,
+                           recompute: bool) -> int:
+    """Shared memory of one block of #19's (head, batch row) launch: #3's
+    plan (``bwd_smem_bytes``), behind the projected head when it
+    re-projects from x."""
+    plan = bwd_smem_bytes(s, dh) // 4
+    if not recompute:
+        return 4 * plan
+    return 4 * (_head_floats(s, dh, itemsize) + max(_GEMM_SMEM_FLOATS, plan))
+
+
+def qkvproj_fits(s: int, dh: int, itemsize: int, grad: bool) -> bool:
+    """Whether #18 (and with a gradient #19 in its larger, re-projecting
+    plan) takes sequence length ``s`` at head width ``dh`` and
+    ``itemsize``-byte activations. D is streamed, so any width fits. At
+    Dh = 64 the forward reaches S = 253 in fp32 and 468 in bf16, the
+    backward S = 107 and 122; at Dh = 128, 119 / 228 and 73 / 91."""
+    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM or s > MAX_SEQ_LEN:
+        return False
+    if qkvproj_fwd_smem_bytes(s, dh, itemsize) > MAX_SMEM_BYTES:
+        return False
+    return (not grad
+            or qkvproj_bwd_smem_bytes(s, dh, itemsize, True) <= MAX_SMEM_BYTES)
+
+
+def _project(x, w, b3):
+    """The packed projection as #18 rounds it: x·W summed in fp32, the bias
+    added in fp32, one rounding to x's dtype. (The model's dense layer
+    rounds the product, then adds the bias in the dtype: in bf16 the two
+    differ by ulps.)"""
+    return (torch.matmul(x.float(), w.float())
+            + b3.float().reshape(-1)).to(x.dtype)
+
+
+@_counted
+def attn_fwd_qkvproj_reference(x, w, b3, attention_mask, *, n_heads, scale,
+                               rate=0.0, seed=0, save=False, emit_qkv=False):
+    """Plain version of kernel #18: ``_project``, then
+    ``attn_fwd_packed_reference``'s function on it. x [B, S, D], w
+    [D, 3D], b3 [3D]. Returns (out [B, S, D], qkv [B, S, 3D] with
+    ``emit_qkv`` else None, p and pd [B, H, S, S] with ``save`` else None;
+    pd is p at rate 0)."""
+    qkv = _project(x, w, b3)
+    out, p, pd = _fwd_whole_rows(qkv, attention_mask, n_heads, scale, rate,
+                                 seed)
+    if save:
+        p = p.to(x.dtype)
+        pd = pd.to(x.dtype) if rate > 0.0 else p
+    else:
+        p = pd = None
+    return out, (qkv if emit_qkv else None), p, pd
+
+
+@_counted
+def attn_bwd_qkvproj_reference(p, pd, src, w, b3, g, *, n_heads, scale,
+                               recompute):
+    """Plain version of kernel #19: qkv = ``_project(src, w, b3)`` with
+    ``recompute`` (src is x), else src itself (the saved qkv); then
+    ``attn_bwd_packed_saved_reference``'s VJP, and dx = dqkv·Wᵀ summed in
+    fp32, rounded once. Returns (dqkv [B, S, 3D], dx [B, S, D])."""
+    qkv = _project(src, w, b3) if recompute else src
+    dqkv = _vjp(p.float(), pd.float(), pd, qkv, g, n_heads, scale)
+    return dqkv, torch.matmul(dqkv.float(), w.float().t()).to(dqkv.dtype)
+
+
+def qkvproj_dx_bf16_bound(ref_dx, dqkv_bound, w) -> torch.Tensor:
+    """Elementwise bound on two bf16 dx = T(dqkv·Wᵀ) whose dqkv lie within
+    ``dqkv_bound`` of each other (``dqkv_bf16_bound``): the dqkv gap
+    carried through |W| (Σ_k bound_k·|W_nk|), plus one bf16 rounding of
+    the output that may land the other way (2^-7 relative) and 2^-17 for
+    sums near zero."""
+    return (torch.matmul(dqkv_bound.float(), w.float().abs().t())
+            + 2.0 ** -7 * ref_dx.float().abs() + 2.0 ** -17)
+
+
+def _check_qkvproj_cuda(name, x, w, b3, n_heads):
+    """The checks both qkvproj CUDA wrappers make on x [B, S, D] (or g),
+    w [D, 3D] and b3; returns (b, s, d, dh)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: x must be a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {x.dtype} not supported (float32, "
+                         "bfloat16)")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: x must be a contiguous [B, S, D] tensor, got shape "
+            f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+    b, s, d = x.shape
+    for t_name, t, shape in (("w", w, (d, 3 * d)), ("b3", b3, (3 * d,))):
+        if (t.device != x.device or t.dtype != x.dtype
+                or t.numel() != int(np.prod(shape))
+                or t.shape[-1] != shape[-1]):
+            raise ValueError(
+                f"{name}: {t_name} must be a {x.dtype} tensor of shape "
+                f"{shape} on {x.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    if d % n_heads != 0:
+        raise ValueError(
+            f"hidden dim {d} not divisible by n_heads={n_heads}")
+    dh = d // n_heads
+    if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {dh} not supported (a multiple of 8 up to "
+            f"{MAX_HEAD_DIM})")
+    if b > 65535 or n_heads > 65535:
+        raise ValueError(f"B={b} or H={n_heads} exceeds a grid dimension")
+    check_sm90(x)
+    return b, s, d, dh
+
+
+def attn_fwd_qkvproj_cuda(x, w, b3, attention_mask, *, n_heads, scale,
+                          rate=0.0, seed=0, save=False, emit_qkv=False):
+    """Launch kernel #18 (``csrc/attn_fwd_qkvproj.cu``) on x [B, S, D], w
+    [D, 3D] and b3 [3D] (CUDA, one dtype, fp32 or bf16; x contiguous; the
+    kernel reads w as [3D, D], ``w.t()``, copied only if that is not
+    contiguous). Returns (out, qkv or None, p or None, pd or None) as the
+    plain version; ``emit_qkv`` needs ``save``."""
+    b, s, d, dh = _check_qkvproj_cuda("attn_fwd_qkvproj", x, w, b3, n_heads)
+    if s > MAX_SEQ_LEN or (qkvproj_fwd_smem_bytes(s, dh, x.element_size())
+                           > MAX_SMEM_BYTES):
+        raise ValueError(f"attn_fwd_qkvproj: S={s} at Dh={dh} is past the "
+                         "kernel's shared-memory plan (qkvproj_fits)")
+    if emit_qkv and not save:
+        raise ValueError("attn_fwd_qkvproj: emit_qkv needs save")
+    mask = _mask_arg(attention_mask, x, b, s)
+    # held until the launch is queued: a copy freed earlier could be handed
+    # to the next allocation before the kernel reads it
+    w_rows, b3 = w.t().contiguous(), b3.reshape(-1).contiguous()
+    out = torch.empty_like(x)
+    qkv = (torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
+           if emit_qkv else None)
+    p = pd = None
+    if save:
+        p = torch.empty((b, n_heads, s, s), dtype=x.dtype, device=x.device)
+        pd = torch.empty_like(p) if rate > 0.0 else p
+    _launch("attn_fwd_qkvproj", x.data_ptr(), w_rows.data_ptr(),
+            b3.data_ptr(), _ptr(mask), out.data_ptr(), _ptr(qkv), _ptr(p),
+            _ptr(pd) if rate > 0.0 else None, b, s, n_heads, dh,
+            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[x.dtype],
+            device=x.device)
+    attn_fwd_qkvproj_cuda.launches += 1
+    return out, qkv, p, pd
+
+
+def attn_bwd_qkvproj_cuda(p, pd, src, w, b3, g, *, n_heads, scale,
+                          recompute):
+    """Launch kernel #19 (``csrc/attn_bwd_qkvproj.cu``), two kernels on the
+    current stream, each counted: the (head, batch row) pass writing dqkv
+    [B, S, 3D] from the saved probs p and pd [B, H, S, S] and the head
+    re-projected from src = x [B, S, D] (``recompute``) or read from src =
+    the saved qkv [B, S, 3D]; then dx = dqkv·Wᵀ [B, S, D]. Returns (dqkv,
+    dx)."""
+    b, s, d, dh = _check_qkvproj_cuda("attn_bwd_qkvproj", g, w, b3, n_heads)
+    if qkvproj_bwd_smem_bytes(s, dh, g.element_size(),
+                              recompute) > MAX_SMEM_BYTES:
+        raise ValueError(f"attn_bwd_qkvproj: S={s} at Dh={dh} is past the "
+                         "kernel's shared-memory plan (qkvproj_fits)")
+    _like("src", src, g, (b, s, d if recompute else 3 * d))
+    _like("p", p, g, (b, n_heads, s, s))
+    _like("pd", pd, g, (b, n_heads, s, s))
+    w_rows, b3 = w.t().contiguous(), b3.reshape(-1).contiguous()
+    dqkv = torch.empty((b, s, 3 * d), dtype=g.dtype, device=g.device)
+    dx = torch.empty_like(g)
+    _launch("attn_bwd_qkvproj_heads", p.data_ptr(), pd.data_ptr(),
+            src.data_ptr(), w_rows.data_ptr(), b3.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), b, s, n_heads, dh, float(scale), int(recompute),
+            _DTYPE_CODES[g.dtype], device=g.device)
+    attn_bwd_qkvproj_cuda.launches += 1
+    _launch("attn_bwd_qkvproj_dx", dqkv.data_ptr(), w_rows.data_ptr(),
+            dx.data_ptr(), b * s, d, _DTYPE_CODES[g.dtype], device=g.device)
+    attn_bwd_qkvproj_cuda.launches += 1
+    return dqkv, dx
+
+
+for _fn in (attn_fwd_qkvproj_cuda, attn_bwd_qkvproj_cuda):
+    _fn.launches = 0
+del _fn
+
+
+def attn_fwd_qkvproj(x, w, b3, attention_mask, *, n_heads, scale, rate=0.0,
+                     seed=0, save=False, emit_qkv=False):
+    """Kernel #18 on CUDA tensors, its plain version on CPU ones."""
+    fn = (attn_fwd_qkvproj_cuda if _on(x) == "cuda"
+          else attn_fwd_qkvproj_reference)
+    return fn(x, w, b3, attention_mask, n_heads=n_heads, scale=scale,
+              rate=rate, seed=seed, save=save, emit_qkv=emit_qkv)
+
+
+def attn_bwd_qkvproj(p, pd, src, w, b3, g, *, n_heads, scale, recompute):
+    """Kernel #19 on CUDA tensors, its plain version on CPU ones."""
+    fn = (attn_bwd_qkvproj_cuda if _on(g) == "cuda"
+          else attn_bwd_qkvproj_reference)
+    return fn(p, pd, src, w, b3, g, n_heads=n_heads, scale=scale,
+              recompute=recompute)
+
+
+class FusedAttentionQKVProj(torch.autograd.Function):
+    """Attention with the QKV projection inside and its backward kernel
+    (JAX ``_faq_fwd`` / ``_faq_bwd``). The forward (#18) saves p and pd
+    (the same tensor twice at rate 0) and, with ``qkv_residual``, the
+    projection it emits; the backward (#19) re-projects from x or reads that
+    projection, and returns dx from the kernel, dW = xᵀ·dqkv (in w's dtype)
+    and db3 = Σ dqkv in fp32 (in b3's dtype) as plain products. The mask and
+    the seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b3, attention_mask, n_heads: int, scale: float,
+                rate: float, seed: int, qkv_residual: bool):
+        ctx.n_heads, ctx.scale, ctx.qkv_residual = n_heads, scale, qkv_residual
+        out, qkv, p, pd = attn_fwd_qkvproj(
+            x, w, b3, attention_mask, n_heads=n_heads, scale=scale, rate=rate,
+            seed=seed, save=True, emit_qkv=qkv_residual)
+        ctx.save_for_backward(x, w, b3, qkv, p, pd)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b3, qkv, p, pd = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dqkv, dx = attn_bwd_qkvproj(
+            p, pd, qkv if ctx.qkv_residual else x, w, b3, g,
+            n_heads=ctx.n_heads, scale=ctx.scale,
+            recompute=not ctx.qkv_residual)
+        b, s, d = x.shape
+        flat = dqkv.reshape(b * s, 3 * d)
+        dw = torch.matmul(flat.t(), x.reshape(b * s, d)).t().to(w.dtype)
+        db3 = flat.float().sum(dim=0).to(b3.dtype).reshape(b3.shape)
+        return (dx, dw, db3) + (None,) * 6
+
+
+def fused_attention_qkvproj(
+    x: torch.Tensor,                          # [B, S, D] hidden states
+    w: torch.Tensor,                          # [D, 3D] packed QKV kernel
+    b3: torch.Tensor,                         # [3D] packed QKV bias
+    attention_mask: Optional[torch.Tensor],   # [B, S] {0,1}, 1 = real token
+    *,
+    n_heads: int,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    qkv_residual: bool = False,
+    interpret: Optional[bool] = None,
+    nb_fwd: Optional[int] = None,
+    nb_bwd: Optional[int] = None,
+) -> torch.Tensor:
+    """``fused_attention_packed`` with the QKV projection inside the kernel
+    (the JAX entry's signature and refusals), returning the context
+    [B, S, D].
+
+    With a gradient (x, w or b3 requiring one) the forward is #18 with
+    saved probs and the backward #19; ``qkv_residual`` also keeps the
+    projection, so #19 reads it instead of re-projecting. Without one, #18
+    saves nothing, as the JAX primal. ``dropout_rate`` applies only when
+    ``deterministic`` is False, and then needs ``dropout_rng``, a CPU
+    ``torch.Generator`` from which the kernel seed is drawn. Where the JAX
+    entry takes its split structure, this one does too: past the 256 MB
+    save cap (``resolve_save_probs``, ``FUSED_ATTN_SAVE=0``), and where
+    #18/#19 do not reach (``qkvproj_fits``): the dense projection (the
+    product rounded, then the bias added in the dtype), then
+    ``fused_attention_packed``. ``interpret``/``nb_fwd``/``nb_bwd`` are TPU
+    plan knobs and raise."""
+    if interpret is not None or nb_fwd is not None or nb_bwd is not None:
+        raise ValueError(
+            "interpret/nb_fwd/nb_bwd are TPU kernel-plan knobs; the CUDA "
+            "kernels take none")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, S, D], got shape {tuple(x.shape)}")
+    b, s, d = x.shape
+    d3 = 3 * d
+    if tuple(w.shape) != (d, d3):
+        raise ValueError(f"qkv kernel must be [{d}, {d3}], got "
+                         f"{tuple(w.shape)}")
+    if tuple(b3.shape) not in ((d3,), (1, d3)):
+        raise ValueError(f"qkv bias must be [{d3}], got {tuple(b3.shape)}")
+    if d % n_heads != 0:
+        raise ValueError(
+            f"hidden dim {d} not divisible by n_heads={n_heads}")
+    rate = 0.0 if deterministic else float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and dropout_rng is None:
+        raise ValueError("dropout_rate > 0 requires dropout_rng")
+    _on(x)
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                        or b3.requires_grad)
+    if (not resolve_save_probs(b, n_heads, s, rate, x.element_size())
+            or not qkvproj_fits(s, d // n_heads, x.element_size(), grad)):
+        qkv = F.linear(x, w.t()) + b3.reshape(d3)
+        return fused_attention_packed(
+            qkv, attention_mask, n_heads=n_heads, scale=scale,
+            dropout_rate=dropout_rate, dropout_rng=dropout_rng,
+            deterministic=deterministic)
+    seed = draw_seed(dropout_rng) if rate > 0.0 else 0
+    if attention_mask is not None:
+        attention_mask = attention_mask.to(torch.float32)
+    x = x.contiguous()
+    b3 = b3.reshape(d3)
+    if not grad:
+        return attn_fwd_qkvproj(x, w, b3, attention_mask, n_heads=n_heads,
+                                scale=float(scale), rate=rate, seed=seed)[0]
+    return FusedAttentionQKVProj.apply(x, w, b3, attention_mask, n_heads,
+                                       float(scale), rate, seed,
+                                       bool(qkv_residual))
 
 
 # ---- rel attention: a full differentiable score bias --------------------------

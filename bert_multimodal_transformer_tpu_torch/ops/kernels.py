@@ -144,6 +144,13 @@ def load_kernels() -> ctypes.CDLL:
         lib.attn_bwd_split.argtypes = ([ptr] * 8 + dims + drop + offs
                                        + [i32, ptr])
         lib.attn_bwd_split_saved.argtypes = [ptr] * 9 + dims + [i32, ptr]
+        # attn_fwd_qkvproj: x, w, b3, mask, out, qkv_out, p, pd;
+        # attn_bwd_qkvproj_heads: p, pd, src, w, b3, g, dqkv, then dims and
+        # recompute; attn_bwd_qkvproj_dx: dqkv, w, dx, M, D.
+        lib.attn_fwd_qkvproj.argtypes = [ptr] * 8 + dims + drop + [i32, ptr]
+        lib.attn_bwd_qkvproj_heads.argtypes = ([ptr] * 7 + dims
+                                               + [i32, i32, ptr])
+        lib.attn_bwd_qkvproj_dx.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
         rel = [i32, i32, i32, i32, i32, f32]      # B, Q, K, H, Dh, scale
         # attn_fwd_rel: q, k, v, ebias, out, p, pd; attn_bwd_rel: q, k, v,
         # ebias, g, dq, dk, dv, debias; attn_bwd_rel_saved: p, pd, q, k, v,
@@ -184,7 +191,9 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_packed_hb, lib.attn_fwd_packed_fs,
                    lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq,
                    lib.attn_fwd_split, lib.attn_bwd_split,
-                   lib.attn_bwd_split_saved, lib.attn_fwd_rel, lib.attn_bwd_rel,
+                   lib.attn_bwd_split_saved, lib.attn_fwd_qkvproj,
+                   lib.attn_bwd_qkvproj_heads, lib.attn_bwd_qkvproj_dx,
+                   lib.attn_fwd_rel, lib.attn_bwd_rel,
                    lib.attn_bwd_rel_saved, lib.attn_fwd_rel_hb,
                    lib.attn_bwd_rel_hb, lib.attn_fwd_rel_fs,
                    lib.attn_bwd_rel_fs_dkdv, lib.attn_bwd_rel_fs_dq,

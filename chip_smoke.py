@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, MAG-BERT (at S=50,
-at long sequences and tensor-parallel over two ranks sharing the card) and
-MAG-XLNet, once on one NVIDIA GPU (H100).
+at long sequences, tensor-parallel over two ranks sharing the card and
+with the QKV projection inside the attention kernels) and MAG-XLNet, once
+on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed N]
 
@@ -86,6 +87,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    then timed at H=12 and H=6: #8 at the serving shape (B=128, rate 0)
    beside SDPA, the three at B=256 rate 0.1, #9 at rate 0 beside SDPA's
    autograd backward.
+3j. The QKV-projection kernels (#18 forward with the projection x·W + b
+   inside, #19 its saved-probs backward with dx = dqkv·Wᵀ inside, two
+   launches a call) against their plain versions: bf16 B=256 S=50 at
+   bert-base width (rates 0.1 and 0), fp32 B=4 at a ragged S=77 with a
+   fully padded row, bf16 B=8 S=50 at bert-large width (D=1024, H=16);
+   saved probs and the emitted qkv, #18 = #1 on its emitted qkv bit for
+   bit and against #1 on the plain projection's qkv, #18's keep masks
+   (saved, and read off the output of the mode that saves nothing), #19
+   re-projecting from x = #19 reading the emitted qkv bit for bit, both
+   against the plain backward and against torch.autograd through the
+   plain forward, the same bits twice; then timed at the serving shape
+   (B=128, rate 0) and the training shape (B=256, rate 0.1) beside the
+   split structure they replace (``F.linear`` + #1, #3 + the dx matmul)
+   and, at rate 0, ``F.linear`` + SDPA (forward; its autograd backward).
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -129,6 +144,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bert-base model, ``Predictor(mesh=)`` over 256 examples at batch 128:
    #8 once per layer per batch on each rank and nothing else, both ranks'
    gathered predictions equal, within 5e-2 of the one-card einsum model's.
+4i. Serving with ``qkv_fusion``: ``serving_path`` at bert-base bf16, batch
+   128: #18 once per layer per batch and nothing else, against einsum.
 5. Serving profile: one batch's serial latency, its device time by kernel
    and the card's busy share (torch.profiler).
 5b. Training speed at the bench's geometry, B=256 S=50: examples/s over
@@ -190,6 +207,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    recompute backward #9 under ``FUSED_ATTN_SAVE=0``, and the FFN split
    alone on #1/#3; bf16 head-sharded) against the one-card model's losses
    within a stated bound.
+6h. The driver with the QKV projection inside the kernels: ``driver.main
+   --attention_impl fused --qkv_fusion`` and ``... --qkv_residual`` at
+   bert-base over 96/48/48: exit 0, finite losses, #18 = 48 and #19 = 48
+   launches (24 calls) each; one step under ``FUSED_ATTN_SAVE=0`` (#1, #2,
+   no #18/#19); at dropout 0 from one copy of the weights the first step's
+   gradients leaf by leaf against the split fused step (#1/#3) in fp32
+   within 1e-4, which the same step with dx, then dK, zeroed in #19's
+   output must break, and in bf16 both fused steps' gaps to einsum; one
+   profiled B=256 S=50 step with and without ``qkv_fusion``.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -297,6 +323,8 @@ HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 # wins; the rest is "other elementwise").
 PROFILE_GROUPS = (
     ("attention kernels (csrc)", ("attn_fwd_packed", "attn_bwd_packed",
+                                  "attn_fwd_split", "attn_bwd_split",
+                                  "attn_fwd_qkvproj", "attn_bwd_qkvproj",
                                   "attn_fwd_rel", "attn_bwd_rel")),
     ("MAG gate kernels (csrc)", ("mag_fwd_kernel", "mag_bwd_kernel")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm")),
@@ -371,7 +399,9 @@ def _wrappers(fa):
             "attn_bwd_relik": fa.attn_bwd_relik_cuda,
             "attn_fwd_split": fa.attn_fwd_split_cuda,
             "attn_bwd_split_saved": fa.attn_bwd_split_saved_cuda,
-            "attn_bwd_split": fa.attn_bwd_split_cuda}
+            "attn_bwd_split": fa.attn_bwd_split_cuda,
+            "attn_fwd_qkvproj": fa.attn_fwd_qkvproj_cuda,
+            "attn_bwd_qkvproj": fa.attn_bwd_qkvproj_cuda}
 
 
 def _counts(fa):
@@ -4134,6 +4164,600 @@ def tp_step_check(fa, seed):
             for name in _wrappers(fa)}
 
 
+# ---- the QKV projection inside the attention kernels: #18, #19 ------------
+
+# Phase 3j's cases: (dtype, B, S, heads, rates); bert-large width last.
+QKVPROJ_CASES = (
+    ("bf16", BENCH_BATCH, S_SERVE, 12, (RATE, 0.0)),
+    ("fp32", 4, 77, 12, (RATE,)),
+    ("bf16", 8, S_SERVE, 16, (RATE,)),
+)
+# Phase 6h: one dropout-0 step with the projection inside the kernels (#18,
+# #19) against the split fused step (the dense projection, #1, #3) from one
+# copy of the weights, leaf by leaf as in 4b, in fp32. The two take the
+# same math in other orders: the projection's sum over D and its bias in
+# fp32 against cuBLAS's product and the bias added after it, dx summed by
+# #19 against autograd's matmul; fp32 roundings move a leaf by ~1e-6 of its
+# norm. dx zeroed in #19's output takes the attention path's gradient from
+# every lower layer, a zero dK the k leaves' whole gradient: both must read
+# past the bound.
+QKVPROJ_GRAD_TOL = 1e-4
+# Phase 3j, fp32: a batch row with no real token scores every key at
+# −10000 + O(1), which fp32 holds on a grid of ulp(10⁴) = 2^-10. #18's
+# projection may differ from the plain one (cuBLAS) in its last bit, and
+# that moves such a score by a grid step: a prob by up to 2^-9 relative and
+# the output by up to 2^-8 of the row's largest |v|. Such rows are held to
+# that (relative to p, pd and max |v|); every other row to FP32_ATOL.
+QKVPROJ_PADDED_RTOL = 2.0 ** -8
+
+
+def qkvproj_case(rng, dtype_name, b, s, h, dh=64):
+    """Seeded x [B, S, D] (unit scale, as a LayerNorm output), the packed
+    weight as the model holds it ([3D, D], N(0, 1/D), so qkv has unit
+    scale) handed over as its [D, 3D] view, the bias, a ragged mask, g, a
+    seed and the head count and scale."""
+    import torch
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    d = h * dh
+    x, g = (torch.from_numpy(rng.standard_normal(
+        (b, s, d), dtype=np.float32)).to("cuda", dtype) for _ in range(2))
+    w_rows = torch.from_numpy(rng.standard_normal(
+        (3 * d, d), dtype=np.float32) / np.sqrt(d)).to("cuda", dtype)
+    b3 = torch.from_numpy(0.1 * rng.standard_normal(
+        3 * d, dtype=np.float32)).to("cuda", dtype)
+    mask = torch.from_numpy(_ragged_mask(rng, b, s)).cuda().float()
+    return (x, w_rows.t(), b3, mask, g, int(rng.integers(0, 2 ** 63 - 1)),
+            dict(n_heads=h, scale=1.0 / dh ** 0.5))
+
+
+def _qkvproj_grad_errs(name, got, want, dtype_name, bound_args, fa):
+    """Max abs err over (dqkv, dx); raises past the stated bounds (bf16:
+    ``dqkv_bf16_bound`` and ``qkvproj_dx_bf16_bound``; fp32:
+    GRAD_FP32_TOL)."""
+    import torch
+
+    if dtype_name == "bf16":
+        p, pd, qkv, g, w, kw = bound_args
+        bound = fa.dqkv_bf16_bound(want[0], p, pd, qkv, g, **kw)
+        bounds = (bound, fa.qkvproj_dx_bf16_bound(want[1], bound, w))
+    else:
+        bounds = [GRAD_FP32_TOL + GRAD_FP32_TOL * x.float().abs()
+                  for x in want]
+    errs = []
+    for part, x, ref, bnd in zip(("dqkv", "dx"), got, want, bounds):
+        err = (x.float() - ref.float()).abs()
+        if bool((err > bnd).any()) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name} {part}: {int((err > bnd).sum())} "
+                                 f"elements out of tolerance, max_abs_err "
+                                 f"{float(err.max())}")
+        errs.append(float(err.max()))
+    return max(errs)
+
+
+def _qkvproj_forward_err(tag, got, want, mask, dtype_name):
+    """Max abs err of #18's (out, qkv, p, pd) against the plain version's;
+    raises past the phase-3 bounds, and in fp32 past QKVPROJ_PADDED_RTOL on
+    the batch rows with no real token."""
+    names = ("out", "qkv", "p", "pd")
+    if dtype_name == "bf16":
+        return max(_forward_err(f"#18 {n} {tag}", x, r, dtype_name)
+                   for n, x, r in zip(names, got, want))
+    live = mask.sum(-1) > 0
+    err = max(_forward_err(f"#18 {n} {tag}", x[live], r[live], "fp32")
+              for n, x, r in zip(names, got, want) if n != "qkv")
+    err = max(err, _forward_err(f"#18 qkv {tag}", got[1], want[1], "fp32"))
+    if bool(live.all()):
+        return err
+    d = got[0].shape[-1]
+    v_max = float(want[1][~live][..., 2 * d:].float().abs().max())
+    for n, x, r in zip(names, got, want):
+        if n == "qkv":
+            continue
+        x, r = x[~live].float(), r[~live].float()
+        bound = QKVPROJ_PADDED_RTOL * (v_max if n == "out" else r.abs())
+        gap = (x - r).abs()
+        if bool((gap > bound).any()):
+            raise AssertionError(f"#18 {n} {tag}, padded rows: "
+                                 f"{int((gap > bound).sum())} elements past "
+                                 f"{QKVPROJ_PADDED_RTOL}, max_abs_err "
+                                 f"{float(gap.max())}")
+        err = max(err, float(gap.max()))
+    return err
+
+
+def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
+    """Phase 3j on one case: #18 with saved probs and the emitted qkv
+    against its plain version (out, qkv, p, pd), its keep mask against the
+    plain Philox mask, #1 on its emitted qkv bit for bit, and #1 on the
+    plain projection's qkv within the phase-3 bf16 bound (in fp32 too,
+    which covers QKVPROJ_PADDED_RTOL's padded rows); #19 reading that qkv
+    and #19 re-projecting from x bit for bit alike, and against the plain
+    backward; #19 on the plain forward's qkv and probs against
+    torch.autograd through the plain forward; the same bits twice. Returns
+    the max errors and the case."""
+    import torch
+
+    case = qkvproj_case(rng, dtype_name, b, s, h)
+    x, w, b3, mask, g, seed, kw = case
+    tag = f"{dtype_name} B={b} S={s} H={h} Dh=64 rate={rate}"
+    fwd = dict(rate=rate, seed=seed, save=True, emit_qkv=True, **kw)
+    out, qkv, p, pd = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **fwd)
+    want = fa.attn_fwd_qkvproj_reference(x, w, b3, mask, **fwd)
+    errs = {"#18": _qkvproj_forward_err(tag, (out, qkv, p, pd), want, mask,
+                                        dtype_name)}
+    packed = fa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
+                                     save=True, **kw)
+    same = all(torch.equal(a, b_) for a, b_ in zip((out, p, pd), packed))
+    # the mode that keeps no qkv (the backward re-projects) gives the bits
+    # of the one that does
+    kept = fwd.pop("emit_qkv")
+    no_emit = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **fwd)
+    fwd["emit_qkv"] = kept
+    same_modes = no_emit[1] is None and all(
+        torch.equal(a, no_emit[i]) for a, i in ((out, 0), (p, 2), (pd, 3)))
+    on_plain = _forward_err(f"#18 vs #1 on the plain qkv {tag}", out,
+                            fa.attn_fwd_packed_cuda(want[1], mask, rate=rate,
+                                                    seed=seed, **kw),
+                            "bf16")
+    print(f"#18 vs plain {tag}: out/qkv/p/pd max_abs_err={errs['#18']:.3e}"
+          + _check_keep(fa, "#18", seed, p, pd, rate, tag)
+          + f"; #18 = #1 on its emitted qkv bit for bit: {same}; = #18 "
+          f"keeping no qkv: {same_modes}; vs #1 on the plain projection's "
+          f"qkv {on_plain:.3e}")
+    if not same:
+        raise AssertionError(f"#18 and #1 on its qkv differ ({tag})")
+    if not same_modes:
+        raise AssertionError(f"#18 with and without the emitted qkv differ "
+                             f"({tag})")
+
+    runs = {"#19 from qkv": lambda: fa.attn_bwd_qkvproj_cuda(
+                p, pd, qkv, w, b3, g, recompute=False, **kw),
+            "#19 from x": lambda: fa.attn_bwd_qkvproj_cuda(
+                p, pd, x, w, b3, g, recompute=True, **kw)}
+    got = {name: run() for name, run in runs.items()}
+    if not all(torch.equal(a, b_) for a, b_ in zip(*got.values())):
+        raise AssertionError(f"#19 from x and from #18's qkv differ ({tag})")
+    plain = fa.attn_bwd_qkvproj_reference(p, pd, qkv, w, b3, g,
+                                          recompute=False, **kw)
+    errs["#19 vs plain"] = _qkvproj_grad_errs(
+        f"#19 vs plain {tag}", got["#19 from qkv"], plain, dtype_name,
+        (p, pd, qkv, g, w, kw), fa)
+    if dtype_name == "fp32":
+        errs["#19 vs plain"] = max(errs["#19 vs plain"], _qkvproj_grad_errs(
+            f"#19 from x vs plain from x {tag}", got["#19 from x"],
+            fa.attn_bwd_qkvproj_reference(p, pd, x, w, b3, g, recompute=True,
+                                          **kw), dtype_name, None, fa))
+    # autograd through the plain forward, and #19 on that forward's qkv
+    xs = x.detach().clone().requires_grad_()
+    r_qkv = fa._project(xs, w, b3)
+    r_qkv.retain_grad()
+    fa.attn_fwd_packed_reference(r_qkv, mask, rate=rate, seed=seed,
+                                 **kw).backward(g)
+    _, r_p, r_pd = fa.attn_fwd_packed_reference(r_qkv.detach(), mask,
+                                                rate=rate, seed=seed,
+                                                save=True, **kw)
+    on_auto = fa.attn_bwd_qkvproj_cuda(r_p, r_pd, r_qkv.detach(), w, b3, g,
+                                       recompute=False, **kw)
+    errs["#19 vs autograd"] = _qkvproj_grad_errs(
+        f"#19 vs autograd {tag}", on_auto, (r_qkv.grad, xs.grad),
+        dtype_name, (r_p, r_pd, r_qkv.detach(), g, w, kw), fa)
+    twice = [("#18", (out, qkv, p, pd),
+              lambda: fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **fwd))]
+    twice += [(name, got[name], run) for name, run in runs.items()]
+    differ = [name for name, first, again in twice
+              if not all(torch.equal(a, b_) for a, b_ in zip(first, again()))]
+    print(f"#19 {tag} (dqkv, dx): from x = from #18's qkv bit for bit; "
+          + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items()
+                      if k_ != "#18")
+          + f"; same seed twice, identical bits {not differ}")
+    if differ:
+        raise AssertionError(f"{', '.join(differ)} not bit-reproducible "
+                             f"({tag})")
+    return errs, case
+
+
+def check_qkvproj_serving_mode(rng, fa):
+    """#18 as the serving path runs it (bf16 B=128 S=50, rate 0, nothing
+    saved) against its plain version and against its own saved-probs mode
+    (the same output bits); then the keep mask of the mode that saves
+    nothing (rate 0.1), read off the output: with W's and b's q and k
+    columns zero the scores are uniform over the real keys, and x_j = e_j
+    with W's v columns the identity gives v_j = e_j, so out[q, h·Dh + j] is
+    the dropped prob of key j. Returns the max error."""
+    import torch
+
+    x, w, b3, mask, _, _, kw = qkvproj_case(rng, "bf16", BATCH, S_SERVE, 12)
+    out = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **kw)[0]
+    err = _forward_err("#18 serving", out, fa.attn_fwd_qkvproj_reference(
+        x, w, b3, mask, **kw)[0], "bf16")
+    if not torch.equal(out, fa.attn_fwd_qkvproj_cuda(
+            x, w, b3, mask, save=True, **kw)[0]):
+        raise AssertionError("#18's serving and saved-probs outputs differ")
+    b, h, dh = 4, 12, 64
+    d = h * dh
+    keys = torch.arange(S_SERVE, device="cuda")
+    x = torch.zeros((b, S_SERVE, d), device="cuda", dtype=torch.bfloat16)
+    x[:, keys, keys] = 1.0
+    w_rows = torch.zeros((3 * d, d), device="cuda", dtype=torch.bfloat16)
+    for hh in range(h):
+        w_rows[2 * d + hh * dh + keys, keys] = 1.0
+    b3 = torch.zeros(3 * d, device="cuda", dtype=torch.bfloat16)
+    mask = torch.from_numpy(_ragged_mask(rng, b, S_SERVE)).cuda().float()
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    out = fa.attn_fwd_qkvproj_cuda(x, w_rows.t(), b3, mask, n_heads=h,
+                                   scale=0.125, rate=RATE, seed=seed)[0]
+    dropped = out.float().view(b, S_SERVE, h, dh)[..., :S_SERVE]
+    keep = fa.dropout_keep_mask(seed, b, h, S_SERVE, S_SERVE, RATE,
+                                out.device)
+    live = (mask[:, None, None, :] > 0).expand_as(keep)
+    same = torch.equal((dropped.permute(0, 2, 1, 3) > 0)[live], keep[live])
+    print(f"#18 serving bf16 B={BATCH} S={S_SERVE} rate 0 vs plain: "
+          f"max_abs_err={err:.3e}, = its saved-probs output bit for bit; "
+          f"the no-save dropout mode at rate {RATE}: keep mask read off the "
+          f"output = plain Philox mask on the {int(live.sum())} live probs: "
+          f"{same}")
+    if not same:
+        raise AssertionError("#18's no-save keep mask differs from the "
+                             "plain Philox mask")
+    return err
+
+
+def qkvproj_bound(kind, b, s, h, dh, itemsize, rate=0.0, save=False,
+                  recompute=True):
+    """The bound of #18 (``fwd``) or #19 at [B, S, H, Dh], the projection's
+    operations included: #18 reads x, W, b3 and the mask and writes out
+    (and p, pd with ``save``): 2·B·S·D·3D projection operations plus QKᵀ
+    and PV; #19 reads p, pd, its source (x, or the saved qkv), W and g and
+    writes dqkv and dx: the re-projection (with ``recompute``), dV, d(pd),
+    dQ, dK and the dx product. Products on the bf16 tensor cores."""
+    d = h * dh
+    x, w = b * s * d * itemsize, (3 * d * d + 3 * d) * itemsize
+    proj = 2 * b * s * d * 3 * d
+    dot = 2 * b * h * s * s * dh
+    probs = b * h * s * s * itemsize * (2 if rate > 0 else 1)
+    if kind == "fwd":
+        n_bytes = x + w + b * s * 4 + x + (probs if save else 0)
+        return _bound(n_bytes, proj + 2 * dot, BF16_FLOPS)
+    src = x if recompute else 3 * x
+    n_bytes = probs + src + w + x + 3 * x + x
+    return _bound(n_bytes, (proj if recompute else 0) + 4 * dot + proj,
+                  BF16_FLOPS)
+
+
+def time_qkvproj_kernels(fa, case, card):
+    """#18 and #19 against their plain versions in alternating rounds, beside
+    the split structure they replace (``F.linear`` + #1, and #3 + the dx
+    ``torch.matmul``) and, at rate 0, the library calls (``F.linear`` +
+    SDPA, and its autograd backward to x): #18 at the serving shape (B=128,
+    rate 0, nothing saved) and at the training shape (B=256, rate 0.1,
+    saved probs); #19 at B=256 re-projecting and from the saved qkv at rate
+    0.1, and re-projecting at rate 0. Returns {name: entry}."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w, b3, mask, g, seed, kw = case
+    h = kw["n_heads"]
+    b, s, d = x.shape
+    w_rows = w.t()
+    _, qkv, p, pd = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, rate=RATE,
+                                             seed=seed, save=True,
+                                             emit_qkv=True, **kw)
+    _, _, p0, _ = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, save=True, **kw)
+    xb, mb = x[:BATCH], mask[:BATCH]
+    bias = ((1.0 - mb) * -10000.0).to(x.dtype)[:, None, None, :]
+
+    def lib_fwd():
+        q, k, v = (F.linear(xb, w_rows) + b3).view(
+            BATCH, s, 3, h, d // h).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                              scale=kw["scale"])
+
+    def split_fwd(xx, mm, **extra):
+        return lambda: fa.attn_fwd_packed_cuda(F.linear(xx, w_rows) + b3,
+                                               mm, **kw, **extra)
+
+    def split_bwd(pp, ppd):
+        def run():
+            dqkv = fa.attn_bwd_packed_saved_cuda(pp, ppd, qkv, g, **kw)
+            return dqkv, torch.matmul(dqkv, w_rows)
+        return run
+
+    def lib_bwd():
+        xs = x.detach().clone().requires_grad_()
+        out = sdpa_call(F.linear(xs, w_rows) + b3, mask, h,
+                        kw["scale"])[1]
+        return lambda: torch.autograd.grad(out, xs, g, retain_graph=True)
+
+    modes = {
+        ("attn_fwd_qkvproj", "serving rate 0", BATCH): (
+            lambda: fa.attn_fwd_qkvproj_cuda(xb, w, b3, mb, **kw),
+            lambda: fa.attn_fwd_qkvproj_reference(xb, w, b3, mb, **kw),
+            split_fwd(xb, mb), qkvproj_bound("fwd", BATCH, s, h, 64, 2),
+            lib_fwd),
+        ("attn_fwd_qkvproj", "training rate 0.1, saved probs", b): (
+            lambda: fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, rate=RATE,
+                                             seed=seed, save=True, **kw),
+            lambda: fa.attn_fwd_qkvproj_reference(x, w, b3, mask, rate=RATE,
+                                                  seed=seed, save=True,
+                                                  **kw),
+            split_fwd(x, mask, rate=RATE, seed=seed, save=True),
+            qkvproj_bound("fwd", b, s, h, 64, 2, RATE, save=True), None),
+        ("attn_bwd_qkvproj", "training rate 0.1, re-projecting", b): (
+            lambda: fa.attn_bwd_qkvproj_cuda(p, pd, x, w, b3, g,
+                                             recompute=True, **kw),
+            lambda: fa.attn_bwd_qkvproj_reference(p, pd, x, w, b3, g,
+                                                  recompute=True, **kw),
+            split_bwd(p, pd), qkvproj_bound("bwd", b, s, h, 64, 2, RATE),
+            None),
+        ("attn_bwd_qkvproj", "training rate 0.1, from the saved qkv", b): (
+            lambda: fa.attn_bwd_qkvproj_cuda(p, pd, qkv, w, b3, g,
+                                             recompute=False, **kw),
+            lambda: fa.attn_bwd_qkvproj_reference(p, pd, qkv, w, b3, g,
+                                                  recompute=False, **kw),
+            split_bwd(p, pd), qkvproj_bound("bwd", b, s, h, 64, 2, RATE,
+                                            recompute=False), None),
+        ("attn_bwd_qkvproj", "rate 0, re-projecting", b): (
+            lambda: fa.attn_bwd_qkvproj_cuda(p0, p0, x, w, b3, g,
+                                             recompute=True, **kw),
+            lambda: fa.attn_bwd_qkvproj_reference(p0, p0, x, w, b3, g,
+                                                  recompute=True, **kw),
+            split_bwd(p0, p0), qkvproj_bound("bwd", b, s, h, 64, 2),
+            lib_bwd()),
+    }
+    out = {}
+    for (name, mode, bb), (run_k, run_p, run_s, bound, lib) in modes.items():
+        kt, pt = _alternate(run_p, run_k, 20)
+        _time_ms(run_s, 3)
+        split_ms = float(np.mean([_time_ms(run_s, 20) for _ in range(2)]))
+        # No one PyTorch call computes the projection and the attention
+        # together (library_ms null); split_ms is the structure #18/#19
+        # replace, linear_sdpa_ms the two library calls at rate 0.
+        entry = {"ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
+                 "bound_ms": bound[0], "bound_by": bound[1],
+                 "library_ms": None, "split_ms": split_ms}
+        note = ""
+        if lib is not None:
+            _time_ms(lib, 3)
+            entry["linear_sdpa_ms"] = float(np.mean(
+                [_time_ms(lib, 20) for _ in range(2)]))
+            what = ("F.linear + SDPA" if name == "attn_fwd_qkvproj"
+                    else "F.linear + SDPA autograd backward to x")
+            note = f", {what} {entry['linear_sdpa_ms']:.4f} ms"
+        label = f"{mode}, bf16 B={bb} S={s} H={h} Dh=64"
+        print(f"{name} {label} on {card}: kernel {kt} ms, plain {pt} ms per "
+              f"call, split structure {split_ms:.4f} ms{note}; bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        if mode in ("serving rate 0", "training rate 0.1, re-projecting"):
+            out[name] = dict(entry, shape=label, modes=dict(
+                out.get(name, {}).get("modes", {})))
+        else:
+            out.setdefault(name, {"modes": {}})["modes"][label] = entry
+    return out
+
+
+def _qkvproj_bert(cfg, ds, seed, dtype=None, weights=None):
+    """bert-base MAG-BERT with MOSI dims on the card, its weights drawn
+    from ``seed`` or loaded from ``weights``; the gate's dropout 0 when the
+    config's is."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MultimodalConfig
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+
+    mm = (MultimodalConfig() if cfg.hidden_dropout_prob
+          else MultimodalConfig(dropout_prob=0.0))
+    model = MagBertForSequenceClassification(
+        cfg, mm, ds.visual_dim, ds.acoustic_dim, dtype or torch.bfloat16,
+        device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    if weights is not None:
+        model.load_state_dict(weights)
+    return model
+
+
+def qkvproj_serving(args, rng, fa, card):
+    """Phase 4i: ``serving_path`` over bert-base with ``qkv_fusion`` (bf16,
+    batch 128): #18 once per layer per batch and nothing else, against the
+    einsum model on the same weights. Returns the launch counts."""
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused", qkv_fusion=True)
+    model = _qkvproj_bert(cfg, ds, args.seed + 61)
+    split = make_split(rng, N_TEST, S_SERVE, cfg.vocab_size, ds.visual_dim,
+                       ds.acoustic_dim)
+    requests = [make_split(rng, REQUEST_SIZE, S_SERVE, cfg.vocab_size,
+                           ds.visual_dim, ds.acoustic_dim).as_tuple()[:5]
+                for _ in range(N_REQUESTS)]
+    einsum = dataclasses.replace(cfg, attention_impl="einsum",
+                                 qkv_fusion=False)
+    return serving_path(
+        fa, card, "bert-base qkv_fusion", Predictor(model, batch_size=BATCH),
+        lambda: _qkvproj_bert(einsum, ds, 0, weights=model.state_dict()),
+        split, requests, "attn_fwd_qkvproj", cfg.num_hidden_layers)
+
+
+def qkvproj_driver_path(args, rng, fa, card):
+    """Phase 6h: ``driver.main --attention_impl fused --qkv_fusion`` and
+    ``... --qkv_residual`` at bert-base (bf16, one epoch over 96/48/48):
+    exit 0, finite losses, #18 once per layer per batch, #19 two launches
+    per layer per train step, nothing else; one step under
+    ``FUSED_ATTN_SAVE=0`` (#1, #2, no #18/#19); the dropout-0 gradient
+    check (``qkvproj_grad_check``); one profiled B=256 step with and
+    without ``qkv_fusion``. Returns {path: counts}."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    layers = BertConfig.bert_base_uncased().num_hidden_layers
+    n_train = -(-LONG_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in LONG_SPLITS[1:])
+    want = _want(fa, attn_fwd_qkvproj=layers * (n_train + n_eval),
+                 attn_bwd_qkvproj=2 * layers * n_train)
+    counts = {}
+    for path, extra in (("qkvproj_driver", []),
+                        ("qkvproj_driver_residual", ["--qkv_residual"])):
+        argv = ["--model", "bert-base-uncased", "--dataset", "mosi",
+                "--synthetic", "--synthetic_sizes", *map(str, LONG_SPLITS),
+                "--n_epochs", "1", "--attention_impl", "fused",
+                "--qkv_fusion", *extra, "--compute_dtype", "bfloat16",
+                "--seed", str(args.seed)]
+        counts[path] = run_driver(argv, fa, card)
+        print(f"kernel launches in {path}: {counts[path]} (want {want}: "
+              f"{n_train} train + {n_eval} dev/test batches, {layers} "
+              "layers, #19 two launches a call)")
+        if counts[path] != want:
+            raise AssertionError(f"{path} launches {counts[path]} != {want}")
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused", qkv_fusion=True)
+    step = make_train_step()
+    state = Trainer(model=_qkvproj_bert(cfg, ds, args.seed + 62),
+                    tx=make_optimizer(1e-5, 10, 0.1)
+                    ).create_state_from_params(None, args.seed)
+    batch = _device_batch(make_split(rng, TRAIN_BATCH, S_SERVE,
+                                     cfg.vocab_size, ds.visual_dim,
+                                     ds.acoustic_dim).as_tuple())
+    os.environ["FUSED_ATTN_SAVE"] = "0"
+    _zero_counts(fa)
+    try:
+        loss = float(step(state, batch))
+    finally:
+        os.environ.pop("FUSED_ATTN_SAVE")
+    counts["qkvproj_recompute_step"] = _counts(fa)
+    want = _want(fa, attn_fwd_packed=layers, attn_bwd_packed=layers)
+    print(f"one qkv_fusion train step under FUSED_ATTN_SAVE=0: loss "
+          f"{loss:.6f}, launches {counts['qkvproj_recompute_step']} (want "
+          f"{want}: the split structure)")
+    if counts["qkvproj_recompute_step"] != want or not math.isfinite(loss):
+        raise AssertionError(f"FUSED_ATTN_SAVE=0 step: "
+                             f"{counts['qkvproj_recompute_step']}, {loss}")
+    del state
+    qkvproj_grad_check(args, rng, fa)
+
+    batch = _device_batch(make_split(rng, BENCH_BATCH, S_SERVE,
+                                     cfg.vocab_size, ds.visual_dim,
+                                     ds.acoustic_dim).as_tuple())
+    weights = _qkvproj_bert(cfg, ds, args.seed + 63).state_dict()
+    for fusion in (True, False):
+        st = Trainer(model=_qkvproj_bert(
+            dataclasses.replace(cfg, qkv_fusion=fusion), ds, 0,
+            weights=weights), tx=make_optimizer(1e-5, 10, 0.1)
+        ).create_state_from_params(None, args.seed)
+        step(st, batch)
+        torch.cuda.synchronize()
+        print(f"one training step, bf16 bert-base B={BENCH_BATCH} "
+              f"S={S_SERVE} qkv_fusion={fusion} on {card}:")
+        _print_profile(device_time_by_kernel(lambda: step(st, batch), 1), 1,
+                       "step")
+        del st
+    return counts
+
+
+def qkvproj_grad_check(args, rng, fa):
+    """Phase 6h's gradient check: at dropout 0, from one copy of the
+    weights, one training step (bert-base, B=48, S=50) with ``qkv_fusion``
+    (#18/#19, both backward variants) against the split fused step (the
+    dense projection, #1/#3), leaf by leaf within QKVPROJ_GRAD_TOL in fp32;
+    the same step with dx, then the dK columns of dqkv, zeroed in #19's
+    output must read past it. In bf16 the gaps of both fused steps to the
+    einsum step, side by side."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused",
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    weights = _qkvproj_bert(cfg, ds, args.seed + 64).state_dict()
+    data = _device_batch(make_split(rng, TRAIN_BATCH, S_SERVE,
+                                    cfg.vocab_size, ds.visual_dim,
+                                    ds.acoustic_dim).as_tuple())
+    step = make_train_step()
+
+    def one_step(dtype, **kw):
+        m = _qkvproj_bert(dataclasses.replace(cfg, **kw), ds, 0, dtype,
+                          weights)
+        st = Trainer(model=m, tx=make_optimizer(1e-5, 10, 0.1)
+                     ).create_state_from_params(None, args.seed)
+        step(st, data)
+        return _grad_pieces(m)
+
+    fp32 = {"split (#1/#3)": one_step(torch.float32)}
+    for name, residual in (("qkv_fusion (#19 re-projecting)", False),
+                           ("qkv_fusion, qkv_residual", True)):
+        fp32[name] = one_step(torch.float32, qkv_fusion=True,
+                              qkv_residual=residual)
+    real = fa.attn_bwd_qkvproj
+    faults = ("planted fault: dx zeroed in #19",
+              "planted fault: dK zeroed in #19's dqkv")
+    for name in faults:
+        def faulty(*a, _name=name, **kw):
+            dqkv, dx = real(*a, **kw)
+            if "dx" in _name:
+                return dqkv, torch.zeros_like(dx)
+            d = dx.shape[-1]
+            dqkv = dqkv.clone()
+            dqkv[..., d:2 * d] = 0
+            return dqkv, dx
+
+        fa.attn_bwd_qkvproj = faulty
+        try:
+            fp32[name] = one_step(torch.float32, qkv_fusion=True)
+        finally:
+            fa.attn_bwd_qkvproj = real
+    for name, grads in list(fp32.items())[1:]:
+        gaps = _grad_gaps(grads, fp32["split (#1/#3)"])
+        print(f"  fp32 step-1 gradients, {name} vs the split fused step: "
+              "worst pieces " + ", ".join(f"{k_} {v_:.3e}"
+                                          for k_, v_ in gaps[:4])
+              + f" (bound {QKVPROJ_GRAD_TOL})")
+        if (gaps[0][1] > QKVPROJ_GRAD_TOL) != name.startswith("planted"):
+            raise AssertionError(f"fp32 step-1 gradients, {name}: worst gap "
+                                 f"{gaps[0]} against {QKVPROJ_GRAD_TOL}")
+    bf16 = {"einsum": one_step(torch.bfloat16, attention_impl="einsum"),
+            "split fused": one_step(torch.bfloat16),
+            "qkv_fusion": one_step(torch.bfloat16, qkv_fusion=True)}
+    for name in ("split fused", "qkv_fusion"):
+        gaps = _grad_gaps(bf16[name], bf16["einsum"])
+        print(f"  bf16 step-1 gradients, {name} vs einsum: worst pieces "
+              + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in gaps[:4]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4319,6 +4943,24 @@ def main() -> int:
     split_times = time_split_kernels(tp_rng, fa, card)
     torch.cuda.empty_cache()
 
+    # 3j. The QKV-projection kernels #18/#19 (qkv_fusion); they, 4i and 6h
+    # draw from a stream of their own
+    qp_rng = np.random.default_rng([args.seed, 10])
+    qkvproj_errs, qkvproj_train_case = {}, None
+    for dtype_name, b, s, h, rates in QKVPROJ_CASES:
+        for rate in rates:
+            errs, case = check_qkvproj_kernels(qp_rng, fa, dtype_name, b, s,
+                                               h, rate)
+            for k_, v_ in errs.items():
+                qkvproj_errs[k_] = max(qkvproj_errs.get(k_, 0.0), v_)
+            if (dtype_name, b, h, rate) == ("bf16", BENCH_BATCH, 12, RATE):
+                qkvproj_train_case = case
+    qkvproj_errs["#18"] = max(qkvproj_errs["#18"],
+                              check_qkvproj_serving_mode(qp_rng, fa))
+    qkvproj_times = time_qkvproj_kernels(fa, qkvproj_train_case, card)
+    del qkvproj_train_case
+    torch.cuda.empty_cache()
+
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -4370,6 +5012,9 @@ def main() -> int:
     # 4h. Tensor-parallel serving: Predictor(mesh=) over two ranks (#8)
     tp_serve_counts = tp_serving(args, tp_rng, fa, card)
 
+    # 4i. Serving with the QKV projection inside the kernel (#18)
+    qkvproj_serve_counts = qkvproj_serving(args, qp_rng, fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
@@ -4415,6 +5060,10 @@ def main() -> int:
     # --tp_shard_attention: #8, #10) and the two-rank step against one card
     tp_driver_counts = tp_driver_path(args, fa, card)
 
+    # 6h. The driver with --qkv_fusion (#18, #19), its gradient check and
+    # the B=256 step with and without it
+    qkvproj_driver_counts = qkvproj_driver_path(args, qp_rng, fa, card)
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -4440,7 +5089,10 @@ def main() -> int:
                  **{path: c[name] for path, c in
                     xlnet_ik_driver_counts.items()},
                  "tp_serving": tp_serve_counts[name],
-                 **{path: c[name] for path, c in tp_driver_counts.items()}}
+                 **{path: c[name] for path, c in tp_driver_counts.items()},
+                 "qkvproj_serving": qkvproj_serve_counts[name],
+                 **{path: c[name] for path, c in
+                    qkvproj_driver_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -4610,6 +5262,22 @@ def main() -> int:
                                       "runs past the 256 MB cap or under "
                                       "FUSED_ATTN_SAVE=0 (the recompute "
                                       "steps of phase 6g)")
+        kernels.append(entry)
+    for name, line, tag in (("attn_fwd_qkvproj", 3082, "#18"),
+                            ("attn_bwd_qkvproj", 3140, "#19")):
+        total, paths = by_path(name)
+        entry = {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                 "replaces": f"{tpu}fused_attention.py:{line}",
+                 "launches": total, "launches_by_path": paths,
+                 "max_abs_err": qkvproj_errs[
+                     tag if tag == "#18" else f"{tag} vs plain"],
+                 **qkvproj_times[name]}
+        if tag == "#19":
+            entry["max_abs_err_vs_autograd"] = qkvproj_errs[
+                "#19 vs autograd"]
+            entry["launches_note"] = ("two kernel launches a call: the "
+                                      "(head, batch row) pass and the dx "
+                                      "product")
         kernels.append(entry)
     for entry in kernels:
         if entry["launches"] == 0:

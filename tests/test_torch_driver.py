@@ -290,6 +290,51 @@ def test_xlnet_family_refusals_match_the_jax_driver(argv, says, capsys):
     assert rc == 2 and says in capsys.readouterr().err
 
 
+def test_driver_trains_qkv_fusion_on_cpu(monkeypatch, capsys):
+    """``--attention_impl fused --qkv_fusion --qkv_residual`` trains and
+    evaluates (the JAX ``tests/test_driver.py`` run): #18's plain version
+    once per layer and forward, #19's once per layer and train step, and
+    no packed attention."""
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as tfa,
+    )
+
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    fns = (tfa.attn_fwd_qkvproj_reference, tfa.attn_bwd_qkvproj_reference,
+           tfa.attn_fwd_packed_reference, tfa.attn_bwd_packed_saved_reference)
+    before = [f.calls for f in fns]
+    rc = tdriver.main([
+        "--model", "bert-base-uncased", "--dataset", "mosi", "--tiny",
+        "--synthetic", "--synthetic_sizes", "32", "8", "8", "--n_epochs",
+        "1", "--train_batch_size", "8", "--attention_impl", "fused",
+        "--qkv_fusion", "--qkv_residual", "--seed", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "Seed: 3" in out and "epoch:0, train_loss:" in out
+    # 2 layers x (4 train + 1 dev + 1 test batches); 2 x 4 train steps
+    assert [f.calls - n for f, n in zip(fns, before)] == [12, 8, 0, 0]
+
+
+@pytest.mark.parametrize("argv,says", [
+    (["--qkv_residual", "--attention_impl", "fused"],
+     "--qkv_residual requires --qkv_fusion (it picks that path's backward "
+     "variant)"),
+    (["--qkv_fusion"],
+     "--qkv_fusion requires --attention_impl fused and is unavailable with "
+     "--tp_shard_attention"),
+    (["--qkv_fusion", "--attention_impl", "fused", "--model_parallel", "2",
+      "--tp_shard_attention"],
+     "--qkv_fusion requires --attention_impl fused and is unavailable with "
+     "--tp_shard_attention"),
+])
+def test_qkv_fusion_refusals_match_the_jax_driver(argv, says, capsys):
+    """The JAX driver's three BERT exits for the QKV-fusion flags: status 2
+    with its message, before any data or model is built."""
+    rc = tdriver.main(["--model", "bert-base-uncased", *argv, "--synthetic",
+                       "--tiny", "--device", "cpu"])
+    assert rc == 2 and says in capsys.readouterr().err
+
+
 def test_bert_refuses_rel_bias_inkernel(capsys):
     rc = tdriver.main(["--rel_bias_impl", "inkernel", "--synthetic",
                        "--tiny", "--device", "cpu"])
@@ -327,8 +372,6 @@ def test_driver_requires_data_source(capsys):
     (["--compiler_options", "{}"], "A.10"),
     (["--mem_len", "4"], "A.8"),
     (["--remat"], "A.14"),
-    (["--qkv_fusion"], "B.10"),
-    (["--qkv_residual"], "B.10"),
     (["--attention_impl", "flash"], "A.2"),
     (["--rng_impl", "threefry2x32"], "A.5"),
 ])

@@ -350,8 +350,19 @@ def test_configs_match_jax_package():
     assert tcfg.dtype_from_str("float32") is torch.float32
 
 
+def test_config_accepts_qkv_fusion():
+    """``qkv_fusion`` (and ``qkv_residual``) are ported: the config keeps
+    them, as the JAX ``BertConfig`` does."""
+    cfg = tcfg.BertConfig(attention_impl="fused", qkv_fusion=True,
+                          qkv_residual=True)
+    assert cfg.qkv_fusion and cfg.qkv_residual
+    j = jcfg.BertConfig(attention_impl="fused", qkv_fusion=True,
+                        qkv_residual=True)
+    assert (j.qkv_fusion, j.qkv_residual) == (cfg.qkv_fusion,
+                                              cfg.qkv_residual)
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"qkv_fusion": True}, "B.10"),
     ({"tp_attention_mesh": object()}, "A.10"),
     ({"attention_impl": "flash"}, "A.2"),
 ])

@@ -7,7 +7,8 @@ package's single-device ``Trainer``, carrying the BERT contracts of
 The ranks are CPU processes over gloo, spawned by
 ``parallel/mesh.py::run_ranks`` under a timeout of their own: one run of a
 1×2 mesh (data × model) and one of 2×2 each compute every case once
-(module-scoped), and the tests read their results. Both sides start from
+(module-scoped), and the tests read their results; a 2×1 mesh steps the
+model with ``qkv_fusion`` (#18/#19's plain versions) against one rank. Both sides start from
 the same weights (the JAX params through ``utils/convert.params_from_flax``,
 which ``Trainer.create_state_from_params`` shards rank by rank) and see the
 same batches, at ``BertConfig.tiny()`` in fp32.
@@ -18,7 +19,9 @@ step's gradients against the port's single-process step, each parameter
 within 1e-5 of its largest gradient (the same reordering); with dropout
 on, the TP step against the port's own single-process step at rtol 1e-5
 (the split kernels' Philox offsets and the head-sliced einsum mask draw
-exactly the single device's masks); ``Predictor`` logits 1e-5.
+exactly the single device's masks); ``Predictor`` logits 1e-5; the two
+data ranks' losses and updated parameters against one rank's at rtol 1e-5
+(atol 1e-7 for parameters near zero).
 """
 
 import concurrent.futures
@@ -272,6 +275,35 @@ def _decorrelation(mesh):
     return outs
 
 
+def _qkvproj_model(qkv_residual):
+    """The tiny fused model with the QKV projection inside the attention
+    kernels (#18/#19's plain versions), dropout 0."""
+    return MagBertForSequenceClassification(
+        dataclasses.replace(_cfg("fused"), qkv_fusion=True,
+                            qkv_residual=qkv_residual),
+        MultimodalConfig(dropout_prob=0.0), DV, DA, device="cpu")
+
+
+def _qkvproj_steps(params, mesh=None):
+    """Two steps of ``_qkvproj_model`` from ``params`` for both backward
+    variants: {qkv_residual: (losses, the updated state dict)}."""
+    out = {}
+    for residual in (False, True):
+        model = _qkvproj_model(residual)
+        losses = _losses(model, params, mesh)
+        out[residual] = (losses, {k: v.numpy().copy()
+                                  for k, v in model.state_dict().items()})
+    return out
+
+
+def _dp_qkvproj_rank(rank, params_np):
+    """Two data ranks (model axis 1) stepping the qkv_fusion model."""
+    mesh = make_mesh(MeshConfig(data_parallel=-1, model_parallel=1),
+                     ["cpu"] * dist.get_world_size())
+    return _qkvproj_steps({k: torch.from_numpy(v)
+                           for k, v in params_np.items()}, mesh)
+
+
 DRIVER_ARGV = ["--synthetic", "--tiny", "--device", "cpu",
                "--model_parallel", "2", "--tp_shard_attention",
                "--attention_impl", "fused", "--n_epochs", "1",
@@ -281,14 +313,18 @@ DRIVER_ARGV = ["--synthetic", "--tiny", "--device", "cpu",
 
 @pytest.fixture(scope="module")
 def rank_runs(full_params):
-    """The 1×2 and the 2×2 mesh's runs and the driver's two ranks, started
-    together in the background: {"1x2", "2x2", "driver": future}."""
-    pool = concurrent.futures.ThreadPoolExecutor(3)
+    """The 1×2 and the 2×2 mesh's runs, the driver's two ranks and two
+    data ranks of the qkv_fusion model, started together in the
+    background: {"1x2", "2x2", "driver", "dp_qkvproj": future}."""
+    pool = concurrent.futures.ThreadPoolExecutor(4)
     runs = {f"{n // 2}x2": pool.submit(
         run_ranks, _tp_rank, n, (2, full_params), timeout_s=RANK_TIMEOUT_S,
         devices=["cpu"] * n) for n in (2, 4)}
     runs["driver"] = pool.submit(tdriver.run, DRIVER_ARGV,
                                  rank_timeout_s=RANK_TIMEOUT_S)
+    runs["dp_qkvproj"] = pool.submit(
+        run_ranks, _dp_qkvproj_rank, 2, (full_params,),
+        timeout_s=RANK_TIMEOUT_S, devices=["cpu"] * 2)
     yield runs
     pool.shutdown(wait=True)
 
@@ -492,6 +528,28 @@ def test_tp_dropout_step_equals_single_process(tp_1x2, full_params, impl):
         np.testing.assert_allclose(r[f"dropout_{impl}"], want,
                                    rtol=LOSS_RTOL)
     assert want[0] != _losses(_model(impl, 0.0), params)[0]
+
+
+@pytest.mark.parametrize("qkv_residual", [False, True])
+def test_dp_qkv_fusion_steps_equal_one_rank(rank_runs, full_params,
+                                            qkv_residual):
+    """Two data ranks over gloo, each with half the rows, stepping the
+    model with ``qkv_fusion`` (#19 re-projecting or reading the saved
+    projection): the two losses and every updated parameter equal one
+    rank's two steps (the JAX contract of ``tests/test_shard_map.py``:
+    N-way data parallelism gives the 1-way loss)."""
+    params = {k: torch.from_numpy(v) for k, v in full_params.items()}
+    want_losses, want = _qkvproj_steps(params)[qkv_residual]
+    name = "bert.encoder.layer.0.attention.qkv.weight"
+    assert not np.allclose(want[name], full_params[name], rtol=1e-5,
+                           atol=1e-7)
+    for r in rank_runs["dp_qkvproj"].result():
+        losses, got = r[qkv_residual]
+        np.testing.assert_allclose(losses, want_losses, rtol=LOSS_RTOL)
+        assert set(got) == set(want)
+        for k, v in got.items():
+            np.testing.assert_allclose(v, want[k], rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
 
 
 def test_predictor_mesh_matches_single_process(tp_1x2, full_params):
