@@ -22,16 +22,40 @@
 //
 // What bounds it on the card: at the driver's S = 1024 (B=48, H=12, Dh=64)
 // the two products are 4·B·H·S²·Dh ≈ 155 GFLOP over ~19 MB of projection
-// and context: operations bound. Nothing S²-sized may exist.
+// and context: operations bound, 0.156 ms at the bf16 tensor-core peak.
+// Nothing S²-sized may exist.
 //
-// What the design does about that: one block per (64-row q tile, head,
-// batch row) holds its Q tile, streams K and V in 64-row key blocks by
-// stride from the packed projection, and keeps only a [64][64] score tile
-// in shared memory; the accumulators live in registers. Any S is taken:
-// the ragged tail block is bounds-checked (the TPU kernel needs S % 128 ==
-// 0). Shared plan: 81 KB at Dh = 128, 49 KB at Dh = 64 (up to four blocks
-// an SM); B·H·S/64 = 9216 blocks at the driver's shape. The dots run on
-// the CUDA cores in fp32, as #1's.
+// What the design does about that (bf16, `attn_fwd_packed_fs_tc_kernel`):
+// both products run on the tensor cores, common.cuh's "flash-streamed
+// forwards on the tensor cores" plan. One block of 8 warps per (64-row q
+// tile, head, batch row), 9216 blocks at the driver's shape, walks the keys
+// in 64-key blocks. Q, K and V are staged as bf16 by cp.async, K and V in
+// two-stage rings: block k + 1 is in flight while block k is computed (the
+// K block waited for before its scores, the V block only before PV). S =
+// Q·Kᵀ on mma.m16n8k16 (each warp a 16-row × 32-key slab, fragments by
+// ldmatrix) goes to the fp32 score tile as (dot·scale) + bias, the order of
+// the fp32 kernel; the online softmax and the Philox keep mask run there,
+// each row's arithmetic as before (e rounded to bf16 before PV, l summed
+// from the undropped e, α = exp(m − m'); a warp takes eight rows at once so
+// their shuffle chains overlap), writing e as bf16; PV runs on the
+// same mma (e by ldmatrix, V by ldmatrix.trans), its fp32 accumulators in
+// registers, rescaled by α each block. Any S is taken: the ragged last q
+// tile and key block are zero-filled and bounds-checked (the TPU kernel
+// needs S % 128 == 0). Any Dh % 8 == 0 up to 128: Q and K are zero-padded
+// to a multiple of 16 for the mma's k-depth. Shared plan
+// (`tc_smem_bytes`, ops/fused_attention.py::fs_fwd_smem_bytes): Q [64][L],
+// K and V rings 2 × [64][L] each (bf16, L = Dh rounded up to 16, + 8), the
+// fp32 scores [64][72], the bf16 weights [64][72], the rows' m, l, α and
+// two bias blocks: 73.3 KB at Dh = 64 (two blocks an SM, as the registers
+// allow), 113.3 KB at Dh = 128.
+//
+// fp32 input keeps the CUDA-core kernel (`attn_fwd_packed_fs_kernel<float>`:
+// fp32 dots from fp32 shared memory, about one FMA per two shared-memory
+// loads; shared plan `smem_floats`, 81 KB at Dh = 128, 49 KB at Dh = 64):
+// a TF32 product would not hold the fp32 checks' 1e-5. The entry
+// dispatches on the dtype; a bf16 call always launches the tensor-core
+// kernel or returns the launch's error (cudaErrorMisalignedAddress where
+// qkv does not start on the 16 bytes cp.async copies).
 
 #include "common.cuh"
 
@@ -193,6 +217,143 @@ __global__ void __launch_bounds__(kThreads)
     lse[((size_t)b * H + h) * S + q0 + r] = __fadd_rn(m_s[r], logf(l_s[r]));
 }
 
+// ---- bf16: the tensor-core kernel ----------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Bytes of shared memory of one tensor-core block at head width dh (see
+// the note): Q, the K and V rings (bf16 [64][L] each, five in all), the
+// fp32 scores, the bf16 weights, m, l, α and the two bias blocks.
+__host__ __device__ inline size_t tc_smem_bytes(int dh) {
+  return 5 * (size_t)kQTile * attn::tc_ld(dh) * sizeof(bf16) +
+         (size_t)kQTile * attn::kTcSsLd * sizeof(float) +
+         (size_t)kQTile * attn::kTcEsLd * sizeof(bf16) +
+         (3 * (size_t)kQTile + 2 * (size_t)kKBlock) * sizeof(float);
+}
+
+template <bool kDropout>
+__global__ void __launch_bounds__(attn::kTcThreads, 2)
+    attn_fwd_packed_fs_tc_kernel(const bf16* __restrict__ qkv,
+                                 const float* __restrict__ mask,
+                                 bf16* __restrict__ out,
+                                 float* __restrict__ lse, int S, int H,
+                                 int Dh, float scale, DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = H * Dh;
+  const int q0 = blockIdx.x * kQTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int tile = kQTile * ld;
+
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][ld]
+  bf16* ks = qs + tile;                          // 2 × [64][ld]
+  bf16* vs = ks + 2 * tile;                      // 2 × [64][ld]
+  float* ss = reinterpret_cast<float*>(vs + 2 * tile);  // [64][kTcSsLd]
+  bf16* es = reinterpret_cast<bf16*>(ss + kQTile * attn::kTcSsLd);
+  float* m_s = reinterpret_cast<float*>(es + kQTile * attn::kTcEsLd);
+  float* l_s = m_s + kQTile;
+  float* alpha_s = l_s + kQTile;
+  float* bias = alpha_s + kQTile;                // 2 × [64]
+
+  const size_t row_stride = (size_t)3 * D;
+  const bf16* q_base = qkv + (size_t)b * S * row_stride + h * Dh;
+  const int q_rows = min(kQTile, S - q0);
+  const int n_blocks = (S + kKBlock - 1) / kKBlock;
+  const attn::TcWarp w = attn::tc_warp(Dh);
+
+  // K block i (and its bias) into ring stage i & 1, V block i likewise:
+  // each its own cp.async group.
+  auto load_k = [&](int i) {
+    const int k0 = i * kKBlock;
+    attn::tc_cp_rows(ks + (i & 1) * tile, ld, q_base + D, row_stride, k0,
+                     kKBlock, 0, min(kKBlock, S - k0), Dh);
+    if (tid < kKBlock)
+      bias[(i & 1) * kKBlock + tid] =
+          mask && k0 + tid < S ? (1.0f - mask[(size_t)b * S + k0 + tid]) *
+                                     -10000.0f
+                               : 0.0f;
+  };
+  auto load_v = [&](int i) {
+    const int k0 = i * kKBlock;
+    attn::tc_cp_rows(vs + (i & 1) * tile, ld, q_base + 2 * D, row_stride, k0,
+                     kKBlock, 0, min(kKBlock, S - k0), Dh);
+  };
+
+  attn::tc_cp_rows(qs, ld, q_base, row_stride, q0, kQTile, 0, q_rows, Dh);
+  load_k(0);
+  attn::cp_async_commit();  // Q and K block 0
+  load_v(0);
+  attn::cp_async_commit();  // V block 0
+  // The k-depth's pad columns of Q and of both K stages stay zero.
+  attn::tc_zero_cols(qs, ld, 3 * kQTile, Dh, kd);
+  for (int r = tid; r < kQTile; r += attn::kTcThreads) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.0f;
+    alpha_s[r] = 0.0f;
+  }
+  float acc[attn::kTcPvTiles][4];
+#pragma unroll
+  for (int t = 0; t < attn::kTcPvTiles; ++t)
+    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+
+  for (int i = 0; i < n_blocks; ++i) {
+    const int k0 = i * kKBlock;
+    const int k_rows = min(kKBlock, S - k0);
+    attn::cp_async_wait<1>();  // K block i (V block i may be in flight)
+    __syncthreads();  // ... for every thread; block i − 1's PV is done
+    if (i + 1 < n_blocks) load_k(i + 1);
+    attn::cp_async_commit();
+    if (i + 1 < n_blocks) load_v(i + 1);
+    attn::cp_async_commit();
+    // s = (q · k) · scale + bias into the fp32 score tile.
+    {
+      float sc[4][4] = {};
+      attn::tc_warp_abt<4>(sc, qs + w.m0 * ld, ld,
+                           ks + (i & 1) * tile + w.k0 * ld, ld, kd);
+      const float* bi = bias + (i & 1) * kKBlock;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = w.k0 + t * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int r = w.m0 + (lane >> 2) + 8 * hi;
+          *reinterpret_cast<float2*>(ss + r * attn::kTcSsLd + j) = make_float2(
+              __fadd_rn(__fmul_rn(sc[t][2 * hi], scale), bi[j]),
+              __fadd_rn(__fmul_rn(sc[t][2 * hi + 1], scale), bi[j + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    attn::tc_softmax_step<kDropout>(ss, es, m_s, l_s, alpha_s, q_rows,
+                                    k_rows, q0, k0, b, h, drop);
+    attn::cp_async_wait<2>();  // V block i
+    __syncthreads();
+    attn::tc_pv(acc, w, es, vs + (i & 1) * tile, ld, alpha_s);
+  }
+  attn::tc_store_out(acc, w, out + ((size_t)b * S + q0) * D + h * Dh, D,
+                     lse + ((size_t)b * H + h) * S + q0, m_s, l_s, q_rows);
+}
+
+template <bool kDropout>
+int launch_tc(const void* qkv, const void* mask, void* out, void* lse, int B,
+              int S, int H, int Dh, float scale, DropoutArgs drop,
+              cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  const cudaError_t err = attn::allow_max_smem(
+      attn_fwd_packed_fs_tc_kernel<kDropout>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kQTile - 1) / kQTile, H, B);
+  attn_fwd_packed_fs_tc_kernel<kDropout>
+      <<<grid, attn::kTcThreads, tc_smem_bytes(Dh), stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
+          static_cast<bf16*>(out), static_cast<float*>(lse), S, H, Dh, scale,
+          drop);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kDropout>
 int launch(const void* qkv, const void* mask, void* out, void* lse, int B,
            int S, int H, int Dh, float scale, DropoutArgs drop,
@@ -210,15 +371,6 @@ int launch(const void* qkv, const void* mask, void* out, void* lse, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* qkv, const void* mask, void* out, void* lse, int B,
-             int S, int H, int Dh, float scale, bool dropout,
-             DropoutArgs drop, cudaStream_t st) {
-  if (dropout)
-    return launch<T, true>(qkv, mask, out, lse, B, S, H, Dh, scale, drop,
-                           st);
-  return launch<T, false>(qkv, mask, out, lse, B, S, H, Dh, scale, drop, st);
-}
 
 }  // namespace
 
@@ -238,13 +390,24 @@ int attn_fwd_packed_fs(const void* qkv, const void* mask, void* out,
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutArgs drop{seed, threshold, inv_keep};
-  switch (dtype) {
+  // fp32 on the CUDA cores, bf16 on the tensor cores (see the note).
+  switch (dtype * 2 + (dropout != 0)) {
     case 0:
-      return dispatch<float>(qkv, mask, out, lse, B, S, H, Dh, scale,
-                             dropout != 0, drop, st);
+      return launch<float, false>(qkv, mask, out, lse, B, S, H, Dh, scale,
+                                  drop, st);
     case 1:
-      return dispatch<__nv_bfloat16>(qkv, mask, out, lse, B, S, H, Dh, scale,
-                                     dropout != 0, drop, st);
+      return launch<float, true>(qkv, mask, out, lse, B, S, H, Dh, scale,
+                                 drop, st);
+    case 2:
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
+        return (int)cudaErrorMisalignedAddress;
+      return launch_tc<false>(qkv, mask, out, lse, B, S, H, Dh, scale, drop,
+                              st);
+    case 3:
+      if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
+        return (int)cudaErrorMisalignedAddress;
+      return launch_tc<true>(qkv, mask, out, lse, B, S, H, Dh, scale, drop,
+                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -29,18 +29,45 @@
 // read or written once: operations bound at the bf16 tensor-core peak
 // (0.23 ms, against 0.17 ms for the bytes).
 //
-// What the design does about that: one block per (64-row q tile, head,
-// batch row), #6's plan. The TPU kernel shifts each row of a [qb, qb + kb]
-// bd block with masked lane rolls (`_row_shift_block`); here the shift is
-// index arithmetic: the block stages the window of 127 rows of r that its
-// tile and the current key block read, and row qi reads window row
-// (63 − qi) + j for key j, so bd costs one Dh-long dot per element, as ac
-// does. The accumulators live in registers; any Q and K are taken, the
-// ragged last tiles bounds-checked (the TPU kernel needs Q and K % 128 ==
-// 0). Shared plan: q tiles [64][Dh] ×2, a k/v block [64][Dh+1], the r
-// window [127][Dh+1], scores [64][64]: 98 KB at Dh = 64 (two blocks an SM)
-// and 177 KB at Dh = 128. B·H·Q/64 = 9216 blocks at the driver's shape. The
-// dots run on the CUDA cores in fp32, as #6's.
+// What the design does about that (bf16, `attn_fwd_relik_fs_tc_kernel`):
+// #6's tensor-core plan (common.cuh, "the flash-streamed forwards on the
+// tensor cores"), one block of 8 warps per (64-row q tile, head, batch
+// row), 9216 blocks at the driver's shape. The TPU kernel shifts each row
+// of a [qb, qb + kb] bd block with masked lane rolls (`_row_shift_block`);
+// here each key block computes the wide product BDʷ = rr_tile ·
+// r_windowᵀ [64 × 128] on mma.m16n8k16 (each warp 16 rows × 64 window
+// rows) into an fp32 tile, and score (qi, j) reads BDʷ[qi][63 − qi + j]:
+// twice the bd products of the direct form, all on the tensor cores, the
+// shift index arithmetic. The window, rows Q − q0 − 63 + k0 .. + 127 of r
+// (`load_r_window`'s start; rows outside [0, P) zero), is two 64-row
+// chunks, and the next block's window shares the second: a two-slot ring
+// of chunks, chunk i + 2 loaded while block i's scores, softmax and PV run.
+// ac = rw · kᵀ on the same mma; the score (relik_score's order, ((ac ·
+// scale + bd) + ed · segd) + maskb) is assembled in the accumulators and
+// then written over BDʷ into the fp32 score tile, where #6's online
+// softmax and Philox mask run (`tc_softmax_step`), writing e as bf16 for PV
+// (its fp32 accumulators in registers, rescaled by α). rw and rr stay
+// staged; k, the segd and maskb tiles and the r chunks come by cp.async,
+// one block ahead (k, segd and maskb while the block's softmax and PV run,
+// v while its bd and scores run); segd and maskb by plain loads where K %
+// 8 ≠ 0 leaves their rows off 16 bytes. Any Q and K are taken, the ragged
+// last tiles zero-filled and bounds-checked (the TPU kernel needs Q and K
+// % 128 == 0), and any Dh % 8 == 0 up to 128 (rw, rr, k and r zero-padded
+// to a multiple of 16 for the mma's k-depth). Shared plan
+// (`tc_smem_bytes`, ops/fused_attention.py::relik_fs_fwd_smem_bytes):
+// rw, rr, k, v and two r chunks, bf16 [64][L] each (L = Dh rounded up to
+// 16, + 8); BDʷ fp32 [64][136], its first [64][72] then the scores and the
+// bf16 weights [64][72] behind them; segd and maskb bf16 [64][72]; m, l,
+// α and ed: 107 KB at Dh = 64 (two blocks an SM), 155 KB at Dh = 128.
+//
+// fp32 input keeps the CUDA-core kernel (`attn_fwd_relik_fs_kernel<float>`:
+// fp32 dots from fp32 shared memory; shared plan `smem_floats`, q tiles
+// [64][Dh] ×2, a k/v block [64][Dh+1], the r window [127][Dh+1], scores
+// [64][64]: 98 KB at Dh = 64, 177 KB at Dh = 128): a TF32 product would
+// not hold the fp32 checks. The entry dispatches on the dtype; a bf16
+// call always launches the tensor-core kernel or returns the launch's
+// error (cudaErrorMisalignedAddress where rw, rr, r, k or v does not start
+// on the 16 bytes cp.async copies).
 
 #include "common.cuh"
 
@@ -205,6 +232,230 @@ __global__ void __launch_bounds__(kThreads)
     lse[row_bh + q0 + rq] = __fadd_rn(m_s[rq], logf(l_s[rq]));
 }
 
+// ---- bf16: the tensor-core kernel ----------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBdLd = 2 * kKBlock + 8;  // BDʷ row stride (fp32)
+
+// Bytes of shared memory of one tensor-core block at head width dh (see
+// the note): rw, rr, k, v and two r chunks (bf16 [64][L] each), BDʷ (the
+// scores and weights inside it), segd and maskb, m, l, α and ed.
+__host__ __device__ inline size_t tc_smem_bytes(int dh) {
+  return 6 * (size_t)kQTile * attn::tc_ld(dh) * sizeof(bf16) +
+         (size_t)kQTile * kBdLd * sizeof(float) +
+         2 * (size_t)kQTile * attn::kTcEsLd * sizeof(bf16) +
+         4 * (size_t)kQTile * sizeof(float);
+}
+
+template <bool kDropout>
+__global__ void __launch_bounds__(attn::kTcThreads, 2)
+    attn_fwd_relik_fs_tc_kernel(const bf16* __restrict__ rw,
+                                const bf16* __restrict__ rr,
+                                const bf16* __restrict__ r,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ ed,
+                                const bf16* __restrict__ segd,
+                                const bf16* __restrict__ maskb,
+                                bf16* __restrict__ out,
+                                float* __restrict__ lse, int Q, int K, int P,
+                                int H, int Dh, float scale, int vec_qk,
+                                DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = H * Dh;
+  const int q0 = blockIdx.x * kQTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int tile = kQTile * ld;
+  constexpr int kEs = attn::kTcEsLd;
+
+  bf16* rws = reinterpret_cast<bf16*>(smem_raw);  // [64][ld]
+  bf16* rrs = rws + tile;                         // [64][ld]
+  bf16* ks = rrs + tile;                          // [64][ld]
+  bf16* rwin = ks + tile;                         // 2 × [64][ld] r chunks
+  bf16* vs = rwin + 2 * tile;                     // [64][ld]
+  float* bdw = reinterpret_cast<float*>(vs + tile);  // [64][kBdLd]
+  float* ss = bdw;                        // [64][kTcSsLd], over BDʷ
+  bf16* es = reinterpret_cast<bf16*>(bdw + kQTile * attn::kTcSsLd);
+  bf16* sgs = reinterpret_cast<bf16*>(bdw + kQTile * kBdLd);  // [64][kEs]
+  bf16* mks = sgs + kQTile * kEs;                             // [64][kEs]
+  float* m_s = reinterpret_cast<float*>(mks + kQTile * kEs);
+  float* l_s = m_s + kQTile;
+  float* alpha_s = l_s + kQTile;
+  float* ed_s = alpha_s + kQTile;
+
+  const size_t q_off = (size_t)b * Q * D + h * Dh;
+  const bf16* k_src = k + (size_t)b * K * D + h * Dh;
+  const bf16* v_src = v + (size_t)b * K * D + h * Dh;
+  const bf16* r_head = r + h * Dh;
+  const size_t row_bh = ((size_t)b * H + h) * Q;   // ed and lse rows
+  const size_t qk_row = (size_t)b * Q + q0;        // segd and maskb rows
+  const int q_rows = min(kQTile, Q - q0);
+  const int n_blocks = (K + kKBlock - 1) / kKBlock;
+  const long long p_base = (long long)Q - q0 - (kQTile - 1);
+  const attn::TcWarp w = attn::tc_warp(Dh);
+
+  // The segd and maskb tiles of key block i: cp.async where their rows
+  // lie on 16 bytes (vec_qk), plain loads where they do not.
+  auto load_qk = [&](int i) {
+    const int k0 = i * kKBlock, k_rows = min(kKBlock, K - k0);
+    const bf16* sg = segd + qk_row * K + k0;
+    const bf16* mk = maskb + qk_row * K + k0;
+    if (vec_qk) {
+      for (int x = tid; x < kQTile * kKBlock / 8; x += attn::kTcThreads) {
+        const int rq = x / (kKBlock / 8), c = (x % (kKBlock / 8)) * 8;
+        const bool ok = rq < q_rows && c < k_rows;
+        const size_t at = (size_t)rq * K + c;
+        attn::cp_async16(sgs + rq * kEs + c, ok ? sg + at : segd, ok);
+        attn::cp_async16(mks + rq * kEs + c, ok ? mk + at : maskb, ok);
+      }
+    } else {
+      for (int x = tid; x < kQTile * kKBlock; x += attn::kTcThreads) {
+        const int rq = x / kKBlock, c = x % kKBlock;
+        const bool ok = rq < q_rows && c < k_rows;
+        const size_t at = (size_t)rq * K + c;
+        sgs[rq * kEs + c] = ok ? sg[at] : __float2bfloat16(0.0f);
+        mks[rq * kEs + c] = ok ? mk[at] : __float2bfloat16(0.0f);
+      }
+    }
+  };
+  auto load_k = [&](int i) {
+    const int k0 = i * kKBlock;
+    attn::tc_cp_rows(ks, ld, k_src, (size_t)D, k0, kKBlock, 0,
+                     min(kKBlock, K - k0), Dh);
+    load_qk(i);
+  };
+  auto load_chunk = [&](int c) {
+    attn::relik_tc_r_chunk(rwin + (c & 1) * tile, ld, r_head, D, P,
+                           p_base + (long long)c * kKBlock, Dh);
+  };
+
+  attn::tc_cp_rows(rws, ld, rw + q_off, (size_t)D, q0, kQTile, 0, q_rows, Dh);
+  attn::tc_cp_rows(rrs, ld, rr + q_off, (size_t)D, q0, kQTile, 0, q_rows, Dh);
+  load_chunk(0);
+  load_chunk(1);
+  load_k(0);
+  attn::cp_async_commit();
+  // The k-depth's pad columns of rw, rr, k and the r chunks stay zero.
+  attn::tc_zero_cols(rws, ld, 5 * kQTile, Dh, kd);
+  for (int x = tid; x < kQTile; x += attn::kTcThreads) {
+    m_s[x] = -INFINITY;
+    l_s[x] = 0.0f;
+    alpha_s[x] = 0.0f;
+    ed_s[x] = x < q_rows ? __bfloat162float(ed[row_bh + q0 + x]) : 0.0f;
+  }
+  float acc[attn::kTcPvTiles][4];
+#pragma unroll
+  for (int t = 0; t < attn::kTcPvTiles; ++t)
+    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+
+  for (int i = 0; i < n_blocks; ++i) {
+    const int k0 = i * kKBlock;
+    const int k_rows = min(kKBlock, K - k0);
+    attn::cp_async_wait<0>();  // k, segd, maskb of block i; its r chunks
+    __syncthreads();           // ... for every thread; block i − 1's PV done
+    attn::tc_cp_rows(vs, ld, v_src, (size_t)D, k0, kKBlock, 0, k_rows, Dh);
+    attn::cp_async_commit();
+    // BDʷ = rr · window(i)ᵀ: warp column half c takes window rows 64c ..
+    // 64c + 63, chunk i + c.
+    {
+      const int half = warp >> 2;
+      float bd[8][4] = {};
+      attn::tc_warp_abt<8>(bd, rrs + w.m0 * ld, ld,
+                           rwin + ((i + half) & 1) * tile, ld, kd);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int c = half * kKBlock + t * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int rq = w.m0 + (lane >> 2) + 8 * hi;
+          *reinterpret_cast<float2*>(bdw + rq * kBdLd + c) =
+              make_float2(bd[t][2 * hi], bd[t][2 * hi + 1]);
+        }
+      }
+    }
+    __syncthreads();  // BDʷ whole; chunk i read for the last time
+    if (i + 2 <= n_blocks) load_chunk(i + 2);
+    attn::cp_async_commit();
+    // The scores in the accumulators: relik_score's order.
+    float sc[4][4] = {};
+    attn::tc_warp_abt<4>(sc, rws + w.m0 * ld, ld, ks + w.k0 * ld, ld, kd);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int j = w.k0 + t * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int rq = w.m0 + (lane >> 2) + 8 * hi;
+        const float* bd_row = bdw + rq * kBdLd + (kQTile - 1 - rq);
+        const float2 sg = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sgs + rq * kEs + j));
+        const float2 mk = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(mks + rq * kEs + j));
+        sc[t][2 * hi] = attn::relik_combine(sc[t][2 * hi], bd_row[j], scale,
+                                            ed_s[rq], sg.x, mk.x);
+        sc[t][2 * hi + 1] = attn::relik_combine(
+            sc[t][2 * hi + 1], bd_row[j + 1], scale, ed_s[rq], sg.y, mk.y);
+      }
+    }
+    __syncthreads();  // BDʷ, k, segd and maskb read: free for what follows
+    if (i + 1 < n_blocks) load_k(i + 1);
+    attn::cp_async_commit();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int j = w.k0 + t * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int rq = w.m0 + (lane >> 2) + 8 * hi;
+        *reinterpret_cast<float2*>(ss + rq * attn::kTcSsLd + j) =
+            make_float2(sc[t][2 * hi], sc[t][2 * hi + 1]);
+      }
+    }
+    __syncthreads();
+    attn::tc_softmax_step<kDropout>(ss, es, m_s, l_s, alpha_s, q_rows,
+                                    k_rows, q0, k0, b, h, drop);
+    attn::cp_async_wait<2>();  // v of block i
+    __syncthreads();
+    attn::tc_pv(acc, w, es, vs, ld, alpha_s);
+  }
+  attn::tc_store_out(acc, w, out + q_off + (size_t)q0 * D, D,
+                     lse + row_bh + q0, m_s, l_s, q_rows);
+}
+
+template <bool kDropout>
+int launch_tc(const void* rw, const void* rr, const void* r, const void* k,
+              const void* v, const void* ed, const void* segd,
+              const void* maskb, void* out, void* lse, int B, int Q, int K,
+              int P, int H, int Dh, float scale, DropoutArgs drop,
+              cudaStream_t stream) {
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(rw) |
+                         reinterpret_cast<uintptr_t>(rr) |
+                         reinterpret_cast<uintptr_t>(r) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  if (rows % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const int vec_qk = K % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(segd) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(maskb) % 16 == 0;
+  static unsigned long long attr_set = 0;
+  const cudaError_t err = attn::allow_max_smem(
+      attn_fwd_relik_fs_tc_kernel<kDropout>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Q + kQTile - 1) / kQTile, H, B);
+  attn_fwd_relik_fs_tc_kernel<kDropout>
+      <<<grid, attn::kTcThreads, tc_smem_bytes(Dh), stream>>>(
+          static_cast<const bf16*>(rw), static_cast<const bf16*>(rr),
+          static_cast<const bf16*>(r), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(ed),
+          static_cast<const bf16*>(segd), static_cast<const bf16*>(maskb),
+          static_cast<bf16*>(out), static_cast<float*>(lse), Q, K, P, H, Dh,
+          scale, vec_qk, drop);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kDropout>
 int launch(const void* rw, const void* rr, const void* r, const void* k,
            const void* v, const void* ed, const void* segd,
@@ -255,14 +506,12 @@ int attn_fwd_relik_fs(const void* rw, const void* rr, const void* r,
     case 1:
       return launch<float, true>(rw, rr, r, k, v, ed, segd, maskb, out, lse,
                                  B, Q, K, P, H, Dh, scale, drop, st);
-    case 2:
-      return launch<__nv_bfloat16, false>(rw, rr, r, k, v, ed, segd, maskb,
-                                          out, lse, B, Q, K, P, H, Dh, scale,
-                                          drop, st);
+    case 2:  // bf16 on the tensor cores (see the note)
+      return launch_tc<false>(rw, rr, r, k, v, ed, segd, maskb, out, lse, B,
+                              Q, K, P, H, Dh, scale, drop, st);
     case 3:
-      return launch<__nv_bfloat16, true>(rw, rr, r, k, v, ed, segd, maskb,
-                                         out, lse, B, Q, K, P, H, Dh, scale,
-                                         drop, st);
+      return launch_tc<true>(rw, rr, r, k, v, ed, segd, maskb, out, lse, B,
+                             Q, K, P, H, Dh, scale, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -827,6 +827,16 @@ __device__ __forceinline__ float relik_score(const float* rw_r,
       maskb);
 }
 
+// relik_score's sum from its two dot products, for #23's tensor-core
+// kernel: ((ac · scale + bd) + ed · segd) + maskb.
+__device__ __forceinline__ float relik_combine(float ac, float bd,
+                                               float scale, float ed,
+                                               float segd, float maskb) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(ac, scale), bd), __fmul_rn(ed, segd)),
+      maskb);
+}
+
 // ---- the full-H ingredients rel backward (#21, #22) ----------------------
 //
 // One block per (head h, batch row b) holds the whole [Q, K] problem, as
@@ -1060,6 +1070,330 @@ __device__ __forceinline__ void project_head(float* work, T* head,
           });
     }
   }
+}
+
+// ---- the flash-streamed forwards on the tensor cores (#6, #23 bf16) -----
+//
+// The bf16 instantiations of #6 (attn_fwd_packed_fs.cu) and #23
+// (attn_fwd_relik_fs.cu) share this plan. A block of kTcThreads threads
+// holds a kTcQTile-row query tile of one (head, batch row) and walks the
+// keys in kTcKBlock-key blocks. Operands are staged as bf16 in shared
+// memory, rows of `tc_ld(dh)` elements: Dh rounded up to 16 (the k-depth
+// of mma.m16n8k16, the pad columns zero) plus 8, so the eight 16-byte rows
+// one ldmatrix reads fall on distinct banks. cp.async brings them in (the
+// rows past a ragged edge zero-filled). Products run on
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, fragments from ldmatrix:
+// a bf16 × bf16 product is exact in fp32, so a dot differs from an fp32
+// CUDA-core dot of the same values only in the order of its sum. Scores go
+// to a [kTcQTile][kTcSsLd] fp32 tile, on which `tc_softmax_step` runs the
+// online softmax with each row's arithmetic as the fp32 kernels' (a warp
+// takes eight rows at once); the weights e
+// go to a [kTcQTile][kTcEsLd] bf16 tile, the A operand of PV, whose fp32
+// accumulators stay in registers (`tc_pv`).
+
+constexpr int kTcThreads = 256;          // 8 warps
+constexpr int kTcQTile = 64;
+constexpr int kTcKBlock = 64;            // FS_KEY_BLOCK
+constexpr int kTcSsLd = kTcKBlock + 8;   // fp32 score tile row stride
+constexpr int kTcEsLd = kTcKBlock + 8;   // bf16 weight tile row stride
+constexpr int kTcMaxDh = 128;
+// PV's n8 tiles a warp holds: the 8 warps split the output [64][Dh] into
+// four 16-row slabs × two column halves.
+constexpr int kTcPvTiles = kTcMaxDh / 16;
+
+__host__ __device__ inline int tc_depth(int dh) { return (dh + 15) / 16 * 16; }
+__host__ __device__ inline int tc_ld(int dh) { return tc_depth(dh) + 8; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to dst, or 16 zero bytes when !valid (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's cp.async groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// dst row r (r < rows, row stride ld) = Dh bf16 of src row row0 + r (row
+// stride src_ld from base), for lo ≤ r < hi; zeros elsewhere. Asynchronous
+// (cp.async): the caller commits and waits. Dh % 8 == 0, base and src_ld
+// 16-byte aligned.
+__device__ __forceinline__ void tc_cp_rows(__nv_bfloat16* dst, int ld,
+                                           const __nv_bfloat16* base,
+                                           size_t src_ld, long long row0,
+                                           int rows, int lo, int hi, int Dh) {
+  const int chunks = Dh / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = i - r * chunks;
+    const bool ok = r >= lo && r < hi;
+    cp_async16(dst + r * ld + c * 8,
+               ok ? base + (row0 + r) * (long long)src_ld + c * 8 : base, ok);
+  }
+}
+
+// Columns [c0, c1) of rows [0, rows) of dst (row stride ld) set to 0.
+__device__ __forceinline__ void tc_zero_cols(__nv_bfloat16* dst, int ld,
+                                             int rows, int c0, int c1) {
+  const int w = c1 - c0;
+  for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+    const int r = i / w;
+    dst[r * ld + c0 + i - r * w] = __float2bfloat16(0.0f);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a · b on one m16n8k16 tile (bf16 in, fp32 accumulate).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp: acc[t] += A[0..16) · B[8t .. 8t + 8)ᵀ over depth kd (a
+// multiple of 16) for t < nt (even), A and B row-major bf16 in shared
+// memory (rows of lda, ldb). Element (i, j) of tile t lies in acc[t] at
+// [2·(i ≥ 8) + (j & 1)] for i = lane / 4 (+ 8), j = 2·(lane % 4) (+ 1).
+template <int nt>
+__device__ __forceinline__ void tc_warp_abt(float (&acc)[nt][4],
+                                            const __nv_bfloat16* a, int lda,
+                                            const __nv_bfloat16* b, int ldb,
+                                            int kd) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* pa = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const __nv_bfloat16* pb =
+      b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + ((lane >> 3) & 1) * 8;
+  for (int k = 0; k < kd; k += 16) {
+    uint32_t fa[4];
+    ldsm_x4(fa, pa + k);
+#pragma unroll
+    for (int t = 0; t < nt; t += 2) {
+      uint32_t fb[4];
+      ldsm_x4(fb, pb + t * 8 * ldb + k);
+      mma_bf16(acc[t], fa, fb[0], fb[1]);
+      mma_bf16(acc[t + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// Where a warp's tiles lie: PV's output rows m0 .. m0 + 15 and n8 tiles
+// c0/8 .. c0/8 + n − 1 (the four 16-row slabs × two column halves of
+// [kTcQTile][Dh]); the score products' rows m0 and keys k0 .. k0 + 31.
+struct TcWarp {
+  int m0, c0, n, k0;
+};
+
+__device__ __forceinline__ TcWarp tc_warp(int Dh) {
+  const int warp = threadIdx.x >> 5;
+  const int tiles = Dh / 8, half = (tiles + 1) / 2;
+  const int first = (warp >> 2) * half;
+  return {(warp & 3) * 16, first * 8, max(0, min(half, tiles - first)),
+          (warp >> 2) * 32};
+}
+
+// The online softmax step of a key block on the fp32 score tile ss (keys
+// < k_rows): m' = max(m, max s), e = exp(s − m'), l ← l·α + Σe (undropped),
+// α = exp(m − m'); the weights (dropped by the Philox mask at (k >> 2, q,
+// h, b) at rate > 0) rounded to bf16 into es, zeros past k_rows. Warp w
+// takes rows w, w + 8, ..., w + 56, its eight rows' reductions interleaved
+// so that their shuffle chains overlap; each row's arithmetic, and the
+// order of its max and sum, are the fp32 kernels' one-warp-per-row step's.
+// Rows past the ragged q tile run on their zero-query scores and are never
+// stored; at rate > 0 they draw no Philox.
+template <bool kDropout>
+__device__ __forceinline__ void tc_softmax_step(
+    float* ss, __nv_bfloat16* es, float* m_s, float* l_s, float* alpha_s,
+    int q_rows, int k_rows, int q0, int k0, int b, int h,
+    const DropoutArgs& drop) {
+  constexpr int kWarps = kTcThreads / 32;
+  constexpr int kRows = kTcQTile / kWarps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float x[kRows][2], m_new[kRows], sum[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const float* sr = ss + (warp + kWarps * i) * kTcSsLd;
+    m_new[i] = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = lane + 32 * u;
+      x[i][u] = j < k_rows ? sr[j] : -INFINITY;
+      m_new[i] = fmaxf(m_new[i], x[i][u]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], o));
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = warp + kWarps * i;
+    m_new[i] = fmaxf(m_s[r], m_new[i]);
+    sum[i] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = lane + 32 * u;
+      float e = 0.0f;
+      if (j < k_rows) {
+        e = expf(x[i][u] - m_new[i]);
+        sum[i] += e;
+      }
+      if constexpr (kDropout)
+        ss[r * kTcSsLd + j] = e;
+      else
+        es[r * kTcEsLd + j] = __float2bfloat16(e);
+    }
+  }
+  if constexpr (kDropout) {
+    __syncwarp();
+    // The warp's 8 rows × 16 groups of four keys, four groups a lane.
+#pragma unroll
+    for (int t = 0; t < kRows * (kTcKBlock / 4) / 32; ++t) {
+      const int task = lane + 32 * t;
+      const int r = warp + kWarps * (task >> 4);
+      const int j0 = 4 * (task & 15);
+      const float* sr = ss + r * kTcSsLd;
+      __nv_bfloat16* er = es + r * kTcEsLd;
+      const uint4 bits =
+          r < q_rows && j0 < k_rows
+              ? dropout_bits4(drop.seed, b, h, q0 + r, (k0 + j0) >> 2)
+              : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u;
+        er[j] = __float2bfloat16(
+            r < q_rows && j < k_rows && word(bits, u) >= drop.threshold
+                ? __fmul_rn(sr[j], drop.inv_keep)
+                : 0.0f);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], o);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = warp + kWarps * i;
+    if (lane == i && r < q_rows) {
+      const float alpha = expf(m_s[r] - m_new[i]);  // 0 at the first block
+      alpha_s[r] = alpha;
+      l_s[r] = __fadd_rn(__fmul_rn(l_s[r], alpha), sum[i]);
+      m_s[r] = m_new[i];
+    }
+  }
+}
+
+// acc ← acc · α + es · V for the warp's PV tiles (w): es [kTcQTile]
+// [kTcEsLd] bf16, v the staged [kTcKBlock][ldv] value block (rows past
+// the block's keys zero), alpha_s the rows' rescale.
+__device__ __forceinline__ void tc_pv(float (&acc)[kTcPvTiles][4],
+                                      const TcWarp& w,
+                                      const __nv_bfloat16* es,
+                                      const __nv_bfloat16* v, int ldv,
+                                      const float* alpha_s) {
+  const int lane = threadIdx.x & 31;
+  const float a_lo = alpha_s[w.m0 + (lane >> 2)];
+  const float a_hi = alpha_s[w.m0 + (lane >> 2) + 8];
+#pragma unroll
+  for (int t = 0; t < kTcPvTiles; ++t) {
+    acc[t][0] *= a_lo;
+    acc[t][1] *= a_lo;
+    acc[t][2] *= a_hi;
+    acc[t][3] *= a_hi;
+  }
+  const __nv_bfloat16* pe =
+      es + (w.m0 + (lane & 15)) * kTcEsLd + (lane >> 4) * 8;
+  const __nv_bfloat16* pv =
+      v + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldv + w.c0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int k = 0; k < kTcKBlock; k += 16) {
+    uint32_t fa[4];
+    ldsm_x4(fa, pe + k);
+#pragma unroll
+    for (int t = 0; t < kTcPvTiles; t += 2) {
+      if (t < w.n) {
+        uint32_t fb[4];
+        ldsm_x4_trans(fb, pv + k * ldv + t * 8);
+        mma_bf16(acc[t], fa, fb[0], fb[1]);
+        if (t + 1 < w.n) mma_bf16(acc[t + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+}
+
+// out row q (< q_rows; row stride D from out_tile, the tile's first row at
+// its head's first column) = bf16(acc / l); lse row q = m + log l.
+__device__ __forceinline__ void tc_store_out(
+    const float (&acc)[kTcPvTiles][4], const TcWarp& w,
+    __nv_bfloat16* out_tile, int D, float* lse_tile, const float* m_s,
+    const float* l_s, int q_rows) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = w.m0 + (lane >> 2) + 8 * hi;
+    if (r >= q_rows) continue;
+    const float l = l_s[r];
+#pragma unroll
+    for (int t = 0; t < kTcPvTiles; ++t) {
+      if (t < w.n) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out_tile + (size_t)r * D + w.c0 + t * 8 + 2 * (lane & 3)) =
+            __halves2bfloat162(__float2bfloat16(acc[t][2 * hi] / l),
+                               __float2bfloat16(acc[t][2 * hi + 1] / l));
+      }
+    }
+  }
+  for (int r = threadIdx.x; r < q_rows; r += blockDim.x)
+    lse_tile[r] = __fadd_rn(m_s[r], logf(l_s[r]));
+}
+
+// #23's r window, 64 rows at a time: dst rows r < 64 = r_head rows p0 + r
+// (row stride D, Dh columns) where 0 ≤ p0 + r < P, zeros elsewhere, by
+// cp.async (the caller commits). The window of a (q tile, key block) pair,
+// rows Q − q0 − 63 + k0 .. + 127 as in `load_r_window`, is two such
+// chunks, and the next key block's window shares one of them.
+__device__ __forceinline__ void relik_tc_r_chunk(__nv_bfloat16* dst, int ld,
+                                                 const __nv_bfloat16* r_head,
+                                                 int D, int P, long long p0,
+                                                 int Dh) {
+  const long long lo = p0 < 0 ? -p0 : 0;
+  const long long hi = P - p0;
+  tc_cp_rows(dst, ld, r_head, (size_t)D, p0, kTcKBlock,
+             (int)min(lo, (long long)kTcKBlock),
+             (int)max(0ll, min(hi, (long long)kTcKBlock)), Dh);
 }
 
 // Opt a kernel into `kMaxSmemBytes` of dynamic shared memory, once per

@@ -671,6 +671,48 @@ def hb_bwd_smem_bytes(s: int, dh: int) -> int:
     return 4 * (2 * 32 * s + 3 * 32 * (dh + 1) + s)
 
 
+def _tc_ld(dh: int) -> int:
+    """The staged row of the tensor-core flash-streamed forwards
+    (``csrc/common.cuh``'s ``tc_ld``): Dh rounded up to 16 (the mma's
+    k-depth) plus 8 bf16 elements."""
+    return (dh + 15) // 16 * 16 + 8
+
+
+def fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
+    """Shared memory of one #6 block at head width ``dh``. bf16 (itemsize
+    2, the tensor-core kernel's ``tc_smem_bytes``): Q and the two-stage K
+    and V rings, bf16 [64][``_tc_ld``] each; the fp32 scores and the bf16
+    weights [64][72]; the rows' m, l, α and two [64] bias blocks (73.3 KB
+    at Dh = 64). fp32 (the CUDA-core kernel's ``smem_floats``): the Q tile
+    [64][Dh], a K/V block [64][Dh+1], the scores [64][64], m, l, α and the
+    bias, in fp32."""
+    if itemsize == 2:
+        return (5 * 64 * _tc_ld(dh) * 2 + 64 * 72 * 4 + 64 * 72 * 2
+                + (3 * 64 + 2 * 64) * 4)
+    return 4 * (64 * dh + 64 * (dh + 1) + 64 * 64 + 3 * 64 + 64)
+
+
+def relik_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
+    """Shared memory of one #23 block at head width ``dh``. bf16 (the
+    tensor-core kernel's ``tc_smem_bytes``): rw, rr, k, v and two 64-row r
+    chunks, bf16 [64][``_tc_ld``] each; the wide bd product fp32
+    [64][136], which the scores and the bf16 weights reuse; segd and maskb
+    bf16 [64][72]; m, l, α and ed (107 KB at Dh = 64, two blocks an SM).
+    fp32 (``smem_floats``): rw and rr [64][Dh], a k/v block and the r
+    window [64 + 127][Dh+1], the scores [64][64] and four [64] rows."""
+    if itemsize == 2:
+        return (6 * 64 * _tc_ld(dh) * 2 + 64 * 136 * 4 + 2 * 64 * 72 * 2
+                + 4 * 64 * 4)
+    return 4 * (2 * 64 * dh + (64 + 127) * (dh + 1) + 64 * 64 + 4 * 64)
+
+
+def _check_fs_plan(name: str, plan_bytes: int, dh: int) -> None:
+    if plan_bytes > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: the shared-memory plan at Dh={dh} takes {plan_bytes} "
+            f"bytes, past the {MAX_SMEM_BYTES} a block may hold")
+
+
 def attn_fwd_packed_hb_cuda(qkv, attention_mask, *, n_heads, scale,
                             rate=0.0, seed=0):
     """Launch kernel #4 (``csrc/attn_fwd_packed_hb.cu``) on ``qkv``
@@ -710,7 +752,12 @@ def attn_bwd_packed_hb_cuda(qkv, attention_mask, seed, g, *, n_heads, scale,
 def attn_fwd_packed_fs_cuda(qkv, attention_mask, *, n_heads, scale,
                             rate=0.0, seed=0):
     """Launch kernel #6 (``csrc/attn_fwd_packed_fs.cu``) on ``qkv``
-    [B, S, 3·D], any S. Returns (out [B, S, D], lse [B, H, S] fp32)."""
+    [B, S, 3·D], any S: bf16 on the tensor cores, fp32 on the CUDA cores.
+    Raises past the shared-memory plan (``fs_fwd_smem_bytes``). Returns
+    (out [B, S, D], lse [B, H, S] fp32)."""
+    dh = _check_geometry(qkv, n_heads)[3]
+    _check_fs_plan("attn_fwd_packed_fs",
+                   fs_fwd_smem_bytes(dh, qkv.element_size()), dh)
     b, s, d, dh = _check_cuda("attn_fwd_packed_fs", qkv, n_heads, None)
     mask = _mask_arg(attention_mask, qkv, b, s)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
@@ -2668,9 +2715,14 @@ def _check_relik_cuda(name, tensors, n_heads):
 def attn_fwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
                            scale, rate=0.0, seed=0):
     """Launch kernel #23 (``csrc/attn_fwd_relik_fs.cu``): every input a
-    contiguous CUDA tensor of one dtype (fp32 or bf16), any Q and K, P ≥
-    Q + K. Returns (out [B, Q, D], lse [B, H, Q] fp32)."""
+    contiguous CUDA tensor of one dtype (fp32 or bf16; bf16 on the tensor
+    cores, fp32 on the CUDA cores), any Q and K, P ≥ Q + K. Raises past
+    the shared-memory plan (``relik_fs_fwd_smem_bytes``). Returns (out
+    [B, Q, D], lse [B, H, Q] fp32)."""
     ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb)
+    dh = _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads)[-1]
+    _check_fs_plan("attn_fwd_relik_fs",
+                   relik_fs_fwd_smem_bytes(dh, rw.element_size()), dh)
     b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_fwd_relik_fs", ins,
                                                    n_heads)
     out = torch.empty_like(rw)

@@ -342,6 +342,29 @@ def _card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def tc_ptxas_lines(log):
+    """``-Xptxas -v``'s registers and spills of the tensor-core kernels
+    (#6's and #23's bf16 instantiations), one line each, from the build
+    log."""
+    import re
+
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(attn_fwd_(?:packed|"
+                      r"relik)_fs_tc_kernel)ILb([01])E", line)
+        if m:
+            name = f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
+            continue
+        if name and "spill" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            lines.append(f"ptxas {name} (bf16, sm_90a): {m.group(1)} "
+                         f"registers; {spills}")
+            name = None
+    return lines
+
+
 def _ragged_mask(rng, b, s):
     lengths = rng.integers(1, s + 1, size=b)
     lengths[0] = 0            # one fully padded row
@@ -1875,6 +1898,12 @@ def xlnet_driver_path(args, rng, fa, card):
 # (#6, #7) packed tiers ---------------------------------------------------
 
 LONG_S = (512, 640, 1024)      # the driver's long runs and the hb reach
+# The edges of #6's and #23's bf16 tensor-core plan: (B, S, H, Dh) with a
+# ragged q tile and key block off 16, a zero-padded k-depth, the widest
+# head; #23 also (B, Q, K, H, Dh) with Q ≠ K, as under the memory.
+FS_EDGES = ((2, 200, 4, 64), (2, 256, 3, 40), (2, 130, 2, 128))
+RELIK_FS_EDGES = ((2, 200, 200, 4, 64), (2, 128, 128, 3, 40),
+                  (2, 130, 130, 2, 128), (2, 96, 200, 4, 64))
 LONG_SPLITS = (96, 48, 48)     # one short epoch: 2 train + 2 eval batches
 LONG_SERVE_N = 256             # 2 batches of 128 per serving length
 
@@ -1920,7 +1949,7 @@ def _tier_err(name, got, want, pd, qkv, h, dtype_name):
     return float(err.max())
 
 
-def check_long_kernels(rng, fa, dtype_name, b, s, rate):
+def check_long_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
     """Phase 3e on one case: #4 and #5 (S ≤ HB_MAX_SEQ_LEN) and #6 and #7
     against their plain versions; #6 against the whole-row plain forward
     (the same seed: the same mask in both tiers) within ``_tier_err``'s
@@ -1929,10 +1958,9 @@ def check_long_kernels(rng, fa, dtype_name, b, s, rate):
     seed twice. Returns the max errors and the case."""
     import torch
 
-    qkv, mask, g, seed = long_case(rng, dtype_name, b, s)
-    h = 12
-    kw = dict(n_heads=h, scale=0.125)
-    tag = f"{dtype_name} B={b} S={s} H=12 Dh=64 rate={rate}"
+    qkv, mask, g, seed = long_case(rng, dtype_name, b, s, h, dh)
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5)
+    tag = f"{dtype_name} B={b} S={s} H={h} Dh={dh} rate={rate}"
     # the whole-row probs, for the bf16 gradient bound and the tier bound
     w_out, p, pd = fa.attn_fwd_packed_reference(qkv, mask, rate=rate,
                                                 seed=seed, save=True, **kw)
@@ -2374,20 +2402,24 @@ def _relik_grad_errs(name, dtype_name, got, want, bound_args, fa):
     return worst
 
 
-def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate):
-    """Phase 3f on one case: #14 and #15 (S ≤ HB_MAX_SEQ_LEN) on the ebias
-    the model assembles, and #23 and #24 on the ingredients, each against
-    its plain version (lse to 1e-4 absolute plus 1e-6 relative: a score
-    near −1e30 is never the row max, so the lse carries the fp32 sums'
-    rounding only); the same bits from the same seed twice. Returns the max
-    errors."""
+def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64,
+                           k_len=None):
+    """Phase 3f on one case (Q = S; K = S unless ``k_len``, the first K − S
+    keys then a memory): #14 and #15 (K ≤ HB_MAX_SEQ_LEN) on the ebias the
+    model assembles, and #23 and #24 on the ingredients (P = Q + K), each
+    against its plain version (lse to 1e-4 absolute plus 1e-6 relative: a
+    score near −1e30 is never the row max, so the lse carries the fp32
+    sums' rounding only); the same bits from the same seed twice. Returns
+    the max errors."""
     import torch
 
-    kw = dict(n_heads=12, scale=0.125, rate=rate)
-    tag = f"{dtype_name} B={b} S={s} H=12 Dh=64 rate={rate}"
+    k_len = s if k_len is None else k_len
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5, rate=rate)
+    tag = (f"{dtype_name} B={b} Q={s} K={k_len} H={h} Dh={dh} "
+           f"rate={rate}")
     errs, twice = {}, []
-    if s <= fa.HB_MAX_SEQ_LEN:
-        q, k, v, ebias, g = rel_case(rng, dtype_name, b, s, s)
+    if k_len <= fa.HB_MAX_SEQ_LEN:
+        q, k, v, ebias, g = rel_case(rng, dtype_name, b, s, k_len, h, dh)
         hb_seed = int(rng.integers(0, 2 ** 63 - 1))
         out = fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, seed=hb_seed, **kw)
         errs["#14"] = _forward_err(f"#14 {tag}", out, fa.attn_fwd_rel_hb_reference(
@@ -2405,7 +2437,7 @@ def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate):
             q, k, v, ebias, seed=hb_seed, **kw),)),
                   ("#15", grads, lambda: fa.attn_bwd_rel_hb_cuda(
                       q, k, v, ebias, hb_seed, g, **kw))]
-    c, seed = relik_case(rng, dtype_name, b, s)
+    c, seed = relik_case(rng, dtype_name, b, s, h, dh, k_len)
     ins = [c[n] for n in RELIK]
     o23, lse = fa.attn_fwd_relik_fs_cuda(*ins, seed=seed, **kw)
     r_out, r_lse = fa.attn_fwd_relik_fs_reference(*ins, seed=seed, **kw)
@@ -4803,7 +4835,10 @@ def main() -> int:
     lib_path = tk.build_kernels()
     tk.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
-    print(lib_path.with_suffix(".log").read_text().strip())
+    build_log = lib_path.with_suffix(".log").read_text().strip()
+    print(build_log)
+    for line in tc_ptxas_lines(build_log):
+        print(line)
 
     # 3. Kernel against plain, on the card
     rng = np.random.default_rng(args.seed)
@@ -4882,6 +4917,15 @@ def main() -> int:
         errs, _ = check_long_kernels(rng, fa, dtype_name, b, s, rate)
         for k_, v_ in errs.items():
             long_errs[k_] = max(long_errs.get(k_, 0.0), v_)
+    # The tensor-core plan's edges (#6, #23 bf16), from a stream of their
+    # own so that every later phase sees the inputs it saw before
+    edge_rng = np.random.default_rng([args.seed, 11])
+    for b, s, h, dh in FS_EDGES:
+        for rate in (RATE, 0.0):
+            errs, _ = check_long_kernels(edge_rng, fa, "bf16", b, s, rate, h,
+                                         dh)
+            for k_, v_ in errs.items():
+                long_errs[k_] = max(long_errs.get(k_, 0.0), v_)
     check_long_against_full(rng, fa)
     check_long_masks(rng, fa)
     long_times = time_long_kernels(rng, fa, card)
@@ -4895,6 +4939,12 @@ def main() -> int:
         for k_, v_ in check_long_rel_kernels(rng, fa, dtype_name, b, s,
                                              rate).items():
             long_rel_errs[k_] = max(long_rel_errs.get(k_, 0.0), v_)
+    for b, s, k_len, h, dh in RELIK_FS_EDGES:
+        for rate in (RATE, 0.0):
+            for k_, v_ in check_long_rel_kernels(edge_rng, fa, "bf16", b, s,
+                                                 rate, h, dh,
+                                                 k_len).items():
+                long_rel_errs[k_] = max(long_rel_errs.get(k_, 0.0), v_)
     check_long_rel_against_full(rng, fa)
     check_relik_mask(rng, fa)
     long_rel_times = time_long_rel_kernels(rng, fa, card)

@@ -205,6 +205,28 @@ def test_head_blocked_reach_fits_the_kernels_plans():
     assert tfa.hb_bwd_smem_bytes(704, 128) > tfa.MAX_SMEM_BYTES
 
 
+def test_flash_streamed_forward_plan_fits_every_head_width():
+    """#6's shared-memory plan, bf16 (the tensor-core kernel) and fp32,
+    lies inside a block's 227 KB at every head width the kernel takes."""
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for itemsize in (2, 4):
+            assert tfa.fs_fwd_smem_bytes(dh, itemsize) <= tfa.MAX_SMEM_BYTES
+    # at Dh = 64 two bf16 blocks share an SM's 228 KB (1 KB each reserved)
+    assert 2 * (tfa.fs_fwd_smem_bytes(64) + 1024) <= 228 * 1024
+
+
+def test_flash_streamed_forward_raises_past_its_plan(monkeypatch):
+    """The #6 wrapper refuses a plan past 227 KB before it touches the
+    card, and names it."""
+    qkv = torch.zeros(1, 8, 3 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tfa.attn_fwd_packed_fs_cuda(qkv, None, n_heads=1, scale=0.125)
+    monkeypatch.setattr(tfa, "fs_fwd_smem_bytes",
+                        lambda dh, itemsize=2: tfa.MAX_SMEM_BYTES + 1)
+    with pytest.raises(ValueError, match="shared-memory plan at Dh=64"):
+        tfa.attn_fwd_packed_fs_cuda(qkv, None, n_heads=1, scale=0.125)
+
+
 def test_every_tier_drops_the_same_elements():
     """At rate 0.1 with one seed, the full-H, head-blocked and
     flash-streamed plain versions give the same output and the same
@@ -399,6 +421,10 @@ def test_head_blocked_kernels_match_plain_on_card(cuda_device, dtype, b, s,
     ("bfloat16", 2, 1024, 12, 64),
     ("float32", 2, 700, 3, 64),      # a ragged last key block
     ("bfloat16", 2, 130, 2, 128),
+    # the tensor-core plan's edges: a zero-padded k-depth, a q tile and a
+    # key block ragged off 16
+    ("bfloat16", 2, 256, 3, 40),
+    ("bfloat16", 2, 200, 4, 64),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_streamed_kernels_match_plain_on_card(cuda_device, dtype, b,

@@ -322,6 +322,75 @@ def test_ingredients_dropout_replays_the_mask():
         *xs, segd, maskb, H, SCALE, 0.0, 0))
 
 
+def test_ingredients_forward_plan_fits_every_head_width():
+    """#23's shared-memory plan, bf16 (the tensor-core kernel) and fp32,
+    lies inside a block's 227 KB at every head width the kernel takes."""
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for itemsize in (2, 4):
+            assert tfa.relik_fs_fwd_smem_bytes(dh, itemsize) <= (
+                tfa.MAX_SMEM_BYTES)
+    # at Dh = 64 two bf16 blocks share an SM's 228 KB (1 KB each reserved)
+    assert 2 * (tfa.relik_fs_fwd_smem_bytes(64) + 1024) <= 228 * 1024
+
+
+def test_ingredients_forward_raises_past_its_plan(monkeypatch):
+    """The #23 wrapper refuses a plan past 227 KB before it touches the
+    card, and names it."""
+    x = {n: torch.from_numpy(a).to(torch.bfloat16)
+         for n, a in _ingredients(8, 8, 16).items()}
+    ins = [x[n] for n in (*DIFF, "segd", "maskb")]
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tfa.attn_fwd_relik_fs_cuda(*ins, n_heads=H, scale=SCALE)
+    monkeypatch.setattr(tfa, "relik_fs_fwd_smem_bytes",
+                        lambda dh, itemsize=2: tfa.MAX_SMEM_BYTES + 1)
+    with pytest.raises(ValueError, match=f"shared-memory plan at Dh={DH}"):
+        tfa.attn_fwd_relik_fs_cuda(*ins, n_heads=H, scale=SCALE)
+
+
+@pytest.mark.parametrize("q_len,k_len,p_extra", [(70, 131, 0), (130, 70, 3)])
+def test_wide_bd_product_read_on_its_diagonal_is_the_shift(q_len, k_len,
+                                                           p_extra):
+    """#23's bf16 kernel computes bd as BDʷ = rr_tile · r_windowᵀ per (64-row
+    q tile, 64-key block), the window rows Q − q0 − 63 + k0 + w (w < 128,
+    zero outside [0, P)) taken as two 64-row chunks, chunk c at Q − q0 − 63
+    + 64c; score (qi, j) reads BDʷ[qi][63 − qi + j]. That tiling, in plain
+    torch at a ragged Q and K, gives the bd term of
+    ``attn_fwd_relik_fs_reference``'s scores (``_relik_scores`` with rw,
+    ed and maskb zero)."""
+    x = {n: torch.from_numpy(a) for n, a in
+         _ingredients(q_len, k_len, q_len + k_len + p_extra, seed=5).items()}
+    zero = torch.zeros_like
+    want = tfa._relik_scores(zero(x["rw"]), x["rr"], x["r"], x["k"],
+                             zero(x["ed"]), x["segd"], zero(x["maskb"]), H,
+                             SCALE)
+    p_len = x["r"].shape[0]
+    rr = tfa._ctx_heads(x["rr"], H)                       # [B, H, Q, Dh]
+    r = x["r"].reshape(p_len, H, DH).permute(1, 0, 2)     # [H, P, Dh]
+    got = torch.full_like(want, float("nan"))
+    for q0 in range(0, q_len, 64):
+        q_rows = min(64, q_len - q0)
+        p_base = q_len - q0 - 63
+
+        def chunk(c):
+            rows = p_base + 64 * c + torch.arange(64)
+            ok = (rows >= 0) & (rows < p_len)
+            return torch.where(ok[None, :, None],
+                               r[:, rows.clamp(0, p_len - 1)], 0.0)
+
+        for i, k0 in enumerate(range(0, k_len, 64)):
+            k_rows = min(64, k_len - k0)
+            window = torch.cat([chunk(i), chunk(i + 1)], dim=1)
+            tile = torch.zeros(B, H, 64, DH)
+            tile[:, :, :q_rows] = rr[:, :, q0:q0 + q_rows]
+            bdw = torch.matmul(tile, window.transpose(-1, -2))  # [B,H,64,128]
+            qi = torch.arange(q_rows)[:, None]
+            j = torch.arange(k_rows)[None, :]
+            got[:, :, q0:q0 + q_rows, k0:k0 + k_rows] = bdw[
+                :, :, qi, 63 - qi + j]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
 # --- the model ---------------------------------------------------------------
 
 DV, DA = 5, 7
@@ -498,6 +567,12 @@ def _card_close(got, want, dtype):
     ("float32", 2, 70, 131, 3, 64),     # ragged, P > Q + K
     ("float32", 2, 200, 200, 2, 128),   # the widest head
     ("bfloat16", 2, 512, 512, 12, 64),
+    # the tensor-core plan's edges: a zero-padded k-depth, tiles ragged
+    # off 16, the widest head, Q ≠ K as under the memory
+    ("bfloat16", 2, 128, 128, 3, 40),
+    ("bfloat16", 2, 200, 200, 4, 64),
+    ("bfloat16", 2, 130, 130, 2, 128),
+    ("bfloat16", 2, 96, 200, 4, 64),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_ingredients_kernels_match_plain_on_card(cuda_device, dtype, b, s,
