@@ -1,5 +1,7 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
-// the largest dynamic shared memory (every kernel); the Philox4x32-10
+// the largest dynamic shared memory (every kernel); the operand staging and
+// mma.sync pieces of the tensor-core kernels (#4, #6, #7, #23 bf16, the
+// last section); the Philox4x32-10
 // dropout stream, the whole-row forward's blocks (#1 and #4 packed, #8
 // split, #18 on a projected head, #11, #14 and #20 rel), the recompute
 // backward's softmax rows (#2, #5, #9, #12, #15, #21), the full-H backward
@@ -93,7 +95,7 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
-// ---- the whole-row forward (kernels #1 and #4 packed, #8 split) -----------
+// ---- the whole-row forward (kernels #1 and #4 fp32 packed, #8 split) ------
 //
 // One block of kFwdThreads threads computes kQTile query rows q0 ..
 // q0 + kQTile − 1 of one (head, batch row): scores over the whole key row
@@ -102,13 +104,15 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
 // mask, the probs rounded to T, and PV accumulated in fp32 registers (V
 // streamed the same way). `fwd_rows` takes the head's rows by pointer and
 // row stride, so one code serves every layout: the packed projection
-// [B, S, 3D] (#1 with 16-row tiles up to S = 512 and the save modes, #4
-// with 32-row tiles up to S = 640; `fwd_packed_rows`, q0 = blockIdx.x ·
-// kQTile), the split q, k, v [B, H, S, Dh] (#8, attn_fwd_split.cu) and a
-// head projected into shared memory (#18, attn_fwd_qkvproj.cu, which walks
-// q0 over the rows itself). The arithmetic of a row depends on neither
-// kQTile nor the layout, so all of them give the same bits where they
-// reach.
+// [B, S, 3D] (#1 with 16-row tiles up to S = 512 and the save modes, #4's
+// fp32 instantiation with 32-row tiles up to S = 640; `fwd_packed_rows`,
+// q0 = blockIdx.x · kQTile), the split q, k, v [B, H, S, Dh] (#8,
+// attn_fwd_split.cu) and a head projected into shared memory (#18,
+// attn_fwd_qkvproj.cu, which walks q0 over the rows itself). The arithmetic
+// of a row depends on neither kQTile nor the layout, so all of them give
+// the same bits where they reach. (#4's bf16 kernel keeps a row's softmax
+// arithmetic but sums its products on the tensor cores:
+// attn_fwd_packed_hb.cu.)
 
 constexpr int kFwdThreads = 256;  // 8 warps
 constexpr int kFwdKChunk = 64;    // key/value rows staged in shared memory
@@ -1072,24 +1076,31 @@ __device__ __forceinline__ void project_head(float* work, T* head,
   }
 }
 
-// ---- the flash-streamed forwards on the tensor cores (#6, #23 bf16) -----
+// ---- the tensor-core kernels (#4, #6, #7, #23 bf16) ----------------------
 //
 // The bf16 instantiations of #6 (attn_fwd_packed_fs.cu) and #23
-// (attn_fwd_relik_fs.cu) share this plan. A block of kTcThreads threads
-// holds a kTcQTile-row query tile of one (head, batch row) and walks the
-// keys in kTcKBlock-key blocks. Operands are staged as bf16 in shared
-// memory, rows of `tc_ld(dh)` elements: Dh rounded up to 16 (the k-depth
-// of mma.m16n8k16, the pad columns zero) plus 8, so the eight 16-byte rows
-// one ldmatrix reads fall on distinct banks. cp.async brings them in (the
-// rows past a ragged edge zero-filled). Products run on
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, fragments from ldmatrix:
-// a bf16 × bf16 product is exact in fp32, so a dot differs from an fp32
+// (attn_fwd_relik_fs.cu) share the flash-streamed plan below; #4
+// (attn_fwd_packed_hb.cu) and #7's two passes (attn_bwd_packed_fs.cu) take
+// its staging and mma pieces with two more operand forms: an A operand
+// stored depth-major (#7's pd_cᵀ and ds_cᵀ, read from [q][k] tiles by
+// ldmatrix.trans, `tc_lane_at`) and an A operand taken straight from a
+// product's fp32 accumulators (#7's ds_c in the dQ pass: the accumulators of
+// two neighbouring n8 tiles, packed to bf16 pairs by `pack_bf16`, are the A
+// fragment of a 16-deep step). The flash-streamed plan: A block of
+// kTcThreads threads holds a kTcQTile-row query tile of one (head, batch
+// row) and walks the keys in kTcKBlock-key blocks. Operands are staged as
+// bf16 in shared memory, rows of `tc_ld(dh)` elements: Dh rounded up to 16
+// (the k-depth of mma.m16n8k16, the pad columns zero) plus 8, so the eight
+// 16-byte rows one ldmatrix reads fall on distinct banks. cp.async brings
+// them in (the rows past a ragged edge zero-filled). Products run on
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, fragments from ldmatrix: a
+// bf16 × bf16 product is exact in fp32, so a dot differs from an fp32
 // CUDA-core dot of the same values only in the order of its sum. Scores go
 // to a [kTcQTile][kTcSsLd] fp32 tile, on which `tc_softmax_step` runs the
 // online softmax with each row's arithmetic as the fp32 kernels' (a warp
-// takes eight rows at once); the weights e
-// go to a [kTcQTile][kTcEsLd] bf16 tile, the A operand of PV, whose fp32
-// accumulators stay in registers (`tc_pv`).
+// takes eight rows at once); the weights e go to a [kTcQTile][kTcEsLd] bf16
+// tile, the A operand of PV, whose fp32 accumulators stay in registers
+// (`tc_pv`).
 
 constexpr int kTcThreads = 256;          // 8 warps
 constexpr int kTcQTile = 64;
@@ -1181,6 +1192,57 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two fp32 values rounded to bf16 as one A/B register (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The lane addresses below are each ldmatrix x4's row pointers for one
+// warp's 16 × 16 operand.
+
+// An A operand stored row-major (rows m, depth contiguous): for ldsm_x4.
+__device__ __forceinline__ const __nv_bfloat16* tc_lane_a(
+    const __nv_bfloat16* a, int lda) {
+  const int lane = threadIdx.x & 31;
+  return a + (lane & 15) * lda + (lane >> 4) * 8;
+}
+
+// An A operand stored depth-major ([k][m], m contiguous): for ldsm_x4_trans.
+__device__ __forceinline__ const __nv_bfloat16* tc_lane_at(
+    const __nv_bfloat16* a, int lda) {
+  const int lane = threadIdx.x & 31;
+  return a + ((lane & 7) + (lane >> 4) * 8) * lda + ((lane >> 3) & 1) * 8;
+}
+
+// A B operand stored depth-major ([k][n], n contiguous), n8 tiles t and
+// t + 1 at column 8t: for ldsm_x4_trans (fragments 0, 1 of tile t and 2, 3
+// of tile t + 1), as `tc_pv` reads V.
+__device__ __forceinline__ const __nv_bfloat16* tc_lane_bt(
+    const __nv_bfloat16* b, int ldb) {
+  const int lane = threadIdx.x & 31;
+  return b + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb + (lane >> 4) * 8;
+}
+
+// acc[t] += fa · B[0 .. 16)[8t .. 8t + 8) for t < n ≤ nt: fa one warp's A
+// fragment of a 16-deep step, bt = tc_lane_bt(B at that step's first row
+// and the tiles' first column, ldb). For odd n the last ldmatrix also reads
+// the 8 columns after tile n − 1, which must lie inside B's rows.
+template <int nt>
+__device__ __forceinline__ void tc_mma_bt(float (&acc)[nt][4],
+                                          const uint32_t (&fa)[4],
+                                          const __nv_bfloat16* bt, int n) {
+#pragma unroll
+  for (int t = 0; t < nt; t += 2) {
+    if (t < n) {
+      uint32_t fb[4];
+      ldsm_x4_trans(fb, bt + t * 8);
+      mma_bf16(acc[t], fa, fb[0], fb[1]);
+      if (t + 1 < n) mma_bf16(acc[t + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
 // One warp: acc[t] += A[0..16) · B[8t .. 8t + 8)ᵀ over depth kd (a
 // multiple of 16) for t < nt (even), A and B row-major bf16 in shared
 // memory (rows of lda, ldb). Element (i, j) of tile t lies in acc[t] at
@@ -1191,7 +1253,7 @@ __device__ __forceinline__ void tc_warp_abt(float (&acc)[nt][4],
                                             const __nv_bfloat16* b, int ldb,
                                             int kd) {
   const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* pa = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const __nv_bfloat16* pa = tc_lane_a(a, lda);
   const __nv_bfloat16* pb =
       b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + ((lane >> 3) & 1) * 8;
   for (int k = 0; k < kd; k += 16) {
@@ -1334,23 +1396,13 @@ __device__ __forceinline__ void tc_pv(float (&acc)[kTcPvTiles][4],
     acc[t][2] *= a_hi;
     acc[t][3] *= a_hi;
   }
-  const __nv_bfloat16* pe =
-      es + (w.m0 + (lane & 15)) * kTcEsLd + (lane >> 4) * 8;
-  const __nv_bfloat16* pv =
-      v + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldv + w.c0 + (lane >> 4) * 8;
+  const __nv_bfloat16* pe = tc_lane_a(es + w.m0 * kTcEsLd, kTcEsLd);
+  const __nv_bfloat16* pv = tc_lane_bt(v + w.c0, ldv);
 #pragma unroll
   for (int k = 0; k < kTcKBlock; k += 16) {
     uint32_t fa[4];
     ldsm_x4(fa, pe + k);
-#pragma unroll
-    for (int t = 0; t < kTcPvTiles; t += 2) {
-      if (t < w.n) {
-        uint32_t fb[4];
-        ldsm_x4_trans(fb, pv + k * ldv + t * 8);
-        mma_bf16(acc[t], fa, fb[0], fb[1]);
-        if (t + 1 < w.n) mma_bf16(acc[t + 1], fa, fb[2], fb[3]);
-      }
-    }
+    tc_mma_bt(acc, fa, pv + k * ldv, w.n);
   }
 }
 

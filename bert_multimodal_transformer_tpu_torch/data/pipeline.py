@@ -1,7 +1,7 @@
 """Host-side data pipeline: a numpy-only copy of the JAX package's
 ``data/pipeline.py`` (the port cannot import that package, whose
-``__init__`` pulls in jax). ROADMAP A.12 moves the shared modules to one
-package; until then the tests hold this copy equal to the original.
+``__init__`` pulls in jax, and does not edit it). The port keeps its own
+copy, and the tests hold it equal to the original (ROADMAP A.12).
 
 Per-example word→subword alignment with modality replication, BERT
 right-padded and XLNet left-padded packing, the split packed once into

@@ -1,7 +1,7 @@
 """Synthetic MOSI/MOSEI-format data: a numpy copy of the JAX package's
 ``data/synthetic.py`` (the port cannot import that package, whose
-``__init__`` pulls in jax; ROADMAP A.12 moves the shared modules to one
-package). The tests hold the two equal.
+``__init__`` pulls in jax, and does not edit it). The port keeps its own
+copy, and the tests hold the two equal (ROADMAP A.12).
 
 No dataset pickles ship with the repository, so the driver's
 ``--synthetic`` mode and the tests generate data in the documented layout

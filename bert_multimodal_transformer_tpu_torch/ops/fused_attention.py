@@ -32,6 +32,13 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
+In bf16, #4, #6, #7 and #23 run their products on the tensor cores
+(``mma.sync`` from ``ldmatrix``, operands staged by ``cp.async``); fp32
+keeps their CUDA-core kernels. Their shared-memory plans are
+``hb_fwd_smem_bytes``, ``fs_fwd_smem_bytes``, ``fs_bwd_smem_bytes`` and
+``relik_fs_fwd_smem_bytes``; each wrapper checks its plan before the
+launch and raises past it.
+
 The split-layout kernels #8, #10 and #9 (``attn_fwd_split_cuda``,
 ``attn_bwd_split_saved_cuda``, ``attn_bwd_split_cuda``) are #1-#3 on
 separate q, k, v [B, H, S, Dh], the layout of a tensor-parallel rank's
@@ -657,13 +664,6 @@ def attn_bwd_packed_saved_cuda(
     return dqkv
 
 
-def hb_fwd_smem_bytes(s: int, dh: int) -> int:
-    """Shared memory of one #4 block (``csrc/common.cuh``'s
-    ``fwd_smem_floats<32>``): the [32][Dh] Q tile, a [64][Dh+1] K/V
-    chunk, the [32][S] scores and the [S] bias, in fp32."""
-    return 4 * (32 * dh + 64 * (dh + 1) + 32 * s + s)
-
-
 def hb_bwd_smem_bytes(s: int, dh: int) -> int:
     """Shared memory of one #5 block (``csrc/attn_bwd_packed_hb.cu``'s
     ``smem_floats``): P and Tt [32][S], the Q and g tiles and a K/V chunk
@@ -692,6 +692,40 @@ def fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
     return 4 * (64 * dh + 64 * (dh + 1) + 64 * 64 + 3 * 64 + 64)
 
 
+def hb_fwd_smem_bytes(s: int, dh: int, itemsize: int = 2) -> int:
+    """Shared memory of one #4 block at sequence length ``s`` and head
+    width ``dh``. bf16 (itemsize 2, the tensor-core kernel's
+    ``tc_smem_bytes``): the fp32 scores [32][keys + 4] (keys: S rounded up
+    to 64), which the bf16 probs overwrite; the Q tile [32][``_tc_ld``]
+    and the two-stage K/V ring [64][``_tc_ld``] each, bf16; the bias
+    [keys] (105.5 KB at S = 640, Dh = 64: two blocks an SM). fp32
+    (``csrc/common.cuh``'s ``fwd_smem_floats<32>``): the [32][Dh] Q tile, a
+    [64][Dh+1] K/V chunk, the [32][S] scores and the [S] bias, in fp32."""
+    if itemsize == 2:
+        keys = -(-s // 64) * 64
+        return (32 * (keys + 4) * 4 + (32 + 2 * 64) * _tc_ld(dh) * 2
+                + keys * 4)
+    return 4 * (32 * dh + 64 * (dh + 1) + 32 * s + s)
+
+
+def fs_bwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
+    """Shared memory of the larger of #7's two blocks at head width ``dh``.
+    bf16 (the tensor-core kernels' ``tc_dkdv_smem_bytes`` and
+    ``tc_dq_smem_bytes``): the dK/dV block's K and V, its two-stage Q, g
+    and o rings, bf16 [64][``_tc_ld``] each, the bf16 pd_c and ds_c tiles
+    [64][72] and the [64] bias (90.3 KB at Dh = 64: two blocks an SM); the
+    dQ block's Q, g and two-stage K and V rings and two [64] bias blocks.
+    fp32 (the CUDA-core kernels' ``dkdv_smem_floats`` and
+    ``dq_smem_floats``): K and V [64][Dh+1] with Q and g [32][Dh+1], or
+    all four [64][Dh+1]; the score and gradient tiles, lse, δ and bias."""
+    if itemsize == 2:
+        return max(8 * 64 * _tc_ld(dh) * 2 + 2 * 64 * 72 * 2 + 64 * 4,
+                   6 * 64 * _tc_ld(dh) * 2 + 2 * 64 * 4)
+    return 4 * max(
+        2 * 64 * (dh + 1) + 2 * 32 * (dh + 1) + 2 * 32 * 64 + 2 * 32 + 64,
+        4 * 64 * (dh + 1) + 2 * 64 * 64 + 2 * 64 + 64)
+
+
 def relik_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
     """Shared memory of one #23 block at head width ``dh``. bf16 (the
     tensor-core kernel's ``tc_smem_bytes``): rw, rr, k, v and two 64-row r
@@ -706,17 +740,23 @@ def relik_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
     return 4 * (2 * 64 * dh + (64 + 127) * (dh + 1) + 64 * 64 + 4 * 64)
 
 
-def _check_fs_plan(name: str, plan_bytes: int, dh: int) -> None:
+def _check_plan(name: str, plan_bytes: int, where: str) -> None:
     if plan_bytes > MAX_SMEM_BYTES:
         raise ValueError(
-            f"{name}: the shared-memory plan at Dh={dh} takes {plan_bytes} "
+            f"{name}: the shared-memory plan at {where} takes {plan_bytes} "
             f"bytes, past the {MAX_SMEM_BYTES} a block may hold")
 
 
 def attn_fwd_packed_hb_cuda(qkv, attention_mask, *, n_heads, scale,
                             rate=0.0, seed=0):
     """Launch kernel #4 (``csrc/attn_fwd_packed_hb.cu``) on ``qkv``
-    [B, S, 3·D], S ≤ ``HB_MAX_SEQ_LEN``. Returns out [B, S, D]."""
+    [B, S, 3·D], S ≤ ``HB_MAX_SEQ_LEN``: bf16 on the tensor cores, fp32 on
+    the CUDA cores. Raises past the shared-memory plan
+    (``hb_fwd_smem_bytes``). Returns out [B, S, D]."""
+    _, s, _, dh = _check_geometry(qkv, n_heads)
+    _check_plan("attn_fwd_packed_hb",
+                hb_fwd_smem_bytes(s, dh, qkv.element_size()),
+                f"S={s}, Dh={dh}")
     b, s, d, dh = _check_cuda("attn_fwd_packed_hb", qkv, n_heads,
                               HB_MAX_SEQ_LEN)
     mask = _mask_arg(attention_mask, qkv, b, s)
@@ -756,8 +796,8 @@ def attn_fwd_packed_fs_cuda(qkv, attention_mask, *, n_heads, scale,
     Raises past the shared-memory plan (``fs_fwd_smem_bytes``). Returns
     (out [B, S, D], lse [B, H, S] fp32)."""
     dh = _check_geometry(qkv, n_heads)[3]
-    _check_fs_plan("attn_fwd_packed_fs",
-                   fs_fwd_smem_bytes(dh, qkv.element_size()), dh)
+    _check_plan("attn_fwd_packed_fs",
+                fs_fwd_smem_bytes(dh, qkv.element_size()), f"Dh={dh}")
     b, s, d, dh = _check_cuda("attn_fwd_packed_fs", qkv, n_heads, None)
     mask = _mask_arg(attention_mask, qkv, b, s)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
@@ -774,8 +814,13 @@ def attn_fwd_packed_fs_cuda(qkv, attention_mask, *, n_heads, scale,
 def attn_bwd_packed_fs_cuda(qkv, attention_mask, seed, o, lse, g, *,
                             n_heads, scale, rate=0.0):
     """Launch kernel #7 (``csrc/attn_bwd_packed_fs.cu``), two kernels on
-    the current stream, each counted: the dK/dV pass, then the dQ pass.
-    ``o`` and ``lse`` are #6's outputs. Returns dqkv [B, S, 3·D]."""
+    the current stream, each counted: the dK/dV pass, then the dQ pass;
+    bf16 on the tensor cores, fp32 on the CUDA cores. ``o`` and ``lse``
+    are #6's outputs. Raises past the shared-memory plan
+    (``fs_bwd_smem_bytes``). Returns dqkv [B, S, 3·D]."""
+    dh = _check_geometry(qkv, n_heads)[3]
+    _check_plan("attn_bwd_packed_fs",
+                fs_bwd_smem_bytes(dh, qkv.element_size()), f"Dh={dh}")
     b, s, d, dh = _check_cuda("attn_bwd_packed_fs", qkv, n_heads, None)
     mask = _mask_arg(attention_mask, qkv, b, s)
     _like("o", o, qkv, (b, s, d))
@@ -2721,8 +2766,8 @@ def attn_fwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
     [B, Q, D], lse [B, H, Q] fp32)."""
     ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb)
     dh = _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads)[-1]
-    _check_fs_plan("attn_fwd_relik_fs",
-                   relik_fs_fwd_smem_bytes(dh, rw.element_size()), dh)
+    _check_plan("attn_fwd_relik_fs",
+                relik_fs_fwd_smem_bytes(dh, rw.element_size()), f"Dh={dh}")
     b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_fwd_relik_fs", ins,
                                                    n_heads)
     out = torch.empty_like(rw)

@@ -1,7 +1,7 @@
 """Evaluation metrics: a numpy-only copy of the JAX package's
 ``training/metrics.py`` (the port cannot import that package, whose
-``__init__`` pulls in jax). ROADMAP A.12 moves the shared modules to one
-package; until then the tests hold this copy equal to the original.
+``__init__`` pulls in jax, and does not edit it). The port keeps its own
+copy, and the tests hold it equal to the original (ROADMAP A.12).
 
 MOSI-standard scoring: drop exactly-zero labels unless ``use_zero``, MAE,
 Pearson correlation, then binarize predictions/labels at ≥ 0 for accuracy

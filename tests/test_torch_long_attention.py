@@ -195,14 +195,34 @@ def test_dispatch_takes_the_tier(s, grad, want, monkeypatch):
 
 
 def test_head_blocked_reach_fits_the_kernels_plans():
-    """HB_MAX_SEQ_LEN lies inside #4's and #5's shared-memory plans at
-    every head width the kernels take (Dh ≤ 128)."""
-    for dh in (8, 64, 128):
-        assert tfa.hb_fwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh) <= (
-            tfa.MAX_SMEM_BYTES)
+    """HB_MAX_SEQ_LEN lies inside #4's shared-memory plans (bf16, the
+    tensor-core kernel, and fp32) and #5's at every head width the kernels
+    take (Dh ≤ 128); at Dh=64 two bf16 #4 blocks share an SM."""
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for itemsize in (2, 4):
+            assert tfa.hb_fwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh,
+                                         itemsize) <= tfa.MAX_SMEM_BYTES
         assert tfa.hb_bwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh) <= (
             tfa.MAX_SMEM_BYTES)
     assert tfa.hb_bwd_smem_bytes(704, 128) > tfa.MAX_SMEM_BYTES
+    # scores [32][644] fp32, Q and the ring [32 + 128][72] bf16, bias [640]
+    assert tfa.hb_fwd_smem_bytes(640, 64) == 108032
+    # S = 600 walks whole 64-key blocks, as S = 640
+    assert tfa.hb_fwd_smem_bytes(600, 64) == tfa.hb_fwd_smem_bytes(640, 64)
+    # 1 KB of each SM's 228 KB is reserved per block
+    assert 2 * (tfa.hb_fwd_smem_bytes(640, 64) + 1024) <= 228 * 1024
+
+
+def test_flash_streamed_backward_plan_fits_every_head_width():
+    """#7's shared-memory plan (the larger of its two passes), bf16 (the
+    tensor-core kernels) and fp32, lies inside a block's 227 KB at every
+    head width the kernels take; at Dh=64 two bf16 blocks share an SM."""
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for itemsize in (2, 4):
+            assert tfa.fs_bwd_smem_bytes(dh, itemsize) <= tfa.MAX_SMEM_BYTES
+    # K, V and the Q/g/o rings [8·64][72] bf16, pd_c/ds_c [2·64][72], bias
+    assert tfa.fs_bwd_smem_bytes(64) == 92416
+    assert 2 * (tfa.fs_bwd_smem_bytes(64) + 1024) <= 228 * 1024
 
 
 def test_flash_streamed_forward_plan_fits_every_head_width():
@@ -225,6 +245,31 @@ def test_flash_streamed_forward_raises_past_its_plan(monkeypatch):
                         lambda dh, itemsize=2: tfa.MAX_SMEM_BYTES + 1)
     with pytest.raises(ValueError, match="shared-memory plan at Dh=64"):
         tfa.attn_fwd_packed_fs_cuda(qkv, None, n_heads=1, scale=0.125)
+
+
+@pytest.mark.parametrize("wrapper,plan,where", [
+    ("attn_fwd_packed_hb_cuda", "hb_fwd_smem_bytes", "S=8, Dh=64"),
+    ("attn_bwd_packed_fs_cuda", "fs_bwd_smem_bytes", "Dh=64"),
+])
+def test_long_kernels_raise_past_their_plans(wrapper, plan, where,
+                                             monkeypatch):
+    """The #4 and #7 wrappers refuse a plan past 227 KB before they touch
+    the card, and name it."""
+    qkv = torch.zeros(1, 8, 3 * 64, dtype=torch.bfloat16)
+    ctx = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 8)
+    fn = getattr(tfa, wrapper)
+
+    def call():
+        if wrapper == "attn_fwd_packed_hb_cuda":
+            return fn(qkv, None, n_heads=1, scale=0.125)
+        return fn(qkv, None, 0, ctx, lse, ctx, n_heads=1, scale=0.125)
+
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        call()
+    monkeypatch.setattr(tfa, plan, lambda *a, **k: tfa.MAX_SMEM_BYTES + 1)
+    with pytest.raises(ValueError, match=f"shared-memory plan at {where}"):
+        call()
 
 
 def test_every_tier_drops_the_same_elements():
@@ -362,7 +407,11 @@ def cuda_device():
 
 
 def _card_case(device, dtype, b, s, h, dh, seed):
+    """Seeded inputs on the card; in bf16 the last batch row is fully
+    padded (the tensor-core kernels' edge)."""
     qkv, mask, g = _inputs(seed, b, s, h, dh)
+    if dtype == "bfloat16" and b > 1:
+        mask[-1] = 0
     td = getattr(torch, dtype)
     return (torch.from_numpy(qkv).to(device, td),
             torch.from_numpy(mask).to(device).float(),
@@ -398,6 +447,9 @@ def _grad_bound(dtype, want, qkv, mask, g, seed, h, dh, rate):
     ("bfloat16", 4, 512, 12, 64),
     ("bfloat16", 2, 640, 4, 128),    # the hb reach at the widest head
     ("float32", 2, 333, 3, 64),
+    # #4's tensor-core edges: a zero-padded k-depth and ragged off 16
+    ("bfloat16", 2, 333, 3, 40),
+    ("bfloat16", 2, 200, 4, 64),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_head_blocked_kernels_match_plain_on_card(cuda_device, dtype, b, s,
@@ -408,6 +460,8 @@ def test_head_blocked_kernels_match_plain_on_card(cuda_device, dtype, b, s,
     out = tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=seed, **kw)
     _close(out, tfa.attn_fwd_packed_hb_reference(qkv, mask, seed=seed, **kw),
            dtype)
+    assert torch.equal(out, tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=seed,
+                                                        **kw))
     dqkv = tfa.attn_bwd_packed_hb_cuda(qkv, mask, seed, g, **kw)
     want = tfa.attn_bwd_packed_hb_reference(qkv, mask, seed, g, **kw)
     _close(dqkv, want, dtype,
@@ -425,6 +479,7 @@ def test_head_blocked_kernels_match_plain_on_card(cuda_device, dtype, b, s,
     # key block ragged off 16
     ("bfloat16", 2, 256, 3, 40),
     ("bfloat16", 2, 200, 4, 64),
+    ("bfloat16", 2, 700, 2, 64),     # #7's ragged last key tile
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_streamed_kernels_match_plain_on_card(cuda_device, dtype, b,
@@ -442,17 +497,43 @@ def test_flash_streamed_kernels_match_plain_on_card(cuda_device, dtype, b,
                                             **kw)
     _close(dqkv, want, dtype,
            _grad_bound(dtype, want, qkv, mask, g, seed, h, dh, rate))
+    assert torch.equal(dqkv, tfa.attn_bwd_packed_fs_cuda(
+        qkv, mask, seed, out, lse, g, **kw))
 
 
 @pytest.mark.cuda
 def test_head_blocked_kernels_equal_full_h_on_card(cuda_device):
-    """Where both reach, #4 gives #1's bits and #5 gives #2's."""
+    """Where both reach, #4 gives #1's function and #5 gives #2's bits.
+    fp32 #4 runs #1's row code: the same bits. bf16 #4 sums its dots on the
+    tensor cores in another order than #1's CUDA-core chains, so it is
+    held to #1 within the bf16 forward bound."""
     qkv, mask, g = _card_case(cuda_device, "bfloat16", 4, 128, 12, 64, 23)
     kw = dict(n_heads=12, scale=0.125, rate=0.1)
-    assert torch.equal(tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=9, **kw),
-                       tfa.attn_fwd_packed_cuda(qkv, mask, seed=9, **kw))
+    _close(tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=9, **kw),
+           tfa.attn_fwd_packed_cuda(qkv, mask, seed=9, **kw), "bfloat16")
     assert torch.equal(tfa.attn_bwd_packed_hb_cuda(qkv, mask, 9, g, **kw),
                        tfa.attn_bwd_packed_cuda(qkv, mask, 9, g, **kw))
+    for s in (128, 512):
+        qkv, mask, _ = _card_case(cuda_device, "float32", 2, s, 3, 64, 25)
+        assert torch.equal(
+            tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=9, **kw),
+            tfa.attn_fwd_packed_cuda(qkv, mask, seed=9, **kw))
+
+
+@pytest.mark.cuda
+def test_head_blocked_keep_mask_on_card(cuda_device):
+    """bf16 #4's keep mask is the plain Philox mask bit for bit: with Q = K
+    = 0 every prob is 1/S, and with V_h the identity (S = Dh = 128) the
+    output is > 0 exactly where (b, h, q, c) is kept."""
+    b, s, h, dh, rate, seed = 2, 128, 3, 128, 0.1, 2 ** 62 + 11
+    qkv = torch.zeros(b, s, 3, h, dh, device=cuda_device,
+                      dtype=torch.bfloat16)
+    qkv[:, :, 2] = torch.eye(s, device=cuda_device)[None, :, None, :]
+    out = tfa.attn_fwd_packed_hb_cuda(qkv.reshape(b, s, -1), None,
+                                      n_heads=h, scale=dh ** -0.5,
+                                      rate=rate, seed=seed)
+    keep = tfa.dropout_keep_mask(seed, b, h, s, s, rate, cuda_device)
+    assert torch.equal(out.view(b, s, h, dh).permute(0, 2, 1, 3) > 0, keep)
 
 
 @pytest.mark.cuda
