@@ -51,8 +51,8 @@
 // `grads_of_scores` arithmetic) then runs on the accumulators in registers,
 // each lane drawing one Philox block for its 2 rows × 4 keys with its
 // neighbour and trading the other's words by two shuffles; δ comes from
-// `tc_slab_delta` in `row_delta`'s order. Hence the same ds bits in both
-// passes.
+// common.cuh's `tc_slab_delta` in `row_delta`'s order. Hence the same ds
+// bits in both passes.
 //   - dK/dV pass: K and V staged once; Q, g and o in two-stage rings,
 //     query block i + 1 in flight while block i is computed. pd_c and ds_c
 //     go to bf16 [q][k] tiles; then each warp accumulates its 16 keys × half
@@ -386,44 +386,6 @@ __host__ __device__ inline size_t tc_dq_smem_bytes(int dh) {
          2 * (size_t)kKBlock * sizeof(float);
 }
 
-// δ of the 16 rows of a warp's slab (rows past `rows` give 0): δ[r] =
-// Σ_c g[r][c] · o[r][c] in fp32, c = lane, lane + 32, ... then the warp's
-// xor tree (`row_delta`'s order, so the same bits in both passes). The 16
-// rows' chains run side by side. Returns the lane's rows, lane / 4 (d_lo)
-// and lane / 4 + 8 (d_hi).
-__device__ __forceinline__ void tc_slab_delta(float& d_lo, float& d_hi,
-                                              const bf16* g_rows, int g_ld,
-                                              const bf16* o_rows,
-                                              size_t o_ld, int rows,
-                                              int Dh) {
-  const int lane = threadIdx.x & 31;
-  float sum[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    sum[r] = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kMaxDh / 32; ++u) {
-      const int c = lane + 32 * u;
-      if (r < rows && c < Dh)
-        sum[r] = fmaf(__bfloat162float(g_rows[r * g_ld + c]),
-                      __bfloat162float(o_rows[(size_t)r * o_ld + c]), sum[r]);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-    for (int r = 0; r < 16; ++r)
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
-  d_lo = d_hi = 0.0f;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    if ((lane >> 2) == r) {
-      d_lo = sum[r];
-      d_hi = sum[r + 8];
-    }
-  }
-}
-
 // The elementwise step on a warp's [16 q][32 k] tile of accumulators (the
 // layout of `tc_warp_abt<4>`: element (q_lo + 8·(e ≥ 2), k_first + 8t +
 // 2·(lane % 4) + (e & 1)) in [t][e]): sc holds the q·k dots, tt the g·v
@@ -565,8 +527,8 @@ __global__ void __launch_bounds__(attn::kTcThreads, 2)
     const int q_lo = q0 + w.m0 + (lane >> 2);
     float lse_lo, lse_hi, d_lo, d_hi;
     tc_lse(lse_lo, lse_hi, lse_bh, q_lo, S);
-    tc_slab_delta(d_lo, d_hi, gs + s + w.m0 * ld, ld, os + s + w.m0 * ld,
-                  (size_t)ld, S - q0 - w.m0, Dh);
+    attn::tc_slab_delta(d_lo, d_hi, gs + s + w.m0 * ld, ld,
+                        os + s + w.m0 * ld, (size_t)ld, S - q0 - w.m0, Dh);
     float sc[4][4] = {}, tt[4][4] = {};
     attn::tc_warp_abt<4>(sc, qs + s + w.m0 * ld, ld, ks + w.k0 * ld, ld, kd);
     attn::tc_warp_abt<4>(tt, gs + s + w.m0 * ld, ld, vs + w.k0 * ld, ld, kd);
@@ -677,9 +639,9 @@ __global__ void __launch_bounds__(attn::kTcThreads, 2)
   tc_lse(lse_lo, lse_hi, lse + ((size_t)b * H + h) * S, q_lo, S);
   attn::cp_async_wait<0>();
   __syncthreads();  // g is staged
-  tc_slab_delta(d_lo, d_hi, gs + w.m0 * ld, ld,
-                o + ((size_t)b * S + q0 + w.m0) * D + h * Dh, (size_t)D,
-                rows - w.m0, Dh);
+  attn::tc_slab_delta(d_lo, d_hi, gs + w.m0 * ld, ld,
+                      o + ((size_t)b * S + q0 + w.m0) * D + h * Dh,
+                      (size_t)D, rows - w.m0, Dh);
   float acc[kTiles][4];
 #pragma unroll
   for (int t = 0; t < kTiles; ++t)

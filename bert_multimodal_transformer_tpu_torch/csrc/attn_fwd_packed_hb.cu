@@ -31,7 +31,8 @@
 // while block i is computed (the first V block arrives during the
 // softmax). QKᵀ (each warp a 16-row × 16-key slab of a block) goes to an
 // fp32 [32][keys + 4] score tile as (dot · scale) + bias, the order of the
-// fp32 kernel. The softmax is #1's whole-row softmax, one warp per row, its
+// fp32 kernel. The softmax is #1's whole-row softmax (common.cuh's
+// `tc_hb_softmax_rows`, which #14 shares), one warp per row, its
 // row's ≤ 20 values a lane held in registers: max, then e = exp(s − max)
 // summed lane-strided then by the xor tree, then p = e / sum, in
 // `fwd_rows`' order; at rate > 0 p goes back in place and each lane takes
@@ -102,7 +103,6 @@ int launch(const void* qkv, const void* mask, void* out, int B, int S,
 using bf16 = __nv_bfloat16;
 
 constexpr int kKBlock = 64;             // keys per staged K/V block
-constexpr int kRowRegs = kMaxS / 32;    // a softmax row's values a lane
 
 // Keys the block walks (whole 64-key blocks) and the score row's stride.
 __host__ __device__ inline int tc_keys(int s) {
@@ -115,85 +115,6 @@ __host__ __device__ inline size_t tc_smem_bytes(int s, int dh) {
   return (size_t)kQTile * tc_ss_ld(s) * sizeof(float) +
          (size_t)(kQTile + 2 * kKBlock) * attn::tc_ld(dh) * sizeof(bf16) +
          (size_t)tc_keys(s) * sizeof(float);
-}
-
-// The whole-row softmax of rows r = warp, warp + 8, ... < q_rows of the
-// fp32 score tile ss (rows of ssld), in `fwd_rows`' arithmetic and order;
-// at rate > 0 the keep mask of (b, h, q0 + r, k). The probs, rounded to
-// bf16, go over the first half of their row as bf16 [keys], zeros from S
-// to the next multiple of 16 (the keys PV reads).
-template <bool kDropout>
-__device__ __forceinline__ void softmax_rows(float* ss, int ssld, int q_rows,
-                                             int S, int q0, int b, int h,
-                                             const DropoutArgs& drop) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int s16 = (S + 15) / 16 * 16;
-  for (int r = warp; r < q_rows; r += attn::kTcThreads / 32) {
-    float* sr = ss + r * ssld;
-    bf16* pr = reinterpret_cast<bf16*>(sr);
-    float x[kRowRegs];
-    float m = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < kRowRegs; ++u) {
-      const int j = lane + 32 * u;
-      x[u] = j < S ? sr[j] : -INFINITY;
-      m = fmaxf(m, x[u]);
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kRowRegs; ++u) {
-      if (lane + 32 * u < S) {
-        x[u] = expf(x[u] - m);
-        sum += x[u];
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if constexpr (!kDropout) {
-      __syncwarp();  // every lane has read its scores: write the probs
-#pragma unroll
-      for (int u = 0; u < kRowRegs; ++u) {
-        const int j = lane + 32 * u;
-        if (j < s16) pr[j] = __float2bfloat16(j < S ? x[u] / sum : 0.0f);
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < kRowRegs; ++u) {
-        const int j = lane + 32 * u;
-        if (j < S) sr[j] = x[u] / sum;
-      }
-      __syncwarp();
-      // Each lane takes 4 consecutive keys, one Philox block for the 4
-      // draws, as fwd_rows' training modes.
-      uint2 w[kRowRegs / 4];
-#pragma unroll
-      for (int t = 0; t < kRowRegs / 4; ++t) {
-        const int j0 = 4 * lane + 128 * t;
-        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (j0 < S) {
-          const float4 p4 = *reinterpret_cast<const float4*>(sr + j0);
-          const uint4 bits =
-              attn::dropout_bits4(drop.seed, b, h, q0 + r, j0 >> 2);
-          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            v[u] = j0 + u < S && attn::word(bits, u) >= drop.threshold
-                       ? __fmul_rn(p[u], drop.inv_keep)
-                       : 0.0f;
-        }
-        w[t] = make_uint2(attn::pack_bf16(v[0], v[1]),
-                          attn::pack_bf16(v[2], v[3]));
-      }
-      __syncwarp();  // every lane has read its probs: write them as bf16
-#pragma unroll
-      for (int t = 0; t < kRowRegs / 4; ++t) {
-        const int j0 = 4 * lane + 128 * t;
-        if (j0 < s16) *reinterpret_cast<uint2*>(pr + j0) = w[t];
-      }
-    }
-  }
 }
 
 template <bool kDropout>
@@ -279,7 +200,8 @@ __global__ void __launch_bounds__(attn::kTcThreads, 2)
       }
       if (i == n_blocks - 1) {
         __syncthreads();  // every score is in
-        softmax_rows<kDropout>(ss, ssld, q_rows, S, q0, b, h, drop);
+        attn::tc_hb_softmax_rows<kDropout>(ss, ssld, q_rows, S, q0, b, h,
+                                            drop);
       }
     } else {
       // acc += P[:, k0 .. k0 + kmax) · V block

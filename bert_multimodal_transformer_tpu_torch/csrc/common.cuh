@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels: dtype conversion and the opt-in to
 // the largest dynamic shared memory (every kernel); the operand staging and
-// mma.sync pieces of the tensor-core kernels (#4, #6, #7, #23 bf16, the
-// last section); the Philox4x32-10
+// mma.sync pieces of the tensor-core kernels (#4, #6, #7, #14, #23, #24
+// bf16, the last section); the Philox4x32-10
 // dropout stream, the whole-row forward's blocks (#1 and #4 packed, #8
 // split, #18 on a projected head, #11, #14 and #20 rel), the recompute
 // backward's softmax rows (#2, #5, #9, #12, #15, #21), the full-H backward
@@ -1076,11 +1076,13 @@ __device__ __forceinline__ void project_head(float* work, T* head,
   }
 }
 
-// ---- the tensor-core kernels (#4, #6, #7, #23 bf16) ----------------------
+// ---- the tensor-core kernels (#4, #6, #7, #14, #23, #24 bf16) -------------
 //
 // The bf16 instantiations of #6 (attn_fwd_packed_fs.cu) and #23
 // (attn_fwd_relik_fs.cu) share the flash-streamed plan below; #4
-// (attn_fwd_packed_hb.cu) and #7's two passes (attn_bwd_packed_fs.cu) take
+// (attn_fwd_packed_hb.cu) and #14 (attn_fwd_rel_hb.cu) share the whole-row
+// softmax at the end of the section; #7's and #24's passes
+// (attn_bwd_packed_fs.cu, attn_bwd_relik_fs.cu) and the rest take
 // its staging and mma pieces with two more operand forms: an A operand
 // stored depth-major (#7's pd_cᵀ and ds_cᵀ, read from [q][k] tiles by
 // ldmatrix.trans, `tc_lane_at`) and an A operand taken straight from a
@@ -1446,6 +1448,128 @@ __device__ __forceinline__ void relik_tc_r_chunk(__nv_bfloat16* dst, int ld,
   tc_cp_rows(dst, ld, r_head, (size_t)D, p0, kTcKBlock,
              (int)min(lo, (long long)kTcKBlock),
              (int)max(0ll, min(hi, (long long)kTcKBlock)), Dh);
+}
+
+// δ of the 16 rows of a warp's slab (rows past `rows` give 0): δ[r] =
+// Σ_c g[r][c] · o[r][c] in fp32, c = lane, lane + 32, ... then the warp's
+// xor tree (one order, so #7's and #24's two passes get the same bits). The
+// 16 rows' chains run side by side. Returns the lane's rows, lane / 4
+// (d_lo) and lane / 4 + 8 (d_hi).
+__device__ __forceinline__ void tc_slab_delta(float& d_lo, float& d_hi,
+                                              const __nv_bfloat16* g_rows,
+                                              int g_ld,
+                                              const __nv_bfloat16* o_rows,
+                                              size_t o_ld, int rows, int Dh) {
+  const int lane = threadIdx.x & 31;
+  float sum[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    sum[r] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kTcMaxDh / 32; ++u) {
+      const int c = lane + 32 * u;
+      if (r < rows && c < Dh)
+        sum[r] = fmaf(__bfloat162float(g_rows[r * g_ld + c]),
+                      __bfloat162float(o_rows[(size_t)r * o_ld + c]), sum[r]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+  d_lo = d_hi = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if ((lane >> 2) == r) {
+      d_lo = sum[r];
+      d_hi = sum[r + 8];
+    }
+  }
+}
+
+// ---- the head-blocked forwards on the tensor cores (#4, #14 bf16) --------
+//
+// The whole-row softmax of rows r = warp, warp + 8, ... < q_rows of an fp32
+// score tile ss (rows of ssld, n keys ≤ kTcHbMaxLen), in `fwd_rows`'
+// arithmetic and order: max, e = exp(s − max) summed lane-strided then by
+// the xor tree, p = e / sum; at rate > 0 the keep mask of (b, h, q0 + r, k),
+// each lane taking four consecutive keys for one Philox block. The row's
+// ≤ 20 values a lane stay in registers. The probs, rounded to bf16, go over
+// the first half of their own row as bf16 [keys], zeros from n to the next
+// multiple of 16 (the keys PV reads).
+constexpr int kTcHbMaxLen = 640;  // ops/fused_attention.py::HB_MAX_SEQ_LEN
+constexpr int kTcHbRowRegs = kTcHbMaxLen / 32;
+
+template <bool kDropout>
+__device__ __forceinline__ void tc_hb_softmax_rows(float* ss, int ssld,
+                                                   int q_rows, int n, int q0,
+                                                   int b, int h,
+                                                   const DropoutArgs& drop) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n16 = (n + 15) / 16 * 16;
+  for (int r = warp; r < q_rows; r += kTcThreads / 32) {
+    float* sr = ss + r * ssld;
+    __nv_bfloat16* pr = reinterpret_cast<__nv_bfloat16*>(sr);
+    float x[kTcHbRowRegs];
+    float m = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kTcHbRowRegs; ++u) {
+      const int j = lane + 32 * u;
+      x[u] = j < n ? sr[j] : -INFINITY;
+      m = fmaxf(m, x[u]);
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kTcHbRowRegs; ++u) {
+      if (lane + 32 * u < n) {
+        x[u] = expf(x[u] - m);
+        sum += x[u];
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if constexpr (!kDropout) {
+      __syncwarp();  // every lane has read its scores: write the probs
+#pragma unroll
+      for (int u = 0; u < kTcHbRowRegs; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n16) pr[j] = __float2bfloat16(j < n ? x[u] / sum : 0.0f);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kTcHbRowRegs; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n) sr[j] = x[u] / sum;
+      }
+      __syncwarp();
+      uint2 w[kTcHbRowRegs / 4];
+#pragma unroll
+      for (int t = 0; t < kTcHbRowRegs / 4; ++t) {
+        const int j0 = 4 * lane + 128 * t;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (j0 < n) {
+          const float4 p4 = *reinterpret_cast<const float4*>(sr + j0);
+          const uint4 bits = dropout_bits4(drop.seed, b, h, q0 + r, j0 >> 2);
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            v[u] = j0 + u < n && word(bits, u) >= drop.threshold
+                       ? __fmul_rn(p[u], drop.inv_keep)
+                       : 0.0f;
+        }
+        w[t] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+      }
+      __syncwarp();  // every lane has read its probs: write them as bf16
+#pragma unroll
+      for (int t = 0; t < kTcHbRowRegs / 4; ++t) {
+        const int j0 = 4 * lane + 128 * t;
+        if (j0 < n16) *reinterpret_cast<uint2*>(pr + j0) = w[t];
+      }
+    }
+  }
 }
 
 // Opt a kernel into `kMaxSmemBytes` of dynamic shared memory, once per

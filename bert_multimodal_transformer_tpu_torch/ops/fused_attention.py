@@ -32,11 +32,12 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #4, #6, #7 and #23 run their products on the tensor cores
-(``mma.sync`` from ``ldmatrix``, operands staged by ``cp.async``); fp32
-keeps their CUDA-core kernels. Their shared-memory plans are
-``hb_fwd_smem_bytes``, ``fs_fwd_smem_bytes``, ``fs_bwd_smem_bytes`` and
-``relik_fs_fwd_smem_bytes``; each wrapper checks its plan before the
+In bf16, #4, #6, #7, #14, #23 and #24 run their products on the tensor
+cores (``mma.sync`` from ``ldmatrix``, operands staged by ``cp.async``);
+fp32 keeps their CUDA-core kernels. Their shared-memory plans are
+``hb_fwd_smem_bytes``, ``fs_fwd_smem_bytes``, ``fs_bwd_smem_bytes``,
+``rel_hb_fwd_smem_bytes``, ``relik_fs_fwd_smem_bytes`` and
+``relik_fs_bwd_smem_bytes``; each wrapper checks its plan before the
 launch and raises past it.
 
 The split-layout kernels #8, #10 and #9 (``attn_fwd_split_cuda``,
@@ -708,6 +709,21 @@ def hb_fwd_smem_bytes(s: int, dh: int, itemsize: int = 2) -> int:
     return 4 * (32 * dh + 64 * (dh + 1) + 32 * s + s)
 
 
+def rel_hb_fwd_smem_bytes(k_len: int, dh: int, itemsize: int = 2) -> int:
+    """Shared memory of one #14 block at K = ``k_len`` and head width
+    ``dh``. bf16 (the tensor-core kernel's ``tc_smem_bytes``): the fp32
+    scores [32][keys + 4] (keys: K rounded up to 64), which hold the ebias
+    rows first and the bf16 probs last; the q tile [32][``_tc_ld``] and the
+    two-stage k/v ring [64][``_tc_ld``] each, bf16 (103 KB at K = 640, Dh
+    = 64: two blocks an SM). fp32 (``csrc/common.cuh``'s
+    ``rel_fwd_smem_floats<32>``): the [32][Dh] q tile, a [64][Dh+1] k/v
+    chunk and the [32][K] scores, in fp32."""
+    if itemsize == 2:
+        keys = -(-k_len // 64) * 64
+        return 32 * (keys + 4) * 4 + (32 + 2 * 64) * _tc_ld(dh) * 2
+    return 4 * (32 * dh + 64 * (dh + 1) + 32 * k_len)
+
+
 def fs_bwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
     """Shared memory of the larger of #7's two blocks at head width ``dh``.
     bf16 (the tensor-core kernels' ``tc_dkdv_smem_bytes`` and
@@ -738,6 +754,27 @@ def relik_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
         return (6 * 64 * _tc_ld(dh) * 2 + 64 * 136 * 4 + 2 * 64 * 72 * 2
                 + 4 * 64 * 4)
     return 4 * (2 * 64 * dh + (64 + 127) * (dh + 1) + 64 * 64 + 4 * 64)
+
+
+def relik_fs_bwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
+    """Shared memory of the larger of #24's two blocks at head width
+    ``dh``. bf16 (the tensor-core kernels' ``tc_dkdv_smem_bytes`` and
+    ``tc_dq_smem_bytes``): pass 1 holds k, v, rw, rr, g and two r chunks,
+    bf16 [64][``_tc_ld``] each, the fp32 [64][72] bd tile (pd_c and ds_c
+    over it) and the bf16 segd and maskb tiles [64][72] (99 KB at Dh = 64:
+    two blocks an SM); pass 2 holds rw, rr, g, two k stages, v and three r
+    chunks, the bd tile (S′ bf16 [64][136] over it), segd and maskb, the
+    fp32 dr carry [64][Dh + 8] and ded's two halves [2][64] (135.5 KB at
+    Dh = 64, 223.5 KB at Dh = 128: one block an SM). fp32 (the CUDA-core
+    kernels' ``dkdv_smem_floats`` and ``dq_smem_floats``): k and v
+    [64][Dh+1] with rw, rr and g [32][Dh+1] and the r window [95][Dh+1],
+    the [32][64] tiles, lse, ed, δ (and ded)."""
+    if itemsize == 2:
+        ld, qk = _tc_ld(dh), 64 * 72 * 4 + 2 * 64 * 72 * 2
+        return max(7 * 64 * ld * 2 + qk,
+                   9 * 64 * ld * 2 + qk + 64 * (dh + 8) * 4 + 2 * 64 * 4)
+    return 4 * max((2 * 64 + 3 * 32 + 95) * (dh + 1) + 2 * 32 * 64 + 3 * 32,
+                   (3 * 32 + 2 * 64 + 95) * (dh + 1) + 3 * 32 * 64 + 4 * 32)
 
 
 def _check_plan(name: str, plan_bytes: int, where: str) -> None:
@@ -2157,7 +2194,13 @@ def attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, *, n_heads, scale):
 def attn_fwd_rel_hb_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0,
                          seed=0):
     """Launch kernel #14 (``csrc/attn_fwd_rel_hb.cu``), K ≤
-    ``HB_MAX_SEQ_LEN``. Returns out [B, Q, D]."""
+    ``HB_MAX_SEQ_LEN``: bf16 on the tensor cores, fp32 on the CUDA cores.
+    Raises past the shared-memory plan (``rel_hb_fwd_smem_bytes``).
+    Returns out [B, Q, D]."""
+    _, _, k_len, dh = _check_rel_geometry(q, k, v, ebias, n_heads)
+    _check_plan("attn_fwd_rel_hb",
+                rel_hb_fwd_smem_bytes(k_len, dh, q.element_size()),
+                f"K={k_len}, Dh={dh}")
     b, q_len, k_len, dh = _check_rel_cuda("attn_fwd_rel_hb", q, k, v, ebias,
                                           n_heads, bwd=False,
                                           max_k=HB_MAX_SEQ_LEN)
@@ -2787,8 +2830,13 @@ def attn_bwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
     the current stream, each counted: the dK/dV pass, the pass over each
     (batch row, head) that writes drw, drr, ded and its dr rows into an
     fp32 [B, P, D] workspace allocated here, and the sum of the workspace
-    over B into dr. ``o`` and ``lse`` are #23's outputs. Returns (drw, drr,
-    dr, dk, dv, ded) in rw's dtype."""
+    over B into dr; bf16 on the tensor cores, fp32 on the CUDA cores.
+    ``o`` and ``lse`` are #23's outputs. Raises past the shared-memory plan
+    (``relik_fs_bwd_smem_bytes``). Returns (drw, drr, dr, dk, dv, ded) in
+    rw's dtype."""
+    dh = _check_relik_geometry(rw, rr, r, k, v, ed, segd, maskb, n_heads)[-1]
+    _check_plan("attn_bwd_relik_fs",
+                relik_fs_bwd_smem_bytes(dh, rw.element_size()), f"Dh={dh}")
     ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb,
                o=o, g=g)
     b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_bwd_relik_fs", ins,

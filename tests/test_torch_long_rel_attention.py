@@ -391,6 +391,122 @@ def test_wide_bd_product_read_on_its_diagonal_is_the_shift(q_len, k_len,
                                rtol=1e-5)
 
 
+def test_skewed_ds_tile_gives_drr_and_dr(monkeypatch):
+    """#24's bf16 pass 2 writes ds_u skewed into a [64][128] tile per
+    (64-row q step, 64-key block), S′[r][63 − r + j] = ds_u[r][j], zero
+    elsewhere, against the window of r rows w0 + w (w0 = Q − q0 − 63 + k0,
+    zero outside [0, P)): drr += S′ · window and the window's dr rows +=
+    S′ᵀ · rr, the window rolling as the kernel's does (the lower 64 rows
+    are complete after their block: the upper half's sums of the block
+    before, added, go to the workspace; the step's last block sends its
+    upper half too). In plain torch at a ragged Q ≠ K, P > Q + K, that
+    tiling gives ``attn_bwd_relik_fs_reference``'s drr and dr from the ds
+    it formed, and sends nothing to a position outside [0, P)."""
+    q_len, k_len, p_len = 130, 75, 130 + 75 + 9
+    x = {n: torch.from_numpy(a) for n, a in
+         _ingredients(q_len, k_len, p_len, seed=11).items()}
+    ins = [x[n] for n in (*DIFF, "segd", "maskb")]
+    out, lse = tfa.attn_fwd_relik_fs_reference(*ins, n_heads=H, scale=SCALE)
+    seen = {}
+    real = tfa._relik_grads
+
+    def grads(ds, *a):
+        seen["ds"] = ds
+        return real(ds, *a)
+
+    monkeypatch.setattr(tfa, "_relik_grads", grads)
+    _, want_drr, want_dr, *_ = tfa.attn_bwd_relik_fs_reference(
+        *ins, 0, out, lse, x["g"], n_heads=H, scale=SCALE)
+    ds_u = seen["ds"]                                     # [B, H, Q, K]
+    rr = tfa._ctx_heads(x["rr"], H)                       # [B, H, Q, Dh]
+    r = x["r"].reshape(p_len, H, DH).permute(1, 0, 2)     # [H, P, Dh]
+    drr = torch.zeros(B, H, q_len, DH)
+    ws = torch.zeros(B, H, p_len + 256, DH)    # room either side of [0, P)
+    off = 128
+    for q0 in range(0, q_len, 64):
+        q_rows = min(64, q_len - q0)
+        carry = None
+        n_kb = -(-k_len // 64)
+        for kb in range(n_kb):
+            k0 = kb * 64
+            k_rows = min(64, k_len - k0)
+            w0 = q_len - q0 - 63 + k0
+            pos = w0 + torch.arange(128)
+            ok = (pos >= 0) & (pos < p_len)
+            window = torch.where(ok[None, :, None],
+                                 r[:, pos.clamp(0, p_len - 1)], 0.0)
+            sp = torch.zeros(B, H, 64, 128)
+            for i in range(q_rows):
+                sp[:, :, i, 63 - i:63 - i + k_rows] = ds_u[
+                    :, :, q0 + i, k0:k0 + k_rows]
+            drr[:, :, q0:q0 + q_rows] += torch.matmul(sp, window)[
+                :, :, :q_rows]
+            rr_tile = torch.zeros(B, H, 64, DH)
+            rr_tile[:, :, :q_rows] = rr[:, :, q0:q0 + q_rows]
+            dr_w = torch.matmul(sp.transpose(-1, -2), rr_tile)  # [B,H,128,Dh]
+            lower = dr_w[:, :, :64] + (0.0 if carry is None else carry)
+            ws[:, :, off + w0:off + w0 + 64] += lower
+            carry = dr_w[:, :, 64:]
+            if kb == n_kb - 1:
+                ws[:, :, off + w0 + 64:off + w0 + 128] += carry
+    assert float(ws[:, :, :off].abs().max()) == 0.0
+    assert float(ws[:, :, off + p_len:].abs().max()) == 0.0
+    got_dr = ws[:, :, off:off + p_len].sum(0).permute(1, 0, 2).reshape(
+        p_len, D)
+    np.testing.assert_allclose(tfa._merge_heads(drr).numpy(),
+                               want_drr.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_dr.numpy(), want_dr.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_tensor_core_plans_fit_every_head_width():
+    """#24's shared-memory plan (the larger of its two passes) and #14's at
+    the head-blocked reach, bf16 (the tensor-core kernels) and fp32, lie
+    inside a block's 227 KB at every head width the kernels take. At Dh =
+    64 two bf16 #14 blocks share an SM; #24's second pass takes one."""
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for itemsize in (2, 4):
+            assert tfa.relik_fs_bwd_smem_bytes(dh, itemsize) <= (
+                tfa.MAX_SMEM_BYTES)
+            assert tfa.rel_hb_fwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh,
+                                             itemsize) <= tfa.MAX_SMEM_BYTES
+    # scores [32][644] fp32, q and the ring [32 + 128][72] bf16
+    assert tfa.rel_hb_fwd_smem_bytes(640, 64) == 105472
+    assert tfa.rel_hb_fwd_smem_bytes(600, 64) == 105472
+    assert 2 * (tfa.rel_hb_fwd_smem_bytes(640, 64) + 1024) <= 228 * 1024
+    # pass 2: nine [64][72] bf16 tiles, bd, segd/maskb, the carry, ded
+    assert tfa.relik_fs_bwd_smem_bytes(64) == 138752
+    assert tfa.relik_fs_bwd_smem_bytes(128) == 228864
+
+
+@pytest.mark.parametrize("wrapper,plan,where", [
+    ("attn_fwd_rel_hb_cuda", "rel_hb_fwd_smem_bytes", f"K=8, Dh={DH}"),
+    ("attn_bwd_relik_fs_cuda", "relik_fs_bwd_smem_bytes", f"Dh={DH}"),
+])
+def test_tensor_core_wrappers_raise_past_their_plans(wrapper, plan, where,
+                                                     monkeypatch):
+    """The #14 and #24 wrappers refuse a plan past 227 KB before they touch
+    the card, and name it."""
+    x = {n: torch.from_numpy(a).to(torch.bfloat16)
+         for n, a in _ingredients(8, 8, 16).items()}
+    ins = [x[n] for n in (*DIFF, "segd", "maskb")]
+    fn = getattr(tfa, wrapper)
+
+    def call():
+        if wrapper == "attn_fwd_rel_hb_cuda":
+            return fn(x["rw"], x["k"], x["v"],
+                      torch.zeros(B, H, 8, 8, dtype=torch.bfloat16),
+                      n_heads=H, scale=SCALE)
+        return fn(*ins, 0, x["g"], torch.zeros(B, H, 8), x["g"], n_heads=H,
+                  scale=SCALE)
+
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        call()
+    monkeypatch.setattr(tfa, plan, lambda *a, **k: tfa.MAX_SMEM_BYTES + 1)
+    with pytest.raises(ValueError, match=f"shared-memory plan at {where}"):
+        call()
+
+
 # --- the model ---------------------------------------------------------------
 
 DV, DA = 5, 7
@@ -567,18 +683,29 @@ def _card_close(got, want, dtype):
     ("float32", 2, 70, 131, 3, 64),     # ragged, P > Q + K
     ("float32", 2, 200, 200, 2, 128),   # the widest head
     ("bfloat16", 2, 512, 512, 12, 64),
-    # the tensor-core plan's edges: a zero-padded k-depth, tiles ragged
-    # off 16, the widest head, Q ≠ K as under the memory
+    # the tensor-core plans' edges: a zero-padded k-depth, tiles ragged
+    # off 16 and 64, the widest head, Q ≠ K as under the memory, K % 8 ≠ 0
+    # (segd and maskb by plain loads)
     ("bfloat16", 2, 128, 128, 3, 40),
+    ("bfloat16", 2, 333, 333, 3, 40),
     ("bfloat16", 2, 200, 200, 4, 64),
+    ("bfloat16", 2, 700, 700, 2, 64),
     ("bfloat16", 2, 130, 130, 2, 128),
     ("bfloat16", 2, 96, 200, 4, 64),
+    ("bfloat16", 2, 130, 260, 4, 64),
+    ("bfloat16", 2, 130, 260, 2, 128),
+    ("bfloat16", 2, 70, 131, 3, 64),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_ingredients_kernels_match_plain_on_card(cuda_device, dtype, b, s,
                                                  k_len, h, dh, rate):
-    x = _card(_ingredients(s, k_len, s + k_len + 5, b=b, h=h, dh=dh),
-              cuda_device, dtype)
+    """#23 and #24 against their plain versions (#24 in bf16 within
+    ``relik_grads_bf16_bound``), in bf16 with the last batch row masked
+    whole (maskb −1e30 on every key); #24 the same bits twice."""
+    x = _ingredients(s, k_len, s + k_len + 5, b=b, h=h, dh=dh)
+    if dtype == "bfloat16":
+        x["maskb"][-1] = -1e30
+    x = _card(x, cuda_device, dtype)
     ins = [x[n] for n in (*DIFF, "segd", "maskb")]
     kw = dict(n_heads=h, scale=1.0 / dh ** 0.5, rate=rate)
     seed = 2 ** 59 + 1
@@ -603,18 +730,77 @@ def test_ingredients_kernels_match_plain_on_card(cuda_device, dtype, b, s,
 
 @pytest.mark.cuda
 def test_head_blocked_rel_kernels_equal_full_h_on_card(cuda_device):
-    """Where both reach, #14 gives #11's bits and #15 gives #12's."""
+    """Where both reach, #14 gives #11's function and #15 gives #12's bits.
+    fp32 #14 runs #11's row code: the same bits. bf16 #14 sums its dots on
+    the tensor cores in another order than #11's CUDA-core chains, so it is
+    held to #11 within the bf16 forward bound."""
     rng = np.random.RandomState(23)
     q, k, v, g = (torch.from_numpy(rng.randn(4, 128, 768).astype(np.float32))
                   .to(cuda_device, torch.bfloat16) for _ in range(4))
     eb = torch.from_numpy(rng.randn(4, 12, 128, 128).astype(np.float32)).to(
         cuda_device, torch.bfloat16)
     kw = dict(n_heads=12, scale=0.125, rate=0.1)
-    assert torch.equal(tfa.attn_fwd_rel_hb_cuda(q, k, v, eb, seed=9, **kw),
-                       tfa.attn_fwd_rel_cuda(q, k, v, eb, seed=9, **kw))
+    _card_close(tfa.attn_fwd_rel_hb_cuda(q, k, v, eb, seed=9, **kw),
+                tfa.attn_fwd_rel_cuda(q, k, v, eb, seed=9, **kw), "bfloat16")
     assert all(torch.equal(a, c) for a, c in zip(
         tfa.attn_bwd_rel_hb_cuda(q, k, v, eb, 9, g, **kw),
         tfa.attn_bwd_rel_cuda(q, k, v, eb, 9, g, **kw)))
+    for s in (128, 512):
+        q, k, v = (torch.from_numpy(rng.randn(2, s, 192).astype(np.float32))
+                   .to(cuda_device) for _ in range(3))
+        eb = torch.from_numpy(rng.randn(2, 3, s, s).astype(np.float32)).to(
+            cuda_device)
+        kw = dict(n_heads=3, scale=0.125, rate=0.1)
+        assert torch.equal(tfa.attn_fwd_rel_hb_cuda(q, k, v, eb, seed=9, **kw),
+                           tfa.attn_fwd_rel_cuda(q, k, v, eb, seed=9, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_len,k_len,h,dh", [
+    (512, 512, 12, 64),      # the stream path's S = 512
+    (333, 333, 3, 40),       # a zero-padded k-depth, ragged off 16
+    (640, 640, 2, 128),      # the reach at the widest head
+    (130, 260, 4, 64),       # Q ≠ K, as under the memory
+    (96, 203, 2, 64),        # K % 8 ≠ 0: the ebias rows by plain loads
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_head_blocked_rel_tc_edges_on_card(cuda_device, q_len, k_len, h, dh,
+                                           rate):
+    """bf16 #14 (the tensor-core kernel) against its plain version within
+    the forward bound, with one query row of each head masked whole, and the
+    same bits twice."""
+    rng = np.random.RandomState(q_len + k_len + dh)
+    d = h * dh
+    q = torch.from_numpy(rng.randn(2, q_len, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(2, k_len, d).astype(np.float32))
+            for _ in range(2))
+    eb = torch.from_numpy(rng.randn(2, h, q_len, k_len).astype(np.float32))
+    eb[1, :, q_len // 2] = -1e30
+    q, k, v, eb = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v, eb))
+    kw = dict(n_heads=h, scale=dh ** -0.5, rate=rate, seed=2 ** 58 + 7)
+    out = tfa.attn_fwd_rel_hb_cuda(q, k, v, eb, **kw)
+    _card_close(out, tfa.attn_fwd_rel_hb_reference(q, k, v, eb, **kw),
+                "bfloat16")
+    assert torch.equal(out, tfa.attn_fwd_rel_hb_cuda(q, k, v, eb, **kw))
+
+
+@pytest.mark.cuda
+def test_head_blocked_rel_keep_mask_on_card(cuda_device):
+    """bf16 #14's keep mask is the plain Philox mask bit for bit: with q = k
+    = 0 and a zero ebias every prob is 1/K, and with v_h the identity (K =
+    Dh = 128) the output is > 0 exactly where (b, h, q, c) is kept."""
+    b, q_len, h, dh, rate, seed = 2, 96, 3, 128, 0.1, 2 ** 62 + 13
+    q = torch.zeros(b, q_len, h * dh, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros(b, dh, h * dh, device=cuda_device, dtype=torch.bfloat16)
+    v = torch.eye(dh, device=cuda_device, dtype=torch.bfloat16)[
+        None, :, None, :].expand(b, dh, h, dh).reshape(b, dh, h * dh)
+    eb = torch.zeros(b, h, q_len, dh, device=cuda_device,
+                     dtype=torch.bfloat16)
+    out = tfa.attn_fwd_rel_hb_cuda(q, k, v.contiguous(), eb, n_heads=h,
+                                   scale=dh ** -0.5, rate=rate, seed=seed)
+    keep = tfa.dropout_keep_mask(seed, b, h, q_len, dh, rate, cuda_device)
+    assert torch.equal(out.view(b, q_len, h, dh).permute(0, 2, 1, 3) > 0,
+                       keep)
 
 
 @pytest.mark.cuda
