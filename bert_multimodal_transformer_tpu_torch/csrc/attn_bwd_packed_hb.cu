@@ -17,12 +17,35 @@
 //
 // What bounds it on the card: five S×S×Dh products per (b, h), ~97 GFLOP
 // at the driver's training shape (B=48, S=512, H=12, Dh=64), operations
-// bound on any core. The trouble is the reductions: dQ reduces over keys
-// while dK and dV reduce over queries, and #2's plan, one block holding
-// the whole [S, S] problem, fits 227 KB only up to S = 140.
+// bound on any core (0.098 ms at the bf16 tensor-core peak). The trouble is
+// the reductions: dQ reduces over keys while dK and dV reduce over
+// queries, and #2's plan, one block holding the whole [S, S] problem, fits
+// 227 KB only up to S = 140.
 //
-// What the design does about that: one block per (head, batch row) walks
-// its query rows in tiles of 32, in order. For each tile it recomputes the
+// What the design does about that (bf16): #7's two tensor-core passes
+// (attn_bwd_packed_tc.cuh, kOwnStats true), each a deterministic reduction
+// inside its blocks, with the row statistics that #7 takes from its
+// forward computed here: #4 returns no lse, and #2's δ is Σ_k t, not
+// Σ g ⊙ o. The dQ pass (one block per 64-query tile, head and batch row)
+// walks the keys twice through one two-stage cp.async ring: first for the
+// online max, denominator and δ·l of its rows (S = Q·Kᵀ and d(pd) = g·Vᵀ
+// on mma.sync, the keep mask replayed), which it writes as m, 1/l and δ
+// [B, H, S] fp32 into ws; then for p = exp(s − m) · (1/l), ds and dQ (m and
+// 1/l apart, not lse = m + log l: a batch row masked whole has its scores
+// near −10^4, where an fp32 lse keeps ~5e-4 of p's relative precision). The
+// dK/dV pass (one block per 64-key tile), launched second, reads them and
+// walks the queries. Both passes tile S and d(pd) alike and run the same
+// elementwise step (`tc_grads`) on the same statistics' bits, so they see
+// the same ds bits; nine products in all against the five of the minimum,
+// ~174 GFLOP at the training shape, and nothing S-sized in shared memory:
+// 72.3 KB at Dh = 64 (two blocks an SM), 120.3 KB at Dh = 128, at any S. No
+// atomics: the same bits twice. p = exp(s − m) · (1/l) and the online δ
+// differ from #2's e / l and whole-row Σ t at the fp32 level, so bf16 #5 is
+// held to #2 within `dqkv_bf16_bound`, no longer bit for bit.
+//
+// fp32 input keeps the CUDA-core kernel (`attn_bwd_packed_hb_kernel`), #2's
+// bits wherever both reach: one block per (head, batch row) walks its
+// query rows in tiles of 32, in order. For each tile it recomputes the
 // tile's whole score rows (row max and sum exact, as #2), replays the mask,
 // forms ds for those rows, writes the tile's dQ rows, and adds the tile's
 // dK and dV contributions into fp32 accumulators that the block alone owns:
@@ -30,17 +53,19 @@
 // workspace (ws) the wrapper allocates, read and written by the same
 // thread each tile. The last tile rounds them into dqkv. Every sum runs in
 // #2's order (a key's dK chain goes over the queries in ascending order,
-// across tiles), so #5 gives #2's bits wherever both reach (S ≤ 140), with
-// no atomics and bit-reproducible results. Shared plan: P and Tt
+// across tiles), so fp32 #5 gives #2's bits wherever both reach (S ≤ 140),
+// with no atomics and bit-reproducible results. Shared plan: P and Tt
 // [32][S], Q and g tiles [32][Dh+1], a [32][Dh+1] K/V chunk and the [S]
 // bias, 211 KB at S = 640, Dh = 128 (up to S = 703 at Dh = 128, 798 at
 // Dh = 64). That leaves one block an SM, so a block has 16 warps to hide
-// the latency of its dependent chains and ws reads (on an H100 at the
-// training shape, bf16 rate 0.1: 28.1 ms against 42.3 ms with 8 warps,
-// the same bits; PERF.md).
-// B·H = 576 blocks at the training shape fill the 132 SMs. The products
-// run on the CUDA cores in fp32.
+// the latency of its dependent chains and ws reads. B·H = 576 blocks at the
+// training shape fill the 132 SMs. The products run on the CUDA cores in
+// fp32. The entries dispatch on the dtype; a bf16 call always launches the
+// tensor-core passes or returns the launch's error
+// (cudaErrorMisalignedAddress where qkv or g does not start on the 16
+// bytes cp.async copies).
 
+#include "attn_bwd_packed_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -228,48 +253,68 @@ int launch(const void* qkv, const void* mask, const void* g, void* dqkv,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* qkv, const void* mask, const void* g, void* dqkv,
-             void* ws, int B, int S, int H, int Dh, float scale,
-             bool dropout, DropoutArgs drop, cudaStream_t st) {
-  if (dropout)
-    return launch<T, true>(qkv, mask, g, dqkv, ws, B, S, H, Dh, scale, drop,
-                           st);
-  return launch<T, false>(qkv, mask, g, dqkv, ws, B, S, H, Dh, scale, drop,
-                          st);
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. mask may be null (no padding). g is
-// the context gradient [B, S, D], dqkv the packed gradient [B, S, 3D],
-// both in the input dtype; ws an fp32 workspace of 2·B·H·S·Dh floats
-// (contents ignored). dropout = 0 ignores seed/threshold/inv_keep. Returns
-// the cudaError_t of the launch (0 on success); a shape past the
-// shared-memory plan returns cudaErrorInvalidValue.
+// The backward of #5. dtype: 0 = float32, 1 = bfloat16. mask may be null
+// (no padding). g is the context gradient [B, S, D], dqkv the packed
+// gradient [B, S, 3D], both in the input dtype. fp32: the CUDA-core kernel,
+// the whole backward in one launch; ws an fp32 workspace of 2·B·H·S·Dh
+// floats (contents ignored). bf16: the first of the two tensor-core
+// passes, the statistics walk and dQ, which writes the rows' m, 1/l and δ
+// into ws (fp32 [3][B, H, S]) and dqkv's q columns;
+// `attn_bwd_packed_hb_dkdv` is the second. dropout = 0 ignores
+// seed/threshold/inv_keep. Returns the cudaError_t of the launch (0 on
+// success); a shape past the dtype's shared-memory plan returns
+// cudaErrorInvalidValue.
 int attn_bwd_packed_hb(const void* qkv, const void* mask, const void* g,
                        void* dqkv, void* ws, int B, int S, int H, int Dh,
                        float scale, int dropout, unsigned long long seed,
                        unsigned int threshold, float inv_keep, int dtype,
                        void* stream) {
   if (B < 1 || S < 1 || H < 1 || Dh < 8 || Dh > kMaxDh || Dh % 8 != 0 ||
-      smem_floats(S, Dh) * sizeof(float) > attn::kMaxSmemBytes)
+      (dtype == 0 &&
+       smem_floats(S, Dh) * sizeof(float) > attn::kMaxSmemBytes))
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutArgs drop{seed, threshold, inv_keep};
-  switch (dtype) {
+  switch (dtype * 2 + (dropout != 0)) {
     case 0:
-      return dispatch<float>(qkv, mask, g, dqkv, ws, B, S, H, Dh, scale,
-                             dropout != 0, drop, st);
+      return launch<float, false>(qkv, mask, g, dqkv, ws, B, S, H, Dh, scale,
+                                  drop, st);
     case 1:
-      return dispatch<__nv_bfloat16>(qkv, mask, g, dqkv, ws, B, S, H, Dh,
-                                     scale, dropout != 0, drop, st);
+      return launch<float, true>(qkv, mask, g, dqkv, ws, B, S, H, Dh, scale,
+                                 drop, st);
+    case 2:
+    case 3:
+      return packed_tc::launch_pass<false, true>(
+          qkv, mask, nullptr, static_cast<float*>(ws), g, dqkv, B, S, H, Dh,
+          scale, dropout != 0, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The second bf16 pass of #5, launched after `attn_bwd_packed_hb` on the
+// same stream with the same arguments: the dK/dV pass, reading the
+// statistics that the first wrote into ws, writes dqkv's k and v columns.
+// Returns the cudaError_t of the launch; any dtype but bfloat16 returns
+// cudaErrorInvalidValue (fp32 is one launch).
+int attn_bwd_packed_hb_dkdv(const void* qkv, const void* mask, const void* g,
+                            void* dqkv, void* ws, int B, int S, int H,
+                            int Dh, float scale, int dropout,
+                            unsigned long long seed, unsigned int threshold,
+                            float inv_keep, int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || Dh < 8 || Dh > kMaxDh || Dh % 8 != 0 ||
+      dtype != 1)
+    return (int)cudaErrorInvalidValue;
+  if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
+  return packed_tc::launch_pass<true, true>(
+      qkv, mask, nullptr, static_cast<float*>(ws), g, dqkv, B, S, H, Dh,
+      scale, dropout != 0, DropoutArgs{seed, threshold, inv_keep},
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -32,11 +32,12 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #4, #6, #7, #14, #23 and #24 run their products on the tensor
+In bf16, #4-#7, #14, #16, #23 and #24 run their products on the tensor
 cores (``mma.sync`` from ``ldmatrix``, operands staged by ``cp.async``);
 fp32 keeps their CUDA-core kernels. Their shared-memory plans are
-``hb_fwd_smem_bytes``, ``fs_fwd_smem_bytes``, ``fs_bwd_smem_bytes``,
-``rel_hb_fwd_smem_bytes``, ``relik_fs_fwd_smem_bytes`` and
+``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``, ``fs_fwd_smem_bytes``,
+``fs_bwd_smem_bytes``, ``rel_hb_fwd_smem_bytes``,
+``rel_fs_fwd_smem_bytes``, ``relik_fs_fwd_smem_bytes`` and
 ``relik_fs_bwd_smem_bytes``; each wrapper checks its plan before the
 launch and raises past it.
 
@@ -665,10 +666,20 @@ def attn_bwd_packed_saved_cuda(
     return dqkv
 
 
-def hb_bwd_smem_bytes(s: int, dh: int) -> int:
-    """Shared memory of one #5 block (``csrc/attn_bwd_packed_hb.cu``'s
-    ``smem_floats``): P and Tt [32][S], the Q and g tiles and a K/V chunk
-    [32][Dh+1] each, and the [S] bias, in fp32."""
+def hb_bwd_smem_bytes(s: int, dh: int, itemsize: int = 2) -> int:
+    """Shared memory of the larger of #5's blocks at sequence length ``s``
+    and head width ``dh``. bf16 (itemsize 2, the tensor-core passes of
+    ``csrc/attn_bwd_packed_tc.cuh`` with their own statistics, at any S):
+    the dK/dV block's K and V and its two-stage Q and g rings, bf16
+    [64][``_tc_ld``] each, the bf16 pd_c and ds_c tiles [64][72] and the
+    [64] bias (72.3 KB at Dh = 64: two blocks an SM); the dQ block's Q, g
+    and two-stage K and V rings, two [64] bias blocks and the statistics'
+    [3][64] exchange. fp32 (the CUDA-core kernel's ``smem_floats``): P and
+    Tt [32][S], the Q and g tiles and a K/V chunk [32][Dh+1] each, and the
+    [S] bias, in fp32."""
+    if itemsize == 2:
+        return max(6 * 64 * _tc_ld(dh) * 2 + 2 * 64 * 72 * 2 + 64 * 4,
+                   6 * 64 * _tc_ld(dh) * 2 + 5 * 64 * 4)
     return 4 * (2 * 32 * s + 3 * 32 * (dh + 1) + s)
 
 
@@ -691,6 +702,20 @@ def fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
         return (5 * 64 * _tc_ld(dh) * 2 + 64 * 72 * 4 + 64 * 72 * 2
                 + (3 * 64 + 2 * 64) * 4)
     return 4 * (64 * dh + 64 * (dh + 1) + 64 * 64 + 3 * 64 + 64)
+
+
+def rel_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
+    """Shared memory of one #16 block at head width ``dh``. bf16 (the
+    tensor-core kernel's ``tc_smem_bytes``): q and the two-stage k and v
+    rings, bf16 [64][``_tc_ld``] each; the two-stage ebias ring bf16
+    [64][72]; the fp32 scores and the bf16 weights [64][72]; the rows' m,
+    l and α (90.8 KB at Dh = 64: two blocks an SM). fp32 (the CUDA-core
+    kernel's ``smem_floats``): the q tile [64][Dh], a k/v block
+    [64][Dh+1], the scores [64][64] and m, l, α, in fp32."""
+    if itemsize == 2:
+        return (5 * 64 * _tc_ld(dh) * 2 + 2 * 64 * 72 * 2 + 64 * 72 * 4
+                + 64 * 72 * 2 + 3 * 64 * 4)
+    return 4 * (64 * dh + 64 * (dh + 1) + 64 * 64 + 3 * 64)
 
 
 def hb_fwd_smem_bytes(s: int, dh: int, itemsize: int = 2) -> int:
@@ -809,20 +834,32 @@ def attn_bwd_packed_hb_cuda(qkv, attention_mask, seed, g, *, n_heads, scale,
                             rate=0.0):
     """Launch kernel #5 (``csrc/attn_bwd_packed_hb.cu``): dqkv [B, S, 3·D]
     with the probs recomputed and the keep mask replayed from ``seed``,
-    S ≤ ``HB_MAX_SEQ_LEN``. The kernel's fp32 dK/dV accumulators live in a
-    [B, H, 2, S, Dh] workspace allocated here."""
+    S ≤ ``HB_MAX_SEQ_LEN``. bf16: two tensor-core kernels on the current
+    stream, each counted, the statistics and dQ pass and then the dK/dV
+    pass, through the rows' max m, 1/l and δ in a [3, B, H, S] fp32
+    workspace allocated here. fp32: one CUDA-core kernel, its dK/dV
+    accumulators in a [B, H, 2, S, Dh] fp32 workspace. Raises past the
+    shared-memory plan (``hb_bwd_smem_bytes``)."""
+    _, s, _, dh = _check_geometry(qkv, n_heads)
+    _check_plan("attn_bwd_packed_hb",
+                hb_bwd_smem_bytes(s, dh, qkv.element_size()),
+                f"S={s}, Dh={dh}")
     b, s, d, dh = _check_cuda("attn_bwd_packed_hb", qkv, n_heads,
                               HB_MAX_SEQ_LEN)
     mask = _mask_arg(attention_mask, qkv, b, s)
     _like("g", g, qkv, (b, s, d))
     dqkv = torch.empty_like(qkv)
-    ws = torch.empty((b, n_heads, 2, s, dh), dtype=torch.float32,
-                     device=qkv.device)
-    _launch("attn_bwd_packed_hb", qkv.data_ptr(), _ptr(mask), g.data_ptr(),
-            dqkv.data_ptr(), ws.data_ptr(), b, s, n_heads, dh, float(scale),
-            *_drop_args(rate, seed), _DTYPE_CODES[qkv.dtype],
-            device=qkv.device)
+    bf16 = qkv.dtype == torch.bfloat16
+    ws = torch.empty((3, b, n_heads, s) if bf16 else (b, n_heads, 2, s, dh),
+                     dtype=torch.float32, device=qkv.device)
+    args = (qkv.data_ptr(), _ptr(mask), g.data_ptr(), dqkv.data_ptr(),
+            ws.data_ptr(), b, s, n_heads, dh, float(scale),
+            *_drop_args(rate, seed), _DTYPE_CODES[qkv.dtype])
+    _launch("attn_bwd_packed_hb", *args, device=qkv.device)
     attn_bwd_packed_hb_cuda.launches += 1
+    if bf16:
+        _launch("attn_bwd_packed_hb_dkdv", *args, device=qkv.device)
+        attn_bwd_packed_hb_cuda.launches += 1
     return dqkv
 
 
@@ -2238,8 +2275,13 @@ def attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g, *, n_heads, scale,
 
 def attn_fwd_rel_fs_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0,
                          seed=0):
-    """Launch kernel #16 (``csrc/attn_fwd_rel_fs.cu``): any Q and K. Returns
-    (out [B, Q, D], lse [B, H, Q] fp32)."""
+    """Launch kernel #16 (``csrc/attn_fwd_rel_fs.cu``): any Q and K; bf16
+    on the tensor cores, fp32 on the CUDA cores. Raises past the
+    shared-memory plan (``rel_fs_fwd_smem_bytes``). Returns (out
+    [B, Q, D], lse [B, H, Q] fp32)."""
+    dh = _check_rel_geometry(q, k, v, ebias, n_heads)[3]
+    _check_plan("attn_fwd_rel_fs",
+                rel_fs_fwd_smem_bytes(dh, q.element_size()), f"Dh={dh}")
     b, q_len, k_len, dh = _check_rel_cuda("attn_fwd_rel_fs", q, k, v, ebias,
                                           n_heads, bwd=False, max_k=None)
     out = torch.empty_like(q)

@@ -127,11 +127,12 @@ def load_kernels() -> ctypes.CDLL:
                                         + [i32, ptr])
         lib.attn_bwd_packed.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
         lib.attn_bwd_packed_saved.argtypes = [ptr] * 5 + dims + [i32, ptr]
-        # attn_fwd_packed_hb: qkv, mask, out; attn_bwd_packed_hb: qkv, mask,
-        # g, dqkv, ws; attn_fwd_packed_fs: qkv, mask, out, lse;
+        # attn_fwd_packed_hb: qkv, mask, out; attn_bwd_packed_hb{,_dkdv}:
+        # qkv, mask, g, dqkv, ws; attn_fwd_packed_fs: qkv, mask, out, lse;
         # attn_bwd_packed_fs_{dkdv,dq}: qkv, mask, o, lse, g, dqkv.
         lib.attn_fwd_packed_hb.argtypes = [ptr] * 3 + dims + drop + [i32, ptr]
-        lib.attn_bwd_packed_hb.argtypes = [ptr] * 5 + dims + drop + [i32, ptr]
+        for fn in (lib.attn_bwd_packed_hb, lib.attn_bwd_packed_hb_dkdv):
+            fn.argtypes = [ptr] * 5 + dims + drop + [i32, ptr]
         lib.attn_fwd_packed_fs.argtypes = [ptr] * 4 + dims + drop + [i32, ptr]
         for fn in (lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq):
             fn.argtypes = [ptr] * 6 + dims + drop + [i32, ptr]
@@ -188,7 +189,8 @@ def load_kernels() -> ctypes.CDLL:
         lib.mag_bwd.argtypes = [ptr] * 21 + mag + [i32, ptr]
         for fn in (lib.attn_fwd_packed, lib.attn_bwd_packed,
                    lib.attn_bwd_packed_saved, lib.attn_fwd_packed_hb,
-                   lib.attn_bwd_packed_hb, lib.attn_fwd_packed_fs,
+                   lib.attn_bwd_packed_hb, lib.attn_bwd_packed_hb_dkdv,
+                   lib.attn_fwd_packed_fs,
                    lib.attn_bwd_packed_fs_dkdv, lib.attn_bwd_packed_fs_dq,
                    lib.attn_fwd_split, lib.attn_bwd_split,
                    lib.attn_bwd_split_saved, lib.attn_fwd_qkvproj,

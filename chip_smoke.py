@@ -47,13 +47,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    within a stated bf16 bound, and in fp32 #7 against the whole-row
    backward on the rows with a real token; the bf16 tensor-core plans'
    edges (``FS_EDGES``, ``HB_EDGES``: Dh=40, Dh=128 at S=640, S ragged off
-   16, 700 for #7); #4 against #1 (S=128, 512) bit for bit in fp32 and
-   within the forward bound in bf16, #5 against #2 (S=128) bit for bit;
-   #4's and #6's keep masks against the plain Philox mask bit for bit (Q =
-   K = 0, V the identity); the same bits twice. Then the four timed at the
-   driver's shapes (bf16 B=48; #4 and #5 at S=512, #6 and #7 at S=1024) at
-   rate 0 beside ``scaled_dot_product_attention`` (forward; its autograd
-   backward) and at rate 0.1.
+   16, 700 for #7; ``HB_BWD_EDGES``: S=141, the first S that takes #5
+   with a gradient); #4 against #1 (S=128, 512) and #5 against #2 (S=128)
+   bit for bit in fp32, within the forward bound and ``dqkv_bf16_bound`` in
+   bf16; #4's, #6's and #5's keep masks against the plain Philox mask bit
+   for bit (Q = K = 0, V the identity; #5's dV with g the identity); the
+   same bits twice. Then the four timed at
+   the driver's shapes (bf16 B=48; #4 and #5 at S=512, #6 and #7 at
+   S=1024) at rate 0 beside ``scaled_dot_product_attention`` (forward; its
+   autograd backward) and at rate 0.1, #5's two launches also apart.
 3f. The long-sequence rel kernels (#14/#15 head-blocked, #23/#24 the
    ingredients flash-streamed tier) against their plain versions, with the
    bf16 tensor-core plans' edges (``RELIK_FS_EDGES``: Dh=40 and 128, S
@@ -65,8 +67,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward in two launches, debias from the dQ pass) against their plain
    versions on the ebias the model assembles: fp32 B=2 at a ragged Q=70
    K=131, bf16 B=2 at Q=K=1024 and at Q=512 K=1024 (the memory's K ≠ Q),
-   rates 0.1 and 0; #17 within ``rel_fs_grads_bf16_bound``; the same bits
-   twice. #16's and #14's keep masks equal to the plain Philox mask bit
+   and the edges of bf16 #16's tensor-core plan (``REL_FS_EDGES``: Q=70
+   K=131, Q=512 K=562, Q=136 K=200 at Dh=128, Dh=40, each with a key block
+   and a query row masked whole), rates 0.1 and 0; #17 within
+   ``rel_fs_grads_bf16_bound``; the same bits twice. #16's and #14's keep masks equal to the plain Philox mask bit
    for bit at Q=K=512 (q = 0, v the identity on a rotating key window),
    #16's output against #14's within a stated bf16 bound. Then both timed
    at bf16 B=48 Q=K=1024 at rate 0 (beside SDPA with the ebias as a float
@@ -181,8 +185,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    device time by kernel.
 6c. The driver at long sequences: ``driver.main ... --attention_impl
    fused --max_seq_length 512`` and ``1024`` over synthetic splits of
-   96/48/48: exit 0, finite losses; at 512 training takes #4 and #5 and
-   evaluation #1; at 1024 training takes #6 and #7 and evaluation #6.
+   96/48/48: exit 0, finite losses; at 512 training takes #4 and #5 (two
+   launches a call) and evaluation #1; at 1024 training takes #6 and #7
+   and evaluation #6.
    Then one training step at B=48, S=512 and 1024, by device time.
 6d. The XLNet driver at long sequences: ``--max_seq_length 512`` and
    ``1024`` (#23/#24 in training), ``--rel_bias_impl stream`` at 512
@@ -349,20 +354,23 @@ def _card() -> str:
 
 def tc_ptxas_lines(log):
     """``-Xptxas -v``'s registers and spills of the tensor-core kernels
-    (the bf16 instantiations of #4, #6, #7's two passes, #14, #23 and #24's
-    two passes), one line each, from the build log."""
+    (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
+    passes of #5 and #7 and #24's two passes), one line each, from the
+    build log. Template arguments print in order: the packed passes' are
+    <n8 tiles of Dh, own statistics (#5 true, #7 false), dropout>."""
     import re
 
     lines, name, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?((?:attn_fwd_(?:packed"
-                      r"|relik)_fs|attn_fwd_(?:packed|rel)_hb|attn_bwd_"
-                      r"(?:packed|relik)_fs_(?:dkdv|dq))_tc_kernel)"
-                      r"I(?:Li(\d+)E)?Lb([01])E", line)
+                      r"|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|attn_bwd_"
+                      r"packed_(?:dkdv|dq)|attn_bwd_relik_fs_(?:dkdv|dq))"
+                      r"_tc_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
-            tiles = f"{m.group(2)}, " if m.group(2) else ""
-            name = (f"{m.group(1)}<{tiles}"
-                    f"{'true' if m.group(3) == '1' else 'false'}>")
+            args = ", ".join(
+                v if k == "i" else ("true" if v == "1" else "false")
+                for k, v in re.findall(r"L([ib])(\d+)E", m.group(2)))
+            name = f"{m.group(1)}<{args}>"
             continue
         if name and "spill" in line:
             spills = line.strip()
@@ -1915,6 +1923,9 @@ FS_EDGES = ((2, 200, 4, 64), (2, 256, 3, 40), (2, 130, 2, 128))
 # zero-padded k-depth ragged off 16, #4's reach at the widest head, #7's
 # ragged last key tile (every case's mask has a fully padded row).
 HB_EDGES = ((2, 333, 3, 40), (2, 640, 2, 128), (2, 700, 2, 64))
+# #5's beyond those: S = 141, the first S that takes it with a gradient
+# (its fully padded batch row included, as every case's).
+HB_BWD_EDGES = ((2, 141, 12, 64),)
 # #23's and #24's (and #14's where K ≤ 640) beyond those: S ragged off 16
 # and off 64, Q ≠ K at the widest head.
 RELIK_FS_EDGES = ((2, 200, 200, 4, 64), (2, 128, 128, 3, 40),
@@ -2042,10 +2053,12 @@ def check_long_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
 
 def check_long_against_full(rng, fa):
     """#4 against #1 (S = 128, 512) and #5 against #2 (S = 128) at rate
-    0.1. fp32 #4 and #5 run #1's and #2's row code: the same bits. bf16 #5
-    likewise; bf16 #4 sums its dots on the tensor cores in another order
-    than #1's CUDA-core chains, so it is held to #1 within the phase-3
-    forward bound (``_forward_err``)."""
+    0.1. fp32 #4 and #5 run #1's and #2's row code: the same bits. In bf16
+    both run on the tensor cores: #4 sums its dots in another order than
+    #1's CUDA-core chains, so it is held to #1 within the phase-3 forward
+    bound (``_forward_err``); #5 rebuilds p from its own online statistics
+    (exp(s − m)·(1/l), δ an online sum) where #2 takes the whole-row e / l
+    and Σ t, so it is held to #2 within ``dqkv_bf16_bound``."""
     import torch
 
     for dtype_name in ("bf16", "fp32"):
@@ -2062,10 +2075,19 @@ def check_long_against_full(rng, fa):
             for name, got, want in pairs:
                 tag = f"{name} {dtype_name} B=8 S={s} rate {RATE}"
                 same = torch.equal(got, want)
-                if name == "#4 vs #1" and dtype_name == "bf16":
-                    err = _forward_err(tag, got, want, dtype_name)
-                    print(f"{tag}: within the forward bound, max |Δ| "
-                          f"{err:.3e} (identical bits {same})")
+                if dtype_name == "bf16":
+                    if name == "#4 vs #1":
+                        err = _forward_err(tag, got, want, dtype_name)
+                        what = "the forward bound"
+                    else:
+                        _, p, pd = fa.attn_fwd_packed_reference(
+                            qkv, mask, seed=seed, save=True, **kw)
+                        err = _grad_err(tag, got, want, dtype_name, (
+                            p, pd, qkv, g, dict(n_heads=12, scale=0.125)),
+                            fa)
+                        what = "dqkv_bf16_bound"
+                    print(f"{tag}: within {what}, max |Δ| {err:.3e} "
+                          f"(identical bits {same})")
                     continue
                 diff = float((got.float() - want.float()).abs().max())
                 print(f"{tag}: identical bits {same}, max |Δ| {diff:.3e}")
@@ -2074,11 +2096,13 @@ def check_long_against_full(rng, fa):
 
 
 def check_long_masks(rng, fa):
-    """#4's and #6's keep masks against the plain Philox mask, bit for bit:
-    with Q = K = 0 every score is 0 and p = 1/S, and with V_h the identity
-    (S = Dh = 128) the output is out[q, h, c] = keep(q, c)/(S·(1 − rate))
-    rounded, > 0 exactly where (b, h, q, c) is kept. bf16 B=2 S=128 H=6
-    Dh=128 at rate 0.1; the keep rate within 5σ of 0.9."""
+    """#4's, #6's and #5's keep masks against the plain Philox mask, bit
+    for bit: with Q = K = 0 every score is 0 and p = 1/S, and with V_h the
+    identity (S = Dh = 128) the output is out[q, h, c] = keep(q, c)/(S·(1 −
+    rate)) rounded, > 0 exactly where (b, h, q, c) is kept; with g_h the
+    identity #5's dV[k, h, c] = pd(c, k) likewise (its dK/dV pass's mask).
+    bf16 B=2 S=128 H=6 Dh=128 at rate 0.1; the keep rate within 5σ of
+    0.9."""
     import torch
 
     b, s, h, dh = 2, 128, 6, 128
@@ -2089,10 +2113,17 @@ def check_long_masks(rng, fa):
     seed = int(rng.integers(0, 2 ** 63 - 1))
     keep = fa.dropout_keep_mask(seed, b, h, s, s, RATE, "cuda")
     kw = dict(n_heads=h, scale=1.0 / dh ** 0.5, rate=RATE, seed=seed)
+    eye = qkv.view(b, s, 3, h * dh)[:, :, 2].contiguous()  # g_h = I
+    d5 = fa.attn_bwd_packed_hb_cuda(qkv, None, seed, eye, n_heads=h,
+                                    scale=kw["scale"], rate=RATE)
     for name, out in (
             ("#4", fa.attn_fwd_packed_hb_cuda(qkv, None, **kw)),
-            ("#6", fa.attn_fwd_packed_fs_cuda(qkv, None, **kw)[0])):
-        kernel_keep = out.view(b, s, h, dh).permute(0, 2, 1, 3) > 0
+            ("#6", fa.attn_fwd_packed_fs_cuda(qkv, None, **kw)[0]),
+            ("#5's dV", d5.view(b, s, 3, h, dh)[:, :, 2].permute(
+                0, 2, 3, 1))):
+        if name != "#5's dV":
+            out = out.view(b, s, h, dh).permute(0, 2, 1, 3)
+        kernel_keep = out > 0
         if not torch.equal(kernel_keep, keep):
             n_bad = int((kernel_keep != keep).sum())
             raise AssertionError(f"{name} keep mask differs from the plain "
@@ -2127,12 +2158,34 @@ def sdpa_backward_call(qkv, mask, h, scale, g):
     return call
 
 
+def hb_bwd_passes(fa, qkv, mask, seed, g, rate, h=12, scale=0.125):
+    """bf16 #5's two launches one at a time on the buffers its wrapper
+    allocates: {pass: call}, for timing the passes apart. The calls go to
+    the library directly, so no launch count moves."""
+    import torch
+
+    b, s, d3 = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    ws = torch.empty((3, b, h, s), dtype=torch.float32, device=qkv.device)
+    args = (qkv.data_ptr(), fa._ptr(mask), g.data_ptr(), dqkv.data_ptr(),
+            ws.data_ptr(), b, s, h, d3 // 3 // h, float(scale),
+            *fa._drop_args(rate, seed), fa._DTYPE_CODES[qkv.dtype])
+    keep = (dqkv, ws)
+
+    def launch(name):
+        return lambda: (keep, fa._launch(name, *args, device=qkv.device))
+
+    return {"statistics + dQ pass": launch("attn_bwd_packed_hb"),
+            "dK/dV pass": launch("attn_bwd_packed_hb_dkdv")}
+
+
 def time_long_kernels(rng, fa, card):
     """#4 and #5 at the driver's S = 512, #6 and #7 at its S = 1024, bf16
     B=48 (its train batch): at rate 0 against the plain versions and the
     library call (SDPA forward; SDPA's autograd backward), and at rate 0.1
-    (the training path) against the plain versions; alternating rounds.
-    Returns {name: entry}."""
+    (the training path) against the plain versions; alternating rounds;
+    #5's two launches timed apart (``hb_bwd_passes``). Returns {name:
+    entry}."""
     out = {}
     for s, names in ((512, ("attn_fwd_packed_hb", "attn_bwd_packed_hb")),
                      (1024, ("attn_fwd_packed_fs", "attn_bwd_packed_fs"))):
@@ -2194,6 +2247,20 @@ def time_long_kernels(rng, fa, card):
                 print(f"{name} bf16 B={TRAIN_BATCH} S={s} H=12 Dh=64 rate "
                       f"{rate} on {card}: kernel {k} ms, plain {pl} ms per "
                       f"call{lib_note}; bound {bound[0]:.4f} ms ({bound[1]})")
+            if bwd == "attn_bwd_packed_hb":
+                passes = hb_bwd_passes(fa, qkv, mask, seed, g, rate)
+                for call in passes.values():
+                    _time_ms(call, 2)
+                pass_ms = {n: float(np.mean([_time_ms(c, 3)
+                                             for _ in range(2)]))
+                           for n, c in passes.items()}
+                e5 = out[bwd]
+                (e5 if rate == 0.0 else next(iter(e5["modes"].values())))[
+                    "passes_ms"] = pass_ms
+                print(f"{bwd} passes bf16 B={TRAIN_BATCH} S={s} rate {rate} "
+                      f"on {card}: " + ", ".join(
+                          f"{n} {v:.3f} ms" for n, v in pass_ms.items()))
+                del passes
     return out
 
 
@@ -2327,9 +2394,9 @@ def long_driver_path(args, fa, card):
     """Phase 6c: ``driver.main`` at bert-base with ``--max_seq_length 512``
     and ``1024`` (``--attention_impl fused``, bf16, one epoch over
     synthetic splits of 96/48/48). Checks: exit 0, finite losses, and the
-    launches: at S=512 training takes #4 and #5 and evaluation #1; at
-    S=1024 training takes #6 and #7 (two launches a call) and evaluation
-    #6. Returns {S: counts}."""
+    launches: at S=512 training takes #4 and #5 (two launches a call) and
+    evaluation #1; at S=1024 training takes #6 and #7 (two launches a
+    call) and evaluation #6. Returns {S: counts}."""
     from bert_multimodal_transformer_tpu_torch.config import BertConfig
 
     layers = BertConfig.bert_base_uncased().num_hidden_layers
@@ -2345,7 +2412,7 @@ def long_driver_path(args, fa, card):
         counts[s] = run_driver(argv, fa, card)
         if s == 512:
             want = _want(fa, attn_fwd_packed_hb=layers * n_train,
-                         attn_bwd_packed_hb=layers * n_train,
+                         attn_bwd_packed_hb=2 * layers * n_train,
                          attn_fwd_packed=layers * n_eval)
         else:
             want = _want(fa, attn_fwd_packed_fs=layers * (n_train + n_eval),
@@ -2965,22 +3032,35 @@ def xlnet_long_step_profile(args, rng, card, impl="auto", s=1024,
 # The rel flash-streamed tier's checks (3g): (dtype, B, Q, K) with rates.
 REL_FS_CASES = (("fp32", 2, 70, 131), ("bf16", 2, 1024, 1024),
                 ("bf16", 2, 512, 1024))
+# The edges of bf16 #16's tensor-core plan, (B, Q, K, H, Dh), each with a
+# 64-key block and a query row masked whole: K ragged off 8 (the ebias by
+# plain loads), the 50-row memory (K = 562), the widest head ragged off 64,
+# a zero-padded k-depth.
+REL_FS_EDGES = ((2, 70, 131, 3, 64), (2, 512, 562, 12, 64),
+                (2, 136, 200, 2, 128), (2, 256, 320, 3, 40))
 MEM_LEN = 512                 # the long-memory driver runs: K = 512 + 512
 XLNET_FS_CHECK_BATCH = 4      # the S=1024 stream gradient check's batch
 
 
-def check_rel_fs_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
+def check_rel_fs_kernels(rng, fa, dtype_name, b, q_len, k_len, rate, h=12,
+                         dh=64, masked=False):
     """Phase 3g on one case: #16 (out and lse) and #17 (dq, dk, dv, debias)
     against their plain versions on the ebias the model assembles (K > Q:
-    the memory's keys first); lse to 1e-4 absolute plus 1e-6 relative (no
-    row is masked whole: each query sees its own key); #17 within
-    ``rel_fs_grads_bf16_bound`` (fp32: GRAD_FP32_TOL); the same bits from
-    the same seed twice. Returns the max errors."""
+    the memory's keys first); with ``masked`` also keys 64 .. 127 of batch
+    row 0 (a key block masked whole) and query row 3 of batch row 1, head
+    0 (a row masked whole, which comes out uniform) at −1e30. lse to 1e-4
+    absolute plus 1e-6 relative; #17 within ``rel_fs_grads_bf16_bound``
+    (fp32: GRAD_FP32_TOL); the same bits from the same seed twice. Returns
+    the max errors."""
     import torch
 
-    kw = dict(n_heads=12, scale=0.125, rate=rate)
-    tag = f"{dtype_name} B={b} Q={q_len} K={k_len} H=12 Dh=64 rate={rate}"
-    q, k, v, ebias, g = rel_case(rng, dtype_name, b, q_len, k_len)
+    kw = dict(n_heads=h, scale=dh ** -0.5, rate=rate)
+    tag = (f"{dtype_name} B={b} Q={q_len} K={k_len} H={h} Dh={dh} "
+           f"rate={rate}" + (", masked block and row" if masked else ""))
+    q, k, v, ebias, g = rel_case(rng, dtype_name, b, q_len, k_len, h, dh)
+    if masked:
+        ebias[0, :, :, 64:128] = -1e30
+        ebias[1, 0, 3, :] = -1e30
     seed = int(rng.integers(0, 2 ** 63 - 1))
     out, lse = fa.attn_fwd_rel_fs_cuda(q, k, v, ebias, seed=seed, **kw)
     r_out, r_lse = fa.attn_fwd_rel_fs_reference(q, k, v, ebias, seed=seed,
@@ -5014,6 +5094,14 @@ def main() -> int:
                                          h, dh)
             for k_, v_ in errs.items():
                 long_errs[k_] = max(long_errs.get(k_, 0.0), v_)
+    # #5's, from a stream of their own likewise
+    hb_bwd_edge_rng = np.random.default_rng([args.seed, 13])
+    for b, s, h, dh in HB_BWD_EDGES:
+        for rate in (RATE, 0.0):
+            errs, _ = check_long_kernels(hb_bwd_edge_rng, fa, "bf16", b, s,
+                                         rate, h, dh)
+            for k_, v_ in errs.items():
+                long_errs[k_] = max(long_errs.get(k_, 0.0), v_)
     check_long_against_full(rng, fa)
     check_long_masks(rng, fa)
     long_times = time_long_kernels(rng, fa, card)
@@ -5043,6 +5131,14 @@ def main() -> int:
         for rate in (RATE, 0.0):
             for k_, v_ in check_rel_fs_kernels(rng, fa, dtype_name, b, q_len,
                                                k_len, rate).items():
+                rel_fs_errs[k_] = max(rel_fs_errs.get(k_, 0.0), v_)
+    # bf16 #16's edges, from a stream of their own
+    rel_fs_edge_rng = np.random.default_rng([args.seed, 14])
+    for b, q_len, k_len, h, dh in REL_FS_EDGES:
+        for rate in (RATE, 0.0):
+            for k_, v_ in check_rel_fs_kernels(
+                    rel_fs_edge_rng, fa, "bf16", b, q_len, k_len, rate, h, dh,
+                    masked=True).items():
                 rel_fs_errs[k_] = max(rel_fs_errs.get(k_, 0.0), v_)
     torch.cuda.empty_cache()
     check_rel_fs_against_hb(rng, fa)
@@ -5338,6 +5434,8 @@ def main() -> int:
             "max_abs_err": long_errs[tag],
             **long_times[name],
             "shape": f"bf16 B={TRAIN_BATCH} {shape} H=12 Dh=64 rate 0"})
+    kernels[-3]["launches_note"] = ("two kernel launches a call in bf16: the "
+                                    "statistics + dQ pass and the dK/dV pass")
     kernels[-1]["launches_note"] = ("two kernel launches a call: the dK/dV "
                                     "pass and the dQ pass")
     for name, line, tag, shape in (

@@ -195,22 +195,36 @@ def test_dispatch_takes_the_tier(s, grad, want, monkeypatch):
 
 
 def test_head_blocked_reach_fits_the_kernels_plans():
-    """HB_MAX_SEQ_LEN lies inside #4's shared-memory plans (bf16, the
-    tensor-core kernel, and fp32) and #5's at every head width the kernels
-    take (Dh ≤ 128); at Dh=64 two bf16 #4 blocks share an SM."""
+    """HB_MAX_SEQ_LEN lies inside #4's and #5's shared-memory plans (bf16,
+    the tensor-core kernels, and fp32) at every head width the kernels take
+    (Dh ≤ 128); at Dh=64 two bf16 #4 blocks share an SM. fp32 #5's plan
+    grows with S and runs out at S = 704, Dh = 128."""
     for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
         for itemsize in (2, 4):
             assert tfa.hb_fwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh,
                                          itemsize) <= tfa.MAX_SMEM_BYTES
-        assert tfa.hb_bwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh) <= (
-            tfa.MAX_SMEM_BYTES)
-    assert tfa.hb_bwd_smem_bytes(704, 128) > tfa.MAX_SMEM_BYTES
+            assert tfa.hb_bwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh,
+                                         itemsize) <= tfa.MAX_SMEM_BYTES
+    assert tfa.hb_bwd_smem_bytes(704, 128, 4) > tfa.MAX_SMEM_BYTES
     # scores [32][644] fp32, Q and the ring [32 + 128][72] bf16, bias [640]
     assert tfa.hb_fwd_smem_bytes(640, 64) == 108032
     # S = 600 walks whole 64-key blocks, as S = 640
     assert tfa.hb_fwd_smem_bytes(600, 64) == tfa.hb_fwd_smem_bytes(640, 64)
     # 1 KB of each SM's 228 KB is reserved per block
     assert 2 * (tfa.hb_fwd_smem_bytes(640, 64) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dh", [40, 64, 128])
+def test_head_blocked_backward_bf16_plan_fits(dh):
+    """bf16 #5's plan (its two tensor-core passes, nothing S-sized) fits a
+    block at any S; at Dh ≤ 64 two blocks share an SM's 228 KB (1 KB each
+    reserved)."""
+    plan = tfa.hb_bwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh)
+    assert plan == tfa.hb_bwd_smem_bytes(141, dh) <= tfa.MAX_SMEM_BYTES
+    if dh <= 64:
+        assert 2 * (plan + 1024) <= 228 * 1024
+    # K, V and the Q/g rings [6·64][72] bf16, pd_c/ds_c [2·64][72], bias
+    assert tfa.hb_bwd_smem_bytes(512, 64) == 73984
 
 
 def test_flash_streamed_backward_plan_fits_every_head_width():
@@ -249,12 +263,13 @@ def test_flash_streamed_forward_raises_past_its_plan(monkeypatch):
 
 @pytest.mark.parametrize("wrapper,plan,where", [
     ("attn_fwd_packed_hb_cuda", "hb_fwd_smem_bytes", "S=8, Dh=64"),
+    ("attn_bwd_packed_hb_cuda", "hb_bwd_smem_bytes", "S=8, Dh=64"),
     ("attn_bwd_packed_fs_cuda", "fs_bwd_smem_bytes", "Dh=64"),
 ])
 def test_long_kernels_raise_past_their_plans(wrapper, plan, where,
                                              monkeypatch):
-    """The #4 and #7 wrappers refuse a plan past 227 KB before they touch
-    the card, and name it."""
+    """The #4, #5 and #7 wrappers refuse a plan past 227 KB before they
+    touch the card, and name it."""
     qkv = torch.zeros(1, 8, 3 * 64, dtype=torch.bfloat16)
     ctx = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 8)
@@ -263,6 +278,8 @@ def test_long_kernels_raise_past_their_plans(wrapper, plan, where,
     def call():
         if wrapper == "attn_fwd_packed_hb_cuda":
             return fn(qkv, None, n_heads=1, scale=0.125)
+        if wrapper == "attn_bwd_packed_hb_cuda":
+            return fn(qkv, None, 0, ctx, n_heads=1, scale=0.125)
         return fn(qkv, None, 0, ctx, lse, ctx, n_heads=1, scale=0.125)
 
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
@@ -270,6 +287,58 @@ def test_long_kernels_raise_past_their_plans(wrapper, plan, where,
     monkeypatch.setattr(tfa, plan, lambda *a, **k: tfa.MAX_SMEM_BYTES + 1)
     with pytest.raises(ValueError, match=f"shared-memory plan at {where}"):
         call()
+
+
+def _hb_bwd_tc_plan(qkv, mask, seed, g, n_heads, scale, rate):
+    """bf16 #5's plan (``csrc/attn_bwd_packed_tc.cuh`` with its own
+    statistics) in plain torch, fp32: the statistics walk over key blocks
+    of 64 keeps each row's online max m, denominator l and δ·l = Σ e·dp
+    (dp = d(pd) dropped and scaled by the replayed mask) under one
+    rescale α = exp(m − m'); then p = exp(s − m)·(1/l), pd and ds = p·(dp −
+    δ)·scale, and dQ = ds·K, dK = dsᵀ·Q, dV = pdᵀ·g."""
+    b, s, _ = qkv.shape
+    q, k, v = (x.float() for x in tfa._heads(qkv, n_heads))
+    gh = tfa._ctx_heads(g, n_heads).float()
+    sc = (torch.matmul(q, k.transpose(-1, -2)) * scale
+          + tfa._bias(mask, b, s, qkv.device)[:, None, None, :])
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    keep = tfa.dropout_keep_mask(seed, b, n_heads, s, s, rate)
+    dp = torch.where(keep, dp * tfa.inv_keep(rate), 0.0)
+    m = torch.full(sc.shape[:3], -float("inf"))
+    den, dn = torch.zeros_like(m), torch.zeros_like(m)
+    for k0 in range(0, s, 64):
+        sb, db = sc[..., k0:k0 + 64], dp[..., k0:k0 + 64]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(sb - m_new[..., None])
+        den = den * alpha + e.sum(dim=-1)
+        dn = dn * alpha + (e * db).sum(dim=-1)
+        m = m_new
+    p = torch.exp(sc - m[..., None]) * (1.0 / den)[..., None]
+    pd = torch.where(keep, p * tfa.inv_keep(rate), 0.0)
+    ds = p * (dp - (dn / den)[..., None]) * scale
+    return tfa._pack(torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+                     torch.matmul(pd.transpose(-1, -2), gh))
+
+
+def test_head_blocked_backward_plan_is_the_recompute_backward():
+    """The statistics walk and the flash backward of bf16 #5's plan, run
+    in fp32 plain torch at B=2 S=150 (three key blocks, the last ragged)
+    H=2 Dh=16, rate 0.1, batch row 1 masked whole (every score near −10⁴),
+    give #2's (#5's plain version's) dqkv within 1e-5: the online m, l and
+    δ are the whole-row softmax's and Σ_k t to fp32 rounding. With lse =
+    m + log l in place of m and 1/l the masked row would miss it: an fp32
+    lse near −10⁴ keeps ~5e-4 of p's relative precision."""
+    qkv, mask, g = _inputs(seed=6, s=150, dh=16)
+    mask[1] = 0
+    t_qkv, t_mask, t_g = (torch.from_numpy(a) for a in (qkv, mask, g))
+    seed, scale = 2 ** 41 + 9, 0.25
+    want = tfa.attn_bwd_packed_hb_reference(t_qkv, t_mask, seed, t_g,
+                                            n_heads=H, scale=scale, rate=0.1)
+    got = _hb_bwd_tc_plan(t_qkv, t_mask, seed, t_g, H, scale, 0.1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    assert float(want[1].abs().max()) > 0.01
 
 
 def test_every_tier_drops_the_same_elements():
@@ -450,6 +519,9 @@ def _grad_bound(dtype, want, qkv, mask, g, seed, h, dh, rate):
     # #4's tensor-core edges: a zero-padded k-depth and ragged off 16
     ("bfloat16", 2, 333, 3, 40),
     ("bfloat16", 2, 200, 4, 64),
+    # #5's: the first S that takes it with a gradient (and, as every bf16
+    # case, a batch row masked whole)
+    ("bfloat16", 2, 141, 12, 64),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_head_blocked_kernels_match_plain_on_card(cuda_device, dtype, b, s,
@@ -503,21 +575,28 @@ def test_flash_streamed_kernels_match_plain_on_card(cuda_device, dtype, b,
 
 @pytest.mark.cuda
 def test_head_blocked_kernels_equal_full_h_on_card(cuda_device):
-    """Where both reach, #4 gives #1's function and #5 gives #2's bits.
-    fp32 #4 runs #1's row code: the same bits. bf16 #4 sums its dots on the
-    tensor cores in another order than #1's CUDA-core chains, so it is
-    held to #1 within the bf16 forward bound."""
+    """Where both reach, #4 gives #1's function and #5 gives #2's. fp32 #4
+    and #5 run #1's and #2's row code: the same bits. In bf16 both run on
+    the tensor cores: #4 sums its dots in another order than #1's CUDA-core
+    chains, so it is held to #1 within the bf16 forward bound; #5 rebuilds
+    p from its own online statistics where #2 takes the whole-row softmax,
+    so it is held to #2 within ``dqkv_bf16_bound``."""
     qkv, mask, g = _card_case(cuda_device, "bfloat16", 4, 128, 12, 64, 23)
     kw = dict(n_heads=12, scale=0.125, rate=0.1)
     _close(tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=9, **kw),
            tfa.attn_fwd_packed_cuda(qkv, mask, seed=9, **kw), "bfloat16")
-    assert torch.equal(tfa.attn_bwd_packed_hb_cuda(qkv, mask, 9, g, **kw),
-                       tfa.attn_bwd_packed_cuda(qkv, mask, 9, g, **kw))
+    want = tfa.attn_bwd_packed_cuda(qkv, mask, 9, g, **kw)
+    _close(tfa.attn_bwd_packed_hb_cuda(qkv, mask, 9, g, **kw), want,
+           "bfloat16", _grad_bound("bfloat16", want, qkv, mask, g, 9, 12, 64,
+                                   0.1))
     for s in (128, 512):
-        qkv, mask, _ = _card_case(cuda_device, "float32", 2, s, 3, 64, 25)
+        qkv, mask, g = _card_case(cuda_device, "float32", 2, s, 3, 64, 25)
         assert torch.equal(
             tfa.attn_fwd_packed_hb_cuda(qkv, mask, seed=9, **kw),
             tfa.attn_fwd_packed_cuda(qkv, mask, seed=9, **kw))
+    qkv, mask, g = _card_case(cuda_device, "float32", 2, 128, 3, 64, 26)
+    assert torch.equal(tfa.attn_bwd_packed_hb_cuda(qkv, mask, 9, g, **kw),
+                       tfa.attn_bwd_packed_cuda(qkv, mask, 9, g, **kw))
 
 
 @pytest.mark.cuda
@@ -537,11 +616,31 @@ def test_head_blocked_keep_mask_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_head_blocked_backward_keep_mask_on_card(cuda_device):
+    """bf16 #5's keep mask (its dK/dV pass's) is the plain Philox mask bit
+    for bit: with Q = K = 0 every prob is 1/S, and with g_h the identity
+    (S = Dh = 128) dV[k, h, c] = pd(c, k) is > 0 exactly where (b, h, c, k)
+    is kept."""
+    b, s, h, dh, rate, seed = 2, 128, 3, 128, 0.1, 2 ** 62 + 13
+    qkv = torch.zeros(b, s, 3, h, dh, device=cuda_device,
+                      dtype=torch.bfloat16)
+    g = torch.eye(s, device=cuda_device)[None, :, None, :].expand(
+        b, s, h, dh).reshape(b, s, h * dh).bfloat16()
+    dqkv = tfa.attn_bwd_packed_hb_cuda(qkv.reshape(b, s, -1), None, seed, g,
+                                       n_heads=h, scale=dh ** -0.5,
+                                       rate=rate)
+    keep = tfa.dropout_keep_mask(seed, b, h, s, s, rate, cuda_device)
+    dv = dqkv.view(b, s, 3, h, dh)[:, :, 2].permute(0, 2, 3, 1)
+    assert torch.equal(dv > 0, keep)
+
+
+@pytest.mark.cuda
 def test_long_tiers_launch_their_kernels(cuda_device):
-    """The entry launches the tier's kernels on a CUDA tensor: #4 + #5 at
-    S=512 with a gradient, #1 without; #6 + #7 (two launches) at S=700."""
+    """The entry launches the tier's kernels on a CUDA tensor: #4 + #5 (two
+    launches in bf16) at S=512 with a gradient, #1 without; #6 + #7 (two
+    launches) at S=700."""
     for s, want_fwd, want_bwd, n_bwd in (
-            (512, "attn_fwd_packed_hb_cuda", "attn_bwd_packed_hb_cuda", 1),
+            (512, "attn_fwd_packed_hb_cuda", "attn_bwd_packed_hb_cuda", 2),
             (700, "attn_fwd_packed_fs_cuda", "attn_bwd_packed_fs_cuda", 2)):
         qkv, mask, g = _card_case(cuda_device, "bfloat16", 2, s, 12, 64, 24)
         fwd, bwd = getattr(tfa, want_fwd), getattr(tfa, want_bwd)

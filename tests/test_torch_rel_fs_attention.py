@@ -318,6 +318,35 @@ def test_fs_dropout_keep_rate_and_unbiased_output():
     assert not torch.equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("dh", [40, 64, 128])
+def test_fs_forward_bf16_plan_fits(dh):
+    """bf16 #16's shared-memory plan (the tensor-core kernel: q, the k and
+    v rings, the ebias ring, scores and weights) fits a block at every
+    head width; at Dh ≤ 64 two blocks share an SM's 228 KB (1 KB each
+    reserved). fp32's fits too."""
+    plan = tfa.rel_fs_fwd_smem_bytes(dh)
+    assert plan <= tfa.MAX_SMEM_BYTES
+    assert tfa.rel_fs_fwd_smem_bytes(dh, 4) <= tfa.MAX_SMEM_BYTES
+    if dh <= 64:
+        assert 2 * (plan + 1024) <= 228 * 1024
+    # q and the k/v rings [5·64][72], the ebias ring [2·64][72] bf16,
+    # the fp32 scores and the bf16 weights [64][72], m, l and α
+    assert tfa.rel_fs_fwd_smem_bytes(64) == 92928
+
+
+def test_fs_forward_raises_past_its_plan(monkeypatch):
+    """The #16 wrapper refuses a plan past 227 KB before it touches the
+    card, and names it."""
+    q = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
+    eb = torch.zeros(1, 1, 8, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tfa.attn_fwd_rel_fs_cuda(q, q, q, eb, n_heads=1, scale=0.125)
+    monkeypatch.setattr(tfa, "rel_fs_fwd_smem_bytes",
+                        lambda dh, itemsize=2: tfa.MAX_SMEM_BYTES + 1)
+    with pytest.raises(ValueError, match="shared-memory plan at Dh=64"):
+        tfa.attn_fwd_rel_fs_cuda(q, q, q, eb, n_heads=1, scale=0.125)
+
+
 # --- on the card -------------------------------------------------------------
 
 
@@ -334,13 +363,23 @@ def cuda_device():
     ("float32", 2, 70, 131, 3, 64),     # ragged, K ≠ Q
     ("float32", 2, 200, 136, 2, 128),   # the widest head, K < Q
     ("bfloat16", 2, 512, 1024, 12, 64),
+    # bf16 #16's tensor-core edges: K off 8 (the ebias by plain loads),
+    # the 50-row memory, K < Q at the widest head, a zero-padded k-depth
+    ("bfloat16", 2, 70, 131, 3, 64),
+    ("bfloat16", 2, 512, 562, 12, 64),
+    ("bfloat16", 2, 200, 136, 2, 128),
+    ("bfloat16", 2, 256, 320, 3, 40),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_fs_kernels_match_plain_on_card(cuda_device, dtype, b, q_len, k_len,
                                         h, dh, rate):
+    """#16 and #17 against their plain versions (bf16 with a query row
+    masked whole beside ``_case``'s key block masked whole); the same bits
+    twice."""
     td = getattr(torch, dtype)
     q, k, v, eb, g = (torch.from_numpy(a).to(cuda_device, td)
-                      for a in _case(q_len, k_len, seed=9, b=b, h=h, dh=dh))
+                      for a in _case(q_len, k_len, seed=9, b=b, h=h, dh=dh,
+                                     masked_row=dtype == "bfloat16"))
     kw = dict(n_heads=h, scale=1.0 / dh ** 0.5, rate=rate)
     seed = 2 ** 59 + 1
     out, lse = tfa.attn_fwd_rel_fs_cuda(q, k, v, eb, seed=seed, **kw)
@@ -364,6 +403,30 @@ def test_fs_kernels_match_plain_on_card(cuda_device, dtype, b, q_len, k_len,
         assert bool(((a.float() - w.float()).abs() <= bd).all()), name
     again = tfa.attn_bwd_rel_fs_cuda(q, k, v, eb, seed, out, lse, g, **kw)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    out2, lse2 = tfa.attn_fwd_rel_fs_cuda(q, k, v, eb, seed=seed, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_fs_keep_mask_on_card(cuda_device):
+    """bf16 #16's keep mask is the plain Philox mask bit for bit: with q =
+    0 and a zero ebias every prob is 1/K, and with v_h the identity (K = Dh
+    = 128, two key blocks) the output is > 0 exactly where (b, h, q, k) is
+    kept; Q = 96 leaves the last q tile ragged."""
+    b, q_len, h, dh, rate, seed = 2, 96, 3, 128, 0.1, 2 ** 62 + 17
+    q = torch.zeros(b, q_len, h * dh, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k = torch.randn(b, dh, h * dh, device=cuda_device).bfloat16()
+    v = torch.eye(dh, device=cuda_device)[None, :, None, :].expand(
+        b, dh, h, dh).reshape(b, dh, h * dh).bfloat16()
+    eb = torch.zeros(b, h, q_len, dh, device=cuda_device,
+                     dtype=torch.bfloat16)
+    out, _ = tfa.attn_fwd_rel_fs_cuda(q, k, v, eb, n_heads=h,
+                                      scale=dh ** -0.5, rate=rate, seed=seed)
+    keep = tfa.dropout_keep_mask(seed, b, h, q_len, dh, rate, cuda_device)
+    assert torch.equal(out.view(b, q_len, h, dh).permute(0, 2, 1, 3) > 0,
+                       keep)
+    assert not bool(keep.all())
 
 
 @pytest.mark.cuda
