@@ -29,21 +29,39 @@
 //
 // What the design does about that: #7's two launches, each a deterministic
 // reduction inside its blocks, with no atomics and no workspace beyond
-// ebias and debias themselves.
-//   1. `attn_bwd_rel_fs_dkdv_kernel`: one block per (64-key tile, head,
-//      batch row) holds its K and V rows and walks the query rows in steps
-//      of 32, in order, accumulating dK and dV in fp32 registers; it rounds
-//      them once at the end.
-//   2. `attn_bwd_rel_fs_dq_kernel`: one block per (64-query tile, head,
-//      batch row) walks the keys in blocks of 64, accumulates dQ, and
-//      writes debias once, from the pass that owns the query rows.
-// Both rebuild p and d(pd) and form ds with the same code from the same
-// staged values, so the two passes see the same ds bits, and debias is
-// the ds the dK pass used. The price is the QKᵀ and g·Vᵀ products and the
-// ebias read taken twice. Any Q and any K (K ≠ Q under memory), the ragged
-// tails bounds-checked. Shared plans at Dh = 64: 65 KB and 98 KB (113 KB
-// and 162 KB at Dh = 128). The dots run on the CUDA cores in fp32, as #7's.
+// ebias and debias themselves: a dK/dV pass, one block per (64-key tile,
+// head, batch row), that holds its K and V rows and walks the query rows in
+// order, accumulating dK and dV; then a dQ pass, one block per (64-query
+// tile, head, batch row), that walks the keys in blocks of 64, accumulates
+// dQ and writes debias once, from the pass that owns the query rows. Both
+// rebuild p and d(pd) and form ds with the same code from the same staged
+// values, so the two passes see the same ds bits, and debias is the ds the
+// dK pass used. The price is the QKᵀ and g·Vᵀ products and the ebias read
+// taken twice. Any Q and any K (K ≠ Q under memory), the ragged tails
+// bounds-checked.
+//
+// bf16: the two tensor-core passes of attn_bwd_rel_tc.cuh
+// (`attn_bwd_rel_dkdv_tc_kernel`, `attn_bwd_rel_dq_tc_kernel`, kOwnStats
+// false: lse is #16's, δ = Σ g ⊙ o by `tc_slab_delta`), #7's passes
+// (attn_bwd_packed_tc.cuh) with q and k/v from their own tensors and each
+// [64 q][64 k] ebias slice staged by cp.async in a two-stage ring beside
+// its query block (dK/dV pass) or key block (dQ pass), as #16 stages it:
+// 16-byte copies where K % 8 == 0 and ebias starts on 16 bytes, plain
+// loads otherwise (K = 562 under a 50-row memory). Every product on
+// mma.sync from ldmatrix; the dQ pass writes T(ds) over the slice it read
+// and stores the tile in 16-byte row chunks. Shared plans 108 KB (dK/dV,
+// two blocks an SM) and 72 KB at Dh = 64, 172 KB and 120 KB at Dh = 128
+// (ops/fused_attention.py::rel_fs_bwd_smem_bytes).
+//
+// fp32 input keeps the CUDA-core kernels (`attn_bwd_rel_fs_dkdv_kernel`,
+// `attn_bwd_rel_fs_dq_kernel`): the dots in fp32 from fp32 shared memory,
+// the dK/dV walk in query steps of 32; shared plans at Dh = 64 65 KB and
+// 98 KB (113 KB and 162 KB at Dh = 128). The entries dispatch on the dtype;
+// a bf16 call always launches the tensor-core kernel or returns the
+// launch's error (cudaErrorMisalignedAddress where q, k, v, o or g does not
+// start on the 16 bytes cp.async copies).
 
+#include "attn_bwd_rel_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -365,13 +383,11 @@ int entry(const void* q, const void* k, const void* v, const void* ebias,
                                         debias, B, Q, K, H, Dh, scale, drop,
                                         st);
     case 2:
-      return launch<kDkdv, __nv_bfloat16, false>(q, k, v, ebias, o, lse, g,
-                                                 dq, dk, dv, debias, B, Q, K,
-                                                 H, Dh, scale, drop, st);
     case 3:
-      return launch<kDkdv, __nv_bfloat16, true>(q, k, v, ebias, o, lse, g,
-                                                dq, dk, dv, debias, B, Q, K,
-                                                H, Dh, scale, drop, st);
+      // lse is only read: the pass writes it with kOwnStats alone
+      return rel_tc::launch_pass<kDkdv, false>(
+          q, k, v, ebias, o, static_cast<float*>(const_cast<void*>(lse)), g,
+          dq, dk, dv, debias, B, Q, K, H, Dh, scale, dropout != 0, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,30 +17,59 @@
 // written into dq [B, Q, D], dk and dv [B, K, D] at the columns q, k, v
 // came from.
 //
-// What bounds it on the card: five Q×K×Dh products per (b, h), ~97 GFLOP
-// at the stream path's training shape (B=48, Q=K=512, H=12, Dh=64), plus
-// the 302 MB ebias read and the 302 MB debias write (bf16): operations
-// bound on the fp32 CUDA cores. dQ reduces over keys while dK and dV reduce
-// over queries, and #12's plan, one block holding the whole [Q, K] problem,
-// fits 227 KB only up to Q = K = 141.
+// What bounds it on the card: at the stream path's training shape (B=48,
+// Q=K=512, H=12, Dh=64) five Q×K×Dh products per (b, h), ~97 GFLOP, and
+// the 302 MB ebias read and 302 MB debias write (bf16) of the ≈0.87 GB
+// read or written once: bytes bound at the bf16 tensor-core peak (0.26 ms
+// against 0.10 ms). dQ and debias live along the query rows while dK and
+// dV reduce over them, and #12's plan, one block holding the whole [Q, K]
+// problem, fits 227 KB only up to Q = K = 141.
 //
-// What the design does about that: #5's plan on a [Q, K] problem. One block
-// per (head, batch row) walks its query rows in tiles of 32, in order. For
-// each tile it recomputes the tile's whole score rows (row max and sum
-// exact, as #12), replays the mask, forms ds for those rows, writes the
-// tile's debias rows (a row's ds needs no other tile) and dQ rows, and adds
-// the tile's dK and dV contributions into fp32 accumulators that the block
-// alone owns: [K][Dh] each in a device workspace (ws) the wrapper
-// allocates, read and written by the same thread each tile. The last tile
-// rounds them into dk and dv. Every sum runs in #12's order (a key's dK
-// chain goes over the queries in ascending order, across tiles), so #15
-// gives #12's bits wherever both reach (Q = K ≤ 141 at Dh = 64), with no
-// atomics. Shared plan: P and Tt [32][K], q and g tiles and a k/v chunk
-// [32][Dh+1] each, 213 KB at K = 640, Dh = 128, so one block an SM with 16
-// warps to hide the latency of its dependent chains (#5's finding). B·H =
-// 576 blocks at the training shape. The products run on the CUDA cores in
-// fp32.
+// What the design does about that (bf16): the two tensor-core passes of
+// attn_bwd_rel_tc.cuh with their own row statistics (#5's plan;
+// `attn_bwd_rel_dq_tc_kernel`, then `attn_bwd_rel_dkdv_tc_kernel`,
+// kOwnStats true), each a deterministic reduction inside its blocks: #14
+// returns no lse, and #12's δ is Σ_k t, not Σ g ⊙ o. The dQ pass (one
+// block per 64-query tile, head and batch row) walks the keys twice
+// through one two-stage cp.async ring of K, V and the [64 q][64 k] ebias
+// slice: first for the online max, denominator and δ·l of its rows (S =
+// Q·Kᵀ and d(pd) = g·Vᵀ on mma.sync, the keep mask replayed), which it
+// writes as m, 1/l and δ [3][B, H, Q] fp32 into ws; then for p = exp(s − m) · (1/l), ds, dQ and
+// debias = T(ds), written over the slice it read and stored in 16-byte row
+// chunks (m and 1/l apart: in a row masked whole every score is −1e30, where
+// s − m is exact). The dK/dV pass (one block per 64-key tile), launched
+// second, reads them and walks the queries, each query block's ebias slice
+// in its own ring. Both passes assemble the scores from the same ebias bits
+// and run the same elementwise step on the same statistics' bits, so they
+// see the same ds bits. Nine products in all against the five of the
+// minimum, ~174 GFLOP, and three ebias reads; nothing Q·K-sized in shared
+// memory and no workspace for dK and dV: 90 KB (dK/dV) and 72.8 KB (dQ) at
+// Dh = 64, two blocks an SM, 138 KB and 120.8 KB at Dh = 128, at any K
+// (ops/fused_attention.py::rel_hb_bwd_smem_bytes). No atomics: the same
+// bits twice. p = exp(s − m) · (1/l) and the online δ differ from #12's
+// e / l and whole-row Σ t at the fp32 level, so bf16 #15 is held to #12
+// within `rel_grads_bf16_bound`, no longer bit for bit.
+//
+// fp32 input keeps the CUDA-core kernel (`attn_bwd_rel_hb_kernel`), #12's
+// bits wherever both reach (Q = K ≤ 141 at Dh = 64): #5's fp32 plan on a
+// [Q, K] problem. One block per (head, batch row) walks its query rows in
+// tiles of 32, in order. For each tile it recomputes the tile's whole score
+// rows (row max and sum exact, as #12), replays the mask, forms ds for
+// those rows, writes the tile's debias rows (a row's ds needs no other
+// tile) and dQ rows, and adds the tile's dK and dV contributions into fp32
+// accumulators that the block alone owns: [K][Dh] each in a device
+// workspace (ws) the wrapper allocates, read and written by the same thread
+// each tile. The last tile rounds them into dk and dv. Every sum runs in
+// #12's order (a key's dK chain goes over the queries in ascending order,
+// across tiles), with no atomics. Shared plan: P and Tt [32][K], q and g
+// tiles and a k/v chunk [32][Dh+1] each, 213 KB at K = 640, Dh = 128, so
+// one block an SM with 16 warps to hide the latency of its dependent chains
+// (#5's finding). The products run on the CUDA cores in fp32. The entries
+// dispatch on the dtype; a bf16 call always launches the tensor-core passes
+// or returns the launch's error (cudaErrorMisalignedAddress where q, k, v
+// or g does not start on the 16 bytes cp.async copies).
 
+#include "attn_bwd_rel_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -232,28 +261,21 @@ int launch(const void* q, const void* k, const void* v, const void* ebias,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* ebias,
-             const void* g, void* dq, void* dk, void* dv, void* debias,
-             void* ws, int B, int Q, int K, int H, int Dh, float scale,
-             bool dropout, DropoutArgs drop, cudaStream_t st) {
-  if (dropout)
-    return launch<T, true>(q, k, v, ebias, g, dq, dk, dv, debias, ws, B, Q,
-                           K, H, Dh, scale, drop, st);
-  return launch<T, false>(q, k, v, ebias, g, dq, dk, dv, debias, ws, B, Q, K,
-                          H, Dh, scale, drop, st);
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, for every tensor but ws. g is the
-// context gradient [B, Q, D]; dq [B, Q, D], dk and dv [B, K, D] and debias
-// [B, H, Q, K] are written; ws is an fp32 workspace of 2·B·H·K·Dh floats
-// (contents ignored). dropout = 0 ignores seed/threshold/inv_keep. Returns
-// the cudaError_t of the launch (0 on success); a shape past the
-// shared-memory plan returns cudaErrorInvalidValue.
+// The backward of #15. dtype: 0 = float32, 1 = bfloat16, for every tensor
+// but ws. g is the context gradient [B, Q, D]; dq [B, Q, D], dk and dv
+// [B, K, D] and debias [B, H, Q, K] are written. fp32: the CUDA-core
+// kernel, the whole backward in one launch; ws an fp32 workspace of
+// 2·B·H·K·Dh floats (contents ignored). bf16: the first of the two
+// tensor-core passes, the statistics walk and dQ, which writes the rows'
+// m, 1/l and δ into ws (fp32 [3][B, H, Q]), dq and debias;
+// `attn_bwd_rel_hb_dkdv` is the second. dropout = 0 ignores
+// seed/threshold/inv_keep. Returns the cudaError_t of the launch (0 on
+// success); a shape past the dtype's shared-memory plan returns
+// cudaErrorInvalidValue.
 int attn_bwd_rel_hb(const void* q, const void* k, const void* v,
                     const void* ebias, const void* g, void* dq, void* dk,
                     void* dv, void* debias, void* ws, int B, int Q, int K,
@@ -262,22 +284,49 @@ int attn_bwd_rel_hb(const void* q, const void* k, const void* v,
                     float inv_keep, int dtype, void* stream) {
   if (B < 1 || Q < 1 || K < 1 || K > kMaxK || H < 1 || Dh < 8 ||
       Dh > kMaxDh || Dh % 8 != 0 ||
-      smem_floats(K, Dh) * sizeof(float) > attn::kMaxSmemBytes)
+      (dtype == 0 &&
+       smem_floats(K, Dh) * sizeof(float) > attn::kMaxSmemBytes))
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutArgs drop{seed, threshold, inv_keep};
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, ebias, g, dq, dk, dv, debias, ws, B, Q,
-                             K, H, Dh, scale, dropout != 0, drop, st);
+      return dropout ? launch<float, true>(q, k, v, ebias, g, dq, dk, dv,
+                                           debias, ws, B, Q, K, H, Dh, scale,
+                                           drop, st)
+                     : launch<float, false>(q, k, v, ebias, g, dq, dk, dv,
+                                            debias, ws, B, Q, K, H, Dh, scale,
+                                            drop, st);
     case 1:
-      return dispatch<__nv_bfloat16>(q, k, v, ebias, g, dq, dk, dv, debias,
-                                     ws, B, Q, K, H, Dh, scale, dropout != 0,
-                                     drop, st);
+      return rel_tc::launch_pass<false, true>(
+          q, k, v, ebias, nullptr, static_cast<float*>(ws), g, dq, dk, dv,
+          debias, B, Q, K, H, Dh, scale, dropout != 0, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The second bf16 pass of #15, launched after `attn_bwd_rel_hb` on the same
+// stream with the same arguments: the dK/dV pass, reading the statistics
+// that the first wrote into ws, writes dk and dv. Returns the cudaError_t
+// of the launch; any dtype but bfloat16 returns cudaErrorInvalidValue (fp32
+// is one launch).
+int attn_bwd_rel_hb_dkdv(const void* q, const void* k, const void* v,
+                         const void* ebias, const void* g, void* dq, void* dk,
+                         void* dv, void* debias, void* ws, int B, int Q,
+                         int K, int H, int Dh, float scale, int dropout,
+                         unsigned long long seed, unsigned int threshold,
+                         float inv_keep, int dtype, void* stream) {
+  if (B < 1 || Q < 1 || K < 1 || K > kMaxK || H < 1 || Dh < 8 ||
+      Dh > kMaxDh || Dh % 8 != 0 || dtype != 1)
+    return (int)cudaErrorInvalidValue;
+  if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
+  return rel_tc::launch_pass<true, true>(
+      q, k, v, ebias, nullptr, static_cast<float*>(ws), g, dq, dk, dv, debias,
+      B, Q, K, H, Dh, scale, dropout != 0,
+      DropoutArgs{seed, threshold, inv_keep},
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -32,12 +32,13 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #4-#7, #14, #16, #23 and #24 run their products on the tensor
+In bf16, #4-#7 and #14-#17, #23 and #24 run their products on the tensor
 cores (``mma.sync`` from ``ldmatrix``, operands staged by ``cp.async``);
 fp32 keeps their CUDA-core kernels. Their shared-memory plans are
 ``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``, ``fs_fwd_smem_bytes``,
 ``fs_bwd_smem_bytes``, ``rel_hb_fwd_smem_bytes``,
-``rel_fs_fwd_smem_bytes``, ``relik_fs_fwd_smem_bytes`` and
+``rel_hb_bwd_smem_bytes``, ``rel_fs_fwd_smem_bytes``,
+``rel_fs_bwd_smem_bytes``, ``relik_fs_fwd_smem_bytes`` and
 ``relik_fs_bwd_smem_bytes``; each wrapper checks its plan before the
 launch and raises past it.
 
@@ -765,6 +766,41 @@ def fs_bwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
     return 4 * max(
         2 * 64 * (dh + 1) + 2 * 32 * (dh + 1) + 2 * 32 * 64 + 2 * 32 + 64,
         4 * 64 * (dh + 1) + 2 * 64 * 64 + 2 * 64 + 64)
+
+
+def rel_fs_bwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
+    """Shared memory of the larger of #17's two blocks at head width
+    ``dh``. bf16 (the passes of ``csrc/attn_bwd_rel_tc.cuh``): #7's
+    dK/dV block, its K and V and two-stage Q, g and o rings, bf16
+    [64][``_tc_ld``] each, the bf16 pd_c and ds_c tiles [64][72], with the
+    two-stage ebias ring bf16 [64][72] for the bias (108 KB at Dh = 64: two
+    blocks an SM); the dQ block's Q, g and two-stage K and V rings and the
+    ebias ring, over which debias is staged. fp32 (the CUDA-core kernels'
+    ``dkdv_smem_floats`` and ``dq_smem_floats``): K and V [64][Dh+1] with q
+    and g [32][Dh+1], or all four [64][Dh+1]; the score and gradient tiles,
+    lse and δ."""
+    if itemsize == 2:
+        return max(8 * 64 * _tc_ld(dh) * 2 + 4 * 64 * 72 * 2,
+                   6 * 64 * _tc_ld(dh) * 2 + 2 * 64 * 72 * 2)
+    return 4 * max(
+        2 * 64 * (dh + 1) + 2 * 32 * (dh + 1) + 2 * 32 * 64 + 2 * 32,
+        4 * 64 * (dh + 1) + 2 * 64 * 64 + 2 * 64)
+
+
+def rel_hb_bwd_smem_bytes(k_len: int, dh: int, itemsize: int = 2) -> int:
+    """Shared memory of the larger of #15's blocks at K = ``k_len`` and head
+    width ``dh``. bf16 (the passes of ``csrc/attn_bwd_rel_tc.cuh`` with
+    their own statistics, at any K): the dK/dV block's K and V and its
+    two-stage q and g rings, bf16 [64][``_tc_ld``] each, the bf16 pd_c and
+    ds_c tiles [64][72] and the two-stage ebias ring bf16 [64][72] (90 KB at
+    Dh = 64: two blocks an SM); the dQ block's q, g and two-stage K and V
+    rings, the ebias ring and the statistics' [3][64] exchange. fp32 (the
+    CUDA-core kernel's ``smem_floats``): P and Tt [32][K], the q and g
+    tiles and a k/v chunk [32][Dh+1] each, in fp32."""
+    if itemsize == 2:
+        return max(6 * 64 * _tc_ld(dh) * 2 + 4 * 64 * 72 * 2,
+                   6 * 64 * _tc_ld(dh) * 2 + 2 * 64 * 72 * 2 + 3 * 64 * 4)
+    return 4 * (2 * 32 * k_len + 3 * 32 * (dh + 1))
 
 
 def relik_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
@@ -2254,22 +2290,35 @@ def attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g, *, n_heads, scale,
                          rate=0.0):
     """Launch kernel #15 (``csrc/attn_bwd_rel_hb.cu``): (dq, dk, dv,
     debias) with the probs recomputed and the keep mask replayed from
-    ``seed``, K ≤ ``HB_MAX_SEQ_LEN``. The kernel's fp32 dK/dV accumulators
-    live in a [B, H, 2, K, Dh] workspace allocated here."""
+    ``seed``, K ≤ ``HB_MAX_SEQ_LEN``. bf16: two tensor-core kernels on the
+    current stream, each counted, the statistics, dQ and debias pass and
+    then the dK/dV pass, through the rows' max m, 1/l and δ in a
+    [3, B, H, Q] fp32 workspace allocated here. fp32: one CUDA-core kernel,
+    its dK/dV accumulators in a [B, H, 2, K, Dh] fp32 workspace. Raises past
+    the shared-memory plan (``rel_hb_bwd_smem_bytes``)."""
+    _, _, k_len, dh = _check_rel_geometry(q, k, v, ebias, n_heads)
+    _check_plan("attn_bwd_rel_hb",
+                rel_hb_bwd_smem_bytes(k_len, dh, q.element_size()),
+                f"K={k_len}, Dh={dh}")
     b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel_hb", q, k, v, ebias,
                                           n_heads, bwd=False,
                                           max_k=HB_MAX_SEQ_LEN)
     _like("g", g, q, tuple(q.shape))
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     debias = torch.empty_like(ebias)
-    ws = torch.empty((b, n_heads, 2, k_len, dh), dtype=torch.float32,
-                     device=q.device)
-    _launch("attn_bwd_rel_hb", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            ebias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), debias.data_ptr(), ws.data_ptr(), b, q_len, k_len,
-            n_heads, dh, float(scale), *_drop_args(rate, seed),
-            _DTYPE_CODES[q.dtype], device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    ws = torch.empty((3, b, n_heads, q_len) if bf16
+                     else (b, n_heads, 2, k_len, dh),
+                     dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ebias.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            debias.data_ptr(), ws.data_ptr(), b, q_len, k_len, n_heads, dh,
+            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[q.dtype])
+    _launch("attn_bwd_rel_hb", *args, device=q.device)
     attn_bwd_rel_hb_cuda.launches += 1
+    if bf16:
+        _launch("attn_bwd_rel_hb_dkdv", *args, device=q.device)
+        attn_bwd_rel_hb_cuda.launches += 1
     return dq, dk, dv, debias
 
 
@@ -2299,8 +2348,13 @@ def attn_bwd_rel_fs_cuda(q, k, v, ebias, seed, o, lse, g, *, n_heads, scale,
                          rate=0.0):
     """Launch kernel #17 (``csrc/attn_bwd_rel_fs.cu``), two kernels on the
     current stream, each counted: the dK/dV pass, then the dQ pass, which
-    also writes debias. ``o`` and ``lse`` are #16's outputs. Returns (dq,
-    dk, dv, debias), debias in ebias's dtype (q's)."""
+    also writes debias; bf16 on the tensor cores, fp32 on the CUDA cores.
+    ``o`` and ``lse`` are #16's outputs. Raises past the shared-memory plan
+    (``rel_fs_bwd_smem_bytes``). Returns (dq, dk, dv, debias), debias in
+    ebias's dtype (q's)."""
+    dh = _check_rel_geometry(q, k, v, ebias, n_heads)[3]
+    _check_plan("attn_bwd_rel_fs",
+                rel_fs_bwd_smem_bytes(dh, q.element_size()), f"Dh={dh}")
     b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel_fs", q, k, v, ebias,
                                           n_heads, bwd=False, max_k=None)
     _like("o", o, q, tuple(q.shape))

@@ -159,10 +159,11 @@ def load_kernels() -> ctypes.CDLL:
         lib.attn_fwd_rel.argtypes = [ptr] * 7 + rel + drop + [i32, ptr]
         lib.attn_bwd_rel.argtypes = [ptr] * 9 + rel + drop + [i32, ptr]
         lib.attn_bwd_rel_saved.argtypes = [ptr] * 10 + rel + [i32, ptr]
-        # attn_fwd_rel_hb: q, k, v, ebias, out; attn_bwd_rel_hb: q, k, v,
-        # ebias, g, dq, dk, dv, debias, ws.
+        # attn_fwd_rel_hb: q, k, v, ebias, out; attn_bwd_rel_hb{,_dkdv}: q,
+        # k, v, ebias, g, dq, dk, dv, debias, ws.
         lib.attn_fwd_rel_hb.argtypes = [ptr] * 5 + rel + drop + [i32, ptr]
-        lib.attn_bwd_rel_hb.argtypes = [ptr] * 10 + rel + drop + [i32, ptr]
+        for fn in (lib.attn_bwd_rel_hb, lib.attn_bwd_rel_hb_dkdv):
+            fn.argtypes = [ptr] * 10 + rel + drop + [i32, ptr]
         # attn_fwd_rel_fs: q, k, v, ebias, out, lse; attn_bwd_rel_fs_{dkdv,
         # dq}: q, k, v, ebias, o, lse, g, dq, dk, dv, debias.
         lib.attn_fwd_rel_fs.argtypes = [ptr] * 6 + rel + drop + [i32, ptr]
@@ -197,7 +198,8 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_qkvproj_heads, lib.attn_bwd_qkvproj_dx,
                    lib.attn_fwd_rel, lib.attn_bwd_rel,
                    lib.attn_bwd_rel_saved, lib.attn_fwd_rel_hb,
-                   lib.attn_bwd_rel_hb, lib.attn_fwd_rel_fs,
+                   lib.attn_bwd_rel_hb, lib.attn_bwd_rel_hb_dkdv,
+                   lib.attn_fwd_rel_fs,
                    lib.attn_bwd_rel_fs_dkdv, lib.attn_bwd_rel_fs_dq,
                    lib.attn_fwd_relik_fs,
                    lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq,

@@ -60,21 +60,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ingredients flash-streamed tier) against their plain versions, with the
    bf16 tensor-core plans' edges (``RELIK_FS_EDGES``: Dh=40 and 128, S
    ragged off 16 and 64, Q ≠ K); #14 against #11 within the forward bound
-   in bf16 and bit for bit in fp32, #15 = #12 bit for bit; #23's keep
-   mask; their times at B=48 beside SDPA with the assembled ebias, and
-   #24's three launches timed apart.
+   in bf16 and bit for bit in fp32, #15 against #12 within
+   ``rel_grads_bf16_bound`` in bf16 and bit for bit in fp32; #23's keep
+   mask; their times at B=48 beside SDPA with the assembled ebias, #15's
+   two bf16 launches and #24's three timed apart.
 3g. The rel flash-streamed kernels (#16 forward with lse, #17 its
    backward in two launches, debias from the dQ pass) against their plain
    versions on the ebias the model assembles: fp32 B=2 at a ragged Q=70
    K=131, bf16 B=2 at Q=K=1024 and at Q=512 K=1024 (the memory's K ≠ Q),
-   and the edges of bf16 #16's tensor-core plan (``REL_FS_EDGES``: Q=70
-   K=131, Q=512 K=562, Q=136 K=200 at Dh=128, Dh=40, each with a key block
-   and a query row masked whole), rates 0.1 and 0; #17 within
-   ``rel_fs_grads_bf16_bound``; the same bits twice. #16's and #14's keep masks equal to the plain Philox mask bit
-   for bit at Q=K=512 (q = 0, v the identity on a rotating key window),
-   #16's output against #14's within a stated bf16 bound. Then both timed
-   at bf16 B=48 Q=K=1024 at rate 0 (beside SDPA with the ebias as a float
-   mask, and its autograd backward) and at rate 0.1.
+   and the edges of bf16 #16's and #17's tensor-core plans
+   (``REL_FS_EDGES``: Q=70 K=131, Q=512 K=562, Q=136 K=200 at Dh=128,
+   Dh=40, each with a key block and a query row masked whole), rates 0.1
+   and 0; #17 within ``rel_fs_grads_bf16_bound``; where K ≤ 640 #15 on
+   the same case within ``rel_grads_bf16_bound``; the same bits twice. #16's and #14's keep masks equal to the plain Philox mask
+   bit for bit at Q=K=512 (q = 0, v the identity on a rotating key
+   window), #16's output against #14's within a stated bf16 bound; #15's
+   and #17's keep masks through their dV (q = k = 0, g the identity, Q =
+   Dh = 128, K = 200). Then both timed at bf16 B=48 Q=K=1024 at rate 0
+   (beside SDPA with the ebias as a float mask, and its autograd backward)
+   and at rate 0.1, #17's two launches also apart.
 3h. The full-H ingredients kernels (``rel_bias_impl="inkernel"``: #20
    forward, #22 saved-probs backward, #21 recompute backward, the last two
    two launches a call) against their plain versions: bf16 B=256 Q=K=50 at
@@ -191,8 +195,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then one training step at B=48, S=512 and 1024, by device time.
 6d. The XLNet driver at long sequences: ``--max_seq_length 512`` and
    ``1024`` (#23/#24 in training), ``--rel_bias_impl stream`` at 512
-   (#14/#15); the S=512 gradient check with planted zero dr and ded; one
-   profiled B=48 step at S=1024.
+   (#14/#15, #15 two launches a call in bf16); the S=512 gradient checks
+   under auto (planted zero dr and ded in #24) and under stream (planted
+   zero debias in #15); profiled B=48 steps at S=1024 (auto) and S=512
+   (stream).
 6e. The XLNet driver through the rel fs tier and with the memory:
    ``--rel_bias_impl stream --max_seq_length 1024`` (#16, #17),
    ``--mem_len 512 --max_seq_length 512`` under "stream" (#16, #17 at
@@ -355,16 +361,17 @@ def _card() -> str:
 def tc_ptxas_lines(log):
     """``-Xptxas -v``'s registers and spills of the tensor-core kernels
     (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
-    passes of #5 and #7 and #24's two passes), one line each, from the
-    build log. Template arguments print in order: the packed passes' are
-    <n8 tiles of Dh, own statistics (#5 true, #7 false), dropout>."""
+    passes of #5 and #7, the rel backward passes of #15 and #17 and #24's
+    two passes), one line each, from the build log. Template arguments
+    print in order: the packed and rel passes' are <n8 tiles of Dh, own
+    statistics (#5, #15 true; #7, #17 false), dropout>."""
     import re
 
     lines, name, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?((?:attn_fwd_(?:packed"
                       r"|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|attn_bwd_"
-                      r"packed_(?:dkdv|dq)|attn_bwd_relik_fs_(?:dkdv|dq))"
+                      r"(?:packed|rel|relik_fs)_(?:dkdv|dq))"
                       r"_tc_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ", ".join(
@@ -2562,10 +2569,13 @@ def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64,
 
 def check_long_rel_against_full(rng, fa):
     """#14 against #11 (Q = K = 128, 512) and #15 against #12 (Q = K =
-    128) at rate 0.1. fp32 #14 and bf16 #15 run #11's and #12's row code:
-    the same bits. bf16 #14 sums its dots on the tensor cores in another
-    order than #11's CUDA-core chains, so it is held to #11 within the
-    phase-3 forward bound (``_forward_err``)."""
+    128) at rate 0.1. fp32 #14 and #15 run #11's and #12's row code: the
+    same bits. In bf16 both run on the tensor cores: #14 sums its dots in
+    another order than #11's CUDA-core chains, so it is held to #11 within
+    the phase-3 forward bound (``_forward_err``); #15 rebuilds p from its
+    own online statistics (exp(s − m)·(1/l), δ an online sum) where #12
+    takes the whole-row e / l and Σ t, so it is held to #12 within
+    ``rel_grads_bf16_bound``."""
     import torch
 
     for dtype_name in ("bf16", "fp32"):
@@ -2575,23 +2585,37 @@ def check_long_rel_against_full(rng, fa):
             pairs = [("#14 vs #11", fa.attn_fwd_rel_hb_cuda(q, k, v, ebias,
                                                             seed=s, **kw),
                       fa.attn_fwd_rel_cuda(q, k, v, ebias, seed=s, **kw))]
-            if dtype_name == "bf16" and fa.rel_bwd_fits(s, s, 64):
+            if fa.rel_bwd_fits(s, s, 64):
                 pairs += [(f"#15 vs #12 {part}", x, y) for part, x, y in zip(
                     ("dq", "dk", "dv", "debias"),
                     fa.attn_bwd_rel_hb_cuda(q, k, v, ebias, s, g, **kw),
                     fa.attn_bwd_rel_cuda(q, k, v, ebias, s, g, **kw))]
+            tag = f"{dtype_name} B=8 Q=K={s} rate {RATE}"
+            if dtype_name == "bf16":
+                err = _forward_err(f"#14 vs #11 {tag}", *pairs[0][1:],
+                                   dtype_name)
+                print(f"#14 vs #11 {tag}: within the forward bound, max |Δ| "
+                      f"{err:.3e} (identical bits "
+                      f"{torch.equal(*pairs[0][1:])})")
+                if len(pairs) > 1:
+                    _, p, pd = fa.attn_fwd_rel_reference(q, k, v, ebias,
+                                                         seed=s, save=True,
+                                                         **kw)
+                    err = _rel_grad_errs(tag, dtype_name, (
+                        ("#15 vs #12", [x for _, x, _ in pairs[1:]],
+                         [y for _, _, y in pairs[1:]]),), (
+                        p, pd, q, k, v, g, dict(n_heads=12, scale=0.125)),
+                        fa)["#15 vs #12"]
+                    same = all(torch.equal(x, y) for _, x, y in pairs[1:])
+                    print(f"#15 vs #12 {tag}: within rel_grads_bf16_bound, "
+                          f"max |Δ| {err:.3e} (identical bits {same})")
+                continue
             for name, got, want in pairs:
-                tag = f"{name} {dtype_name} B=8 Q=K={s} rate {RATE}"
                 same = torch.equal(got, want)
-                if name == "#14 vs #11" and dtype_name == "bf16":
-                    err = _forward_err(tag, got, want, dtype_name)
-                    print(f"{tag}: within the forward bound, max |Δ| "
-                          f"{err:.3e} (identical bits {same})")
-                    continue
-                print(f"{tag}: identical bits {same}, max |Δ| "
+                print(f"{name} {tag}: identical bits {same}, max |Δ| "
                       f"{float((got.float() - want.float()).abs().max()):.3e}")
                 if not same:
-                    raise AssertionError(f"{tag}: not the same bits")
+                    raise AssertionError(f"{name} {tag}: not the same bits")
 
 
 def check_relik_mask(rng, fa):
@@ -2683,6 +2707,51 @@ def sdpa_rel_calls(q, k, v, ebias, g, h, scale):
     return forward, backward
 
 
+def rel_bwd_passes(fa, name, q, k, v, ebias, seed, g, rate, o=None,
+                   lse=None, h=12, scale=0.125):
+    """bf16 #15's (``name`` "attn_bwd_rel_hb") or #17's ("attn_bwd_rel_fs",
+    from #16's ``o`` and ``lse``) two launches one at a time on the buffers
+    its wrapper allocates: {pass: call}, for timing the passes apart. The
+    calls go to the library directly, so no launch count moves."""
+    import torch
+
+    b, q_len, d = q.shape
+    dq, dk, dv, debias = (torch.empty_like(x) for x in (q, k, v, ebias))
+    tail = (b, q_len, k.shape[1], h, d // h, float(scale),
+            *fa._drop_args(rate, seed), fa._DTYPE_CODES[q.dtype])
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), debias.data_ptr())
+    if name == "attn_bwd_rel_hb":
+        ws = torch.empty((3, b, h, q_len), dtype=torch.float32,
+                         device=q.device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ebias.data_ptr(),
+                g.data_ptr(), *outs, ws.data_ptr(), *tail)
+        names = (("statistics + dQ + debias pass", "attn_bwd_rel_hb"),
+                 ("dK/dV pass", "attn_bwd_rel_hb_dkdv"))
+    else:
+        ws = None
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ebias.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), g.data_ptr(), *outs, *tail)
+        names = (("dK/dV pass", "attn_bwd_rel_fs_dkdv"),
+                 ("dQ + debias pass", "attn_bwd_rel_fs_dq"))
+    keep = (dq, dk, dv, debias, ws)
+
+    def launch(entry):
+        return lambda: (keep, fa._launch(entry, *args, device=q.device))
+
+    return {label: launch(entry) for label, entry in names}
+
+
+def _time_passes(passes, label, e, card):
+    """Each pass's ms (two rounds of three after a warm-up) into e
+    ["passes_ms"], printed under ``label``."""
+    for call in passes.values():
+        _time_ms(call, 2)
+    e["passes_ms"] = {n: float(np.mean([_time_ms(c, 3) for _ in range(2)]))
+                      for n, c in passes.items()}
+    print(f"{label} on {card}: " + ", ".join(
+        f"{n} {v:.3f} ms" for n, v in e["passes_ms"].items()))
+
+
 def relik_bwd_passes(fa, ins, seed, o, lse, g, rate, h=12, scale=0.125):
     """#24's three launches one at a time on the buffers its wrapper
     allocates (the workspace zeroed once, then summed into again: the
@@ -2719,8 +2788,8 @@ def time_long_rel_kernels(rng, fa, card):
     S = 1024, bf16 B=48: at rate 0 against the plain versions and the
     library calls (SDPA with the assembled ebias as a float mask; SDPA's
     autograd backward), at rate 0.1 against the plain versions; alternating
-    rounds; #24's passes timed apart (``relik_bwd_passes``). Returns {name:
-    entry}."""
+    rounds; #15's and #24's passes timed apart (``rel_bwd_passes``,
+    ``relik_bwd_passes``). Returns {name: entry}."""
     import torch
 
     out = {}
@@ -2787,18 +2856,16 @@ def time_long_rel_kernels(rng, fa, card):
             print(f"{name} bf16 B={TRAIN_BATCH} S={s} H=12 Dh=64 rate {rate} "
                   f"on {card}: kernel {kt} ms, plain {pt} ms per call"
                   f"{lib_note}; bound {bound[0]:.4f} ms ({bound[1]})")
-        passes = relik_bwd_passes(fa, ins, seed, o23, lse, c["g"], rate)
-        for call in passes.values():
-            _time_ms(call, 2)
-        pass_ms = {name: float(np.mean([_time_ms(call, 3) for _ in range(2)]))
-                   for name, call in passes.items()}
-        e24 = out["attn_bwd_relik_fs"]
-        (e24 if rate == 0.0 else next(iter(e24["modes"].values())))[
-            "passes_ms"] = pass_ms
-        print(f"attn_bwd_relik_fs passes bf16 B={TRAIN_BATCH} S=1024 rate "
-              f"{rate} on {card}: " + ", ".join(
-                  f"{k_} {v_:.3f} ms" for k_, v_ in pass_ms.items()))
-        del passes
+        for name, s, passes in (
+                ("attn_bwd_rel_hb", 512, rel_bwd_passes(
+                    fa, "attn_bwd_rel_hb", q, k, v, ebias, seed, g, rate)),
+                ("attn_bwd_relik_fs", 1024, relik_bwd_passes(
+                    fa, ins, seed, o23, lse, c["g"], rate))):
+            e = out[name]
+            _time_passes(passes, f"{name} passes bf16 B={TRAIN_BATCH} S={s} "
+                         f"rate {rate}", e if rate == 0.0 else next(
+                             iter(e["modes"].values())), card)
+            del passes
         torch.cuda.empty_cache()
     return out
 
@@ -2862,9 +2929,10 @@ def xlnet_long_driver_path(args, rng, fa, card):
     stream`` at 512. Checks: exit 0, finite losses, and the launches: under
     ``auto`` training takes #23 and #24 (three launches a call) and
     evaluation #11 at S=512 (K ≤ 512, no gradient) and #23 at 1024; under
-    ``stream`` training takes #14 and #15 and evaluation #11. Then the
-    dropout-0 gradient check and the profiled steps (S=1024 auto, S=512
-    stream). Returns {path: counts}."""
+    ``stream`` training takes #14 and #15 (two launches a call) and
+    evaluation #11. Then the dropout-0 gradient checks (S=512 under auto
+    with #24; under stream with #15, from a stream of its own) and the
+    profiled steps (S=1024 auto, S=512 stream). Returns {path: counts}."""
     from bert_multimodal_transformer_tpu_torch.config import XLNetConfig
 
     layers = XLNetConfig.xlnet_base_cased().n_layer
@@ -2880,7 +2948,7 @@ def xlnet_long_driver_path(args, rng, fa, card):
             attn_bwd_relik_fs=3 * layers * n_train)),
         "xlnet_driver_stream_s512": (512, ["--rel_bias_impl", "stream"], dict(
             attn_fwd_rel_hb=layers * n_train,
-            attn_bwd_rel_hb=layers * n_train,
+            attn_bwd_rel_hb=2 * layers * n_train,
             attn_fwd_rel=layers * n_eval)),
     }
     counts = {}
@@ -2902,21 +2970,29 @@ def xlnet_long_driver_path(args, rng, fa, card):
                      launches=dict(attn_fwd_relik_fs=layers,
                                    attn_bwd_relik_fs=3 * layers),
                      seed_offset=31)
+    xlnet_grad_check(args, np.random.default_rng([args.seed, 16]), fa, card,
+                     s=512, batch=XLNET_CHECK_BATCH, impl="stream",
+                     bwd="attn_bwd_rel_hb", tag="#15",
+                     launches=dict(attn_fwd_rel_hb=layers,
+                                   attn_bwd_rel_hb=2 * layers),
+                     seed_offset=34, faults=((3, "debias"),))
     xlnet_long_step_profile(args, rng, card)
     xlnet_long_step_profile(args, rng, card, "stream", s=512)
     return counts
 
 
 def xlnet_grad_check(args, rng, fa, card, *, s, batch, impl, bwd, tag,
-                     launches, seed_offset):
+                     launches, seed_offset, faults=((2, "dr"), (5, "ded"))):
     """At dropout 0, from one copy of the weights (seed ``args.seed +
     seed_offset``), one training step at S = ``s`` and ``batch`` under
     ``rel_bias_impl`` ``impl``, fused against einsum leaf by leaf within
     XLNET_GRAD_GAP_TOL, the fused step's kernel launches ``launches``;
-    then the same step with dr, then ded, zeroed in the output of
-    ``fa.<bwd>`` (kernel ``tag``), which must break it (the position
-    projection r, and seg_embed and r_s_bias, lose their score gradient).
-    Phase 6d: S=512 under auto (#24); 6f: S=50 under inkernel (#22)."""
+    then the same step with each of ``faults`` (the part of the output of
+    ``fa.<bwd>``, kernel ``tag``, and its name) zeroed, which must break it:
+    dr, then ded (the position projection r, and seg_embed and r_s_bias,
+    lose their score gradient), or debias (both). Phase 6d: S=512 under
+    auto (#24) and under stream (#15, debias); 6f: S=50 under inkernel
+    (#22)."""
     import torch
 
     from bert_multimodal_transformer_tpu_torch.config import (
@@ -2957,9 +3033,9 @@ def xlnet_grad_check(args, rng, fa, card, *, s, batch, impl, bwd, tag,
         raise AssertionError(f"S={s} {impl} check step launches {got} != "
                              f"{want}")
     real = getattr(fa, bwd)
-    faults = (f"planted fault: dr zeroed in {tag}",
-              f"planted fault: ded zeroed in {tag}")
-    for name, part in zip(faults, (2, 5)):
+    parts = [part for part, _ in faults]
+    faults = [f"planted fault: {what} zeroed in {tag}" for _, what in faults]
+    for name, part in zip(faults, parts):
         def faulty(*a, _part=part, **kw):
             out = list(real(*a, **kw))
             out[_part] = torch.zeros_like(out[_part])
@@ -3050,8 +3126,9 @@ def check_rel_fs_kernels(rng, fa, dtype_name, b, q_len, k_len, rate, h=12,
     row 0 (a key block masked whole) and query row 3 of batch row 1, head
     0 (a row masked whole, which comes out uniform) at −1e30. lse to 1e-4
     absolute plus 1e-6 relative; #17 within ``rel_fs_grads_bf16_bound``
-    (fp32: GRAD_FP32_TOL); the same bits from the same seed twice. Returns
-    the max errors."""
+    (fp32: GRAD_FP32_TOL); where K ≤ HB_MAX_SEQ_LEN #15 on the same case
+    within ``rel_grads_bf16_bound``; the same bits from the same seed
+    twice. Returns the max errors."""
     import torch
 
     kw = dict(n_heads=h, scale=dh ** -0.5, rate=rate)
@@ -3096,11 +3173,23 @@ def check_rel_fs_kernels(rng, fa, dtype_name, b, q_len, k_len, rate, h=12,
                                       **kw)
     same = (torch.equal(again16[0], out) and torch.equal(again16[1], lse)
             and all(torch.equal(x, y) for x, y in zip(grads, again17)))
+    if k_len <= fa.HB_MAX_SEQ_LEN:
+        g15 = fa.attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g, **kw)
+        _, p, pd = fa.attn_fwd_rel_reference(q, k, v, ebias, seed=seed,
+                                             save=True, **kw)
+        errs["#15"] = _rel_grad_errs(tag, dtype_name, (
+            ("#15 vs plain", g15, fa.attn_bwd_rel_hb_reference(
+                q, k, v, ebias, seed, g, **kw)),), (
+            p, pd, q, k, v, g, dict(n_heads=h, scale=kw["scale"])),
+            fa)["#15 vs plain"]
+        del p, pd
+        same = same and all(torch.equal(x, y) for x, y in zip(
+            g15, fa.attn_bwd_rel_hb_cuda(q, k, v, ebias, seed, g, **kw)))
     print(f"rel fs kernels vs plain {tag}: " + ", ".join(
         f"{k_} {v_:.3e}" for k_, v_ in errs.items())
         + f"; same seed twice, identical bits {same}")
     if not same:
-        raise AssertionError(f"#16/#17 not bit-reproducible ({tag})")
+        raise AssertionError(f"#15-#17 not bit-reproducible ({tag})")
     return errs
 
 
@@ -3164,6 +3253,48 @@ def check_rel_fs_against_hb(rng, fa):
           f"max |Δ| {float(err.max()):.3e} within 2^-7·(|out| + pd·|v|)")
 
 
+def check_rel_bwd_masks(rng, fa):
+    """#15's and #17's keep masks (their dK/dV passes') against the plain
+    Philox mask, bit for bit: with q = k = 0 and a zero ebias every score is
+    0 and p = 1/K, and with g_h the identity (Q = Dh = 128) dV[k, h, c] =
+    Σ_q pd(q, k)·g[q, h, c] = pd(c, k) is > 0 exactly where (b, h, c, k) is
+    kept. bf16 B=2 Q=128 K=200 (ragged, K ≠ Q) H=3 Dh=128 at rate 0.1; the
+    keep rate within 5σ of 0.9."""
+    import torch
+
+    b, q_len, k_len, h, dh = 2, 128, 200, 3, 128
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    q = torch.zeros(b, q_len, h * dh, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(b, k_len, h * dh, device="cuda", dtype=torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((b, k_len, h * dh),
+                                             dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+    eb = torch.zeros(b, h, q_len, k_len, device="cuda", dtype=torch.bfloat16)
+    g = torch.eye(dh, device="cuda", dtype=torch.bfloat16)[
+        None, :, None, :].expand(b, q_len, h, dh).reshape(
+        b, q_len, h * dh).contiguous()
+    kw = dict(n_heads=h, scale=dh ** -0.5, rate=RATE)
+    keep = fa.dropout_keep_mask(seed, b, h, q_len, k_len, RATE, "cuda")
+    out, lse = fa.attn_fwd_rel_fs_cuda(q, k, v, eb, seed=seed, **kw)
+    for name, grads in (
+            ("#15's dV", fa.attn_bwd_rel_hb_cuda(q, k, v, eb, seed, g, **kw)),
+            ("#17's dV", fa.attn_bwd_rel_fs_cuda(q, k, v, eb, seed, out, lse,
+                                                 g, **kw))):
+        kernel_keep = grads[2].view(b, k_len, h, dh).permute(0, 2, 3, 1) > 0
+        if not torch.equal(kernel_keep, keep):
+            raise AssertionError(f"{name} keep mask differs from the plain "
+                                 f"Philox mask in "
+                                 f"{int((kernel_keep != keep).sum())} "
+                                 "elements")
+        got = float(kernel_keep.double().mean())
+        sigma = math.sqrt(RATE * (1 - RATE) / keep.numel())
+        if abs(got - (1 - RATE)) >= 5 * sigma:
+            raise AssertionError(f"{name} keep rate {got} not within 5σ")
+        print(f"{name} keep mask = plain Philox mask bit for bit over "
+              f"{keep.numel()} elements (bf16 B={b} Q={q_len} K={k_len} "
+              f"H={h} Dh={dh}), keep rate {got:.6f} (5σ={5 * sigma:.1e})")
+
+
 def rel_fs_bound(kind, b, q_len, k_len, h, dh, itemsize):
     """The bound of #16 (``fwd``) or #17 at [B, Q, K, H, Dh]: each input
     read once and each output written once (q, k, v, ebias; out and the
@@ -3185,7 +3316,8 @@ def time_rel_fs_kernels(rng, fa, card):
     batch), rate 0 against the plain versions and the library calls (SDPA
     with the ebias as a float mask; SDPA's autograd backward to q, k, v and
     the ebias), rate 0.1 against the plain versions; CUDA events over
-    alternating rounds. Returns {name: entry}."""
+    alternating rounds; #17's two launches timed apart (``rel_bwd_passes``).
+    Returns {name: entry}."""
     import torch
 
     s = 1024
@@ -3234,6 +3366,12 @@ def time_rel_fs_kernels(rng, fa, card):
             print(f"{name} bf16 B={TRAIN_BATCH} Q=K={s} H=12 Dh=64 rate "
                   f"{rate} on {card}: kernel {kt} ms, plain {pt} ms per call"
                   f"{lib_note}; bound {bound[0]:.4f} ms ({bound[1]})")
+        e = out["attn_bwd_rel_fs"]
+        _time_passes(rel_bwd_passes(fa, "attn_bwd_rel_fs", q, k, v, ebias,
+                                    seed, g, rate, o16, lse),
+                     f"attn_bwd_rel_fs passes bf16 B={TRAIN_BATCH} Q=K={s} "
+                     f"rate {rate}", e if rate == 0.0 else next(
+                         iter(e["modes"].values())), card)
         torch.cuda.empty_cache()
     return out
 
@@ -5142,6 +5280,8 @@ def main() -> int:
                 rel_fs_errs[k_] = max(rel_fs_errs.get(k_, 0.0), v_)
     torch.cuda.empty_cache()
     check_rel_fs_against_hb(rng, fa)
+    # #15's and #17's keep masks, from a stream of their own
+    check_rel_bwd_masks(np.random.default_rng([args.seed, 15]), fa)
     rel_fs_times = time_rel_fs_kernels(rng, fa, card)
 
     # 3h. The full-H ingredients kernels (rel_bias_impl="inkernel"). Its
@@ -5448,9 +5588,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": f"{tpu}fused_attention.py:{line}",
             "launches": total, "launches_by_path": paths,
-            "max_abs_err": long_rel_errs[tag],
+            "max_abs_err": max(long_rel_errs[tag],
+                               rel_fs_errs.get(tag, 0.0)),
             **long_rel_times[name],
             "shape": f"bf16 B={TRAIN_BATCH} {shape} H=12 Dh=64 rate 0"})
+    kernels[-3]["launches_note"] = ("two kernel launches a call in bf16: the "
+                                    "statistics + dQ + debias pass and the "
+                                    "dK/dV pass")
     kernels[-1]["launches_note"] = ("three kernel launches a call: the dK/dV "
                                     "pass, the drw/drr/ded/dr-window pass and "
                                     "the dr sum over the batch")

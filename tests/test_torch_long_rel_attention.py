@@ -479,23 +479,107 @@ def test_tensor_core_plans_fit_every_head_width():
     assert tfa.relik_fs_bwd_smem_bytes(128) == 228864
 
 
+@pytest.mark.parametrize("dh", [40, 64, 128])
+def test_head_blocked_rel_backward_bf16_plan_fits(dh):
+    """bf16 #15's plan (the rel tensor-core passes with their own
+    statistics, nothing K-sized) fits a block at any K; at Dh ≤ 64 two
+    blocks share an SM's 228 KB (1 KB each reserved). fp32's fits at the
+    head-blocked reach."""
+    plan = tfa.rel_hb_bwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh)
+    assert plan == tfa.rel_hb_bwd_smem_bytes(142, dh) <= tfa.MAX_SMEM_BYTES
+    assert tfa.rel_hb_bwd_smem_bytes(tfa.HB_MAX_SEQ_LEN, dh, 4) <= (
+        tfa.MAX_SMEM_BYTES)
+    if dh <= 64:
+        assert 2 * (plan + 1024) <= 228 * 1024
+    # dK/dV: k, v and the q/g rings [6·64][72], pd_c/ds_c and the ebias
+    # ring [4·64][72] bf16
+    assert tfa.rel_hb_bwd_smem_bytes(512, 64) == 92160
+
+
+def _rel_hb_bwd_tc_plan(q, k, v, ebias, seed, g, n_heads, scale, rate):
+    """bf16 #15's plan (``csrc/attn_bwd_rel_tc.cuh`` with its own
+    statistics) in plain torch, fp32: s = (q·kᵀ)·scale + ebias; the
+    statistics walk over key blocks of 64 keeps each row's online max m,
+    denominator l and δ·l = Σ e·dp (dp = d(pd) dropped and scaled by the
+    replayed mask) under one rescale α = exp(m − m'); then p = exp(s −
+    m)·(1/l), pd, the unscaled ds = p·(dp − δ), and dQ = (ds·scale)·K, dK
+    = (ds·scale)ᵀ·Q, dV = pdᵀ·g, debias = ds."""
+    b, q_len, k_len = q.shape[0], q.shape[1], k.shape[1]
+    qh, kh, vh, gh = (tfa._ctx_heads(x, n_heads).float() for x in (q, k, v, g))
+    sc = torch.matmul(qh, kh.transpose(-1, -2)) * scale + ebias.float()
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    keep = tfa.dropout_keep_mask(seed, b, n_heads, q_len, k_len, rate)
+    dp = torch.where(keep, dp * tfa.inv_keep(rate), 0.0)
+    m = torch.full(sc.shape[:3], -float("inf"))
+    den, dn = torch.zeros_like(m), torch.zeros_like(m)
+    for k0 in range(0, k_len, 64):
+        sb, db = sc[..., k0:k0 + 64], dp[..., k0:k0 + 64]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(sb - m_new[..., None])
+        den = den * alpha + e.sum(dim=-1)
+        dn = dn * alpha + (e * db).sum(dim=-1)
+        m = m_new
+    p = torch.exp(sc - m[..., None]) * (1.0 / den)[..., None]
+    pd = torch.where(keep, p * tfa.inv_keep(rate), 0.0)
+    ds = p * (dp - (dn / den)[..., None])
+    return (tfa._merge_heads(torch.matmul(ds * scale, kh)),
+            tfa._merge_heads(torch.matmul((ds * scale).transpose(-1, -2), qh)),
+            tfa._merge_heads(torch.matmul(pd.transpose(-1, -2), gh)), ds)
+
+
+def test_head_blocked_rel_backward_plan_is_the_recompute_backward():
+    """The statistics walk and the flash backward of bf16 #15's plan, run
+    in fp32 plain torch at B=2 Q=150 K=200 (K ≠ Q, the last key block
+    ragged) H=4 Dh=32, rate 0.1, with the first keys of batch row 0 and
+    one query row of batch row 1 masked whole (−1e30 in ebias), give #12's
+    (#15's plain version's) dq, dk, dv and debias within 1e-5: the online
+    m, l and δ are the whole-row softmax's and Σ_k t to fp32 rounding, and
+    the masked row comes out uniform."""
+    rng = np.random.RandomState(15)
+    q_len, k_len = 150, 200
+    q, g = (torch.from_numpy(rng.randn(B, q_len, D).astype(np.float32))
+            for _ in "qg")
+    k, v = (torch.from_numpy(rng.randn(B, k_len, D).astype(np.float32))
+            for _ in "kv")
+    eb = torch.from_numpy((rng.randn(B, H, q_len, k_len) * 0.5).astype(
+        np.float32))
+    eb[0, :, :, :3] = -1e30
+    eb[1, 2, 7, :] = -1e30
+    seed = 2 ** 43 + 15
+    want = tfa.attn_bwd_rel_hb_reference(q, k, v, eb, seed, g, n_heads=H,
+                                         scale=SCALE, rate=0.1)
+    got = _rel_hb_bwd_tc_plan(q, k, v, eb, seed, g, H, SCALE, 0.1)
+    for name, a, w in zip(("dq", "dk", "dv", "debias"), got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    assert float(want[3][1, 2, 7].abs().max()) > 0.0
+
+
 @pytest.mark.parametrize("wrapper,plan,where", [
     ("attn_fwd_rel_hb_cuda", "rel_hb_fwd_smem_bytes", f"K=8, Dh={DH}"),
+    ("attn_bwd_rel_hb_cuda", "rel_hb_bwd_smem_bytes", f"K=8, Dh={DH}"),
+    ("attn_bwd_rel_fs_cuda", "rel_fs_bwd_smem_bytes", f"Dh={DH}"),
     ("attn_bwd_relik_fs_cuda", "relik_fs_bwd_smem_bytes", f"Dh={DH}"),
 ])
 def test_tensor_core_wrappers_raise_past_their_plans(wrapper, plan, where,
                                                      monkeypatch):
-    """The #14 and #24 wrappers refuse a plan past 227 KB before they touch
-    the card, and name it."""
+    """The #14, #15, #17 and #24 wrappers refuse a plan past 227 KB before
+    they touch the card, and name it."""
     x = {n: torch.from_numpy(a).to(torch.bfloat16)
          for n, a in _ingredients(8, 8, 16).items()}
     ins = [x[n] for n in (*DIFF, "segd", "maskb")]
     fn = getattr(tfa, wrapper)
+    eb = torch.zeros(B, H, 8, 8, dtype=torch.bfloat16)
+    rel = (x["rw"], x["k"], x["v"], eb)
 
     def call():
         if wrapper == "attn_fwd_rel_hb_cuda":
-            return fn(x["rw"], x["k"], x["v"],
-                      torch.zeros(B, H, 8, 8, dtype=torch.bfloat16),
+            return fn(*rel, n_heads=H, scale=SCALE)
+        if wrapper == "attn_bwd_rel_hb_cuda":
+            return fn(*rel, 0, x["g"], n_heads=H, scale=SCALE)
+        if wrapper == "attn_bwd_rel_fs_cuda":
+            return fn(*rel, 0, x["g"], torch.zeros(B, H, 8), x["g"],
                       n_heads=H, scale=SCALE)
         return fn(*ins, 0, x["g"], torch.zeros(B, H, 8), x["g"], n_heads=H,
                   scale=SCALE)
@@ -728,12 +812,26 @@ def test_ingredients_kernels_match_plain_on_card(cuda_device, dtype, b, s,
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
 
 
+def _rel_bwd_close(got, want, q, k, v, eb, seed, g, kw):
+    """bf16 (dq, dk, dv, debias) within ``rel_grads_bf16_bound`` of want."""
+    _, p, pd = tfa.attn_fwd_rel_reference(q, k, v, eb, seed=seed, save=True,
+                                          **kw)
+    bounds = tfa.rel_grads_bf16_bound(want, p, pd, q, k, v, g,
+                                      n_heads=kw["n_heads"],
+                                      scale=kw["scale"])
+    for name, a, w, bd in zip(("dq", "dk", "dv", "debias"), got, want,
+                              bounds):
+        assert bool(((a.float() - w.float()).abs() <= bd).all()), name
+
+
 @pytest.mark.cuda
 def test_head_blocked_rel_kernels_equal_full_h_on_card(cuda_device):
-    """Where both reach, #14 gives #11's function and #15 gives #12's bits.
-    fp32 #14 runs #11's row code: the same bits. bf16 #14 sums its dots on
-    the tensor cores in another order than #11's CUDA-core chains, so it is
-    held to #11 within the bf16 forward bound."""
+    """Where both reach, #14 gives #11's function and #15 #12's. fp32 #14
+    and #15 run #11's and #12's row code: the same bits. In bf16 #14 sums
+    its dots on the tensor cores in another order than #11's CUDA-core
+    chains, so it is held to #11 within the bf16 forward bound, and #15
+    rebuilds p from its own online statistics where #12 takes the whole-row
+    softmax, so it is held to #12 within ``rel_grads_bf16_bound``."""
     rng = np.random.RandomState(23)
     q, k, v, g = (torch.from_numpy(rng.randn(4, 128, 768).astype(np.float32))
                   .to(cuda_device, torch.bfloat16) for _ in range(4))
@@ -742,6 +840,11 @@ def test_head_blocked_rel_kernels_equal_full_h_on_card(cuda_device):
     kw = dict(n_heads=12, scale=0.125, rate=0.1)
     _card_close(tfa.attn_fwd_rel_hb_cuda(q, k, v, eb, seed=9, **kw),
                 tfa.attn_fwd_rel_cuda(q, k, v, eb, seed=9, **kw), "bfloat16")
+    _rel_bwd_close(tfa.attn_bwd_rel_hb_cuda(q, k, v, eb, 9, g, **kw),
+                   tfa.attn_bwd_rel_cuda(q, k, v, eb, 9, g, **kw), q, k, v,
+                   eb, 9, g, kw)
+    q, k, v, g = (x.float() for x in (q, k, v, g))
+    eb = eb.float()
     assert all(torch.equal(a, c) for a, c in zip(
         tfa.attn_bwd_rel_hb_cuda(q, k, v, eb, 9, g, **kw),
         tfa.attn_bwd_rel_cuda(q, k, v, eb, 9, g, **kw)))
@@ -785,6 +888,66 @@ def test_head_blocked_rel_tc_edges_on_card(cuda_device, q_len, k_len, h, dh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_len,k_len,h,dh", [
+    (512, 512, 12, 64),      # the stream path's S = 512
+    (512, 562, 12, 64),      # the 50-row memory: K ≠ Q, K % 8 ≠ 0
+    (70, 131, 3, 64),        # ragged, K % 8 ≠ 0: ebias and debias plain
+    (333, 333, 3, 40),       # a zero-padded k-depth, ragged off 16
+    (136, 200, 2, 128),      # the widest head
+    (640, 640, 2, 128),      # the reach at the widest head
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_head_blocked_rel_backward_tc_edges_on_card(cuda_device, q_len,
+                                                    k_len, h, dh, rate):
+    """bf16 #15 (the shared tensor-core passes) against its plain version
+    within ``rel_grads_bf16_bound``, with a 64-key block of batch row 0 and
+    one query row of batch row 1 masked whole, and the same bits twice."""
+    rng = np.random.RandomState(q_len + k_len + dh)
+    d = h * dh
+    q, g = (torch.from_numpy(rng.randn(2, q_len, d).astype(np.float32))
+            for _ in "qg")
+    k, v = (torch.from_numpy(rng.randn(2, k_len, d).astype(np.float32))
+            for _ in "kv")
+    eb = torch.from_numpy(rng.randn(2, h, q_len, k_len).astype(np.float32))
+    eb[0, :, :, 64:128] = -1e30
+    eb[1, :, q_len // 2] = -1e30
+    q, k, v, eb, g = (t.to(cuda_device, torch.bfloat16)
+                      for t in (q, k, v, eb, g))
+    kw = dict(n_heads=h, scale=dh ** -0.5, rate=rate)
+    seed = 2 ** 58 + 9
+    got = tfa.attn_bwd_rel_hb_cuda(q, k, v, eb, seed, g, **kw)
+    _rel_bwd_close(got, tfa.attn_bwd_rel_hb_reference(q, k, v, eb, seed, g,
+                                                      **kw),
+                   q, k, v, eb, seed, g, kw)
+    assert all(torch.equal(a, c) for a, c in zip(
+        got, tfa.attn_bwd_rel_hb_cuda(q, k, v, eb, seed, g, **kw)))
+
+
+@pytest.mark.cuda
+def test_head_blocked_rel_backward_keep_mask_on_card(cuda_device):
+    """bf16 #15's keep mask (its dK/dV pass's) is the plain Philox mask bit
+    for bit: with q = k = 0 and a zero ebias every prob is 1/K, and with
+    g_h the identity (Q = Dh = 128) dV[k, h, c] = pd(c, k) is > 0 exactly
+    where (b, h, c, k) is kept; K = 200 leaves the last key tile ragged."""
+    b, q_len, k_len, h, dh, rate = 2, 128, 200, 3, 128, 0.1
+    seed = 2 ** 62 + 21
+    q = torch.zeros(b, q_len, h * dh, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k = torch.zeros(b, k_len, h * dh, device=cuda_device,
+                    dtype=torch.bfloat16)
+    v = torch.randn(b, k_len, h * dh, device=cuda_device).bfloat16()
+    eb = torch.zeros(b, h, q_len, k_len, device=cuda_device,
+                     dtype=torch.bfloat16)
+    g = torch.eye(dh, device=cuda_device)[None, :, None, :].expand(
+        b, q_len, h, dh).reshape(b, q_len, h * dh).bfloat16()
+    dv = tfa.attn_bwd_rel_hb_cuda(q, k, v, eb, seed, g, n_heads=h,
+                                  scale=dh ** -0.5, rate=rate)[2]
+    keep = tfa.dropout_keep_mask(seed, b, h, q_len, k_len, rate, cuda_device)
+    assert torch.equal(dv.view(b, k_len, h, dh).permute(0, 2, 3, 1) > 0,
+                       keep)
+
+
+@pytest.mark.cuda
 def test_head_blocked_rel_keep_mask_on_card(cuda_device):
     """bf16 #14's keep mask is the plain Philox mask bit for bit: with q = k
     = 0 and a zero ebias every prob is 1/K, and with v_h the identity (K =
@@ -806,8 +969,9 @@ def test_head_blocked_rel_keep_mask_on_card(cuda_device):
 @pytest.mark.cuda
 def test_long_rel_tiers_launch_their_kernels(cuda_device):
     """The entries launch the tier's kernels on CUDA tensors: #14 + #15
-    through ``fused_rel_attention`` at Q = K = 512 with a gradient, #23 +
-    #24 (three launches) through ``fused_rel_attention_ingredients``."""
+    (two launches in bf16) through ``fused_rel_attention`` at Q = K = 512
+    with a gradient, #23 + #24 (three launches) through
+    ``fused_rel_attention_ingredients``."""
     x = _card(_ingredients(512, 512, 1024, b=2, h=12, dh=64), cuda_device,
               "bfloat16")
     rng = torch.Generator().manual_seed(1)
@@ -819,7 +983,7 @@ def test_long_rel_tiers_launch_their_kernels(cuda_device):
                             dropout_rate=0.1, dropout_rng=rng,
                             deterministic=False).backward(x["g"])
     assert (tfa.attn_fwd_rel_hb_cuda.launches - f0,
-            tfa.attn_bwd_rel_hb_cuda.launches - b0) == (1, 1)
+            tfa.attn_bwd_rel_hb_cuda.launches - b0) == (1, 2)
     f0 = tfa.attn_fwd_relik_fs_cuda.launches
     b0 = tfa.attn_bwd_relik_fs_cuda.launches
     xs = [x[n].clone().requires_grad_() for n in DIFF]

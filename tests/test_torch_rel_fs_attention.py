@@ -334,6 +334,22 @@ def test_fs_forward_bf16_plan_fits(dh):
     assert tfa.rel_fs_fwd_smem_bytes(64) == 92928
 
 
+@pytest.mark.parametrize("dh", [40, 64, 128])
+def test_fs_backward_bf16_plan_fits(dh):
+    """bf16 #17's plan (the rel tensor-core passes: #7's with the ebias
+    ring for the mask bias) fits a block at every head width; at Dh ≤ 64
+    two dK/dV blocks share an SM's 228 KB (1 KB each reserved). fp32's
+    fits too."""
+    plan = tfa.rel_fs_bwd_smem_bytes(dh)
+    assert plan <= tfa.MAX_SMEM_BYTES
+    assert tfa.rel_fs_bwd_smem_bytes(dh, 4) <= tfa.MAX_SMEM_BYTES
+    if dh <= 64:
+        assert 2 * (plan + 1024) <= 228 * 1024
+    # dK/dV: k, v and the q/g/o rings [8·64][72], pd_c/ds_c and the ebias
+    # ring [4·64][72] bf16
+    assert tfa.rel_fs_bwd_smem_bytes(64) == 110592
+
+
 def test_fs_forward_raises_past_its_plan(monkeypatch):
     """The #16 wrapper refuses a plan past 227 KB before it touches the
     card, and names it."""
@@ -427,6 +443,31 @@ def test_fs_keep_mask_on_card(cuda_device):
     assert torch.equal(out.view(b, q_len, h, dh).permute(0, 2, 1, 3) > 0,
                        keep)
     assert not bool(keep.all())
+
+
+@pytest.mark.cuda
+def test_fs_backward_keep_mask_on_card(cuda_device):
+    """bf16 #17's keep mask (its dK/dV pass's) is the plain Philox mask bit
+    for bit: with q = k = 0 and a zero ebias every prob is 1/K, and with
+    g_h the identity (Q = Dh = 128) dV[k, h, c] = pd(c, k) is > 0 exactly
+    where (b, h, c, k) is kept; K = 200 leaves the last key tile ragged."""
+    b, q_len, k_len, h, dh, rate = 2, 128, 200, 3, 128, 0.1
+    seed = 2 ** 62 + 19
+    q = torch.zeros(b, q_len, h * dh, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k = torch.zeros(b, k_len, h * dh, device=cuda_device,
+                    dtype=torch.bfloat16)
+    v = torch.randn(b, k_len, h * dh, device=cuda_device).bfloat16()
+    eb = torch.zeros(b, h, q_len, k_len, device=cuda_device,
+                     dtype=torch.bfloat16)
+    g = torch.eye(dh, device=cuda_device)[None, :, None, :].expand(
+        b, q_len, h, dh).reshape(b, q_len, h * dh).bfloat16()
+    kw = dict(n_heads=h, scale=dh ** -0.5, rate=rate)
+    out, lse = tfa.attn_fwd_rel_fs_cuda(q, k, v, eb, seed=seed, **kw)
+    dv = tfa.attn_bwd_rel_fs_cuda(q, k, v, eb, seed, out, lse, g, **kw)[2]
+    keep = tfa.dropout_keep_mask(seed, b, h, q_len, k_len, rate, cuda_device)
+    assert torch.equal(dv.view(b, k_len, h, dh).permute(0, 2, 3, 1) > 0,
+                       keep)
 
 
 @pytest.mark.cuda
