@@ -17,21 +17,25 @@
 //
 // What bounds it on the card: at B=256, S=50, H=12, Dh=64 it is four
 // S×S×Dh products per (b, h), ~2 GFLOP in all, over ~40 MB of qkv/g/dqkv
-// plus ~31 MB of saved probs: latency-bound next to the training step's
-// GEMMs, as the forward. dQ reduces over keys while dK and dV reduce over
-// queries.
+// plus ~31 MB of saved probs: 0.0503 ms at 3.35 TB/s, bytes-bound once the
+// products leave the fp32 CUDA cores (as scalar loops they took 0.66 ms).
+// dQ reduces over keys while dK and dV reduce over queries.
 //
 // What the design does about that: one block per (head, batch row) holds
-// the whole [S, S] problem in shared memory (common.cuh's plan, the same
-// as the recompute backward's, and its code `bwd_saved_head`, which the
-// split-layout #10 runs too), so every reduction stays inside the block,
-// there are no atomics and the result is bit-reproducible; B·H = 3072
-// blocks fill the 132 SMs. pd is staged in shared memory for the dV
-// product and the VJP, p is read once from device memory, row by row. The
-// plan fits 227 KB up to S = 140 at Dh = 64. The products run on the CUDA
-// cores in fp32; tensor cores are later work.
+// the whole [S, S] problem in shared memory, so every reduction stays
+// inside the block, there are no atomics and the result is
+// bit-reproducible; B·H = 3072 blocks fill the 132 SMs. bf16 runs
+// attn_full_tc.cuh's tensor-core plan: Q, K, V, g and pd staged as bf16,
+// each warp 16 query rows for d(pd) = g·Vᵀ, the softmax VJP and dQ (ds_c
+// never leaving the registers on its way to dQ), then 16 keys for dV and
+// dK by ldmatrix.trans. fp32 keeps the CUDA-core code, common.cuh's
+// `bwd_saved_head` (the recompute backward's plan, which #10 and #19 run
+// too): pd staged in shared memory, p read once row by row, scalar fp32
+// products. Both reach S = max_bwd_seq_len(Dh) (140 at Dh = 64, 117 at
+// Dh = 128), the fp32 plan's limit. A bf16 call always launches the
+// tensor-core kernel or returns the launch's error.
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
 
 namespace {
 
@@ -100,9 +104,32 @@ int attn_bwd_packed_saved(const void* p, const void* pd, const void* qkv,
   switch (dtype) {
     case 0:
       return launch<float>(p, pd, qkv, g, dqkv, B, S, H, Dh, scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(p, pd, qkv, g, dqkv, B, S, H, Dh, scale,
-                                   st);
+    case 1: {
+      // The tensor-core plan of attn_full_tc.cuh.
+      using bf16 = __nv_bfloat16;
+      const int D = H * Dh;
+      const bf16* q = static_cast<const bf16*>(qkv);
+      bf16* dq = static_cast<bf16*>(dqkv);
+      const full_tc::BwdGeom geom{q,
+                                  q + D,
+                                  q + 2 * D,
+                                  (long long)S * 3 * D,
+                                  Dh,
+                                  3 * D,
+                                  static_cast<const bf16*>(g),
+                                  (long long)S * D,
+                                  Dh,
+                                  D,
+                                  dq,
+                                  dq + D,
+                                  dq + 2 * D,
+                                  (long long)S * 3 * D,
+                                  Dh,
+                                  3 * D,
+                                  static_cast<const bf16*>(p),
+                                  static_cast<const bf16*>(pd)};
+      return full_tc::launch_bwd(geom, B, S, H, Dh, scale, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

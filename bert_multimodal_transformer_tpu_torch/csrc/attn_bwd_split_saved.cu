@@ -21,14 +21,15 @@
 // GFLOP at bert-base B=256 S=50 over ~30 MB of q, k, v, g and gradients
 // plus ~31 MB of saved probs: latency-bound.
 //
-// What the design does about that: #3's plan and code, common.cuh's
-// `bwd_saved_head`: one block per (head, batch row) holds the whole [S, S]
-// problem in shared memory, every reduction inside the block, no atomics,
-// bit-reproducible; pd staged in shared memory, p read once row by row. The
-// head's rows are contiguous (row stride Dh). Up to S = 140 at Dh = 64.
-// fp32 CUDA-core products; tensor cores are later work.
+// What the design does about that: #3's plans and code on strides: one
+// block per (head, batch row) holds the whole [S, S] problem in shared
+// memory, every reduction inside the block, no atomics, bit-reproducible.
+// bf16 runs attn_full_tc.cuh's tensor-core plan, fp32 common.cuh's
+// `bwd_saved_head` (scalar fp32 products). The head's rows are contiguous
+// (row stride Dh). Up to S = 140 at Dh = 64; #10 gives #3's bits on the
+// same q, k, v.
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
 
 namespace {
 
@@ -99,9 +100,30 @@ int attn_bwd_split_saved(const void* p, const void* pd, const void* q,
     case 0:
       return launch<float>(p, pd, q, k, v, g, dq, dk, dv, B, S, H, Dh, scale,
                            st);
-    case 1:
-      return launch<__nv_bfloat16>(p, pd, q, k, v, g, dq, dk, dv, B, S, H, Dh,
-                                   scale, st);
+    case 1: {
+      // The tensor-core plan of attn_full_tc.cuh.
+      using bf16 = __nv_bfloat16;
+      const long long head = (long long)S * Dh;
+      const full_tc::BwdGeom geom{static_cast<const bf16*>(q),
+                                  static_cast<const bf16*>(k),
+                                  static_cast<const bf16*>(v),
+                                  head * H,
+                                  head,
+                                  Dh,
+                                  static_cast<const bf16*>(g),
+                                  head * H,
+                                  head,
+                                  Dh,
+                                  static_cast<bf16*>(dq),
+                                  static_cast<bf16*>(dk),
+                                  static_cast<bf16*>(dv),
+                                  head * H,
+                                  head,
+                                  Dh,
+                                  static_cast<const bf16*>(p),
+                                  static_cast<const bf16*>(pd)};
+      return full_tc::launch_bwd(geom, B, S, H, Dh, scale, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

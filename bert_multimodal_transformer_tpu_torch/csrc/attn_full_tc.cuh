@@ -1,0 +1,825 @@
+// The bf16 tensor-core plans of the full-H attention kernels: the forward
+// #1 (attn_fwd_packed.cu) and its split-layout twin #8 (attn_fwd_split.cu),
+// the saved-probs backward #3 (attn_bwd_packed_saved.cu) and its twin #10
+// (attn_bwd_split_saved.cu). fp32 keeps the CUDA-core row code of
+// common.cuh (`fwd_rows`, `bwd_saved_head`), as do #18 and #19, whose head
+// lies in shared memory where cp.async cannot read it.
+//
+// What they compute is #1's and #3's function (common.cuh's notes), per
+// batch row b and head h:
+//   s    = (Q · Kᵀ in fp32) · scale + (1 − m) · −10000; p = softmax_k(s)
+//   save: p_out = bf16(p); rate > 0: p ← keep ? p · inv_keep : 0 (the
+//          Philox stream at (k >> 2, q, h, b)); save: pd_out = bf16(p)
+//   out  = bf16(p) · V summed in fp32, rounded once
+//   dV = pdᵀ · g;  t = pd ⊙ (g · Vᵀ);  ds_c = bf16((t − p · Σ_k t) · scale)
+//   dQ = ds_c · K;  dK = ds_cᵀ · Q      (every product summed in fp32)
+//
+// What bounds them on the card: at the bench's shape (B=256, S=50, H=12,
+// Dh=64) the forward is ~1 GFLOP over ~39 MB with the saved probs, the
+// backward ~2 GFLOP over ~71 MB: both bytes-bound at 0.012-0.05 ms, where
+// the CUDA-core kernels took 0.24-0.66 ms on dependent fp32 fmaf chains.
+// The design runs every product on mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate) fed by ldmatrix from operands cp.async staged once, with
+// common.cuh's tensor-core pieces, and keeps the elementwise work on the
+// accumulators in registers.
+//
+// Forward, register plan (S ≤ kRegMaxS = 64; `fwd_reg_rows`). One block of
+// S/16 warps (rounded up; 4 at S = 50) per (head, batch row), each warp 16
+// query rows. Q, K, V of the head are staged once as bf16 (rows of
+// attn::tc_ld(Dh), rows past S zero-filled, the k-depth's pad columns
+// zero). QKᵀ runs into registers: a lane holds rows g = lane / 4 and g + 8
+// of its slab at keys 8t + 2·(lane % 4) + {0, 1} of the n8 tiles t < S/8,
+// ≤ 32 fp32. The row max and sum come from the lane's values in key order,
+// then the quad's xor tree (1, 2); p = e / sum, the fp32 kernel's
+// operations. The keep bits take the existing counter: lanes 2m and 2m + 1
+// share the key group k >> 2, so each draws one Philox block (rows g and
+// g + 8) and they trade the words the other needs by two shuffles. p and
+// pd are stored from the accumulator layout, bf16x2 while S is even (a
+// head's [S][S] block is then 4-byte aligned), 2-byte stores otherwise. The
+// dropped probs are repacked from the C fragments into PV's A fragments
+// (two neighbouring n8 tiles are one 16-key step), as FlashAttention-2
+// does, with no shared-memory round trip; V is read by ldmatrix.trans.
+// Shared memory: Q, K, V [S16][L] bf16 and the [S16] bias, 27.3 KB at
+// S = 50, Dh = 64 (S16: S rounded up to 16; L: Dh rounded up to 16, + 8).
+//
+// Forward, shared-memory plan (64 < S ≤ 512;
+// `attn_full_tc_fwd_smem_kernel`): #4's plan
+// (attn_fwd_packed_hb.cu), with the save modes added: a block of 8 warps
+// per (32-row query tile, head, batch row), K then V streamed through a
+// two-stage ring of 64-key blocks, the fp32 score tile [32][keys + 4] in
+// shared memory, the whole-row softmax one warp per row (common.cuh's
+// `tc_hb_softmax_rows`, which #4 and #14 run, in its save mode), the probs
+// in bf16 over their own score row, PV by ldmatrix. Shared memory as
+// ops/fused_attention.py::hb_fwd_smem_bytes. #4 keeps its own copy of the
+// kernel: launched as #4 from attn_fwd_packed_hb.cu, this one ran 2.5%
+// slower than #4's (1.192-1.201 against 1.162-1.175 ms at bf16 B=48
+// S=512 on an NVIDIA H100 80GB HBM3 at 700 W, one call of chip_ab.py)
+// with the same registers, while launched as #1 it runs at #4's pace.
+//
+// Backward (`bwd_saved_rows`, S ≤ max_bwd_seq_len(Dh)): one block of S/16
+// warps (rounded up) per (head, batch row). Q, K, V and g are staged as
+// bf16 by cp.async; pd into a bf16 [S16][S16 + 8] tile by 4-byte loads
+// while S is even (its rows are S·2 bytes apart: 100 at S = 50, only
+// 4-byte aligned), 2-byte loads otherwise. Phase 1, warp w on query rows
+// 16w .. 16w + 15: d(pd) = g · Vᵀ into registers; t = pd ⊙ d(pd); Σ_k t
+// from the lane's values in key order, then the quad's xor tree; p read
+// straight from device memory in the accumulator layout; ds_c packed to
+// bf16 pairs in place. Those pairs are dQ = ds_c · K's A fragments (K by
+// ldmatrix.trans), and are written to a bf16 [S16][S16 + 8] ds_c tile.
+// Phase 2, after one barrier, warp w on keys 16w .. 16w + 15: dV = pdᵀ · g
+// and dK = ds_cᵀ · Q, pdᵀ and ds_cᵀ by ldmatrix.trans from their tiles, g
+// and Q by ldmatrix.trans, summed over all query rows. Every reduction
+// lies inside one warp's registers in a fixed order: no atomics, the same
+// bits twice. Built for S ≤ 64 (kNT = 8 key tiles) and for the whole reach
+// (22 key tiles at Dh ≤ 64, 18 at Dh ≤ 128), each for Dh ≤ 64 and ≤ 128.
+// Shared memory (ops/fused_attention.py::full_tc_bwd_smem_bytes): Q, K, V
+// and g [S16][L] bf16, pd and ds_c [S16][S16 + 8] bf16: 54 KB at S = 50,
+// Dh = 64; 166.5 KB at S = 140; 204 KB at S = 117, Dh = 128.
+//
+// Against the fp32 kernels: a bf16 × bf16 product is exact in fp32, so a
+// dot differs from the CUDA-core fmaf chain of the same values only in the
+// order of its sum, and so do the row sums of the quad plan; the roundings
+// sit where the fp32 kernels put them. bf16 #1 and #3 are held to their
+// plain versions within the forward bound and `dqkv_bf16_bound`, not bit
+// for bit. The layouts reach these functions through plain strides
+// (`FwdGeom`, `BwdGeom`), so the packed and split kernels run one code and
+// #8 gives #1's bits, #10 #3's.
+
+#pragma once
+
+#include "common.cuh"
+
+// Internal linkage in each translation unit that includes this header.
+namespace {
+
+namespace full_tc {
+
+using attn::DropoutArgs;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRegMaxS = 64;  // ops/fused_attention.py::FULL_TC_REG_MAX_SEQ_LEN
+constexpr int kRegTiles = kRegMaxS / 8;     // the register plan's n8 key tiles
+constexpr int kRegThreads = kRegMaxS / 16 * 32;
+constexpr int kSmemQTile = 32;              // the shared-memory plan's q tile
+constexpr int kKBlock = 64;                 // its staged K/V blocks
+constexpr int kMaxS = 512;                  // ops/fused_attention.py::MAX_SEQ_LEN
+// The backward's n8 key tiles: its build for S ≤ 64, and its builds for
+// the whole reach of each Dh class (the class's longest max_bwd_seq_len,
+// rounded up to 16: 165 at Dh = 8, 138 at Dh = 72).
+constexpr int kBwdSmallTiles = 8;
+constexpr int kBwdTiles64 = 22;
+constexpr int kBwdTiles128 = 18;
+
+__host__ __device__ inline int rows16(int s) { return (s + 15) / 16 * 16; }
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+__host__ __device__ inline int dh_tiles(int dh) { return dh <= 64 ? 8 : 16; }
+
+// Where one (head, batch row) lives: row r of its q, k, v at
+// q/k/v + b·sb + h·sh + r·ld, row r of its output at out + b·osb + h·osh +
+// r·out_ld; its fp32 [S] mask at mask + b·S (null: no padding); its saved
+// probs at ((b·H + h)·S + r)·S.
+struct FwdGeom {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  long long sb, sh;
+  int ld;
+  const float* mask;
+  bf16* out;
+  long long osb, osh;
+  int out_ld;
+  int b_off, h_off;  // the Philox counter's batch row and head offsets
+};
+
+// The packed projection qkv [B, S, 3D] (column packing i·D + h·Dh + c),
+// its fp32 [B, S] mask (null: no padding) and out [B, S, D] (#1).
+inline FwdGeom packed_fwd_geom(const void* qkv, const void* mask, void* out,
+                               int S, int H, int Dh) {
+  const int D = H * Dh;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  return {q,
+          q + D,
+          q + 2 * D,
+          (long long)S * 3 * D,
+          Dh,
+          3 * D,
+          static_cast<const float*>(mask),
+          static_cast<bf16*>(out),
+          (long long)S * D,
+          Dh,
+          D,
+          0,
+          0};
+}
+
+__device__ __forceinline__ attn::RowsHead<bf16> fwd_head(const FwdGeom& g,
+                                                         int b, int h, int S,
+                                                         int H) {
+  const long long o = b * g.sb + h * g.sh;
+  return {g.q + o,
+          g.k + o,
+          g.v + o,
+          (size_t)g.ld,
+          g.mask ? g.mask + (size_t)b * S : nullptr,
+          g.out + b * g.osb + h * g.osh,
+          (size_t)g.out_ld,
+          ((size_t)b * H + h) * S,
+          b + g.b_off,
+          h + g.h_off};
+}
+
+// The keep-test draws of a lane's four accumulators of n8 key tile t (rows
+// q_lo and q_lo + 8; keys 8t + 2·(lane % 4) + {0, 1}): lanes 2m and
+// 2m + 1 hold the same key group, draw one Philox block each (for q_lo and
+// q_lo + 8) and trade the two words the other needs. Every lane of the
+// warp must call it.
+__device__ __forceinline__ void keep_words(uint32_t (&wd)[4], int q_lo,
+                                           int t, int b, int h,
+                                           const DropoutArgs& drop) {
+  const int lane = threadIdx.x & 31;
+  const bool odd = lane & 1;
+  const int k4 = (8 * t + 4 * ((lane & 3) >> 1)) >> 2;
+  const uint4 own =
+      attn::dropout_bits4(drop.seed, b, h, odd ? q_lo + 8 : q_lo, k4);
+  const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? own.x : own.z, 1);
+  const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? own.y : own.w, 1);
+  wd[0] = odd ? x0 : own.x;
+  wd[1] = odd ? x1 : own.y;
+  wd[2] = odd ? own.z : x0;
+  wd[3] = odd ? own.w : x1;
+}
+
+// dst[j], dst[j + 1] = lo, hi for the keys j, j + 1 < S of a [.][S] prob
+// row (j even): one bf16x2 store when `pairs` (S even and the tensor 4-byte
+// aligned), else one store per key.
+__device__ __forceinline__ void store_pair(bf16* dst, int j, int S, float lo,
+                                           float hi, bool pairs) {
+  if (j >= S) return;
+  if (pairs) {
+    *reinterpret_cast<__nv_bfloat162*>(dst + j) =
+        __floats2bfloat162_rn(lo, hi);
+  } else {
+    dst[j] = __float2bfloat16(lo);
+    if (j + 1 < S) dst[j + 1] = __float2bfloat16(hi);
+  }
+}
+
+// One warp: acc[t] += A[16 rows] · B[8t .. 8t + 8)ᵀ over depth kd for the
+// n8 tiles t < n (n even, ≤ nt), A and B row-major bf16 in shared memory
+// (`attn::tc_warp_abt` with the tiles past n skipped).
+template <int nt>
+__device__ __forceinline__ void warp_abt(float (&acc)[nt][4],
+                                         const bf16* a, const bf16* b,
+                                         int ld, int kd, int n) {
+  const int lane = threadIdx.x & 31;
+  const bf16* pa = attn::tc_lane_a(a, ld);
+  const bf16* pb =
+      b + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+  for (int k = 0; k < kd; k += 16) {
+    uint32_t fa[4];
+    attn::ldsm_x4(fa, pa + k);
+#pragma unroll
+    for (int t = 0; t < nt; t += 2) {
+      if (t < n) {
+        uint32_t fb[4];
+        attn::ldsm_x4(fb, pb + t * 8 * ld + k);
+        attn::mma_bf16(acc[t], fa, fb[0], fb[1]);
+        attn::mma_bf16(acc[t + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+}
+
+// Rows r0 + lane / 4 (+ 8) < rows of a warp's [16][Dh] fp32 accumulators,
+// rounded to bf16, at dst + r · dst_ld (bf16x2: Dh and dst_ld are even).
+template <int nt>
+__device__ __forceinline__ void store_rows(const float (&acc)[nt][4],
+                                           bf16* dst, size_t dst_ld, int r0,
+                                           int rows, int Dh) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = r0 + (lane >> 2) + 8 * hi;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int t = 0; t < nt; ++t) {
+      if (t < Dh / 8)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * dst_ld + t * 8 +
+                                           2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[t][2 * hi], acc[t][2 * hi + 1]);
+    }
+  }
+}
+
+// ---- forward, register plan (S ≤ kRegMaxS) --------------------------------
+
+__host__ __device__ inline size_t fwd_reg_smem_bytes(int s, int dh) {
+  return 3 * (size_t)rows16(s) * attn::tc_ld(dh) * sizeof(bf16) +
+         (size_t)rows16(s) * sizeof(float);
+}
+
+template <int kDT, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_reg_rows(unsigned char* smem_raw,
+                                             const attn::RowsHead<bf16>& hd,
+                                             bf16* __restrict__ p_out,
+                                             bf16* __restrict__ pd_out,
+                                             int S, int Dh, float scale,
+                                             bool pairs,
+                                             const DropoutArgs& drop) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S), nkt = sp / 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [sp][ld]
+  bf16* ks = qs + sp * ld;                        // [sp][ld]
+  bf16* vs = ks + sp * ld;                        // [sp][ld]
+  float* bias = reinterpret_cast<float*>(vs + sp * ld);  // [sp]
+
+  attn::tc_cp_rows(qs, ld, hd.q, hd.ld, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(ks, ld, hd.k, hd.ld, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(vs, ld, hd.v, hd.ld, 0, sp, 0, S, Dh);
+  attn::cp_async_commit();
+  for (int j = threadIdx.x; j < sp; j += blockDim.x)
+    bias[j] = hd.mask && j < S ? (1.0f - hd.mask[j]) * -10000.0f : 0.0f;
+  attn::tc_zero_cols(qs, ld, 3 * sp, Dh, kd);  // Q, K and V's pad columns
+  attn::cp_async_wait<0>();
+  __syncthreads();
+
+  // s = (q · k) · scale + bias for the warp's 16 rows and every key.
+  const int m0 = warp * 16;
+  const int t4 = lane & 3;
+  float sc[kRegTiles][4] = {};
+  warp_abt<kRegTiles>(sc, qs + m0 * ld, ks, ld, kd, nkt);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * t + 2 * t4 + (e & 1);
+      const float x = t < nkt && j < S
+                          ? __fadd_rn(__fmul_rn(sc[t][e], scale), bias[j])
+                          : -INFINITY;
+      sc[t][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  // The row's max and sum: the lane's keys in order, then the quad.
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * t + 2 * t4 + (e & 1);
+      float x = 0.0f;
+      if (t < nkt && j < S) {
+        x = expf(sc[t][e] - mx[e >> 1]);
+        sum[e >> 1] += x;
+      }
+      sc[t][e] = x;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+
+  // p = e / sum; the saved p, the keep mask, the saved pd.
+  const int q_lo = m0 + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+    if (t < nkt) {
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+      if constexpr (kDropout)
+        keep_words(wd, q_lo, t, hd.drop_b, hd.drop_h, drop);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[t][e] = sc[t][e] / sum[e >> 1];
+      }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int q = q_lo + 8 * hi;
+        const size_t prow = (hd.prob_row + q) * S;
+        if constexpr (kSave) {
+          if (q < S)
+            store_pair(p_out + prow, 8 * t + 2 * t4, S, sc[t][2 * hi],
+                       sc[t][2 * hi + 1], pairs);
+        }
+        if constexpr (kDropout) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * hi + u;
+            sc[t][e] = wd[e] >= drop.threshold
+                           ? __fmul_rn(sc[t][e], drop.inv_keep)
+                           : 0.0f;
+          }
+          if constexpr (kSave) {
+            if (q < S)
+              store_pair(pd_out + prow, 8 * t + 2 * t4, S, sc[t][2 * hi],
+                         sc[t][2 * hi + 1], pairs);
+          }
+        }
+      }
+    }
+  }
+
+  // out = bf16(p) · V: key tiles 2c and 2c + 1 are step c's A fragment.
+  float acc[kDT][4] = {};
+  const bf16* vb = attn::tc_lane_bt(vs, ld);
+#pragma unroll
+  for (int c = 0; c < kRegTiles / 2; ++c) {
+    if (2 * c < nkt) {
+      const uint32_t fa[4] = {attn::pack_bf16(sc[2 * c][0], sc[2 * c][1]),
+                              attn::pack_bf16(sc[2 * c][2], sc[2 * c][3]),
+                              attn::pack_bf16(sc[2 * c + 1][0],
+                                              sc[2 * c + 1][1]),
+                              attn::pack_bf16(sc[2 * c + 1][2],
+                                              sc[2 * c + 1][3])};
+      attn::tc_mma_bt(acc, fa, vb + 16 * c * ld, Dh / 8);
+    }
+  }
+  store_rows(acc, hd.out, hd.out_ld, m0, S, Dh);
+}
+
+template <int kDT, bool kDropout, bool kSave>
+__global__ void __launch_bounds__(kRegThreads)
+    attn_full_tc_fwd_reg_kernel(FwdGeom g, bf16* __restrict__ p_out,
+                                bf16* __restrict__ pd_out, int S, int H,
+                                int Dh, float scale, bool pairs,
+                                DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_reg_rows<kDT, kDropout, kSave>(
+      smem_raw, fwd_head(g, blockIdx.y, blockIdx.x, S, H), p_out, pd_out, S,
+      Dh, scale, pairs, drop);
+}
+
+// ---- forward, shared-memory plan (kRegMaxS < S ≤ kMaxS) -------------------
+
+__host__ __device__ inline int smem_keys(int s) {
+  return (s + kKBlock - 1) / kKBlock * kKBlock;
+}
+__host__ __device__ inline int smem_ss_ld(int s) { return smem_keys(s) + 4; }
+
+__host__ __device__ inline size_t fwd_smem_bytes(int s, int dh) {
+  return (size_t)kSmemQTile * smem_ss_ld(s) * sizeof(float) +
+         (size_t)(kSmemQTile + 2 * kKBlock) * attn::tc_ld(dh) * sizeof(bf16) +
+         (size_t)smem_keys(s) * sizeof(float);
+}
+
+template <bool kDropout, bool kSave>
+__global__ void __launch_bounds__(attn::kTcThreads, 2)
+    attn_full_tc_fwd_smem_kernel(FwdGeom g, bf16* __restrict__ p_out,
+                                 bf16* __restrict__ pd_out, int S, int H,
+                                 int Dh, float scale, DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const attn::RowsHead<bf16> hd =
+      fwd_head(g, blockIdx.z, blockIdx.y, S, H);
+  const int q0 = blockIdx.x * kSmemQTile;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int ssld = smem_ss_ld(S), keys = smem_keys(S);
+  const int n_blocks = keys / kKBlock;
+  const int stage = kKBlock * ld;
+
+  float* ss = reinterpret_cast<float*>(smem_raw);  // [32][ssld]: s, then P
+  bf16* qs = reinterpret_cast<bf16*>(ss + kSmemQTile * ssld);  // [32][ld]
+  bf16* ring = qs + kSmemQTile * ld;      // 2 × [64][ld]: K blocks, then V
+  float* bias = reinterpret_cast<float*>(ring + 2 * stage);  // [keys]
+  const int q_rows = min(kSmemQTile, S - q0);
+
+  // Block i of the stream, into stage i & 1: K block i for i < n_blocks,
+  // then V block i − n_blocks. Each its own cp.async group.
+  auto load = [&](int i) {
+    const bool is_k = i < n_blocks;
+    const int k0 = (is_k ? i : i - n_blocks) * kKBlock;
+    attn::tc_cp_rows(ring + (i & 1) * stage, ld, is_k ? hd.k : hd.v, hd.ld,
+                     k0, kKBlock, 0, min(kKBlock, S - k0), Dh);
+  };
+  attn::tc_cp_rows(qs, ld, hd.q, hd.ld, q0, kSmemQTile, 0, q_rows, Dh);
+  load(0);
+  attn::cp_async_commit();  // Q and K block 0
+  for (int j = tid; j < keys; j += attn::kTcThreads)
+    bias[j] = hd.mask && j < S ? (1.0f - hd.mask[j]) * -10000.0f : 0.0f;
+  // The k-depth's pad columns of Q and of both ring stages stay zero.
+  attn::tc_zero_cols(qs, ld, kSmemQTile + 2 * kKBlock, Dh, kd);
+
+  // Scores: warp w takes rows m0 .. m0 + 15 and keys kq .. kq + 15 of each
+  // block. PV: rows m0 .. m0 + 15 and n8 tiles c0 / 8 .. c0 / 8 + n − 1.
+  const int m0 = (warp & 1) * 16;
+  const int kq = (warp >> 1) * 16;
+  const int tiles = Dh / 8, per = (tiles + 3) / 4;
+  const int c0 = (warp >> 1) * per * 8;
+  const int n = max(0, min(per, tiles - (warp >> 1) * per));
+  constexpr int kPvTiles = attn::kTcMaxDh / 32;
+  float acc[kPvTiles][4] = {};
+  const bf16* ps = reinterpret_cast<const bf16*>(ss);  // P, rows of 2·ssld
+
+  for (int i = 0; i < 2 * n_blocks; ++i) {
+    attn::cp_async_wait<0>();  // block i
+    __syncthreads();  // ... for every thread; block i − 1 is done with
+    if (i + 1 < 2 * n_blocks) load(i + 1);
+    attn::cp_async_commit();
+    const bf16* blk = ring + (i & 1) * stage;
+    if (i < n_blocks) {
+      const int k0 = i * kKBlock;
+      float sc[2][4] = {};
+      attn::tc_warp_abt<2>(sc, qs + m0 * ld, ld, blk + kq * ld, ld, kd);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = k0 + kq + t * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int r = m0 + (lane >> 2) + 8 * hi;
+          *reinterpret_cast<float2*>(ss + r * ssld + j) = make_float2(
+              __fadd_rn(__fmul_rn(sc[t][2 * hi], scale), bias[j]),
+              __fadd_rn(__fmul_rn(sc[t][2 * hi + 1], scale), bias[j + 1]));
+        }
+      }
+      if (i == n_blocks - 1) {
+        __syncthreads();  // every score is in
+        attn::tc_hb_softmax_rows<kDropout, kSave>(
+            ss, ssld, q_rows, S, q0, hd.drop_b, hd.drop_h, drop,
+            hd.prob_row + q0, p_out, pd_out);
+      }
+    } else {
+      // acc += P[:, k0 .. k0 + kmax) · V block
+      const int k0 = (i - n_blocks) * kKBlock;
+      const int kmax = min(kKBlock, (S - k0 + 15) / 16 * 16);
+      const bf16* pa = attn::tc_lane_a(ps + m0 * 2 * ssld + k0, 2 * ssld);
+      const bf16* vb = attn::tc_lane_bt(blk + c0, ld);
+      for (int k = 0; k < kmax; k += 16) {
+        uint32_t fa[4];
+        attn::ldsm_x4(fa, pa + k);
+        attn::tc_mma_bt(acc, fa, vb + k * ld, n);
+      }
+    }
+  }
+  bf16* out_tile = hd.out + (size_t)q0 * hd.out_ld + c0;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = m0 + (lane >> 2) + 8 * hi;
+    if (r >= q_rows) continue;
+#pragma unroll
+    for (int t = 0; t < kPvTiles; ++t) {
+      if (t < n)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out_tile + (size_t)r * hd.out_ld + t * 8 + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[t][2 * hi], acc[t][2 * hi + 1]);
+    }
+  }
+}
+
+// The score-tile forward: #1's and #8's plan past kRegMaxS.
+template <bool kDropout, bool kSave>
+int launch_fwd_smem(const FwdGeom& g, bf16* p, bf16* pd, int B, int S,
+                    int H, int Dh, float scale, const DropoutArgs& drop,
+                    cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  const cudaError_t err = attn::allow_max_smem(
+      attn_full_tc_fwd_smem_kernel<kDropout, kSave>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  attn_full_tc_fwd_smem_kernel<kDropout, kSave>
+      <<<dim3((S + kSmemQTile - 1) / kSmemQTile, H, B), attn::kTcThreads,
+         fwd_smem_bytes(S, Dh), stream>>>(g, p, pd, S, H, Dh, scale, drop);
+  return (int)cudaGetLastError();
+}
+
+template <int kDT, bool kDropout, bool kSave>
+int launch_fwd_mode(const FwdGeom& g, bf16* p, bf16* pd, int B, int S,
+                    int H, int Dh, float scale, bool pairs,
+                    const DropoutArgs& drop, cudaStream_t stream) {
+  if (S > kRegMaxS)
+    return launch_fwd_smem<kDropout, kSave>(g, p, pd, B, S, H, Dh, scale,
+                                            drop, stream);
+  static unsigned long long attr_set = 0;
+  const cudaError_t err = attn::allow_max_smem(
+      attn_full_tc_fwd_reg_kernel<kDT, kDropout, kSave>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  attn_full_tc_fwd_reg_kernel<kDT, kDropout, kSave>
+      <<<dim3(H, B), rows16(S) / 16 * 32, fwd_reg_smem_bytes(S, Dh),
+         stream>>>(g, p, pd, S, H, Dh, scale, pairs, drop);
+  return (int)cudaGetLastError();
+}
+
+template <int kDT>
+int launch_fwd_dt(const FwdGeom& g, bf16* p, bf16* pd, int B, int S, int H,
+                  int Dh, float scale, bool dropout, bool pairs,
+                  const DropoutArgs& drop, cudaStream_t st) {
+  const bool save = p != nullptr;
+  if (dropout && save)
+    return launch_fwd_mode<kDT, true, true>(g, p, pd, B, S, H, Dh, scale,
+                                            pairs, drop, st);
+  if (dropout)
+    return launch_fwd_mode<kDT, true, false>(g, p, pd, B, S, H, Dh, scale,
+                                             pairs, drop, st);
+  if (save)
+    return launch_fwd_mode<kDT, false, true>(g, p, pd, B, S, H, Dh, scale,
+                                             pairs, drop, st);
+  return launch_fwd_mode<kDT, false, false>(g, p, pd, B, S, H, Dh, scale,
+                                            pairs, drop, st);
+}
+
+// The bf16 forward of #1 / #8 on one layout. p/pd: null for no save. q, k
+// and v must start on the 16 bytes cp.async copies (rows of ld and heads
+// of sh elements are then 16-byte aligned too: both multiples of 8).
+// Returns the cudaError_t of the launch. (A template on the geometry, here
+// always FwdGeom, so that only the sources that launch the forward compile
+// its kernels; launch_bwd likewise.)
+template <typename Geom>
+int launch_fwd(const Geom& g, bf16* p, bf16* pd, int B, int S, int H,
+               int Dh, float scale, bool dropout, const DropoutArgs& drop,
+               cudaStream_t st) {
+  if (S > kMaxS || (S <= kRegMaxS ? fwd_reg_smem_bytes(S, Dh)
+                                  : fwd_smem_bytes(S, Dh)) >
+                       attn::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(g.q, 16) || !aligned(g.k, 16) || !aligned(g.v, 16))
+    return (int)cudaErrorMisalignedAddress;
+  const bool pairs = S % 2 == 0 && aligned(p, 4) && aligned(pd, 4);
+  return dh_tiles(Dh) == 8
+             ? launch_fwd_dt<8>(g, p, pd, B, S, H, Dh, scale, dropout, pairs,
+                                drop, st)
+             : launch_fwd_dt<16>(g, p, pd, B, S, H, Dh, scale, dropout,
+                                 pairs, drop, st);
+}
+
+// ---- the saved-probs backward ----------------------------------------------
+
+// Where one (head, batch row) lives: as FwdGeom, for q, k, v; the context
+// gradient g and the gradients dq, dk, dv with their own strides; the
+// saved probs p, pd [B, H, S, S].
+struct BwdGeom {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  long long sb, sh;
+  int ld;
+  const bf16* g;
+  long long gsb, gsh;
+  int g_ld;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  long long dsb, dsh;
+  int d_ld;
+  const bf16* p;
+  const bf16* pd;
+};
+
+__host__ __device__ inline int bwd_pld(int s) { return rows16(s) + 8; }
+
+__host__ __device__ inline size_t bwd_smem_bytes(int s, int dh) {
+  return (4 * (size_t)rows16(s) * attn::tc_ld(dh) +
+          2 * (size_t)rows16(s) * bwd_pld(s)) *
+         sizeof(bf16);
+}
+
+// The saved-probs backward of one (head, batch row): rows16(S) / 16 warps.
+template <int kNT, int kDT>
+__device__ __forceinline__ void bwd_saved_rows(
+    unsigned char* smem_raw, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, int ld_in,
+    const bf16* __restrict__ g, int g_ld, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int d_ld,
+    const bf16* __restrict__ p_head, const bf16* __restrict__ pd_head,
+    int S, int Dh, float scale, bool pairs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S), nkt = sp / 8, pld = bwd_pld(S);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [sp][ld]
+  bf16* ks = qs + sp * ld;
+  bf16* vs = ks + sp * ld;
+  bf16* gs = vs + sp * ld;
+  bf16* pds = gs + sp * ld;                       // [sp][pld] pd
+  bf16* dss = pds + sp * pld;                     // [sp][pld] ds_c
+
+  attn::tc_cp_rows(qs, ld, q, ld_in, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(ks, ld, k, ld_in, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(vs, ld, v, ld_in, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(gs, ld, g, g_ld, 0, sp, 0, S, Dh);
+  attn::cp_async_commit();
+  attn::tc_zero_cols(qs, ld, 4 * sp, Dh, kd);  // the pad columns
+  // pd [S][S] → pds, zeros to sp: two keys a thread.
+  const int half = sp / 2;
+  for (int i = threadIdx.x; i < sp * half; i += blockDim.x) {
+    const int r = i / half, c = 2 * (i - r * half);
+    uint32_t w = 0u;
+    if (r < S && c < S) {
+      const bf16* src = pd_head + (size_t)r * S + c;
+      if (pairs) {
+        w = *reinterpret_cast<const uint32_t*>(src);
+      } else {
+        __nv_bfloat162 x;
+        x.x = src[0];
+        x.y = c + 1 < S ? src[1] : __float2bfloat16(0.0f);
+        w = *reinterpret_cast<const uint32_t*>(&x);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(pds + r * pld + c) = w;
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();
+
+  // Phase 1: the warp's 16 query rows.
+  const int m0 = warp * 16;
+  const int t4 = lane & 3;
+  const int q_lo = m0 + (lane >> 2);
+  float tt[kNT][4] = {};
+  warp_abt<kNT>(tt, gs + m0 * ld, vs, ld, kd, nkt);  // d(pd) = g · Vᵀ
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    if (t < nkt) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const __nv_bfloat162 pd2 = *reinterpret_cast<const __nv_bfloat162*>(
+            pds + (q_lo + 8 * hi) * pld + 8 * t + 2 * t4);
+        const float pd[2] = {__low2float(pd2), __high2float(pd2)};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float x = __fmul_rn(pd[u], tt[t][2 * hi + u]);
+          tt[t][2 * hi + u] = x;
+          sum[hi] += x;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+  // ds_c = T((t − p · Σt) · scale), packed: [t][0] rows q_lo, [t][1]
+  // rows q_lo + 8, each the lane's two keys.
+  uint32_t dsp[kNT][2];
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    if (t < nkt) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int qr = q_lo + 8 * hi, j = 8 * t + 2 * t4;
+        float p[2] = {0.0f, 0.0f};
+        if (qr < S && j < S) {
+          const bf16* src = p_head + (size_t)qr * S + j;
+          if (pairs) {
+            const __nv_bfloat162 p2 =
+                *reinterpret_cast<const __nv_bfloat162*>(src);
+            p[0] = __low2float(p2);
+            p[1] = __high2float(p2);
+          } else {
+            p[0] = __bfloat162float(src[0]);
+            if (j + 1 < S) p[1] = __bfloat162float(src[1]);
+          }
+        }
+        float ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          ds[u] = __fmul_rn(
+              __fsub_rn(tt[t][2 * hi + u], __fmul_rn(p[u], sum[hi])), scale);
+        dsp[t][hi] = attn::pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(dss + qr * pld + j) = dsp[t][hi];
+      }
+    }
+  }
+  // dQ = ds_c · K: key tiles 2c and 2c + 1 are step c's A fragment.
+  {
+    float acc[kDT][4] = {};
+    const bf16* kb = attn::tc_lane_bt(ks, ld);
+#pragma unroll
+    for (int c = 0; c < kNT / 2; ++c) {
+      if (2 * c < nkt) {
+        const uint32_t fa[4] = {dsp[2 * c][0], dsp[2 * c][1],
+                                dsp[2 * c + 1][0], dsp[2 * c + 1][1]};
+        attn::tc_mma_bt(acc, fa, kb + 16 * c * ld, Dh / 8);
+      }
+    }
+    store_rows(acc, dq, d_ld, m0, S, Dh);
+  }
+  __syncthreads();  // every row's ds_c is in
+
+  // Phase 2: the warp's 16 keys, summed over every query row.
+  const int k0 = warp * 16;
+  {
+    float acc[kDT][4] = {};  // dV = pdᵀ · g
+    for (int c = 0; c < sp; c += 16) {
+      uint32_t fa[4];
+      attn::ldsm_x4_trans(fa, attn::tc_lane_at(pds + c * pld + k0, pld));
+      attn::tc_mma_bt(acc, fa, attn::tc_lane_bt(gs + c * ld, ld), Dh / 8);
+    }
+    store_rows(acc, dv, d_ld, k0, S, Dh);
+  }
+  {
+    float acc[kDT][4] = {};  // dK = ds_cᵀ · Q
+    for (int c = 0; c < sp; c += 16) {
+      uint32_t fa[4];
+      attn::ldsm_x4_trans(fa, attn::tc_lane_at(dss + c * pld + k0, pld));
+      attn::tc_mma_bt(acc, fa, attn::tc_lane_bt(qs + c * ld, ld), Dh / 8);
+    }
+    store_rows(acc, dk, d_ld, k0, S, Dh);
+  }
+}
+
+template <int kNT, int kDT>
+__global__ void __launch_bounds__(kNT / 2 * 32)
+    attn_full_tc_bwd_saved_kernel(BwdGeom g, int S, int H, int Dh,
+                                  float scale, bool pairs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long o = b * g.sb + h * g.sh;
+  const long long og = b * g.gsb + h * g.gsh;
+  const long long od = b * g.dsb + h * g.dsh;
+  const size_t head = ((size_t)b * H + h) * S * S;
+  bwd_saved_rows<kNT, kDT>(smem_raw, g.q + o, g.k + o, g.v + o, g.ld,
+                           g.g + og, g.g_ld, g.dq + od, g.dk + od, g.dv + od,
+                           g.d_ld, g.p + head, g.pd + head, S, Dh, scale,
+                           pairs);
+}
+
+template <int kNT, int kDT>
+int launch_bwd_tiles(const BwdGeom& g, int B, int S, int H, int Dh,
+                     float scale, bool pairs, cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  const cudaError_t err =
+      attn::allow_max_smem(attn_full_tc_bwd_saved_kernel<kNT, kDT>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  attn_full_tc_bwd_saved_kernel<kNT, kDT>
+      <<<dim3(H, B), rows16(S) / 16 * 32, bwd_smem_bytes(S, Dh), stream>>>(
+          g, S, H, Dh, scale, pairs);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 saved-probs backward of #3 / #10 on one layout. q, k, v and g
+// must start on the 16 bytes cp.async copies. Returns the cudaError_t of
+// the launch; a shape past the plan returns cudaErrorInvalidValue.
+template <typename Geom>
+int launch_bwd(const Geom& g, int B, int S, int H, int Dh, float scale,
+               cudaStream_t st) {
+  const int wide = dh_tiles(Dh) == 8 ? kBwdTiles64 : kBwdTiles128;
+  if (rows16(S) / 8 > wide || bwd_smem_bytes(S, Dh) > attn::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(g.q, 16) || !aligned(g.k, 16) || !aligned(g.v, 16) ||
+      !aligned(g.g, 16))
+    return (int)cudaErrorMisalignedAddress;
+  const bool pairs = S % 2 == 0 && aligned(g.p, 4) && aligned(g.pd, 4);
+  const bool small = rows16(S) / 8 <= kBwdSmallTiles;
+  if (dh_tiles(Dh) == 8)
+    return small ? launch_bwd_tiles<kBwdSmallTiles, 8>(g, B, S, H, Dh, scale,
+                                                       pairs, st)
+                 : launch_bwd_tiles<kBwdTiles64, 8>(g, B, S, H, Dh, scale,
+                                                    pairs, st);
+  return small ? launch_bwd_tiles<kBwdSmallTiles, 16>(g, B, S, H, Dh, scale,
+                                                      pairs, st)
+               : launch_bwd_tiles<kBwdTiles128, 16>(g, B, S, H, Dh, scale,
+                                                    pairs, st);
+}
+
+}  // namespace full_tc
+
+}  // namespace

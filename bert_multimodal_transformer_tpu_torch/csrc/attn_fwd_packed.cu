@@ -23,28 +23,28 @@
 //
 // What bounds it on the card: at the serving shape (B=128, S=50, H=12,
 // Dh=64) the op is ~1 GFLOP and moves ~10 MB (the [B,S,3D] projection in,
-// [B,S,D] out): a small op next to the QKV and FFN GEMMs around it, so its
-// time is set by latency (launch, the dependent load → dot → softmax → dot
-// chain inside each block) and by how many blocks keep the 132 SMs busy,
-// not by HBM bandwidth or tensor-core rate. In training at B=256 with
-// `save`, writing p and pd adds 2 · B·H·S²·2 B ≈ 31 MB, about 10 µs of
-// HBM time, and the Philox draws ~10 integer rounds per 4 elements.
+// [B,S,D] out), 0.0117 ms at 3.35 TB/s; in training at B=256 with `save`,
+// writing p and pd adds 2 · B·H·S²·2 B ≈ 31 MB (0.0327 ms in all), and the
+// Philox draws ~10 integer rounds per 4 elements. Bytes bound it, if the
+// dots leave the fp32 CUDA cores: run as fmaf chains they took 0.24 ms.
 //
-// What the design does about that: one block per (q-tile of 16 rows, head,
-// batch row) gives B·H·ceil(S/16) = 6144 independent blocks at the serving
-// shape, enough to fill every SM several times over. Each block reads its
-// Q tile and streams K_h and V_h in 64-row chunks straight from the packed
-// projection by stride, so no head transpose reaches device memory, and no
-// [B,H,S,S] tensor either unless `save` asks for it. Scores for the tile
-// live in shared memory (at most 16 × 512 fp32); the ragged edges (S = 50
-// is not a multiple of 16 or 64) are masked by bounds checks. Each lane
-// draws one Philox block for 4 consecutive keys and writes p/pd for them.
-// The dots run on the CUDA cores in fp32: a tensor-core (`wgmma`) version
-// with TMA loads is later work. The block's work is common.cuh's
-// `fwd_packed_rows`, which the head-blocked forward (#4,
-// attn_fwd_packed_hb.cu) runs with a larger tile.
+// What the design does about that: bf16 runs attn_full_tc.cuh's
+// tensor-core plans (mma.sync from ldmatrix, operands staged by cp.async):
+// up to S = 64 one block of ≤ 4 warps per (head, batch row) with the
+// scores, the softmax, the keep mask and PV's A fragments in registers;
+// past it #4's shared-memory score tile with the save modes. fp32 keeps
+// the CUDA-core kernel below, unchanged: one block per (q-tile of 16 rows,
+// head, batch row), 6144 blocks at the serving shape, Q tile and 64-row
+// K/V chunks from the packed projection by stride, the tile's scores in
+// shared memory (at most 16 × 512 fp32), each lane one Philox block for 4
+// consecutive keys, fp32 dots (common.cuh's `fwd_packed_rows`, which #4's
+// fp32 kernel runs with a larger tile). No head transpose reaches device
+// memory, and no [B,H,S,S] tensor unless `save` asks for it. A bf16 call
+// always launches the tensor-core kernel or returns the launch's error
+// (cudaErrorMisalignedAddress where qkv does not start on the 16 bytes
+// cp.async copies).
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
 
 namespace {
 
@@ -130,9 +130,11 @@ int attn_fwd_packed(const void* qkv, const void* mask, void* out, void* p,
     case 0:
       return dispatch<float>(qkv, mask, out, p, pd, B, S, H, Dh, scale,
                              dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(qkv, mask, out, p, pd, B, S, H, Dh,
-                                     scale, dropout != 0, drop, st);
+    case 1:  // the tensor-core plans of attn_full_tc.cuh
+      return full_tc::launch_fwd(
+          full_tc::packed_fwd_geom(qkv, mask, out, S, H, Dh),
+          static_cast<__nv_bfloat16*>(p), static_cast<__nv_bfloat16*>(pd),
+          B, S, H, Dh, scale, dropout != 0, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

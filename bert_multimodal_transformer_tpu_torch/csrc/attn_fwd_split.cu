@@ -29,15 +29,17 @@
 // and occupancy bound, not HBM- or tensor-core-bound; under tensor
 // parallelism each rank runs it at its H/mp local heads.
 //
-// What the design does about that: #1's plan and code, common.cuh's
-// `fwd_rows`: one block per (16-row query tile, head, batch row), K and V
-// streamed in 64-row chunks, the tile's scores in shared memory, the probs
-// rounded to T, fp32 CUDA-core dots. Here the head's rows are contiguous
-// (row stride Dh), so the staging loads are fully coalesced where the
-// packed projection's are strided by 3D. A row's arithmetic is #1's, so #8
-// gives #1's bits on the same q, k, v. Tensor cores are later work.
+// What the design does about that: #1's plans and code on strides. bf16
+// runs attn_full_tc.cuh's tensor-core plans (one block per (head, batch
+// row) with the softmax in registers up to S = 64, #4's shared-memory
+// score tile past it); fp32 runs common.cuh's `fwd_rows` (one block per
+// (16-row query tile, head, batch row), K and V streamed in 64-row chunks,
+// fp32 CUDA-core dots). Here the head's rows are contiguous (row stride
+// Dh), so the staging loads are fully coalesced where the packed
+// projection's are strided by 3D. A row's arithmetic is #1's in either
+// dtype, so #8 gives #1's bits on the same q, k, v.
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
 
 namespace {
 
@@ -144,10 +146,27 @@ int attn_fwd_split(const void* q, const void* k, const void* v,
     case 0:
       return dispatch<float>(q, k, v, mask, out, p, pd, B, S, H, Dh, scale,
                              b_off, h_off, dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(q, k, v, mask, out, p, pd, B, S, H, Dh,
-                                     scale, b_off, h_off, dropout != 0, drop,
-                                     st);
+    case 1: {
+      // The tensor-core plans of attn_full_tc.cuh.
+      using bf16 = __nv_bfloat16;
+      const long long head = (long long)S * Dh;
+      const full_tc::FwdGeom g{static_cast<const bf16*>(q),
+                               static_cast<const bf16*>(k),
+                               static_cast<const bf16*>(v),
+                               head * H,
+                               head,
+                               Dh,
+                               static_cast<const float*>(mask),
+                               static_cast<bf16*>(out),
+                               head * H,
+                               head,
+                               Dh,
+                               b_off,
+                               h_off};
+      return full_tc::launch_fwd(g, static_cast<bf16*>(p),
+                                 static_cast<bf16*>(pd), B, S, H, Dh, scale,
+                                 dropout != 0, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

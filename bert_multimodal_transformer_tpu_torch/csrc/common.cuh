@@ -1497,20 +1497,24 @@ __device__ __forceinline__ void tc_slab_delta(float& d_lo, float& d_hi,
 // each lane taking four consecutive keys for one Philox block. The row's
 // ≤ 20 values a lane stay in registers. The probs, rounded to bf16, go over
 // the first half of their own row as bf16 [keys], zeros from n to the next
-// multiple of 16 (the keys PV reads).
+// multiple of 16 (the keys PV reads). With kSave (#1's and #8's score-tile
+// plan, attn_full_tc.cuh) each row's p, and at rate > 0 its pd, also go to
+// row prow0 + r of p_out / pd_out ([.][n] bf16).
 constexpr int kTcHbMaxLen = 640;  // ops/fused_attention.py::HB_MAX_SEQ_LEN
 constexpr int kTcHbRowRegs = kTcHbMaxLen / 32;
 
-template <bool kDropout>
-__device__ __forceinline__ void tc_hb_softmax_rows(float* ss, int ssld,
-                                                   int q_rows, int n, int q0,
-                                                   int b, int h,
-                                                   const DropoutArgs& drop) {
+template <bool kDropout, bool kSave = false>
+__device__ __forceinline__ void tc_hb_softmax_rows(
+    float* ss, int ssld, int q_rows, int n, int q0, int b, int h,
+    const DropoutArgs& drop, size_t prow0 = 0,
+    __nv_bfloat16* __restrict__ p_out = nullptr,
+    __nv_bfloat16* __restrict__ pd_out = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n16 = (n + 15) / 16 * 16;
   for (int r = warp; r < q_rows; r += kTcThreads / 32) {
     float* sr = ss + r * ssld;
     __nv_bfloat16* pr = reinterpret_cast<__nv_bfloat16*>(sr);
+    const size_t prow = (prow0 + r) * n;
     float x[kTcHbRowRegs];
     float m = -INFINITY;
 #pragma unroll
@@ -1536,13 +1540,20 @@ __device__ __forceinline__ void tc_hb_softmax_rows(float* ss, int ssld,
 #pragma unroll
       for (int u = 0; u < kTcHbRowRegs; ++u) {
         const int j = lane + 32 * u;
-        if (j < n16) pr[j] = __float2bfloat16(j < n ? x[u] / sum : 0.0f);
+        if (j < n16) {
+          const __nv_bfloat16 p = __float2bfloat16(j < n ? x[u] / sum : 0.0f);
+          pr[j] = p;
+          if (kSave && j < n) p_out[prow + j] = p;
+        }
       }
     } else {
 #pragma unroll
       for (int u = 0; u < kTcHbRowRegs; ++u) {
         const int j = lane + 32 * u;
-        if (j < n) sr[j] = x[u] / sum;
+        if (j < n) {
+          sr[j] = x[u] / sum;
+          if constexpr (kSave) p_out[prow + j] = __float2bfloat16(sr[j]);
+        }
       }
       __syncwarp();
       uint2 w[kTcHbRowRegs / 4];
@@ -1555,10 +1566,13 @@ __device__ __forceinline__ void tc_hb_softmax_rows(float* ss, int ssld,
           const uint4 bits = dropout_bits4(drop.seed, b, h, q0 + r, j0 >> 2);
           const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
+          for (int u = 0; u < 4; ++u) {
             v[u] = j0 + u < n && word(bits, u) >= drop.threshold
                        ? __fmul_rn(p[u], drop.inv_keep)
                        : 0.0f;
+            if (kSave && j0 + u < n)
+              pd_out[prow + j0 + u] = __float2bfloat16(v[u]);
+          }
         }
         w[t] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
       }

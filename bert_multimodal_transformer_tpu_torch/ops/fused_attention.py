@@ -32,9 +32,12 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #4-#7 and #14-#17, #23 and #24 run their products on the tensor
-cores (``mma.sync`` from ``ldmatrix``, operands staged by ``cp.async``);
-fp32 keeps their CUDA-core kernels. Their shared-memory plans are
+In bf16, #1, #3, #4-#8, #10, #14-#17, #23 and #24 run their products on
+the tensor cores (``mma.sync`` from ``ldmatrix``, operands staged by
+``cp.async``); fp32 keeps their CUDA-core kernels. Their shared-memory
+plans are ``full_tc_fwd_smem_bytes`` (#1, #8: the scores in registers up to
+``FULL_TC_REG_MAX_SEQ_LEN``, #4's score tile past it),
+``full_tc_bwd_smem_bytes`` (#3, #10),
 ``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``, ``fs_fwd_smem_bytes``,
 ``fs_bwd_smem_bytes``, ``rel_hb_fwd_smem_bytes``,
 ``rel_hb_bwd_smem_bytes``, ``rel_fs_fwd_smem_bytes``,
@@ -599,9 +602,12 @@ def attn_fwd_packed_cuda(
     save: bool = False,
 ):
     """Launch kernel #1 (``csrc/attn_fwd_packed.cu``) on ``qkv`` [B, S, 3·D]
-    (CUDA, fp32 or bf16, contiguous). Returns out [B, S, D], or (out, p,
-    pd) with ``save`` (pd is p at rate 0). Raises on anything the kernel
-    does not take and on a failed launch; never falls back."""
+    (CUDA, fp32 or bf16, contiguous): bf16 on the tensor cores (its plan,
+    ``full_tc_fwd_smem_bytes``, fits every S ≤ ``MAX_SEQ_LEN``), fp32 on
+    the CUDA cores. Returns out
+    [B, S, D], or (out, p, pd) with ``save`` (pd is p at rate 0). Raises on
+    anything the kernel does not take and on a failed launch; never falls
+    back."""
     b, s, d, dh = _check_cuda("attn_fwd_packed", qkv, n_heads, MAX_SEQ_LEN)
     mask = _mask_arg(attention_mask, qkv, b, s)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
@@ -653,7 +659,9 @@ def attn_bwd_packed_saved_cuda(
     scale: float,
 ) -> torch.Tensor:
     """Launch kernel #3 (``csrc/attn_bwd_packed_saved.cu``): dqkv
-    [B, S, 3·D] from the saved probs p and pd [B, H, S, S]."""
+    [B, S, 3·D] from the saved probs p and pd [B, H, S, S]; bf16 on the
+    tensor cores (its plan, ``full_tc_bwd_smem_bytes``, fits the whole
+    reach), fp32 on the CUDA cores."""
     b, s, d, dh = _check_cuda("attn_bwd_packed_saved", qkv, n_heads,
                               max_bwd_seq_len(qkv.shape[-1] // 3 // n_heads))
     _like("p", p, qkv, (b, n_heads, s, s))
@@ -722,8 +730,10 @@ def rel_fs_fwd_smem_bytes(dh: int, itemsize: int = 2) -> int:
 def hb_fwd_smem_bytes(s: int, dh: int, itemsize: int = 2) -> int:
     """Shared memory of one #4 block at sequence length ``s`` and head
     width ``dh``. bf16 (itemsize 2, the tensor-core kernel's
-    ``tc_smem_bytes``): the fp32 scores [32][keys + 4] (keys: S rounded up
-    to 64), which the bf16 probs overwrite; the Q tile [32][``_tc_ld``]
+    ``tc_smem_bytes``, and the score-tile plan of ``csrc/attn_full_tc.cuh``
+    that #1 and #8 run past ``FULL_TC_REG_MAX_SEQ_LEN``): the fp32 scores
+    [32][keys + 4] (keys: S rounded up to 64), which the bf16 probs
+    overwrite; the Q tile [32][``_tc_ld``]
     and the two-stage K/V ring [64][``_tc_ld``] each, bf16; the bias
     [keys] (105.5 KB at S = 640, Dh = 64: two blocks an SM). fp32
     (``csrc/common.cuh``'s ``fwd_smem_floats<32>``): the [32][Dh] Q tile, a
@@ -733,6 +743,37 @@ def hb_fwd_smem_bytes(s: int, dh: int, itemsize: int = 2) -> int:
         return (32 * (keys + 4) * 4 + (32 + 2 * 64) * _tc_ld(dh) * 2
                 + keys * 4)
     return 4 * (32 * dh + 64 * (dh + 1) + 32 * s + s)
+
+
+# The longest S of the bf16 full-H forwards' register plan (#1, #8;
+# ``csrc/attn_full_tc.cuh``'s kRegMaxS): a block per (head, batch row), each
+# warp's 16 query rows × every key of scores in its registers. Past it the
+# bf16 forward takes #4's shared-memory score tile (``hb_fwd_smem_bytes``).
+FULL_TC_REG_MAX_SEQ_LEN = 64
+
+
+def full_tc_fwd_smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one bf16 #1/#8 block at sequence length ``s`` and
+    head width ``dh`` (``csrc/attn_full_tc.cuh``'s ``fwd_reg_smem_bytes``
+    and ``fwd_smem_bytes``). Up to ``FULL_TC_REG_MAX_SEQ_LEN``: Q, K and V
+    [S16][``_tc_ld``] bf16 and the [S16] fp32 bias (S16: S rounded up to
+    16; 27.3 KB at S = 50, Dh = 64). Past it #4's plan,
+    ``hb_fwd_smem_bytes`` (109 KB at S = 512, Dh = 128)."""
+    if s <= FULL_TC_REG_MAX_SEQ_LEN:
+        s16 = -(-s // 16) * 16
+        return 3 * s16 * _tc_ld(dh) * 2 + s16 * 4
+    return hb_fwd_smem_bytes(s, dh)
+
+
+def full_tc_bwd_smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one bf16 #3/#10 block at sequence length ``s`` and
+    head width ``dh`` (``csrc/attn_full_tc.cuh``'s ``bwd_smem_bytes``): Q,
+    K, V and g [S16][``_tc_ld``] and the pd and ds_c tiles [S16][S16 + 8],
+    bf16 (54 KB at S = 50, Dh = 64; 166.5 KB at S = 140; 204 KB at S = 117,
+    Dh = 128). It fits every S up to ``max_bwd_seq_len``, the fp32 plan's
+    reach, which both dtypes keep."""
+    s16 = -(-s // 16) * 16
+    return 2 * (4 * s16 * _tc_ld(dh) + 2 * s16 * (s16 + 8))
 
 
 def rel_hb_fwd_smem_bytes(k_len: int, dh: int, itemsize: int = 2) -> int:

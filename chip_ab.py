@@ -1,0 +1,278 @@
+#!/usr/bin/env python3
+"""Time the full-H attention kernels of two checkouts of the PyTorch port
+in alternating rounds on one NVIDIA GPU: #1 serving (bf16 B=128 S=50), #1
+at the driver's S=512 evaluation (B=48), #1 with dropout and saved probs
+and #3 at the bench's training shape (B=256 S=50, rate 0.1), their
+split-layout twins #8, #8′ and #10, and #4 (whose bf16 kernel #1 runs past
+S=64) at B=48 S=512.
+
+    python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N]
+        [--grad-gap-seeds S ...]
+
+Each checkout builds its own kernels (under its ``build/``, both builds
+started together). Then rounds A, B, B, A (A, B, C, C, B, A for three),
+each a process of its own that
+imports the package from its checkout and times every case with CUDA
+events after a warm-up. Prints each round's per-call ms, then one JSON
+object with both checkouts' means by case and the card's name and power
+limit (nvidia-smi), and each checkout's agreement with the plain
+versions at the bench's shapes (the share of elements whose bits differ,
+the largest difference). With ``--grad-gap-seeds``, each checkout also runs
+``chip_smoke.py``'s phase-4b dropout-0 check at those seeds and reports
+its first-step gradient gaps (fused against einsum). Exits non-zero
+without a card.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+H, DH = 12, 64
+# name: (B, S, rate, what)
+CASES = {
+    "#1 bf16 B=128 S=50 rate 0": (128, 50, 0.0, "fwd"),
+    "#1 bf16 B=48 S=512 rate 0": (48, 512, 0.0, "fwd"),
+    "#4 bf16 B=48 S=512 rate 0": (48, 512, 0.0, "hb_fwd"),
+    "#4' bf16 B=48 S=512 rate 0.1": (48, 512, 0.1, "hb_fwd"),
+    "#1' bf16 B=256 S=50 rate 0.1 saved probs": (256, 50, 0.1, "fwd_save"),
+    "#3 bf16 B=256 S=50": (256, 50, 0.1, "bwd"),
+    "#8 bf16 B=128 S=50 H=12 rate 0": (128, 50, 0.0, "split_fwd"),
+    "#8' bf16 B=256 S=50 H=12 rate 0.1 saved probs": (256, 50, 0.1,
+                                                       "split_fwd_save"),
+    "#10 bf16 B=256 S=50 H=12": (256, 50, 0.1, "split_bwd"),
+}
+
+
+def _call(fa, torch, rng, b, s, rate, what):
+    """The case's kernel call on seeded inputs (a ragged mask)."""
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, s, 3 * H * DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal(
+        (b, s, H * DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+    lengths = rng.integers(1, s + 1, size=b)
+    mask = torch.from_numpy(
+        (np.arange(s)[None, :] < lengths[:, None]).astype(np.float32)).cuda()
+    kw = dict(n_heads=H, scale=DH ** -0.5)
+    drop = dict(rate=rate, seed=7, save=True)
+    if what == "fwd":
+        return lambda: fa.attn_fwd_packed_cuda(qkv, mask, **kw)
+    if what == "fwd_save":
+        return lambda: fa.attn_fwd_packed_cuda(qkv, mask, **drop, **kw)
+    if what == "hb_fwd":
+        return lambda: fa.attn_fwd_packed_hb_cuda(qkv, mask, rate=rate,
+                                                  seed=7, **kw)
+    if what == "bwd":
+        _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, **drop, **kw)
+        return lambda: fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+    q, k, v = (x.contiguous() for x in fa._heads(qkv, H))
+    if what == "split_fwd":
+        return lambda: fa.attn_fwd_split_cuda(q, k, v, mask, scale=DH ** -0.5)
+    if what == "split_fwd_save":
+        return lambda: fa.attn_fwd_split_cuda(q, k, v, mask,
+                                              scale=DH ** -0.5, **drop)
+    _, p, pd = fa.attn_fwd_split_cuda(q, k, v, mask, scale=DH ** -0.5, **drop)
+    gh = fa._ctx_heads(g, H).contiguous()
+    return lambda: fa.attn_bwd_split_saved_cuda(p, pd, q, k, v, gh,
+                                                scale=DH ** -0.5)
+
+
+def worker(iters):
+    """One round in the current directory's checkout: prints {case: ms}."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, case in CASES.items():
+        fn = _call(fa, torch, rng, *case)
+        for _ in range(5):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / iters
+    print(json.dumps(out))
+
+
+def agreement():
+    """In the current directory's checkout: for #1 (serving; rate 0.1 with
+    saved probs) and #3 at the bench's shapes, the share of elements whose
+    bits differ from the plain version on the same inputs, and the largest
+    difference; prints {case: {tensor: [share, max |Δ|]}}."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    out = {}
+
+    def diff(got, want):
+        d = (got.float() - want.float()).abs()
+        return [float((got != want).double().mean()), float(d.max())]
+
+    for b, rate in ((128, 0.0), (256, 0.1)):
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, 50, 3 * H * DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal(
+            (b, 50, H * DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+        lengths = rng.integers(1, 51, size=b)
+        mask = torch.from_numpy((np.arange(50)[None, :] < lengths[:, None])
+                                .astype(np.float32)).cuda()
+        kw = dict(n_heads=H, scale=DH ** -0.5, rate=rate, seed=7, save=True)
+        got = fa.attn_fwd_packed_cuda(qkv, mask, **kw)
+        want = fa.attn_fwd_packed_reference(qkv, mask, **kw)
+        case = {n: diff(x, y) for n, x, y in zip(("out", "p", "pd"), got,
+                                                 want)}
+        kw = dict(n_heads=H, scale=DH ** -0.5)
+        case["dqkv"] = diff(
+            fa.attn_bwd_packed_saved_cuda(got[1], got[2], qkv, g, **kw),
+            fa.attn_bwd_packed_saved_reference(got[1], got[2], qkv, g, **kw))
+        out[f"bf16 B={b} S=50 rate {rate}"] = case
+    print(json.dumps(out))
+
+
+def grad_gaps(seeds):
+    """In the current directory's checkout: ``chip_smoke.py``'s phase-4b
+    dropout-0 check (bert-base, one epoch of ``Trainer.train``, then the
+    first step's gradients of the fused branch, saved probs and recompute,
+    against the einsum branch, leaf by leaf) at each seed; prints {seed:
+    {branch: worst ‖g − g_einsum‖ / ‖g_einsum‖}}."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import types
+
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # read the gaps, whatever they are; the planted fault (1.0) still fails
+    chip_smoke.GRAD_GAP_TOL = 0.5
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused")
+    model_args = (cfg, MultimodalConfig(), ds.visual_dim, ds.acoustic_dim)
+    out = {}
+    for seed in seeds:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            chip_smoke.train_path(types.SimpleNamespace(seed=seed),
+                                  np.random.default_rng(seed), fa,
+                                  model_args, "")
+        out[seed] = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"step-1 gradients, (fused, \w+ ?\w*) vs einsum: worst pieces "
+            r"\S+ ([0-9.e+-]+)", log.getvalue())}
+    print(json.dumps(out))
+
+
+def _run(tree, args):
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                          cwd=tree, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: {' '.join(args)} failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("trees", nargs="*")
+    parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--worker", action="store_true")
+    parser.add_argument("--build", action="store_true")
+    parser.add_argument("--grad-gap-seeds", type=int, nargs="*",
+                        help="also compare, per checkout, phase 4b's "
+                             "dropout-0 first-step gradients (fused vs "
+                             "einsum) at these seeds")
+    parser.add_argument("--grad-gap-worker", action="store_true")
+    parser.add_argument("--agreement-worker", action="store_true")
+    args = parser.parse_args()
+    if args.agreement_worker:
+        agreement()
+        return 0
+    if args.grad_gap_worker:
+        grad_gaps(args.grad_gap_seeds)
+        return 0
+    if args.build:
+        sys.path.insert(0, os.getcwd())
+        from bert_multimodal_transformer_tpu_torch.ops import kernels
+
+        print(kernels.build_kernels())
+        return 0
+    if args.worker:
+        worker(args.iters)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or len(args.trees) < 2:
+        print("chip_ab: needs a CUDA device and two checkouts or more",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    builds = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--build"], cwd=tree,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tree in args.trees]
+    for tree, proc in zip(args.trees, builds):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tree}: build failed:\n{out}")
+    rounds = {tree: [] for tree in args.trees}
+    for tree in [*args.trees, *reversed(args.trees)]:
+        times = json.loads(_run(tree, ["--worker", "--iters",
+                                       str(args.iters)]).splitlines()[-1])
+        rounds[tree].append(times)
+        print(f"{tree}: " + ", ".join(f"{k} {v:.4f} ms"
+                                      for k, v in times.items()))
+    result = {"card": card, "iters": args.iters, "ms": {
+        tree: {name: [r[name] for r in rs] for name in CASES}
+        for tree, rs in rounds.items()}}
+    result["agreement"] = {tree: json.loads(_run(
+        tree, ["--agreement-worker"]).splitlines()[-1])
+        for tree in args.trees}
+    print(f"bits differing from the plain versions [share, max |Δ|]: "
+          f"{result['agreement']}")
+    if args.grad_gap_seeds:
+        result["grad_gaps"] = {tree: json.loads(_run(tree, [
+            "--grad-gap-worker", "--grad-gap-seeds",
+            *map(str, args.grad_gap_seeds)]).splitlines()[-1])
+            for tree in args.trees}
+        print(f"grad gaps: {result['grad_gaps']}")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,16 +12,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compile ``csrc/*.cu`` with nvcc (into ``build/torch_kernels/``).
 3. Serving kernel against its plain PyTorch version on the card, on seeded
    ragged masks with one fully padded row: bf16 at B=128 S=50 (the serving
-   shape), bf16 at B=8 S=512, fp32 at B=4 S=77; then both timed at the
-   serving shape, beside ``scaled_dot_product_attention`` on the same
-   inputs (the library call that computes the same function at rate 0).
+   shape), bf16 at B=8 S=512, fp32 at B=4 S=77, and bf16 at the edges of
+   #1's tensor-core plans (``FULL_TC_SERVE_EDGES``: a ragged S=33, Dh=128,
+   Dh=40); then both timed at the serving shape, beside
+   ``scaled_dot_product_attention`` on the same inputs (the library call
+   that computes the same function at rate 0).
 3b. Training kernels against their plain versions on the card, bf16 at
    B=256 S=50 (the training shape of the bench) and fp32 at B=4 S=77, at
    rate 0.1 and 0: #1 with dropout and saved probs (its keep mask equal to
    the plain Philox mask bit for bit, the keep rate within 5σ), #3 (saved
    probs) and #2 (recompute) against the plain backward and against
    torch.autograd through the plain forward, #2 against #3, and the same
-   bits from the same seed twice; then the three timed at B=256 S=50.
+   bits from the same seed twice; the same at the edges of bf16 #1's and
+   #3's tensor-core plans (``FULL_TC_EDGES``: B=128 at S=50, S=64 and 65
+   either side of the forward's register plan, #3's longest S at Dh=64
+   and 128, Dh=128 and 40 at S=50, a ragged S=33) and #1's training modes
+   alone at S=512 (``FULL_TC_FWD_EDGES``); then the three timed at B=256
+   S=50, #1 at the driver's S=512 evaluation (B=48, rate 0) beside SDPA,
+   and the full-H pair #1′ + #3 against the head-blocked pair #4′ + #5′
+   at B=256 S=50 rate 0.1.
 3c. The fused MAG gate's kernels (#25 forward, #26 backward chain) against
    their plain versions on the card: bf16 and fp32 text at N=12800 (B=256,
    S=50), D=768, MOSI's 47/74, beta 1e-3, 1 and 1e6; a ragged B=3 S=33;
@@ -105,8 +114,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches a call) against their plain versions: bf16 B=256 S=50 at
    bert-base width (rates 0.1 and 0), fp32 B=4 at a ragged S=77 with a
    fully padded row, bf16 B=8 S=50 at bert-large width (D=1024, H=16);
-   saved probs and the emitted qkv, #18 = #1 on its emitted qkv bit for
-   bit and against #1 on the plain projection's qkv, #18's keep masks
+   saved probs and the emitted qkv, #1 on its emitted qkv (bit for bit in
+   fp32; in bf16, where #1 runs on the tensor cores, within the phase-3
+   bound with the same keep mask) and on the plain projection's qkv,
+   #18's keep masks
    (saved, and read off the output of the mode that saves nothing), #19
    re-projecting from x = #19 reading the emitted qkv bit for bit, both
    against the plain backward and against torch.autograd through the
@@ -280,12 +291,18 @@ GRAD_FP32_TOL = 1e-5
 PRED_ATOL = 5e-2
 # Training at dropout 0 from one copy of the weights, fused against einsum.
 # The first step's gradients, per leaf (the packed qkv leaves split into
-# their Q, K and V rows): ‖g − g_einsum‖ / ‖g_einsum‖. The forward is the
-# same bits on both branches; the backwards round p, ds and the context
-# gradients to bf16 at different points, which moves a leaf by a few bf16
-# ulps (2^-8 relative; the worst piece reads 1.2e-2 on the card). A wrong
-# dQ, dK or dV moves its own piece by its whole norm (the planted fault
-# below reads 1).
+# their Q, K and V rows): ‖g − g_einsum‖ / ‖g_einsum‖, with the einsum
+# branch's attention taking the fused branch's forward bits
+# (``fused_value_plain_grad``: #1's value, the plain math's gradient), so
+# that the two forwards are the same bits; the backwards round p, ds and
+# the context gradients to bf16 at different points, which moves a leaf by
+# a few bf16 ulps (2^-8 relative; the worst piece reads 1.2e-2 on the card).
+# A wrong dQ, dK or dV moves its own piece by its whole norm (the planted
+# fault below reads 1). Against the plain einsum branch, whose forward sums
+# in cuBLAS's order where bf16 #1 sums on the tensor cores, the gaps are
+# printed as a record: one-ulp differences in ~1e-4 of #1's outputs grow
+# through the 12 layers and move the leaves that mostly cancel (the
+# LayerNorm and dense biases) by up to 1.7e-1 (chip_ab.py on the H100).
 GRAD_GAP_TOL = 5e-2
 # The loss over 5 steps: the largest gap seen on the card is 3.7e-3 (PERF.md,
 # Findings); the bound is about ten times that. Too coarse to see a wrong
@@ -339,6 +356,7 @@ HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 # wins; the rest is "other elementwise").
 PROFILE_GROUPS = (
     ("attention kernels (csrc)", ("attn_fwd_packed", "attn_bwd_packed",
+                                  "attn_full_tc",
                                   "attn_fwd_split", "attn_bwd_split",
                                   "attn_fwd_qkvproj", "attn_bwd_qkvproj",
                                   "attn_fwd_rel", "attn_bwd_rel")),
@@ -361,18 +379,26 @@ def _card() -> str:
 def tc_ptxas_lines(log):
     """``-Xptxas -v``'s registers and spills of the tensor-core kernels
     (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
-    passes of #5 and #7, the rel backward passes of #15 and #17 and #24's
-    two passes), one line each, from the build log. Template arguments
+    passes of #5 and #7, the rel backward passes of #15 and #17, #24's two
+    passes, and the full-H plans of #1/#8 and #3/#10 built into each of
+    their sources), one line each, from the build log. Template arguments
     print in order: the packed and rel passes' are <n8 tiles of Dh, own
-    statistics (#5, #15 true; #7, #17 false), dropout>."""
+    statistics (#5, #15 true; #7, #17 false), dropout>; the full-H
+    register forward's <n8 tiles of Dh, dropout, save>, its score-tile
+    forward's <dropout, save>, its backward's <n8 key tiles, n8 tiles of
+    Dh>."""
     import re
 
-    lines, name, spills = [], None, ""
+    lines, name, spills, source = [], None, "", ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?((?:attn_fwd_(?:packed"
-                      r"|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|attn_bwd_"
-                      r"(?:packed|rel|relik_fs)_(?:dkdv|dq))"
-                      r"_tc_kernel)I((?:L[ib]\d+E)+)E", line)
+        if line.startswith("$ "):
+            source = line.split()[-1].rsplit("/", 1)[-1]
+            continue
+        m = re.search(r"Compiling entry function '\S*?((?:(?:attn_fwd_(?:"
+                      r"packed|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|"
+                      r"attn_bwd_(?:packed|rel|relik_fs)_(?:dkdv|dq))_tc|"
+                      r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved))"
+                      r"_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ", ".join(
                 v if k == "i" else ("true" if v == "1" else "false")
@@ -383,8 +409,8 @@ def tc_ptxas_lines(log):
             spills = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            lines.append(f"ptxas {name} (bf16, sm_90a): {m.group(1)} "
-                         f"registers; {spills}")
+            lines.append(f"ptxas {name} (bf16, sm_90a, {source}): "
+                         f"{m.group(1)} registers; {spills}")
             name = None
     return lines
 
@@ -699,6 +725,130 @@ def time_training_kernels(fa, case, card):
     return times
 
 
+# bf16 #1's and #3's tensor-core plans (csrc/attn_full_tc.cuh) at their
+# edges, (B, S, H, Dh), each from a seeded ragged mask with a batch row
+# masked whole. Phase 3, serving (rate 0): a ragged S = 33, Dh = 128 and
+# 40. Phase 3b, the training modes and #3: the serving batch at S = 50,
+# the register plan's last S and the score tile's first, the backward's
+# longest S at Dh = 64 and 128, Dh = 128 and 40, a ragged S = 33; then the
+# forward alone at S = 512, past the backward's reach.
+FULL_TC_SERVE_EDGES = ((8, 33, 12, 64), (8, S_SERVE, 6, 128),
+                       (8, S_SERVE, 8, 40))
+FULL_TC_EDGES = ((BATCH, S_SERVE, 12, 64), (8, 64, 12, 64), (8, 65, 12, 64),
+                 (8, 140, 12, 64), (8, 117, 4, 128), (16, S_SERVE, 6, 128),
+                 (16, S_SERVE, 8, 40), (16, 33, 12, 64))
+FULL_TC_FWD_EDGES = ((8, 512, 12, 64), (4, 512, 4, 128))
+
+
+def check_forward_modes(rng, fa, b, s, rate, h=12, dh=64):
+    """Phase 3b's forward alone, bf16 #1 past #3's reach: out, p and pd
+    with saved probs against the plain forward within the phase-3 bound,
+    the keep mask against the plain Philox mask, the same bits twice and
+    the same output without the save. Returns the max error."""
+    import torch
+
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, s, 3 * h * dh), dtype=np.float32)).to("cuda", torch.bfloat16)
+    mask = torch.from_numpy(_ragged_mask(rng, b, s)).cuda().float()
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5, rate=rate, seed=seed)
+    tag = f"bf16 B={b} S={s} H={h} Dh={dh} rate={rate}"
+    got = fa.attn_fwd_packed_cuda(qkv, mask, save=True, **kw)
+    want = fa.attn_fwd_packed_reference(qkv, mask, save=True, **kw)
+    err = max(_forward_err(f"#1 {n} {tag}", x, r, "bf16")
+              for n, x, r in zip(("out", "p", "pd"), got, want))
+    again = fa.attn_fwd_packed_cuda(qkv, mask, save=True, **kw)
+    same = (all(torch.equal(x, y) for x, y in zip(again, got))
+            and torch.equal(fa.attn_fwd_packed_cuda(qkv, mask, **kw), got[0]))
+    print(f"#1 vs plain {tag}: out/p/pd max_abs_err={err:.3e}"
+          + _check_keep(fa, "#1", seed, got[1], got[2], rate, tag)
+          + f"; the same bits twice and without the save: {same}")
+    if not same:
+        raise AssertionError(f"#1 not bit-reproducible across modes ({tag})")
+    return err
+
+
+def kernel_device_ms(fn, key, iters=50):
+    """The card's time per launch of the kernels whose names hold ``key``
+    over ``iters`` calls of ``fn`` (torch.profiler), with no host time
+    between launches counted: at ~0.04 ms a call the wrappers' host work
+    paces the back-to-back calls that the CUDA events time."""
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    fn()
+    rows = [(calls, ms) for name, calls, ms in
+            device_time_by_kernel(fn, iters)["kernels"] if key in name]
+    return sum(ms for _, ms in rows) / sum(calls for calls, _ in rows)
+
+
+def time_full_tc(rng, fa, card, case, serve_case):
+    """bf16 #1 at the driver's S = 512 evaluation (B=48, rate 0) against
+    its plain version and SDPA; the card's time per launch of #1 at
+    serving (``serve_case``), #1′ and #3 (``kernel_device_ms``); then, at
+    the bench's training shape (B=256, S=50, rate 0.1, ``case``), the
+    full-H pair #1′ (saved probs) + #3 against the head-blocked pair #4′ +
+    #5′ (recompute), in alternating rounds (hb, full, full, hb). Returns
+    {"eval_s512": entry, "device_ms": {...}, "pairs": {"full_ms",
+    "hb_ms", ...}}."""
+    qkv, mask, _, _ = long_case(rng, "bf16", TRAIN_BATCH, 512)
+    kw = dict(n_heads=12, scale=0.125)
+    k, pl = _alternate(
+        lambda: fa.attn_fwd_packed_reference(qkv, mask, **kw),
+        lambda: fa.attn_fwd_packed_cuda(qkv, mask, **kw), 10)
+    lib = sdpa_call(qkv, mask, 12, 0.125)[0]
+    _time_ms(lib, 3)
+    lib_ms = float(np.mean([_time_ms(lib, 10) for _ in range(2)]))
+    bound = attn_bound("fwd", TRAIN_BATCH, 512, 12, 64, 2)
+    eval_entry = {"ms": float(np.mean(k)), "plain_ms": float(np.mean(pl)),
+                  "bound_ms": bound[0], "bound_by": bound[1],
+                  "library_ms": lib_ms,
+                  "library": "scaled_dot_product_attention"}
+    print(f"attn_fwd_packed bf16 B={TRAIN_BATCH} S=512 H=12 Dh=64 rate 0 on "
+          f"{card}: kernel {k} ms, plain {pl} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms per call; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    del qkv, mask
+
+    qkv, mask, g, seed, kw = case
+
+    def full():
+        _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, rate=RATE, seed=seed,
+                                           save=True, **kw)
+        fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+
+    def hb():
+        fa.attn_fwd_packed_hb_cuda(qkv, mask, rate=RATE, seed=seed, **kw)
+        fa.attn_bwd_packed_hb_cuda(qkv, mask, seed, g, rate=RATE, **kw)
+
+    f_ms, h_ms = _alternate(hb, full, 20)
+    s_qkv, s_mask, s_scale, s_h = serve_case
+    _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, rate=RATE, seed=seed,
+                                       save=True, **kw)
+    device = {
+        "#1 serving bf16 B=128 S=50 rate 0": kernel_device_ms(
+            lambda: fa.attn_fwd_packed_cuda(s_qkv, s_mask, n_heads=s_h,
+                                            scale=s_scale), "attn_full_tc"),
+        f"#1' bf16 B=256 S=50 rate {RATE} saved probs": kernel_device_ms(
+            lambda: fa.attn_fwd_packed_cuda(qkv, mask, rate=RATE, seed=seed,
+                                            save=True, **kw),
+            "attn_full_tc"),
+        "#3 bf16 B=256 S=50": kernel_device_ms(
+            lambda: fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw),
+            "attn_full_tc")}
+    print(f"the card's time per launch (torch.profiler) on {card}: "
+          + ", ".join(f"{k_} {v_:.4f} ms" for k_, v_ in device.items()))
+    b, s = qkv.shape[:2]
+    pairs = {"full_ms": float(np.mean(f_ms)), "hb_ms": float(np.mean(h_ms)),
+             "shape": f"bf16 B={b} S={s} H=12 Dh=64 rate {RATE}",
+             "full": "#1' (saved probs) + #3", "hb": "#4' + #5' (recompute)"}
+    print(f"full-H pair #1' + #3 vs head-blocked pair #4' + #5', bf16 B={b} "
+          f"S={s} rate {RATE} on {card}: full {f_ms} ms, hb {h_ms} ms per "
+          f"step's call")
+    return {"eval_s512": eval_entry, "device_ms": device, "pairs": pairs}
+
+
 def make_split(rng, n, s, vocab, dv, da):
     """A seeded PackedSplit shaped like the BERT packing: [CLS] tokens
     [SEP], right padding, zero modality rows on specials and padding."""
@@ -795,12 +945,52 @@ def _grad_gaps(got, ref):
     return sorted(gaps.items(), key=lambda kv: -kv[1])
 
 
+def fused_value_plain_grad(fa, plain, q, k, v, bias, *, scale, **kw):
+    """Phase 4b's reference attention for the einsum branch, at dropout 0:
+    the value is kernel #1's on the packed q|k|v (the fused branch's
+    forward bits), the gradient is autograd's through ``plain``
+    (``ops/attention.py::dot_product_attention``) at the same q, k, v.
+    Phase 4b's gradient bound assumes the two branches' forwards are the
+    same bits: the CUDA-core #1 summed as cuBLAS does and gave them; bf16
+    #1 sums on the tensor cores, and its one-ulp differences in ~1e-4 of
+    the outputs grow through the 12 layers. q, k, v [B, H, S, Dh], bias
+    [B, 1, 1, S] of (1 − m)·−10000; returns [B, H, S, Dh]."""
+    import torch
+
+    if (kw.get("head_mask") is not None or kw.get("return_probs")
+            or (kw.get("dropout_rate", 0.0) > 0.0
+                and not kw.get("deterministic", True))):
+        raise ValueError("fused_value_plain_grad takes dropout 0 only")
+
+    class FusedValuePlainGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            b, h, s, dh = q.shape
+            out = fa.attn_fwd_packed_cuda(
+                fa._pack(q, k, v), (bias.reshape(b, s) == 0).float(),
+                n_heads=h, scale=scale)
+            return out.view(b, s, h, dh).permute(0, 2, 1, 3).contiguous()
+
+        @staticmethod
+        def backward(ctx, g):
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+                return torch.autograd.grad(plain(*xs, bias, scale=scale), xs,
+                                           g)
+
+    return FusedValuePlainGrad.apply(q, k, v)
+
+
 def train_path(args, rng, fa, model_args, card):
     """Phase 4b. Returns the launch counts of the two training drives."""
     import torch
 
     from bert_multimodal_transformer_tpu_torch.data.pipeline import (
         BatchIterator,
+    )
+    from bert_multimodal_transformer_tpu_torch.models import (
+        bert as bert_model,
     )
     from bert_multimodal_transformer_tpu_torch.models.bert import (
         MagBertForSequenceClassification,
@@ -906,6 +1096,17 @@ def train_path(args, rng, fa, model_args, card):
                              ("fused, recompute", "fused", "0"),
                              ("einsum", "einsum", None)):
         losses[name], grads[name] = run_branch(impl, save, len(batches))
+    # The gradients' reference: the einsum branch with the fused branch's
+    # forward bits (``fused_value_plain_grad``), so that the gap measures
+    # the backward alone, as GRAD_GAP_TOL assumes.
+    real_attention = bert_model.dot_product_attention
+    bert_model.dot_product_attention = (
+        lambda *a, **kw: fused_value_plain_grad(fa, real_attention, *a, **kw))
+    try:
+        _, grads["einsum on the fused forward"] = run_branch("einsum", None,
+                                                             1)
+    finally:
+        bert_model.dot_product_attention = real_attention
     # The check's power: the same first step with dK zeroed in #3's output.
     real_saved_bwd = fa.attn_bwd_packed_saved
 
@@ -933,10 +1134,16 @@ def train_path(args, rng, fa, model_args, card):
                 losses[name]).all():
             raise AssertionError(f"{name} losses differ from einsum's "
                                  f"beyond {LOSS_ATOL}")
+    for name in ("fused, saved probs", "fused, recompute"):
+        gaps = _grad_gaps(grads[name], grads["einsum"])
+        print(f"  step-1 gradients, {name} vs einsum (forwards apart by "
+              "bf16 roundings; a record): worst pieces "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps[:4]))
     for name in ("fused, saved probs", "fused, recompute",
                  "planted fault: dK zeroed in #3"):
-        gaps = _grad_gaps(grads[name], grads["einsum"])
-        print(f"  step-1 gradients, {name} vs einsum: worst pieces "
+        gaps = _grad_gaps(grads[name], grads["einsum on the fused forward"])
+        print(f"  step-1 gradients, {name} vs einsum on the fused forward: "
+              "worst pieces "
               + ", ".join(f"{k} {v:.3e}" for k, v in gaps[:4])
               + f" (bound {GRAD_GAP_TOL})")
         fails = gaps[0][1] > GRAD_GAP_TOL
@@ -2061,9 +2268,9 @@ def check_long_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
 def check_long_against_full(rng, fa):
     """#4 against #1 (S = 128, 512) and #5 against #2 (S = 128) at rate
     0.1. fp32 #4 and #5 run #1's and #2's row code: the same bits. In bf16
-    both run on the tensor cores: #4 sums its dots in another order than
-    #1's CUDA-core chains, so it is held to #1 within the phase-3 forward
-    bound (``_forward_err``); #5 rebuilds p from its own online statistics
+    #1 past S = 64 runs #4's tensor-core plan (csrc/attn_full_tc.cuh), held
+    within the phase-3 forward bound (``_forward_err``; its identical bits
+    printed); #5 rebuilds p from its own online statistics
     (exp(s − m)·(1/l), δ an online sum) where #2 takes the whole-row e / l
     and Σ t, so it is held to #2 within ``dqkv_bf16_bound``."""
     import torch
@@ -4599,7 +4806,8 @@ def _qkvproj_forward_err(tag, got, want, mask, dtype_name):
 def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     """Phase 3j on one case: #18 with saved probs and the emitted qkv
     against its plain version (out, qkv, p, pd), its keep mask against the
-    plain Philox mask, #1 on its emitted qkv bit for bit, and #1 on the
+    plain Philox mask, #1 on its emitted qkv (bit for bit in fp32; in bf16
+    within the phase-3 forward bound with the same keep mask), and #1 on the
     plain projection's qkv within the phase-3 bf16 bound (in fp32 too,
     which covers QKVPROJ_PADDED_RTOL's padded rows); #19 reading that qkv
     and #19 re-projecting from x bit for bit alike, and against the plain
@@ -4619,6 +4827,14 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     packed = fa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
                                      save=True, **kw)
     same = all(torch.equal(a, b_) for a, b_ in zip((out, p, pd), packed))
+    # bf16 #1 sums its dots on the tensor cores, #18 on the CUDA cores: in
+    # bf16 the two are held within the forward bound, with the same keep
+    # mask; in fp32 they run one row code and give the same bits
+    on_packed = max(_forward_err(f"#18 vs #1 on its qkv {tag}", a, b_,
+                                 dtype_name)
+                    for a, b_ in zip((out, p, pd), packed))
+    live = (p > 0) & (packed[1] > 0)
+    same_keep = torch.equal((pd > 0)[live], (packed[2] > 0)[live])
     # the mode that keeps no qkv (the backward re-projects) gives the bits
     # of the one that does
     kept = fwd.pop("emit_qkv")
@@ -4632,10 +4848,11 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
                             "bf16")
     print(f"#18 vs plain {tag}: out/qkv/p/pd max_abs_err={errs['#18']:.3e}"
           + _check_keep(fa, "#18", seed, p, pd, rate, tag)
-          + f"; #18 = #1 on its emitted qkv bit for bit: {same}; = #18 "
-          f"keeping no qkv: {same_modes}; vs #1 on the plain projection's "
-          f"qkv {on_plain:.3e}")
-    if not same:
+          + f"; vs #1 on its emitted qkv {on_packed:.3e} (identical bits "
+          f"{same}, the same keep mask {same_keep}); = #18 keeping no qkv: "
+          f"{same_modes}; vs #1 on the plain projection's qkv "
+          f"{on_plain:.3e}")
+    if not same_keep or (dtype_name == "fp32" and not same):
         raise AssertionError(f"#18 and #1 on its qkv differ ({tag})")
     if not same_modes:
         raise AssertionError(f"#18 with and without the emitted qkv differ "
@@ -5143,6 +5360,13 @@ def main() -> int:
     serve_err, serve_case = check_kernel(rng, fa, "bf16", BATCH, S_SERVE)
     check_kernel(rng, fa, "bf16", 8, 512)
     check_kernel(rng, fa, "fp32", 4, 77)
+    # bf16 #1's tensor-core plans at their edges, from a stream of their
+    # own (phase 3b's too) so that every later phase sees the inputs it saw
+    # before
+    tc_rng = np.random.default_rng([args.seed, 16])
+    for b, s, h, dh in FULL_TC_SERVE_EDGES:
+        serve_err = max(serve_err,
+                        check_kernel(tc_rng, fa, "bf16", b, s, h, dh)[0])
     qkv, mask, scale, h = serve_case
 
     def run_kernel():
@@ -5184,8 +5408,20 @@ def main() -> int:
                 train_errs[k] = max(train_errs.get(k, 0.0), v)
             if dtype_name == "bf16" and rate > 0:
                 bench_case = case
+    for b, s, h, dh in FULL_TC_EDGES:
+        for rate in (RATE, 0.0):
+            errs, _ = check_training_kernels(tc_rng, fa, "bf16", b, s, rate,
+                                             h, dh)
+            for k, v in errs.items():
+                train_errs[k] = max(train_errs[k], v)
+    for b, s, h, dh in FULL_TC_FWD_EDGES:
+        for rate in (RATE, 0.0):
+            train_errs["fwd"] = max(train_errs["fwd"], check_forward_modes(
+                tc_rng, fa, b, s, rate, h, dh))
     train_times = time_training_kernels(fa, bench_case, card)
+    full_tc_times = time_full_tc(tc_rng, fa, card, bench_case, serve_case)
     del bench_case
+    torch.cuda.empty_cache()
 
     # 3c. The fused MAG gate's kernels against plain, on the card
     mag_errs = check_mag_kernels(rng, mf)
@@ -5509,7 +5745,15 @@ def main() -> int:
                     "bound_ms": serve_bound[0],
                     "bound_by": serve_bound[1],
                     "library_ms": library_ms,
-                    "library": "scaled_dot_product_attention"}}
+                    "library": "scaled_dot_product_attention"},
+                f"evaluation rate 0, bf16 B={TRAIN_BATCH} S=512":
+                    full_tc_times["eval_s512"]}
+        if name in ("attn_fwd_packed", "attn_bwd_packed_saved"):
+            entry["device_ms"] = {
+                k_: v_ for k_, v_ in full_tc_times["device_ms"].items()
+                if k_.startswith("#3" if tag == "#3" else "#1")}
+        if name == "attn_bwd_packed_saved":
+            entry["pair_vs_head_blocked"] = full_tc_times["pairs"]
         kernels.append(entry)
     for name, line in (("mag_fwd", 50), ("mag_bwd", 186)):
         total, paths = by_path(name)

@@ -585,6 +585,63 @@ def test_training_kernels_match_plain_on_card(cuda_device, dtype, b, s, h,
                        saved)
 
 
+# The edges of the bf16 tensor-core plans (csrc/attn_full_tc.cuh): the
+# register plan's longest S and the score tile's first, a ragged S = 33 at
+# Dh = 40 (a padded k16 step), Dh = 8 and 128, S = 512, the backward's
+# longest S at Dh = 64, 72 and 128, and a single key. Each case's batch row 0
+# is masked whole.
+TC_EDGES = [
+    (4, 64, 12, 64),
+    (4, 65, 12, 64),
+    (3, 33, 4, 40),
+    (5, 17, 2, 8),
+    (2, 50, 4, 128),
+    (2, 512, 2, 40),
+    (2, 140, 4, 64),
+    (2, 137, 2, 72),
+    (2, 117, 2, 128),
+    (3, 1, 2, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dh", TC_EDGES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_tensor_core_plans_on_card(cuda_device, b, s, h, dh, rate):
+    """bf16 #1 with saved probs against its plain version (out, p, pd
+    within one bf16 rounding), its keep mask bit for bit, #3 (where S is
+    in its reach) within ``dqkv_bf16_bound`` of the plain backward, the
+    same bits twice."""
+    qkv, mask, g = _card_case(cuda_device, "bfloat16", b, s, h, dh,
+                              seed=s + dh)
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5)
+    seed = 2 ** 60 + s
+    out, p, pd = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
+                                          save=True, **kw)
+    want = tfa.attn_fwd_packed_reference(qkv, mask, rate=rate, seed=seed,
+                                         save=True, **kw)
+    for got, ref in zip((out, p, pd), want):
+        _assert_close(got.cpu(), ref.cpu().float().numpy(), "bfloat16")
+    if rate > 0:
+        keep = tfa.dropout_keep_mask(seed, b, h, s, s, rate, cuda_device)
+        live = p > 0
+        assert torch.equal((pd > 0)[live], keep[live])
+    again = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
+                                     save=True, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (out, p, pd)))
+    assert torch.equal(tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate,
+                                                seed=seed, **kw), out)
+    if s > tfa.max_bwd_seq_len(dh):
+        return
+    saved = tfa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+    ref = tfa.attn_bwd_packed_saved_reference(p, pd, qkv, g, **kw)
+    torch.cuda.synchronize()
+    bound = tfa.dqkv_bf16_bound(ref, p, pd, qkv, g, **kw)
+    assert bool(((saved.float() - ref.float()).abs() <= bound).all())
+    assert torch.equal(tfa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw),
+                       saved)
+
+
 @pytest.mark.cuda
 def test_training_forward_modes_share_the_output(cuda_device):
     """Saving the probs does not change the output; rate 0 with no save

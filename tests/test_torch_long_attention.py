@@ -576,9 +576,9 @@ def test_flash_streamed_kernels_match_plain_on_card(cuda_device, dtype, b,
 @pytest.mark.cuda
 def test_head_blocked_kernels_equal_full_h_on_card(cuda_device):
     """Where both reach, #4 gives #1's function and #5 gives #2's. fp32 #4
-    and #5 run #1's and #2's row code: the same bits. In bf16 both run on
-    the tensor cores: #4 sums its dots in another order than #1's CUDA-core
-    chains, so it is held to #1 within the bf16 forward bound; #5 rebuilds
+    and #5 run #1's and #2's row code: the same bits. In bf16 #1 past S = 64
+    runs #4's tensor-core plan (csrc/attn_full_tc.cuh), held to it within
+    the bf16 forward bound; #5 rebuilds
     p from its own online statistics where #2 takes the whole-row softmax,
     so it is held to #2 within ``dqkv_bf16_bound``."""
     qkv, mask, g = _card_case(cuda_device, "bfloat16", 4, 128, 12, 64, 23)

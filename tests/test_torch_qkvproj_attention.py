@@ -367,8 +367,11 @@ def _close(got, want, dtype):
 def test_qkvproj_kernels_match_plain_on_card(cuda_device, dtype, b, s, h,
                                              dh, rate):
     """#18 (saved probs, emitted qkv) against its plain version and #1 on
-    its emitted qkv bit for bit; #19 from x equal to #19 from that qkv bit
-    for bit, and against the plain backward; the same bits twice."""
+    its emitted qkv (bit for bit in fp32; in bf16, where #1 sums its dots
+    on the tensor cores and #18 on the CUDA cores, within one bf16
+    rounding, with the same keep mask); #19 from x equal to #19 from that
+    qkv bit for bit, and against the plain backward; the same bits
+    twice."""
     (x, w, b3, g), mask = _card(cuda_device, dtype, b, s, h, dh, 13)
     scale, seed = 1.0 / dh ** 0.5, 2 ** 61 + 5
     kw = dict(n_heads=h, scale=scale)
@@ -382,7 +385,13 @@ def test_qkvproj_kernels_match_plain_on_card(cuda_device, dtype, b, s, h,
         _close(qkv, r_qkv, dtype)
     packed = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
                                       save=True, **kw)
-    assert all(torch.equal(a, b_) for a, b_ in zip((out, p, pd), packed))
+    if dtype == "float32":
+        assert all(torch.equal(a, b_) for a, b_ in zip((out, p, pd), packed))
+    else:
+        for a, b_ in zip((out, p, pd), packed):
+            _close(a, b_, dtype)
+        live = (p > 0) & (packed[1] > 0)
+        assert torch.equal((pd > 0)[live], (packed[2] > 0)[live])
     saved = tfa.attn_bwd_qkvproj_cuda(p, pd, qkv, w, b3, g, recompute=False,
                                       **kw)
     recomputed = tfa.attn_bwd_qkvproj_cuda(p, pd, x, w, b3, g,
