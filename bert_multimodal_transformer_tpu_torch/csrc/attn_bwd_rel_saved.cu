@@ -18,34 +18,40 @@
 // No QK product, no softmax, no random draws.
 //
 // What bounds it on the card: at B=256, Q=K=50, H=12, Dh=64 four Q×K×Dh
-// products per (b, h), ~2 GFLOP, over ~40 MB of q/k/v/g and gradients,
-// the 31 MB of saved probs and the 15 MB debias write (bf16):
-// latency-bound, like its packed twin (attn_bwd_packed_saved.cu).
+// products per (b, h), ~2 GFLOP, over ~31 MB of q/k/v/g and gradients,
+// the 31 MB of saved probs and the 15 MB debias write (bf16): bytes-bound
+// at 0.055 ms. The CUDA-core kernel below took 0.65 ms there, latency-bound
+// on its dependent fp32 fmaf chains.
 //
-// What the design does about that: the recompute backward's plan
-// (attn_bwd_rel.cu, common.cuh's rel_bwd_smem_floats): one block per
-// (head, batch row) holds the [Q, K] problem in shared memory, no atomics,
-// bit-reproducible. pd is staged in shared memory for the dV product and
-// the VJP; p is read once from device memory, row by row. The products
-// run on the CUDA cores in fp32.
+// What the design does about that: bf16 runs on the tensor cores
+// (attn_rel_full_tc.cuh: attn_full_tc.cuh's saved-probs backward in the rel
+// layout, d(pd), the VJP and debias from the accumulators in registers,
+// dV and dK by ldmatrix.trans, the q rows in chunks where they do not fit
+// at once). fp32 keeps the CUDA-core kernel and its bits: the recompute
+// backward's plan (attn_bwd_rel.cu, common.cuh's rel_bwd_smem_floats), one
+// block per (head, batch row) holding the [Q, K] problem in shared memory,
+// pd staged for the dV product and the VJP, p read once from device memory
+// row by row. Neither uses atomics: both are bit-reproducible. The entry
+// dispatches on the dtype; a bf16 call always launches the tensor-core
+// kernel or returns the launch's error.
 
-#include "common.cuh"
+#include "attn_rel_full_tc.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxDh = 128;
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_rel_saved_kernel(const T* __restrict__ p,
-                              const T* __restrict__ pd,
-                              const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ g, T* __restrict__ dq,
-                              T* __restrict__ dk, T* __restrict__ dv,
-                              T* __restrict__ debias, int Q, int K, int H,
+    attn_bwd_rel_saved_kernel(const float* __restrict__ p,
+                              const float* __restrict__ pd,
+                              const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ g,
+                              float* __restrict__ dq, float* __restrict__ dk,
+                              float* __restrict__ dv,
+                              float* __restrict__ debias, int Q, int K, int H,
                               int Dh, float scale) {
   extern __shared__ float smem[];
   const int D = H * Dh;
@@ -62,9 +68,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t qoff = (size_t)b * Q * D + h * Dh;
   const size_t koff = (size_t)b * K * D + h * Dh;
   const size_t head = ((size_t)b * H + h) * Q * K;
-  const T* p_head = p + head;
-  const T* pd_head = pd + head;
-  T* deb_head = debias + head;
+  const float* p_head = p + head;
+  const float* pd_head = pd + head;
+  float* deb_head = debias + head;
 
   for (int i = tid; i < Q * K; i += kThreads)
     ps[i] = attn::to_float(pd_head[i]);
@@ -77,10 +83,8 @@ __global__ void __launch_bounds__(kThreads)
 
   auto pd_of = [ps](int i) { return ps[i]; };
   auto p_of = [p_head](int i) { return attn::to_float(p_head[i]); };
-  auto ds_out = [deb_head](int i, float ds) {
-    deb_head[i] = attn::from_float<T>(ds);
-  };
-  attn::softmax_vjp_rows<T>(tt, Q, K, scale, pd_of, p_of, ds_out);
+  auto ds_out = [deb_head](int i, float ds) { deb_head[i] = ds; };
+  attn::softmax_vjp_rows<float>(tt, Q, K, scale, pd_of, p_of, ds_out);
   __syncthreads();  // g and v no longer needed: stage q and k
 
   attn::load_tile(as, q + qoff, (size_t)D, Q, Dh);
@@ -90,22 +94,23 @@ __global__ void __launch_bounds__(kThreads)
   attn::store_mtx(dk + koff, (size_t)D, tt, as, Q, K, Dh);  // dK = ds_cᵀ · q
 }
 
-template <typename T>
-int launch(const void* p, const void* pd, const void* q, const void* k,
-           const void* v, const void* g, void* dq, void* dk, void* dv,
-           void* debias, int B, int Q, int K, int H, int Dh, float scale,
-           cudaStream_t stream) {
+// fp32 on the CUDA cores.
+int launch_fp32(const void* p, const void* pd, const void* q, const void* k,
+                const void* v, const void* g, void* dq, void* dk, void* dv,
+                void* debias, int B, int Q, int K, int H, int Dh, float scale,
+                cudaStream_t stream) {
   static unsigned long long attr_set = 0;
   cudaError_t err =
-      attn::allow_max_smem(attn_bwd_rel_saved_kernel<T>, &attr_set);
+      attn::allow_max_smem(attn_bwd_rel_saved_kernel, &attr_set);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = attn::rel_bwd_smem_floats(Q, K, Dh) * sizeof(float);
-  attn_bwd_rel_saved_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(p), static_cast<const T*>(pd),
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<T*>(debias), Q, K, H, Dh, scale);
+  attn_bwd_rel_saved_kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(p), static_cast<const float*>(pd),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(debias), Q, K, H, Dh,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -118,7 +123,8 @@ extern "C" {
 // context gradient [B, Q, D]; dq [B, Q, D], dk and dv [B, K, D] and debias
 // [B, H, Q, K] are written. Returns the cudaError_t of the launch (0 on
 // success); a shape past the shared-memory plan returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. The reach is the fp32 plan's
+// (ops/fused_attention.py::rel_bwd_fits), which the bf16 plan covers.
 int attn_bwd_rel_saved(const void* p, const void* pd, const void* q,
                        const void* k, const void* v, const void* g, void* dq,
                        void* dk, void* dv, void* debias, int B, int Q, int K,
@@ -132,11 +138,28 @@ int attn_bwd_rel_saved(const void* p, const void* pd, const void* q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(p, pd, q, k, v, g, dq, dk, dv, debias, B, Q, K, H,
-                           Dh, scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(p, pd, q, k, v, g, dq, dk, dv, debias, B,
-                                   Q, K, H, Dh, scale, st);
+      return launch_fp32(p, pd, q, k, v, g, dq, dk, dv, debias, B, Q, K, H,
+                         Dh, scale, st);
+    case 1: {  // the tensor-core plan of attn_rel_full_tc.cuh
+      using bf16 = __nv_bfloat16;
+      const rel_tc::BwdArgs a{static_cast<const bf16*>(p),
+                              static_cast<const bf16*>(pd),
+                              static_cast<const bf16*>(q),
+                              static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v),
+                              static_cast<const bf16*>(g),
+                              static_cast<bf16*>(dq),
+                              static_cast<bf16*>(dk),
+                              static_cast<bf16*>(dv),
+                              static_cast<bf16*>(debias),
+                              B,
+                              Q,
+                              K,
+                              H,
+                              Dh,
+                              scale};
+      return rel_tc::launch_bwd(a, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,25 +24,27 @@
 // to 128, K up to 512, any Q.
 //
 // What bounds it on the card: at XLNet's training shape (B=256, Q=K=50,
-// H=12, Dh=64) the op is ~2 GFLOP over ~36 MB (q, k, v, the 15 MB ebias,
-// out) plus 31 MB of saved probs: small next to the step's GEMMs, so its
-// time is set by latency (the dependent load → dot → softmax → dot chain in
-// each block) and by keeping the 132 SMs busy, not by HBM or tensor-core
-// rate. Against its packed twin (attn_fwd_packed.cu) it reads the ebias
-// row per element in place of a [S] mask bias: one more coalesced read of
-// B·H·Q·K elements.
+// H=12, Dh=64) the op is ~1 GFLOP over ~31 MB (q, k, v, the 15 MB ebias,
+// out) plus 31 MB of saved probs: bytes-bound at 0.037 ms (0.014 ms at
+// the serving shape, B=128, nothing saved). The CUDA-core kernel below
+// took 0.24-0.56 ms there, latency-bound on its dependent load → fmaf dot
+// → softmax → fmaf dot chain.
 //
-// What the design does about that: attn_fwd_packed.cu's plan, with q and
-// k/v read from their own tensors (row stride D) so Q ≠ K works (common.cuh's
-// `fwd_rel_rows`, which #14 runs with larger tiles): one block
-// per (q-tile of 16 rows, head, batch row), 6144 blocks at the serving
-// shape; the q tile in shared memory, k_h and v_h streamed in 64-row chunks
-// by stride (no head transpose in device memory); the tile's scores in
-// shared memory (at most 16 × 512 fp32). Each lane draws one Philox block
-// for 4 consecutive keys. The dots run on the CUDA cores in fp32: a
-// tensor-core (`wgmma`) version is later work.
+// What the design does about that: bf16 runs on the tensor cores
+// (attn_rel_full_tc.cuh: the scores, softmax, keep mask and PV's A
+// fragments in registers up to K = 64, #14's score tile with the save
+// modes past it), mma.sync fed by ldmatrix from operands cp.async staged
+// once. fp32 keeps the CUDA-core kernel and its bits: common.cuh's
+// `fwd_rel_rows` (which #14 runs with larger tiles in fp32), one block per
+// (q-tile of 16 rows, head, batch row), the q tile in shared memory, k_h
+// and v_h streamed in 64-row chunks by stride, the tile's scores in shared
+// memory (at most 16 × 512 fp32), each lane one Philox block for 4
+// consecutive keys. The entry dispatches on the dtype; a bf16 call always
+// launches a tensor-core kernel or returns the launch's error
+// (cudaErrorMisalignedAddress where q, k or v does not start on the 16
+// bytes cp.async copies).
 
-#include "common.cuh"
+#include "attn_rel_full_tc.cuh"
 
 namespace {
 
@@ -51,55 +53,57 @@ using attn::DropoutArgs;
 constexpr int kQTile = 16;     // query rows per block
 constexpr int kMaxK = 512;
 
-template <typename T, bool kDropout, bool kSave>
+template <bool kDropout, bool kSave>
 __global__ void __launch_bounds__(attn::kFwdThreads)
-    attn_fwd_rel_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ ebias,
-                        T* __restrict__ out, T* __restrict__ p_out,
-                        T* __restrict__ pd_out, int Q, int K, int H, int Dh,
-                        float scale, DropoutArgs drop) {
+    attn_fwd_rel_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ ebias,
+                        float* __restrict__ out, float* __restrict__ p_out,
+                        float* __restrict__ pd_out, int Q, int K, int H,
+                        int Dh, float scale, DropoutArgs drop) {
   extern __shared__ float smem[];
-  attn::fwd_rel_rows<T, kQTile, kDropout, kSave>(
+  attn::fwd_rel_rows<float, kQTile, kDropout, kSave>(
       smem, q, k, v, ebias, out, p_out, pd_out, Q, K, H, Dh, scale, drop);
 }
 
-template <typename T, bool kDropout, bool kSave>
+template <bool kDropout, bool kSave>
 int launch(const void* q, const void* k, const void* v, const void* ebias,
            void* out, void* p, void* pd, int B, int Q, int K, int H, int Dh,
            float scale, DropoutArgs drop, cudaStream_t stream) {
   static unsigned long long attr_set = 0;
   const cudaError_t err = attn::allow_max_smem(
-      attn_fwd_rel_kernel<T, kDropout, kSave>, &attr_set);
+      attn_fwd_rel_kernel<kDropout, kSave>, &attr_set);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
       attn::rel_fwd_smem_floats<kQTile>(K, Dh) * sizeof(float);
   dim3 grid((Q + kQTile - 1) / kQTile, H, B);
-  attn_fwd_rel_kernel<T, kDropout, kSave>
+  attn_fwd_rel_kernel<kDropout, kSave>
       <<<grid, attn::kFwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(ebias),
-      static_cast<T*>(out), static_cast<T*>(p), static_cast<T*>(pd), Q, K, H,
-      Dh, scale, drop);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(ebias),
+      static_cast<float*>(out), static_cast<float*>(p),
+      static_cast<float*>(pd), Q, K, H, Dh, scale, drop);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* ebias,
-             void* out, void* p, void* pd, int B, int Q, int K, int H,
-             int Dh, float scale, bool dropout, DropoutArgs drop,
-             cudaStream_t st) {
+// fp32 on the CUDA cores.
+int dispatch_fp32(const void* q, const void* k, const void* v,
+                  const void* ebias, void* out, void* p, void* pd, int B,
+                  int Q, int K, int H, int Dh, float scale, bool dropout,
+                  DropoutArgs drop, cudaStream_t st) {
   const bool save = p != nullptr;
   if (dropout && save)
-    return launch<T, true, true>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
-                                 scale, drop, st);
+    return launch<true, true>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
+                              scale, drop, st);
   if (dropout)
-    return launch<T, true, false>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
-                                  scale, drop, st);
+    return launch<true, false>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
+                               scale, drop, st);
   if (save)
-    return launch<T, false, true>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
-                                  scale, drop, st);
-  return launch<T, false, false>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
-                                 scale, drop, st);
+    return launch<false, true>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
+                               scale, drop, st);
+  return launch<false, false>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
+                              scale, drop, st);
 }
 
 }  // namespace
@@ -127,11 +131,25 @@ int attn_fwd_rel(const void* q, const void* k, const void* v,
   const DropoutArgs drop{seed, threshold, inv_keep};
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh,
-                             scale, dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(q, k, v, ebias, out, p, pd, B, Q, K, H,
-                                     Dh, scale, dropout != 0, drop, st);
+      return dispatch_fp32(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh, scale,
+                           dropout != 0, drop, st);
+    case 1: {  // the tensor-core plans of attn_rel_full_tc.cuh
+      using bf16 = __nv_bfloat16;
+      const rel_tc::FwdArgs a{static_cast<const bf16*>(q),
+                              static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v),
+                              static_cast<const bf16*>(ebias),
+                              static_cast<bf16*>(out),
+                              static_cast<bf16*>(p),
+                              static_cast<bf16*>(pd),
+                              B,
+                              Q,
+                              K,
+                              H,
+                              Dh,
+                              scale};
+      return rel_tc::launch_fwd(a, dropout != 0, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -32,12 +32,14 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #1, #3, #4-#8, #10, #14-#17, #23 and #24 run their products on
-the tensor cores (``mma.sync`` from ``ldmatrix``, operands staged by
+In bf16, #1, #3, #4-#8, #10, #11, #13-#17, #23 and #24 run their products
+on the tensor cores (``mma.sync`` from ``ldmatrix``, operands staged by
 ``cp.async``); fp32 keeps their CUDA-core kernels. Their shared-memory
 plans are ``full_tc_fwd_smem_bytes`` (#1, #8: the scores in registers up to
 ``FULL_TC_REG_MAX_SEQ_LEN``, #4's score tile past it),
-``full_tc_bwd_smem_bytes`` (#3, #10),
+``full_tc_bwd_smem_bytes`` (#3, #10), ``rel_full_tc_fwd_smem_bytes`` (#11:
+registers up to ``REL_TC_REG_MAX_K``, #14's score tile past it),
+``rel_full_tc_bwd_smem_bytes`` with ``rel_full_tc_bwd_q_chunk`` (#13),
 ``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``, ``fs_fwd_smem_bytes``,
 ``fs_bwd_smem_bytes``, ``rel_hb_fwd_smem_bytes``,
 ``rel_hb_bwd_smem_bytes``, ``rel_fs_fwd_smem_bytes``,
@@ -2192,6 +2194,59 @@ def rel_bwd_fits(q_len: int, k_len: int, dh: int) -> bool:
     return rel_bwd_smem_bytes(q_len, k_len, dh) <= MAX_SMEM_BYTES
 
 
+# The longest K of bf16 #11's register plan (``csrc/attn_rel_full_tc.cuh``'s
+# kRegMaxK): a block per (64-row query tile, head, batch row), each warp's
+# 16 query rows × every key of scores in its registers. Past it bf16 #11
+# takes #14's shared-memory score tile (``rel_hb_fwd_smem_bytes``).
+REL_TC_REG_MAX_K = 64
+
+
+def _rows16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def rel_full_tc_fwd_smem_bytes(q_len: int, k_len: int, dh: int) -> int:
+    """Shared memory of one bf16 #11 block at (Q, K, Dh)
+    (``csrc/attn_rel_full_tc.cuh``'s ``fwd_plan_bytes``). Up to
+    ``REL_TC_REG_MAX_K``: the q tile [Q16][``_tc_ld``] (Q16: min(Q, 64)
+    rounded up to 16) and k, v [K16][``_tc_ld``], bf16 (27.6 KB at Q = K =
+    50, Dh = 64). Past it #14's plan, ``rel_hb_fwd_smem_bytes`` (109.6 KB at
+    K = 512, Dh = 128)."""
+    if k_len <= REL_TC_REG_MAX_K:
+        return (_rows16(min(q_len, 64)) + 2 * _rows16(k_len)) * _tc_ld(dh) * 2
+    return rel_hb_fwd_smem_bytes(k_len, dh)
+
+
+def rel_full_tc_bwd_smem_bytes(qc: int, k_len: int, dh: int,
+                               multi: bool = False) -> int:
+    """Shared memory of one bf16 #13 block whose query chunk holds ``qc``
+    rows (a multiple of 16) at K = ``k_len``, head width ``dh``
+    (``csrc/attn_rel_full_tc.cuh``'s ``bwd_smem_bytes``): the staging
+    tiles A [qc][``_tc_ld``] (g, then q) and B [K16][``_tc_ld``] (v, then
+    k), the pd and ds_c tiles [qc][K16 + 8], bf16; with more than one chunk
+    (``multi``) the fp32 dK and dV sums [K16][Dh]."""
+    kp = _rows16(k_len)
+    return (2 * ((qc + kp) * _tc_ld(dh) + 2 * qc * (kp + 8))
+            + (2 * kp * dh * 4 if multi else 0))
+
+
+def rel_full_tc_bwd_q_chunk(q_len: int, k_len: int, dh: int) -> int:
+    """The query rows bf16 #13's block takes at a time
+    (``csrc/attn_rel_full_tc.cuh``'s ``bwd_q_chunk``): all of them,
+    rounded up to 16, where they fit (every shape of ``rel_bwd_fits`` but
+    Q > 944 at K ≤ 21); else the most 16-row slabs that fit beside the
+    fp32 dK/dV sums; 0 where not even 16 do (no shape of
+    ``rel_bwd_fits``)."""
+    qp = _rows16(q_len)
+    if rel_full_tc_bwd_smem_bytes(qp, k_len, dh) <= MAX_SMEM_BYTES:
+        return qp
+    qc = 0
+    while (qc + 16 < qp and rel_full_tc_bwd_smem_bytes(
+            qc + 16, k_len, dh, multi=True) <= MAX_SMEM_BYTES):
+        qc += 16
+    return qc
+
+
 def _check_rel_cuda(name, q, k, v, ebias, n_heads, bwd,
                     bias_label="ebias", max_k=MAX_SEQ_LEN):
     """The checks every rel CUDA wrapper makes (``ebias`` is whichever
@@ -2252,8 +2307,10 @@ def attn_fwd_rel_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
                       save=False):
     """Launch kernel #11 (``csrc/attn_fwd_rel.cu``): out [B, Q, D], or (out,
     p, pd) [B, H, Q, K] with ``save`` (pd is p at rate 0). q, k, v and
-    ebias are contiguous CUDA tensors of one dtype (fp32 or bf16). Raises on
-    anything the kernel does not take and on a failed launch."""
+    ebias are contiguous CUDA tensors of one dtype: bf16 on the tensor
+    cores (its plan, ``rel_full_tc_fwd_smem_bytes``, fits every K ≤
+    ``MAX_SEQ_LEN``), fp32 on the CUDA cores. Raises on anything the
+    kernel does not take and on a failed launch."""
     b, q_len, k_len, dh = _check_rel_cuda("attn_fwd_rel", q, k, v, ebias,
                                           n_heads, bwd=False)
     out = torch.empty_like(q)
@@ -2289,7 +2346,9 @@ def attn_bwd_rel_cuda(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
 
 def attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, *, n_heads, scale):
     """Launch kernel #13 (``csrc/attn_bwd_rel_saved.cu``): (dq, dk, dv,
-    debias) from the saved probs p and pd [B, H, Q, K]."""
+    debias) from the saved probs p and pd [B, H, Q, K]; bf16 on the tensor
+    cores (its plan, ``rel_full_tc_bwd_q_chunk``, takes the whole
+    ``rel_bwd_fits`` reach), fp32 on the CUDA cores."""
     b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel_saved", q, k, v, p,
                                           n_heads, bwd=True, bias_label="p")
     _like("pd", pd, q, tuple(p.shape))

@@ -4,10 +4,13 @@ in alternating rounds on one NVIDIA GPU: #1 serving (bf16 B=128 S=50), #1
 at the driver's S=512 evaluation (B=48), #1 with dropout and saved probs
 and #3 at the bench's training shape (B=256 S=50, rate 0.1), their
 split-layout twins #8, #8′ and #10, and #4 (whose bf16 kernel #1 runs past
-S=64) at B=48 S=512.
+S=64) at B=48 S=512; the rel kernels #11 serving (bf16 B=128 Q=K=50), #11
+with dropout and saved probs and #13 at XLNet's training shape (B=256
+Q=K=50, rate 0.1) and at the memory's (``--mem_len 50``: Q=50, K=100),
+and #14 (whose bf16 plan #11 runs past K=64) at B=48 Q=K=512.
 
     python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N]
-        [--grad-gap-seeds S ...]
+        [--grad-gap-seeds S ...] [--xlnet]
 
 Each checkout builds its own kernels (under its ``build/``, both builds
 started together). Then rounds A, B, B, A (A, B, C, C, B, A for three),
@@ -17,13 +20,19 @@ events after a warm-up. Prints each round's per-call ms, then one JSON
 object with both checkouts' means by case and the card's name and power
 limit (nvidia-smi), and each checkout's agreement with the plain
 versions at the bench's shapes (the share of elements whose bits differ,
-the largest difference). With ``--grad-gap-seeds``, each checkout also runs
-``chip_smoke.py``'s phase-4b dropout-0 check at those seeds and reports
-its first-step gradient gaps (fused against einsum). Exits non-zero
-without a card.
+the largest difference), and whether fp32 #11/#13 and bf16 #14 give the
+same bits in every checkout (digests). With ``--grad-gap-seeds``, each
+checkout also runs ``chip_smoke.py``'s phase-4b dropout-0 check at those
+seeds and reports its first-step gradient gaps (fused against einsum).
+With ``--xlnet``,
+rounds A, B, B, A of the MAG-XLNet end to end at xlnet-base-cased width
+follow: one B=256 S=50 training step's device time, busy share and #11/#13
+share (torch.profiler), training examples/s over 10 steps and
+``predict_split`` examples/s at batch 128. Exits non-zero without a card.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -45,6 +54,59 @@ CASES = {
                                                        "split_fwd_save"),
     "#10 bf16 B=256 S=50 H=12": (256, 50, 0.1, "split_bwd"),
 }
+# name: (B, Q, K, rate, what)
+REL_CASES = {
+    "#11 bf16 B=128 Q=K=50 rate 0": (128, 50, 50, 0.0, "rel_fwd"),
+    "#11' bf16 B=256 Q=K=50 rate 0.1 saved probs": (256, 50, 50, 0.1,
+                                                     "rel_fwd_save"),
+    "#13 bf16 B=256 Q=K=50": (256, 50, 50, 0.1, "rel_bwd"),
+    "#11' bf16 B=256 Q=50 K=100 rate 0.1 saved probs": (256, 50, 100, 0.1,
+                                                         "rel_fwd_save"),
+    "#13 bf16 B=256 Q=50 K=100": (256, 50, 100, 0.1, "rel_bwd"),
+    "#14 bf16 B=48 Q=K=512 rate 0": (48, 512, 512, 0.0, "rel_hb_fwd"),
+    "#14' bf16 B=48 Q=K=512 rate 0.1": (48, 512, 512, 0.1, "rel_hb_fwd"),
+}
+
+
+# Kernel-name substrings of #11 and #13 in either checkout: the CUDA-core
+# kernels and the tensor-core plans.
+REL_KERNELS = (("#11", ("attn_fwd_rel_kernel", "attn_fwd_rel_tc_")),
+               ("#13", ("attn_bwd_rel_saved_kernel",
+                        "attn_bwd_rel_saved_tc_")))
+
+
+def _rel_inputs(torch, rng, b, q_len, k_len, dtype=None):
+    """Seeded q, g [B, Q, D], k, v [B, K, D] and an ebias [B, H, Q, K] of
+    O(1) with −1e30 on a ragged run of leading keys (left padding)."""
+    dtype = dtype or torch.bfloat16
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dtype)
+
+    q, k, v, g = (t(b, q_len, H * DH), t(b, k_len, H * DH),
+                  t(b, k_len, H * DH), t(b, q_len, H * DH))
+    ebias = t(b, H, q_len, k_len)
+    pads = rng.integers(0, k_len // 2, size=b)
+    masked = torch.from_numpy(np.arange(k_len)[None, :] < pads[:, None])
+    ebias = ebias.masked_fill(masked.to("cuda")[:, None, None, :], -1e30)
+    return q, k, v, ebias, g
+
+
+def _rel_call(fa, torch, rng, b, q_len, k_len, rate, what):
+    """The rel case's kernel call on seeded inputs."""
+    q, k, v, ebias, g = _rel_inputs(torch, rng, b, q_len, k_len)
+    kw = dict(n_heads=H, scale=DH ** -0.5)
+    if what == "rel_fwd":
+        return lambda: fa.attn_fwd_rel_cuda(q, k, v, ebias, **kw)
+    if what == "rel_hb_fwd":
+        return lambda: fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, rate=rate,
+                                               seed=7, **kw)
+    drop = dict(rate=rate, seed=7, save=True)
+    if what == "rel_fwd_save":
+        return lambda: fa.attn_fwd_rel_cuda(q, k, v, ebias, **drop, **kw)
+    _, p, pd = fa.attn_fwd_rel_cuda(q, k, v, ebias, **drop, **kw)
+    return lambda: fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, **kw)
 
 
 def _call(fa, torch, rng, b, s, rate, what):
@@ -91,8 +153,12 @@ def worker(iters):
 
     rng = np.random.default_rng(0)
     out = {}
-    for name, case in CASES.items():
-        fn = _call(fa, torch, rng, *case)
+    calls = [(name, lambda c=case: _call(fa, torch, rng, *c))
+             for name, case in CASES.items()]
+    calls += [(name, lambda c=case: _rel_call(fa, torch, rng, *c))
+              for name, case in REL_CASES.items()]
+    for name, make in calls:
+        fn = make()
         for _ in range(5):
             fn()
         start = torch.cuda.Event(enable_timing=True)
@@ -144,7 +210,107 @@ def agreement():
             fa.attn_bwd_packed_saved_cuda(got[1], got[2], qkv, g, **kw),
             fa.attn_bwd_packed_saved_reference(got[1], got[2], qkv, g, **kw))
         out[f"bf16 B={b} S=50 rate {rate}"] = case
+    for b, k_len, rate in ((128, 50, 0.0), (256, 50, 0.1), (64, 100, 0.1)):
+        q, k, v, ebias, g = _rel_inputs(torch, rng, b, 50, k_len)
+        kw = dict(n_heads=H, scale=DH ** -0.5, rate=rate, seed=7, save=True)
+        got = fa.attn_fwd_rel_cuda(q, k, v, ebias, **kw)
+        want = fa.attn_fwd_rel_reference(q, k, v, ebias, **kw)
+        case = {n: diff(x, y) for n, x, y in zip(("out", "p", "pd"), got,
+                                                 want)}
+        kw = dict(n_heads=H, scale=DH ** -0.5)
+        for n, x, y in zip(
+                ("dq", "dk", "dv", "debias"),
+                fa.attn_bwd_rel_saved_cuda(got[1], got[2], q, k, v, g, **kw),
+                fa.attn_bwd_rel_saved_reference(got[1], got[2], q, k, v, g,
+                                                **kw)):
+            case[n] = diff(x, y)
+        out[f"rel bf16 B={b} Q=50 K={k_len} rate {rate}"] = case
+    # the digests of fp32 #11 (saved probs, rate 0.1) and #13, and of bf16
+    # #14 at rate 0.1: equal digests are the same bits
+    def digest(*xs):
+        h = hashlib.sha256()
+        for x in xs:
+            h.update(x.cpu().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
+    q, k, v, ebias, g = _rel_inputs(torch, rng, 4, 50, 77, torch.float32)
+    kw = dict(n_heads=H, scale=DH ** -0.5)
+    fwd = fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=0.1, seed=7, save=True,
+                               **kw)
+    bwd = fa.attn_bwd_rel_saved_cuda(fwd[1], fwd[2], q, k, v, g, **kw)
+    out["digest fp32 #11/#13 B=4 Q=50 K=77"] = digest(*fwd, *bwd)
+    q, k, v, ebias, g = _rel_inputs(torch, rng, 2, 512, 512)
+    out["digest bf16 #14 B=2 Q=K=512 rate 0.1"] = digest(
+        fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, rate=0.1, seed=7, **kw))
     print(json.dumps(out))
+
+
+def xlnet_e2e(iters):
+    """In the current directory's checkout: MAG-XLNet (xlnet-base-cased,
+    bf16, fused attention, MOSI dims, random weights) end to end: one B=256
+    S=50 training step under torch.profiler (device ms, busy share, #11 and
+    #13 ms), training examples/s over ``iters`` steps after 3 warm-up
+    (CUDA-synchronised wall), and ``predict_split`` examples/s over 685
+    examples at batch 128 (the median of 5 passes); prints them as JSON."""
+    import time
+
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+        make_train_step,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    rng = np.random.default_rng(3)
+    ds, cfg = DatasetConfig.mosi(), XLNetConfig.xlnet_base_cased()
+    mm = MultimodalConfig(injection_index=1)
+    model = cs._xlnet(cfg, mm, "fused", 10)
+    state = Trainer(model=model, tx=make_optimizer(1e-5, iters + 8, 0.1)
+                    ).create_state_from_params(None, 0)
+    step = make_train_step()
+    batch = cs._device_batch(cs.make_xlnet_split(
+        rng, cs.BENCH_BATCH, cs.S_SERVE, cfg.vocab_size, ds.visual_dim,
+        ds.acoustic_dim).as_tuple())
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch)
+    torch.cuda.synchronize()
+    train = iters * cs.BENCH_BATCH / (time.perf_counter() - t0)
+    prof = device_time_by_kernel(lambda: step(state, batch), 1)
+    rel = {tag: sum(ms for name, _, ms in prof["kernels"]
+                    if any(k in name for k in keys))
+           for tag, keys in REL_KERNELS}
+    split = cs.make_xlnet_split(rng, cs.N_TEST, cs.S_SERVE, cfg.vocab_size,
+                                ds.visual_dim, ds.acoustic_dim)
+    predictor = Predictor(model, batch_size=cs.BATCH)
+    predictor.predict_split(split)
+    serve = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        predictor.predict_split(split)
+        serve.append(cs.N_TEST / (time.perf_counter() - t0))
+    print(json.dumps({
+        "step_device_ms": prof["device_ms"],
+        "step_busy": prof["device_ms"] / prof["wall_ms"],
+        "step_rel_ms": rel, "train_ex_s": train,
+        "serve_ex_s": float(np.median(serve))}))
 
 
 def grad_gaps(seeds):
@@ -214,9 +380,15 @@ def main() -> int:
                              "einsum) at these seeds")
     parser.add_argument("--grad-gap-worker", action="store_true")
     parser.add_argument("--agreement-worker", action="store_true")
+    parser.add_argument("--xlnet", action="store_true",
+                        help="also time MAG-XLNet end to end per checkout")
+    parser.add_argument("--xlnet-worker", action="store_true")
     args = parser.parse_args()
     if args.agreement_worker:
         agreement()
+        return 0
+    if args.xlnet_worker:
+        xlnet_e2e(10)
         return 0
     if args.grad_gap_worker:
         grad_gaps(args.grad_gap_seeds)
@@ -257,13 +429,25 @@ def main() -> int:
         print(f"{tree}: " + ", ".join(f"{k} {v:.4f} ms"
                                       for k, v in times.items()))
     result = {"card": card, "iters": args.iters, "ms": {
-        tree: {name: [r[name] for r in rs] for name in CASES}
+        tree: {name: [r[name] for r in rs] for name in [*CASES, *REL_CASES]}
         for tree, rs in rounds.items()}}
     result["agreement"] = {tree: json.loads(_run(
         tree, ["--agreement-worker"]).splitlines()[-1])
         for tree in args.trees}
     print(f"bits differing from the plain versions [share, max |Δ|]: "
           f"{result['agreement']}")
+    result["same_bits"] = {
+        name: len({a[name] for a in result["agreement"].values()}) == 1
+        for name in result["agreement"][args.trees[0]]
+        if name.startswith("digest")}
+    print(f"the same bits in every checkout: {result['same_bits']}")
+    if args.xlnet:
+        e2e = {tree: [] for tree in args.trees}
+        for tree in [*args.trees, *reversed(args.trees)]:
+            e2e[tree].append(json.loads(_run(
+                tree, ["--xlnet-worker"]).splitlines()[-1]))
+            print(f"{tree} MAG-XLNet end to end: {e2e[tree][-1]}")
+        result["xlnet"] = e2e
     if args.grad_gap_seeds:
         result["grad_gaps"] = {tree: json.loads(_run(tree, [
             "--grad-gap-worker", "--grad-gap-seeds",

@@ -44,10 +44,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    0) and fp32 at B=4 Q=50 K=77 (rate 0.1). #11's keep mask equal to the
    plain Philox mask bit for bit, the keep rate within 5σ; #13 and #12
    against the plain backward and torch.autograd through the plain
-   forward, debias included; #12 against #13; the same bits twice. Then
-   the three timed at B=256 rate 0.1, and #11 at the serving shape (rate 0,
-   B=128) beside ``scaled_dot_product_attention`` with the ebias as its
-   mask.
+   forward, debias included; #12 against #13; the same bits twice. The
+   same at the edges of bf16 #11's and #13's tensor-core plans
+   (``REL_TC_EDGES``: the serving shape B=128 at rate 0, the memory's
+   Q=50 K=100, Q=33 K=141, Dh=128 at K=50 and 100, a query row masked
+   whole, which must come out uniform). Then the three timed at B=256
+   rate 0.1, #11 at the serving shape (rate 0, B=128) beside
+   ``scaled_dot_product_attention`` with the ebias as its mask, #11′ and
+   #13 at B=256 Q=50 K=100, and the card's time per launch of each.
 3e. The long-sequence kernels (#4 head-blocked forward, #5 its recompute
    backward, #6 flash-streamed forward with lse, #7 its backward in two
    launches) against their plain versions: bf16 at B=8, S=512, 640
@@ -369,6 +373,16 @@ PROFILE_GROUPS = (
 )
 
 
+# Kernel-name substrings of #11 and #13 (their fp32 CUDA-core kernels and
+# their bf16 tensor-core plans) that a profile's share line sums; #11's
+# score-tile plan past K = 64 is also #14's bf16 kernel.
+REL_FULL_KERNELS = (
+    ("#11", ("attn_fwd_rel_kernel", "attn_fwd_rel_tc_reg_")),
+    ("#11/#14 score tile", ("attn_fwd_rel_tc_smem_",)),
+    ("#13", ("attn_bwd_rel_saved_kernel", "attn_bwd_rel_saved_tc_")),
+)
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -380,13 +394,14 @@ def tc_ptxas_lines(log):
     """``-Xptxas -v``'s registers and spills of the tensor-core kernels
     (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
     passes of #5 and #7, the rel backward passes of #15 and #17, #24's two
-    passes, and the full-H plans of #1/#8 and #3/#10 built into each of
-    their sources), one line each, from the build log. Template arguments
-    print in order: the packed and rel passes' are <n8 tiles of Dh, own
-    statistics (#5, #15 true; #7, #17 false), dropout>; the full-H
-    register forward's <n8 tiles of Dh, dropout, save>, its score-tile
-    forward's <dropout, save>, its backward's <n8 key tiles, n8 tiles of
-    Dh>."""
+    passes, the full-H plans of #1/#8 and #3/#10 built into each of their
+    sources, and the rel full-H plans of #11 and #13), one line each, from
+    the build log. Template arguments print in order: the packed and rel
+    passes' are <n8 tiles of Dh, own statistics (#5, #15 true; #7, #17
+    false), dropout>; the full-H and rel register forwards' <n8 tiles of
+    Dh, dropout, save>, their score-tile forwards' <dropout, save>, the
+    full-H backward's <n8 key tiles, n8 tiles of Dh>, the rel backward's
+    <n8 tiles of Dh>."""
     import re
 
     lines, name, spills, source = [], None, "", ""
@@ -397,7 +412,8 @@ def tc_ptxas_lines(log):
         m = re.search(r"Compiling entry function '\S*?((?:(?:attn_fwd_(?:"
                       r"packed|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|"
                       r"attn_bwd_(?:packed|rel|relik_fs)_(?:dkdv|dq))_tc|"
-                      r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved))"
+                      r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved)|"
+                      r"attn_fwd_rel_tc_(?:reg|smem)|attn_bwd_rel_saved_tc)"
                       r"_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ", ".join(
@@ -908,6 +924,14 @@ def _print_profile(prof, iters, unit):
     print(f"  by group, ms/{unit} (share of device time): " + "; ".join(
         f"{g} {ms / iters:.3f} ({ms / prof['device_ms']:.1%})"
         for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    rel = {tag: sum(ms for name, _, ms in prof["kernels"]
+                    if any(k in name for k in keys))
+           for tag, keys in REL_FULL_KERNELS}
+    if any(rel.values()):
+        print(f"  the rel full-H kernels, ms/{unit} (share of device time): "
+              + "; ".join(f"{tag} {ms / iters:.3f} "
+                          f"({ms / prof['device_ms']:.1%})"
+                          for tag, ms in rel.items()))
     for name, calls, ms in prof["kernels"][:25]:
         print(f"  {ms / iters:9.4f} ms/{unit} {calls / iters:7.1f} "
               f"calls/{unit}  {name[:110]}")
@@ -1666,6 +1690,20 @@ def gate_check(args, rng, fa, card):
 # ---- MAG-XLNet: the rel-attention kernels #11-#13 and the XLNet paths ------
 
 
+# bf16 #11's and #13's tensor-core plans (csrc/attn_rel_full_tc.cuh) at
+# their edges: (B, Q, K, H, Dh, rates, a query row masked whole). The
+# serving shape at rate 0; the memory's K = 100 (#11's score-tile plan, #13
+# past K = 64) at the training batch, timed; Q = 33 with K = 141, odd (no
+# pair loads), #13 two passes past K = 128; Dh = 128 in both forward plans;
+# a row masked whole in each forward plan.
+REL_TC_EDGES = ((BATCH, S_SERVE, S_SERVE, 12, 64, (0.0,), True),
+                (BENCH_BATCH, S_SERVE, 2 * S_SERVE, 12, 64, (RATE, 0.0),
+                 True),
+                (8, 33, 141, 12, 64, (RATE, 0.0), False),
+                (16, S_SERVE, S_SERVE, 6, 128, (RATE, 0.0), True),
+                (8, S_SERVE, 2 * S_SERVE, 6, 128, (RATE, 0.0), False))
+
+
 def rel_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0, save=False):
     """The bound of rel kernel ``kind`` at [B, Q, K, H, Dh]: each input read
     once and each output written once (q, g, dq [B,Q,D]; k, v, dk, dv
@@ -1757,17 +1795,24 @@ def _rel_grad_errs(tag, dtype_name, pairs, bound_args, fa):
     return errs
 
 
-def check_rel_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
+def check_rel_kernels(rng, fa, dtype_name, b, q_len, k_len, rate, h=12,
+                      dh=64, masked=False):
     """Phase 3d on one case: #11 with save (and dropout at rate > 0), #13
     and #12, each against its plain version, the backward also against
     torch.autograd through the plain forward (debias included); #12
-    against #13; the same bits from the same seed twice."""
+    against #13; the same bits from the same seed twice; #11 without the
+    save gives the saved run's output. ``masked``: query row 1 of batch
+    row 0, head 0 masked whole (−1e30 on every key), which must come out
+    uniform."""
     import torch
 
-    q, k, v, ebias, g = rel_case(rng, dtype_name, b, q_len, k_len)
+    q, k, v, ebias, g = rel_case(rng, dtype_name, b, q_len, k_len, h, dh)
+    if masked:
+        ebias[0, 0, 1, :] = -1e30
     seed = int(rng.integers(0, 2 ** 63 - 1))
-    kw = dict(n_heads=12, scale=0.125)
-    tag = f"{dtype_name} B={b} Q={q_len} K={k_len} H=12 Dh=64 rate={rate}"
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5)
+    tag = (f"{dtype_name} B={b} Q={q_len} K={k_len} H={h} Dh={dh} "
+           f"rate={rate}" + (" one row masked whole" if masked else ""))
     out, p, pd = fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=rate, seed=seed,
                                       save=True, **kw)
     r = fa.attn_fwd_rel_reference(q, k, v, ebias, rate=rate, seed=seed,
@@ -1775,6 +1820,10 @@ def check_rel_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
     errs = {"fwd": max(_forward_err(f"#11 {n} {tag}", x, w, dtype_name)
                        for n, x, w in zip(("out", "p", "pd"), (out, p, pd),
                                           r))}
+    if masked and not torch.equal(p[0, 0, 1], torch.full_like(
+            p[0, 0, 1], 1.0 / k_len)):
+        raise AssertionError(f"#11: a row masked whole is not uniform "
+                             f"({tag})")
     print(f"#11 vs plain {tag}: out/p/pd max_abs_err={errs['fwd']:.3e}"
           + _check_keep(fa, "#11", seed, p, pd, rate, tag))
 
@@ -1802,19 +1851,25 @@ def check_rel_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
     same = all(torch.equal(a, b_) for a, b_ in zip(
         (*again[0], *again[1], *again[2]), (out, p, pd, *saved,
                                             *recomputed)))
-    print(f"same seed twice {tag}: identical bits {same}")
+    same = same and torch.equal(fa.attn_fwd_rel_cuda(
+        q, k, v, ebias, rate=rate, seed=seed, **kw), out)
+    print(f"same seed twice {tag}: identical bits {same} (#11 also without "
+          "the save)")
     if not same:
         raise AssertionError(f"the rel kernels are not bit-reproducible "
                              f"({tag})")
     return errs, (q, k, v, ebias, g, seed, kw)
 
 
-def time_rel_kernels(fa, case, card):
+def time_rel_kernels(fa, case, mem_case, card):
     """#11 (rate 0.1, save), #13 and #12 against their plain versions at
     bf16 B=256 Q=K=50, in alternating rounds; then #11 at the serving shape
     (rate 0, B=128) beside scaled_dot_product_attention(q, k, v,
     attn_mask=ebias, scale=scale), the library call computing the same
-    function (timed here, used nowhere in the port)."""
+    function (timed here, used nowhere in the port); then #11′ and #13 at
+    the memory's shape (``mem_case``: bf16 B=256 Q=50 K=100, the
+    ``--mem_len 50`` path, #11's score-tile plan); last the card's time per
+    launch of each (torch.profiler, free of host pacing)."""
     import torch.nn.functional as F
 
     q, k, v, ebias, g, seed, kw = case
@@ -1868,6 +1923,53 @@ def time_rel_kernels(fa, case, card):
           f"kernel {kt} ms, plain {pt} ms, scaled_dot_product_attention "
           f"{lib} ms per call (max |Δ| to the kernel {lib_err:.3e}); bound "
           f"{bound[0]:.4f} ms ({bound[1]})")
+
+    mq, mk, mv, meb, mg, m_seed, m_kw = mem_case
+    b, q_len, k_len = mq.shape[0], mq.shape[1], mk.shape[1]
+    _, mp, mpd = fa.attn_fwd_rel_cuda(mq, mk, mv, meb, rate=RATE,
+                                      seed=m_seed, save=True, **m_kw)
+    mem = {
+        "attn_fwd_rel": (
+            lambda: fa.attn_fwd_rel_cuda(mq, mk, mv, meb, rate=RATE,
+                                         seed=m_seed, save=True, **m_kw),
+            lambda: fa.attn_fwd_rel_reference(mq, mk, mv, meb, rate=RATE,
+                                              seed=m_seed, save=True,
+                                              **m_kw),
+            rel_bound("fwd", b, q_len, k_len, 12, 64, 2, RATE, save=True)),
+        "attn_bwd_rel_saved": (
+            lambda: fa.attn_bwd_rel_saved_cuda(mp, mpd, mq, mk, mv, mg,
+                                               **m_kw),
+            lambda: fa.attn_bwd_rel_saved_reference(mp, mpd, mq, mk, mv, mg,
+                                                    **m_kw),
+            rel_bound("bwd_saved", b, q_len, k_len, 12, 64, 2, RATE)),
+    }
+    times["mem"] = {}
+    for name, (run_kernel, run_plain, mem_bound) in mem.items():
+        kt, pt = _alternate(run_plain, run_kernel, 20)
+        times["mem"][name] = {
+            "ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
+            "bound_ms": mem_bound[0], "bound_by": mem_bound[1],
+            "library_ms": None}
+        print(f"{name} bf16 B={b} Q={q_len} K={k_len} H=12 Dh=64 "
+              f"rate={RATE} on {card}: kernel {kt} ms, plain {pt} ms per "
+              f"call; bound {mem_bound[0]:.4f} ms ({mem_bound[1]})")
+
+    device = {
+        f"#11 serving bf16 B={BATCH} Q=K={S_SERVE} rate 0": kernel_device_ms(
+            lambda: fa.attn_fwd_rel_cuda(sq, sk, sv, seb, **kw),
+            "attn_fwd_rel"),
+        f"#11' bf16 B={BENCH_BATCH} Q=K={S_SERVE} rate {RATE} saved probs":
+            kernel_device_ms(pairs["attn_fwd_rel"][0], "attn_fwd_rel"),
+        f"#13 bf16 B={BENCH_BATCH} Q=K={S_SERVE}": kernel_device_ms(
+            pairs["attn_bwd_rel_saved"][0], "attn_bwd_rel_saved"),
+        f"#11' bf16 B={b} Q={q_len} K={k_len} rate {RATE} saved probs":
+            kernel_device_ms(mem["attn_fwd_rel"][0], "attn_fwd_rel"),
+        f"#13 bf16 B={b} Q={q_len} K={k_len}": kernel_device_ms(
+            mem["attn_bwd_rel_saved"][0], "attn_bwd_rel_saved")}
+    times["device_ms"] = device
+    print(f"the card's time per launch of #11/#13 (torch.profiler) on "
+          f"{card}: " + ", ".join(f"{k_} {v_:.4f} ms"
+                                  for k_, v_ in device.items()))
     return times
 
 
@@ -2777,12 +2879,12 @@ def check_long_rel_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64,
 def check_long_rel_against_full(rng, fa):
     """#14 against #11 (Q = K = 128, 512) and #15 against #12 (Q = K =
     128) at rate 0.1. fp32 #14 and #15 run #11's and #12's row code: the
-    same bits. In bf16 both run on the tensor cores: #14 sums its dots in
-    another order than #11's CUDA-core chains, so it is held to #11 within
-    the phase-3 forward bound (``_forward_err``); #15 rebuilds p from its
-    own online statistics (exp(s − m)·(1/l), δ an online sum) where #12
-    takes the whole-row e / l and Σ t, so it is held to #12 within
-    ``rel_grads_bf16_bound``."""
+    same bits. In bf16 #14 and #11 (its score-tile plan past K = 64) both
+    sum their dots on the tensor cores, from kernels built apart, so #14 is
+    held to #11 within the phase-3 forward bound (``_forward_err``); #15
+    rebuilds p from its own online statistics (exp(s − m)·(1/l), δ an
+    online sum) where #12 takes the whole-row e / l and Σ t, so it is held
+    to #12 within ``rel_grads_bf16_bound``."""
     import torch
 
     for dtype_name in ("bf16", "fp32"):
@@ -3876,12 +3978,15 @@ def check_relik_full_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
 
 def check_relik_full_against_rel(fa, case):
     """#20 against #11 fed the ebias the model's stream path assembles
-    (``assembled_ebias``), one seed, bf16 B=256 Q=K=50 at rate 0.1. The two
-    share the softmax, mask and PV code; their scores differ by the bf16
-    roundings of the assembled ebias, so each prob differs by a factor
-    within e^{±δ}, δ the largest gap of a row's log-probs (measured from the
-    plain versions). So the outputs lie within 2^-7·(|out| + pd·|v|) (#16
-    against #14's band) plus (e^δ − 1)·pd·|v|."""
+    (``assembled_ebias``), one seed, bf16 B=256 Q=K=50 at rate 0.1. They
+    draw the same keep mask; bf16 #20 runs the CUDA-core softmax and PV
+    code and #11 its tensor-core plan, whose dots and row sums take another
+    order, so a prob may round to bf16 one ulp apart (2^-8 relative) and an
+    output by one more. Their scores also differ by the bf16 roundings of
+    the assembled ebias, so each prob differs by a factor within e^{±δ}, δ
+    the largest gap of a row's log-probs (measured from the plain
+    versions). So the outputs lie within 2^-7·(|out| + pd·|v|) (#16 against
+    #14's band) plus (e^δ − 1)·pd·|v|."""
     import torch
 
     c, seed = case
@@ -4041,9 +4146,13 @@ def xlnet_inkernel_serving(args, rng, fa, card):
     names = [n for n, _, _ in device_time_by_kernel(
         lambda: predictor.fetch(predictor.submit(*batch)), 1)["kernels"]]
     ran = {kernel: any(f"{kernel}<" in n for n in names)
-           for kernel in ("attn_fwd_relik_kernel", "attn_fwd_rel_kernel")}
+           for kernel in ("attn_fwd_relik_kernel", "attn_fwd_rel_kernel",
+                          "attn_fwd_rel_tc_reg_kernel",
+                          "attn_fwd_rel_tc_smem_kernel")}
     print(f"kernels in the inkernel batch's profile: {ran}")
-    if ran != {"attn_fwd_relik_kernel": True, "attn_fwd_rel_kernel": False}:
+    if ran != {"attn_fwd_relik_kernel": True, "attn_fwd_rel_kernel": False,
+               "attn_fwd_rel_tc_reg_kernel": False,
+               "attn_fwd_rel_tc_smem_kernel": False}:
         raise AssertionError(f"inkernel serving profile: {ran}")
     return counts
 
@@ -5440,8 +5549,22 @@ def main() -> int:
                 rel_errs[k_] = max(rel_errs.get(k_, 0.0), v_)
             if dtype_name == "bf16" and rate > 0:
                 rel_case_b256 = case
-    rel_times = time_rel_kernels(fa, rel_case_b256, card)
-    del rel_case_b256
+    # bf16 #11's and #13's tensor-core plans at their edges, from a stream
+    # of their own so that every later phase sees the inputs it saw before
+    rel_tc_rng = np.random.default_rng([args.seed, 17])
+    mem_case = None
+    for b, q_len, k_len, h, dh, rates, masked in REL_TC_EDGES:
+        for rate in rates:
+            errs, case = check_rel_kernels(rel_tc_rng, fa, "bf16", b, q_len,
+                                           k_len, rate, h, dh, masked)
+            for k_, v_ in errs.items():
+                rel_errs[k_] = max(rel_errs.get(k_, 0.0), v_)
+            if (b, q_len, k_len, rate) == (BENCH_BATCH, S_SERVE,
+                                           2 * S_SERVE, RATE):
+                mem_case = case
+    rel_times = time_rel_kernels(fa, rel_case_b256, mem_case, card)
+    del rel_case_b256, mem_case
+    torch.cuda.empty_cache()
 
     # 3e. The long-sequence kernels against plain, on the card
     long_errs = {}
@@ -5790,10 +5913,13 @@ def main() -> int:
                  # another) and no one PyTorch call is either backward
                  "library_ms": None,
                  "shape": "bf16 B=256 Q=K=50 H=12 Dh=64 rate 0.1"}
+        mem_mode = {"training rate 0.1, saved probs, bf16 B=256 Q=50 K=100"
+                    if tag == "#11" else "bf16 B=256 Q=50 K=100 rate 0.1":
+                    rel_times["mem"][name]} if name in rel_times["mem"] else {}
         if tag == "#11":
             # the top-level numbers at the serving mode, where one PyTorch
             # call (SDPA with the ebias as its float mask) computes the
-            # same function; the training mode beside it
+            # same function; the training modes beside it
             training = {k_: entry[k_] for k_ in ("ms", "plain_ms",
                                                  "bound_ms", "bound_by")}
             training["library_ms"] = None
@@ -5801,9 +5927,15 @@ def main() -> int:
             entry["shape"] = "bf16 B=128 Q=K=50 H=12 Dh=64 rate 0"
             entry["modes"] = {
                 "training rate 0.1, saved probs, bf16 B=256 Q=K=50":
-                    training}
+                    training, **mem_mode}
         else:
             entry["max_abs_err_vs_autograd"] = rel_errs[f"{tag} vs autograd"]
+            if mem_mode:
+                entry["modes"] = mem_mode
+        if name in rel_times["mem"]:
+            entry["device_ms_per_launch"] = {
+                k_: v_ for k_, v_ in rel_times["device_ms"].items()
+                if k_.startswith(tag)}
         kernels.append(entry)
     for name, line, tag, shape in (
             ("attn_fwd_packed_hb", 1146, "#4", "S=512"),

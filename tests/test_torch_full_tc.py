@@ -100,14 +100,15 @@ def _lane_pair_draws(bits):
     of key group (8t + 4·((L % 4) >> 1)) >> 2 at row q_lo (L even) or
     q_lo + 8 (L odd), sends word z, w (even) or x, y (odd) to lane L ^ 1
     and keeps the two words of its own keys. bits: the stream's draws
-    [B, H, S16, S16] (row q, key k: word k & 3 of block (k >> 2, q))."""
-    b, h, sp, _ = bits.shape
-    words = bits.reshape(b, h, sp, sp // 4, 4)
+    [B, H, Q16, K16] (row q, key k: word k & 3 of block (k >> 2, q); S16
+    both here, Q and K rounded up to 16 in the rel plan's)."""
+    b, h, qp, kp = bits.shape
+    words = bits.reshape(b, h, qp, kp // 4, 4)
     lane = torch.arange(32)
     odd, t4, g = lane & 1, lane & 3, lane >> 2
     out = torch.zeros_like(bits)
-    for m0 in range(0, sp, 16):
-        for t in range(sp // 8):
+    for m0 in range(0, qp, 16):
+        for t in range(kp // 8):
             k4 = (8 * t + 4 * (t4 >> 1)) >> 2
             own = words[:, :, m0 + g + 8 * odd, k4, :]    # [b, h, 32, 4]
             sent = torch.where(odd.bool()[:, None], own[..., 0:2],

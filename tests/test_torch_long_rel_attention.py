@@ -827,9 +827,10 @@ def _rel_bwd_close(got, want, q, k, v, eb, seed, g, kw):
 @pytest.mark.cuda
 def test_head_blocked_rel_kernels_equal_full_h_on_card(cuda_device):
     """Where both reach, #14 gives #11's function and #15 #12's. fp32 #14
-    and #15 run #11's and #12's row code: the same bits. In bf16 #14 sums
-    its dots on the tensor cores in another order than #11's CUDA-core
-    chains, so it is held to #11 within the bf16 forward bound, and #15
+    and #15 run #11's and #12's row code: the same bits. In bf16 #14 and
+    #11 (its score-tile plan past K = 64) both sum their dots on the tensor
+    cores, from kernels built apart, so #14 is held to #11 within the bf16
+    forward bound, and #15
     rebuilds p from its own online statistics where #12 takes the whole-row
     softmax, so it is held to #12 within ``rel_grads_bf16_bound``."""
     rng = np.random.RandomState(23)

@@ -87,7 +87,7 @@ def _grads_close(got, want, dtype, p, pd, tensors):
         assert bool((err <= bd).all()), (name, float((err - bd).max()))
 
 
-SHAPES = [(Q, Q), (Q, Q + 7)]   # Q = K, and K > Q (K includes mems)
+SHAPES = [(Q, Q), (Q, Q + 7), (50, 100)]   # Q = K; K > Q (mems; 50 of them)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -369,6 +369,11 @@ CARD_SHAPES = [
     ("float32", 4, 50, 77, 12, 64),      # K > Q
     ("bfloat16", 3, 33, 141, 4, 64),     # the backward's longest K at Q<K
     ("float32", 2, 17, 9, 3, 128),       # the widest head, K < Q
+    # bf16 #11's and #13's tensor-core plans (csrc/attn_rel_full_tc.cuh)
+    ("bfloat16", 4, 50, 100, 12, 64),    # the memory's K: #11's score tile
+    ("bfloat16", 2, 50, 50, 6, 128),     # the widest head in bf16
+    ("bfloat16", 2, 100, 40, 3, 64),     # Q past the register plan's tile
+    ("bfloat16", 1, 2000, 8, 2, 8),      # #13 over chunks of the q rows
 ]
 
 
