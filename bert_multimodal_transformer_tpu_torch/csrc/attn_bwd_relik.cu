@@ -25,17 +25,25 @@
 // 20 MB each; ed, segd, maskb, r): bytes bound (0.054 ms), plus the 79 MB dr
 // workspace written and read back.
 //
-// What the design does about that: #12's plan with #22's tail: one block
-// per (head, batch row) holds the [Q, K] problem in shared memory (the rw,
-// k, rr tiles and the window of Q + K − 1 rows of r, from which every score
-// reads its position key r[Q − q + k] at window row (Q − 1 − q) + k: the
-// relative shift as index arithmetic, in place of the TPU kernel's
-// log-shift). The softmax and the keep mask are common.cuh's
-// `softmax_rows_keep_sign` (#12's), the keep bit riding in the sign of p.
-// Bit-reproducible, no atomics; the same shared-memory plan as #22. The
-// products run on the CUDA cores in fp32.
+// What the design does about that: bf16 runs on the tensor cores
+// (attn_relik_full_tc.cuh: #20's score code, then #13's plan, then #24's
+// unshift: ds_u skewed into a band S′ so that drr and the dr rows are two
+// products against it, all on mma.sync fed by ldmatrix from operands
+// cp.async staged, over chunks of the query rows where they do not fit at
+// once). fp32 keeps the CUDA-core kernel below and its bits: #12's plan
+// with #22's tail, one block per (head, batch row) holding the [Q, K]
+// problem in shared memory (the rw, k, rr tiles and the window of Q + K − 1
+// rows of r, from which every score reads its position key r[Q − q + k] at
+// window row (Q − 1 − q) + k: the relative shift as index arithmetic, in
+// place of the TPU kernel's log-shift). The softmax and the keep mask are
+// common.cuh's `softmax_rows_keep_sign` (#12's), the keep bit riding in
+// the sign of p. Bit-reproducible, no atomics in either dtype; the fp32
+// kernel has #22's shared-memory plan. The entry dispatches on the dtype;
+// a bf16 call always launches the tensor-core kernel or returns the
+// launch's error (cudaErrorMisalignedAddress where rw, rr, r, k, v or g
+// does not start on the 16 bytes cp.async copies).
 
-#include "common.cuh"
+#include "attn_relik_full_tc.cuh"
 
 #include <cmath>
 
@@ -166,13 +174,22 @@ int attn_bwd_relik(const void* rw, const void* rr, const void* r,
                                  drr, dk, dv, ded, ws, B, Q, K, P, H, Dh,
                                  scale, drop, st);
     case 2:
-      return launch<__nv_bfloat16, false>(rw, rr, r, k, v, ed, segd, maskb,
-                                          g, drw, drr, dk, dv, ded, ws, B, Q,
-                                          K, P, H, Dh, scale, drop, st);
-    case 3:
-      return launch<__nv_bfloat16, true>(rw, rr, r, k, v, ed, segd, maskb, g,
-                                         drw, drr, dk, dv, ded, ws, B, Q, K,
-                                         P, H, Dh, scale, drop, st);
+    case 3: {  // the tensor-core plan of attn_relik_full_tc.cuh
+      using bf16 = __nv_bfloat16;
+      const relik_tc::BwdArgs a{
+          static_cast<const bf16*>(rw),    static_cast<const bf16*>(rr),
+          static_cast<const bf16*>(r),     static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v),     static_cast<const bf16*>(ed),
+          static_cast<const bf16*>(segd),  static_cast<const bf16*>(maskb),
+          static_cast<const bf16*>(g),     static_cast<bf16*>(drw),
+          static_cast<bf16*>(drr),         static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv),          static_cast<bf16*>(ded),
+          static_cast<float*>(ws),         B,
+          Q,                               K,
+          P,                               H,
+          Dh,                              scale};
+      return relik_tc::launch_bwd(a, dropout != 0, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

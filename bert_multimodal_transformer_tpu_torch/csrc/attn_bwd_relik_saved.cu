@@ -42,7 +42,7 @@
 // row of it (zeros where no key is in range), and #24's third launch
 // (`attn_bwd_relik_fs_dr`, attn_bwd_relik_fs.cu) sums it over b in a fixed
 // order: two launches a call, bit-reproducible. The tail after d(pd) is
-// common.cuh's `relik_bwd_tail`, shared with #21. The plan fits 227 KB up
+// common.cuh's `relik_bwd_tail`, shared with fp32 #21. The plan fits 227 KB up
 // to Q = 50, K = 100 (the `--mem_len 50` path) and Q = K = 95 at Dh = 64.
 // The products run on the CUDA cores in fp32.
 

@@ -34,20 +34,27 @@
 // assembly outside the kernel (the [B, H, Q, P] bd product, rel_shift's
 // copies, the ef select and the mask add), not its own bytes.
 //
-// What the design does about that: #11's plan (common.cuh's
-// `fwd_rel_rows`): one block per (q-tile of 16 rows, head, batch row), 6144
-// blocks at the serving shape; the rw and rr tiles in shared memory, k_h
-// streamed in 64-row chunks by stride. The TPU kernel shifts the whole
-// [H, Q, P] bd block with log-shift lane rolls (`_log_shift`); here the
-// shift is index arithmetic, as in #23: with each key chunk the block stages
-// the window of 79 rows of r that its tile reads against that chunk, and
-// row qi of the tile reads window row (15 − qi) + j for key k0 + j. The
-// scores then go through #11's own softmax, dropout and PV
-// (`fwd_rel_softmax_pv`), so against #11 fed the assembled ebias only the
-// score's rounding differs. Shared plan: 78 KB at K = 512 and Dh = 64, 123
-// KB at Dh = 128. The dots run on the CUDA cores in fp32, as #11's.
+// What the design does about that: bf16 runs on the tensor cores
+// (attn_relik_full_tc.cuh: #11's plans with the scores built from the
+// ingredients, ac = rw·kᵀ and bd from the wide product rr · r-windowᵀ read
+// on its diagonal, all on mma.sync fed by ldmatrix from operands cp.async
+// staged; the register plan up to K = 64, the score-tile plan past it).
+// fp32 keeps the CUDA-core kernel below and its bits: #11's CUDA-core plan
+// (common.cuh's `fwd_rel_rows`): one block per (q-tile of 16 rows, head,
+// batch row), the rw and rr tiles in shared memory, k_h streamed in 64-row
+// chunks by stride; with each key chunk the block stages the window of 79
+// rows of r that its tile reads against that chunk, and row qi of the tile
+// reads window row (15 − qi) + j for key k0 + j (the TPU kernel shifts the
+// whole [H, Q, P] bd block with log-shift lane rolls, `_log_shift`; here the
+// shift is index arithmetic, as in #23). The scores then go through #11's
+// own softmax, dropout and PV (`fwd_rel_softmax_pv`), so against #11 fed
+// the assembled ebias only the score's rounding differs. Shared plan: 78
+// KB at K = 512 and Dh = 64, 123 KB at Dh = 128. The entry dispatches on
+// the dtype; a bf16 call always launches a tensor-core kernel or returns
+// the launch's error (cudaErrorMisalignedAddress where rw, rr, r, k or v
+// does not start on the 16 bytes cp.async copies).
 
-#include "common.cuh"
+#include "attn_relik_full_tc.cuh"
 
 namespace {
 
@@ -205,10 +212,28 @@ int attn_fwd_relik(const void* rw, const void* rr, const void* r,
     case 0:
       return dispatch<float>(rw, rr, r, k, v, ed, segd, maskb, out, p, pd, B,
                              Q, K, P, H, Dh, scale, dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(rw, rr, r, k, v, ed, segd, maskb, out, p,
-                                     pd, B, Q, K, P, H, Dh, scale,
-                                     dropout != 0, drop, st);
+    case 1: {  // the tensor-core plans of attn_relik_full_tc.cuh
+      using bf16 = __nv_bfloat16;
+      const relik_tc::FwdArgs a{static_cast<const bf16*>(rw),
+                                static_cast<const bf16*>(rr),
+                                static_cast<const bf16*>(r),
+                                static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v),
+                                static_cast<const bf16*>(ed),
+                                static_cast<const bf16*>(segd),
+                                static_cast<const bf16*>(maskb),
+                                static_cast<bf16*>(out),
+                                static_cast<bf16*>(p),
+                                static_cast<bf16*>(pd),
+                                B,
+                                Q,
+                                K,
+                                P,
+                                H,
+                                Dh,
+                                scale};
+      return relik_tc::launch_fwd(a, dropout != 0, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // The bf16 tensor-core plans of the rel full-H attention kernels: the
 // forward #11 (attn_fwd_rel.cu) and the saved-probs backward #13
 // (attn_bwd_rel_saved.cu). fp32 keeps their CUDA-core code (common.cuh's
-// `fwd_rel_rows`, attn_bwd_rel_saved.cu's kernel) and its bits; #12 and #20
-// keep theirs in both dtypes.
+// `fwd_rel_rows`, attn_bwd_rel_saved.cu's kernel) and its bits; #12 keeps
+// its own in both dtypes. #20 and #21 (attn_relik_full_tc.cuh) take the
+// register plan's softmax and tail from here.
 //
 // What they compute is #11's and #13's function, per batch row b and head
 // h, from q [B, Q, D], k, v [B, K, D] (head-major columns h·Dh + c) and the
@@ -127,6 +128,114 @@ __host__ __device__ inline size_t fwd_reg_smem_bytes(int q_len, int k_len,
          attn::tc_ld(dh) * sizeof(bf16);
 }
 
+// The register plan's softmax on a warp's scores sc (its 16 rows × the
+// n8 key tiles of `full_tc::warp_abt`'s layout; keys past K at −inf): each
+// row's max and sum from the lane's keys in order, then the quad's xor
+// tree; on return sc holds e (0 past K) and sum the lane's two rows' sums,
+// p = e / sum (taken where the keep bits are drawn, so that the divisions
+// overlap the Philox rounds). #20 and #21 run it too
+// (attn_relik_full_tc.cuh), so their p take #11's order.
+__device__ __forceinline__ void reg_softmax(float (&sc)[kRegTiles][4],
+                                            float (&sum)[2], int K) {
+  const int t4 = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+      mx[hi] = fmaxf(mx[hi], fmaxf(sc[t][2 * hi], sc[t][2 * hi + 1]));
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+  sum[0] = sum[1] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * t + 2 * t4 + (e & 1);
+      float x = 0.0f;
+      if (j < K) {
+        x = expf(sc[t][e] - mx[e >> 1]);
+        sum[e >> 1] += x;
+      }
+      sc[t][e] = x;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+}
+
+// The register plan's tail after `reg_softmax`, for the warp's rows q_lo
+// and q_lo + 8 (global; slab m0 of a tile of q_rows rows): p = e / sum,
+// the saved p, the keep mask (`full_tc::keep_words`), the saved pd (rows
+// (row0 + q) · K of p_out / pd_out), then out = bf16(pd) · v with v staged
+// at vs (row stride ld), rows m0 .. of out_tile (row stride D). #11 and
+// #20 share it.
+template <int kDT, bool kDropout, bool kSave>
+__device__ __forceinline__ void reg_probs_pv(
+    float (&sc)[kRegTiles][4], const float (&sum)[2], const bf16* vs, int ld,
+    bf16* out_tile,
+    int D, bf16* __restrict__ p_out, bf16* __restrict__ pd_out, size_t row0,
+    int q_lo, int Q, int K, int nkt, int m0, int q_rows, int Dh, int b,
+    int h, bool p_pairs, const DropoutArgs& drop) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+    if (t < nkt) {
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+      if constexpr (kDropout) full_tc::keep_words(wd, q_lo, t, b, h, drop);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[t][e] = sc[t][e] / sum[e >> 1];
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int qr = q_lo + 8 * hi;
+        const size_t prow = (row0 + qr) * K;
+        if constexpr (kSave) {
+          if (qr < Q)
+            full_tc::store_pair(p_out + prow, 8 * t + 2 * t4, K, sc[t][2 * hi],
+                                sc[t][2 * hi + 1], p_pairs);
+        }
+        if constexpr (kDropout) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * hi + u;
+            sc[t][e] = wd[e] >= drop.threshold
+                           ? __fmul_rn(sc[t][e], drop.inv_keep)
+                           : 0.0f;
+          }
+          if constexpr (kSave) {
+            if (qr < Q)
+              full_tc::store_pair(pd_out + prow, 8 * t + 2 * t4, K,
+                                  sc[t][2 * hi], sc[t][2 * hi + 1], p_pairs);
+          }
+        }
+      }
+    }
+  }
+
+  // out = bf16(p) · v: key tiles 2c and 2c + 1 are step c's A fragment.
+  float acc[kDT][4] = {};
+  const bf16* vb = attn::tc_lane_bt(vs, ld);
+#pragma unroll
+  for (int c = 0; c < kRegTiles / 2; ++c) {
+    if (2 * c < nkt) {
+      const uint32_t fa[4] = {attn::pack_bf16(sc[2 * c][0], sc[2 * c][1]),
+                              attn::pack_bf16(sc[2 * c][2], sc[2 * c][3]),
+                              attn::pack_bf16(sc[2 * c + 1][0],
+                                              sc[2 * c + 1][1]),
+                              attn::pack_bf16(sc[2 * c + 1][2],
+                                              sc[2 * c + 1][3])};
+      attn::tc_mma_bt(acc, fa, vb + 16 * c * ld, Dh / 8);
+    }
+  }
+  full_tc::store_rows(acc, out_tile, D, m0, q_rows, Dh);
+}
+
 template <int kDT, bool kDropout, bool kSave>
 __global__ void __launch_bounds__(kRegThreads)
     attn_fwd_rel_tc_reg_kernel(const bf16* __restrict__ q,
@@ -194,7 +303,6 @@ __global__ void __launch_bounds__(kRegThreads)
   // s = (q · k) · scale + eb for the warp's 16 rows and every key.
   float sc[kRegTiles][4] = {};
   full_tc::warp_abt<kRegTiles>(sc, qs + m0 * ld, ks, ld, kd, nkt);
-  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int t = 0; t < kRegTiles; ++t) {
 #pragma unroll
@@ -202,87 +310,14 @@ __global__ void __launch_bounds__(kRegThreads)
       const float2 e = __bfloat1622float2(eb[t][hi]);
       sc[t][2 * hi] = __fadd_rn(__fmul_rn(sc[t][2 * hi], scale), e.x);
       sc[t][2 * hi + 1] = __fadd_rn(__fmul_rn(sc[t][2 * hi + 1], scale), e.y);
-      mx[hi] = fmaxf(mx[hi], fmaxf(sc[t][2 * hi], sc[t][2 * hi + 1]));
     }
   }
-  // The row's max and sum: the lane's keys in order, then the quad.
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int t = 0; t < kRegTiles; ++t) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * t + 2 * t4 + (e & 1);
-      float x = 0.0f;
-      if (j < K) {
-        x = expf(sc[t][e] - mx[e >> 1]);
-        sum[e >> 1] += x;
-      }
-      sc[t][e] = x;
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
-
-  // p = e / sum; the saved p, the keep mask, the saved pd.
-#pragma unroll
-  for (int t = 0; t < kRegTiles; ++t) {
-    if (t < nkt) {
-      uint32_t wd[4] = {0u, 0u, 0u, 0u};
-      if constexpr (kDropout) full_tc::keep_words(wd, q_lo, t, b, h, drop);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[t][e] = sc[t][e] / sum[e >> 1];
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int qr = q_lo + 8 * hi;
-        const size_t prow = (row0 + qr) * K;
-        if constexpr (kSave) {
-          if (qr < Q)
-            full_tc::store_pair(p_out + prow, 8 * t + 2 * t4, K, sc[t][2 * hi],
-                                sc[t][2 * hi + 1], p_pairs);
-        }
-        if constexpr (kDropout) {
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int e = 2 * hi + u;
-            sc[t][e] = wd[e] >= drop.threshold
-                           ? __fmul_rn(sc[t][e], drop.inv_keep)
-                           : 0.0f;
-          }
-          if constexpr (kSave) {
-            if (qr < Q)
-              full_tc::store_pair(pd_out + prow, 8 * t + 2 * t4, K,
-                                  sc[t][2 * hi], sc[t][2 * hi + 1], p_pairs);
-          }
-        }
-      }
-    }
-  }
-
-  // out = bf16(p) · v: key tiles 2c and 2c + 1 are step c's A fragment.
-  float acc[kDT][4] = {};
-  const bf16* vb = attn::tc_lane_bt(vs, ld);
-#pragma unroll
-  for (int c = 0; c < kRegTiles / 2; ++c) {
-    if (2 * c < nkt) {
-      const uint32_t fa[4] = {attn::pack_bf16(sc[2 * c][0], sc[2 * c][1]),
-                              attn::pack_bf16(sc[2 * c][2], sc[2 * c][3]),
-                              attn::pack_bf16(sc[2 * c + 1][0],
-                                              sc[2 * c + 1][1]),
-                              attn::pack_bf16(sc[2 * c + 1][2],
-                                              sc[2 * c + 1][3])};
-      attn::tc_mma_bt(acc, fa, vb + 16 * c * ld, Dh / 8);
-    }
-  }
-  full_tc::store_rows(acc, out + ((size_t)b * Q + q0) * D + h * Dh, D, m0,
-                      q_rows, Dh);
+  float sum[2];
+  reg_softmax(sc, sum, K);
+  reg_probs_pv<kDT, kDropout, kSave>(
+      sc, sum, vs, ld, out + ((size_t)b * Q + q0) * D + h * Dh, D, p_out,
+      pd_out,
+      row0, q_lo, Q, K, nkt, m0, q_rows, Dh, b, h, p_pairs, drop);
 }
 
 // ---- forward, score-tile plan (kRegMaxK < K ≤ kMaxK) ----------------------

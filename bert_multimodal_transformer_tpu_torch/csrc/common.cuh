@@ -3,7 +3,7 @@
 // mma.sync pieces of the tensor-core kernels (#4, #6, #7, #14, #23, #24
 // bf16, the last section); the Philox4x32-10
 // dropout stream, the whole-row forward's blocks (#1 and #4 packed, #8
-// split, #18 on a projected head, #11, #14 and #20 rel), the recompute
+// split, #18 on a projected head, #11, #14 and fp32 #20 rel), the recompute
 // backward's softmax rows (#2, #5, #9, #12, #15, #21), the full-H backward
 // of one head (#2, #3 packed, #9, #10 split, #19), the small shared-memory
 // products of the backward kernels, the ingredients kernels' score and
@@ -319,8 +319,8 @@ __device__ __forceinline__ void fwd_packed_rows(
 // 16-row tiles up to K = 512 and the save modes; #14 with 32-row tiles up
 // to K = 640. A row's arithmetic does not depend on kQTile, so the two give
 // the same bits where both reach. Everything after the scores
-// (`fwd_rel_softmax_pv`) is #20's too, which builds its scores from the
-// bias ingredients (attn_fwd_relik.cu).
+// (`fwd_rel_softmax_pv`) is fp32 #20's too, which builds its scores from
+// the bias ingredients (attn_fwd_relik.cu).
 
 // Shared memory in floats: q tile [kQTile][dh], k/v chunk
 // [kFwdKChunk][dh + 1], scores [kQTile][k_len].
@@ -330,7 +330,7 @@ __host__ __device__ inline size_t rel_fwd_smem_floats(int k_len, int dh) {
          (size_t)kQTile * k_len;
 }
 
-// The whole-row rel forward's tail (#11, #14 and #20), after a block's
+// The whole-row rel forward's tail (fp32 #11, #14 and #20), after a block's
 // scores are in ps [kQTile][K] (fp32, rows q0 .. q0 + q_rows − 1 of head h,
 // batch row b): the softmax one warp per row, the Philox keep mask, the
 // probs rounded to T (with kSave, p and pd written to rows head_row + q of
@@ -490,20 +490,22 @@ __device__ __forceinline__ void fwd_rel_rows(
       head_row, q0, q_rows, K, D, Dh, b, h, drop);
 }
 
-// ---- the recompute backward's softmax rows (kernels #2, #5, #12, #15) ---
+// ---- the recompute backward's softmax rows (#2, #5, #12, #15, #21) ----
 //
-// In place on `rows` rows of scores (row r at ps + r · S, query q0 + r): the
-// forward's fp32 softmax, one warp per row with the forward's loop and
-// reduction order; at rate > 0 the keep mask replayed into the sign bit
-// (p >= 0, so a dropped element is stored as −p and costs no memory).
+// In place on `rows` rows of scores (row r at ps + r · ld, ld = S unless
+// given; query q0 + r): the forward's fp32 softmax, one warp per row with
+// the forward's loop and reduction order; at rate > 0 the keep mask
+// replayed into the sign bit (p >= 0, so a dropped element is stored as −p
+// and costs no memory).
 template <bool kDropout>
 __device__ __forceinline__ void softmax_rows_keep_sign(float* ps, int rows,
                                                        int S, int q0, int b,
                                                        int h,
-                                                       DropoutArgs drop) {
+                                                       DropoutArgs drop,
+                                                       int ld = 0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += blockDim.x / 32) {
-    float* pr = ps + (size_t)r * S;
+    float* pr = ps + (size_t)r * (ld ? ld : S);
     float m = -INFINITY;
     for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
     for (int o = 16; o > 0; o >>= 1)

@@ -32,14 +32,17 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #1, #3, #4-#8, #10, #11, #13-#17, #23 and #24 run their products
-on the tensor cores (``mma.sync`` from ``ldmatrix``, operands staged by
-``cp.async``); fp32 keeps their CUDA-core kernels. Their shared-memory
-plans are ``full_tc_fwd_smem_bytes`` (#1, #8: the scores in registers up to
-``FULL_TC_REG_MAX_SEQ_LEN``, #4's score tile past it),
+In bf16, #1, #3, #4-#8, #10, #11, #13-#17, #20, #21, #23 and #24 run
+their products on the tensor cores (``mma.sync`` from ``ldmatrix``,
+operands staged by ``cp.async``); fp32 keeps their CUDA-core kernels.
+Their shared-memory plans are ``full_tc_fwd_smem_bytes`` (#1, #8: the
+scores in registers up to ``FULL_TC_REG_MAX_SEQ_LEN``, #4's score tile
+past it),
 ``full_tc_bwd_smem_bytes`` (#3, #10), ``rel_full_tc_fwd_smem_bytes`` (#11:
 registers up to ``REL_TC_REG_MAX_K``, #14's score tile past it),
 ``rel_full_tc_bwd_smem_bytes`` with ``rel_full_tc_bwd_q_chunk`` (#13),
+``relik_full_tc_fwd_smem_bytes`` (#20), ``relik_full_tc_bwd_smem_bytes``
+with ``relik_full_tc_bwd_q_chunk`` (#21),
 ``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``, ``fs_fwd_smem_bytes``,
 ``fs_bwd_smem_bytes``, ``rel_hb_fwd_smem_bytes``,
 ``rel_hb_bwd_smem_bytes``, ``rel_fs_fwd_smem_bytes``,
@@ -3117,7 +3120,8 @@ class FusedRelAttentionIKFS(torch.autograd.Function):
 # plan), the probs saved for the backward or recomputed there:
 #
 # * #20 ``attn_fwd_relik_cuda`` → ``csrc/attn_fwd_relik.cu``: softmax,
-#   dropout and PV (#11's, ``fwd_rel_softmax_pv``), optionally p and pd;
+#   dropout and PV (#11's), optionally p and pd; in bf16 on the tensor
+#   cores (``csrc/attn_relik_full_tc.cuh``, as #21);
 # * #22 ``attn_bwd_relik_saved_cuda`` → ``csrc/attn_bwd_relik_saved.cu``
 #   (from p and pd) and #21 ``attn_bwd_relik_cuda`` →
 #   ``csrc/attn_bwd_relik.cu`` (the probs recomputed, the mask replayed):
@@ -3205,12 +3209,63 @@ def relik_full_fits(q_len: int, k_len: int, dh: int, grad: bool) -> bool:
             and (not grad or relik_bwd_fits(q_len, k_len, dh)))
 
 
+def relik_full_tc_fwd_smem_bytes(q_len: int, k_len: int, dh: int) -> int:
+    """Shared memory of one bf16 #20 block at (Q, K, Dh)
+    (``csrc/attn_relik_full_tc.cuh``'s ``fwd_plan_bytes``). Up to
+    ``REL_TC_REG_MAX_K``: rw, rr [Q16][``_tc_ld``] (Q16: min(Q, 64) rounded
+    up to 16), k, v [K16][``_tc_ld``] and the r window [Q16 + 64][``_tc_ld``],
+    bf16, the warps' fp32 strips [Q16][72] over the window (55.3 KB at Q =
+    K = 50, Dh = 64). Past it the score tile [32][keys + 4] fp32 (keys: K
+    rounded up to 64), rw, rr [32][``_tc_ld``] and a two-stage ring of a
+    64-key block with its 96 window rows [160][``_tc_ld``], bf16 (170.5 KB
+    at K = 512, Dh = 128)."""
+    ld = _tc_ld(dh)
+    if k_len <= REL_TC_REG_MAX_K:
+        qp = _rows16(min(q_len, 64))
+        return ((2 * qp + 2 * _rows16(k_len)) * ld * 2
+                + max((qp + 64) * ld * 2, qp * 72 * 4))
+    keys = -(-k_len // 64) * 64
+    return 32 * (keys + 4) * 4 + (2 * 32 + 2 * 160) * ld * 2
+
+
+def relik_full_tc_bwd_smem_bytes(qc: int, k_len: int, dh: int,
+                                 multi: bool = False) -> int:
+    """Shared memory of one bf16 #21 block whose query chunk holds ``qc``
+    rows (a multiple of 16) at K = ``k_len``, head width ``dh``
+    (``csrc/attn_relik_full_tc.cuh``'s ``bwd_smem_bytes``): rw/g, rr
+    [qc][``_tc_ld``], k/v [K16][``_tc_ld``] and the r window [qc +
+    K16][``_tc_ld``], bf16; the probs [qc][K16 + 4] fp32 (pd_c over them);
+    ds_c [qc][K16 + 8] and the skewed ds_u [qc][K16 + 24], bf16; with more
+    than one chunk (``multi``) the fp32 dK and dV sums [K16][Dh]."""
+    kp = _rows16(k_len)
+    return ((3 * qc + 2 * kp) * _tc_ld(dh) * 2 + qc * (kp + 4) * 4
+            + qc * ((kp + 8) + (kp + 24)) * 2
+            + (2 * kp * dh * 4 if multi else 0))
+
+
+def relik_full_tc_bwd_q_chunk(q_len: int, k_len: int, dh: int) -> int:
+    """The query rows bf16 #21's block takes at a time
+    (``csrc/attn_relik_full_tc.cuh``'s ``bwd_q_chunk``): all of them,
+    rounded up to 16, where they fit; else the most 16-row slabs that fit
+    beside the fp32 dK/dV sums; 0 where not even 16 do (no shape of
+    ``relik_bwd_fits`` with K ≤ ``MAX_SEQ_LEN``)."""
+    qp = _rows16(q_len)
+    if relik_full_tc_bwd_smem_bytes(qp, k_len, dh) <= MAX_SMEM_BYTES:
+        return qp
+    qc = 0
+    while (qc + 16 < qp and relik_full_tc_bwd_smem_bytes(
+            qc + 16, k_len, dh, multi=True) <= MAX_SMEM_BYTES):
+        qc += 16
+    return qc
+
+
 def attn_fwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
                         rate=0.0, seed=0, save=False):
-    """Launch kernel #20 (``csrc/attn_fwd_relik.cu``): every input a
-    contiguous CUDA tensor of one dtype (fp32 or bf16), K ≤
-    ``MAX_SEQ_LEN``, P ≥ Q + K. Returns out [B, Q, D], or (out, p, pd)
-    [B, H, Q, K] with ``save`` (pd is p at rate 0)."""
+    """Launch kernel #20 (``csrc/attn_fwd_relik.cu``; bf16 on the tensor
+    cores, ``relik_full_tc_fwd_smem_bytes``): every input a contiguous CUDA
+    tensor of one dtype (fp32 or bf16), K ≤ ``MAX_SEQ_LEN``, P ≥ Q + K.
+    Returns out [B, Q, D], or (out, p, pd) [B, H, Q, K] with ``save`` (pd
+    is p at rate 0)."""
     ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, ed=ed, segd=segd, maskb=maskb)
     b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_fwd_relik", ins,
                                                    n_heads)
@@ -3258,8 +3313,9 @@ def _relik_dr_sum(fn, ws, dr, device):
 
 def attn_bwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
                         n_heads, scale, rate=0.0):
-    """Launch kernel #21 (``csrc/attn_bwd_relik.cu``), two kernels on the
-    current stream, each counted: the (head, batch row) pass, with the probs
+    """Launch kernel #21 (``csrc/attn_bwd_relik.cu``; bf16 on the tensor
+    cores, ``relik_full_tc_bwd_q_chunk``), two kernels on the current
+    stream, each counted: the (head, batch row) pass, with the probs
     recomputed and the keep mask replayed from ``seed``, that writes drw,
     drr, dk, dv, ded and its dr rows into an fp32 [B, P, D] workspace
     allocated here, then the workspace's sum over B. Returns (drw, drr, dr,
@@ -3269,6 +3325,10 @@ def attn_bwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
     b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_bwd_relik", ins,
                                                    n_heads)
     _like("g", g, rw, tuple(rw.shape))
+    if (rw.dtype == torch.bfloat16
+            and relik_full_tc_bwd_q_chunk(q_len, k_len, dh) == 0):
+        raise ValueError(f"attn_bwd_relik: K={k_len} Dh={dh} exceeds the "
+                         "bf16 plan's shared memory")
     drw, drr, dk, dv, ded, ws, dr = _relik_bwd_outputs(
         "attn_bwd_relik", rw, r, q_len, k_len, n_heads, dh)
     _launch("attn_bwd_relik", *(t.data_ptr() for t in ins.values()),

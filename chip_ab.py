@@ -7,10 +7,13 @@ split-layout twins #8, #8′ and #10, and #4 (whose bf16 kernel #1 runs past
 S=64) at B=48 S=512; the rel kernels #11 serving (bf16 B=128 Q=K=50), #11
 with dropout and saved probs and #13 at XLNet's training shape (B=256
 Q=K=50, rate 0.1) and at the memory's (``--mem_len 50``: Q=50, K=100),
-and #14 (whose bf16 plan #11 runs past K=64) at B=48 Q=K=512.
+and #14 (whose bf16 plan #11 runs past K=64) at B=48 Q=K=512; the full-H
+ingredients kernels (``rel_bias_impl="inkernel"``) #20 serving (bf16
+B=128 Q=K=50), #20 with dropout and saved probs and #21 at B=256 (rate
+0.1; #21 also at rate 0) and at the memory's Q=50, K=100.
 
     python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N]
-        [--grad-gap-seeds S ...] [--xlnet]
+        [--grad-gap-seeds S ...] [--xlnet] [--xlnet-impl auto|inkernel]
 
 Each checkout builds its own kernels (under its ``build/``, both builds
 started together). Then rounds A, B, B, A (A, B, C, C, B, A for three),
@@ -20,15 +23,18 @@ events after a warm-up. Prints each round's per-call ms, then one JSON
 object with both checkouts' means by case and the card's name and power
 limit (nvidia-smi), and each checkout's agreement with the plain
 versions at the bench's shapes (the share of elements whose bits differ,
-the largest difference), and whether fp32 #11/#13 and bf16 #14 give the
-same bits in every checkout (digests). With ``--grad-gap-seeds``, each
+the largest difference), and whether fp32 #11/#13, bf16 #14 and fp32
+#20/#21 give the same bits in every checkout (digests). With
+``--grad-gap-seeds``, each
 checkout also runs ``chip_smoke.py``'s phase-4b dropout-0 check at those
 seeds and reports its first-step gradient gaps (fused against einsum).
 With ``--xlnet``,
 rounds A, B, B, A of the MAG-XLNet end to end at xlnet-base-cased width
-follow: one B=256 S=50 training step's device time, busy share and #11/#13
-share (torch.profiler), training examples/s over 10 steps and
-``predict_split`` examples/s at batch 128. Exits non-zero without a card.
+follow: one B=256 S=50 training step's device time, busy share and the
+full-H rel kernels' share (torch.profiler), training examples/s over 10
+steps and ``predict_split`` examples/s at batch 128, under
+``--xlnet-impl``'s ``rel_bias_impl`` (auto: #11/#13; inkernel: #20/#22).
+Exits non-zero without a card.
 """
 
 import argparse
@@ -66,13 +72,27 @@ REL_CASES = {
     "#14 bf16 B=48 Q=K=512 rate 0": (48, 512, 512, 0.0, "rel_hb_fwd"),
     "#14' bf16 B=48 Q=K=512 rate 0.1": (48, 512, 512, 0.1, "rel_hb_fwd"),
 }
+# name: (B, Q, K, rate, what)
+RELIK_CASES = {
+    "#20 bf16 B=128 Q=K=50 rate 0": (128, 50, 50, 0.0, "relik_fwd"),
+    "#20' bf16 B=256 Q=K=50 rate 0.1 saved probs": (256, 50, 50, 0.1,
+                                                     "relik_fwd_save"),
+    "#21 bf16 B=256 Q=K=50 rate 0.1": (256, 50, 50, 0.1, "relik_bwd"),
+    "#21 bf16 B=256 Q=K=50 rate 0": (256, 50, 50, 0.0, "relik_bwd"),
+    "#20' bf16 B=256 Q=50 K=100 rate 0.1 saved probs": (256, 50, 100, 0.1,
+                                                         "relik_fwd_save"),
+    "#21 bf16 B=256 Q=50 K=100 rate 0.1": (256, 50, 100, 0.1, "relik_bwd"),
+}
 
 
-# Kernel-name substrings of #11 and #13 in either checkout: the CUDA-core
-# kernels and the tensor-core plans.
+# Kernel-name substrings of the full-H rel kernels in either checkout: the
+# CUDA-core kernels and the tensor-core plans.
 REL_KERNELS = (("#11", ("attn_fwd_rel_kernel", "attn_fwd_rel_tc_")),
                ("#13", ("attn_bwd_rel_saved_kernel",
-                        "attn_bwd_rel_saved_tc_")))
+                        "attn_bwd_rel_saved_tc_")),
+               ("#20", ("attn_fwd_relik_kernel", "attn_fwd_relik_tc_")),
+               ("#22", ("attn_bwd_relik_saved_kernel",)),
+               ("#21", ("attn_bwd_relik_kernel", "attn_bwd_relik_tc_")))
 
 
 def _rel_inputs(torch, rng, b, q_len, k_len, dtype=None):
@@ -107,6 +127,47 @@ def _rel_call(fa, torch, rng, b, q_len, k_len, rate, what):
         return lambda: fa.attn_fwd_rel_cuda(q, k, v, ebias, **drop, **kw)
     _, p, pd = fa.attn_fwd_rel_cuda(q, k, v, ebias, **drop, **kw)
     return lambda: fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, **kw)
+
+
+def _relik_inputs(torch, rng, b, q_len, k_len, dtype=None):
+    """Seeded ingredients rw, rr (scaled) [B, Q, D], r [Q + K, D], k, v
+    [B, K, D], ed (scaled) [B, H, Q], a 0/1 segd and a maskb with −1e30 on
+    a ragged run of leading keys [B, Q, K], and g [B, Q, D]."""
+    dtype = dtype or torch.bfloat16
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)) * scale).to("cuda", dtype)
+
+    d = H * DH
+    pads = rng.integers(0, k_len // 2, size=b)
+    masked = np.arange(k_len)[None, None, :] < pads[:, None, None]
+    maskb = np.ascontiguousarray(np.broadcast_to(-1e30 * masked,
+                                                 (b, q_len, k_len)))
+    return dict(
+        rw=t(b, q_len, d), rr=t(b, q_len, d, scale=DH ** -0.5),
+        r=t(q_len + k_len, d), k=t(b, k_len, d), v=t(b, k_len, d),
+        ed=t(b, H, q_len, scale=DH ** -0.5),
+        segd=torch.from_numpy(rng.integers(0, 2, (b, q_len, k_len)).astype(
+            np.float32)).to("cuda", dtype),
+        maskb=torch.from_numpy(maskb.astype(np.float32)).to("cuda", dtype),
+        g=t(b, q_len, d))
+
+
+RELIK = ("rw", "rr", "r", "k", "v", "ed", "segd", "maskb")
+
+
+def _relik_call(fa, torch, rng, b, q_len, k_len, rate, what):
+    """The ingredients case's kernel call on seeded inputs."""
+    x = _relik_inputs(torch, rng, b, q_len, k_len)
+    ins = [x[n] for n in RELIK]
+    kw = dict(n_heads=H, scale=DH ** -0.5)
+    if what == "relik_fwd":
+        return lambda: fa.attn_fwd_relik_cuda(*ins, **kw)
+    if what == "relik_fwd_save":
+        return lambda: fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=7,
+                                              save=True, **kw)
+    return lambda: fa.attn_bwd_relik_cuda(*ins, 7, x["g"], rate=rate, **kw)
 
 
 def _call(fa, torch, rng, b, s, rate, what):
@@ -157,6 +218,8 @@ def worker(iters):
              for name, case in CASES.items()]
     calls += [(name, lambda c=case: _rel_call(fa, torch, rng, *c))
               for name, case in REL_CASES.items()]
+    calls += [(name, lambda c=case: _relik_call(fa, torch, rng, *c))
+              for name, case in RELIK_CASES.items()]
     for name, make in calls:
         fn = make()
         for _ in range(5):
@@ -242,14 +305,22 @@ def agreement():
     q, k, v, ebias, g = _rel_inputs(torch, rng, 2, 512, 512)
     out["digest bf16 #14 B=2 Q=K=512 rate 0.1"] = digest(
         fa.attn_fwd_rel_hb_cuda(q, k, v, ebias, rate=0.1, seed=7, **kw))
+    # fp32 #20 (saved probs, rate 0.1) and #21 keep their CUDA-core kernels
+    x = _relik_inputs(torch, rng, 4, 50, 77, torch.float32)
+    ins = [x[n] for n in RELIK]
+    out["digest fp32 #20/#21 B=4 Q=50 K=77"] = digest(
+        *fa.attn_fwd_relik_cuda(*ins, rate=0.1, seed=7, save=True, **kw),
+        *fa.attn_bwd_relik_cuda(*ins, 7, x["g"], rate=0.1, **kw))
     print(json.dumps(out))
 
 
-def xlnet_e2e(iters):
+def xlnet_e2e(iters, impl):
     """In the current directory's checkout: MAG-XLNet (xlnet-base-cased,
-    bf16, fused attention, MOSI dims, random weights) end to end: one B=256
-    S=50 training step under torch.profiler (device ms, busy share, #11 and
-    #13 ms), training examples/s over ``iters`` steps after 3 warm-up
+    bf16, fused attention, ``rel_bias_impl`` ``impl``, MOSI dims, random
+    weights) end to end: one B=256 S=50 training step under torch.profiler
+    (device ms, busy share, the full-H rel kernels' ms: #11 and #13 under
+    auto, #20 and #22 under inkernel), training examples/s over ``iters``
+    steps after 3 warm-up
     (CUDA-synchronised wall), and ``predict_split`` examples/s over 685
     examples at batch 128 (the median of 5 passes); prints them as JSON."""
     import time
@@ -275,8 +346,12 @@ def xlnet_e2e(iters):
         device_time_by_kernel,
     )
 
+    import dataclasses
+
     rng = np.random.default_rng(3)
-    ds, cfg = DatasetConfig.mosi(), XLNetConfig.xlnet_base_cased()
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                              rel_bias_impl=impl)
     mm = MultimodalConfig(injection_index=1)
     model = cs._xlnet(cfg, mm, "fused", 10)
     state = Trainer(model=model, tx=make_optimizer(1e-5, iters + 8, 0.1)
@@ -297,6 +372,7 @@ def xlnet_e2e(iters):
     rel = {tag: sum(ms for name, _, ms in prof["kernels"]
                     if any(k in name for k in keys))
            for tag, keys in REL_KERNELS}
+    rel = {tag: ms for tag, ms in rel.items() if ms > 0}
     split = cs.make_xlnet_split(rng, cs.N_TEST, cs.S_SERVE, cfg.vocab_size,
                                 ds.visual_dim, ds.acoustic_dim)
     predictor = Predictor(model, batch_size=cs.BATCH)
@@ -382,13 +458,16 @@ def main() -> int:
     parser.add_argument("--agreement-worker", action="store_true")
     parser.add_argument("--xlnet", action="store_true",
                         help="also time MAG-XLNet end to end per checkout")
+    parser.add_argument("--xlnet-impl", default="auto",
+                        choices=("auto", "inkernel"),
+                        help="the XLNet end-to-end rounds' rel_bias_impl")
     parser.add_argument("--xlnet-worker", action="store_true")
     args = parser.parse_args()
     if args.agreement_worker:
         agreement()
         return 0
     if args.xlnet_worker:
-        xlnet_e2e(10)
+        xlnet_e2e(10, args.xlnet_impl)
         return 0
     if args.grad_gap_worker:
         grad_gaps(args.grad_gap_seeds)
@@ -429,7 +508,8 @@ def main() -> int:
         print(f"{tree}: " + ", ".join(f"{k} {v:.4f} ms"
                                       for k, v in times.items()))
     result = {"card": card, "iters": args.iters, "ms": {
-        tree: {name: [r[name] for r in rs] for name in [*CASES, *REL_CASES]}
+        tree: {name: [r[name] for r in rs]
+               for name in [*CASES, *REL_CASES, *RELIK_CASES]}
         for tree, rs in rounds.items()}}
     result["agreement"] = {tree: json.loads(_run(
         tree, ["--agreement-worker"]).splitlines()[-1])
@@ -445,8 +525,10 @@ def main() -> int:
         e2e = {tree: [] for tree in args.trees}
         for tree in [*args.trees, *reversed(args.trees)]:
             e2e[tree].append(json.loads(_run(
-                tree, ["--xlnet-worker"]).splitlines()[-1]))
-            print(f"{tree} MAG-XLNet end to end: {e2e[tree][-1]}")
+                tree, ["--xlnet-worker", "--xlnet-impl",
+                       args.xlnet_impl]).splitlines()[-1]))
+            print(f"{tree} MAG-XLNet end to end ({args.xlnet_impl}): "
+                  f"{e2e[tree][-1]}")
         result["xlnet"] = e2e
     if args.grad_gap_seeds:
         result["grad_gaps"] = {tree: json.loads(_run(tree, [

@@ -395,13 +395,14 @@ def tc_ptxas_lines(log):
     (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
     passes of #5 and #7, the rel backward passes of #15 and #17, #24's two
     passes, the full-H plans of #1/#8 and #3/#10 built into each of their
-    sources, and the rel full-H plans of #11 and #13), one line each, from
-    the build log. Template arguments print in order: the packed and rel
-    passes' are <n8 tiles of Dh, own statistics (#5, #15 true; #7, #17
-    false), dropout>; the full-H and rel register forwards' <n8 tiles of
-    Dh, dropout, save>, their score-tile forwards' <dropout, save>, the
-    full-H backward's <n8 key tiles, n8 tiles of Dh>, the rel backward's
-    <n8 tiles of Dh>."""
+    sources, the rel full-H plans of #11 and #13, and the full-H
+    ingredients plans of #20 and #21), one line each, from the build log.
+    Template arguments print in order: the packed and rel passes' are <n8
+    tiles of Dh, own statistics (#5, #15 true; #7, #17 false), dropout>;
+    the full-H, rel and ingredients register forwards' <n8 tiles of Dh,
+    dropout, save>, their score-tile forwards' <dropout, save>, the full-H
+    backward's <n8 key tiles, n8 tiles of Dh>, the rel backward's <n8 tiles
+    of Dh>, #21's <n8 tiles of Dh, dropout, blocks an SM>."""
     import re
 
     lines, name, spills, source = [], None, "", ""
@@ -413,7 +414,8 @@ def tc_ptxas_lines(log):
                       r"packed|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|"
                       r"attn_bwd_(?:packed|rel|relik_fs)_(?:dkdv|dq))_tc|"
                       r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved)|"
-                      r"attn_fwd_rel_tc_(?:reg|smem)|attn_bwd_rel_saved_tc)"
+                      r"attn_fwd_rel(?:ik)?_tc_(?:reg|smem)|"
+                      r"attn_bwd_rel_saved_tc|attn_bwd_relik_tc)"
                       r"_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ", ".join(
@@ -2768,8 +2770,9 @@ def relik_case(rng, dtype_name, b, s, h=12, dh=64, k_len=None):
         return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
                 * scale).to("cuda", dtype)
 
-    mask, segs = (torch.from_numpy(x).cuda()
-                  for x in xlnet_segments(rng, b, s))
+    # (the segments of a 3-token row cut to its last S where S < 3)
+    mask, segs = (torch.from_numpy(x[:, -s:]).cuda()
+                  for x in xlnet_segments(rng, b, max(s, 3)))
     mem = torch.zeros(b, mlen, dtype=mask.dtype, device="cuda")
     mask_k, segs_k = torch.cat([mem + 1, mask], 1), torch.cat([mem, segs], 1)
     own = torch.zeros(s, k_len, dtype=torch.bool, device="cuda")
@@ -3887,6 +3890,16 @@ RELIK_FULL_CASES = (   # (dtype, B, Q, K) with the rates each runs at
     ("bf16", BENCH_BATCH, S_SERVE, S_SERVE, (RATE, 0.0)),
     ("bf16", TRAIN_BATCH, S_SERVE, 2 * S_SERVE, (RATE,)),   # --mem_len 50
     ("fp32", 4, S_SERVE, 77, (RATE, 0.0)))                  # ragged K ≠ Q
+# bf16 #20's and #21's tensor-core plans at their edges, (B, Q, K, H, Dh)
+# at rates 0.1 and 0: K odd, the register plan's last K and the score
+# tile's first, two q tiles, the widest head in both forward plans (at K =
+# 100 with Q = 40, inside #21's reach), the edges of #21's reach (Q = K =
+# 95; Q = 1 at K = 435).
+RELIK_TC_EDGES = ((8, S_SERVE, 57, 12, 64), (8, S_SERVE, 64, 12, 64),
+                  (8, S_SERVE, 65, 12, 64), (8, 77, 77, 12, 64),
+                  (8, S_SERVE, S_SERVE, 6, 128),
+                  (8, 40, 2 * S_SERVE, 6, 128), (8, 95, 95, 12, 64),
+                  (8, 1, 435, 12, 64))
 
 
 def relik_full_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0,
@@ -3916,7 +3929,8 @@ def relik_full_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0,
                   BF16_FLOPS)
 
 
-def check_relik_full_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
+def check_relik_full_kernels(rng, fa, dtype_name, b, q_len, k_len, rate,
+                             h=12, dh=64):
     """Phase 3h on one case: #20 with save (and dropout at rate > 0), #22
     and #21, each against its plain version (fp32: GRAD_FP32_TOL; bf16:
     ``relik_full_grads_bf16_bound``), the two backwards against each other;
@@ -3925,11 +3939,11 @@ def check_relik_full_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
     kernel gave its plain version's bits, and the case."""
     import torch
 
-    c, seed = relik_case(rng, dtype_name, b, q_len, k_len=k_len)
+    c, seed = relik_case(rng, dtype_name, b, q_len, h, dh, k_len=k_len)
     ins = [c[n] for n in RELIK]
-    kw = dict(n_heads=12, scale=0.125)
-    tag = (f"{dtype_name} B={b} Q={q_len} K={k_len} P={q_len + k_len} H=12 "
-           f"Dh=64 rate={rate}")
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5)
+    tag = (f"{dtype_name} B={b} Q={q_len} K={k_len} P={q_len + k_len} H={h} "
+           f"Dh={dh} rate={rate}")
     out, p, pd = fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=seed,
                                         save=True, **kw)
     want = fa.attn_fwd_relik_reference(*ins, rate=rate, seed=seed, save=True,
@@ -3979,9 +3993,10 @@ def check_relik_full_kernels(rng, fa, dtype_name, b, q_len, k_len, rate):
 def check_relik_full_against_rel(fa, case):
     """#20 against #11 fed the ebias the model's stream path assembles
     (``assembled_ebias``), one seed, bf16 B=256 Q=K=50 at rate 0.1. They
-    draw the same keep mask; bf16 #20 runs the CUDA-core softmax and PV
-    code and #11 its tensor-core plan, whose dots and row sums take another
-    order, so a prob may round to bf16 one ulp apart (2^-8 relative) and an
+    draw the same keep mask and run the same register softmax and PV
+    (``reg_softmax``, ``reg_probs_pv``), but #20 sums its scores from the
+    ingredients and #11 from the ebias, whose dots round in another order,
+    so a prob may round to bf16 one ulp apart (2^-8 relative) and an
     output by one more. Their scores also differ by the bf16 roundings of
     the assembled ebias, so each prob differs by a factor within e^{±δ}, δ
     the largest gap of a row's log-probs (measured from the plain
@@ -4023,11 +4038,13 @@ def time_relik_full_kernels(fa, case, card):
     against their plain versions, then at rate 0 beside the library calls
     (SDPA with the assembled ebias as a float mask; SDPA's autograd
     backward to q, k, v and the ebias), #20 at the serving shape (B=128);
-    alternating rounds. Returns {name: entry}."""
+    alternating rounds; then each mode's time per launch on the card
+    (torch.profiler; #21's and #22's (head, batch row) pass and the dr sum
+    apart). Returns {name: entry}."""
     c, seed = case
     ins = [c[n] for n in RELIK]
     kw = dict(n_heads=12, scale=0.125)
-    out = {}
+    out, launch_ms = {}, {}
     for rate in (RATE, 0.0):
         _, p, pd = fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=seed,
                                           save=True, **kw)
@@ -4095,6 +4112,20 @@ def time_relik_full_kernels(fa, case, card):
             print(f"{name} {label} H=12 Dh=64 on {card}: kernel {kt} ms, "
                   f"plain {pt} ms per call{lib_note}; bound "
                   f"{bound[0]:.4f} ms ({bound[1]})")
+            # the card's time per launch: #20's, and #21's and #22's (head,
+            # batch row) pass apart from the dr sum over B
+            keys = {"attn_fwd_relik": ("attn_fwd_relik",),
+                    "attn_bwd_relik_saved": ("attn_bwd_relik_saved",
+                                             "attn_bwd_relik_fs_dr"),
+                    "attn_bwd_relik": ("attn_bwd_relik_tc",
+                                       "attn_bwd_relik_fs_dr")}[name]
+            launch = {key: kernel_device_ms(run_kernel, key) for key in keys}
+            launch_ms.setdefault(name, {})[label] = launch
+            print(f"{name} {label}: the card's time per launch on {card} "
+                  "(torch.profiler): " + ", ".join(
+                      f"{k_} {v_:.4f} ms" for k_, v_ in launch.items()))
+    for name, entry in out.items():
+        entry["device_ms"] = launch_ms[name]
     return out
 
 
@@ -4145,14 +4176,14 @@ def xlnet_inkernel_serving(args, rng, fa, card):
     batch = split.take(np.arange(BATCH)).as_tuple()[:5]
     names = [n for n, _, _ in device_time_by_kernel(
         lambda: predictor.fetch(predictor.submit(*batch)), 1)["kernels"]]
-    ran = {kernel: any(f"{kernel}<" in n for n in names)
-           for kernel in ("attn_fwd_relik_kernel", "attn_fwd_rel_kernel",
-                          "attn_fwd_rel_tc_reg_kernel",
-                          "attn_fwd_rel_tc_smem_kernel")}
+    # bf16 #20 at K = 50: its tensor-core register plan and nothing of #11
+    want = {"attn_fwd_relik_tc_reg_kernel": True,
+            "attn_fwd_relik_kernel": False, "attn_fwd_rel_kernel": False,
+            "attn_fwd_rel_tc_reg_kernel": False,
+            "attn_fwd_rel_tc_smem_kernel": False}
+    ran = {kernel: any(f"{kernel}<" in n for n in names) for kernel in want}
     print(f"kernels in the inkernel batch's profile: {ran}")
-    if ran != {"attn_fwd_relik_kernel": True, "attn_fwd_rel_kernel": False,
-               "attn_fwd_rel_tc_reg_kernel": False,
-               "attn_fwd_rel_tc_smem_kernel": False}:
+    if ran != want:
         raise AssertionError(f"inkernel serving profile: {ran}")
     return counts
 
@@ -5659,6 +5690,18 @@ def main() -> int:
             if (dtype_name, b, k_len, rate) == ("bf16", BENCH_BATCH,
                                                 S_SERVE, RATE):
                 relik_train_case = case
+    # bf16 #20's and #21's tensor-core plans at their edges, from a stream
+    # of their own so that every later phase sees the inputs it saw before
+    relik_tc_rng = np.random.default_rng([args.seed, 18])
+    for b, q_len, k_len, h, dh in RELIK_TC_EDGES:
+        for rate in (RATE, 0.0):
+            errs, same, _ = check_relik_full_kernels(
+                relik_tc_rng, fa, "bf16", b, q_len, k_len, rate, h, dh)
+            for k_, v_ in errs.items():
+                relik_errs[k_] = max(relik_errs.get(k_, 0.0), v_)
+            for k_, v_ in same.items():
+                relik_same[k_] = relik_same.get(k_, True) and v_
+    torch.cuda.empty_cache()
     check_relik_full_against_rel(fa, relik_train_case)
     relik_times = time_relik_full_kernels(fa, relik_train_case, card)
     del relik_train_case

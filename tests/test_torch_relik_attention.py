@@ -449,6 +449,19 @@ def _card_close(got, want, dtype):
     ("float32", 2, 40, 40, 2, 128),     # the widest head
     ("bfloat16", 4, 50, 50, 12, 64),    # the driver's S = 50
     ("bfloat16", 2, 50, 100, 12, 64),   # --mem_len 50
+    # bf16 #20's and #21's tensor-core plans at their edges: K odd, the
+    # register plan's last K and the score tile's first, two q tiles, the
+    # widest head (both forward plans), #21's reach (Q = K = 95; Q = 1 at K
+    # = 435) and its query chunks (Q = 1000 at K = 8, Dh = 8: two)
+    ("bfloat16", 2, 50, 57, 4, 64),
+    ("bfloat16", 2, 50, 64, 4, 64),
+    ("bfloat16", 2, 50, 65, 4, 64),
+    ("bfloat16", 2, 77, 77, 4, 64),
+    ("bfloat16", 2, 50, 50, 6, 128),
+    ("bfloat16", 2, 40, 100, 6, 128),
+    ("bfloat16", 2, 95, 95, 4, 64),
+    ("bfloat16", 2, 1, 435, 4, 64),
+    ("bfloat16", 2, 1000, 8, 2, 8),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_full_tier_kernels_match_plain_on_card(cuda_device, dtype, b, q_len,
