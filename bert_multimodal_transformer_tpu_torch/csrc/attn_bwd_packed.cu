@@ -35,10 +35,15 @@
 // keep bit of each element rides in the sign of its P entry (p >= 0), so
 // the mask costs no extra memory. The plan fits 227 KB up to S = 140 at
 // Dh = 64 (S = 117 at Dh = 128); the Python wrapper refuses longer
-// sequences at the forward when a gradient will be needed. The products
-// run on the CUDA cores in fp32; tensor cores are later work.
+// sequences at the forward when a gradient will be needed. That is the
+// fp32 kernel, on the CUDA cores. bf16 runs #9's tensor-core kernel
+// (attn_full_tc.cuh's `attn_full_tc_bwd_recompute_kernel`: #1's score and
+// softmax code, then #3's phases on mma.sync, the same plan's reach)
+// through the packed layout's strides, as #3 and #10 share theirs, so #2
+// and #9 give the same bits; a bf16 call always launches it or returns the
+// launch's error.
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
 
 namespace {
 
@@ -120,9 +125,34 @@ int attn_bwd_packed(const void* qkv, const void* mask, const void* g,
     case 0:
       return dispatch<float>(qkv, mask, g, dqkv, B, S, H, Dh, scale,
                              dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(qkv, mask, g, dqkv, B, S, H, Dh, scale,
-                                     dropout != 0, drop, st);
+    case 1: {
+      // The tensor-core plan of attn_full_tc.cuh.
+      using bf16 = __nv_bfloat16;
+      const int D = H * Dh;
+      const bf16* q = static_cast<const bf16*>(qkv);
+      bf16* dq = static_cast<bf16*>(dqkv);
+      const full_tc::BwdGeom geom{q,
+                                  q + D,
+                                  q + 2 * D,
+                                  (long long)S * 3 * D,
+                                  Dh,
+                                  3 * D,
+                                  static_cast<const bf16*>(g),
+                                  (long long)S * D,
+                                  Dh,
+                                  D,
+                                  dq,
+                                  dq + D,
+                                  dq + 2 * D,
+                                  (long long)S * 3 * D,
+                                  Dh,
+                                  3 * D,
+                                  nullptr,
+                                  nullptr};
+      return full_tc::launch_bwd_recompute(
+          geom, static_cast<const float*>(mask), B, S, H, Dh, scale,
+          dropout != 0, 0, 0, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -30,8 +30,14 @@
 // ms). The deterministic d_r below adds its fp32 [B, P, D] workspace (79 MB
 // written, then read by the sum) to what the card moves.
 //
-// What the design does about that: #13's plan: one block per (head, batch
-// row) holds the [Q, K] problem in shared memory (common.cuh's
+// What the design does about that: bf16 runs on the tensor cores, #21's
+// block code in its saved-probs mode (attn_relik_full_tc.cuh's
+// `attn_bwd_relik_saved_tc_kernel`: no scores and no softmax; the
+// chunk's saved pd loaded into the pd_c tile and p read in the accumulator
+// layout, both by 4-byte pair loads while K is even, 2-byte loads
+// otherwise; then #21's phases 1-2, every product on mma.sync). fp32 keeps
+// the CUDA-core kernel below and its bits: #13's plan, one block per (head,
+// batch row) holding the [Q, K] problem in shared memory (common.cuh's
 // `relik_bwd_smem_floats`: the rw/g, k/v and rr tiles, the window of Q + K
 // − 1 rows of r the scores read, and three [Q][K] tiles), 3072 blocks at
 // the training shape, every sum inside the block. d_r sums over the whole
@@ -41,12 +47,16 @@
 // its own fp32 slice ws[b, :, h·Dh:(h+1)·Dh] of a [B, P, D] workspace, every
 // row of it (zeros where no key is in range), and #24's third launch
 // (`attn_bwd_relik_fs_dr`, attn_bwd_relik_fs.cu) sums it over b in a fixed
-// order: two launches a call, bit-reproducible. The tail after d(pd) is
-// common.cuh's `relik_bwd_tail`, shared with fp32 #21. The plan fits 227 KB up
-// to Q = 50, K = 100 (the `--mem_len 50` path) and Q = K = 95 at Dh = 64.
-// The products run on the CUDA cores in fp32.
+// order: two launches a call, bit-reproducible, in either dtype. The fp32
+// tail after d(pd) is common.cuh's `relik_bwd_tail`, shared with fp32 #21;
+// its plan fits 227 KB up to Q = 50, K = 100 (the `--mem_len 50` path) and
+// Q = K = 95 at Dh = 64, and the bf16 plan covers the same reach (query
+// chunks where the rows do not fit at once). A bf16 call always launches
+// the tensor-core kernel or returns the launch's error
+// (cudaErrorMisalignedAddress where rw, rr, r, k, v or g does not start on
+// the 16 bytes cp.async copies).
 
-#include "common.cuh"
+#include "attn_relik_full_tc.cuh"
 
 namespace {
 
@@ -144,10 +154,23 @@ int attn_bwd_relik_saved(const void* p, const void* pd, const void* rw,
     case 0:
       return launch<float>(p, pd, rw, rr, r, k, v, segd, g, drw, drr, dk, dv,
                            ded, ws, B, Q, K, P, H, Dh, scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(p, pd, rw, rr, r, k, v, segd, g, drw, drr,
-                                   dk, dv, ded, ws, B, Q, K, P, H, Dh, scale,
-                                   st);
+    case 1: {  // the tensor-core plan of attn_relik_full_tc.cuh
+      using bf16 = __nv_bfloat16;
+      const relik_tc::BwdArgs a{
+          static_cast<const bf16*>(rw),    static_cast<const bf16*>(rr),
+          static_cast<const bf16*>(r),     static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v),     nullptr,
+          static_cast<const bf16*>(segd),  nullptr,
+          static_cast<const bf16*>(g),     static_cast<bf16*>(drw),
+          static_cast<bf16*>(drr),         static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv),          static_cast<bf16*>(ded),
+          static_cast<float*>(ws),         B,
+          Q,                               K,
+          P,                               H,
+          Dh,                              scale,
+          static_cast<const bf16*>(p),     static_cast<const bf16*>(pd)};
+      return relik_tc::launch_bwd_saved(a, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

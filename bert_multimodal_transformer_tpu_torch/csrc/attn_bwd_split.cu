@@ -25,17 +25,23 @@
 // gradients: latency-bound. dQ reduces over keys while dK and dV reduce
 // over queries.
 //
-// What the design does about that: #2's plan and code, common.cuh's
-// `bwd_recompute_head`: one block per (head, batch row) holds the whole
-// [S, S] problem in shared memory, so every reduction stays inside the
-// block, with no atomics and bit-reproducible results; the keep bit rides
-// in the sign of P. Here the head's rows are contiguous (row stride Dh).
-// The plan fits 227 KB up to S = 140 at Dh = 64 (S = 117 at Dh = 128); the
-// Python wrapper's `split_tier` sends longer sequences to the einsum
-// branch before any launch. fp32 CUDA-core products; tensor cores are later
-// work.
+// What the design does about that: bf16 runs on the tensor cores
+// (attn_full_tc.cuh's `attn_full_tc_bwd_recompute_kernel`, #2's kernel too:
+// #1's score and softmax code in front, so p has the forward's bits, the
+// keep bit replayed by #1's lane pairs at the shard's offsets, then #3's
+// phases on mma.sync). fp32 keeps the CUDA-core kernel below and its bits:
+// #2's plan and code, common.cuh's `bwd_recompute_head`, one block per
+// (head, batch row) holding the whole [S, S] problem in shared memory, so
+// every reduction stays inside the block, with no atomics and
+// bit-reproducible results; the keep bit rides in the sign of P. Here the
+// head's rows are contiguous (row stride Dh). Both plans fit 227 KB up to S
+// = 140 at Dh = 64 (S = 117 at Dh = 128); the Python wrapper's `split_tier`
+// sends longer sequences to the einsum branch before any launch. A bf16
+// call always launches the tensor-core kernel or returns the launch's error
+// (cudaErrorMisalignedAddress where q, k, v or g does not start on the 16
+// bytes cp.async copies).
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
 
 namespace {
 
@@ -122,10 +128,32 @@ int attn_bwd_split(const void* q, const void* k, const void* v,
     case 0:
       return dispatch<float>(q, k, v, mask, g, dq, dk, dv, B, S, H, Dh, scale,
                              b_off, h_off, dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(q, k, v, mask, g, dq, dk, dv, B, S, H,
-                                     Dh, scale, b_off, h_off, dropout != 0,
-                                     drop, st);
+    case 1: {
+      // The tensor-core plan of attn_full_tc.cuh.
+      using bf16 = __nv_bfloat16;
+      const long long head = (long long)S * Dh;
+      const full_tc::BwdGeom geom{static_cast<const bf16*>(q),
+                                  static_cast<const bf16*>(k),
+                                  static_cast<const bf16*>(v),
+                                  head * H,
+                                  head,
+                                  Dh,
+                                  static_cast<const bf16*>(g),
+                                  head * H,
+                                  head,
+                                  Dh,
+                                  static_cast<bf16*>(dq),
+                                  static_cast<bf16*>(dk),
+                                  static_cast<bf16*>(dv),
+                                  head * H,
+                                  head,
+                                  Dh,
+                                  nullptr,
+                                  nullptr};
+      return full_tc::launch_bwd_recompute(
+          geom, static_cast<const float*>(mask), B, S, H, Dh, scale,
+          dropout != 0, b_off, h_off, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,11 @@
 // The bf16 tensor-core plans of the full-H attention kernels: the forward
 // #1 (attn_fwd_packed.cu) and its split-layout twin #8 (attn_fwd_split.cu),
 // the saved-probs backward #3 (attn_bwd_packed_saved.cu) and its twin #10
-// (attn_bwd_split_saved.cu). fp32 keeps the CUDA-core row code of
-// common.cuh (`fwd_rows`, `bwd_saved_head`), as do #18 and #19, whose head
+// (attn_bwd_split_saved.cu), the recompute backward #9 (attn_bwd_split.cu)
+// and its packed twin #2 (attn_bwd_packed.cu). fp32 keeps the CUDA-core
+// row code of
+// common.cuh (`fwd_rows`, `bwd_saved_head`, `bwd_recompute_head`), as do
+// #18 and #19, whose head
 // lies in shared memory where cp.async cannot read it.
 //
 // What they compute is #1's and #3's function (common.cuh's notes), per
@@ -76,12 +79,33 @@
 // and g [S16][L] bf16, pd and ds_c [S16][S16 + 8] bf16: 54 KB at S = 50,
 // Dh = 64; 166.5 KB at S = 140; 204 KB at S = 117, Dh = 128.
 //
+// Recompute backward (`bwd_recompute_rows`, #2 and #9, S ≤
+// max_bwd_seq_len(Dh)): #1's scores and softmax in front of #3's phases,
+// one block of S/16 warps (rounded up) per (head, batch row), #13's
+// staging. Q, K staged by cp.async into A, B; phase 0 rebuilds p with the
+// forward's bits: to S = 64 each warp runs #1's register plan on its slab
+// (`reg_scores_softmax`, the keep words from the lane pairs of
+// `keep_words`), past it the scores go to an fp32 tile in #4's 16 × 16
+// units and common.cuh's `softmax_rows_keep_sign` (the order of
+// `tc_hb_softmax_rows`). p lands in an fp32 tile P [S16][S16 + 4], the
+// keep bit in its sign, while g and V stream into A and B. Phase 1, warp w
+// on its slab, 64 keys at a time: d(pd) = g · Vᵀ, t = pd ⊙ d(pd), Σ_k t in
+// the lane order of #3, ds_c = bf16((t − p · Σt) · scale) to a bf16 tile,
+// pd_c = bf16(pd) over the slab's own P rows. Then K streams into B while
+// dV = pd_cᵀ · g runs (key slices), Q into A while dQ = ds_c · K runs
+// (slabs), and dK = ds_cᵀ · Q (key slices), each by ldmatrix(.trans). The
+// keep mask is replayed at (k >> 2, q, h + h_off, b + b_off), so a TP
+// shard draws the one-card mask. The layouts reach it through BwdGeom, so
+// #2 and #9 give the same bits. Shared memory (ops/fused_attention.py::
+// full_tc_bwd_recompute_smem_bytes): 44.3 KB at S = 50, Dh = 64; 167.1 KB
+// at S = 140; 168.5 KB at S = 117, Dh = 128.
+//
 // Against the fp32 kernels: a bf16 × bf16 product is exact in fp32, so a
 // dot differs from the CUDA-core fmaf chain of the same values only in the
 // order of its sum, and so do the row sums of the quad plan; the roundings
-// sit where the fp32 kernels put them. bf16 #1 and #3 are held to their
-// plain versions within the forward bound and `dqkv_bf16_bound`, not bit
-// for bit. The layouts reach these functions through plain strides
+// sit where the fp32 kernels put them. bf16 #1, #3 and #2/#9 are held to
+// their plain versions within the forward bound and `dqkv_bf16_bound`, not
+// bit for bit. The layouts reach these functions through plain strides
 // (`FwdGeom`, `BwdGeom`), so the packed and split kernels run one code and
 // #8 gives #1's bits, #10 #3's.
 
@@ -255,6 +279,59 @@ __device__ __forceinline__ void store_rows(const float (&acc)[nt][4],
 
 // ---- forward, register plan (S ≤ kRegMaxS) --------------------------------
 
+// One warp's 16 query rows (qs, staged from row m0) against every key (ks,
+// nkt ≤ kRegTiles n8 tiles): s = (q · k) · scale + bias into registers, the
+// row's max and sum from the lane's keys in order, then the quad's xor
+// tree; returns e = exp(s − max) in sc (0 past S) and the sums. #1/#8's
+// register plan and #2/#9's recompute share it, so both have the same p.
+__device__ __forceinline__ void reg_scores_softmax(
+    float (&sc)[kRegTiles][4], float (&sum)[2], const bf16* qs,
+    const bf16* ks, int ld, int kd, int nkt, int S, float scale,
+    const float* bias) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t)
+    sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.0f;
+  warp_abt<kRegTiles>(sc, qs, ks, ld, kd, nkt);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * t + 2 * t4 + (e & 1);
+      const float x = t < nkt && j < S
+                          ? __fadd_rn(__fmul_rn(sc[t][e], scale), bias[j])
+                          : -INFINITY;
+      sc[t][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+  sum[0] = sum[1] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * t + 2 * t4 + (e & 1);
+      float x = 0.0f;
+      if (t < nkt && j < S) {
+        x = expf(sc[t][e] - mx[e >> 1]);
+        sum[e >> 1] += x;
+      }
+      sc[t][e] = x;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+}
+
 __host__ __device__ inline size_t fwd_reg_smem_bytes(int s, int dh) {
   return 3 * (size_t)rows16(s) * attn::tc_ld(dh) * sizeof(bf16) +
          (size_t)rows16(s) * sizeof(float);
@@ -286,49 +363,10 @@ __device__ __forceinline__ void fwd_reg_rows(unsigned char* smem_raw,
   attn::cp_async_wait<0>();
   __syncthreads();
 
-  // s = (q · k) · scale + bias for the warp's 16 rows and every key.
   const int m0 = warp * 16;
   const int t4 = lane & 3;
-  float sc[kRegTiles][4] = {};
-  warp_abt<kRegTiles>(sc, qs + m0 * ld, ks, ld, kd, nkt);
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int t = 0; t < kRegTiles; ++t) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * t + 2 * t4 + (e & 1);
-      const float x = t < nkt && j < S
-                          ? __fadd_rn(__fmul_rn(sc[t][e], scale), bias[j])
-                          : -INFINITY;
-      sc[t][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  }
-  // The row's max and sum: the lane's keys in order, then the quad.
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int t = 0; t < kRegTiles; ++t) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * t + 2 * t4 + (e & 1);
-      float x = 0.0f;
-      if (t < nkt && j < S) {
-        x = expf(sc[t][e] - mx[e >> 1]);
-        sum[e >> 1] += x;
-      }
-      sc[t][e] = x;
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+  float sc[kRegTiles][4], sum[2];
+  reg_scores_softmax(sc, sum, qs + m0 * ld, ks, ld, kd, nkt, S, scale, bias);
 
   // p = e / sum; the saved p, the keep mask, the saved pd.
   const int q_lo = m0 + (lane >> 2);
@@ -818,6 +856,340 @@ int launch_bwd(const Geom& g, int B, int S, int H, int Dh, float scale,
                                                       pairs, st)
                : launch_bwd_tiles<kBwdTiles128, 16>(g, B, S, H, Dh, scale,
                                                     pairs, st);
+}
+
+// ---- the recompute backward ------------------------------------------------
+
+constexpr int kRcTiles = 8;  // the recompute's n8 key tiles in registers
+// Its most warps: one a 16-row slab of the reach's longest S (165 at Dh = 8
+// rounded up to 176).
+constexpr int kMaxBwdRcWarps = 11;
+constexpr int kMaxBwdRcThreads = kMaxBwdRcWarps * 32;
+// Blocks an SM the S ≤ 64 build at Dh ≤ 64 is held to: four blocks of
+// four warps (128 registers) ran #9 14% faster at bf16 B=256 S=50 H=12
+// than three (132 registers, no bound) on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_ab.py).
+constexpr int kRcSmallBlocks = 4;
+
+__host__ __device__ inline int bwd_rc_p_ld(int s) { return rows16(s) + 4; }
+
+// Shared memory of a #2/#9 block: A and B [S16][L] bf16 (Q and K, then g
+// and V, then K and Q again), the probs P [S16][S16 + 4] fp32 (pd_c over
+// them), ds_c [S16][S16 + 8] bf16 and the [S16] fp32 bias.
+__host__ __device__ inline size_t bwd_rc_smem_bytes(int s, int dh) {
+  const size_t sp = rows16(s);
+  return 2 * sp * attn::tc_ld(dh) * sizeof(bf16) +
+         sp * bwd_rc_p_ld(s) * sizeof(float) +
+         sp * bwd_pld(s) * sizeof(bf16) + sp * sizeof(float);
+}
+
+// The recompute backward of one (head, batch row): rows16(S) / 16 warps,
+// warp w on query rows 16w .. 16w + 15 and keys 16w .. 16w + 15. mask: the
+// batch row's fp32 [S] mask (null: no padding); (drop_b, drop_h): the
+// Philox counter's batch row and head.
+template <int kDT, bool kDropout>
+__device__ __forceinline__ void bwd_recompute_rows(
+    unsigned char* smem_raw, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, int ld_in,
+    const bf16* __restrict__ g, int g_ld, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int d_ld,
+    const float* __restrict__ mask, int drop_b, int drop_h, int S, int Dh,
+    float scale, const DropoutArgs& drop) {
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g4 = lane >> 2, t4 = lane & 3;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S), nkt = sp / 8, nk16 = sp / 16;
+  const int pl4 = bwd_rc_p_ld(S), pld = bwd_pld(S);
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [sp][ld]: Q, g, Q
+  bf16* bs = as + sp * ld;                        // [sp][ld]: K, V, K
+  float* ps = reinterpret_cast<float*>(bs + sp * ld);  // [sp][pl4]
+  bf16* pds = reinterpret_cast<bf16*>(ps);   // [sp][2·pl4]: pd_c over P
+  bf16* dss = reinterpret_cast<bf16*>(ps + sp * pl4);    // [sp][pld]: ds_c
+  float* bias = reinterpret_cast<float*>(dss + sp * pld);  // [sp]
+  const float inv_keep = drop.inv_keep;
+
+  attn::tc_cp_rows(as, ld, q, ld_in, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(bs, ld, k, ld_in, 0, sp, 0, S, Dh);
+  attn::cp_async_commit();
+  for (int j = threadIdx.x; j < sp; j += blockDim.x)
+    bias[j] = mask && j < S ? (1.0f - mask[j]) * -10000.0f : 0.0f;
+  attn::tc_zero_cols(as, ld, 2 * sp, Dh, kd);  // A's and B's pad columns
+  attn::cp_async_wait<0>();
+  __syncthreads();
+
+  // Phase 0: p again, with the forward's bits; the keep bit in its sign.
+  const int m0 = 16 * warp;
+  if (S <= kRegMaxS) {
+    // #1's register plan: the warp's slab in registers, its lane pairs'
+    // keep words.
+    float sc[kRegTiles][4], sum[2];
+    reg_scores_softmax(sc, sum, as + m0 * ld, bs, ld, kd, nkt, S, scale,
+                       bias);
+    __syncthreads();  // every warp has read Q and K: stage g and V
+    attn::tc_cp_rows(as, ld, g, g_ld, 0, sp, 0, S, Dh);
+    attn::tc_cp_rows(bs, ld, v, ld_in, 0, sp, 0, S, Dh);
+    attn::cp_async_commit();
+#pragma unroll
+    for (int t = 0; t < kRegTiles; ++t) {
+      if (t < nkt) {
+        uint32_t wd[4] = {0u, 0u, 0u, 0u};
+        if constexpr (kDropout)
+          keep_words(wd, m0 + g4, t, drop_b, drop_h, drop);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          float x[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            x[u] = sc[t][2 * hi + u] / sum[hi];
+            if (kDropout && wd[2 * hi + u] < drop.threshold)
+              x[u] = copysignf(x[u], -1.0f);
+          }
+          *reinterpret_cast<float2*>(ps + (m0 + g4 + 8 * hi) * pl4 + 8 * t +
+                                     2 * t4) = make_float2(x[0], x[1]);
+        }
+      }
+    }
+  } else {
+    // #4's score tile: 16 × 16 units, then its whole-row softmax order.
+    for (int u = warp; u < nk16 * nk16; u += nw) {
+      const int r0 = 16 * (u / nk16), k0 = 16 * (u - (u / nk16) * nk16);
+      float sc[2][4] = {};
+      warp_abt<2>(sc, as + r0 * ld, bs + k0 * ld, ld, kd, 2);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = k0 + 8 * t + 2 * t4;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi)
+          *reinterpret_cast<float2*>(ps + (r0 + g4 + 8 * hi) * pl4 + j) =
+              make_float2(
+                  __fadd_rn(__fmul_rn(sc[t][2 * hi], scale), bias[j]),
+                  __fadd_rn(__fmul_rn(sc[t][2 * hi + 1], scale),
+                            bias[j + 1]));
+      }
+    }
+    __syncthreads();  // every score is in; Q and K are done with
+    attn::tc_cp_rows(as, ld, g, g_ld, 0, sp, 0, S, Dh);
+    attn::tc_cp_rows(bs, ld, v, ld_in, 0, sp, 0, S, Dh);
+    attn::cp_async_commit();
+    attn::softmax_rows_keep_sign<kDropout>(ps, S, S, 0, drop_b, drop_h, drop,
+                                           pl4);
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();  // p whole; g and V are in
+
+  // Phase 1: the warp's slab. d(pd) = g · Vᵀ a 64-key chunk at a time, t =
+  // pd ⊙ d(pd), Σ_k t from the lane's keys in order then the quad (a second
+  // pass past 64 keys), ds_c = T((t − p · Σt) · scale) to its tile, pd_c
+  // over the slab's own P rows.
+  {
+    const int q_lo = m0 + g4;
+    float tt[kRcTiles][4];
+    auto p_pair = [&](int hi, int j, float (&x)[2]) {  // signed; 0 past S
+      x[0] = x[1] = 0.0f;
+      if (q_lo + 8 * hi < S && j < S) {
+        const float2 f =
+            *reinterpret_cast<const float2*>(ps + (q_lo + 8 * hi) * pl4 + j);
+        x[0] = f.x;
+        if (j + 1 < S) x[1] = f.y;
+      }
+    };
+    auto dpd = [&](int t0, int n) {
+#pragma unroll
+      for (int t = 0; t < kRcTiles; ++t)
+        tt[t][0] = tt[t][1] = tt[t][2] = tt[t][3] = 0.0f;
+      warp_abt<kRcTiles>(tt, as + m0 * ld, bs + t0 * 8 * ld, ld, kd, n);
+#pragma unroll
+      for (int t = 0; t < kRcTiles; ++t) {
+        if (t < n) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            float x[2];
+            p_pair(hi, 8 * (t0 + t) + 2 * t4, x);
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              tt[t][2 * hi + u] =
+                  __fmul_rn(attn::pd_of_signed<kDropout>(x[u], inv_keep),
+                            tt[t][2 * hi + u]);
+          }
+        }
+      }
+    };
+    const int n_kc = (nkt + kRcTiles - 1) / kRcTiles;
+    float sum[2] = {0.0f, 0.0f};
+    for (int kc = 0; kc < n_kc; ++kc) {
+      const int n = min(kRcTiles, nkt - kc * kRcTiles);
+      dpd(kc * kRcTiles, n);
+#pragma unroll
+      for (int t = 0; t < kRcTiles; ++t) {
+        if (t < n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[e >> 1] += tt[t][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+    for (int kc = 0; kc < n_kc; ++kc) {
+      const int t0 = kc * kRcTiles, n = min(kRcTiles, nkt - t0);
+      if (n_kc > 1) dpd(t0, n);
+      uint32_t pdw[kRcTiles][2];
+#pragma unroll
+      for (int t = 0; t < kRcTiles; ++t) {
+        if (t < n) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int j = 8 * (t0 + t) + 2 * t4;
+            float x[2], pd[2], ds[2];
+            p_pair(hi, j, x);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              pd[u] = attn::pd_of_signed<kDropout>(x[u], inv_keep);
+              ds[u] = __fmul_rn(
+                  __fsub_rn(tt[t][2 * hi + u],
+                            __fmul_rn(attn::p_of_signed<kDropout>(x[u]),
+                                      sum[hi])),
+                  scale);
+            }
+            pdw[t][hi] = attn::pack_bf16(pd[0], pd[1]);
+            *reinterpret_cast<uint32_t*>(dss + (q_lo + 8 * hi) * pld + j) =
+                attn::pack_bf16(ds[0], ds[1]);
+          }
+        }
+      }
+      // pd_c of key j lies on p's element j / 2: each written once the
+      // warp has read this chunk's keys (and, past the first, the earlier
+      // chunks' that it lies on).
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < kRcTiles; ++t) {
+        if (t < n) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            *reinterpret_cast<uint32_t*>(pds + (q_lo + 8 * hi) * 2 * pl4 +
+                                         8 * (t0 + t) + 2 * t4) = pdw[t][hi];
+        }
+      }
+    }
+  }
+  __syncthreads();  // pd_c and ds_c whole; V is done with
+
+  attn::tc_cp_rows(bs, ld, k, ld_in, 0, sp, 0, S, Dh);
+  attn::cp_async_commit();
+  {  // Phase 2a: dV = pd_cᵀ · g, the warp's 16 keys over every query row.
+    float acc[kDT][4] = {};
+    for (int c = 0; c < sp; c += 16) {
+      uint32_t fa[4];
+      attn::ldsm_x4_trans(fa, attn::tc_lane_at(pds + c * 2 * pl4 + m0,
+                                               2 * pl4));
+      attn::tc_mma_bt(acc, fa, attn::tc_lane_bt(as + c * ld, ld), Dh / 8);
+    }
+    store_rows(acc, dv, d_ld, m0, S, Dh);
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();  // K is in; g is done with
+
+  attn::tc_cp_rows(as, ld, q, ld_in, 0, sp, 0, S, Dh);
+  attn::cp_async_commit();
+  {  // Phase 1b: dQ = ds_c · K, the warp's slab.
+    float acc[kDT][4] = {};
+    const bf16* pa = attn::tc_lane_a(dss + m0 * pld, pld);
+    const bf16* kb = attn::tc_lane_bt(bs, ld);
+    for (int c = 0; c < sp; c += 16) {
+      uint32_t fa[4];
+      attn::ldsm_x4(fa, pa + c);
+      attn::tc_mma_bt(acc, fa, kb + c * ld, Dh / 8);
+    }
+    store_rows(acc, dq, d_ld, m0, S, Dh);
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();  // Q is in
+
+  {  // Phase 2b: dK = ds_cᵀ · Q, the warp's 16 keys.
+    float acc[kDT][4] = {};
+    for (int c = 0; c < sp; c += 16) {
+      uint32_t fa[4];
+      attn::ldsm_x4_trans(fa, attn::tc_lane_at(dss + c * pld + m0, pld));
+      attn::tc_mma_bt(acc, fa, attn::tc_lane_bt(as + c * ld, ld), Dh / 8);
+    }
+    store_rows(acc, dk, d_ld, m0, S, Dh);
+  }
+}
+
+// #2/#9's geometry: BwdGeom's q, k, v, g and the gradients (p and pd
+// unused), the fp32 [B, S] mask (null: no padding) and the Philox
+// counter's offsets.
+template <int kDT, bool kDropout, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    attn_full_tc_bwd_recompute_kernel(BwdGeom g, const float* mask, int S,
+                                      int H, int Dh, float scale, int b_off,
+                                      int h_off, DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long o = b * g.sb + h * g.sh;
+  const long long og = b * g.gsb + h * g.gsh;
+  const long long od = b * g.dsb + h * g.dsh;
+  bwd_recompute_rows<kDT, kDropout>(
+      smem_raw, g.q + o, g.k + o, g.v + o, g.ld, g.g + og, g.g_ld, g.dq + od,
+      g.dk + od, g.dv + od, g.d_ld, mask ? mask + (size_t)b * S : nullptr,
+      b + b_off, h + h_off, S, Dh, scale, drop);
+}
+
+template <int kDT, bool kDropout, int kThreads, int kMinBlocks>
+int launch_bwd_rc_build(const BwdGeom& g, const float* mask, int B, int S,
+                        int H, int Dh, float scale, int b_off, int h_off,
+                        const DropoutArgs& drop, cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  const cudaError_t err = attn::allow_max_smem(
+      attn_full_tc_bwd_recompute_kernel<kDT, kDropout, kThreads, kMinBlocks>,
+      &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  attn_full_tc_bwd_recompute_kernel<kDT, kDropout, kThreads, kMinBlocks>
+      <<<dim3(H, B), rows16(S) / 16 * 32, bwd_rc_smem_bytes(S, Dh),
+         stream>>>(g, mask, S, H, Dh, scale, b_off, h_off, drop);
+  return (int)cudaGetLastError();
+}
+
+template <int kDT, bool kDropout>
+int launch_bwd_rc(const BwdGeom& g, const float* mask, int B, int S, int H,
+                  int Dh, float scale, int b_off, int h_off,
+                  const DropoutArgs& drop, cudaStream_t stream) {
+  if constexpr (kDT == 8) {
+    if (S <= kRegMaxS)
+      return launch_bwd_rc_build<kDT, kDropout, kRegThreads, kRcSmallBlocks>(
+          g, mask, B, S, H, Dh, scale, b_off, h_off, drop, stream);
+  }
+  return launch_bwd_rc_build<kDT, kDropout, kMaxBwdRcThreads, 1>(
+      g, mask, B, S, H, Dh, scale, b_off, h_off, drop, stream);
+}
+
+// The bf16 recompute backward of #2 / #9 on one layout (the probs again
+// with the forward's bits, the keep mask replayed at (k >> 2, q, h + h_off,
+// b + b_off)). q, k, v and g must start on the 16 bytes cp.async copies.
+// Returns the cudaError_t of the launch; a shape past the plan returns
+// cudaErrorInvalidValue.
+template <typename Geom>
+int launch_bwd_recompute(const Geom& g, const float* mask, int B, int S,
+                         int H, int Dh, float scale, bool dropout, int b_off,
+                         int h_off, const DropoutArgs& drop,
+                         cudaStream_t st) {
+  if (rows16(S) / 16 * 32 > kMaxBwdRcThreads ||
+      bwd_rc_smem_bytes(S, Dh) > attn::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(g.q, 16) || !aligned(g.k, 16) || !aligned(g.v, 16) ||
+      !aligned(g.g, 16))
+    return (int)cudaErrorMisalignedAddress;
+  if (dh_tiles(Dh) == 8)
+    return dropout ? launch_bwd_rc<8, true>(g, mask, B, S, H, Dh, scale,
+                                            b_off, h_off, drop, st)
+                   : launch_bwd_rc<8, false>(g, mask, B, S, H, Dh, scale,
+                                             b_off, h_off, drop, st);
+  return dropout ? launch_bwd_rc<16, true>(g, mask, B, S, H, Dh, scale,
+                                           b_off, h_off, drop, st)
+                 : launch_bwd_rc<16, false>(g, mask, B, S, H, Dh, scale,
+                                            b_off, h_off, drop, st);
 }
 
 }  // namespace full_tc

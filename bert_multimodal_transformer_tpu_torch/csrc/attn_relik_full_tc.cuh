@@ -1,7 +1,9 @@
 // The bf16 tensor-core plans of the full-H ingredients rel kernels: the
-// forward #20 (attn_fwd_relik.cu) and the recompute backward #21
-// (attn_bwd_relik.cu). fp32 keeps their CUDA-core kernels and their bits;
-// #22 keeps its CUDA-core code in both dtypes.
+// forward #20 (attn_fwd_relik.cu), the recompute backward #21
+// (attn_bwd_relik.cu) and the saved-probs backward #22
+// (attn_bwd_relik_saved.cu), which runs #21's block code without its
+// recompute.
+// fp32 keeps their CUDA-core kernels and their bits.
 //
 // What they compute is #20's and #21's function, per batch row b and head
 // h, from rw, rr [B, Q, D], r [P, D] (P ≥ Q + K), k, v [B, K, D], ed
@@ -11,7 +13,8 @@
 //   p    = softmax_k(s) (fp32, max-subtracted); save: p_out = bf16(p);
 //          rate > 0: pd = keep ? p · inv_keep : 0 (the Philox stream at
 //          (k >> 2, q, h, b)); save: pd_out = bf16(pd); out = bf16(pd) · v
-//   #21: p and pd recomputed; t = pd ⊙ (g · vᵀ); ds = t − p · Σ_k t;
+//   #21: p and pd recomputed (#22: read from the saved bf16 probs);
+//        t = pd ⊙ (g · vᵀ); ds = t − p · Σ_k t;
 //        ded = Σ_k ds · segd; ds_c = bf16(ds · scale), ds_u = bf16(ds);
 //        dv = bf16(pd)ᵀ · g, drw = ds_c · k, dk = ds_cᵀ · rw,
 //        drr[q] = Σ_k ds_u[q][k] · r[Q − q + k], and this (b, h)'s fp32
@@ -89,6 +92,14 @@
 //      A while drw = ds_c · k runs, then dK (+)= ds_cᵀ · rw. With more than
 //      one chunk dK and dV add into fp32 sums [K16][Dh] (#13's
 //      `emit_keys`).
+// #22 (`attn_bwd_relik_saved_tc_kernel`) runs the same block code
+// (`bwd_block`) with phase 0 replaced: g, v, rr and the window are staged
+// at once, the chunk's saved pd rows go straight into the pd_c tile over P
+// (bf16, K·2 bytes apart: 4-byte pair loads while K is even, 2-byte loads
+// otherwise) and phase 1 reads p from device memory in the accumulator
+// layout, as #13 does; it writes no pd_c. Phases 1-2 are #21's code (#21
+// reads p and pd in fp32 where #22 reads them rounded, so the two agree
+// within `relik_full_grads_bf16_bound`, not bit for bit).
 // Every reduction has one order: no atomics, the same bits twice. Shared
 // memory (`bwd_smem_bytes`, ops/fused_attention.py::
 // relik_full_tc_bwd_smem_bytes): 84.0 KB at Q = K = 50, Dh = 64; it covers
@@ -577,13 +588,18 @@ struct BwdArgs {
   float* ws;  // [B, P, D]
   int B, Q, K, P, H, Dh;
   float scale;
+  const bf16* p;  // #22: the saved probs [B, H, Q, K] (null for #21)
+  const bf16* pd;
 };
 
-template <int kDT, bool kDropout, int kMinBlocks>
-__global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
-    attn_bwd_relik_tc_kernel(BwdArgs a, int qc, bool pairs,
-                             DropoutArgs drop) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// One (head, batch row)'s block. kSaved: #22, p and pd read from the saved
+// probs (ed and maskb unused, `p_pairs`: them read as bf16x2); else #21,
+// both recomputed.
+template <int kDT, bool kDropout, bool kSaved>
+__device__ __forceinline__ void bwd_block(unsigned char* smem_raw,
+                                          const BwdArgs& a, int qc,
+                                          bool pairs, bool p_pairs,
+                                          const DropoutArgs& drop) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int Q = a.Q, K = a.K, P = a.P, Dh = a.Dh, D = a.H * Dh;
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
@@ -609,6 +625,7 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
   bf16* ded_bh = a.ded + ((size_t)b * a.H + h) * Q;
   float* ws_bh = a.ws + (size_t)b * P * D + h * Dh;
   const float inv_keep = drop.inv_keep;
+  const size_t prow0 = ((size_t)b * a.H + h) * Q;  // saved row q at + q · K
 
   attn::tc_zero_cols(as, ld, 3 * qc + 2 * kp, Dh, kd);  // the pad columns
 
@@ -618,9 +635,12 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
     // window row w holds r[pw + w]; slab m0 reads from rp − 16 − m0 on
     const long long pw = (long long)Q - c0 - rp + 1;
     const int wrows = rp + kp;
-    attn::tc_cp_rows(as, ld, a.rw + q_base, D, c0, rp, 0, rows, Dh);
+    // #21 stages rw and k for the scores; #22 g and v for phase 1.
+    attn::tc_cp_rows(as, ld, (kSaved ? a.g : a.rw) + q_base, D, c0, rp, 0,
+                     rows, Dh);
     attn::tc_cp_rows(rs, ld, a.rr + q_base, D, c0, rp, 0, rows, Dh);
-    attn::tc_cp_rows(bs, ld, a.k + k_base, D, 0, kp, 0, K, Dh);
+    attn::tc_cp_rows(bs, ld, (kSaved ? a.v : a.k) + k_base, D, 0, kp, 0, K,
+                     Dh);
     cp_window(win, ld, a.r + h * Dh, D, P, pw, wrows, Dh);
     attn::cp_async_commit();
     if (first) {
@@ -634,92 +654,145 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
               make_float2(0.0f, 0.0f);
       }
     }
+    if constexpr (kSaved) {
+      // Phase 0 of #22: the chunk's saved pd rows → pd_c over P (zeros to
+      // [rp][kp]), two keys a thread; p is read in phase 1.
+      const bf16* pd_rows = a.pd + (prow0 + c0) * K;
+      const int half = kp / 2;
+      for (int i = threadIdx.x; i < rp * half; i += blockDim.x) {
+        const int r = i / half, c = 2 * (i - r * half);
+        uint32_t w = 0u;
+        if (r < rows && c < K) {
+          const bf16* src = pd_rows + (size_t)r * K + c;
+          if (p_pairs) {
+            w = *reinterpret_cast<const uint32_t*>(src);
+          } else {
+            __nv_bfloat162 x;
+            x.x = src[0];
+            x.y = c + 1 < K ? src[1] : __float2bfloat16(0.0f);
+            w = *reinterpret_cast<const uint32_t*>(&x);
+          }
+        }
+        *reinterpret_cast<uint32_t*>(pds + r * 2 * pl4 + c) = w;
+      }
+    }
     attn::cp_async_wait<0>();
     __syncthreads();
 
-    // Phase 0: #20's scores into P, 16 rows × 16 keys a unit.
-    for (int u = warp; u < nsl * nk16; u += nw) {
-      const int m0 = 16 * (u / nk16), kq = 16 * (u - (u / nk16) * nk16);
-      const int q_lo = c0 + m0 + g4;
-      float ed2[2];
-      lane_ed(ed2, bsx, q_lo);
-      float* unit = ps + m0 * pl4 + kq;
-      float sc[2][4];
-      relik_scores<2>(sc, as + m0 * ld, rs + m0 * ld, bs + kq * ld,
-                      win + (rp - 16 - m0 + kq) * ld, ld, kd, 2, unit, pl4,
-                      bsx, ed2, q_lo, kq, a.scale);
+    if constexpr (!kSaved) {
+      // Phase 0: #20's scores into P, 16 rows × 16 keys a unit.
+      for (int u = warp; u < nsl * nk16; u += nw) {
+        const int m0 = 16 * (u / nk16), kq = 16 * (u - (u / nk16) * nk16);
+        const int q_lo = c0 + m0 + g4;
+        float ed2[2];
+        lane_ed(ed2, bsx, q_lo);
+        float* unit = ps + m0 * pl4 + kq;
+        float sc[2][4];
+        relik_scores<2>(sc, as + m0 * ld, rs + m0 * ld, bs + kq * ld,
+                        win + (rp - 16 - m0 + kq) * ld, ld, kd, 2, unit, pl4,
+                        bsx, ed2, q_lo, kq, a.scale);
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
+        for (int t = 0; t < 2; ++t)
 #pragma unroll
-        for (int hi = 0; hi < 2; ++hi)
-          *reinterpret_cast<float2*>(unit + (g4 + 8 * hi) * pl4 + 8 * t +
-                                     2 * t4) =
-              make_float2(sc[t][2 * hi], sc[t][2 * hi + 1]);
-    }
-    __syncthreads();  // every score is in; rw and k are done with
+          for (int hi = 0; hi < 2; ++hi)
+            *reinterpret_cast<float2*>(unit + (g4 + 8 * hi) * pl4 + 8 * t +
+                                       2 * t4) =
+                make_float2(sc[t][2 * hi], sc[t][2 * hi + 1]);
+      }
+      __syncthreads();  // every score is in; rw and k are done with
 
-    attn::tc_cp_rows(as, ld, a.g + q_base, D, c0, rp, 0, rows, Dh);
-    attn::tc_cp_rows(bs, ld, a.v + k_base, D, 0, kp, 0, K, Dh);
-    attn::cp_async_commit();
-    // The softmax, the keep bit in p's sign: #20's order either way.
-    if (K <= kRegMaxK) {
-      for (int r0 = 16 * warp; r0 < rp; r0 += 16 * nw) {
-        float sc[kRegTiles][4];
+      attn::tc_cp_rows(as, ld, a.g + q_base, D, c0, rp, 0, rows, Dh);
+      attn::tc_cp_rows(bs, ld, a.v + k_base, D, 0, kp, 0, K, Dh);
+      attn::cp_async_commit();
+      // The softmax, the keep bit in p's sign: #20's order either way.
+      if (K <= kRegMaxK) {
+        for (int r0 = 16 * warp; r0 < rp; r0 += 16 * nw) {
+          float sc[kRegTiles][4];
 #pragma unroll
-        for (int t = 0; t < kRegTiles; ++t)
-#pragma unroll
-          for (int hi = 0; hi < 2; ++hi) {
-            float2 x = make_float2(-INFINITY, -INFINITY);
-            if (t < nkt)
-              x = *reinterpret_cast<const float2*>(
-                  ps + (r0 + g4 + 8 * hi) * pl4 + 8 * t + 2 * t4);
-            sc[t][2 * hi] = x.x;
-            sc[t][2 * hi + 1] = x.y;
-          }
-        float sum[2];
-        rel_tc::reg_softmax(sc, sum, K);
-#pragma unroll
-        for (int t = 0; t < kRegTiles; ++t) {
-          if (t < nkt) {
-            uint32_t wd[4] = {0u, 0u, 0u, 0u};
-            if constexpr (kDropout)
-              full_tc::keep_words(wd, c0 + r0 + g4, t, b, h, drop);
+          for (int t = 0; t < kRegTiles; ++t)
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
-              float x[2];
+              float2 x = make_float2(-INFINITY, -INFINITY);
+              if (t < nkt)
+                x = *reinterpret_cast<const float2*>(
+                    ps + (r0 + g4 + 8 * hi) * pl4 + 8 * t + 2 * t4);
+              sc[t][2 * hi] = x.x;
+              sc[t][2 * hi + 1] = x.y;
+            }
+          float sum[2];
+          rel_tc::reg_softmax(sc, sum, K);
 #pragma unroll
-              for (int u = 0; u < 2; ++u) {
-                x[u] = sc[t][2 * hi + u] / sum[hi];
-                if (kDropout && wd[2 * hi + u] < drop.threshold)
-                  x[u] = copysignf(x[u], -1.0f);
+          for (int t = 0; t < kRegTiles; ++t) {
+            if (t < nkt) {
+              uint32_t wd[4] = {0u, 0u, 0u, 0u};
+              if constexpr (kDropout)
+                full_tc::keep_words(wd, c0 + r0 + g4, t, b, h, drop);
+#pragma unroll
+              for (int hi = 0; hi < 2; ++hi) {
+                float x[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                  x[u] = sc[t][2 * hi + u] / sum[hi];
+                  if (kDropout && wd[2 * hi + u] < drop.threshold)
+                    x[u] = copysignf(x[u], -1.0f);
+                }
+                *reinterpret_cast<float2*>(ps + (r0 + g4 + 8 * hi) * pl4 +
+                                           8 * t + 2 * t4) =
+                    make_float2(x[0], x[1]);
               }
-              *reinterpret_cast<float2*>(ps + (r0 + g4 + 8 * hi) * pl4 +
-                                         8 * t + 2 * t4) =
-                  make_float2(x[0], x[1]);
             }
           }
         }
+      } else {
+        attn::softmax_rows_keep_sign<kDropout>(ps, rows, K, c0, b, h, drop,
+                                               pl4);
       }
-    } else {
-      attn::softmax_rows_keep_sign<kDropout>(ps, rows, K, c0, b, h, drop,
-                                             pl4);
+      attn::cp_async_wait<0>();
+      __syncthreads();  // p whole; g and v are in
     }
-    attn::cp_async_wait<0>();
-    __syncthreads();  // p whole; g and v are in
 
     // Phase 1: the warp's 16-row slabs.
     for (int r0 = 16 * warp; r0 < rp; r0 += 16 * nw) {
       const int q_lo = r0 + g4;  // chunk rows q_lo and q_lo + 8
       float tt[kBwdTiles][4];
-      // p (signed) of the lane's keys j, j + 1 of row q_lo + 8·hi; 0 past
-      // Q and K
+      // p (#21: signed) of the lane's keys j, j + 1 of row q_lo + 8·hi; 0
+      // past Q and K. #22 reads the saved p in the accumulator layout.
       auto p_pair = [&](int hi, int j, float (&x)[2]) {
         x[0] = x[1] = 0.0f;
-        if (c0 + q_lo + 8 * hi < Q && j < K) {
-          const float2 f = *reinterpret_cast<const float2*>(
-              ps + (q_lo + 8 * hi) * pl4 + j);
-          x[0] = f.x;
-          if (j + 1 < K) x[1] = f.y;
+        const int q = c0 + q_lo + 8 * hi;
+        if (q < Q && j < K) {
+          if constexpr (kSaved) {
+            const bf16* src = a.p + (prow0 + q) * K + j;
+            if (p_pairs) {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(src));
+              x[0] = f.x;
+              x[1] = f.y;
+            } else {
+              x[0] = __bfloat162float(src[0]);
+              if (j + 1 < K) x[1] = __bfloat162float(src[1]);
+            }
+          } else {
+            const float2 f = *reinterpret_cast<const float2*>(
+                ps + (q_lo + 8 * hi) * pl4 + j);
+            x[0] = f.x;
+            if (j + 1 < K) x[1] = f.y;
+          }
+        }
+      };
+      // pd of the same keys: #21 from the signed p, #22 its saved pd_c
+      auto pd_pair = [&](int hi, int j, const float (&x)[2],
+                         float (&pd)[2]) {
+        if constexpr (kSaved) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  pds + (q_lo + 8 * hi) * 2 * pl4 + j));
+          pd[0] = f.x;
+          pd[1] = f.y;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            pd[u] = attn::pd_of_signed<kDropout>(x[u], inv_keep);
         }
       };
       // tt = pd ⊙ (g · vᵀ) over the n8 key tiles t0 .. t0 + n − 1 (n even)
@@ -734,13 +807,13 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
           if (t < n) {
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
-              float x[2];
-              p_pair(hi, 8 * (t0 + t) + 2 * t4, x);
+              const int j = 8 * (t0 + t) + 2 * t4;
+              float x[2] = {0.0f, 0.0f}, pd[2];
+              if constexpr (!kSaved) p_pair(hi, j, x);
+              pd_pair(hi, j, x, pd);
 #pragma unroll
               for (int u = 0; u < 2; ++u)
-                tt[t][2 * hi + u] = __fmul_rn(
-                    attn::pd_of_signed<kDropout>(x[u], inv_keep),
-                    tt[t][2 * hi + u]);
+                tt[t][2 * hi + u] = __fmul_rn(pd[u], tt[t][2 * hi + u]);
             }
           }
         }
@@ -776,11 +849,12 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
           if (t < n) {
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
-              float x[2], pd[2];
-              p_pair(hi, 8 * (t0 + t) + 2 * t4, x);
+              const int j = 8 * (t0 + t) + 2 * t4;
+              float x[2], pd[2] = {0.0f, 0.0f};
+              p_pair(hi, j, x);
+              if constexpr (!kSaved) pd_pair(hi, j, x, pd);
 #pragma unroll
               for (int u = 0; u < 2; ++u) {
-                pd[u] = attn::pd_of_signed<kDropout>(x[u], inv_keep);
                 tt[t][2 * hi + u] =
                     __fsub_rn(tt[t][2 * hi + u],
                               __fmul_rn(attn::p_of_signed<kDropout>(x[u]),
@@ -799,8 +873,9 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
               const int i = g4 + 8 * hi, row = r0 + i;
               const int j = 8 * (t0 + t) + 2 * t4;
               const float ds0 = tt[t][2 * hi], ds1 = tt[t][2 * hi + 1];
-              *reinterpret_cast<uint32_t*>(pds + row * 2 * pl4 + j) =
-                  pdw[t][hi];
+              if constexpr (!kSaved)
+                *reinterpret_cast<uint32_t*>(pds + row * 2 * pl4 + j) =
+                    pdw[t][hi];
               *reinterpret_cast<uint32_t*>(dss + row * pld + j) =
                   attn::pack_bf16(__fmul_rn(ds0, a.scale),
                                   __fmul_rn(ds1, a.scale));
@@ -931,16 +1006,41 @@ __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
   }
 }
 
-template <int kDT, bool kDropout, int kMinBlocks, typename Args>
-int launch_bwd_blocks(const Args& a, int qc, bool pairs,
+template <int kDT, bool kDropout, int kMinBlocks>
+__global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
+    attn_bwd_relik_tc_kernel(BwdArgs a, int qc, bool pairs,
+                             DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_block<kDT, kDropout, false>(smem_raw, a, qc, pairs, false, drop);
+}
+
+template <int kDT, int kMinBlocks>
+__global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
+    attn_bwd_relik_saved_tc_kernel(BwdArgs a, int qc, bool pairs,
+                                   bool p_pairs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_block<kDT, false, true>(smem_raw, a, qc, pairs, p_pairs,
+                              DropoutArgs{0ull, 0u, 1.0f});
+}
+
+template <int kDT, bool kDropout, int kMinBlocks, bool kSaved, typename Args>
+int launch_bwd_blocks(const Args& a, int qc, bool pairs, bool p_pairs,
                       const DropoutArgs& drop, cudaStream_t st) {
   static unsigned long long attr_set = 0;
-  const cudaError_t err = attn::allow_max_smem(
-      attn_bwd_relik_tc_kernel<kDT, kDropout, kMinBlocks>, &attr_set);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_relik_tc_kernel<kDT, kDropout, kMinBlocks>
-      <<<dim3(a.H, a.B), kBwdThreads, bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q),
-         st>>>(a, qc, pairs, drop);
+  const size_t bytes = bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q);
+  if constexpr (kSaved) {
+    const cudaError_t err = attn::allow_max_smem(
+        attn_bwd_relik_saved_tc_kernel<kDT, kMinBlocks>, &attr_set);
+    if (err != cudaSuccess) return (int)err;
+    attn_bwd_relik_saved_tc_kernel<kDT, kMinBlocks>
+        <<<dim3(a.H, a.B), kBwdThreads, bytes, st>>>(a, qc, pairs, p_pairs);
+  } else {
+    const cudaError_t err = attn::allow_max_smem(
+        attn_bwd_relik_tc_kernel<kDT, kDropout, kMinBlocks>, &attr_set);
+    if (err != cudaSuccess) return (int)err;
+    attn_bwd_relik_tc_kernel<kDT, kDropout, kMinBlocks>
+        <<<dim3(a.H, a.B), kBwdThreads, bytes, st>>>(a, qc, pairs, drop);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -950,15 +1050,17 @@ int launch_bwd_blocks(const Args& a, int qc, bool pairs,
 // registers, one block an SM; where one block fills the SM the unbounded
 // build runs (at Q = 50, K = 100 the bounded one lost 8%; bf16 B=256 on an
 // NVIDIA H100 80GB HBM3 at 700 W, chip_ab.py). Dh ≤ 128 takes one block.
-template <int kDT, bool kDropout, typename Args>
-int launch_bwd_dt(const Args& a, int qc, bool pairs, const DropoutArgs& drop,
-                  cudaStream_t st) {
+template <int kDT, bool kDropout, bool kSaved, typename Args>
+int launch_bwd_dt(const Args& a, int qc, bool pairs, bool p_pairs,
+                  const DropoutArgs& drop, cudaStream_t st) {
   if constexpr (kDT == 8) {
     const size_t bytes = bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q);
     if (2 * (bytes + 1024) <= 228 * 1024)
-      return launch_bwd_blocks<kDT, kDropout, 2>(a, qc, pairs, drop, st);
+      return launch_bwd_blocks<kDT, kDropout, 2, kSaved>(a, qc, pairs,
+                                                         p_pairs, drop, st);
   }
-  return launch_bwd_blocks<kDT, kDropout, 1>(a, qc, pairs, drop, st);
+  return launch_bwd_blocks<kDT, kDropout, 1, kSaved>(a, qc, pairs, p_pairs,
+                                                     drop, st);
 }
 
 // The bf16 recompute backward of #21 (its first launch; the caller sums the
@@ -977,10 +1079,34 @@ int launch_bwd(const Args& a, bool dropout, const DropoutArgs& drop,
   const bool pairs =
       a.K % 2 == 0 && aligned(a.segd, 4) && aligned(a.maskb, 4);
   if (dh_tiles(a.Dh) == 8)
-    return dropout ? launch_bwd_dt<8, true>(a, qc, pairs, drop, st)
-                   : launch_bwd_dt<8, false>(a, qc, pairs, drop, st);
-  return dropout ? launch_bwd_dt<16, true>(a, qc, pairs, drop, st)
-                 : launch_bwd_dt<16, false>(a, qc, pairs, drop, st);
+    return dropout ? launch_bwd_dt<8, true, false>(a, qc, pairs, false, drop,
+                                                   st)
+                   : launch_bwd_dt<8, false, false>(a, qc, pairs, false,
+                                                    drop, st);
+  return dropout ? launch_bwd_dt<16, true, false>(a, qc, pairs, false, drop,
+                                                  st)
+                 : launch_bwd_dt<16, false, false>(a, qc, pairs, false, drop,
+                                                   st);
+}
+
+// The bf16 saved-probs backward of #22 (its first launch, as launch_bwd):
+// a.p and a.pd the saved probs (one pointer twice at rate 0), a.ed and
+// a.maskb unused. rr, r, v, g, rw and k must start on the 16 bytes cp.async
+// copies.
+template <typename Args>
+int launch_bwd_saved(const Args& a, cudaStream_t st) {
+  const int qc = bwd_q_chunk(a.Q, a.K, a.Dh);
+  if (qc == 0) return (int)cudaErrorInvalidValue;
+  if (!aligned(a.rw, 16) || !aligned(a.rr, 16) || !aligned(a.r, 16) ||
+      !aligned(a.k, 16) || !aligned(a.v, 16) || !aligned(a.g, 16))
+    return (int)cudaErrorMisalignedAddress;
+  const bool pairs = a.K % 2 == 0 && aligned(a.segd, 4);
+  const bool p_pairs = a.K % 2 == 0 && aligned(a.p, 4) && aligned(a.pd, 4);
+  const DropoutArgs none{0ull, 0u, 1.0f};
+  return dh_tiles(a.Dh) == 8
+             ? launch_bwd_dt<8, false, true>(a, qc, pairs, p_pairs, none, st)
+             : launch_bwd_dt<16, false, true>(a, qc, pairs, p_pairs, none,
+                                              st);
 }
 
 }  // namespace relik_tc

@@ -32,17 +32,18 @@ The long-sequence packed tiers, taken past the full-H reach
   key blocks with the lse residual, and the flash backward from it, at any
   S.
 
-In bf16, #1, #3, #4-#8, #10, #11, #13-#17, #20, #21, #23 and #24 run
-their products on the tensor cores (``mma.sync`` from ``ldmatrix``,
+In bf16, #1-#11, #13-#17 and #20-#24 run their products on the tensor
+cores (``mma.sync`` from ``ldmatrix``,
 operands staged by ``cp.async``); fp32 keeps their CUDA-core kernels.
 Their shared-memory plans are ``full_tc_fwd_smem_bytes`` (#1, #8: the
 scores in registers up to ``FULL_TC_REG_MAX_SEQ_LEN``, #4's score tile
 past it),
-``full_tc_bwd_smem_bytes`` (#3, #10), ``rel_full_tc_fwd_smem_bytes`` (#11:
+``full_tc_bwd_smem_bytes`` (#3, #10), ``full_tc_bwd_recompute_smem_bytes``
+(#2, #9), ``rel_full_tc_fwd_smem_bytes`` (#11:
 registers up to ``REL_TC_REG_MAX_K``, #14's score tile past it),
 ``rel_full_tc_bwd_smem_bytes`` with ``rel_full_tc_bwd_q_chunk`` (#13),
 ``relik_full_tc_fwd_smem_bytes`` (#20), ``relik_full_tc_bwd_smem_bytes``
-with ``relik_full_tc_bwd_q_chunk`` (#21),
+with ``relik_full_tc_bwd_q_chunk`` (#21, and #22 from the saved probs),
 ``hb_fwd_smem_bytes``, ``hb_bwd_smem_bytes``, ``fs_fwd_smem_bytes``,
 ``fs_bwd_smem_bytes``, ``rel_hb_fwd_smem_bytes``,
 ``rel_hb_bwd_smem_bytes``, ``rel_fs_fwd_smem_bytes``,
@@ -640,7 +641,10 @@ def attn_bwd_packed_cuda(
     rate: float = 0.0,
 ) -> torch.Tensor:
     """Launch kernel #2 (``csrc/attn_bwd_packed.cu``): dqkv [B, S, 3·D]
-    with the probs recomputed and the keep mask replayed from ``seed``."""
+    with the probs recomputed and the keep mask replayed from ``seed``;
+    bf16 on the tensor cores, #9's kernel through the packed strides (its
+    plan, ``full_tc_bwd_recompute_smem_bytes``, fits the whole reach),
+    fp32 on the CUDA cores."""
     b, s, d, dh = _check_cuda("attn_bwd_packed", qkv, n_heads,
                               max_bwd_seq_len(qkv.shape[-1] // 3 // n_heads))
     mask = _mask_arg(attention_mask, qkv, b, s)
@@ -768,6 +772,20 @@ def full_tc_fwd_smem_bytes(s: int, dh: int) -> int:
         s16 = -(-s // 16) * 16
         return 3 * s16 * _tc_ld(dh) * 2 + s16 * 4
     return hb_fwd_smem_bytes(s, dh)
+
+
+def full_tc_bwd_recompute_smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one bf16 #2/#9 block at sequence length ``s`` and
+    head width ``dh`` (``csrc/attn_full_tc.cuh``'s ``bwd_rc_smem_bytes``):
+    the A and B tiles [S16][``_tc_ld``] bf16 (Q and K, then g and V, then
+    K and Q), the probs [S16][S16 + 4] fp32 (pd_c over them), ds_c
+    [S16][S16 + 8] bf16 and the [S16] fp32 bias (44.3 KB at S = 50, Dh =
+    64; 167.1 KB at S = 140; 168.5 KB at S = 117, Dh = 128). It fits every
+    S up to ``max_bwd_seq_len``, the fp32 plan's reach, which both dtypes
+    keep."""
+    s16 = -(-s // 16) * 16
+    return (2 * s16 * _tc_ld(dh) * 2 + s16 * (s16 + 4) * 4
+            + s16 * (s16 + 8) * 2 + s16 * 4)
 
 
 def full_tc_bwd_smem_bytes(s: int, dh: int) -> int:
@@ -1372,7 +1390,8 @@ def attn_bwd_split_cuda(q, k, v, attention_mask, seed, g, *, scale, rate=0.0,
                         b_off=0, h_off=0):
     """Launch kernel #9 (``csrc/attn_bwd_split.cu``): (dq, dk, dv)
     [B, H, S, Dh] with the probs recomputed and the keep mask replayed from
-    ``seed`` at the forward's offsets."""
+    ``seed`` at the forward's offsets; bf16 on the tensor cores
+    (``full_tc_bwd_recompute_smem_bytes``), fp32 on the CUDA cores."""
     b, h, s, dh = _check_split_cuda("attn_bwd_split", q, k, v,
                                     max_bwd_seq_len(q.shape[-1]))
     mask = _mask_arg(attention_mask, q, b, s)
@@ -3230,7 +3249,7 @@ def relik_full_tc_fwd_smem_bytes(q_len: int, k_len: int, dh: int) -> int:
 
 def relik_full_tc_bwd_smem_bytes(qc: int, k_len: int, dh: int,
                                  multi: bool = False) -> int:
-    """Shared memory of one bf16 #21 block whose query chunk holds ``qc``
+    """Shared memory of one bf16 #21/#22 block whose query chunk holds ``qc``
     rows (a multiple of 16) at K = ``k_len``, head width ``dh``
     (``csrc/attn_relik_full_tc.cuh``'s ``bwd_smem_bytes``): rw/g, rr
     [qc][``_tc_ld``], k/v [K16][``_tc_ld``] and the r window [qc +
@@ -3244,7 +3263,7 @@ def relik_full_tc_bwd_smem_bytes(qc: int, k_len: int, dh: int,
 
 
 def relik_full_tc_bwd_q_chunk(q_len: int, k_len: int, dh: int) -> int:
-    """The query rows bf16 #21's block takes at a time
+    """The query rows bf16 #21's and #22's block takes at a time
     (``csrc/attn_relik_full_tc.cuh``'s ``bwd_q_chunk``): all of them,
     rounded up to 16, where they fit; else the most 16-row slabs that fit
     beside the fp32 dK/dV sums; 0 where not even 16 do (no shape of
@@ -3342,16 +3361,22 @@ def attn_bwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
 
 def attn_bwd_relik_saved_cuda(p, pd, rw, rr, r, k, v, segd, g, *, n_heads,
                               scale):
-    """Launch kernel #22 (``csrc/attn_bwd_relik_saved.cu``) from the saved
-    probs p and pd [B, H, Q, K], two kernels on the current stream, each
-    counted (as ``attn_bwd_relik_cuda``). Returns (drw, drr, dr, dk, dv,
-    ded), dr in fp32."""
+    """Launch kernel #22 (``csrc/attn_bwd_relik_saved.cu``; bf16 on the
+    tensor cores, #21's kernel without its recompute,
+    ``relik_full_tc_bwd_q_chunk``) from the saved probs p and pd [B, H, Q,
+    K], two kernels on the current stream, each counted (as
+    ``attn_bwd_relik_cuda``). Returns (drw, drr, dr, dk, dv, ded), dr in
+    fp32."""
     ins = dict(rw=rw, rr=rr, r=r, k=k, v=v, segd=segd, g=g, p=p, pd=pd)
     b, q_len, k_len, p_len, dh = _check_relik_cuda("attn_bwd_relik_saved",
                                                    ins, n_heads)
     _like("g", g, rw, tuple(rw.shape))
     for label, t in (("p", p), ("pd", pd)):
         _like(label, t, rw, (b, n_heads, q_len, k_len))
+    if (rw.dtype == torch.bfloat16
+            and relik_full_tc_bwd_q_chunk(q_len, k_len, dh) == 0):
+        raise ValueError(f"attn_bwd_relik_saved: K={k_len} Dh={dh} exceeds "
+                         "the bf16 plan's shared memory")
     drw, drr, dk, dv, ded, ws, dr = _relik_bwd_outputs(
         "attn_bwd_relik_saved", rw, r, q_len, k_len, n_heads, dh)
     _launch("attn_bwd_relik_saved", *(t.data_ptr() for t in (

@@ -9,8 +9,10 @@ with dropout and saved probs and #13 at XLNet's training shape (B=256
 Q=K=50, rate 0.1) and at the memory's (``--mem_len 50``: Q=50, K=100),
 and #14 (whose bf16 plan #11 runs past K=64) at B=48 Q=K=512; the full-H
 ingredients kernels (``rel_bias_impl="inkernel"``) #20 serving (bf16
-B=128 Q=K=50), #20 with dropout and saved probs and #21 at B=256 (rate
-0.1; #21 also at rate 0) and at the memory's Q=50, K=100.
+B=128 Q=K=50), #20 with dropout and saved probs, #22 (from those probs)
+and #21 at B=256 (rate 0.1; #22 and #21 also at rate 0) and at the
+memory's Q=50, K=100; the recompute backwards #9 (split layout, B=256 S=50
+at H=12 and one rank's H=6) and #2 (packed), rates 0.1 and 0.
 
     python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N]
         [--grad-gap-seeds S ...] [--xlnet] [--xlnet-impl auto|inkernel]
@@ -23,8 +25,9 @@ events after a warm-up. Prints each round's per-call ms, then one JSON
 object with both checkouts' means by case and the card's name and power
 limit (nvidia-smi), and each checkout's agreement with the plain
 versions at the bench's shapes (the share of elements whose bits differ,
-the largest difference), and whether fp32 #11/#13, bf16 #14 and fp32
-#20/#21 give the same bits in every checkout (digests). With
+the largest difference), and whether fp32 #11/#13, bf16 #14, fp32
+#20/#21, fp32 #20/#22 and fp32 #9 and #2 give the same bits in every
+checkout (digests). With
 ``--grad-gap-seeds``, each
 checkout also runs ``chip_smoke.py``'s phase-4b dropout-0 check at those
 seeds and reports its first-step gradient gaps (fused against einsum).
@@ -59,6 +62,14 @@ CASES = {
     "#8' bf16 B=256 S=50 H=12 rate 0.1 saved probs": (256, 50, 0.1,
                                                        "split_fwd_save"),
     "#10 bf16 B=256 S=50 H=12": (256, 50, 0.1, "split_bwd"),
+    "#2 bf16 B=256 S=50 rate 0.1": (256, 50, 0.1, "bwd_rc"),
+    "#2 bf16 B=256 S=50 rate 0": (256, 50, 0.0, "bwd_rc"),
+}
+# name: (B, S, H, rate): #9 (the recompute backward of a TP rank)
+SPLIT_RC_CASES = {
+    "#9 bf16 B=256 S=50 H=12 rate 0.1": (256, 50, 12, 0.1),
+    "#9 bf16 B=256 S=50 H=12 rate 0": (256, 50, 12, 0.0),
+    "#9 bf16 B=256 S=50 H=6 rate 0.1": (256, 50, 6, 0.1),
 }
 # name: (B, Q, K, rate, what)
 REL_CASES = {
@@ -77,6 +88,11 @@ RELIK_CASES = {
     "#20 bf16 B=128 Q=K=50 rate 0": (128, 50, 50, 0.0, "relik_fwd"),
     "#20' bf16 B=256 Q=K=50 rate 0.1 saved probs": (256, 50, 50, 0.1,
                                                      "relik_fwd_save"),
+    "#22 bf16 B=256 Q=K=50 rate 0.1": (256, 50, 50, 0.1,
+                                        "relik_bwd_saved"),
+    "#22 bf16 B=256 Q=K=50 rate 0": (256, 50, 50, 0.0, "relik_bwd_saved"),
+    "#22 bf16 B=256 Q=50 K=100 rate 0.1": (256, 50, 100, 0.1,
+                                           "relik_bwd_saved"),
     "#21 bf16 B=256 Q=K=50 rate 0.1": (256, 50, 50, 0.1, "relik_bwd"),
     "#21 bf16 B=256 Q=K=50 rate 0": (256, 50, 50, 0.0, "relik_bwd"),
     "#20' bf16 B=256 Q=50 K=100 rate 0.1 saved probs": (256, 50, 100, 0.1,
@@ -91,7 +107,8 @@ REL_KERNELS = (("#11", ("attn_fwd_rel_kernel", "attn_fwd_rel_tc_")),
                ("#13", ("attn_bwd_rel_saved_kernel",
                         "attn_bwd_rel_saved_tc_")),
                ("#20", ("attn_fwd_relik_kernel", "attn_fwd_relik_tc_")),
-               ("#22", ("attn_bwd_relik_saved_kernel",)),
+               ("#22", ("attn_bwd_relik_saved_kernel",
+                        "attn_bwd_relik_saved_tc_")),
                ("#21", ("attn_bwd_relik_kernel", "attn_bwd_relik_tc_")))
 
 
@@ -167,6 +184,11 @@ def _relik_call(fa, torch, rng, b, q_len, k_len, rate, what):
     if what == "relik_fwd_save":
         return lambda: fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=7,
                                               save=True, **kw)
+    if what == "relik_bwd_saved":
+        _, p, pd = fa.attn_fwd_relik_cuda(*ins, rate=rate, seed=7, save=True,
+                                          **kw)
+        saved_in = (p, pd, *ins[:5], x["segd"], x["g"])
+        return lambda: fa.attn_bwd_relik_saved_cuda(*saved_in, **kw)
     return lambda: fa.attn_bwd_relik_cuda(*ins, 7, x["g"], rate=rate, **kw)
 
 
@@ -191,6 +213,9 @@ def _call(fa, torch, rng, b, s, rate, what):
     if what == "bwd":
         _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, **drop, **kw)
         return lambda: fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+    if what == "bwd_rc":
+        return lambda: fa.attn_bwd_packed_cuda(qkv, mask, 7, g, rate=rate,
+                                               **kw)
     q, k, v = (x.contiguous() for x in fa._heads(qkv, H))
     if what == "split_fwd":
         return lambda: fa.attn_fwd_split_cuda(q, k, v, mask, scale=DH ** -0.5)
@@ -201,6 +226,21 @@ def _call(fa, torch, rng, b, s, rate, what):
     gh = fa._ctx_heads(g, H).contiguous()
     return lambda: fa.attn_bwd_split_saved_cuda(p, pd, q, k, v, gh,
                                                 scale=DH ** -0.5)
+
+
+def _split_rc_call(fa, torch, rng, b, s, h, rate):
+    """#9 on seeded q, k, v, g [B, H, S, Dh] and a ragged mask, at the
+    offsets of a data-rank-1, model-rank-1 shard where H < 12."""
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (b, h, s, DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+        for _ in range(4))
+    lengths = rng.integers(1, s + 1, size=b)
+    mask = torch.from_numpy(
+        (np.arange(s)[None, :] < lengths[:, None]).astype(np.float32)).cuda()
+    offs = dict(b_off=b, h_off=h) if h < H else {}
+    return lambda: fa.attn_bwd_split_cuda(q, k, v, mask, 7, g,
+                                          scale=DH ** -0.5, rate=rate,
+                                          **offs)
 
 
 def worker(iters):
@@ -220,6 +260,8 @@ def worker(iters):
               for name, case in REL_CASES.items()]
     calls += [(name, lambda c=case: _relik_call(fa, torch, rng, *c))
               for name, case in RELIK_CASES.items()]
+    calls += [(name, lambda c=case: _split_rc_call(fa, torch, rng, *c))
+              for name, case in SPLIT_RC_CASES.items()]
     for name, make in calls:
         fn = make()
         for _ in range(5):
@@ -308,9 +350,27 @@ def agreement():
     # fp32 #20 (saved probs, rate 0.1) and #21 keep their CUDA-core kernels
     x = _relik_inputs(torch, rng, 4, 50, 77, torch.float32)
     ins = [x[n] for n in RELIK]
+    fwd = fa.attn_fwd_relik_cuda(*ins, rate=0.1, seed=7, save=True, **kw)
     out["digest fp32 #20/#21 B=4 Q=50 K=77"] = digest(
-        *fa.attn_fwd_relik_cuda(*ins, rate=0.1, seed=7, save=True, **kw),
-        *fa.attn_bwd_relik_cuda(*ins, 7, x["g"], rate=0.1, **kw))
+        *fwd, *fa.attn_bwd_relik_cuda(*ins, 7, x["g"], rate=0.1, **kw))
+    # fp32 #22 from #20's saved probs, and fp32 #9 (at a shard's offsets)
+    # and #2 keep their CUDA-core kernels
+    out["digest fp32 #20/#22 B=4 Q=50 K=77"] = digest(
+        *fwd, *fa.attn_bwd_relik_saved_cuda(fwd[1], fwd[2], *ins[:5],
+                                            x["segd"], x["g"], **kw))
+    qkv = torch.from_numpy(rng.standard_normal(
+        (4, 77, 3 * H * DH), dtype=np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal(
+        (4, 77, H * DH), dtype=np.float32)).cuda()
+    mask = torch.from_numpy((np.arange(77)[None, :] < np.array(
+        [[0], [30], [60], [77]])).astype(np.float32)).cuda()
+    q, k, v = (t.contiguous() for t in fa._heads(qkv, H))
+    gh = fa._ctx_heads(g, H).contiguous()
+    out["digest fp32 #9 B=4 S=77 H=12 rate 0.1 offsets (4, 12)"] = digest(
+        *fa.attn_bwd_split_cuda(q, k, v, mask, 7, gh, scale=DH ** -0.5,
+                                rate=0.1, b_off=4, h_off=12))
+    out["digest fp32 #2 B=4 S=77 H=12 rate 0.1"] = digest(
+        fa.attn_bwd_packed_cuda(qkv, mask, 7, g, rate=0.1, **kw))
     print(json.dumps(out))
 
 
@@ -509,7 +569,8 @@ def main() -> int:
                                       for k, v in times.items()))
     result = {"card": card, "iters": args.iters, "ms": {
         tree: {name: [r[name] for r in rs]
-               for name in [*CASES, *REL_CASES, *RELIK_CASES]}
+               for name in [*CASES, *REL_CASES, *RELIK_CASES,
+                            *SPLIT_RC_CASES]}
         for tree, rs in rounds.items()}}
     result["agreement"] = {tree: json.loads(_run(
         tree, ["--agreement-worker"]).splitlines()[-1])

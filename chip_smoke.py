@@ -395,14 +395,16 @@ def tc_ptxas_lines(log):
     (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
     passes of #5 and #7, the rel backward passes of #15 and #17, #24's two
     passes, the full-H plans of #1/#8 and #3/#10 built into each of their
-    sources, the rel full-H plans of #11 and #13, and the full-H
-    ingredients plans of #20 and #21), one line each, from the build log.
+    sources, #2/#9's recompute plan, the rel full-H plans of #11 and #13,
+    and the full-H ingredients plans of #20, #21 and #22), one line each,
+    from the build log.
     Template arguments print in order: the packed and rel passes' are <n8
     tiles of Dh, own statistics (#5, #15 true; #7, #17 false), dropout>;
     the full-H, rel and ingredients register forwards' <n8 tiles of Dh,
     dropout, save>, their score-tile forwards' <dropout, save>, the full-H
-    backward's <n8 key tiles, n8 tiles of Dh>, the rel backward's <n8 tiles
-    of Dh>, #21's <n8 tiles of Dh, dropout, blocks an SM>."""
+    backward's <n8 key tiles, n8 tiles of Dh>, the recompute's <n8 tiles
+    of Dh, dropout>, the rel backward's <n8 tiles of Dh>, #21's <n8 tiles
+    of Dh, dropout, blocks an SM>, #22's <n8 tiles of Dh, blocks an SM>."""
     import re
 
     lines, name, spills, source = [], None, "", ""
@@ -413,9 +415,9 @@ def tc_ptxas_lines(log):
         m = re.search(r"Compiling entry function '\S*?((?:(?:attn_fwd_(?:"
                       r"packed|relik|rel)_fs|attn_fwd_(?:packed|rel)_hb|"
                       r"attn_bwd_(?:packed|rel|relik_fs)_(?:dkdv|dq))_tc|"
-                      r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved)|"
-                      r"attn_fwd_rel(?:ik)?_tc_(?:reg|smem)|"
-                      r"attn_bwd_rel_saved_tc|attn_bwd_relik_tc)"
+                      r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved|"
+                      r"bwd_recompute)|attn_fwd_rel(?:ik)?_tc_(?:reg|smem)|"
+                      r"attn_bwd_rel_saved_tc|attn_bwd_relik(?:_saved)?_tc)"
                       r"_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ", ".join(
@@ -713,7 +715,9 @@ def check_training_kernels(rng, fa, dtype_name, b, s, rate, h=12, dh=64):
 
 def time_training_kernels(fa, case, card):
     """#1 (rate 0.1, save), #3 and #2 against their plain versions, in
-    alternating rounds; returns {name: (kernel ms, plain ms)}."""
+    alternating rounds, then #2 at rate 0 beside SDPA's autograd backward
+    (dq, dk, dv) on the same q, k, v; returns {name: (kernel ms, plain
+    ms)} and, under "attn_bwd_packed rate 0", #2's rate-0 entry."""
     qkv, mask, g, seed, kw = case
     _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, rate=RATE, seed=seed,
                                        save=True, **kw)
@@ -740,6 +744,22 @@ def time_training_kernels(fa, case, card):
         times[name] = (float(np.mean(k)), float(np.mean(pl)))
         print(f"{name} bf16 B={b} S={s} H=12 Dh=64 rate={RATE} on {card}: "
               f"kernel {k} ms, plain {pl} ms per call")
+    k, pl = _alternate(
+        lambda: fa.attn_bwd_packed_reference(qkv, mask, 0, g, **kw),
+        lambda: fa.attn_bwd_packed_cuda(qkv, mask, 0, g, **kw), 20)
+    heads = [x.contiguous() for x in fa._heads(qkv, 12)]
+    lib = split_sdpa_calls(*heads, mask, fa._ctx_heads(g, 12).contiguous())[1]
+    _time_ms(lib, 3)
+    lib_ms = float(np.mean([_time_ms(lib, 20) for _ in range(2)]))
+    bound = attn_bound("bwd", b, s, 12, 64, 2)
+    times["attn_bwd_packed rate 0"] = {
+        "ms": float(np.mean(k)), "plain_ms": float(np.mean(pl)),
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+        "library": "scaled_dot_product_attention autograd backward (dq, dk, "
+                   "dv), rate 0"}
+    print(f"attn_bwd_packed bf16 B={b} S={s} H=12 Dh=64 rate 0 on {card}: "
+          f"kernel {k} ms, plain {pl} ms per call, library {lib_ms:.4f} ms; "
+          f"bound {bound[0]:.4f} ms ({bound[1]})")
     return times
 
 
@@ -1865,7 +1885,9 @@ def check_rel_kernels(rng, fa, dtype_name, b, q_len, k_len, rate, h=12,
 
 def time_rel_kernels(fa, case, mem_case, card):
     """#11 (rate 0.1, save), #13 and #12 against their plain versions at
-    bf16 B=256 Q=K=50, in alternating rounds; then #11 at the serving shape
+    bf16 B=256 Q=K=50, in alternating rounds, and #12 at rate 0 beside
+    SDPA's autograd backward (dq, dk, dv, debias; the ebias as its float
+    mask); then #11 at the serving shape
     (rate 0, B=128) beside scaled_dot_product_attention(q, k, v,
     attn_mask=ebias, scale=scale), the library call computing the same
     function (timed here, used nowhere in the port); then #11′ and #13 at
@@ -1899,6 +1921,23 @@ def time_rel_kernels(fa, case, mem_case, card):
         times[name] = (float(np.mean(kt)), float(np.mean(pt)))
         print(f"{name} bf16 B={BENCH_BATCH} Q=K={S_SERVE} H=12 Dh=64 "
               f"rate={RATE} on {card}: kernel {kt} ms, plain {pt} ms per call")
+    # #12 at rate 0 beside SDPA's autograd backward to q, k, v and the ebias
+    kt, pt = _alternate(
+        lambda: fa.attn_bwd_rel_reference(q, k, v, ebias, 0, g, **kw),
+        lambda: fa.attn_bwd_rel_cuda(q, k, v, ebias, 0, g, **kw), 20)
+    lib = sdpa_rel_calls(q, k, v, ebias, g, 12, kw["scale"])[1]
+    _time_ms(lib, 3)
+    lib_ms = float(np.mean([_time_ms(lib, 20) for _ in range(2)]))
+    bound = rel_bound("bwd", BENCH_BATCH, S_SERVE, S_SERVE, 12, 64, 2)
+    times["attn_bwd_rel rate 0"] = {
+        "ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+        "library": "scaled_dot_product_attention autograd backward (dq, dk, "
+                   "dv, debias), the ebias as float mask, rate 0"}
+    print(f"attn_bwd_rel bf16 B={BENCH_BATCH} Q=K={S_SERVE} H=12 Dh=64 rate 0 "
+          f"on {card}: kernel {kt} ms, plain {pt} ms per call, library "
+          f"{lib_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})")
+    del lib
 
     # the serving shape: a fresh B=128 case at rate 0
     sq, sk, sv, seb = (x[:BATCH].contiguous() for x in (q, k, v, ebias))
@@ -2758,7 +2797,9 @@ def relik_case(rng, dtype_name, b, s, h=12, dh=64, k_len=None):
     segments and maskb −1e30 on the masked keys of left-padded rows (each
     query still sees its own position), all in the input dtype; a context
     gradient; a seed. K = S unless ``k_len``: then the first K − S keys are
-    a memory, unmasked and of segment 0, as the model's."""
+    a memory, unmasked and of segment 0, as the model's; K < S (a shape
+    past what one block's shared memory holds at once, the query rows in
+    chunks) takes the last K tokens as the keys."""
     import torch
 
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
@@ -2773,10 +2814,15 @@ def relik_case(rng, dtype_name, b, s, h=12, dh=64, k_len=None):
     # (the segments of a 3-token row cut to its last S where S < 3)
     mask, segs = (torch.from_numpy(x[:, -s:]).cuda()
                   for x in xlnet_segments(rng, b, max(s, 3)))
-    mem = torch.zeros(b, mlen, dtype=mask.dtype, device="cuda")
-    mask_k, segs_k = torch.cat([mem + 1, mask], 1), torch.cat([mem, segs], 1)
     own = torch.zeros(s, k_len, dtype=torch.bool, device="cuda")
-    own[:, mlen:] = torch.eye(s, dtype=torch.bool, device="cuda")
+    if mlen < 0:
+        mask_k, segs_k = mask[:, -k_len:], segs[:, -k_len:]
+        own[-k_len:] = torch.eye(k_len, dtype=torch.bool, device="cuda")
+    else:
+        mem = torch.zeros(b, mlen, dtype=mask.dtype, device="cuda")
+        mask_k = torch.cat([mem + 1, mask], 1)
+        segs_k = torch.cat([mem, segs], 1)
+        own[:, mlen:] = torch.eye(s, dtype=torch.bool, device="cuda")
     masked = (mask_k[:, None, :] == 0) & ~own
     case = dict(rw=t(b, s, d), rr=t(b, s, d, scale=sc), r=t(s + k_len, d),
                 k=t(b, k_len, d), v=t(b, k_len, d), ed=t(b, h, s, scale=sc),
@@ -3890,16 +3936,18 @@ RELIK_FULL_CASES = (   # (dtype, B, Q, K) with the rates each runs at
     ("bf16", BENCH_BATCH, S_SERVE, S_SERVE, (RATE, 0.0)),
     ("bf16", TRAIN_BATCH, S_SERVE, 2 * S_SERVE, (RATE,)),   # --mem_len 50
     ("fp32", 4, S_SERVE, 77, (RATE, 0.0)))                  # ragged K ≠ Q
-# bf16 #20's and #21's tensor-core plans at their edges, (B, Q, K, H, Dh)
-# at rates 0.1 and 0: K odd, the register plan's last K and the score
-# tile's first, two q tiles, the widest head in both forward plans (at K =
-# 100 with Q = 40, inside #21's reach), the edges of #21's reach (Q = K =
-# 95; Q = 1 at K = 435).
+# bf16 #20's, #21's and #22's tensor-core plans at their edges, (B, Q, K,
+# H, Dh) at rates 0.1 and 0: K odd, the register plan's last K and the
+# score tile's first, two q tiles, the widest head in both forward plans (at
+# K = 100 with Q = 40, inside #21's reach), the edges of #21's reach (Q = K
+# = 95; Q = 1 at K = 435); then the memory's K = 100 at Dh = 64 and two
+# query chunks (Q = 1000 at K = 8, Dh = 8).
 RELIK_TC_EDGES = ((8, S_SERVE, 57, 12, 64), (8, S_SERVE, 64, 12, 64),
                   (8, S_SERVE, 65, 12, 64), (8, 77, 77, 12, 64),
                   (8, S_SERVE, S_SERVE, 6, 128),
                   (8, 40, 2 * S_SERVE, 6, 128), (8, 95, 95, 12, 64),
-                  (8, 1, 435, 12, 64))
+                  (8, 1, 435, 12, 64), (8, S_SERVE, 2 * S_SERVE, 12, 64),
+                  (2, 1000, 8, 2, 8))
 
 
 def relik_full_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0,
@@ -4324,7 +4372,9 @@ def check_split_kernels(rng, fa, dtype_name, b, s, h, rate, offs):
     version and the backwards against torch.autograd through the plain
     forward; #8's keep mask against the plain Philox mask of the shard's
     global rows and heads; at offsets 0, #8 against #1 on the packed
-    q|k|v bit for bit; the same bits twice. Returns the max errors."""
+    q|k|v bit for bit; #2 on the packed q|k|v against its plain version
+    and bit for bit against #9 at offsets 0; the same bits twice. Returns
+    the max errors."""
     import torch
 
     q, k, v, mask, g, seed = split_case(rng, dtype_name, b, s, h)
@@ -4374,11 +4424,33 @@ def check_split_kernels(rng, fa, dtype_name, b, s, h, rate, offs):
                        ("#9 vs #10", got["#9"], got["#10"])):
         errs[name] = _split_grad_err(f"{name} {tag}", x, w, dtype_name,
                                      bound_args, fa)
+    # #2 runs #9's kernel through the packed layout: on the same q, k, v
+    # (the forward's counter at offsets 0) the same bits as #9, and its
+    # plain version's values within the bound
+    qkv, g_packed = fa._pack(q, k, v), fa._merge_heads(g)
+    nought = dict(rate=rate, seed=seed, **kw)
+    two = fa.attn_bwd_packed_cuda(qkv, mask, seed, g_packed, n_heads=h,
+                                  rate=rate, **kw)
+    two_plain = fa.attn_bwd_packed_reference(qkv, mask, seed, g_packed,
+                                             n_heads=h, rate=rate, **kw)
+    nine = (got["#9"] if offs == (0, 0) else fa.attn_bwd_split_cuda(
+        q, k, v, mask, seed, g, rate=rate, **kw))
+    p0, pd0 = ((p, pd) if offs == (0, 0) else fa.attn_fwd_split_reference(
+        q, k, v, mask, save=True, **nought)[1:])
+    errs["#2 vs plain"] = _split_grad_err(
+        f"#2 vs plain {tag}", fa._heads(two, h), fa._heads(two_plain, h),
+        dtype_name, (p0, pd0, q, k, v, g), fa)
+    two_is_nine = torch.equal(fa._pack(*nine), two)
+    if not two_is_nine:
+        raise AssertionError(f"#2 and #9 differ on the same q, k, v ({tag})")
     twice = [("#8", (out, p, pd), lambda: fa.attn_fwd_split_cuda(
         q, k, v, mask, save=True, **drop, **kw))]
     twice += [(name, got[name], run) for name, run in runs.items()]
+    twice += [("#2", (two,), lambda: (fa.attn_bwd_packed_cuda(
+        qkv, mask, seed, g_packed, n_heads=h, rate=rate, **kw),))]
     differ = [name for name, first, again in twice
               if not all(torch.equal(x, y) for x, y in zip(first, again()))]
+    print(f"#2 = #9 on the packed q|k|v bit for bit {tag}: {two_is_nine}")
     print(f"split backward {tag} (dq, dk, dv): "
           + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items()
                       if k_ != "#8")
@@ -5920,6 +5992,9 @@ def main() -> int:
                 if k_.startswith("#3" if tag == "#3" else "#1")}
         if name == "attn_bwd_packed_saved":
             entry["pair_vs_head_blocked"] = full_tc_times["pairs"]
+        if name == "attn_bwd_packed":
+            entry["modes"] = {"rate 0, bf16 B=256 S=50":
+                              train_times["attn_bwd_packed rate 0"]}
         kernels.append(entry)
     for name, line in (("mag_fwd", 50), ("mag_bwd", 186)):
         total, paths = by_path(name)
@@ -5975,6 +6050,9 @@ def main() -> int:
             entry["max_abs_err_vs_autograd"] = rel_errs[f"{tag} vs autograd"]
             if mem_mode:
                 entry["modes"] = mem_mode
+            if tag == "#12":
+                entry["modes"] = {"rate 0, bf16 B=256 Q=K=50":
+                                  rel_times["attn_bwd_rel rate 0"]}
         if name in rel_times["mem"]:
             entry["device_ms_per_launch"] = {
                 k_: v_ for k_, v_ in rel_times["device_ms"].items()

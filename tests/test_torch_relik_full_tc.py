@@ -1,6 +1,7 @@
 """The bf16 tensor-core plans of the full-H ingredients rel kernels #20
-(the forward) and #21 (the recompute backward),
-``csrc/attn_relik_full_tc.cuh``, emulated in plain torch on the CPU and
+(the forward), #21 (the recompute backward) and #22 (the backward from the
+saved probs), ``csrc/attn_relik_full_tc.cuh``, emulated in plain torch on
+the CPU and
 held against the kernels' plain versions, plus the plans' shared-memory
 sizes over the whole reach.
 
@@ -13,7 +14,8 @@ r[Q − q + k], in the same 16-deep steps); s = ((ac · scale + bd) + ed ·
 segd) + maskb in fp32; the row sums in the plan's lane order (K ≤ 64: a
 lane's keys in order, then the quad's xor tree; past it lane-strided, then
 the warp's xor tree); p = e / sum; the keep bits handed out by the lane
-pairs; PV from the dropped probs rounded to bf16. The backward: t = pd ⊙
+pairs; PV from the dropped probs rounded to bf16. The backward (#21 on
+those p and pd, #22 on the saved bf16 ones, pd_c the saved pd): t = pd ⊙
 (g · vᵀ), Σ_k t and ded = Σ_k ds · segd in the quad's lane order, ds_c =
 bf16(ds · scale), ds_u = bf16(ds), pd_c = bf16(pd); drr from the skewed
 S′[q][(15 − q mod 16) + k] in 16-column steps, the dr rows from S′ᵀ · rr
@@ -23,8 +25,10 @@ Geometry: B=2, H=2, (Q, K) = (50, 50), (33, 57) and (50, 100) at Dh=16
 on every key), rates 0 and 0.1. Tolerances: the forward within one bf16
 rounding (2^-7 relative plus 2^-6 absolute) of
 ``attn_fwd_relik_reference``, the masked rows exactly uniform; the
-backward within ``relik_full_grads_bf16_bound`` of
-``attn_bwd_relik_reference``; the keep mask bit for bit.
+backwards within ``relik_full_grads_bf16_bound`` of
+``attn_bwd_relik_reference`` and ``attn_bwd_relik_saved_reference``; the
+keep mask bit for bit. The tests marked ``cuda`` hold bf16 #22 against #21
+on the card.
 """
 
 import re
@@ -128,15 +132,20 @@ def _skewed_steps(ds_u, rows, q_len, k_len):
     return out
 
 
-def _bwd_plan(x, scale, rate, seed):
-    """bf16 #21's plan in plain torch: (drw, drr, dr, dk, dv, ded), dr in
-    fp32."""
+def _bwd_plan(x, scale, rate, seed, saved=None):
+    """bf16 #21's plan in plain torch (with ``saved`` = (p, pd) in bf16,
+    #22's: no recompute, p and pd read from them): (drw, drr, dr, dk, dv,
+    ded), dr in fp32."""
     rwh, rrh, kh, vh, gh = (tfa._ctx_heads(x[n], H)
                             for n in ("rw", "rr", "k", "v", "g"))
     q_len, k_len, p_len = rwh.shape[2], kh.shape[2], x["r"].shape[0]
     kp = _rows16(k_len)
-    p, keep = _probs(x, scale, rate, seed)
-    pd = torch.where(keep, p * tfa.inv_keep(rate), 0.0) if rate > 0 else p
+    if saved is None:
+        p, keep = _probs(x, scale, rate, seed)
+        pd = (torch.where(keep, p * tfa.inv_keep(rate), 0.0) if rate > 0
+              else p)
+    else:
+        p, pd = (a.float() for a in saved)
     t = pd * _mma_abt(gh, vh)
     ds = t - p * _quad_sum(_pad_keys(t, kp))[..., None]
     ded = _quad_sum(_pad_keys(ds * x["segd"].float()[:, None], kp))
@@ -223,6 +232,33 @@ def test_backward_plan_matches_the_plain_backward(q_len, k_len, dh, rate):
         assert float(want[part].abs().max()) > 1e-3
 
 
+@pytest.mark.parametrize("q_len,k_len", SHAPES)
+@pytest.mark.parametrize("dh", [16, 40])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_saved_backward_plan_matches_the_plain_backward(q_len, k_len, dh,
+                                                        rate):
+    """bf16 #22's plan (#21's phases 1-2 on the plain forward's saved bf16
+    p and pd) gives ``attn_bwd_relik_saved_reference``'s drw, drr, dr, dk,
+    dv and ded within ``relik_full_grads_bf16_bound``."""
+    x = _case(q_len, k_len, dh, seed=3 * q_len + k_len + dh)
+    scale, seed = 1.0 / dh ** 0.5, 2 ** 57 + 3
+    ins = [x[n] for n in NAMES]
+    _, p, pd = tfa.attn_fwd_relik_reference(*ins, n_heads=H, scale=scale,
+                                            rate=rate, seed=seed, save=True)
+    got = _bwd_plan(x, scale, rate, seed, saved=(p, pd))
+    saved_in = (p, pd, *ins[:5], x["segd"], x["g"])
+    want = tfa.attn_bwd_relik_saved_reference(*saved_in, n_heads=H,
+                                              scale=scale)
+    bounds = tfa.relik_full_grads_bf16_bound(want, p, pd, *ins[:5],
+                                             x["segd"], x["g"], n_heads=H,
+                                             scale=scale)
+    for a, w, bd in zip(got, want, bounds):
+        assert a.shape == w.shape
+        assert bool(((a.float() - w.float()).abs() <= bd).all())
+    for part in (1, 2, 5):       # drr, dr and ded are not all zero
+        assert float(want[part].abs().max()) > 1e-3
+
+
 def _header_constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);",
                          HEADER.read_text()).group(1))
@@ -242,9 +278,10 @@ def _q_reach(k_len, dh):
 def test_plans_fit_every_reachable_shape():
     """Every (Q, K, Dh) that ``rel_tier`` sends to "ik_full" fits the bf16
     plans: the forward at every K ≤ ``MAX_SEQ_LEN`` (its plan grows with Q
-    only up to a 64-row tile), the backward over ``relik_bwd_fits`` with a
-    query chunk of 16 rows or more (all of Q in one chunk wherever that
-    fits). The header's constants are Python's."""
+    only up to a 64-row tile), the backwards (#21, and #22 on the same
+    plan) over ``relik_bwd_fits`` with a query chunk of 16 rows or more
+    (all of Q in one chunk wherever that fits). The header's constants are
+    Python's."""
     assert _header_constant("kMaxK") == tfa.MAX_SEQ_LEN
     assert _header_constant("kSmemQTile") == 32
     assert _header_constant("kKBlock") == 64
@@ -274,3 +311,47 @@ def test_plans_fit_every_reachable_shape():
     assert tfa.relik_full_tc_fwd_smem_bytes(50, 512, 128) == 170496
     assert tfa.relik_full_tc_bwd_smem_bytes(64, 50, 64) == 83968
     assert tfa.relik_full_tc_bwd_q_chunk(1000, 8, 8) == 640
+
+
+# --- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_len,k_len,dh", [
+    (50, 50, 64),      # the training shape
+    (50, 100, 64),     # --mem_len 50
+    (33, 57, 40),      # K odd (2-byte prob loads), a padded k16 step
+    (95, 95, 64),      # the reach at Dh = 64
+    (1000, 8, 8),      # two query chunks
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_saved_backward_matches_the_recompute_on_card(cuda_device, q_len,
+                                                      k_len, dh, rate):
+    """bf16 #22 on #20's saved probs against #21 on the same inputs within
+    ``relik_full_grads_bf16_bound`` (p and pd read rounded against
+    recomputed), and against its plain version; the same bits twice."""
+    x = {n: a.to(cuda_device) for n, a in _case(q_len, k_len, dh,
+                                                seed=q_len + dh).items()}
+    ins = [x[n] for n in NAMES]
+    kw = dict(n_heads=H, scale=1.0 / dh ** 0.5)
+    seed = 2 ** 56 + 1
+    _, p, pd = tfa.attn_fwd_relik_cuda(*ins, rate=rate, seed=seed, save=True,
+                                       **kw)
+    saved_in = (p, pd, *ins[:5], x["segd"], x["g"])
+    got = tfa.attn_bwd_relik_saved_cuda(*saved_in, **kw)
+    for ref in (tfa.attn_bwd_relik_cuda(*ins, seed, x["g"], rate=rate, **kw),
+                tfa.attn_bwd_relik_saved_reference(*saved_in, **kw)):
+        bounds = tfa.relik_full_grads_bf16_bound(ref, p, pd, *ins[:5],
+                                                 x["segd"], x["g"], **kw)
+        for a, w, bd in zip(got, ref, bounds):
+            assert bool(((a.float() - w.float()).abs() <= bd).all())
+    again = tfa.attn_bwd_relik_saved_cuda(*saved_in, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
