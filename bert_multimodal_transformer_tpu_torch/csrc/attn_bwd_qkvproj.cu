@@ -27,35 +27,47 @@
 // re-projection and dx) are ~97% of the operations at bert-base (B=256,
 // S=50: 2 × 45.3 GFLOP against ~2 GFLOP of attention), so it is bound by
 // operations: ~0.09 ms at the bf16 tensor-core peak, ~1.4 ms at the fp32
-// CUDA-core peak these products run at.
+// CUDA-core peak that dx (and in fp32 the re-projection) runs at.
 //
 // What the design does about that: the TPU kernel's per-row grid becomes
 // two launches, since dx needs every head's dqkv columns of a row and
 // blocks share nothing. Launch 1 (`attn_bwd_qkvproj_heads`): one block per
-// (head, batch row) re-projects its head into shared memory with
-// common.cuh's `project_head` (the code and so the bits of #18's
-// projection) or reads it from the saved qkv by stride, then runs #3's
-// `bwd_saved_head` on it: every reduction stays in the block, no atomics,
+// (head, batch row) re-projects its head into shared memory as [S][3·Dh]
+// with the projection #18 runs (bf16: attn_full_tc.cuh's
+// `project_head_tc` on the tensor cores; fp32: common.cuh's
+// `project_head`), so its head has #18's bits, or reads it from the saved
+// qkv by stride, then runs #3's `bwd_saved_head` on it (CUDA cores, fp32
+// sums): every reduction stays in the block, no atomics,
 // bit-reproducible. Launch 2 (`attn_bwd_qkvproj_dx`): dx = dqkv · w as
 // 64 × 64 tiles of common.cuh's `gemm_tile` over the 3D-deep sum, B·S/64 ×
 // D/64 blocks. The dqkv round trip (B·S·3D elements) is the price of the
 // split; the TPU kernel kept it in VMEM and wrote it once too (for dW).
-// Tensor-core products are later work.
+// The dQKV chain and dx on the tensor cores are later work (ROADMAP B.R11).
 
-#include "common.cuh"
+#include "attn_full_tc.cuh"
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxDh = 128;
 
+// The re-projection's staging in floats: fp32's gemm_tile slices, bf16's
+// cp.async ring (#18's).
+template <typename T>
+size_t proj_floats(int Dh) {
+  if constexpr (std::is_same<T, float>::value)
+    return attn::gemm_smem_floats();
+  return full_tc::proj_smem_bytes(Dh, 1, full_tc::kProjRowsDepth) /
+         sizeof(float);
+}
+
 template <typename T>
 size_t heads_smem_bytes(int S, int Dh, bool recompute) {
   const size_t bwd = attn::bwd_smem_floats(S, Dh);
   if (!recompute) return bwd * sizeof(float);
-  const size_t work = attn::gemm_smem_floats() > bwd
-                          ? attn::gemm_smem_floats()
-                          : bwd;
+  const size_t work = proj_floats<T>(Dh) > bwd ? proj_floats<T>(Dh) : bwd;
   return (attn::qkvproj_head_floats<T>(S, Dh) + work) * sizeof(float);
 }
 
@@ -79,8 +91,13 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (kRecompute) {
     T* head = reinterpret_cast<T*>(smem);           // [S][3·Dh]
     work = smem + attn::qkvproj_head_floats<T>(S, Dh);
-    attn::project_head<T, false>(work, head, src + (size_t)b * S * D, w, b3,
-                                 nullptr, S, D, Dh, h);
+    if constexpr (std::is_same<T, float>::value)
+      attn::project_head<T, false>(work, head, src + (size_t)b * S * D, w,
+                                   b3, nullptr, S, D, Dh, h);
+    else
+      full_tc::project_head_tc<1, full_tc::kProjRowsDepth, false>(
+          reinterpret_cast<unsigned char*>(work), head, 0, 3 * Dh, Dh, S,
+          src + (size_t)b * S * D, w, b3, nullptr, 1, S, D, Dh, h);
     __syncthreads();  // the head is written; the staging slices are free
     q = head;
     ld = (size_t)3 * Dh;
@@ -164,7 +181,8 @@ extern "C" {
 // [3D, D]; b3 [3D] (read only with recompute); g [B, S, D]; dqkv [B, S,
 // 3D] receives the gradient. Returns the cudaError_t of the launch (0 on
 // success); a shape past the shared-memory plan returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue, a bf16 x or w off the 16 bytes the re-projection's
+// cp.async copies cudaErrorMisalignedAddress.
 int attn_bwd_qkvproj_heads(const void* p, const void* pd, const void* src,
                            const void* w, const void* b3, const void* g,
                            void* dqkv, int B, int S, int H, int Dh,
@@ -177,6 +195,9 @@ int attn_bwd_qkvproj_heads(const void* p, const void* pd, const void* src,
       dtype == 0 ? heads_smem_bytes<float>(S, Dh, recompute != 0)
                  : heads_smem_bytes<__nv_bfloat16>(S, Dh, recompute != 0);
   if (bytes > attn::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && recompute &&
+      (!full_tc::aligned(src, 16) || !full_tc::aligned(w, 16)))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -27,16 +27,26 @@
 // latency-bound, like the packed twin (attn_bwd_packed.cu). dQ reduces
 // over keys while dK and dV reduce over queries.
 //
-// What the design does about that: attn_bwd_packed.cu's plan on a [Q, K]
-// problem: one block per (head, batch row) holds it in shared memory
-// (common.cuh's rel_bwd_smem_floats: a [Q][Dh+1] and a [K][Dh+1] staging
-// tile, the fp32 probs P and the gradient tile Tt), so every reduction
-// stays in the block, with no atomics, bit-reproducibly. The keep bit rides
-// in the sign of P. The plan fits 227 KB up to Q = K = 141 at Dh = 64; the
-// Python wrapper refuses more at the forward when a gradient will be
-// needed. The products run on the CUDA cores in fp32.
+// What the design does about that: bf16 runs on the tensor cores
+// (attn_rel_full_tc.cuh's `attn_bwd_rel_tc_kernel`): #11's scores and
+// softmax in front of #13's phases, one block per (head, batch row) over
+// chunks of the query rows. p comes back with #11's bits (its register plan
+// to K = 64, #14's score tile past it), the keep bit in its sign in an fp32
+// tile; then d(pd), the VJP and debias from the accumulators in registers,
+// pd_c over the probs tile, dV and dK by ldmatrix.trans; every product on
+// mma.sync.m16n8k16. fp32 keeps the CUDA-core kernel below and its bits:
+// attn_bwd_packed.cu's plan on a [Q, K] problem, one block per (head, batch
+// row) holding it in shared memory (common.cuh's rel_bwd_smem_floats: a
+// [Q][Dh+1] and a [K][Dh+1] staging tile, the fp32 probs P and the
+// gradient tile Tt), so every reduction stays in the block, with no
+// atomics, bit-reproducibly; the keep bit rides in the sign of P. The fp32
+// plan fits 227 KB up to Q = K = 141 at Dh = 64 (ops/fused_attention.py::
+// rel_bwd_fits, whose every shape the bf16 plan takes); the Python wrapper
+// refuses more at the forward when a gradient will be needed. The entry
+// dispatches on the dtype; a bf16 call always launches the tensor-core
+// kernel or returns the launch's error.
 
-#include "common.cuh"
+#include "attn_rel_full_tc.cuh"
 
 #include <cmath>
 
@@ -47,13 +57,15 @@ using attn::DropoutArgs;
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxDh = 128;
 
-template <typename T, bool kDropout>
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_rel_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ ebias,
-                        const T* __restrict__ g, T* __restrict__ dq,
-                        T* __restrict__ dk, T* __restrict__ dv,
-                        T* __restrict__ debias, int Q, int K, int H, int Dh,
+    attn_bwd_rel_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ ebias,
+                        const float* __restrict__ g, float* __restrict__ dq,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        float* __restrict__ debias, int Q, int K, int H, int Dh,
                         float scale, DropoutArgs drop) {
   extern __shared__ float smem[];
   const int D = H * Dh;
@@ -70,8 +82,8 @@ __global__ void __launch_bounds__(kThreads)
   const size_t qoff = (size_t)b * Q * D + h * Dh;
   const size_t koff = (size_t)b * K * D + h * Dh;
   const size_t head = ((size_t)b * H + h) * Q * K;
-  const T* eb_head = ebias + head;
-  T* deb_head = debias + head;
+  const float* eb_head = ebias + head;
+  float* deb_head = debias + head;
 
   attn::load_tile(as, q + qoff, (size_t)D, Q, Dh);
   attn::load_tile(bs, k + koff, (size_t)D, K, Dh);
@@ -133,17 +145,14 @@ __global__ void __launch_bounds__(kThreads)
     return x;
   };
   auto p_of = [ps](int i) { return kDropout ? fabsf(ps[i]) : ps[i]; };
-  auto ds_out = [deb_head](int i, float ds) {
-    deb_head[i] = attn::from_float<T>(ds);
-  };
-  attn::softmax_vjp_rows<T>(tt, Q, K, scale, pd_of, p_of, ds_out);
+  auto ds_out = [deb_head](int i, float ds) { deb_head[i] = ds; };
+  attn::softmax_vjp_rows<float>(tt, Q, K, scale, pd_of, p_of, ds_out);
   __syncthreads();
 
-  // P ← pd_c = T(pd) for the dV product.
-  for (int i = tid; i < Q * K; i += kThreads)
-    ps[i] = attn::round_to<T>(pd_of(i));
+  // P ← pd for the dV product.
+  for (int i = tid; i < Q * K; i += kThreads) ps[i] = pd_of(i);
   __syncthreads();
-  attn::store_mtx(dv + koff, (size_t)D, ps, as, Q, K, Dh);  // dV = pd_cᵀ·g
+  attn::store_mtx(dv + koff, (size_t)D, ps, as, Q, K, Dh);  // dV = pdᵀ · g
   __syncthreads();  // g and v no longer needed: stage q and k again
 
   attn::load_tile(as, q + qoff, (size_t)D, Q, Dh);
@@ -153,34 +162,24 @@ __global__ void __launch_bounds__(kThreads)
   attn::store_mtx(dk + koff, (size_t)D, tt, as, Q, K, Dh);  // dK = ds_cᵀ · q
 }
 
-template <typename T, bool kDropout>
-int launch(const void* q, const void* k, const void* v, const void* ebias,
-           const void* g, void* dq, void* dk, void* dv, void* debias, int B,
-           int Q, int K, int H, int Dh, float scale, DropoutArgs drop,
-           cudaStream_t stream) {
+// fp32 on the CUDA cores.
+template <bool kDropout>
+int launch_fp32(const void* q, const void* k, const void* v,
+                const void* ebias, const void* g, void* dq, void* dk,
+                void* dv, void* debias, int B, int Q, int K, int H, int Dh,
+                float scale, DropoutArgs drop, cudaStream_t stream) {
   static unsigned long long attr_set = 0;
   cudaError_t err =
-      attn::allow_max_smem(attn_bwd_rel_kernel<T, kDropout>, &attr_set);
+      attn::allow_max_smem(attn_bwd_rel_kernel<kDropout>, &attr_set);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = attn::rel_bwd_smem_floats(Q, K, Dh) * sizeof(float);
-  attn_bwd_rel_kernel<T, kDropout><<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(ebias),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<T*>(debias), Q, K, H, Dh, scale, drop);
+  attn_bwd_rel_kernel<kDropout><<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(ebias),
+      static_cast<const float*>(g), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(debias), Q, K, H, Dh, scale, drop);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* ebias,
-             const void* g, void* dq, void* dk, void* dv, void* debias, int B,
-             int Q, int K, int H, int Dh, float scale, bool dropout,
-             DropoutArgs drop, cudaStream_t st) {
-  if (dropout)
-    return launch<T, true>(q, k, v, ebias, g, dq, dk, dv, debias, B, Q, K, H,
-                           Dh, scale, drop, st);
-  return launch<T, false>(q, k, v, ebias, g, dq, dk, dv, debias, B, Q, K, H,
-                          Dh, scale, drop, st);
 }
 
 }  // namespace
@@ -208,12 +207,33 @@ int attn_bwd_rel(const void* q, const void* k, const void* v,
   const DropoutArgs drop{seed, threshold, inv_keep};
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, ebias, g, dq, dk, dv, debias, B, Q, K,
-                             H, Dh, scale, dropout != 0, drop, st);
-    case 1:
-      return dispatch<__nv_bfloat16>(q, k, v, ebias, g, dq, dk, dv, debias, B,
-                                     Q, K, H, Dh, scale, dropout != 0, drop,
-                                     st);
+      return dropout ? launch_fp32<true>(q, k, v, ebias, g, dq, dk, dv,
+                                         debias, B, Q, K, H, Dh, scale, drop,
+                                         st)
+                     : launch_fp32<false>(q, k, v, ebias, g, dq, dk, dv,
+                                          debias, B, Q, K, H, Dh, scale, drop,
+                                          st);
+    case 1: {  // the tensor-core plan of attn_rel_full_tc.cuh
+      using bf16 = __nv_bfloat16;
+      rel_tc::BwdArgs a{nullptr,
+                        nullptr,
+                        static_cast<const bf16*>(q),
+                        static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v),
+                        static_cast<const bf16*>(g),
+                        static_cast<bf16*>(dq),
+                        static_cast<bf16*>(dk),
+                        static_cast<bf16*>(dv),
+                        static_cast<bf16*>(debias),
+                        B,
+                        Q,
+                        K,
+                        H,
+                        Dh,
+                        scale};
+      a.ebias = static_cast<const bf16*>(ebias);
+      return rel_tc::launch_bwd_rc(a, dropout != 0, drop, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,11 +2,13 @@
 // #1 (attn_fwd_packed.cu) and its split-layout twin #8 (attn_fwd_split.cu),
 // the saved-probs backward #3 (attn_bwd_packed_saved.cu) and its twin #10
 // (attn_bwd_split_saved.cu), the recompute backward #9 (attn_bwd_split.cu)
-// and its packed twin #2 (attn_bwd_packed.cu). fp32 keeps the CUDA-core
-// row code of
-// common.cuh (`fwd_rows`, `bwd_saved_head`, `bwd_recompute_head`), as do
-// #18 and #19, whose head
-// lies in shared memory where cp.async cannot read it.
+// and its packed twin #2 (attn_bwd_packed.cu); and the QKV projection of
+// #18 (attn_fwd_qkvproj.cu) and #19 (attn_bwd_qkvproj.cu), with #1's
+// register plan split into its staging and compute halves so that #18 runs
+// the compute half on the head it projects into shared memory. fp32 keeps
+// the CUDA-core row code of common.cuh (`fwd_rows`, `bwd_saved_head`,
+// `bwd_recompute_head`, `project_head`); #18's attention past S = 64 and
+// #19's dQKV chain run that row code in bf16 too.
 //
 // What they compute is #1's and #3's function (common.cuh's notes), per
 // batch row b and head h:
@@ -99,6 +101,22 @@
 // #2 and #9 give the same bits. Shared memory (ops/fused_attention.py::
 // full_tc_bwd_recompute_smem_bytes): 44.3 KB at S = 50, Dh = 64; 167.1 KB
 // at S = 140; 168.5 KB at S = 117, Dh = 128.
+//
+// The QKV projection (`project_head_tc`, #18 and #19): a block of 8 warps
+// a batch row computes head = bf16(x_b · w_hᵀ in fp32 + b3_h) for one head
+// of one or two batch rows, in passes of 64 rows × up to 192 columns (the
+// head's 3·Dh: one pass at Dh = 64, S ≤ 64), the batch rows' x and the
+// head's weight rows streamed in 32- or 64-deep slices through a two-stage
+// cp.async ring, each warp a 16-row slab × half the pass's n8 tiles in
+// registers; the bias is added in fp32 before the one rounding, and the
+// bf16 pairs go straight into the layout the caller names (#1's tiles up
+// to S = 64, [S][3·Dh] past it and in #19) and, with `emit`, to the packed
+// qkv. #18 to S = 64 takes two batch rows a block with 64-deep slices,
+// past it and #19 one with 32-deep slices (kProjRegRows, kProjRegDepth,
+// kProjRowsDepth); a weight slice serves every batch row of its block. The
+// register plan's compute half (`fwd_reg_compute`) then runs on #18's
+// tiles as on the ones #1 stages (`fwd_reg_stage`), so #18 gives #1's bits
+// on its emitted projection.
 //
 // Against the fp32 kernels: a bf16 × bf16 product is exact in fp32, so a
 // dot differs from the CUDA-core fmaf chain of the same values only in the
@@ -337,33 +355,50 @@ __host__ __device__ inline size_t fwd_reg_smem_bytes(int s, int dh) {
          (size_t)rows16(s) * sizeof(float);
 }
 
-template <int kDT, bool kDropout, bool kSave>
-__device__ __forceinline__ void fwd_reg_rows(unsigned char* smem_raw,
-                                             const attn::RowsHead<bf16>& hd,
-                                             bf16* __restrict__ p_out,
-                                             bf16* __restrict__ pd_out,
-                                             int S, int Dh, float scale,
-                                             bool pairs,
-                                             const DropoutArgs& drop) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
-  const int sp = rows16(S), nkt = sp / 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [sp][ld]
-  bf16* ks = qs + sp * ld;                        // [sp][ld]
-  bf16* vs = ks + sp * ld;                        // [sp][ld]
-  float* bias = reinterpret_cast<float*>(vs + sp * ld);  // [sp]
+// The register plan's tiles in shared memory (`fwd_reg_smem_bytes`): Q, K,
+// V [S16][L] bf16 one after the other (rows past S and the k-depth's pad
+// columns zero), then the [S16] fp32 mask bias.
+__device__ __forceinline__ void fill_bias(float* bias, const float* mask,
+                                          int S) {
+  for (int j = threadIdx.x; j < rows16(S); j += blockDim.x)
+    bias[j] = mask && j < S ? (1.0f - mask[j]) * -10000.0f : 0.0f;
+}
 
+// The register plan's staging half: the head's Q, K, V and its mask bias
+// into the tiles, visible to every thread on return.
+__device__ __forceinline__ void fwd_reg_stage(unsigned char* smem_raw,
+                                              const attn::RowsHead<bf16>& hd,
+                                              int S, int Dh) {
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   attn::tc_cp_rows(qs, ld, hd.q, hd.ld, 0, sp, 0, S, Dh);
-  attn::tc_cp_rows(ks, ld, hd.k, hd.ld, 0, sp, 0, S, Dh);
-  attn::tc_cp_rows(vs, ld, hd.v, hd.ld, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(qs + sp * ld, ld, hd.k, hd.ld, 0, sp, 0, S, Dh);
+  attn::tc_cp_rows(qs + 2 * sp * ld, ld, hd.v, hd.ld, 0, sp, 0, S, Dh);
   attn::cp_async_commit();
-  for (int j = threadIdx.x; j < sp; j += blockDim.x)
-    bias[j] = hd.mask && j < S ? (1.0f - hd.mask[j]) * -10000.0f : 0.0f;
+  fill_bias(reinterpret_cast<float*>(qs + 3 * sp * ld), hd.mask, S);
   attn::tc_zero_cols(qs, ld, 3 * sp, Dh, kd);  // Q, K and V's pad columns
   attn::cp_async_wait<0>();
   __syncthreads();
+}
 
-  const int m0 = warp * 16;
+// The register plan's compute half on the staged tiles: the calling warp
+// takes query rows m0 .. m0 + 15 (m0 < S16; no block barrier, so a block
+// with more warps than slabs leaves the rest idle). hd's q, k, v and mask
+// are not read.
+template <int kDT, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_reg_compute(
+    const unsigned char* smem_raw, const attn::RowsHead<bf16>& hd,
+    bf16* __restrict__ p_out, bf16* __restrict__ pd_out, int m0, int S,
+    int Dh, float scale, bool pairs, const DropoutArgs& drop) {
+  const int lane = threadIdx.x & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S), nkt = sp / 8;
+  const bf16* qs = reinterpret_cast<const bf16*>(smem_raw);  // [sp][ld]
+  const bf16* ks = qs + sp * ld;                              // [sp][ld]
+  const bf16* vs = ks + sp * ld;                              // [sp][ld]
+  const float* bias = reinterpret_cast<const float*>(vs + sp * ld);  // [sp]
+
   const int t4 = lane & 3;
   float sc[kRegTiles][4], sum[2];
   reg_scores_softmax(sc, sum, qs + m0 * ld, ks, ld, kd, nkt, S, scale, bias);
@@ -423,6 +458,20 @@ __device__ __forceinline__ void fwd_reg_rows(unsigned char* smem_raw,
     }
   }
   store_rows(acc, hd.out, hd.out_ld, m0, S, Dh);
+}
+
+template <int kDT, bool kDropout, bool kSave>
+__device__ __forceinline__ void fwd_reg_rows(unsigned char* smem_raw,
+                                             const attn::RowsHead<bf16>& hd,
+                                             bf16* __restrict__ p_out,
+                                             bf16* __restrict__ pd_out,
+                                             int S, int Dh, float scale,
+                                             bool pairs,
+                                             const DropoutArgs& drop) {
+  fwd_reg_stage(smem_raw, hd, S, Dh);
+  fwd_reg_compute<kDT, kDropout, kSave>(smem_raw, hd, p_out, pd_out,
+                                        16 * (threadIdx.x >> 5), S, Dh, scale,
+                                        pairs, drop);
 }
 
 template <int kDT, bool kDropout, bool kSave>
@@ -1190,6 +1239,171 @@ int launch_bwd_recompute(const Geom& g, const float* mask, int B, int S,
                                            b_off, h_off, drop, st)
                  : launch_bwd_rc<16, false>(g, mask, B, S, H, Dh, scale,
                                             b_off, h_off, drop, st);
+}
+
+// ---- #18's and #19's QKV projection ----------------------------------------
+
+// One block of kRows · kProjThreads projects head h of kRows batch rows
+// (n_rows < kRows of them real at the batch's end):
+//   head[r][j] = bf16(Σ_c x_b[r][c] · w[row(j)][c] in fp32 + b3[row(j)])
+// for r < S and the head's 3·Dh columns j, row(j) = (j / Dh)·D + h·Dh +
+// j % Dh its row of w (nn.Linear's [3D, D]) and column of the packed
+// projection: the TPU kernel's `(x·W in fp32 + b).astype(dtype)`, the bias
+// added to the fp32 sum before the one rounding. The product runs on
+// mma.sync.m16n8k16 in passes of kProjRows rows of each batch row × at
+// most kProjCols columns: the batch rows' x and the head's weight rows
+// stream through a ring of kProjStages cp.async stages of kDepth-deep
+// slices (rows of kDepth + 8 bf16, conflict-free for ldmatrix; depth past
+// D zero-filled), so each weight slice serves every batch row of the
+// block. Warp w takes batch row w / 8, the 16-row slab w % 4 and half
+// (w / 4) % 2 of the pass's n8 tiles, its fp32 sums in registers over the
+// whole depth, in 16-deep steps (the order, and so the bits, depend on
+// neither kRows nor kDepth). Column j of row r of batch row i lands at
+// head + i·head_step + (j / Dh)·seg + r·ld + j % Dh (q, k and v as three
+// tiles of row stride ld, seg apart); rows S .. zero_rows − 1 are written
+// as zeros. With kEmit the same bf16 pairs go to qkv_b + i·S·3D, row r,
+// column row(j) ([S, 3D] a batch row). #18 and #19 call it alike, so
+// #19's re-projection has #18's bits. x_b, w and their rows (D·2 bytes
+// apart) must be 16-byte aligned; `stage` holds `proj_smem_bytes(Dh,
+// kRows, kDepth)`. The caller synchronises before reading head.
+constexpr int kProjThreads = 256;
+constexpr int kProjRows = 64;
+constexpr int kProjCols = 192;
+constexpr int kProjStages = 2;
+constexpr int kProjTiles = kProjCols / 16;  // a warp's n8 tiles, at most
+// The plans' batch rows a block and slice depths (ops/fused_attention.py::
+// QKVPROJ_TC_*): #18 to S = 64 (its register plan); the row plans, which
+// keep the head as [S][3·Dh] beside their row code, one batch row a block
+// (#18 past S = 64, whose staging must fit beside the head at the reach,
+// S = 468, and #19, whose (head, batch row) pass ran 1.22 ms with 32-deep
+// slices against 1.32 with 64-deep at bf16 B=256 S=50 on an NVIDIA H100
+// 80GB HBM3 at 700 W, chip_ab.py).
+constexpr int kProjRegRows = 2;
+constexpr int kProjRegDepth = 64;
+constexpr int kProjRowsDepth = 32;
+
+__host__ __device__ inline int proj_w_rows(int dh) {
+  return rows16(3 * dh < kProjCols ? 3 * dh : kProjCols);
+}
+
+__host__ __device__ inline size_t proj_smem_bytes(int dh, int rows,
+                                                  int depth) {
+  return (size_t)kProjStages * (rows * kProjRows + proj_w_rows(dh)) *
+         (depth + 8) * sizeof(bf16);
+}
+
+template <int kRows, int kDepth, bool kEmit>
+__device__ __forceinline__ void project_head_tc(
+    unsigned char* stage, bf16* head, size_t head_step, int ld, int seg,
+    int zero_rows, const bf16* __restrict__ x_b, const bf16* __restrict__ w,
+    const bf16* __restrict__ b3, bf16* __restrict__ qkv_b, int n_rows, int S,
+    int D, int Dh, int h) {
+  constexpr int kLd = kDepth + 8;
+  constexpr int kXRows = kRows * kProjRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t4 = lane & 3, row_sel = warp >> 3, slab = warp & 3;
+  const int half = (warp >> 2) & 1;
+  const int N = 3 * Dh, wrows = proj_w_rows(Dh);
+  const int n_slices = (D + kDepth - 1) / kDepth;
+  const int n_cb = (N + kProjCols - 1) / kProjCols;
+  const int n_pass = (zero_rows + kProjRows - 1) / kProjRows * n_cb;
+  const int total = n_pass * n_slices;
+  const int stage_elems = (kXRows + wrows) * kLd;
+  bf16* ring = reinterpret_cast<bf16*>(stage);
+  auto w_row = [=](int j) {
+    return (size_t)(j / Dh) * D + h * Dh + j % Dh;
+  };
+  // Slice i of the stream into stage i % kProjStages: each batch row's x
+  // rows m0 .. m0 + kProjRows − 1 (zeros past S and past the batch) and w's
+  // rows of the pass's columns, at depth k0 .. k0 + kDepth − 1 (zeros past
+  // D); one cp.async group.
+  auto load = [&](int i) {
+    const int pass = i / n_slices, k0 = (i - pass * n_slices) * kDepth;
+    const int m0 = pass / n_cb * kProjRows;
+    const int n0 = (pass - pass / n_cb * n_cb) * kProjCols;
+    const int ncols = min(kProjCols, N - n0);
+    bf16* xs = ring + (i % kProjStages) * stage_elems;
+    bf16* ws = xs + kXRows * kLd;
+    constexpr int kChunks = kDepth / 8;
+    for (int e = threadIdx.x; e < (kXRows + ncols) * kChunks;
+         e += blockDim.x) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 8;
+      const bool in_depth = k0 + c < D;
+      if (r < kXRows) {
+        const int bi = r / kProjRows, m = m0 + r - bi * kProjRows;
+        const bool ok = in_depth && bi < n_rows && m < S;
+        attn::cp_async16(
+            xs + r * kLd + c,
+            ok ? x_b + ((size_t)bi * S + m) * D + k0 + c : x_b, ok);
+      } else {
+        const int j = r - kXRows;
+        attn::cp_async16(ws + j * kLd + c,
+                         in_depth ? w + w_row(n0 + j) * D + k0 + c : w,
+                         in_depth);
+      }
+    }
+  };
+  float acc[kProjTiles][4];
+#pragma unroll
+  for (int t = 0; t < kProjTiles; ++t)
+    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kProjStages - 1; ++i) {
+    if (i < total) load(i);
+    attn::cp_async_commit();
+  }
+  bf16* head_i = head + row_sel * head_step;
+  bf16* qkv_i = kEmit ? qkv_b + (size_t)row_sel * S * 3 * D : nullptr;
+  const bool real = row_sel < n_rows;
+  for (int i = 0; i < total; ++i) {
+    attn::cp_async_wait<kProjStages - 2>();  // slice i
+    __syncthreads();  // ... for every thread; slice i − 1's readers are done
+    if (i + kProjStages - 1 < total) load(i + kProjStages - 1);
+    attn::cp_async_commit();
+    const int pass = i / n_slices, sl = i - pass * n_slices;
+    const int m0 = pass / n_cb * kProjRows;
+    const int n0 = (pass - pass / n_cb * n_cb) * kProjCols;
+    const int nt = (min(kProjCols, N - n0) + 7) / 8;
+    const int per = (nt + 1) / 2, tb = half * per;
+    const int n = max(0, min(per, nt - tb));
+    const bf16* xs = ring + (i % kProjStages) * stage_elems;
+    const bf16* ws = xs + kXRows * kLd;
+    if (real && m0 + 16 * slab < zero_rows)
+      warp_abt<kProjTiles>(acc,
+                           xs + (row_sel * kProjRows + 16 * slab) * kLd,
+                           ws + tb * 8 * kLd, kLd, kDepth, n);
+    if (sl == n_slices - 1) {
+      // The pass's epilogue: + b3 in fp32, one rounding, into the head.
+#pragma unroll
+      for (int t = 0; t < kProjTiles; ++t) {
+        if (real && t < n) {
+          const int j = n0 + 8 * (tb + t) + 2 * t4;
+          const int part = j / Dh, c = j - part * Dh;
+          const size_t col = (size_t)part * D + h * Dh + c;
+          const float2 bias = make_float2(__bfloat162float(b3[col]),
+                                          __bfloat162float(b3[col + 1]));
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int r = m0 + 16 * slab + (lane >> 2) + 8 * hi;
+            __nv_bfloat162 v = __floats2bfloat162_rn(0.0f, 0.0f);
+            if (r < S) {
+              v = __floats2bfloat162_rn(__fadd_rn(acc[t][2 * hi], bias.x),
+                                        __fadd_rn(acc[t][2 * hi + 1],
+                                                  bias.y));
+              if constexpr (kEmit)
+                *reinterpret_cast<__nv_bfloat162*>(
+                    qkv_i + (size_t)r * 3 * D + col) = v;
+            }
+            if (r < zero_rows)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  head_i + (size_t)part * seg + (size_t)r * ld + c) = v;
+          }
+        }
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+      }
+    }
+  }
+  attn::cp_async_wait<0>();
 }
 
 }  // namespace full_tc

@@ -1,13 +1,16 @@
 // The bf16 tensor-core plans of the rel full-H attention kernels: the
-// forward #11 (attn_fwd_rel.cu) and the saved-probs backward #13
-// (attn_bwd_rel_saved.cu). fp32 keeps their CUDA-core code (common.cuh's
-// `fwd_rel_rows`, attn_bwd_rel_saved.cu's kernel) and its bits; #12 keeps
-// its own in both dtypes. #20 and #21 (attn_relik_full_tc.cuh) take the
-// register plan's softmax and tail from here.
+// forward #11 (attn_fwd_rel.cu), the saved-probs backward #13
+// (attn_bwd_rel_saved.cu) and the recompute backward #12
+// (attn_bwd_rel.cu). fp32 keeps their CUDA-core code (common.cuh's
+// `fwd_rel_rows`, attn_bwd_rel_saved.cu's and attn_bwd_rel.cu's kernels)
+// and its bits. #20 and #21 (attn_relik_full_tc.cuh) take the register
+// plan's softmax and tail from here.
 //
-// What they compute is #11's and #13's function, per batch row b and head
-// h, from q [B, Q, D], k, v [B, K, D] (head-major columns h·Dh + c) and the
-// score bias ebias [B, H, Q, K]:
+// What they compute is #11's, #13's and #12's function, per batch row b
+// and head h, from q [B, Q, D], k, v [B, K, D] (head-major columns h·Dh +
+// c) and the score bias ebias [B, H, Q, K] (#12: p and pd recomputed from
+// them in fp32, the keep mask replayed; #13: read rounded from the saved
+// probs):
 //   s    = (q_h · k_hᵀ in fp32) · scale + ebias[b, h]; p = softmax_k(s)
 //          (fp32, max-subtracted; a row masked whole comes out uniform)
 //   save: p_out = bf16(p); rate > 0: p ← keep ? p · inv_keep : 0 (the
@@ -88,11 +91,39 @@
 // ≤ 128, it covers every (Q, K ≤ 512, Dh) that
 // ops/fused_attention.py::rel_bwd_fits admits.
 //
+// Recompute backward (#12, `attn_bwd_rel_tc_kernel`): the same block code
+// (`bwd_rows`) with a phase 0 in front of each chunk's phase 1 that
+// rebuilds p with #11's bits (`rc_probs`): q's chunk rows stream into A and
+// (once: B ends every chunk holding it) k into B; to K = 64 each warp runs
+// #11's register plan on its 16-row slabs (the ebias read in the
+// accumulator layout, `reg_softmax`, p = e / sum, the lane pairs' keep
+// words), past it the chunk's ebias rows go into an fp32 tile and the
+// scores over them in 16 × 16 units, then `softmax_rows_keep_sign` (the
+// order of #14's `tc_hb_softmax_rows`). p lands in an fp32 tile P
+// [chunk][K16 + 4], the keep bit in its sign, while g and v stream in.
+// Phase 1 reads p and pd = p · inv_keep (0 where dropped) from P in fp32,
+// as the CUDA-core kernel does, and writes pd_c = bf16(pd) over the slab's
+// own P rows once the warp has read them; phase 2a reads pd_c from there.
+// The keep mask is replayed at (k >> 2, q, h, b). Shared memory
+// (ops/fused_attention.py::rel_full_tc_bwd_smem_bytes with `recompute`):
+// A, B bf16, P fp32, ds_c bf16: 44.0 KB at Q = K = 50, Dh = 64 (45,056
+// bytes), 68.75 KB at Q = 50, K = 100; all of Q in one chunk but for
+// Q > 400 at K ≤ 67. At Dh ≤ 64 it is held to 128 registers: where the
+// block has four warps or fewer (every shape with Q, K ≤ 64) for four
+// blocks an SM (`kRcSmallBlocks`; it spills ~200 bytes, and still ran bf16
+// B=256 Q=K=50 rate 0.1 at 0.198 ms against 0.248 unbounded, 216
+// registers, two blocks), else for two where their shared memory allows
+// (`kRcWideBlocks`: Q=50 K=100 0.564-0.568 against 0.940-0.946 unbounded,
+// one block; NVIDIA H100 80GB HBM3 at 700 W, chip_ab.py). Dh ≤ 128 runs
+// unbounded. The chunk's probs rows (#13's pd, #12's ebias) come in by
+// `load_pairs`, eight 4-byte loads in flight a thread.
+//
 // Against the fp32 kernels: a bf16 × bf16 product is exact in fp32, so a
 // dot differs from the CUDA-core fmaf chain of the same values only in the
 // order of its sum, and so do the row sums; the roundings sit where the
 // fp32 kernels put them. bf16 #11 and #13 are held to their plain versions
-// within the forward bound and `rel_grads_bf16_bound`, not bit for bit.
+// within the forward bound and `rel_grads_bf16_bound`, not bit for bit;
+// so is #12 (to its plain version, to autograd and to #13).
 
 #pragma once
 
@@ -555,32 +586,40 @@ int launch_fwd(const Args& a, bool dropout, const DropoutArgs& drop,
   return launch_fwd_mode<false, false>(a, drop, st);
 }
 
-// ---- the saved-probs backward ----------------------------------------------
+// ---- the backward: #13 from saved probs, #12 recomputing them ---------------
 
 __host__ __device__ inline int bwd_pld(int k_len) { return rows16(k_len) + 8; }
+// #12's fp32 probs tile row stride (pd_c over it as bf16 rows of twice it)
+__host__ __device__ inline int bwd_rc_p_ld(int k_len) {
+  return rows16(k_len) + 4;
+}
 
 // Shared memory of a backward block whose query chunk holds qc rows (a
-// multiple of 16): A [qc][L] and B [K16][L], pd and ds_c [qc][K16 + 8],
-// bf16; with more than one chunk (`multi`) the fp32 dK and dV sums
-// [K16][Dh].
+// multiple of 16): A [qc][L] and B [K16][L], bf16; #13 (`rc` false) pd and
+// ds_c [qc][K16 + 8] bf16; #12 (`rc`) the fp32 probs P [qc][K16 + 4] (pd_c
+// over them) and ds_c [qc][K16 + 8] bf16; with more than one chunk
+// (`multi`) the fp32 dK and dV sums [K16][Dh].
 __host__ __device__ inline size_t bwd_smem_bytes(int qc, int k_len, int dh,
-                                                 bool multi) {
+                                                 bool multi, bool rc = false) {
   const int kp = rows16(k_len);
-  return ((size_t)(qc + kp) * attn::tc_ld(dh) +
-          2 * (size_t)qc * bwd_pld(k_len)) *
-             sizeof(bf16) +
+  const size_t probs =
+      rc ? (size_t)qc * bwd_rc_p_ld(k_len) * sizeof(float) +
+               (size_t)qc * bwd_pld(k_len) * sizeof(bf16)
+         : 2 * (size_t)qc * bwd_pld(k_len) * sizeof(bf16);
+  return (size_t)(qc + kp) * attn::tc_ld(dh) * sizeof(bf16) + probs +
          (multi ? 2 * (size_t)kp * dh * sizeof(float) : 0);
 }
 
 // The query chunk: all of Q's rows (rounded up to 16) where they fit, else
 // the most 16-row slabs that fit beside the dK/dV sums; 0 where not even 16
 // do (ops/fused_attention.py::rel_full_tc_bwd_q_chunk).
-inline int bwd_q_chunk(int q_len, int k_len, int dh) {
+inline int bwd_q_chunk(int q_len, int k_len, int dh, bool rc = false) {
   const int qp = rows16(q_len);
-  if (bwd_smem_bytes(qp, k_len, dh, false) <= attn::kMaxSmemBytes) return qp;
+  if (bwd_smem_bytes(qp, k_len, dh, false, rc) <= attn::kMaxSmemBytes)
+    return qp;
   int qc = 0;
   while (qc + 16 < qp &&
-         bwd_smem_bytes(qc + 16, k_len, dh, true) <= attn::kMaxSmemBytes)
+         bwd_smem_bytes(qc + 16, k_len, dh, true, rc) <= attn::kMaxSmemBytes)
     qc += 16;
   return qc;
 }
@@ -618,37 +657,229 @@ __device__ __forceinline__ void emit_keys(float (&acc)[kDT][4], bf16* dst,
   full_tc::store_rows(acc, dst, D, k0, K, Dh);
 }
 
-template <int kDT>
-__global__ void __launch_bounds__(kBwdThreads)
-    attn_bwd_rel_saved_tc_kernel(const bf16* __restrict__ p,
-                                 const bf16* __restrict__ pd,
-                                 const bf16* __restrict__ q,
-                                 const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v,
-                                 const bf16* __restrict__ g,
-                                 bf16* __restrict__ dq, bf16* __restrict__ dk,
-                                 bf16* __restrict__ dv,
-                                 bf16* __restrict__ debias, int Q, int K,
-                                 int H, int Dh, float scale, int qc,
-                                 bool pairs) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Where the bf16 backward's tensors live. #13 reads p, pd (ebias null);
+// #12 reads ebias (p, pd null).
+struct BwdArgs {
+  const bf16* p;
+  const bf16* pd;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* g;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  bf16* debias;
+  int B, Q, K, H, Dh;
+  float scale;
+  const bf16* ebias = nullptr;
+};
+
+// Rows r < rp, keys c < kp of a chunk of a [.][K] bf16 tensor (row r at
+// src + r·K; zeros past `rows` and K) handed to store(r, c, keys c and c +
+// 1) two keys at a time, eight pair loads in flight a thread before their
+// stores so that their latencies overlap. `pairs`: one 4-byte load a pair
+// (K even and src 4-byte aligned), else 2-byte loads.
+template <typename Store>
+__device__ __forceinline__ void load_pairs(const bf16* __restrict__ src,
+                                           int K, int rows, int rp, int kp,
+                                           bool pairs, Store store) {
+  constexpr int kInFlight = 8;
+  const int half = kp / 2, n = rp * half;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kInFlight * blockDim.x) {
+    __nv_bfloat162 v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int r = i / half, c = 2 * (i - r * half);
+      v[u] = __floats2bfloat162_rn(0.0f, 0.0f);
+      if (i < n && r < rows && c < K) {
+        const bf16* at = src + (size_t)r * K + c;
+        if (pairs) {
+          v[u] = *reinterpret_cast<const __nv_bfloat162*>(at);
+        } else {
+          v[u].x = at[0];
+          if (c + 1 < K) v[u].y = at[1];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) {
+        const int r = i / half;
+        store(r, 2 * (i - r * half), v[u]);
+      }
+    }
+  }
+}
+
+// #12's phase 0 on one query chunk (rows c0 .. c0 + rows − 1, rp = rows
+// rounded up to 16) whose q rows are staged in A and k in B: p again with
+// #11's bits into the fp32 tile P [rp][pl4], the keep bit in its sign. To
+// K = 64 #11's register plan: the warp's slabs against every key in
+// registers, the ebias read in the accumulator layout (`eb_pairs`: bf16x2
+// while K is even), `reg_softmax`, p = e / sum, the lane pairs' keep words.
+// Past it #14's score tile: the chunk's ebias rows into P as fp32
+// (`load_pairs`), s = (dot · scale) + eb over them in 16 × 16 units, then the whole-row order of `tc_hb_softmax_rows`
+// (`softmax_rows_keep_sign`). Returns after a barrier that every warp has
+// passed once it is done reading A and B, with g and v in flight into them
+// (one cp.async group).
+template <bool kDropout>
+__device__ __forceinline__ void rc_probs(
+    float* ps, int pl4, bf16* as, bf16* bs, const bf16* __restrict__ ebias,
+    const bf16* __restrict__ g, const bf16* __restrict__ v, int Q, int K,
+    int H, int Dh, float scale, int c0, int rows, int ld, int kd,
+    bool eb_pairs, const DropoutArgs& drop) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int D = H * Dh;
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g4 = lane >> 2, t4 = lane & 3;
+  const int kp = rows16(K), nkt = kp / 8, nk16 = kp / 16, rp = rows16(rows);
+  const size_t row0 = ((size_t)b * H + h) * Q;  // ebias row q at + q · K
+  const bf16* eb_rows = ebias + (row0 + c0) * K;
+  auto stage_g_v = [&]() {
+    attn::tc_cp_rows(as, ld, g + (size_t)b * Q * D + Dh * h, D, c0, rp, 0,
+                     rows, Dh);
+    attn::tc_cp_rows(bs, ld, v + (size_t)b * K * D + Dh * h, D, 0, kp, 0, K,
+                     Dh);
+    attn::cp_async_commit();
+  };
+  if (K <= kRegMaxK) {
+    attn::cp_async_wait<0>();
+    __syncthreads();  // q and k are in
+    const bf16 zero = __float2bfloat16(0.0f);
+    const bf16 ninf = __float2bfloat16(-INFINITY);
+    for (int r0 = 16 * warp; r0 < rp; r0 += 16 * nw) {
+      // The lane's ebias pairs: keys past K at −inf, rows past the chunk at
+      // 0 (their scores stay finite and are never read).
+      __nv_bfloat162 eb[kRegTiles][2];
+#pragma unroll
+      for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int r = r0 + g4 + 8 * hi, j = 8 * t + 2 * t4;
+          __nv_bfloat162 e;
+          e.x = j < K ? zero : ninf;
+          e.y = j + 1 < K ? zero : ninf;
+          if (r < rows && j < K) {
+            const bf16* src = eb_rows + (size_t)r * K + j;
+            if (eb_pairs) {
+              e = *reinterpret_cast<const __nv_bfloat162*>(src);
+            } else {
+              e.x = src[0];
+              if (j + 1 < K) e.y = src[1];
+            }
+          }
+          eb[t][hi] = e;
+        }
+      }
+      float sc[kRegTiles][4] = {};
+      full_tc::warp_abt<kRegTiles>(sc, as + r0 * ld, bs, ld, kd, nkt);
+#pragma unroll
+      for (int t = 0; t < kRegTiles; ++t) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const float2 e = __bfloat1622float2(eb[t][hi]);
+          sc[t][2 * hi] = __fadd_rn(__fmul_rn(sc[t][2 * hi], scale), e.x);
+          sc[t][2 * hi + 1] =
+              __fadd_rn(__fmul_rn(sc[t][2 * hi + 1], scale), e.y);
+        }
+      }
+      float sum[2];
+      reg_softmax(sc, sum, K);
+#pragma unroll
+      for (int t = 0; t < kRegTiles; ++t) {
+        if (t < nkt) {
+          uint32_t wd[4] = {0u, 0u, 0u, 0u};
+          if constexpr (kDropout)
+            full_tc::keep_words(wd, c0 + r0 + g4, t, b, h, drop);
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            float x[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              x[u] = sc[t][2 * hi + u] / sum[hi];
+              if (kDropout && wd[2 * hi + u] < drop.threshold)
+                x[u] = copysignf(x[u], -1.0f);
+            }
+            *reinterpret_cast<float2*>(ps + (r0 + g4 + 8 * hi) * pl4 + 8 * t +
+                                       2 * t4) = make_float2(x[0], x[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with q and k
+    stage_g_v();
+    return;
+  }
+  // The chunk's ebias rows, as fp32, where their scores will be.
+  load_pairs(eb_rows, K, rows, rp, kp, eb_pairs,
+             [&](int r, int c, __nv_bfloat162 x) {
+               *reinterpret_cast<float2*>(ps + r * pl4 + c) =
+                   __bfloat1622float2(x);
+             });
+  attn::cp_async_wait<0>();
+  __syncthreads();  // q, k and the ebias rows are in
+  for (int u = warp; u < (rp / 16) * nk16; u += nw) {
+    const int r0 = 16 * (u / nk16), k0 = 16 * (u - (u / nk16) * nk16);
+    float sc[2][4] = {};
+    full_tc::warp_abt<2>(sc, as + r0 * ld, bs + k0 * ld, ld, kd, 2);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float2* dst = reinterpret_cast<float2*>(ps + (r0 + g4 + 8 * hi) * pl4 +
+                                                k0 + 8 * t + 2 * t4);
+        const float2 e = *dst;
+        *dst = make_float2(__fadd_rn(__fmul_rn(sc[t][2 * hi], scale), e.x),
+                           __fadd_rn(__fmul_rn(sc[t][2 * hi + 1], scale),
+                                     e.y));
+      }
+    }
+  }
+  __syncthreads();  // every score is in; q and k are done with
+  stage_g_v();
+  attn::softmax_rows_keep_sign<kDropout>(ps, rows, K, c0, b, h, drop, pl4);
+}
+
+// One (head, batch row)'s block, over chunks of qc query rows. kRc: #12, p
+// and pd recomputed (`rc_probs`) into the fp32 tile P, pd_c written over
+// it; else #13, pd read from device memory into its bf16 tile and p read in
+// phase 1. `pairs`: p, pd and debias read and written as bf16x2.
+template <int kDT, bool kRc, bool kDropout>
+__device__ __forceinline__ void bwd_rows(
+    unsigned char* smem_raw, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const bf16* __restrict__ p,
+    const bf16* __restrict__ pd, const bf16* __restrict__ ebias,
+    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    bf16* __restrict__ debias, int Q, int K, int H, int Dh, float scale,
+    int qc, bool pairs, bool eb_pairs, const DropoutArgs& drop) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int D = H * Dh;
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31, t4 = lane & 3;
   const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
   const int kp = rows16(K), nkt = kp / 8, pld = bwd_pld(K);
+  const int pl4 = bwd_rc_p_ld(K);
   const bool multi = qc < Q;
-  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [qc][ld]: g, then q
-  bf16* bs = as + qc * ld;                        // [kp][ld]: v, then k
-  bf16* pds = bs + kp * ld;                       // [qc][pld]: pd
-  bf16* dss = pds + qc * pld;                     // [qc][pld]: ds_c
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [qc][ld]: (q,) g, then q
+  bf16* bs = as + qc * ld;                        // [kp][ld]: (k,) v, then k
+  // #13: pd [qc][pld] bf16; #12: P [qc][pl4] fp32, pd_c over it as bf16
+  // rows of 2·pl4.
+  float* ps = reinterpret_cast<float*>(bs + kp * ld);
+  bf16* pds = reinterpret_cast<bf16*>(ps);
+  const int pds_ld = kRc ? 2 * pl4 : pld;
+  bf16* dss = kRc ? reinterpret_cast<bf16*>(ps + qc * pl4)
+                  : pds + qc * pld;               // [qc][pld]: ds_c
   float* dk_sum = reinterpret_cast<float*>(dss + qc * pld);  // [kp][Dh]
   float* dv_sum = dk_sum + kp * Dh;
+  const float inv_keep = drop.inv_keep;
 
   const size_t q_off = (size_t)b * Q * D + h * Dh;  // row r at + r · D
   const size_t k_off = (size_t)b * K * D + h * Dh;
-  // row q of p, pd and debias starts at (row0 + q) · K
+  // row q of p, pd, ebias and debias starts at (row0 + q) · K
   const size_t row0 = ((size_t)b * H + h) * Q;
 
   attn::tc_zero_cols(as, ld, qc + kp, Dh, kd);  // A's and B's pad columns
@@ -656,36 +887,41 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int c0 = 0; c0 < Q; c0 += qc) {
     const int rows = min(qc, Q - c0), rp = rows16(rows);
     const bool first = c0 == 0, last = c0 + qc >= Q;
-    attn::tc_cp_rows(as, ld, g + q_off, D, c0, rp, 0, rows, Dh);
-    attn::tc_cp_rows(bs, ld, v + k_off, D, 0, kp, 0, K, Dh);
-    attn::cp_async_commit();
-    // pd's rows c0 .. c0 + rows − 1 → pds, zeros to [rp][kp]: two keys a
-    // thread.
-    const bf16* pd_rows = pd + (row0 + c0) * K;
-    const int half = kp / 2;
-    for (int i = threadIdx.x; i < rp * half; i += blockDim.x) {
-      const int r = i / half, c = 2 * (i - r * half);
-      uint32_t w = 0u;
-      if (r < rows && c < K) {
-        const bf16* src = pd_rows + (size_t)r * K + c;
-        if (pairs) {
-          w = *reinterpret_cast<const uint32_t*>(src);
-        } else {
-          __nv_bfloat162 x;
-          x.x = src[0];
-          x.y = c + 1 < K ? src[1] : __float2bfloat16(0.0f);
-          w = *reinterpret_cast<const uint32_t*>(&x);
-        }
-      }
-      *reinterpret_cast<uint32_t*>(pds + r * pld + c) = w;
+    if constexpr (kRc) {
+      // Phase 0: q and (at the first chunk; B ends each chunk holding it)
+      // k, then p again.
+      attn::tc_cp_rows(as, ld, q + q_off, D, c0, rp, 0, rows, Dh);
+      if (first) attn::tc_cp_rows(bs, ld, k + k_off, D, 0, kp, 0, K, Dh);
+      attn::cp_async_commit();
+      rc_probs<kDropout>(ps, pl4, as, bs, ebias, g, v, Q, K, H, Dh, scale,
+                         c0, rows, ld, kd, eb_pairs, drop);
+    } else {
+      attn::tc_cp_rows(as, ld, g + q_off, D, c0, rp, 0, rows, Dh);
+      attn::tc_cp_rows(bs, ld, v + k_off, D, 0, kp, 0, K, Dh);
+      attn::cp_async_commit();
+      // pd's rows c0 .. c0 + rows − 1 → pds, zeros to [rp][kp].
+      load_pairs(pd + (row0 + c0) * K, K, rows, rp, kp, pairs,
+                 [&](int r, int c, __nv_bfloat162 x) {
+                   *reinterpret_cast<__nv_bfloat162*>(pds + r * pld + c) = x;
+                 });
     }
     attn::cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();  // g and v are in (#13: and pd; #12: and p whole)
 
     // Phase 1: the warp's 16-row query slabs.
     for (int r0 = 16 * warp; r0 < rp; r0 += 16 * nw) {
       const int q_lo = r0 + (lane >> 2);  // chunk rows q_lo and q_lo + 8
       float tt[kBwdTiles][4];
+      // #12's signed p of chunk row r, keys j, j + 1 (0 past the chunk and
+      // K)
+      auto p_signed = [&](int r, int j, float (&x)[2]) {
+        x[0] = x[1] = 0.0f;
+        if (r < rows && j < K) {
+          const float2 f = *reinterpret_cast<const float2*>(ps + r * pl4 + j);
+          x[0] = f.x;
+          if (j + 1 < K) x[1] = f.y;
+        }
+      };
       // tt = pd ⊙ (g · vᵀ) over the n8 key tiles t0 .. t0 + n − 1 (n even)
       auto dpd = [&](int t0, int n) {
 #pragma unroll
@@ -698,11 +934,23 @@ __global__ void __launch_bounds__(kBwdThreads)
           if (t < n) {
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
-              const float2 f = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(
-                      pds + (q_lo + 8 * hi) * pld + 8 * (t0 + t) + 2 * t4));
-              tt[t][2 * hi] = __fmul_rn(f.x, tt[t][2 * hi]);
-              tt[t][2 * hi + 1] = __fmul_rn(f.y, tt[t][2 * hi + 1]);
+              const int r = q_lo + 8 * hi, j = 8 * (t0 + t) + 2 * t4;
+              float pdv[2];
+              if constexpr (kRc) {
+                float x[2];
+                p_signed(r, j, x);
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                  pdv[u] = attn::pd_of_signed<kDropout>(x[u], inv_keep);
+              } else {
+                const float2 f = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(pds + r * pld +
+                                                             j));
+                pdv[0] = f.x;
+                pdv[1] = f.y;
+              }
+              tt[t][2 * hi] = __fmul_rn(pdv[0], tt[t][2 * hi]);
+              tt[t][2 * hi + 1] = __fmul_rn(pdv[1], tt[t][2 * hi + 1]);
             }
           }
         }
@@ -726,18 +974,30 @@ __global__ void __launch_bounds__(kBwdThreads)
         for (int r = 0; r < 2; ++r)
           sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
       // ds = t − p · Σt: debias = T(ds) to device memory, ds_c = T(ds ·
-      // scale) into its tile (zeros past Q and K).
+      // scale) into its tile (zeros past Q and K); #12 also pd_c = T(pd)
+      // over the slab's own P rows.
       for (int kc = 0; kc < n_kc; ++kc) {
         const int t0 = kc * kBwdTiles, n = min(kBwdTiles, nkt - t0);
         if (n_kc > 1) dpd(t0, n);
+        uint32_t pdw[kBwdTiles][2];
 #pragma unroll
         for (int t = 0; t < kBwdTiles; ++t) {
           if (t < n) {
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
-              const int qr = c0 + q_lo + 8 * hi, j = 8 * (t0 + t) + 2 * t4;
+              const int r = q_lo + 8 * hi, qr = c0 + r;
+              const int j = 8 * (t0 + t) + 2 * t4;
               float pv[2] = {0.0f, 0.0f};
-              if (qr < Q && j < K) {
+              if constexpr (kRc) {
+                float x[2];
+                p_signed(r, j, x);
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                  pv[u] = attn::p_of_signed<kDropout>(x[u]);
+                pdw[t][hi] =
+                    attn::pack_bf16(attn::pd_of_signed<kDropout>(x[0], inv_keep),
+                                    attn::pd_of_signed<kDropout>(x[1], inv_keep));
+              } else if (qr < Q && j < K) {
                 const bf16* src = p + (row0 + qr) * K + j;
                 if (pairs) {
                   const float2 f = __bfloat1622float2(
@@ -756,15 +1016,31 @@ __global__ void __launch_bounds__(kBwdThreads)
               if (qr < Q)
                 full_tc::store_pair(debias + (row0 + qr) * K, j, K, ds[0],
                                     ds[1], pairs);
-              *reinterpret_cast<uint32_t*>(dss + (q_lo + 8 * hi) * pld + j) =
+              *reinterpret_cast<uint32_t*>(dss + r * pld + j) =
                   attn::pack_bf16(__fmul_rn(ds[0], scale),
                                   __fmul_rn(ds[1], scale));
             }
           }
         }
+        if constexpr (kRc) {
+          // pd_c of key j lies on p's element j / 2: each written once the
+          // warp has read this chunk's keys (and, past the first, the
+          // earlier chunks' that it lies on).
+          __syncwarp();
+#pragma unroll
+          for (int t = 0; t < kBwdTiles; ++t) {
+            if (t < n) {
+#pragma unroll
+              for (int hi = 0; hi < 2; ++hi)
+                *reinterpret_cast<uint32_t*>(pds + (q_lo + 8 * hi) * pds_ld +
+                                             8 * (t0 + t) + 2 * t4) =
+                    pdw[t][hi];
+            }
+          }
+        }
       }
     }
-    __syncthreads();  // every ds_c is in; v is done with
+    __syncthreads();  // every ds_c (and #12's pd_c) is in; v is done with
 
     attn::tc_cp_rows(bs, ld, k + k_off, D, 0, kp, 0, K, Dh);
     attn::cp_async_commit();
@@ -773,7 +1049,8 @@ __global__ void __launch_bounds__(kBwdThreads)
       float acc[kDT][4] = {};
       for (int c = 0; c < rp; c += 16) {
         uint32_t fa[4];
-        attn::ldsm_x4_trans(fa, attn::tc_lane_at(pds + c * pld + k0, pld));
+        attn::ldsm_x4_trans(fa, attn::tc_lane_at(pds + c * pds_ld + k0,
+                                                 pds_ld));
         attn::tc_mma_bt(acc, fa, attn::tc_lane_bt(as + c * ld, ld), Dh / 8);
       }
       emit_keys(acc, dv + k_off, D, dv_sum, k0, K, Dh, multi, first, last);
@@ -808,25 +1085,37 @@ __global__ void __launch_bounds__(kBwdThreads)
       }
       emit_keys(acc, dk + k_off, D, dk_sum, k0, K, Dh, multi, first, last);
     }
-    if (!last) __syncthreads();  // the next chunk restages A, B and pd
+    if (!last) __syncthreads();  // the next chunk restages A (and pd or P)
   }
 }
 
-// Where the bf16 backward's tensors live.
-struct BwdArgs {
-  const bf16* p;
-  const bf16* pd;
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* g;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  bf16* debias;
-  int B, Q, K, H, Dh;
-  float scale;
-};
+template <int kDT>
+__global__ void __launch_bounds__(kBwdThreads)
+    attn_bwd_rel_saved_tc_kernel(BwdArgs a, int qc, bool pairs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_rows<kDT, false, false>(smem_raw, a.q, a.k, a.v, a.g, a.p, a.pd,
+                              nullptr, a.dq, a.dk, a.dv, a.debias, a.Q, a.K,
+                              a.H, a.Dh, a.scale, qc, pairs, false,
+                              DropoutArgs{0ull, 0u, 1.0f});
+}
+
+template <int kDT, bool kDropout, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    attn_bwd_rel_tc_kernel(BwdArgs a, int qc, bool pairs, bool eb_pairs,
+                           DropoutArgs drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_rows<kDT, true, kDropout>(smem_raw, a.q, a.k, a.v, a.g, nullptr,
+                                nullptr, a.ebias, a.dq, a.dk, a.dv, a.debias,
+                                a.Q, a.K, a.H, a.Dh, a.scale, qc, pairs,
+                                eb_pairs, drop);
+}
+
+// The backward's warps: one per 16-row slab or 16-key slice of the larger
+// of the chunk and K16, at most 8.
+inline int bwd_warps(int qc, int k_len) {
+  const int rows = qc > rows16(k_len) ? qc : rows16(k_len);
+  return rows / 16 < kBwdThreads / 32 ? rows / 16 : kBwdThreads / 32;
+}
 
 template <int kDT, typename Args>
 int launch_bwd_dt(const Args& a, int qc, bool pairs, cudaStream_t st) {
@@ -834,12 +1123,9 @@ int launch_bwd_dt(const Args& a, int qc, bool pairs, cudaStream_t st) {
   const cudaError_t err =
       attn::allow_max_smem(attn_bwd_rel_saved_tc_kernel<kDT>, &attr_set);
   if (err != cudaSuccess) return (int)err;
-  const int rows = qc > rows16(a.K) ? qc : rows16(a.K);
-  const int warps = rows / 16 < kBwdThreads / 32 ? rows / 16 : kBwdThreads / 32;
   attn_bwd_rel_saved_tc_kernel<kDT>
-      <<<dim3(a.H, a.B), warps * 32, bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q),
-         st>>>(a.p, a.pd, a.q, a.k, a.v, a.g, a.dq, a.dk, a.dv, a.debias, a.Q,
-               a.K, a.H, a.Dh, a.scale, qc, pairs);
+      <<<dim3(a.H, a.B), bwd_warps(qc, a.K) * 32,
+         bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q), st>>>(a, qc, pairs);
   return (int)cudaGetLastError();
 }
 
@@ -858,6 +1144,69 @@ int launch_bwd(const Args& a, cudaStream_t st) {
                      aligned(a.debias, 4);
   return dh_tiles(a.Dh) == 8 ? launch_bwd_dt<8>(a, qc, pairs, st)
                              : launch_bwd_dt<16>(a, qc, pairs, st);
+}
+
+// #12's blocks an SM where its block has at most four warps at Dh ≤ 64
+// (every shape with Q, K ≤ 64): its build held to 128 registers. Its
+// wider blocks at Dh ≤ 64 are built for kRcWideBlocks an SM where their
+// shared memory allows as many (228 KB an SM, 1 KB reserved a block).
+constexpr int kRcSmallBlocks = 4;
+constexpr int kRcSmallThreads = 128;
+constexpr int kRcWideBlocks = 2;
+
+template <int kDT, bool kDropout, int kThreads, int kMinBlocks, typename Args>
+int launch_bwd_rc_build(const Args& a, int qc, bool pairs, bool eb_pairs,
+                        const DropoutArgs& drop, cudaStream_t st) {
+  static unsigned long long attr_set = 0;
+  const cudaError_t err = attn::allow_max_smem(
+      attn_bwd_rel_tc_kernel<kDT, kDropout, kThreads, kMinBlocks>, &attr_set);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_rel_tc_kernel<kDT, kDropout, kThreads, kMinBlocks>
+      <<<dim3(a.H, a.B), bwd_warps(qc, a.K) * 32,
+         bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q, true), st>>>(
+          a, qc, pairs, eb_pairs, drop);
+  return (int)cudaGetLastError();
+}
+
+template <int kDT, bool kDropout, typename Args>
+int launch_bwd_rc_dt(const Args& a, int qc, bool pairs, bool eb_pairs,
+                     const DropoutArgs& drop, cudaStream_t st) {
+  if constexpr (kDT == 8) {
+    if (bwd_warps(qc, a.K) * 32 <= kRcSmallThreads)
+      return launch_bwd_rc_build<kDT, kDropout, kRcSmallThreads,
+                                 kRcSmallBlocks>(a, qc, pairs, eb_pairs, drop,
+                                                 st);
+    if (kRcWideBlocks *
+            (bwd_smem_bytes(qc, a.K, a.Dh, qc < a.Q, true) + 1024) <=
+        228 * 1024)
+      return launch_bwd_rc_build<kDT, kDropout, kBwdThreads, kRcWideBlocks>(
+          a, qc, pairs, eb_pairs, drop, st);
+  }
+  return launch_bwd_rc_build<kDT, kDropout, kBwdThreads, 1>(
+      a, qc, pairs, eb_pairs, drop, st);
+}
+
+// The bf16 recompute backward of #12: p again with #11's bits and the keep
+// mask replayed at (k >> 2, q, h, b), then #13's phases. q, k, v and g must
+// start on the 16 bytes cp.async copies. Returns the cudaError_t of the
+// launch; a shape past the plan returns cudaErrorInvalidValue.
+template <typename Args>
+int launch_bwd_rc(const Args& a, bool dropout, const DropoutArgs& drop,
+                  cudaStream_t st) {
+  const int qc = a.K <= kMaxK ? bwd_q_chunk(a.Q, a.K, a.Dh, true) : 0;
+  if (qc == 0) return (int)cudaErrorInvalidValue;
+  if (!aligned(a.q, 16) || !aligned(a.k, 16) || !aligned(a.v, 16) ||
+      !aligned(a.g, 16))
+    return (int)cudaErrorMisalignedAddress;
+  const bool pairs = a.K % 2 == 0 && aligned(a.debias, 4);
+  const bool eb_pairs = a.K % 2 == 0 && aligned(a.ebias, 4);
+  if (dh_tiles(a.Dh) == 8)
+    return dropout
+               ? launch_bwd_rc_dt<8, true>(a, qc, pairs, eb_pairs, drop, st)
+               : launch_bwd_rc_dt<8, false>(a, qc, pairs, eb_pairs, drop, st);
+  return dropout
+             ? launch_bwd_rc_dt<16, true>(a, qc, pairs, eb_pairs, drop, st)
+             : launch_bwd_rc_dt<16, false>(a, qc, pairs, eb_pairs, drop, st);
 }
 
 }  // namespace rel_tc

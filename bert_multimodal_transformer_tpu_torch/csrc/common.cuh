@@ -976,7 +976,9 @@ __device__ __forceinline__ void relik_bwd_tail(
 // results. kBKFast: B's elements are contiguous along k (the rows of
 // nn.Linear's [3D, D] weight for the projection), so the staging loop
 // walks k fastest; else along n (that weight read as [3D, D] for dx).
-// CUDA-core fp32 products: a tensor-core (mma/wgmma) version is later work.
+// CUDA-core fp32 products: fp32's projection in #18/#19 and #19's dx in
+// both dtypes (bf16's projection runs on the tensor cores:
+// attn_full_tc.cuh's `project_head_tc`).
 constexpr int kGM = 64, kGN = 64, kGK = 32;
 constexpr int kGThreads = 256;       // 16 × 16 threads, 4 × 4 outputs each
 constexpr int kGLd = kGM + 4;        // as/bs row stride (kGM == kGN)

@@ -1602,14 +1602,19 @@ def fused_attention_tp(
 # packed projection qkv = x·W + b computed inside the attention kernel
 # (``BertConfig.qkv_fusion``). Two kernels, each with its plain version:
 #
-# * #18 ``attn_fwd_qkvproj_cuda`` → ``csrc/attn_fwd_qkvproj.cu``: each
-#   (head, batch row) projects its q, k, v columns into shared memory
+# * #18 ``attn_fwd_qkvproj_cuda`` → ``csrc/attn_fwd_qkvproj.cu``:
+#   each (head, batch row) projects its q, k, v columns into shared memory
 #   (fp32 sums, the bias added in fp32, one rounding: the TPU kernel's
-#   ``(x·W + b).astype(dtype)``), then runs #1's row code on them, dropout,
-#   saved p/pd and the emitted projection (``qkv_residual``) included;
+#   ``(x·W + b).astype(dtype)``), then runs #1's attention on them, dropout,
+#   saved p/pd and the emitted projection (``qkv_residual``) included. In
+#   bf16 the projection runs on the tensor cores and, to S = 64, lands in
+#   #1's register-plan tiles, on which #1's compute half runs (so #18 gives
+#   #1's bits on its emitted qkv); past S = 64 the attention is #1's fp32
+#   CUDA-core row code, as fp32 is throughout;
 # * #19 ``attn_bwd_qkvproj_cuda`` → ``csrc/attn_bwd_qkvproj.cu``: #3's
-#   saved-probs chain on the head re-projected from x (or read from the
-#   emitted qkv), writing dqkv, then dx = dqkv·Wᵀ, two launches a call.
+#   saved-probs chain on the head re-projected from x by #18's projection
+#   (or read from the emitted qkv), writing dqkv, then dx = dqkv·Wᵀ, two
+#   launches a call.
 #
 # dW = xᵀ·dqkv and db = Σ dqkv are plain products in ``FusedAttentionQKV
 # Proj``, as the JAX package leaves them to XLA. The public entry takes W
@@ -1621,9 +1626,29 @@ def fused_attention_tp(
 # projection, then ``fused_attention_packed``), decided before any launch.
 # The dropout stream is the packed kernels', so #18 drops what #1 drops.
 
-# Shared memory of the tiled products' staging (``csrc/common.cuh``'s
+# Shared memory of the fp32 projection's staging (``csrc/common.cuh``'s
 # ``gemm_smem_floats``: two [32][64 + 4] fp32 slices).
 _GEMM_SMEM_FLOATS = 2 * 32 * 68
+# The bf16 projection's cp.async ring (``csrc/attn_full_tc.cuh``'s
+# ``proj_smem_bytes``): QKVPROJ_TC_STAGES stages of each batch row's 64 x
+# rows and the head's weight rows (3·Dh, at most 192 a pass, rounded up to
+# 16), a slice deep in rows of depth + 8 bf16. #18's register plan (S ≤ 64)
+# takes QKVPROJ_TC_REG_ROWS batch rows a block and QKVPROJ_TC_REG_DEPTH-deep
+# slices; the row plans (#18 past S = 64, #19) one batch row and
+# QKVPROJ_TC_ROWS_DEPTH, which fits beside the head at #18's reach.
+QKVPROJ_TC_STAGES, QKVPROJ_TC_ROWS, QKVPROJ_TC_COLS = 2, 64, 192
+QKVPROJ_TC_REG_ROWS, QKVPROJ_TC_REG_DEPTH = 2, 64
+QKVPROJ_TC_ROWS_DEPTH = 32
+
+
+def qkvproj_tc_stage_bytes(dh: int, rows: int = 1,
+                           depth: int = QKVPROJ_TC_ROWS_DEPTH) -> int:
+    """The bf16 projection's staging ring at head width ``dh`` for ``rows``
+    batch rows a block and ``depth``-deep slices (40 KB at Dh = 64, one
+    row, 32 deep)."""
+    w_rows = _rows16(min(3 * dh, QKVPROJ_TC_COLS))
+    return (QKVPROJ_TC_STAGES * (rows * QKVPROJ_TC_ROWS + w_rows)
+            * (depth + 8) * 2)
 
 
 def _head_floats(s: int, dh: int, itemsize: int) -> int:
@@ -1632,24 +1657,41 @@ def _head_floats(s: int, dh: int, itemsize: int) -> int:
     return (s * 3 * dh * itemsize + 15) // 16 * 4
 
 
+def _proj_stage_bytes(dh: int, itemsize: int, depth: int) -> int:
+    return (qkvproj_tc_stage_bytes(dh, 1, depth) if itemsize == 2
+            else 4 * _GEMM_SMEM_FLOATS)
+
+
 def qkvproj_fwd_smem_bytes(s: int, dh: int, itemsize: int) -> int:
-    """Shared memory of one #18 block: the projected head, then the larger
-    of the projection's staging and #1's row plan (``fwd_smem_floats<16>``:
-    the [16][Dh] Q tile, a [64][Dh+1] K/V chunk, [16][S] scores, the [S]
-    bias)."""
+    """Shared memory of one #18 block. bf16 to S = 64: #1's register-plan
+    tiles and bias (``full_tc_fwd_smem_bytes``) for each of its
+    ``QKVPROJ_TC_REG_ROWS`` batch rows, then the projection's ring
+    (``qkvproj_tc_stage_bytes``; 144.5 KB at S = 50, Dh = 64). Past it,
+    and in fp32: the projected head, then the larger of the projection's
+    staging and #1's row plan (``fwd_smem_floats<16>``: the [16][Dh] Q
+    tile, a [64][Dh+1] K/V chunk, [16][S] scores, the [S] bias)."""
+    if itemsize == 2 and s <= FULL_TC_REG_MAX_SEQ_LEN:
+        return (QKVPROJ_TC_REG_ROWS * full_tc_fwd_smem_bytes(s, dh)
+                + qkvproj_tc_stage_bytes(dh, QKVPROJ_TC_REG_ROWS,
+                                         QKVPROJ_TC_REG_DEPTH))
     rows = 16 * dh + 64 * (dh + 1) + 16 * s + s
-    return 4 * (_head_floats(s, dh, itemsize) + max(_GEMM_SMEM_FLOATS, rows))
+    return (4 * _head_floats(s, dh, itemsize)
+            + max(_proj_stage_bytes(dh, itemsize, QKVPROJ_TC_ROWS_DEPTH),
+                  4 * rows))
 
 
 def qkvproj_bwd_smem_bytes(s: int, dh: int, itemsize: int,
                            recompute: bool) -> int:
     """Shared memory of one block of #19's (head, batch row) launch: #3's
-    plan (``bwd_smem_bytes``), behind the projected head when it
-    re-projects from x."""
-    plan = bwd_smem_bytes(s, dh) // 4
+    fp32 plan (``bwd_smem_bytes``), behind the projected head [S][3·Dh]
+    when it re-projects from x (the projection's staging laid over the
+    plan)."""
+    plan = bwd_smem_bytes(s, dh)
     if not recompute:
-        return 4 * plan
-    return 4 * (_head_floats(s, dh, itemsize) + max(_GEMM_SMEM_FLOATS, plan))
+        return plan
+    return (4 * _head_floats(s, dh, itemsize)
+            + max(_proj_stage_bytes(dh, itemsize, QKVPROJ_TC_ROWS_DEPTH),
+                  plan))
 
 
 def qkvproj_fits(s: int, dh: int, itemsize: int, grad: bool) -> bool:
@@ -1962,6 +2004,11 @@ def fused_attention_qkvproj(
 # * #12 ``attn_bwd_rel_cuda`` → ``csrc/attn_bwd_rel.cu``: the same with the
 #   probs recomputed and the keep mask replayed.
 #
+# In bf16 all three run on the tensor cores (``csrc/attn_rel_full_tc.cuh``):
+# #12 rebuilds p with #11's bits (its register plan to K = 64, #14's score
+# tile past it) and then runs #13's phases, in one kernel code with #13.
+# fp32 keeps the CUDA-core kernels.
+#
 # Past the full-H reach the same function runs on the head-blocked tier
 # (#14/#15, ``csrc/attn_{fwd,bwd}_rel_hb.cu``, to ``HB_MAX_SEQ_LEN``) and
 # then on the flash-streamed tier (#16 ``attn_fwd_rel_fs_cuda`` →
@@ -2240,31 +2287,40 @@ def rel_full_tc_fwd_smem_bytes(q_len: int, k_len: int, dh: int) -> int:
 
 
 def rel_full_tc_bwd_smem_bytes(qc: int, k_len: int, dh: int,
-                               multi: bool = False) -> int:
-    """Shared memory of one bf16 #13 block whose query chunk holds ``qc``
-    rows (a multiple of 16) at K = ``k_len``, head width ``dh``
-    (``csrc/attn_rel_full_tc.cuh``'s ``bwd_smem_bytes``): the staging
-    tiles A [qc][``_tc_ld``] (g, then q) and B [K16][``_tc_ld``] (v, then
-    k), the pd and ds_c tiles [qc][K16 + 8], bf16; with more than one chunk
-    (``multi``) the fp32 dK and dV sums [K16][Dh]."""
+                               multi: bool = False,
+                               recompute: bool = False) -> int:
+    """Shared memory of one bf16 #13 (or, with ``recompute``, #12) block
+    whose query chunk holds ``qc`` rows (a multiple of 16) at K =
+    ``k_len``, head width ``dh`` (``csrc/attn_rel_full_tc.cuh``'s
+    ``bwd_smem_bytes``): the staging tiles A [qc][``_tc_ld``] (#12: q,
+    then g, then q; #13: g, then q) and B [K16][``_tc_ld``] (k, v, k), bf16;
+    #13 the pd and ds_c tiles [qc][K16 + 8] bf16, #12 the fp32 probs tile
+    [qc][K16 + 4] (pd_c over it) and the ds_c tile; with more than one
+    chunk (``multi``) the fp32 dK and dV sums [K16][Dh]."""
     kp = _rows16(k_len)
-    return (2 * ((qc + kp) * _tc_ld(dh) + 2 * qc * (kp + 8))
+    probs = (qc * (kp + 4) * 4 + qc * (kp + 8) * 2 if recompute
+             else 2 * qc * (kp + 8) * 2)
+    return (2 * (qc + kp) * _tc_ld(dh) + probs
             + (2 * kp * dh * 4 if multi else 0))
 
 
-def rel_full_tc_bwd_q_chunk(q_len: int, k_len: int, dh: int) -> int:
-    """The query rows bf16 #13's block takes at a time
-    (``csrc/attn_rel_full_tc.cuh``'s ``bwd_q_chunk``): all of them,
-    rounded up to 16, where they fit (every shape of ``rel_bwd_fits`` but
-    Q > 944 at K ≤ 21); else the most 16-row slabs that fit beside the
-    fp32 dK/dV sums; 0 where not even 16 do (no shape of
+def rel_full_tc_bwd_q_chunk(q_len: int, k_len: int, dh: int,
+                            recompute: bool = False) -> int:
+    """The query rows bf16 #13's (``recompute``: #12's) block takes at a
+    time (``csrc/attn_rel_full_tc.cuh``'s ``bwd_q_chunk``): all of them,
+    rounded up to 16, where they fit (every shape of ``rel_bwd_fits`` but,
+    for #13, Q > 944 at K ≤ 21 and, for #12, whose fp32 probs tile is
+    larger, Q > 400 at K ≤ 67); else the most 16-row slabs that fit beside
+    the fp32 dK/dV sums; 0 where not even 16 do (no shape of
     ``rel_bwd_fits``)."""
     qp = _rows16(q_len)
-    if rel_full_tc_bwd_smem_bytes(qp, k_len, dh) <= MAX_SMEM_BYTES:
+    if rel_full_tc_bwd_smem_bytes(qp, k_len, dh,
+                                  recompute=recompute) <= MAX_SMEM_BYTES:
         return qp
     qc = 0
     while (qc + 16 < qp and rel_full_tc_bwd_smem_bytes(
-            qc + 16, k_len, dh, multi=True) <= MAX_SMEM_BYTES):
+            qc + 16, k_len, dh, multi=True,
+            recompute=recompute) <= MAX_SMEM_BYTES):
         qc += 16
     return qc
 
@@ -2351,7 +2407,10 @@ def attn_fwd_rel_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
 
 def attn_bwd_rel_cuda(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
     """Launch kernel #12 (``csrc/attn_bwd_rel.cu``): (dq, dk, dv, debias)
-    with the probs recomputed and the keep mask replayed from ``seed``."""
+    with the probs recomputed and the keep mask replayed from ``seed``;
+    bf16 on the tensor cores (its plan, ``rel_full_tc_bwd_q_chunk`` with
+    ``recompute``, takes the whole ``rel_bwd_fits`` reach), fp32 on the
+    CUDA cores."""
     b, q_len, k_len, dh = _check_rel_cuda("attn_bwd_rel", q, k, v, ebias,
                                           n_heads, bwd=True)
     _like("g", g, q, tuple(q.shape))

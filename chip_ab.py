@@ -12,9 +12,14 @@ ingredients kernels (``rel_bias_impl="inkernel"``) #20 serving (bf16
 B=128 Q=K=50), #20 with dropout and saved probs, #22 (from those probs)
 and #21 at B=256 (rate 0.1; #22 and #21 also at rate 0) and at the
 memory's Q=50, K=100; the recompute backwards #9 (split layout, B=256 S=50
-at H=12 and one rank's H=6) and #2 (packed), rates 0.1 and 0.
+at H=12 and one rank's H=6) and #2 (packed), rates 0.1 and 0; the rel
+recompute backward #12 (bf16 B=256 Q=K=50 at rates 0.1 and 0, and Q=50
+K=100); the QKV-projection kernels #18 serving (bf16 B=128 S=50 rate 0)
+and training (B=256 rate 0.1, saved probs), and #19 (B=256 rate 0.1,
+re-projecting from x: the call's two launches, and its (head, batch row)
+pass alone).
 
-    python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N]
+    python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N] [--cases RE]
         [--grad-gap-seeds S ...] [--xlnet] [--xlnet-impl auto|inkernel]
 
 Each checkout builds its own kernels (under its ``build/``, both builds
@@ -26,8 +31,9 @@ object with both checkouts' means by case and the card's name and power
 limit (nvidia-smi), and each checkout's agreement with the plain
 versions at the bench's shapes (the share of elements whose bits differ,
 the largest difference), and whether fp32 #11/#13, bf16 #14, fp32
-#20/#21, fp32 #20/#22 and fp32 #9 and #2 give the same bits in every
-checkout (digests). With
+#20/#21, fp32 #20/#22, fp32 #9 and #2, fp32 #12 and fp32 #18/#19 give the
+same bits in every checkout (digests). ``--cases`` times only the cases
+whose names match the regular expression. With
 ``--grad-gap-seeds``, each
 checkout also runs ``chip_smoke.py``'s phase-4b dropout-0 check at those
 seeds and reports its first-step gradient gaps (fused against einsum).
@@ -44,6 +50,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -82,6 +89,17 @@ REL_CASES = {
     "#13 bf16 B=256 Q=50 K=100": (256, 50, 100, 0.1, "rel_bwd"),
     "#14 bf16 B=48 Q=K=512 rate 0": (48, 512, 512, 0.0, "rel_hb_fwd"),
     "#14' bf16 B=48 Q=K=512 rate 0.1": (48, 512, 512, 0.1, "rel_hb_fwd"),
+    "#12 bf16 B=256 Q=K=50 rate 0.1": (256, 50, 50, 0.1, "rel_bwd_rc"),
+    "#12 bf16 B=256 Q=K=50 rate 0": (256, 50, 50, 0.0, "rel_bwd_rc"),
+    "#12 bf16 B=256 Q=50 K=100 rate 0.1": (256, 50, 100, 0.1, "rel_bwd_rc"),
+}
+# name: (B, S, rate, what): #18 and #19 (qkv_fusion) at bert-base width
+QKVPROJ_CASES = {
+    "#18 bf16 B=128 S=50 rate 0": (128, 50, 0.0, "fwd"),
+    "#18' bf16 B=256 S=50 rate 0.1 saved probs": (256, 50, 0.1, "fwd_save"),
+    "#19 bf16 B=256 S=50 rate 0.1 re-projecting": (256, 50, 0.1, "bwd"),
+    "#19 head pass bf16 B=256 S=50 rate 0.1 re-projecting": (256, 50, 0.1,
+                                                              "bwd_heads"),
 }
 # name: (B, Q, K, rate, what)
 RELIK_CASES = {
@@ -142,8 +160,54 @@ def _rel_call(fa, torch, rng, b, q_len, k_len, rate, what):
     drop = dict(rate=rate, seed=7, save=True)
     if what == "rel_fwd_save":
         return lambda: fa.attn_fwd_rel_cuda(q, k, v, ebias, **drop, **kw)
+    if what == "rel_bwd_rc":
+        return lambda: fa.attn_bwd_rel_cuda(q, k, v, ebias, 7, g, rate=rate,
+                                            **kw)
     _, p, pd = fa.attn_fwd_rel_cuda(q, k, v, ebias, **drop, **kw)
     return lambda: fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, **kw)
+
+
+def _qkvproj_inputs(torch, rng, b, s, dtype=None):
+    """Seeded x, g [B, S, D], the packed weight as the model holds it
+    ([3D, D], N(0, 1/D)) handed over as its [D, 3D] view, the bias and a
+    ragged mask."""
+    dtype = dtype or torch.bfloat16
+    d = H * DH
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)) * scale).to("cuda", dtype)
+
+    x, g = t(b, s, d), t(b, s, d)
+    w = t(3 * d, d, scale=d ** -0.5).t()
+    b3 = t(3 * d, scale=0.1)
+    lengths = rng.integers(1, s + 1, size=b)
+    mask = torch.from_numpy(
+        (np.arange(s)[None, :] < lengths[:, None]).astype(np.float32)).cuda()
+    return x, w, b3, mask, g
+
+
+def _qkvproj_call(fa, torch, rng, b, s, rate, what):
+    """The QKV-projection case's call on seeded inputs: #18, #19 (its two
+    launches) or #19's (head, batch row) pass alone."""
+    x, w, b3, mask, g = _qkvproj_inputs(torch, rng, b, s)
+    kw = dict(n_heads=H, scale=DH ** -0.5)
+    if what == "fwd":
+        return lambda: fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **kw)
+    drop = dict(rate=rate, seed=7, save=True)
+    if what == "fwd_save":
+        return lambda: fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **drop, **kw)
+    _, _, p, pd = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **drop, **kw)
+    if what == "bwd":
+        return lambda: fa.attn_bwd_qkvproj_cuda(p, pd, x, w, b3, g,
+                                                recompute=True, **kw)
+    w_rows = w.t().contiguous()
+    dqkv = torch.empty((b, s, 3 * H * DH), dtype=x.dtype, device=x.device)
+    args = (p.data_ptr(), pd.data_ptr(), x.data_ptr(), w_rows.data_ptr(),
+            b3.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, s, H, DH,
+            DH ** -0.5, 1, 1)
+    return lambda: fa._launch("attn_bwd_qkvproj_heads", *args,
+                              device=x.device)
 
 
 def _relik_inputs(torch, rng, b, q_len, k_len, dtype=None):
@@ -243,8 +307,9 @@ def _split_rc_call(fa, torch, rng, b, s, h, rate):
                                           **offs)
 
 
-def worker(iters):
-    """One round in the current directory's checkout: prints {case: ms}."""
+def worker(iters, cases):
+    """One round in the current directory's checkout: prints {case: ms}
+    for the cases whose names match ``cases``."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -262,7 +327,11 @@ def worker(iters):
               for name, case in RELIK_CASES.items()]
     calls += [(name, lambda c=case: _split_rc_call(fa, torch, rng, *c))
               for name, case in SPLIT_RC_CASES.items()]
+    calls += [(name, lambda c=case: _qkvproj_call(fa, torch, rng, *c))
+              for name, case in QKVPROJ_CASES.items()]
     for name, make in calls:
+        if not re.search(cases, name):
+            continue
         fn = make()
         for _ in range(5):
             fn()
@@ -371,6 +440,18 @@ def agreement():
                                 rate=0.1, b_off=4, h_off=12))
     out["digest fp32 #2 B=4 S=77 H=12 rate 0.1"] = digest(
         fa.attn_bwd_packed_cuda(qkv, mask, 7, g, rate=0.1, **kw))
+    # fp32 #12 and fp32 #18/#19 keep their CUDA-core kernels
+    q, k, v, ebias, g = _rel_inputs(torch, rng, 4, 50, 77, torch.float32)
+    out["digest fp32 #12 B=4 Q=50 K=77 rate 0.1"] = digest(
+        *fa.attn_bwd_rel_cuda(q, k, v, ebias, 7, g, rate=0.1, **kw))
+    x, w, b3, mask, g = _qkvproj_inputs(torch, rng, 4, 77, torch.float32)
+    fwd = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, rate=0.1, seed=7,
+                                   save=True, emit_qkv=True, **kw)
+    out["digest fp32 #18/#19 B=4 S=77 rate 0.1"] = digest(
+        *fwd, *fa.attn_bwd_qkvproj_cuda(fwd[2], fwd[3], x, w, b3, g,
+                                        recompute=True, **kw),
+        *fa.attn_bwd_qkvproj_cuda(fwd[2], fwd[3], fwd[1], w, b3, g,
+                                  recompute=False, **kw))
     print(json.dumps(out))
 
 
@@ -508,6 +589,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("trees", nargs="*")
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--cases", default="",
+                        help="time only the cases whose names match this "
+                             "regular expression")
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--build", action="store_true")
     parser.add_argument("--grad-gap-seeds", type=int, nargs="*",
@@ -539,7 +623,7 @@ def main() -> int:
         print(kernels.build_kernels())
         return 0
     if args.worker:
-        worker(args.iters)
+        worker(args.iters, args.cases)
         return 0
     import torch
 
@@ -563,14 +647,16 @@ def main() -> int:
     rounds = {tree: [] for tree in args.trees}
     for tree in [*args.trees, *reversed(args.trees)]:
         times = json.loads(_run(tree, ["--worker", "--iters",
-                                       str(args.iters)]).splitlines()[-1])
+                                       str(args.iters), "--cases",
+                                       args.cases]).splitlines()[-1])
         rounds[tree].append(times)
         print(f"{tree}: " + ", ".join(f"{k} {v:.4f} ms"
                                       for k, v in times.items()))
     result = {"card": card, "iters": args.iters, "ms": {
         tree: {name: [r[name] for r in rs]
                for name in [*CASES, *REL_CASES, *RELIK_CASES,
-                            *SPLIT_RC_CASES]}
+                            *SPLIT_RC_CASES, *QKVPROJ_CASES]
+               if name in rs[0]}
         for tree, rs in rounds.items()}}
     result["agreement"] = {tree: json.loads(_run(
         tree, ["--agreement-worker"]).splitlines()[-1])

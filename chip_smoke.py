@@ -45,10 +45,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain Philox mask bit for bit, the keep rate within 5σ; #13 and #12
    against the plain backward and torch.autograd through the plain
    forward, debias included; #12 against #13; the same bits twice. The
-   same at the edges of bf16 #11's and #13's tensor-core plans
+   same at the edges of bf16 #11's, #13's and #12's tensor-core plans
    (``REL_TC_EDGES``: the serving shape B=128 at rate 0, the memory's
-   Q=50 K=100, Q=33 K=141, Dh=128 at K=50 and 100, a query row masked
-   whole, which must come out uniform). Then the three timed at B=256
+   Q=50 K=100, Q=33 K=141, Dh=128 at K=50 and 100, K=64 and 65, Q=K=141,
+   a query row masked whole, which must come out uniform). Then the three
+   timed at B=256
    rate 0.1, #11 at the serving shape (rate 0, B=128) beside
    ``scaled_dot_product_attention`` with the ebias as its mask, #11′ and
    #13 at B=256 Q=50 K=100, and the card's time per launch of each.
@@ -119,9 +120,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bert-base width (rates 0.1 and 0), fp32 B=4 at a ragged S=77 with a
    fully padded row, bf16 B=8 S=50 at bert-large width (D=1024, H=16);
    saved probs and the emitted qkv, #1 on its emitted qkv (bit for bit in
-   fp32; in bf16, where #1 runs on the tensor cores, within the phase-3
-   bound with the same keep mask) and on the plain projection's qkv,
-   #18's keep masks
+   fp32 and, to S = 64, where both run #1's register plan, in bf16; past
+   it within the phase-3 bound with the same keep mask) and on the plain
+   projection's qkv, #18's keep masks
    (saved, and read off the output of the mode that saves nothing), #19
    re-projecting from x = #19 reading the emitted qkv bit for bit, both
    against the plain backward and against torch.autograd through the
@@ -129,6 +130,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B=128, rate 0) and the training shape (B=256, rate 0.1) beside the
    split structure they replace (``F.linear`` + #1, #3 + the dx matmul)
    and, at rate 0, ``F.linear`` + SDPA (forward; its autograd backward).
+   The same checks at bf16 #18's edges (``QKVPROJ_EDGES``: S = 64, 65 and
+   122, the reach with a gradient) and the forward at its reach without
+   one (S = 468).
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -196,7 +200,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    --attention_impl fused --compute_dtype bfloat16``: exit 0, finite
    losses, #11 once per layer per batch (12 x (27 + 2 + 6) = 420), #13
    once per layer per train step (324); one step under
-   ``FUSED_ATTN_SAVE=0`` through #12 (12); at dropout 0, from one copy of
+   ``FUSED_ATTN_SAVE=0`` through #12 (12), and one profiled B=256 step
+   with the probs recomputed (#12) and saved (#13); at dropout 0, from one copy of
    the weights, one step fused against einsum leaf by leaf within a stated
    bound, which the same step with debias, then dK, zeroed in #13's output
    must break; then XLNet train examples/s at B=256 S=50 (20 steps after 3
@@ -380,7 +385,12 @@ REL_FULL_KERNELS = (
     ("#11", ("attn_fwd_rel_kernel", "attn_fwd_rel_tc_reg_")),
     ("#11/#14 score tile", ("attn_fwd_rel_tc_smem_",)),
     ("#13", ("attn_bwd_rel_saved_kernel", "attn_bwd_rel_saved_tc_")),
+    ("#12", ("attn_bwd_rel_kernel", "attn_bwd_rel_tc_")),
 )
+# Kernel-name substrings of #18 and #19's two launches.
+QKVPROJ_KERNELS = (("#18", "attn_fwd_qkvproj"),
+                   ("#19 (head, batch row) pass", "attn_bwd_qkvproj_heads"),
+                   ("#19 dx", "attn_bwd_qkvproj_dx"))
 
 
 def _card() -> str:
@@ -395,16 +405,19 @@ def tc_ptxas_lines(log):
     (the bf16 instantiations of #4, #6, #14, #16, #23, the packed backward
     passes of #5 and #7, the rel backward passes of #15 and #17, #24's two
     passes, the full-H plans of #1/#8 and #3/#10 built into each of their
-    sources, #2/#9's recompute plan, the rel full-H plans of #11 and #13,
-    and the full-H ingredients plans of #20, #21 and #22), one line each,
-    from the build log.
+    sources, #2/#9's recompute plan, the rel full-H plans of #11, #13 and
+    #12, the full-H ingredients plans of #20, #21 and #22, and #18's
+    register plan with its projection), one line each, from the build
+    log.
     Template arguments print in order: the packed and rel passes' are <n8
     tiles of Dh, own statistics (#5, #15 true; #7, #17 false), dropout>;
     the full-H, rel and ingredients register forwards' <n8 tiles of Dh,
     dropout, save>, their score-tile forwards' <dropout, save>, the full-H
     backward's <n8 key tiles, n8 tiles of Dh>, the recompute's <n8 tiles
-    of Dh, dropout>, the rel backward's <n8 tiles of Dh>, #21's <n8 tiles
-    of Dh, dropout, blocks an SM>, #22's <n8 tiles of Dh, blocks an SM>."""
+    of Dh, dropout>, the rel backward's <n8 tiles of Dh>, #12's <n8 tiles
+    of Dh, dropout, threads, blocks an SM>, #21's <n8 tiles of Dh,
+    dropout, blocks an SM>, #22's <n8 tiles of Dh, blocks an SM>, #18's
+    <n8 tiles of Dh, dropout, save, emit>."""
     import re
 
     lines, name, spills, source = [], None, "", ""
@@ -417,7 +430,8 @@ def tc_ptxas_lines(log):
                       r"attn_bwd_(?:packed|rel|relik_fs)_(?:dkdv|dq))_tc|"
                       r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved|"
                       r"bwd_recompute)|attn_fwd_rel(?:ik)?_tc_(?:reg|smem)|"
-                      r"attn_bwd_rel_saved_tc|attn_bwd_relik(?:_saved)?_tc)"
+                      r"attn_bwd_rel(?:_saved)?_tc|attn_bwd_relik(?:_saved)?_tc|"
+                      r"attn_fwd_qkvproj_tc_reg)"
                       r"_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ", ".join(
@@ -954,6 +968,13 @@ def _print_profile(prof, iters, unit):
               + "; ".join(f"{tag} {ms / iters:.3f} "
                           f"({ms / prof['device_ms']:.1%})"
                           for tag, ms in rel.items()))
+    qkv = {tag: sum(ms for name, _, ms in prof["kernels"] if key in name)
+           for tag, key in QKVPROJ_KERNELS}
+    if any(qkv.values()):
+        print(f"  the QKV-projection kernels, ms/{unit} (share of device "
+              "time): " + "; ".join(f"{tag} {ms / iters:.3f} "
+                                    f"({ms / prof['device_ms']:.1%})"
+                                    for tag, ms in qkv.items()))
     for name, calls, ms in prof["kernels"][:25]:
         print(f"  {ms / iters:9.4f} ms/{unit} {calls / iters:7.1f} "
               f"calls/{unit}  {name[:110]}")
@@ -1712,18 +1733,22 @@ def gate_check(args, rng, fa, card):
 # ---- MAG-XLNet: the rel-attention kernels #11-#13 and the XLNet paths ------
 
 
-# bf16 #11's and #13's tensor-core plans (csrc/attn_rel_full_tc.cuh) at
-# their edges: (B, Q, K, H, Dh, rates, a query row masked whole). The
+# bf16 #11's, #13's and #12's tensor-core plans (csrc/attn_rel_full_tc.cuh)
+# at their edges: (B, Q, K, H, Dh, rates, a query row masked whole). The
 # serving shape at rate 0; the memory's K = 100 (#11's score-tile plan, #13
-# past K = 64) at the training batch, timed; Q = 33 with K = 141, odd (no
-# pair loads), #13 two passes past K = 128; Dh = 128 in both forward plans;
-# a row masked whole in each forward plan.
+# and #12 past K = 64) at the training batch, timed; Q = 33 with K = 141,
+# odd (no pair loads), two d(pd) passes past K = 128; Dh = 128 in both
+# probs plans; a row masked whole in each; #12's register plan's last K
+# (64) and the score tile's first (65); Q = K = 141, the reach (8 warps).
 REL_TC_EDGES = ((BATCH, S_SERVE, S_SERVE, 12, 64, (0.0,), True),
                 (BENCH_BATCH, S_SERVE, 2 * S_SERVE, 12, 64, (RATE, 0.0),
                  True),
                 (8, 33, 141, 12, 64, (RATE, 0.0), False),
                 (16, S_SERVE, S_SERVE, 6, 128, (RATE, 0.0), True),
-                (8, S_SERVE, 2 * S_SERVE, 6, 128, (RATE, 0.0), False))
+                (8, S_SERVE, 2 * S_SERVE, 6, 128, (RATE, 0.0), False),
+                (8, 64, 64, 12, 64, (RATE, 0.0), False),
+                (8, S_SERVE, 65, 12, 64, (RATE,), True),
+                (4, 141, 141, 4, 64, (RATE, 0.0), True))
 
 
 def rel_bound(kind, b, q_len, k_len, h, dh, itemsize, rate=0.0, save=False):
@@ -2213,6 +2238,29 @@ def xlnet_driver_path(args, rng, fa, card):
     if recompute_counts != want or not math.isfinite(loss):
         raise AssertionError(f"XLNet recompute step: {recompute_counts}, "
                              f"{loss}")
+    # One B=256 step's device time with the probs recomputed (#12) and
+    # saved (#13), from a stream of its own.
+    from bert_multimodal_transformer_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+    )
+
+    big = _device_batch(make_xlnet_split(
+        np.random.default_rng([args.seed, 21]), BENCH_BATCH, S_SERVE,
+        cfg.vocab_size, ds.visual_dim, ds.acoustic_dim).as_tuple())
+    for save in (False, True):
+        if not save:
+            os.environ["FUSED_ATTN_SAVE"] = "0"
+        try:
+            step(state, big)
+            torch.cuda.synchronize()
+            print(f"one XLNet training step, bf16 xlnet-base-cased "
+                  f"B={BENCH_BATCH} S={S_SERVE}, the probs "
+                  + ("saved (#13)" if save else
+                     "recomputed (#12, FUSED_ATTN_SAVE=0)") + f" on {card}:")
+            _print_profile(device_time_by_kernel(lambda: step(state, big), 1),
+                           1, "step")
+        finally:
+            os.environ.pop("FUSED_ATTN_SAVE", None)
 
     # At dropout 0, from one copy of the weights: one step fused against
     # einsum, leaf by leaf; then the same step with debias, then dK, zeroed
@@ -4921,6 +4969,16 @@ QKVPROJ_CASES = (
     ("fp32", 4, 77, 12, (RATE,)),
     ("bf16", 8, S_SERVE, 16, (RATE,)),
 )
+# The edges of bf16 #18's plans, from a stream of their own: S = 64 (the
+# register plan's last), 65 (the row plan's first) and 122 (the reach with
+# a gradient); then the reach without one (qkvproj_fits: S = 468 at
+# Dh = 64), the forward alone.
+QKVPROJ_EDGES = (
+    ("bf16", 8, 64, 12, (RATE, 0.0)),
+    ("bf16", 8, 65, 12, (RATE,)),
+    ("bf16", 2, 122, 12, (RATE,)),
+)
+QKVPROJ_FWD_REACH = 468
 # Phase 6h: one dropout-0 step with the projection inside the kernels (#18,
 # #19) against the split fused step (the dense projection, #1, #3) from one
 # copy of the weights, leaf by leaf as in 4b, in fp32. The two take the
@@ -5018,8 +5076,9 @@ def _qkvproj_forward_err(tag, got, want, mask, dtype_name):
 def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     """Phase 3j on one case: #18 with saved probs and the emitted qkv
     against its plain version (out, qkv, p, pd), its keep mask against the
-    plain Philox mask, #1 on its emitted qkv (bit for bit in fp32; in bf16
-    within the phase-3 forward bound with the same keep mask), and #1 on the
+    plain Philox mask, #1 on its emitted qkv (bit for bit in fp32 and, up
+    to S = 64, in bf16; past it in bf16 within the phase-3 forward bound
+    with the same keep mask), and #1 on the
     plain projection's qkv within the phase-3 bf16 bound (in fp32 too,
     which covers QKVPROJ_PADDED_RTOL's padded rows); #19 reading that qkv
     and #19 re-projecting from x bit for bit alike, and against the plain
@@ -5031,6 +5090,9 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     case = qkvproj_case(rng, dtype_name, b, s, h)
     x, w, b3, mask, g, seed, kw = case
     tag = f"{dtype_name} B={b} S={s} H={h} Dh=64 rate={rate}"
+    # bf16 #18 runs #1's register plan on its projected head to S = 64;
+    # past it #1's fp32 CUDA-core row code, where #1 runs its score tile
+    bits = dtype_name == "fp32" or s <= fa.FULL_TC_REG_MAX_SEQ_LEN
     fwd = dict(rate=rate, seed=seed, save=True, emit_qkv=True, **kw)
     out, qkv, p, pd = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **fwd)
     want = fa.attn_fwd_qkvproj_reference(x, w, b3, mask, **fwd)
@@ -5039,9 +5101,8 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     packed = fa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
                                      save=True, **kw)
     same = all(torch.equal(a, b_) for a, b_ in zip((out, p, pd), packed))
-    # bf16 #1 sums its dots on the tensor cores, #18 on the CUDA cores: in
-    # bf16 the two are held within the forward bound, with the same keep
-    # mask; in fp32 they run one row code and give the same bits
+    # where both run one plan (fp32, and bf16 to S = 64) the same bits;
+    # past it in bf16 within the forward bound, with the same keep mask
     on_packed = max(_forward_err(f"#18 vs #1 on its qkv {tag}", a, b_,
                                  dtype_name)
                     for a, b_ in zip((out, p, pd), packed))
@@ -5064,7 +5125,7 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
           f"{same}, the same keep mask {same_keep}); = #18 keeping no qkv: "
           f"{same_modes}; vs #1 on the plain projection's qkv "
           f"{on_plain:.3e}")
-    if not same_keep or (dtype_name == "fp32" and not same):
+    if not same_keep or (bits and not same):
         raise AssertionError(f"#18 and #1 on its qkv differ ({tag})")
     if not same_modes:
         raise AssertionError(f"#18 with and without the emitted qkv differ "
@@ -5159,6 +5220,27 @@ def check_qkvproj_serving_mode(rng, fa):
     if not same:
         raise AssertionError("#18's no-save keep mask differs from the "
                              "plain Philox mask")
+    return err
+
+
+def check_qkvproj_reach(rng, fa):
+    """bf16 #18 at the last S its plan takes without a gradient
+    (``QKVPROJ_FWD_REACH``: the head [S][3·Dh] beside #1's row plan), with
+    saved probs, the emitted qkv and dropout, against its plain version
+    within the phase-3 bounds, its keep mask the plain Philox mask's; then
+    one S further is refused. Returns the max error."""
+    s = QKVPROJ_FWD_REACH
+    x, w, b3, mask, _, seed, kw = qkvproj_case(rng, "bf16", 2, s, 12)
+    tag = f"bf16 B=2 S={s} H=12 Dh=64 rate={RATE} (the reach)"
+    fwd = dict(rate=RATE, seed=seed, save=True, emit_qkv=True, **kw)
+    got = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **fwd)
+    err = _qkvproj_forward_err(tag, got, fa.attn_fwd_qkvproj_reference(
+        x, w, b3, mask, **fwd), mask, "bf16")
+    if not fa.qkvproj_fits(s, 64, 2, False) or fa.qkvproj_fits(s + 1, 64, 2,
+                                                               False):
+        raise AssertionError(f"qkvproj_fits' bf16 reach moved from S={s}")
+    print(f"#18 vs plain {tag}: out/qkv/p/pd max_abs_err={err:.3e}"
+          + _check_keep(fa, "#18", seed, got[2], got[3], RATE, tag))
     return err
 
 
@@ -5805,6 +5887,15 @@ def main() -> int:
                 qkvproj_train_case = case
     qkvproj_errs["#18"] = max(qkvproj_errs["#18"],
                               check_qkvproj_serving_mode(qp_rng, fa))
+    edge_qp_rng = np.random.default_rng([args.seed, 23])
+    for dtype_name, b, s, h, rates in QKVPROJ_EDGES:
+        for rate in rates:
+            errs, _ = check_qkvproj_kernels(edge_qp_rng, fa, dtype_name, b,
+                                            s, h, rate)
+            for k_, v_ in errs.items():
+                qkvproj_errs[k_] = max(qkvproj_errs.get(k_, 0.0), v_)
+    qkvproj_errs["#18"] = max(qkvproj_errs["#18"],
+                              check_qkvproj_reach(edge_qp_rng, fa))
     qkvproj_times = time_qkvproj_kernels(fa, qkvproj_train_case, card)
     del qkvproj_train_case
     torch.cuda.empty_cache()

@@ -24,6 +24,13 @@ within one bf16 rounding of the probs and the output (2^-7 relative plus
 the TPU its entry routes dropout to its split structure and
 ``jax.random``): the port's fused path is held against its own split
 structure with the same Philox mask.
+
+bf16 #18's plan (``csrc/attn_full_tc.cuh``'s ``project_head_tc``, then
+#1's register plan to S = 64) is emulated in plain torch: the projection
+in 16-deep mma steps summed in fp32, the bias added in fp32, one rounding,
+held within one bf16 rounding of ``_project``; the attention on it is #1's
+plan (tests/test_torch_full_tc.py), held within one bf16 rounding of the
+plain #18. The plan's shared memory keeps ``qkvproj_fits``' reach.
 """
 
 import dataclasses
@@ -40,6 +47,9 @@ from bert_multimodal_transformer_tpu_torch.models.bert import (
     MagBertForSequenceClassification,
 )
 from bert_multimodal_transformer_tpu_torch.ops import fused_attention as tfa
+from bert_multimodal_transformer_tpu_torch.ops.kernels import MAX_SMEM_BYTES
+from test_torch_full_tc import _fwd_plan as _reg_fwd_plan
+from test_torch_full_tc import _mma_abt
 
 # The JAX test's size (tests/test_fused_attention.py).
 B, H, S, DH = 3, 4, 50, 64
@@ -327,6 +337,95 @@ def test_model_matches_jax_model():
                                    rtol=1e-3, atol=5e-5, err_msg=name)
 
 
+# --- bf16 #18's plan, emulated ------------------------------------------
+
+PLAN_H = 2     # test_torch_full_tc's register-plan emulation's heads
+
+
+def _proj_plan(x, w, b3):
+    """bf16 #18's (and #19's) projection in plain torch: x·W over 16-deep
+    mma steps summed in fp32, + b3 in fp32, one rounding to bf16."""
+    return (_mma_abt(x, w.t()) + b3.float()).to(torch.bfloat16)
+
+
+def _bf16_case(s, dh, seed):
+    x, w, b3, mask, _ = _inputs(2, s, PLAN_H * dh, seed)
+    mask[1, :] = 0                          # a batch row masked whole
+    return ([torch.from_numpy(a).to(torch.bfloat16) for a in (x, w, b3)],
+            torch.from_numpy(mask).float())
+
+
+@pytest.mark.parametrize("s,dh", [(50, 16), (33, 40), (65, 16)])
+def test_tc_projection_matches_project(s, dh):
+    """The tensor-core projection's arithmetic (16-deep steps, the fp32
+    sum, the fp32 bias, one rounding) lies within one bf16 rounding of
+    ``_project`` (the fp32 product, then the bias, one rounding)."""
+    (x, w, b3), _ = _bf16_case(s, dh, seed=s + dh)
+    got, want = _proj_plan(x, w, b3), tfa._project(x, w, b3)
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= 2.0 ** -7 * want.float().abs() + 2.0 ** -20).all())
+    assert float(want.float().abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("s,dh", [(50, 16), (33, 40)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plan_to_s64_is_ones_plan_on_its_qkv(s, dh, rate):
+    """bf16 #18 to S = 64 is the projection's plan, then #1's register plan
+    on the projected head: its out, p and pd are #1's plan on the emitted
+    qkv (the same bits by construction, which the card's test holds), and
+    lie within one bf16 rounding of the plain #18."""
+    (x, w, b3), mask = _bf16_case(s, dh, seed=2 * s + dh)
+    scale, seed = 1.0 / dh ** 0.5, 2 ** 60 + 3
+    qkv = _proj_plan(x, w, b3)
+    got, _ = _reg_fwd_plan(qkv, mask, scale, rate, seed)
+    want = tfa.attn_fwd_qkvproj_reference(
+        x, w, b3, mask, n_heads=PLAN_H, scale=scale, rate=rate, seed=seed,
+        save=True, emit_qkv=True)
+    for a, b_ in zip((got[0], qkv, got[1], got[2]), want):
+        np.testing.assert_allclose(a.float().numpy(), b_.float().numpy(),
+                                   atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+def _header_constant(name):
+    from pathlib import Path
+    import re
+
+    header = (Path(tfa.__file__).resolve().parents[1] / "csrc"
+              / "attn_full_tc.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         header).group(1))
+
+
+def test_qkvproj_reach_is_unchanged_and_fits():
+    """``qkvproj_fits`` keeps its reach (bf16 S = 468 without a gradient
+    and 122 with one at Dh = 64, 228 / 91 at Dh = 128; fp32 253 / 107 and
+    119 / 73) with the bf16 plans' shared memory (#1's register tiles and
+    the projection's ring to S = 64, the head [S][3·Dh] past it, #19's
+    head beside #3's fp32 plan), which fits 227 KB wherever the reach
+    goes; the plans' constants are the header's."""
+    names = ("kProjStages", "kProjRows", "kProjCols", "kProjRegRows",
+             "kProjRegDepth", "kProjRowsDepth")
+    assert tuple(map(_header_constant, names)) == (
+        tfa.QKVPROJ_TC_STAGES, tfa.QKVPROJ_TC_ROWS, tfa.QKVPROJ_TC_COLS,
+        tfa.QKVPROJ_TC_REG_ROWS, tfa.QKVPROJ_TC_REG_DEPTH,
+        tfa.QKVPROJ_TC_ROWS_DEPTH)
+    reach = {(64, 2): (468, 122), (128, 2): (228, 91), (64, 4): (253, 107),
+             (128, 4): (119, 73)}
+    for (dh, itemsize), (fwd, bwd) in reach.items():
+        for s, grad in ((fwd, False), (bwd, True)):
+            assert tfa.qkvproj_fits(s, dh, itemsize, grad)
+            assert not tfa.qkvproj_fits(s + 1, dh, itemsize, grad)
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for s in range(1, tfa.MAX_SEQ_LEN + 1):
+            if tfa.qkvproj_fits(s, dh, 2, False):
+                assert tfa.qkvproj_fwd_smem_bytes(s, dh, 2) <= MAX_SMEM_BYTES
+            if tfa.qkvproj_fits(s, dh, 2, True):
+                assert tfa.qkvproj_bwd_smem_bytes(s, dh, 2, True) <= (
+                    MAX_SMEM_BYTES)
+    assert tfa.qkvproj_tc_stage_bytes(64) == 40960
+    assert tfa.qkvproj_fwd_smem_bytes(50, 64, 2) == 147968
+
+
 # --- on the card --------------------------------------------------------
 
 
@@ -362,16 +461,18 @@ def _close(got, want, dtype):
     ("float32", 4, 77, 12, 64),
     ("bfloat16", 2, 122, 4, 64),     # the backward's longest S in bf16
     ("float32", 3, 33, 2, 128),      # the widest head
+    ("bfloat16", 4, 64, 4, 64),      # bf16 #18's register plan's last S
+    ("bfloat16", 4, 65, 4, 64),      # its row plan's first
+    ("bfloat16", 2, 50, 4, 128),     # the widest head, two column passes
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_qkvproj_kernels_match_plain_on_card(cuda_device, dtype, b, s, h,
                                              dh, rate):
     """#18 (saved probs, emitted qkv) against its plain version and #1 on
-    its emitted qkv (bit for bit in fp32; in bf16, where #1 sums its dots
-    on the tensor cores and #18 on the CUDA cores, within one bf16
-    rounding, with the same keep mask); #19 from x equal to #19 from that
-    qkv bit for bit, and against the plain backward; the same bits
-    twice."""
+    its emitted qkv (bit for bit in fp32 and, to S = 64, where both run #1's
+    register plan, in bf16; past it in bf16 within one bf16 rounding, with
+    the same keep mask); #19 from x equal to #19 from that qkv bit for bit,
+    and against the plain backward; the same bits twice."""
     (x, w, b3, g), mask = _card(cuda_device, dtype, b, s, h, dh, 13)
     scale, seed = 1.0 / dh ** 0.5, 2 ** 61 + 5
     kw = dict(n_heads=h, scale=scale)
@@ -379,13 +480,11 @@ def test_qkvproj_kernels_match_plain_on_card(cuda_device, dtype, b, s, h,
         x, w, b3, mask, rate=rate, seed=seed, save=True, emit_qkv=True, **kw)
     r_out, r_qkv, r_p, r_pd = tfa.attn_fwd_qkvproj_reference(
         x, w, b3, mask, rate=rate, seed=seed, save=True, emit_qkv=True, **kw)
-    for got, want in ((out, r_out), (p, r_p), (pd, r_pd)):
+    for got, want in ((out, r_out), (qkv, r_qkv), (p, r_p), (pd, r_pd)):
         _close(got, want, dtype)
-    if dtype == "float32":
-        _close(qkv, r_qkv, dtype)
     packed = tfa.attn_fwd_packed_cuda(qkv, mask, rate=rate, seed=seed,
                                       save=True, **kw)
-    if dtype == "float32":
+    if dtype == "float32" or s <= tfa.FULL_TC_REG_MAX_SEQ_LEN:
         assert all(torch.equal(a, b_) for a, b_ in zip((out, p, pd), packed))
     else:
         for a, b_ in zip((out, p, pd), packed):
@@ -441,3 +540,24 @@ def test_qkvproj_autograd_launches_the_kernels(cuda_device, qkv_residual,
     assert step(False) == (1, 0, 0, 0)
     monkeypatch.setenv("FUSED_ATTN_SAVE", "0")
     assert step(True) == (0, 0, 1, 1)
+
+
+@pytest.mark.cuda
+def test_qkvproj_forward_reach_on_card(cuda_device):
+    """bf16 #18 at the last S it takes without a gradient (468 at Dh = 64:
+    the head [S][3·Dh] beside #1's row plan) against its plain version,
+    serving and with saved probs and the emitted qkv; S = 469 is
+    refused."""
+    (x, w, b3, g), mask = _card(cuda_device, "bfloat16", 1, 468, 2, 64, 17)
+    kw = dict(n_heads=2, scale=0.125)
+    out = tfa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **kw)[0]
+    _close(out, tfa.attn_fwd_qkvproj_reference(x, w, b3, mask, **kw)[0],
+           "bfloat16")
+    fwd = dict(rate=0.1, seed=5, save=True, emit_qkv=True, **kw)
+    for got, want in zip(tfa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **fwd),
+                         tfa.attn_fwd_qkvproj_reference(x, w, b3, mask,
+                                                        **fwd)):
+        _close(got, want, "bfloat16")
+    (x, w, b3, g), mask = _card(cuda_device, "bfloat16", 1, 469, 2, 64, 17)
+    with pytest.raises(ValueError, match="qkvproj_fits"):
+        tfa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **kw)
