@@ -4,11 +4,11 @@
 // (attn_bwd_split_saved.cu), the recompute backward #9 (attn_bwd_split.cu)
 // and its packed twin #2 (attn_bwd_packed.cu); and the QKV projection of
 // #18 (attn_fwd_qkvproj.cu) and #19 (attn_bwd_qkvproj.cu), with #1's
-// register plan split into its staging and compute halves so that #18 runs
-// the compute half on the head it projects into shared memory. fp32 keeps
-// the CUDA-core row code of common.cuh (`fwd_rows`, `bwd_saved_head`,
-// `bwd_recompute_head`, `project_head`); #18's attention past S = 64 and
-// #19's dQKV chain run that row code in bf16 too.
+// register plan and #3's backward each split into their staging and compute
+// halves so that #18 and #19 run the compute half on the head they project
+// into shared memory. fp32 keeps the CUDA-core row code of common.cuh
+// (`fwd_rows`, `bwd_saved_head`, `bwd_recompute_head`, `project_head`);
+// #18's attention past S = 64 runs that row code in bf16 too.
 //
 // What they compute is #1's and #3's function (common.cuh's notes), per
 // batch row b and head h:
@@ -62,7 +62,10 @@
 // with the same registers, while launched as #1 it runs at #4's pace.
 //
 // Backward (`bwd_saved_rows`, S ≤ max_bwd_seq_len(Dh)): one block of S/16
-// warps (rounded up) per (head, batch row). Q, K, V and g are staged as
+// warps (rounded up) per (head, batch row); the staging half
+// (`bwd_saved_stage`), then the compute half's two phases
+// (`bwd_saved_phase1`, a barrier, `bwd_saved_phase2`), which #19 also runs
+// on the tiles its projection fills. Q, K, V and g are staged as
 // bf16 by cp.async; pd into a bf16 [S16][S16 + 8] tile by 4-byte loads
 // while S is even (its rows are S·2 bytes apart: 100 at S = 50, only
 // 4-byte aligned), 2-byte loads otherwise. Phase 1, warp w on query rows
@@ -110,13 +113,15 @@
 // cp.async ring, each warp a 16-row slab × half the pass's n8 tiles in
 // registers; the bias is added in fp32 before the one rounding, and the
 // bf16 pairs go straight into the layout the caller names (#1's tiles up
-// to S = 64, [S][3·Dh] past it and in #19) and, with `emit`, to the packed
-// qkv. #18 to S = 64 takes two batch rows a block with 64-deep slices,
-// past it and #19 one with 32-deep slices (kProjRegRows, kProjRegDepth,
-// kProjRowsDepth); a weight slice serves every batch row of its block. The
-// register plan's compute half (`fwd_reg_compute`) then runs on #18's
-// tiles as on the ones #1 stages (`fwd_reg_stage`), so #18 gives #1's bits
-// on its emitted projection.
+// to S = 64, [S][3·Dh] past it; #3's tiles in #19) and, with `emit`, to
+// the packed qkv. #18 and #19 to S = 64 take two batch rows a block with
+// 64-deep slices, past it one with 32-deep slices (kProjRegRows,
+// kBwdProjRows, kProjRegDepth, kProjRowsDepth); a weight slice serves
+// every batch row of its block. The register plan's compute half
+// (`fwd_reg_compute`) then runs on #18's tiles as on the ones #1 stages
+// (`fwd_reg_stage`), so #18 gives #1's bits on its emitted projection; #3's
+// phases run on #19's tiles as on the ones #3 stages, so #19 gives #3's
+// bits.
 //
 // Against the fp32 kernels: a bf16 × bf16 product is exact in fp32, so a
 // dot differs from the CUDA-core fmaf chain of the same values only in the
@@ -708,32 +713,34 @@ __host__ __device__ inline size_t bwd_smem_bytes(int s, int dh) {
          sizeof(bf16);
 }
 
-// The saved-probs backward of one (head, batch row): rows16(S) / 16 warps.
-template <int kNT, int kDT>
-__device__ __forceinline__ void bwd_saved_rows(
-    unsigned char* smem_raw, const bf16* __restrict__ q,
-    const bf16* __restrict__ k, const bf16* __restrict__ v, int ld_in,
-    const bf16* __restrict__ g, int g_ld, bf16* __restrict__ dq,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int d_ld,
-    const bf16* __restrict__ p_head, const bf16* __restrict__ pd_head,
-    int S, int Dh, float scale, bool pairs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
-  const int sp = rows16(S), nkt = sp / 8, pld = bwd_pld(S);
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [sp][ld]
-  bf16* ks = qs + sp * ld;
-  bf16* vs = ks + sp * ld;
-  bf16* gs = vs + sp * ld;
-  bf16* pds = gs + sp * ld;                       // [sp][pld] pd
-  bf16* dss = pds + sp * pld;                     // [sp][pld] ds_c
+// The saved-probs backward's tiles of one (head, batch row) in shared
+// memory: Q, K, V and g [sp][ld] bf16 one after the other from `qkvg`,
+// and the pd and ds_c tiles [sp][pld] one after the other from `pd_ds`;
+// each function below derives its tiles from these two pointers. #3/#10
+// lay them out as `bwd_smem_bytes` says; #19 puts each batch row's Q, K,
+// V, g first and the pd and ds_c tiles after all of them.
 
-  attn::tc_cp_rows(qs, ld, q, ld_in, 0, sp, 0, S, Dh);
-  attn::tc_cp_rows(ks, ld, k, ld_in, 0, sp, 0, S, Dh);
-  attn::tc_cp_rows(vs, ld, v, ld_in, 0, sp, 0, S, Dh);
-  attn::tc_cp_rows(gs, ld, g, g_ld, 0, sp, 0, S, Dh);
+// The staging half: Q, K, V and g by cp.async, committed as one group (Q,
+// K, V skipped when q is null, g when g is: the caller has written or
+// copied them, rows past S zero); the pad columns of all four zeroed; pd
+// [S][S] into its tile, zeros to sp, two keys a thread (4-byte loads when
+// `pairs`). Every thread of the block takes part; the caller waits and
+// synchronises.
+__device__ __forceinline__ void bwd_saved_stage(
+    bf16* qkvg, bf16* pd_ds, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, int ld_in,
+    const bf16* __restrict__ g, int g_ld, const bf16* __restrict__ pd_head,
+    int S, int Dh, bool pairs) {
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S), pld = bwd_pld(S);
+  if (q) {
+    attn::tc_cp_rows(qkvg, ld, q, ld_in, 0, sp, 0, S, Dh);
+    attn::tc_cp_rows(qkvg + sp * ld, ld, k, ld_in, 0, sp, 0, S, Dh);
+    attn::tc_cp_rows(qkvg + 2 * sp * ld, ld, v, ld_in, 0, sp, 0, S, Dh);
+  }
+  if (g) attn::tc_cp_rows(qkvg + 3 * sp * ld, ld, g, g_ld, 0, sp, 0, S, Dh);
   attn::cp_async_commit();
-  attn::tc_zero_cols(qs, ld, 4 * sp, Dh, kd);  // the pad columns
-  // pd [S][S] → pds, zeros to sp: two keys a thread.
+  attn::tc_zero_cols(qkvg, ld, 4 * sp, Dh, kd);  // the pad columns
   const int half = sp / 2;
   for (int i = threadIdx.x; i < sp * half; i += blockDim.x) {
     const int r = i / half, c = 2 * (i - r * half);
@@ -749,13 +756,28 @@ __device__ __forceinline__ void bwd_saved_rows(
         w = *reinterpret_cast<const uint32_t*>(&x);
       }
     }
-    *reinterpret_cast<uint32_t*>(pds + r * pld + c) = w;
+    *reinterpret_cast<uint32_t*>(pd_ds + r * pld + c) = w;
   }
-  attn::cp_async_wait<0>();
-  __syncthreads();
+}
 
-  // Phase 1: the warp's 16 query rows.
-  const int m0 = warp * 16;
+// The compute half's phase 1 on staged tiles, for the calling warp's 16
+// query rows m0 .. m0 + 15: d(pd) = g · Vᵀ into registers; t = pd ⊙ d(pd);
+// Σ_k t from the lane's values in key order, then the quad's xor tree; p
+// read from device memory in the accumulator layout; ds_c packed to bf16
+// pairs, written to the ds_c tile and used as dQ = ds_c · K's A fragments.
+template <int kNT, int kDT>
+__device__ __forceinline__ void bwd_saved_phase1(
+    bf16* qkvg, bf16* pd_ds, bf16* __restrict__ dq, int d_ld,
+    const bf16* __restrict__ p_head, int m0, int S, int Dh, float scale,
+    bool pairs) {
+  const int lane = threadIdx.x & 31;
+  const int ld = attn::tc_ld(Dh), kd = attn::tc_depth(Dh);
+  const int sp = rows16(S), nkt = sp / 8, pld = bwd_pld(S);
+  const bf16* ks = qkvg + sp * ld;
+  const bf16* vs = ks + sp * ld;
+  const bf16* gs = vs + sp * ld;
+  const bf16* pds = pd_ds;
+  bf16* dss = pd_ds + sp * pld;
   const int t4 = lane & 3;
   const int q_lo = m0 + (lane >> 2);
   float tt[kNT][4] = {};
@@ -816,23 +838,35 @@ __device__ __forceinline__ void bwd_saved_rows(
     }
   }
   // dQ = ds_c · K: key tiles 2c and 2c + 1 are step c's A fragment.
-  {
-    float acc[kDT][4] = {};
-    const bf16* kb = attn::tc_lane_bt(ks, ld);
+  float acc[kDT][4] = {};
+  const bf16* kb = attn::tc_lane_bt(ks, ld);
 #pragma unroll
-    for (int c = 0; c < kNT / 2; ++c) {
-      if (2 * c < nkt) {
-        const uint32_t fa[4] = {dsp[2 * c][0], dsp[2 * c][1],
-                                dsp[2 * c + 1][0], dsp[2 * c + 1][1]};
-        attn::tc_mma_bt(acc, fa, kb + 16 * c * ld, Dh / 8);
-      }
+  for (int c = 0; c < kNT / 2; ++c) {
+    if (2 * c < nkt) {
+      const uint32_t fa[4] = {dsp[2 * c][0], dsp[2 * c][1],
+                              dsp[2 * c + 1][0], dsp[2 * c + 1][1]};
+      attn::tc_mma_bt(acc, fa, kb + 16 * c * ld, Dh / 8);
     }
-    store_rows(acc, dq, d_ld, m0, S, Dh);
   }
-  __syncthreads();  // every row's ds_c is in
+  store_rows(acc, dq, d_ld, m0, S, Dh);
+}
 
-  // Phase 2: the warp's 16 keys, summed over every query row.
-  const int k0 = warp * 16;
+// Phase 2, after a barrier that follows every row's phase 1 (the whole
+// ds_c tile is in): the calling warp's 16 keys k0 .. k0 + 15, summed over
+// every query row: dV = pdᵀ · g and dK = ds_cᵀ · Q, pdᵀ and ds_cᵀ by
+// ldmatrix.trans from their tiles, g and Q by ldmatrix.trans.
+template <int kDT>
+__device__ __forceinline__ void bwd_saved_phase2(bf16* qkvg, bf16* pd_ds,
+                                                 bf16* __restrict__ dk,
+                                                 bf16* __restrict__ dv,
+                                                 int d_ld, int k0, int S,
+                                                 int Dh) {
+  const int ld = attn::tc_ld(Dh);
+  const int sp = rows16(S), pld = bwd_pld(S);
+  const bf16* qs = qkvg;
+  const bf16* gs = qkvg + 3 * sp * ld;
+  const bf16* pds = pd_ds;
+  const bf16* dss = pd_ds + sp * pld;
   {
     float acc[kDT][4] = {};  // dV = pdᵀ · g
     for (int c = 0; c < sp; c += 16) {
@@ -851,6 +885,30 @@ __device__ __forceinline__ void bwd_saved_rows(
     }
     store_rows(acc, dk, d_ld, k0, S, Dh);
   }
+}
+
+// The saved-probs backward of one (head, batch row) (#3, #10): rows16(S) /
+// 16 warps, the staging half, then the compute half's two phases, warp w
+// on query rows and keys 16w .. 16w + 15.
+template <int kNT, int kDT>
+__device__ __forceinline__ void bwd_saved_rows(
+    unsigned char* smem_raw, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, int ld_in,
+    const bf16* __restrict__ g, int g_ld, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int d_ld,
+    const bf16* __restrict__ p_head, const bf16* __restrict__ pd_head,
+    int S, int Dh, float scale, bool pairs) {
+  bf16* qkvg = reinterpret_cast<bf16*>(smem_raw);
+  bf16* pd_ds = qkvg + 4 * rows16(S) * attn::tc_ld(Dh);
+  bwd_saved_stage(qkvg, pd_ds, q, k, v, ld_in, g, g_ld, pd_head, S, Dh,
+                  pairs);
+  attn::cp_async_wait<0>();
+  __syncthreads();
+  const int m0 = 16 * (threadIdx.x >> 5);
+  bwd_saved_phase1<kNT, kDT>(qkvg, pd_ds, dq, d_ld, p_head, m0, S, Dh, scale,
+                             pairs);
+  __syncthreads();  // every row's ds_c is in
+  bwd_saved_phase2<kDT>(qkvg, pd_ds, dk, dv, d_ld, m0, S, Dh);
 }
 
 template <int kNT, int kDT>
@@ -1272,15 +1330,19 @@ constexpr int kProjCols = 192;
 constexpr int kProjStages = 2;
 constexpr int kProjTiles = kProjCols / 16;  // a warp's n8 tiles, at most
 // The plans' batch rows a block and slice depths (ops/fused_attention.py::
-// QKVPROJ_TC_*): #18 to S = 64 (its register plan); the row plans, which
-// keep the head as [S][3·Dh] beside their row code, one batch row a block
-// (#18 past S = 64, whose staging must fit beside the head at the reach,
-// S = 468, and #19, whose (head, batch row) pass ran 1.22 ms with 32-deep
-// slices against 1.32 with 64-deep at bf16 B=256 S=50 on an NVIDIA H100
-// 80GB HBM3 at 700 W, chip_ab.py).
+// QKVPROJ_TC_*): #18 to S = 64 (its register plan); #18 past S = 64, which
+// keeps the head as [S][3·Dh] beside its row code and whose staging must
+// fit beside the head at the reach, S = 468, one batch row a block with
+// 32-deep slices, as #19 past S = 64 (one batch row of #19's CUDA-core
+// chain ran 1.22 ms with 32-deep slices against 1.32 with 64-deep at bf16
+// B=256 S=50 on an NVIDIA H100 80GB HBM3 at 700 W, chip_ab.py). #19 to
+// S = 64 takes kBwdProjRows batch rows with 64-deep slices: its (head,
+// batch row) pass ran 0.644 ms against 0.795 with one batch row a block
+// (the same card, chip_ab.py).
 constexpr int kProjRegRows = 2;
 constexpr int kProjRegDepth = 64;
 constexpr int kProjRowsDepth = 32;
+constexpr int kBwdProjRows = 2;
 
 __host__ __device__ inline int proj_w_rows(int dh) {
   return rows16(3 * dh < kProjCols ? 3 * dh : kProjCols);

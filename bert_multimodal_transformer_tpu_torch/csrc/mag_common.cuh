@@ -1,6 +1,9 @@
-// What the two fused MAG-gate kernels share (mag_fwd.cu, mag_bwd.cu): the
-// block's shared-memory plan, the recomputed products of one column chunk,
-// and warp sums.
+// The CUDA-core plan of the fused MAG-gate kernels: the backward #26
+// (mag_bwd.cu) in both dtypes and the forward #25 (mag_fwd.cu) in fp32 —
+// the block's shared-memory plan, the recomputed products of one column
+// chunk — and what the bf16 forward's tensor-core plan (mag_tc.cuh) shares
+// with them: the gate's parameters, its constants, warp sums and the row
+// functions `row_norms` and `row_moments`.
 //
 // The gate, per row of the flattened [N, D] text stream (ops/mag.py):
 //   pv  = v·W_hv_v + t·W_hv_t + b_hv        gate_v = ReLU(pv)
@@ -10,9 +13,11 @@
 //   α   = min(‖t‖ / (‖H_m‖' + 1e-6) · β, 1),  ‖H_m‖' = ‖H_m‖, or 1 where 0
 //   y   = LayerNorm(α · H_m + t), eps 1e-5
 // with t [N, D], v [N, Dv], a [N, Da] in the activation dtype, read as fp32;
-// the weights fp32 in the x·W ([in, out]) layout; every product and sum in
-// fp32 on the CUDA cores (the TPU kernel runs its dots at
-// Precision.HIGHEST, so TF32 tensor cores would change the result).
+// the weights fp32 in the x·W ([in, out]) layout; in this plan every
+// product and sum in fp32 on the CUDA cores (the TPU kernel runs its dots
+// at Precision.HIGHEST, so plain TF32 or bf16 weights would change the
+// result; mag_tc.cuh keeps fp32 precision on the tensor cores by splitting
+// each weight into three bf16 planes).
 //
 // The plan. A block owns kRows whole rows, because the two row norms and
 // the LayerNorm need whole rows; 256 threads. Its shared memory holds, in

@@ -4,29 +4,33 @@
 // (bert_multimodal_transformer_tpu/ops/mag_pallas.py:50): the whole gate of
 // mag_common.cuh for each row, y = LayerNorm(α · H_m + t) in the text
 // dtype, with the six products, the two row norms, the α clamp and the
-// LayerNorm in one pass over a block's rows.
+// LayerNorm in one launch.
 //
 // What bounds it on the card: the six products are 2·D·(2D + 2Dv + 2Da)
 // operations a row (2.73 MFLOP at D = 768, Dv = 47, Da = 74), 35.0 GFLOP
-// at N = 12800, which at the H100's 67 TFLOP/s of fp32 outside the tensor
-// cores is 0.52 ms; the bytes (t, v, a, the output and ~6 MB of weights,
-// about 49 MB at bf16 N = 12800) take 0.015 ms at 3.35 TB/s. So fp32 FMAs
-// bound it. The TPU kernel runs its dots at Precision.HIGHEST: TF32 tensor
-// cores would change the result, and a 3×TF32 split is the redesign for a
-// later change.
+// at N = 12800. The TPU kernel runs its dots at Precision.HIGHEST, so
+// they keep fp32 precision: at the H100's 67 TFLOP/s of fp32 outside the
+// tensor cores 0.52 ms; as bf16 activations against three bf16 planes of
+// each weight on the tensor cores (3 × 35.0 GFLOP at 989 TFLOP/s) 0.106
+// ms. The bytes (t, v, a, the output and ~6 MB of weights, about 49 MB at
+// bf16 N = 12800) take 0.015 ms at 3.35 TB/s.
 //
-// What the design does about that: each thread owns one output column of
-// a 256-column chunk for the block's 16 rows and keeps its four products
-// in registers, with its weight column fetched ahead into registers; per
-// four k steps a warp issues 16 float4 broadcasts of the activations and 8
-// weight loads for 128 FMAs, and no barrier (mag_common.cuh).
-// H_m for the block's rows is written to shared memory chunk by chunk, so
-// the norms, α and the LayerNorm run out of shared memory, and only y goes
-// back to device memory. One block per 16 rows, two blocks an SM at
-// D = 768: 800 blocks at N = 12800, 150 (one wave) at the driver's
-// training batch (N = 2400).
+// What the design does about that. bf16 (`mag_fwd_tc_kernel`,
+// mag_tc.cuh): every product on mma.sync.m16n8k16 with each fp32 weight
+// split into three bf16 planes as it arrives, 64 rows × 128 columns a
+// block, the blocks of a row block in a thread block cluster that trades
+// the row sums through distributed shared memory. fp32 (`mag_fwd_kernel`):
+// the CUDA-core plan of mag_common.cuh, each thread one output column of a
+// 256-column chunk for the block's 16 rows, its four products in
+// registers, with its weight column fetched ahead into registers; per four
+// k steps a warp issues 16 float4 broadcasts of the activations and 8
+// weight loads for 128 FMAs, and no barrier. H_m for the block's rows is
+// written to shared memory chunk by chunk, so the norms, α and the
+// LayerNorm run out of shared memory, and only y goes back to device
+// memory. One block per 16 rows, two blocks an SM at D = 768.
 
 #include "mag_common.cuh"
+#include "mag_tc.cuh"
 
 namespace {
 
@@ -98,8 +102,9 @@ int launch(const void* t, const void* v, const void* a, const mag::Params& p,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, for t [N, D], v [N, Dv], a [N, Da] and
-// out [N, D]; the twelve params are fp32 (mag_common.cuh's Params order).
+// dtype: 0 = float32 (the CUDA-core plan), 1 = bfloat16 (the tensor-core
+// plan), for t [N, D], v [N, Dv], a [N, Da] and out [N, D]; the twelve
+// params are fp32 (mag_common.cuh's Params order).
 // Returns the cudaError_t of the launch (0 on success). The Python wrapper
 // checks the shapes; they are checked again here so that no call can index
 // past the shared-memory plan.
@@ -119,7 +124,7 @@ int mag_fwd(const void* t, const void* v, const void* a, const float* w_hv_v,
     case 0:
       return launch<float>(t, v, a, p, out, N, D, Dv, Da, beta, st);
     case 1:
-      return launch<__nv_bfloat16>(t, v, a, p, out, N, D, Dv, Da, beta, st);
+      return mag_tc::launch(t, v, a, p, out, N, D, Dv, Da, beta, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1614,7 +1614,9 @@ def fused_attention_tp(
 # * #19 ``attn_bwd_qkvproj_cuda`` → ``csrc/attn_bwd_qkvproj.cu``: #3's
 #   saved-probs chain on the head re-projected from x by #18's projection
 #   (or read from the emitted qkv), writing dqkv, then dx = dqkv·Wᵀ, two
-#   launches a call.
+#   launches a call. In bf16 both run on the tensor cores: the projection
+#   lands in #3's tiles, on which #3's compute half runs (so dqkv from the
+#   saved qkv is #3's, bit for bit), and dx is a tiled mma.sync product.
 #
 # dW = xᵀ·dqkv and db = Σ dqkv are plain products in ``FusedAttentionQKV
 # Proj``, as the JAX package leaves them to XLA. The public entry takes W
@@ -1639,6 +1641,10 @@ _GEMM_SMEM_FLOATS = 2 * 32 * 68
 QKVPROJ_TC_STAGES, QKVPROJ_TC_ROWS, QKVPROJ_TC_COLS = 2, 64, 192
 QKVPROJ_TC_REG_ROWS, QKVPROJ_TC_REG_DEPTH = 2, 64
 QKVPROJ_TC_ROWS_DEPTH = 32
+# bf16 #19's (head, batch row) pass re-projecting to S = 64: batch rows a
+# block (``kBwdProjRows``), each weight slice QKVPROJ_TC_REG_DEPTH deep;
+# past it one batch row and QKVPROJ_TC_ROWS_DEPTH.
+QKVPROJ_TC_BWD_ROWS = 2
 
 
 def qkvproj_tc_stage_bytes(dh: int, rows: int = 1,
@@ -1680,12 +1686,12 @@ def qkvproj_fwd_smem_bytes(s: int, dh: int, itemsize: int) -> int:
                   4 * rows))
 
 
-def qkvproj_bwd_smem_bytes(s: int, dh: int, itemsize: int,
-                           recompute: bool) -> int:
-    """Shared memory of one block of #19's (head, batch row) launch: #3's
-    fp32 plan (``bwd_smem_bytes``), behind the projected head [S][3·Dh]
+def _qkvproj_bwd_row_plan_bytes(s: int, dh: int, itemsize: int,
+                                recompute: bool) -> int:
+    """Shared memory of one block of #19's fp32 (head, batch row) pass:
+    #3's fp32 plan (``bwd_smem_bytes``), behind the projected head [S][3·Dh]
     when it re-projects from x (the projection's staging laid over the
-    plan)."""
+    plan). ``qkvproj_fits`` holds both dtypes to its reach."""
     plan = bwd_smem_bytes(s, dh)
     if not recompute:
         return plan
@@ -1694,18 +1700,52 @@ def qkvproj_bwd_smem_bytes(s: int, dh: int, itemsize: int,
                   plan))
 
 
+def qkvproj_tc_bwd_smem_bytes(s: int, dh: int, recompute: bool) -> int:
+    """Shared memory of one block of bf16 #19's (head, batch row) pass
+    (``csrc/attn_bwd_qkvproj.cu``'s ``heads_tc_smem_bytes``): for each of
+    its batch rows (``QKVPROJ_TC_BWD_ROWS`` re-projecting to S = 64, else
+    one) #3's Q, K, V and g tiles, then each row's pd and ds_c tiles, over
+    which the projection's ring lies where it is the larger (162 KB at S =
+    50, Dh = 64, re-projecting; #3's ``full_tc_bwd_smem_bytes`` from the
+    saved qkv)."""
+    s16 = _rows16(s)
+    rows = (QKVPROJ_TC_BWD_ROWS
+            if recompute and s <= FULL_TC_REG_MAX_SEQ_LEN else 1)
+    qkvg = 4 * s16 * _tc_ld(dh) * 2
+    tail = rows * 2 * s16 * (s16 + 8) * 2
+    if recompute:
+        depth = QKVPROJ_TC_REG_DEPTH if rows > 1 else QKVPROJ_TC_ROWS_DEPTH
+        tail = max(tail, qkvproj_tc_stage_bytes(dh, rows, depth))
+    return rows * qkvg + tail
+
+
+def qkvproj_bwd_smem_bytes(s: int, dh: int, itemsize: int,
+                           recompute: bool) -> int:
+    """Shared memory of one block of #19's (head, batch row) launch: bf16
+    the tensor-core plan (``qkvproj_tc_bwd_smem_bytes``), fp32 the
+    CUDA-core row plan (``_qkvproj_bwd_row_plan_bytes``)."""
+    if itemsize == 2:
+        return qkvproj_tc_bwd_smem_bytes(s, dh, recompute)
+    return _qkvproj_bwd_row_plan_bytes(s, dh, itemsize, recompute)
+
+
 def qkvproj_fits(s: int, dh: int, itemsize: int, grad: bool) -> bool:
     """Whether #18 (and with a gradient #19 in its larger, re-projecting
     plan) takes sequence length ``s`` at head width ``dh`` and
     ``itemsize``-byte activations. D is streamed, so any width fits. At
     Dh = 64 the forward reaches S = 253 in fp32 and 468 in bf16, the
-    backward S = 107 and 122; at Dh = 128, 119 / 228 and 73 / 91."""
+    backward S = 107 and 122; at Dh = 128, 119 / 228 and 73 / 91. The
+    backward's reach is the CUDA-core row plan's in both dtypes (the head
+    [S][3·Dh] beside #3's fp32 plan), which bf16 #19's tensor-core plan,
+    smaller, also fits: the shapes that take the split structure did not
+    move when bf16 #19 went to the tensor cores."""
     if dh % 8 != 0 or not 8 <= dh <= MAX_HEAD_DIM or s > MAX_SEQ_LEN:
         return False
     if qkvproj_fwd_smem_bytes(s, dh, itemsize) > MAX_SMEM_BYTES:
         return False
-    return (not grad
-            or qkvproj_bwd_smem_bytes(s, dh, itemsize, True) <= MAX_SMEM_BYTES)
+    return not grad or (
+        _qkvproj_bwd_row_plan_bytes(s, dh, itemsize, True) <= MAX_SMEM_BYTES
+        and qkvproj_bwd_smem_bytes(s, dh, itemsize, True) <= MAX_SMEM_BYTES)
 
 
 def _project(x, w, b3):
@@ -1836,8 +1876,9 @@ def attn_bwd_qkvproj_cuda(p, pd, src, w, b3, g, *, n_heads, scale,
     the saved qkv [B, S, 3D]; then dx = dqkv·Wᵀ [B, S, D]. Returns (dqkv,
     dx)."""
     b, s, d, dh = _check_qkvproj_cuda("attn_bwd_qkvproj", g, w, b3, n_heads)
-    if qkvproj_bwd_smem_bytes(s, dh, g.element_size(),
-                              recompute) > MAX_SMEM_BYTES:
+    item = g.element_size()
+    if max(_qkvproj_bwd_row_plan_bytes(s, dh, item, recompute),
+           qkvproj_bwd_smem_bytes(s, dh, item, recompute)) > MAX_SMEM_BYTES:
         raise ValueError(f"attn_bwd_qkvproj: S={s} at Dh={dh} is past the "
                          "kernel's shared-memory plan (qkvproj_fits)")
     _like("src", src, g, (b, s, d if recompute else 3 * d))

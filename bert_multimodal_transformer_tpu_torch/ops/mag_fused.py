@@ -4,7 +4,13 @@ Two kernels, each with its plain PyTorch version beside it:
 
 * #25 ``mag_fwd_cuda`` → ``csrc/mag_fwd.cu``, plain version
   ``ops/mag.py::mag_gate``: the whole gate per row, the math of the TPU
-  ``_mag_kernel``;
+  ``_mag_kernel``. In bf16 its six products run on the tensor cores
+  (``csrc/mag_tc.cuh``): each fp32 weight split into three bf16 planes
+  as it arrives (together they hold it to 2^-24 of itself, and a bf16
+  activation times a bf16 plane is exact in fp32), 64 rows × 128 columns
+  a block, the D / 128 blocks of a row block in a thread block cluster
+  that trades the row sums; in fp32 they run on the CUDA cores
+  (``csrc/mag_common.cuh``);
 * #26 ``mag_bwd_cuda`` → ``csrc/mag_bwd.cu``, plain version
   ``mag_bwd_chain_plain``: the TPU ``_mag_bwd_kernel``'s chain (recompute,
   LayerNorm backward, α / norm-clamp backward, gate / ReLU backward),
@@ -47,16 +53,33 @@ MAX_D = 1024
 LN_EPS = 1e-5
 # csrc/mag_common.cuh: rows per block, and the weight rows fetched ahead.
 _ROWS, _K_STEP = 16, 8
+# csrc/mag_tc.cuh (bf16 #25): a block's rows and columns, the ring's slice
+# depth and stages.
+TC_ROWS, TC_COLS, TC_SLICE, TC_STAGES = 64, 128, 32, 3
 
 
 def smem_bytes(d: int, dv: int, da: int) -> int:
-    """Shared memory of one block of either kernel (``mag_common.cuh``'s
-    ``smem_floats``): H_m [16][D], and t, v and a [16][width] with each
-    width rounded up to a multiple of 8, in fp32."""
+    """Shared memory of one block of the CUDA-core plan (#26, fp32 #25;
+    ``mag_common.cuh``'s ``smem_floats``): H_m [16][D], and t, v and a
+    [16][width] with each width rounded up to a multiple of 8, in fp32.
+    The wrappers admit the shapes it fits in both dtypes."""
     def padded(w):
         return -(-w // _K_STEP) * _K_STEP
 
     return 4 * _ROWS * (padded(d) + d + padded(dv) + padded(da))
+
+
+def tc_smem_bytes() -> int:
+    """Shared memory of one block of bf16 #25's tensor-core plan
+    (``mag_tc.cuh``'s ``smem_bytes``): the ring, TC_STAGES × (the
+    activations [64][TC_SLICE + 8] bf16 and the weights [TC_SLICE][TC_COLS
+    + 4] fp32), the H_m tile [64][TC_COLS + 4] fp32 and the three [64][2]
+    fp32 rows of partial sums: 101376 bytes whatever D, Dv and Da."""
+    stage = (TC_ROWS * (TC_SLICE + 8) * 2
+             + TC_SLICE * (TC_COLS + 4) * 4)
+    return (TC_STAGES * stage + TC_ROWS * (TC_COLS + 4) * 4
+            + 3 * TC_ROWS * 2 * 4)
+
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:

@@ -100,6 +100,18 @@ QKVPROJ_CASES = {
     "#19 bf16 B=256 S=50 rate 0.1 re-projecting": (256, 50, 0.1, "bwd"),
     "#19 head pass bf16 B=256 S=50 rate 0.1 re-projecting": (256, 50, 0.1,
                                                               "bwd_heads"),
+    "#19 bf16 B=256 S=50 rate 0.1 from the saved qkv": (256, 50, 0.1,
+                                                        "bwd_saved"),
+    "#19 bf16 B=256 S=50 rate 0 re-projecting": (256, 50, 0.0, "bwd"),
+    "#19 dx launch bf16 B=256 S=50": (256, 50, 0.1, "bwd_dx"),
+}
+# name: N rows: #25, the fused MAG gate forward, bf16 at bert-base width
+# with MOSI's modality widths (the driver's train and eval batches and the
+# bench's, times S=50)
+MAG_CASES = {
+    "#25 bf16 N=2400": 2400,
+    "#25 bf16 N=6400": 6400,
+    "#25 bf16 N=12800": 12800,
 }
 # name: (B, Q, K, rate, what)
 RELIK_CASES = {
@@ -201,13 +213,51 @@ def _qkvproj_call(fa, torch, rng, b, s, rate, what):
     if what == "bwd":
         return lambda: fa.attn_bwd_qkvproj_cuda(p, pd, x, w, b3, g,
                                                 recompute=True, **kw)
+    if what == "bwd_saved":
+        _, qkv, p, pd = fa.attn_fwd_qkvproj_cuda(x, w, b3, mask,
+                                                 emit_qkv=True, **drop, **kw)
+        return lambda: fa.attn_bwd_qkvproj_cuda(p, pd, qkv, w, b3, g,
+                                                recompute=False, **kw)
     w_rows = w.t().contiguous()
     dqkv = torch.empty((b, s, 3 * H * DH), dtype=x.dtype, device=x.device)
+    if what == "bwd_dx":
+        dqkv.copy_(fa.attn_bwd_qkvproj_cuda(p, pd, x, w, b3, g,
+                                            recompute=True, **kw)[0])
+        dx = torch.empty_like(x)
+        return lambda: fa._launch("attn_bwd_qkvproj_dx", dqkv.data_ptr(),
+                                  w_rows.data_ptr(), dx.data_ptr(), b * s,
+                                  H * DH, 1, device=x.device)
     args = (p.data_ptr(), pd.data_ptr(), x.data_ptr(), w_rows.data_ptr(),
             b3.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, s, H, DH,
             DH ** -0.5, 1, 1)
     return lambda: fa._launch("attn_bwd_qkvproj_heads", *args,
                               device=x.device)
+
+
+def _mag_inputs(torch, rng, n, dtype=None, d=H * DH, dv=47, da=74):
+    """The gate's fp32 params (torch-default linears, a LayerNorm away from
+    1 and 0) and seeded rows t [N, D], v [N, Dv], a [N, Da], dy [N, D]."""
+    dtype = dtype or torch.bfloat16
+
+    def u(shape, fan_in):
+        bound = fan_in ** -0.5
+        return torch.from_numpy(rng.uniform(-bound, bound, shape).astype(
+            np.float32)).cuda()
+
+    params = {"w_hv_v": u((dv, d), dv + d), "w_hv_t": u((d, d), dv + d),
+              "b_hv": u((d,), dv + d), "w_ha_a": u((da, d), da + d),
+              "w_ha_t": u((d, d), da + d), "b_ha": u((d,), da + d),
+              "w_v": u((dv, d), dv), "b_v": u((d,), dv),
+              "w_a": u((da, d), da), "b_a": u((d,), da),
+              "ln_gamma": 1 + u((d,), 100), "ln_beta": u((d,), 100)}
+    acts = [torch.from_numpy(rng.standard_normal((n, w), dtype=np.float32))
+            .to("cuda", dtype) for w in (d, dv, da, d)]
+    return params, acts
+
+
+def _mag_call(mf, torch, rng, n):
+    params, (t, v, a, _) = _mag_inputs(torch, rng, n)
+    return lambda: mf.mag_fwd_cuda(params, t, v, a)
 
 
 def _relik_inputs(torch, rng, b, q_len, k_len, dtype=None):
@@ -316,6 +366,7 @@ def worker(iters, cases):
     from bert_multimodal_transformer_tpu_torch.ops import (
         fused_attention as fa,
     )
+    from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
 
     rng = np.random.default_rng(0)
     out = {}
@@ -329,6 +380,8 @@ def worker(iters, cases):
               for name, case in SPLIT_RC_CASES.items()]
     calls += [(name, lambda c=case: _qkvproj_call(fa, torch, rng, *c))
               for name, case in QKVPROJ_CASES.items()]
+    calls += [(name, lambda n=n: _mag_call(mf, torch, rng, n))
+              for name, n in MAG_CASES.items()]
     for name, make in calls:
         if not re.search(cases, name):
             continue
@@ -452,6 +505,35 @@ def agreement():
                                         recompute=True, **kw),
         *fa.attn_bwd_qkvproj_cuda(fwd[2], fwd[3], fwd[1], w, b3, g,
                                   recompute=False, **kw))
+    # bf16 #3 and #10 (whose phases bf16 #19 now runs too) at the bench's
+    # shape and past S = 64
+    for b, s in ((64, 50), (4, 140)):
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, s, 3 * H * DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal(
+            (b, s, H * DH), dtype=np.float32)).to("cuda", torch.bfloat16)
+        mask = torch.from_numpy((np.arange(s)[None, :] < rng.integers(
+            1, s + 1, size=b)[:, None]).astype(np.float32)).cuda()
+        _, p, pd = fa.attn_fwd_packed_cuda(qkv, mask, rate=0.1, seed=7,
+                                           save=True, **kw)
+        out[f"digest bf16 #3 B={b} S={s} rate 0.1"] = digest(
+            fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw))
+        q, k, v = (t.contiguous() for t in fa._heads(qkv, H))
+        gh = fa._ctx_heads(g, H).contiguous()
+        out[f"digest bf16 #10 B={b} S={s} rate 0.1"] = digest(
+            *fa.attn_bwd_split_saved_cuda(p, pd, q, k, v, gh,
+                                          scale=DH ** -0.5))
+    # fp32 #25, and #26 in both dtypes, keep their CUDA-core kernels
+    from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
+
+    for dtype in (torch.float32, torch.bfloat16):
+        params, (t, v, a, dy) = _mag_inputs(torch, rng, 999, dtype)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        if dtype == torch.float32:
+            out["digest fp32 #25 N=999"] = digest(
+                mf.mag_fwd_cuda(params, t, v, a))
+        out[f"digest {name} #26 N=999"] = digest(
+            *mf.mag_bwd_cuda(params, t, v, a, dy))
     print(json.dumps(out))
 
 
@@ -655,7 +737,7 @@ def main() -> int:
     result = {"card": card, "iters": args.iters, "ms": {
         tree: {name: [r[name] for r in rs]
                for name in [*CASES, *REL_CASES, *RELIK_CASES,
-                            *SPLIT_RC_CASES, *QKVPROJ_CASES]
+                            *SPLIT_RC_CASES, *QKVPROJ_CASES, *MAG_CASES]
                if name in rs[0]}
         for tree, rs in rounds.items()}}
     result["agreement"] = {tree: json.loads(_run(

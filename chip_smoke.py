@@ -34,9 +34,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 3c. The fused MAG gate's kernels (#25 forward, #26 backward chain) against
    their plain versions on the card: bf16 and fp32 text at N=12800 (B=256,
    S=50), D=768, MOSI's 47/74, beta 1e-3, 1 and 1e6; a ragged B=3 S=33;
-   MOSEI's 35/74 once. #26's six outputs, and the final gradients built
-   from them, against the plain chain's. Then both timed against their
-   plain versions at N = 2400, 6400 and 12800 (bf16).
+   MOSEI's 35/74 once; bf16 #25's tensor-core plan at its edges
+   (``MAG_TC_EDGES``: N = 1, 15, 99, bert-large's D = 1024 with 47 and 35,
+   a D of 100 off the 8-wide copies), three betas each. #26's six outputs,
+   and the final gradients built from them, against the plain chain's.
+   Then both timed against their plain versions at N = 2400, 6400 and
+   12800 (bf16), their bound for bf16 activations three bf16 passes of
+   the fp32-precision products on the tensor cores (``mag_bound``).
 3d. The rel-attention kernels (#11 forward, #13 saved-probs backward, #12
    recompute backward) against their plain versions, on an ebias assembled
    as the XLNet model does (rel-shifted bd + segment ef, −1e30 on the
@@ -124,12 +128,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    it within the phase-3 bound with the same keep mask) and on the plain
    projection's qkv, #18's keep masks
    (saved, and read off the output of the mode that saves nothing), #19
-   re-projecting from x = #19 reading the emitted qkv bit for bit, both
-   against the plain backward and against torch.autograd through the
-   plain forward, the same bits twice; then timed at the serving shape
-   (B=128, rate 0) and the training shape (B=256, rate 0.1) beside the
-   split structure they replace (``F.linear`` + #1, #3 + the dx matmul)
-   and, at rate 0, ``F.linear`` + SDPA (forward; its autograd backward).
+   re-projecting from x = #19 reading the emitted qkv bit for bit, bf16
+   #19's dqkv = #3's on the same (p, pd, qkv, g) bit for bit (one compute
+   half), both against the plain backward and against torch.autograd
+   through the plain forward, the same bits twice; then timed at the
+   serving shape (B=128, rate 0) and the training shape (B=256, rate 0.1)
+   beside the split structure they replace (``F.linear`` + #1, #3 + the dx
+   matmul) and, at rate 0, ``F.linear`` + SDPA (forward; its autograd
+   backward); #19's dx launch alone beside ``torch.matmul(dqkv, w_rows)``.
    The same checks at bf16 #18's edges (``QKVPROJ_EDGES``: S = 64, 65 and
    122, the reach with a gradient) and the forward at its reach without
    one (S = 468).
@@ -332,6 +338,11 @@ MAG_BF16_RTOL, MAG_ATOL = 2.0 ** -7, 1e-5
 # move it past the band). Input gradients returned in bf16 are rounded
 # once more: 2^-7 relative there.
 MAG_BWD_TOL, MAG_TIE = 2e-4, 1e-5
+# Phase 3c's edges of bf16 #25's tensor-core plan (B, S, D, Dv): one row,
+# N = 15 and 99 off its 64-row block, bert-large's cluster of 8 blocks,
+# and a D off the 8-wide copies (one block, a partial warp).
+MAG_TC_EDGES = ((1, 1, 768, 47), (1, 15, 768, 47), (9, 11, 768, 35),
+                (2, S_SERVE, 1024, 47), (3, 33, 1024, 35), (2, 7, 100, 47))
 # Phase 6: one dropout-0 step with the fused gate against the plain gate,
 # per leaf as in 4b, over GATE_SEEDS seeded weights and batches, in fp32.
 # In bf16 the two gates round their outputs from fp32 sums taken in other
@@ -361,6 +372,9 @@ XLNET_GRAD_GAP_TOL = 0.25
 # cores. A kernel's bound is the larger of its bytes over the first and its
 # operations over the rate of their type.
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+# Kernel-name substrings of #25 (its fp32 CUDA-core kernel and its bf16
+# tensor-core plan) and #26.
+MAG_KERNELS = ("mag_fwd_kernel", "mag_fwd_tc_kernel", "mag_bwd_kernel")
 # Kernel-name substrings that sort a profile into groups (the first match
 # wins; the rest is "other elementwise").
 PROFILE_GROUPS = (
@@ -369,7 +383,7 @@ PROFILE_GROUPS = (
                                   "attn_fwd_split", "attn_bwd_split",
                                   "attn_fwd_qkvproj", "attn_bwd_qkvproj",
                                   "attn_fwd_rel", "attn_bwd_rel")),
-    ("MAG gate kernels (csrc)", ("mag_fwd_kernel", "mag_bwd_kernel")),
+    ("MAG gate kernels (csrc)", MAG_KERNELS),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm")),
     ("AdamW _foreach", ("multi_tensor_apply",)),
     ("host copies, memsets", ("Memcpy", "Memset")),
@@ -387,7 +401,8 @@ REL_FULL_KERNELS = (
     ("#13", ("attn_bwd_rel_saved_kernel", "attn_bwd_rel_saved_tc_")),
     ("#12", ("attn_bwd_rel_kernel", "attn_bwd_rel_tc_")),
 )
-# Kernel-name substrings of #18 and #19's two launches.
+# Kernel-name substrings of #18 and #19's two launches (each dtype's
+# kernels: `attn_bwd_qkvproj_heads_tc_kernel`, `..._dx_tc_kernel` in bf16).
 QKVPROJ_KERNELS = (("#18", "attn_fwd_qkvproj"),
                    ("#19 (head, batch row) pass", "attn_bwd_qkvproj_heads"),
                    ("#19 dx", "attn_bwd_qkvproj_dx"))
@@ -406,9 +421,9 @@ def tc_ptxas_lines(log):
     passes of #5 and #7, the rel backward passes of #15 and #17, #24's two
     passes, the full-H plans of #1/#8 and #3/#10 built into each of their
     sources, #2/#9's recompute plan, the rel full-H plans of #11, #13 and
-    #12, the full-H ingredients plans of #20, #21 and #22, and #18's
-    register plan with its projection), one line each, from the build
-    log.
+    #12, the full-H ingredients plans of #20, #21 and #22, #18's register
+    plan with its projection, #19's (head, batch row) pass and dx product
+    and #25's three-plane plan), one line each, from the build log.
     Template arguments print in order: the packed and rel passes' are <n8
     tiles of Dh, own statistics (#5, #15 true; #7, #17 false), dropout>;
     the full-H, rel and ingredients register forwards' <n8 tiles of Dh,
@@ -417,7 +432,8 @@ def tc_ptxas_lines(log):
     of Dh, dropout>, the rel backward's <n8 tiles of Dh>, #12's <n8 tiles
     of Dh, dropout, threads, blocks an SM>, #21's <n8 tiles of Dh,
     dropout, blocks an SM>, #22's <n8 tiles of Dh, blocks an SM>, #18's
-    <n8 tiles of Dh, dropout, save, emit>."""
+    <n8 tiles of Dh, dropout, save, emit>, #19's pass <batch rows, n8 key
+    tiles, n8 tiles of Dh, recompute>."""
     import re
 
     lines, name, spills, source = [], None, "", ""
@@ -431,8 +447,14 @@ def tc_ptxas_lines(log):
                       r"attn_full_tc_(?:fwd_reg|fwd_smem|bwd_saved|"
                       r"bwd_recompute)|attn_fwd_rel(?:ik)?_tc_(?:reg|smem)|"
                       r"attn_bwd_rel(?:_saved)?_tc|attn_bwd_relik(?:_saved)?_tc|"
-                      r"attn_fwd_qkvproj_tc_reg)"
+                      r"attn_fwd_qkvproj_tc_reg|attn_bwd_qkvproj_heads_tc)"
                       r"_kernel)I((?:L[ib]\d+E)+)E", line)
+        plain = re.search(r"Compiling entry function '\S*?("
+                          r"attn_bwd_qkvproj_dx_tc_kernel|mag_fwd_tc_kernel)E",
+                          line)
+        if plain:
+            name = plain.group(1)
+            continue
         if m:
             args = ", ".join(
                 v if k == "i" else ("true" if v == "1" else "false")
@@ -554,19 +576,25 @@ def attn_bound(kind, b, s, h, dh, itemsize, rate=0.0, save=False):
 
 def mag_bound(kind, n, d, dv, da, itemsize):
     """The bound of #25 (``fwd``) or #26 at N rows: the six products are
-    2·N·D·(2D + 2Dv + 2Da) fp32 operations (the TPU kernel's dots run at
-    Precision.HIGHEST, so the fp32 rate outside the tensor cores); the
-    bytes are the activations read once, the fp32 weights once, and the
-    outputs written once (y in the text dtype; six [N, D] fp32 for #26,
-    which also reads dy)."""
+    2·N·D·(2D + 2Dv + 2Da) operations at fp32 precision (the TPU kernel's
+    dots run at Precision.HIGHEST). With fp32 activations, at the fp32 rate
+    outside the tensor cores; with bf16 activations the least time for the
+    same precision is three bf16 passes on the tensor cores (the
+    activations exact, each fp32 weight three bf16 planes: bf16 #25's
+    plan), 3× the operations at the bf16 rate. The bytes are the
+    activations read once, the fp32 weights once, and the outputs written
+    once (y in the text dtype; six [N, D] fp32 for #26, which also reads
+    dy)."""
     weights = 4 * (2 * d * d + 2 * (dv + da) * d + 6 * d)
     acts = n * (d + dv + da) * itemsize
     if kind == "fwd":
         n_bytes = acts + weights + n * d * itemsize
     else:
         n_bytes = acts + n * d * itemsize + weights + 6 * n * d * 4
-    return _bound(n_bytes, 2 * n * d * (2 * d + 2 * dv + 2 * da),
-                  FP32_FLOPS)
+    ops = 2 * n * d * (2 * d + 2 * dv + 2 * da)
+    if itemsize == 2:
+        return _bound(n_bytes, 3 * ops, BF16_FLOPS)
+    return _bound(n_bytes, ops, FP32_FLOPS)
 
 
 def check_kernel(rng, fa, dtype_name, b, s, h=12, dh=64):
@@ -1407,13 +1435,16 @@ def check_mag_case(mf, params, acts, dtype_name, beta, tag):
 def check_mag_kernels(rng, mf):
     """Phase 3c, the agreement. Returns the max errors over the cases."""
     errs = {"fwd": 0.0, "bwd": 0.0, "ties": 0}
-    cases = [(dt, BENCH_BATCH, S_SERVE, 47, 74, beta)
+    cases = [(dt, BENCH_BATCH, S_SERVE, 768, 47, 74, beta)
              for dt in ("bf16", "fp32") for beta in (1e-3, 1.0, 1e6)]
-    cases += [("bf16", 3, 33, 47, 74, 1.0), ("bf16", 48, S_SERVE, 35, 74,
-                                             1.0)]
-    for dtype_name, b, s, dv, da, beta in cases:
-        params, acts = mag_case(rng, dtype_name, b, s, 768, dv, da)
-        tag = (f"{dtype_name} B={b} S={s} N={b * s} D=768 Dv={dv} Da={da} "
+    cases += [("bf16", 3, 33, 768, 47, 74, 1.0),
+              ("bf16", 48, S_SERVE, 768, 35, 74, 1.0)]
+    # bf16 #25's tensor-core plan at its edges (MAG_TC_EDGES)
+    cases += [("bf16", b, s, d, dv, 74, beta)
+              for b, s, d, dv in MAG_TC_EDGES for beta in (1e-3, 1.0, 1e6)]
+    for dtype_name, b, s, d, dv, da, beta in cases:
+        params, acts = mag_case(rng, dtype_name, b, s, d, dv, da)
+        tag = (f"{dtype_name} B={b} S={s} N={b * s} D={d} Dv={dv} Da={da} "
                f"beta={beta:g}")
         fwd, bwd, ties = check_mag_case(mf, params, acts, dtype_name, beta,
                                         tag)
@@ -1718,7 +1749,7 @@ def gate_check(args, rng, fa, card):
         gate_prof = device_time_by_kernel(gate_step, 3)
         step_prof = device_time_by_kernel(lambda: step(st, batches[1]), 3)
         mag_ms = sum(ms for k, _, ms in step_prof["kernels"]
-                     if "mag_fwd_kernel" in k or "mag_bwd_kernel" in k)
+                     if any(n in k for n in MAG_KERNELS))
         print(f"  {name} gate, bf16 B={TRAIN_BATCH} S={S_SERVE} on {card}: "
               f"gate forward+backward alone {gate_prof['device_ms'] / 3:.3f}"
               f" ms of device time; dropout-0 train step "
@@ -5138,6 +5169,13 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     got = {name: run() for name, run in runs.items()}
     if not all(torch.equal(a, b_) for a, b_ in zip(*got.values())):
         raise AssertionError(f"#19 from x and from #18's qkv differ ({tag})")
+    # bf16 #19 runs #3's compute half on #3's tiles: #3's dqkv, bit for bit
+    as_three = dtype_name == "fp32" or torch.equal(
+        got["#19 from qkv"][0],
+        fa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw))
+    if not as_three:
+        raise AssertionError(f"bf16 #19's dqkv differs from #3's on the "
+                             f"same inputs ({tag})")
     plain = fa.attn_bwd_qkvproj_reference(p, pd, qkv, w, b3, g,
                                           recompute=False, **kw)
     errs["#19 vs plain"] = _qkvproj_grad_errs(
@@ -5167,7 +5205,9 @@ def check_qkvproj_kernels(rng, fa, dtype_name, b, s, h, rate):
     twice += [(name, got[name], run) for name, run in runs.items()]
     differ = [name for name, first, again in twice
               if not all(torch.equal(a, b_) for a, b_ in zip(first, again()))]
-    print(f"#19 {tag} (dqkv, dx): from x = from #18's qkv bit for bit; "
+    print(f"#19 {tag} (dqkv, dx): from x = from #18's qkv bit for bit"
+          + ("; dqkv = #3's on the same inputs bit for bit"
+             if dtype_name == "bf16" else "") + "; "
           + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items()
                       if k_ != "#18")
           + f"; same seed twice, identical bits {not differ}")
@@ -5251,12 +5291,15 @@ def qkvproj_bound(kind, b, s, h, dh, itemsize, rate=0.0, save=False,
     (and p, pd with ``save``): 2·B·S·D·3D projection operations plus QKᵀ
     and PV; #19 reads p, pd, its source (x, or the saved qkv), W and g and
     writes dqkv and dx: the re-projection (with ``recompute``), dV, d(pd),
-    dQ, dK and the dx product. Products on the bf16 tensor cores."""
+    dQ, dK and the dx product; #19's dx launch alone (``dx``) reads dqkv
+    and W and writes dx. Products on the bf16 tensor cores."""
     d = h * dh
     x, w = b * s * d * itemsize, (3 * d * d + 3 * d) * itemsize
     proj = 2 * b * s * d * 3 * d
     dot = 2 * b * h * s * s * dh
     probs = b * h * s * s * itemsize * (2 if rate > 0 else 1)
+    if kind == "dx":
+        return _bound(3 * x + 3 * d * d * itemsize + x, proj, BF16_FLOPS)
     if kind == "fwd":
         n_bytes = x + w + b * s * 4 + x + (probs if save else 0)
         return _bound(n_bytes, proj + 2 * dot, BF16_FLOPS)
@@ -5273,7 +5316,9 @@ def time_qkvproj_kernels(fa, case, card):
     SDPA, and its autograd backward to x): #18 at the serving shape (B=128,
     rate 0, nothing saved) and at the training shape (B=256, rate 0.1,
     saved probs); #19 at B=256 re-projecting and from the saved qkv at rate
-    0.1, and re-projecting at rate 0. Returns {name: entry}."""
+    0.1, and re-projecting at rate 0; #19's dx launch alone beside
+    ``torch.matmul(dqkv, w_rows)`` (context only: the library row for that
+    product). Returns {name: entry}."""
     import torch
     import torch.nn.functional as F
 
@@ -5310,7 +5355,21 @@ def time_qkvproj_kernels(fa, case, card):
                         kw["scale"])[1]
         return lambda: torch.autograd.grad(out, xs, g, retain_graph=True)
 
+    dqkv = fa.attn_bwd_qkvproj_cuda(p, pd, qkv, w, b3, g, recompute=False,
+                                    **kw)[0]
+    w_dx = w_rows.contiguous()
+    dx = torch.empty_like(x)
+
+    def dx_kernel():
+        fa._launch("attn_bwd_qkvproj_dx", dqkv.data_ptr(), w_dx.data_ptr(),
+                   dx.data_ptr(), b * s, d, 1, device=x.device)
+
     modes = {
+        ("attn_bwd_qkvproj", "dx launch alone", b): (
+            dx_kernel,
+            lambda: torch.matmul(dqkv.float(), w_dx.float()).to(dqkv.dtype),
+            None, qkvproj_bound("dx", b, s, h, 64, 2),
+            lambda: torch.matmul(dqkv, w_dx)),
         ("attn_fwd_qkvproj", "serving rate 0", BATCH): (
             lambda: fa.attn_fwd_qkvproj_cuda(xb, w, b3, mb, **kw),
             lambda: fa.attn_fwd_qkvproj_reference(xb, w, b3, mb, **kw),
@@ -5349,16 +5408,25 @@ def time_qkvproj_kernels(fa, case, card):
     out = {}
     for (name, mode, bb), (run_k, run_p, run_s, bound, lib) in modes.items():
         kt, pt = _alternate(run_p, run_k, 20)
-        _time_ms(run_s, 3)
-        split_ms = float(np.mean([_time_ms(run_s, 20) for _ in range(2)]))
+        split_ms = None
+        if run_s is not None:
+            _time_ms(run_s, 3)
+            split_ms = float(np.mean([_time_ms(run_s, 20)
+                                      for _ in range(2)]))
         # No one PyTorch call computes the projection and the attention
         # together (library_ms null); split_ms is the structure #18/#19
-        # replace, linear_sdpa_ms the two library calls at rate 0.
+        # replace, linear_sdpa_ms the two library calls at rate 0; the dx
+        # launch's matmul_ms is cuBLAS's product of the same operands.
         entry = {"ms": float(np.mean(kt)), "plain_ms": float(np.mean(pt)),
                  "bound_ms": bound[0], "bound_by": bound[1],
                  "library_ms": None, "split_ms": split_ms}
         note = ""
-        if lib is not None:
+        if run_s is None:
+            _time_ms(lib, 3)
+            entry["matmul_ms"] = float(np.mean(
+                [_time_ms(lib, 20) for _ in range(2)]))
+            note = f", torch.matmul(dqkv, w_rows) {entry['matmul_ms']:.4f} ms"
+        elif lib is not None:
             _time_ms(lib, 3)
             entry["linear_sdpa_ms"] = float(np.mean(
                 [_time_ms(lib, 20) for _ in range(2)]))
@@ -5366,9 +5434,10 @@ def time_qkvproj_kernels(fa, case, card):
                     else "F.linear + SDPA autograd backward to x")
             note = f", {what} {entry['linear_sdpa_ms']:.4f} ms"
         label = f"{mode}, bf16 B={bb} S={s} H={h} Dh=64"
+        split = ("" if split_ms is None
+                 else f", split structure {split_ms:.4f} ms")
         print(f"{name} {label} on {card}: kernel {kt} ms, plain {pt} ms per "
-              f"call, split structure {split_ms:.4f} ms{note}; bound "
-              f"{bound[0]:.4f} ms ({bound[1]})")
+              f"call{split}{note}; bound {bound[0]:.4f} ms ({bound[1]})")
         if mode in ("serving rate 0", "training rate 0.1, re-projecting"):
             out[name] = dict(entry, shape=label, modes=dict(
                 out.get(name, {}).get("modes", {})))

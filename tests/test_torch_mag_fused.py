@@ -20,6 +20,8 @@ rounding, 2^-7 relative plus 1e-5 absolute; the chain's fp32 outputs 2e-4.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -217,6 +219,150 @@ def test_shared_memory_plan():
     assert tmf.smem_bytes(768, 47, 74) == 4 * 16 * (2 * 768 + 48 + 80)
     # two blocks share an SM's 228 KB at bert-base width
     assert 2 * tmf.smem_bytes(768, 47, 74) <= 228 * 1024 - 2048
+
+
+# --- bf16 #25's tensor-core plan, emulated ----------------------------------
+
+TC_HEADER = (Path(tmf.__file__).resolve().parents[1] / "csrc" / "mag_tc.cuh")
+
+
+def _planes(w):
+    """The kernel's split of fp32 weights into three bf16 planes (as fp32
+    values): each the bf16 rounding of what the planes before it left."""
+    out, r = [], w.float()
+    for _ in range(3):
+        p = r.to(torch.bfloat16).float()
+        out.append(p)
+        r = r - p
+    return out
+
+
+def _tc_products(x, w, acc=None):
+    """acc + x·w as the plan sums it: bf16 activations x [N, K] against the
+    three planes of w [K, D], one 16-deep step and plane at a time, each
+    step's products exact (a bf16 product is exact in fp32) and added to
+    the fp32 accumulator."""
+    if acc is None:
+        acc = torch.zeros(x.shape[0], w.shape[1])
+    xd = x.double()
+    planes = [p.double() for p in _planes(w)]
+    for k0 in range(0, x.shape[1], 16):
+        for p in planes:
+            acc = acc + (xd[:, k0:k0 + 16] @ p[k0:k0 + 16]).float()
+    return acc
+
+
+def _tc_gate(params, t, v, a, beta):
+    """bf16 #25's plan in plain torch on bf16 rows: the six products on the
+    split weights in the kernel's segment order, H_m rounding for rounding
+    as ``displacement``, then the two-pass row sums per 128-column block
+    added in block order (the cluster's), the LayerNorm; y in bf16."""
+    w = {k: params[k].float() for k in tmf.PARAM_NAMES}
+    pv = _tc_products(v, w["w_hv_v"], _tc_products(t, w["w_hv_t"]))
+    dv_ = _tc_products(v, w["w_v"])
+    pa = _tc_products(a, w["w_ha_a"], _tc_products(t, w["w_ha_t"]))
+    da_ = _tc_products(a, w["w_a"])
+    h_m = (torch.relu(pv + w["b_hv"]) * (dv_ + w["b_v"])
+           + torch.relu(pa + w["b_ha"]) * (da_ + w["b_a"]))
+    tf = t.float()
+    d = tf.shape[1]
+
+    def row_sum(x):
+        blocks = [x[:, c:c + tmf.TC_COLS].sum(dim=1)
+                  for c in range(0, d, tmf.TC_COLS)]
+        total = torch.zeros_like(blocks[0])
+        for b in blocks:
+            total = total + b
+        return total[:, None]
+
+    em, hn = torch.sqrt(row_sum(tf * tf)), torch.sqrt(row_sum(h_m * h_m))
+    hn1 = torch.where(hn == 0.0, 1.0, hn)
+    alpha = torch.clamp(em / (hn1 + 1e-6) * beta, max=1.0)
+    f = alpha * h_m + tf
+    mu = row_sum(f) / d
+    c = f - mu
+    inv = torch.rsqrt(row_sum(c * c) / d + tmf.LN_EPS)
+    return (c * inv * w["ln_gamma"] + w["ln_beta"]).to(torch.bfloat16)
+
+
+def _tc_case(n, d, dv, da, seed):
+    rng = np.random.RandomState(seed)
+    params = {k: torch.from_numpy(x)
+              for k, x in _card_params(d, dv, da, rng).items()}
+    t, v, a = (torch.from_numpy(rng.randn(n, w).astype(np.float32)).to(
+        torch.bfloat16) for w in (d, dv, da))
+    return params, t, v, a
+
+
+def test_bf16_values_are_exact_in_the_split_format():
+    """Every finite bf16 value read as fp32 is its own first plane and
+    leaves nothing to the other two: the activations need no split."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).float()
+    x = x[torch.isfinite(x)]
+    p1, p2, p3 = _planes(x)
+    assert torch.equal(p1, x)
+    assert not bool(p2.any()) and not bool(p3.any())
+
+
+def test_three_plane_split_reconstructs_fp32():
+    """Three bf16 planes hold random fp32 weights, from 1e-30 to 1e30 in
+    magnitude, to 2^-24 of themselves."""
+    rng = np.random.RandomState(3)
+    w = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.uniform(
+        -30, 30, 4096)).astype(np.float32))
+    got = sum(p.double() for p in _planes(w))
+    gap = (got - w.double()).abs()
+    assert bool((gap <= 2.0 ** -24 * w.double().abs()).all())
+    # and two planes alone would not do
+    two = sum(p.double() for p in _planes(w)[:2])
+    assert bool(((two - w.double()).abs()
+                 > 2.0 ** -24 * w.double().abs()).any())
+
+
+@pytest.mark.parametrize("beta", BETAS)
+def test_split_gate_matches_plain_gate(beta):
+    """bf16 #25's plan (bf16 activations against the three planes, summed
+    in fp32 by 16-deep step, the row sums by 128-column block) gives the
+    plain ``mag_gate`` within phase 3c's bf16 bound (2^-7 relative plus
+    1e-5), over two row blocks with a tail, three cluster blocks with a
+    partial one, the MOSI widths off the k step, and a row whose H_m is 0
+    (its visual and acoustic rows zero, b_v = b_a = 0)."""
+    params, t, v, a = _tc_case(70, 300, 47, 35, seed=11)
+    params["b_v"].zero_()
+    params["b_a"].zero_()
+    v[5] = 0.0
+    a[5] = 0.0
+    got = _tc_gate(params, t, v, a, beta)
+    want = mag_gate(params, t, v, a, beta_shift=beta)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 1e-5 + 2 ** -7 * want.float().abs()).all())
+    r = tmf._recompute(tmf._weights(params), t.float(), v.float(),
+                       a.float(), beta)
+    assert float(r["h_m"][5].abs().max()) == 0.0
+    assert float(r["h_m"].abs().max()) > 0.1
+
+
+def _tc_header_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         TC_HEADER.read_text()).group(1))
+
+
+def test_tensor_core_plan_fits_and_is_the_headers():
+    """bf16 #25's shared memory (``tc_smem_bytes``) is the header's
+    formula, independent of the widths (so it fits 227 KB at D = 768 and
+    1024 alike), with room for two blocks an SM; its cluster is D / 128
+    blocks, 6 at D = 768 and 8, the portable limit, at MAX_D = 1024."""
+    names = ("kRows", "kCols", "kSlice", "kStages")
+    rows, cols, slice_, stages = map(_tc_header_constant, names)
+    assert (rows, cols, slice_, stages) == (tmf.TC_ROWS, tmf.TC_COLS,
+                                            tmf.TC_SLICE, tmf.TC_STAGES)
+    stage = rows * (slice_ + 8) * 2 + slice_ * (cols + 4) * 4
+    assert tmf.tc_smem_bytes() == (stages * stage + rows * (cols + 4) * 4
+                                   + 3 * rows * 2 * 4)
+    assert 2 * tmf.tc_smem_bytes() <= 228 * 1024 - 2 * 1024
+    assert -(-768 // cols) == 6 and -(-tmf.MAX_D // cols) == 8
 
 
 # --- the model and the trainer with the fused gate --------------------------
@@ -494,3 +640,36 @@ def test_autograd_launches_both_kernels(cuda_device):
             tmf.mag_bwd_cuda.launches - before[1]) == (1, 1)
     assert t.grad.dtype == torch.bfloat16 and v.grad is None
     assert all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d,dv,da", [
+    ((1, 1), 768, 47, 74),       # one row: one row block, mostly empty
+    ((1, 15), 768, 47, 74),
+    ((9, 11), 768, 35, 74),      # N = 99 off the 64-row block, MOSEI
+    ((48, 50), 768, 47, 74),     # N = 2400, the driver's training batch
+    ((2, 50), 1024, 47, 74),     # bert-large: a cluster of 8
+    ((3, 33), 1024, 35, 74),
+    ((2, 7), 100, 47, 74),       # D off the 8-wide copies, one block
+])
+@pytest.mark.parametrize("beta", BETAS)
+def test_bf16_tensor_core_gate_on_card(cuda_device, shape, d, dv, da,
+                                       beta):
+    """bf16 #25 on the tensor cores (three weight planes, a cluster a row
+    block) against the plain gate within one bf16 rounding (2^-7
+    relative plus 1e-5), with a row whose H_m is 0; the same bits
+    twice."""
+    params, (t, v, a, _) = _card_case(cuda_device, torch.bfloat16, shape, d,
+                                      dv, da, seed=sum(shape) + d)
+    params["b_v"].zero_()
+    params["b_a"].zero_()
+    v.view(-1, dv)[0] = 0.0
+    a.view(-1, da)[0] = 0.0
+    got = tmf.mag_fwd_cuda(params, t, v, a, beta_shift=beta)
+    again = tmf.mag_fwd_cuda(params, t, v, a, beta_shift=beta)
+    want = mag_gate(params, t, v, a, beta_shift=beta)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 1e-5 + 2 ** -7 * want.float().abs()).all())
+    assert bool(torch.isfinite(got.float()).all())

@@ -48,6 +48,7 @@ from bert_multimodal_transformer_tpu_torch.models.bert import (
 )
 from bert_multimodal_transformer_tpu_torch.ops import fused_attention as tfa
 from bert_multimodal_transformer_tpu_torch.ops.kernels import MAX_SMEM_BYTES
+from test_torch_full_tc import _bwd_plan as _saved_bwd_plan
 from test_torch_full_tc import _fwd_plan as _reg_fwd_plan
 from test_torch_full_tc import _mma_abt
 
@@ -386,6 +387,75 @@ def test_plan_to_s64_is_ones_plan_on_its_qkv(s, dh, rate):
                                    atol=BF16_ATOL, rtol=BF16_RTOL)
 
 
+# --- bf16 #19's plan, emulated ------------------------------------------
+
+
+def _bwd19_plan(p, pd, src, w, b3, g, scale, recompute):
+    """bf16 #19's (head, batch row) pass in plain torch: #3's tiles filled
+    by the projection's plan (``recompute``) or from the saved qkv, then #3's
+    compute half (tests/test_torch_full_tc.py's ``_bwd_plan``: bf16
+    operands, 16-deep steps summed in fp32, the quad's lane order)."""
+    qkv = _proj_plan(src, w, b3) if recompute else src
+    return _saved_bwd_plan(p, pd, qkv, g, scale)
+
+
+def _dx_plan(dqkv, w):
+    """bf16 #19's dx tile plan in plain torch: dqkv [B, S, 3D] · Wᵀ over
+    16-deep mma steps summed in fp32 (the 32-deep ring slices and 128 ×
+    128 block tiles change no sum), rounded once to bf16."""
+    return _mma_abt(dqkv, w).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s,dh", [(50, 16), (33, 40), (65, 16)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bwd_plan_is_threes_plan_on_its_tiles(s, dh, rate):
+    """bf16 #19's compute half is #3's: from x it gives #3's emulated dqkv
+    on #18's emitted qkv bit for bit, as it does from that qkv, and both
+    lie within ``dqkv_bf16_bound`` of the plain #19."""
+    (x, w, b3), mask = _bf16_case(s, dh, seed=3 * s + dh)
+    g = torch.from_numpy(np.random.RandomState(s).randn(
+        2, s, PLAN_H * dh).astype(np.float32)).to(torch.bfloat16)
+    scale, seed = 1.0 / dh ** 0.5, 2 ** 59 + 1
+    qkv = _proj_plan(x, w, b3)
+    _, p, pd = tfa.attn_fwd_packed_reference(
+        qkv, mask, n_heads=PLAN_H, scale=scale, rate=rate, seed=seed,
+        save=True)
+    from_x = _bwd19_plan(p, pd, x, w, b3, g, scale, True)
+    from_qkv = _bwd19_plan(p, pd, qkv, w, b3, g, scale, False)
+    assert torch.equal(from_x, from_qkv)
+    assert torch.equal(from_qkv, _saved_bwd_plan(p, pd, qkv, g, scale))
+    want, _ = tfa.attn_bwd_qkvproj_reference(
+        p, pd, qkv, w, b3, g, n_heads=PLAN_H, scale=scale, recompute=False)
+    bound = tfa.dqkv_bf16_bound(want, p, pd, qkv, g, n_heads=PLAN_H,
+                                scale=scale)
+    assert bool(((from_x.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("b,s,dh", [(2, 50, 16), (3, 33, 40)])
+def test_dx_tile_plan_matches_the_plain_dx(b, s, dh):
+    """bf16 #19's dx plan on the emulated dqkv lies within
+    ``qkvproj_dx_bf16_bound`` of the plain #19's dx (its dqkv's bound
+    carried through |W|), with M = B·S off the 128-row tile."""
+    x, w, b3, mask, g = _inputs(b, s, PLAN_H * dh, seed=b + s)
+    x, w, b3, g = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in (x, w, b3, g))
+    mask = torch.from_numpy(mask).float()
+    scale = 1.0 / dh ** 0.5
+    qkv = _proj_plan(x, w, b3)
+    _, p, pd = tfa.attn_fwd_packed_reference(
+        qkv, mask, n_heads=PLAN_H, scale=scale, rate=0.1, seed=5, save=True)
+    dqkv = _bwd19_plan(p, pd, qkv, w, b3, g, scale, False)
+    want_dqkv, want_dx = tfa.attn_bwd_qkvproj_reference(
+        p, pd, qkv, w, b3, g, n_heads=PLAN_H, scale=scale, recompute=False)
+    bound = tfa.dqkv_bf16_bound(want_dqkv, p, pd, qkv, g, n_heads=PLAN_H,
+                                scale=scale)
+    got = _dx_plan(dqkv, w)
+    assert (b * s) % 128 != 0
+    assert bool(((got.float() - want_dx.float()).abs()
+                 <= tfa.qkvproj_dx_bf16_bound(want_dx, bound, w)).all())
+    assert float(want_dx.float().abs().max()) > 0.1
+
+
 def _header_constant(name):
     from pathlib import Path
     import re
@@ -424,6 +494,19 @@ def test_qkvproj_reach_is_unchanged_and_fits():
                     MAX_SMEM_BYTES)
     assert tfa.qkvproj_tc_stage_bytes(64) == 40960
     assert tfa.qkvproj_fwd_smem_bytes(50, 64, 2) == 147968
+    # bf16 #19's tensor-core plan: two batch rows a block to S = 64, #3's
+    # plan from the saved qkv, fitting wherever the reach goes
+    assert _header_constant("kBwdProjRows") == tfa.QKVPROJ_TC_BWD_ROWS
+    assert tfa.qkvproj_bwd_smem_bytes(50, 64, 2, True) == (
+        2 * 4 * 64 * 72 * 2 + tfa.qkvproj_tc_stage_bytes(64, 2, 64))
+    assert tfa.qkvproj_bwd_smem_bytes(122, 64, 2, True) == (
+        4 * 128 * 72 * 2 + 2 * 128 * 136 * 2)
+    for dh in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        for s in range(1, 200):
+            assert tfa.qkvproj_bwd_smem_bytes(s, dh, 2, False) == (
+                tfa.full_tc_bwd_smem_bytes(s, dh))
+            if tfa.qkvproj_fits(s, dh, 2, True):
+                assert tfa._rows16(s) // 8 <= (22 if dh <= 64 else 18)
 
 
 # --- on the card --------------------------------------------------------
@@ -561,3 +644,37 @@ def test_qkvproj_forward_reach_on_card(cuda_device):
     (x, w, b3, g), mask = _card(cuda_device, "bfloat16", 1, 469, 2, 64, 17)
     with pytest.raises(ValueError, match="qkvproj_fits"):
         tfa.attn_fwd_qkvproj_cuda(x, w, b3, mask, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dh", [
+    (8, 50, 12, 64),     # bert-base; M = 400, off dx's 128-row tile
+    (3, 64, 12, 64),     # two batch rows a block: its last S, a lone row
+    (3, 65, 12, 64),     # one batch row a block: its first S
+    (2, 122, 12, 64),    # the backward's reach in bf16
+    (5, 50, 16, 64),     # bert-large width
+    (3, 64, 4, 128),     # the widest head, two rows a block
+    (2, 91, 4, 128),     # the widest head's reach
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_dqkv_is_threes_on_card(cuda_device, b, s, h, dh, rate):
+    """bf16 #19 runs #3's compute half: its dqkv from the saved qkv is
+    #3's on the same (p, pd, qkv, g) bit for bit, and from x the same
+    again; dx is held within ``qkvproj_dx_bf16_bound`` of the plain dx on
+    the same dqkv."""
+    (x, w, b3, g), mask = _card(cuda_device, "bfloat16", b, s, h, dh, 21)
+    kw = dict(n_heads=h, scale=1.0 / dh ** 0.5)
+    _, qkv, p, pd = tfa.attn_fwd_qkvproj_cuda(
+        x, w, b3, mask, rate=rate, seed=9, save=True, emit_qkv=True, **kw)
+    dqkv, dx = tfa.attn_bwd_qkvproj_cuda(p, pd, qkv, w, b3, g,
+                                         recompute=False, **kw)
+    three = tfa.attn_bwd_packed_saved_cuda(p, pd, qkv, g, **kw)
+    from_x = tfa.attn_bwd_qkvproj_cuda(p, pd, x, w, b3, g, recompute=True,
+                                       **kw)
+    want_dx = torch.matmul(dqkv.float(), w.float().t())
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, three)
+    assert torch.equal(from_x[0], dqkv) and torch.equal(from_x[1], dx)
+    bound = tfa.qkvproj_dx_bf16_bound(
+        want_dx, torch.zeros_like(dqkv, dtype=torch.float32), w)
+    assert bool(((dx.float() - want_dx).abs() <= bound).all())
