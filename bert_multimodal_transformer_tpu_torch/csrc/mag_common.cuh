@@ -1,9 +1,9 @@
-// The CUDA-core plan of the fused MAG-gate kernels: the backward #26
-// (mag_bwd.cu) in both dtypes and the forward #25 (mag_fwd.cu) in fp32 —
-// the block's shared-memory plan, the recomputed products of one column
-// chunk — and what the bf16 forward's tensor-core plan (mag_tc.cuh) shares
-// with them: the gate's parameters, its constants, warp sums and the row
-// functions `row_norms` and `row_moments`.
+// The CUDA-core plan of the fused MAG-gate kernels in fp32: the forward
+// #25 (mag_fwd.cu) and the backward #26 (mag_bwd.cu) — the block's
+// shared-memory plan, the recomputed products of one column chunk — and
+// what the bf16 tensor-core plans of both (mag_tc.cuh) share with them: the
+// gate's parameters, its constants, warp sums and the row functions
+// `norms_of`, `row_norms`, `row_moments` and `clamp_backward`.
 //
 // The gate, per row of the flattened [N, D] text stream (ops/mag.py):
 //   pv  = v·W_hv_v + t·W_hv_t + b_hv        gate_v = ReLU(pv)
@@ -228,6 +228,17 @@ struct RowNorms {
   float alpha;   // min(thresh, 1)
 };
 
+// The norms of a row from its totals ‖t‖² (tt) and ‖H_m‖² (hh).
+__device__ __forceinline__ RowNorms norms_of(float tt, float hh, float beta) {
+  RowNorms n;
+  n.em = sqrtf(tt);
+  n.hn = sqrtf(hh);
+  n.hn1 = n.hn == 0.0f ? 1.0f : n.hn;
+  n.thresh = __fmul_rn(n.em / (n.hn1 + kEps), beta);
+  n.alpha = fminf(n.thresh, 1.0f);
+  return n;
+}
+
 // One warp: the norms of row tr (text) and hr (H_m), each of length D.
 __device__ inline RowNorms row_norms(const float* tr, const float* hr, int D,
                                      float beta) {
@@ -237,13 +248,35 @@ __device__ inline RowNorms row_norms(const float* tr, const float* hr, int D,
     tt = fmaf(tr[k], tr[k], tt);
     hh = fmaf(hr[k], hr[k], hh);
   }
-  RowNorms n;
-  n.em = sqrtf(warp_sum(tt));
-  n.hn = sqrtf(warp_sum(hh));
-  n.hn1 = n.hn == 0.0f ? 1.0f : n.hn;
-  n.thresh = __fmul_rn(n.em / (n.hn1 + kEps), beta);
-  n.alpha = fminf(n.thresh, 1.0f);
-  return n;
+  return norms_of(warp_sum(tt), warp_sum(hh), beta);
+}
+
+// The α / norm-clamp backward of a row from dalpha = Σ df · H_m, with the
+// TPU kernel's edges (mag_pallas.py:241-254): min's VJP is 1 below the
+// tie, 0.5 at thresh == 1 and 0 above; ‖H_m‖ = 0 passes no gradient to the
+// norm (`live`), ‖t‖ = 0 none to t. The row's gradients are then dt = df +
+// t_coef · t and dH_m = α · df + h_coef · H_m.
+struct ClampGrad {
+  float t_coef, h_coef;
+};
+
+__device__ __forceinline__ ClampGrad clamp_backward(const RowNorms& n,
+                                                    float dalpha,
+                                                    float beta) {
+  const float dmin = n.thresh < 1.0f ? 1.0f
+                     : n.thresh == 1.0f ? 0.5f
+                                        : 0.0f;
+  const float dthresh = dalpha * dmin;
+  const float den = n.hn1 + kEps;
+  const float dem = dthresh * beta / den;
+  const float dhn1 = -dthresh * beta * n.em / (den * den);
+  const float live = n.hn != 0.0f ? 1.0f : 0.0f;
+  const float dhn = dhn1 * live;
+  const float em_safe = n.em == 0.0f ? 1.0f : n.em;
+  ClampGrad g;
+  g.t_coef = (dem / em_safe) * (n.em == 0.0f ? 0.0f : 1.0f);
+  g.h_coef = (dhn / n.hn1) * live;
+  return g;
 }
 
 // One warp: the mean and 1/sqrt(var + eps) of f[k] = α·hr[k] + tr[k].

@@ -15,8 +15,8 @@
 // ms. The bytes (t, v, a, the output and ~6 MB of weights, about 49 MB at
 // bf16 N = 12800) take 0.015 ms at 3.35 TB/s.
 //
-// What the design does about that. bf16 (`mag_fwd_tc_kernel`,
-// mag_tc.cuh): every product on mma.sync.m16n8k16 with each fp32 weight
+// What the design does about that. bf16 (`mag_fwd_tc_kernel`, below, on
+// mag_tc.cuh's plan): every product on mma.sync.m16n8k16 with each fp32 weight
 // split into three bf16 planes as it arrives, 64 rows × 128 columns a
 // block, the blocks of a row block in a thread block cluster that trades
 // the row sums through distributed shared memory. fp32 (`mag_fwd_kernel`):
@@ -31,6 +31,175 @@
 
 #include "mag_common.cuh"
 #include "mag_tc.cuh"
+
+// ---- bf16 #25 on the tensor cores (mag_tc.cuh's plan) ------------------
+
+namespace mag_tc {
+
+__global__ void __launch_bounds__(kThreads, 2 / kGroups)
+    mag_fwd_tc_kernel(const bf16* __restrict__ t, const bf16* __restrict__ v,
+                      const bf16* __restrict__ a, mag::Params p,
+                      bf16* __restrict__ out, int N, int D, int Dv, int Da,
+                      float beta, int vec) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* hm = reinterpret_cast<float*>(smem_raw + kStages * kStageBytes);
+  float* part = hm + kRows * kHmLd;  // [3][kRows][2]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (int)(blockIdx.x / nc) * kRows;
+  const int col0 = rank * kCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cw = 16 * (warp % 8);
+  const int r0 = 64 * (warp / 8);
+  const int c0 = col0 + cw;
+  const bool live = c0 < D;
+
+  // The products and H_m, in two halves of two accumulator sets each.
+  gate_products<kStages, false>(
+      smem_raw, t, v, a, p, N, D, Dv, Da, vec, row0, col0,
+      [&](const float(&acc0)[kRowTiles][4], const float(&acc1)[kRowTiles][4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + acc_col(e);
+          const float bhv = live && c < D ? __ldg(p.b_hv + c) : 0.0f;
+          const float bv = live && c < D ? __ldg(p.b_v + c) : 0.0f;
+#pragma unroll
+          for (int j = 0; j < kRowTiles; ++j)
+            hm[(r0 + acc_row(j, e)) * kHmLd + cw + acc_col(e)] =
+                c < D ? __fmul_rn(fmaxf(acc0[j][e] + bhv, 0.0f),
+                                  acc1[j][e] + bv)
+                      : 0.0f;
+        }
+      },
+      [&](const float(&acc0)[kRowTiles][4], const float(&acc1)[kRowTiles][4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + acc_col(e);
+          const float bha = live && c < D ? __ldg(p.b_ha + c) : 0.0f;
+          const float ba = live && c < D ? __ldg(p.b_a + c) : 0.0f;
+#pragma unroll
+          for (int j = 0; j < kRowTiles; ++j) {
+            float* h = hm + (r0 + acc_row(j, e)) * kHmLd + cw + acc_col(e);
+            if (c < D)
+              *h = __fadd_rn(*h, __fmul_rn(fmaxf(acc0[j][e] + bha, 0.0f),
+                                           acc1[j][e] + ba));
+          }
+        }
+      });
+  __syncthreads();  // the block's H_m is in
+
+  // Whole rows across the cluster: warp w takes rows 8w .. 8w + 7, lane l
+  // the block's columns l, l + 32, l + 64, l + 96 (those < D).
+  const int cols = min(kCols, D - col0);  // may be ≤ 0 for no block
+  constexpr int kPer = kCols / 32;
+  float tv[8][kPer];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = row0 + 8 * warp + r;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = lane + 32 * u;
+      tv[r][u] = row < N && c < cols
+                     ? __bfloat162float(t[(size_t)row * D + col0 + c])
+                     : 0.0f;
+    }
+  }
+  // ‖t‖², ‖H_m‖²
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int lr = 8 * warp + r;
+    const float* hr = hm + lr * kHmLd;
+    float tt = 0.0f, hh = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = lane + 32 * u;
+      if (c < cols) {
+        tt = fmaf(tv[r][u], tv[r][u], tt);
+        hh = fmaf(hr[c], hr[c], hh);
+      }
+    }
+    tt = mag::warp_sum(tt);
+    hh = mag::warp_sum(hh);
+    if (lane == 0) {
+      part[lr * 2] = tt;
+      part[lr * 2 + 1] = hh;
+    }
+  }
+  cluster.sync();
+  float alpha[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int lr = 8 * warp + r;
+    alpha[r] = mag::norms_of(rank_sum(cluster, part, nc, 0, lr, 0),
+                             rank_sum(cluster, part, nc, 0, lr, 1), beta)
+                   .alpha;
+    const float* hr = hm + lr * kHmLd;
+    float sum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = lane + 32 * u;
+      if (c < cols) sum += fmaf(alpha[r], hr[c], tv[r][u]);
+    }
+    sum = mag::warp_sum(sum);
+    if (lane == 0) part[(kRows + lr) * 2] = sum;
+  }
+  cluster.sync();
+  float mu[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int lr = 8 * warp + r;
+    mu[r] = rank_sum(cluster, part, nc, 1, lr, 0) / (float)D;
+    const float* hr = hm + lr * kHmLd;
+    float sq = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = lane + 32 * u;
+      if (c < cols) {
+        const float f = fmaf(alpha[r], hr[c], tv[r][u]) - mu[r];
+        sq = fmaf(f, f, sq);
+      }
+    }
+    sq = mag::warp_sum(sq);
+    if (lane == 0) part[(2 * kRows + lr) * 2] = sq;
+  }
+  cluster.sync();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int lr = 8 * warp + r, row = row0 + lr;
+    const float inv = rsqrtf(rank_sum(cluster, part, nc, 2, lr, 0) /
+                                 (float)D +
+                             mag::kLnEps);
+    if (row >= N) continue;
+    const float* hr = hm + lr * kHmLd;
+    bf16* yr = out + (size_t)row * D + col0;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = lane + 32 * u;
+      if (c < cols) {
+        const float f = fmaf(alpha[r], hr[c], tv[r][u]) - mu[r];
+        yr[c] = __float2bfloat16(fmaf(f * inv, __ldg(p.ln_g + col0 + c),
+                                      __ldg(p.ln_b + col0 + c)));
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partial sums
+}
+
+// bf16 #25: out [N, D] from t, v and a.
+inline int launch(const void* t, const void* v, const void* a,
+                  const mag::Params& p, void* out, int N, int D, int Dv,
+                  int Da, float beta, cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  return launch_clusters(
+      mag_fwd_tc_kernel, &attr_set, smem_bytes(), N, D, stream,
+      static_cast<const bf16*>(t), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(a), p, static_cast<bf16*>(out), N, D, Dv, Da,
+      beta, gate_vec(t, v, a, p, D, Dv, Da));
+}
+
+}  // namespace mag_tc
 
 namespace {
 

@@ -1,7 +1,9 @@
-// The bf16 plan of the fused MAG gate forward #25 (mag_fwd.cu) on the
-// tensor cores.
+// The bf16 plans of the fused MAG gate forward #25 (`mag_fwd_tc_kernel`,
+// mag_fwd.cu) and backward #26 (`mag_bwd_tc_kernel`, mag_bwd.cu) on the
+// tensor cores, and what the two kernels share: the products
+// (`gate_products`), the cluster's rank-order sums and the launch.
 //
-// What it computes is mag_common.cuh's gate, y = LayerNorm(α · H_m + t),
+// What #25 computes is mag_common.cuh's gate, y = LayerNorm(α · H_m + t),
 // with bf16 activations t [N, D], v [N, Dv], a [N, Da] and fp32 weights
 // (x·W layout). The TPU kernel runs its six dots at Precision.HIGHEST, so
 // a product here must keep fp32 precision. A bf16 activation is exact in
@@ -125,8 +127,13 @@ __device__ __forceinline__ void split3(const float (&w)[8],
 // over the segment's K (the warp's 16 columns × its 64 rows from r0), its
 // slices (activations and weights) taken from the ring in turn.
 // `advance` waits for the next slice and returns its stage (every thread
-// calls it at the same steps).
-template <typename Advance>
+// calls it at the same steps). mma.sync rounds its fp32 sums toward zero,
+// so a running sum over a long depth drifts toward zero, by up to an ulp
+// of the sum each product. With kStepSums each 16-deep step's three planes
+// go into a zeroed partial that is added to acc in a rounded fp32 add: the
+// drift then stays within a step's sum, whose sign varies from step to
+// step. #26's fp32 outputs need that; #25's bf16 output does not.
+template <bool kStepSums, typename Advance>
 __device__ __forceinline__ void segment(float (&acc)[kRowTiles][4], int K,
                                         int r0, int cw, bool live,
                                         Advance&& advance) {
@@ -156,13 +163,31 @@ __device__ __forceinline__ void segment(float (&acc)[kRowTiles][4], int K,
 #pragma unroll
     for (int j = 0; j < kRowTiles / 2; ++j)
       attn::ldsm_x4(fb[j], pb + j * 16 * kLd);
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
+    if constexpr (kStepSums) {
 #pragma unroll
       for (int j = 0; j < kRowTiles / 2; ++j) {
-        attn::mma_bf16(acc[2 * j], a[p], fb[j][0], fb[j][1]);
-        attn::mma_bf16(acc[2 * j + 1], a[p], fb[j][2], fb[j][3]);
+        float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          attn::mma_bf16(s0, a[p], fb[j][0], fb[j][1]);
+          attn::mma_bf16(s1, a[p], fb[j][2], fb[j][3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[2 * j][q] = __fadd_rn(acc[2 * j][q], s0[q]);
+          acc[2 * j + 1][q] = __fadd_rn(acc[2 * j + 1][q], s1[q]);
+        }
       }
+    } else {
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int j = 0; j < kRowTiles / 2; ++j) {
+          attn::mma_bf16(acc[2 * j], a[p], fb[j][0], fb[j][1]);
+          attn::mma_bf16(acc[2 * j + 1], a[p], fb[j][2], fb[j][3]);
+        }
+    }
   }
 }
 
@@ -181,28 +206,30 @@ __device__ __forceinline__ int acc_col(int e) {
   return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
 }
 
-__global__ void __launch_bounds__(kThreads, 2 / kGroups)
-    mag_fwd_tc_kernel(const bf16* __restrict__ t, const bf16* __restrict__ v,
-                      const bf16* __restrict__ a, mag::Params p,
-                      bf16* __restrict__ out, int N, int D, int Dv, int Da,
-                      float beta, int vec) {
-  namespace cg = cooperative_groups;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* hm = reinterpret_cast<float*>(smem_raw + kStages * kStageBytes);
-  float* part = hm + kRows * kHmLd;  // [3][kRows][2]
-  cg::cluster_group cluster = cg::this_cluster();
-  const int nc = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int row0 = (int)(blockIdx.x / nc) * kRows;
-  const int col0 = rank * kCols;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The six products of the block's kRows rows from row0 × kCols columns
+// from col0, in two halves of two accumulator sets, through the NS-stage
+// ring at smem_raw (NS × kStageBytes), with or without step sums
+// (`segment`). The slices in order: t, v, v (pv, pv,
+// dv_), then t, a, a (pa, pa, da_), each segment's depth in kSlice-deep
+// slices. `first(acc0, acc1)` takes pv and dv_, `second(acc0, acc1)` pa
+// and da_, neither with its bias; `second` runs once every cp.async of its
+// thread has landed, while other warps may still read the ring's last
+// slice. Slice i goes into stage i % NS: rows row0 .. row0 + 63 at
+// depth k0 .. k0 + kSlice − 1 of its segment's activations, zeros past N
+// and the width, then its weight's rows k0 .. k0 + kSlice − 1 at the
+// block's columns, zeros past the width and D; by 16-byte cp.async where
+// `vec` says the rows are 16-byte aligned (bits 0-2: t, v, a; bit 3: the
+// weights), else by plain loads.
+template <int NS, bool kStepSums, typename First, typename Second>
+__device__ __forceinline__ void gate_products(
+    unsigned char* smem_raw, const bf16* __restrict__ t,
+    const bf16* __restrict__ v, const bf16* __restrict__ a,
+    const mag::Params& p, int N, int D, int Dv, int Da, int vec, int row0,
+    int col0, First&& first, Second&& second) {
+  const int warp = threadIdx.x >> 5;
   const int cw = 16 * (warp % 8);  // the warp's columns in the block's 128
   const int r0 = 64 * (warp / 8);   // and its first row
-  const int c0 = col0 + cw;
-  const bool live = c0 < D;
-
-  // The slices in order: t, v, v (pv, pv, dv_), then t, a, a (pa, pa,
-  // da_), each segment's depth in kSlice-deep slices.
+  const bool live = col0 + cw < D;
   const int n_t = (D + kSlice - 1) / kSlice;
   const int n_v = (Dv + kSlice - 1) / kSlice;
   const int n_a = (Da + kSlice - 1) / kSlice;
@@ -213,12 +240,6 @@ __global__ void __launch_bounds__(kThreads, 2 / kGroups)
                        2 * n_t + 2 * n_v + n_a,
                        2 * n_t + 2 * n_v + 2 * n_a};
   const int total = ends[5];
-  // Slice i into stage i % kStages: rows row0 .. row0 + 63 at depth k0 ..
-  // k0 + kSlice − 1 of its segment's activations, zeros past N and the
-  // width, then its weight's rows k0 .. k0 + kSlice − 1 at the block's
-  // columns, zeros past the width and D; by 16-byte cp.async where `vec`
-  // says the rows are 16-byte aligned (bits 0-2: t, v, a; bit 3: the
-  // weights), else by plain loads.
   auto load = [&](int i) {
     int seg = 0;
 #pragma unroll
@@ -239,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 2 / kGroups)
                                 : p.w_a;
     const int vec_x = seg == 0 || seg == 3 ? 1 : seg < 3 ? 2 : 4;
     const int k0 = j * kSlice;
-    unsigned char* stage = smem_raw + (i % kStages) * kStageBytes;
+    unsigned char* stage = smem_raw + (i % NS) * kStageBytes;
     bf16* xs = reinterpret_cast<bf16*>(stage);
     float* ws = reinterpret_cast<float*>(stage + kRows * kLd * sizeof(bf16));
     if (vec & vec_x) {
@@ -276,170 +297,118 @@ __global__ void __launch_bounds__(kThreads, 2 / kGroups)
   };
   int next = 0;  // the next slice to consume
   auto advance = [&]() {
-    attn::cp_async_wait<kStages - 2>();  // slice `next`
+    attn::cp_async_wait<NS - 2>();  // slice `next`
     __syncthreads();  // ... for every thread; slice next − 1's readers done
-    if (next + kStages - 1 < total) load(next + kStages - 1);
+    if (next + NS - 1 < total) load(next + NS - 1);
     attn::cp_async_commit();
-    const unsigned char* stage = smem_raw + (next % kStages) * kStageBytes;
+    const unsigned char* stage = smem_raw + (next % NS) * kStageBytes;
     ++next;
     return stage;
   };
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < NS - 1; ++i) {
     if (i < total) load(i);
     attn::cp_async_commit();
   }
 
-  // The products and H_m, in two halves of two accumulator sets each.
   float acc0[kRowTiles][4], acc1[kRowTiles][4];
   zero(acc0);
-  segment(acc0, D, r0, cw, live, advance);
-  segment(acc0, Dv, r0, cw, live, advance);
+  segment<kStepSums>(acc0, D, r0, cw, live, advance);
+  segment<kStepSums>(acc0, Dv, r0, cw, live, advance);
   zero(acc1);
-  segment(acc1, Dv, r0, cw, live, advance);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = c0 + acc_col(e);
-    const float bhv = live && c < D ? __ldg(p.b_hv + c) : 0.0f;
-    const float bv = live && c < D ? __ldg(p.b_v + c) : 0.0f;
-#pragma unroll
-    for (int j = 0; j < kRowTiles; ++j)
-      hm[(r0 + acc_row(j, e)) * kHmLd + cw + acc_col(e)] =
-          c < D ? __fmul_rn(fmaxf(acc0[j][e] + bhv, 0.0f), acc1[j][e] + bv)
-                : 0.0f;
-  }
+  segment<kStepSums>(acc1, Dv, r0, cw, live, advance);
+  first(acc0, acc1);
   zero(acc0);
-  segment(acc0, D, r0, cw, live, advance);
-  segment(acc0, Da, r0, cw, live, advance);
+  segment<kStepSums>(acc0, D, r0, cw, live, advance);
+  segment<kStepSums>(acc0, Da, r0, cw, live, advance);
   zero(acc1);
-  segment(acc1, Da, r0, cw, live, advance);
+  segment<kStepSums>(acc1, Da, r0, cw, live, advance);
   attn::cp_async_wait<0>();
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = c0 + acc_col(e);
-    const float bha = live && c < D ? __ldg(p.b_ha + c) : 0.0f;
-    const float ba = live && c < D ? __ldg(p.b_a + c) : 0.0f;
-#pragma unroll
-    for (int j = 0; j < kRowTiles; ++j) {
-      float* h = hm + (r0 + acc_row(j, e)) * kHmLd + cw + acc_col(e);
-      if (c < D)
-        *h = __fadd_rn(*h, __fmul_rn(fmaxf(acc0[j][e] + bha, 0.0f),
-                                     acc1[j][e] + ba));
-    }
-  }
-  __syncthreads();  // the block's H_m is in
-
-  // Whole rows across the cluster: warp w takes rows 8w .. 8w + 7, lane l
-  // the block's columns l, l + 32, l + 64, l + 96 (those < D).
-  const int cols = min(kCols, D - col0);  // may be ≤ 0 for no block
-  constexpr int kPer = kCols / 32;
-  float tv[8][kPer];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = row0 + 8 * warp + r;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = lane + 32 * u;
-      tv[r][u] = row < N && c < cols
-                     ? __bfloat162float(t[(size_t)row * D + col0 + c])
-                     : 0.0f;
-    }
-  }
-  auto rank_sum = [&](int which, int row, int x) {
-    float s = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q)
-      if (q < nc)
-        s += cluster.map_shared_rank(part, q)[(which * kRows + row) * 2 + x];
-    return s;
-  };
-  // ‖t‖², ‖H_m‖²
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int lr = 8 * warp + r;
-    const float* hr = hm + lr * kHmLd;
-    float tt = 0.0f, hh = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cols) {
-        tt = fmaf(tv[r][u], tv[r][u], tt);
-        hh = fmaf(hr[c], hr[c], hh);
-      }
-    }
-    tt = mag::warp_sum(tt);
-    hh = mag::warp_sum(hh);
-    if (lane == 0) {
-      part[lr * 2] = tt;
-      part[lr * 2 + 1] = hh;
-    }
-  }
-  cluster.sync();
-  float alpha[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int lr = 8 * warp + r;
-    const float em = sqrtf(rank_sum(0, lr, 0));
-    const float hn = sqrtf(rank_sum(0, lr, 1));
-    const float hn1 = hn == 0.0f ? 1.0f : hn;
-    alpha[r] = fminf(__fmul_rn(em / (hn1 + mag::kEps), beta), 1.0f);
-    const float* hr = hm + lr * kHmLd;
-    float sum = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cols) sum += fmaf(alpha[r], hr[c], tv[r][u]);
-    }
-    sum = mag::warp_sum(sum);
-    if (lane == 0) part[(kRows + lr) * 2] = sum;
-  }
-  cluster.sync();
-  float mu[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int lr = 8 * warp + r;
-    mu[r] = rank_sum(1, lr, 0) / (float)D;
-    const float* hr = hm + lr * kHmLd;
-    float sq = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cols) {
-        const float f = fmaf(alpha[r], hr[c], tv[r][u]) - mu[r];
-        sq = fmaf(f, f, sq);
-      }
-    }
-    sq = mag::warp_sum(sq);
-    if (lane == 0) part[(2 * kRows + lr) * 2] = sq;
-  }
-  cluster.sync();
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int lr = 8 * warp + r, row = row0 + lr;
-    const float inv = rsqrtf(rank_sum(2, lr, 0) / (float)D + mag::kLnEps);
-    if (row >= N) continue;
-    const float* hr = hm + lr * kHmLd;
-    bf16* yr = out + (size_t)row * D + col0;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cols) {
-        const float f = fmaf(alpha[r], hr[c], tv[r][u]) - mu[r];
-        yr[c] = __float2bfloat16(fmaf(f * inv, __ldg(p.ln_g + col0 + c),
-                                      __ldg(p.ln_b + col0 + c)));
-      }
-    }
-  }
-  cluster.sync();  // no block leaves while another reads its partial sums
+  second(acc0, acc1);
 }
 
-// The launch: the grid's blocks in clusters of cluster_blocks(D) along x,
-// one cluster a row block. Returns the cudaError_t of the launch.
-inline int launch(const void* t, const void* v, const void* a,
-                  const mag::Params& p, void* out, int N, int D, int Dv,
-                  int Da, float beta, cudaStream_t stream) {
-  static unsigned long long attr_set = 0;
-  const cudaError_t err = mag::prepare(mag_fwd_tc_kernel, &attr_set);
+// Σ over the cluster's nc blocks, in rank order, of their
+// part[(round · kRows + row) · 2 + x].
+__device__ __forceinline__ float rank_sum(
+    cooperative_groups::cluster_group& cluster, float* part, int nc,
+    int round, int row, int x) {
+  float s = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    if (q < nc)
+      s += cluster.map_shared_rank(part, q)[(round * kRows + row) * 2 + x];
+  return s;
+}
+
+// ---- bf16 #26, the backward chain (mag_bwd.cu) ----------------------------
+//
+// The same blocks, clusters and products, then the chain over whole rows.
+// The chain needs ReLU(pv), dv_, ReLU(pa) and da_ of every element after the
+// cluster's totals are known: four [64][kCols] fp32 tiles, 135 KB, too many
+// beside a ring for two blocks an SM, and at one block an SM the clusters of
+// 6, each within one GPC, leave SMs idle (a 16-warp block of that kind ran
+// 1.64 ms at N = 12800 where this plan ran 1.19, both without step sums,
+// chip_ab.py, NVIDIA H100 80GB HBM3 at 700 W). So the first half's two go to
+// shared memory as [kRows][kHmLd] tiles and the second half's stay in their
+// accumulators, and the ring has kBwdStages = 2 stages (H_m is recomputed
+// from the four, rounding for rounding as `displacement`). The products take
+// step sums (`segment`), so that the fp32 outputs do not drift from the
+// plain chain's. Once the products end, the ring's bytes take the block's
+// [kRows][kCols] slices of t and dy (bf16, rows kSliceLd apart), each row's
+// scalars and the warps' partial sums. The chain then runs in the
+// accumulators' layout (a lane: 16 rows × 2 columns of its warp's 16). Five
+// cluster rounds, each a per-row sum: a lane's terms in column order, the
+// row's 8 lanes by the xor tree over lane bits 2-4, the 8 warps in order,
+// the cluster's blocks in rank order: ‖t‖² and ‖H_m‖²; Σ f; Σ (f − μ)²; Σ
+// dxh and Σ dxh · x̂; Σ df · H_m (f = α · H_m + t, dxh = dy · γ, df = inv ·
+// (dxh − m1 − x̂ · m2)). Thread r < kRows turns row r's totals into its
+// scalars (α, μ, inv, m1, m2, the clamp's coefficients), so every block of a
+// cluster holds the same ones. x̂ leaves in round four, the other five
+// outputs after round five, each written once from the block's own elements.
+
+constexpr int kTileBytes = kRows * kHmLd * (int)sizeof(float);
+constexpr int kBwdStages = 2;
+constexpr int kBwdRounds = 5;
+constexpr int kSliceLd = kCols + 8;  // a t or dy slice row, bf16
+constexpr int kScalars = 8;          // a row's scalars
+static_assert(2 * kRows * kSliceLd * (int)sizeof(bf16) +
+                      kRows * kScalars * (int)sizeof(float) +
+                      kThreads / 32 * kRows * 2 * (int)sizeof(float) <=
+                  kBwdStages * kStageBytes,
+              "the chain's buffers fit in the ring's bytes");
+
+// bf16 #26's shared memory (ops/mag_fused.py::tc_bwd_smem_bytes): the
+// ring, the first half's two tiles and kBwdRounds [kRows][2] rows of
+// partial sums: 114176 bytes whatever D, Dv and Da, two blocks an SM.
+__host__ __device__ inline size_t bwd_smem_bytes() {
+  return (size_t)kBwdStages * kStageBytes + 2 * (size_t)kTileBytes +
+         (size_t)kBwdRounds * kRows * 2 * sizeof(float);
+}
+
+// Rows of `width` elements of `elem` bytes from x, each 16-byte aligned.
+inline bool rows16(const void* x, int width, int elem) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (size_t)width * elem % 16 == 0;
+}
+
+// `gate_products`' vec bits for t, v, a and the weights.
+inline int gate_vec(const void* t, const void* v, const void* a,
+                    const mag::Params& p, int D, int Dv, int Da) {
+  const float* ws[6] = {p.w_hv_t, p.w_hv_v, p.w_v, p.w_ha_t, p.w_ha_a, p.w_a};
+  bool vec_w = true;
+  for (const float* w : ws) vec_w = vec_w && rows16(w, D, 4);
+  return (rows16(t, D, 2) ? 1 : 0) | (rows16(v, Dv, 2) ? 2 : 0) |
+         (rows16(a, Da, 2) ? 4 : 0) | (vec_w ? 8 : 0);
+}
+
+// A launch of a gate kernel: the grid's blocks in clusters of
+// cluster_blocks(D) along x, one cluster a row block, `smem` bytes of
+// dynamic shared memory each. Returns the cudaError_t of the launch.
+template <typename... Params, typename... Args>
+inline int launch_clusters(void (*kernel)(Params...),
+                           unsigned long long* attr_set, size_t smem, int N,
+                           int D, cudaStream_t stream, Args... args) {
+  const cudaError_t err = mag::prepare(kernel, attr_set);
   if (err != cudaSuccess) return (int)err;
   const int nc = cluster_blocks(D);
   const long long blocks = (long long)nc * ((N + kRows - 1) / kRows);
@@ -448,7 +417,7 @@ inline int launch(const void* t, const void* v, const void* a,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes();
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -457,20 +426,7 @@ inline int launch(const void* t, const void* v, const void* a,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // 16-byte copies where every row starts 16-byte aligned
-  auto rows16 = [](const void* x, int width, int elem) {
-    return reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-           (size_t)width * elem % 16 == 0;
-  };
-  const float* ws[6] = {p.w_hv_t, p.w_hv_v, p.w_v, p.w_ha_t, p.w_ha_a, p.w_a};
-  bool vec_w = true;
-  for (const float* w : ws) vec_w = vec_w && rows16(w, D, 4);
-  const int vec = (rows16(t, D, 2) ? 1 : 0) | (rows16(v, Dv, 2) ? 2 : 0) |
-                  (rows16(a, Da, 2) ? 4 : 0) | (vec_w ? 8 : 0);
-  const cudaError_t launched = cudaLaunchKernelEx(
-      &cfg, mag_fwd_tc_kernel, static_cast<const bf16*>(t),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(a), p,
-      static_cast<bf16*>(out), N, D, Dv, Da, beta, vec);
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,12 @@ Two kernels, each with its plain PyTorch version beside it:
   ``mag_bwd_chain_plain``: the TPU ``_mag_bwd_kernel``'s chain (recompute,
   LayerNorm backward, α / norm-clamp backward, gate / ReLU backward),
   emitting dpv, dpa, ddv, dda, the text partial and x̂, each [N, D] fp32.
+  In bf16 its recompute is #25's tensor-core products, and the block
+  keeps the four products on chip through five cluster rounds of row sums
+  (ReLU(pv) and dv_ as fp32 tiles in shared memory, ReLU(pa) and da_ in
+  their accumulators, so that two blocks share an SM), writing each
+  output once; in fp32 it runs on the CUDA cores
+  (``csrc/mag_common.cuh``).
 
 ``grads_from_chain`` turns the chain into the weight and input gradients
 as plain fp32 products and sums, as ``_mag_backward_pallas`` leaves them to
@@ -53,9 +59,10 @@ MAX_D = 1024
 LN_EPS = 1e-5
 # csrc/mag_common.cuh: rows per block, and the weight rows fetched ahead.
 _ROWS, _K_STEP = 16, 8
-# csrc/mag_tc.cuh (bf16 #25): a block's rows and columns, the ring's slice
-# depth and stages.
+# csrc/mag_tc.cuh (bf16 #25 and #26): a block's rows and columns, the
+# ring's slice depth and stages (#25's, #26's), #26's rounds of row sums.
 TC_ROWS, TC_COLS, TC_SLICE, TC_STAGES = 64, 128, 32, 3
+TC_BWD_STAGES, TC_BWD_ROUNDS = 2, 5
 
 
 def smem_bytes(d: int, dv: int, da: int) -> int:
@@ -79,6 +86,20 @@ def tc_smem_bytes() -> int:
              + TC_SLICE * (TC_COLS + 4) * 4)
     return (TC_STAGES * stage + TC_ROWS * (TC_COLS + 4) * 4
             + 3 * TC_ROWS * 2 * 4)
+
+
+def tc_bwd_smem_bytes() -> int:
+    """Shared memory of one block of bf16 #26's tensor-core plan
+    (``mag_tc.cuh``'s ``bwd_smem_bytes``): a TC_BWD_STAGES-stage ring, the
+    first half's two [64][TC_COLS + 4] fp32 tiles (ReLU(pv), dv_; the
+    second half's stay in the accumulators) and TC_BWD_ROUNDS [64][2] fp32
+    rows of partial sums: 114176 bytes whatever D, Dv and Da, two blocks
+    an SM. Once the products end, the ring's bytes hold the block's bf16
+    slices of t and dy, the rows' scalars and the warps' partial sums."""
+    stage = (TC_ROWS * (TC_SLICE + 8) * 2
+             + TC_SLICE * (TC_COLS + 4) * 4)
+    return (TC_BWD_STAGES * stage + 2 * TC_ROWS * (TC_COLS + 4) * 4
+            + TC_BWD_ROUNDS * TC_ROWS * 2 * 4)
 
 
 
@@ -235,7 +256,9 @@ def mag_bwd_cuda(params, text, visual, acoustic, dy, *,
                  beta_shift: float = 1.0) -> Tuple[torch.Tensor, ...]:
     """Launch kernel #26 (``csrc/mag_bwd.cu``) on rows text/dy [N, D],
     visual [N, Dv], acoustic [N, Da] (one dtype, contiguous): returns
-    (dpv, dpa, ddv, dda, dt_partial, xhat), [N, D] fp32."""
+    (dpv, dpa, ddv, dda, dt_partial, xhat), [N, D] fp32. bf16 launches
+    the tensor-core plan, fp32 the CUDA-core one; raises on a failed
+    launch, never falls back."""
     n, d, dv, da = _check_cuda("mag_bwd", text, visual, acoustic, params,
                                dy)
     outs = tuple(torch.empty((n, d), dtype=torch.float32, device=text.device)

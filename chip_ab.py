@@ -17,7 +17,8 @@ recompute backward #12 (bf16 B=256 Q=K=50 at rates 0.1 and 0, and Q=50
 K=100); the QKV-projection kernels #18 serving (bf16 B=128 S=50 rate 0)
 and training (B=256 rate 0.1, saved probs), and #19 (B=256 rate 0.1,
 re-projecting from x: the call's two launches, and its (head, batch row)
-pass alone).
+pass alone); the fused MAG gate's forward #25 and backward chain #26
+(bf16, D=768, MOSI's 47/74, N = 2400, 6400 and 12800).
 
     python3 chip_ab.py A_DIR B_DIR [C_DIR ...] [--iters N] [--cases RE]
         [--grad-gap-seeds S ...] [--xlnet] [--xlnet-impl auto|inkernel]
@@ -31,8 +32,9 @@ object with both checkouts' means by case and the card's name and power
 limit (nvidia-smi), and each checkout's agreement with the plain
 versions at the bench's shapes (the share of elements whose bits differ,
 the largest difference), and whether fp32 #11/#13, bf16 #14, fp32
-#20/#21, fp32 #20/#22, fp32 #9 and #2, fp32 #12 and fp32 #18/#19 give the
-same bits in every checkout (digests). ``--cases`` times only the cases
+#20/#21, fp32 #20/#22, fp32 #9 and #2, fp32 #12, fp32 #18/#19, bf16 #3
+and #10, and #25 and #26 in both dtypes give the same bits in every
+checkout (digests). ``--cases`` times only the cases
 whose names match the regular expression. With
 ``--grad-gap-seeds``, each
 checkout also runs ``chip_smoke.py``'s phase-4b dropout-0 check at those
@@ -105,13 +107,16 @@ QKVPROJ_CASES = {
     "#19 bf16 B=256 S=50 rate 0 re-projecting": (256, 50, 0.0, "bwd"),
     "#19 dx launch bf16 B=256 S=50": (256, 50, 0.1, "bwd_dx"),
 }
-# name: N rows: #25, the fused MAG gate forward, bf16 at bert-base width
-# with MOSI's modality widths (the driver's train and eval batches and the
-# bench's, times S=50)
+# name: (N rows, what): #25, the fused MAG gate forward, and #26, its
+# backward chain, bf16 at bert-base width with MOSI's modality widths (the
+# driver's train and eval batches and the bench's, times S=50)
 MAG_CASES = {
-    "#25 bf16 N=2400": 2400,
-    "#25 bf16 N=6400": 6400,
-    "#25 bf16 N=12800": 12800,
+    "#25 bf16 N=2400": (2400, "fwd"),
+    "#25 bf16 N=6400": (6400, "fwd"),
+    "#25 bf16 N=12800": (12800, "fwd"),
+    "#26 bf16 N=2400": (2400, "bwd"),
+    "#26 bf16 N=6400": (6400, "bwd"),
+    "#26 bf16 N=12800": (12800, "bwd"),
 }
 # name: (B, Q, K, rate, what)
 RELIK_CASES = {
@@ -255,9 +260,11 @@ def _mag_inputs(torch, rng, n, dtype=None, d=H * DH, dv=47, da=74):
     return params, acts
 
 
-def _mag_call(mf, torch, rng, n):
-    params, (t, v, a, _) = _mag_inputs(torch, rng, n)
-    return lambda: mf.mag_fwd_cuda(params, t, v, a)
+def _mag_call(mf, torch, rng, n, what):
+    params, (t, v, a, dy) = _mag_inputs(torch, rng, n)
+    if what == "fwd":
+        return lambda: mf.mag_fwd_cuda(params, t, v, a)
+    return lambda: mf.mag_bwd_cuda(params, t, v, a, dy)
 
 
 def _relik_inputs(torch, rng, b, q_len, k_len, dtype=None):
@@ -380,8 +387,8 @@ def worker(iters, cases):
               for name, case in SPLIT_RC_CASES.items()]
     calls += [(name, lambda c=case: _qkvproj_call(fa, torch, rng, *c))
               for name, case in QKVPROJ_CASES.items()]
-    calls += [(name, lambda n=n: _mag_call(mf, torch, rng, n))
-              for name, n in MAG_CASES.items()]
+    calls += [(name, lambda c=case: _mag_call(mf, torch, rng, *c))
+              for name, case in MAG_CASES.items()]
     for name, make in calls:
         if not re.search(cases, name):
             continue
@@ -523,15 +530,15 @@ def agreement():
         out[f"digest bf16 #10 B={b} S={s} rate 0.1"] = digest(
             *fa.attn_bwd_split_saved_cuda(p, pd, q, k, v, gh,
                                           scale=DH ** -0.5))
-    # fp32 #25, and #26 in both dtypes, keep their CUDA-core kernels
+    # fp32 #25 and #26 run their CUDA-core kernels, bf16 #25 and #26 the
+    # tensor-core plan of mag_tc.cuh
     from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
 
     for dtype in (torch.float32, torch.bfloat16):
         params, (t, v, a, dy) = _mag_inputs(torch, rng, 999, dtype)
         name = "fp32" if dtype == torch.float32 else "bf16"
-        if dtype == torch.float32:
-            out["digest fp32 #25 N=999"] = digest(
-                mf.mag_fwd_cuda(params, t, v, a))
+        out[f"digest {name} #25 N=999"] = digest(
+            mf.mag_fwd_cuda(params, t, v, a))
         out[f"digest {name} #26 N=999"] = digest(
             *mf.mag_bwd_cuda(params, t, v, a, dy))
     print(json.dumps(out))

@@ -34,13 +34,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 3c. The fused MAG gate's kernels (#25 forward, #26 backward chain) against
    their plain versions on the card: bf16 and fp32 text at N=12800 (B=256,
    S=50), D=768, MOSI's 47/74, beta 1e-3, 1 and 1e6; a ragged B=3 S=33;
-   MOSEI's 35/74 once; bf16 #25's tensor-core plan at its edges
-   (``MAG_TC_EDGES``: N = 1, 15, 99, bert-large's D = 1024 with 47 and 35,
-   a D of 100 off the 8-wide copies), three betas each. #26's six outputs,
-   and the final gradients built from them, against the plain chain's.
-   Then both timed against their plain versions at N = 2400, 6400 and
-   12800 (bf16), their bound for bf16 activations three bf16 passes of
-   the fp32-precision products on the tensor cores (``mag_bound``).
+   MOSEI's 35/74 once; bf16 #25's and #26's tensor-core plans at their
+   edges (``MAG_TC_EDGES``: N = 1, 15, 99, bert-large's D = 1024 with 47
+   and 35, a D of 100 off the 8-wide copies), three betas each. #26's six
+   outputs, and the final gradients built from them, against the plain
+   chain's. Then both timed against their plain versions at N = 2400,
+   6400 and 12800 (bf16), their bound for bf16 activations three bf16
+   passes of the fp32-precision products on the tensor cores
+   (``mag_bound``), and the gate's whole backward a call (#26, then
+   ``grads_from_chain``'s fp32 products) beside #26 alone.
 3d. The rel-attention kernels (#11 forward, #13 saved-probs backward, #12
    recompute backward) against their plain versions, on an ebias assembled
    as the XLNet model does (rel-shifted bd + segment ef, −1e30 on the
@@ -338,9 +340,9 @@ MAG_BF16_RTOL, MAG_ATOL = 2.0 ** -7, 1e-5
 # move it past the band). Input gradients returned in bf16 are rounded
 # once more: 2^-7 relative there.
 MAG_BWD_TOL, MAG_TIE = 2e-4, 1e-5
-# Phase 3c's edges of bf16 #25's tensor-core plan (B, S, D, Dv): one row,
-# N = 15 and 99 off its 64-row block, bert-large's cluster of 8 blocks,
-# and a D off the 8-wide copies (one block, a partial warp).
+# Phase 3c's edges of bf16 #25's and #26's tensor-core plans (B, S, D,
+# Dv): one row, N = 15 and 99 off their 64-row block, bert-large's cluster
+# of 8 blocks, and a D off the 8-wide copies (one block, a partial warp).
 MAG_TC_EDGES = ((1, 1, 768, 47), (1, 15, 768, 47), (9, 11, 768, 35),
                 (2, S_SERVE, 1024, 47), (3, 33, 1024, 35), (2, 7, 100, 47))
 # Phase 6: one dropout-0 step with the fused gate against the plain gate,
@@ -372,9 +374,10 @@ XLNET_GRAD_GAP_TOL = 0.25
 # cores. A kernel's bound is the larger of its bytes over the first and its
 # operations over the rate of their type.
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
-# Kernel-name substrings of #25 (its fp32 CUDA-core kernel and its bf16
-# tensor-core plan) and #26.
-MAG_KERNELS = ("mag_fwd_kernel", "mag_fwd_tc_kernel", "mag_bwd_kernel")
+# Kernel-name substrings of #25 and #26 (each its fp32 CUDA-core kernel
+# and its bf16 tensor-core plan).
+MAG_KERNELS = ("mag_fwd_kernel", "mag_fwd_tc_kernel", "mag_bwd_kernel",
+               "mag_bwd_tc_kernel")
 # Kernel-name substrings that sort a profile into groups (the first match
 # wins; the rest is "other elementwise").
 PROFILE_GROUPS = (
@@ -423,7 +426,8 @@ def tc_ptxas_lines(log):
     sources, #2/#9's recompute plan, the rel full-H plans of #11, #13 and
     #12, the full-H ingredients plans of #20, #21 and #22, #18's register
     plan with its projection, #19's (head, batch row) pass and dx product
-    and #25's three-plane plan), one line each, from the build log.
+    and #25's and #26's three-plane plans), one line each, from the build
+    log.
     Template arguments print in order: the packed and rel passes' are <n8
     tiles of Dh, own statistics (#5, #15 true; #7, #17 false), dropout>;
     the full-H, rel and ingredients register forwards' <n8 tiles of Dh,
@@ -450,7 +454,8 @@ def tc_ptxas_lines(log):
                       r"attn_fwd_qkvproj_tc_reg|attn_bwd_qkvproj_heads_tc)"
                       r"_kernel)I((?:L[ib]\d+E)+)E", line)
         plain = re.search(r"Compiling entry function '\S*?("
-                          r"attn_bwd_qkvproj_dx_tc_kernel|mag_fwd_tc_kernel)E",
+                          r"attn_bwd_qkvproj_dx_tc_kernel|mag_fwd_tc_kernel|"
+                          r"mag_bwd_tc_kernel)E",
                           line)
         if plain:
             name = plain.group(1)
@@ -1457,7 +1462,11 @@ def check_mag_kernels(rng, mf):
 def time_mag_kernels(rng, mf, card):
     """Phase 3c, the times: #25 and #26 against their plain versions in
     alternating rounds, bf16, at the driver's train and eval batches and
-    the bench's (N = 2400, 6400, 12800). Returns {N: {name: entry}}."""
+    the bench's (N = 2400, 6400, 12800); then the gate's whole backward a
+    call (``mag_backward``: #26, then ``grads_from_chain``'s fp32 products
+    and sums) against #26 alone, which only measures what the products
+    add. Returns {N: {name: entry}}, the whole backward's ms under
+    ``mag_bwd``'s ``whole_backward_ms``."""
     from bert_multimodal_transformer_tpu_torch.ops.mag import mag_gate
 
     out = {}
@@ -1483,6 +1492,13 @@ def time_mag_kernels(rng, mf, card):
             print(f"{name} bf16 N={n} D=768 Dv=47 Da=74 on {card}: kernel "
                   f"{k} ms, plain {pl} ms per call; bound {bound:.4f} ms "
                   f"({by})")
+        alone, whole = _alternate(
+            lambda: mf.mag_backward(params, t, v, a, dy),
+            lambda: mf.mag_bwd_cuda(params, t, v, a, dy), 20)
+        out[n]["mag_bwd"]["whole_backward_ms"] = float(np.mean(whole))
+        print(f"the gate's whole backward bf16 N={n} on {card}: "
+              f"{whole} ms per call (#26, then grads_from_chain's fp32 "
+              f"products), #26 alone {alone} ms")
     return out
 
 

@@ -252,6 +252,17 @@ def _tc_products(x, w, acc=None):
     return acc
 
 
+def _block_row_sum(x):
+    """Row sums [N, 1] as the cluster takes them: each 128-column block's
+    sum, the blocks added in rank order."""
+    blocks = [x[:, c:c + tmf.TC_COLS].sum(dim=1)
+              for c in range(0, x.shape[1], tmf.TC_COLS)]
+    total = torch.zeros_like(blocks[0])
+    for b in blocks:
+        total = total + b
+    return total[:, None]
+
+
 def _tc_gate(params, t, v, a, beta):
     """bf16 #25's plan in plain torch on bf16 rows: the six products on the
     split weights in the kernel's segment order, H_m rounding for rounding
@@ -266,15 +277,7 @@ def _tc_gate(params, t, v, a, beta):
            + torch.relu(pa + w["b_ha"]) * (da_ + w["b_a"]))
     tf = t.float()
     d = tf.shape[1]
-
-    def row_sum(x):
-        blocks = [x[:, c:c + tmf.TC_COLS].sum(dim=1)
-                  for c in range(0, d, tmf.TC_COLS)]
-        total = torch.zeros_like(blocks[0])
-        for b in blocks:
-            total = total + b
-        return total[:, None]
-
+    row_sum = _block_row_sum
     em, hn = torch.sqrt(row_sum(tf * tf)), torch.sqrt(row_sum(h_m * h_m))
     hn1 = torch.where(hn == 0.0, 1.0, hn)
     alpha = torch.clamp(em / (hn1 + 1e-6) * beta, max=1.0)
@@ -363,6 +366,165 @@ def test_tensor_core_plan_fits_and_is_the_headers():
                                    + 3 * rows * 2 * 4)
     assert 2 * tmf.tc_smem_bytes() <= 228 * 1024 - 2 * 1024
     assert -(-768 // cols) == 6 and -(-tmf.MAX_D // cols) == 8
+
+
+# --- bf16 #26's tensor-core plan, emulated ----------------------------------
+
+
+def _tc_bwd_chain(params, t, v, a, dy, beta):
+    """bf16 #26's plan in plain torch on bf16 rows: #25's split products
+    in its segment order, ReLU(pv), dv_, ReLU(pa), da_ (biases added), H_m
+    from them rounding for rounding as ``displacement``, the five rounds
+    of row sums by 128-column block in rank order (‖t‖² and ‖H_m‖², Σ f,
+    Σ (f − μ)², Σ dxh and Σ dxh · x̂, Σ df · H_m), then the clamp and gate
+    backward as the kernel writes them. Returns (dpv, dpa, ddv, dda,
+    dt_partial, xhat), fp32."""
+    w = {k: params[k].float() for k in tmf.PARAM_NAMES}
+    pv = _tc_products(v, w["w_hv_v"], _tc_products(t, w["w_hv_t"]))
+    dv_ = _tc_products(v, w["w_v"])
+    pa = _tc_products(a, w["w_ha_a"], _tc_products(t, w["w_ha_t"]))
+    da_ = _tc_products(a, w["w_a"])
+    gv, dv = torch.relu(pv + w["b_hv"]), dv_ + w["b_v"]
+    ga, da = torch.relu(pa + w["b_ha"]), da_ + w["b_a"]
+    h_m = gv * dv + ga * da
+    tf = t.float()
+    d = tf.shape[1]
+    row_sum = _block_row_sum
+    em, hn = torch.sqrt(row_sum(tf * tf)), torch.sqrt(row_sum(h_m * h_m))
+    hn1 = torch.where(hn == 0.0, 1.0, hn)
+    thresh = em / (hn1 + 1e-6) * beta
+    alpha = torch.clamp(thresh, max=1.0)
+    f = alpha * h_m + tf
+    mu = row_sum(f) / d
+    inv = torch.rsqrt(row_sum((f - mu) ** 2) / d + tmf.LN_EPS)
+    xhat = (f - mu) * inv
+    dxh = dy.float() * w["ln_gamma"]
+    m1, m2 = row_sum(dxh) / d, row_sum(dxh * xhat) / d
+    df = inv * (dxh - m1 - xhat * m2)
+    dthresh = row_sum(df * h_m) * tmf.clamp_vjp(thresh)
+    den = hn1 + 1e-6
+    dem = dthresh * beta / den
+    live = (hn != 0.0).float()
+    dhn = -dthresh * beta * em / (den * den) * live
+    em_safe = torch.where(em == 0.0, 1.0, em)
+    t_coef = (dem / em_safe) * torch.where(em == 0.0, 0.0, 1.0)
+    dhm = alpha * df + (dhn / hn1) * live * h_m
+    return (torch.where(gv > 0.0, dhm * dv, 0.0),
+            torch.where(ga > 0.0, dhm * da, 0.0), dhm * gv, dhm * ga,
+            df + t_coef * tf, xhat)
+
+
+def _jax_bwd_chain(params, t, v, a, dy, beta):
+    """The JAX ``_mag_bwd_kernel`` on whole rows (one block) in interpret
+    mode: its six [N, D] fp32 outputs as numpy arrays."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from bert_multimodal_transformer_tpu.ops.mag_pallas import (
+        _mag_bwd_kernel,
+    )
+
+    n, d = t.shape
+    names = ("w_hv_v", "w_hv_t", "b_hv", "w_ha_a", "w_ha_t", "b_ha", "w_v",
+             "b_v", "w_a", "b_a", "ln_gamma")
+    ins = [jnp.asarray(x.float().numpy()) for x in (dy, t, v, a)]
+    ins += [jnp.asarray(params[k].numpy()) for k in names]
+    outs = pl.pallas_call(
+        functools.partial(_mag_bwd_kernel, beta_shift=beta),
+        out_shape=tuple(jax.ShapeDtypeStruct((n, d), jnp.float32)
+                        for _ in range(6)),
+        interpret=True)(*ins)
+    return [np.array(o) for o in outs]
+
+
+def _tie_beta(hn):
+    """A beta for which a row with ‖t‖ = 1 and ‖H_m‖ = hn, both exact,
+    sits on the clamp's tie: fp32 (1 / (hn + 1e-6)) · beta == 1."""
+    q = torch.ones(()) / (torch.tensor(hn) + 1e-6)
+    beta = torch.ones(()) / q
+    for _ in range(4):
+        if float(q * beta) == 1.0:
+            return beta.item()
+        beta = torch.nextafter(beta, torch.tensor(
+            0.0 if float(q * beta) > 1.0 else 2.0))
+    raise AssertionError("no fp32 beta puts the row on the tie")
+
+
+@pytest.mark.parametrize("beta", [*BETAS, "tie"])
+def test_split_backward_chain_matches_plain_and_jax(beta):
+    """bf16 #26's plan emulated (``_tc_bwd_chain``) against the plain
+    chain and the JAX ``_mag_bwd_kernel`` in interpret mode on the same
+    bf16 rows, within phase 3c's MAG_BWD_TOL (2e-4 relative plus 2e-4),
+    ReLU-tie elements (a pre-activation within 1e-5 of 0) left out as
+    phase 3c leaves them out: N = 70 (two row blocks, a tail), D = 200
+    (two cluster blocks, one partial), MOSI's Dv = 47 and MOSEI's Da =
+    35, and a row whose H_m is 0. Under "tie" that row is t = e_3 instead,
+    and b_v = e_0 with bf16-exact weights at (3, 0) make its H_m = 0.75
+    e_0 in every implementation, so a beta puts it on the clamp's tie
+    thresh == 1 (min's VJP 0.5, and a nonzero dalpha)."""
+    params, t, v, a = _tc_case(70, 200, 47, 35, seed=13)
+    dy = torch.from_numpy(np.random.RandomState(14).randn(70, 200).astype(
+        np.float32)).to(torch.bfloat16)
+    params["b_v"].zero_()
+    params["b_a"].zero_()
+    v[5] = 0.0
+    a[5] = 0.0
+    tie_row = beta == "tie"
+    if tie_row:
+        params["b_v"][0] = 1.0
+        params["w_hv_t"][3, 0] = 0.5
+        params["b_hv"][0] = 0.25
+        t[5] = 0.0
+        t[5, 3] = 1.0
+        beta = _tie_beta(0.75)
+    got = _tc_bwd_chain(params, t, v, a, dy, beta)
+    rows = (t, v, a, dy)
+    plain = tmf.mag_bwd_chain_plain(params, *rows, beta_shift=beta)
+    jax_out = _jax_bwd_chain(params, *rows, beta)
+    r = tmf._recompute(tmf._weights(params), t.float(), v.float(),
+                       a.float(), beta)
+    if tie_row:
+        assert torch.equal(r["h_m"][5], 0.75 * (torch.arange(200) == 0))
+        assert float(tmf.clamp_vjp(r["thresh"])[5]) == 0.5
+    else:
+        assert float(r["h_m"][5].abs().max()) == 0.0
+    tie = (r["pv"].abs() < 1e-5) | (r["pa"].abs() < 1e-5)
+    tol = 2e-4
+    for name, g, p_, j in zip(("dpv", "dpa", "ddv", "dda", "dt", "xhat"),
+                              got, plain, jax_out):
+        assert g.dtype == torch.float32 and g.shape == (70, 200)
+        for want in (p_, torch.from_numpy(j)):
+            bad = ((g - want).abs() > tol + tol * want.abs()) & ~tie
+            assert not bool(bad.any()), name
+
+
+def test_tensor_core_backward_plan_fits_and_is_the_headers():
+    """bf16 #26's shared memory (``tc_bwd_smem_bytes``) is the header's
+    ``bwd_smem_bytes``: a two-stage ring, the first half's two fp32 tiles
+    and five rounds of partial sums. It is independent of the widths, so
+    it fits at D = 768 and 1024 alike, with room for two blocks an SM;
+    once the products end, the ring's bytes hold t's and dy's bf16 slices,
+    the rows' scalars and the 8 warps' partial sums."""
+    rows, cols, slice_ = map(_tc_header_constant,
+                             ("kRows", "kCols", "kSlice"))
+    stages, rounds = map(_tc_header_constant, ("kBwdStages", "kBwdRounds"))
+    assert (stages, rounds) == (tmf.TC_BWD_STAGES, tmf.TC_BWD_ROUNDS) == (
+        2, 5)
+    ring = stages * (rows * (slice_ + 8) * 2 + slice_ * (cols + 4) * 4)
+    assert tmf.tc_bwd_smem_bytes() == (ring + 2 * rows * (cols + 4) * 4
+                                       + rounds * rows * 2 * 4) == 114176
+    assert "114176 bytes" in " ".join(TC_HEADER.read_text().split())
+    scalars = _tc_header_constant("kScalars")
+    assert 2 * rows * (cols + 8) * 2 + rows * scalars * 4 + 8 * rows * 2 * 4 \
+        <= ring
+    for d in (768, tmf.MAX_D):
+        assert -(-d // cols) <= 8
+        assert tmf.tc_bwd_smem_bytes() <= tmf.MAX_SMEM_BYTES
+    # two blocks an SM: each with its 1 KB reserve within the SM's 228 KB
+    assert 2 * (tmf.tc_bwd_smem_bytes() + 1024) <= 228 * 1024
 
 
 # --- the model and the trainer with the fused gate --------------------------
@@ -579,6 +741,9 @@ def _card_params(d, dv, da, rng):
     ("bfloat16", (3, 33), 768, 35, 74),     # ragged, MOSEI
     ("float32", (2, 9), 1024, 47, 74),      # bert-large width
     ("float32", (1, 5), 32, 3, 2),          # narrow, D not a multiple of 4
+    ("bfloat16", (2, 7), 100, 47, 74),      # one block, a partial warp
+    ("bfloat16", (2, 50), 1024, 47, 74),    # bert-large: a cluster of 8
+    ("bfloat16", (9, 11), 768, 35, 74),     # N = 99, off the 64-row block
 ])
 @pytest.mark.parametrize("beta", BETAS)
 def test_kernels_match_plain_on_card(cuda_device, dtype, shape, d, dv, da,
@@ -673,3 +838,40 @@ def test_bf16_tensor_core_gate_on_card(cuda_device, shape, d, dv, da,
     err = (got.float() - want.float()).abs()
     assert bool((err <= 1e-5 + 2 ** -7 * want.float().abs()).all())
     assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d,dv,da", [
+    ((1, 1), 768, 47, 74),
+    ((9, 11), 768, 35, 74),      # N = 99 off the 64-row block, MOSEI
+    ((48, 50), 768, 47, 74),     # N = 2400, the driver's training batch
+    ((3, 33), 1024, 35, 74),     # bert-large: a cluster of 8
+    ((2, 7), 100, 47, 74),       # D off the 8-wide copies, one block
+])
+@pytest.mark.parametrize("beta", BETAS)
+def test_bf16_tensor_core_backward_on_card(cuda_device, shape, d, dv, da,
+                                           beta):
+    """bf16 #26 on the tensor cores against the plain chain within 2e-4
+    (ReLU-tie elements left out), with a row whose H_m is 0; the same
+    bits twice, and one launch a call."""
+    params, (t, v, a, dy) = _card_case(cuda_device, torch.bfloat16, shape,
+                                       d, dv, da, seed=sum(shape) + d + 1)
+    params["b_v"].zero_()
+    params["b_a"].zero_()
+    v.view(-1, dv)[0] = 0.0
+    a.view(-1, da)[0] = 0.0
+    rows = [x.reshape(-1, x.shape[-1]) for x in (t, v, a, dy)]
+    before = tmf.mag_bwd_cuda.launches
+    got = tmf.mag_bwd_cuda(params, *rows, beta_shift=beta)
+    again = tmf.mag_bwd_cuda(params, *rows, beta_shift=beta)
+    want = tmf.mag_bwd_chain_plain(params, *rows, beta_shift=beta)
+    torch.cuda.synchronize()
+    assert tmf.mag_bwd_cuda.launches == before + 2
+    r = tmf._recompute(tmf._weights(params), *(x.float() for x in rows[:3]),
+                       beta)
+    tie = (r["pv"].abs() < 1e-5) | (r["pa"].abs() < 1e-5)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert bool(torch.isfinite(g).all())
+        bad = ((g - w).abs() > 2e-4 + 2e-4 * w.abs()) & ~tie
+        assert not bool(bad.any())
