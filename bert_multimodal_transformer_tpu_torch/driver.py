@@ -8,7 +8,18 @@ the same printed lines.
 ``--device`` (default ``cuda``) is where the model and the batches live:
 on a card the fused attention and MAG-gate kernels run; without one the
 driver exits non-zero unless the caller passes ``--device cpu``, where
-the kernels' plain versions run. Flags whose port has not landed yet exit
+the kernels' plain versions run.
+
+Checkpoints (``utils/checkpoint.py``): ``--checkpoint_dir`` saves the
+training state at every epoch's end (and every ``--save_every_steps``
+optimizer steps) with a resume meta beside it; ``--resume`` continues an
+interrupted run where it stopped, bit for bit, adopting its seed;
+``--predict_only`` scores the test split with the latest checkpoint's
+params (``serving.py::Predictor.from_checkpoint``) and prints one JSON
+line; ``--pretrained_checkpoint`` warm-starts the encoder from a local HF
+``pytorch_model.bin`` / ``model.safetensors`` and ``--export_hf`` writes
+the trained encoder back in HF names (``utils/convert.py``). Flags whose
+port has not landed yet exit
 with status 2 and a message naming their ROADMAP item; none is ignored
 silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``, and
 its tensor-parallel guards) exit with status 2 and its message.
@@ -35,12 +46,16 @@ Usage:
         --tp_shard_attention --attention_impl fused
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --dataset mosi --synthetic --attention_impl fused --qkv_fusion
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --dataset mosi --synthetic --checkpoint_dir ckpt \\
+        --save_every_steps 100 [--resume]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import tempfile
@@ -85,13 +100,6 @@ FAMILY_ERRORS = (
 UNPORTED = (
     ("--vocab *.model (SentencePiece)",
      lambda a: _xlnet(a) and (a.vocab or "").endswith(".model"), "A.15"),
-    ("--checkpoint_dir", lambda a: a.checkpoint_dir is not None, "A.6"),
-    ("--resume", lambda a: a.resume, "A.6"),
-    ("--save_every_steps", lambda a: a.save_every_steps != 0, "A.6"),
-    ("--predict_only", lambda a: a.predict_only, "A.6"),
-    ("--pretrained_checkpoint",
-     lambda a: a.pretrained_checkpoint is not None, "A.6"),
-    ("--export_hf", lambda a: a.export_hf is not None, "A.6"),
     ("--export_serving", lambda a: a.export_serving is not None, "A.9"),
     ("--model_parallel (XLNet)",
      lambda a: _xlnet(a) and a.model_parallel != 1, "A.10"),
@@ -138,8 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "SentencePiece .model is not ported yet, ROADMAP "
                         "A.15)")
     p.add_argument("--pretrained_checkpoint", type=str, default=None,
-                   help="Local HF pytorch_model.bin to warm-start "
-                        "(not ported yet: ROADMAP A.6)")
+                   help="Local HF pytorch_model.bin or model.safetensors "
+                        "(or a directory holding one) to warm-start the "
+                        "encoder from; MAG and the classifier keep their "
+                        "fresh init")
     p.add_argument("--synthetic", action="store_true",
                    help="Generate synthetic data (offline smoke/dev mode)")
     p.add_argument("--synthetic_sizes", type=int, nargs=3,
@@ -150,11 +160,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MAG gate through the fused gate kernels "
                         "(ops/mag_fused.py)")
     p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help="not ported yet (ROADMAP A.6)")
+                   help="Save the training state (params, optimizer "
+                        "moments, step, generator) here at every epoch's "
+                        "end, with a resume meta and metrics.jsonl "
+                        "(utils/checkpoint.py)")
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP A.6)")
+                   help="Continue an interrupted run from --checkpoint_dir "
+                        "toward the same --n_epochs total. With a resume "
+                        "meta present (written by this driver), training "
+                        "continues exactly where it stopped, mid-epoch "
+                        "included, reproducing the uninterrupted run's "
+                        "parameters bit for bit (pass the SAME --n_epochs "
+                        "as the interrupted run: the LR schedule spans the "
+                        "planned total step count)")
     p.add_argument("--save_every_steps", type=int, default=0,
-                   help="not ported yet (ROADMAP A.6)")
+                   help="Also checkpoint every N optimizer steps "
+                        "(preemption-safe mid-epoch resume; requires "
+                        "--checkpoint_dir). 0 = epoch-end saves only")
     p.add_argument("--qkv_fusion", action="store_true",
                    help="With --attention_impl fused (BERT): the QKV "
                         "projection inside the attention kernels "
@@ -164,13 +186,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "backward instead of recomputing it there")
     p.add_argument("--max_steps", type=int, default=0,
                    help="Stop this run after N optimizer steps (0 = no "
-                        "limit)")
+                        "limit); with --save_every_steps, a later --resume "
+                        "continues exactly where it stopped")
     p.add_argument("--export_hf", type=str, default=None,
-                   help="not ported yet (ROADMAP A.6)")
+                   help="After training, export the encoder weights in HF "
+                        "names at this path: a torch .bin, or safetensors "
+                        "when the path ends in .safetensors (reverse of "
+                        "--pretrained_checkpoint; MAG and classifier "
+                        "params are not exported)")
     p.add_argument("--export_serving", type=str, default=None,
                    help="not ported yet (ROADMAP A.9)")
     p.add_argument("--predict_only", action="store_true",
-                   help="not ported yet (ROADMAP A.6)")
+                   help="Skip training: restore --checkpoint_dir's latest "
+                        "params and print the test metrics as one JSON "
+                        "line (inference/serving mode)")
     p.add_argument("--tiny", action="store_true",
                    help="Tiny model geometry (smoke tests)")
     p.add_argument("--remat", action="store_true",
@@ -224,8 +253,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "portable stream, is not ported yet (ROADMAP A.5)")
     p.add_argument("--wire_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float16"],
-                   help="With --predict_only (not ported yet, ROADMAP "
-                        "A.6)")
+                   help="--predict_only: cast the modality features to "
+                        "this dtype on the host before the device "
+                        "transfer (halves the request payload; bfloat16 "
+                        "is lossless for a bf16-compute model: "
+                        "serving.Predictor wire_dtype)")
     p.add_argument("--compiler_options", type=str, default=None,
                    help="not ported yet (ROADMAP A.10)")
     p.add_argument("--num_processes", type=int, default=1,
@@ -267,6 +299,51 @@ def _tp_guards(args) -> list:
                           f"divisible by --model_parallel "
                           f"({args.model_parallel})")
     return errors
+
+
+def _checkpoint_guard(args):
+    """The JAX driver's refusals of the checkpoint flags, checked before
+    anything is built (the JAX driver checks them after its model): the
+    first that applies, or None. A missing ``--pretrained_checkpoint`` and
+    an ``--export_hf`` path in a directory that does not exist fail in the
+    JAX driver with the exception of the file's ``torch.load`` (at start)
+    and ``torch.save`` (after training); here they are refused up front
+    with the same text."""
+    from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.convert import (
+        checkpoint_file,
+    )
+
+    if args.pretrained_checkpoint:
+        try:
+            checkpoint_file(args.pretrained_checkpoint)
+        except FileNotFoundError as e:
+            return f"--pretrained_checkpoint: {e}"
+    if args.predict_only:
+        if not args.checkpoint_dir:
+            return "--predict_only requires --checkpoint_dir"
+        if CheckpointManager(args.checkpoint_dir).latest_step() is None:
+            return f"no checkpoint under {args.checkpoint_dir}"
+        return None
+    if args.save_every_steps and not args.checkpoint_dir:
+        return "--save_every_steps requires --checkpoint_dir"
+    if args.checkpoint_dir and not args.resume:
+        latest = CheckpointManager(args.checkpoint_dir).latest_step()
+        if latest is not None:
+            # a fresh run into a directory holding another run's
+            # checkpoints would let the save dedup skip saves and publish
+            # a resume meta naming the OLD run's parameters
+            return (f"--checkpoint_dir {args.checkpoint_dir} already "
+                    f"contains checkpoints (latest step {latest}); pass "
+                    "--resume to continue that run or use a fresh "
+                    "directory")
+    if args.export_hf:
+        parent = os.path.dirname(args.export_hf)
+        if parent and not os.path.isdir(parent):
+            return f"--export_hf: Parent directory {parent} does not exist."
+    return None
 
 
 def _rank_main(rank: int, args, devices) -> dict:
@@ -331,10 +408,22 @@ def run(argv=None, rank_timeout_s: float = 3600.0):
                   f"(ROADMAP {item})", file=sys.stderr)
         return 2, []
     refused = _tp_guards(args)
+    ckpt_refusal = _checkpoint_guard(args)
+    if ckpt_refusal is not None:
+        refused.append(ckpt_refusal)
     if refused:
         for msg in refused:
             print(f"error: {msg}", file=sys.stderr)
         return 2, []
+    if args.resume and args.checkpoint_dir:
+        # exact continuation requires the interrupted run's seed (data
+        # shuffle, synthetic data, init and dropout streams derive from it)
+        meta = _read_resume_meta(
+            os.path.join(args.checkpoint_dir, "resume_meta.json"))
+        if meta is not None and "seed" in meta and meta["seed"] != args.seed:
+            print(f"Resume: adopting the interrupted run's seed "
+                  f"{meta['seed']} (was {args.seed})")
+            args.seed = meta["seed"]
 
     import torch
 
@@ -354,8 +443,9 @@ def main(argv=None) -> int:
 
 def _train(args, mesh):
     """The training run of ``main`` on this process's place: one device
-    (``mesh`` None) or a rank of the mesh. Returns (exit status, the
-    trainer's summary or None)."""
+    (``mesh`` None) or a rank of the mesh, or its test scoring under
+    ``--predict_only``. Returns (exit status, the trainer's summary or
+    None)."""
     import torch
 
     device = mesh.device if mesh is not None else torch.device(args.device)
@@ -386,8 +476,15 @@ def _train(args, mesh):
     from bert_multimodal_transformer_tpu_torch.training.optim import (
         make_optimizer,
     )
+    from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
     from bert_multimodal_transformer_tpu_torch.training.trainer import (
         Trainer,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils import (
+        convert as convert_lib,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
     )
     from bert_multimodal_transformer_tpu_torch.utils.logging import (
         MetricLogger,
@@ -485,15 +582,150 @@ def _train(args, mesh):
     # training data order the same for the same seed.
     next(iter(train_it))
     state = trainer.init_state(args.seed)
-    logger = MetricLogger(project="MAG", config=vars(args)) if is_main \
-        else None
-    _, summary = trainer.train(state, train_it, dev_it, test_it,
-                               args.n_epochs, logger=logger,
-                               use_zero=args.use_zero,
-                               max_steps=args.max_steps or None)
+    if args.pretrained_checkpoint:
+        # a [512, D] position table into a longer one raises here
+        convert_lib.load_pretrained_into_model(
+            model, args.pretrained_checkpoint,
+            family="xlnet" if is_xlnet else "bert")
+
+    if args.predict_only:
+        return _predict_only(args, model, test_it.split, mesh, is_main), None
+
+    ckpt = None
+    start_epoch, start_batch, initial_history = 0, 0, None
+    meta_path = (os.path.join(args.checkpoint_dir, "resume_meta.json")
+                 if args.checkpoint_dir else None)
+    jsonl_path = (os.path.join(args.checkpoint_dir, "metrics.jsonl")
+                  if args.checkpoint_dir else None)
+    if args.checkpoint_dir:
+        # run() refused a fresh run into a directory with checkpoints
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        if args.resume:
+            meta = _read_resume_meta(meta_path)
+            if meta is not None:
+                # exact continuation: restore the state the meta names
+                # (params before the optimizer's moments), replay the data
+                # order, carry the completed epochs
+                state = ckpt.restore(state, meta["state_step"])
+                start_epoch = meta["start_epoch"]
+                start_batch = meta["start_batch"]
+                train_it.restore_position(meta["iter_shuffles_to_burn"])
+                initial_history = _read_epoch_history(jsonl_path,
+                                                      before=start_epoch)
+                if is_main:
+                    print(f"Resuming at epoch {start_epoch}, batch "
+                          f"{start_batch} (step {meta['state_step']})")
+            else:
+                # checkpoints without a meta: a warm resume of the state
+                state = ckpt.restore_latest(state) or state
+
+    logger = (MetricLogger(project="MAG", config=vars(args),
+                           jsonl_path=jsonl_path) if is_main else None)
+
+    def _save(st, *, step, next_epoch, next_batch, burn):
+        # save the state BEFORE publishing the meta that names it (the
+        # directory holds no foreign checkpoints, so a matching latest step
+        # is this run's own earlier save). Every rank takes part in the
+        # save; rank 0 publishes the meta.
+        if ckpt.latest_step() != step:
+            ckpt.save(st, step=step)
+        if is_main:
+            _write_resume_meta(meta_path, {
+                "state_step": step, "start_epoch": next_epoch,
+                "start_batch": next_batch, "iter_shuffles_to_burn": burn,
+                "seed": args.seed})
+
+    def save_epoch(st, epoch_i):
+        if ckpt is not None:
+            # resume into the next epoch with a fresh shuffle
+            _save(st, step=st.step, next_epoch=epoch_i + 1, next_batch=0,
+                  burn=train_it.shuffles_done)
+
+    step_callback = None
+    if ckpt is not None and args.save_every_steps > 0:
+        def step_callback(st, epoch_i, bi):
+            if st.step % args.save_every_steps == 0:
+                # resume mid-epoch: replay the current epoch's shuffle
+                # (the last one drawn), skip the batches already trained
+                _save(st, step=st.step, next_epoch=epoch_i,
+                      next_batch=bi + 1, burn=train_it.shuffles_done - 1)
+
+    state, summary = trainer.train(
+        state, train_it, dev_it, test_it, args.n_epochs, logger=logger,
+        epoch_callback=save_epoch, use_zero=args.use_zero,
+        start_epoch=start_epoch, start_batch=start_batch,
+        initial_history=initial_history, step_callback=step_callback,
+        max_steps=args.max_steps or None)
+    if ckpt is not None:
+        ckpt.close()
+    if args.export_hf:
+        full = tp_lib.full_state_dict(model)  # every rank gathers
+        if is_main:
+            export = (convert_lib.export_xlnet_state_dict(full, cfg.n_layer)
+                      if is_xlnet else convert_lib.export_bert_state_dict(
+                          full, cfg.num_hidden_layers))
+            convert_lib.save_hf_state_dict(export, args.export_hf)
+            print(f"Exported HF-format weights to {args.export_hf}")
     if logger is not None:
         logger.finish()
     return 0, summary
+
+
+def _predict_only(args, model, test_split, mesh, is_main: bool) -> int:
+    """``--predict_only``: the latest checkpoint's params into ``model``,
+    the test split scored, one JSON line of ``test_*`` metrics."""
+    from bert_multimodal_transformer_tpu_torch.config import dtype_from_str
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    if args.wire_dtype == "float16" and is_main:
+        # fp16's max finite value is 65504: unnormalized visual/acoustic
+        # features beyond it overflow to inf on the wire. Only bf16 (the
+        # exponent range of fp32) is lossless for a bf16-compute model.
+        print("warning: --wire_dtype float16 overflows to inf above "
+              "65504; it is NOT lossless on unnormalized features — "
+              "use bfloat16 unless your features are bounded",
+              file=sys.stderr)
+    predictor = Predictor.from_checkpoint(
+        model, args.checkpoint_dir, batch_size=args.test_batch_size,
+        wire_dtype=(dtype_from_str(args.wire_dtype) if args.wire_dtype
+                    else None),
+        mem_len=args.mem_len or None, mesh=mesh)
+    scores = predictor.score_split(test_split, use_zero=args.use_zero)
+    if is_main:
+        print(json.dumps({"test_" + k: v for k, v in scores.items()}))
+    return 0
+
+
+def _write_resume_meta(path: str, meta: dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, path)  # atomic: never a half-written meta
+
+
+def _read_resume_meta(path):
+    if path is None or not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _read_epoch_history(jsonl_path, *, before: int):
+    """The completed epochs' records from metrics.jsonl (appended across
+    runs), so a resumed run's best_valid_loss/best_test_acc stay right."""
+    if jsonl_path is None or not os.path.exists(jsonl_path):
+        return None
+    by_epoch = {}
+    with open(jsonl_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            if rec.get("epoch") is not None and rec["epoch"] < before:
+                # the latest run's record wins (restarts may repeat epochs)
+                by_epoch[rec["epoch"]] = rec
+    return [by_epoch[e] for e in sorted(by_epoch)] or None
 
 
 if __name__ == "__main__":

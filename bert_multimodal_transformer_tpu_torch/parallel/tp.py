@@ -30,7 +30,9 @@ spec is a tuple over the tensor's dims naming the axis each is split on
 (``()`` replicated). ``shard_state_dict`` / ``gather_state_dict`` carry a
 full state dict (as ``utils/convert.py::params_from_flax`` gives it) to a
 rank's shards and back; ``shard_model_`` turns a model built at full size
-into this rank's shard.
+into this rank's shard. ``full_state_dict`` / ``local_state_dict`` do the
+same for whatever sharding a model carries (none included), which is how
+checkpoints and HF files stay full-size whatever the mesh.
 """
 
 from __future__ import annotations
@@ -106,6 +108,31 @@ def gather_state_dict(local: Dict[str, torch.Tensor], mesh: Mesh,
         out[name] = (t if dim is None
                      else mesh.all_gather(t, mesh.model_axis, dim))
     return out
+
+
+def full_state_dict(model: nn.Module,
+                    tensors: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """``tensors`` (default the model's state dict), keyed by the model's
+    parameter names, at full size: gathered over the model axis when
+    ``shard_model_`` sharded the model (a collective that every rank of a
+    model group calls), else as they are."""
+    tensors = model.state_dict() if tensors is None else tensors
+    sharding = getattr(model, "tp_sharding", None)
+    if sharding is None:
+        return dict(tensors)
+    return gather_state_dict(tensors, *sharding)
+
+
+def local_state_dict(model: nn.Module, full: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """A full-size dict keyed by the model's parameter names → what this
+    rank holds of it: its chunks when the model is sharded, else ``full``
+    as it is."""
+    sharding = getattr(model, "tp_sharding", None)
+    if sharding is None:
+        return full
+    return shard_state_dict(full, *sharding)
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -9,8 +9,10 @@ segment recurrence) ``predict_split`` threads the memory through the
 ordered batch stream, as the model was trained. With ``mesh`` (one
 Predictor per rank, each given the same requests) a batch's rows split over
 the data axis and the predictions are gathered in order, and a model axis
-> 1 runs MAG-BERT tensor-parallel (``parallel/tp.py``). ``from_checkpoint``
-and the exported-artifact functions wait for ROADMAP A.6 and A.9.
+> 1 runs MAG-BERT tensor-parallel (``parallel/tp.py``).
+``Predictor.from_checkpoint`` serves the latest training checkpoint
+(``utils/checkpoint.py``); the exported-artifact functions wait for
+ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -114,6 +116,25 @@ class Predictor:
                                  "Predictor's mesh")
             if mesh.model_size > 1:
                 tp_lib.shard_model_(model, mesh, tp_mesh is not None)
+
+    @classmethod
+    def from_checkpoint(cls, model: torch.nn.Module, checkpoint_dir: str,
+                        **kw) -> "Predictor":
+        """A predictor over ``model`` with the params of the latest
+        checkpoint under ``checkpoint_dir`` loaded into it (a params-only
+        restore: no optimizer state is read). ``kw`` go to the
+        constructor. A model already sharded over a mesh takes its
+        chunks."""
+        from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+            CheckpointManager,
+        )
+
+        params = CheckpointManager(checkpoint_dir).restore_params()
+        if params is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {checkpoint_dir}")
+        model.load_state_dict(tp_lib.local_state_dict(model, params))
+        return cls(model, **kw)
 
     def _init_mems(self):
         cfg = self.model.config

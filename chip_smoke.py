@@ -260,6 +260,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    within 1e-4, which the same step with dx, then dK, zeroed in #19's
    output must break, and in bf16 both fused steps' gaps to einsum; one
    profiled B=256 S=50 step with and without ``qkv_fusion``.
+6i. Checkpoint, resume and warm start through ``driver.main`` at
+   bert-base, S=50, bf16, ``--attention_impl fused --use_fused_mag``
+   (#1, #3, #25, #26), over 144/48/48 (3 steps an epoch, 2 epochs), in a
+   temporary directory deleted afterwards: two uninterrupted runs end at
+   the same params, moments, count, generator state and step bit for bit;
+   so do a run stopped mid-epoch (``--save_every_steps 1 --max_steps 2``)
+   and one stopped at epoch 0's end (``--max_steps 3``), each then
+   ``--resume``d; ``--export_hf`` writes the encoder as .bin (the second
+   straight run) and .safetensors (the epoch resume), and a fresh run
+   warm-started from each (``--pretrained_checkpoint``, one step at
+   learning rate 0, saved) holds the file's encoder bit for bit and the
+   fresh draw's MAG and classifier; ``--predict_only --wire_dtype
+   bfloat16`` prints finite test scores; a MAG-XLNet run (#11, #13, #25,
+   #26) stopped after one step and resumed. Every run's launches are
+   checked. Then a bert-base checkpoint (vocabulary 30522) after one step:
+   its bytes, its save and restore wall times (the read warm in the page
+   cache), and a B=48 train step's wall time with and without a save
+   after it, printed as a ``{"checkpoint": ...}`` line.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -5684,6 +5702,367 @@ def qkvproj_grad_check(args, rng, fa):
               + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in gaps[:4]))
 
 
+CKPT_SPLITS = (144, 48, 48)   # phase 6i: 3 train steps an epoch at 48,
+#                               one dev and one test batch at 128
+CKPT_TIMING_STEPS = 3         # steps timed with and without a save each
+
+
+def _ckpt_run(argv, fa, card, want, tag):
+    """``driver.main(argv)`` in this process: exit 0 and exactly the
+    launch counts ``want`` (``_want``'s keywords). Returns (stdout,
+    counts)."""
+    import io
+
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch import driver
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    stdout = io.StringIO()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(fa)
+    text = stdout.getvalue()
+    print(f"6i {tag}: exit {rc}, {wall:.2f} s wall on {card}")
+    if rc != 0:
+        print(text)
+        raise AssertionError(f"6i {tag}: driver.main exited {rc}")
+    want = _want(fa, **want)
+    if counts != want:
+        raise AssertionError(f"6i {tag}: launch counts {counts} != {want}")
+    for line in text.splitlines():
+        if line.startswith("epoch:"):
+            fields = dict(kv.split(":", 1) for kv in line.split(", "))
+            for key in ("train_loss", "valid_loss"):
+                if not math.isfinite(float(fields[key])):
+                    raise AssertionError(f"6i {tag}: non-finite {key}")
+    return text, counts
+
+
+def _same_checkpoints(a_dir, b_dir, tag):
+    """The latest checkpoints of two runs hold the same bits: params,
+    moments, count, generator state and step. Names what differs."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+        TRAIN_STATE_FILE,
+        CheckpointManager,
+    )
+
+    a, b = CheckpointManager(a_dir), CheckpointManager(b_dir)
+    if a.latest_step() != b.latest_step():
+        raise AssertionError(f"6i {tag}: latest steps {a.latest_step()} "
+                             f"!= {b.latest_step()}")
+    pa, pb = a.restore_params(), b.restore_params()
+    ta, tb = (torch.load(os.path.join(m.directory, str(m.latest_step()),
+                                      TRAIN_STATE_FILE), weights_only=True)
+              for m in (a, b))
+    differ = sorted(k for k in pa if not torch.equal(pa[k], pb[k]))
+    for key in ("exp_avg", "exp_avg_sq"):
+        ma, mb = ta["opt_state"][key], tb["opt_state"][key]
+        differ += sorted(f"{key}:{k}" for k in ma
+                         if not torch.equal(ma[k], mb[k]))
+    if (ta["step"], ta["opt_state"]["count"]) != (
+            tb["step"], tb["opt_state"]["count"]):
+        differ.append("step/count")
+    if not torch.equal(ta["rng"], tb["rng"]):
+        differ.append("rng")
+    print(f"6i {tag}: {len(pa)} params, their moments, count, rng and step "
+          f"at step {a.latest_step()}: "
+          f"{'bit for bit equal' if not differ else 'DIFFER'}")
+    if differ:
+        raise AssertionError(f"6i {tag}: {len(differ)} entries differ, "
+                             f"e.g. {differ[:8]}")
+
+
+def _fresh_bert(seed, dtype, synthetic_vocab=True):
+    """The model the driver builds at bert-base width from ``--synthetic
+    --seed seed`` (its vocabulary, the fused attention and gate), with the
+    params ``Trainer.init_state(seed)`` draws; bert-base's own vocabulary
+    of 30522 when not ``synthetic_vocab``."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.data import synthetic
+    from bert_multimodal_transformer_tpu_torch.data.tokenization import (
+        WordPieceTokenizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    vocab = WordPieceTokenizer.from_wordlist(synthetic.vocabulary())
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="fused")
+    if synthetic_vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=max(vocab.vocab_size, 128))
+    model = MagBertForSequenceClassification(
+        cfg, MultimodalConfig(use_fused_kernel=True), ds.visual_dim,
+        ds.acoustic_dim, dtype, device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def _check_warm_start(ckpt_dir, hf_path, fresh, layers, tag):
+    """The warm-started run's checkpoint (one step at learning rate 0,
+    which moves no param): the encoder equal bit for bit to the HF file
+    mapped onto the port's names, MAG and the classifier equal to the
+    driver's fresh draw, the encoder not."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.utils import convert
+    from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    got = CheckpointManager(ckpt_dir).restore_params()
+    hf = convert._strip_prefix(convert.load_torch_state_dict(hf_path))
+    mapped = convert.convert_bert_params(hf, layers)
+    fresh_sd = fresh.state_dict()
+    bad = [k for k, v in mapped.items() if not torch.equal(got[k], v)]
+    head = [k for k in got if k not in mapped]
+    if sorted(head) != sorted(k for k in fresh_sd if ".MAG." in k
+                              or k.startswith("classifier.")):
+        raise AssertionError(f"6i {tag}: not loaded from the file: {head}")
+    bad += [k for k in head if not torch.equal(got[k], fresh_sd[k].cpu())]
+    same_enc = [k for k in mapped if torch.equal(got[k],
+                                                 fresh_sd[k].cpu())]
+    print(f"6i {tag}: {len(mapped)} encoder tensors equal to {hf_path} "
+          f"bit for bit, {len(head)} MAG/classifier tensors at the fresh "
+          f"init: {'yes' if not bad else 'NO'}")
+    if bad or same_enc:
+        raise AssertionError(f"6i {tag}: differ {bad[:8]}, encoder left "
+                             f"fresh {same_enc[:8]}")
+
+
+def checkpoint_timing(args, card):
+    """The save and restore wall time of a bert-base checkpoint (bf16
+    compute, fp32 params and moments, after one step), its bytes, and one
+    train step's wall time at the driver's B=48 S=50 with and without a
+    save after it (``--save_every_steps 1``). The restore reads files just
+    written: warm in the page cache."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import DatasetConfig
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    ds = DatasetConfig.mosi()
+    model = _fresh_bert(args.seed, torch.bfloat16,
+                        synthetic_vocab=False)
+    trainer = Trainer(model=model, tx=make_optimizer(1e-5, 100))
+    state = trainer.init_state(args.seed)
+    batch = _device_batch(make_split(
+        np.random.default_rng([args.seed, 23]), TRAIN_BATCH, S_SERVE,
+        model.config.vocab_size, ds.visual_dim, ds.acoustic_dim).as_tuple())
+    trainer._train_step(state, batch)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    root = tempfile.mkdtemp(prefix="ckpt_timing_")
+    try:
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(state, step=state.step)
+        save_s = time.perf_counter() - t0
+        n_bytes = mgr.step_bytes(state.step)
+        t0 = time.perf_counter()
+        mgr.restore(state, state.step)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.restore_params()
+        params_s = time.perf_counter() - t0
+
+        def steps(save):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CKPT_TIMING_STEPS):
+                trainer._train_step(state, batch)
+                if save:
+                    mgr.save(state, step=state.step)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / CKPT_TIMING_STEPS * 1e3
+
+        rounds = [steps(s) for s in (False, True, True, False)]
+    finally:
+        shutil.rmtree(root)
+    out = {"params": n_params, "bytes": n_bytes, "save_s": save_s,
+           "restore_s": restore_s, "restore_params_s": params_s,
+           "step_ms": (rounds[0] + rounds[3]) / 2,
+           "step_with_save_ms": (rounds[1] + rounds[2]) / 2}
+    print(f"6i checkpoint at bert-base on {card}: {n_params} params, "
+          f"{n_bytes} bytes on disk; save {save_s:.3f} s, restore "
+          f"{restore_s:.3f} s (params only {params_s:.3f} s; warm page "
+          f"cache); a B={TRAIN_BATCH} S={S_SERVE} train step "
+          f"{out['step_ms']:.1f} ms, with a save after it "
+          f"{out['step_with_save_ms']:.1f} ms (rounds {rounds})")
+    return out
+
+
+def checkpoint_driver_path(args, fa, card):
+    """Phase 6i: checkpoint, resume and warm start through ``driver.main``
+    at bert-base, S=50, bf16, ``--attention_impl fused --use_fused_mag``,
+    over 144/48/48 (3 steps an epoch, 2 epochs), in a temporary directory
+    deleted afterwards: two uninterrupted runs bit for bit equal; a
+    mid-epoch stop (``--save_every_steps 1 --max_steps 2``) and an epoch
+    stop (``--max_steps 3``), each ``--resume``d to the same state bit for
+    bit; ``--export_hf`` (.bin from the second straight run, .safetensors
+    from the epoch resume), each warm-starting a fresh run whose encoder
+    is the file's and whose MAG and classifier are the fresh draw;
+    ``--predict_only --wire_dtype bfloat16`` with finite scores; a
+    MAG-XLNet mid-epoch resume. Then ``checkpoint_timing``. Returns
+    ({path: counts}, timing)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        XLNetConfig,
+    )
+
+    layers = BertConfig.bert_base_uncased().num_hidden_layers
+    xl_layers = XLNetConfig.xlnet_base_cased().n_layer
+
+    def bert(steps, evals):
+        """#1/#3/#25/#26 launches of a bert-base run with ``steps`` train
+        steps and ``evals`` eval batches (a launch a layer a batch; the
+        gate once a batch)."""
+        return dict(attn_fwd_packed=layers * (steps + evals),
+                    attn_bwd_packed_saved=layers * steps,
+                    mag_fwd=steps + evals, mag_bwd=steps)
+
+    base = ["--model", "bert-base-uncased", "--dataset", "mosi",
+            "--synthetic", "--synthetic_sizes", *map(str, CKPT_SPLITS),
+            "--use_fused_mag", "--attention_impl", "fused",
+            "--compute_dtype", "bfloat16", "--seed", str(args.seed)]
+    two = base + ["--n_epochs", "2"]
+    n_steps = CKPT_SPLITS[0] // TRAIN_BATCH
+    evals = sum(-(-n // EVAL_BATCH) for n in CKPT_SPLITS[1:])
+    paths = {"checkpoint_resume": {}, "checkpoint_warm_start": {},
+             "checkpoint_predict": {}, "checkpoint_xlnet": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            paths[path][k] = paths[path].get(k, 0) + v
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_6i_")
+    try:
+        d = {name: os.path.join(root, name) for name in (
+            "straight", "twin", "mid", "epoch", "warm_bin", "warm_st",
+            "xlnet")}
+        hf_bin = os.path.join(root, "hf.bin")
+        hf_st = os.path.join(root, "hf.safetensors")
+        full = bert(2 * n_steps, 2 * evals)
+        add("checkpoint_resume", _ckpt_run(
+            two + ["--checkpoint_dir", d["straight"]], fa, card, full,
+            "straight")[1])
+        add("checkpoint_resume", _ckpt_run(
+            two + ["--checkpoint_dir", d["twin"], "--export_hf", hf_bin],
+            fa, card, full, "straight twin, --export_hf .bin")[1])
+        _same_checkpoints(d["straight"], d["twin"], "two uninterrupted runs")
+        shutil.rmtree(d["twin"])
+
+        add("checkpoint_resume", _ckpt_run(
+            two + ["--checkpoint_dir", d["mid"], "--save_every_steps", "1",
+                   "--max_steps", "2"], fa, card, bert(2, 0),
+            "mid-epoch stop after 2 steps")[1])
+        text, counts = _ckpt_run(
+            two + ["--checkpoint_dir", d["mid"], "--resume"], fa, card,
+            bert(2 * n_steps - 2, 2 * evals), "mid-epoch resume")
+        add("checkpoint_resume", counts)
+        if "Resuming at epoch 0, batch 2 (step 2)" not in text:
+            raise AssertionError(f"6i: no mid-epoch resume line in {text}")
+        _same_checkpoints(d["straight"], d["mid"], "mid-epoch resume")
+        shutil.rmtree(d["mid"])
+
+        add("checkpoint_resume", _ckpt_run(
+            two + ["--checkpoint_dir", d["epoch"], "--max_steps",
+                   str(n_steps)], fa, card, bert(n_steps, evals),
+            "stop at epoch 0's end")[1])
+        text, counts = _ckpt_run(
+            two + ["--checkpoint_dir", d["epoch"], "--resume",
+                   "--export_hf", hf_st], fa, card,
+            bert(n_steps, evals),
+            "epoch resume, --export_hf .safetensors")
+        add("checkpoint_resume", counts)
+        if f"Resuming at epoch 1, batch 0 (step {n_steps})" not in text:
+            raise AssertionError(f"6i: no epoch resume line in {text}")
+        _same_checkpoints(d["straight"], d["epoch"], "epoch resume")
+        shutil.rmtree(d["epoch"])
+
+        fresh = _fresh_bert(args.seed, torch.bfloat16)
+        for name, hf in (("warm_bin", hf_bin), ("warm_st", hf_st)):
+            add("checkpoint_warm_start", _ckpt_run(
+                base + ["--n_epochs", "1", "--checkpoint_dir", d[name],
+                        "--pretrained_checkpoint", hf, "--learning_rate",
+                        "0", "--save_every_steps", "1", "--max_steps", "1"],
+                fa, card, bert(1, 0),
+                f"warm start from {os.path.basename(hf)}")[1])
+            _check_warm_start(d[name], hf, fresh, layers, name)
+            shutil.rmtree(d[name])
+        del fresh
+
+        text, counts = _ckpt_run(
+            base + ["--checkpoint_dir", d["straight"], "--predict_only",
+                    "--wire_dtype", "bfloat16"], fa, card,
+            dict(attn_fwd_packed=layers * (-(-CKPT_SPLITS[2] // EVAL_BATCH)),
+                 mag_fwd=-(-CKPT_SPLITS[2] // EVAL_BATCH)),
+            "--predict_only --wire_dtype bfloat16")
+        add("checkpoint_predict", counts)
+        scores = json.loads(text.strip().splitlines()[-1])
+        print(f"6i --predict_only: {scores}")
+        if (set(scores) != {"test_acc", "test_mae", "test_corr",
+                            "test_f_score"}
+                or not all(math.isfinite(v) for v in scores.values())):
+            raise AssertionError(f"6i: predict_only printed {scores}")
+
+        xl = ["--model", "xlnet-base-cased", "--dataset", "mosi",
+              "--synthetic", "--synthetic_sizes", *map(str, CKPT_SPLITS),
+              "--use_fused_mag", "--attention_impl", "fused",
+              "--compute_dtype", "bfloat16", "--seed", str(args.seed),
+              "--n_epochs", "1", "--checkpoint_dir", d["xlnet"]]
+        add("checkpoint_xlnet", _ckpt_run(
+            xl + ["--save_every_steps", "1", "--max_steps", "1"], fa, card,
+            dict(attn_fwd_rel=xl_layers, attn_bwd_rel_saved=xl_layers,
+                 mag_fwd=1,
+                 mag_bwd=1), "MAG-XLNet stop after 1 step")[1])
+        text, counts = _ckpt_run(
+            xl + ["--resume"], fa, card,
+            dict(attn_fwd_rel=xl_layers * (n_steps - 1 + evals),
+                 attn_bwd_rel_saved=xl_layers * (n_steps - 1),
+                 mag_fwd=n_steps - 1 + evals, mag_bwd=n_steps - 1),
+            "MAG-XLNet resume")
+        add("checkpoint_xlnet", counts)
+        if "Resuming at epoch 0, batch 1 (step 1)" not in text or \
+                "epoch:0" not in text:
+            raise AssertionError(f"6i: MAG-XLNet resume printed {text}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timing = checkpoint_timing(args, card)
+    return paths, timing
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6088,6 +6467,11 @@ def main() -> int:
     # the B=256 step with and without it
     qkvproj_driver_counts = qkvproj_driver_path(args, qp_rng, fa, card)
 
+    # 6i. Checkpoint, resume and warm start through the driver; the
+    # checkpoint's save and restore times and bytes
+    ckpt_driver_counts, ckpt_timing = checkpoint_driver_path(args, fa, card)
+    print(json.dumps({"checkpoint": ckpt_timing, "card": card}))
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -6116,7 +6500,9 @@ def main() -> int:
                  **{path: c[name] for path, c in tp_driver_counts.items()},
                  "qkvproj_serving": qkvproj_serve_counts[name],
                  **{path: c[name] for path, c in
-                    qkvproj_driver_counts.items()}}
+                    qkvproj_driver_counts.items()},
+                 **{path: c[name] for path, c in
+                    ckpt_driver_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"

@@ -2,7 +2,9 @@
 parser's flags and defaults, the synthetic data, the tokenizer and the
 loaders' batches bit for bit, then ``driver.main`` end to end on the CPU at
 ``--tiny`` (the fused MAG gate and fused attention through their plain
-versions) and every flag that is not ported yet exiting with status 2.
+versions), every flag that is not ported yet exiting with status 2, and the
+JAX driver's refusals of the checkpoint flags (ROADMAP A.6, ported: the
+runs themselves are ``tests/test_torch_resume.py``).
 """
 
 import argparse
@@ -355,14 +357,64 @@ def test_driver_requires_data_source(capsys):
     assert "--data_pickle or --synthetic" in capsys.readouterr().err
 
 
+def _a6_refusal(argv, tmp):
+    """The JAX driver's refusal of a checkpoint-flag case (the paths under
+    ``tmp``), as the port must print it. A missing
+    ``--pretrained_checkpoint`` and an ``--export_hf`` path in a missing
+    directory fail in the JAX driver with the exception its ``torch.load``
+    and ``torch.save`` raise; the port says the same up front."""
+    from bert_multimodal_transformer_tpu.utils.convert import (
+        load_torch_state_dict,
+    )
+
+    flag = argv[0]
+    if flag == "--save_every_steps":
+        return "error: --save_every_steps requires --checkpoint_dir"
+    if flag == "--predict_only":
+        return "error: --predict_only requires --checkpoint_dir"
+    if argv[-1] == "--predict_only":
+        return f"error: no checkpoint under {tmp}/empty"
+    if flag == "--checkpoint_dir":
+        return (f"error: --checkpoint_dir {tmp}/full already contains "
+                "checkpoints (latest step 4); pass --resume to continue that "
+                "run or use a fresh directory")
+    if flag == "--pretrained_checkpoint":
+        with pytest.raises(FileNotFoundError) as e:
+            load_torch_state_dict(argv[1])
+        return f"error: --pretrained_checkpoint: {e.value}"
+    with pytest.raises(RuntimeError) as e:
+        torch.save({}, argv[1])
+    return f"error: --export_hf: {e.value}"
+
+
+def _saved_checkpoint(directory):
+    """A checkpoint at step 4 in ``directory`` (of a one-Linear state)."""
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        TrainState,
+    )
+    from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    model = torch.nn.Linear(2, 2)
+    state = TrainState(step=4, model=model,
+                       optimizer=make_optimizer(1e-3, 8)(
+                           model.named_parameters()),
+                       generator=torch.Generator())
+    CheckpointManager(directory).save(state, step=4)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--vocab", "spiece.model", "--model", "xlnet-base-cased"], "A.15"),
-    (["--checkpoint_dir", "ckpt"], "A.6"),
-    (["--resume"], "A.6"),
+    (["--checkpoint_dir", "{tmp}/full"], "A.6"),
+    (["--checkpoint_dir", "{tmp}/empty", "--predict_only"], "A.6"),
     (["--save_every_steps", "5"], "A.6"),
     (["--predict_only"], "A.6"),
-    (["--pretrained_checkpoint", "model.bin"], "A.6"),
-    (["--export_hf", "out.bin"], "A.6"),
+    (["--pretrained_checkpoint", "{tmp}/model.bin"], "A.6"),
+    (["--export_hf", "{tmp}/no_dir/out.bin"], "A.6"),
     (["--export_serving", "out.pt2"], "A.9"),
     (["--model_parallel", "2", "--model", "xlnet-base-cased"], "A.10"),
     (["--fsdp"], "A.10"),
@@ -375,17 +427,28 @@ def test_driver_requires_data_source(capsys):
     (["--attention_impl", "flash"], "A.2"),
     (["--rng_impl", "threefry2x32"], "A.5"),
 ])
-def test_unported_flag_exits_2_naming_its_item(argv, item, capsys):
+def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
+                                               tmp_path):
     """A flag whose item is open exits 2 naming it. ``--mem_len`` (A.8) is
     ported: on the default model, MAG-BERT, it exits 2 with the JAX
     driver's family refusal and names no item (the XLNet run is
     ``tests/test_torch_mems.py``). ``--model_parallel`` and
     ``--tp_shard_attention`` are ported for MAG-BERT
     (``tests/test_torch_tensor_parallel.py``); for XLNet they still exit 2
-    naming A.10."""
+    naming A.10. The checkpoint flags (A.6) are ported: their cases are the
+    JAX driver's refusals of them, each exiting 2 with its message
+    (``_a6_refusal``) before anything is built."""
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    if item == "A.6" and argv[0] == "--checkpoint_dir":
+        (tmp_path / "empty").mkdir()
+        _saved_checkpoint(str(tmp_path / "full"))
     rc = tdriver.main(argv + ["--synthetic", "--tiny", "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 2
+    if item == "A.6":
+        assert err.strip() == _a6_refusal(argv, tmp_path)
+        assert "ROADMAP" not in err
+        return
     if item == "A.8":
         assert "--mem_len is XLNet segment recurrence" in err
         assert "the BERT family has no memory mechanism" in err
