@@ -1,14 +1,15 @@
 """Tokenizers: a copy of the JAX package's ``data/tokenization.py`` for the
-BERT family (``BasicTokenizer``, ``WordPieceTokenizer``) and XLNet's
-word-list stand-in (``SimpleUnigramTokenizer``), with ``get_tokenizer``.
-The port cannot import that package, whose ``__init__`` pulls in jax
-(ROADMAP A.12); the tests hold the two equal.
+BERT family (``BasicTokenizer``, ``WordPieceTokenizer``), XLNet's
+SentencePiece tokenizer over a ``.model`` file
+(``SentencePieceTokenizer``) and its word-list stand-in
+(``SimpleUnigramTokenizer``), with ``get_tokenizer``. The port cannot
+import that package, whose ``__init__`` pulls in jax (ROADMAP A.12); the
+tests hold the two equal.
 
 The pipeline uses a tokenizer through three APIs: per-word
 ``tokenize(word)``, ``convert_tokens_to_ids(tokens)`` and the cls/sep/pad
 special tokens; modality alignment depends on per-word subword counts.
-Vocabularies are always local files or in-memory lists. The SentencePiece
-tokenizer over a real ``spiece.model`` waits for ROADMAP A.15.
+Vocabularies are always local files or in-memory lists.
 """
 
 from __future__ import annotations
@@ -303,10 +304,63 @@ class SimpleUnigramTokenizer:
         return [self.ids_to_tokens.get(i, self.unk_token) for i in ids]
 
 
+class SentencePieceTokenizer:
+    """XLNet tokenizer over a SentencePiece ``.model`` file: the
+    ``sentencepiece`` wheel when it is installed, else the native unigram
+    reader (``data/sentencepiece_native.py``: the proto reader and the
+    Viterbi segmentation)."""
+
+    cls_token = "<cls>"
+    sep_token = "<sep>"
+    pad_token = "<pad>"
+    unk_token = "<unk>"
+
+    def __init__(self, model_path: str, do_lower_case: bool = False):
+        try:
+            import sentencepiece as spm
+
+            self.sp = spm.SentencePieceProcessor()
+        except ImportError:
+            from bert_multimodal_transformer_tpu_torch.data import (
+                sentencepiece_native,
+            )
+
+            self.sp = sentencepiece_native.PurePythonSentencePiece()
+        self.sp.Load(model_path)
+        self.do_lower_case = do_lower_case
+        # A stock xlnet spiece.model holds the specials (<cls>=3, <sep>=4,
+        # <pad>=5): their in-vocab ids keep every id < vocab_size and on the
+        # pretrained embedding rows. Only a special the model lacks gets an
+        # id appended after the vocabulary.
+        self._special = {}
+        next_id = self.sp.GetPieceSize()
+        for tok in (self.sep_token, self.cls_token, self.pad_token):
+            piece_id = self.sp.PieceToId(tok)
+            if piece_id == self.sp.unk_id() and tok != self.unk_token:
+                self._special[tok] = next_id
+                next_id += 1
+            else:
+                self._special[tok] = piece_id
+
+    @property
+    def pad_token_id(self) -> int:
+        return self._special[self.pad_token]
+
+    def tokenize(self, text: str) -> List[str]:
+        if self.do_lower_case:
+            text = text.lower()
+        return list(self.sp.EncodeAsPieces(text))
+
+    def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:
+        return [self._special[t] if t in self._special
+                else self.sp.PieceToId(t) for t in tokens]
+
+
 def get_tokenizer(model: str, vocab_path: Optional[str] = None):
     """Model-name dispatch (the JAX package's ``get_tokenizer``), from local
-    files only. XLNet takes a word-list file (``SimpleUnigramTokenizer``);
-    a SentencePiece ``.model`` raises naming ROADMAP A.15."""
+    files only. XLNet takes a SentencePiece ``.model``
+    (``SentencePieceTokenizer``) or a word-list file
+    (``SimpleUnigramTokenizer``)."""
     if model.startswith("bert"):
         if vocab_path is None:
             raise ValueError(
@@ -319,9 +373,7 @@ def get_tokenizer(model: str, vocab_path: Optional[str] = None):
             raise ValueError(
                 "XLNet tokenizer needs a local spiece.model or vocab list")
         if vocab_path.endswith(".model"):
-            raise NotImplementedError(
-                "the SentencePiece tokenizer (a .model vocab) is not ported "
-                "yet (ROADMAP A.15)")
+            return SentencePieceTokenizer(vocab_path)
         with open(vocab_path, encoding="utf-8") as f:
             words = [w.strip() for w in f if w.strip()]
         return SimpleUnigramTokenizer.from_wordlist(words)

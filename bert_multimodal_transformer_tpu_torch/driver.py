@@ -18,7 +18,13 @@ interrupted run where it stopped, bit for bit, adopting its seed;
 params (``serving.py::Predictor.from_checkpoint``) and prints one JSON
 line; ``--pretrained_checkpoint`` warm-starts the encoder from a local HF
 ``pytorch_model.bin`` / ``model.safetensors`` and ``--export_hf`` writes
-the trained encoder back in HF names (``utils/convert.py``). Flags whose
+the trained encoder back in HF names (``utils/convert.py``).
+``--export_serving PATH`` writes the trained forward as a portable serving
+artifact after training (``serving.py::export_forward``, a
+``torch.export`` program that ``torch`` alone loads), ``--remat`` (with
+``--remat_policy``) rematerializes the encoder layers
+(``models/remat.py``), and ``--vocab *.model`` tokenizes XLNet's text with
+SentencePiece (``data/tokenization.py``). Flags whose
 port has not landed yet exit
 with status 2 and a message naming their ROADMAP item; none is ignored
 silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``, and
@@ -98,9 +104,6 @@ FAMILY_ERRORS = (
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--vocab *.model (SentencePiece)",
-     lambda a: _xlnet(a) and (a.vocab or "").endswith(".model"), "A.15"),
-    ("--export_serving", lambda a: a.export_serving is not None, "A.9"),
     ("--model_parallel (XLNet)",
      lambda a: _xlnet(a) and a.model_parallel != 1, "A.10"),
     ("--tp_shard_attention (XLNet)",
@@ -110,7 +113,6 @@ UNPORTED = (
     ("--num_processes", lambda a: a.num_processes != 1, "A.10"),
     ("--compiler_options", lambda a: a.compiler_options is not None,
      "A.10"),
-    ("--remat", lambda a: a.remat, "A.14"),
     ("--attention_impl flash", lambda a: a.attention_impl == "flash",
      "A.2"),
     ("--rng_impl threefry2x32", lambda a: a.rng_impl == "threefry2x32",
@@ -142,9 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_pickle", type=str, default=None,
                    help="Path to {mosi,mosei}.pkl in the documented format")
     p.add_argument("--vocab", type=str, default=None,
-                   help="Local vocab.txt (BERT) or word list (XLNet; a "
-                        "SentencePiece .model is not ported yet, ROADMAP "
-                        "A.15)")
+                   help="Local vocab.txt (BERT), or a SentencePiece "
+                        "spiece.model or word list (XLNet)")
     p.add_argument("--pretrained_checkpoint", type=str, default=None,
                    help="Local HF pytorch_model.bin or model.safetensors "
                         "(or a directory holding one) to warm-start the "
@@ -195,7 +196,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--pretrained_checkpoint; MAG and classifier "
                         "params are not exported)")
     p.add_argument("--export_serving", type=str, default=None,
-                   help="not ported yet (ROADMAP A.9)")
+                   help="After training, export the deterministic forward "
+                        "(weights captured) as a torch.export program at "
+                        "this path, loadable for inference without this "
+                        "package's model code (serving.py; symbolic batch "
+                        "dim, portable einsum attention). A '.json' "
+                        "sidecar records the calling convention")
     p.add_argument("--predict_only", action="store_true",
                    help="Skip training: restore --checkpoint_dir's latest "
                         "params and print the test metrics as one JSON "
@@ -203,10 +209,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="Tiny model geometry (smoke tests)")
     p.add_argument("--remat", action="store_true",
-                   help="not ported yet (ROADMAP A.14)")
+                   help="Rematerialize the encoder layers: recompute each "
+                        "layer's activations in the backward "
+                        "(models/remat.py)")
     p.add_argument("--remat_policy", type=str, default="full",
                    choices=["full", "dots"],
-                   help="With --remat (not ported yet, ROADMAP A.14)")
+                   help="With --remat (BERT): full recompute (lowest "
+                        "memory) or save the matmul outputs (faster "
+                        "backward)")
     p.add_argument("--use_zero", action="store_true",
                    help="Include exactly-zero labels in test metrics "
                         "(reference test_score_model use_zero flag)")
@@ -540,6 +550,7 @@ def _train(args, mesh):
         cfg = (XLNetConfig.tiny(vocab_size) if args.tiny
                else XLNetConfig.xlnet_base_cased())
         model_cls = MagXLNetForSequenceClassification
+        remat = (args.remat,)
     else:
         cfg = (BertConfig.tiny(vocab_size) if args.tiny else
                (BertConfig.bert_large_uncased()
@@ -550,6 +561,7 @@ def _train(args, mesh):
             cfg = dataclasses.replace(
                 cfg, max_position_embeddings=args.max_seq_length)
         model_cls = MagBertForSequenceClassification
+        remat = (args.remat, args.remat_policy)
     if args.synthetic and not args.tiny:
         # the synthetic tokenizer's vocabulary, the model's geometry
         cfg = dataclasses.replace(cfg, vocab_size=max(vocab_size, 128))
@@ -566,7 +578,7 @@ def _train(args, mesh):
             cfg = dataclasses.replace(cfg, mem_len=args.mem_len)
     model = model_cls(
         cfg, mm, ds.visual_dim, ds.acoustic_dim,
-        dtype_from_str(args.compute_dtype), device=device,
+        dtype_from_str(args.compute_dtype), *remat, device=device,
         generator=torch.Generator(device=device).manual_seed(args.seed))
 
     # ---- training -------------------------------------------------------
@@ -658,14 +670,27 @@ def _train(args, mesh):
         max_steps=args.max_steps or None)
     if ckpt is not None:
         ckpt.close()
-    if args.export_hf:
+    if args.export_hf or args.export_serving:
         full = tp_lib.full_state_dict(model)  # every rank gathers
-        if is_main:
-            export = (convert_lib.export_xlnet_state_dict(full, cfg.n_layer)
-                      if is_xlnet else convert_lib.export_bert_state_dict(
-                          full, cfg.num_hidden_layers))
-            convert_lib.save_hf_state_dict(export, args.export_hf)
-            print(f"Exported HF-format weights to {args.export_hf}")
+    if args.export_hf and is_main:
+        export = (convert_lib.export_xlnet_state_dict(full, cfg.n_layer)
+                  if is_xlnet else convert_lib.export_bert_state_dict(
+                      full, cfg.num_hidden_layers))
+        convert_lib.save_hf_state_dict(export, args.export_hf)
+        print(f"Exported HF-format weights to {args.export_hf}")
+    if args.export_serving and is_main:
+        from bert_multimodal_transformer_tpu_torch import serving
+
+        # the full-size weights into an unsharded copy (serving.py)
+        program = serving.export_forward(
+            model, full, seq_len=args.max_seq_length,
+            visual_dim=ds.visual_dim, acoustic_dim=ds.acoustic_dim,
+            platforms=("cuda", "cpu"))
+        serving.save_artifact(
+            args.export_serving, program,
+            meta={"family": "xlnet" if is_xlnet else "bert",
+                  "model": args.model, "dataset": args.dataset})
+        print(f"Exported serving artifact to {args.export_serving}")
     if logger is not None:
         logger.finish()
     return 0, summary

@@ -52,6 +52,11 @@ from bert_multimodal_transformer_tpu_torch.config import (
     resolve_device,
 )
 from bert_multimodal_transformer_tpu_torch.models.mag import MAG
+from bert_multimodal_transformer_tpu_torch.models.remat import (
+    check_remat_outputs,
+    check_remat_policy,
+    remat_call,
+)
 from bert_multimodal_transformer_tpu_torch.ops.activations import ACT2FN
 from bert_multimodal_transformer_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -328,10 +333,19 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
+    """The layer stack. ``remat`` rematerializes each ``BertLayer``
+    (``models/remat.py``) under ``remat_policy``: "full" recomputes it
+    whole, "dots" keeps its products' outputs."""
+
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
-                 *, device=None):
+                 remat: bool = False, remat_policy: str = "full", *,
+                 device=None):
         super().__init__()
+        if remat:
+            check_remat_policy(remat_policy)
         self.config = config
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.layer = nn.ModuleList(
             BertLayer(config, dtype, device=device)
             for _ in range(config.num_hidden_layers))
@@ -344,6 +358,7 @@ class BertEncoder(nn.Module):
                 output_hidden_states: bool = False,
                 output_attentions: bool = False,
                 rngs: Optional[DropoutRngs] = None):
+        check_remat_outputs(self.remat, output_attentions)
         all_hidden = [] if output_hidden_states else None
         all_attn = [] if output_attentions else None
         for i, layer in enumerate(self.layer):
@@ -354,8 +369,10 @@ class BertEncoder(nn.Module):
             hm = None
             if head_mask is not None:
                 hm = head_mask[i] if head_mask.dim() == 2 else head_mask
-            out = layer(hidden, attn_bias, hm, attention_mask_2d,
-                        deterministic, output_attentions, rngs)
+            args = (hidden, attn_bias, hm, attention_mask_2d, deterministic,
+                    output_attentions, rngs)
+            out = (remat_call(layer, rngs, self.remat_policy, *args)
+                   if self.remat else layer(*args))
             if output_attentions:
                 hidden, probs = out
                 all_attn.append(probs)
@@ -443,15 +460,17 @@ class MagBertModel(nn.Module):
     """BERT backbone with early-fusion MAG: embeddings → MAG(emb, visual,
     acoustic) → encoder → pooler. ``device=None`` builds on the card
     (``config.resolve_device``: raises without one); pass ``device="cpu"``
-    for the CPU."""
+    for the CPU. ``remat``/``remat_policy``: see ``BertEncoder``."""
 
     def __init__(self, config: BertConfig,
                  multimodal_config: MultimodalConfig, visual_dim: int,
                  acoustic_dim: int, dtype: torch.dtype = torch.float32,
-                 *, device=None,
+                 remat: bool = False, remat_policy: str = "full", *,
+                 device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.multimodal_config = multimodal_config
         self.dtype = dtype
         device = resolve_device(device)
         if generator is None:
@@ -463,7 +482,8 @@ class MagBertModel(nn.Module):
                        dropout_prob=mm.dropout_prob,
                        use_fused_kernel=mm.use_fused_kernel, device=device,
                        generator=generator)
-        self.encoder = BertEncoder(config, dtype, device=device)
+        self.encoder = BertEncoder(config, dtype, remat, remat_policy,
+                                   device=device)
         self.pooler = BertPooler(config, dtype, device=device)
         init_weights(self, config.initializer_range, generator)
 
@@ -530,17 +550,19 @@ class MagBertForSequenceClassification(nn.Module):
     def __init__(self, config: BertConfig,
                  multimodal_config: MultimodalConfig, visual_dim: int,
                  acoustic_dim: int, dtype: torch.dtype = torch.float32,
-                 *, device=None,
+                 remat: bool = False, remat_policy: str = "full", *,
+                 device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.multimodal_config = multimodal_config
         self.dtype = dtype
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.bert = MagBertModel(config, multimodal_config, visual_dim,
-                                 acoustic_dim, dtype, device=device,
-                                 generator=generator)
+                                 acoustic_dim, dtype, remat, remat_policy,
+                                 device=device, generator=generator)
         self.classifier = _linear(config.hidden_size, config.num_labels,
                                   device)
         init_weights(self.classifier, config.initializer_range, generator)

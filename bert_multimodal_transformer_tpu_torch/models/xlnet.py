@@ -38,8 +38,9 @@ returns each layer's new memory (``_cache_mem``: the layer's input, cut to
 
 The two branches differ by rounding only. Two-stream attention
 (``perm_mask``, ``target_mapping``), ``head_mask``, ``inputs_embeds``,
-``output_hidden_states``, ``output_attentions``, ``labels=`` and the memory
-are ported; ``remat`` raises naming ROADMAP A.14.
+``output_hidden_states``, ``output_attentions``, ``labels=``, the memory
+and ``remat`` (each ``XLNetLayer`` rematerialized, ``models/remat.py``)
+are ported.
 """
 
 from __future__ import annotations
@@ -64,6 +65,10 @@ from bert_multimodal_transformer_tpu_torch.models.bert import (
     init_weights,
 )
 from bert_multimodal_transformer_tpu_torch.models.mag import MAG
+from bert_multimodal_transformer_tpu_torch.models.remat import (
+    check_remat_outputs,
+    remat_call,
+)
 from bert_multimodal_transformer_tpu_torch.ops.activations import ACT2FN
 from bert_multimodal_transformer_tpu_torch.ops.dropout import (
     DropoutRngs,
@@ -436,7 +441,8 @@ def init_xlnet_weights(module: nn.Module, initializer_range: float,
 class MagXLNetModel(nn.Module):
     """XLNet backbone with MAG injected before layer ``injection_index``.
     ``device=None`` builds on the card (``config.resolve_device``: raises
-    without one); pass ``device="cpu"`` for the CPU."""
+    without one); pass ``device="cpu"`` for the CPU. ``remat``
+    rematerializes each layer whole (JAX's XLNet takes no policy)."""
 
     def __init__(self, config: XLNetConfig,
                  multimodal_config: MultimodalConfig, visual_dim: int,
@@ -444,12 +450,9 @@ class MagXLNetModel(nn.Module):
                  remat: bool = False, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat: the rematerialized layer stack is not ported yet "
-                "(ROADMAP A.14)")
         self.config = config
         self.multimodal_config = multimodal_config
+        self.remat = remat
         self.dtype = dtype
         device = resolve_device(device)
         if generator is None:
@@ -536,6 +539,7 @@ class MagXLNetModel(nn.Module):
         if (input_ids is None) == (inputs_embeds is None):
             raise ValueError(
                 "specify exactly one of input_ids or inputs_embeds")
+        check_remat_outputs(self.remat, output_attentions)
         ref = input_ids if input_ids is not None else inputs_embeds
         rngs = _dropout_rngs(dropout_rng, deterministic, ref)
         device = ref.device
@@ -615,12 +619,14 @@ class MagXLNetModel(nn.Module):
             hm = None
             if head_mask is not None:
                 hm = head_mask[i] if head_mask.dim() == 2 else head_mask
-            out = layer(output_h, output_g, non_tgt_mask, attn_mask, pos_emb,
-                        seg_mat, target_mapping, hm,
-                        deterministic=deterministic, rngs=rngs,
-                        output_attentions=output_attentions,
-                        mask_bias_h=mask_bias_h, mask_bias_g=mask_bias_g,
-                        seg_diff=seg_diff, mems=mems[i])
+            args = (output_h, output_g, non_tgt_mask, attn_mask, pos_emb,
+                    seg_mat, target_mapping, hm)
+            kw = dict(deterministic=deterministic, rngs=rngs,
+                      output_attentions=output_attentions,
+                      mask_bias_h=mask_bias_h, mask_bias_g=mask_bias_g,
+                      seg_diff=seg_diff, mems=mems[i])
+            out = (remat_call(layer, rngs, "full", *args, **kw)
+                   if self.remat else layer(*args, **kw))
             output_h, output_g = out[:2]
             if output_attentions:
                 attentions.append(out[2])
@@ -684,6 +690,7 @@ class MagXLNetForSequenceClassification(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.multimodal_config = multimodal_config
         self.dtype = dtype
         device = resolve_device(device)
         if generator is None:

@@ -76,7 +76,11 @@ took.
 ``fused_attention_packed``, ``fused_attention``,
 ``fused_attention_qkvproj`` and ``fused_rel_attention`` dispatch on the
 tensor's device: a CUDA tensor launches the kernels or raises, a CPU
-tensor takes the plain versions. ``FusedAttentionPacked``,
+tensor takes the plain versions. While ``torch.export`` traces a model
+(``torch.compiler.is_exporting()``), their no-grad branches (and
+``fused_rel_attention_ingredients``') call the kernel's ``magtorch``
+custom op instead (``ops/export_ops.py``), which a serving artifact
+holds. ``FusedAttentionPacked``,
 ``FusedAttention``, ``FusedAttentionQKVProj`` and ``FusedRelAttention`` are
 the autograd functions (the JAX ``_fap_fwd``/``_fap_bwd``,
 ``_fa_fwd``/``_fa_bwd``, ``_faq_fwd``/``_faq_bwd``,
@@ -1022,6 +1026,18 @@ del _fn
 # ---- device dispatch and autograd -------------------------------------------
 
 
+def _traced(name: str, rate: float):
+    """The ``ops/export_ops.py`` custom op that stands for kernel entry
+    ``name`` in a program ``torch.export`` traces (called in place of the
+    kernel while ``torch.compiler.is_exporting()``)."""
+    from bert_multimodal_transformer_tpu_torch.ops import export_ops
+
+    return export_ops.traced_op(name, rate)
+
+
+_TIER_SUFFIX = {"full": "", "hb": "_hb", "fs": "_fs"}
+
+
 def _on(qkv: torch.Tensor) -> str:
     if qkv.device.type not in ("cuda", "cpu"):
         raise ValueError(
@@ -1257,6 +1273,9 @@ def fused_attention_packed(
     tier = packed_tier(s, dh, grad)
     kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
     if not grad:
+        if torch.compiler.is_exporting():
+            return _traced("attn_fwd_packed" + _TIER_SUFFIX[tier], rate)(
+                qkv, attention_mask, n_heads, float(scale))
         if tier == "full":
             return attn_fwd_packed(qkv, attention_mask, **kw)
         if tier == "hb":
@@ -2023,6 +2042,9 @@ def fused_attention_qkvproj(
     x = x.contiguous()
     b3 = b3.reshape(d3)
     if not grad:
+        if torch.compiler.is_exporting():
+            return _traced("attn_fwd_qkvproj", rate)(
+                x, w, b3, attention_mask, n_heads, float(scale))
         return attn_fwd_qkvproj(x, w, b3, attention_mask, n_heads=n_heads,
                                 scale=float(scale), rate=rate, seed=seed)[0]
     return FusedAttentionQKVProj.apply(x, w, b3, attention_mask, n_heads,
@@ -2834,6 +2856,9 @@ def fused_rel_attention(
     q, k, v, ebias = (x.contiguous() for x in (q, k, v, ebias))
     kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
     if not grad:
+        if torch.compiler.is_exporting():
+            return _traced("attn_fwd_rel" + _TIER_SUFFIX[tier], rate)(
+                q, k, v, ebias, n_heads, float(scale))
         if tier == "full":
             return attn_fwd_rel(q, k, v, ebias, **kw)
         if tier == "hb":
@@ -3620,6 +3645,10 @@ def fused_rel_attention_ingredients(
             "gradient, relik_bwd_fits)")
     seed = draw_seed(dropout_rng) if rate > 0.0 else 0
     kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
+    if not grad and torch.compiler.is_exporting():
+        name = ("attn_fwd_relik_fs" if tier == "fs" or not reach
+                else "attn_fwd_relik")
+        return _traced(name, rate)(*xs, n_heads, float(scale))
     if tier == "fs" or not reach:
         if not grad:
             return attn_fwd_relik_fs(*xs, **kw)[0]

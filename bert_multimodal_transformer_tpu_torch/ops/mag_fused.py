@@ -32,7 +32,9 @@ it saves (params, text, visual, acoustic) and its backward runs
 ``use_fused_kernel=False``.
 
 ``mag_gate_fused`` is the entry. A CUDA tensor launches the kernels or
-raises; a CPU tensor takes the plain versions. The kernels take any text
+raises; a CPU tensor takes the plain versions; while ``torch.export``
+traces, the forward is the ``magtorch::mag_fwd`` custom op
+(``ops/export_ops.py``). The kernels take any text
 width D up to ``MAX_D`` (bert-large's 1024) and the true modality widths:
 the TPU's 128-lane padding and its ``d % 128`` fallback have no
 counterpart here.
@@ -389,6 +391,13 @@ def mag_gate_fused(params: Mapping[str, torch.Tensor], text: torch.Tensor,
     tensors = (text, visual, acoustic, *params.values())
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in tensors)):
+        if torch.compiler.is_exporting():
+            # the custom op that stands for #25 in a traced program
+            from bert_multimodal_transformer_tpu_torch.ops import export_ops
+
+            return export_ops.traced_op("mag_fwd")(
+                text, visual, acoustic, [params[k] for k in PARAM_NAMES],
+                float(beta_shift))
         return mag_fwd(params, text, visual, acoustic, beta_shift=beta_shift)
     return MagGateFused.apply(float(beta_shift), text, visual, acoustic,
                               *(params[k] for k in PARAM_NAMES))

@@ -11,15 +11,33 @@ Predictor per rank, each given the same requests) a batch's rows split over
 the data axis and the predictions are gathered in order, and a model axis
 > 1 runs MAG-BERT tensor-parallel (``parallel/tp.py``).
 ``Predictor.from_checkpoint`` serves the latest training checkpoint
-(``utils/checkpoint.py``); the exported-artifact functions wait for
-ROADMAP A.9.
+(``utils/checkpoint.py``).
+
+The serving artifact (JAX ``serving.py``'s export half):
+
+    program = export_forward(model, seq_len=50, visual_dim=47,
+                             acoustic_dim=74)
+    save_artifact("model.pt2", program, meta={"family": "bert"})
+    serve = load_artifact("model.pt2", device="cuda")
+    logits = serve(input_ids, visual, acoustic, attention_mask,
+                   token_type_ids)
+    preds, labels = predict_batches(serve, loader)
+
+``export_forward`` writes the deterministic forward with its weights as a
+``torch.export`` program, the batch dimension symbolic, and a JSON sidecar
+(``path.json``) records its calling convention. The default artifact is
+portable: a copy of the model on the einsum attention and the plain MAG
+gate, only ``aten`` ops, so ``torch`` alone loads and runs it (on the card
+or the CPU). ``keep_attention_impl=True`` keeps the fused kernels, as the
+port's custom ops (``ops/export_ops.py``), for a fixed batch on CUDA.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +46,7 @@ from bert_multimodal_transformer_tpu_torch.data.pipeline import (
     BatchIterator,
     PackedSplit,
 )
+from bert_multimodal_transformer_tpu_torch.models.mag import MAG
 from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
 from bert_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
 from bert_multimodal_transformer_tpu_torch.training import (
@@ -265,3 +284,226 @@ class Predictor:
                 use_zero=use_zero)
         return metrics_lib.score_classification(
             self.predict_classes(split), split.label_ids)
+
+
+# ---- the serving artifact ---------------------------------------------------
+#
+# The reference's deployment story ends at an in-memory torch state_dict
+# (multimodal_driver.py:483-552 keeps ``best_model`` and never writes it).
+# Portability is the contract, so the export re-builds the model on the
+# einsum attention and the plain MAG gate by default: the fused kernels
+# serialize as the port's ``magtorch`` custom ops, which a loader can run
+# only with this package's kernels at hand. ``keep_attention_impl=True``
+# exports them anyway, for a deployment that ships the package
+# (platforms then CUDA only).
+
+_MAGIC = "magtorch-serving"
+_VERSION = 1
+_INPUTS = ("input_ids", "visual", "acoustic", "attention_mask",
+           "token_type_ids")
+# the calling convention's dtypes, as the JAX artifact's
+_INPUT_DTYPES = (torch.int32, torch.float32, torch.float32, torch.int32,
+                 torch.int32)
+# the largest batch a symbolic artifact takes
+_MAX_BATCH = 1 << 20
+
+
+class _Forward(torch.nn.Module):
+    """The trainer's predict signature over a classification model: the
+    deterministic forward's logits (XLNet without a memory)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, input_ids, visual, acoustic, attention_mask,
+                token_type_ids):
+        out = self.model(input_ids, visual, acoustic,
+                         attention_mask=attention_mask,
+                         token_type_ids=token_type_ids, deterministic=True)
+        return out[0] if isinstance(out, tuple) else out
+
+
+def _serving_copy(model: torch.nn.Module, params, portable: bool
+                  ) -> torch.nn.Module:
+    """A fresh unsharded model of ``model``'s class and config, with
+    ``params`` (default ``model``'s) loaded and no gradient. ``portable``:
+    on the einsum attention and the plain MAG gate. No copy holds a mesh:
+    the port's ranks are processes, and the serving forward is one
+    program."""
+    cfg = dataclasses.replace(model.config, tp_attention_mesh=None)
+    mm = model.multimodal_config
+    if portable:
+        cfg = dataclasses.replace(cfg, attention_impl="einsum")
+        mm = dataclasses.replace(mm, use_fused_kernel=False)
+    mag = next(m for m in model.modules() if isinstance(m, MAG))
+    device = next(model.parameters()).device
+    copy = type(model)(cfg, mm, mag.visual_dim, mag.acoustic_dim,
+                       model.dtype, device=device)
+    copy.load_state_dict(model.state_dict() if params is None else params)
+    return copy.requires_grad_(False)
+
+
+def export_forward(model: torch.nn.Module, params=None, *, seq_len: int,
+                   visual_dim: int, acoustic_dim: int,
+                   platforms: Sequence[str] = ("cuda", "cpu"),
+                   keep_attention_impl: bool = False,
+                   batch_size: Optional[int] = None):
+    """Export ``model``'s deterministic forward as a
+    ``torch.export.ExportedProgram`` (JAX ``export_forward``).
+
+    The program has the trainer's predict signature (``input_ids [b,S]
+    i32, visual [b,S,Dv] f32, acoustic [b,S,Da] f32, attention_mask [b,S]
+    i32, token_type_ids [b,S] i32 -> logits``) with ``b`` symbolic (one
+    artifact, any batch size), or fixed to ``batch_size`` when given. The
+    weights, ``params`` (a full-size state dict) or else the model's own,
+    are captured in it. A model sharded over a mesh
+    (``parallel/tp.py::shard_model_``) holds chunks: pass its
+    ``parallel.tp.full_state_dict``.
+
+    The export runs on a copy of the model, on the device its params live
+    on; the caller's model is left as it is. By default the copy is
+    portable (module comment). ``keep_attention_impl=True`` keeps the
+    model's attention and MAG gate: the fused kernels enter the program as
+    ``magtorch`` custom ops, which run only where this package is
+    importable, on CUDA; it needs ``platforms`` CUDA only and a
+    ``batch_size``, the two refusals of the JAX entry (the JAX kernels'
+    plans resolve from the concrete batch; here a symbolic fused artifact
+    would be a feature that the JAX package lacks)."""
+    platforms = tuple(p.lower() for p in platforms)
+    if keep_attention_impl:
+        non_cuda = [p for p in platforms if p != "cuda"]
+        if non_cuda:
+            raise ValueError(
+                "keep_attention_impl=True exports the fused kernels, which "
+                f"only run on CUDA — drop {non_cuda} from platforms or "
+                "export the portable einsum path (default)")
+        if batch_size is None:
+            raise ValueError(
+                "keep_attention_impl=True exports the fused kernel path "
+                "for a fixed batch: pass batch_size=<N>")
+    if params is None and getattr(model, "tp_sharding", None) is not None:
+        raise ValueError(
+            "the model is sharded over a mesh: pass its full-size weights "
+            "(params=parallel.tp.full_state_dict(model))")
+    copy = _serving_copy(model, params, portable=not keep_attention_impl)
+    device = next(copy.parameters()).device
+    b = 2 if batch_size is None else int(batch_size)
+    shapes = ((b, seq_len), (b, seq_len, visual_dim),
+              (b, seq_len, acoustic_dim), (b, seq_len), (b, seq_len))
+    args = tuple(torch.ones(shape, dtype=dt, device=device)
+                 for shape, dt in zip(shapes, _INPUT_DTYPES))
+    dynamic = None
+    if batch_size is None:
+        # traced at b = 2: a batch of 1 would specialise the dimension
+        batch = torch.export.Dim("b", min=1, max=_MAX_BATCH)
+        dynamic = tuple({0: batch} for _ in args)
+    with torch.no_grad():
+        program = torch.export.export(_Forward(copy), args,
+                                      dynamic_shapes=dynamic, strict=False)
+    program.platforms = platforms
+    return program
+
+
+def _dims(shape) -> list:
+    """A shape as the sidecar writes it: symbolic dimensions as "b"."""
+    return [str(d) if isinstance(d, int) else "b" for d in shape]
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def save_artifact(path: str, program, *, meta: Optional[dict] = None
+                  ) -> None:
+    """Write the program (``torch.export.save``) and a JSON sidecar
+    (``path.json``) describing its calling convention, the platforms it
+    was exported for and the ``magtorch`` ops it holds (none for a
+    portable artifact): the consumer-facing contract."""
+    from bert_multimodal_transformer_tpu_torch.ops.export_ops import ops_in
+
+    torch.export.save(program, path)
+    nodes = {n.name: n for n in program.graph.nodes}
+    ins = [nodes[name].meta["val"]
+           for name in program.graph_signature.user_inputs]
+    outs = [nodes[name].meta["val"]
+            for name in program.graph_signature.user_outputs]
+    side = {
+        "format": _MAGIC,
+        "version": _VERSION,
+        "fn_name": "forward",
+        "platforms": list(getattr(program, "platforms", ("cuda", "cpu"))),
+        "inputs": [{"name": n, "shape": _dims(v.shape),
+                    "dtype": _dtype_name(v.dtype)}
+                   for n, v in zip(_INPUTS, ins)],
+        "outputs": [{"shape": _dims(v.shape), "dtype": _dtype_name(v.dtype)}
+                    for v in outs],
+        "custom_ops": sorted(set(ops_in(program))),
+    }
+    side.update(meta or {})
+    with open(path + ".json", "w") as f:
+        json.dump(side, f, indent=2)
+
+
+def load_artifact(path: str, device=None):
+    """Load a saved artifact into a callable ``serve(input_ids, visual,
+    acoustic, attention_mask, token_type_ids) -> logits`` (a tensor on
+    ``device``), taking numpy arrays or tensors. ``device`` as
+    ``config.resolve_device``: None is the card, and raises when none is
+    visible. A portable artifact needs only ``torch`` (``torch.export.load``
+    and ``.module()``: no code of this package); a fused one needs the
+    ``magtorch`` ops, which this function registers first, and CUDA. The
+    program is moved to ``device`` when it was exported on another."""
+    from bert_multimodal_transformer_tpu_torch.config import resolve_device
+
+    device = resolve_device(device)
+    with open(path + ".json") as f:
+        side = json.load(f)
+    if side.get("format") != _MAGIC:
+        raise ValueError(f"{path}.json is not a {_MAGIC} sidecar")
+    if device.type not in side["platforms"]:
+        raise ValueError(
+            f"{path} was exported for {side['platforms']}, not "
+            f"{device.type}")
+    if side["custom_ops"]:
+        from bert_multimodal_transformer_tpu_torch.ops import (  # noqa: F401
+            export_ops,
+        )
+    from torch.export.passes import move_to_device_pass
+
+    program = move_to_device_pass(torch.export.load(path), device)
+    module = program.module()
+
+    def serve(input_ids, visual, acoustic, attention_mask, token_type_ids):
+        args = (torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                                else x).to(device=device, dtype=dt)
+                for x, dt in zip((input_ids, visual, acoustic,
+                                  attention_mask, token_type_ids),
+                                 _INPUT_DTYPES))
+        with torch.inference_mode():
+            return module(*args)
+
+    serve.program = program
+    serve.sidecar = side
+    return serve
+
+
+def predict_batches(serve_fn, loader) -> Tuple[np.ndarray, np.ndarray]:
+    """Run a (batch, valid) loader through a loaded artifact, the serving
+    twin of ``Trainer.test_epoch``. Returns (preds, labels) with the
+    padding rows dropped; a regression artifact ([B] or [B, 1] outputs)
+    gives 1-D preds, a classification artifact ([B, C]) keeps the class
+    axis, as ``Predictor.predict_split``."""
+    preds, labels = [], []
+    for batch, valid in loader:
+        ids, vis, aco, mask, seg, lab = batch
+        p = serve_fn(ids, vis, aco, mask, seg)
+        p = (p.detach().float().cpu().numpy() if torch.is_tensor(p)
+             else np.asarray(p))
+        v = np.asarray(valid)
+        p = p[v]  # rows first, then any flatten: [B, C] stays per row
+        if p.ndim > 1 and p.shape[-1] == 1:
+            p = p.reshape(-1)
+        preds.append(p)
+        labels.append(np.asarray(lab).reshape(-1)[v])
+    return np.concatenate(preds), np.concatenate(labels)

@@ -278,6 +278,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    its bytes, its save and restore wall times (the read warm in the page
    cache), and a B=48 train step's wall time with and without a save
    after it, printed as a ``{"checkpoint": ...}`` line.
+6j. The serving artifact (``serving.py``) at bert-base and xlnet-base
+   width, S=50, bf16, over 685 synthetic rows at batch 128, each saved,
+   loaded with ``device="cuda"`` and served by ``predict_batches``: the
+   portable artifact of a fused model (a copy on the einsum path, no
+   kernel launched; within ``PRED_ATOL`` of the eager fused predictions;
+   the symbolic batch at 1 and 5 rows), the fused artifact at
+   ``batch_size=128`` (#1 twelve times a batch, nothing else) and the fused
+   XLNet artifact with the fused gate (#11 twelve times and #25 once a
+   batch), each against the eager ``Predictor`` and its ex/s beside the
+   ``Predictor``'s, printed as an ``{"artifact": ...}`` line.
+6k. ``driver.main`` with ``--remat`` and ``--remat --remat_policy dots``
+   at bert-base (S=50, bf16, fused attention and gate, 144/48/48) against
+   the same run without: the printed losses and the final checkpoint bit
+   for bit, #1 twice a layer a step; MAG-XLNet ``--remat`` likewise with
+   #11. Then peak memory and step time with and without remat at B=48:
+   BERT S=512, XLNet S=1024 under stream and under auto, printed as a
+   ``{"remat_memory": ...}`` line.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -5707,7 +5724,7 @@ CKPT_SPLITS = (144, 48, 48)   # phase 6i: 3 train steps an epoch at 48,
 CKPT_TIMING_STEPS = 3         # steps timed with and without a save each
 
 
-def _ckpt_run(argv, fa, card, want, tag):
+def _ckpt_run(argv, fa, card, want, tag, phase="6i"):
     """``driver.main(argv)`` in this process: exit 0 and exactly the
     launch counts ``want`` (``_want``'s keywords). Returns (stdout,
     counts)."""
@@ -5727,23 +5744,24 @@ def _ckpt_run(argv, fa, card, want, tag):
     wall = time.perf_counter() - t0
     counts = _counts(fa)
     text = stdout.getvalue()
-    print(f"6i {tag}: exit {rc}, {wall:.2f} s wall on {card}")
+    print(f"{phase} {tag}: exit {rc}, {wall:.2f} s wall on {card}")
     if rc != 0:
         print(text)
-        raise AssertionError(f"6i {tag}: driver.main exited {rc}")
+        raise AssertionError(f"{phase} {tag}: driver.main exited {rc}")
     want = _want(fa, **want)
     if counts != want:
-        raise AssertionError(f"6i {tag}: launch counts {counts} != {want}")
+        raise AssertionError(f"{phase} {tag}: launch counts {counts} != "
+                             f"{want}")
     for line in text.splitlines():
         if line.startswith("epoch:"):
             fields = dict(kv.split(":", 1) for kv in line.split(", "))
             for key in ("train_loss", "valid_loss"):
                 if not math.isfinite(float(fields[key])):
-                    raise AssertionError(f"6i {tag}: non-finite {key}")
+                    raise AssertionError(f"{phase} {tag}: non-finite {key}")
     return text, counts
 
 
-def _same_checkpoints(a_dir, b_dir, tag):
+def _same_checkpoints(a_dir, b_dir, tag, phase="6i"):
     """The latest checkpoints of two runs hold the same bits: params,
     moments, count, generator state and step. Names what differs."""
     import torch
@@ -5755,8 +5773,8 @@ def _same_checkpoints(a_dir, b_dir, tag):
 
     a, b = CheckpointManager(a_dir), CheckpointManager(b_dir)
     if a.latest_step() != b.latest_step():
-        raise AssertionError(f"6i {tag}: latest steps {a.latest_step()} "
-                             f"!= {b.latest_step()}")
+        raise AssertionError(f"{phase} {tag}: latest steps "
+                             f"{a.latest_step()} != {b.latest_step()}")
     pa, pb = a.restore_params(), b.restore_params()
     ta, tb = (torch.load(os.path.join(m.directory, str(m.latest_step()),
                                       TRAIN_STATE_FILE), weights_only=True)
@@ -5771,11 +5789,11 @@ def _same_checkpoints(a_dir, b_dir, tag):
         differ.append("step/count")
     if not torch.equal(ta["rng"], tb["rng"]):
         differ.append("rng")
-    print(f"6i {tag}: {len(pa)} params, their moments, count, rng and step "
-          f"at step {a.latest_step()}: "
+    print(f"{phase} {tag}: {len(pa)} params, their moments, count, rng and "
+          f"step at step {a.latest_step()}: "
           f"{'bit for bit equal' if not differ else 'DIFFER'}")
     if differ:
-        raise AssertionError(f"6i {tag}: {len(differ)} entries differ, "
+        raise AssertionError(f"{phase} {tag}: {len(differ)} entries differ, "
                              f"e.g. {differ[:8]}")
 
 
@@ -6061,6 +6079,372 @@ def checkpoint_driver_path(args, fa, card):
         shutil.rmtree(root, ignore_errors=True)
     timing = checkpoint_timing(args, card)
     return paths, timing
+
+
+# ---- the serving artifact (6j) and rematerialized training (6k) -------------
+
+ARTIFACT_N = N_TEST     # phase 6j: 6 batches of 128, the last one padded
+ARTIFACT_PASSES = 3     # timed passes over the split, each side
+# Phase 6k's peak-memory readings: (family, S, rel_bias_impl), B=48.
+REMAT_MEMORY = (("bert", 512, "auto"), ("xlnet", 1024, "stream"),
+                ("xlnet", 1024, "auto"))
+REMAT_STEPS = 2         # timed steps a reading, after one warm-up step
+
+
+def _ex_per_s(fn, n):
+    """Examples a second of ``fn()`` over ``n`` examples: the median of
+    ``ARTIFACT_PASSES`` passes after one warm-up pass, host clock after a
+    synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(ARTIFACT_PASSES):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    return float(np.median(rates))
+
+
+def artifact_path(args, rng, fa, card):
+    """Phase 6j: the serving artifact (``serving.py``) at bert-base and
+    xlnet-base width, MOSI's 47/74, S=50, bf16, random seeded weights,
+    over a synthetic test split of 685 rows (6 batches of 128, the last
+    padded), each artifact saved, loaded with ``device="cuda"`` and served
+    by ``predict_batches``:
+
+    * ``export_portable``: the default artifact of a BERT on the fused
+      attention and the fused gate, which exports a copy on the einsum
+      path and the plain gate: no kernel launches; its predictions against
+      the eager fused ``Predictor`` within ``PRED_ATOL`` (phase 4's band
+      between the einsum and the fused predictions); the symbolic batch at
+      1 and 5 rows too;
+    * ``export_fused``: ``keep_attention_impl=True`` at ``batch_size=128``
+      of a fused BERT with the plain gate: #1 = 12 a batch and nothing
+      else;
+    * ``export_fused_xlnet``: the same at xlnet-base (``rel_bias_impl``
+      auto) with the fused gate: #11 = 12 a batch and #25 = 1 a batch.
+
+    The fused artifacts run the eager path's kernels on the same inputs;
+    their predictions are held to the eager ``Predictor``'s within
+    ``PRED_ATOL`` and the script prints whether they are the same bits.
+    Each artifact's ex/s beside the eager ``Predictor``'s. Returns
+    ({path: counts}, records)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.data.pipeline import (
+        BatchIterator,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.ops.export_ops import ops_in
+    from bert_multimodal_transformer_tpu_torch.serving import (
+        Predictor,
+        export_forward,
+        load_artifact,
+        predict_batches,
+        save_artifact,
+    )
+
+    ds = DatasetConfig.mosi()
+    n_batches = -(-ARTIFACT_N // BATCH)
+    bert_cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                                   attention_impl="fused")
+    xl_cfg = XLNetConfig.xlnet_base_cased()
+    layers = bert_cfg.num_hidden_layers
+    bert_split = make_split(rng, ARTIFACT_N, S_SERVE, bert_cfg.vocab_size,
+                            ds.visual_dim, ds.acoustic_dim)
+    xl_split = make_xlnet_split(rng, ARTIFACT_N, S_SERVE, xl_cfg.vocab_size,
+                                ds.visual_dim, ds.acoustic_dim)
+
+    def bert(fused_mag):
+        return MagBertForSequenceClassification(
+            bert_cfg, MultimodalConfig(use_fused_kernel=fused_mag),
+            ds.visual_dim, ds.acoustic_dim, torch.bfloat16, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(
+                args.seed + 24))
+
+    fused = dict(platforms=("cuda",), keep_attention_impl=True,
+                 batch_size=BATCH)
+    cases = (
+        ("export_portable", lambda: bert(True), bert_split, {}, [], {}),
+        ("export_fused", lambda: bert(False), bert_split, fused,
+         ["attn_fwd_packed"] * layers,
+         {"attn_fwd_packed": layers * n_batches}),
+        ("export_fused_xlnet",
+         lambda: _xlnet(xl_cfg, MultimodalConfig(injection_index=1,
+                                                 use_fused_kernel=True),
+                        "fused", args.seed + 24), xl_split, fused,
+         ["attn_fwd_rel", "mag_fwd"] + ["attn_fwd_rel"] * (layers - 1),
+         {"attn_fwd_rel": layers * n_batches, "mag_fwd": n_batches}),
+    )
+    paths, records = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_6j_")
+    try:
+        for name, make, split, kw, ops, want in cases:
+            model = make()
+            t0 = time.perf_counter()
+            program = export_forward(
+                model, seq_len=S_SERVE, visual_dim=ds.visual_dim,
+                acoustic_dim=ds.acoustic_dim, **kw)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(root, f"{name}.pt2")
+            save_artifact(path, program, meta={"path": name})
+            serve = load_artifact(path, device="cuda")
+            if ops_in(serve.program) != ops:
+                raise AssertionError(f"6j {name}: the graph calls "
+                                     f"{ops_in(serve.program)}, not {ops}")
+
+            def loader(split=split):
+                return BatchIterator(split, BATCH, shuffle=False,
+                                     drop_remainder=False)
+
+            predict_batches(serve, loader())  # warm-up
+            torch.cuda.synchronize()
+            _zero_counts(fa)
+            preds, labels = predict_batches(serve, loader())
+            torch.cuda.synchronize()
+            counts = _counts(fa)
+            print(f"6j {name}: kernel launches {counts}")
+            if counts != _want(fa, **want):
+                raise AssertionError(f"6j {name}: launch counts {counts} "
+                                     f"!= {_want(fa, **want)}")
+            if (preds.shape != (ARTIFACT_N,) or not np.isfinite(preds).all()
+                    or not np.array_equal(labels, split.label_ids)):
+                raise AssertionError(f"6j {name}: bad predictions "
+                                     f"{preds.shape}")
+            eager = Predictor(model, batch_size=BATCH)
+            want_preds = eager.predict_split(split)
+            diff = float(np.abs(preds - want_preds).max())
+            same = bool(np.array_equal(preds, want_preds))
+            print(f"6j {name} vs the eager fused Predictor: max_abs_diff "
+                  f"{diff:.3e} (tolerance {PRED_ATOL}), same bits: {same}")
+            if not diff <= PRED_ATOL:
+                raise AssertionError(f"6j {name}: predictions differ by "
+                                     f"{diff} > {PRED_ATOL}")
+            if not kw:
+                # the symbolic batch: a partial batch of 1 and one of 5
+                rows = split.as_tuple()[:5]
+                for b in (1, 5):
+                    out = serve(*(a[:b] for a in rows)).float().cpu()
+                    gap = float(np.abs(out.numpy().reshape(-1)
+                                       - preds[:b]).max())
+                    if out.shape != (b, 1) or not gap <= PRED_ATOL:
+                        raise AssertionError(f"6j {name}: b={b} gives "
+                                             f"{tuple(out.shape)}, {gap}")
+            artifact_eps = _ex_per_s(
+                lambda: predict_batches(serve, loader()), ARTIFACT_N)
+            eager_eps = _ex_per_s(lambda: eager.predict_split(split),
+                                  ARTIFACT_N)
+            size = os.path.getsize(path)
+            print(f"6j {name} on {card}: export {export_s:.2f} s, "
+                  f"{size} bytes; predict_batches {artifact_eps:.1f} ex/s "
+                  f"against the eager Predictor's {eager_eps:.1f} ex/s "
+                  f"({ARTIFACT_N} rows, batch {BATCH}, S={S_SERVE}, bf16)")
+            paths[name] = counts
+            records[name] = {"export_s": export_s, "bytes": size,
+                             "ex_per_s": artifact_eps,
+                             "eager_ex_per_s": eager_eps,
+                             "max_abs_diff": diff, "same_bits": same}
+            del model, program, serve, eager
+            os.remove(path)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths, records
+
+
+def _remat_model(args, family, s, impl, remat):
+    """A fresh bf16 model on the card at bert-base or xlnet-base width
+    (MOSI dims, the fused attention and gate, ``rel_bias_impl`` ``impl``),
+    its weights drawn from ``args.seed``, and a B=48 batch at length
+    ``s``."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    batch_rng = np.random.default_rng([args.seed, 24])
+    if family == "bert":
+        cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                                  attention_impl="fused")
+        model = MagBertForSequenceClassification(
+            cfg, MultimodalConfig(use_fused_kernel=True), ds.visual_dim,
+            ds.acoustic_dim, torch.bfloat16, remat, device="cuda",
+            generator=gen)
+        split = make_split(batch_rng, TRAIN_BATCH, s, cfg.vocab_size,
+                           ds.visual_dim, ds.acoustic_dim)
+    else:
+        cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                                  attention_impl="fused",
+                                  rel_bias_impl=impl)
+        model = MagXLNetForSequenceClassification(
+            cfg, MultimodalConfig(injection_index=1, use_fused_kernel=True),
+            ds.visual_dim, ds.acoustic_dim, torch.bfloat16, remat,
+            device="cuda", generator=gen)
+        split = make_xlnet_split(batch_rng, TRAIN_BATCH, s, cfg.vocab_size,
+                                 ds.visual_dim, ds.acoustic_dim)
+    return model, _device_batch(split.as_tuple())
+
+
+def remat_memory(args, fa, card):
+    """Phase 6k's readings: one training step's peak memory
+    (``torch.cuda.max_memory_allocated`` after a reset, model, AdamW
+    moments and batch included) and its time (CUDA events, the mean of
+    ``REMAT_STEPS`` steps after one warm-up step) with and without remat,
+    for BERT at B=48 S=512 and XLNet at B=48 S=1024 under stream and
+    auto. The launch counts show the recompute: every attention forward
+    kernel twice a layer a step under remat, every other kernel as often
+    as without. Returns ({path: counts}, records)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+    )
+
+    paths, records = {}, {}
+    for family, s, impl in REMAT_MEMORY:
+        tag = f"{family}_s{s}" + (f"_{impl}" if family == "xlnet" else "")
+        reading = {}
+        for remat in (False, True):
+            model, batch = _remat_model(args, family, s, impl, remat)
+            trainer = Trainer(model=model, tx=make_optimizer(1e-5, 100))
+            state = trainer.init_state(args.seed)
+            trainer._train_step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts(fa)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REMAT_STEPS):
+                trainer._train_step(state, batch)
+            end.record()
+            end.synchronize()
+            counts = _counts(fa)
+            reading["remat" if remat else "plain"] = {
+                "step_ms": start.elapsed_time(end) / REMAT_STEPS,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "counts": counts}
+            paths[f"remat_memory_{tag}" + ("" if remat else "_off")] = counts
+            del model, trainer, state, batch
+            torch.cuda.empty_cache()
+        plain, on = reading["plain"]["counts"], reading["remat"]["counts"]
+        want = {k: v * (2 if k.startswith("attn_fwd") else 1)
+                for k, v in plain.items()}
+        if on != want or not any(v and k.startswith("attn_fwd")
+                                 for k, v in plain.items()):
+            raise AssertionError(f"6k {tag}: remat launches {on}, want "
+                                 f"{want}")
+        records[tag] = {k: {k_: v_ for k_, v_ in r.items()
+                            if k_ != "counts"}
+                        for k, r in reading.items()}
+        print(f"6k {tag} B={TRAIN_BATCH} on {card}: without remat "
+              f"{reading['plain']['step_ms']:.2f} ms a step, peak "
+              f"{reading['plain']['peak_gib']:.2f} GiB; with remat "
+              f"{reading['remat']['step_ms']:.2f} ms, peak "
+              f"{reading['remat']['peak_gib']:.2f} GiB; launches a "
+              f"{REMAT_STEPS}-step run {plain} -> {on}")
+    return paths, records
+
+
+def remat_driver_path(args, fa, card):
+    """Phase 6k: ``driver.main`` at bert-base, S=50, bf16, rate 0.1,
+    ``--attention_impl fused --use_fused_mag``, over 144/48/48 (3 steps at
+    B=48, one dev and one test batch), with ``--remat`` and with ``--remat
+    --remat_policy dots`` against the same run without: the printed
+    losses and the final checkpoint (params, moments, generator) bit for
+    bit; #1 twice a layer a step (the recompute), #3, #25 and #26 as
+    without. The same for MAG-XLNet ``--remat`` with #11. Then
+    ``remat_memory``. Returns ({path: counts}, memory records)."""
+    import shutil
+    import tempfile
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        XLNetConfig,
+    )
+
+    layers = BertConfig.bert_base_uncased().num_hidden_layers
+    xl_layers = XLNetConfig.xlnet_base_cased().n_layer
+    steps = CKPT_SPLITS[0] // TRAIN_BATCH
+    evals = sum(-(-n // EVAL_BATCH) for n in CKPT_SPLITS[1:])
+
+    def want(fwd, bwd, n_layers, remat):
+        return {fwd: n_layers * ((2 if remat else 1) * steps + evals),
+                bwd: n_layers * steps, "mag_fwd": steps + evals,
+                "mag_bwd": steps}
+
+    common = ["--dataset", "mosi", "--synthetic", "--synthetic_sizes",
+              *map(str, CKPT_SPLITS), "--n_epochs", "1", "--use_fused_mag",
+              "--attention_impl", "fused", "--compute_dtype", "bfloat16",
+              "--seed", str(args.seed)]
+    runs = (
+        ("remat_off", "bert-base-uncased", [],
+         want("attn_fwd_packed", "attn_bwd_packed_saved", layers, False)),
+        ("remat_full", "bert-base-uncased", ["--remat"],
+         want("attn_fwd_packed", "attn_bwd_packed_saved", layers, True)),
+        ("remat_dots", "bert-base-uncased",
+         ["--remat", "--remat_policy", "dots"],
+         want("attn_fwd_packed", "attn_bwd_packed_saved", layers, True)),
+        ("remat_xlnet_off", "xlnet-base-cased", [],
+         want("attn_fwd_rel", "attn_bwd_rel_saved", xl_layers, False)),
+        ("remat_xlnet", "xlnet-base-cased", ["--remat"],
+         want("attn_fwd_rel", "attn_bwd_rel_saved", xl_layers, True)),
+    )
+    paths, epochs = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_6k_")
+    try:
+        for name, model, extra, launches in runs:
+            text, counts = _ckpt_run(
+                ["--model", model, *common, *extra, "--checkpoint_dir",
+                 os.path.join(root, name)], fa, card, launches, name,
+                phase="6k")
+            paths[name] = counts
+            epochs[name] = [x for x in text.splitlines()
+                            if x.startswith("epoch:")]
+            print(f"6k {name}: {epochs[name]}")
+        for name, ref in (("remat_full", "remat_off"),
+                          ("remat_dots", "remat_off"),
+                          ("remat_xlnet", "remat_xlnet_off")):
+            if epochs[name] != epochs[ref] or len(epochs[name]) != 1:
+                raise AssertionError(f"6k {name}: losses {epochs[name]} "
+                                     f"!= {epochs[ref]}")
+            _same_checkpoints(os.path.join(root, ref),
+                              os.path.join(root, name), f"{name} vs {ref}",
+                              phase="6k")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    memory_paths, memory = remat_memory(args, fa, card)
+    paths.update(memory_paths)
+    return paths, memory
 
 
 def main() -> int:
@@ -6472,6 +6856,16 @@ def main() -> int:
     ckpt_driver_counts, ckpt_timing = checkpoint_driver_path(args, fa, card)
     print(json.dumps({"checkpoint": ckpt_timing, "card": card}))
 
+    # 6j. The serving artifact: portable, and fused (#1; #11 and #25)
+    artifact_counts, artifact = artifact_path(
+        args, np.random.default_rng([args.seed, 24]), fa, card)
+    print(json.dumps({"artifact": artifact, "card": card}))
+
+    # 6k. Rematerialized training through the driver; peak memory and step
+    # time with and without remat at long S
+    remat_counts, remat = remat_driver_path(args, fa, card)
+    print(json.dumps({"remat_memory": remat, "card": card}))
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -6502,7 +6896,9 @@ def main() -> int:
                  **{path: c[name] for path, c in
                     qkvproj_driver_counts.items()},
                  **{path: c[name] for path, c in
-                    ckpt_driver_counts.items()}}
+                    ckpt_driver_counts.items()},
+                 **{path: c[name] for path, c in artifact_counts.items()},
+                 **{path: c[name] for path, c in remat_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"

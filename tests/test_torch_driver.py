@@ -97,8 +97,26 @@ def test_tokenizer_matches_jax_package(tmp_path):
             assert t.tokenize(text) == j.tokenize(text), text
             assert (t.convert_tokens_to_ids(t.tokenize(text))
                     == j.convert_tokens_to_ids(j.tokenize(text)))
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ttok.get_tokenizer("xlnet-base-cased", str(tmp_path / "spiece.model"))
+    # a SentencePiece .model (ported, ROADMAP A.15): a hand-built one
+    # (tests/test_torch_sentencepiece.py holds the readers in full)
+    from bert_multimodal_transformer_tpu.data import (
+        sentencepiece_native as jsp,
+    )
+
+    spiece = tmp_path / "spiece.model"
+    spiece.write_bytes(jsp.serialize_model_proto(
+        [("<unk>", 0.0, jsp.TYPE_UNKNOWN), ("<cls>", 0.0, jsp.TYPE_CONTROL),
+         ("<sep>", 0.0, jsp.TYPE_CONTROL), ("<pad>", 0.0, jsp.TYPE_CONTROL),
+         ("▁hello", -1.0, jsp.TYPE_NORMAL), ("▁", -3.0, jsp.TYPE_NORMAL),
+         ("a", -2.0, jsp.TYPE_NORMAL), ("b", -2.0, jsp.TYPE_NORMAL)]))
+    j = jtok.get_tokenizer("xlnet-base-cased", str(spiece))
+    t = ttok.get_tokenizer("xlnet-base-cased", str(spiece))
+    assert isinstance(t, ttok.SentencePieceTokenizer)
+    assert t.pad_token_id == j.pad_token_id
+    for text in TEXTS:
+        assert t.tokenize(text) == j.tokenize(text), text
+        assert (t.convert_tokens_to_ids(t.tokenize(text) + ["<cls>"])
+                == j.convert_tokens_to_ids(j.tokenize(text) + ["<cls>"]))
 
 
 def _loaders_match_jax(tmp_path, family, tok):
@@ -408,14 +426,12 @@ def _saved_checkpoint(directory):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--vocab", "spiece.model", "--model", "xlnet-base-cased"], "A.15"),
     (["--checkpoint_dir", "{tmp}/full"], "A.6"),
     (["--checkpoint_dir", "{tmp}/empty", "--predict_only"], "A.6"),
     (["--save_every_steps", "5"], "A.6"),
     (["--predict_only"], "A.6"),
     (["--pretrained_checkpoint", "{tmp}/model.bin"], "A.6"),
     (["--export_hf", "{tmp}/no_dir/out.bin"], "A.6"),
-    (["--export_serving", "out.pt2"], "A.9"),
     (["--model_parallel", "2", "--model", "xlnet-base-cased"], "A.10"),
     (["--fsdp"], "A.10"),
     (["--pipeline_parallel", "2"], "A.10"),
@@ -423,10 +439,13 @@ def _saved_checkpoint(directory):
     (["--tp_shard_attention", "--model", "xlnet-base-cased"], "A.10"),
     (["--compiler_options", "{}"], "A.10"),
     (["--mem_len", "4"], "A.8"),
-    (["--remat"], "A.14"),
     (["--attention_impl", "flash"], "A.2"),
     (["--rng_impl", "threefry2x32"], "A.5"),
-])
+], ids=[  # the ids each case had while the table held --vocab *.model,
+    # --export_serving and --remat
+    *(f"argv{i}-A.6" for i in range(1, 7)),
+    *(f"argv{i}-A.10" for i in range(8, 14)), "argv14-A.8", "argv16-A.2",
+    "argv17-A.5"])
 def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
                                                tmp_path):
     """A flag whose item is open exits 2 naming it. ``--mem_len`` (A.8) is
@@ -437,7 +456,10 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
     (``tests/test_torch_tensor_parallel.py``); for XLNet they still exit 2
     naming A.10. The checkpoint flags (A.6) are ported: their cases are the
     JAX driver's refusals of them, each exiting 2 with its message
-    (``_a6_refusal``) before anything is built."""
+    (``_a6_refusal``) before anything is built. ``--vocab *.model`` (A.15),
+    ``--export_serving`` (A.9) and ``--remat`` (A.14) are ported
+    (``tests/test_torch_sentencepiece.py``, ``tests/test_torch_export.py``,
+    ``tests/test_torch_remat.py``)."""
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     if item == "A.6" and argv[0] == "--checkpoint_dir":
         (tmp_path / "empty").mkdir()

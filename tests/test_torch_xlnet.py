@@ -382,7 +382,8 @@ def test_unported_config_options_raise(kw, item):
 
 
 def test_unported_forward_options_raise(jparams):
-    """remat and flash still raise. The memory's forward options (ported)
+    """flash still raises (remat is ported: ``tests/test_torch_remat.py``).
+    The memory's forward options (ported)
     run: ``mems`` widen the keys to mlen + Q and match the JAX model's
     logits; ``use_cache`` with ``config.mem_len`` returns one new [B,
     mem_len, D] memory per layer, and without it the memory slot is None,
@@ -399,10 +400,6 @@ def test_unported_forward_options_raise(jparams):
     assert [tuple(m.shape) for m in new_mems] == [(B, 2, 32)] * 2
     assert not any(m.requires_grad for m in new_mems)
     assert tmodel(*_t(ids, vis, ac), use_cache=True)[1] is None
-    with pytest.raises(NotImplementedError, match="A.14"):
-        txl.MagXLNetForSequenceClassification(
-            XLNetConfig.tiny(), MultimodalConfig(), DV, DA, remat=True,
-            device="cpu")
     with pytest.raises(ValueError):
         XLNetConfig(attention_impl="flash")
 
