@@ -74,6 +74,17 @@ class MeshConfig:
     model_parallel: int = 1
 
 
+def _check_tp_attention_mesh(mesh) -> None:
+    """``tp_attention_mesh`` is None or a ``parallel.mesh.Mesh``."""
+    if mesh is None:
+        return
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError("tp_attention_mesh must be a parallel.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+
+
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
     """BERT encoder hyperparameters (HF transformers==3.0.2 defaults for
@@ -92,9 +103,11 @@ class BertConfig:
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-12
     num_labels: int = 1
-    # "einsum" (plain PyTorch attention, exact HF semantics) or "fused"
-    # (the hand-written packed attention kernel, ops/fused_attention.py).
-    # "flash" waits for ROADMAP A.2.
+    # "einsum" (plain PyTorch attention, exact HF semantics), "fused"
+    # (the hand-written packed attention kernel, ops/fused_attention.py) or
+    # "flash" (the flash-streamed kernels #6/#7 at rate 0 where the JAX
+    # model takes its flash kernel, ops/attention.py::flash_attention;
+    # einsum elsewhere).
     attention_impl: str = "einsum"
     # With attention_impl="fused": also fuse the QKV projection gemm into
     # the attention kernel (qkv = x·W + b computed in the forward kernel #18;
@@ -114,22 +127,11 @@ class BertConfig:
         default=None, repr=False, compare=False)
 
     def __post_init__(self):
-        if self.attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' is not ported yet (ROADMAP A.2)")
-        if self.attention_impl not in ("einsum", "fused"):
+        if self.attention_impl not in ("einsum", "fused", "flash"):
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r} "
-                "(einsum | fused)")
-        if self.tp_attention_mesh is not None:
-            from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
-                Mesh,
-            )
-
-            if not isinstance(self.tp_attention_mesh, Mesh):
-                raise TypeError(
-                    "tp_attention_mesh must be a parallel.mesh.Mesh, got "
-                    f"{type(self.tp_attention_mesh).__name__}")
+                "(einsum | fused | flash)")
+        _check_tp_attention_mesh(self.tp_attention_mesh)
 
     @staticmethod
     def bert_base_uncased() -> "BertConfig":
@@ -208,10 +210,7 @@ class XLNetConfig:
             raise ValueError(
                 f"unknown rel_bias_impl {self.rel_bias_impl!r} "
                 "(auto | stream | inkernel)")
-        if self.tp_attention_mesh is not None:
-            raise NotImplementedError(
-                "tp_attention_mesh: tensor-parallel attention is not ported "
-                "yet (ROADMAP A.10)")
+        _check_tp_attention_mesh(self.tp_attention_mesh)
 
     @property
     def d_head(self) -> int:

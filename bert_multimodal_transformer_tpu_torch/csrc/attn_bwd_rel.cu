@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = lane; j < K; j += 32) pr[j] = pr[j] / sum;
     } else {
       for (int j0 = 4 * lane; j0 < K; j0 += 128) {
-        const uint4 bits = attn::dropout_bits4(drop.seed, b, h, qi, j0 >> 2);
+        const uint4 bits = attn::dropout_bits4(drop, b, h, qi, j0 >> 2);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int j = j0 + u;
@@ -188,15 +188,17 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor. g is the context
 // gradient [B, Q, D]; dq [B, Q, D], dk and dv [B, K, D] and debias
-// [B, H, Q, K] are written. dropout = 0 ignores seed/threshold/inv_keep.
+// [B, H, Q, K] are written. dropout = 0 ignores seed/threshold/inv_keep;
+// b_off/h_off (≥ 0) are the global batch row and head of the tensors'
+// first (b, h) in the Philox counter (a tensor-parallel rank's shard).
 // Returns the cudaError_t of the launch (0 on success); a shape past the
 // shared-memory plan returns cudaErrorInvalidValue.
 int attn_bwd_rel(const void* q, const void* k, const void* v,
                  const void* ebias, const void* g, void* dq, void* dk,
                  void* dv, void* debias, int B, int Q, int K, int H, int Dh,
                  float scale, int dropout, unsigned long long seed,
-                 unsigned int threshold, float inv_keep, int dtype,
-                 void* stream) {
+                 unsigned int threshold, float inv_keep, int b_off,
+                 int h_off, int dtype, void* stream) {
   if (B < 1 || Q < 1 || K < 1 || H < 1 || Dh < 8 || Dh > kMaxDh ||
       Dh % 8 != 0 ||
       attn::rel_bwd_smem_floats(Q, K, Dh) * sizeof(float) >
@@ -204,7 +206,8 @@ int attn_bwd_rel(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutArgs drop{seed, threshold, inv_keep};
+  if (b_off < 0 || h_off < 0) return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop{seed, threshold, inv_keep, b_off, h_off};
   switch (dtype) {
     case 0:
       return dropout ? launch_fp32<true>(q, k, v, ebias, g, dq, dk, dv,

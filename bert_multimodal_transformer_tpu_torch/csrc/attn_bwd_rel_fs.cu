@@ -135,7 +135,7 @@ __device__ __forceinline__ void grads_of_scores(
     const int r = i / quads, j0 = 4 * (i - r * quads);
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if constexpr (kDropout)
-      bits = attn::dropout_bits4(drop.seed, b, h, q0 + r, (k0 + j0) >> 2);
+      bits = attn::dropout_bits4(drop, b, h, q0 + r, (k0 + j0) >> 2);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = j0 + u;

@@ -145,8 +145,10 @@ extern "C" {
 // #20's and g [B, Q, D]; drw, drr [B, Q, D], dk, dv [B, K, D] and ded
 // [B, H, Q] are written, and every element of ws, an fp32 [B, P, D]
 // workspace that `attn_bwd_relik_fs_dr` then sums over B into dr. P ≥ Q +
-// K. dropout = 0 ignores seed/threshold/inv_keep. Returns the cudaError_t
-// of the launch (0 on success); a shape past the shared-memory plan returns
+// K. dropout = 0 ignores seed/threshold/inv_keep; b_off/h_off (≥ 0) are the
+// global batch row and head of the tensors' first (b, h) in the Philox
+// counter (a tensor-parallel rank's shard). Returns the cudaError_t of the
+// launch (0 on success); a shape past the shared-memory plan returns
 // cudaErrorInvalidValue.
 int attn_bwd_relik(const void* rw, const void* rr, const void* r,
                    const void* k, const void* v, const void* ed,
@@ -154,8 +156,8 @@ int attn_bwd_relik(const void* rw, const void* rr, const void* r,
                    void* drw, void* drr, void* dk, void* dv, void* ded,
                    void* ws, int B, int Q, int K, int P, int H, int Dh,
                    float scale, int dropout, unsigned long long seed,
-                   unsigned int threshold, float inv_keep, int dtype,
-                   void* stream) {
+                   unsigned int threshold, float inv_keep, int b_off,
+                   int h_off, int dtype, void* stream) {
   if (B < 1 || Q < 1 || K < 1 || P < Q + K || H < 1 || Dh < 8 ||
       Dh > kMaxDh || Dh % 8 != 0 ||
       attn::relik_bwd_smem_floats(Q, K, Dh) * sizeof(float) >
@@ -163,7 +165,8 @@ int attn_bwd_relik(const void* rw, const void* rr, const void* r,
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutArgs drop{seed, threshold, inv_keep};
+  if (b_off < 0 || h_off < 0) return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop{seed, threshold, inv_keep, b_off, h_off};
   switch (dtype * 2 + (dropout != 0)) {
     case 0:
       return launch<float, false>(rw, rr, r, k, v, ed, segd, maskb, g, drw,

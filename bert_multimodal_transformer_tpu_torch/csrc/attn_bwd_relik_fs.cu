@@ -221,7 +221,7 @@ __device__ __forceinline__ void grads(int rows, int cols, int q0, int k0,
     const int r = i / quads, j0 = 4 * (i - r * quads);
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if constexpr (kDropout)
-      bits = attn::dropout_bits4(drop.seed, b, h, q0 + r, (k0 + j0) >> 2);
+      bits = attn::dropout_bits4(drop, b, h, q0 + r, (k0 + j0) >> 2);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = j0 + u;
@@ -628,7 +628,7 @@ __device__ __forceinline__ void tc_relik_grads(
     if constexpr (kDropout) {
       const int k4 = (k0 + kw + 8 * t + 4 * ((lane & 3) >> 1)) >> 2;
       const uint4 own =
-          attn::dropout_bits4(drop.seed, b, h, odd ? q_lo + 8 : q_lo, k4);
+          attn::dropout_bits4(drop, b, h, odd ? q_lo + 8 : q_lo, k4);
       const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? own.x : own.z, 1);
       const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? own.y : own.w, 1);
       wd[0] = odd ? x0 : own.x;
@@ -1196,13 +1196,14 @@ int entry(const void* rw, const void* rr, const void* r, const void* k,
           void* drr, void* dk, void* dv, void* ded, void* ws, int B, int Q,
           int K, int P, int H, int Dh, float scale, int dropout,
           unsigned long long seed, unsigned int threshold, float inv_keep,
-          int dtype, void* stream) {
+          int b_off, int h_off, int dtype, void* stream) {
   if (B < 1 || Q < 1 || K < 1 || P < Q + K || H < 1 || Dh < 8 ||
       Dh > kMaxDh || Dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutArgs drop{seed, threshold, inv_keep};
+  if (b_off < 0 || h_off < 0) return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop{seed, threshold, inv_keep, b_off, h_off};
   if (dtype == 0) {
     const Args<float> a = make_args<float>(rw, rr, r, k, v, ed, segd, maskb,
                                            o, lse, g, Q, K, P, H, Dh, scale,
@@ -1230,7 +1231,9 @@ extern "C" {
 // [B, H, Q] fp32, and g [B, Q, D]. Pass 1 writes dk and dv [B, K, D];
 // pass 2 writes drw and drr [B, Q, D] and ded [B, H, Q], and adds into ws,
 // an fp32 [B, P, D] workspace that must hold zeros; pass 3 writes dr
-// [P, D] from ws. dropout = 0 ignores seed/threshold/inv_keep. Each
+// [P, D] from ws. dropout = 0 ignores seed/threshold/inv_keep;
+// b_off/h_off (≥ 0) are the global batch row and head of the tensors'
+// first (b, h) in the Philox counter (a tensor-parallel rank's shard). Each
 // returns the cudaError_t of its launch (0 on success).
 int attn_bwd_relik_fs_dkdv(const void* rw, const void* rr, const void* r,
                            const void* k, const void* v, const void* ed,
@@ -1240,10 +1243,11 @@ int attn_bwd_relik_fs_dkdv(const void* rw, const void* rr, const void* r,
                            void* ded, void* ws, int B, int Q, int K, int P,
                            int H, int Dh, float scale, int dropout,
                            unsigned long long seed, unsigned int threshold,
-                           float inv_keep, int dtype, void* stream) {
+                           float inv_keep, int b_off, int h_off, int dtype,
+                           void* stream) {
   return entry<0>(rw, rr, r, k, v, ed, segd, maskb, o, lse, g, drw, drr, dk,
                   dv, ded, ws, B, Q, K, P, H, Dh, scale, dropout, seed,
-                  threshold, inv_keep, dtype, stream);
+                  threshold, inv_keep, b_off, h_off, dtype, stream);
 }
 
 int attn_bwd_relik_fs_dq(const void* rw, const void* rr, const void* r,
@@ -1253,11 +1257,11 @@ int attn_bwd_relik_fs_dq(const void* rw, const void* rr, const void* r,
                          void* drr, void* dk, void* dv, void* ded, void* ws,
                          int B, int Q, int K, int P, int H, int Dh,
                          float scale, int dropout, unsigned long long seed,
-                         unsigned int threshold, float inv_keep, int dtype,
-                         void* stream) {
+                         unsigned int threshold, float inv_keep, int b_off,
+                         int h_off, int dtype, void* stream) {
   return entry<1>(rw, rr, r, k, v, ed, segd, maskb, o, lse, g, drw, drr, dk,
                   dv, ded, ws, B, Q, K, P, H, Dh, scale, dropout, seed,
-                  threshold, inv_keep, dtype, stream);
+                  threshold, inv_keep, b_off, h_off, dtype, stream);
 }
 
 int attn_bwd_relik_fs_dr(const void* ws, void* dr, int B, int P, int D,

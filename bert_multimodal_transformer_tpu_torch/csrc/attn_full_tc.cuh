@@ -229,7 +229,7 @@ __device__ __forceinline__ void keep_words(uint32_t (&wd)[4], int q_lo,
   const bool odd = lane & 1;
   const int k4 = (8 * t + 4 * ((lane & 3) >> 1)) >> 2;
   const uint4 own =
-      attn::dropout_bits4(drop.seed, b, h, odd ? q_lo + 8 : q_lo, k4);
+      attn::dropout_bits4(drop, b, h, odd ? q_lo + 8 : q_lo, k4);
   const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? own.x : own.z, 1);
   const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? own.y : own.w, 1);
   wd[0] = odd ? x0 : own.x;

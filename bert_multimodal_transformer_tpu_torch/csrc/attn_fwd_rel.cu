@@ -17,8 +17,8 @@
 //          comes out uniform, not NaN)
 //   save: p_out[b, h] = T(p)
 //   rate > 0: p ← keep ? p · inv_keep : 0 in fp32, keep from the Philox
-//          stream of common.cuh at counter (k >> 2, q, h, b); save:
-//          pd_out[b, h] = T(p)
+//          stream of common.cuh at counter (k >> 2, q, h + h_off,
+//          b + b_off); save: pd_out[b, h] = T(p)
 //   out  [B, Q, D] = T(p) · v_h accumulated in fp32
 // Input dtypes: fp32 and bf16, one for all tensors. Dh a multiple of 8 up
 // to 128, K up to 512, any Q.
@@ -113,14 +113,17 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, ebias, out, p and pd.
 // p/pd: null for no save; with save, p gets the pre-dropout probs and,
 // when dropout is on, pd the dropped and scaled ones ([B, H, Q, K]).
-// dropout = 0 ignores seed/threshold/inv_keep. Returns the cudaError_t of
-// the launch (0 on success). The Python wrapper checks the shapes; they are
-// checked again here so that no call can index past the shared-memory plan.
+// dropout = 0 ignores seed/threshold/inv_keep; b_off/h_off (≥ 0) are the
+// global batch row and head of the tensors' first (b, h) in the Philox
+// counter (a tensor-parallel rank's shard). Returns the cudaError_t of the
+// launch (0 on success). The Python wrapper checks the shapes; they are checked again
+// here so that no call can index past the shared-memory plan.
 int attn_fwd_rel(const void* q, const void* k, const void* v,
                  const void* ebias, void* out, void* p, void* pd, int B,
                  int Q, int K, int H, int Dh, float scale, int dropout,
                  unsigned long long seed, unsigned int threshold,
-                 float inv_keep, int dtype, void* stream) {
+                 float inv_keep, int b_off, int h_off, int dtype,
+                 void* stream) {
   if (B < 1 || Q < 1 || K < 1 || K > kMaxK || H < 1 || Dh < 8 ||
       Dh > attn::kFwdMaxDh || Dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -128,7 +131,8 @@ int attn_fwd_rel(const void* q, const void* k, const void* v,
   if (dropout && p != nullptr && pd == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutArgs drop{seed, threshold, inv_keep};
+  if (b_off < 0 || h_off < 0) return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop{seed, threshold, inv_keep, b_off, h_off};
   switch (dtype) {
     case 0:
       return dispatch_fp32(q, k, v, ebias, out, p, pd, B, Q, K, H, Dh, scale,

@@ -163,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
         const int qi = q0 + r;
         for (int j0 = 4 * lane; j0 < k_rows; j0 += 128) {
           const uint4 bits =
-              attn::dropout_bits4(drop.seed, b, h, qi, (k0 + j0) >> 2);
+              attn::dropout_bits4(drop, b, h, qi, (k0 + j0) >> 2);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int j = j0 + u;

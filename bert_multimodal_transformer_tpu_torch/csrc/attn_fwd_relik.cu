@@ -18,8 +18,9 @@
 //   p    = fp32 max-subtracted softmax over the keys
 //   save: p_out[b, h] = T(p)
 //   rate > 0: p ← keep ? p · inv_keep : 0 in fp32, keep from the Philox
-//          stream of common.cuh at counter (k >> 2, q, h, b), the mask of
-//          #11 and #23 at the same seed; save: pd_out[b, h] = T(p)
+//          stream of common.cuh at counter (k >> 2, q, h + h_off,
+//          b + b_off), the mask of #11 and #23 at the same seed; save:
+//          pd_out[b, h] = T(p)
 //   out  [B, Q, D] = T(p) · v_h accumulated in fp32
 // The reference's ef₀ term, constant along k, is softmax-invariant and is
 // left out, as the TPU kernel leaves it out. Dh a multiple of 8 up to 128,
@@ -189,16 +190,18 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, for rw, rr, r, k, v, ed, segd, maskb,
 // out, p and pd. P ≥ Q + K. p/pd: null for no save; with save, p gets the
 // pre-dropout probs and, when dropout is on, pd the dropped and scaled ones
-// ([B, H, Q, K]). dropout = 0 ignores seed/threshold/inv_keep. Returns the
-// cudaError_t of the launch (0 on success); a shape the kernel does not
-// take returns cudaErrorInvalidValue.
+// ([B, H, Q, K]). dropout = 0 ignores seed/threshold/inv_keep;
+// b_off/h_off (≥ 0) are the global batch row and head of the tensors'
+// first (b, h) in the Philox counter (a tensor-parallel rank's shard).
+// Returns the cudaError_t of the launch (0 on success); a shape the kernel
+// does not take returns cudaErrorInvalidValue.
 int attn_fwd_relik(const void* rw, const void* rr, const void* r,
                    const void* k, const void* v, const void* ed,
                    const void* segd, const void* maskb, void* out, void* p,
                    void* pd, int B, int Q, int K, int P, int H, int Dh,
                    float scale, int dropout, unsigned long long seed,
-                   unsigned int threshold, float inv_keep, int dtype,
-                   void* stream) {
+                   unsigned int threshold, float inv_keep, int b_off,
+                   int h_off, int dtype, void* stream) {
   if (B < 1 || Q < 1 || K < 1 || K > kMaxK || P < Q + K || H < 1 ||
       Dh < 8 || Dh > attn::kFwdMaxDh || Dh % 8 != 0 ||
       smem_floats(K, Dh) * sizeof(float) > attn::kMaxSmemBytes)
@@ -207,7 +210,8 @@ int attn_fwd_relik(const void* rw, const void* rr, const void* r,
   if (dropout && p != nullptr && pd == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutArgs drop{seed, threshold, inv_keep};
+  if (b_off < 0 || h_off < 0) return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop{seed, threshold, inv_keep, b_off, h_off};
   switch (dtype) {
     case 0:
       return dispatch<float>(rw, rr, r, k, v, ed, segd, maskb, out, p, pd, B,

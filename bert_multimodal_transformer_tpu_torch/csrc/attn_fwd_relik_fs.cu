@@ -17,7 +17,8 @@
 // fp32 accumulator:
 //   m' = max(m, max_k s);  α = exp(m − m');  e = exp(s − m');
 //   l  ← l · α + Σ_k e;  e ← keep ? e · inv_keep : 0 (common.cuh's Philox
-//   stream at (k >> 2, q, h, b));  acc ← acc · α + T(e) · v_block
+//   stream at (k >> 2, q, h + h_off, b + b_off));
+//   acc ← acc · α + T(e) · v_block
 // and out [B, Q, D] = T(acc / l), lse [B, H, Q] = m + log l (fp32), the
 // residual #24 rebuilds p from. Nothing [B, H, Q, P]- or [B, H, Q, K]-sized
 // exists. The reference's ef₀ term, constant along k, is softmax-invariant
@@ -182,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
         const int qg = q0 + rq;
         for (int j0 = 4 * lane; j0 < k_rows; j0 += 128) {
           const uint4 bits =
-              attn::dropout_bits4(drop.seed, b, h, qg, (k0 + j0) >> 2);
+              attn::dropout_bits4(drop, b, h, qg, (k0 + j0) >> 2);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int j = j0 + u;
@@ -484,21 +485,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, for rw, rr, r, k, v, ed, segd, maskb
 // and out; lse is [B, H, Q] fp32. P ≥ Q + K. dropout = 0 ignores
-// seed/threshold/inv_keep. Returns the cudaError_t of the launch (0 on
+// seed/threshold/inv_keep; b_off/h_off (≥ 0) are the global batch row and
+// head of the tensors' first (b, h) in the Philox counter (a
+// tensor-parallel rank's shard). Returns the cudaError_t of the launch (0 on
 // success); a shape the kernel does not take returns cudaErrorInvalidValue.
 int attn_fwd_relik_fs(const void* rw, const void* rr, const void* r,
                       const void* k, const void* v, const void* ed,
                       const void* segd, const void* maskb, void* out,
                       void* lse, int B, int Q, int K, int P, int H, int Dh,
                       float scale, int dropout, unsigned long long seed,
-                      unsigned int threshold, float inv_keep, int dtype,
-                      void* stream) {
+                      unsigned int threshold, float inv_keep, int b_off,
+                      int h_off, int dtype, void* stream) {
   if (B < 1 || Q < 1 || K < 1 || P < Q + K || H < 1 || Dh < 8 ||
       Dh > kMaxDh || Dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutArgs drop{seed, threshold, inv_keep};
+  if (b_off < 0 || h_off < 0) return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop{seed, threshold, inv_keep, b_off, h_off};
   switch (dtype * 2 + (dropout != 0)) {
     case 0:
       return launch<float, false>(rw, rr, r, k, v, ed, segd, maskb, out, lse,

@@ -63,6 +63,11 @@ struct DropoutArgs {
   unsigned long long seed;
   unsigned int threshold;  // keep iff draw >= threshold
   float inv_keep;          // fp32(1 / (1 − rate))
+  // The global batch row and head of the kernel's first (b, h): a
+  // tensor-parallel rank's shard draws what one card draws for the same
+  // element (the rel-family kernels take them; 0 elsewhere).
+  int b_off = 0;
+  int h_off = 0;
 };
 
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
@@ -83,12 +88,14 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-// The draws of keys 4·k4 .. 4·k4 + 3 of row (b, h, q).
-__device__ __forceinline__ uint4 dropout_bits4(unsigned long long seed, int b,
+// The draws of keys 4·k4 .. 4·k4 + 3 of row (b, h, q), at counter
+// (k4, q, h + h_off, b + b_off).
+__device__ __forceinline__ uint4 dropout_bits4(const DropoutArgs& drop, int b,
                                                int h, int q, int k4) {
   return philox4x32_10(
-      make_uint4((uint32_t)k4, (uint32_t)q, (uint32_t)h, (uint32_t)b),
-      make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)));
+      make_uint4((uint32_t)k4, (uint32_t)q, (uint32_t)(h + drop.h_off),
+                 (uint32_t)(b + drop.b_off)),
+      make_uint2((uint32_t)drop.seed, (uint32_t)(drop.seed >> 32)));
 }
 
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
@@ -223,7 +230,7 @@ __device__ __forceinline__ void fwd_rows(float* smem, const RowsHead<T>& hd,
       for (int j0 = 4 * lane; j0 < S; j0 += 128) {
         uint4 bits = make_uint4(0u, 0u, 0u, 0u);
         if constexpr (kDropout)
-          bits = dropout_bits4(drop.seed, hd.drop_b, hd.drop_h, q, j0 >> 2);
+          bits = dropout_bits4(drop, hd.drop_b, hd.drop_h, q, j0 >> 2);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int j = j0 + u;
@@ -376,7 +383,7 @@ __device__ __forceinline__ void fwd_rel_softmax_pv(
       for (int j0 = 4 * lane; j0 < K; j0 += 128) {
         uint4 bits = make_uint4(0u, 0u, 0u, 0u);
         if constexpr (kDropout)
-          bits = dropout_bits4(drop.seed, b, h, qi, j0 >> 2);
+          bits = dropout_bits4(drop, b, h, qi, j0 >> 2);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int j = j0 + u;
@@ -523,7 +530,7 @@ __device__ __forceinline__ void softmax_rows_keep_sign(float* ps, int rows,
     } else {
       const int q = q0 + r;
       for (int j0 = 4 * lane; j0 < S; j0 += 128) {
-        const uint4 bits = dropout_bits4(drop.seed, b, h, q, j0 >> 2);
+        const uint4 bits = dropout_bits4(drop, b, h, q, j0 >> 2);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int j = j0 + u;
@@ -1355,7 +1362,7 @@ __device__ __forceinline__ void tc_softmax_step(
       __nv_bfloat16* er = es + r * kTcEsLd;
       const uint4 bits =
           r < q_rows && j0 < k_rows
-              ? dropout_bits4(drop.seed, b, h, q0 + r, (k0 + j0) >> 2)
+              ? dropout_bits4(drop, b, h, q0 + r, (k0 + j0) >> 2)
               : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -1567,7 +1574,7 @@ __device__ __forceinline__ void tc_hb_softmax_rows(
         float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (j0 < n) {
           const float4 p4 = *reinterpret_cast<const float4*>(sr + j0);
-          const uint4 bits = dropout_bits4(drop.seed, b, h, q0 + r, j0 >> 2);
+          const uint4 bits = dropout_bits4(drop, b, h, q0 + r, j0 >> 2);
           const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
           for (int u = 0; u < 4; ++u) {

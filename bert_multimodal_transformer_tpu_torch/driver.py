@@ -28,9 +28,14 @@ SentencePiece (``data/tokenization.py``). Flags whose
 port has not landed yet exit
 with status 2 and a message naming their ROADMAP item; none is ignored
 silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``, and
-its tensor-parallel guards) exit with status 2 and its message.
+its tensor-parallel guards) exit with status 2 and its message, as does
+``--compiler_options`` (XLA's options, which no torch call takes).
+``--attention_impl flash`` (MAG-BERT) runs the flash-streamed kernels
+#6/#7 where the JAX model takes its flash kernel (S a multiple of 128, no
+prob dropout: evaluation, or training at a zero dropout), einsum
+elsewhere.
 
-``--model_parallel N`` (MAG-BERT) starts data × N ranks with
+``--model_parallel N`` (MAG-BERT and MAG-XLNet) starts data × N ranks with
 ``torch.multiprocessing`` spawn (``parallel/mesh.py::run_ranks``, under
 a timeout): N ranks when there are fewer than N cards (ranks
 share a card, over gloo), else one rank per card (N must divide their
@@ -50,6 +55,12 @@ Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --dataset mosi --synthetic --model_parallel 2 \\
         --tp_shard_attention --attention_impl fused
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --model xlnet-base-cased --dataset mosi --synthetic \\
+        --model_parallel 2 --tp_shard_attention --attention_impl fused
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --dataset mosi --synthetic --attention_impl flash \\
+        --max_seq_length 512
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --dataset mosi --synthetic --attention_impl fused --qkv_fusion
     python -m bert_multimodal_transformer_tpu_torch.driver \\
@@ -104,17 +115,9 @@ FAMILY_ERRORS = (
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--model_parallel (XLNet)",
-     lambda a: _xlnet(a) and a.model_parallel != 1, "A.10"),
-    ("--tp_shard_attention (XLNet)",
-     lambda a: _xlnet(a) and a.tp_shard_attention, "A.10"),
     ("--fsdp", lambda a: a.fsdp, "A.10"),
     ("--pipeline_parallel", lambda a: a.pipeline_parallel != 1, "A.10"),
     ("--num_processes", lambda a: a.num_processes != 1, "A.10"),
-    ("--compiler_options", lambda a: a.compiler_options is not None,
-     "A.10"),
-    ("--attention_impl flash", lambda a: a.attention_impl == "flash",
-     "A.2"),
     ("--rng_impl threefry2x32", lambda a: a.rng_impl == "threefry2x32",
      "A.5"),
 )
@@ -224,8 +227,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["einsum", "fused", "flash"],
                    help="Attention backend: einsum = plain PyTorch; fused "
                         "= the packed attention kernels "
-                        "(ops/fused_attention.py); flash is not ported "
-                        "yet (ROADMAP A.2)")
+                        "(ops/fused_attention.py); flash (BERT) = the "
+                        "flash-streamed kernels without prob dropout where "
+                        "S %% 128 == 0 (ops/attention.py::flash_attention), "
+                        "einsum elsewhere")
     p.add_argument("--rel_bias_impl", type=str, default="auto",
                    choices=["auto", "stream", "inkernel"],
                    help="XLNet only: auto = the ingredients kernels "
@@ -242,7 +247,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Model (tensor-parallel) mesh axis size: splits "
                         "the FFN Megatron-style over the 'model' axis "
                         "(parallel/tp.py); the data axis gets the rest of "
-                        "the cards. MAG-BERT (XLNet: ROADMAP A.10)")
+                        "the cards. MAG-BERT and MAG-XLNet")
     p.add_argument("--tp_shard_attention", action="store_true",
                    help="With --model_parallel > 1: also head-shard "
                         "attention over the model axis (einsum, or fused "
@@ -269,7 +274,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "is lossless for a bf16-compute model: "
                         "serving.Predictor wire_dtype)")
     p.add_argument("--compiler_options", type=str, default=None,
-                   help="not ported yet (ROADMAP A.10)")
+                   help="XLA compiler options of the JAX driver: refused "
+                        "here (no torch counterpart)")
     p.add_argument("--num_processes", type=int, default=1,
                    help="not ported yet above 1 (ROADMAP A.10)")
     p.add_argument("--process_id", type=int, default=0,
@@ -290,20 +296,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _tp_guards(args) -> list:
     """The JAX driver's refusals of tensor-parallel flags."""
-    from bert_multimodal_transformer_tpu_torch.config import BertConfig
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        XLNetConfig,
+    )
 
     errors = []
     if args.model_parallel < 1:
         errors.append(f"--model_parallel must be >= 1, got "
                       f"{args.model_parallel}")
+    if _xlnet(args) and args.mem_len and args.model_parallel > 1:
+        errors.append("--mem_len runs on the data-parallel trainer (mems "
+                      "shard over the batch axis)")
     if args.tp_shard_attention:
         if args.model_parallel <= 1:
             errors.append("--tp_shard_attention requires --model_parallel"
                           " > 1")
-        n_head = (BertConfig.tiny() if args.tiny
-                  else BertConfig.bert_large_uncased()
-                  if args.model == "bert-large-uncased"
-                  else BertConfig.bert_base_uncased()).num_attention_heads
+        if args.attention_impl == "flash":
+            errors.append("--tp_shard_attention supports einsum and fused "
+                          "attention, not flash")
+        if _xlnet(args):
+            n_head = (XLNetConfig.tiny() if args.tiny
+                      else XLNetConfig.xlnet_base_cased()).n_head
+        else:
+            n_head = (BertConfig.tiny() if args.tiny
+                      else BertConfig.bert_large_uncased()
+                      if args.model == "bert-large-uncased"
+                      else BertConfig.bert_base_uncased()
+                      ).num_attention_heads
         if args.model_parallel > 1 and n_head % args.model_parallel:
             errors.append(f"--tp_shard_attention needs n_head ({n_head}) "
                           f"divisible by --model_parallel "
@@ -416,6 +436,13 @@ def run(argv=None, rank_timeout_s: float = 3600.0):
         for flag, item in unported:
             print(f"error: {flag} is not ported to the PyTorch driver yet "
                   f"(ROADMAP {item})", file=sys.stderr)
+        return 2, []
+    if args.compiler_options is not None:
+        from bert_multimodal_transformer_tpu_torch.training.trainer import (
+            COMPILER_OPTIONS_REFUSAL,
+        )
+
+        print(f"error: --{COMPILER_OPTIONS_REFUSAL}", file=sys.stderr)
         return 2, []
     refused = _tp_guards(args)
     ckpt_refusal = _checkpoint_guard(args)

@@ -61,6 +61,7 @@ from bert_multimodal_transformer_tpu_torch.ops.activations import ACT2FN
 from bert_multimodal_transformer_tpu_torch.ops.attention import (
     dot_product_attention,
     extended_attention_mask,
+    flash_attention,
 )
 from bert_multimodal_transformer_tpu_torch.ops.dropout import (
     DropoutRngs,
@@ -177,7 +178,16 @@ class BertSelfAttention(nn.Module):
     FFN-only tensor parallelism (``tp_mesh`` None) too; where the kernels
     do not reach (``qkvproj_fits``, in place of the TPU's full-H fit)
     ``fused_attention_qkvproj`` itself takes the dense projection and the
-    packed tiers, as the JAX model's other branch."""
+    packed tiers, as the JAX model's other branch.
+
+    ``attention_impl="flash"`` takes the JAX model's flash branch
+    (``models/bert.py:281-298``) condition for condition: the
+    flash-streamed kernels #6/#7 at rate 0 (``ops/attention.py::
+    flash_attention``) with no ``head_mask``, S a multiple of 128, no
+    ``output_attentions`` and deterministic or a zero prob dropout; the
+    einsum math otherwise."""
+
+    head_sharded = True  # tp_mesh is set only under shard_attention
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32,
                  *, device=None):
@@ -254,12 +264,18 @@ class BertSelfAttention(nn.Module):
             out = dense(self.output_dense, ctx, self.dtype)
         else:
             qkv = dense(self.qkv, hidden, self.dtype)
+            flash = (cfg.attention_impl == "flash" and head_mask is None
+                     and s % 128 == 0 and not output_attentions
+                     and (deterministic or rate == 0.0))
             if fused:
                 ctx = fused_attention_packed(
                     qkv, attention_mask_2d, n_heads=h, scale=scale,
                     dropout_rate=rate,
                     dropout_rng=rngs.host if train else None,
                     deterministic=deterministic)
+            elif flash:
+                ctx = flash_attention(qkv, attention_mask_2d, n_heads=h,
+                                      scale=scale)
             else:
                 q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
                 ctx = dot_product_attention(

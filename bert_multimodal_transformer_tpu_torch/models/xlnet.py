@@ -36,6 +36,18 @@ segment matrix; with ``use_cache`` and ``config.mem_len`` the model also
 returns each layer's new memory (``_cache_mem``: the layer's input, cut to
 ``reuse_len``, appended, the last ``mem_len`` rows kept, detached).
 
+Tensor parallelism (``parallel/tp.py``): ``tp_mesh`` on the FFN splits it
+Megatron-style (``ff.layer_1`` column-parallel, its dropout drawn for the
+full width and sliced, ``ff.layer_2`` row-parallel); on the attention
+(under ``shard_attention``) each rank projects q, k, v and the position
+keys of its H/mp heads, runs them through
+``fused_rel_attention_tp`` / ``fused_rel_attention_ingredients_tp`` (the
+full-H tiers #11-#13, #20-#22, and the ingredients fs tier #23/#24, at the
+offsets that give one card's dropout) or, past those (where one card takes
+the head-blocked or flash-streamed ebias tiers), the einsum math with the
+one-card keep mask sliced to its heads, and ``o`` is row-parallel, as the
+JAX model's branches (``models/xlnet.py:212-240``).
+
 The two branches differ by rounding only. Two-stream attention
 (``perm_mask``, ``target_mapping``), ``head_mask``, ``inputs_embeds``,
 ``output_hidden_states``, ``output_attentions``, ``labels=``, the memory
@@ -61,8 +73,10 @@ from bert_multimodal_transformer_tpu_torch.models.bert import (
     _dropout_rngs,
     _hidden_dropout,
     _linear,
+    _normal_,
     dense,
     init_weights,
+    row_parallel_dense,
 )
 from bert_multimodal_transformer_tpu_torch.models.mag import MAG
 from bert_multimodal_transformer_tpu_torch.models.remat import (
@@ -77,7 +91,14 @@ from bert_multimodal_transformer_tpu_torch.ops.dropout import (
 from bert_multimodal_transformer_tpu_torch.ops.fused_attention import (
     fused_rel_attention,
     fused_rel_attention_ingredients,
+    fused_rel_attention_ingredients_tp,
+    fused_rel_attention_tp,
     rel_tier,
+)
+from bert_multimodal_transformer_tpu_torch.parallel.tp import (
+    copy_to_model,
+    local_heads,
+    reduce_from_model,
 )
 
 MASK_VERY_NEG = 1e30  # score − 1e30·mask, as HF
@@ -149,13 +170,18 @@ def _f32_einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
 
 class XLNetRelativeAttention(nn.Module):
     """Two-stream relative multi-head attention with the post-LN residual
-    (HF XLNetRelativeAttention), batch-first."""
+    (HF XLNetRelativeAttention), batch-first. ``tp_mesh`` (set by
+    ``parallel/tp.py::shard_model_`` under ``shard_attention``) head-shards
+    it over the mesh's model axis (module docstring)."""
+
+    head_sharded = True  # tp_mesh is set only under shard_attention
 
     def __init__(self, config: XLNetConfig, dtype: torch.dtype = torch.float32,
                  *, device=None):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.tp_mesh = None
         d, h, dh = config.d_model, config.n_head, config.d_head
         for name in ("q", "k", "v", "o", "r"):
             setattr(self, name, _raw_param(d, h * dh, device=device))
@@ -172,15 +198,18 @@ class XLNetRelativeAttention(nn.Module):
         Dh] under bi_data); seg_mat [B,Q,K,2] or None; attn_mask [B,1,Q,K]
         float 1 = masked. ``mask_bias``/``seg_diff`` are the fused path's
         forms hoisted out of the layer loop (−1e30·mask at the compute
-        dtype; the bool behind seg_mat's one-hot)."""
+        dtype; the bool behind seg_mat's one-hot). Under ``tp_mesh`` the
+        heads are this rank's."""
         cfg = self.config
         dt = self.dtype
+        mesh = self.tp_mesh
         scale = 1.0 / (cfg.d_head ** 0.5)
         klen = k_head.shape[1]
         train = not deterministic and cfg.dropout > 0
         bd_eq = ("bqhf,bphf->bhqp" if k_head_r.dim() == 4
                  else "bqhf,phf->bhqp")
 
+        tier = None
         if (cfg.attention_impl == "fused" and head_mask is None
                 and not output_attentions):
             bsz, qlen, h, dh = q_head.shape
@@ -198,6 +227,10 @@ class XLNetRelativeAttention(nn.Module):
                     self.r_r_bias, self.r_s_bias, self.seg_embed))
             tier = rel_tier(qlen, klen, dh, grad, ingredients_ok,
                             inkernel=cfg.rel_bias_impl == "inkernel")
+        # a head shard runs the full-H and the ingredients tiers; where one
+        # card would take the head-blocked or flash-streamed ebias tiers it
+        # runs the einsum math (the JAX model's TP gate)
+        if tier is not None and (mesh is None or tier not in ("hb", "fs")):
             if tier in ("ik_full", "ik_fs"):
                 return self._ingredients_core(
                     rw, q_head, k_head, v_head, k_head_r, seg_mat, attn_mask,
@@ -226,13 +259,15 @@ class XLNetRelativeAttention(nn.Module):
                 ebias = ebias + mask_bias
             elif attn_mask is not None:
                 ebias = ebias - (MASK_VERY_NEG * attn_mask.float()).to(dt)
-            ctx = fused_rel_attention(
+            attend, tp = ((fused_rel_attention, {}) if mesh is None
+                          else (fused_rel_attention_tp, {"mesh": mesh}))
+            ctx = attend(
                 rw, k_head.to(dt).reshape(bsz, klen, h * dh),
                 v_head.to(dt).reshape(bsz, klen, h * dh),
                 ebias.expand(bsz, h, qlen, klen),
                 n_heads=h, scale=scale, dropout_rate=cfg.dropout,
                 dropout_rng=rngs.host if train else None,
-                deterministic=deterministic)
+                deterministic=deterministic, **tp)
             return ctx.reshape(bsz, qlen, h, dh)
 
         rw = (q_head + self.r_w_bias).to(dt)
@@ -248,15 +283,25 @@ class XLNetRelativeAttention(nn.Module):
         if attn_mask is not None:
             score = score - MASK_VERY_NEG * attn_mask.float()
         probs = torch.softmax(score, dim=-1)
+        h0 = None
+        if mesh is not None:
+            # the one-card keep mask, sliced to this rank's heads
+            h0 = local_heads(cfg.n_head, mesh)[0]
         probs = dropout(probs, cfg.dropout, rngs.device if train else None,
-                        not train)
+                        not train,
+                        shard=None if h0 is None else (1, cfg.n_head, h0))
         if head_mask is not None:
             # HF applies the head mask after attention dropout.
+            if h0 is not None:
+                head_mask = head_mask[h0:h0 + probs.shape[1]]
             probs = probs * head_mask.to(probs.dtype).reshape(1, -1, 1, 1)
         attn_vec = _f32_einsum("bhqk,bkhf->bqhf", probs.to(dt),
                                v_head).to(dt)
         if output_attentions:
-            return attn_vec, probs.float()
+            probs = probs.float()
+            if mesh is not None:
+                probs = mesh.all_gather(probs, mesh.model_axis, dim=1)
+            return attn_vec, probs
         return attn_vec
 
     def _ingredients_core(self, rw, q_head, k_head, v_head, k_head_r,
@@ -292,20 +337,27 @@ class XLNetRelativeAttention(nn.Module):
         else:
             maskb = torch.zeros(bsz, qlen, klen, dtype=dt, device=rw.device)
         train = not deterministic and cfg.dropout > 0
-        ctx = fused_rel_attention_ingredients(
+        mesh = self.tp_mesh
+        attend, tp = ((fused_rel_attention_ingredients, {}) if mesh is None
+                      else (fused_rel_attention_ingredients_tp,
+                            {"mesh": mesh}))
+        ctx = attend(
             rw, rr, k_head_r.to(dt).reshape(-1, h * dh),
             k_head.to(dt).reshape(bsz, klen, h * dh),
             v_head.to(dt).reshape(bsz, klen, h * dh), ed,
             segd.expand(bsz, qlen, klen), maskb.expand(bsz, qlen, klen),
             n_heads=h, scale=scale, dropout_rate=cfg.dropout,
             dropout_rng=rngs.host if train else None,
-            deterministic=deterministic, tier=tier)
+            deterministic=deterministic, tier=tier, **tp)
         return ctx.reshape(bsz, qlen, h, dh)
 
     def _post_attention(self, h, attn_vec, deterministic, rngs):
         b, q = attn_vec.shape[:2]
         out = torch.matmul(attn_vec.reshape(b, q, -1),
                            self.o.to(self.dtype).t())
+        if self.tp_mesh is not None:
+            # o is row-parallel over the heads: the partials summed
+            out = reduce_from_model(out, self.tp_mesh)
         out = _hidden_dropout(out, self.config.dropout, rngs, deterministic)
         return self.layer_norm(out + h)
 
@@ -318,8 +370,16 @@ class XLNetRelativeAttention(nn.Module):
         dt = self.dtype
         nh, dh = cfg.n_head, cfg.d_head
         bsz, qlen = h.shape[:2]
+        mesh = self.tp_mesh
+        h_in, g_in = h, g
+        if mesh is not None:
+            # this rank's heads: the replicated streams enter the split
+            nh = local_heads(nh, mesh)[1]
+            h_in = copy_to_model(h, mesh)
+            if g is not None:
+                g_in = copy_to_model(g, mesh)
         # the keys and values read the memory, then the segment
-        cat = h if mems is None else torch.cat([mems.to(dt), h], dim=1)
+        cat = h_in if mems is None else torch.cat([mems.to(dt), h_in], dim=1)
         klen = cat.shape[1]
         if cfg.pack_qkv and mems is None:
             # one [D, 3·H·Dh] product in place of three: the same sums
@@ -327,9 +387,9 @@ class XLNetRelativeAttention(nn.Module):
             w_qkv = torch.cat([self.q, self.k, self.v], dim=1).to(dt)
             q_head_h, k_head, v_head = (
                 x.reshape(bsz, qlen, nh, dh)
-                for x in torch.matmul(h, w_qkv).chunk(3, dim=-1))
+                for x in torch.matmul(h_in, w_qkv).chunk(3, dim=-1))
         else:
-            q_head_h = torch.matmul(h, self.q.to(dt)).reshape(
+            q_head_h = torch.matmul(h_in, self.q.to(dt)).reshape(
                 bsz, qlen, nh, dh)
             k_head, v_head = (
                 torch.matmul(cat, w.to(dt)).reshape(bsz, klen, nh, dh)
@@ -351,7 +411,7 @@ class XLNetRelativeAttention(nn.Module):
 
         out_g = None
         if g is not None:
-            q_head_g = torch.matmul(g, self.q.to(dt)).reshape(
+            q_head_g = torch.matmul(g_in, self.q.to(dt)).reshape(
                 bsz, g.shape[1], nh, dh)
             if target_mapping is not None:
                 # project the query positions onto the content positions
@@ -375,13 +435,18 @@ class XLNetRelativeAttention(nn.Module):
 
 
 class XLNetFeedForward(nn.Module):
-    """Position-wise FFN with the post-LN residual (HF XLNetFeedForward)."""
+    """Position-wise FFN with the post-LN residual (HF XLNetFeedForward).
+    ``tp_mesh`` (set by ``parallel/tp.py::shard_model_``) splits it
+    Megatron-style: ``layer_1`` column-parallel (its dropout drawn for the
+    full width and sliced to the rank's columns), ``layer_2``
+    row-parallel."""
 
     def __init__(self, config: XLNetConfig, dtype: torch.dtype = torch.float32,
                  *, device=None):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.tp_mesh = None
         self.layer_1 = _linear(config.d_model, config.d_inner, device)
         self.layer_2 = _linear(config.d_inner, config.d_model, device)
         self.layer_norm = LayerNorm(config.d_model, config.layer_norm_eps,
@@ -389,9 +454,20 @@ class XLNetFeedForward(nn.Module):
 
     def forward(self, x, *, deterministic=True, rngs=None):
         cfg = self.config
-        out = ACT2FN[cfg.ff_activation](dense(self.layer_1, x, self.dtype))
-        out = _hidden_dropout(out, cfg.dropout, rngs, deterministic)
-        out = dense(self.layer_2, out, self.dtype)
+        mesh = self.tp_mesh
+        if mesh is None:
+            out = ACT2FN[cfg.ff_activation](dense(self.layer_1, x,
+                                                  self.dtype))
+            out = _hidden_dropout(out, cfg.dropout, rngs, deterministic)
+            out = dense(self.layer_2, out, self.dtype)
+        else:
+            out = ACT2FN[cfg.ff_activation](dense(
+                self.layer_1, copy_to_model(x, mesh), self.dtype))
+            if not deterministic and cfg.dropout > 0.0:
+                cols = out.shape[-1]
+                out = dropout(out, cfg.dropout, rngs.device, shard=(
+                    out.dim() - 1, cfg.d_inner, mesh.model_rank * cols))
+            out = row_parallel_dense(self.layer_2, out, self.dtype, mesh)
         out = _hidden_dropout(out, cfg.dropout, rngs, deterministic)
         return self.layer_norm(out + x)
 
@@ -435,7 +511,8 @@ def init_xlnet_weights(module: nn.Module, initializer_range: float,
             else:
                 continue
             for p in raw:
-                p.normal_(0.0, initializer_range, generator=generator)
+                # a tensor-parallel chunk draws its full tensor
+                _normal_(p, initializer_range, generator)
 
 
 class MagXLNetModel(nn.Module):

@@ -2112,23 +2112,26 @@ def attn_fwd_rel_reference(
     rate: float = 0.0,
     seed: int = 0,
     save: bool = False,
+    b_off: int = 0,
+    h_off: int = 0,
 ):
     """Plain version of kernel #11, with #1's rounding points: fp32
     softmax; p (and pd at rate > 0) rounded to the input dtype when saved;
-    the dropped probs rounded for a PV product accumulated in fp32.
-    Returns out [B, Q, D], or (out, p, pd) [B, H, Q, K] with ``save`` (pd
-    is p at rate 0)."""
+    the dropped probs rounded for a PV product accumulated in fp32, the
+    Philox mask at the global (b, h) (``b_off``/``h_off``: the tensors'
+    first batch row and head). Returns out [B, Q, D], or (out, p, pd)
+    [B, H, Q, K] with ``save`` (pd is p at rate 0)."""
     return _rel_forward(_rel_probs(q, k, ebias, n_heads, scale), v, n_heads,
-                        rate, seed, save)
+                        rate, seed, save, b_off, h_off)
 
 
-def _rel_forward(p, v, n_heads, rate, seed, save):
+def _rel_forward(p, v, n_heads, rate, seed, save, b_off=0, h_off=0):
     """#11's and #20's forward from the fp32 probs p [B, H, Q, K]: the
-    Philox mask, the dropped probs rounded to v's dtype for a PV product
-    accumulated in fp32; with ``save`` also p and pd rounded (pd is p at
-    rate 0)."""
+    Philox mask at the global (b, h), the dropped probs rounded to v's
+    dtype for a PV product accumulated in fp32; with ``save`` also p and
+    pd rounded (pd is p at rate 0)."""
     dtype = v.dtype
-    pd = _dropped(p, seed, rate)
+    pd = _dropped(p, seed, rate, b_off, h_off)
     out = _merge_heads(torch.matmul(pd.to(dtype).float(),
                                     _ctx_heads(v, n_heads).float()).to(dtype))
     if not save:
@@ -2156,12 +2159,12 @@ def _rel_vjp(p, pd, pd_c, q, k, v, g, n_heads, scale, eb_dtype):
 
 @_counted
 def attn_bwd_rel_reference(q, k, v, ebias, seed, g, *, n_heads, scale,
-                           rate=0.0):
+                           rate=0.0, b_off=0, h_off=0):
     """Plain version of kernel #12: the probs recomputed in fp32, the keep
-    mask replayed from ``seed``. Returns (dq, dk, dv, debias), debias in
-    ebias's dtype."""
+    mask replayed from ``seed`` at the forward's offsets. Returns (dq, dk,
+    dv, debias), debias in ebias's dtype."""
     p = _rel_probs(q, k, ebias, n_heads, scale)
-    pd = _dropped(p, seed, rate)
+    pd = _dropped(p, seed, rate, b_off, h_off)
     return _rel_vjp(p, pd, pd.to(q.dtype), q, k, v, g, n_heads, scale,
                     ebias.dtype)
 
@@ -2445,7 +2448,7 @@ def _check_rel_geometry(q, k, v, ebias, n_heads):
 
 
 def attn_fwd_rel_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
-                      save=False):
+                      save=False, b_off=0, h_off=0):
     """Launch kernel #11 (``csrc/attn_fwd_rel.cu``): out [B, Q, D], or (out,
     p, pd) [B, H, Q, K] with ``save`` (pd is p at rate 0). q, k, v and
     ebias are contiguous CUDA tensors of one dtype: bf16 on the tensor
@@ -2462,13 +2465,14 @@ def attn_fwd_rel_cuda(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
     _launch("attn_fwd_rel", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             ebias.data_ptr(), out.data_ptr(), _ptr(p),
             _ptr(pd) if rate > 0.0 else None, b, q_len, k_len, n_heads, dh,
-            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[q.dtype],
-            device=q.device)
+            float(scale), *_drop_args(rate, seed), int(b_off), int(h_off),
+            _DTYPE_CODES[q.dtype], device=q.device)
     attn_fwd_rel_cuda.launches += 1
     return (out, p, pd) if save else out
 
 
-def attn_bwd_rel_cuda(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
+def attn_bwd_rel_cuda(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0,
+                      b_off=0, h_off=0):
     """Launch kernel #12 (``csrc/attn_bwd_rel.cu``): (dq, dk, dv, debias)
     with the probs recomputed and the keep mask replayed from ``seed``;
     bf16 on the tensor cores (its plan, ``rel_full_tc_bwd_q_chunk`` with
@@ -2482,8 +2486,8 @@ def attn_bwd_rel_cuda(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
     _launch("attn_bwd_rel", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             ebias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), debias.data_ptr(), b, q_len, k_len, n_heads, dh,
-            float(scale), *_drop_args(rate, seed), _DTYPE_CODES[q.dtype],
-            device=q.device)
+            float(scale), *_drop_args(rate, seed), int(b_off), int(h_off),
+            _DTYPE_CODES[q.dtype], device=q.device)
     attn_bwd_rel_cuda.launches += 1
     return dq, dk, dv, debias
 
@@ -2626,18 +2630,19 @@ del _fn
 
 
 def attn_fwd_rel(q, k, v, ebias, *, n_heads, scale, rate=0.0, seed=0,
-                 save=False):
+                 save=False, b_off=0, h_off=0):
     """Kernel #11 on a CUDA tensor, its plain version on a CPU one."""
     fn = attn_fwd_rel_cuda if _on(q) == "cuda" else attn_fwd_rel_reference
     return fn(q, k, v, ebias, n_heads=n_heads, scale=scale, rate=rate,
-              seed=seed, save=save)
+              seed=seed, save=save, b_off=b_off, h_off=h_off)
 
 
-def attn_bwd_rel(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0):
+def attn_bwd_rel(q, k, v, ebias, seed, g, *, n_heads, scale, rate=0.0,
+                 b_off=0, h_off=0):
     """Kernel #12 on a CUDA tensor, its plain version on a CPU one."""
     fn = attn_bwd_rel_cuda if _on(q) == "cuda" else attn_bwd_rel_reference
     return fn(q, k, v, ebias, seed, g, n_heads=n_heads, scale=scale,
-              rate=rate)
+              rate=rate, b_off=b_off, h_off=h_off)
 
 
 def attn_bwd_rel_saved(p, pd, q, k, v, g, *, n_heads, scale):
@@ -2685,21 +2690,24 @@ class FusedRelAttention(torch.autograd.Function):
     ``_frel_bwd``). With ``save`` the forward keeps p and pd and not ebias
     (the backward needs only its dtype) and the backward runs #13; without,
     it keeps q, k, v, ebias and the seed, and #12 recomputes the probs.
-    Returns (dq, dk, dv, debias), debias in ebias's dtype."""
+    ``b_off``/``h_off`` place the mask at the global (b, h) (a
+    tensor-parallel rank's shard). Returns (dq, dk, dv, debias), debias in
+    ebias's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, ebias, n_heads: int, scale: float,
-                rate: float, seed: int, save: bool):
+                rate: float, seed: int, save: bool, b_off: int = 0,
+                h_off: int = 0):
         ctx.n_heads, ctx.scale, ctx.rate = n_heads, scale, rate
         ctx.seed, ctx.save, ctx.eb_dtype = seed, save, ebias.dtype
+        ctx.offs = dict(b_off=b_off, h_off=h_off)
+        kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed,
+                  **ctx.offs)
         if save:
-            out, p, pd = attn_fwd_rel(q, k, v, ebias, n_heads=n_heads,
-                                      scale=scale, rate=rate, seed=seed,
-                                      save=True)
+            out, p, pd = attn_fwd_rel(q, k, v, ebias, save=True, **kw)
             ctx.save_for_backward(q, k, v, p, pd)
         else:
-            out = attn_fwd_rel(q, k, v, ebias, n_heads=n_heads, scale=scale,
-                               rate=rate, seed=seed)
+            out = attn_fwd_rel(q, k, v, ebias, **kw)
             ctx.save_for_backward(q, k, v, ebias)
         return out
 
@@ -2713,9 +2721,9 @@ class FusedRelAttention(torch.autograd.Function):
         else:
             q, k, v, ebias = ctx.saved_tensors
             dq, dk, dv, debias = attn_bwd_rel(q, k, v, ebias, ctx.seed, g,
-                                              rate=ctx.rate, **kw)
+                                              rate=ctx.rate, **ctx.offs, **kw)
         return (dq, dk, dv, debias.to(ctx.eb_dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 class FusedRelAttentionHB(torch.autograd.Function):
@@ -2842,6 +2850,16 @@ def fused_rel_attention(
         raise ValueError(
             "interpret/nb_fwd/nb_bwd are TPU kernel-plan knobs; the CUDA "
             "kernels take none")
+    return _fused_rel(q, k, v, ebias, n_heads, scale, dropout_rate,
+                      dropout_rng, deterministic, save_probs, None)
+
+
+def _fused_rel(q, k, v, ebias, n_heads, scale, dropout_rate, dropout_rng,
+               deterministic, save_probs, offsets):
+    """``fused_rel_attention``'s body. ``offsets`` (b_off, h_off), a
+    tensor-parallel rank's: the tensors' first (b, h) in the global batch
+    and heads (the dropout stream), on the full-H kernels alone; None for
+    one card."""
     rate = 0.0 if deterministic else float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
@@ -2852,6 +2870,11 @@ def fused_rel_attention(
     grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v, ebias))
     tier = rel_tier(q_len, k_len, dh, grad, ingredients_ok=False)
+    if offsets is not None and tier != "full":
+        raise ValueError(
+            f"Q={q_len} K={k_len} Dh={dh} is past the full-H rel kernels' "
+            "reach: a head shard runs on them alone (rel_tier)")
+    b_off, h_off = offsets or (0, 0)
     seed = draw_seed(dropout_rng) if rate > 0.0 else 0
     q, k, v, ebias = (x.contiguous() for x in (q, k, v, ebias))
     kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
@@ -2860,7 +2883,8 @@ def fused_rel_attention(
             return _traced("attn_fwd_rel" + _TIER_SUFFIX[tier], rate)(
                 q, k, v, ebias, n_heads, float(scale))
         if tier == "full":
-            return attn_fwd_rel(q, k, v, ebias, **kw)
+            return attn_fwd_rel(q, k, v, ebias, b_off=b_off, h_off=h_off,
+                                **kw)
         if tier == "hb":
             return attn_fwd_rel_hb(q, k, v, ebias, **kw)
         return attn_fwd_rel_fs(q, k, v, ebias, **kw)[0]
@@ -2873,7 +2897,37 @@ def fused_rel_attention(
     save = resolve_save_probs(b, n_heads, q_len, rate, q.element_size(),
                               save_probs, k_len=k_len)
     return FusedRelAttention.apply(q, k, v, ebias, n_heads, float(scale),
-                                   rate, seed, save)
+                                   rate, seed, save, b_off, h_off)
+
+
+def fused_rel_attention_tp(
+    q: torch.Tensor,                          # [B/dp, Q, D/mp] head-major
+    k: torch.Tensor,                          # [B/dp, K, D/mp]
+    v: torch.Tensor,                          # [B/dp, K, D/mp]
+    ebias: torch.Tensor,                      # [B/dp, H/mp, Q, K]
+    *,
+    mesh,
+    n_heads: int,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """``fused_rel_attention`` on one rank of a tensor-parallel mesh
+    (``parallel/mesh.py``): q, k, v and ebias are this rank's batch rows
+    (its data shard) and its ``n_heads`` heads (its model shard), the JAX
+    ``fused_rel_attention_tp``'s per-device block, on the full-H kernels
+    #11-#13 (the model checks ``rel_tier`` first). The kernels draw the
+    dropout of the global (b, h): batch row offset ``mesh.data_rank`` ·
+    B_local, head offset ``mesh.model_rank`` · H_local, from the seed that
+    every rank draws alike from ``dropout_rng``. The JAX wrapper instead
+    folds the model and the data index into its rng (ROADMAP C, deliberate
+    departures). Over more than one data rank the ``Trainer`` hands each
+    data rank its own ``dropout_rng`` (the data rank folded into the
+    seed), which then keeps the shards apart on its own."""
+    return _fused_rel(q, k, v, ebias, n_heads, scale, dropout_rate,
+                      dropout_rng, deterministic, None,
+                      (mesh.data_rank * q.shape[0], mesh.model_rank * n_heads))
 
 
 # ---- rel attention from its bias ingredients, flash-streamed (#23, #24) -----
@@ -2927,7 +2981,8 @@ def _relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads, scale):
 
 @_counted
 def attn_fwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, *,
-                                n_heads, scale, rate=0.0, seed=0):
+                                n_heads, scale, rate=0.0, seed=0, b_off=0,
+                                h_off=0):
     """Plain version of kernel #23: the whole row's scores from the
     ingredients, then #6's online softmax over key blocks of
     ``FS_KEY_BLOCK`` with its rounding points (e dropped by the Philox
@@ -2951,7 +3006,7 @@ def attn_fwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, *,
         den = den * alpha + e.sum(dim=-1)
         if rate > 0.0:
             keep = dropout_keep_mask(seed, b, n_heads, q_len, k1 - k0, rate,
-                                     rw.device, k0)
+                                     rw.device, k0, b_off, h_off)
             e = torch.where(keep, e * inv_keep(rate), 0.0)
         acc = acc * alpha[..., None] + torch.matmul(e.to(dtype).float(),
                                                     vh[:, :, k0:k1])
@@ -2962,7 +3017,8 @@ def attn_fwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, *,
 
 @_counted
 def attn_bwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, seed, o,
-                                lse, g, *, n_heads, scale, rate=0.0):
+                                lse, g, *, n_heads, scale, rate=0.0, b_off=0,
+                                h_off=0):
     """Plain version of kernel #24: p = exp(s − lse) from the forward's lse,
     δ = Σ g⊙o from the rounded output, d(pd) = g·vᵀ; with the replayed keep
     mask pd = keep·p/(1−rate) and dp = keep·d(pd)/(1−rate); ds = p·(dp − δ);
@@ -2982,7 +3038,7 @@ def attn_bwd_relik_fs_reference(rw, rr, r, k, v, ed, segd, maskb, seed, o,
     pd = p
     if rate > 0.0:
         keep = dropout_keep_mask(seed, b, n_heads, q_len, k_len, rate,
-                                 rw.device)
+                                 rw.device, 0, b_off, h_off)
         pd = torch.where(keep, p * inv_keep(rate), 0.0)
         dp = torch.where(keep, dp * inv_keep(rate), 0.0)
     drw, drr, dr, dk, dv, ded = _relik_grads(
@@ -3144,7 +3200,7 @@ def _check_relik_cuda(name, tensors, n_heads):
 
 
 def attn_fwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
-                           scale, rate=0.0, seed=0):
+                           scale, rate=0.0, seed=0, b_off=0, h_off=0):
     """Launch kernel #23 (``csrc/attn_fwd_relik_fs.cu``): every input a
     contiguous CUDA tensor of one dtype (fp32 or bf16; bf16 on the tensor
     cores, fp32 on the CUDA cores), any Q and K, P ≥ Q + K. Raises past
@@ -3161,14 +3217,14 @@ def attn_fwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
                       device=rw.device)
     _launch("attn_fwd_relik_fs", *(t.data_ptr() for t in ins.values()),
             out.data_ptr(), lse.data_ptr(), b, q_len, k_len, p_len, n_heads,
-            dh, float(scale), *_drop_args(rate, seed),
-            _DTYPE_CODES[rw.dtype], device=rw.device)
+            dh, float(scale), *_drop_args(rate, seed), int(b_off),
+            int(h_off), _DTYPE_CODES[rw.dtype], device=rw.device)
     attn_fwd_relik_fs_cuda.launches += 1
     return out, lse
 
 
 def attn_bwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
-                           *, n_heads, scale, rate=0.0):
+                           *, n_heads, scale, rate=0.0, b_off=0, h_off=0):
     """Launch kernel #24 (``csrc/attn_bwd_relik_fs.cu``), three kernels on
     the current stream, each counted: the dK/dV pass, the pass over each
     (batch row, head) that writes drw, drr, ded and its dr rows into an
@@ -3196,7 +3252,8 @@ def attn_bwd_relik_fs_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
             o.data_ptr(), lse.data_ptr(), g.data_ptr(), drw.data_ptr(),
             drr.data_ptr(), dk.data_ptr(), dv.data_ptr(), ded.data_ptr(),
             ws.data_ptr(), b, q_len, k_len, p_len, n_heads, dh, float(scale),
-            *_drop_args(rate, seed), _DTYPE_CODES[rw.dtype])
+            *_drop_args(rate, seed), int(b_off), int(h_off),
+            _DTYPE_CODES[rw.dtype])
     _launch("attn_bwd_relik_fs_dkdv", *args, device=rw.device)
     attn_bwd_relik_fs_cuda.launches += 1
     _launch("attn_bwd_relik_fs_dq", *args, device=rw.device)
@@ -3212,36 +3269,40 @@ attn_bwd_relik_fs_cuda.launches = 0
 
 
 def attn_fwd_relik_fs(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
-                      rate=0.0, seed=0):
+                      rate=0.0, seed=0, b_off=0, h_off=0):
     """Kernel #23 on a CUDA tensor, its plain version on a CPU one."""
     fn = (attn_fwd_relik_fs_cuda if _on(rw) == "cuda"
           else attn_fwd_relik_fs_reference)
     return fn(rw, rr, r, k, v, ed, segd, maskb, n_heads=n_heads, scale=scale,
-              rate=rate, seed=seed)
+              rate=rate, seed=seed, b_off=b_off, h_off=h_off)
 
 
 def attn_bwd_relik_fs(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g, *,
-                      n_heads, scale, rate=0.0):
+                      n_heads, scale, rate=0.0, b_off=0, h_off=0):
     """Kernel #24 on a CUDA tensor, its plain version on a CPU one."""
     fn = (attn_bwd_relik_fs_cuda if _on(rw) == "cuda"
           else attn_bwd_relik_fs_reference)
     return fn(rw, rr, r, k, v, ed, segd, maskb, seed, o, lse, g,
-              n_heads=n_heads, scale=scale, rate=rate)
+              n_heads=n_heads, scale=scale, rate=rate, b_off=b_off,
+              h_off=h_off)
 
 
 class FusedRelAttentionIKFS(torch.autograd.Function):
     """The ingredients flash-streamed tier with its backward kernel (JAX
     ``_frelikfs_fwd`` / ``_frelikfs_bwd``): #23 forward keeps the
     ingredients, the seed and its residuals o and lse; #24 rebuilds the
-    probs from lse. segd and maskb get no gradient."""
+    probs from lse. segd and maskb get no gradient; ``b_off``/``h_off``
+    place the mask at the global (b, h)."""
 
     @staticmethod
     def forward(ctx, rw, rr, r, k, v, ed, segd, maskb, n_heads: int,
-                scale: float, rate: float, seed: int):
+                scale: float, rate: float, seed: int, b_off: int = 0,
+                h_off: int = 0):
         ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
+        ctx.offs = dict(b_off=b_off, h_off=h_off)
         out, lse = attn_fwd_relik_fs(rw, rr, r, k, v, ed, segd, maskb,
                                      n_heads=n_heads, scale=scale, rate=rate,
-                                     seed=seed)
+                                     seed=seed, **ctx.offs)
         ctx.save_for_backward(rw, rr, r, k, v, ed, segd, maskb, out, lse)
         return out
 
@@ -3251,9 +3312,10 @@ class FusedRelAttentionIKFS(torch.autograd.Function):
         drw, drr, dr, dk, dv, ded = attn_bwd_relik_fs(
             rw, rr, r, k, v, ed, segd, maskb, ctx.seed, out, lse,
             g.contiguous(), n_heads=ctx.n_heads, scale=ctx.scale,
-            rate=ctx.rate)
+            rate=ctx.rate, **ctx.offs)
         return (drw, drr, dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                ded.to(ed.dtype), None, None, None, None, None, None)
+                ded.to(ed.dtype), None, None, None, None, None, None, None,
+                None)
 
 
 # ---- rel attention from its bias ingredients, full-H (#20, #21, #22) -------
@@ -3280,14 +3342,15 @@ class FusedRelAttentionIKFS(torch.autograd.Function):
 
 @_counted
 def attn_fwd_relik_reference(rw, rr, r, k, v, ed, segd, maskb, *, n_heads,
-                             scale, rate=0.0, seed=0, save=False):
+                             scale, rate=0.0, seed=0, save=False, b_off=0,
+                             h_off=0):
     """Plain version of kernel #20: the fp32 softmax of the scores the
     ingredients make (``_relik_scores``), then #11's plain forward (the
     Philox mask, T(pd)·v accumulated in fp32). Returns out [B, Q, D], or
     (out, p, pd) [B, H, Q, K] with ``save`` (pd is p at rate 0)."""
     p = torch.softmax(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
                                     scale), dim=-1)
-    return _rel_forward(p, v, n_heads, rate, seed, save)
+    return _rel_forward(p, v, n_heads, rate, seed, save, b_off, h_off)
 
 
 def _relik_vjp(p, pd, pd_c, rw, rr, r, k, v, segd, g, n_heads, scale):
@@ -3301,13 +3364,13 @@ def _relik_vjp(p, pd, pd_c, rw, rr, r, k, v, segd, g, n_heads, scale):
 
 @_counted
 def attn_bwd_relik_reference(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
-                             n_heads, scale, rate=0.0):
+                             n_heads, scale, rate=0.0, b_off=0, h_off=0):
     """Plain version of kernel #21: the probs recomputed in fp32, the keep
     mask replayed from ``seed``, pd in fp32 for t and rounded for dv.
     Returns (drw, drr, dr, dk, dv, ded), dr in fp32."""
     p = torch.softmax(_relik_scores(rw, rr, r, k, ed, segd, maskb, n_heads,
                                     scale), dim=-1)
-    pd = _dropped(p, seed, rate)
+    pd = _dropped(p, seed, rate, b_off, h_off)
     return _relik_vjp(p, pd, pd.to(rw.dtype), rw, rr, r, k, v, segd, g,
                       n_heads, scale)
 
@@ -3404,7 +3467,7 @@ def relik_full_tc_bwd_q_chunk(q_len: int, k_len: int, dh: int) -> int:
 
 
 def attn_fwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
-                        rate=0.0, seed=0, save=False):
+                        rate=0.0, seed=0, save=False, b_off=0, h_off=0):
     """Launch kernel #20 (``csrc/attn_fwd_relik.cu``; bf16 on the tensor
     cores, ``relik_full_tc_fwd_smem_bytes``): every input a contiguous CUDA
     tensor of one dtype (fp32 or bf16), K ≤ ``MAX_SEQ_LEN``, P ≥ Q + K.
@@ -3425,7 +3488,8 @@ def attn_fwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
     _launch("attn_fwd_relik", *(t.data_ptr() for t in ins.values()),
             out.data_ptr(), _ptr(p), _ptr(pd) if rate > 0.0 else None, b,
             q_len, k_len, p_len, n_heads, dh, float(scale),
-            *_drop_args(rate, seed), _DTYPE_CODES[rw.dtype], device=rw.device)
+            *_drop_args(rate, seed), int(b_off), int(h_off),
+            _DTYPE_CODES[rw.dtype], device=rw.device)
     attn_fwd_relik_cuda.launches += 1
     return (out, p, pd) if save else out
 
@@ -3456,7 +3520,7 @@ def _relik_dr_sum(fn, ws, dr, device):
 
 
 def attn_bwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
-                        n_heads, scale, rate=0.0):
+                        n_heads, scale, rate=0.0, b_off=0, h_off=0):
     """Launch kernel #21 (``csrc/attn_bwd_relik.cu``; bf16 on the tensor
     cores, ``relik_full_tc_bwd_q_chunk``), two kernels on the current
     stream, each counted: the (head, batch row) pass, with the probs
@@ -3478,7 +3542,7 @@ def attn_bwd_relik_cuda(rw, rr, r, k, v, ed, segd, maskb, seed, g, *,
     _launch("attn_bwd_relik", *(t.data_ptr() for t in ins.values()),
             *(t.data_ptr() for t in (drw, drr, dk, dv, ded, ws)), b, q_len,
             k_len, p_len, n_heads, dh, float(scale), *_drop_args(rate, seed),
-            _DTYPE_CODES[rw.dtype], device=rw.device)
+            int(b_off), int(h_off), _DTYPE_CODES[rw.dtype], device=rw.device)
     attn_bwd_relik_cuda.launches += 1
     _relik_dr_sum(attn_bwd_relik_cuda, ws, dr, rw.device)
     return drw, drr, dr, dk, dv, ded
@@ -3520,21 +3584,21 @@ del _fn
 
 
 def attn_fwd_relik(rw, rr, r, k, v, ed, segd, maskb, *, n_heads, scale,
-                   rate=0.0, seed=0, save=False):
+                   rate=0.0, seed=0, save=False, b_off=0, h_off=0):
     """Kernel #20 on a CUDA tensor, its plain version on a CPU one."""
     fn = (attn_fwd_relik_cuda if _on(rw) == "cuda"
           else attn_fwd_relik_reference)
     return fn(rw, rr, r, k, v, ed, segd, maskb, n_heads=n_heads, scale=scale,
-              rate=rate, seed=seed, save=save)
+              rate=rate, seed=seed, save=save, b_off=b_off, h_off=h_off)
 
 
 def attn_bwd_relik(rw, rr, r, k, v, ed, segd, maskb, seed, g, *, n_heads,
-                   scale, rate=0.0):
+                   scale, rate=0.0, b_off=0, h_off=0):
     """Kernel #21 on a CUDA tensor, its plain version on a CPU one."""
     fn = (attn_bwd_relik_cuda if _on(rw) == "cuda"
           else attn_bwd_relik_reference)
     return fn(rw, rr, r, k, v, ed, segd, maskb, seed, g, n_heads=n_heads,
-              scale=scale, rate=rate)
+              scale=scale, rate=rate, b_off=b_off, h_off=h_off)
 
 
 def attn_bwd_relik_saved(p, pd, rw, rr, r, k, v, segd, g, *, n_heads, scale):
@@ -3549,14 +3613,18 @@ class FusedRelAttentionIK(torch.autograd.Function):
     ``_frelik_fwd`` / ``_frelik_bwd``): with ``save`` #20 keeps p and pd
     and #22 runs from them; without, it keeps the ingredients and the seed
     and #21 recomputes the probs and replays the mask. segd and maskb get
-    no gradient; dr comes back in r's dtype and ded in ed's."""
+    no gradient; dr comes back in r's dtype and ded in ed's;
+    ``b_off``/``h_off`` place the mask at the global (b, h)."""
 
     @staticmethod
     def forward(ctx, rw, rr, r, k, v, ed, segd, maskb, n_heads: int,
-                scale: float, rate: float, seed: int, save: bool):
+                scale: float, rate: float, seed: int, save: bool,
+                b_off: int = 0, h_off: int = 0):
         ctx.n_heads, ctx.scale, ctx.rate, ctx.seed = n_heads, scale, rate, seed
         ctx.save, ctx.ed_dtype = save, ed.dtype
-        kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
+        ctx.offs = dict(b_off=b_off, h_off=h_off)
+        kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed,
+                  **ctx.offs)
         if save:
             out, p, pd = attn_fwd_relik(rw, rr, r, k, v, ed, segd, maskb,
                                         save=True, **kw)
@@ -3578,9 +3646,9 @@ class FusedRelAttentionIK(torch.autograd.Function):
             rw, rr, r, k, v, ed, segd, maskb = ctx.saved_tensors
             drw, drr, dr, dk, dv, ded = attn_bwd_relik(
                 rw, rr, r, k, v, ed, segd, maskb, ctx.seed, g, rate=ctx.rate,
-                **kw)
+                **ctx.offs, **kw)
         return (drw, drr, dr.to(r.dtype), dk, dv, ded.to(ctx.ed_dtype), None,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def fused_rel_attention_ingredients(
@@ -3625,6 +3693,17 @@ def fused_rel_attention_ingredients(
         raise ValueError(
             "interpret/nb_fwd/nb_bwd/fs_plan are TPU kernel-plan knobs; the "
             "CUDA kernels take none")
+    return _fused_relik(rw, rr, r, k, v, ed, segd, maskb, n_heads, scale,
+                        dropout_rate, dropout_rng, deterministic, save_probs,
+                        tier, 0, 0)
+
+
+def _fused_relik(rw, rr, r, k, v, ed, segd, maskb, n_heads, scale,
+                 dropout_rate, dropout_rng, deterministic, save_probs, tier,
+                 b_off, h_off):
+    """``fused_rel_attention_ingredients``'s body; ``b_off``/``h_off``
+    place the tensors' first (b, h) in the global batch and heads (the
+    dropout stream)."""
     if tier not in (None, "fs", "full"):
         raise ValueError(f"unknown tier {tier!r} (None | 'fs' | 'full')")
     rate = 0.0 if deterministic else float(dropout_rate)
@@ -3644,7 +3723,8 @@ def fused_rel_attention_ingredients(
             f"ingredients kernels' reach (K ≤ {MAX_SEQ_LEN}; with a "
             "gradient, relik_bwd_fits)")
     seed = draw_seed(dropout_rng) if rate > 0.0 else 0
-    kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed)
+    kw = dict(n_heads=n_heads, scale=scale, rate=rate, seed=seed,
+              b_off=b_off, h_off=h_off)
     if not grad and torch.compiler.is_exporting():
         name = ("attn_fwd_relik_fs" if tier == "fs" or not reach
                 else "attn_fwd_relik")
@@ -3653,10 +3733,49 @@ def fused_rel_attention_ingredients(
         if not grad:
             return attn_fwd_relik_fs(*xs, **kw)[0]
         return FusedRelAttentionIKFS.apply(*xs, n_heads, float(scale), rate,
-                                           seed)
+                                           seed, b_off, h_off)
     if not grad:
         return attn_fwd_relik(*xs, **kw)
     save = resolve_save_probs(b, n_heads, q_len, rate, rw.element_size(),
                               save_probs, k_len=k_len)
     return FusedRelAttentionIK.apply(*xs, n_heads, float(scale), rate, seed,
-                                     save)
+                                     save, b_off, h_off)
+
+
+def fused_rel_attention_ingredients_tp(
+    rw: torch.Tensor,                         # [B/dp, Q, D/mp]
+    rr: torch.Tensor,                         # [B/dp, Q, D/mp]
+    r: torch.Tensor,                          # [P, D/mp]
+    k: torch.Tensor,                          # [B/dp, K, D/mp]
+    v: torch.Tensor,                          # [B/dp, K, D/mp]
+    ed: torch.Tensor,                         # [B/dp, H/mp, Q]
+    segd: torch.Tensor,                       # [B/dp, Q, K]
+    maskb: torch.Tensor,                      # [B/dp, Q, K]
+    *,
+    mesh,
+    n_heads: int,
+    scale: float,
+    dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    tier: Optional[str] = None,
+) -> torch.Tensor:
+    """``fused_rel_attention_ingredients`` on one rank of a tensor-parallel
+    mesh: rw, rr, k, v are this rank's batch rows and its ``n_heads``
+    heads' columns, r its heads' columns of the position keys (the W_r
+    chunk's product), ed its heads; segd and maskb are its rows whole. The
+    JAX ``fused_rel_attention_ingredients_tp``'s per-device block, on the
+    full-H (#20-#22) or flash-streamed (#23, #24) ingredients tier
+    (``tier`` as the one-card entry's). dr and ded stay this rank's heads'.
+    The kernels draw the dropout of the global (b, h): batch row offset
+    ``mesh.data_rank`` · B_local, head offset ``mesh.model_rank`` ·
+    H_local, from the seed that every rank draws alike from
+    ``dropout_rng``. The JAX wrapper instead folds the model and the data
+    index into its rng (ROADMAP C, deliberate departures). Over more than
+    one data rank the ``Trainer`` hands each data rank its own
+    ``dropout_rng`` (the data rank folded into the seed), which then keeps
+    the shards apart on its own."""
+    return _fused_relik(rw, rr, r, k, v, ed, segd, maskb, n_heads, scale,
+                        dropout_rate, dropout_rng, deterministic, None, tier,
+                        mesh.data_rank * rw.shape[0],
+                        mesh.model_rank * n_heads)

@@ -154,10 +154,13 @@ def load_kernels() -> ctypes.CDLL:
         lib.attn_bwd_qkvproj_dx.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
         rel = [i32, i32, i32, i32, i32, f32]      # B, Q, K, H, Dh, scale
         # attn_fwd_rel: q, k, v, ebias, out, p, pd; attn_bwd_rel: q, k, v,
-        # ebias, g, dq, dk, dv, debias; attn_bwd_rel_saved: p, pd, q, k, v,
-        # g, dq, dk, dv, debias.
-        lib.attn_fwd_rel.argtypes = [ptr] * 7 + rel + drop + [i32, ptr]
-        lib.attn_bwd_rel.argtypes = [ptr] * 9 + rel + drop + [i32, ptr]
+        # ebias, g, dq, dk, dv, debias; both then b_off, h_off after the
+        # dropout args, as every rel-family entry that draws the mask;
+        # attn_bwd_rel_saved: p, pd, q, k, v, g, dq, dk, dv, debias.
+        lib.attn_fwd_rel.argtypes = ([ptr] * 7 + rel + drop + offs
+                                     + [i32, ptr])
+        lib.attn_bwd_rel.argtypes = ([ptr] * 9 + rel + drop + offs
+                                     + [i32, ptr])
         lib.attn_bwd_rel_saved.argtypes = [ptr] * 10 + rel + [i32, ptr]
         # attn_fwd_rel_hb: q, k, v, ebias, out; attn_bwd_rel_hb{,_dkdv}: q,
         # k, v, ebias, g, dq, dk, dv, debias, ws.
@@ -173,16 +176,18 @@ def load_kernels() -> ctypes.CDLL:
         # attn_bwd_relik_fs_{dkdv,dq}: the eight inputs, o, lse, g, drw, drr,
         # dk, dv, ded, ws; attn_bwd_relik_fs_dr: ws, dr, B, P, D.
         relik = [i32] * 6 + [f32]                 # B, Q, K, P, H, Dh, scale
-        lib.attn_fwd_relik_fs.argtypes = ([ptr] * 10 + relik + drop
+        lib.attn_fwd_relik_fs.argtypes = ([ptr] * 10 + relik + drop + offs
                                           + [i32, ptr])
         for fn in (lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq):
-            fn.argtypes = [ptr] * 17 + relik + drop + [i32, ptr]
+            fn.argtypes = [ptr] * 17 + relik + drop + offs + [i32, ptr]
         lib.attn_bwd_relik_fs_dr.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
         # attn_fwd_relik: the eight inputs, out, p, pd; attn_bwd_relik: the
         # eight inputs, g, drw, drr, dk, dv, ded, ws; attn_bwd_relik_saved:
         # p, pd, rw, rr, r, k, v, segd, g, drw, drr, dk, dv, ded, ws.
-        lib.attn_fwd_relik.argtypes = [ptr] * 11 + relik + drop + [i32, ptr]
-        lib.attn_bwd_relik.argtypes = [ptr] * 15 + relik + drop + [i32, ptr]
+        lib.attn_fwd_relik.argtypes = ([ptr] * 11 + relik + drop + offs
+                                       + [i32, ptr])
+        lib.attn_bwd_relik.argtypes = ([ptr] * 15 + relik + drop + offs
+                                       + [i32, ptr])
         lib.attn_bwd_relik_saved.argtypes = [ptr] * 15 + relik + [i32, ptr]
         # mag_fwd: t, v, a, 12 params, out; mag_bwd: dy, t, v, a, 11
         # params (no ln_beta), 6 outputs.

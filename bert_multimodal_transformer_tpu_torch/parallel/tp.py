@@ -1,14 +1,15 @@
-"""Tensor (model-axis) parallelism for MAG-BERT (port of ``parallel/tp.py``).
+"""Tensor (model-axis) parallelism for MAG-BERT and MAG-XLNet (port of
+``parallel/tp.py``).
 
 The FFN is split Megatron-style over the mesh's ``model`` axis:
 
-* the first FFN product is column-parallel: ``intermediate_dense`` keeps
-  its weight rows (output features) and bias of this rank's chunk; GELU
-  stays local;
-* the second is row-parallel: the layer-level ``output_dense`` keeps the
-  weight columns (input features) of the chunk; the partial products are
-  summed over the model axis and the bias, replicated, is added after the
-  sum.
+* the first FFN product is column-parallel: ``intermediate_dense`` (XLNet:
+  ``ff.layer_1``) keeps its weight rows (output features) and bias of this
+  rank's chunk; the activation stays local;
+* the second is row-parallel: the layer-level ``output_dense`` (XLNet:
+  ``ff.layer_2``) keeps the weight columns (input features) of the chunk;
+  the partial products are summed over the model axis and the bias,
+  replicated, is added after the sum.
 
 With ``shard_attention`` attention is head-sharded too: each rank computes
 q, k and v of its H/mp heads from the replicated packed ``qkv`` weight (its
@@ -18,7 +19,14 @@ stays whole, as in JAX), runs attention on them (the split-layout kernels
 einsum math), and ``attention.output_dense`` is row-parallel over the
 heads. Each rank's gradient of ``qkv`` then covers only its heads' rows, so
 it is summed over the model axis before the optimizer step
-(``sync_grads``). Everything else (embeddings, MAG, LayerNorms, pooler,
+(``sync_grads``). XLNet's raw [D, H·Dh] projections are head-major, so a
+contiguous chunk of their columns is whole heads: ``q``, ``k``, ``v`` and
+``r`` are column-parallel on that axis, ``o`` row-parallel on it, and the
+[H, Dh] biases ``r_w_bias``/``r_r_bias``/``r_s_bias`` and ``seg_embed``
+[2, H, Dh] are split on H; each rank then runs the rel kernels on its
+heads (``ops/fused_attention.py::fused_rel_attention_tp`` and
+``fused_rel_attention_ingredients_tp``) or the einsum math, and no
+gradient is partial. Everything else (embeddings, MAG, LayerNorms, pooler,
 classifier) stays replicated, and the two autograd functions keep its
 gradients whole: ``copy_to_model`` (identity forward, sum backward) where a
 replicated activation enters a sharded region, ``reduce_from_model`` (sum
@@ -50,12 +58,20 @@ from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
 PartitionSpec = Tuple[Optional[str], ...]
 
 
+_XLNET_HEAD_COLUMNS = tuple(f".rel_attn.{n}" for n in ("q", "k", "v", "r",
+                                                        "o"))
+_XLNET_HEAD_ROWS = tuple(f".rel_attn.{n}" for n in ("r_w_bias", "r_r_bias",
+                                                    "r_s_bias"))
+
+
 def tp_pspec_for_path(path: str, *,
                       shard_attention: bool = False) -> PartitionSpec:
     """The spec of one parameter by its state-dict name (torch layout:
-    ``Linear.weight`` is [out, in])."""
-    ffn_in = ".intermediate_dense." in path
-    ffn_out = ".output_dense." in path and ".attention." not in path
+    ``Linear.weight`` is [out, in]; XLNet's raw projections keep the JAX
+    [D, H·Dh])."""
+    ffn_in = ".intermediate_dense." in path or ".ff.layer_1." in path
+    ffn_out = ((".output_dense." in path and ".attention." not in path)
+               or ".ff.layer_2." in path)
     attn_out = ".attention.output_dense." in path
     if ffn_in and path.endswith(".weight"):
         return (MODEL_AXIS, None)
@@ -64,6 +80,15 @@ def tp_pspec_for_path(path: str, *,
     if (ffn_out or (shard_attention and attn_out)) and path.endswith(
             ".weight"):
         return (None, MODEL_AXIS)
+    if shard_attention:
+        # q/k/v/r column-parallel on the flat head axis, o row-parallel on
+        # it (its contraction axis, also dim 1)
+        if path.endswith(_XLNET_HEAD_COLUMNS):
+            return (None, MODEL_AXIS)
+        if path.endswith(_XLNET_HEAD_ROWS):
+            return (MODEL_AXIS, None)
+        if path.endswith(".rel_attn.seg_embed"):
+            return (None, MODEL_AXIS, None)
     # the row-parallel biases are added after the sum: replicated, as the
     # packed qkv (whose gradient sync_grads sums under shard_attention)
     return ()
@@ -90,7 +115,7 @@ def shard_tensor(t: torch.Tensor, spec: PartitionSpec,
 def shard_state_dict(full: Dict[str, torch.Tensor], mesh: Mesh,
                      shard_attention: bool = False
                      ) -> Dict[str, torch.Tensor]:
-    """A full MAG-BERT state dict → this rank's (copies of its chunks)."""
+    """A full state dict → this rank's (copies of its chunks)."""
     return {name: shard_tensor(t, tp_pspec_for_path(
         name, shard_attention=shard_attention), mesh).clone()
         for name, t in full.items()}
@@ -178,16 +203,23 @@ def local_heads(n_heads: int, mesh: Mesh) -> Tuple[int, int]:
     return mesh.model_rank * n, n
 
 
+def _n_heads_and_ffn(cfg) -> Tuple[int, int]:
+    """(heads, FFN width) of a MAG-BERT or MAG-XLNet config."""
+    if hasattr(cfg, "num_attention_heads"):
+        return cfg.num_attention_heads, cfg.intermediate_size
+    return cfg.n_head, cfg.d_inner
+
+
 def shard_model_(model: nn.Module, mesh: Mesh,
                  shard_attention: bool = False) -> nn.Module:
-    """Turn a MAG-BERT classifier built at full size into this rank's
-    shard, in place: each split parameter becomes its chunk (remembering
-    where in the full tensor it sits, so ``models/bert.py::init_weights``
-    draws the full tensor and keeps the chunk, as one device would), the
-    encoder layers run the FFN split, and with ``shard_attention`` the
-    attention head-sharded with the packed ``qkv`` marked for
-    ``sync_grads``. A model already sharded over this mesh the same way is
-    returned as it is."""
+    """Turn a MAG-BERT or MAG-XLNet classifier built at full size into this
+    rank's shard, in place: each split parameter becomes its chunk
+    (remembering where in the full tensor it sits, so
+    ``models/bert.py::init_weights`` draws the full tensor and keeps the
+    chunk, as one device would), the layers run the FFN split, and with
+    ``shard_attention`` the attention head-sharded (BERT's packed ``qkv``
+    marked for ``sync_grads``). A model already sharded over this mesh the
+    same way is returned as it is."""
     if getattr(model, "tp_sharding", None) is not None:
         if model.tp_sharding != (mesh, shard_attention):
             raise ValueError("the model is already sharded over another "
@@ -195,16 +227,11 @@ def shard_model_(model: nn.Module, mesh: Mesh,
         return model
     if mesh.model_size == 1:
         return model
-    cfg = getattr(model, "config", None)
-    if not hasattr(cfg, "num_attention_heads"):
-        raise NotImplementedError(
-            "tensor parallelism is ported for MAG-BERT; XLNet's waits "
-            "(ROADMAP A.10)")
-    local_heads(cfg.num_attention_heads, mesh)
-    if cfg.intermediate_size % mesh.model_size:
-        raise ValueError(
-            f"intermediate_size={cfg.intermediate_size} not divisible by "
-            f"model axis size {mesh.model_size}")
+    n_heads, ffn = _n_heads_and_ffn(getattr(model, "config", None))
+    local_heads(n_heads, mesh)
+    if ffn % mesh.model_size:
+        raise ValueError(f"FFN width {ffn} not divisible by model axis "
+                         f"size {mesh.model_size}")
     modules = dict(model.named_modules())
     for name, p in list(model.named_parameters()):
         spec = tp_pspec_for_path(name, shard_attention=shard_attention)
@@ -218,8 +245,9 @@ def shard_model_(model: nn.Module, mesh: Mesh,
         elif shard_attention and ".attention.qkv." in name:
             p.tp_partial = True
     for mod in model.modules():
-        if hasattr(mod, "tp_mesh") and (shard_attention
-                                        or not hasattr(mod, "qkv")):
+        # the attention modules take the mesh only when their heads split
+        if hasattr(mod, "tp_mesh") and (
+                shard_attention or not getattr(mod, "head_sharded", False)):
             mod.tp_mesh = mesh
     model.tp_sharding = (mesh, shard_attention)
     return model

@@ -224,6 +224,13 @@ def mems_predict_step(state: TrainState, batch: Tuple, mems):
     return logits.reshape(-1), labels.reshape(-1), new_mems
 
 
+# The JAX trainer's ``compiler_options`` are XLA compiler flags; no torch
+# call takes them.
+COMPILER_OPTIONS_REFUSAL = (
+    "compiler_options are XLA compiler options (the JAX package's jit); the "
+    "PyTorch port compiles no XLA program and has no counterpart for them")
+
+
 @dataclasses.dataclass
 class Trainer:
     """Epoch-level trainer on the device that holds the model's params.
@@ -236,7 +243,8 @@ class Trainer:
     ``mesh`` (``parallel/mesh.py::make_mesh``): this rank's place in a
     (data, model) mesh; every rank builds its Trainer over the full-size
     model and is fed the same global batches. A model axis > 1 shards the
-    model in place (``parallel/tp.py::shard_model_``; MAG-BERT only);
+    model in place (``parallel/tp.py::shard_model_``: MAG-BERT or
+    MAG-XLNet);
     ``tp_shard_attention`` head-shards its attention too, with the JAX
     trainer's guards. ``create_state_from_params`` then takes the full
     state dict and keeps this rank's chunks.
@@ -260,12 +268,13 @@ class Trainer:
     multiprocess: bool = False
 
     def __post_init__(self):
-        for name, item in (("fsdp", "A.10"), ("multiprocess", "A.10"),
-                           ("compiler_options", "A.10")):
+        for name, item in (("fsdp", "A.10"), ("multiprocess", "A.10")):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet (ROADMAP "
                     f"{item})")
+        if self.compiler_options:
+            raise ValueError(COMPILER_OPTIONS_REFUSAL)
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise TypeError(
                 "Trainer(mesh=...) takes a parallel.mesh.Mesh "
@@ -301,6 +310,10 @@ class Trainer:
             raise ValueError(
                 "a model built with tp_attention_mesh trains with "
                 "Trainer(mesh=<that mesh>, tp_shard_attention=True)")
+        if self.mem_len is not None and mp > 1:
+            # the JAX trainer's refusal
+            raise ValueError("mem_len supports the data-parallel trainer "
+                             "(mems shard over the batch axis)")
         if (self.mesh is not None and self.mesh.size > 1
                 and self.mem_len is not None):
             raise NotImplementedError(

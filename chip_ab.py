@@ -33,8 +33,10 @@ limit (nvidia-smi), and each checkout's agreement with the plain
 versions at the bench's shapes (the share of elements whose bits differ,
 the largest difference), and whether fp32 #11/#13, bf16 #14, fp32
 #20/#21, fp32 #20/#22, fp32 #9 and #2, fp32 #12, fp32 #18/#19, bf16 #3
-and #10, and #25 and #26 in both dtypes give the same bits in every
-checkout (digests). ``--cases`` times only the cases
+and #10, #25 and #26 in both dtypes, and the rel family's mask-drawing
+kernels (#11/#12, #20/#21, #23/#24) in both dtypes at counter offsets
+(0, 0) give the same bits in every checkout (digests). ``--cases`` times
+only the cases
 whose names match the regular expression. With
 ``--grad-gap-seeds``, each
 checkout also runs ``chip_smoke.py``'s phase-4b dropout-0 check at those
@@ -541,6 +543,32 @@ def agreement():
             mf.mag_fwd_cuda(params, t, v, a))
         out[f"digest {name} #26 N=999"] = digest(
             *mf.mag_bwd_cuda(params, t, v, a, dy))
+    # the rel family's mask-drawing kernels at counter offsets (0, 0), bf16
+    # (the tensor-core plans) and fp32, rate 0.1: #11 (saved probs) and #12,
+    # #20 (saved probs) and #21, #23 and #24
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        q, k, v, ebias, g = _rel_inputs(torch, rng, 4, 50, 77, dtype)
+        out[f"digest {name} #11/#12 B=4 Q=50 K=77 rate 0.1"] = digest(
+            *fa.attn_fwd_rel_cuda(q, k, v, ebias, rate=0.1, seed=7,
+                                  save=True, **kw),
+            *fa.attn_bwd_rel_cuda(q, k, v, ebias, 7, g, rate=0.1, **kw))
+        for (q_len, k_len), fwd, bwd, tags in (
+                ((50, 77), fa.attn_fwd_relik_cuda, fa.attn_bwd_relik_cuda,
+                 "#20/#21"),
+                ((128, 128), fa.attn_fwd_relik_fs_cuda,
+                 fa.attn_bwd_relik_fs_cuda, "#23/#24")):
+            x = _relik_inputs(torch, rng, 2, q_len, k_len, dtype)
+            ins = [x[n] for n in RELIK]
+            if tags == "#20/#21":
+                got = (*fwd(*ins, rate=0.1, seed=7, save=True, **kw),
+                       *bwd(*ins, 7, x["g"], rate=0.1, **kw))
+            else:
+                o, lse = fwd(*ins, rate=0.1, seed=7, **kw)
+                got = (o, lse, *bwd(*ins, 7, o, lse, x["g"], rate=0.1,
+                                    **kw))
+            out[f"digest {name} {tags} B=2 Q={q_len} K={k_len} rate "
+                "0.1"] = digest(*got)
     print(json.dumps(out))
 
 

@@ -59,6 +59,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    rate 0.1, #11 at the serving shape (rate 0, B=128) beside
    ``scaled_dot_product_attention`` with the ebias as its mask, #11′ and
    #13 at B=256 Q=50 K=100, and the card's time per launch of each.
+3d+. The rel family's counter offsets: #11 (saved probs), #12, #20
+   (saved probs), #21, #23 and #24 at rate 0.1, bf16 and fp32, H=12
+   Dh=64 B=4: the call on rows 2.. and heads 6.. at (b_off, h_off) =
+   (2, 6) gives the full call's slice of every output bit for bit, and at
+   (0, 0) another mask; then one TP rank's (H=6) #11′, #13, #20′, #22
+   (B=256 S=50) and #23′, #24 (B=48 S=1024) timed.
 3e. The long-sequence kernels (#4 head-blocked forward, #5 its recompute
    backward, #6 flash-streamed forward with lse, #7 its backward in two
    launches) against their plain versions: bf16 at B=8, S=512, 640
@@ -184,6 +190,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    bert-base model, ``Predictor(mesh=)`` over 256 examples at batch 128:
    #8 once per layer per batch on each rank and nothing else, both ranks'
    gathered predictions equal, within 5e-2 of the one-card einsum model's.
+4j. Tensor-parallel MAG-XLNet serving: two ranks sharing the card
+   serve 256 XLNet-packed examples through ``Predictor(mesh=)`` at
+   xlnet-base-cased width, bf16, H=6 a rank: #11 once a layer a batch and
+   nothing else, the ranks' predictions equal and within ``PRED_ATOL`` of
+   the one-card einsum model's. (After 4i in the run.)
+4k. ``attention_impl="flash"`` serving: bert-base bf16 at S=512, batch
+   48: #6 once a layer a batch and nothing else, the predictions within
+   ``PRED_ATOL`` of the einsum model's; then #6 at B=48 S=512 timed beside
+   ``scaled_dot_product_attention`` with the [B, 1, 1, S] mask.
 4i. Serving with ``qkv_fusion``: ``serving_path`` at bert-base bf16, batch
    128: #18 once per layer per batch and nothing else, against einsum.
 5. Serving profile: one batch's serial latency, its device time by kernel
@@ -295,6 +310,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    #11. Then peak memory and step time with and without remat at B=48:
    BERT S=512, XLNet S=1024 under stream and under auto, printed as a
    ``{"remat_memory": ...}`` line.
+6l. The tensor-parallel MAG-XLNet driver: ``driver.run --model
+   xlnet-base-cased --model_parallel 2 --tp_shard_attention
+   --attention_impl fused`` over 96/48/48 on two ranks sharing the card
+   over gloo (#11 once a layer a batch, #13 once a layer a train step, on
+   each rank), then with ``--rel_bias_impl inkernel`` (#20, #22); exit 0
+   and the same epoch records on both ranks. Then, in one two-rank spawn:
+   two dropout-0 steps (lr 1e-5) of the two-rank model against the
+   one-card model from the same weights, fp32, bf16 and the FFN split
+   alone (losses within ``TP_STEP_TOL``, every first-step gradient within
+   ``TP_GRAD_TOL`` of its chunk of the one card's); the fp32 step at
+   dropout 0.1 against the one-card fused step within the fp32 bounds,
+   which forcing rank 1's head offset to 0 must break; one S=512 step
+   (bf16, B=8) through #23 and #24 on each rank.
+6m. ``attention_impl="flash"``: ``driver.main --attention_impl flash
+   --max_seq_length 512`` over 96/48/48 (training at prob dropout 0.1
+   runs einsum: no #6/#7; #6 once a layer an evaluation batch); then one
+   dropout-0 step of bert-base (fp32, B=48, S=512) through #6/#7 against
+   the einsum model, every gradient within ``FLASH_GRAD_TOL`` of its
+   leaf's scale, which zeroing #7's dK must break.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -3258,7 +3292,7 @@ def relik_bwd_passes(fa, ins, seed, o, lse, g, rate, h=12, scale=0.125):
             g.data_ptr(), drw.data_ptr(), drr.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), ded.data_ptr(), ws.data_ptr(), b, q_len, k_len,
             p_len, h, d // h, float(scale), *fa._drop_args(rate, seed),
-            fa._DTYPE_CODES[rw.dtype])
+            0, 0, fa._DTYPE_CODES[rw.dtype])  # counter offsets (0, 0)
     keep = (drw, drr, dk, dv, ded, dr, ws)
 
     def launch(name, *a):
@@ -6447,6 +6481,740 @@ def remat_driver_path(args, fa, card):
     return paths, memory
 
 
+# ---- MAG-XLNet tensor parallelism (#11-#13, #20-#24 on head shards) and
+# ---- MAG-BERT attention_impl="flash" (#6, #7) ------------------------------
+
+# Phase 3d+'s slice: batch rows from OFFSET_B and heads from OFFSET_H of a
+# full call (B=4, H=12), run as their own call at those counter offsets.
+OFFSET_B, OFFSET_H = 2, 6
+XTP_SERVE_N = 256             # phase 4j: two batches of 128
+# Phase 6l's dropout step (fp32, rate 0.1): the two-rank step against the
+# one-card fused step, its loss within TP_STEP_TOL["fp32"] and every
+# gradient within TP_GRAD_TOL["fp32"]; forcing the head offset to 0 on rank
+# 1 (its heads then draw rank 0's mask) must move a gradient past that.
+XTP_FAULT = "rank 1's rel kernels at head offset 0"
+XTP_S512_BATCH = 8            # phase 6l's one S=512 step (#23, #24)
+FLASH_S, FLASH_BATCH = 512, 48
+FLASH_SERVE_N = 96            # phase 4k: two batches of 48
+# Phase 6m's dropout-0 step through #6/#7 against einsum, fp32: the same
+# math summed in other orders through 12 layers moves a gradient by ~1e-5
+# of its leaf's scale; a zeroed dK moves the q, k projections' by their
+# own.
+FLASH_GRAD_TOL = 1e-3
+
+
+def _sliced(x, b0, h0, dh, kind):
+    """Rows b0.. and the heads from h0 of one operand: ``kind`` "flat"
+    ([B, L, H·Dh]), "heads" ([B, H, ...]), "rows" ([B, ...]) or "cols"
+    ([P, H·Dh])."""
+    if kind == "flat":
+        return x[b0:, :, h0 * dh:].contiguous()
+    if kind == "heads":
+        return x[b0:, h0:].contiguous()
+    if kind == "rows":
+        return x[b0:].contiguous()
+    return x[:, h0 * dh:].contiguous()
+
+
+def check_rel_offsets(rng, fa):
+    """Phase 3d+: each rel-family kernel that draws the dropout mask (#11
+    with saved probs, #12, #20 with saved probs, #21, #23, #24), bf16 and
+    fp32 at rate 0.1, full width (H=12, Dh=64), B=4: the call on batch rows
+    OFFSET_B.. and heads OFFSET_H.. at (b_off, h_off) = (OFFSET_B, OFFSET_H)
+    gives the full call's slice of every output (the mask through p/pd)
+    bit for bit; the same slice at offsets (0, 0) draws another mask."""
+    import torch
+
+    b, h, dh, b0, h0 = 4, 12, 64, OFFSET_B, OFFSET_H
+    nh, off = h - h0, dict(b_off=OFFSET_B, h_off=OFFSET_H)
+    report = {}
+    for dtype_name in ("bf16", "fp32"):
+        q, k, v, eb, g = rel_case(rng, dtype_name, b, S_SERVE, S_SERVE)
+        seed = int(rng.integers(0, 2 ** 63 - 1))
+        kw = dict(scale=0.125, rate=RATE)
+        cases = {}
+        cut = lambda xs, kinds: [_sliced(x, b0, h0, dh, kd)  # noqa: E731
+                                 for x, kd in zip(xs, kinds)]
+        ins = [q, k, v, eb]
+        kinds = ["flat"] * 3 + ["heads"]
+        cases["#11"] = (
+            lambda xs, n, **o: fa.attn_fwd_rel_cuda(
+                *xs, n_heads=n, seed=seed, save=True, **kw, **o),
+            ins, kinds, ["flat", "heads", "heads"])
+        cases["#12"] = (
+            lambda xs, n, **o: fa.attn_bwd_rel_cuda(
+                *xs[:4], seed, xs[4], n_heads=n, **kw, **o),
+            ins + [g], kinds + ["flat"], ["flat"] * 3 + ["heads"])
+        for s_len, fwd, bwd, tags in (
+                (S_SERVE, fa.attn_fwd_relik_cuda, fa.attn_bwd_relik_cuda,
+                 ("#20", "#21")),
+                (128, fa.attn_fwd_relik_fs_cuda, fa.attn_bwd_relik_fs_cuda,
+                 ("#23", "#24"))):
+            c, rseed = relik_case(rng, dtype_name, b, s_len)
+            ik = [c[n_] for n_ in RELIK]
+            ik_kinds = ["flat", "flat", "cols", "flat", "flat", "heads",
+                        "rows", "rows"]
+            full_grads = ["flat", "flat", None, "flat", "flat", "heads"]
+            if tags[0] == "#20":
+                cases["#20"] = (
+                    lambda xs, n, f=fwd, sd=rseed, **o: f(
+                        *xs, n_heads=n, seed=sd, save=True, **kw, **o),
+                    ik, ik_kinds, ["flat", "heads", "heads"])
+                cases["#21"] = (
+                    lambda xs, n, f=bwd, sd=rseed, **o: f(
+                        *xs[:8], sd, xs[8], n_heads=n, **kw, **o),
+                    ik + [c["g"]], ik_kinds + ["flat"], full_grads)
+            else:
+                o_full, lse_full = fwd(*ik, n_heads=h, seed=rseed, **kw)
+                cases["#23"] = (
+                    lambda xs, n, f=fwd, sd=rseed, **o: f(
+                        *xs, n_heads=n, seed=sd, **kw, **o),
+                    ik, ik_kinds, ["flat", "heads"])
+                cases["#24"] = (
+                    lambda xs, n, f=bwd, sd=rseed, **o: f(
+                        *xs[:8], sd, *xs[8:], n_heads=n, **kw, **o),
+                    ik + [o_full, lse_full, c["g"]],
+                    ik_kinds + ["flat", "heads", "flat"], full_grads)
+        for tag, (call, xs, in_kinds, out_kinds) in cases.items():
+            whole = call(xs, h)
+            part = call(cut(xs, in_kinds), nh, **off)
+            at0 = call(cut(xs, in_kinds), nh)
+            same = all(torch.equal(_sliced(w, b0, h0, dh, kd), p)
+                       for w, p, kd in zip(whole, part, out_kinds)
+                       if kd is not None)
+            moved = any(not torch.equal(p, z)
+                        for p, z, kd in zip(part, at0, out_kinds)
+                        if kd is not None)
+            report[f"{tag} {dtype_name}"] = (same, moved)
+            print(f"offsets {tag} {dtype_name}: rows {b0}.. heads {h0}.. at "
+                  f"(b_off, h_off) = ({b0}, {h0}) give the full call's "
+                  f"slice bit for bit: {same}; at (0, 0) another mask: "
+                  f"{moved}")
+            if not (same and moved):
+                raise AssertionError(f"{tag} {dtype_name}: the shard's "
+                                     "counter offsets do not give one "
+                                     "card's mask")
+        del cases
+        torch.cuda.empty_cache()
+    return report
+
+
+def time_rel_one_rank(rng, fa, card):
+    """One TP rank's rel kernels (H=6 of xlnet-base's 12, Dh=64), bf16,
+    timed against their plain versions: #11′ (saved probs) and #13 at
+    B=256 Q=K=50 rate 0.1, #20′ and #22 likewise, #23′ and #24 at B=48
+    Q=K=1024 rate 0.1. Returns {name: {ms, plain_ms, bound_ms, bound_by}}."""
+    import torch
+
+    h, out = 6, {}
+    q, k, v, eb, g = rel_case(rng, "bf16", BENCH_BATCH, S_SERVE, S_SERVE, h)
+    kw = dict(n_heads=h, scale=0.125, rate=RATE, seed=5)
+    _, p, pd = fa.attn_fwd_rel_cuda(q, k, v, eb, save=True, **kw)
+    pairs = {
+        "attn_fwd_rel": (
+            lambda: fa.attn_fwd_rel_cuda(q, k, v, eb, save=True, **kw),
+            lambda: fa.attn_fwd_rel_reference(q, k, v, eb, save=True, **kw),
+            rel_bound("fwd", BENCH_BATCH, S_SERVE, S_SERVE, h, 64, 2, RATE,
+                      save=True)),
+        "attn_bwd_rel_saved": (
+            lambda: fa.attn_bwd_rel_saved_cuda(p, pd, q, k, v, g, n_heads=h,
+                                               scale=0.125),
+            lambda: fa.attn_bwd_rel_saved_reference(p, pd, q, k, v, g,
+                                                    n_heads=h, scale=0.125),
+            rel_bound("bwd_saved", BENCH_BATCH, S_SERVE, S_SERVE, h, 64, 2,
+                      RATE))}
+    c, seed = relik_case(rng, "bf16", BENCH_BATCH, S_SERVE, h)
+    ik = [c[n_] for n_ in RELIK]
+    ikw = dict(n_heads=h, scale=0.125)
+    _, ip, ipd = fa.attn_fwd_relik_cuda(*ik, save=True, rate=RATE, seed=seed,
+                                        **ikw)
+    ik_saved = (ip, ipd, *ik[:5], ik[6], c["g"])
+    pairs["attn_fwd_relik"] = (
+        lambda: fa.attn_fwd_relik_cuda(*ik, save=True, rate=RATE, seed=seed,
+                                       **ikw),
+        lambda: fa.attn_fwd_relik_reference(*ik, save=True, rate=RATE,
+                                            seed=seed, **ikw),
+        relik_full_bound("fwd", BENCH_BATCH, S_SERVE, S_SERVE, h, 64, 2,
+                         RATE, save=True))
+    pairs["attn_bwd_relik_saved"] = (
+        lambda: fa.attn_bwd_relik_saved_cuda(*ik_saved, **ikw),
+        lambda: fa.attn_bwd_relik_saved_reference(*ik_saved, **ikw),
+        relik_full_bound("bwd_saved", BENCH_BATCH, S_SERVE, S_SERVE, h, 64,
+                         2, RATE))
+    for name, (kernel, plain, bound) in pairs.items():
+        ks, ps = _alternate(plain, kernel, 5)
+        out[name] = {"ms": float(np.mean(ks)), "plain_ms": float(np.mean(ps)),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "shape": "bf16 B=256 Q=K=50 H=6 Dh=64 rate 0.1"}
+    del pairs, ik, ik_saved, p, pd, ip, ipd
+    torch.cuda.empty_cache()
+    c, seed = relik_case(rng, "bf16", TRAIN_BATCH, 1024, h)
+    ik = [c[n_] for n_ in RELIK]
+    o, lse = fa.attn_fwd_relik_fs_cuda(*ik, rate=RATE, seed=seed, **ikw)
+    for name, kernel, kind in (
+            ("attn_fwd_relik_fs", lambda: fa.attn_fwd_relik_fs_cuda(
+                *ik, rate=RATE, seed=seed, **ikw), "fwd"),
+            ("attn_bwd_relik_fs", lambda: fa.attn_bwd_relik_fs_cuda(
+                *ik, seed, o, lse, c["g"], rate=RATE, **ikw), "bwd")):
+        kernel()
+        ks = [_time_ms(kernel, 3) for _ in range(2)]
+        bound = relik_bound(kind, TRAIN_BATCH, 1024, h, 64, 2)
+        # the plain versions at this size take seconds a call: not timed
+        out[name] = {"ms": float(np.mean(ks)), "plain_ms": None,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "shape": "bf16 B=48 Q=K=1024 H=6 Dh=64 rate 0.1"}
+    for name, t in out.items():
+        print(f"one TP rank's {name} ({t['shape']}) on {card}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del ik, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xlnet_tp_model(mesh, dtype, seed, rate=None, rel_bias_impl="auto",
+                    shard=True):
+    """xlnet-base-cased MAG-XLNet with MOSI dims, fused attention, built
+    whole from ``seed`` on this rank's device (head-sharded over ``mesh``
+    with ``shard``; the card with no mesh); ``rate`` None keeps the
+    default dropouts."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                              attention_impl="fused",
+                              rel_bias_impl=rel_bias_impl,
+                              tp_attention_mesh=mesh if shard else None)
+    mm = MultimodalConfig(injection_index=1)
+    if rate is not None:
+        cfg = dataclasses.replace(cfg, dropout=rate,
+                                  summary_last_dropout=rate)
+        mm = MultimodalConfig(dropout_prob=rate, injection_index=1)
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    return MagXLNetForSequenceClassification(
+        cfg, mm, ds.visual_dim, ds.acoustic_dim, dtype, device=device,
+        generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def xlnet_tp_serving_rank(rank, seed, split):
+    """Phase 4j on one rank: ``Predictor(mesh=)`` of the head-sharded
+    fused MAG-XLNet serves the split at batch 128. Returns its
+    predictions, the kernels' launches during ``predict_split`` and its
+    wall."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MeshConfig
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    mesh = make_mesh(MeshConfig(data_parallel=-1, model_parallel=TP_RANKS))
+    model = _xlnet_tp_model(mesh, torch.bfloat16, seed)
+    predictor = Predictor(model, batch_size=BATCH, mesh=mesh)
+    predictor.predict_split(split.take(np.arange(BATCH)))  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    preds = predictor.predict_split(split)
+    wall = time.perf_counter() - t0
+    return {"preds": preds, "launches": _counts(fa), "wall": wall,
+            "backend": mesh.backend, "device": str(mesh.device)}
+
+
+def xlnet_tp_serving(args, rng, fa, card):
+    """Phase 4j: two ranks sharing the card serve ``XTP_SERVE_N`` XLNet
+    examples through ``Predictor(mesh=)``: #11 once per layer per batch on
+    each rank (H=6 a rank) and no other kernel, the ranks' predictions
+    equal, and within PRED_ATOL of the one-card einsum model's from the
+    same weights. Returns the launch counts summed over the ranks."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    cfg = XLNetConfig.xlnet_base_cased()
+    split = make_xlnet_split(rng, XTP_SERVE_N, S_SERVE, cfg.vocab_size,
+                             ds.visual_dim, ds.acoustic_dim)
+    seed = args.seed + 92
+    t0 = time.perf_counter()
+    ranks = run_ranks(xlnet_tp_serving_rank, TP_RANKS, (seed, split),
+                      timeout_s=300)
+    print(f"XLNet Predictor(mesh=) over {TP_RANKS} ranks "
+          f"({ranks[0]['backend']} on {[r['device'] for r in ranks]}): "
+          f"{time.perf_counter() - t0:.2f} s for the ranks' start, build "
+          "and serving")
+    want = _want(fa, attn_fwd_rel=cfg.n_layer * (XTP_SERVE_N // BATCH))
+    for i, r in enumerate(ranks):
+        print(f"  rank {i}: launches {r['launches']} (want {want}), "
+              f"predict_split {XTP_SERVE_N / r['wall']:.1f} examples/s on "
+              f"{card} ({r['wall']:.3f} s)")
+        if r["launches"] != want:
+            raise AssertionError(f"XLNet TP serving rank {i} launches "
+                                 f"{r['launches']} != {want}")
+    preds = ranks[0]["preds"]
+    if preds.shape != (XTP_SERVE_N,) or not np.isfinite(preds).all():
+        raise AssertionError(f"bad XLNet TP predictions {preds.shape}")
+    if not np.array_equal(preds, ranks[1]["preds"]):
+        raise AssertionError("the ranks' gathered predictions differ")
+    one = _xlnet_tp_model(None, torch.bfloat16, seed)
+    einsum = _xlnet(cfg, MultimodalConfig(injection_index=1), "einsum", 0,
+                    one.state_dict())
+    del one
+    want_preds = Predictor(einsum, batch_size=BATCH).predict_split(split)
+    err = float(np.abs(preds - want_preds).max())
+    print(f"  XLNet TP fused vs one-card einsum predictions: max_abs_diff "
+          f"{err:.3e} (tolerance {PRED_ATOL}), |pred| max "
+          f"{np.abs(want_preds).max():.3f}")
+    if not err <= PRED_ATOL:
+        raise AssertionError(f"XLNet TP predictions differ by {err}")
+    del einsum
+    torch.cuda.empty_cache()
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in ranks[0]["launches"]}
+
+
+def _xlnet_step_batches(seed, s=S_SERVE, n=TRAIN_BATCH):
+    """Two seeded XLNet-packed batches (host arrays)."""
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        XLNetConfig,
+    )
+
+    ds = DatasetConfig.mosi()
+    rng = np.random.default_rng([seed, 8])
+    return [make_xlnet_split(rng, n, s, XLNetConfig().vocab_size,
+                             ds.visual_dim, ds.acoustic_dim).as_tuple()
+            for _ in range(2)]
+
+
+def xlnet_tp_steps(mesh, seed, dtype_name, rate, ref_grads=None,
+                   n_steps=2, s=S_SERVE, n=TRAIN_BATCH, shard=True):
+    """``n_steps`` train steps of xlnet-base from ``seed``'s weights (one
+    card when ``mesh`` is None) at lr 1e-5 with no warmup and dropout
+    ``rate``, the dropout stream from ``seed``. Returns (the losses, the
+    first step's gradients by name, or with ``ref_grads`` each parameter's
+    ``_grad_gap`` to its chunk of the reference)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.parallel import tp
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import Trainer
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    model = _xlnet_tp_model(mesh, dtype, seed, rate=rate, shard=shard)
+    tr = Trainer(model=model,
+                 tx=make_optimizer(1e-5, 10, warmup_proportion=0.0),
+                 mesh=mesh, tp_shard_attention=mesh is not None and shard)
+    st = tr.create_state_from_params(None, seed)
+    batches = _xlnet_step_batches(seed, s, n)[:n_steps]
+    losses = [float(tr._train_step(st, tr._put_batch(batches[0])))]
+    grads = {nm: p.grad for nm, p in st.model.named_parameters()
+             if p.grad is not None}
+    if ref_grads is not None:
+        grads = {nm: math.inf if grads.get(nm) is None else _grad_gap(
+            grads[nm], tp.shard_tensor(ref, tp.tp_pspec_for_path(
+                nm, shard_attention=shard), mesh))
+            for nm, ref in ref_grads.items()}
+    for batch in batches[1:]:
+        losses.append(float(tr._train_step(st, tr._put_batch(batch))))
+    return losses, grads
+
+
+# Phase 6l's step cases: (label, dtype, dropout rate, the kernels each step
+# launches once per layer, a head-sharded model or the FFN split alone).
+# The bounds are TP_STEP_TOL's and TP_GRAD_TOL's, but for the bf16
+# gradients: XLNet assembles its score bias in bf16 (rel_shift of a bf16
+# product), so each rank's bf16 partial products move a gradient further
+# than in MAG-BERT (0.124 of its leaf's scale at MAG's w_hv_t, R2 of this
+# phase), and they are held at XLNET_GRAD_GAP_TOL, phase 6b's bound for
+# XLNet's bf16 gradients; the fp32 cases hold the real check.
+XTP_GRAD_TOL = {"fp32": TP_GRAD_TOL["fp32"], "bf16": XLNET_GRAD_GAP_TOL}
+XTP_STEP_CASES = (
+    ("head-sharded, fp32", "fp32", 0.0,
+     ("attn_fwd_rel", "attn_bwd_rel_saved"), True),
+    ("head-sharded, bf16", "bf16", 0.0,
+     ("attn_fwd_rel", "attn_bwd_rel_saved"), True),
+    ("FFN split only, fp32", "fp32", 0.0,
+     ("attn_fwd_rel", "attn_bwd_rel_saved"), False),
+    ("head-sharded, fp32, dropout 0.1", "fp32", RATE,
+     ("attn_fwd_rel", "attn_bwd_rel_saved"), True),
+)
+
+
+@contextlib.contextmanager
+def _head_offset_zero():
+    """Inside: every rank's full-H rel kernels draw at head offset 0."""
+    from bert_multimodal_transformer_tpu_torch.models import xlnet
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+
+    right = xlnet.fused_rel_attention_tp
+
+    def wrong(q, k, v, ebias, *, mesh, n_heads, scale, dropout_rate=0.0,
+              dropout_rng=None, deterministic=True):
+        return fa._fused_rel(q, k, v, ebias, n_heads, scale, dropout_rate,
+                             dropout_rng, deterministic, None,
+                             (mesh.data_rank * q.shape[0], 0))
+
+    xlnet.fused_rel_attention_tp = wrong
+    try:
+        yield
+    finally:
+        xlnet.fused_rel_attention_tp = right
+
+
+def xlnet_tp_steps_rank(rank, seed):
+    """Phase 6l's step checks on one rank: the one-card steps on this
+    rank's card (their losses, their gradients kept as the reference),
+    each XTP_STEP_CASES case's losses, gradient gaps and launches, the
+    planted head-offset fault's, and one S=512 step (#23, #24)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MeshConfig
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(data_parallel=-1, model_parallel=TP_RANKS))
+    os.environ["FUSED_ATTN_SAVE"] = "1"
+    out = {"one card": {}}
+    for label, dtype_name, rate, _, shard in XTP_STEP_CASES:
+        key = (dtype_name, rate)
+        if key not in out["one card"]:
+            one = xlnet_tp_steps(None, seed, dtype_name, rate)
+            out["one card"][key] = one
+        ref = out["one card"][key][1]
+        _zero_counts(fa)
+        out[label] = (*xlnet_tp_steps(mesh, seed, dtype_name, rate, ref,
+                                      shard=shard), _counts(fa))
+        torch.cuda.empty_cache()
+    with _head_offset_zero():
+        out[XTP_FAULT] = xlnet_tp_steps(mesh, seed, "fp32", RATE,
+                                        out["one card"][("fp32", RATE)][1])
+    out["one card"] = {k: v[0] for k, v in out["one card"].items()}
+    torch.cuda.empty_cache()
+    _zero_counts(fa)
+    losses, _ = xlnet_tp_steps(mesh, seed, "bf16", RATE, n_steps=1,
+                               s=FLASH_S, n=XTP_S512_BATCH)
+    out["s512"] = (losses, _counts(fa))
+    del os.environ["FUSED_ATTN_SAVE"]
+    return out
+
+
+def xlnet_tp_driver_path(args, fa, card):
+    """Phase 6l: ``driver.run --model xlnet-base-cased --model_parallel 2
+    --tp_shard_attention --attention_impl fused`` over TP_SPLITS (auto:
+    #11 once per layer per batch and #13 once per layer per train step on
+    each rank; then ``--rel_bias_impl inkernel``: #20 and #22), exit 0
+    and the same epoch records on both ranks; then the step checks
+    (``xlnet_tp_steps_rank``): two dropout-0 steps of the two-rank model
+    (fp32, bf16, and the FFN split alone) against the one-card model, the
+    dropout-0.1 fp32 step against the one-card fused step and the planted
+    head-offset fault past its bound, and one S=512 step through #23 and
+    #24. Returns {path: launch counts summed over the ranks}."""
+    from bert_multimodal_transformer_tpu_torch import driver
+    from bert_multimodal_transformer_tpu_torch.config import XLNetConfig
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+
+    layers = XLNetConfig.xlnet_base_cased().n_layer
+    n_train = -(-TP_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in TP_SPLITS[1:])
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    paths = {}
+    for path, extra, want_kw in (
+            ("xlnet_tp_driver", [],
+             dict(attn_fwd_rel=layers * (n_train + n_eval),
+                  attn_bwd_rel_saved=layers * n_train)),
+            ("xlnet_tp_driver_inkernel", ["--rel_bias_impl", "inkernel"],
+             dict(attn_fwd_relik=layers * (n_train + n_eval),
+                  attn_bwd_relik_saved=2 * layers * n_train))):
+        argv = ["--model", "xlnet-base-cased", "--dataset", "mosi",
+                "--synthetic", "--synthetic_sizes", *map(str, TP_SPLITS),
+                "--n_epochs", "1", "--model_parallel", str(TP_RANKS),
+                "--tp_shard_attention", "--attention_impl", "fused",
+                "--compute_dtype", "bfloat16", "--seed", str(args.seed),
+                *extra]
+        t0 = time.perf_counter()
+        rc, ranks = driver.run(argv, rank_timeout_s=600)
+        print(f"driver.main({' '.join(argv)}) on {card}: exit {rc}, "
+              f"{time.perf_counter() - t0:.2f} s wall ({len(ranks)} ranks)")
+        if rc != 0 or len(ranks) != TP_RANKS:
+            raise AssertionError(f"XLNet TP driver exited {rc}")
+        want = _want(fa, **want_kw)
+        for i, r in enumerate(ranks):
+            (rec,) = r["history"]
+            print(f"  rank {i}: train_loss {rec['train_loss']} valid_loss "
+                  f"{rec['valid_loss']}; launches {r['launches']} (want "
+                  f"{want})")
+            if not all(math.isfinite(rec[k]) for k in ("train_loss",
+                                                       "valid_loss")):
+                raise AssertionError(f"non-finite XLNet TP losses {rec}")
+            if r["launches"] != want:
+                raise AssertionError(f"XLNet TP driver rank {i} launches "
+                                     f"{r['launches']} != {want}")
+        if any(ranks[0]["history"][0][k] != ranks[1]["history"][0][k]
+               for k in ("train_loss", "valid_loss", "test_acc")):
+            raise AssertionError("the ranks' epoch records differ")
+        paths[path] = {name: sum(r["launches"][name] for r in ranks)
+                       for name in _wrappers(fa)}
+
+    t0 = time.perf_counter()
+    steps = run_ranks(xlnet_tp_steps_rank, TP_RANKS, (args.seed + 93,),
+                      timeout_s=600)
+    one = steps[0]["one card"]
+    print(f"  XLNet steps at lr 1e-5, B={TRAIN_BATCH} S={S_SERVE}, one card: "
+          f"{one} ({time.perf_counter() - t0:.2f} s with the ranks)")
+    if any(r["one card"] != one for r in steps):
+        raise AssertionError("the ranks' one-card steps differ")
+
+    def worst(gaps):
+        name = max(gaps, key=gaps.get)
+        return gaps[name], name
+
+    failed = []
+    for label, dtype_name, rate, kernels, _ in XTP_STEP_CASES:
+        want = _want(fa, **{k_: 2 * layers for k_ in kernels})
+        for i, r in enumerate(steps):
+            losses, gaps, counts = r[label]
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, one[(dtype_name, rate)]))
+            g_gap, g_name = worst(gaps)
+            print(f"  rank {i}, {label}: losses {losses}, relative gap "
+                  f"{gap:.3e} (bound {TP_STEP_TOL[dtype_name]}); first-step "
+                  f"gradients of {len(gaps)} parameters, worst gap "
+                  f"{g_gap:.3e} at {g_name} (bound "
+                  f"{XTP_GRAD_TOL[dtype_name]}); launches {counts}")
+            if (not gap <= TP_STEP_TOL[dtype_name]
+                    or not g_gap <= XTP_GRAD_TOL[dtype_name]
+                    or counts != want):
+                failed.append(f"XLNet TP step ({label}) rank {i}: loss gap "
+                              f"{gap}, gradient gap {g_gap} at {g_name}, "
+                              f"launches {counts} (want {want})")
+    g_gap, g_name = worst(steps[1][XTP_FAULT][1])
+    print(f"  rank 1, planted fault ({XTP_FAULT}): worst gradient gap "
+          f"{g_gap:.3e} at {g_name} (must exceed {TP_GRAD_TOL['fp32']})")
+    if not g_gap > TP_GRAD_TOL["fp32"]:
+        failed.append("the XLNet TP dropout check cannot see rank 1's head "
+                      "offset forced to 0")
+    want = _want(fa, attn_fwd_relik_fs=layers, attn_bwd_relik_fs=3 * layers)
+    for i, r in enumerate(steps):
+        losses, counts = r["s512"]
+        print(f"  rank {i}, one S={FLASH_S} step at B={XTP_S512_BATCH} "
+              f"(bf16, rate {RATE}): loss {losses}, launches {counts} (want "
+              f"{want})")
+        if counts != want or not all(math.isfinite(x) for x in losses):
+            failed.append(f"XLNet TP S={FLASH_S} step rank {i}: {losses}, "
+                          f"launches {counts}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    paths["xlnet_tp_steps"] = {
+        name: sum(r[label][2][name] for r in steps
+                  for label, *_ in XTP_STEP_CASES)
+        for name in _wrappers(fa)}
+    paths["xlnet_tp_step_s512"] = {
+        name: sum(r["s512"][1][name] for r in steps)
+        for name in _wrappers(fa)}
+    return paths
+
+
+def _flash_bert(cfg, ds, seed, dtype, weights=None):
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MultimodalConfig
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+
+    model = MagBertForSequenceClassification(
+        cfg, MultimodalConfig(dropout_prob=cfg.hidden_dropout_prob),
+        ds.visual_dim, ds.acoustic_dim, dtype, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    if weights is not None:
+        model.load_state_dict(weights)
+    return model
+
+
+def flash_serving(args, rng, fa, card):
+    """Phase 4k: bert-base ``attention_impl="flash"`` at S=512, bf16,
+    ``Predictor`` at batch 48 over FLASH_SERVE_N examples: #6 once per
+    layer per batch and nothing else, the predictions within PRED_ATOL of
+    the einsum model's from the same weights; then #6 at B=48 S=512 timed
+    beside ``scaled_dot_product_attention`` with the [B, 1, 1, S] mask.
+    Returns (the launch counts, the times)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="flash")
+    model = _flash_bert(cfg, ds, args.seed + 94, torch.bfloat16)
+    split = make_split(rng, FLASH_SERVE_N, FLASH_S, cfg.vocab_size,
+                       ds.visual_dim, ds.acoustic_dim)
+    predictor = Predictor(model, batch_size=FLASH_BATCH)
+    predictor.predict_split(split.take(np.arange(FLASH_BATCH)))  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    preds = predictor.predict_split(split)
+    wall = time.perf_counter() - t0
+    counts = _counts(fa)
+    want = _want(fa, attn_fwd_packed_fs=cfg.num_hidden_layers
+                 * (FLASH_SERVE_N // FLASH_BATCH))
+    print(f"flash serving (bert-base bf16 S={FLASH_S}, batch {FLASH_BATCH}):"
+          f" launches {counts} (want {want}), "
+          f"{FLASH_SERVE_N / wall:.1f} examples/s on {card}")
+    if counts != want:
+        raise AssertionError(f"flash serving launches {counts} != {want}")
+    einsum = _flash_bert(dataclasses.replace(cfg, attention_impl="einsum"),
+                         ds, 0, torch.bfloat16, model.state_dict())
+    want_preds = Predictor(einsum, batch_size=FLASH_BATCH).predict_split(
+        split)
+    err = float(np.abs(preds - want_preds).max())
+    print(f"  flash vs einsum predictions: max_abs_diff {err:.3e} "
+          f"(tolerance {PRED_ATOL})")
+    if preds.shape != (FLASH_SERVE_N,) or not err <= PRED_ATOL:
+        raise AssertionError(f"flash predictions differ by {err}")
+    del model, einsum, predictor
+    torch.cuda.empty_cache()
+    qkv, mask, _, _ = long_case(rng, "bf16", FLASH_BATCH, FLASH_S)
+    h, scale = 12, 0.125
+
+    def kernel():
+        fa.attn_fwd_packed_fs_cuda(qkv, mask, n_heads=h, scale=scale)
+
+    def plain():
+        fa.attn_fwd_packed_fs_reference(qkv, mask, n_heads=h, scale=scale)
+
+    ks, ps = _alternate(plain, kernel, 5)
+    sdpa, _ = sdpa_call(qkv, mask, h, scale)
+    _time_ms(sdpa, 3)
+    lib = [_time_ms(sdpa, 10) for _ in range(2)]
+    bound = long_bound("fwd", FLASH_BATCH, FLASH_S, h, 64, 2, fs=True)
+    times = {"ms": float(np.mean(ks)), "plain_ms": float(np.mean(ps)),
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": float(np.mean(lib)),
+             "library": "scaled_dot_product_attention, [B, 1, 1, S] mask",
+             "shape": f"bf16 B={FLASH_BATCH} S={FLASH_S} H=12 Dh=64 rate 0"}
+    print(f"  #6 at the flash serving shape ({times['shape']}) on {card}: "
+          f"kernel {ks} ms, plain {ps} ms, SDPA {lib} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return counts, times
+
+
+def flash_driver_path(args, rng, fa, card):
+    """Phase 6m: ``driver.main --attention_impl flash --max_seq_length
+    512`` over 96/48/48 (no #6/#7 in training at prob dropout 0.1, #6 once
+    per layer per evaluation batch); then one dropout-0 step of bert-base
+    (fp32, B=48, S=512) through #6/#7 against the einsum model, every
+    parameter's gradient within FLASH_GRAD_TOL of its scale, and the same
+    step with #7's dK zeroed past it. Returns {path: launch counts}."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+    )
+
+    layers = BertConfig.bert_base_uncased().num_hidden_layers
+    argv = ["--model", "bert-base-uncased", "--dataset", "mosi",
+            "--synthetic", "--synthetic_sizes", *map(str, TP_SPLITS),
+            "--n_epochs", "1", "--attention_impl", "flash",
+            "--max_seq_length", str(FLASH_S), "--compute_dtype",
+            "bfloat16", "--seed", str(args.seed)]
+    counts = run_driver(argv, fa, card)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in TP_SPLITS[1:])
+    want = _want(fa, attn_fwd_packed_fs=layers * n_eval)
+    print(f"kernel launches in the flash driver: {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"flash driver launches {counts} != {want}")
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              attention_impl="flash", hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    batch = _device_batch(make_split(
+        np.random.default_rng([args.seed, 25]), FLASH_BATCH, FLASH_S,
+        cfg.vocab_size, ds.visual_dim, ds.acoustic_dim).as_tuple())
+
+    def grads(model):
+        model.zero_grad()
+        ids, vis, ac, mask, segs, labels = batch
+        logits = model(ids, vis, ac, attention_mask=mask,
+                       token_type_ids=segs, deterministic=False,
+                       dropout_rng=1)
+        torch.mean(torch.square(logits.reshape(-1) - labels)).backward()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}
+
+    flash = _flash_bert(cfg, ds, args.seed + 95, torch.float32)
+    einsum = _flash_bert(dataclasses.replace(cfg, attention_impl="einsum"),
+                         ds, 0, torch.float32, flash.state_dict())
+    ref = grads(einsum)
+    del einsum
+    _zero_counts(fa)
+    got = grads(flash)
+    step_counts = _counts(fa)
+    want = _want(fa, attn_fwd_packed_fs=layers,
+                 attn_bwd_packed_fs=2 * layers)
+    gaps = {n: _grad_gap(got[n], ref[n]) for n in ref}
+    worst = max(gaps, key=gaps.get)
+    print(f"  dropout-0 step through #6/#7 (fp32 B={FLASH_BATCH} "
+          f"S={FLASH_S}) against einsum: worst gradient gap "
+          f"{gaps[worst]:.3e} at {worst} (bound {FLASH_GRAD_TOL}); launches "
+          f"{step_counts} (want {want})")
+    if not gaps[worst] <= FLASH_GRAD_TOL or step_counts != want:
+        raise AssertionError(f"flash step: gap {gaps[worst]} at {worst}, "
+                             f"launches {step_counts}")
+    right = fa.attn_bwd_packed_fs
+
+    def zero_dk(*a, **kw):
+        dqkv = right(*a, **kw).clone()
+        d = dqkv.shape[-1] // 3
+        dqkv[..., d:2 * d] = 0
+        return dqkv
+
+    fa.attn_bwd_packed_fs = zero_dk
+    try:
+        bad = grads(flash)
+    finally:
+        fa.attn_bwd_packed_fs = right
+    gaps = {n: _grad_gap(bad[n], ref[n]) for n in ref}
+    worst = max(gaps, key=gaps.get)
+    print(f"  planted fault (#7's dK zeroed): worst gradient gap "
+          f"{gaps[worst]:.3e} at {worst} (must exceed {FLASH_GRAD_TOL})")
+    if not gaps[worst] > FLASH_GRAD_TOL:
+        raise AssertionError("the flash step check cannot see a zeroed dK")
+    del flash, got, ref, bad
+    torch.cuda.empty_cache()
+    return {"flash_driver": counts, "flash_step": step_counts}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6598,6 +7366,11 @@ def main() -> int:
     rel_times = time_rel_kernels(fa, rel_case_b256, mem_case, card)
     del rel_case_b256, mem_case
     torch.cuda.empty_cache()
+    # the shard's counter offsets of the rel family (#11, #12, #20, #21,
+    # #23, #24), from a stream of their own
+    offset_rng = np.random.default_rng([args.seed, 26])
+    offsets = check_rel_offsets(offset_rng, fa)
+    one_rank_times = time_rel_one_rank(offset_rng, fa, card)
 
     # 3e. The long-sequence kernels against plain, on the card
     long_errs = {}
@@ -6802,6 +7575,13 @@ def main() -> int:
     # 4i. Serving with the QKV projection inside the kernel (#18)
     qkvproj_serve_counts = qkvproj_serving(args, qp_rng, fa, card)
 
+    # 4j. Tensor-parallel MAG-XLNet serving: Predictor(mesh=), #11 at H=6
+    # a rank; 4k. flash serving at S=512 (#6). From streams of their own.
+    xtp_serve_counts = xlnet_tp_serving(
+        args, np.random.default_rng([args.seed, 27]), fa, card)
+    flash_serve_counts, flash_times = flash_serving(
+        args, np.random.default_rng([args.seed, 28]), fa, card)
+
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
@@ -6866,6 +7646,12 @@ def main() -> int:
     remat_counts, remat = remat_driver_path(args, fa, card)
     print(json.dumps({"remat_memory": remat, "card": card}))
 
+    # 6l. The tensor-parallel MAG-XLNet driver (#11/#13; inkernel #20/#22)
+    # and its step checks (#23/#24 at S=512); 6m. the flash driver and the
+    # dropout-0 step through #6/#7
+    xtp_driver_counts = xlnet_tp_driver_path(args, fa, card)
+    flash_driver_counts = flash_driver_path(args, rng, fa, card)
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -6898,7 +7684,12 @@ def main() -> int:
                  **{path: c[name] for path, c in
                     ckpt_driver_counts.items()},
                  **{path: c[name] for path, c in artifact_counts.items()},
-                 **{path: c[name] for path, c in remat_counts.items()}}
+                 **{path: c[name] for path, c in remat_counts.items()},
+                 "xlnet_tp_serving": xtp_serve_counts[name],
+                 **{path: c[name] for path, c in xtp_driver_counts.items()},
+                 "flash_serving": flash_serve_counts[name],
+                 **{path: c[name] for path, c in
+                    flash_driver_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -7114,6 +7905,23 @@ def main() -> int:
                                       "(head, batch row) pass and the dx "
                                       "product")
         kernels.append(entry)
+    offset_tags = {"attn_fwd_rel": "#11", "attn_bwd_rel": "#12",
+                   "attn_fwd_relik": "#20", "attn_bwd_relik": "#21",
+                   "attn_fwd_relik_fs": "#23", "attn_bwd_relik_fs": "#24"}
+    for entry in kernels:
+        name = entry["name"]
+        if name in one_rank_times:
+            entry.setdefault("modes", {})[
+                f"one TP rank, {one_rank_times[name]['shape']}"] = (
+                    one_rank_times[name])
+        if name in offset_tags:
+            entry["counter_offsets_bit_exact"] = {
+                k_: v_[0] for k_, v_ in offsets.items()
+                if k_.startswith(offset_tags[name] + " ")}
+        if name == "attn_fwd_packed_fs":
+            entry.setdefault("modes", {})[
+                "attention_impl=flash serving, " + flash_times["shape"]] = (
+                    flash_times)
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

@@ -296,3 +296,16 @@ def test_seeded_init_is_reproducible_and_fp32():
                        torch.zeros(96))
     assert torch.equal(a["bert.embeddings.LayerNorm.weight"],
                        torch.ones(32))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -285,3 +285,16 @@ def test_checkpoint_modules_import_no_outside_package():
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

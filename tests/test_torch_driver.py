@@ -432,14 +432,18 @@ def _saved_checkpoint(directory):
     (["--predict_only"], "A.6"),
     (["--pretrained_checkpoint", "{tmp}/model.bin"], "A.6"),
     (["--export_hf", "{tmp}/no_dir/out.bin"], "A.6"),
-    (["--model_parallel", "2", "--model", "xlnet-base-cased"], "A.10"),
+    (["--model_parallel", "2", "--model", "xlnet-base-cased", "--n_epochs",
+      "1", "--synthetic_sizes", "8", "8", "8", "--train_batch_size", "8"],
+     "A.10 ported"),
     (["--fsdp"], "A.10"),
     (["--pipeline_parallel", "2"], "A.10"),
     (["--num_processes", "2"], "A.10"),
-    (["--tp_shard_attention", "--model", "xlnet-base-cased"], "A.10"),
-    (["--compiler_options", "{}"], "A.10"),
+    (["--tp_shard_attention", "--model", "xlnet-base-cased"], "A.10 JAX"),
+    (["--compiler_options", "{}"], "A.10.6"),
     (["--mem_len", "4"], "A.8"),
-    (["--attention_impl", "flash"], "A.2"),
+    (["--attention_impl", "flash", "--max_seq_length", "128", "--n_epochs",
+      "1", "--synthetic_sizes", "8", "8", "8", "--train_batch_size", "8"],
+     "A.2 ported"),
     (["--rng_impl", "threefry2x32"], "A.5"),
 ], ids=[  # the ids each case had while the table held --vocab *.model,
     # --export_serving and --remat
@@ -452,12 +456,18 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
     ported: on the default model, MAG-BERT, it exits 2 with the JAX
     driver's family refusal and names no item (the XLNet run is
     ``tests/test_torch_mems.py``). ``--model_parallel`` and
-    ``--tp_shard_attention`` are ported for MAG-BERT
-    (``tests/test_torch_tensor_parallel.py``); for XLNet they still exit 2
-    naming A.10. The checkpoint flags (A.6) are ported: their cases are the
-    JAX driver's refusals of them, each exiting 2 with its message
-    (``_a6_refusal``) before anything is built. ``--vocab *.model`` (A.15),
-    ``--export_serving`` (A.9) and ``--remat`` (A.14) are ported
+    ``--tp_shard_attention`` are ported for both families
+    (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_xlnet_tp.py``): XLNet's ``--model_parallel 2`` (the
+    FFN split) trains on two CPU ranks and exits 0, and
+    ``--tp_shard_attention`` without it exits 2 with the JAX driver's
+    refusal. ``--attention_impl flash`` (A.2) is ported: at S=128 it trains
+    and exits 0 (``tests/test_torch_flash.py``). ``--compiler_options``
+    (A.10.6) are XLA's: they exit 2 saying that no torch counterpart
+    exists, naming no item. The checkpoint flags (A.6) are ported: their
+    cases are the JAX driver's refusals of them, each exiting 2 with its
+    message (``_a6_refusal``) before anything is built. ``--vocab *.model``
+    (A.15), ``--export_serving`` (A.9) and ``--remat`` (A.14) are ported
     (``tests/test_torch_sentencepiece.py``, ``tests/test_torch_export.py``,
     ``tests/test_torch_remat.py``)."""
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
@@ -466,6 +476,9 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
         _saved_checkpoint(str(tmp_path / "full"))
     rc = tdriver.main(argv + ["--synthetic", "--tiny", "--device", "cpu"])
     err = capsys.readouterr().err
+    if item.endswith("ported"):
+        assert rc == 0, err
+        return
     assert rc == 2
     if item == "A.6":
         assert err.strip() == _a6_refusal(argv, tmp_path)
@@ -476,6 +489,14 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
         assert "the BERT family has no memory mechanism" in err
         assert "ROADMAP" not in err
         return
+    if item == "A.10 JAX":
+        assert "--tp_shard_attention requires --model_parallel > 1" in err
+        assert "ROADMAP" not in err
+        return
+    if item == "A.10.6":
+        assert ("--compiler_options are XLA compiler options" in err
+                and "no counterpart" in err and "ROADMAP" not in err)
+        return
     assert f"{argv[0]}" in err and f"ROADMAP {item}" in err
 
 
@@ -485,3 +506,16 @@ def test_unported_flags_table_covers_the_parser():
         tdriver.build_parser()).values()}
     for flag, _, _ in tdriver.UNPORTED:
         assert flag.split()[0] in dests, flag
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -404,3 +404,16 @@ def test_driver_export_serving_matches_the_predictor(tmp_path, capsys):
         serve, BatchIterator(split, 8, shuffle=False, drop_remainder=False))
     np.testing.assert_array_equal(preds, want)
     np.testing.assert_array_equal(labels, split.label_ids)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

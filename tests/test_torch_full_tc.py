@@ -415,3 +415,16 @@ def _case_at(b, s, h, dh):
     mask[0] = 0
     return (qkv.to(torch.bfloat16), torch.from_numpy(mask),
             g.to(torch.bfloat16))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -671,3 +671,16 @@ def test_autograd_launches_the_kernels(cuda_device, monkeypatch):
             deterministic=False)
         out.backward(g)
         assert tuple(a - b for a, b in zip(counts(), before)) == want
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -651,3 +651,16 @@ def test_long_tiers_launch_their_kernels(cuda_device):
             dropout_rng=torch.Generator().manual_seed(1),
             deterministic=False).backward(g)
         assert (fwd.launches - f0, bwd.launches - b0) == (1, n_bwd)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

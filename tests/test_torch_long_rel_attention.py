@@ -994,3 +994,16 @@ def test_long_rel_tiers_launch_their_kernels(cuda_device):
             x["g"])
     assert (tfa.attn_fwd_relik_fs_cuda.launches - f0,
             tfa.attn_bwd_relik_fs_cuda.launches - b0) == (1, 3)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -875,3 +875,16 @@ def test_bf16_tensor_core_backward_on_card(cuda_device, shape, d, dv, da,
         assert bool(torch.isfinite(g).all())
         bad = ((g - w).abs() > 2e-4 + 2e-4 * w.abs()) & ~tie
         assert not bool(bad.any())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -538,3 +538,16 @@ def test_mems_relik_fs_tier_matches_einsum():
     rel = np.abs(fused - einsum) / np.maximum(np.abs(einsum), 1e-12)
     assert np.isfinite(fused).all()
     assert rel.max() < 5e-3, (rel, fused, einsum)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

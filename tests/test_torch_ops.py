@@ -369,7 +369,8 @@ def test_config_accepts_qkv_fusion():
 def test_unported_options_raise(kw, item):
     """An option whose item is open raises naming it. ``tp_attention_mesh``
     (A.10, tensor parallelism for MAG-BERT) is ported: a mesh is kept, and
-    anything else raises TypeError."""
+    anything else raises TypeError. ``attention_impl="flash"`` (A.2) is
+    ported: the config keeps it (``tests/test_torch_flash.py``)."""
     if item == "A.10":
         from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
             make_mesh,
@@ -380,6 +381,9 @@ def test_unported_options_raise(kw, item):
         mesh = make_mesh(devices=["cpu"])
         assert tcfg.BertConfig(tp_attention_mesh=mesh).tp_attention_mesh \
             is mesh
+        return
+    if item == "A.2":
+        assert tcfg.BertConfig(**kw).attention_impl == "flash"
         return
     with pytest.raises(NotImplementedError, match=item):
         tcfg.BertConfig(**kw)
@@ -422,3 +426,16 @@ def test_port_imports_no_jax():
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

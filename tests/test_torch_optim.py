@@ -160,3 +160,16 @@ def test_clipping_has_no_epsilon():
     opt.step()
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(out["w"]),
                                rtol=1e-7)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

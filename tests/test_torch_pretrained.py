@@ -339,3 +339,16 @@ def test_driver_export_then_warm_start(tmp_path, monkeypatch, capsys):
     with pytest.raises(ValueError, match="position_embeddings"):
         _driver(["--n_epochs", "1", "--max_seq_length", "80",
                  "--pretrained_checkpoint", path])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

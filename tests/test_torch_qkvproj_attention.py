@@ -678,3 +678,16 @@ def test_bf16_dqkv_is_threes_on_card(cuda_device, b, s, h, dh, rate):
     bound = tfa.qkvproj_dx_bf16_bound(
         want_dx, torch.zeros_like(dqkv, dtype=torch.float32), w)
     assert bool(((dx.float() - want_dx).abs() <= bound).all())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -452,3 +452,16 @@ def test_rel_kernel_refuses_what_it_does_not_take(cuda_device):
         tfa.attn_fwd_rel_cuda(q, q, q, torch.zeros(2, 16, 8, 8,
                                                    device=cuda_device),
                               n_heads=16, scale=1.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -540,3 +540,16 @@ def test_memory_steps_launch_their_kernels_on_card(cuda_device, impl, s,
         assert np.isfinite(float(loss))
     assert all(getattr(tfa, n).launches > c for n, c in zip(launched, before))
     assert float(mems[0].float().abs().max()) > 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -349,3 +349,16 @@ def _card_case(b, q_len, k_len, h, dh):
     eb[0, 0, min(1, q_len - 1)] = -1e30
     return tuple(torch.from_numpy(x).to(torch.bfloat16)
                  for x in (q, k, v, eb, g))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -517,3 +517,16 @@ def test_full_tier_launches_its_kernels(cuda_device):
         assert (tfa.attn_fwd_relik_cuda.launches - f0,
                 bwd.launches - b0) == (1, 2)
         assert all(bool(torch.isfinite(t.grad).all()) for t in xs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -355,3 +355,16 @@ def test_saved_backward_matches_the_recompute_on_card(cuda_device, q_len,
             assert bool(((a.float() - w.float()).abs() <= bd).all())
     again = tfa.attn_bwd_relik_saved_cuda(*saved_in, **kw)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -206,3 +206,16 @@ def test_driver_remat_under_model_parallel():
 
     assert len(plain) == 2 and len(plain[0]["history"]) == 2
     assert records(remat) == records(plain)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

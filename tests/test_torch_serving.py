@@ -146,3 +146,16 @@ def test_regression_predictor_rejects_predict_classes_and_empty_split():
         tpred.predict_classes(tsplit)
     empty = tsplit.take(np.arange(0))
     assert tpred.predict_split(empty).shape == (0,)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -605,10 +605,16 @@ def test_driver_tp_shard_attention_fused_exits_0(rank_runs):
 
 
 def test_driver_xlnet_model_parallel_exits_2(capsys):
+    """XLNet tensor parallelism is ported (``tests/test_torch_xlnet_tp.py``
+    runs it); with ``--mem_len`` it exits 2 with the JAX driver's
+    refusal."""
     rc = tdriver.main(["--model", "xlnet-base-cased", "--model_parallel",
-                       "2", "--synthetic", "--tiny", "--device", "cpu"])
+                       "2", "--mem_len", "4", "--synthetic", "--tiny",
+                       "--device", "cpu"])
     assert rc == 2
-    assert "ROADMAP A.10" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--mem_len runs on the data-parallel trainer" in err
+    assert "ROADMAP" not in err
 
 
 def test_driver_tp_guards_exit_2(capsys):
@@ -619,3 +625,16 @@ def test_driver_tp_guards_exit_2(capsys):
         rc = tdriver.main(argv + ["--synthetic", "--tiny", "--device",
                                   "cpu"])
         assert rc == 2 and msg in capsys.readouterr().err
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

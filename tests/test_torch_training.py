@@ -263,7 +263,9 @@ def test_unported_trainer_options_raise(kw, item):
     ``tp_shard_attention`` (the A.10 tensor parallelism for MAG-BERT) are
     ported: a mesh that is not a ``parallel.mesh.Mesh`` raises, and
     tp_shard_attention without a model axis > 1 raises the JAX trainer's
-    guard (tests/test_torch_tensor_parallel.py runs them on ranks)."""
+    guard (tests/test_torch_tensor_parallel.py runs them on ranks).
+    ``compiler_options`` are XLA's and have no torch counterpart: they
+    raise ValueError saying so, naming no item."""
     _, _, tcfg, tmm = _configs("einsum")
     model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
                                                    device="cpu")
@@ -279,6 +281,25 @@ def test_unported_trainer_options_raise(kw, item):
             ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
                              **kw)
         return
+    if "compiler_options" in kw:
+        with pytest.raises(ValueError, match="XLA compiler options") as e:
+            ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
+                             **kw)
+        assert "ROADMAP" not in str(e.value)
+        return
     with pytest.raises(NotImplementedError, match=item):
         ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
                          **kw)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -372,10 +372,22 @@ def test_dropout_forward_is_seeded(jparams):
 def test_unported_config_options_raise(kw, item):
     """An option whose item is still open raises naming it; the memory's
     options (A.8) and ``rel_bias_impl="inkernel"`` (B.7), both ported,
-    build a config that keeps them."""
+    build a config that keeps them. ``tp_attention_mesh`` (A.10, XLNet
+    tensor parallelism) is ported: a mesh is kept, anything else raises
+    TypeError, as ``BertConfig`` does."""
     if item in ("A.8", "B.7"):
         cfg = XLNetConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
+        return
+    if item == "A.10":
+        from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+            make_mesh,
+        )
+
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            XLNetConfig(**kw)
+        mesh = make_mesh(devices=["cpu"])
+        assert XLNetConfig(tp_attention_mesh=mesh).tp_attention_mesh is mesh
         return
     with pytest.raises(NotImplementedError, match=item):
         XLNetConfig(**kw)
@@ -512,3 +524,16 @@ def test_predictor_matches_jax(jparams):
     got = Predictor(tmodel, batch_size=4).predict_split(PackedSplit(*arrays))
     assert got.shape == (11,)
     np.testing.assert_allclose(got, want, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tiny shapes: the fastest for
+    them, and it keeps the module from competing with the parallel test
+    workers for the host's cores (as ``tests/test_torch_resume.py``)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
