@@ -44,6 +44,15 @@ training on its (data, model) place of the mesh, with the FFN split over
 the model axis and, with ``--tp_shard_attention``, the attention heads
 too; rank 0 prints the lines. ``run`` returns each rank's exit status,
 epoch records, kernel launch counts and backend beside the exit status.
+``--pipeline_parallel P`` (with ``--pp_microbatches``, both families)
+trains on a (data, pipe, model) mesh of data × P × max(1, N) ranks
+(``parallel/pp.py``, ``parallel/pp_xlnet.py``: the GPipe schedule over P
+stages), P × max(1, N) when there are fewer cards, sharing them over
+gloo. ``--fsdp`` stores the params and AdamW's moments sharded over the
+data axis (``parallel/fsdp.py``); the data axis has the cards left over
+(one on a card of its own, where nothing is split). ``--predict_only``
+serves a checkpoint of any of them on the model layout, in one process
+(or the model ranks of ``--model_parallel``).
 
 Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
@@ -115,8 +124,6 @@ FAMILY_ERRORS = (
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--fsdp", lambda a: a.fsdp, "A.10"),
-    ("--pipeline_parallel", lambda a: a.pipeline_parallel != 1, "A.10"),
     ("--num_processes", lambda a: a.num_processes != 1, "A.10"),
     ("--rng_impl threefry2x32", lambda a: a.rng_impl == "threefry2x32",
      "A.5"),
@@ -254,12 +261,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "through the split-layout kernels; needs n_head "
                         "%% mp == 0)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="not ported yet above 1 (ROADMAP A.10)")
+                   help="Pipeline-parallel stage count: encoder layers "
+                        "split into N stages over a 'pipe' mesh axis, "
+                        "GPipe microbatch schedule, activations passed "
+                        "between neighbouring stages (parallel/pp.py BERT, "
+                        "parallel/pp_xlnet.py XLNet); data axis gets the "
+                        "remaining cards; needs layer count %% N == 0")
     p.add_argument("--pp_microbatches", type=int, default=4,
-                   help="With --pipeline_parallel (not ported yet, "
-                        "ROADMAP A.10)")
+                   help="With --pipeline_parallel > 1: microbatches per "
+                        "step (the pipeline's accumulation factor; the "
+                        "per-data-shard batch must divide by it)")
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported yet (ROADMAP A.10)")
+                   help="ZeRO-3: store params + optimizer moments "
+                        "sharded over the data axis, gathered for each "
+                        "step (parallel/fsdp.py). Composes with "
+                        "--model_parallel; not with --pipeline_parallel")
     p.add_argument("--rng_impl", type=str, default="rbg",
                    choices=["threefry2x32", "rbg"],
                    help="rbg: the card's own dropout streams (Philox in "
@@ -305,9 +321,26 @@ def _tp_guards(args) -> list:
     if args.model_parallel < 1:
         errors.append(f"--model_parallel must be >= 1, got "
                       f"{args.model_parallel}")
-    if _xlnet(args) and args.mem_len and args.model_parallel > 1:
+    if _xlnet(args) and args.mem_len and (args.pipeline_parallel > 1
+                                          or args.fsdp
+                                          or args.model_parallel > 1):
         errors.append("--mem_len runs on the data-parallel trainer (mems "
                       "shard over the batch axis)")
+    if args.pipeline_parallel > 1:
+        # the JAX driver's refusals, the first that applies
+        if args.tp_shard_attention:
+            errors.append("--pipeline_parallel does not compose with "
+                          "--tp_shard_attention (attention stays replicated "
+                          "inside pipeline stages; --model_parallel gives "
+                          "the Megatron FFN split)")
+        elif args.fsdp:
+            errors.append("--fsdp does not compose with --pipeline_parallel "
+                          "(the pipeline trainer owns its stage-sharded "
+                          "state layout)")
+        elif args.remat:
+            errors.append("--remat is not applied by the pipeline trainer "
+                          "(parallel/pp.py builds the stage layers "
+                          "directly); drop one of the flags")
     if args.tp_shard_attention:
         if args.model_parallel <= 1:
             errors.append("--tp_shard_attention requires --model_parallel"
@@ -328,7 +361,15 @@ def _tp_guards(args) -> list:
             errors.append(f"--tp_shard_attention needs n_head ({n_head}) "
                           f"divisible by --model_parallel "
                           f"({args.model_parallel})")
+    if args.pipeline_parallel > 1 and args.gradient_accumulation_step != 1:
+        errors.append("--gradient_accumulation_step is superseded by "
+                      "--pp_microbatches under --pipeline_parallel")
     return errors
+
+
+def _use_pp(args) -> bool:
+    """A pipelined run (``--predict_only`` serves the model layout)."""
+    return args.pipeline_parallel > 1 and not args.predict_only
 
 
 def _checkpoint_guard(args):
@@ -380,11 +421,20 @@ def _rank_main(rank: int, args, devices) -> dict:
     """One rank of a multi-rank run: the mesh, then the training."""
     from bert_multimodal_transformer_tpu_torch.config import MeshConfig
     from bert_multimodal_transformer_tpu_torch.ops import launch_counts
-    from bert_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_pp_mesh,
+    )
 
-    mesh = make_mesh(MeshConfig(data_parallel=-1,
-                                model_parallel=args.model_parallel),
-                     devices)
+    if _use_pp(args):
+        mp = max(1, args.model_parallel)
+        mesh = make_pp_mesh(
+            args.pipeline_parallel, model_parallel=mp, devices=devices,
+            data_parallel=len(devices) // (args.pipeline_parallel * mp))
+    else:
+        mesh = make_mesh(MeshConfig(data_parallel=-1,
+                                    model_parallel=args.model_parallel),
+                         devices)
     rc, summary = _train(args, mesh)
     return {"rc": rc, "history": summary["history"] if summary else None,
             "launches": launch_counts(), "backend": mesh.backend}
@@ -402,17 +452,29 @@ def _run_ranks(args, timeout_s: float):
 
     mp = args.model_parallel
     n_cards = torch.cuda.device_count() if args.device == "cuda" else 0
-    world = n_cards if n_cards >= mp else mp
-    try:
-        data, _ = mesh_shape(MeshConfig(data_parallel=-1, model_parallel=mp),
-                             world)
-    except ValueError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2, []
-    if args.train_batch_size % (data * args.gradient_accumulation_step):
+    if _use_pp(args):
+        # the JAX driver's pipe x model block, data over the rest
+        need = args.pipeline_parallel * max(1, mp)
+        world = n_cards if n_cards >= need else need
+        if world % need:
+            print(f"error: --pipeline_parallel {args.pipeline_parallel} "
+                  f"x --model_parallel {max(1, mp)} does not divide the "
+                  f"{world} devices", file=sys.stderr)
+            return 2, []
+        data, micro = world // need, args.pp_microbatches
+    else:
+        world = n_cards if n_cards >= mp else mp
+        try:
+            data, _ = mesh_shape(MeshConfig(data_parallel=-1,
+                                            model_parallel=mp), world)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2, []
+        micro = args.gradient_accumulation_step
+    if args.train_batch_size % (data * micro):
         print(f"error: --train_batch_size {args.train_batch_size} does not "
-              f"split over {args.gradient_accumulation_step} micro-batches "
-              f"x {data} data ranks", file=sys.stderr)
+              f"split over {micro} micro-batches x {data} data ranks",
+              file=sys.stderr)
         return 2, []
     devices = (placement(world) if args.device == "cuda"
                else ["cpu"] * world)
@@ -423,8 +485,9 @@ def _run_ranks(args, timeout_s: float):
 
 def run(argv=None, rank_timeout_s: float = 3600.0):
     """``main`` returning (exit status, each rank's {"rc", "history",
-    "launches", "backend"} under ``--model_parallel`` > 1, else []). The
-    ranks are stopped after ``rank_timeout_s`` seconds."""
+    "launches", "backend"} under ``--model_parallel`` or
+    ``--pipeline_parallel`` > 1, else []). The ranks are stopped after
+    ``rank_timeout_s`` seconds."""
     args = build_parser().parse_args(argv)
     refused = [msg for test, msg in FAMILY_ERRORS if test(args)]
     if refused:
@@ -469,7 +532,7 @@ def run(argv=None, rank_timeout_s: float = 3600.0):
               "--device cpu to run the kernels' plain versions on the CPU",
               file=sys.stderr)
         return 2, []
-    if args.model_parallel > 1:
+    if args.model_parallel > 1 or _use_pp(args):
         return _run_ranks(args, rank_timeout_s)
     return _train(args, None)[0], []
 
@@ -612,10 +675,21 @@ def _train(args, mesh):
     tx = make_optimizer(
         learning_rate=args.learning_rate, num_train_steps=max(num_steps, 1),
         warmup_proportion=args.warmup_proportion)
-    trainer = Trainer(model=model, tx=tx, mesh=mesh,
-                      grad_accum=args.gradient_accumulation_step,
-                      tp_shard_attention=args.tp_shard_attention,
-                      mem_len=args.mem_len or None)
+    if _use_pp(args):
+        from bert_multimodal_transformer_tpu_torch.parallel.pp import (
+            PipelineTrainer,
+        )
+        from bert_multimodal_transformer_tpu_torch.parallel.pp_xlnet import (
+            XLNetPipelineTrainer,
+        )
+
+        trainer = (XLNetPipelineTrainer if is_xlnet else PipelineTrainer)(
+            model=model, tx=tx, mesh=mesh, n_micro=args.pp_microbatches)
+    else:
+        trainer = Trainer(model=model, tx=tx, mesh=mesh,
+                          grad_accum=args.gradient_accumulation_step,
+                          tp_shard_attention=args.tp_shard_attention,
+                          fsdp=args.fsdp, mem_len=args.mem_len or None)
     # The JAX driver draws its init sample from the train loader, which
     # takes the first epoch's shuffle; drawing it here too keeps the
     # training data order the same for the same seed.
@@ -698,7 +772,9 @@ def _train(args, mesh):
     if ckpt is not None:
         ckpt.close()
     if args.export_hf or args.export_serving:
-        full = tp_lib.full_state_dict(model)  # every rank gathers
+        # every rank gathers; a pipelined run from the pipeline layout
+        full = (trainer.model_params(state) if _use_pp(args)
+                else tp_lib.full_state_dict(model))
     if args.export_hf and is_main:
         export = (convert_lib.export_xlnet_state_dict(full, cfg.n_layer)
                   if is_xlnet else convert_lib.export_bert_state_dict(

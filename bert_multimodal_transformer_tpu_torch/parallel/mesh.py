@@ -1,12 +1,15 @@
 """The rank mesh over ``torch.distributed`` (port of ``parallel/mesh.py``).
 
-The JAX package drives a (data, model) mesh of devices from one process.
-Here each place of the mesh is a process (a rank) on its own device, and a
-``Mesh`` holds what one rank needs: its coordinates, its device and the
-process groups of its two axes.
+The JAX package drives a (data, model) mesh of devices from one process,
+or a (data, pipe[, model]) one for pipeline parallelism (JAX
+``parallel/pp.py::make_pp_mesh``). Here each place of the mesh is a
+process (a rank) on its own device, and a ``Mesh`` holds what one rank
+needs: its coordinates, its device and the process groups of its axes.
 
 * ranks are laid out data-major, as the JAX mesh reshapes its device list
-  to (data, model): rank = data_rank · model_size + model_rank;
+  to (data, pipe, model): rank = (data_rank · pipe_size + pipe_rank) ·
+  model_size + model_rank, the pipe axis outside the model axis, so a
+  stage's model ranks are neighbours (``make_pp_mesh``);
 * ranks go round-robin on the visible cards (``placement``), or all on the
   CPU when there is none; the backend is NCCL when every rank has a card of
   its own, gloo when ranks share a card or run on the CPU
@@ -16,7 +19,10 @@ process groups of its two axes.
   under the same timeout, and returns what each rank's function returned.
 
 Batch rows split over the data axis (``Mesh.local_rows``); the tensor
-parallel split over the model axis is ``parallel/tp.py``.
+parallel split over the model axis is ``parallel/tp.py``, the parameter
+and moment shards over the data axis ``parallel/fsdp.py``, and the stages
+over the pipe axis ``parallel/pp.py`` (one activation tensor at a time
+between neighbouring stages: ``Mesh.pipe_send`` / ``Mesh.pipe_recv``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from bert_multimodal_transformer_tpu_torch.config import MeshConfig
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 
 def placement(world_size: int, devices: Optional[Sequence] = None
@@ -90,9 +97,9 @@ def init_distributed(rank: int, world_size: int, init_method: str,
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """One rank's view of the (data, model) mesh. With one rank and no
-    process group (``make_mesh()`` in a plain process) every collective is
-    the identity."""
+    """One rank's view of the (data[, pipe], model) mesh. With one rank and
+    no process group (``make_mesh()`` in a plain process) every collective
+    is the identity."""
 
     data_size: int
     model_size: int
@@ -103,10 +110,18 @@ class Mesh:
     model_group: Any = None
     data_axis: str = DATA_AXIS
     model_axis: str = MODEL_AXIS
+    pipe_size: int = 1
+    pipe_group: Any = None
+    pipe_axis: str = PIPE_AXIS
+    pipelined: bool = False   # made by make_pp_mesh
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.model_size
+        return self.rank // (self.pipe_size * self.model_size)
+
+    @property
+    def pipe_rank(self) -> int:
+        return (self.rank // self.model_size) % self.pipe_size
 
     @property
     def model_rank(self) -> int:
@@ -114,14 +129,44 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.data_size * self.model_size
+        return self.data_size * self.pipe_size * self.model_size
 
     def _group(self, axis: str):
         if axis == self.data_axis:
             return self.data_group, self.data_size
         if axis == self.model_axis:
             return self.model_group, self.model_size
+        if axis == self.pipe_axis:
+            return self.pipe_group, self.pipe_size
         raise ValueError(f"no mesh axis {axis!r}")
+
+    def _pipe_peer(self, step: int) -> int:
+        """The global rank ``step`` stages along the pipe axis (same data
+        and model place)."""
+        p = self.pipe_rank + step
+        if not 0 <= p < self.pipe_size:
+            raise ValueError(f"stage {self.pipe_rank} has no stage {p}")
+        return self.rank + step * self.model_size
+
+    def pipe_send(self, t: torch.Tensor, step: int) -> None:
+        """Send ``t`` to the stage ``step`` (±1) along the pipe axis; it
+        must post the matching ``pipe_recv``. Gloo's point-to-point calls
+        take host tensors only, so under gloo the tensor goes through host
+        memory."""
+        src = t.detach().contiguous()
+        if self.backend == "gloo":
+            src = src.cpu()
+        dist.send(src, dst=self._pipe_peer(step))
+
+    def pipe_recv(self, shape, dtype: torch.dtype,
+                  step: int) -> torch.Tensor:
+        """The tensor the stage ``step`` (±1) along the pipe axis sends
+        (``pipe_send``), on this rank's device."""
+        host = self.backend == "gloo"
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if host else self.device)
+        dist.recv(buf, src=self._pipe_peer(step))
+        return buf.to(self.device)
 
     def all_reduce_(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum ``t`` in place over the ranks of ``axis``; returns it."""
@@ -201,6 +246,32 @@ def mesh_shape(config: MeshConfig, n: int):
     return data, model
 
 
+def _axis_groups(data: int, pipe: int, model: int, rank: int):
+    """This rank's (data, pipe, model) groups of the started process group
+    (no pipe group on a mesh without a pipe axis). ``new_group`` is
+    collective: every rank creates every group, in the same order."""
+    def place(d, p, m):
+        return (d * pipe + p) * model + m
+
+    mine = {}
+    for axis, size, others in (
+            ("data", data, [(None, p, m) for p in range(pipe)
+                            for m in range(model)]),
+            ("model", model, [(d, p, None) for d in range(data)
+                              for p in range(pipe)]),
+            ("pipe", pipe, [(d, None, m) for d in range(data)
+                            for m in range(model)])):
+        if axis == "pipe" and pipe == 1:
+            continue
+        for d, p, m in others:
+            ranks = [place(i if d is None else d, i if p is None else p,
+                           i if m is None else m) for i in range(size)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = g
+    return mine.get("data"), mine.get("pipe"), mine.get("model")
+
+
 def make_mesh(config: Optional[MeshConfig] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """The (data, model) mesh over the ranks of the started process group
@@ -218,24 +289,57 @@ def make_mesh(config: Optional[MeshConfig] = None,
             f"{n} devices given, but the process group has {world} ranks "
             "(start one rank per device: parallel.mesh.run_ranks or "
             "init_distributed)")
+    return _build_mesh(data, 1, model, devices, config.data_axis,
+                       config.model_axis)
+
+
+def _build_mesh(data: int, pipe: int, model: int,
+                devices: Optional[Sequence], data_axis: str = DATA_AXIS,
+                model_axis: str = MODEL_AXIS,
+                pipelined: bool = False) -> Mesh:
+    world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     devs = placement(world, devices)
-    data_group = model_group = None
     backend = dist.get_backend() if dist.is_initialized() else None
+    data_group = pipe_group = model_group = None
     if world > 1:
-        # new_group is collective: every rank creates every group in order
-        for m in range(model):
-            g = dist.new_group([d * model + m for d in range(data)])
-            if rank % model == m:
-                data_group = g
-        for d in range(data):
-            g = dist.new_group([d * model + m for m in range(model)])
-            if rank // model == d:
-                model_group = g
+        data_group, pipe_group, model_group = _axis_groups(data, pipe,
+                                                           model, rank)
     return Mesh(data_size=data, model_size=model, rank=rank,
                 device=devs[rank], backend=backend, data_group=data_group,
-                model_group=model_group, data_axis=config.data_axis,
-                model_axis=config.model_axis)
+                model_group=model_group, data_axis=data_axis,
+                model_axis=model_axis, pipe_size=pipe,
+                pipe_group=pipe_group, pipelined=pipelined)
+
+
+def make_pp_mesh(n_stages: int, data_parallel: int = 1,
+                 devices: Optional[Sequence] = None,
+                 model_parallel: int = 1) -> Mesh:
+    """The (data, pipe[, model]) mesh over the ranks of the started process
+    group (JAX ``parallel/pp.py::make_pp_mesh``): the pipe axis outside the
+    model axis, so a stage's model ranks are neighbours and consecutive
+    stages are contiguous blocks. Every rank must hold a place. Every rank
+    calls it, in the same order."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = len(devices) if devices is not None else world
+    model = max(1, model_parallel)
+    need = n_stages * data_parallel * model
+    if need > n:
+        raise ValueError(
+            f"pp mesh {data_parallel}x{n_stages}x{model} needs {need} "
+            f"devices, have {n}")
+    if need < n:
+        raise ValueError(
+            f"pp mesh {data_parallel}x{n_stages}x{model} leaves "
+            f"{n - need} of the {n} ranks without a place; every rank must "
+            "hold one")
+    if n != world:
+        raise ValueError(
+            f"{n} devices given, but the process group has {world} ranks "
+            "(start one rank per device: parallel.mesh.run_ranks or "
+            "init_distributed)")
+    return _build_mesh(data_parallel, n_stages, model, devices,
+                       pipelined=True)
 
 
 def _free_port() -> int:

@@ -39,8 +39,10 @@ spec is a tuple over the tensor's dims naming the axis each is split on
 full state dict (as ``utils/convert.py::params_from_flax`` gives it) to a
 rank's shards and back; ``shard_model_`` turns a model built at full size
 into this rank's shard. ``full_state_dict`` / ``local_state_dict`` do the
-same for whatever sharding a model carries (none included), which is how
-checkpoints and HF files stay full-size whatever the mesh.
+same for whatever sharding a model carries (none included; FSDP's slices
+over the data axis, ``parallel/fsdp.py``, and a pipeline stage's layers,
+``parallel/pp.py``, too), which is how checkpoints and HF files stay
+full-size whatever the mesh.
 """
 
 from __future__ import annotations
@@ -139,25 +141,41 @@ def full_state_dict(model: nn.Module,
                     tensors: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
     """``tensors`` (default the model's state dict), keyed by the model's
-    parameter names, at full size: gathered over the model axis when
-    ``shard_model_`` sharded the model (a collective that every rank of a
-    model group calls), else as they are."""
-    tensors = model.state_dict() if tensors is None else tensors
+    parameter names, at full size, whatever the model's sharding: joined
+    over the data axis when ``parallel/fsdp.py::shard_model_`` split it,
+    then over the model axis when ``shard_model_`` sharded it (collectives
+    that every rank of those groups calls), else as they are. A pipeline
+    stage (``parallel/pp.py``) gives the pipeline layout of the whole
+    model, gathered over the stages."""
+    tensors = dict(model.state_dict() if tensors is None else tensors)
+    stage = getattr(model, "pp_layout", None)
+    if stage is not None:
+        return stage.full(tensors)
+    fsdp = getattr(model, "fsdp_sharding", None)
+    if fsdp is not None:
+        tensors = fsdp.gather(tensors)
     sharding = getattr(model, "tp_sharding", None)
-    if sharding is None:
-        return dict(tensors)
-    return gather_state_dict(tensors, *sharding)
+    if sharding is not None:
+        tensors = gather_state_dict(tensors, *sharding)
+    return tensors
 
 
 def local_state_dict(model: nn.Module, full: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """A full-size dict keyed by the model's parameter names → what this
-    rank holds of it: its chunks when the model is sharded, else ``full``
-    as it is."""
+    """A full-size dict keyed by the model's parameter names (a pipeline
+    stage: the pipeline layout) → what this rank holds of it: its chunks
+    over the model axis, then its slices over the data axis, as the model
+    is sharded; ``full`` as it is for an unsharded model."""
+    stage = getattr(model, "pp_layout", None)
+    if stage is not None:
+        return stage.local(full)
     sharding = getattr(model, "tp_sharding", None)
-    if sharding is None:
-        return full
-    return shard_state_dict(full, *sharding)
+    if sharding is not None:
+        full = shard_state_dict(full, *sharding)
+    fsdp = getattr(model, "fsdp_sharding", None)
+    if fsdp is not None:
+        full = fsdp.shard(full)
+    return full
 
 
 class _CopyToModel(torch.autograd.Function):

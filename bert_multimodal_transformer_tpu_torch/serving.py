@@ -143,7 +143,14 @@ class Predictor:
         checkpoint under ``checkpoint_dir`` loaded into it (a params-only
         restore: no optimizer state is read). ``kw`` go to the
         constructor. A model already sharded over a mesh takes its
-        chunks."""
+        chunks. A checkpoint of any trainer serves: plain, tensor-parallel
+        and FSDP runs write the model layout at full size, and a
+        pipelined run's pipeline layout is turned back into it (JAX
+        ``driver.py:630-640``)."""
+        from bert_multimodal_transformer_tpu_torch.parallel.pp import (
+            is_pp_layout,
+            model_params_from_pp_params,
+        )
         from bert_multimodal_transformer_tpu_torch.utils.checkpoint import (
             CheckpointManager,
         )
@@ -152,6 +159,8 @@ class Predictor:
         if params is None:
             raise FileNotFoundError(
                 f"no checkpoint found under {checkpoint_dir}")
+        if is_pp_layout(params):
+            params = model_params_from_pp_params(params)
         model.load_state_dict(tp_lib.local_state_dict(model, params))
         return cls(model, **kw)
 

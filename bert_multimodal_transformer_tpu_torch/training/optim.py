@@ -73,7 +73,9 @@ class AdamWHF(torch.optim.Optimizer):
     optax counts. ``max_grad_norm > 0`` first scales the gradients by
     max_norm/‖g‖ when ‖g‖ ≥ max_norm (``optax.clip_by_global_norm``: no
     epsilon, unlike ``torch.nn.utils.clip_grad_norm_``), without a host
-    sync. The two param groups carry weight_decay and 0.
+    sync; ``grad_norm_fn(params)``, when set, gives that norm (a sharded
+    model's whole gradient norm, ``training/trainer.py::
+    attach_grad_norm``). The two param groups carry weight_decay and 0.
     """
 
     def __init__(self, param_groups, schedule: Schedule, b1: float = 0.9,
@@ -83,6 +85,7 @@ class AdamWHF(torch.optim.Optimizer):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.max_grad_norm = max_grad_norm
+        self.grad_norm_fn = None
         self.count = 0
 
     def _state(self, p):
@@ -92,9 +95,13 @@ class AdamWHF(torch.optim.Optimizer):
             st["exp_avg_sq"] = torch.zeros_like(p)
         return st
 
-    def _clip(self, grads):
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+    def _clip(self, params):
+        grads = [p.grad for p in params]
+        if self.grad_norm_fn is not None:
+            norm = self.grad_norm_fn(params)
+        else:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < self.max_grad_norm,
                             torch.ones_like(norm),
                             self.max_grad_norm / norm)
@@ -107,7 +114,7 @@ class AdamWHF(torch.optim.Optimizer):
         groups = [[p for p in g["params"] if p.grad is not None]
                   for g in self.param_groups]
         if self.max_grad_norm > 0:
-            self._clip([p.grad for ps in groups for p in ps])
+            self._clip([p for ps in groups for p in ps])
         lr = self.schedule(self.count)
         self.count += 1
         t = _f32(self.count)

@@ -26,13 +26,18 @@ same global batches) each rank takes its data shard's rows, the gradients
 are summed over the ``data`` axis and divided once (the ragged tail by its
 global valid count), and eval sums and test predictions are gathered over
 it; a model axis > 1 splits MAG-BERT Megatron-style (``parallel/tp.py``,
-with ``tp_shard_attention`` the attention heads too). FSDP, multi-process
-runs and XLA compile options wait for ROADMAP A.10.
+with ``tp_shard_attention`` the attention heads too). With ``fsdp`` the
+params and AdamW's moments are stored sharded over the data axis and
+gathered for each step, evaluation and prediction (``parallel/fsdp.py``).
+The GPipe pipeline trainers subclass ``Trainer`` (``parallel/pp.py``,
+``parallel/pp_xlnet.py``). Multi-process runs wait for ROADMAP A.10; XLA
+compile options have no torch counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -41,6 +46,7 @@ import torch
 from torch import nn
 
 from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
+from bert_multimodal_transformer_tpu_torch.parallel import fsdp as fsdp_lib
 from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
 from bert_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
 from bert_multimodal_transformer_tpu_torch.training import (
@@ -101,7 +107,10 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
     the state's generator with the data rank folded in, so data shards draw
     different masks and the model ranks of a shard the same ones (the
     hidden dropout and the packed kernels draw on local rows; the split
-    kernels' batch-row offset then changes nothing)."""
+    kernels' batch-row offset then changes nothing). A model split by
+    ``parallel/fsdp.py::shard_model_`` gathers its full weights before the
+    forward and keeps its slice of each summed gradient (and of the
+    weights) before the optimizer step."""
     n_data = mesh.data_size if mesh is not None else 1
 
     def train_step(state: TrainState, batch: Tuple, *rest):
@@ -123,6 +132,7 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
             rng = torch.Generator().manual_seed(
                 draw_seed(rng) ^ _data_fold(mesh.data_rank))
         state.optimizer.zero_grad(set_to_none=True)
+        fsdp_lib.gather_params_(state.model)
         total = None
         for i, mb in enumerate(micro):
             if with_mems:
@@ -148,6 +158,7 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
                     [p.grad for p in state.model.parameters()
                      if p.grad is not None], mesh.data_axis)
                 total = mesh.all_reduce_(total.clone(), mesh.data_axis)
+        fsdp_lib.keep_grad_shards_(state.model)
         if div != 1.0:
             grads = [p.grad for p in state.model.parameters()
                      if p.grad is not None]
@@ -189,6 +200,15 @@ def make_mems_train_step(masked: bool, grad_accum: int = 1):
     memory returned is the last micro-batch's. ``masked``: the ragged tail
     batch's masked mean, its memory carried as any other's."""
     return _make_step(grad_accum, masked=masked, with_mems=True)
+
+
+def attach_grad_norm(optimizer: AdamWHF, mesh: Optional[Mesh]) -> AdamWHF:
+    """Over a mesh, clipping reads the whole model's gradient norm
+    (``parallel/fsdp.py::global_grad_norm``), not this rank's shards'."""
+    if mesh is not None:
+        optimizer.grad_norm_fn = functools.partial(fsdp_lib.global_grad_norm,
+                                                   mesh=mesh)
+    return optimizer
 
 
 @torch.inference_mode()
@@ -268,11 +288,9 @@ class Trainer:
     multiprocess: bool = False
 
     def __post_init__(self):
-        for name, item in (("fsdp", "A.10"), ("multiprocess", "A.10")):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet (ROADMAP "
-                    f"{item})")
+        if self.multiprocess:
+            raise NotImplementedError(
+                "Trainer(multiprocess=...) is not ported yet (ROADMAP A.10)")
         if self.compiler_options:
             raise ValueError(COMPILER_OPTIONS_REFUSAL)
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
@@ -310,7 +328,7 @@ class Trainer:
             raise ValueError(
                 "a model built with tp_attention_mesh trains with "
                 "Trainer(mesh=<that mesh>, tp_shard_attention=True)")
-        if self.mem_len is not None and mp > 1:
+        if self.mem_len is not None and (mp > 1 or self.fsdp):
             # the JAX trainer's refusal
             raise ValueError("mem_len supports the data-parallel trainer "
                              "(mems shard over the batch axis)")
@@ -355,27 +373,33 @@ class Trainer:
 
     def init_state(self, seed: int) -> TrainState:
         """Draw the params from ``seed`` (``model.init_params``, on the
-        params' device) and start the dropout stream at ``seed + 1``."""
+        params' device; at full size under FSDP, every rank alike) and
+        start the dropout stream at ``seed + 1``."""
+        fsdp_lib.gather_params_(self.model)
         self.model.init_params(
             torch.Generator(device=self.device).manual_seed(seed))
+        fsdp_lib.reshard_(self.model)
         return self.create_state_from_params(None, seed + 1)
 
     def create_state_from_params(
             self, params: Optional[Dict[str, torch.Tensor]],
             rng: Union[int, torch.Generator]) -> TrainState:
         """A fresh state over ``params`` (a full-size state_dict, of which
-        a tensor-parallel rank keeps its chunks; None keeps the model's
+        a sharded rank keeps its chunks and slices; None keeps the model's
         weights) with the dropout stream ``rng`` (an int seed or a CPU
-        generator)."""
+        generator). Under ``fsdp`` the model is split over the data axis
+        here, before the optimizer is built."""
         if params is not None:
-            if self.mesh is not None and self.mesh.model_size > 1:
-                params = tp_lib.shard_state_dict(params, self.mesh,
-                                                 self.tp_shard_attention)
-            self.model.load_state_dict(params)
+            self.model.load_state_dict(
+                tp_lib.local_state_dict(self.model, params))
+        if self.fsdp and self.mesh is not None:
+            fsdp_lib.shard_model_(self.model, self.mesh,
+                                  self.tp_shard_attention)
         if not isinstance(rng, torch.Generator):
             rng = torch.Generator().manual_seed(int(rng))
-        return TrainState(step=0, model=self.model,
-                          optimizer=self.tx(self.model.named_parameters()),
+        optimizer = attach_grad_norm(self.tx(self.model.named_parameters()),
+                                     self.mesh)
+        return TrainState(step=0, model=self.model, optimizer=optimizer,
                           generator=rng)
 
     def _put(self, a) -> torch.Tensor:
@@ -451,15 +475,27 @@ class Trainer:
         return state, mean, {"steps": len(losses),
                              "stopped_at_batch": stopped_at}
 
+    def _eval_step(self, state: TrainState, batch: Tuple,
+                   valid: torch.Tensor):
+        return eval_step(state, batch, valid)
+
+    def _predict_step(self, state: TrainState, batch: Tuple):
+        return predict_step(state, batch)
+
     def eval_epoch(self, state: TrainState, loader) -> float:
         """Mean dev MSE over every real example; partial sums stay on the
         device, one host sync at the end. With ``mem_len`` the memory
-        threads through the split from zeros."""
+        threads through the split from zeros. Under FSDP the full weights
+        are gathered for the split."""
+        with fsdp_lib.full_params(state.model):
+            return self._eval_epoch(state, loader)
+
+    def _eval_epoch(self, state: TrainState, loader) -> float:
         sums, mems = [], None
         for batch, valid in loader:
             if self.mem_len is None:
-                sums.append(eval_step(state, self._put_batch(batch),
-                                      self._put_valid(valid)))
+                sums.append(self._eval_step(state, self._put_batch(batch),
+                                            self._put_valid(valid)))
                 continue
             if mems is None:
                 mems = self._init_mems(batch)
@@ -476,11 +512,15 @@ class Trainer:
         return tot / max(cnt, 1.0)
 
     def test_epoch(self, state: TrainState, loader):
+        with fsdp_lib.full_params(state.model):
+            return self._test_epoch(state, loader)
+
+    def _test_epoch(self, state: TrainState, loader):
         preds, labels = [], []
         mems = None
         for batch, valid in loader:
             if self.mem_len is None:
-                p, lab = predict_step(state, self._put_batch(batch))
+                p, lab = self._predict_step(state, self._put_batch(batch))
             else:
                 if mems is None:
                     mems = self._init_mems(batch)

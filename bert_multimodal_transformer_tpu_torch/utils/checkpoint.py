@@ -19,13 +19,16 @@ a half-written step (a rename is atomic; the files are not fsynced, so a
 power loss of the host can still lose the newest step). The newest
 ``max_to_keep`` steps stay.
 
-Under tensor parallelism (a model sharded by ``parallel/tp.py``) the
-params and moments are gathered to full size before the write and each
-rank takes its chunks on restore, so a checkpoint does not depend on the
-mesh, as Orbax's does not. In a process group every rank calls ``save``;
-rank 0 writes and the ranks meet at a barrier after it. Saves are
-synchronous: ``wait_until_finished`` and ``close`` have nothing to wait
-for.
+Under tensor parallelism and FSDP (a model sharded by ``parallel/tp.py``
+or ``parallel/fsdp.py``) the params and moments are gathered to full
+size before the write and each rank takes its chunks and slices on
+restore, so a checkpoint does not depend on the mesh, as Orbax's does
+not. A pipeline stage (``parallel/pp.py``) writes the whole model in the
+pipeline layout, gathered over the stages, as the JAX pipeline trainer
+saves it; each stage takes its layers back on restore. In a process
+group every rank calls ``save``; rank 0 writes and the ranks meet at a
+barrier after it. Saves are synchronous: ``wait_until_finished`` and
+``close`` have nothing to wait for.
 """
 
 from __future__ import annotations

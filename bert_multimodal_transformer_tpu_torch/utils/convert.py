@@ -12,6 +12,11 @@ every leaf converted by ``np.asarray``) and return the port's
 * ``layer_{i}`` → ``layer.{i}``;
 * MAG params pass through unchanged (the port keeps their layout).
 
+Both also take the JAX pipeline layout (``parallel/pp.py::
+pp_params_from_model_params``, ``pp_xlnet.py::pp_params_from_xlnet_params``:
+``prologue`` / ``layers`` stacked on a leading [L] axis / ``epilogue``),
+as a pipelined run's checkpoint holds it, and give the model's state dict.
+
 HF checkpoints (the reference warm-starts from them through
 ``from_pretrained`` with missing-key tolerance, multimodal_driver.py:316-323)
 map straight onto the port's state dict: ``load_torch_state_dict`` reads a
@@ -81,8 +86,40 @@ def _dense_or_norm(key: str, arr: np.ndarray):
     return None
 
 
+def _model_tree_from_pp(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX pipeline-layout tree → the model tree it came from (JAX
+    ``model_params_from_pp_params`` / ``xlnet_params_from_pp_params``,
+    on numpy leaves)."""
+
+    def unstack(node, i):
+        return {k: unstack(v, i) if isinstance(v, Mapping)
+                else np.asarray(v)[i] for k, v in node.items()}
+
+    def first_leaf(node):
+        v = next(iter(node.values()))
+        return first_leaf(v) if isinstance(v, Mapping) else np.asarray(v)
+
+    pro, epi = tree["prologue"], tree["epilogue"]
+    layers = {f"layer_{i}": unstack(tree["layers"], i)
+              for i in range(first_leaf(tree["layers"]).shape[0])}
+    if "word_embedding" in pro:
+        return {"transformer": {"word_embedding": pro["word_embedding"],
+                                "MAG": pro["MAG"], **layers},
+                "sequence_summary": epi["sequence_summary"],
+                "logits_proj": epi["logits_proj"]}
+    return {"bert": {"embeddings": pro["embeddings"], "MAG": pro["MAG"],
+                     "encoder": layers, "pooler": epi["pooler"]},
+            "classifier": epi["classifier"]}
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX MAG-BERT tree → the port's ``MagBert*`` state_dict."""
+    """The JAX MAG-BERT tree (or its pipeline layout) → the port's
+    ``MagBert*`` state_dict. A MAG-XLNet pipeline layout goes to
+    ``xlnet_params_from_flax``."""
+    if "prologue" in tree:
+        tree = _model_tree_from_pp(tree)
+        if "transformer" in tree:
+            return xlnet_params_from_flax(tree)
 
     def leaf(path, key, arr):
         if "MAG" in path:
@@ -101,7 +138,9 @@ def xlnet_params_from_flax(tree: Mapping[str, Any]
     [D, H·Dh], r_{w,r,s}_bias, seg_embed), ``mask_emb`` and the MAG params
     pass through as they are. A tree initialised without
     ``target_mapping`` has no ``mask_emb``: load it with ``strict=False``
-    and the port keeps its own."""
+    and the port keeps its own. The pipeline layout is taken too."""
+    if "prologue" in tree:
+        tree = _model_tree_from_pp(tree)
 
     def leaf(path, key, arr):
         if "MAG" in path:
@@ -267,13 +306,15 @@ def _optional(name: str) -> bool:
 
 def _full_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """Each state-dict entry's shape at full size (a tensor-parallel
-    chunk records its full extent in ``tp_shard``)."""
+    chunk records its full extent in ``tp_shard``, an FSDP slice in
+    ``fsdp_shard``)."""
     shapes = {}
     for name, t in model.state_dict(keep_vars=True).items():
         shape = list(t.shape)
-        shard = getattr(t, "tp_shard", None)
-        if shard is not None:
-            shape[shard[0]] = shard[1]
+        for attr in ("tp_shard", "fsdp_shard"):
+            shard = getattr(t, attr, None)
+            if shard is not None:
+                shape[shard[0]] = shard[1]
         shapes[name] = tuple(shape)
     return shapes
 
@@ -285,9 +326,10 @@ def load_pretrained_into_model(model: nn.Module, checkpoint_path: str,
     checkpoint's names), cast to the param's dtype on its device; MAG and
     the classifier keep their fresh init, as do the optional pieces the
     checkpoint lacks. A model sharded by ``parallel/tp.py::shard_model_``
-    takes its chunks. A tensor whose shape differs from the model's (a
-    [512, D] position table under ``--max_seq_length`` > 512) raises
-    ValueError naming it, before anything is loaded."""
+    takes its chunks, one split by ``parallel/fsdp.py`` its slices. A
+    tensor whose shape differs from the model's (a [512, D] position table
+    under ``--max_seq_length`` > 512) raises ValueError naming it, before
+    anything is loaded."""
     sd = _strip_prefix(load_torch_state_dict(checkpoint_path))
     if family == "bert":
         prefix = "bert." if hasattr(model, "bert") else ""

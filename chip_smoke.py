@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, MAG-BERT (at S=50,
-at long sequences, tensor-parallel over two ranks sharing the card and
-with the QKV projection inside the attention kernels) and MAG-XLNet, once
-on one NVIDIA GPU (H100).
+at long sequences, tensor-parallel over two ranks sharing the card,
+pipelined over two stages, fully sharded, and with the QKV projection
+inside the attention kernels) and MAG-XLNet, once on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py [--seed N]
 
@@ -329,6 +330,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    dropout-0 step of bert-base (fp32, B=48, S=512) through #6/#7 against
    the einsum model, every gradient within ``FLASH_GRAD_TOL`` of its
    leaf's scale, which zeroing #7's dK must break.
+6n. The pipelined MAG-BERT driver: ``driver.run --pipeline_parallel 2
+   --pp_microbatches 4 --attention_impl fused --use_fused_mag`` over
+   96/48/48 on two stages sharing the card over gloo: exit 0, the same
+   finite records on both ranks, #1′ once a layer a microbatch (training
+   and evaluation) and #3 once a layer a training microbatch on each
+   stage's 6 layers, #25/#26 on stage 0 only. 6o. The same for MAG-XLNet
+   (#11′/#13; the gate before layer 1, on stage 0). Then, in one two-rank
+   spawn for both families: two dropout-0 steps (lr 1e-5, B=48, 4
+   microbatches of 12) of the pipelined model against one card's
+   grad_accum=4 steps from the same weights, fp32 (``PAR_FP32_TOL``) and
+   bf16 (``PAR_BF16_FACTOR`` × one card's own bf16 drift from fp32, read
+   in the same rank), every gradient leaf by leaf, with the planted fault
+   (the prologue's and epilogue's gradients not summed over the stages)
+   past the fp32 bound; the second step's wall beside one card's with the
+   card to itself.
+6p. PP×TP (``--pipeline_parallel 2 --model_parallel 2``, bert-base, four
+   ranks: #1′/#3 on full heads) through the driver and its step check;
+   ``--fsdp --model_parallel 2 --tp_shard_attention`` (#8/#10) and
+   ``--fsdp`` (xlnet-base-cased, one process) through the driver; the
+   FSDP step checks on two data ranks (both families) and FSDP×TP on
+   2 × 2 (bert-base), the same bounds, with each FSDP rank's peak memory
+   beside a plain data-parallel rank's, printed as a
+   ``{"fsdp_peak_memory": ...}`` line.
 7. The result: a JSON line for the kernels (launches on the paths, max
    error against the plain version, times, the bound and the library
    call), then the last line ``{"ok": true, "device": {...}}``.
@@ -7215,6 +7239,518 @@ def flash_driver_path(args, rng, fa, card):
     return {"flash_driver": counts, "flash_step": step_counts}
 
 
+
+# ---- phases 6n-6p: the pipelined and the fully-sharded trainers -----------
+
+PP_STAGES, PP_MICRO = 2, 4    # two stages on the one card, microbatches of 12
+PP_SPLITS = (96, 48, 48)      # 2 train batches of 48, 1 dev and 1 test batch
+# The step checks of 6n-6p: two dropout-0 steps of the pipelined (or
+# fully-sharded) model against one card's steps from the same weights and
+# batches at lr 1e-5 with no warmup, the first step's gradients leaf by
+# leaf (``_grad_gap``, on the rank's part of each leaf) and the losses.
+# fp32: the losses within 1e-6 relative and the gradients within 1e-5 of a
+# leaf's scale (the pipelined step runs one card's ops in the same order,
+# summing its microbatches' gradients in the reverse order; FSDP sums two
+# data ranks' partial products). bf16: PAR_BF16_FACTOR times the one card's
+# own bf16 drift from its fp32 step on the same weights and batches, read
+# in the same run (the largest leaf gap, and the largest loss gap): two
+# bf16 results, each within that drift of the fp32 one, sit within twice
+# it of each other (ROADMAP C.4, ``xtp_drift.py``).
+PAR_FP32_TOL = {"loss": 1e-6, "grad": 1e-5}
+PAR_BF16_FACTOR = 2.0
+PP_FAULT = "prologue and epilogue gradients not summed over the pipe axis"
+
+
+def _par_model(family, device, dtype, seed, mesh=None):
+    """bert-base or xlnet-base-cased MAG model with MOSI dims, fused
+    attention and the fused gate, every dropout 0, built whole from
+    ``seed`` on ``device`` (head-sharded over ``mesh`` when given)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    if family == "bert":
+        cfg = dataclasses.replace(
+            BertConfig.bert_base_uncased(), attention_impl="fused",
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+            tp_attention_mesh=mesh)
+        cls, inj = MagBertForSequenceClassification, 0
+    else:
+        cfg = dataclasses.replace(
+            XLNetConfig.xlnet_base_cased(), attention_impl="fused",
+            dropout=0.0, summary_last_dropout=0.0, tp_attention_mesh=mesh)
+        cls, inj = MagXLNetForSequenceClassification, 1
+    mm = MultimodalConfig(dropout_prob=0.0, injection_index=inj,
+                          use_fused_kernel=True)
+    return cls(cfg, mm, ds.visual_dim, ds.acoustic_dim, dtype,
+               device=device,
+               generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def _par_steps(family, dtype_name, seed, kind="one", mesh=None,
+               grad_accum=1, ref=None, shard=False, n_steps=2):
+    """``n_steps`` dropout-0 steps at lr 1e-5, no warmup, from ``seed``'s
+    weights on the two seeded batches of 48: ``kind`` "one" (one card's
+    Trainer with ``grad_accum``), "pp" (the pipeline trainer, PP_MICRO
+    microbatches, over ``mesh``) or "fsdp" (``Trainer(fsdp=True)`` over
+    ``mesh``, head-sharded with ``shard``). Returns (the losses, the first
+    step's gradients by the model's names, or with ``ref`` each one's
+    ``_grad_gap`` to its part of the reference (inf where this rank holds
+    the leaf and the step left it no gradient), the peak bytes the model,
+    its state and the steps added to this process's allocator, the second
+    step's wall ms)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.parallel import tp
+    from bert_multimodal_transformer_tpu_torch.parallel.pp import (
+        PipelineTrainer,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.pp_xlnet import (
+        XLNetPipelineTrainer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import Trainer
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = _par_model(family, device, dtype, seed,
+                       mesh if shard else None)
+    tx = make_optimizer(1e-5, 10, warmup_proportion=0.0)
+    if kind == "pp":
+        cls = XLNetPipelineTrainer if family == "xlnet" else PipelineTrainer
+        tr = cls(model=model, tx=tx, mesh=mesh, n_micro=PP_MICRO)
+    else:
+        tr = Trainer(model=model, tx=tx, mesh=mesh, grad_accum=grad_accum,
+                     fsdp=kind == "fsdp", tp_shard_attention=shard)
+    st = tr.create_state_from_params(None, seed)
+    batches = (_tp_step_batches(seed) if family == "bert"
+               else _xlnet_step_batches(seed))[:n_steps]
+    names = (st.model.model_names() if kind == "pp" else
+             {n: n for n, _ in st.model.named_parameters()})
+    losses, grads, step_ms = [], None, None
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(tr._train_step(st, tr._put_batch(
+            batch, grad_accum))))
+        if grads is not None:
+            # the second step's wall time (the first one warms up)
+            step_ms = (time.perf_counter() - t0) * 1e3
+        if grads is None:
+            # AdamW leaves the gradients be: these are the first step's
+            grads = {names[n]: (p, None if p.grad is None
+                                else p.grad.detach().clone())
+                     for n, p in st.model.named_parameters()}
+    # what the steps added to the card's allocator at its peak
+    peak = torch.cuda.max_memory_allocated() - base
+    if ref is None:
+        return losses, {n: g for n, (_, g) in grads.items()
+                        if g is not None}, peak, step_ms
+
+    def part(name, p, full):
+        if mesh is not None and mesh.model_size > 1:
+            full = tp.shard_tensor(full, tp.tp_pspec_for_path(
+                name, shard_attention=shard), mesh)
+        shard_of = getattr(p, "fsdp_shard", None)
+        if shard_of is not None:
+            n = full.shape[shard_of[0]] // mesh.data_size
+            full = full.narrow(shard_of[0], mesh.data_rank * n, n)
+        return full
+
+    # a stage holds its own layers: the others' are not its to compare
+    gaps = {n: math.inf if n not in grads or grads[n][1] is None
+            else _grad_gap(grads[n][1], part(n, grads[n][0], r))
+            for n, r in ref.items() if n in grads or kind != "pp"}
+    return losses, gaps, peak, step_ms
+
+
+def _drift(one):
+    """One card's bf16 step against its fp32 step: (the largest relative
+    loss gap, the largest leaf gap, its leaf)."""
+    (l32, g32), (l16, g16) = one["fp32"][:2], one["bf16"][:2]
+    loss = max(abs(a - b) / abs(b) for a, b in zip(l16, l32))
+    gaps = {n: _grad_gap(g16[n], g32[n]) for n in g32 if n in g16}
+    leaf = max(gaps, key=gaps.get)
+    return loss, gaps[leaf], leaf
+
+
+def _quiet_ms(family, seed, grad_accum):
+    """One card's bf16 step wall ms with the card to itself: rank 0 times
+    it while every other rank waits at a barrier."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    ms = None
+    if dist.get_rank() == 0:
+        ms = _par_steps(family, "bf16", seed, grad_accum=grad_accum)[3]
+    dist.barrier()
+    return ms
+
+
+def pp_steps_rank(rank, families, seed, model_parallel):
+    """Phases 6n-6p's pipelined step checks on one rank, for each of
+    ``families``: one card's grad_accum=PP_MICRO steps in fp32 and bf16 on
+    this rank's card (the reference, and the bf16 drift), the pipelined
+    steps' losses, gradient gaps, launches and second-step wall in each
+    dtype, one card's bf16 step timed with the card to itself, and
+    (without a model axis) the planted fault's gaps."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel import pp
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+        make_pp_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_pp_mesh(PP_STAGES, model_parallel=model_parallel)
+    result = {}
+    for family in families:
+        one = {d: _par_steps(family, d, seed, grad_accum=PP_MICRO)
+               for d in ("fp32", "bf16")}
+        out = {"one card": {d: v[0] for d, v in one.items()},
+               "drift": _drift(one), "stage": mesh.pipe_rank}
+        for d in ("fp32", "bf16"):
+            _zero_counts(fa)
+            losses, gaps, _, ms = _par_steps(family, d, seed, "pp", mesh,
+                                             ref=one[d][1])
+            out[d] = (losses, gaps, _counts(fa), None, ms)
+        out["quiet ms"] = _quiet_ms(family, seed, PP_MICRO)
+        if model_parallel == 1:
+            right = pp.PipelineTrainer._cross_stage_grads
+            pp.PipelineTrainer._cross_stage_grads = lambda self, stage: None
+            try:
+                out[PP_FAULT] = _par_steps(family, "fp32", seed, "pp", mesh,
+                                           ref=one["fp32"][1],
+                                           n_steps=1)[1]
+            finally:
+                pp.PipelineTrainer._cross_stage_grads = right
+        result[family] = out
+    return result
+
+
+def fsdp_steps_rank(rank, families, seed, model_parallel):
+    """Phase 6p's FSDP step checks on one rank of a (2, model_parallel)
+    mesh, for each of ``families``: one card's steps in fp32 and bf16 (the
+    reference and the drift), the FSDP steps (head-sharded over a model
+    axis) in each dtype with their launches, peak memory and second-step
+    wall, one card's bf16 step timed with the card to itself, and (without
+    a model axis) a plain data-parallel rank's peak in bf16 beside it."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MeshConfig
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshConfig(data_parallel=-1,
+                                model_parallel=model_parallel))
+    shard = model_parallel > 1
+    result = {}
+    for family in families:
+        one = {d: _par_steps(family, d, seed) for d in ("fp32", "bf16")}
+        out = {"one card": {d: v[0] for d, v in one.items()},
+               "drift": _drift(one)}
+        for d in ("fp32", "bf16"):
+            _zero_counts(fa)
+            losses, gaps, peak, ms = _par_steps(
+                family, d, seed, "fsdp", mesh, ref=one[d][1], shard=shard)
+            out[d] = (losses, gaps, _counts(fa), peak, ms)
+        out["quiet ms"] = _quiet_ms(family, seed, 1)
+        if not shard:
+            # the same steps as a plain data-parallel rank holds them
+            out["dp peak"] = _par_dp_peak(family, seed, mesh)
+        result[family] = out
+    return result
+
+
+def _par_dp_peak(family, seed, mesh):
+    """The peak bytes a plain data-parallel rank's model, state and two
+    bf16 steps add to this process's allocator (as ``_par_steps``)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = _par_model(family, mesh.device, torch.bfloat16, seed)
+    tr = Trainer(model=model, mesh=mesh,
+                     tx=make_optimizer(1e-5, 10, warmup_proportion=0.0))
+    st = tr.create_state_from_params(None, seed)
+    for batch in (_tp_step_batches(seed) if family == "bert"
+                  else _xlnet_step_batches(seed)):
+        tr._train_step(st, tr._put_batch(batch))
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _par_check(label, ranks, fa, want_of, failed, fault=None):
+    """Hold every rank's cases of a step check (``pp_steps_rank`` /
+    ``fsdp_steps_rank``): the fp32 bounds, the bf16 bound from the rank's
+    own one-card drift, the launches ``want_of(rank result)``; the planted
+    fault past the fp32 bound. Appends what fails to ``failed``; returns
+    the launches summed over the ranks and dtypes."""
+    one = ranks[0]["one card"]
+    if any(r["one card"] != one for r in ranks):
+        failed.append(f"{label}: the ranks' one-card steps differ")
+    total = {name: 0 for name in _wrappers(fa)}
+    for i, r in enumerate(ranks):
+        d_loss, d_grad, d_leaf = r["drift"]
+        tol = {"fp32": PAR_FP32_TOL,
+               "bf16": {"loss": PAR_BF16_FACTOR * d_loss,
+                        "grad": PAR_BF16_FACTOR * d_grad}}
+        for d in ("fp32", "bf16"):
+            losses, gaps, counts = r[d][:3]
+            gap = max(abs(a - b) / abs(b) for a, b in zip(losses, one[d]))
+            leaf = max(gaps, key=gaps.get)
+            want = want_of(r)
+            extra = (f", peak {r[d][3] / 2**30:.3f} GiB"
+                     if r[d][3] is not None else "")
+            extra += f"; second step {r[d][4]:.2f} ms wall"
+            if d == "bf16" and r["quiet ms"] is not None:
+                extra += (f" (one card's bf16 step, the card to itself: "
+                          f"{r['quiet ms']:.2f} ms)")
+            print(f"  {label} rank {i}, {d}: losses {losses} (one card "
+                  f"{one[d]}), loss gap {gap:.3e} (bound {tol[d]['loss']:.3e}"
+                  f"); {len(gaps)} gradients, worst gap {gaps[leaf]:.3e} at "
+                  f"{leaf} (bound {tol[d]['grad']:.3e}); launches "
+                  f"{ {k: v for k, v in counts.items() if v} }{extra}")
+            if d == "bf16":
+                print(f"    one card's bf16 drift from fp32: loss "
+                      f"{d_loss:.3e}, worst leaf {d_grad:.3e} at {d_leaf}")
+            if (not gap <= tol[d]["loss"] or not gaps[leaf] <= tol[d]["grad"]
+                    or counts != want):
+                failed.append(f"{label} rank {i} {d}: loss gap {gap}, "
+                              f"gradient gap {gaps[leaf]} at {leaf}, "
+                              f"launches {counts} (want {want})")
+            for k, v in counts.items():
+                total[k] += v
+        if fault is not None and fault in r:
+            gaps = r[fault]
+            leaf = max(gaps, key=gaps.get)
+            print(f"  {label} rank {i}, planted fault ({fault}): worst gap "
+                  f"{gaps[leaf]:.3e} at {leaf} (must exceed "
+                  f"{PAR_FP32_TOL['grad']})")
+            if not gaps[leaf] > PAR_FP32_TOL["grad"]:
+                failed.append(f"{label}: the step check cannot see "
+                              f"'{fault}' on rank {i}")
+    return total
+
+
+def _par_driver(argv, fa, card, n_ranks, want_of):
+    """``driver.run(argv)`` over ranks sharing the card: exit 0, finite
+    losses equal on every rank, each rank's launches ``want_of(i)``.
+    Returns the launches summed over the ranks."""
+    from bert_multimodal_transformer_tpu_torch import driver
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    t0 = time.perf_counter()
+    rc, ranks = driver.run(argv, rank_timeout_s=600)
+    print(f"driver.main({' '.join(argv)}) on {card}: exit {rc}, "
+          f"{time.perf_counter() - t0:.2f} s wall ({len(ranks)} ranks)")
+    if rc != 0 or len(ranks) != n_ranks:
+        raise AssertionError(f"driver exited {rc} with {len(ranks)} ranks")
+    for i, r in enumerate(ranks):
+        (rec,) = r["history"]
+        want = want_of(i)
+        print(f"  rank {i}: train_loss {rec['train_loss']} valid_loss "
+              f"{rec['valid_loss']}; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }")
+        if not all(math.isfinite(rec[k]) for k in ("train_loss",
+                                                   "valid_loss")):
+            raise AssertionError(f"non-finite losses {rec}")
+        if r["launches"] != want:
+            raise AssertionError(f"rank {i} launches {r['launches']} != "
+                                 f"{want}")
+    if any(r["history"][0][k] != ranks[0]["history"][0][k] for r in ranks
+           for k in ("train_loss", "valid_loss", "test_acc")):
+        raise AssertionError("the ranks' epoch records differ")
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in _wrappers(fa)}
+
+
+def _family_kernels(family):
+    """(forward, saved-probs backward) wrapper names of the family's S=50
+    full-H kernels."""
+    return (("attn_fwd_packed", "attn_bwd_packed_saved") if family == "bert"
+            else ("attn_fwd_rel", "attn_bwd_rel_saved"))
+
+
+def pp_driver_path(args, fa, card):
+    """Phases 6n (BERT) and 6o (XLNet): ``driver.run --pipeline_parallel 2
+    --pp_microbatches 4 --attention_impl fused --use_fused_mag`` over
+    PP_SPLITS, two stages sharing the card over gloo: exit 0, finite and
+    equal records, each stage's 6 layers launching the forward once per
+    microbatch (train and eval) and the saved-probs backward once per train
+    microbatch, the gate (#25, #26) on stage 0 only; then, in one spawn,
+    each family's dropout-0 step checks (``pp_steps_rank``) against one
+    card's grad_accum=4 steps and the planted fault. Returns {path: launch
+    counts over the ranks}."""
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+
+    k = 12 // PP_STAGES
+    n_train = -(-PP_SPLITS[0] // TRAIN_BATCH) * PP_MICRO
+    n_eval = sum(-(-n // EVAL_BATCH) for n in PP_SPLITS[1:]) * PP_MICRO
+    paths = {}
+    for family, model in (("bert", "bert-base-uncased"),
+                          ("xlnet", "xlnet-base-cased")):
+        fwd, bwd = _family_kernels(family)
+        argv = ["--model", model, "--dataset", "mosi", "--synthetic",
+                "--synthetic_sizes", *map(str, PP_SPLITS), "--n_epochs",
+                "1", "--pipeline_parallel", str(PP_STAGES),
+                "--pp_microbatches", str(PP_MICRO), "--attention_impl",
+                "fused", "--use_fused_mag", "--compute_dtype", "bfloat16",
+                "--seed", str(args.seed)]
+
+        def want_driver(i, fwd=fwd, bwd=bwd):
+            gate = (dict(mag_fwd=n_train + n_eval, mag_bwd=n_train)
+                    if i == 0 else {})
+            return _want(fa, **{fwd: k * (n_train + n_eval),
+                                bwd: k * n_train}, **gate)
+
+        paths[f"{family}_pp_driver"] = _par_driver(argv, fa, card,
+                                                   PP_STAGES, want_driver)
+    t0 = time.perf_counter()
+    ranks = run_ranks(pp_steps_rank, PP_STAGES,
+                      (("bert", "xlnet"), args.seed + 95, 1), timeout_s=600)
+    print(f"  pipelined steps (B={TRAIN_BATCH}, {PP_MICRO} microbatches), "
+          f"both families: {time.perf_counter() - t0:.2f} s with the ranks")
+    failed = []
+    for family in ("bert", "xlnet"):
+        fwd, bwd = _family_kernels(family)
+
+        def want_steps(r, fwd=fwd, bwd=bwd):
+            gate = (dict(mag_fwd=2 * PP_MICRO, mag_bwd=2 * PP_MICRO)
+                    if r["stage"] == 0 else {})
+            return _want(fa, **{fwd: 2 * k * PP_MICRO,
+                                bwd: 2 * k * PP_MICRO}, **gate)
+
+        paths[f"{family}_pp_steps"] = _par_check(
+            f"{family} PP", [r[family] for r in ranks], fa, want_steps,
+            failed, PP_FAULT)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return paths
+
+
+def par_driver_paths(args, fa, card):
+    """Phase 6p: PP×TP (``--pipeline_parallel 2 --model_parallel 2``, BERT,
+    four ranks: #1′/#3 on full heads on every rank) and its step check;
+    FSDP (``--fsdp``, XLNet, one process: a data axis of one) and FSDP×TP
+    (``--fsdp --model_parallel 2 --tp_shard_attention``, BERT: #8/#10)
+    through the driver; the FSDP step checks on two data ranks (BERT and
+    XLNet) and FSDP×TP on 2 × 2 (BERT), with each rank's peak memory under
+    FSDP beside a plain data-parallel rank's. Returns ({path: launch
+    counts over the ranks}, {family: peaks})."""
+    from bert_multimodal_transformer_tpu_torch.config import XLNetConfig
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+
+    n_train = -(-PP_SPLITS[0] // TRAIN_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in PP_SPLITS[1:])
+    base = ["--dataset", "mosi", "--synthetic", "--synthetic_sizes",
+            *map(str, PP_SPLITS), "--n_epochs", "1", "--attention_impl",
+            "fused", "--use_fused_mag", "--compute_dtype", "bfloat16",
+            "--seed", str(args.seed)]
+    paths, failed = {}, []
+    k = 12 // PP_STAGES
+
+    def want_pptp(i):
+        gate = (dict(mag_fwd=(n_train + n_eval) * PP_MICRO,
+                     mag_bwd=n_train * PP_MICRO) if i < 2 else {})
+        return _want(fa, attn_fwd_packed=k * (n_train + n_eval) * PP_MICRO,
+                     attn_bwd_packed_saved=k * n_train * PP_MICRO, **gate)
+
+    paths["pp_tp_driver"] = _par_driver(
+        ["--model", "bert-base-uncased", "--pipeline_parallel",
+         str(PP_STAGES), "--pp_microbatches", str(PP_MICRO),
+         "--model_parallel", "2", *base], fa, card, 4, want_pptp)
+    paths["fsdp_tp_driver"] = _par_driver(
+        ["--model", "bert-base-uncased", "--fsdp", "--model_parallel", "2",
+         "--tp_shard_attention", *base], fa, card, 2,
+        lambda i: _want(fa, attn_fwd_split=12 * (n_train + n_eval),
+                        attn_bwd_split_saved=12 * n_train,
+                        mag_fwd=n_train + n_eval, mag_bwd=n_train))
+    layers = XLNetConfig.xlnet_base_cased().n_layer
+    counts = run_driver(["--model", "xlnet-base-cased", "--fsdp", *base], fa,
+                        card)
+    want = _want(fa, attn_fwd_rel=layers * (n_train + n_eval),
+                 attn_bwd_rel_saved=layers * n_train,
+                 mag_fwd=n_train + n_eval, mag_bwd=n_train)
+    print(f"  launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"--fsdp XLNet launches {counts} != {want}")
+    paths["xlnet_fsdp_driver"] = counts
+
+    t0 = time.perf_counter()
+    ranks = [r["bert"] for r in run_ranks(
+        pp_steps_rank, 4, (("bert",), args.seed + 96, 2), timeout_s=600)]
+    print(f"  PP×TP steps: {time.perf_counter() - t0:.2f} s with the ranks")
+
+    def want_pp(r):
+        gate = (dict(mag_fwd=2 * PP_MICRO, mag_bwd=2 * PP_MICRO)
+                if r["stage"] == 0 else {})
+        return _want(fa, attn_fwd_packed=2 * k * PP_MICRO,
+                     attn_bwd_packed_saved=2 * k * PP_MICRO, **gate)
+
+    paths["pp_tp_steps"] = _par_check("BERT PP×TP", ranks, fa, want_pp,
+                                      failed)
+    peaks = {}
+    for families, mp in ((("bert", "xlnet"), 1), (("bert",), 2)):
+        t0 = time.perf_counter()
+        ranks = run_ranks(fsdp_steps_rank, 2 * mp,
+                          (families, args.seed + 97, mp), timeout_s=600)
+        print(f"  FSDP{'×TP' if mp > 1 else ''} steps of {families}: "
+              f"{time.perf_counter() - t0:.2f} s with the ranks")
+        for family in families:
+            fwd, bwd = (("attn_fwd_split", "attn_bwd_split_saved")
+                        if mp > 1 else _family_kernels(family))
+            label = f"{family} FSDP" + ("×TP" if mp > 1 else "")
+            paths[f"{family}_fsdp{'_tp' if mp > 1 else ''}_steps"] = (
+                _par_check(label, [r[family] for r in ranks], fa,
+                           lambda r, fwd=fwd, bwd=bwd: _want(
+                               fa, **{fwd: 24, bwd: 24}, mag_fwd=2,
+                               mag_bwd=2), failed))
+            if mp == 1:
+                peaks[family] = {
+                    "fsdp_bf16_GiB": [r[family]["bf16"][3] / 2**30
+                                      for r in ranks],
+                    "dp_bf16_GiB": [r[family]["dp peak"] / 2**30
+                                    for r in ranks]}
+                print(f"  {family} peak memory a rank, two bf16 steps at "
+                      f"B=48 over 2 data ranks on {card}: FSDP "
+                      f"{peaks[family]['fsdp_bf16_GiB']} GiB, plain data "
+                      f"parallel {peaks[family]['dp_bf16_GiB']} GiB")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return paths, peaks
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7652,6 +8188,13 @@ def main() -> int:
     xtp_driver_counts = xlnet_tp_driver_path(args, fa, card)
     flash_driver_counts = flash_driver_path(args, rng, fa, card)
 
+    # 6n. The pipelined BERT driver (#1′/#3 on each stage's layers, #25/#26
+    # on stage 0) and its step checks; 6o. the same for XLNet (#11′/#13);
+    # 6p. PP×TP, FSDP and FSDP×TP (#8/#10), with the peak memory under FSDP
+    pp_counts = pp_driver_path(args, fa, card)
+    par_counts, fsdp_peaks = par_driver_paths(args, fa, card)
+    print(json.dumps({"fsdp_peak_memory": fsdp_peaks, "card": card}))
+
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -7689,7 +8232,9 @@ def main() -> int:
                  **{path: c[name] for path, c in xtp_driver_counts.items()},
                  "flash_serving": flash_serve_counts[name],
                  **{path: c[name] for path, c in
-                    flash_driver_counts.items()}}
+                    flash_driver_counts.items()},
+                 **{path: c[name] for path, c in pp_counts.items()},
+                 **{path: c[name] for path, c in par_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"

@@ -435,8 +435,11 @@ def _saved_checkpoint(directory):
     (["--model_parallel", "2", "--model", "xlnet-base-cased", "--n_epochs",
       "1", "--synthetic_sizes", "8", "8", "8", "--train_batch_size", "8"],
      "A.10 ported"),
-    (["--fsdp"], "A.10"),
-    (["--pipeline_parallel", "2"], "A.10"),
+    (["--fsdp", "--n_epochs", "1", "--synthetic_sizes", "8", "8", "8",
+      "--train_batch_size", "8"], "A.10 ported"),
+    (["--pipeline_parallel", "2", "--pp_microbatches", "2", "--n_epochs",
+      "1", "--synthetic_sizes", "8", "8", "8", "--train_batch_size", "8"],
+     "A.10 ported"),
     (["--num_processes", "2"], "A.10"),
     (["--tp_shard_attention", "--model", "xlnet-base-cased"], "A.10 JAX"),
     (["--compiler_options", "{}"], "A.10.6"),
@@ -461,8 +464,13 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
     ``tests/test_torch_xlnet_tp.py``): XLNet's ``--model_parallel 2`` (the
     FFN split) trains on two CPU ranks and exits 0, and
     ``--tp_shard_attention`` without it exits 2 with the JAX driver's
-    refusal. ``--attention_impl flash`` (A.2) is ported: at S=128 it trains
-    and exits 0 (``tests/test_torch_flash.py``). ``--compiler_options``
+    refusal. ``--fsdp`` (A.10.2) and ``--pipeline_parallel`` (A.10.3) are
+    ported: ``--fsdp`` trains in one process (a data axis of one) and
+    ``--pipeline_parallel 2`` on two CPU ranks, both exiting 0
+    (``tests/test_torch_fsdp.py``,
+    ``tests/test_torch_pipeline_parallel.py``). ``--attention_impl
+    flash`` (A.2) is ported: at S=128 it trains and exits 0
+    (``tests/test_torch_flash.py``). ``--compiler_options``
     (A.10.6) are XLA's: they exit 2 saying that no torch counterpart
     exists, naming no item. The checkpoint flags (A.6) are ported: their
     cases are the JAX driver's refusals of them, each exiting 2 with its
@@ -506,6 +514,111 @@ def test_unported_flags_table_covers_the_parser():
         tdriver.build_parser()).values()}
     for flag, _, _ in tdriver.UNPORTED:
         assert flag.split()[0] in dests, flag
+
+
+TINY_RUN = ["--synthetic", "--tiny", "--device", "cpu", "--n_epochs", "1",
+            "--train_batch_size", "8", "--synthetic_sizes", "16", "8", "8",
+            "--seed", "3"]
+
+
+@pytest.mark.parametrize("argv,n_ranks", [
+    (["--pipeline_parallel", "2", "--pp_microbatches", "2"], 2),
+    (["--pipeline_parallel", "2", "--pp_microbatches", "2", "--model",
+      "xlnet-base-cased"], 2),
+    (["--pipeline_parallel", "2", "--pp_microbatches", "2",
+      "--model_parallel", "2", "--attention_impl", "fused"], 4),
+    (["--fsdp", "--model_parallel", "2", "--tp_shard_attention",
+      "--attention_impl", "fused"], 2),
+], ids=["pp-bert", "pp-xlnet", "pp-tp-bert", "fsdp-tp-bert"])
+def test_driver_pipeline_and_fsdp_train_on_cpu(argv, n_ranks):
+    """``--pipeline_parallel 2`` (both families, and PP×TP) and ``--fsdp``
+    over the model ranks of ``--model_parallel 2`` train one epoch on CPU
+    ranks: exit 0, finite losses, the same record on every rank."""
+    rc, ranks = tdriver.run(TINY_RUN + argv, rank_timeout_s=240)
+    assert rc == 0 and len(ranks) == n_ranks
+    (rec,) = ranks[0]["history"]
+    assert all(np.isfinite(rec[k]) for k in ("train_loss", "valid_loss"))
+    for r in ranks[1:]:
+        assert r["history"][0]["train_loss"] == rec["train_loss"]
+        assert r["history"][0]["valid_loss"] == rec["valid_loss"]
+
+
+def test_driver_fsdp_trains_in_one_process(capsys):
+    """``--fsdp`` with one data rank trains in one process (nothing to
+    split, as the JAX trainer on a data axis of one) and prints finite
+    losses."""
+    rc = tdriver.main(TINY_RUN + ["--fsdp"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    line = next(x for x in out.splitlines() if x.startswith("epoch:0"))
+    loss = float(line.split("train_loss:")[1].split(",")[0])
+    assert np.isfinite(loss)
+
+
+@pytest.mark.parametrize("argv,says", [
+    (["--pipeline_parallel", "2", "--model_parallel", "2",
+      "--tp_shard_attention"],
+     "--pipeline_parallel does not compose with --tp_shard_attention "
+     "(attention stays replicated inside pipeline stages; --model_parallel "
+     "gives the Megatron FFN split)"),
+    (["--pipeline_parallel", "2", "--fsdp"],
+     "--fsdp does not compose with --pipeline_parallel (the pipeline "
+     "trainer owns its stage-sharded state layout)"),
+    (["--pipeline_parallel", "2", "--remat"],
+     "--remat is not applied by the pipeline trainer (parallel/pp.py "
+     "builds the stage layers directly); drop one of the flags"),
+    (["--pipeline_parallel", "2", "--gradient_accumulation_step", "2"],
+     "--gradient_accumulation_step is superseded by --pp_microbatches "
+     "under --pipeline_parallel"),
+    (["--model", "xlnet-base-cased", "--mem_len", "4", "--fsdp"],
+     "--mem_len runs on the data-parallel trainer (mems shard over the "
+     "batch axis)"),
+    (["--model", "xlnet-base-cased", "--mem_len", "4",
+      "--pipeline_parallel", "2"],
+     "--mem_len runs on the data-parallel trainer (mems shard over the "
+     "batch axis)"),
+], ids=["pp-tp_shard_attention", "pp-fsdp", "pp-remat", "pp-grad_accum",
+        "fsdp-mem_len", "pp-mem_len"])
+def test_pp_and_fsdp_refusals_carry_the_jax_words(argv, says, capsys):
+    """Each composition the JAX driver refuses exits 2 with its message
+    (``driver.py:388-413``, ``:553-557`` of the JAX package), which the
+    JAX driver's source holds word for word."""
+    import inspect
+
+    from bert_multimodal_transformer_tpu import driver as jdriver
+
+    assert " ".join(says.split()) in " ".join(
+        inspect.getsource(jdriver).replace('"\n', "").replace(
+            '" "', "").replace('"', "").split())
+    rc = tdriver.main(argv + ["--synthetic", "--tiny", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert f"error: {says}" in err
+    assert "ROADMAP" not in err
+
+
+def test_predict_only_serves_a_pipelined_checkpoint(tmp_path, capsys):
+    """A ``--pipeline_parallel 2`` run's checkpoint (the pipeline layout)
+    serves through ``--predict_only`` on the model layout, with or without
+    the pipeline flag, and gives the same metrics either way."""
+    ckpt = str(tmp_path / "ckpt")
+    rc, _ = tdriver.run(TINY_RUN + ["--pipeline_parallel", "2",
+                                    "--pp_microbatches", "2",
+                                    "--checkpoint_dir", ckpt],
+                        rank_timeout_s=240)
+    assert rc == 0
+    capsys.readouterr()
+    lines = []
+    for extra in ([], ["--pipeline_parallel", "2"]):
+        assert tdriver.main(["--synthetic", "--tiny", "--device", "cpu",
+                             "--seed", "3", "--predict_only",
+                             "--checkpoint_dir", ckpt] + extra) == 0
+        lines.append(capsys.readouterr().out.strip().splitlines()[-1])
+    import json
+
+    got = [json.loads(x) for x in lines]
+    assert got[0] == got[1]
+    assert np.isfinite(got[0]["test_mae"])
 
 
 @pytest.fixture(autouse=True, scope="module")

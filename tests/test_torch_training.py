@@ -265,7 +265,11 @@ def test_unported_trainer_options_raise(kw, item):
     tp_shard_attention without a model axis > 1 raises the JAX trainer's
     guard (tests/test_torch_tensor_parallel.py runs them on ranks).
     ``compiler_options`` are XLA's and have no torch counterpart: they
-    raise ValueError saying so, naming no item."""
+    raise ValueError saying so, naming no item. ``fsdp`` (A.10.2) is
+    ported: without a mesh there is no data axis to split over, so the
+    trainer builds and steps as the plain one (JAX's one-device mesh
+    replicates every leaf the same way; the ranks run in
+    tests/test_torch_fsdp.py)."""
     _, _, tcfg, tmm = _configs("einsum")
     model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
                                                    device="cpu")
@@ -280,6 +284,13 @@ def test_unported_trainer_options_raise(kw, item):
         with pytest.raises(exc, match=match):
             ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
                              **kw)
+        return
+    if "fsdp" in kw:
+        tr = ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
+                              **kw)
+        st = tr.init_state(0)
+        assert getattr(model, "fsdp_sharding", None) is None
+        assert st.step == 0
         return
     if "compiler_options" in kw:
         with pytest.raises(ValueError, match="XLA compiler options") as e:
