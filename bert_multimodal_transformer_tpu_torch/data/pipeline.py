@@ -302,11 +302,13 @@ def set_up_data_loaders(
 ) -> Tuple[BatchIterator, BatchIterator, BatchIterator, int]:
     """End-to-end split setup mirroring set_up_data_loader
     (multimodal_driver.py:249-286), including the optimizer-step count.
-    ``num_processes > 1`` (per-process views of each global batch) waits
-    for ROADMAP A.10 and raises."""
-    if num_processes > 1 or process_id:
-        raise NotImplementedError(
-            "multi-process data loading is not ported yet (ROADMAP A.10)")
+
+    ``num_processes > 1``: every process converts the full splits
+    identically (same pickle, same determinism) but the returned
+    iterators are per-process views yielding only this process's rows of
+    each global batch (``parallel/multiprocess.py::ShardedBatchIterator``;
+    the train view takes its share of each of the
+    ``gradient_accumulation_step`` micro-batches)."""
     data = load_pickle_splits(pickle_path)
     splits = {
         name: convert_to_features(data[name], max_seq_length, tokenizer,
@@ -328,13 +330,23 @@ def set_up_data_loaders(
     # fixed shapes). MOSI-scale effect of dropping it instead would be
     # ~33/1281 examples (2.6%) untrained per epoch.
 
-    def _make(split, bs, shuffle, s=0):
-        return BatchIterator(split, bs, shuffle=shuffle,
-                             drop_remainder=False, seed=s)
+    if num_processes > 1:
+        from bert_multimodal_transformer_tpu_torch.parallel.multiprocess \
+            import ShardedBatchIterator
+
+        def _make(split, bs, shuffle, s=0, accum=1):
+            return ShardedBatchIterator(
+                split, bs, shuffle=shuffle, drop_remainder=False, seed=s,
+                num_processes=num_processes, process_id=process_id,
+                grad_accum=accum)
+    else:
+        def _make(split, bs, shuffle, s=0, accum=1):
+            return BatchIterator(split, bs, shuffle=shuffle,
+                                 drop_remainder=False, seed=s)
 
     train_it = _make(splits["train"],
                      train_batch_size * gradient_accumulation_step,
-                     True, s=seed)
+                     True, s=seed, accum=gradient_accumulation_step)
     dev_it = _make(splits["dev"], dev_batch_size, False)
     test_it = _make(splits["test"], test_batch_size, False)
     return train_it, dev_it, test_it, num_train_optimization_steps

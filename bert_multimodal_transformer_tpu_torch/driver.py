@@ -35,15 +35,22 @@ its tensor-parallel guards) exit with status 2 and its message, as does
 prob dropout: evaluation, or training at a zero dropout), einsum
 elsewhere.
 
-``--model_parallel N`` (MAG-BERT and MAG-XLNet) starts data × N ranks with
-``torch.multiprocessing`` spawn (``parallel/mesh.py::run_ranks``, under
-a timeout): N ranks when there are fewer than N cards (ranks
-share a card, over gloo), else one rank per card (N must divide their
-count; NCCL); on the CPU with ``--device cpu``. Each rank runs the same
-training on its (data, model) place of the mesh, with the FFN split over
-the model axis and, with ``--tp_shard_attention``, the attention heads
-too; rank 0 prints the lines. ``run`` returns each rank's exit status,
-epoch records, kernel launch counts and backend beside the exit status.
+A driver process owns its local devices, as the JAX driver's does: it
+runs one rank a visible card, and at least the pipe × model block of
+``--pipeline_parallel`` × ``--model_parallel`` ranks, which then share the
+card (or the CPU with ``--device cpu``) over gloo
+(``parallel/multiprocess.py::local_rank_count``); the data axis takes the
+rest. One rank trains here; more are started with ``torch.multiprocessing``
+spawn (``parallel/mesh.py::run_ranks``, under a timeout), NCCL when each
+has a card of its own. ``--model_parallel N`` (MAG-BERT and MAG-XLNet)
+splits the FFN over the model axis and, with ``--tp_shard_attention``, the
+attention heads too; rank 0 prints the lines. ``run`` returns each rank's
+exit status, epoch records, kernel launch counts and backend beside the
+exit status. ``--num_processes P --process_id p --coordinator_address
+host:port`` trains over P driver processes started by the caller, one
+process group over all their ranks (``parallel/multiprocess.py``): each
+process loads only its rows of every global batch, and only global rank 0
+prints, logs and writes checkpoints and exports.
 ``--pipeline_parallel P`` (with ``--pp_microbatches``, both families)
 trains on a (data, pipe, model) mesh of data × P × max(1, N) ranks
 (``parallel/pp.py``, ``parallel/pp_xlnet.py``: the GPipe schedule over P
@@ -75,6 +82,9 @@ Usage:
     python -m bert_multimodal_transformer_tpu_torch.driver \\
         --dataset mosi --synthetic --checkpoint_dir ckpt \\
         --save_every_steps 100 [--resume]
+    python -m bert_multimodal_transformer_tpu_torch.driver \\
+        --dataset mosi --synthetic --num_processes 2 --process_id 0 \\
+        --coordinator_address 127.0.0.1:8476 &   # and --process_id 1
 """
 
 from __future__ import annotations
@@ -124,7 +134,6 @@ FAMILY_ERRORS = (
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--num_processes", lambda a: a.num_processes != 1, "A.10"),
     ("--rng_impl threefry2x32", lambda a: a.rng_impl == "threefry2x32",
      "A.5"),
 )
@@ -293,14 +302,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="XLA compiler options of the JAX driver: refused "
                         "here (no torch counterpart)")
     p.add_argument("--num_processes", type=int, default=1,
-                   help="not ported yet above 1 (ROADMAP A.10)")
+                   help="Multi-process training (one driver process per "
+                        "host, each owning its local cards; "
+                        "parallel/multiprocess.py): start this many "
+                        "processes, each with its own --process_id; every "
+                        "process feeds only its rows of each global batch "
+                        "and all ranks join one process group")
     p.add_argument("--process_id", type=int, default=0,
-                   help="With --num_processes (not ported yet, ROADMAP "
-                        "A.10)")
+                   help="This process's index in [0, --num_processes)")
     p.add_argument("--coordinator_address", type=str,
                    default="127.0.0.1:8476",
-                   help="With --num_processes (not ported yet, ROADMAP "
-                        "A.10)")
+                   help="host:port where process 0 serves the process "
+                        "group's store (with --num_processes > 1)")
     # The port's own:
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
@@ -367,6 +380,35 @@ def _tp_guards(args) -> list:
     return errors
 
 
+def _multiprocess_guards(args) -> list:
+    """The JAX driver's refusals under ``--num_processes > 1``, checked
+    before any process group starts (the first of its checks that
+    applies)."""
+    bad = [f for f, cond in (
+        ("--pipeline_parallel", args.pipeline_parallel > 1),
+        ("--tp_shard_attention", args.tp_shard_attention),
+        ("--mem_len", bool(args.mem_len)),
+        ("--predict_only", args.predict_only),
+    ) if cond]
+    if bad:
+        return ["--num_processes > 1 composes with the data-parallel "
+                "trainer, --fsdp (ZeRO-3 over the cross-process data axis) "
+                "and --model_parallel (Megatron FFN, model axis "
+                f"intra-process); not with {' '.join(bad)}"]
+    if not 0 <= args.process_id < args.num_processes:
+        return [f"--process_id {args.process_id} outside "
+                f"[0, {args.num_processes})"]
+    for flag, b in (("--train_batch_size",
+                     args.train_batch_size * args.gradient_accumulation_step),
+                    ("--dev_batch_size", args.dev_batch_size),
+                    ("--test_batch_size", args.test_batch_size)):
+        if b % args.num_processes != 0:
+            return [f"{flag} (global {b}) must divide by --num_processes "
+                    f"{args.num_processes} (each process feeds an equal "
+                    "row-block)"]
+    return []
+
+
 def _use_pp(args) -> bool:
     """A pipelined run (``--predict_only`` serves the model layout)."""
     return args.pipeline_parallel > 1 and not args.predict_only
@@ -418,9 +460,11 @@ def _checkpoint_guard(args):
 
 
 def _rank_main(rank: int, args, devices) -> dict:
-    """One rank of a multi-rank run: the mesh, then the training."""
+    """One rank of a multi-rank run, its process group joined
+    (``parallel/multiprocess.py::initialize``): the mesh over ``devices``
+    (every global rank's, of which this rank reads its own), then the
+    training. ``--num_processes``: this process feeds only its rows."""
     from bert_multimodal_transformer_tpu_torch.config import MeshConfig
-    from bert_multimodal_transformer_tpu_torch.ops import launch_counts
     from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
         make_mesh,
         make_pp_mesh,
@@ -434,14 +478,34 @@ def _rank_main(rank: int, args, devices) -> dict:
     else:
         mesh = make_mesh(MeshConfig(data_parallel=-1,
                                     model_parallel=args.model_parallel),
-                         devices)
+                         devices, num_processes=args.num_processes)
     rc, summary = _train(args, mesh)
+    return _rank_result(rc, summary, mesh)
+
+
+def _rank_result(rc, summary, mesh) -> dict:
+    from bert_multimodal_transformer_tpu_torch.ops import launch_counts
+
     return {"rc": rc, "history": summary["history"] if summary else None,
             "launches": launch_counts(), "backend": mesh.backend}
 
 
+def local_ranks(args, n_cards: int) -> int:
+    """The ranks this driver process runs (``parallel/multiprocess.py::
+    local_rank_count``: one a card, at least the pipe × model block)."""
+    from bert_multimodal_transformer_tpu_torch.parallel.multiprocess import (
+        local_rank_count,
+    )
+
+    pipe = args.pipeline_parallel if _use_pp(args) else 1
+    return local_rank_count(n_cards, pipe, args.model_parallel)
+
+
 def _run_ranks(args, timeout_s: float):
+    """Train on this process's ranks: here when it runs one rank alone,
+    else spawned (``parallel/mesh.py::run_ranks``)."""
     import torch
+    import torch.distributed as dist
 
     from bert_multimodal_transformer_tpu_torch.config import MeshConfig
     from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
@@ -449,13 +513,24 @@ def _run_ranks(args, timeout_s: float):
         placement,
         run_ranks,
     )
+    from bert_multimodal_transformer_tpu_torch.parallel.multiprocess import (
+        initialize,
+    )
 
     mp = args.model_parallel
     n_cards = torch.cuda.device_count() if args.device == "cuda" else 0
+    world = local_ranks(args, n_cards)
+    nproc = args.num_processes
+    if nproc == 1 and world == 1:
+        return _train(args, None)[0], []
+    if nproc > 1 and world % mp:
+        # each process holds whole data rows: its ranks hold the model axis
+        print(f"error: --model_parallel {mp} must divide the {world} local "
+              "devices per process", file=sys.stderr)
+        return 2, []
     if _use_pp(args):
         # the JAX driver's pipe x model block, data over the rest
         need = args.pipeline_parallel * max(1, mp)
-        world = n_cards if n_cards >= need else need
         if world % need:
             print(f"error: --pipeline_parallel {args.pipeline_parallel} "
                   f"x --model_parallel {max(1, mp)} does not divide the "
@@ -463,7 +538,6 @@ def _run_ranks(args, timeout_s: float):
             return 2, []
         data, micro = world // need, args.pp_microbatches
     else:
-        world = n_cards if n_cards >= mp else mp
         try:
             data, _ = mesh_shape(MeshConfig(data_parallel=-1,
                                             model_parallel=mp), world)
@@ -471,22 +545,34 @@ def _run_ranks(args, timeout_s: float):
             print(f"error: {e}", file=sys.stderr)
             return 2, []
         micro = args.gradient_accumulation_step
+    data *= nproc
     if args.train_batch_size % (data * micro):
         print(f"error: --train_batch_size {args.train_batch_size} does not "
               f"split over {micro} micro-batches x {data} data ranks",
               file=sys.stderr)
         return 2, []
-    devices = (placement(world) if args.device == "cuda"
-               else ["cpu"] * world)
-    ranks = run_ranks(_rank_main, world, (args, devices),
-                      timeout_s=timeout_s, devices=devices)
-    return max(r["rc"] for r in ranks), ranks
+    local = placement(world) if args.device == "cuda" else ["cpu"] * world
+    coordinator = args.coordinator_address if nproc > 1 else None
+    if world > 1:
+        ranks = run_ranks(_rank_main, world, (args, local * nproc),
+                          timeout_s=timeout_s, devices=local,
+                          coordinator_address=coordinator,
+                          num_processes=nproc, process_id=args.process_id)
+        return max(r["rc"] for r in ranks), ranks
+    # one rank of several processes: here, joined as run_ranks joins one
+    initialize(coordinator, nproc, args.process_id, device=local[0],
+               timeout_s=timeout_s)
+    try:
+        ranks = [_rank_main(0, args, local * nproc)]
+    finally:
+        dist.destroy_process_group()
+    return ranks[0]["rc"], ranks
 
 
 def run(argv=None, rank_timeout_s: float = 3600.0):
-    """``main`` returning (exit status, each rank's {"rc", "history",
-    "launches", "backend"} under ``--model_parallel`` or
-    ``--pipeline_parallel`` > 1, else []). The ranks are stopped after
+    """``main`` returning (exit status, each of this process's ranks'
+    {"rc", "history", "launches", "backend"} when it runs ranks of a
+    process group, else []). The ranks are stopped after
     ``rank_timeout_s`` seconds."""
     args = build_parser().parse_args(argv)
     refused = [msg for test, msg in FAMILY_ERRORS if test(args)]
@@ -508,7 +594,12 @@ def run(argv=None, rank_timeout_s: float = 3600.0):
         print(f"error: --{COMPILER_OPTIONS_REFUSAL}", file=sys.stderr)
         return 2, []
     refused = _tp_guards(args)
-    ckpt_refusal = _checkpoint_guard(args)
+    if args.num_processes > 1 and not refused:
+        # the JAX driver checks these before anything else of the run
+        refused = _multiprocess_guards(args)
+        ckpt_refusal = None if refused else _checkpoint_guard(args)
+    else:
+        ckpt_refusal = _checkpoint_guard(args)
     if ckpt_refusal is not None:
         refused.append(ckpt_refusal)
     if refused:
@@ -532,9 +623,7 @@ def run(argv=None, rank_timeout_s: float = 3600.0):
               "--device cpu to run the kernels' plain versions on the CPU",
               file=sys.stderr)
         return 2, []
-    if args.model_parallel > 1 or _use_pp(args):
-        return _run_ranks(args, rank_timeout_s)
-    return _train(args, None)[0], []
+    return _run_ranks(args, rank_timeout_s)
 
 
 def main(argv=None) -> int:
@@ -547,6 +636,7 @@ def _train(args, mesh):
     ``--predict_only``. Returns (exit status, the trainer's summary or
     None)."""
     import torch
+    import torch.distributed as dist
 
     device = mesh.device if mesh is not None else torch.device(args.device)
     is_main = mesh is None or mesh.rank == 0
@@ -607,7 +697,8 @@ def _train(args, mesh):
         dev_batch_size=args.dev_batch_size,
         test_batch_size=args.test_batch_size, n_epochs=args.n_epochs,
         gradient_accumulation_step=args.gradient_accumulation_step,
-        seed=args.seed)
+        seed=args.seed, num_processes=args.num_processes,
+        process_id=args.process_id)
     if args.synthetic:
         data = synthetic.make_dataset(
             visual_dim=ds.visual_dim, acoustic_dim=ds.acoustic_dim,
@@ -689,7 +780,8 @@ def _train(args, mesh):
         trainer = Trainer(model=model, tx=tx, mesh=mesh,
                           grad_accum=args.gradient_accumulation_step,
                           tp_shard_attention=args.tp_shard_attention,
-                          fsdp=args.fsdp, mem_len=args.mem_len or None)
+                          fsdp=args.fsdp, mem_len=args.mem_len or None,
+                          multiprocess=args.num_processes > 1)
     # The JAX driver draws its init sample from the train loader, which
     # takes the first epoch's shuffle; drawing it here too keeps the
     # training data order the same for the same seed.
@@ -739,8 +831,13 @@ def _train(args, mesh):
         # save the state BEFORE publishing the meta that names it (the
         # directory holds no foreign checkpoints, so a matching latest step
         # is this run's own earlier save). Every rank takes part in the
-        # save; rank 0 publishes the meta.
-        if ckpt.latest_step() != step:
+        # save; rank 0 writes it and publishes the meta. Rank 0's view of
+        # the directory decides for every rank, so all of them agree even
+        # where the hosts do not share it.
+        fresh = [ckpt.latest_step() != step]
+        if mesh is not None and mesh.size > 1:
+            dist.broadcast_object_list(fresh, src=0)
+        if fresh[0]:
             ckpt.save(st, step=step)
         if is_main:
             _write_resume_meta(meta_path, {

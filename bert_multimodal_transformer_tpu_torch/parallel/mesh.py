@@ -16,7 +16,13 @@ needs: its coordinates, its device and the process groups of its axes.
   (``choose_backend``), chosen once before the process group starts and
   never changed after an error;
 * ``run_ranks`` starts the ranks with ``torch.multiprocessing`` spawn, each
-  under the same timeout, and returns what each rank's function returned.
+  under the same timeout, joins each to the process group
+  (``parallel/multiprocess.py::initialize``, the one bootstrap, for one
+  process or several) and returns what each rank's function returned;
+* the ranks may run in several processes (``parallel/multiprocess.py``):
+  ``make_mesh(num_processes=)`` records how many, each holding whole data
+  rows, and ``Mesh.local_rows`` then splits a process's rows over its own
+  data ranks.
 
 Batch rows split over the data axis (``Mesh.local_rows``); the tensor
 parallel split over the model axis is ``parallel/tp.py``, the parameter
@@ -28,8 +34,6 @@ between neighbouring stages: ``Mesh.pipe_send`` / ``Mesh.pipe_recv``).
 from __future__ import annotations
 
 import dataclasses
-import datetime
-import os
 import queue as queue_lib
 import socket
 import time
@@ -63,36 +67,17 @@ def placement(world_size: int, devices: Optional[Sequence] = None
     return [torch.device("cuda", r % n) for r in range(world_size)]
 
 
-def choose_backend(devices: Sequence[torch.device]) -> str:
+def choose_backend(devices: Sequence, hosts: Optional[Sequence[str]] = None
+                   ) -> str:
     """NCCL when every rank has a card of its own; gloo when ranks share a
-    card (NCCL refuses two ranks on one device) or run on the CPU."""
-    cards = [d for d in devices if d.type == "cuda"]
-    if len(cards) == len(devices) and len(set(cards)) == len(cards):
-        return "nccl"
-    return "gloo"
-
-
-def init_distributed(rank: int, world_size: int, init_method: str,
-                     devices: Optional[Sequence] = None,
-                     timeout_s: float = 600.0) -> torch.device:
-    """Start this rank's process group (``init_method`` like
-    ``tcp://127.0.0.1:<port>``) on the backend ``choose_backend`` gives
-    for the placement; rank 0 prints the placement and the backend.
-    Returns this rank's device (made current when it is a card)."""
-    devs = placement(world_size, devices)
-    backend = choose_backend(devs)
-    if devs[rank].type == "cuda":
-        torch.cuda.set_device(devs[rank])
-    else:
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    if rank == 0:
-        print(f"ranks: {world_size} on {[str(d) for d in devs]}, backend "
-              f"{backend}", flush=True)
-    return devs[rank]
+    card (NCCL refuses two ranks on one device) or run on the CPU.
+    ``hosts``, each rank's host, tells apart the cards of several hosts
+    (one host when None)."""
+    devices = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devices):
+        return "gloo"
+    cards = list(zip(hosts or [""] * len(devices), map(str, devices)))
+    return "nccl" if len(set(cards)) == len(cards) else "gloo"
 
 
 @dataclasses.dataclass(eq=False)
@@ -114,6 +99,9 @@ class Mesh:
     pipe_group: Any = None
     pipe_axis: str = PIPE_AXIS
     pipelined: bool = False   # made by make_pp_mesh
+    # the processes the ranks run in, each holding whole data rows
+    # (parallel/multiprocess.py)
+    num_processes: int = 1
 
     @property
     def data_rank(self) -> int:
@@ -130,6 +118,16 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data_size * self.pipe_size * self.model_size
+
+    @property
+    def local_data_size(self) -> int:
+        """The data ranks of this rank's process."""
+        return self.data_size // self.num_processes
+
+    @property
+    def local_data_rank(self) -> int:
+        """This rank's place among its process's data ranks."""
+        return self.data_rank % self.local_data_size
 
     def _group(self, axis: str):
         if axis == self.data_axis:
@@ -206,17 +204,21 @@ class Mesh:
         A micro-batches of B/A rows, and each data rank takes its share of
         every micro-batch: rows [i·B/A + d·B/(A·D), ...) of micro-batch i
         for data rank d of D. At A = 1 that is one contiguous block, so a
-        gather over the data axis restores the batch's order."""
-        if self.data_size == 1:
+        gather over the data axis restores the batch's order. When the
+        ranks run in several processes, ``x`` holds only this process's
+        rows (``parallel/multiprocess.py::process_rows``), split the same
+        way over the process's data ranks."""
+        size, rank = self.local_data_size, self.local_data_rank
+        if size == 1:
             return x
         b = x.shape[0]
-        if b % (grad_accum * self.data_size):
+        if b % (grad_accum * size):
             raise ValueError(
                 f"batch {b} does not split into {grad_accum} micro-batches "
-                f"over {self.data_size} data ranks")
-        per = b // (grad_accum * self.data_size)
-        rows = x.reshape((grad_accum, self.data_size, per) + x.shape[1:])
-        rows = rows[:, self.data_rank]
+                f"over {size} data ranks")
+        per = b // (grad_accum * size)
+        rows = x.reshape((grad_accum, size, per) + x.shape[1:])
+        rows = rows[:, rank]
         out = rows.reshape((grad_accum * per,) + x.shape[1:])
         return np.ascontiguousarray(out) if isinstance(x, np.ndarray) else (
             out.contiguous())
@@ -273,30 +275,37 @@ def _axis_groups(data: int, pipe: int, model: int, rank: int):
 
 
 def make_mesh(config: Optional[MeshConfig] = None,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None,
+              num_processes: int = 1) -> Mesh:
     """The (data, model) mesh over the ranks of the started process group
     (one rank when none was started). ``devices``, one per rank, defaults
     to ``placement``'s. The shape is checked before any process group is
     touched (``mesh_shape``), so a wrong shape raises the same way with or
-    without one. Every rank calls it, in the same order (the axis groups
-    are created collectively)."""
+    without one. ``num_processes``: the ranks run in that many processes
+    (``parallel/multiprocess.py::initialize``), each holding whole data
+    rows. Every rank calls it, in the same order (the axis groups are
+    created collectively)."""
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = len(devices) if devices is not None else world
     data, model = mesh_shape(config, n)
+    if data % num_processes:
+        raise ValueError(
+            f"the {data} data ranks do not split over {num_processes} "
+            "processes (each process must hold whole data rows)")
     if n != world:
         raise ValueError(
             f"{n} devices given, but the process group has {world} ranks "
             "(start one rank per device: parallel.mesh.run_ranks or "
-            "init_distributed)")
+            "parallel.multiprocess.initialize)")
     return _build_mesh(data, 1, model, devices, config.data_axis,
-                       config.model_axis)
+                       config.model_axis, num_processes=num_processes)
 
 
 def _build_mesh(data: int, pipe: int, model: int,
                 devices: Optional[Sequence], data_axis: str = DATA_AXIS,
                 model_axis: str = MODEL_AXIS,
-                pipelined: bool = False) -> Mesh:
+                pipelined: bool = False, num_processes: int = 1) -> Mesh:
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     devs = placement(world, devices)
@@ -309,7 +318,8 @@ def _build_mesh(data: int, pipe: int, model: int,
                 device=devs[rank], backend=backend, data_group=data_group,
                 model_group=model_group, data_axis=data_axis,
                 model_axis=model_axis, pipe_size=pipe,
-                pipe_group=pipe_group, pipelined=pipelined)
+                pipe_group=pipe_group, pipelined=pipelined,
+                num_processes=num_processes)
 
 
 def make_pp_mesh(n_stages: int, data_parallel: int = 1,
@@ -337,7 +347,7 @@ def make_pp_mesh(n_stages: int, data_parallel: int = 1,
         raise ValueError(
             f"{n} devices given, but the process group has {world} ranks "
             "(start one rank per device: parallel.mesh.run_ranks or "
-            "init_distributed)")
+            "parallel.multiprocess.initialize)")
     return _build_mesh(data_parallel, n_stages, model, devices,
                        pipelined=True)
 
@@ -348,10 +358,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, fn, world_size, init_method, devices, timeout_s,
-               args, results):
+def _rank_main(rank, fn, world_size, join, devices, timeout_s, args,
+               results):
+    from bert_multimodal_transformer_tpu_torch.parallel.multiprocess import (
+        initialize,
+    )
+
     try:
-        init_distributed(rank, world_size, init_method, devices, timeout_s)
+        coordinator, num_processes, process_id = join
+        initialize(coordinator, num_processes, process_id, local_rank=rank,
+                   local_world=world_size,
+                   device=placement(world_size, devices)[rank],
+                   timeout_s=timeout_s)
         out = fn(rank, *args)
         results.put((rank, True, out))
     except BaseException:
@@ -363,20 +381,27 @@ def _rank_main(rank, fn, world_size, init_method, devices, timeout_s,
 
 
 def run_ranks(fn: Callable, world_size: int, args: tuple = (), *,
-              timeout_s: float, devices: Optional[Sequence] = None) -> list:
+              timeout_s: float, devices: Optional[Sequence] = None,
+              coordinator_address: Optional[str] = None,
+              num_processes: int = 1, process_id: int = 0) -> list:
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes, each
-    with its process group started (``init_distributed``: placement,
-    backend, a free localhost port), and return the ranks' results in rank
-    order. ``fn`` must be importable by name (a module-level function).
-    Raises with the failing rank's traceback when one fails, and stops
-    every rank when ``timeout_s`` passes first."""
+    joined to the process group first (``parallel/multiprocess.py::
+    initialize``: one per ``devices``, else ``placement``'s, the backend
+    every rank agrees on), and return the ranks' results in rank order.
+    ``fn`` must be importable by name (a module-level function). The ranks
+    are this process's local ranks of ``num_processes`` processes, process
+    ``process_id``, meeting at ``coordinator_address`` (``host:port``); in
+    one process, at a free localhost port when it is None. Raises with the
+    failing rank's traceback when one fails, and stops every rank when
+    ``timeout_s`` passes first."""
     import torch.multiprocessing as mp
 
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    join = (coordinator_address or f"127.0.0.1:{_free_port()}",
+            num_processes, process_id)
     results = mp.get_context("spawn").Queue()
     context = mp.spawn(_rank_main,
-                       args=(fn, world_size, init_method, devices, timeout_s,
-                             args, results),
+                       args=(fn, world_size, join, devices, timeout_s, args,
+                             results),
                        nprocs=world_size, join=False)
     deadline = time.monotonic() + timeout_s
     got = {}

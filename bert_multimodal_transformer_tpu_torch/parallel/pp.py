@@ -324,8 +324,11 @@ class PipelineTrainer(Trainer):
         if self.compiler_options:
             raise ValueError(COMPILER_OPTIONS_REFUSAL)
         if self.multiprocess:
-            raise NotImplementedError(
-                "Trainer(multiprocess=...) is not ported yet (ROADMAP A.10)")
+            # the JAX driver refuses --pipeline_parallel under
+            # --num_processes > 1
+            raise ValueError(
+                "multiprocess composes with the data-parallel trainer, fsdp "
+                "and the model axis; not with the pipeline trainer")
         self._n_stages = self.mesh.pipe_size
         self._dp = self.mesh.data_size
         self._mp = self.mesh.model_size

@@ -88,7 +88,8 @@ class Predictor:
     ``mesh`` (JAX ``Predictor(mesh=)``): this rank's place in a (data,
     model) mesh. Each batch's rows split over the data axis (the batch size
     a multiple of its size) and every rank returns all the predictions,
-    gathered in order. A model axis > 1 shards the full-size model in
+    gathered in order; with ``mem_len`` each rank carries its rows'
+    memory. A model axis > 1 shards the full-size model in
     place (``parallel/tp.py::shard_model_``), with the attention
     head-sharded when its config has ``tp_attention_mesh``.
     """
@@ -121,10 +122,6 @@ class Predictor:
                 raise TypeError(
                     "Predictor(mesh=...) takes a parallel.mesh.Mesh, got "
                     f"{type(mesh).__name__}")
-            if mem_len is not None and mesh.size > 1:
-                raise NotImplementedError(
-                    "mem_len over a mesh of more than one rank is not "
-                    "ported yet (ROADMAP A.10)")
             if batch_size % mesh.data_size:
                 raise ValueError(
                     f"batch_size={batch_size} does not split over "
@@ -165,10 +162,13 @@ class Predictor:
         return cls(model, **kw)
 
     def _init_mems(self):
+        """Zeros for the batch's rows (a data rank's share over a mesh)."""
         cfg = self.model.config
         dt = getattr(self.model, "dtype", torch.float32)
-        return tuple(torch.zeros((self.batch_size, self.mem_len,
-                                  cfg.d_model), dtype=dt, device=self.device)
+        rows = self.batch_size // (self.mesh.data_size
+                                   if self.mesh is not None else 1)
+        return tuple(torch.zeros((rows, self.mem_len, cfg.d_model),
+                                 dtype=dt, device=self.device)
                      for _ in range(cfg.n_layer))
 
     def _to_device(self, x, cast: Optional[torch.dtype] = None

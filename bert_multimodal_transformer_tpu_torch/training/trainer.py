@@ -30,8 +30,11 @@ with ``tp_shard_attention`` the attention heads too). With ``fsdp`` the
 params and AdamW's moments are stored sharded over the data axis and
 gathered for each step, evaluation and prediction (``parallel/fsdp.py``).
 The GPipe pipeline trainers subclass ``Trainer`` (``parallel/pp.py``,
-``parallel/pp_xlnet.py``). Multi-process runs wait for ROADMAP A.10; XLA
-compile options have no torch counterpart.
+``parallel/pp_xlnet.py``). With ``multiprocess`` the loader yields only
+this process's rows (``parallel/multiprocess.py``), each rank takes its
+own from them, the ragged tail's divisor is the valid count summed over
+the data axis, and test predictions, labels and masks are gathered over
+it. XLA compile options have no torch counterpart.
 """
 
 from __future__ import annotations
@@ -99,7 +102,9 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
     memory chained through the micro-batches.
 
     With ``mesh`` the batch is this rank's rows (``Mesh.local_rows`` with
-    ``grad_accum``) and ``valid`` the global batch's mask: the model axis's
+    ``grad_accum``) and ``valid`` the global batch's mask (when the ranks
+    run in several processes, this process's rows of it, and the divisor
+    the valid count summed over the data axis): the model axis's
     partial gradients are summed (``parallel/tp.py::sync_grads``), then
     every gradient and the loss over the data axis, divided by
     grad_accum × data ranks, or by the global valid count. Over more than
@@ -127,6 +132,12 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
                      else mesh.local_rows(valid, grad_accum))
             weights = torch.from_numpy(local.astype(np.float32)).to(
                 batch[0].device).chunk(grad_accum)
+            n_valid = float(valid.sum())
+            if mesh is not None and mesh.num_processes > 1:
+                # the other processes' rows are not here: sum the counts
+                n_valid = float(mesh.all_reduce_(
+                    torch.tensor(float(local.sum()), device=batch[0].device),
+                    mesh.data_axis))
         rng = state.generator
         if n_data > 1:
             rng = torch.Generator().manual_seed(
@@ -149,7 +160,7 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
                 loss = mse_loss(logits, labels)
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
-        div = (max(float(valid.sum()), 1.0) if masked
+        div = (max(n_valid, 1.0) if masked
                else float(grad_accum * n_data))
         if mesh is not None:
             tp_lib.sync_grads(state.model, mesh)
@@ -186,11 +197,12 @@ def make_masked_train_step(grad_accum: int = 1,
     with the batch zero-padded to shape and ``valid`` its host bool mask;
     loss = masked mean. The reference trains on the ragged tail as a
     smaller batch; the masked mean over the padded batch is the same
-    math."""
+    math. ``mesh``: see ``_make_step``."""
     return _make_step(grad_accum, masked=True, mesh=mesh)
 
 
-def make_mems_train_step(masked: bool, grad_accum: int = 1):
+def make_mems_train_step(masked: bool, grad_accum: int = 1,
+                         mesh: Optional[Mesh] = None):
     """The train step with XLNet's memory (JAX ``make_mems_train_step``):
     ``step(state, batch, mems[, valid]) -> (loss, new_mems)``, ``mems`` one
     [B/grad_accum, mem_len, D] tensor per layer. With grad_accum > 1 the
@@ -198,8 +210,12 @@ def make_mems_train_step(masked: bool, grad_accum: int = 1):
     memory chains through them (micro-batch i reads micro-batch i−1's
     cache) while the gradients accumulate against the step's params; the
     memory returned is the last micro-batch's. ``masked``: the ragged tail
-    batch's masked mean, its memory carried as any other's."""
-    return _make_step(grad_accum, masked=masked, with_mems=True)
+    batch's masked mean, its memory carried as any other's. ``mesh``: over
+    data ranks each rank carries its rows' memory, [B/(grad_accum·D),
+    mem_len, D] a layer, and the gradients and the loss are summed over
+    the data axis as ``_make_step`` does (the JAX step shards the memory
+    over the batch axis)."""
+    return _make_step(grad_accum, masked=masked, with_mems=True, mesh=mesh)
 
 
 def attach_grad_norm(optimizer: AdamWHF, mesh: Optional[Mesh]) -> AdamWHF:
@@ -273,8 +289,17 @@ class Trainer:
     a fixed-shape zero memory, n_layer × [B, mem_len, D] at the model
     dtype, starts each epoch and each eval/test split and is carried from
     batch to batch in order (B = the micro-batch rows under grad
-    accumulation). As in the JAX trainer the zero positions are attended
-    until real segments flush them.
+    accumulation, a data rank's share of them over a mesh). As in the JAX
+    trainer the zero positions are attended until real segments flush
+    them.
+
+    ``multiprocess``: the loaders yield this process's rows of each global
+    batch (``parallel/multiprocess.py::ShardedBatchIterator``), and every
+    process scores the whole test split (the predictions gathered over the
+    data axis). Not with ``mem_len``, as in the JAX trainer. The mesh
+    records the processes (``make_mesh(num_processes=)``) and the rows
+    follow it; a mesh over several processes without ``multiprocess``
+    raises. In one process ``multiprocess`` changes nothing, as in JAX.
     """
 
     model: nn.Module
@@ -288,15 +313,24 @@ class Trainer:
     multiprocess: bool = False
 
     def __post_init__(self):
-        if self.multiprocess:
-            raise NotImplementedError(
-                "Trainer(multiprocess=...) is not ported yet (ROADMAP A.10)")
+        if self.multiprocess and self.mem_len is not None:
+            # the JAX trainer's refusal
+            raise ValueError(
+                "multiprocess does not compose with mem_len (the memory "
+                "init builds [B, mlen, D] zeros from the local batch "
+                "shape; global assembly for mems is not implemented)")
         if self.compiler_options:
             raise ValueError(COMPILER_OPTIONS_REFUSAL)
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise TypeError(
                 "Trainer(mesh=...) takes a parallel.mesh.Mesh "
                 f"(parallel.mesh.make_mesh), got {type(self.mesh).__name__}")
+        if (self.mesh is not None and self.mesh.num_processes > 1
+                and not self.multiprocess):
+            raise ValueError(
+                f"the mesh's ranks run in {self.mesh.num_processes} "
+                "processes, each loading only its own rows: build the "
+                "Trainer with multiprocess=True")
         mp = self.mesh.model_size if self.mesh is not None else 1
         cfg = getattr(self.model, "config", None)
         if self.tp_shard_attention:
@@ -332,18 +366,13 @@ class Trainer:
             # the JAX trainer's refusal
             raise ValueError("mem_len supports the data-parallel trainer "
                              "(mems shard over the batch axis)")
-        if (self.mesh is not None and self.mesh.size > 1
-                and self.mem_len is not None):
-            raise NotImplementedError(
-                "mem_len over a mesh of more than one rank is not ported "
-                "yet (ROADMAP A.10)")
         if mp > 1:
             tp_lib.shard_model_(self.model, self.mesh,
                                 self.tp_shard_attention)
         self.device = next(self.model.parameters()).device
         self._train_step = make_train_step(self.grad_accum, self.mesh)
-        self._train_step_masked = make_masked_train_step(self.grad_accum,
-                                                         self.mesh)
+        self._train_step_masked = make_masked_train_step(
+            self.grad_accum, self.mesh)
         if self.mem_len is not None:
             cfg = getattr(self.model, "config", None)
             if getattr(cfg, "mem_len", None) != self.mem_len:
@@ -353,19 +382,22 @@ class Trainer:
                     f"{getattr(cfg, 'mem_len', None)}): the model's "
                     "memory update reads its own config")
             self._train_step_mems = make_mems_train_step(
-                masked=False, grad_accum=self.grad_accum)
+                masked=False, grad_accum=self.grad_accum, mesh=self.mesh)
             self._train_step_mems_masked = make_mems_train_step(
-                masked=True, grad_accum=self.grad_accum)
+                masked=True, grad_accum=self.grad_accum, mesh=self.mesh)
 
     def _init_mems(self, batch, *, for_train: bool = False):
         """A fresh zero memory for a new epoch or split: n_layer ×
         [B, mem_len, d_model] at the model dtype on the params' device.
         With grad accumulation a train batch holds A·B rows that run as A
-        sequential B-row segments, so the memory is B rows."""
+        sequential B-row segments, so the memory is B rows; over a mesh, a
+        data rank's share of them."""
         cfg = self.model.config
         b = np.asarray(batch[0]).shape[0]
         if for_train:
             b //= self.grad_accum
+        if self.mesh is not None:
+            b //= self.mesh.data_size
         dt = getattr(self.model, "dtype", torch.float32)
         return tuple(torch.zeros((b, self.mem_len, cfg.d_model), dtype=dt,
                                  device=self.device)
@@ -410,7 +442,8 @@ class Trainer:
 
     def _put_batch(self, batch, micro: int = 1):
         """The batch on the device: with a mesh, this rank's rows of it
-        (``Mesh.local_rows`` over ``micro`` micro-batches)."""
+        (``Mesh.local_rows`` over ``micro`` micro-batches; of this
+        process's rows under ``multiprocess``)."""
         if self.mesh is not None:
             batch = tuple(self.mesh.local_rows(np.asarray(a), micro)
                           for a in batch)
@@ -453,10 +486,11 @@ class Trainer:
                     mems = self._init_mems(batch, for_train=True)
                 if valid.all():
                     loss, mems = self._train_step_mems(
-                        state, self._put_batch(batch), mems)
+                        state, self._put_batch(batch, self.grad_accum), mems)
                 else:
                     loss, mems = self._train_step_mems_masked(
-                        state, self._put_batch(batch), mems, valid)
+                        state, self._put_batch(batch, self.grad_accum), mems,
+                        valid)
             elif valid.all():
                 loss = self._train_step(
                     state, self._put_batch(batch, self.grad_accum))
@@ -529,6 +563,12 @@ class Trainer:
             if self.mesh is not None:
                 p, lab = (self.mesh.all_gather(x, self.mesh.data_axis)
                           for x in (p, lab))
+                if self.mesh.num_processes > 1:
+                    # every process scores the whole split
+                    mine = self.mesh.local_rows(np.asarray(valid, np.uint8))
+                    valid = self.mesh.all_gather(
+                        self._put(mine), self.mesh.data_axis
+                    ).cpu().numpy().astype(bool)
             preds.append(p.cpu().numpy()[valid])
             labels.append(lab.cpu().numpy()[valid])
         return np.concatenate(preds), np.concatenate(labels)

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, MAG-BERT (at S=50,
 at long sequences, tensor-parallel over two ranks sharing the card,
-pipelined over two stages, fully sharded, and with the QKV projection
-inside the attention kernels) and MAG-XLNet, once on one NVIDIA GPU
-(H100).
+pipelined over two stages, fully sharded, over two driver processes, and
+with the QKV projection inside the attention kernels) and MAG-XLNet, once
+on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed N]
 
-Phases, in order; any failure raises and the script exits non-zero:
+(``--mp_driver '<argv as JSON>'`` runs one driver process of phase 6q,
+``--phase 6p`` or ``--phase 6r/6s`` one phase in a process of its own;
+the script starts those itself.)
+
+Phases, in order (6p and 6r/6s beside 6l-6o, 6q last); any failure
+raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), CUDA version.
 2. Build: compile ``csrc/*.cu`` with nvcc (into ``build/torch_kernels/``).
@@ -344,7 +349,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    in the same rank), every gradient leaf by leaf, with the planted fault
    (the prologue's and epilogue's gradients not summed over the stages)
    past the fp32 bound; the second step's wall beside one card's with the
-   card to itself.
+   phase's other ranks waiting.
 6p. PP×TP (``--pipeline_parallel 2 --model_parallel 2``, bert-base, four
    ranks: #1′/#3 on full heads) through the driver and its step check;
    ``--fsdp --model_parallel 2 --tp_shard_attention`` (#8/#10) and
@@ -352,10 +357,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    FSDP step checks on two data ranks (both families) and FSDP×TP on
    2 × 2 (bert-base), the same bounds, with each FSDP rank's peak memory
    beside a plain data-parallel rank's, printed as a
-   ``{"fsdp_peak_memory": ...}`` line.
-7. The result: a JSON line for the kernels (launches on the paths, max
-   error against the plain version, times, the bound and the library
-   call), then the last line ``{"ok": true, "device": {...}}``.
+   ``{"fsdp_peak_memory": ...}`` line. 6p runs in a process of its own
+   (``--phase 6p``) beside 6l-6o, and 6r/6s (with 6q's ``--fsdp
+   --model_parallel 2`` run) in another beside 6n/6o; their ranks share
+   the card and the host's cores, so the walls of 6l-6p and 6r/6s are
+   not clean, and 6q runs last, alone.
+6q. Two driver processes (``--num_processes 2 --process_id {0,1}``
+   over a loopback coordinator, each a subprocess under its own timeout),
+   bert-base with the fused attention and gate in bf16 at 96 rows a step
+   (48 a rank) over 192/96/96, both ranks on the card over gloo: exit 0,
+   process 1 prints no epoch line, each process launches #1′/#3 and
+   #25/#26 as predicted, and process 0's record equals, bit for bit, the
+   same run through one process's two spawned ranks (the driver's rank
+   function on a two-data-rank mesh); the second train step's wall beside
+   the two ranks' and one card's (``{"multiprocess_step_ms": ...}``);
+   and ``--fsdp --model_parallel 2`` over two processes of two ranks each
+   (four ranks on the card, run beside 6r and 6s; ``--tp_shard_attention``
+   is refused with ``--num_processes``, so #1′/#3 on full heads): exit 0,
+   finite and equal records, the same launches a rank.
+6r. The XLNet memory over two data ranks: xlnet-base-cased, mem_len 50
+   (K = 100), two memory steps at B=48 and ``Predictor(mesh=,
+   mem_len=50)`` over 96 rows, fp32 and bf16, against one card's from the
+   same weights: fp32 within ``PAR_FP32_TOL``, bf16 within
+   ``PAR_BF16_FACTOR`` × one card's drift read in the same rank (#11′,
+   #13, #11 serving, #25/#26). 6s. ``make_shard_map_train_step`` on the
+   same two data ranks, bert-base bf16 at dropout 0.1 (#1′/#3): two steps,
+   bit for bit against the ``Trainer``'s data-parallel step (the same
+   step under the JAX name, so this holds by construction; the phase
+   drives #1′/#3 through that entry point).
+7. The result: a ``{"phase_seconds": ...}`` line (each phase's wall
+   seconds, from its start to the next phase's, and each process run
+   beside others from its start to its result), a JSON line for the
+   kernels (launches on the paths, max error against the plain version,
+   times, the bound and the library call), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -7392,8 +7427,8 @@ def _drift(one):
 
 
 def _quiet_ms(family, seed, grad_accum):
-    """One card's bf16 step wall ms with the card to itself: rank 0 times
-    it while every other rank waits at a barrier."""
+    """One card's bf16 step wall ms with this phase's other ranks idle:
+    rank 0 times it while every other rank waits at a barrier."""
     import torch.distributed as dist
 
     dist.barrier()
@@ -7409,7 +7444,7 @@ def pp_steps_rank(rank, families, seed, model_parallel):
     ``families``: one card's grad_accum=PP_MICRO steps in fp32 and bf16 on
     this rank's card (the reference, and the bf16 drift), the pipelined
     steps' losses, gradient gaps, launches and second-step wall in each
-    dtype, one card's bf16 step timed with the card to itself, and
+    dtype, one card's bf16 step timed with the other ranks waiting, and
     (without a model axis) the planted fault's gaps."""
     import torch
 
@@ -7454,8 +7489,9 @@ def fsdp_steps_rank(rank, families, seed, model_parallel):
     mesh, for each of ``families``: one card's steps in fp32 and bf16 (the
     reference and the drift), the FSDP steps (head-sharded over a model
     axis) in each dtype with their launches, peak memory and second-step
-    wall, one card's bf16 step timed with the card to itself, and (without
-    a model axis) a plain data-parallel rank's peak in bf16 beside it."""
+    wall, one card's bf16 step timed with the other ranks waiting, and
+    (without a model axis) a plain data-parallel rank's peak in bf16
+    beside it."""
     import torch
 
     from bert_multimodal_transformer_tpu_torch.config import MeshConfig
@@ -7534,7 +7570,7 @@ def _par_check(label, ranks, fa, want_of, failed, fault=None):
                      if r[d][3] is not None else "")
             extra += f"; second step {r[d][4]:.2f} ms wall"
             if d == "bf16" and r["quiet ms"] is not None:
-                extra += (f" (one card's bf16 step, the card to itself: "
+                extra += (f" (one card's bf16 step, the other ranks waiting: "
                           f"{r['quiet ms']:.2f} ms)")
             print(f"  {label} rank {i}, {d}: losses {losses} (one card "
                   f"{one[d]}), loss gap {gap:.3e} (bound {tol[d]['loss']:.3e}"
@@ -7751,9 +7787,614 @@ def par_driver_paths(args, fa, card):
     return paths, peaks
 
 
+# ---- phases 6q-6s: multi-process runs and the data axis --------------------
+
+MP_SPLITS = (192, 96, 96)     # 2 train steps at 96 (48 a rank), 1 dev and
+#                               1 test batch of 128 (64 a rank)
+MP_BATCH = 96
+MP_TIMEOUT_S = 600            # each driver process, and each rank spawn
+MEM_LEN_DR = 50               # phase 6r: K = 50 + 50
+SM_RATE = 0.1                 # phase 6s: attention and hidden dropout
+
+
+def _mp_argv(args, *extra):
+    """The 6q driver run: bert-base, fused attention and gate, bf16."""
+    return ["--model", "bert-base-uncased", "--dataset", "mosi",
+            "--synthetic", "--synthetic_sizes", *map(str, MP_SPLITS),
+            "--n_epochs", "1", "--max_steps", "2", "--train_batch_size",
+            str(MP_BATCH), "--attention_impl", "fused", "--use_fused_mag",
+            "--compute_dtype", "bfloat16", "--seed", str(args.seed), *extra]
+
+
+@contextlib.contextmanager
+def _timed_train_steps(ms):
+    """Every ``Trainer`` built inside the block times its unmasked train
+    steps into ``ms`` (wall ms, each between two synchronizes)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.training import (
+        trainer as trainer_lib,
+    )
+
+    make = trainer_lib.make_train_step
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    trainer_lib.make_train_step = timed_make
+    try:
+        yield
+    finally:
+        trainer_lib.make_train_step = make
+
+
+def mp_driver_process(argv) -> int:
+    """``python3 chip_smoke.py --mp_driver '<argv as JSON>'``: one driver
+    process of a ``--num_processes`` run (``driver.run``), its train steps
+    timed; prints its ranks' records, launches and backend, and the step
+    times, as the last line."""
+    from bert_multimodal_transformer_tpu_torch import driver
+
+    ms = []
+    with _timed_train_steps(ms):
+        rc, ranks = driver.run(argv, rank_timeout_s=MP_TIMEOUT_S)
+    print(json.dumps({"rc": rc, "step_ms": ms, "ranks": [
+        {k: r[k] for k in ("history", "launches", "backend")}
+        for r in ranks]}))
+    return rc
+
+
+def _two_driver_processes(argv, work):
+    """``argv`` as two driver processes (``--num_processes 2``) over a
+    loopback coordinator, each under MP_TIMEOUT_S: [(exit status, stdout,
+    its last line as JSON)] for process 0 and 1. Every process is stopped
+    before this returns."""
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+        _free_port,
+    )
+
+    port = _free_port()
+    env = dict(os.environ, WANDB_MODE="disabled")
+    procs, logs = [], []
+    try:
+        for p in (0, 1):
+            log = open(os.path.join(work, f"process{p}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp_driver",
+                 json.dumps(argv + [
+                     "--num_processes", "2", "--process_id", str(p),
+                     "--coordinator_address", f"127.0.0.1:{port}"])],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        out = []
+        for proc, log in zip(procs, logs):
+            rc = proc.wait(max(deadline - time.monotonic(), 1.0))
+            log.seek(0)
+            text = log.read()
+            res = [ln for ln in text.splitlines() if ln.startswith('{"rc"')]
+            out.append((rc, text, json.loads(res[-1]) if res else None))
+        return out
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+
+
+def mp_ref_rank(rank, argv):
+    """One of one process's two spawned ranks on ``argv`` (the driver's own
+    rank function over a two-data-rank mesh on the card), its train steps
+    timed."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch import driver
+
+    ms = []
+    args = driver.build_parser().parse_args(argv)
+    with _timed_train_steps(ms):
+        out = driver._rank_main(rank, args, [torch.device("cuda", 0)] * 2)
+    return {**out, "step_ms": ms}
+
+
+def _epoch_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith("epoch:")]
+
+
+def multiprocess_driver_path(args, fa, card, work):
+    """Phase 6q: two driver processes (``--num_processes 2``) on the one
+    card over gloo, bert-base at 48 rows a rank, against one process's two
+    spawned ranks (the same ``Trainer`` on a two-data-rank mesh): the
+    records bit for bit, process 1 silent, each process's launches as
+    predicted; the second train step's wall beside the two ranks' and one
+    card's at the same 96 rows. Returns ({path: launch counts}, {label:
+    step ms})."""
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+
+    n_train = -(-MP_SPLITS[0] // MP_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in MP_SPLITS[1:])
+    want = _want(fa, attn_fwd_packed=12 * (n_train + n_eval),
+                 attn_bwd_packed_saved=12 * n_train,
+                 mag_fwd=n_train + n_eval, mag_bwd=n_train)
+    print(f"  predicted launches a process (and a rank, here and in the "
+          f"--fsdp --model_parallel 2 run): "
+          f"{ {k: v for k, v in want.items() if v} }")
+    argv = _mp_argv(args)
+    t0 = time.perf_counter()
+    procs = _two_driver_processes(argv, work)
+    wall = time.perf_counter() - t0
+    for p, (rc, text, res) in enumerate(procs):
+        print(f"  process {p}: exit {rc}; "
+              + (f"launches { {k: v for k, v in res['ranks'][0]['launches'].items() if v} }, "
+                 f"backend {res['ranks'][0]['backend']}, train steps "
+                 f"{res['step_ms']} ms" if res else text[-3000:]))
+    if any(rc != 0 for rc, _, _ in procs):
+        raise AssertionError("a driver process of --num_processes 2 failed")
+    print(f"driver --num_processes 2 (two processes on {card}): "
+          f"{wall:.2f} s wall")
+    print("\n".join(_epoch_lines(procs[0][1])))
+    failed = []
+    if len(_epoch_lines(procs[0][1])) != 1 or _epoch_lines(procs[1][1]):
+        failed.append("process 0 must print one epoch line, process 1 none")
+    t0 = time.perf_counter()
+    ref = run_ranks(mp_ref_rank, 2, (argv,), timeout_s=MP_TIMEOUT_S,
+                    devices=["cuda:0"] * 2)
+    print(f"  one process's two ranks: {time.perf_counter() - t0:.2f} s "
+          f"with the ranks; train steps {[r['step_ms'] for r in ref]} ms")
+    keys = ("train_loss", "valid_loss", "test_acc", "test_mae", "test_corr",
+            "test_f_score")
+    got = procs[0][2]["ranks"][0]["history"][0]
+    ref_rec = ref[0]["history"][0]
+    print(f"  two processes {[got[k] for k in keys]}; one process's two "
+          f"ranks {[ref_rec[k] for k in keys]}")
+    if any(got[k] != ref_rec[k] for k in keys):
+        failed.append(f"two processes {got} != two ranks {ref_rec}")
+    for p, (_, _, res) in enumerate(procs):
+        (r,) = res["ranks"]
+        if r["launches"] != want or r["backend"] != "gloo":
+            failed.append(f"process {p}: launches {r['launches']} (want "
+                          f"{want}), backend {r['backend']}")
+    for i, r in enumerate(ref):
+        if r["launches"] != want:
+            failed.append(f"two ranks, rank {i}: launches {r['launches']}")
+    one_ms = []
+    with _timed_train_steps(one_ms):
+        one = run_driver(argv, fa, card)
+    steps = {"two processes": [res["step_ms"][1] for _, _, res in procs],
+             "one process, two ranks": [r["step_ms"][1] for r in ref],
+             "one card": one_ms[1]}
+    print(f"  second train step at {MP_BATCH} rows (48 a rank), wall ms on "
+          f"{card} (host-staged gloo on one shared card): {steps}")
+    paths = {"mp_driver": {k: sum(res["ranks"][0]["launches"][k]
+                                  for _, _, res in procs) for k in want},
+             "mp_two_rank_driver": {k: sum(r["launches"][k] for r in ref)
+                                    for k in want},
+             "mp_one_card_driver": one}
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return paths, steps
+
+
+def mp_fsdp_tp_path(args, fa, card, work):
+    """Phase 6q's ``--fsdp --model_parallel 2`` over two driver processes
+    of two ranks each (four ranks on the card): exit 0, finite and equal
+    records, each rank's launches as ``multiprocess_driver_path``
+    predicts. Prints nothing (it runs beside 6r/6s); returns ({path: launch
+    counts over the ranks}, the report's lines)."""
+    n_train = -(-MP_SPLITS[0] // MP_BATCH)
+    n_eval = sum(-(-n // EVAL_BATCH) for n in MP_SPLITS[1:])
+    want = _want(fa, attn_fwd_packed=12 * (n_train + n_eval),
+                 attn_bwd_packed_saved=12 * n_train,
+                 mag_fwd=n_train + n_eval, mag_bwd=n_train)
+    t0 = time.perf_counter()
+    fsdp = _two_driver_processes(_mp_argv(args, "--fsdp", "--model_parallel",
+                                          "2"), work)
+    lines = [f"driver --num_processes 2 --fsdp --model_parallel 2 (four "
+             f"ranks on {card}): {time.perf_counter() - t0:.2f} s wall"]
+    failed, records = [], []
+    total = {k: 0 for k in want}
+    for p, (rc, text, res) in enumerate(fsdp):
+        if rc != 0 or res is None:
+            raise AssertionError(f"--fsdp --model_parallel 2 process {p} "
+                                 f"exited {rc}:\n{text[-3000:]}")
+        for i, r in enumerate(res["ranks"]):
+            (rec,) = r["history"]
+            records.append(rec)
+            lines.append(
+                f"  process {p} rank {i}: train_loss {rec['train_loss']} "
+                f"valid_loss {rec['valid_loss']}; launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }")
+            if not all(math.isfinite(rec[k]) for k in ("train_loss",
+                                                       "valid_loss")):
+                failed.append(f"--fsdp --model_parallel 2: non-finite {rec}")
+            if r["launches"] != want:
+                failed.append(f"--fsdp --model_parallel 2 process {p} rank "
+                              f"{i}: launches {r['launches']} != {want}")
+            for k in want:
+                total[k] += r["launches"][k]
+    if any(r[k] != records[0][k] for r in records
+           for k in ("train_loss", "valid_loss", "test_acc")):
+        failed.append("--fsdp --model_parallel 2: the ranks' records differ")
+    if failed:
+        raise AssertionError("; ".join(lines + failed))
+    return {"mp_fsdp_tp_driver": total}, lines
+
+
+def _mem_xlnet(dtype, seed, device, mem_len):
+    """xlnet-base-cased MAG model with MOSI dims, fused attention and gate,
+    every dropout 0, the memory ``mem_len``, built whole from ``seed``."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(
+        XLNetConfig.xlnet_base_cased(), attention_impl="fused", dropout=0.0,
+        summary_last_dropout=0.0, mem_len=mem_len)
+    mm = MultimodalConfig(dropout_prob=0.0, injection_index=1,
+                          use_fused_kernel=True)
+    return MagXLNetForSequenceClassification(
+        cfg, mm, ds.visual_dim, ds.acoustic_dim, dtype, device=device,
+        generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def _mem_runs(dtype_name, seed, device, mesh=None):
+    """Two memory steps (lr 1e-5, no warmup) on the two seeded XLNet
+    batches of 48, the memory carried, then ``Predictor(mem_len=)`` at
+    batch 48 over 96 rows of a fresh model from the same weights: on one
+    card (``mesh`` None) or this rank's data shard, on ``device``. Returns
+    (losses, the first step's gradients, the predictions)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.serving import Predictor
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import Trainer
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    model = _mem_xlnet(dtype, seed, device, MEM_LEN_DR)
+    tr = Trainer(model=model, mesh=mesh, mem_len=MEM_LEN_DR,
+                 tx=make_optimizer(1e-5, 10, warmup_proportion=0.0))
+    st = tr.create_state_from_params(None, seed)
+    batches = _xlnet_step_batches(seed)
+    mems = tr._init_mems(batches[0], for_train=True)
+    losses, grads = [], None
+    for batch in batches:
+        loss, mems = tr._train_step_mems(st, tr._put_batch(batch), mems)
+        losses.append(float(loss))
+        if grads is None:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+    del model, tr, st, mems
+    rng = np.random.default_rng([seed, 9])
+    from bert_multimodal_transformer_tpu_torch.config import (
+        DatasetConfig,
+        XLNetConfig,
+    )
+
+    ds = DatasetConfig.mosi()
+    split = make_xlnet_split(rng, 2 * TRAIN_BATCH, S_SERVE,
+                             XLNetConfig().vocab_size, ds.visual_dim,
+                             ds.acoustic_dim)
+    pred = Predictor(_mem_xlnet(dtype, seed, device, MEM_LEN_DR),
+                     batch_size=TRAIN_BATCH, mem_len=MEM_LEN_DR, mesh=mesh)
+    preds = torch.from_numpy(pred.predict_split(split).astype(np.float32))
+    torch.cuda.empty_cache()
+    return losses, grads, preds
+
+
+def _sm_bert(seed, device):
+    """bert-base MAG model with MOSI dims, fused attention and gate, bf16,
+    attention and hidden dropout SM_RATE, built whole from ``seed``."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        DatasetConfig,
+        MultimodalConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+
+    ds = DatasetConfig.mosi()
+    cfg = dataclasses.replace(
+        BertConfig.bert_base_uncased(), attention_impl="fused",
+        hidden_dropout_prob=SM_RATE, attention_probs_dropout_prob=SM_RATE)
+    mm = MultimodalConfig(dropout_prob=SM_RATE, use_fused_kernel=True)
+    return MagBertForSequenceClassification(
+        cfg, mm, ds.visual_dim, ds.acoustic_dim, torch.bfloat16,
+        device=device,
+        generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def data_ranks_rank(rank, seed):
+    """Phases 6r and 6s on one of two data ranks sharing the card. 6r: the
+    memory runs (``_mem_runs``) on one card and on this rank's shard, fp32
+    and bf16, with the shard's launches. 6s: two bf16 steps of bert-base
+    at dropout SM_RATE through the ``Trainer``'s data-parallel step and
+    through ``make_shard_map_train_step`` from the same weights and seed:
+    the losses, whether every parameter is equal, and each step kind's
+    launches."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.config import MeshConfig
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import make_mesh
+    from bert_multimodal_transformer_tpu_torch.parallel.shard_map_step import (
+        make_shard_map_train_step,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshConfig(data_parallel=-1))
+    one = {d: _mem_runs(d, seed, mesh.device) for d in ("fp32", "bf16")}
+    (l32, g32, p32), (l16, g16, p16) = one["fp32"], one["bf16"]
+    # one card's bf16 drift from fp32, read in this rank
+    out = {"mem": {"drift": (
+        max(abs(a - b) / abs(b) for a, b in zip(l16, l32)),
+        max(_grad_gap(g16[n], g32[n]) for n in g32 if n in g16),
+        _grad_gap(p16, p32))}}
+    for d in ("fp32", "bf16"):
+        _zero_counts(fa)
+        losses, grads, preds = _mem_runs(d, seed, mesh.device, mesh)
+        out["mem"][d] = {
+            "one card": one[d][0], "losses": losses,
+            "gaps": {n: _grad_gap(g, one[d][1][n])
+                     for n, g in grads.items()},
+            "pred gap": _grad_gap(preds, one[d][2]),
+            "launches": _counts(fa)}
+    del one, g32, g16
+    sm = {}
+    for explicit in (False, True):
+        model = _sm_bert(seed, mesh.device)
+        start = [p.detach().clone() for p in model.parameters()]
+        tr = Trainer(model=model, mesh=mesh,
+                     tx=make_optimizer(1e-5, 10, warmup_proportion=0.0))
+        st = tr.create_state_from_params(None, seed)
+        step = make_shard_map_train_step(mesh) if explicit else tr._train_step
+        _zero_counts(fa)
+        losses = [float(step(st, tr._put_batch(b)))
+                  for b in _tp_step_batches(seed)]
+        params = [p.detach().clone() for p in model.parameters()]
+        sm[explicit] = (losses, _counts(fa), params, any(
+            not torch.equal(p, q) for p, q in zip(params, start)))
+        del model, tr, st, start
+    out["shard_map"] = {
+        "trainer": sm[False][:2], "explicit": sm[True][:2],
+        "params equal": all(torch.equal(p, q)
+                            for p, q in zip(sm[False][2], sm[True][2])),
+        "moved": sm[True][3]}
+    return out
+
+
+def data_ranks_path(args, fa, card):
+    """Phases 6r (the XLNet memory over two data ranks: #11′ and #13 at
+    K = 100, #11 serving) and 6s (the explicit-collectives step: #1′/#3),
+    in one two-rank spawn sharing the card over gloo. Returns {path:
+    launch counts over the ranks}."""
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+
+    layers = 12
+    want_mem = _want(fa, attn_fwd_rel=layers * 4, attn_bwd_rel_saved=layers * 2,
+                     mag_fwd=4, mag_bwd=2)
+    want_sm = _want(fa, attn_fwd_packed=24, attn_bwd_packed_saved=24,
+                    mag_fwd=2, mag_bwd=2)
+    print(f"  predicted launches a rank and dtype, 6r (2 memory steps and 2 "
+          f"predictor batches): { {k: v for k, v in want_mem.items() if v} }"
+          f"; 6s (2 steps a kind): "
+          f"{ {k: v for k, v in want_sm.items() if v} }")
+    t0 = time.perf_counter()
+    ranks = run_ranks(data_ranks_rank, 2, (args.seed + 98,),
+                      timeout_s=MP_TIMEOUT_S, devices=["cuda:0"] * 2)
+    print(f"  6r/6s: {time.perf_counter() - t0:.2f} s with the ranks on "
+          f"{card}")
+    failed = []
+    paths = {k: {n: 0 for n in _wrappers(fa)} for k in (
+        "xlnet_mem_data_ranks", "shard_map_steps", "shard_map_trainer_steps")}
+    for i, r in enumerate(ranks):
+        d_loss, d_grad, d_pred = r["mem"]["drift"]
+        for d in ("fp32", "bf16"):
+            m = r["mem"][d]
+            tol = (PAR_FP32_TOL if d == "fp32" else
+                   {"loss": PAR_BF16_FACTOR * d_loss,
+                    "grad": PAR_BF16_FACTOR * d_grad})
+            pred_tol = (PAR_FP32_TOL["grad"] if d == "fp32"
+                        else PAR_BF16_FACTOR * d_pred)
+            gap = max(abs(a - b) / abs(b) for a, b in zip(m["losses"],
+                                                          m["one card"]))
+            leaf = max(m["gaps"], key=m["gaps"].get)
+            print(f"  6r rank {i}, {d}: losses {m['losses']} (one card "
+                  f"{m['one card']}), loss gap {gap:.3e} (bound "
+                  f"{tol['loss']:.3e}); {len(m['gaps'])} gradients, worst "
+                  f"gap {m['gaps'][leaf]:.3e} at {leaf} (bound "
+                  f"{tol['grad']:.3e}); predictions gap {m['pred gap']:.3e} "
+                  f"(bound {pred_tol:.3e}); launches "
+                  f"{ {k: v for k, v in m['launches'].items() if v} }")
+            if (not gap <= tol["loss"] or not m["gaps"][leaf] <= tol["grad"]
+                    or not m["pred gap"] <= pred_tol
+                    or m["launches"] != want_mem):
+                failed.append(f"6r rank {i} {d}: loss gap {gap}, gradient "
+                              f"gap {m['gaps'][leaf]} at {leaf}, predictions "
+                              f"gap {m['pred gap']}, launches "
+                              f"{m['launches']}")
+            for k, v in m["launches"].items():
+                paths["xlnet_mem_data_ranks"][k] += v
+        print(f"    one card's bf16 drift from fp32: loss {d_loss:.3e}, "
+              f"worst leaf {d_grad:.3e}, predictions {d_pred:.3e}")
+        sm = r["shard_map"]
+        print(f"  6s rank {i}: Trainer step losses {sm['trainer'][0]}, "
+              f"explicit step losses {sm['explicit'][0]}; params equal "
+              f"{sm['params equal']}, moved {sm['moved']}; launches "
+              f"{ {k: v for k, v in sm['explicit'][1].items() if v} }")
+        if (sm["trainer"][0] != sm["explicit"][0] or not sm["params equal"]
+                or not sm["moved"] or sm["explicit"][1] != want_sm
+                or sm["trainer"][1] != want_sm):
+            failed.append(f"6s rank {i}: losses {sm['trainer'][0]} and "
+                          f"{sm['explicit'][0]}, params equal "
+                          f"{sm['params equal']}, moved {sm['moved']}, "
+                          f"launches {sm['trainer'][1]} and "
+                          f"{sm['explicit'][1]}")
+        for k in want_sm:
+            paths["shard_map_steps"][k] += sm["explicit"][1][k]
+            paths["shard_map_trainer_steps"][k] += sm["trainer"][1][k]
+    if ranks[0]["shard_map"]["explicit"][0] != ranks[1]["shard_map"][
+            "explicit"][0]:
+        failed.append("6s: the ranks' losses differ")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return paths
+
+
+# ---- phases run beside others, each in a process of its own ---------------
+
+BESIDE_TIMEOUT_S = 900        # each such process, its ranks' spawns included
+_BESIDE_SECONDS = {}
+
+
+def _beside_6p(args, fa, card):
+    return list(par_driver_paths(args, fa, card))
+
+
+def _beside_6r_6s(args, fa, card):
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_6r_")
+    try:
+        # 6q's untimed --fsdp --model_parallel 2 processes beside 6r/6s
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            fsdp = pool.submit(mp_fsdp_tp_path, args, fa, card, work)
+            counts = data_ranks_path(args, fa, card)
+            fsdp_counts, fsdp_lines = fsdp.result()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("\n".join(fsdp_lines))
+    return [{**counts, **fsdp_counts}]
+
+
+BESIDE_PHASES = {"6p": _beside_6p, "6r/6s": _beside_6r_6s}
+
+
+def phase_process(name, args) -> int:
+    """``python3 chip_smoke.py --phase NAME``: one of ``BESIDE_PHASES`` in
+    this process, its launch counts this process's own (the kernels loaded
+    from the build the starting process made, or built here when run
+    alone); prints the phase's result and its seconds as JSON on the last
+    line."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.ops import kernels as tk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    tk.load_kernels()
+    result = BESIDE_PHASES[name](args, fa, _card())
+    print(json.dumps({"phase_result": result,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def _start_phase_process(name, args, work):
+    """Starts ``--phase name`` in a session of its own (so that its ranks
+    can be stopped with it), its output into a file under ``work``."""
+    log = open(os.path.join(work, f"phase_{name.replace('/', '_')}.log"),
+               "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(args.seed),
+         "--phase", name], stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, WANDB_MODE="disabled"), start_new_session=True)
+    return proc, log, time.perf_counter()
+
+
+def _stop_process_group(proc):
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _join_phase_process(name, proc, log, t0):
+    """Waits for a ``--phase`` process (within BESIDE_TIMEOUT_S of its
+    start), prints its output, and returns its result; raises when it
+    failed."""
+    try:
+        rc = proc.wait(max(BESIDE_TIMEOUT_S - (time.perf_counter() - t0),
+                           1.0))
+    finally:
+        _stop_process_group(proc)
+        log.seek(0)
+        lines = log.read().splitlines()
+        log.close()
+    res = [ln for ln in lines if ln.startswith('{"phase_result"')]
+    print("\n".join(ln for ln in lines if not ln.startswith(
+        '{"phase_result"')))
+    if rc != 0 or not res:
+        raise AssertionError(f"phase {name} (its own process) exited {rc}")
+    out = json.loads(res[-1])
+    _BESIDE_SECONDS[f"{name} (its own process, beside)"] = out["seconds"]
+    return out["phase_result"]
+
+
+_PHASES = []
+
+
+def _phase(name):
+    """Marks where phase ``name`` of ``main`` starts."""
+    _PHASES.append((name, time.perf_counter()))
+
+
+def _phase_seconds():
+    """Each marked phase's wall seconds, from its mark to the next (the
+    last to now)."""
+    marks = _PHASES + [(None, time.perf_counter())]
+    return {**{a: tb - ta for (a, ta), (_, tb) in zip(marks, marks[1:])},
+            **_BESIDE_SECONDS}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--mp_driver", type=str, default=None,
+                        help="run one driver process of phase 6q: the "
+                             "driver's arguments as a JSON list")
+    parser.add_argument("--phase", choices=sorted(BESIDE_PHASES),
+                        default=None,
+                        help="run one of the phases that run beside "
+                             "others, in this process (the kernels built)")
     args = parser.parse_args()
 
     import torch
@@ -7761,6 +8402,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    if args.mp_driver is not None:
+        return mp_driver_process(json.loads(args.mp_driver))
+    if args.phase is not None:
+        return phase_process(args.phase, args)
 
     from bert_multimodal_transformer_tpu_torch.config import (
         BertConfig,
@@ -7784,6 +8429,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    _phase("1")
     # 1. Device
     card = _card()
     print(card)
@@ -7791,6 +8437,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}")
 
+    _phase("2")
     # 2. Build
     t0 = time.perf_counter()
     lib_path = tk.build_kernels()
@@ -7801,6 +8448,7 @@ def main() -> int:
     for line in tc_ptxas_lines(build_log):
         print(line)
 
+    _phase("3")
     # 3. Kernel against plain, on the card
     rng = np.random.default_rng(args.seed)
     serve_err, serve_case = check_kernel(rng, fa, "bf16", BATCH, S_SERVE)
@@ -7842,6 +8490,7 @@ def main() -> int:
           f"(max |Δ| to the kernel {lib_err:.3e}); bound "
           f"{serve_bound[0]:.4f} ms ({serve_bound[1]})")
 
+    _phase("3b")
     # 3b. Training kernels against plain, on the card
     train_errs = {}
     bench_case = None
@@ -7869,10 +8518,12 @@ def main() -> int:
     del bench_case
     torch.cuda.empty_cache()
 
+    _phase("3c")
     # 3c. The fused MAG gate's kernels against plain, on the card
     mag_errs = check_mag_kernels(rng, mf)
     mag_times = time_mag_kernels(rng, mf, card)
 
+    _phase("3d")
     # 3d. The rel-attention kernels against plain, on the card
     rel_errs = {}
     rel_case_b256 = None
@@ -7908,6 +8559,7 @@ def main() -> int:
     offsets = check_rel_offsets(offset_rng, fa)
     one_rank_times = time_rel_one_rank(offset_rng, fa, card)
 
+    _phase("3e")
     # 3e. The long-sequence kernels against plain, on the card
     long_errs = {}
     cases = [("bf16", 8, s, rate) for s in LONG_S for rate in (RATE, 0.0)]
@@ -7945,6 +8597,7 @@ def main() -> int:
     check_long_masks(rng, fa)
     long_times = time_long_kernels(rng, fa, card)
 
+    _phase("3f")
     # 3f. The long-sequence rel kernels against plain, on the card
     long_rel_errs = {}
     cases = [("bf16", 8, s, rate) for s in XLNET_LONG_S
@@ -7964,6 +8617,7 @@ def main() -> int:
     check_relik_mask(rng, fa)
     long_rel_times = time_long_rel_kernels(rng, fa, card)
 
+    _phase("3g")
     # 3g. The rel flash-streamed kernels against plain, on the card
     rel_fs_errs = {}
     for dtype_name, b, q_len, k_len in REL_FS_CASES:
@@ -7985,6 +8639,7 @@ def main() -> int:
     check_rel_bwd_masks(np.random.default_rng([args.seed, 15]), fa)
     rel_fs_times = time_rel_fs_kernels(rng, fa, card)
 
+    _phase("3h")
     # 3h. The full-H ingredients kernels (rel_bias_impl="inkernel"). Its
     # phases (3h, 4g, 6f) draw from a stream of their own, so every other
     # phase sees the inputs it saw before they were added.
@@ -8018,6 +8673,7 @@ def main() -> int:
     del relik_train_case
     torch.cuda.empty_cache()
 
+    _phase("3i")
     # 3i. The split-layout kernels #8-#10 (tensor parallelism), at all
     # heads and at one rank's; they and 4h draw from a stream of their own
     tp_rng = np.random.default_rng([args.seed, 9])
@@ -8030,6 +8686,7 @@ def main() -> int:
     split_times = time_split_kernels(tp_rng, fa, card)
     torch.cuda.empty_cache()
 
+    _phase("3j")
     # 3j. The QKV-projection kernels #18/#19 (qkv_fusion); they, 4i and 6h
     # draw from a stream of their own
     qp_rng = np.random.default_rng([args.seed, 10])
@@ -8057,6 +8714,7 @@ def main() -> int:
     del qkvproj_train_case
     torch.cuda.empty_cache()
 
+    _phase("4")
     # 4. Main path
     ds = DatasetConfig.mosi()
     cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
@@ -8084,33 +8742,42 @@ def main() -> int:
                                 bert_einsum, split, requests,
                                 "attn_fwd_packed", cfg.num_hidden_layers)
 
+    _phase("4b")
     # 4b. Training path
     model_args = (cfg, MultimodalConfig(), ds.visual_dim, ds.acoustic_dim)
     train_counts, recompute_counts, weights = train_path(
         args, rng, fa, model_args, card)
 
+    _phase("4c")
     # 4c. XLNet serving
     xlnet_serve_counts = xlnet_serving(args, rng, fa, card)
 
+    _phase("4d")
     # 4d. Long-sequence BERT serving (S = 640, 1024)
     long_serve_counts = long_serving(args, rng, fa, card)
 
+    _phase("4e")
     # 4e. Long-sequence XLNet serving (S = 640, 1024)
     xlnet_long_serve_counts = xlnet_long_serving(args, rng, fa, card)
 
+    _phase("4f")
     # 4f. XLNet serving through the rel fs tier: stream at S = 1024, and
     # the memory at S = 512
     xlnet_fs_serve_counts = xlnet_fs_serving(args, rng, fa, card)
 
+    _phase("4g")
     # 4g. XLNet serving under rel_bias_impl="inkernel" (#20)
     xlnet_ik_serve_counts = xlnet_inkernel_serving(args, ik_rng, fa, card)
 
+    _phase("4h")
     # 4h. Tensor-parallel serving: Predictor(mesh=) over two ranks (#8)
     tp_serve_counts = tp_serving(args, tp_rng, fa, card)
 
+    _phase("4i")
     # 4i. Serving with the QKV projection inside the kernel (#18)
     qkvproj_serve_counts = qkvproj_serving(args, qp_rng, fa, card)
 
+    _phase("4j")
     # 4j. Tensor-parallel MAG-XLNet serving: Predictor(mesh=), #11 at H=6
     # a rank; 4k. flash serving at S=512 (#6). From streams of their own.
     xtp_serve_counts = xlnet_tp_serving(
@@ -8118,10 +8785,12 @@ def main() -> int:
     flash_serve_counts, flash_times = flash_serving(
         args, np.random.default_rng([args.seed, 28]), fa, card)
 
+    _phase("5")
     # 5. Profile
     profile_batch(predictor, split, card)
     del predictor, model
 
+    _phase("5b")
     # 5b. Training speed and profile
     def bert_model(impl):
         m = MagBertForSequenceClassification(
@@ -8134,67 +8803,113 @@ def main() -> int:
         rng, BENCH_BATCH, S_SERVE, cfg.vocab_size, ds.visual_dim,
         ds.acoustic_dim).as_tuple()), card, "bert-base")
 
+    _phase("6")
     # 6. The driver on the card, with the fused gate
     driver_counts = driver_path(args, rng, fa, card)
 
+    _phase("6b")
     # 6b. The XLNet driver on the card
     xlnet_train_counts, xlnet_recompute_counts = xlnet_driver_path(
         args, rng, fa, card)
 
+    _phase("6c")
     # 6c. The driver at --max_seq_length 512 and 1024, and what sets a
     # long-S step
     long_driver_counts = long_driver_path(args, fa, card)
     long_step_profile(args, rng, card)
 
+    _phase("6d")
     # 6d. The XLNet driver at --max_seq_length 512 and 1024, and with
     # --rel_bias_impl stream at 512; the gradient check; a long-S step
     xlnet_long_driver_counts = xlnet_long_driver_path(args, rng, fa, card)
 
+    _phase("6e")
     # 6e. The XLNet driver through the rel fs tier and with --mem_len; the
     # S=1024 stream gradient check
     xlnet_fs_driver_counts = xlnet_fs_driver_path(args, rng, fa, card)
 
+    _phase("6f")
     # 6f. The XLNet driver under --rel_bias_impl inkernel (#20-#22); the
     # S=50 gradient check; the B=256 step under inkernel and auto
     xlnet_ik_driver_counts = xlnet_inkernel_driver_path(args, ik_rng, fa,
                                                         card)
 
+    _phase("6g")
     # 6g. The tensor-parallel driver (--model_parallel 2
     # --tp_shard_attention: #8, #10) and the two-rank step against one card
     tp_driver_counts = tp_driver_path(args, fa, card)
 
+    _phase("6h")
     # 6h. The driver with --qkv_fusion (#18, #19), its gradient check and
     # the B=256 step with and without it
     qkvproj_driver_counts = qkvproj_driver_path(args, qp_rng, fa, card)
 
+    _phase("6i")
     # 6i. Checkpoint, resume and warm start through the driver; the
     # checkpoint's save and restore times and bytes
     ckpt_driver_counts, ckpt_timing = checkpoint_driver_path(args, fa, card)
     print(json.dumps({"checkpoint": ckpt_timing, "card": card}))
 
+    _phase("6j")
     # 6j. The serving artifact: portable, and fused (#1; #11 and #25)
     artifact_counts, artifact = artifact_path(
         args, np.random.default_rng([args.seed, 24]), fa, card)
     print(json.dumps({"artifact": artifact, "card": card}))
 
+    _phase("6k")
     # 6k. Rematerialized training through the driver; peak memory and step
     # time with and without remat at long S
     remat_counts, remat = remat_driver_path(args, fa, card)
     print(json.dumps({"remat_memory": remat, "card": card}))
 
-    # 6l. The tensor-parallel MAG-XLNet driver (#11/#13; inkernel #20/#22)
-    # and its step checks (#23/#24 at S=512); 6m. the flash driver and the
-    # dropout-0 step through #6/#7
-    xtp_driver_counts = xlnet_tp_driver_path(args, fa, card)
-    flash_driver_counts = flash_driver_path(args, rng, fa, card)
+    # 6l-6s: the rank phases. 6p, and 6r/6s with 6q's --fsdp
+    # --model_parallel 2 run, each run in a process of their own (their
+    # launch counts their own) beside 6l-6o in this one: 6p from 6l's start,
+    # 6r/6s from 6n's, after 6l's S=512 steps. Their ranks share the card
+    # and the host's cores, so no wall they print has either to itself.
+    import shutil
+    import tempfile
 
-    # 6n. The pipelined BERT driver (#1′/#3 on each stage's layers, #25/#26
-    # on stage 0) and its step checks; 6o. the same for XLNet (#11′/#13);
-    # 6p. PP×TP, FSDP and FSDP×TP (#8/#10), with the peak memory under FSDP
-    pp_counts = pp_driver_path(args, fa, card)
-    par_counts, fsdp_peaks = par_driver_paths(args, fa, card)
-    print(json.dumps({"fsdp_peak_memory": fsdp_peaks, "card": card}))
+    work = tempfile.mkdtemp(prefix="chip_smoke_6q_")
+    beside = {}
+    try:
+        _phase("6l")
+        beside["6p"] = _start_phase_process("6p", args, work)
+        # 6l. The tensor-parallel MAG-XLNet driver (#11/#13; inkernel
+        # #20/#22) and its step checks (#23/#24 at S=512); 6m. the flash
+        # driver and the dropout-0 step through #6/#7
+        xtp_driver_counts = xlnet_tp_driver_path(args, fa, card)
+        _phase("6m")
+        flash_driver_counts = flash_driver_path(args, rng, fa, card)
 
+        _phase("6n/6o")
+        beside["6r/6s"] = _start_phase_process("6r/6s", args, work)
+        # 6n. The pipelined BERT driver (#1′/#3 on each stage's layers,
+        # #25/#26 on stage 0) and its step checks; 6o. the same for XLNet
+        # (#11′/#13)
+        pp_counts = pp_driver_path(args, fa, card)
+        # 6p. PP×TP, FSDP and FSDP×TP (#8/#10), with the peak memory under
+        # FSDP; 6r. the XLNet memory over two data ranks (#11′ and #13 at
+        # K = 100, #11) and 6s. the explicit-collectives step (#1′/#3),
+        # beside 6q's --fsdp --model_parallel 2 over two processes
+        _phase("6p, 6r/6s: the rest")
+        par_counts, fsdp_peaks = _join_phase_process("6p", *beside.pop("6p"))
+        print(json.dumps({"fsdp_peak_memory": fsdp_peaks, "card": card}))
+        (mp_counts,) = _join_phase_process("6r/6s", *beside.pop("6r/6s"))
+
+        # 6q. Two driver processes (--num_processes 2) on the card against
+        # one process's two ranks (#1′/#3, #25/#26), alone, for the walls
+        _phase("6q")
+        q_counts, mp_steps = multiprocess_driver_path(args, fa, card, work)
+        mp_counts.update(q_counts)
+        print(json.dumps({"multiprocess_step_ms": mp_steps, "card": card,
+                          "note": "host-staged gloo on one shared card"}))
+    finally:
+        for proc, _ in beside.values():
+            _stop_process_group(proc)
+        shutil.rmtree(work, ignore_errors=True)
+
+    _phase("7")
     # 7. Result
     def by_path(name):
         paths = {"serving": serve_counts[name],
@@ -8234,7 +8949,8 @@ def main() -> int:
                  **{path: c[name] for path, c in
                     flash_driver_counts.items()},
                  **{path: c[name] for path, c in pp_counts.items()},
-                 **{path: c[name] for path, c in par_counts.items()}}
+                 **{path: c[name] for path, c in par_counts.items()},
+                 **{path: c[name] for path, c in mp_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -8470,6 +9186,7 @@ def main() -> int:
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")
+    print(json.dumps({"phase_seconds": _phase_seconds(), "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -440,7 +440,7 @@ def _saved_checkpoint(directory):
     (["--pipeline_parallel", "2", "--pp_microbatches", "2", "--n_epochs",
       "1", "--synthetic_sizes", "8", "8", "8", "--train_batch_size", "8"],
      "A.10 ported"),
-    (["--num_processes", "2"], "A.10"),
+    (["--num_processes", "2", "--pipeline_parallel", "2"], "A.10.4 JAX"),
     (["--tp_shard_attention", "--model", "xlnet-base-cased"], "A.10 JAX"),
     (["--compiler_options", "{}"], "A.10.6"),
     (["--mem_len", "4"], "A.8"),
@@ -472,7 +472,10 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
     flash`` (A.2) is ported: at S=128 it trains and exits 0
     (``tests/test_torch_flash.py``). ``--compiler_options``
     (A.10.6) are XLA's: they exit 2 saying that no torch counterpart
-    exists, naming no item. The checkpoint flags (A.6) are ported: their
+    exists, naming no item. ``--num_processes`` (A.10.4) is ported
+    (``tests/test_torch_multiprocess.py``): with ``--pipeline_parallel``
+    it exits 2 with the JAX driver's refusal (a bare ``--num_processes 2``
+    would wait for its second process). The checkpoint flags (A.6) are ported: their
     cases are the JAX driver's refusals of them, each exiting 2 with its
     message (``_a6_refusal``) before anything is built. ``--vocab *.model``
     (A.15), ``--export_serving`` (A.9) and ``--remat`` (A.14) are ported
@@ -499,6 +502,11 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
         return
     if item == "A.10 JAX":
         assert "--tp_shard_attention requires --model_parallel > 1" in err
+        assert "ROADMAP" not in err
+        return
+    if item == "A.10.4 JAX":
+        assert ("--num_processes > 1 composes with the data-parallel "
+                "trainer" in err and "not with --pipeline_parallel" in err)
         assert "ROADMAP" not in err
         return
     if item == "A.10.6":

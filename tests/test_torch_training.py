@@ -269,7 +269,11 @@ def test_unported_trainer_options_raise(kw, item):
     ported: without a mesh there is no data axis to split over, so the
     trainer builds and steps as the plain one (JAX's one-device mesh
     replicates every leaf the same way; the ranks run in
-    tests/test_torch_fsdp.py)."""
+    tests/test_torch_fsdp.py). ``multiprocess`` (A.10.4) is ported: in
+    one process the process's rows are the whole batch, so the trainer
+    steps as the plain one, bit for bit; with ``mem_len`` it raises the
+    JAX trainer's refusal (the processes run in
+    tests/test_torch_multiprocess.py)."""
     _, _, tcfg, tmm = _configs("einsum")
     model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
                                                    device="cpu")
@@ -291,6 +295,26 @@ def test_unported_trainer_options_raise(kw, item):
         st = tr.init_state(0)
         assert getattr(model, "fsdp_sharding", None) is None
         assert st.step == 0
+        return
+    if "multiprocess" in kw:
+        with pytest.raises(ValueError, match="multiprocess does not "
+                           "compose with mem_len") as e:
+            ttrainer.Trainer(model=model, tx=toptim.make_optimizer(LR, 1),
+                             mem_len=4, **kw)
+        assert "ROADMAP" not in str(e.value)
+        losses = []
+        for multiprocess in (True, False):
+            model = tbert.MagBertForSequenceClassification(tcfg, tmm, DV, DA,
+                                                           device="cpu")
+            tr = ttrainer.Trainer(model=model,
+                                  tx=toptim.make_optimizer(LR, 1),
+                                  multiprocess=multiprocess)
+            st = tr.init_state(0)
+            batch = _split(B, seed=3)
+            losses.append((float(tr._train_step(st, tr._put_batch(batch))),
+                           model.classifier.weight.detach().clone()))
+        assert losses[0][0] == losses[1][0]
+        assert torch.equal(losses[0][1], losses[1][1])
         return
     if "compiler_options" in kw:
         with pytest.raises(ValueError, match="XLA compiler options") as e:
