@@ -161,14 +161,21 @@ def convert_to_features(
         out_ids[:] = tokenizer.pad_token_id
         out_seg[:] = 3
 
+    # the native (C++) tokenize/align path when the tokenizer has it
+    # (data/native.py)
+    native = hasattr(tokenizer, "tokenize_words_to_ids")
     for i, example in enumerate(examples):
         (words, visual, acoustic), label_id, _segment = example
-        token_ids = []
-        inversions = []
-        for w_idx, word in enumerate(words):
-            pieces = tokenizer.tokenize(word)
-            token_ids.extend(tokenizer.convert_tokens_to_ids(pieces))
-            inversions.extend([w_idx] * len(pieces))
+        if native:
+            token_ids, inversions = tokenizer.tokenize_words_to_ids(
+                list(words))
+        else:
+            token_ids = []
+            inversions = []
+            for w_idx, word in enumerate(words):
+                pieces = tokenizer.tokenize(word)
+                token_ids.extend(tokenizer.convert_tokens_to_ids(pieces))
+                inversions.extend([w_idx] * len(pieces))
         inv = np.asarray(inversions, np.int64)
         if len(token_ids) > s - 2:
             token_ids = token_ids[: s - 2]

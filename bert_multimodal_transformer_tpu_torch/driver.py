@@ -134,8 +134,9 @@ FAMILY_ERRORS = (
 
 # (flag as the user writes it, test on the parsed args, ROADMAP item).
 UNPORTED = (
-    ("--rng_impl threefry2x32", lambda a: a.rng_impl == "threefry2x32",
-     "A.5"),
+    ("--rng_impl threefry2x32 with --pipeline_parallel > 1",
+     lambda a: a.rng_impl == "threefry2x32" and a.pipeline_parallel > 1,
+     "A.5.1"),
 )
 
 
@@ -289,8 +290,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["threefry2x32", "rbg"],
                    help="rbg: the card's own dropout streams (Philox in "
                         "the attention kernel, torch generators "
-                        "elsewhere); threefry2x32, the JAX package's "
-                        "portable stream, is not ported yet (ROADMAP A.5)")
+                        "elsewhere). threefry2x32: the JAX package's "
+                        "stream, replayed: init params and every hidden, "
+                        "MAG and einsum-attention dropout mask as the JAX "
+                        "driver draws them (kernel T on the card), the "
+                        "fused kernels' Philox seeded with JAX's draw; "
+                        "not with --pipeline_parallel (ROADMAP A.5.1)")
     p.add_argument("--wire_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float16"],
                    help="--predict_only: cast the modality features to "
@@ -700,24 +705,33 @@ def _train(args, mesh):
         seed=args.seed, num_processes=args.num_processes,
         process_id=args.process_id)
     if args.synthetic:
+        tokenizer = (SimpleUnigramTokenizer if is_xlnet
+                     else WordPieceTokenizer).from_wordlist(
+                         synthetic.vocabulary())
+    elif args.data_pickle is None:
+        print("error: provide --data_pickle or --synthetic", file=sys.stderr)
+        return 2, None
+    else:
+        tokenizer = get_tokenizer(args.model, args.vocab)
+    vocab_size = getattr(tokenizer, "vocab_size", 30522)
+    if isinstance(tokenizer, WordPieceTokenizer):
+        # the native C++ tokenize/align path where g++ builds it, as the
+        # JAX driver takes it (the same ids; data/native.py)
+        from bert_multimodal_transformer_tpu_torch.data import native
+
+        if native.available():
+            tokenizer = native.NativeWordPieceTokenizer(tokenizer)
+    if args.synthetic:
         data = synthetic.make_dataset(
             visual_dim=ds.visual_dim, acoustic_dim=ds.acoustic_dim,
             n_train=args.synthetic_sizes[0], n_dev=args.synthetic_sizes[1],
             n_test=args.synthetic_sizes[2], seed=args.seed)
-        tokenizer = (SimpleUnigramTokenizer if is_xlnet
-                     else WordPieceTokenizer).from_wordlist(
-                         synthetic.vocabulary())
         with tempfile.TemporaryDirectory() as tmp:
             pickle_path = os.path.join(tmp, f"{args.dataset}.pkl")
             synthetic.write_pickle(pickle_path, data)
             train_it, dev_it, test_it, num_steps = set_up_data_loaders(
                 pickle_path, tokenizer, **loader_kw)
     else:
-        if args.data_pickle is None:
-            print("error: provide --data_pickle or --synthetic",
-                  file=sys.stderr)
-            return 2, None
-        tokenizer = get_tokenizer(args.model, args.vocab)
         train_it, dev_it, test_it, num_steps = set_up_data_loaders(
             args.data_pickle, tokenizer, **loader_kw)
 
@@ -726,7 +740,6 @@ def _train(args, mesh):
                           dropout_prob=args.dropout_prob,
                           injection_index=1 if is_xlnet else 0,
                           use_fused_kernel=args.use_fused_mag)
-    vocab_size = getattr(tokenizer, "vocab_size", 30522)
     if is_xlnet:
         cfg = (XLNetConfig.tiny(vocab_size) if args.tiny
                else XLNetConfig.xlnet_base_cased())
@@ -781,7 +794,8 @@ def _train(args, mesh):
                           grad_accum=args.gradient_accumulation_step,
                           tp_shard_attention=args.tp_shard_attention,
                           fsdp=args.fsdp, mem_len=args.mem_len or None,
-                          multiprocess=args.num_processes > 1)
+                          multiprocess=args.num_processes > 1,
+                          rng_impl=args.rng_impl)
     # The JAX driver draws its init sample from the train loader, which
     # takes the first epoch's shuffle; drawing it here too keeps the
     # training data order the same for the same seed.
@@ -811,7 +825,11 @@ def _train(args, mesh):
                 # exact continuation: restore the state the meta names
                 # (params before the optimizer's moments), replay the data
                 # order, carry the completed epochs
-                state = ckpt.restore(state, meta["state_step"])
+                try:
+                    state = ckpt.restore(state, meta["state_step"])
+                except ValueError as e:  # the other --rng_impl's stream
+                    print(f"error: {e}", file=sys.stderr)
+                    return 2, None
                 start_epoch = meta["start_epoch"]
                 start_batch = meta["start_batch"]
                 train_it.restore_position(meta["iter_shuffles_to_burn"])
@@ -822,7 +840,11 @@ def _train(args, mesh):
                           f"{start_batch} (step {meta['state_step']})")
             else:
                 # checkpoints without a meta: a warm resume of the state
-                state = ckpt.restore_latest(state) or state
+                try:
+                    state = ckpt.restore_latest(state) or state
+                except ValueError as e:
+                    print(f"error: {e}", file=sys.stderr)
+                    return 2, None
 
     logger = (MetricLogger(project="MAG", config=vars(args),
                            jsonl_path=jsonl_path) if is_main else None)

@@ -34,13 +34,19 @@ dropout sites: the embeddings after their LayerNorm, the MAG output, the
 attention probs (in the kernel, or on the einsum branch), the attention
 output and the FFN output before their residual LayerNorms, and the pooled
 output before the classifier. It needs ``dropout_rng`` (an int seed or a
-CPU ``torch.Generator``; see ``ops/dropout.py::DropoutRngs``) in place of
-Flax's ``rngs={"dropout": key}``.
+CPU ``torch.Generator``, see ``ops/dropout.py::DropoutRngs``; or, for
+JAX's threefry stream, ``ThreefryRngs.from_key(key)``) in place of Flax's
+``rngs={"dropout": key}``. Each module hands its submodules
+``rngs.child(<the JAX module's name>)`` and each site draws under the name
+of its JAX counterpart (``Dropout_0``, or the attention scope itself for
+the probs and the kernel seed), so under threefry every site draws the key
+the JAX model draws there. ``init_params_threefry(key)`` draws every param
+as the JAX ``model.init(key)`` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +83,7 @@ from bert_multimodal_transformer_tpu_torch.parallel.tp import (
     copy_to_model,
     local_heads,
     reduce_from_model,
+    shard_state_dict,
 )
 
 
@@ -160,7 +167,7 @@ class BertEmbeddings(nn.Module):
              + F.embedding(token_type_ids, self.token_type_embeddings.weight)
              ).to(self.dtype)
         return _hidden_dropout(self.LayerNorm(x), self.hidden_dropout_prob,
-                               rngs, deterministic)
+                               rngs, deterministic, "Dropout_0")
 
 
 class BertSelfAttention(nn.Module):
@@ -234,12 +241,12 @@ class BertSelfAttention(nn.Module):
                 ctx = fused_attention_tp(
                     q, k, v, attention_mask_2d, mesh=mesh, scale=scale,
                     dropout_rate=rate,
-                    dropout_rng=rngs.host if train else None,
+                    dropout_rng=rngs.seed() if train else None,
                     deterministic=deterministic)
             else:
                 ctx = dot_product_attention(
                     q, k, v, attn_bias, scale=scale, dropout_rate=rate,
-                    dropout_rng=rngs.device if train else None,
+                    dropout_rng=rngs.mask() if train else None,
                     deterministic=deterministic,
                     head_mask=(None if head_mask is None
                                else head_mask[h0:h0 + hl]),
@@ -259,7 +266,7 @@ class BertSelfAttention(nn.Module):
                 hidden.to(self.dtype), self.qkv.weight.to(self.dtype).t(),
                 self.qkv.bias.to(self.dtype), attention_mask_2d, n_heads=h,
                 scale=scale, dropout_rate=rate,
-                dropout_rng=rngs.host if train else None,
+                dropout_rng=rngs.seed() if train else None,
                 deterministic=deterministic, qkv_residual=cfg.qkv_residual)
             out = dense(self.output_dense, ctx, self.dtype)
         else:
@@ -271,7 +278,7 @@ class BertSelfAttention(nn.Module):
                 ctx = fused_attention_packed(
                     qkv, attention_mask_2d, n_heads=h, scale=scale,
                     dropout_rate=rate,
-                    dropout_rng=rngs.host if train else None,
+                    dropout_rng=rngs.seed() if train else None,
                     deterministic=deterministic)
             elif flash:
                 ctx = flash_attention(qkv, attention_mask_2d, n_heads=h,
@@ -280,7 +287,7 @@ class BertSelfAttention(nn.Module):
                 q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
                 ctx = dot_product_attention(
                     q, k, v, attn_bias, scale=scale, dropout_rate=rate,
-                    dropout_rng=rngs.device if train else None,
+                    dropout_rng=rngs.mask() if train else None,
                     deterministic=deterministic, head_mask=head_mask,
                     return_probs=output_attentions)
                 if output_attentions:
@@ -288,7 +295,7 @@ class BertSelfAttention(nn.Module):
                 ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
             out = dense(self.output_dense, ctx, self.dtype)
         out = _hidden_dropout(out, cfg.hidden_dropout_prob, rngs,
-                              deterministic)
+                              deterministic, "Dropout_0")
         out = self.output_LayerNorm(out + hidden)
         if output_attentions:
             return out, probs
@@ -328,7 +335,7 @@ class BertLayer(nn.Module):
                                   attention_mask_2d,
                                   deterministic=deterministic,
                                   output_attentions=output_attentions,
-                                  rngs=rngs)
+                                  rngs=_child(rngs, "attention"))
         probs = None
         if output_attentions:
             attn_out, probs = attn_out
@@ -341,7 +348,7 @@ class BertLayer(nn.Module):
         else:
             x = row_parallel_dense(self.output_dense, x, self.dtype, mesh)
         x = _hidden_dropout(x, self.config.hidden_dropout_prob, rngs,
-                            deterministic)
+                            deterministic, "Dropout_0")
         x = self.output_LayerNorm(x + attn_out)
         if output_attentions:
             return x, probs
@@ -385,9 +392,10 @@ class BertEncoder(nn.Module):
             hm = None
             if head_mask is not None:
                 hm = head_mask[i] if head_mask.dim() == 2 else head_mask
+            layer_rngs = _child(rngs, f"layer_{i}")
             args = (hidden, attn_bias, hm, attention_mask_2d, deterministic,
-                    output_attentions, rngs)
-            out = (remat_call(layer, rngs, self.remat_policy, *args)
+                    output_attentions, layer_rngs)
+            out = (remat_call(layer, layer_rngs, self.remat_policy, *args)
                    if self.remat else layer(*args))
             if output_attentions:
                 hidden, probs = out
@@ -416,22 +424,27 @@ class BertPooler(nn.Module):
         return torch.tanh(dense(self.dense, hidden[:, 0], self.dtype))
 
 
-def _hidden_dropout(x: torch.Tensor, rate: float,
-                    rngs: Optional[DropoutRngs],
-                    deterministic: bool) -> torch.Tensor:
+def _hidden_dropout(x: torch.Tensor, rate: float, rngs, deterministic: bool,
+                    name: str, batch: bool = True) -> torch.Tensor:
+    """A Flax ``nn.Dropout`` site named ``name`` in the scope of ``rngs``
+    (``batch``: dim 0 of x is the batch)."""
     if deterministic or rate == 0.0:
         return x
-    return dropout(x, rate, rngs.device)
+    return dropout(x, rate, rngs.mask(name, batch))
 
 
-def _dropout_rngs(dropout_rng, deterministic: bool,
-                  ref: torch.Tensor) -> Optional[DropoutRngs]:
+def _child(rngs, name: str):
+    """The stream of submodule ``name``'s scope (None stays None)."""
+    return None if rngs is None else rngs.child(name)
+
+
+def _dropout_rngs(dropout_rng, deterministic: bool, ref: torch.Tensor):
     if deterministic:
         return None
     if dropout_rng is None:
         raise ValueError(
-            "deterministic=False needs dropout_rng (an int seed or a CPU "
-            "torch.Generator)")
+            "deterministic=False needs dropout_rng (an int seed, a CPU "
+            "torch.Generator or ThreefryRngs)")
     return DropoutRngs.make(dropout_rng, ref.device)
 
 
@@ -470,6 +483,20 @@ def init_weights(module: nn.Module, initializer_range: float,
             elif isinstance(sub, LayerNorm):
                 sub.weight.fill_(1.0)
                 sub.bias.zero_()
+
+
+def load_threefry_params(model: nn.Module,
+                         full: Dict[str, torch.Tensor]) -> None:
+    """Copy a full-size state dict into ``model``'s params in place, a
+    tensor-parallel rank its chunks of each (``parallel/tp.py``); every
+    rank draws the same full tensors, as ``_normal_`` draws under rbg. An
+    FSDP model is gathered around this (``Trainer.init_state``)."""
+    sharding = getattr(model, "tp_sharding", None)
+    if sharding is not None:
+        full = shard_state_dict(full, *sharding)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(full[name])
 
 
 class MagBertModel(nn.Module):
@@ -538,15 +565,17 @@ class MagBertModel(nn.Module):
 
         emb = self.embeddings(input_ids, token_type_ids, position_ids,
                               inputs_embeds=inputs_embeds,
-                              deterministic=deterministic, rngs=rngs)
+                              deterministic=deterministic,
+                              rngs=_child(rngs, "embeddings"))
         fused = self.MAG(emb, visual.to(self.dtype), acoustic.to(self.dtype),
                          deterministic=deterministic,
-                         dropout_rng=rngs.device if rngs else None)
+                         dropout_rng=(rngs.child("MAG").mask("Dropout_0")
+                                      if rngs else None))
         enc_out = self.encoder(fused, attn_bias, head_mask, mask_f32,
                                deterministic=deterministic,
                                output_hidden_states=output_hidden_states,
                                output_attentions=output_attentions,
-                               rngs=rngs)
+                               rngs=_child(rngs, "encoder"))
         if output_hidden_states or output_attentions:
             seq_out, all_hidden, all_attn = enc_out
         else:
@@ -592,6 +621,53 @@ class MagBertForSequenceClassification(nn.Module):
         init_weights(self.classifier, self.config.initializer_range,
                      generator)
 
+    def flax_param_spec(self) -> dict:
+        """The JAX ``MagBertForSequenceClassification``'s param tree as
+        ``utils/flax_rng.py::init_params`` takes it: normal(initializer
+        range) kernels and embeddings, zero biases, unit LayerNorms, MAG's
+        own, each scope's params in the JAX module's order."""
+        cfg = self.config
+        d, std = cfg.hidden_size, cfg.initializer_range
+
+        def dense(n_in, n_out):
+            return {"kernel": ("normal", (n_in, n_out), std),
+                    "bias": ("zeros", (n_out,))}
+
+        norm = {"scale": ("ones", (d,)), "bias": ("zeros", (d,))}
+        layer = {"attention": {"qkv": dense(d, 3 * d),
+                               "output_dense": dense(d, d),
+                               "output_LayerNorm": norm},
+                 "intermediate_dense": dense(d, cfg.intermediate_size),
+                 "output_dense": dense(cfg.intermediate_size, d),
+                 "output_LayerNorm": norm}
+        embeddings = {
+            "word_embeddings": ("normal", (cfg.vocab_size, d), std),
+            "position_embeddings": ("normal",
+                                    (cfg.max_position_embeddings, d), std),
+            "token_type_embeddings": ("normal", (cfg.type_vocab_size, d),
+                                      std),
+            "LayerNorm": norm}
+        return {"bert": {"embeddings": embeddings,
+                         "MAG": self.bert.MAG.flax_param_spec(),
+                         "encoder": {f"layer_{i}": layer for i in
+                                     range(cfg.num_hidden_layers)},
+                         "pooler": {"dense": dense(d, d)}},
+                "classifier": dense(d, cfg.num_labels)}
+
+    def init_params_threefry(self, key) -> None:
+        """Every param as the JAX ``model.init(key)["params"]`` draws it
+        under threefry2x32 (``utils/flax_rng.py``), on the params' device,
+        converted to the port's layout (``utils/convert.py``) and copied
+        in place (``load_threefry_params``)."""
+        from bert_multimodal_transformer_tpu_torch.utils import convert
+        from bert_multimodal_transformer_tpu_torch.utils.flax_rng import (
+            init_params,
+        )
+
+        tree = init_params(key, self.flax_param_spec(),
+                           self.classifier.weight.device)
+        load_threefry_params(self, convert.params_from_flax(tree))
+
     def forward(
         self,
         input_ids: Optional[torch.Tensor],
@@ -617,11 +693,11 @@ class MagBertForSequenceClassification(nn.Module):
         bert_out = self.bert(
             input_ids, visual, acoustic, attention_mask, token_type_ids,
             position_ids, head_mask, inputs_embeds,
-            deterministic=deterministic, dropout_rng=rngs,
+            deterministic=deterministic, dropout_rng=_child(rngs, "bert"),
             output_hidden_states=output_hidden_states,
             output_attentions=output_attentions)
         pooled = _hidden_dropout(bert_out[1], self.config.hidden_dropout_prob,
-                                 rngs, deterministic)
+                                 rngs, deterministic, "Dropout_0")
         extras = bert_out[2:]  # hidden_states/attentions when requested
         logits = dense(self.classifier, pooled, self.dtype).float()
         if labels is not None:

@@ -61,6 +61,24 @@ class MAG(nn.Module):
             for name in self.PARAM_NAMES:
                 getattr(self, name).copy_(init[name])
 
+    def flax_param_spec(self) -> Dict[str, tuple]:
+        """The JAX MAG's params as ``utils/flax_rng.py::init_params``
+        takes them, in its declaration order: torch ``nn.Linear``'s
+        Kaiming-uniform, bound 1/√fan_in (JAX ``models/mag.py:20-26``),
+        and a unit LayerNorm."""
+        d, dv, da = self.hidden_size, self.visual_dim, self.acoustic_dim
+        hv, ha, bv, ba = (1.0 / (fan_in ** 0.5)
+                          for fan_in in (dv + d, da + d, dv, da))
+        return {"w_hv_v": ("uniform", (dv, d), hv),
+                "w_hv_t": ("uniform", (d, d), hv),
+                "b_hv": ("uniform", (d,), hv),
+                "w_ha_a": ("uniform", (da, d), ha),
+                "w_ha_t": ("uniform", (d, d), ha),
+                "b_ha": ("uniform", (d,), ha),
+                "w_v": ("uniform", (dv, d), bv), "b_v": ("uniform", (d,), bv),
+                "w_a": ("uniform", (da, d), ba), "b_a": ("uniform", (d,), ba),
+                "ln_gamma": ("ones", (d,)), "ln_beta": ("zeros", (d,))}
+
     def params_dict(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in self.PARAM_NAMES}
 
@@ -68,8 +86,9 @@ class MAG(nn.Module):
                 acoustic: torch.Tensor, *, deterministic: bool = True,
                 dropout_rng: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """``dropout_rng``: a generator on the activations' device, needed
-        when not ``deterministic``."""
+        """``dropout_rng``: a generator on the activations' device, or a
+        threefry ``ops/dropout.py::SiteKey``, needed when not
+        ``deterministic``."""
         gate = mag_gate_fused if self.use_fused_kernel else mag_ops.mag_gate
         fused = gate(self.params_dict(), text_embedding, visual, acoustic,
                      beta_shift=self.beta_shift)

@@ -15,19 +15,19 @@ saves the outputs of the matrix products (``aten.mm``, ``aten.addmm``,
 attention and MAG kernels' autograd functions are not products: they are
 recomputed, as the Pallas calls are under JAX's policy.
 
-The dropout draws. The port draws from the explicit ``DropoutRngs``
-(``ops/dropout.py``), not from the global generators that
-``checkpoint``'s ``preserve_rng_state`` restores: the host generator gives
-each layer's kernel seed, the device generator the hidden and einsum
-masks. ``remat_call`` records both generators' states on entry to the
-layer, sets them back for the recompute, and restores the outer states
-after it, so the recompute draws the seeds and masks of the first pass
-and a rematerialized step equals the plain step bit for bit.
+The dropout draws. The port draws from the explicit streams of
+``ops/dropout.py``, not from the global generators that ``checkpoint``'s
+``preserve_rng_state`` restores: under rbg ``DropoutRngs``, whose host
+generator gives each layer's kernel seed and whose device generator the
+hidden and einsum masks; under threefry ``ThreefryRngs``, whose keys are
+values derived from the Flax scope counters. ``remat_call`` records the
+stream's state (both generators' states, or the counters) on entry to the
+layer, sets it back for the recompute, and restores the outer state after
+it, so the recompute draws the seeds and masks of the first pass and a
+rematerialized step equals the plain step bit for bit.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 from torch.utils.checkpoint import (
@@ -35,8 +35,6 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
     noop_context_fn,
 )
-
-from bert_multimodal_transformer_tpu_torch.ops.dropout import DropoutRngs
 
 REMAT_POLICIES = ("full", "dots")
 
@@ -60,16 +58,14 @@ def _dots_contexts():
         [aten.mm.default, aten.addmm.default, aten.bmm.default])
 
 
-def remat_call(layer, rngs: Optional[DropoutRngs], policy: str, /, *args,
-               **kwargs):
+def remat_call(layer, rngs, policy: str, /, *args, **kwargs):
     """``layer(*args, **kwargs)`` with its activations rematerialized
     under ``policy``, the recompute replaying ``rngs``' draws (module
     docstring). Without a gradient to take there is nothing to save, and
     the layer runs as it is."""
     if not torch.is_grad_enabled():
         return layer(*args, **kwargs)
-    entry = (None if rngs is None
-             else (rngs.host.get_state(), rngs.device.get_state()))
+    entry = None if rngs is None else rngs.get_state()
     calls = 0
 
     def run(*a, **kw):
@@ -77,16 +73,14 @@ def remat_call(layer, rngs: Optional[DropoutRngs], policy: str, /, *args,
         calls += 1
         if calls == 1 or entry is None:
             return layer(*a, **kw)
-        outer = (rngs.host.get_state(), rngs.device.get_state())
-        rngs.host.set_state(entry[0])
-        rngs.device.set_state(entry[1])
+        outer = rngs.get_state()
+        rngs.set_state(entry)
         try:
             return layer(*a, **kw)
         finally:
             # the recompute may stop early (checkpoint's early stop raises
             # out of it); the outer draws continue where they were
-            rngs.host.set_state(outer[0])
-            rngs.device.set_state(outer[1])
+            rngs.set_state(outer)
 
     return checkpoint(
         run, *args, use_reentrant=False,

@@ -70,12 +70,14 @@ from bert_multimodal_transformer_tpu_torch.config import (
 )
 from bert_multimodal_transformer_tpu_torch.models.bert import (
     LayerNorm,
+    _child,
     _dropout_rngs,
     _hidden_dropout,
     _linear,
     _normal_,
     dense,
     init_weights,
+    load_threefry_params,
     row_parallel_dense,
 )
 from bert_multimodal_transformer_tpu_torch.models.mag import MAG
@@ -266,7 +268,7 @@ class XLNetRelativeAttention(nn.Module):
                 v_head.to(dt).reshape(bsz, klen, h * dh),
                 ebias.expand(bsz, h, qlen, klen),
                 n_heads=h, scale=scale, dropout_rate=cfg.dropout,
-                dropout_rng=rngs.host if train else None,
+                dropout_rng=rngs.seed() if train else None,
                 deterministic=deterministic, **tp)
             return ctx.reshape(bsz, qlen, h, dh)
 
@@ -287,7 +289,8 @@ class XLNetRelativeAttention(nn.Module):
         if mesh is not None:
             # the one-card keep mask, sliced to this rank's heads
             h0 = local_heads(cfg.n_head, mesh)[0]
-        probs = dropout(probs, cfg.dropout, rngs.device if train else None,
+        probs = dropout(probs, cfg.dropout,
+                        rngs.mask("attn_dropout") if train else None,
                         not train,
                         shard=None if h0 is None else (1, cfg.n_head, h0))
         if head_mask is not None:
@@ -347,7 +350,7 @@ class XLNetRelativeAttention(nn.Module):
             v_head.to(dt).reshape(bsz, klen, h * dh), ed,
             segd.expand(bsz, qlen, klen), maskb.expand(bsz, qlen, klen),
             n_heads=h, scale=scale, dropout_rate=cfg.dropout,
-            dropout_rng=rngs.host if train else None,
+            dropout_rng=rngs.seed() if train else None,
             deterministic=deterministic, tier=tier, **tp)
         return ctx.reshape(bsz, qlen, h, dh)
 
@@ -358,7 +361,8 @@ class XLNetRelativeAttention(nn.Module):
         if self.tp_mesh is not None:
             # o is row-parallel over the heads: the partials summed
             out = reduce_from_model(out, self.tp_mesh)
-        out = _hidden_dropout(out, self.config.dropout, rngs, deterministic)
+        out = _hidden_dropout(out, self.config.dropout, rngs, deterministic,
+                              "out_dropout")
         return self.layer_norm(out + h)
 
     def forward(self, h, g, attn_mask_h, attn_mask_g, r, seg_mat,
@@ -458,17 +462,20 @@ class XLNetFeedForward(nn.Module):
         if mesh is None:
             out = ACT2FN[cfg.ff_activation](dense(self.layer_1, x,
                                                   self.dtype))
-            out = _hidden_dropout(out, cfg.dropout, rngs, deterministic)
+            out = _hidden_dropout(out, cfg.dropout, rngs, deterministic,
+                                  "Dropout_0")
             out = dense(self.layer_2, out, self.dtype)
         else:
             out = ACT2FN[cfg.ff_activation](dense(
                 self.layer_1, copy_to_model(x, mesh), self.dtype))
             if not deterministic and cfg.dropout > 0.0:
                 cols = out.shape[-1]
-                out = dropout(out, cfg.dropout, rngs.device, shard=(
-                    out.dim() - 1, cfg.d_inner, mesh.model_rank * cols))
+                out = dropout(out, cfg.dropout, rngs.mask("Dropout_0"),
+                              shard=(out.dim() - 1, cfg.d_inner,
+                                     mesh.model_rank * cols))
             out = row_parallel_dense(self.layer_2, out, self.dtype, mesh)
-        out = _hidden_dropout(out, cfg.dropout, rngs, deterministic)
+        out = _hidden_dropout(out, cfg.dropout, rngs, deterministic,
+                              "Dropout_1")
         return self.layer_norm(out + x)
 
 
@@ -484,13 +491,17 @@ class XLNetLayer(nn.Module):
                 rngs=None, output_attentions=False, mems=None, **hoisted):
         out = self.rel_attn(h, g, attn_mask_h, attn_mask_g, r, seg_mat,
                             target_mapping, head_mask,
-                            deterministic=deterministic, rngs=rngs,
+                            deterministic=deterministic,
+                            rngs=_child(rngs, "rel_attn"),
                             output_attentions=output_attentions, mems=mems,
                             **hoisted)
         out_h, out_g = out[:2]
-        out_h = self.ff(out_h, deterministic=deterministic, rngs=rngs)
+        # one ff module for both streams: the second call draws its
+        # dropouts with Flax's counter 2
+        ff_rngs = _child(rngs, "ff")
+        out_h = self.ff(out_h, deterministic=deterministic, rngs=ff_rngs)
         if out_g is not None:
-            out_g = self.ff(out_g, deterministic=deterministic, rngs=rngs)
+            out_g = self.ff(out_g, deterministic=deterministic, rngs=ff_rngs)
         return (out_h, out_g) + tuple(out[2:])
 
 
@@ -633,14 +644,16 @@ class MagXLNetModel(nn.Module):
         else:
             word_emb_k = F.embedding(input_ids,
                                      self.word_embedding.weight).to(dt)
+        # the JAX model's one Dropout module, called for each stream, the
+        # positions and the output (Flax counters 1, 2, ...)
         output_h = _hidden_dropout(word_emb_k, cfg.dropout, rngs,
-                                   deterministic)
+                                   deterministic, "Dropout_0")
         output_g = None
         if target_mapping is not None:
             word_emb_q = self.mask_emb.to(dt).expand(
                 b, target_mapping.shape[1], cfg.d_model)
             output_g = _hidden_dropout(word_emb_q, cfg.dropout, rngs,
-                                       deterministic)
+                                       deterministic, "Dropout_0")
 
         seg_mat = seg_diff = None
         if token_type_ids is not None:
@@ -662,7 +675,8 @@ class MagXLNetModel(nn.Module):
                     f"bi_data=True needs an even batch size, got {b}")
             pos_emb = torch.cat([pos_emb[0].expand(b // 2, -1, -1),
                                  pos_emb[1].expand(b // 2, -1, -1)])
-        pos_emb = _hidden_dropout(pos_emb, cfg.dropout, rngs, deterministic)
+        pos_emb = _hidden_dropout(pos_emb, cfg.dropout, rngs, deterministic,
+                                  "Dropout_0", batch=cfg.bi_data)
 
         # The fused path's layer-independent ebias forms, once per forward.
         mask_bias_h = mask_bias_g = None
@@ -686,9 +700,11 @@ class MagXLNetModel(nn.Module):
                 # the layer's input, before MAG at the injection layer
                 new_mems.append(self._cache_mem(output_h, mems[i]))
             if i == self.multimodal_config.injection_index:
-                output_h = self.MAG(output_h, visual.to(dt), acoustic.to(dt),
-                                    deterministic=deterministic,
-                                    dropout_rng=rngs.device if rngs else None)
+                output_h = self.MAG(
+                    output_h, visual.to(dt), acoustic.to(dt),
+                    deterministic=deterministic,
+                    dropout_rng=(rngs.child("MAG").mask("Dropout_0")
+                                 if rngs else None))
             if output_hidden_states:
                 # per-layer input states, (h, g) pairs under two-stream
                 hidden_states.append(output_h if output_g is None
@@ -698,11 +714,12 @@ class MagXLNetModel(nn.Module):
                 hm = head_mask[i] if head_mask.dim() == 2 else head_mask
             args = (output_h, output_g, non_tgt_mask, attn_mask, pos_emb,
                     seg_mat, target_mapping, hm)
-            kw = dict(deterministic=deterministic, rngs=rngs,
+            layer_rngs = _child(rngs, f"layer_{i}")
+            kw = dict(deterministic=deterministic, rngs=layer_rngs,
                       output_attentions=output_attentions,
                       mask_bias_h=mask_bias_h, mask_bias_g=mask_bias_g,
                       seg_diff=seg_diff, mems=mems[i])
-            out = (remat_call(layer, rngs, "full", *args, **kw)
+            out = (remat_call(layer, layer_rngs, "full", *args, **kw)
                    if self.remat else layer(*args, **kw))
             output_h, output_g = out[:2]
             if output_attentions:
@@ -713,7 +730,7 @@ class MagXLNetModel(nn.Module):
 
         output = _hidden_dropout(output_g if output_g is not None
                                  else output_h, cfg.dropout, rngs,
-                                 deterministic)
+                                 deterministic, "Dropout_0")
         outputs = (output, tuple(new_mems) if keep_mems else None)
         if output_hidden_states:
             outputs = outputs + (tuple(hidden_states),)
@@ -751,7 +768,7 @@ class SequenceSummary(nn.Module):
     def forward(self, hidden, *, deterministic=True, rngs=None):
         out = torch.tanh(dense(self.summary, hidden[:, -1], self.dtype))
         return _hidden_dropout(out, self.config.summary_last_dropout, rngs,
-                               deterministic)
+                               deterministic, "Dropout_0")
 
 
 class MagXLNetForSequenceClassification(nn.Module):
@@ -793,6 +810,55 @@ class MagXLNetForSequenceClassification(nn.Module):
                            generator)
         self._init_head(generator)
 
+    def flax_param_spec(self) -> dict:
+        """The JAX ``MagXLNetForSequenceClassification``'s param tree as
+        ``utils/flax_rng.py::init_params`` takes it, each scope's params
+        in the JAX module's order; with ``mask_emb``, which the JAX model
+        declares (first in the transformer's scope) when it is initialised
+        with a ``target_mapping``."""
+        cfg = self.config
+        d, std = cfg.d_model, cfg.initializer_range
+        hd = cfg.n_head * cfg.d_head
+
+        def dense(n_in, n_out):
+            return {"kernel": ("normal", (n_in, n_out), std),
+                    "bias": ("zeros", (n_out,))}
+
+        norm = {"scale": ("ones", (d,)), "bias": ("zeros", (d,))}
+        bias = ("normal", (cfg.n_head, cfg.d_head), std)
+        rel_attn = {**{name: ("normal", (d, hd), std)
+                       for name in ("q", "k", "v", "o", "r")},
+                    "r_w_bias": bias, "r_r_bias": bias, "r_s_bias": bias,
+                    "seg_embed": ("normal", (2, cfg.n_head, cfg.d_head), std),
+                    "layer_norm": norm}
+        layer = {"rel_attn": rel_attn,
+                 "ff": {"layer_1": dense(d, cfg.d_inner),
+                        "layer_2": dense(cfg.d_inner, d),
+                        "layer_norm": norm}}
+        transformer = {
+            "word_embedding": {"embedding": ("normal", (cfg.vocab_size, d),
+                                             std)},
+            "mask_emb": ("normal", (1, 1, d), std),
+            "MAG": self.transformer.MAG.flax_param_spec(),
+            **{f"layer_{i}": layer for i in range(cfg.n_layer)}}
+        return {"transformer": transformer,
+                "sequence_summary": {"summary": dense(d, d)},
+                "logits_proj": dense(d, cfg.num_labels)}
+
+    def init_params_threefry(self, key) -> None:
+        """Every param as the JAX ``model.init(key)["params"]`` draws it
+        under threefry2x32 (``utils/flax_rng.py``), on the params' device,
+        converted to the port's layout (``utils/convert.py``) and copied
+        in place (``load_threefry_params``)."""
+        from bert_multimodal_transformer_tpu_torch.utils import convert
+        from bert_multimodal_transformer_tpu_torch.utils.flax_rng import (
+            init_params,
+        )
+
+        tree = init_params(key, self.flax_param_spec(),
+                           self.logits_proj.weight.device)
+        load_threefry_params(self, convert.xlnet_params_from_flax(tree))
+
     def forward(
         self,
         input_ids: Optional[torch.Tensor],
@@ -824,11 +890,12 @@ class MagXLNetForSequenceClassification(nn.Module):
             token_type_ids=token_type_ids, input_mask=input_mask,
             head_mask=head_mask, inputs_embeds=inputs_embeds,
             use_cache=use_cache, deterministic=deterministic,
-            dropout_rng=rngs, output_hidden_states=output_hidden_states,
+            dropout_rng=_child(rngs, "transformer"),
+            output_hidden_states=output_hidden_states,
             output_attentions=output_attentions)
-        summary = self.sequence_summary(outputs[0],
-                                        deterministic=deterministic,
-                                        rngs=rngs)
+        summary = self.sequence_summary(
+            outputs[0], deterministic=deterministic,
+            rngs=_child(rngs, "sequence_summary"))
         logits = dense(self.logits_proj, summary, self.dtype).float()
         # hidden_states/attentions when requested; under use_cache the new
         # memory first, so the recurrence runs through the classifier

@@ -36,9 +36,9 @@ def dot_product_attention(
 
     Dropout applies when ``dropout_rate > 0`` and not ``deterministic``:
     each prob is kept with probability 1 − rate, the keep mask drawn from
-    ``dropout_rng`` (a generator on the tensors' device, required then),
-    and a kept prob is scaled as ``p / (1 − rate)`` in fp32
-    (``ops/dropout.py``).
+    ``dropout_rng`` (a generator on the tensors' device, or a threefry
+    ``SiteKey``: JAX's mask; required then), and a kept prob is scaled as
+    ``p / (1 − rate)`` in fp32 (``ops/dropout.py``).
 
     The probs are rounded to the compute dtype before the PV product, and
     both products accumulate in fp32: a bf16 ``torch.matmul`` on the CPU

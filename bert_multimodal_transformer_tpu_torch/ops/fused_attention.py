@@ -94,8 +94,11 @@ It is a pure function of (seed, b, h, q, k): the mask does not depend on
 how a kernel tiles the work, and the recompute backward replays it
 exactly. Every tier draws from the same stream, so for one seed the
 full-H, head-blocked and flash-streamed tiers drop the same elements. The
-seed is drawn on the host from an explicit CPU ``torch.Generator``;
-nothing reads a device tensor back.
+seed is drawn on the host from an explicit CPU ``torch.Generator``, or
+under threefry2x32 replayed from the site's JAX key as the JAX entries
+draw it, ``randint(key, (1, 1), 0, 2**31 − 1)`` (a ``dropout_rng`` that
+is an ``ops/dropout.py::SiteKey``; ``draw_seed``); nothing reads a device
+tensor back.
 
 ``ops/kernels.py`` builds ``csrc/*.cu`` into one shared library with a
 plain C interface at first use, binds it with ctypes and launches its

@@ -193,6 +193,12 @@ def load_kernels() -> ctypes.CDLL:
         # params (no ln_beta), 6 outputs.
         lib.mag_fwd.argtypes = [ptr] * 16 + mag + [i32, ptr]
         lib.mag_bwd.argtypes = [ptr] * 21 + mag + [i32, ptr]
+        # threefry_dropout: x, out, n, n1, n2, n3, base, f0..f3, k0, k1,
+        # keep_prob, divisor, dtype.
+        i64 = ctypes.c_longlong
+        lib.threefry_dropout.argtypes = ([ptr, ptr, i64] + [i32] * 3
+                                         + [i64] * 5 + [u32, u32, f32, f32,
+                                                        i32, ptr])
         for fn in (lib.attn_fwd_packed, lib.attn_bwd_packed,
                    lib.attn_bwd_packed_saved, lib.attn_fwd_packed_hb,
                    lib.attn_bwd_packed_hb, lib.attn_bwd_packed_hb_dkdv,
@@ -210,7 +216,7 @@ def load_kernels() -> ctypes.CDLL:
                    lib.attn_bwd_relik_fs_dkdv, lib.attn_bwd_relik_fs_dq,
                    lib.attn_bwd_relik_fs_dr, lib.attn_fwd_relik,
                    lib.attn_bwd_relik, lib.attn_bwd_relik_saved, lib.mag_fwd,
-                   lib.mag_bwd):
+                   lib.mag_bwd, lib.threefry_dropout):
             fn.restype = ctypes.c_int
         lib.torch_kernels_error_string.argtypes = [i32]
         lib.torch_kernels_error_string.restype = ctypes.c_char_p

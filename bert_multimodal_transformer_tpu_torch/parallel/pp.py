@@ -303,6 +303,11 @@ class PipelineTrainer(Trainer):
         if self.mesh is None or not getattr(self.mesh, "pipelined", False):
             raise ValueError("the pipeline trainer needs a mesh with a "
                              f"'{PIPE_AXIS}' axis (make_pp_mesh)")
+        if self.rng_impl != "rbg":
+            # the JAX pipeline folds microbatch, layer and stage into its
+            # keys (parallel/pp.py, pp_xlnet.py): not ported
+            raise ValueError("the pipeline trainers draw with rng_impl "
+                             "'rbg' only (threefry2x32: ROADMAP A.5.1)")
         if self.grad_accum != 1:
             raise ValueError(
                 "PipelineTrainer accumulates over n_micro microbatches; "
@@ -409,7 +414,7 @@ class PipelineTrainer(Trainer):
             return h
         epi = stage.epilogue
         pooled = _hidden_dropout(epi.pooler(h), cfg.hidden_dropout_prob,
-                                 rngs, deterministic)
+                                 rngs, deterministic, "Dropout_0")
         return dense(epi.classifier, pooled, dt).float().reshape(-1)
 
     # ---- state ---------------------------------------------------------

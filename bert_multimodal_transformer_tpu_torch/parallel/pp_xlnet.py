@@ -105,7 +105,7 @@ class XLNetPipelineTrainer(PipelineTrainer):
         if x_in is None:
             h = _hidden_dropout(
                 F.embedding(ids, pro.word_embedding.weight).to(dt),
-                cfg.dropout, rngs, deterministic)
+                cfg.dropout, rngs, deterministic, "Dropout_0")
         else:
             h = x_in
         # the layer-independent tensors of the fine-tuning forward (the
@@ -118,7 +118,8 @@ class XLNetPipelineTrainer(PipelineTrainer):
         pos_emb = relative_positional_encoding(
             s, s, cfg.d_model, cfg.attn_type, cfg.clamp_len, bi_data=False,
             dtype=dt, device=device)
-        pos_emb = _hidden_dropout(pos_emb, cfg.dropout, rngs, deterministic)
+        pos_emb = _hidden_dropout(pos_emb, cfg.dropout, rngs, deterministic,
+                                  "Dropout_0", batch=False)
         mask_bias_h = None
         if cfg.attention_impl == "fused":
             if non_tgt_mask is not None:
@@ -137,7 +138,8 @@ class XLNetPipelineTrainer(PipelineTrainer):
         if not self._last:
             return h
         epi = stage.epilogue
-        out = _hidden_dropout(h, cfg.dropout, rngs, deterministic)
+        out = _hidden_dropout(h, cfg.dropout, rngs, deterministic,
+                              "Dropout_0")
         summary = epi.sequence_summary(out, deterministic=deterministic,
                                        rngs=rngs)
         return dense(epi.logits_proj, summary, dt).float().reshape(-1)

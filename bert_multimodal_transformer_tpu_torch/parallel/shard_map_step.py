@@ -10,7 +10,11 @@ with the data rank folded in, then every gradient and the loss summed over
 the data axis and divided by the data ranks (JAX's ``pmean``), then AdamW.
 This module names that step under the JAX entry point, so the two cannot
 drift apart (``tests/test_torch_shard_map.py`` holds it against the JAX
-step).
+step). Under threefry2x32 the two part: the JAX explicit step folds the
+data index into the step's key (``fold_in(rng, axis_index)``) and each
+rank draws the masks of its local rows, where the ``Trainer``'s step draws
+its rows of the global batch's masks, so this entry asks the step for the
+folded keys (``make_train_step(explicit=True)``).
 """
 
 from __future__ import annotations
@@ -31,4 +35,4 @@ def make_shard_map_train_step(mesh: Mesh):
             "the explicit-collectives step is data-parallel: the mesh has "
             f"a model axis of {mesh.model_size} and a pipe axis of "
             f"{mesh.pipe_size}")
-    return make_train_step(1, mesh)
+    return make_train_step(1, mesh, explicit=True)

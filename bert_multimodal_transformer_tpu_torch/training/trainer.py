@@ -18,7 +18,8 @@ device).
   split and threads through the batch stream in order.
 
 Losses stay on the device until an epoch ends; the dropout seeds come from
-the state's CPU generator (``ops/dropout.py``), so a step never waits for
+the state's CPU generator, or under ``rng_impl="threefry2x32"`` the keys
+from the state's JAX key (``ops/dropout.py``), so a step never waits for
 the card.
 
 With a ``mesh`` (``parallel/mesh.py``; one Trainer per rank, each fed the
@@ -48,7 +49,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from bert_multimodal_transformer_tpu_torch.ops.dropout import draw_seed
+from bert_multimodal_transformer_tpu_torch.ops.dropout import (
+    ThreefryRngs,
+    ThreefryStream,
+    draw_seed,
+)
 from bert_multimodal_transformer_tpu_torch.parallel import fsdp as fsdp_lib
 from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
 from bert_multimodal_transformer_tpu_torch.parallel.mesh import Mesh
@@ -57,18 +62,22 @@ from bert_multimodal_transformer_tpu_torch.training import (
 )
 from bert_multimodal_transformer_tpu_torch.training.losses import mse_loss
 from bert_multimodal_transformer_tpu_torch.training.optim import AdamWHF
+from bert_multimodal_transformer_tpu_torch.utils import jax_random
+
+RNG_IMPLS = ("rbg", "threefry2x32")
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and advances: the step count, the model (which
     holds the params), its optimizer (which holds the moments and the
-    update count) and the CPU generator every step's dropout draws from."""
+    update count) and the stream every step's dropout draws from: a CPU
+    generator (rbg) or the JAX key (threefry2x32, ``ThreefryStream``)."""
 
     step: int
     model: nn.Module
     optimizer: AdamWHF
-    generator: torch.Generator
+    generator: Union[torch.Generator, ThreefryStream]
 
 
 def _forward(model, batch, generator, deterministic: bool, mems=None):
@@ -91,8 +100,37 @@ def _data_fold(data_rank: int) -> int:
     return (data_rank * 0x9E3779B97F4A7C15) & (2 ** 63 - 1)
 
 
+def _micro_rngs(generator, grad_accum: int, local_rows: int,
+                mesh: Optional[Mesh], explicit: bool) -> list:
+    """Each micro-batch's dropout stream. rbg: the state's generator (over
+    data ranks a generator seeded from it with the data rank folded in).
+    threefry2x32: the JAX step's keys, ``split(state.rng)`` and under
+    accumulation ``split(rng, grad_accum)``; over data ranks each rank
+    draws its rows of the global micro-batch's masks (the JAX GSPMD step's
+    masks), its fused kernels' seeds folded with the data rank, or with
+    ``explicit`` (the JAX shard_map step) ``fold_in(key, data_index)`` on
+    its local rows."""
+    n_data = mesh.data_size if mesh is not None else 1
+    if not isinstance(generator, ThreefryStream):
+        rng = generator
+        if n_data > 1:
+            rng = torch.Generator().manual_seed(
+                draw_seed(rng) ^ _data_fold(mesh.data_rank))
+        return [rng] * grad_accum
+    key = generator.step_key()
+    keys = [key] if grad_accum == 1 else jax_random.split(key, grad_accum)
+    rows, fold = None, 0
+    if n_data > 1 and explicit:
+        keys = [jax_random.fold_in(k, mesh.data_rank) for k in keys]
+    elif n_data > 1:
+        per = local_rows // grad_accum
+        rows, fold = (per * n_data, mesh.data_rank * per), _data_fold(
+            mesh.data_rank)
+    return [ThreefryRngs.from_key(k, rows, fold) for k in keys]
+
+
 def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
-               mesh: Optional[Mesh] = None):
+               mesh: Optional[Mesh] = None, explicit: bool = False):
     """Shared train-step factory (see make_train_step /
     make_masked_train_step / make_mems_train_step for the semantics).
     Gradients of the micro-batches add up in ``.grad`` and are divided
@@ -112,7 +150,9 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
     the state's generator with the data rank folded in, so data shards draw
     different masks and the model ranks of a shard the same ones (the
     hidden dropout and the packed kernels draw on local rows; the split
-    kernels' batch-row offset then changes nothing). A model split by
+    kernels' batch-row offset then changes nothing); under threefry each
+    rank draws its rows of JAX's global masks (``_micro_rngs``;
+    ``explicit``: the JAX shard_map step's folded keys). A model split by
     ``parallel/fsdp.py::shard_model_`` gathers its full weights before the
     forward and keeps its slice of each summed gradient (and of the
     weights) before the optimizer step."""
@@ -138,19 +178,16 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
                 n_valid = float(mesh.all_reduce_(
                     torch.tensor(float(local.sum()), device=batch[0].device),
                     mesh.data_axis))
-        rng = state.generator
-        if n_data > 1:
-            rng = torch.Generator().manual_seed(
-                draw_seed(rng) ^ _data_fold(mesh.data_rank))
+        rngs = _micro_rngs(state.generator, grad_accum, b, mesh, explicit)
         state.optimizer.zero_grad(set_to_none=True)
         fsdp_lib.gather_params_(state.model)
         total = None
         for i, mb in enumerate(micro):
             if with_mems:
-                logits, labels, mems = _forward(state.model, mb, rng, False,
-                                                mems)
+                logits, labels, mems = _forward(state.model, mb, rngs[i],
+                                                False, mems)
             else:
-                logits, labels = _forward(state.model, mb, rng,
+                logits, labels = _forward(state.model, mb, rngs[i],
                                           deterministic=False)
             if masked:
                 err = torch.square(logits.reshape(-1).float()
@@ -182,13 +219,14 @@ def _make_step(grad_accum: int, masked: bool, with_mems: bool = False,
     return train_step
 
 
-def make_train_step(grad_accum: int = 1, mesh: Optional[Mesh] = None):
+def make_train_step(grad_accum: int = 1, mesh: Optional[Mesh] = None,
+                    explicit: bool = False):
     """The train step: ``step(state, batch) -> loss`` (a device scalar).
 
     With grad_accum > 1 the batch splits into grad_accum micro-batches of
     B/grad_accum rows and the gradients are averaged — the reference's
-    loss/accum scaling. ``mesh``: see ``_make_step``."""
-    return _make_step(grad_accum, masked=False, mesh=mesh)
+    loss/accum scaling. ``mesh``, ``explicit``: see ``_make_step``."""
+    return _make_step(grad_accum, masked=False, mesh=mesh, explicit=explicit)
 
 
 def make_masked_train_step(grad_accum: int = 1,
@@ -293,6 +331,13 @@ class Trainer:
     trainer the zero positions are attended until real segments flush
     them.
 
+    ``rng_impl``: "rbg" (the default) draws every step's dropout from a
+    CPU generator; "threefry2x32" from the state's JAX key, as the JAX
+    trainer under ``jax_default_prng_impl = "threefry2x32"``: the params
+    of ``init_state(seed)`` are ``model.init(PRNGKey(seed))``'s, the state
+    key ``fold_in(PRNGKey(seed), 1)``, and each step draws JAX's masks
+    (``ops/dropout.py``).
+
     ``multiprocess``: the loaders yield this process's rows of each global
     batch (``parallel/multiprocess.py::ShardedBatchIterator``), and every
     process scores the whole test split (the predictions gathered over the
@@ -311,8 +356,12 @@ class Trainer:
     mem_len: Optional[int] = None
     compiler_options: Optional[dict] = None
     multiprocess: bool = False
+    rng_impl: str = "rbg"
 
     def __post_init__(self):
+        if self.rng_impl not in RNG_IMPLS:
+            raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got "
+                             f"{self.rng_impl!r}")
         if self.multiprocess and self.mem_len is not None:
             # the JAX trainer's refusal
             raise ValueError(
@@ -404,30 +453,47 @@ class Trainer:
                      for _ in range(cfg.n_layer))
 
     def init_state(self, seed: int) -> TrainState:
-        """Draw the params from ``seed`` (``model.init_params``, on the
-        params' device; at full size under FSDP, every rank alike) and
-        start the dropout stream at ``seed + 1``."""
+        """Draw the params from ``seed`` (on the params' device; at full
+        size under FSDP, every rank alike) and start the dropout stream.
+        rbg: ``model.init_params`` from a generator seeded with ``seed``,
+        the stream at ``seed + 1``. threefry2x32: the JAX trainer's
+        ``model.init(PRNGKey(seed))`` (``model.init_params_threefry``) and
+        state key ``fold_in(PRNGKey(seed), 1)``."""
         fsdp_lib.gather_params_(self.model)
-        self.model.init_params(
-            torch.Generator(device=self.device).manual_seed(seed))
+        if self.rng_impl == "threefry2x32":
+            key = jax_random.PRNGKey(seed)
+            self.model.init_params_threefry(key)
+            rng = ThreefryStream(jax_random.fold_in(key, 1))
+        else:
+            self.model.init_params(
+                torch.Generator(device=self.device).manual_seed(seed))
+            rng = seed + 1
         fsdp_lib.reshard_(self.model)
-        return self.create_state_from_params(None, seed + 1)
+        return self.create_state_from_params(None, rng)
 
     def create_state_from_params(
             self, params: Optional[Dict[str, torch.Tensor]],
-            rng: Union[int, torch.Generator]) -> TrainState:
+            rng: Union[int, torch.Generator, tuple, ThreefryStream]
+    ) -> TrainState:
         """A fresh state over ``params`` (a full-size state_dict, of which
         a sharded rank keeps its chunks and slices; None keeps the model's
-        weights) with the dropout stream ``rng`` (an int seed or a CPU
-        generator). Under ``fsdp`` the model is split over the data axis
-        here, before the optimizer is built."""
+        weights) with the dropout stream ``rng``: under rbg an int seed or
+        a CPU generator; under threefry2x32 a key (two uint32 words), an
+        int seed (``PRNGKey(rng)``, as the JAX tests pass
+        ``PRNGKey(1)``) or a ``ThreefryStream``. Under ``fsdp`` the model
+        is split over the data axis here, before the optimizer is
+        built."""
         if params is not None:
             self.model.load_state_dict(
                 tp_lib.local_state_dict(self.model, params))
         if self.fsdp and self.mesh is not None:
             fsdp_lib.shard_model_(self.model, self.mesh,
                                   self.tp_shard_attention)
-        if not isinstance(rng, torch.Generator):
+        if self.rng_impl == "threefry2x32":
+            if not isinstance(rng, ThreefryStream):
+                rng = ThreefryStream(jax_random.PRNGKey(rng)
+                                     if isinstance(rng, int) else rng)
+        elif not isinstance(rng, torch.Generator):
             rng = torch.Generator().manual_seed(int(rng))
         optimizer = attach_grad_norm(self.tx(self.model.named_parameters()),
                                      self.mesh)

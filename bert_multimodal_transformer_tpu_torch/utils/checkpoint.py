@@ -4,9 +4,13 @@
 A capability the reference lacks entirely: it never saves the model
 (SURVEY §5: a crash loses the run). A checkpoint holds what the JAX one
 holds: the step, the params, the optimizer state (``AdamWHF``'s two
-moments and its update count) and the rng, here the ``TrainState``'s CPU
-generator state, from which every dropout draw and every kernel's Philox
-seed of a step comes (``ops/dropout.py``).
+moments and its update count) and the rng: under ``--rng_impl rbg`` the
+``TrainState``'s CPU generator state, from which every dropout draw and
+every kernel's Philox seed of a step comes; under threefry2x32 the state's
+JAX key, two uint32 words (``ops/dropout.py::ThreefryStream``). The file
+records which (``rng_impl``), and a restore into a state of the other
+stream is refused, as a JAX checkpoint's key shapes (4 words under rbg, 2
+under threefry) refuse it.
 
 On disk, step ``n`` is the directory ``<directory>/<n>/`` holding
 ``params.pt`` (the params by state-dict name, fp32, on the CPU) and
@@ -40,6 +44,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from bert_multimodal_transformer_tpu_torch.ops.dropout import rng_impl_of
 from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
 
 PARAMS_FILE = "params.pt"
@@ -102,7 +107,8 @@ class CheckpointManager:
             self._write(step, params, {
                 "step": int(state.step),
                 "opt_state": {"count": int(opt.count), **moments},
-                "rng": state.generator.get_state()})
+                "rng": state.generator.get_state(),
+                "rng_impl": rng_impl_of(state.generator)})
         if _world() > 1:
             dist.barrier()
 
@@ -128,12 +134,21 @@ class CheckpointManager:
         it: the params into its model (on the model's device, fp32; a
         sharded model takes its chunks), the moments and count into its
         optimizer (params restored first, the moments matched to them by
-        name), the generator state and the step count."""
+        name), the generator state or key and the step count. Raises
+        ``ValueError``, changing nothing, when the checkpoint's stream is
+        not the template's (rbg against threefry2x32)."""
         params = self.restore_params(step)
         if params is None:
             raise FileNotFoundError(f"no checkpoint step {step} under "
                                     f"{self.directory}")
         train = _load(os.path.join(self._step_dir(step), TRAIN_STATE_FILE))
+        saved = train.get("rng_impl", "rbg")
+        if saved != rng_impl_of(template_state.generator):
+            raise ValueError(
+                f"checkpoint step {step} under {self.directory} holds an "
+                f"--rng_impl {saved} stream; this run draws with "
+                f"--rng_impl {rng_impl_of(template_state.generator)}: "
+                "resume with the interrupted run's --rng_impl")
         model, opt = template_state.model, template_state.optimizer
         model.load_state_dict(tp_lib.local_state_dict(model, params))
         named = dict(model.named_parameters())

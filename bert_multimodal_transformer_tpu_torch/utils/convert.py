@@ -3,8 +3,9 @@
 ``params_from_flax`` and ``xlnet_params_from_flax`` take the JAX package's
 MAG-BERT and MAG-XLNet param trees (nested dicts of arrays, as
 ``model.init(...)["params"]`` or a restored checkpoint gives them, with
-every leaf converted by ``np.asarray``) and return the port's
-``state_dict``. For MAG-BERT:
+every leaf converted by ``np.asarray``; or torch tensors, which stay on
+their device, as ``utils/flax_rng.py::init_params`` draws them) and return
+the port's ``state_dict``. For MAG-BERT:
 
 * dense ``kernel`` [in, out] → ``nn.Linear.weight`` [out, in];
 * LayerNorm ``scale``/``bias`` → ``weight``/``bias``;
@@ -66,9 +67,12 @@ def _walk(tree: Mapping[str, Any],
                      if stack is None or path[-1:] == [stack] else None)
                 walk(val, path + [f"layer.{m.group(1)}" if m else key])
                 continue
-            names, arr = leaf(path, key, np.asarray(val))
-            out[".".join(path + names)] = torch.tensor(
-                np.ascontiguousarray(arr))
+            if not isinstance(val, torch.Tensor):
+                val = np.asarray(val)
+            names, arr = leaf(path, key, val)
+            out[".".join(path + names)] = (
+                arr.contiguous() if isinstance(arr, torch.Tensor)
+                else torch.tensor(np.ascontiguousarray(arr)))
 
     walk(tree, [])
     return out

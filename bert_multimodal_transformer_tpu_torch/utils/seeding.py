@@ -37,7 +37,10 @@ def str2bool(v: Union[str, bool]) -> bool:
 
 def set_random_seed(seed: int, device=None) -> torch.Generator:
     """Seed the host RNGs and return a ``torch.Generator`` on ``device``
-    seeded with ``seed``, to be passed wherever params are initialized."""
+    seeded with ``seed``, to be passed wherever params are initialized.
+    The JAX function returns ``PRNGKey(seed)`` instead; under
+    ``--rng_impl threefry2x32`` the port's ``Trainer.init_state(seed)``
+    derives that key (``utils/jax_random.py::PRNGKey``)."""
     random.seed(seed)
     os.environ["PYTHONHASHSEED"] = str(seed)
     np.random.seed(seed)

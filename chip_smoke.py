@@ -153,6 +153,15 @@ raises and the script exits non-zero:
    The same checks at bf16 #18's edges (``QKVPROJ_EDGES``: S = 64, 65 and
    122, the reach with a gradient) and the forward at its reach without
    one (S = 468).
+3k. Kernel T (``csrc/threefry_dropout.cu``, Flax dropout on JAX's
+   threefry2x32 stream) against its plain version on the card, bit for
+   bit: bf16 [256, 50, 768] (the hidden dropout's shape at the bench's
+   batch), fp32 [4, 77, 768] and bf16 [256, 12, 50, 50] (the einsum
+   probs); a column slice (dim −1 from 384) and a row slice (rows 128..)
+   equal the full draw's slices; the backward's regenerated mask on a
+   cotangent; the keep rate within 5σ of 0.9. Then timed beside its plain
+   version (``F.dropout``'s time printed as context: it draws torch's
+   Philox mask, not JAX's, so it is no library column).
 4. Serving path: ``MagBertForSequenceClassification`` at bert-base width
    with MOSI modality dims, bf16 compute, ``attention_impl="fused"``,
    random weights from a seeded generator. ``Predictor.score_split`` over
@@ -316,6 +325,20 @@ raises and the script exits non-zero:
    #11. Then peak memory and step time with and without remat at B=48:
    BERT S=512, XLNet S=1024 under stream and under auto, printed as a
    ``{"remat_memory": ...}`` line.
+6t. ``driver.main --rng_impl threefry2x32`` at bert-base (S=50, bf16,
+   fused attention and gate, 96/48/48, two train steps): exit 0, finite
+   losses, the native tokenizer taken (``{"native_tokenizer": ...}``),
+   and the launches predicted: #1′ and #3 once a layer a step (their
+   Philox seeded with JAX's ``randint`` of each layer's key), #25/#26,
+   and kernel T 54 times a step (27 sites: embeddings, MAG, the attention
+   output and the FFN of each layer, the pooled output; forward and
+   backward). Then one fp32 einsum threefry step of bert-base and of
+   xlnet-base at B=8 S=50 on the card against the port's CPU step from the
+   same weights (drawn on the card from ``PRNGKey``) and key: the loss
+   within ``TF_STEP_LOSS_RTOL`` relative, each gradient within
+   ``TF_STEP_GRAD_TOL`` of its leaf's scale, T launched for every mask
+   site (78 and 105 a step), and a step from another key moving the loss
+   by far more; printed as a ``{"threefry_steps": ...}`` line.
 6l. The tensor-parallel MAG-XLNet driver: ``driver.run --model
    xlnet-base-cased --model_parallel 2 --tp_shard_attention
    --attention_impl fused`` over 96/48/48 on two ranks sharing the card
@@ -637,6 +660,7 @@ def _alternate(run_plain, run_kernel, iters):
 
 
 def _wrappers(fa):
+    from bert_multimodal_transformer_tpu_torch.ops import dropout as tfd
     from bert_multimodal_transformer_tpu_torch.ops import mag_fused as mf
 
     return {"attn_fwd_packed": fa.attn_fwd_packed_cuda,
@@ -663,7 +687,8 @@ def _wrappers(fa):
             "attn_bwd_split_saved": fa.attn_bwd_split_saved_cuda,
             "attn_bwd_split": fa.attn_bwd_split_cuda,
             "attn_fwd_qkvproj": fa.attn_fwd_qkvproj_cuda,
-            "attn_bwd_qkvproj": fa.attn_bwd_qkvproj_cuda}
+            "attn_bwd_qkvproj": fa.attn_bwd_qkvproj_cuda,
+            "threefry_dropout": tfd.threefry_dropout_cuda}
 
 
 def _counts(fa):
@@ -8279,6 +8304,261 @@ BESIDE_TIMEOUT_S = 900        # each such process, its ranks' spawns included
 _BESIDE_SECONDS = {}
 
 
+# ---- kernel T: threefry dropout (phases 3k and 6t) ------------------------
+
+# Phase 3k's cases: the hidden dropout at the bench's batch (bf16 [B, S,
+# D]), an fp32 ragged shape, and the einsum probs (bf16 [B, H, S, S]).
+TF_CASES = (("bf16", (BENCH_BATCH, S_SERVE, 768)), ("fp32", (4, 77, 768)),
+            ("bf16", (BENCH_BATCH, 12, S_SERVE, S_SERVE)))
+# T's integer operations an element: 20 Threefry rounds of an add, a
+# rotate (one funnel shift) and an xor, five key injections of three adds
+# and the two initial adds. The H100's INT32 rate: 132 SMs x 64 INT32
+# lanes x 1.98 GHz (the Hopper white paper's SM), 16.7 TOP/s.
+TF_OPS_PER_ELEMENT = 77
+INT32_OPS = 132 * 64 * 1.98e9
+# Phase 6t: the card's fp32 step against the CPU's from the same weights
+# and key. The masks are the same bits on both, so only the order of fp32
+# sums differs: the loss within 1e-5 relative, every gradient within 1e-4
+# of its leaf's largest magnitude. A mask from another key moves the loss
+# by percents.
+TF_STEP_LOSS_RTOL, TF_STEP_GRAD_TOL = 1e-5, 1e-4
+THREEFRY_ARGV = ["--model", "bert-base-uncased", "--dataset", "mosi",
+                 "--synthetic", "--synthetic_sizes", "96", "48", "48",
+                 "--n_epochs", "1", "--use_fused_mag", "--attention_impl",
+                 "fused", "--compute_dtype", "bfloat16", "--rng_impl",
+                 "threefry2x32"]
+
+
+def threefry_bound(n, itemsize):
+    """T's bound on n elements: x read and out written once; 77 integer
+    operations an element at the INT32 rate."""
+    return _bound(2 * n * itemsize, TF_OPS_PER_ELEMENT * n, INT32_OPS)
+
+
+def check_threefry_kernel(rng, card):
+    """Phase 3k: kernel T against its plain version, bit for bit, on
+    ``TF_CASES``, two slices, the backward; the keep rate; the times.
+    Returns the kernels-line fields (max_abs_err 0 when every case is
+    bit for bit)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bert_multimodal_transformer_tpu_torch.ops import dropout as tfd
+    from bert_multimodal_transformer_tpu_torch.utils import jax_random
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    out, first = {"cases": {}}, None
+    for dtype_name, shape in TF_CASES:
+        dt = dtypes[dtype_name]
+        x = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            "cuda", dt)
+        key = jax_random.PRNGKey(int(rng.integers(2 ** 31 - 1)))
+        keep, div = tfd._keep_and_divisor(RATE, dt)
+        layout = tfd.threefry_layout(shape, {})
+        got = tfd.threefry_dropout_cuda(x, key, keep, div, layout)
+        want = tfd.threefry_dropout_plain(x, key, keep, div, layout)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"3k: kernel T != plain on {dtype_name} {shape}: "
+                f"{int((got != want).sum())} elements differ")
+        n = x.numel()
+        rate = float((got != 0).float().mean())
+        sigma = math.sqrt(0.9 * 0.1 / n)
+        if abs(rate - 0.9) > 5 * sigma:
+            raise AssertionError(f"3k: keep rate {rate} on {shape} is more "
+                                 f"than 5 sigma ({sigma:.2e}) from 0.9")
+        tag = f"{dtype_name} {list(shape)}"
+        kernel_ms, plain_ms = _alternate(
+            lambda: tfd.threefry_dropout_plain(x, key, keep, div, layout),
+            lambda: tfd.threefry_dropout_cuda(x, key, keep, div, layout),
+            20)
+        context_ms = _time_ms(lambda: F.dropout(x, RATE, True), 20)
+        bound, by = threefry_bound(n, x.element_size())
+        out["cases"][tag] = {
+            "identical_to_plain": True, "keep_rate": rate,
+            "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+            "bound_ms": bound, "bound_by": by,
+            "F_dropout_ms_context": context_ms}
+        if first is None:
+            first = (x, key, keep, div, got)
+    x, key, keep, div, full = first
+    # a TP rank's columns and a data rank's rows of the same draw
+    half = x.shape[-1] // 2
+    cols = x[..., half:].contiguous()
+    got = tfd.threefry_dropout_cuda(
+        cols, key, keep, div,
+        tfd.threefry_layout(cols.shape, {2: (x.shape[-1], half)}))
+    rows = x[128:].contiguous()
+    got_rows = tfd.threefry_dropout_cuda(
+        rows, key, keep, div,
+        tfd.threefry_layout(rows.shape, {0: (x.shape[0], 128)}))
+    # the backward: the same mask on a cotangent, regenerated from the key
+    xr = x.clone().requires_grad_()
+    layout = tfd.threefry_layout(x.shape, {})
+    y = tfd.ThreefryDropout.apply(xr, key, keep, div, layout)
+    g = torch.randn_like(y)
+    y.backward(g)
+    torch.cuda.synchronize()
+    checks = {"column slice from 384": torch.equal(got, full[..., half:]),
+              "row slice from 128": torch.equal(got_rows, full[128:]),
+              "forward through autograd": torch.equal(y.detach(), full),
+              "backward": torch.equal(xr.grad, tfd.threefry_dropout_plain(
+                  g, key, keep, div, layout))}
+    print(json.dumps({"threefry_kernel": out, "slices_and_backward": checks,
+                      "card": card}))
+    if not all(checks.values()):
+        raise AssertionError(f"3k: {checks}")
+    main = out["cases"][f"bf16 {list(TF_CASES[0][1])}"]
+    return {"max_abs_err": 0.0, "identical_to_plain": True,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "library_note": ("none: no PyTorch call draws JAX's threefry "
+                             "mask (F.dropout's time, a Philox mask, is "
+                             "context: F_dropout_ms_context)"),
+            "shape": f"bf16 {list(TF_CASES[0][1])} rate 0.1",
+            "modes": {tag: c for tag, c in out["cases"].items()}}
+
+
+def _threefry_model(family, device):
+    from bert_multimodal_transformer_tpu_torch.config import (
+        BertConfig,
+        MultimodalConfig,
+        XLNetConfig,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.bert import (
+        MagBertForSequenceClassification,
+    )
+    from bert_multimodal_transformer_tpu_torch.models.xlnet import (
+        MagXLNetForSequenceClassification,
+    )
+
+    mm = MultimodalConfig(dropout_prob=RATE,
+                          injection_index=1 if family == "xlnet" else 0)
+    if family == "xlnet":
+        cfg = dataclasses.replace(XLNetConfig.xlnet_base_cased(),
+                                  dropout=RATE)
+        return MagXLNetForSequenceClassification(cfg, mm, 47, 74,
+                                                 device=device)
+    cfg = dataclasses.replace(BertConfig.bert_base_uncased(),
+                              hidden_dropout_prob=RATE,
+                              attention_probs_dropout_prob=RATE)
+    return MagBertForSequenceClassification(cfg, mm, 47, 74, device=device)
+
+
+def _threefry_step(model, batch, key):
+    """One fp32 threefry train step of ``model`` from state key ``key``:
+    (loss, each parameter's gradient on the CPU)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops.dropout import (
+        ThreefryStream,
+    )
+    from bert_multimodal_transformer_tpu_torch.training import optim
+    from bert_multimodal_transformer_tpu_torch.training.trainer import (
+        Trainer,
+    )
+
+    tr = Trainer(model=model, tx=optim.make_optimizer(1e-5, 10),
+                 rng_impl="threefry2x32")
+    st = tr.create_state_from_params(None, ThreefryStream(key))
+    loss = float(tr._train_step(st, tr._put_batch(batch)))
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return loss, grads
+
+
+def threefry_step_check(family, seed, fa, card):
+    """Phase 6t's step: the same bert-base or xlnet-base weights (drawn on
+    the card from PRNGKey(seed)) and key on the card and on the CPU; one
+    fp32 einsum step each at B=8 S=50. Returns (the card step's launch
+    counts, the record)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.utils import jax_random
+
+    rng = np.random.default_rng([seed, 28])
+    maker = make_xlnet_split if family == "xlnet" else make_split
+    split = maker(rng, 8, S_SERVE, 32000 if family == "xlnet" else 30522,
+                  47, 74)
+    batch = (split.input_ids, split.visual, split.acoustic,
+             split.input_mask, split.segment_ids, split.label_ids)
+    card_model = _threefry_model(family, "cuda")
+    card_model.init_params_threefry(jax_random.PRNGKey(seed))
+    weights = {k: v.detach().cpu() for k, v in
+               card_model.state_dict().items()}
+    key = jax_random.fold_in(jax_random.PRNGKey(seed), 1)
+    _zero_counts(fa)
+    card_loss, card_grads = _threefry_step(card_model, batch, key)
+    torch.cuda.synchronize()
+    counts = _counts(fa)
+    cpu_model = _threefry_model(family, "cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_loss, cpu_grads = _threefry_step(cpu_model, batch, key)
+    card_model.load_state_dict(weights)
+    other_loss, _ = _threefry_step(card_model, batch,
+                                   jax_random.fold_in(key, 1))
+    gaps = {n: float((card_grads[n] - g).abs().max()
+                     / max(float(g.abs().max()), 1e-30))
+            for n, g in cpu_grads.items() if float(g.abs().max()) > 0}
+    worst = max(gaps, key=gaps.get)
+    layers = 12
+    # mask sites a step: BERT embeddings, MAG, (probs, attention out, FFN)
+    # a layer, pooled; XLNet word embedding, positions, MAG, (probs, out,
+    # two FFN) a layer, output, summary; each again in the backward but
+    # XLNet's positions, which take no gradient
+    t_step = (2 * (3 + 3 * layers) if family == "bert"
+              else 2 * (5 + 4 * layers) - 1)
+    record = {"loss_card": card_loss, "loss_cpu": cpu_loss,
+              "loss_rel_gap": abs(card_loss - cpu_loss) / abs(cpu_loss),
+              "loss_other_key": other_loss, "worst_grad_gap": gaps[worst],
+              "worst_leaf": worst, "threefry_launches": counts[
+                  "threefry_dropout"], "threefry_launches_predicted": t_step}
+    print(json.dumps({"threefry_step": family, **record, "card": card}))
+    if counts != _want(fa, threefry_dropout=t_step):
+        raise AssertionError(f"6t {family}: launches {counts}")
+    if record["loss_rel_gap"] > TF_STEP_LOSS_RTOL or \
+            gaps[worst] > TF_STEP_GRAD_TOL:
+        raise AssertionError(f"6t {family}: card step off the CPU step: "
+                             f"{record}")
+    if abs(other_loss - cpu_loss) < 100 * TF_STEP_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"6t {family}: another key's masks left the "
+                             f"loss within the band: {record}")
+    return counts, record
+
+
+def threefry_driver_path(args, fa, card):
+    """Phase 6t: the threefry driver run and its launches, the native
+    tokenizer, then ``threefry_step_check`` for both families. Returns
+    (launch counts by path, the step records)."""
+    from bert_multimodal_transformer_tpu_torch.data import native
+
+    counts = run_driver(THREEFRY_ARGV + ["--seed", str(args.seed)], fa, card)
+    layers, n_train, n_eval = 12, 96 // TRAIN_BATCH, 2
+    # 27 T sites a step (embeddings, MAG, attention output and FFN of each
+    # layer, pooled), forward and backward
+    want = _want(fa, attn_fwd_packed=layers * (n_train + n_eval),
+                 attn_bwd_packed_saved=layers * n_train,
+                 mag_fwd=n_train + n_eval, mag_bwd=n_train,
+                 threefry_dropout=2 * (3 + 2 * layers) * n_train)
+    print(f"kernel launches in the threefry driver run: {counts} (want "
+          f"{want})")
+    taken = native._lib is not None
+    print(json.dumps({"native_tokenizer": taken}))
+    if counts != want:
+        raise AssertionError(f"6t: launch counts {counts} != {want}")
+    if not taken:
+        raise AssertionError("6t: the driver did not take the native "
+                             "tokenizer")
+    paths, records = {"threefry_driver": counts}, {}
+    for family in ("bert", "xlnet"):
+        paths[f"threefry_step_{family}"], records[family] = (
+            threefry_step_check(family, args.seed, fa, card))
+    print(json.dumps({"threefry_steps": records, "card": card}))
+    return paths, records
+
+
 def _beside_6p(args, fa, card):
     return list(par_driver_paths(args, fa, card))
 
@@ -8714,6 +8994,12 @@ def main() -> int:
     del qkvproj_train_case
     torch.cuda.empty_cache()
 
+    _phase("3k")
+    # 3k. Kernel T, the threefry dropout, from a stream of its own
+    threefry_fields = check_threefry_kernel(
+        np.random.default_rng([args.seed, 28]), card)
+    torch.cuda.empty_cache()
+
     _phase("4")
     # 4. Main path
     ds = DatasetConfig.mosi()
@@ -8862,6 +9148,12 @@ def main() -> int:
     remat_counts, remat = remat_driver_path(args, fa, card)
     print(json.dumps({"remat_memory": remat, "card": card}))
 
+    _phase("6t")
+    # 6t. The driver under --rng_impl threefry2x32 (T, #1′/#3, #25/#26) and
+    # the card's threefry steps against the CPU's
+    threefry_counts, _ = threefry_driver_path(args, fa, card)
+    torch.cuda.empty_cache()
+
     # 6l-6s: the rank phases. 6p, and 6r/6s with 6q's --fsdp
     # --model_parallel 2 run, each run in a process of their own (their
     # launch counts their own) beside 6l-6o in this one: 6p from 6l's start,
@@ -8950,7 +9242,8 @@ def main() -> int:
                     flash_driver_counts.items()},
                  **{path: c[name] for path, c in pp_counts.items()},
                  **{path: c[name] for path, c in par_counts.items()},
-                 **{path: c[name] for path, c in mp_counts.items()}}
+                 **{path: c[name] for path, c in mp_counts.items()},
+                 **{path: c[name] for path, c in threefry_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"
@@ -9183,6 +9476,16 @@ def main() -> int:
             entry.setdefault("modes", {})[
                 "attention_impl=flash serving, " + flash_times["shape"]] = (
                     flash_times)
+    # T: no Pallas kernel; the JAX model's dropout under threefry2x32 is
+    # XLA's threefry with jax.random.bernoulli in flax's nn.Dropout
+    total, paths = by_path("threefry_dropout")
+    kernels.append({
+        "name": "threefry_dropout", "route": "cuda",
+        "source": f"{src}threefry_dropout.cu",
+        "replaces": ("none (not a Pallas kernel): flax nn.Dropout on "
+                     "jax.random.bernoulli under threefry2x32, "
+                     "bert_multimodal_transformer_tpu/models/bert.py:91"),
+        "launches": total, "launches_by_path": paths, **threefry_fields})
     for entry in kernels:
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} never ran on the path")

@@ -447,12 +447,14 @@ def _saved_checkpoint(directory):
     (["--attention_impl", "flash", "--max_seq_length", "128", "--n_epochs",
       "1", "--synthetic_sizes", "8", "8", "8", "--train_batch_size", "8"],
      "A.2 ported"),
-    (["--rng_impl", "threefry2x32"], "A.5"),
+    (["--rng_impl", "threefry2x32", "--n_epochs", "1", "--synthetic_sizes",
+      "8", "8", "8", "--train_batch_size", "8"], "A.5 ported"),
+    (["--rng_impl", "threefry2x32", "--pipeline_parallel", "2"], "A.5.1"),
 ], ids=[  # the ids each case had while the table held --vocab *.model,
     # --export_serving and --remat
     *(f"argv{i}-A.6" for i in range(1, 7)),
     *(f"argv{i}-A.10" for i in range(8, 14)), "argv14-A.8", "argv16-A.2",
-    "argv17-A.5"])
+    "argv17-A.5", "argv18-A.5.1"])
 def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
                                                tmp_path):
     """A flag whose item is open exits 2 naming it. ``--mem_len`` (A.8) is
@@ -480,7 +482,10 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
     message (``_a6_refusal``) before anything is built. ``--vocab *.model``
     (A.15), ``--export_serving`` (A.9) and ``--remat`` (A.14) are ported
     (``tests/test_torch_sentencepiece.py``, ``tests/test_torch_export.py``,
-    ``tests/test_torch_remat.py``)."""
+    ``tests/test_torch_remat.py``). ``--rng_impl threefry2x32`` (A.5's RNG
+    half) is ported: it trains and exits 0 (its losses against the JAX
+    driver's: ``tests/test_torch_threefry_driver.py``); with
+    ``--pipeline_parallel`` it exits 2 naming A.5.1."""
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     if item == "A.6" and argv[0] == "--checkpoint_dir":
         (tmp_path / "empty").mkdir()
