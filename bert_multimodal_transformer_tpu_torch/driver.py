@@ -24,10 +24,9 @@ artifact after training (``serving.py::export_forward``, a
 ``torch.export`` program that ``torch`` alone loads), ``--remat`` (with
 ``--remat_policy``) rematerializes the encoder layers
 (``models/remat.py``), and ``--vocab *.model`` tokenizes XLNet's text with
-SentencePiece (``data/tokenization.py``). Flags whose
-port has not landed yet exit
-with status 2 and a message naming their ROADMAP item; none is ignored
-silently. Flag combinations the JAX driver refuses (``FAMILY_ERRORS``, and
+SentencePiece (``data/tokenization.py``). Every flag of the JAX driver
+is ported; none is ignored silently. Flag combinations the JAX driver
+refuses (``FAMILY_ERRORS``, and
 its tensor-parallel guards) exit with status 2 and its message, as does
 ``--compiler_options`` (XLA's options, which no torch call takes).
 ``--attention_impl flash`` (MAG-BERT) runs the flash-streamed kernels
@@ -131,14 +130,6 @@ FAMILY_ERRORS = (
      "--qkv_fusion requires --attention_impl fused and is unavailable with "
      "--tp_shard_attention"),
 )
-
-# (flag as the user writes it, test on the parsed args, ROADMAP item).
-UNPORTED = (
-    ("--rng_impl threefry2x32 with --pipeline_parallel > 1",
-     lambda a: a.rng_impl == "threefry2x32" and a.pipeline_parallel > 1,
-     "A.5.1"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -295,7 +286,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "MAG and einsum-attention dropout mask as the JAX "
                         "driver draws them (kernel T on the card), the "
                         "fused kernels' Philox seeded with JAX's draw; "
-                        "not with --pipeline_parallel (ROADMAP A.5.1)")
+                        "under --pipeline_parallel the JAX pipeline's "
+                        "keys (microbatch, layer and part folded in)")
     p.add_argument("--wire_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float16"],
                    help="--predict_only: cast the modality features to "
@@ -585,12 +577,6 @@ def run(argv=None, rank_timeout_s: float = 3600.0):
         for msg in refused:
             print(f"error: {msg}", file=sys.stderr)
         return 2, []
-    unported = [(flag, item) for flag, test, item in UNPORTED if test(args)]
-    if unported:
-        for flag, item in unported:
-            print(f"error: {flag} is not ported to the PyTorch driver yet "
-                  f"(ROADMAP {item})", file=sys.stderr)
-        return 2, []
     if args.compiler_options is not None:
         from bert_multimodal_transformer_tpu_torch.training.trainer import (
             COMPILER_OPTIONS_REFUSAL,
@@ -788,7 +774,8 @@ def _train(args, mesh):
         )
 
         trainer = (XLNetPipelineTrainer if is_xlnet else PipelineTrainer)(
-            model=model, tx=tx, mesh=mesh, n_micro=args.pp_microbatches)
+            model=model, tx=tx, mesh=mesh, n_micro=args.pp_microbatches,
+            rng_impl=args.rng_impl)
     else:
         trainer = Trainer(model=model, tx=tx, mesh=mesh,
                           grad_accum=args.gradient_accumulation_step,

@@ -442,7 +442,9 @@ class XLNetFeedForward(nn.Module):
     """Position-wise FFN with the post-LN residual (HF XLNetFeedForward).
     ``tp_mesh`` (set by ``parallel/tp.py::shard_model_``) splits it
     Megatron-style: ``layer_1`` column-parallel (its dropout drawn for the
-    full width and sliced to the rank's columns), ``layer_2``
+    full width and sliced to the rank's columns; from a ``local`` threefry
+    stream drawn for the rank's columns alone, from the same key on every
+    rank, as the JAX pipeline's ``_TPXLNetFF``), ``layer_2``
     row-parallel."""
 
     def __init__(self, config: XLNetConfig, dtype: torch.dtype = torch.float32,

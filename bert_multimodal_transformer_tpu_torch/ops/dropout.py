@@ -51,11 +51,14 @@ class SiteKey:
     ``rows`` (full batch rows, first row): dim 0 of the site's tensor is a
     data rank's rows of the global batch, whose mask is the global mask's
     rows. ``seed_fold``: XORed into a fused kernel's seed (the data rank's
-    fold, so that data shards draw different in-kernel masks)."""
+    fold, so that data shards draw different in-kernel masks). ``local``:
+    the mask is drawn for the tensor's own shape, a ``shard`` ignored, as
+    JAX draws every site under ``shard_map`` (the pipeline's)."""
 
     key: jax_random.Key
     rows: Optional[Tuple[int, int]] = None
     seed_fold: int = 0
+    local: bool = False
 
 
 def draw_seed(rng: Union[torch.Generator, SiteKey]) -> int:
@@ -121,29 +124,32 @@ class DropoutRngs:
 @dataclasses.dataclass
 class ThreefryRngs:
     """The threefry stream of one forward: the "dropout" ``KeyScope`` at
-    the module's Flax path, and (over data ranks) this rank's rows of the
-    global batch and the fused seed's fold."""
+    the module's Flax path, (over data ranks) this rank's rows of the
+    global batch and the fused seed's fold, and whether its masks are
+    drawn for the local shape (``SiteKey.local``)."""
 
     scope: KeyScope
     rows: Optional[Tuple[int, int]] = None
     seed_fold: int = 0
+    local: bool = False
 
     @staticmethod
     def from_key(key, rows: Optional[Tuple[int, int]] = None,
-                 seed_fold: int = 0) -> "ThreefryRngs":
+                 seed_fold: int = 0, local: bool = False) -> "ThreefryRngs":
         """The root stream of ``model.apply(..., rngs={"dropout": key})``."""
-        return ThreefryRngs(KeyScope(key), rows, seed_fold)
+        return ThreefryRngs(KeyScope(key), rows, seed_fold, local)
 
     def child(self, name: str) -> "ThreefryRngs":
         return ThreefryRngs(self.scope.child(name), self.rows,
-                            self.seed_fold)
+                            self.seed_fold, self.local)
 
     def mask(self, name: Optional[str] = None, batch: bool = True
              ) -> SiteKey:
         """A mask site's key: ``make_rng`` in child scope ``name`` (an
         ``nn.Dropout``'s) or in this scope. ``batch``: dim 0 of the site's
         tensor is the batch."""
-        return SiteKey(self.scope.next(name), self.rows if batch else None)
+        return SiteKey(self.scope.next(name), self.rows if batch else None,
+                       local=self.local)
 
     def seed(self, name: Optional[str] = None) -> SiteKey:
         return SiteKey(self.scope.next(name), seed_fold=self.seed_fold)
@@ -349,12 +355,12 @@ def threefry_dropout(x: torch.Tensor, rate: float, site: SiteKey,
     """Flax ``nn.Dropout`` at a threefry site: JAX's keep mask
     ``bernoulli(site.key, 1 − rate, full_shape)`` at x's elements, where
     the full shape widens dim 0 to the global batch (``site.rows``) and
-    ``shard``'s dim to its full size. On a CUDA tensor kernel T, on a CPU
-    tensor its plain version."""
+    ``shard``'s dim to its full size (not for a ``site.local``). On a CUDA
+    tensor kernel T, on a CPU tensor its plain version."""
     slices = {}
     if site.rows is not None:
         slices[0] = site.rows
-    if shard is not None:
+    if shard is not None and not site.local:
         slices[shard[0] % x.dim()] = (shard[1], shard[2])
     keep_prob, divisor = _keep_and_divisor(rate, x.dtype)
     layout = threefry_layout(x.shape, slices)

@@ -29,13 +29,21 @@ holds its stage's layers and a replica of the prologue and epilogue:
   summed over the pipe axis and every replica applies the same update;
   layer gradients stay with their stage. Then every gradient, and the
   loss, is reduced over the data axis;
-* dropout: each (step, microbatch, stage) draws from its own generators
-  (``ops/dropout.py::DropoutRngs``, seeded from one draw of the state's
-  generator, the microbatch and the stage), so the kernels' Philox seed
-  comes from them and the saved-probs backward replays the forward's
-  mask. A pipelined step's dropout stream is its own, as in JAX
-  (``pp.py:600-601`` folds the microbatch into its key); with dropout off
-  the step equals the plain ``Trainer(grad_accum=n_micro)`` step;
+* dropout, under ``rng_impl`` "rbg": each (step, microbatch, stage)
+  draws from its own generators (``ops/dropout.py::DropoutRngs``, seeded
+  from one draw of the state's generator, the microbatch and the stage),
+  so the kernels' Philox seed comes from them and the saved-probs backward
+  replays the forward's mask. That stream is the port's own; with dropout
+  off the step equals the plain ``Trainer(grad_accum=n_micro)`` step;
+* dropout, under "threefry2x32": the JAX ``PipelineTrainer``'s keys
+  (``parallel/pp.py:480-511``, ``:600-601``, ``:643-646``). The step's
+  key is ``split(state.rng)[0]``, over data ranks ``fold_in``-ed with the
+  data index (each rank draws its local rows' masks); microbatch m's key
+  is ``fold_in(key, m)``; each part is a Flax module applied at the root
+  under ``fold_in(key_m, tag)``: the prologue (``embeddings``, ``MAG``)
+  under tag 1 << 20, layer i under its global id i, the epilogue under
+  2 << 20 (``PartRngs``). Every hidden, MAG and einsum-probs mask and
+  every fused kernel's seed is then JAX's;
 * PP×TP: on a (data, pipe, model) mesh each stage's layers split the FFN
   Megatron-style over the model axis with the port's f/g operators
   (``parallel/tp.py::copy_to_model`` / ``reduce_from_model``, set by
@@ -67,6 +75,7 @@ import torch
 from torch import nn
 
 from bert_multimodal_transformer_tpu_torch.models.bert import (
+    _child,
     _hidden_dropout,
     dense,
 )
@@ -75,6 +84,9 @@ from bert_multimodal_transformer_tpu_torch.ops.attention import (
 )
 from bert_multimodal_transformer_tpu_torch.ops.dropout import (
     DropoutRngs,
+    SiteKey,
+    ThreefryRngs,
+    ThreefryStream,
     draw_seed,
 )
 from bert_multimodal_transformer_tpu_torch.parallel import tp as tp_lib
@@ -90,6 +102,7 @@ from bert_multimodal_transformer_tpu_torch.training.trainer import (
     _data_fold,
     attach_grad_norm,
 )
+from bert_multimodal_transformer_tpu_torch.utils import jax_random
 
 # Each family's model-layout names: the backbone prefix, the layer stack's
 # prefix, and the prologue's and epilogue's entries (an entry under the
@@ -283,6 +296,47 @@ def _stage_seed(seed: int, micro: int, stage: int) -> int:
     return x & (2 ** 63 - 1)
 
 
+# What the JAX pipeline folds into a microbatch's key for each part of a
+# stage (parallel/pp.py:480-511, pp_xlnet.py:244-331); layer i takes its
+# global id i.
+PROLOGUE_TAG = 1 << 20
+EPILOGUE_TAG = 2 << 20
+MAG_TAG = 3 << 20          # XLNet's MAG, applied as a module of its own
+POS_EMB_TAG = 4 << 20      # XLNet's position-encoding mask
+
+
+@dataclasses.dataclass
+class PartRngs:
+    """One microbatch's dropout streams on a stage, by part. rbg: ``rbg``,
+    the (step, microbatch, stage) streams, the same for every part.
+    threefry2x32: ``key``, the microbatch's key; part ``tag`` draws from
+    the root stream of ``fold_in(key, tag)``, as the JAX pipeline applies
+    each part as a Flax module of its own, and every mask for the local
+    shape, as JAX draws under its ``shard_map`` (``ThreefryRngs.local``:
+    a PP×TP rank's FFN columns)."""
+
+    rbg: Optional[DropoutRngs] = None
+    key: Optional[jax_random.Key] = None
+
+    def part(self, tag: int):
+        """The stream of the part folded with ``tag``."""
+        if self.key is None:
+            return self.rbg
+        return ThreefryRngs.from_key(jax_random.fold_in(self.key, tag),
+                                     local=True)
+
+    def site(self, tag: int):
+        """A mask drawn straight from ``fold_in(key, tag)``, outside any
+        Flax scope (``jax.random.bernoulli`` of that key)."""
+        if self.key is None:
+            return self.rbg.mask()
+        return SiteKey(jax_random.fold_in(self.key, tag))
+
+
+def _part(rngs: Optional[PartRngs], tag: int):
+    return None if rngs is None else rngs.part(tag)
+
+
 @dataclasses.dataclass
 class PipelineTrainer(Trainer):
     """The pipelined drop-in for ``Trainer`` (MAG-BERT regression).
@@ -303,11 +357,6 @@ class PipelineTrainer(Trainer):
         if self.mesh is None or not getattr(self.mesh, "pipelined", False):
             raise ValueError("the pipeline trainer needs a mesh with a "
                              f"'{PIPE_AXIS}' axis (make_pp_mesh)")
-        if self.rng_impl != "rbg":
-            # the JAX pipeline folds microbatch, layer and stage into its
-            # keys (parallel/pp.py, pp_xlnet.py): not ported
-            raise ValueError("the pipeline trainers draw with rng_impl "
-                             "'rbg' only (threefry2x32: ROADMAP A.5.1)")
         if self.grad_accum != 1:
             raise ValueError(
                 "PipelineTrainer accumulates over n_micro microbatches; "
@@ -387,9 +436,13 @@ class PipelineTrainer(Trainer):
                 list(bert.encoder.layer),
                 {"pooler": bert.pooler, "classifier": self.model.classifier})
 
+    def _layer_rngs(self, rngs: Optional[PartRngs], j: int):
+        """Local layer j's stream: the part of its global id."""
+        return _part(rngs, self.mesh.pipe_rank * self._k + j)
+
     def _stage_forward(self, stage: PipelineStage, mb: Tuple,
                        x_in: Optional[torch.Tensor],
-                       rngs: Optional[DropoutRngs], deterministic: bool):
+                       rngs: Optional[PartRngs], deterministic: bool):
         """One stage's work on one microbatch: the prologue on the first
         stage (``x_in`` None) or the received activation, the stage's
         layers, then on the last stage the epilogue's [mb] fp32 logits;
@@ -399,22 +452,24 @@ class PipelineTrainer(Trainer):
         mask_f32 = mask.to(torch.float32)
         attn_bias = extended_attention_mask(mask_f32)
         if x_in is None:
-            pro = stage.prologue
+            pro, pro_rngs = stage.prologue, _part(rngs, PROLOGUE_TAG)
             emb = pro.embeddings(ids, seg, deterministic=deterministic,
-                                 rngs=rngs)
+                                 rngs=_child(pro_rngs, "embeddings"))
             h = pro.MAG(emb, vis.to(dt), ac.to(dt),
                         deterministic=deterministic,
-                        dropout_rng=rngs.device if rngs else None)
+                        dropout_rng=(pro_rngs.child("MAG").mask("Dropout_0")
+                                     if pro_rngs else None))
         else:
             h = x_in
-        for layer in stage.layers:
+        for j, layer in enumerate(stage.layers):
             h = layer(h, attn_bias, None, mask_f32, deterministic, False,
-                      rngs)
+                      self._layer_rngs(rngs, j))
         if not self._last:
             return h
         epi = stage.epilogue
         pooled = _hidden_dropout(epi.pooler(h), cfg.hidden_dropout_prob,
-                                 rngs, deterministic, "Dropout_0")
+                                 _part(rngs, EPILOGUE_TAG), deterministic,
+                                 "Dropout_0")
         return dense(epi.classifier, pooled, dt).float().reshape(-1)
 
     # ---- state ---------------------------------------------------------
@@ -459,10 +514,18 @@ class PipelineTrainer(Trainer):
 
     def init_state(self, seed: int) -> TrainState:
         """Draw the whole model's params from ``seed`` on every rank (the
-        one-device draw), then create the state of this rank's stage."""
+        one-device draw: under threefry2x32 the JAX pipeline's
+        ``model.init(PRNGKey(seed))`` and state key ``fold_in(PRNGKey(seed),
+        1)``, as ``Trainer.init_state``), then create the state of this
+        rank's stage."""
         if self._released:
             raise ValueError("init_state draws the whole model, whose other "
                              "stages were released at the first step")
+        if self.rng_impl == "threefry2x32":
+            key = jax_random.PRNGKey(seed)
+            self.model.init_params_threefry(key)
+            return self.create_state_from_params(
+                None, ThreefryStream(jax_random.fold_in(key, 1)))
         self.model.init_params(
             torch.Generator(device=self.device).manual_seed(seed))
         return self.create_state_from_params(None, seed + 1)
@@ -470,12 +533,12 @@ class PipelineTrainer(Trainer):
     def create_state_from_params(self, params, rng) -> TrainState:
         """``params`` in the model layout (as ``utils/convert.py`` or a
         plain checkpoint gives them) or the pipeline layout, None keeping
-        the model's weights; ``rng`` an int seed or a CPU generator."""
+        the model's weights; ``rng`` as ``Trainer.create_state_from_params``
+        takes it."""
         stage = self._build_stage()
         if params is not None:
             stage.load_state_dict(stage.pp_layout.local(params))
-        if not isinstance(rng, torch.Generator):
-            rng = torch.Generator().manual_seed(int(rng))
+        rng = self._stream(rng)
         optimizer = attach_grad_norm(self.tx(stage.named_parameters()),
                                      self.mesh)
         return TrainState(step=0, model=stage, optimizer=optimizer,
@@ -497,27 +560,33 @@ class PipelineTrainer(Trainer):
                 "(global batch must divide by n_micro x data_parallel)")
         return list(zip(*(t.chunk(self.n_micro) for t in batch)))
 
+    def _micro_rngs(self, step, m: int) -> PartRngs:
+        """Microbatch m's streams from the step's: an rbg seed, or a
+        threefry key (``fold_in(key, m)``, JAX ``pp.py:600-601``)."""
+        if isinstance(step, tuple):
+            return PartRngs(key=jax_random.fold_in(step, m))
+        return PartRngs(rbg=DropoutRngs.make(torch.Generator().manual_seed(
+            _stage_seed(step, m, self.mesh.pipe_rank)), self.device))
+
     def _pipeline_forward(self, stage: PipelineStage, micro: List[Tuple],
-                          seed: Optional[int]):
+                          step):
         """Every microbatch's forward through this stage, in order:
         receive (all but the first stage), compute, send (all but the
-        last). Returns [(input, output)] per microbatch, the output the
-        last stage's [mb] logits."""
+        last). ``step``: the step's dropout stream (``_pp_step``), None
+        for the deterministic forward. Returns [(input, output)] per
+        microbatch, the output the last stage's [mb] logits."""
         mesh = self.mesh
         out = []
         for m, mb in enumerate(micro):
-            rngs = None
-            if seed is not None:
-                rngs = DropoutRngs.make(torch.Generator().manual_seed(
-                    _stage_seed(seed, m, mesh.pipe_rank)), self.device)
+            rngs = None if step is None else self._micro_rngs(step, m)
             x_in = None
             if not self._first:
                 b, s = mb[0].shape
                 x_in = mesh.pipe_recv((b, s, self._hidden_size),
                                       self._dtype, -1)
-                if seed is not None:
+                if step is not None:
                     x_in.requires_grad_()
-            y = self._stage_forward(stage, mb, x_in, rngs, seed is None)
+            y = self._stage_forward(stage, mb, x_in, rngs, step is None)
             if not self._last:
                 mesh.pipe_send(y, +1)
             out.append((x_in, y))
@@ -553,9 +622,15 @@ class PipelineTrainer(Trainer):
             weights = torch.from_numpy(
                 mesh.local_rows(valid).astype(np.float32)).to(
                     self.device).chunk(self.n_micro)
-        seed = draw_seed(state.generator) ^ _data_fold(mesh.data_rank)
+        if isinstance(state.generator, ThreefryStream):
+            # JAX pp.py:643-646: the explicit step's fold of the data index
+            step = state.generator.step_key()
+            if self._dp > 1:
+                step = jax_random.fold_in(step, mesh.data_rank)
+        else:
+            step = draw_seed(state.generator) ^ _data_fold(mesh.data_rank)
         state.optimizer.zero_grad(set_to_none=True)
-        ran = self._pipeline_forward(stage, micro, seed)
+        ran = self._pipeline_forward(stage, micro, step)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for m in reversed(range(self.n_micro)):
             x_in, y = ran[m]

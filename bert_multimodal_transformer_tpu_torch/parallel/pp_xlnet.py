@@ -17,10 +17,21 @@ module supplies the XLNet stage and its parameter layout:
   only); k = 1 puts it on stage 1;
 * EPILOGUE (replicated like the prologue): the model-level dropout, the
   last-token ``SequenceSummary`` and the logits projection;
+* dropout under threefry2x32 (``parallel/pp.py::PartRngs``): the JAX
+  pipeline's keys. The prologue's ``Dropout_0`` under tag 1 << 20, each
+  layer under its global id, MAG as a module of its own under 3 << 20,
+  the epilogue (``Dropout_0``, then ``sequence_summary``) under 2 << 20;
+  the position encoding's mask is not a Flax site but
+  ``bernoulli(fold_in(key_m, 4 << 20), 1 − p, pos_emb.shape)``, drawn by
+  every stage alike. Under rbg every part draws from the one
+  (step, microbatch, stage) stream;
 * PP×TP: the FFN is split over the model axis as on one stage of the
-  tensor-parallel model (the JAX ``_TPXLNetLayer`` / ``_TPXLNetFF``: the
-  inner dropout drawn at full width and sliced, as ``parallel/tp.py``
-  does); relative attention stays full-headed.
+  tensor-parallel model (the JAX ``_TPXLNetLayer`` / ``_TPXLNetFF``);
+  relative attention stays full-headed. The inner dropout acts on the
+  rank's [.., F/mp] columns: under threefry2x32 with JAX's mask, drawn
+  for the local shape from the same key on every model rank (the bits
+  repeat across the column chunks; ``PartRngs``' streams are ``local``);
+  under rbg drawn at full width and sliced, as ``parallel/tp.py`` does.
 
 Scope, as in JAX: bi attention, the content stream, no memory; ``bi_data``
 and other attention types are refused.
@@ -35,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from bert_multimodal_transformer_tpu_torch.models.bert import (
+    _child,
     _hidden_dropout,
     dense,
 )
@@ -42,10 +54,16 @@ from bert_multimodal_transformer_tpu_torch.models.xlnet import (
     MASK_VERY_NEG,
     relative_positional_encoding,
 )
-from bert_multimodal_transformer_tpu_torch.ops.dropout import DropoutRngs
+from bert_multimodal_transformer_tpu_torch.ops.dropout import dropout
 from bert_multimodal_transformer_tpu_torch.parallel.pp import (
+    EPILOGUE_TAG,
+    MAG_TAG,
+    POS_EMB_TAG,
+    PROLOGUE_TAG,
+    PartRngs,
     PipelineStage,
     PipelineTrainer,
+    _part,
     model_params_from_pp_params,
     pp_params_from_model_params,
 )
@@ -94,9 +112,19 @@ class XLNetPipelineTrainer(PipelineTrainer):
                 {"sequence_summary": self.model.sequence_summary,
                  "logits_proj": self.model.logits_proj})
 
+    def _pos_emb_dropout(self, pos_emb: torch.Tensor,
+                         rngs: Optional[PartRngs], deterministic: bool):
+        """The position encoding's dropout: ``bernoulli(fold_in(key_m,
+        4 << 20), 1 − p, pos_emb.shape)`` under threefry (JAX
+        ``pp_xlnet.py:276-280``), the stage's stream under rbg."""
+        rate = self.model.config.dropout
+        if deterministic or rate == 0.0:
+            return pos_emb
+        return dropout(pos_emb, rate, rngs.site(POS_EMB_TAG))
+
     def _stage_forward(self, stage: PipelineStage, mb: Tuple,
                        x_in: Optional[torch.Tensor],
-                       rngs: Optional[DropoutRngs], deterministic: bool):
+                       rngs: Optional[PartRngs], deterministic: bool):
         ids, vis, ac, mask, seg = mb[:5]
         cfg, dt = self.model.config, self._dtype
         b, s = ids.shape
@@ -105,7 +133,8 @@ class XLNetPipelineTrainer(PipelineTrainer):
         if x_in is None:
             h = _hidden_dropout(
                 F.embedding(ids, pro.word_embedding.weight).to(dt),
-                cfg.dropout, rngs, deterministic, "Dropout_0")
+                cfg.dropout, _part(rngs, PROLOGUE_TAG), deterministic,
+                "Dropout_0")
         else:
             h = x_in
         # the layer-independent tensors of the fine-tuning forward (the
@@ -118,8 +147,7 @@ class XLNetPipelineTrainer(PipelineTrainer):
         pos_emb = relative_positional_encoding(
             s, s, cfg.d_model, cfg.attn_type, cfg.clamp_len, bi_data=False,
             dtype=dt, device=device)
-        pos_emb = _hidden_dropout(pos_emb, cfg.dropout, rngs, deterministic,
-                                  "Dropout_0", batch=False)
+        pos_emb = self._pos_emb_dropout(pos_emb, rngs, deterministic)
         mask_bias_h = None
         if cfg.attention_impl == "fused":
             if non_tgt_mask is not None:
@@ -129,17 +157,21 @@ class XLNetPipelineTrainer(PipelineTrainer):
         on_inj = self.mesh.pipe_rank == self._inj_rank
         for j, layer in enumerate(stage.layers):
             if on_inj and j == self._inj_local:
+                mag_rngs = _part(rngs, MAG_TAG)
                 h = pro.MAG(h, vis.to(dt), ac.to(dt),
                             deterministic=deterministic,
-                            dropout_rng=rngs.device if rngs else None)
+                            dropout_rng=(mag_rngs.mask("Dropout_0")
+                                         if mag_rngs else None))
             h = layer(h, None, non_tgt_mask, attn_mask, pos_emb, seg_mat,
-                      None, None, deterministic=deterministic, rngs=rngs,
+                      None, None, deterministic=deterministic,
+                      rngs=self._layer_rngs(rngs, j),
                       mask_bias_h=mask_bias_h, seg_diff=seg_diff)[0]
         if not self._last:
             return h
-        epi = stage.epilogue
-        out = _hidden_dropout(h, cfg.dropout, rngs, deterministic,
+        epi, epi_rngs = stage.epilogue, _part(rngs, EPILOGUE_TAG)
+        out = _hidden_dropout(h, cfg.dropout, epi_rngs, deterministic,
                               "Dropout_0")
-        summary = epi.sequence_summary(out, deterministic=deterministic,
-                                       rngs=rngs)
+        summary = epi.sequence_summary(
+            out, deterministic=deterministic,
+            rngs=_child(epi_rngs, "sequence_summary"))
         return dense(epi.logits_proj, summary, dt).float().reshape(-1)

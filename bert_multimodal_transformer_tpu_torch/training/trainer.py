@@ -489,16 +489,22 @@ class Trainer:
         if self.fsdp and self.mesh is not None:
             fsdp_lib.shard_model_(self.model, self.mesh,
                                   self.tp_shard_attention)
-        if self.rng_impl == "threefry2x32":
-            if not isinstance(rng, ThreefryStream):
-                rng = ThreefryStream(jax_random.PRNGKey(rng)
-                                     if isinstance(rng, int) else rng)
-        elif not isinstance(rng, torch.Generator):
-            rng = torch.Generator().manual_seed(int(rng))
         optimizer = attach_grad_norm(self.tx(self.model.named_parameters()),
                                      self.mesh)
         return TrainState(step=0, model=self.model, optimizer=optimizer,
-                          generator=rng)
+                          generator=self._stream(rng))
+
+    def _stream(self, rng) -> Union[torch.Generator, ThreefryStream]:
+        """The state's dropout stream from ``create_state_from_params``'s
+        ``rng``."""
+        if self.rng_impl == "threefry2x32":
+            if isinstance(rng, ThreefryStream):
+                return rng
+            return ThreefryStream(jax_random.PRNGKey(rng)
+                                  if isinstance(rng, int) else rng)
+        if isinstance(rng, torch.Generator):
+            return rng
+        return torch.Generator().manual_seed(int(rng))
 
     def _put(self, a) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a))

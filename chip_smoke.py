@@ -8,11 +8,11 @@ on one NVIDIA GPU (H100).
     python3 chip_smoke.py [--seed N]
 
 (``--mp_driver '<argv as JSON>'`` runs one driver process of phase 6q,
-``--phase 6p`` or ``--phase 6r/6s`` one phase in a process of its own;
-the script starts those itself.)
+``--phase 6p``, ``--phase 6r/6s`` or ``--phase 6u`` one phase in a
+process of its own; the script starts those itself.)
 
-Phases, in order (6p and 6r/6s beside 6l-6o, 6q last); any failure
-raises and the script exits non-zero:
+Phases, in order (6p beside 6l-6o, 6r/6s and 6u beside 6n/6o, 6q last);
+any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), CUDA version.
 2. Build: compile ``csrc/*.cu`` with nvcc (into ``build/torch_kernels/``).
@@ -408,6 +408,20 @@ raises and the script exits non-zero:
    bit for bit against the ``Trainer``'s data-parallel step (the same
    step under the JAX name, so this holds by construction; the phase
    drives #1′/#3 through that entry point).
+6u. The pipelined threefry stream: ``driver.run --rng_impl threefry2x32
+   --pipeline_parallel 2 --pp_microbatches 4 --attention_impl fused
+   --use_fused_mag`` at bert-base and at xlnet-base-cased (S=50, bf16,
+   96/48/48, two train steps), two stages sharing the card over gloo:
+   exit 0, the same finite records on both ranks, 6n/6o's launches and
+   kernel T at every mask site of each stage (``TF_PP_SITES``: BERT 28
+   and 26 a training microbatch on stages 0 and 1, XLNet 41 on each).
+   Then one fp32 einsum pipelined threefry step of each family (B=8, 4
+   microbatches) on two card ranks against the same step on two CPU
+   ranks from the same weights and key: the loss within
+   ``TF_STEP_LOSS_RTOL``, each gradient within ``TF_STEP_GRAD_TOL`` of its
+   leaf's scale, T at every site, and a step from another key moving the
+   loss by far more; printed as a ``{"threefry_pp_steps": ...}`` line.
+   6u runs in a process of its own (``--phase 6u``) beside 6n/6o.
 7. The result: a ``{"phase_seconds": ...}`` line (each phase's wall
    seconds, from its start to the next phase's, and each process run
    beside others from its start to its result), a JSON line for the
@@ -8559,6 +8573,214 @@ def threefry_driver_path(args, fa, card):
     return paths, records
 
 
+# ---- phase 6u: the pipelined threefry stream ------------------------------
+
+# Kernel T's mask sites a microbatch on each of the two stages of 6 layers
+# (stage 0, stage 1), forward and backward (XLNet's position mask, drawn
+# by both stages, takes no gradient). The fused driver: BERT embeddings,
+# MAG and 2 a layer (attention output, FFN) on stage 0, 2 a layer and the
+# pooled output on stage 1; XLNet word embedding, positions, MAG and 3 a
+# layer (attention output, two FFN) on stage 0, positions, 3 a layer, the
+# output and the summary on stage 1. The einsum step adds the probs, one
+# a layer.
+TF_PP_SITES = {
+    ("bert", "fused"): (2 * (2 + 2 * 6), 2 * (2 * 6 + 1)),
+    ("xlnet", "fused"): (2 * (3 + 3 * 6) - 1, 2 * (3 + 3 * 6) - 1),
+    ("bert", "einsum"): (2 * (2 + 3 * 6), 2 * (3 * 6 + 1)),
+    ("xlnet", "einsum"): (2 * (3 + 4 * 6) - 1, 2 * (3 + 4 * 6) - 1)}
+TF_PP_BATCH = 8               # the card-vs-CPU step: 4 microbatches of 2
+TF_PP_TIMEOUT_S = 600         # each rank spawn
+
+
+def threefry_pp_rank(rank, family, batch, keys, device):
+    """Phase 6u's step on one stage, the stages on ``device`` ("cuda" or
+    "cpu"): the fp32 einsum threefry model of ``family``
+    (``_threefry_model``) with the weights its constructor draws on the
+    CPU from the default seed (so every process holds the same); one
+    pipelined step (PP_MICRO microbatches, lr 1e-5) from each of
+    ``keys``, each from those weights. Returns (the losses, the first
+    step's gradients by the model's names, its launch counts, the stage,
+    the device the stage ran on)."""
+    import torch
+
+    from bert_multimodal_transformer_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+    from bert_multimodal_transformer_tpu_torch.ops.dropout import (
+        ThreefryStream,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import (
+        make_pp_mesh,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.pp import (
+        PipelineTrainer,
+    )
+    from bert_multimodal_transformer_tpu_torch.parallel.pp_xlnet import (
+        XLNetPipelineTrainer,
+    )
+    from bert_multimodal_transformer_tpu_torch.training import optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_pp_mesh(PP_STAGES, devices=[device] * PP_STAGES)
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(4)
+    weights = _threefry_model(family, "cpu").state_dict()
+    cls = XLNetPipelineTrainer if family == "xlnet" else PipelineTrainer
+    losses, grads, counts = [], None, None
+    for key in keys:
+        model = _threefry_model(family, mesh.device)
+        model.load_state_dict(weights)
+        tr = cls(model=model, tx=optim.make_optimizer(1e-5, 10),
+                 mesh=mesh, n_micro=PP_MICRO, rng_impl="threefry2x32")
+        st = tr.create_state_from_params(None, ThreefryStream(key))
+        _zero_counts(fa)
+        losses.append(float(tr._train_step(st, tr._put_batch(batch))))
+        if grads is None:
+            counts = _counts(fa)
+            names = st.model.model_names()
+            grads = {names[n]: p.grad.detach().cpu().numpy()
+                     for n, p in st.model.named_parameters()
+                     if p.grad is not None}
+    return losses, grads, counts, mesh.pipe_rank, str(mesh.device)
+
+
+def _tf_pp_case(family, seed):
+    """6u's step inputs: the seeded B=8 batch and the state key."""
+    from bert_multimodal_transformer_tpu_torch.utils import jax_random
+
+    rng = np.random.default_rng([seed, 29])
+    maker = make_xlnet_split if family == "xlnet" else make_split
+    split = maker(rng, TF_PP_BATCH, S_SERVE,
+                  32000 if family == "xlnet" else 30522, 47, 74)
+    return ((split.input_ids, split.visual, split.acoustic,
+             split.input_mask, split.segment_ids, split.label_ids),
+            jax_random.fold_in(jax_random.PRNGKey(seed), 1))
+
+
+def threefry_pp_cpu_steps(family, seed):
+    """6u's reference: the step on two CPU ranks (``threefry_pp_rank``)."""
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+
+    batch, key = _tf_pp_case(family, seed)
+    t0 = time.perf_counter()
+    ranks = run_ranks(threefry_pp_rank, PP_STAGES,
+                      (family, batch, [key], "cpu"),
+                      timeout_s=TF_PP_TIMEOUT_S, devices=["cpu"] * PP_STAGES)
+    return ranks, time.perf_counter() - t0
+
+
+def threefry_pp_step_check(family, seed, fa, card, cpus):
+    """Phase 6u's step check: one fp32 einsum pipelined threefry step of
+    bert-base or xlnet-base (B=8, 4 microbatches) on two card ranks
+    against ``cpus``, the same step on two CPU ranks from the same weights
+    and key (``threefry_pp_cpu_steps``), and the card's step from another
+    key. Returns (the card ranks' launches summed, the record)."""
+    from bert_multimodal_transformer_tpu_torch.parallel.mesh import run_ranks
+    from bert_multimodal_transformer_tpu_torch.utils import jax_random
+
+    batch, key = _tf_pp_case(family, seed)
+    t0 = time.perf_counter()
+    cards = run_ranks(threefry_pp_rank, PP_STAGES,
+                      (family, batch, [key, jax_random.fold_in(key, 1)],
+                       "cuda"), timeout_s=TF_PP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    cpus, cpu_wall = cpus
+    cards.sort(key=lambda r: r[3])
+    cpus.sort(key=lambda r: r[3])
+    card_loss, other_loss = cards[0][0]
+    cpu_loss = cpus[0][0][0]
+    gaps = {}
+    for (_, cg, *_), (_, pg, *_) in zip(cards, cpus):
+        for n, g in pg.items():
+            m = float(np.abs(g).max())
+            if m > 0:
+                gaps[n] = float(np.abs(cg[n] - g).max()) / m
+    worst = max(gaps, key=gaps.get)
+    want = [_want(fa, threefry_dropout=PP_MICRO * n)
+            for n in TF_PP_SITES[family, "einsum"]]
+    record = {"loss_card": card_loss, "loss_cpu": cpu_loss,
+              "loss_rel_gap": abs(card_loss - cpu_loss) / abs(cpu_loss),
+              "loss_other_key": other_loss, "worst_grad_gap": gaps[worst],
+              "worst_leaf": worst, "leaves": len(gaps),
+              "devices": [c[4] for c in cards + cpus],
+              "threefry_launches": [c[2]["threefry_dropout"] for c in cards],
+              "threefry_launches_predicted": [
+                  w["threefry_dropout"] for w in want],
+              "card_seconds_with_the_ranks": wall,
+              "cpu_seconds_with_the_ranks": cpu_wall}
+    print(json.dumps({"threefry_pp_step": family, **record, "card": card}))
+    if any(r[0][0] != card_loss for r in cards) or any(
+            r[0][0] != cpu_loss for r in cpus):
+        raise AssertionError(f"6u {family}: the stages' losses differ")
+    if [c[4].split(":")[0] for c in cards + cpus] != (
+            ["cuda"] * PP_STAGES + ["cpu"] * PP_STAGES) or any(
+                any(c[2].values()) for c in cpus):
+        raise AssertionError(f"6u {family}: the reference ran on the card: "
+                             f"{record['devices']}")
+    if [c[2] for c in cards] != want:
+        raise AssertionError(f"6u {family}: launches "
+                             f"{[c[2] for c in cards]} != {want}")
+    if record["loss_rel_gap"] > TF_STEP_LOSS_RTOL or \
+            gaps[worst] > TF_STEP_GRAD_TOL:
+        raise AssertionError(f"6u {family}: the card step off the CPU "
+                             f"step: {record}")
+    if abs(other_loss - cpu_loss) < 100 * TF_STEP_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"6u {family}: another key's masks left the "
+                             f"loss within the band: {record}")
+    return {name: sum(c[2][name] for c in cards) for name in cards[0][2]}, \
+        record
+
+
+def threefry_pp_path(args, fa, card):
+    """Phase 6u: ``driver.run --rng_impl threefry2x32 --pipeline_parallel
+    2 --pp_microbatches 4 --attention_impl fused --use_fused_mag`` at
+    bert-base and at xlnet-base-cased (S=50, bf16, 96/48/48, two train
+    steps), two stages sharing the card over gloo: exit 0, finite and
+    equal records, the launches of 6n/6o and T at every mask site of each
+    stage (``TF_PP_SITES``); then ``threefry_pp_step_check`` for both
+    families, their CPU references computed meanwhile. Returns {path:
+    launch counts over the ranks}."""
+    import concurrent.futures
+
+    k = 12 // PP_STAGES
+    n_train = -(-PP_SPLITS[0] // TRAIN_BATCH) * PP_MICRO
+    n_eval = sum(-(-n // EVAL_BATCH) for n in PP_SPLITS[1:]) * PP_MICRO
+    paths, records = {}, {}
+    # the CPU references, one after the other, beside the card's work
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpus = {family: pool.submit(threefry_pp_cpu_steps, family, args.seed)
+            for family in ("bert", "xlnet")}
+    try:
+        for family, model in (("bert", "bert-base-uncased"),
+                              ("xlnet", "xlnet-base-cased")):
+            fwd, bwd = _family_kernels(family)
+            sites = TF_PP_SITES[family, "fused"]
+            argv = ["--model", model, "--dataset", "mosi", "--synthetic",
+                    "--synthetic_sizes", *map(str, PP_SPLITS), "--n_epochs",
+                    "1", "--pipeline_parallel", str(PP_STAGES),
+                    "--pp_microbatches", str(PP_MICRO), "--attention_impl",
+                    "fused", "--use_fused_mag", "--compute_dtype", "bfloat16",
+                    "--rng_impl", "threefry2x32", "--seed", str(args.seed)]
+
+            def want_driver(i, fwd=fwd, bwd=bwd, sites=sites):
+                gate = (dict(mag_fwd=n_train + n_eval, mag_bwd=n_train)
+                        if i == 0 else {})
+                return _want(fa, **{fwd: k * (n_train + n_eval),
+                                    bwd: k * n_train},
+                             threefry_dropout=sites[i] * n_train, **gate)
+
+            paths[f"{family}_threefry_pp_driver"] = _par_driver(
+                argv, fa, card, PP_STAGES, want_driver)
+            paths[f"threefry_pp_step_{family}"], records[family] = (
+                threefry_pp_step_check(family, args.seed, fa, card,
+                                       cpus[family].result()))
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+    print(json.dumps({"threefry_pp_steps": records, "card": card}))
+    return paths
+
+
 def _beside_6p(args, fa, card):
     return list(par_driver_paths(args, fa, card))
 
@@ -8581,7 +8803,11 @@ def _beside_6r_6s(args, fa, card):
     return [{**counts, **fsdp_counts}]
 
 
-BESIDE_PHASES = {"6p": _beside_6p, "6r/6s": _beside_6r_6s}
+def _beside_6u(args, fa, card):
+    return [threefry_pp_path(args, fa, card)]
+
+
+BESIDE_PHASES = {"6p": _beside_6p, "6r/6s": _beside_6r_6s, "6u": _beside_6u}
 
 
 def phase_process(name, args) -> int:
@@ -9176,6 +9402,7 @@ def main() -> int:
 
         _phase("6n/6o")
         beside["6r/6s"] = _start_phase_process("6r/6s", args, work)
+        beside["6u"] = _start_phase_process("6u", args, work)
         # 6n. The pipelined BERT driver (#1′/#3 on each stage's layers,
         # #25/#26 on stage 0) and its step checks; 6o. the same for XLNet
         # (#11′/#13)
@@ -9184,10 +9411,14 @@ def main() -> int:
         # FSDP; 6r. the XLNet memory over two data ranks (#11′ and #13 at
         # K = 100, #11) and 6s. the explicit-collectives step (#1′/#3),
         # beside 6q's --fsdp --model_parallel 2 over two processes
-        _phase("6p, 6r/6s: the rest")
+        _phase("6p, 6r/6s, 6u: the rest")
         par_counts, fsdp_peaks = _join_phase_process("6p", *beside.pop("6p"))
         print(json.dumps({"fsdp_peak_memory": fsdp_peaks, "card": card}))
         (mp_counts,) = _join_phase_process("6r/6s", *beside.pop("6r/6s"))
+        # 6u. The pipelined threefry driver runs (T on every stage's
+        # sites, #1′/#3, #11′/#13, #25/#26) and the card's pipelined
+        # threefry steps against the CPU's
+        (tf_pp_counts,) = _join_phase_process("6u", *beside.pop("6u"))
 
         # 6q. Two driver processes (--num_processes 2) on the card against
         # one process's two ranks (#1′/#3, #25/#26), alone, for the walls
@@ -9243,7 +9474,8 @@ def main() -> int:
                  **{path: c[name] for path, c in pp_counts.items()},
                  **{path: c[name] for path, c in par_counts.items()},
                  **{path: c[name] for path, c in mp_counts.items()},
-                 **{path: c[name] for path, c in threefry_counts.items()}}
+                 **{path: c[name] for path, c in threefry_counts.items()},
+                 **{path: c[name] for path, c in tf_pp_counts.items()}}
         return sum(paths.values()), paths
 
     src = "bert_multimodal_transformer_tpu_torch/csrc/"

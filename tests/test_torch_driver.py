@@ -449,7 +449,9 @@ def _saved_checkpoint(directory):
      "A.2 ported"),
     (["--rng_impl", "threefry2x32", "--n_epochs", "1", "--synthetic_sizes",
       "8", "8", "8", "--train_batch_size", "8"], "A.5 ported"),
-    (["--rng_impl", "threefry2x32", "--pipeline_parallel", "2"], "A.5.1"),
+    (["--rng_impl", "threefry2x32", "--pipeline_parallel", "2",
+      "--pp_microbatches", "2", "--n_epochs", "1", "--synthetic_sizes", "8",
+      "8", "8", "--train_batch_size", "8"], "A.5.1 ported"),
 ], ids=[  # the ids each case had while the table held --vocab *.model,
     # --export_serving and --remat
     *(f"argv{i}-A.6" for i in range(1, 7)),
@@ -457,7 +459,9 @@ def _saved_checkpoint(directory):
     "argv17-A.5", "argv18-A.5.1"])
 def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
                                                tmp_path):
-    """A flag whose item is open exits 2 naming it. ``--mem_len`` (A.8) is
+    """Each flag that once stood in the driver's table of unported flags,
+    under the id it had there: every one is ported now, and each case is
+    a working run or the JAX driver's refusal. ``--mem_len`` (A.8) is
     ported: on the default model, MAG-BERT, it exits 2 with the JAX
     driver's family refusal and names no item (the XLNet run is
     ``tests/test_torch_mems.py``). ``--model_parallel`` and
@@ -484,8 +488,9 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
     (``tests/test_torch_sentencepiece.py``, ``tests/test_torch_export.py``,
     ``tests/test_torch_remat.py``). ``--rng_impl threefry2x32`` (A.5's RNG
     half) is ported: it trains and exits 0 (its losses against the JAX
-    driver's: ``tests/test_torch_threefry_driver.py``); with
-    ``--pipeline_parallel`` it exits 2 naming A.5.1."""
+    driver's: ``tests/test_torch_threefry_driver.py``), and so does it
+    with ``--pipeline_parallel 2`` (A.5.1) on two CPU ranks (the JAX
+    pipeline's keys: ``tests/test_torch_threefry_pp.py``)."""
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     if item == "A.6" and argv[0] == "--checkpoint_dir":
         (tmp_path / "empty").mkdir()
@@ -514,19 +519,9 @@ def test_unported_flag_exits_2_naming_its_item(argv, item, capsys,
                 "trainer" in err and "not with --pipeline_parallel" in err)
         assert "ROADMAP" not in err
         return
-    if item == "A.10.6":
-        assert ("--compiler_options are XLA compiler options" in err
-                and "no counterpart" in err and "ROADMAP" not in err)
-        return
-    assert f"{argv[0]}" in err and f"ROADMAP {item}" in err
-
-
-def test_unported_flags_table_covers_the_parser():
-    """Every flag the table names exists in the parser."""
-    dests = {a.option_strings[0] for a in _actions(
-        tdriver.build_parser()).values()}
-    for flag, _, _ in tdriver.UNPORTED:
-        assert flag.split()[0] in dests, flag
+    assert item == "A.10.6", item
+    assert ("--compiler_options are XLA compiler options" in err
+            and "no counterpart" in err and "ROADMAP" not in err)
 
 
 TINY_RUN = ["--synthetic", "--tiny", "--device", "cpu", "--n_epochs", "1",
